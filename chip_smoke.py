@@ -1,0 +1,474 @@
+#!/usr/bin/env python3
+"""Drive scrappie_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA GPU, the CUDA
+toolkit (nvcc) and PyTorch built for CUDA; it needs neither JAX nor h5py.
+It prints one JSON line per phase and fails (nonzero exit, no result line)
+if any phase fails:
+
+  1. builds the kernels (scrappie_torch/csrc, nvcc, sm_90a) and prints the
+     build time and nvcc's per-kernel register and spill report (stderr);
+  2. holds each kernel against its plain PyTorch twin at the main path's
+     shapes (T = 2000 blocks, S = 96, 1025 states; B = 8 and 64) and times
+     both (CUDA events, median of 20 after warm-up);
+  3. holds the Viterbi kernels against their twins with nonzero penalties,
+     slip and temperatures, and on log posteriors drawn from a few
+     integers, where ties decide most moves;
+  4. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
+     16 seeded synthetic reads of 20k-100k samples in fast mode and in both
+     stitch modes, checks that each kernel's launch counter rose and that
+     every read has a sequence, and compares two reads with the port's CPU
+     run of the same reads;
+  5. times the fused path at B = 64 chunks of 10 000 samples;
+  6. profiles (torch.profiler) the engine in each mode and the fused path,
+     and times the engine and the fused path at several batch sizes.
+
+The last lines are the kernel table, the card's name and power limit as
+nvidia-smi gives them, and {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+SEED = 20261016
+T_BLOCKS = 2000          # blocks in a 10 000-sample chunk at stride 5
+CHUNK = 10000
+GRU_ATOL = 1e-4
+FUSED_RTOL = 1e-5
+FUSED_MIN_SAME_ROWS = 0.99
+NREADS = 16
+READ_LEN = (20000, 100000)
+# the CLI's --stay/--skip/--local/--slip and a calibration's temperatures
+VITERBI_OPTIONS = dict(stay_pen=0.3, skip_pen=1.1, local_pen=4.0, use_slip=True)
+TEMPS = dict(tempW=1.2, tempb=0.9)
+RUNS = (("fast", "nochange"), ("stitch", "nochange"), ("stitch", "mean"))
+
+KERNELS = {
+    "gru_layer": ("scrappie_torch/csrc/gru.cu", "scrappie_tpu/ops/gru.py:152"),
+    "viterbi_fwd": ("scrappie_torch/csrc/viterbi.cu",
+                    "scrappie_tpu/ops/viterbi.py:169"),
+    "viterbi_backtrace": ("scrappie_torch/csrc/viterbi.cu",
+                          "scrappie_tpu/ops/viterbi.py:283"),
+    "viterbi_fused": ("scrappie_torch/csrc/viterbi.cu",
+                      "scrappie_tpu/ops/viterbi.py:385"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Median milliseconds of fn() on the current stream (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def build() -> None:
+    from scrappie_torch.ops import _build
+
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.library()
+    seconds = time.perf_counter() - t0
+    log = path.with_suffix(".log")
+    if log.exists():
+        report = [ln for ln in log.read_text().splitlines()
+                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        print("\n".join(report), file=sys.stderr)
+    emit({"phase": "build", "seconds": round(seconds, 3), "library": path.name})
+
+
+def synthetic_signal(n: int, rng) -> "np.ndarray":
+    """Piecewise-constant current levels (about 8 samples a base) plus
+    noise, in pA."""
+    import numpy as np
+
+    levels = rng.normal(0.0, 1.0, n // 8 + 1).repeat(8)[:n]
+    return (90.0 + 12.0 * levels + rng.normal(0.0, 2.0, n)).astype(np.float32)
+
+
+def check_kernels(net, B: int) -> dict:
+    """Each kernel against its plain twin on the same CUDA tensors."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn.layers import robustlog, softmax_with_temperature
+    from scrappie_torch.ops import gru as g
+    from scrappie_torch.ops import viterbi as v
+    from scrappie_torch.nn.layers import conv1d
+    from scrappie_torch.ops.pipeline import CONV_ACT
+
+    rng = np.random.default_rng(SEED + B)
+    p = net.params
+    sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1)).astype(np.float32),
+                          device=net.device)
+    x = CONV_ACT[net.conv_activation](
+        conv1d(sig, p["conv_W"], p["conv_b"], net.stride)).transpose(0, 1).contiguous()
+    require(x.shape == (T_BLOCKS, B, 96), f"features shape {tuple(x.shape)}")
+    out = {}
+
+    # GRU: one backward (B1) and one forward (F2) layer.
+    err = 0.0
+    for pre, reverse in (("gruB1", True), ("gruF2", False)):
+        w = [p[f"{pre}_{k}"] for k in ("iW", "b", "sW", "sW2")]
+        hk = g.gru_layer_tm(x, *w, reverse=reverse)
+        hp = g.gru_layer_tm_plain(x, *w, reverse=reverse)
+        sync()
+        require(bool(torch.isfinite(hk).all()), f"{pre} kernel output finite")
+        err = max(err, float((hk - hp).abs().max()))
+    require(err <= GRU_ATOL, f"gru max abs err {err} <= {GRU_ATOL}")
+    w = [p[f"gruB1_{k}"] for k in ("iW", "b", "sW", "sW2")]
+    out["gru_layer"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: g.gru_layer_tm(x, *w, reverse=True)),
+        "plain_ms": cuda_ms(lambda: g.gru_layer_tm_plain(x, *w, reverse=True))}
+
+    # Viterbi forward and backtrace on the main path's posterior.
+    h = hk  # the F2 layer's output: main-path hidden features
+    lp = robustlog(softmax_with_temperature(h, p["FF_W"], p["FF_b"]), 1e-5).contiguous()
+    fk, tbk, errs = check_forward_and_backtrace(lp, "main path")
+    out["viterbi_fwd"] = {"max_abs_err": errs[0]}
+    out["viterbi_backtrace"] = {"max_abs_err": errs[1]}
+    out["viterbi_fused"] = check_fused(h, p["FF_W"], p["FF_b"], "main path")
+    out["viterbi_fwd"]["ms"] = cuda_ms(lambda: v.viterbi_scores_tm(lp))
+    out["viterbi_fwd"]["plain_ms"] = cuda_ms(lambda: v.viterbi_scores_tm_plain(lp))
+    out["viterbi_backtrace"]["ms"] = cuda_ms(lambda: v.viterbi_backtrace_tm(fk, tbk))
+    out["viterbi_backtrace"]["plain_ms"] = cuda_ms(
+        lambda: v.viterbi_backtrace_tm_plain(fk, tbk))
+    out["viterbi_fused"]["ms"] = cuda_ms(
+        lambda: v.viterbi_fused_tm(h, p["FF_W"], p["FF_b"]))
+    out["viterbi_fused"]["plain_ms"] = cuda_ms(
+        lambda: v.viterbi_fused_tm_plain(h, p["FF_W"], p["FF_b"]))
+    emit({"phase": "kernels", "B": B, "T": T_BLOCKS, "kernels": out})
+    return out
+
+
+def check_forward_and_backtrace(lp, what: str, **opts):
+    """Forward and backtrace kernels against their twins: traceback, final,
+    path and score identical. Returns the kernel's final and tb, and the
+    largest difference in final and in path (both 0 once checked)."""
+    import torch
+
+    from scrappie_torch.ops import viterbi as v
+
+    fk, tbk = v.viterbi_scores_tm(lp, **opts)
+    fp, tbp = v.viterbi_scores_tm_plain(lp, **opts)
+    sync()
+    require(torch.equal(tbk, tbp), f"viterbi_fwd traceback identical ({what})")
+    require(torch.equal(fk, fp), f"viterbi_fwd final identical ({what})")
+    sk, pk = v.viterbi_backtrace_tm(fk, tbk)
+    sp, pp = v.viterbi_backtrace_tm_plain(fk, tbk)
+    sync()
+    require(torch.equal(pk, pp), f"viterbi_backtrace path identical ({what})")
+    require(torch.equal(sk, sp), f"viterbi_backtrace score identical ({what})")
+    return fk, tbk, (float((fk - fp).abs().max()), float((pk - pp).abs().max()))
+
+
+def check_fused(h, W, b, what: str, **opts) -> dict:
+    """Fused head + forward against head-then-forward: final within
+    FUSED_RTOL, paths identical in FUSED_MIN_SAME_ROWS of the rows."""
+    from scrappie_torch.ops import viterbi as v
+
+    B = h.shape[1]
+    ffk, ftbk = v.viterbi_fused_tm(h, W, b, **opts)
+    ffp, ftbp = v.viterbi_fused_tm_plain(h, W, b, **opts)
+    sync()
+    rel = float(((ffk - ffp).abs() / ffp.abs().clamp(min=1.0)).max())
+    require(rel <= FUSED_RTOL,
+            f"viterbi_fused final rel err {rel} <= {FUSED_RTOL} ({what})")
+    fsk, fpk = v.viterbi_backtrace_tm(ffk, ftbk)
+    fsp, fpp = v.viterbi_backtrace_tm_plain(ffp, ftbp)
+    differ = (fpk != fpp).any(dim=1)
+    ndiff = int(differ.sum())
+    gap = float((fsk - fsp).abs()[differ].min()) if ndiff else None
+    require(B - ndiff >= FUSED_MIN_SAME_ROWS * B,
+            f"viterbi_fused paths identical in {B - ndiff}/{B} rows ({what})")
+    return {"max_abs_err": float((ffk - ffp).abs().max()), "max_rel_err": rel,
+            "rows_differ": ndiff, "min_score_gap": gap}
+
+
+def check_viterbi_options(net) -> None:
+    """The Viterbi kernels with the options the main path leaves at their
+    defaults: nonzero stay/skip/local penalties, slip and temperatures, on
+    the head's log posteriors and on log posteriors drawn from a few
+    integers, where equal candidates are everywhere and the first-max and
+    strict-`>` rules decide most moves."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn.layers import robustlog, softmax_with_temperature
+
+    B = 8
+    rng = np.random.default_rng(SEED + 2)
+    p = net.params
+    h = torch.as_tensor(np.tanh(rng.standard_normal((T_BLOCKS, B, 96)))
+                        .astype(np.float32), device=net.device)
+    head = robustlog(softmax_with_temperature(h, p["FF_W"], p["FF_b"], **TEMPS),
+                     1e-5).contiguous()
+    ties = torch.as_tensor(rng.integers(-3, 1, (T_BLOCKS, B, 1025))
+                           .astype(np.float32), device=net.device)
+    for what, lp, opts in (("head, penalties + slip", head, VITERBI_OPTIONS),
+                           ("integer lp", ties, {}),
+                           ("integer lp, penalties + slip", ties, VITERBI_OPTIONS)):
+        check_forward_and_backtrace(lp, what, **opts)
+    fused = check_fused(h, p["FF_W"], p["FF_b"], "penalties + slip + temperatures",
+                        **VITERBI_OPTIONS, **TEMPS)
+    emit({"phase": "viterbi_options", "B": B, "T": T_BLOCKS,
+          "options": VITERBI_OPTIONS, "temperatures": TEMPS,
+          "forward_backtrace": "identical (head, integer lp, integer lp + options)",
+          "fused": fused})
+
+
+def synthetic_reads() -> list:
+    """NREADS seeded reads of READ_LEN samples."""
+    import numpy as np
+
+    from scrappie_torch.parallel.runner import RawSignal
+
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(READ_LEN[0], READ_LEN[1] + 1, NREADS)
+    return [RawSignal(synthetic_signal(int(n), rng), uuid=f"read{i:02d}")
+            for i, n in enumerate(lengths)]
+
+
+def main_path(card: str, reads: list) -> dict:
+    """BasecallEngine on the card in fast and both stitch modes."""
+    from scrappie_torch import ops
+    from scrappie_torch.parallel.runner import BasecallEngine
+    from scrappie_torch.utils.seqcompare import edit_distance, within_flip_rule
+    from scrappie_torch.utils.tracing import Stage
+
+    lengths = [len(r.raw) for r in reads]
+    nsample = sum(lengths)
+    engines = {mode: BasecallEngine("rgrgr_r94", device="cuda", mode=mode)
+               for mode in ("fast", "stitch")}
+    # warm up each path once (cuBLAS / cuDNN handles, allocator)
+    for mode, hp in RUNS:
+        engines[mode].basecall_signals(reads[:1], homopolymer=hp)
+
+    ops.reset_launches()
+    results = {}
+    for mode, hp in RUNS:
+        before = dict(ops.LAUNCHES)
+        engines[mode].stage = Stage()
+        t0 = time.perf_counter()
+        res = engines[mode].basecall_signals(reads, homopolymer=hp)
+        seconds = time.perf_counter() - t0
+        require(all(r.sequence for r in res), f"{mode}/{hp}: every read called")
+        results[(mode, hp)] = res
+        emit({"phase": "main_path", "mode": mode, "homopolymer": hp,
+              "reads": len(res), "samples": nsample,
+              "seconds": round(seconds, 4),
+              "samples_per_s": round(nsample / seconds, 1),
+              "bases": sum(len(r.sequence) for r in res),
+              "launches": {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES},
+              "stages": engines[mode].stage.report(), "card": card})
+    launches = dict(ops.LAUNCHES)
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} launched on the main path ({n})")
+
+    # The two shortest reads against the port's own CPU run.
+    short = sorted(range(len(reads)), key=lambda i: lengths[i])[:2]
+    for mode, hp in RUNS:
+        cpu = BasecallEngine("rgrgr_r94", device="cpu", mode=mode)
+        cres = cpu.basecall_signals([reads[i] for i in short], homopolymer=hp)
+        for i, c in zip(short, cres):
+            g = results[(mode, hp)][i].sequence
+            dist = 0 if g == c.sequence else edit_distance(g, c.sequence)
+            emit({"phase": "cpu_vs_cuda", "mode": mode, "homopolymer": hp,
+                  "read": reads[i].uuid, "bases": len(g), "edit_distance": dist})
+            require(within_flip_rule(g, c.sequence),
+                    f"{mode}/{hp} {reads[i].uuid}: CUDA and CPU calls agree")
+    return launches
+
+
+def throughput(net, card: str) -> None:
+    """The fused path at B = 64 chunks of 10 000 samples."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.ops.pipeline import rgrgr_features_tm
+    from scrappie_torch.ops.viterbi import viterbi_backtrace_tm, viterbi_fused_tm
+
+    B = 64
+    rng = np.random.default_rng(SEED + 1)
+    sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1)).astype(np.float32),
+                          device="cuda")
+    p = net.params
+    with torch.inference_mode():
+        total = cuda_ms(lambda: net.basecall_fused(sig), reps=5)
+        feats = cuda_ms(lambda: rgrgr_features_tm(p, sig, net.conv_activation,
+                                                  net.stride), reps=5)
+        x = rgrgr_features_tm(p, sig, net.conv_activation, net.stride)
+        fused = cuda_ms(lambda: viterbi_fused_tm(x, p["FF_W"], p["FF_b"]), reps=5)
+        final, tb = viterbi_fused_tm(x, p["FF_W"], p["FF_b"])
+        back = cuda_ms(lambda: viterbi_backtrace_tm(final, tb), reps=5)
+    emit({"phase": "throughput", "path": "fused", "B": B, "chunk": CHUNK,
+          "ms": round(total, 4),
+          "samples_per_s": round(B * CHUNK / (total / 1e3), 1),
+          "breakdown_ms": {"conv+gru x5": round(feats, 4),
+                           "fused head+viterbi": round(fused, 4),
+                           "backtrace": round(back, 4)},
+          "card": card})
+
+
+def device_activity(prof) -> tuple[float, list]:
+    """Device busy seconds (the union of the intervals of the device's own
+    events: kernels and copies) and the six kernels or copies with the most
+    device time, as [name, ms, count]. CPU ops, which carry their children's
+    kernel time, and user annotation ranges on the device timeline, which
+    span whole stages, are left out, so nothing is counted twice."""
+    from torch.autograd import DeviceType
+
+    spans, per_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU or getattr(e, "is_user_annotation", False):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        ms, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy_us, reach = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > reach:
+            busy_us += hi - max(lo, reach)
+            reach = hi
+    top = sorted(per_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
+    return busy_us / 1e6, [[name[:60], ms, n] for name, (ms, n) in top]
+
+
+def profiled(label: str, fn, card: str) -> None:
+    """One run of fn() under torch.profiler, after a warm-up run: wall
+    seconds, device busy seconds, the idle share, and the kernels and
+    copies with the most device time. The profiler's own cost is in the
+    wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, top = device_activity(prof)
+    emit({"phase": "profile", "run": label, "wall_s": wall, "device_busy_s": busy,
+          "idle_share": 1.0 - busy / wall, "top_device_ms": top, "card": card})
+
+
+def profile_and_scale(net, card: str, reads: list) -> None:
+    """The engine in each mode and the fused path at B = 64 under the
+    profiler; then the fast engine at several batch sizes and the fused
+    path at several chunk counts, without it."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.parallel.runner import BasecallEngine
+
+    nsample = sum(len(r.raw) for r in reads)
+    rng = np.random.default_rng(SEED + 3)
+    with torch.inference_mode():
+        for mode, hp in RUNS:
+            eng = BasecallEngine("rgrgr_r94", device="cuda", mode=mode)
+            profiled(f"engine {mode}/{hp}, batch {eng.batch_size}, {len(reads)} "
+                     f"reads, {nsample} samples",
+                     lambda: eng.basecall_signals(reads, homopolymer=hp), card)
+        sig = torch.as_tensor(rng.standard_normal((64, CHUNK, 1)).astype(np.float32),
+                              device="cuda")
+        profiled(f"fused path, B = 64 x {CHUNK}", lambda: net.basecall_fused(sig),
+                 card)
+        for batch in (8, 32, 64, 128):
+            eng = BasecallEngine("rgrgr_r94", device="cuda", mode="fast",
+                                 batch_size=batch)
+            eng.basecall_signals(reads[:2])
+            t0 = time.perf_counter()
+            eng.basecall_signals(reads)
+            seconds = time.perf_counter() - t0
+            emit({"phase": "scaling", "path": "fast engine", "batch": batch,
+                  "seconds": seconds, "samples_per_s": nsample / seconds,
+                  "card": card})
+        for B in (128, 132, 256):
+            sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1))
+                                  .astype(np.float32), device="cuda")
+            ms = cuda_ms(lambda: net.basecall_fused(sig), reps=5)
+            emit({"phase": "scaling", "path": "fused", "B": B, "chunk": CHUNK,
+                  "ms": ms, "samples_per_s": B * CHUNK / (ms / 1e3),
+                  "card": card})
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check "
+              "runs only on a CUDA GPU", file=sys.stderr)
+        return 2
+    from scrappie_torch.models.forward import RgrgrModel
+
+    card = card_line()
+    build()
+    net = RgrgrModel.from_registry("rgrgr_r94", "cuda")
+    with torch.inference_mode():
+        check_kernels(net, 8)
+        table = check_kernels(net, 64)
+        check_viterbi_options(net)
+    reads = synthetic_reads()
+    launches = main_path(card, reads)
+    throughput(net, card)
+    profile_and_scale(net, card, reads)
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], "launches": launches[name],
+         "max_abs_err": table[name]["max_abs_err"], "ms": table[name]["ms"],
+         "plain_ms": table[name]["plain_ms"]}
+        for name in KERNELS]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,174 @@
+"""Public Python API for the rgrgr models, mirroring scrappie_tpu.api
+(and the reference binding, python/scrappy/__init__.py).
+
+`calc_post`, `decode_post` and `basecall_raw` take a `device`: "cuda"
+(the default) runs the hand-written kernels, "cpu" their plain twins.
+Model kinds the port does not run yet raise NotImplementedError naming
+the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from scrappie_torch.decode.transducer import decode_transducer
+from scrappie_torch.device import as_device
+from scrappie_torch.models.convert import rgrgr_spec
+from scrappie_torch.models.forward import RgrgrModel
+from scrappie_tpu.post.homopolymer import HomopolymerMode, homopolymer_path
+from scrappie_tpu.post.overlapper import overlapper
+from scrappie_tpu.signal.trim import trim_raw_by_mad
+from scrappie_tpu.types import RawSignal
+from scrappie_tpu.utils.maths import medmad_normalise
+
+
+class RawTable:
+    """Raw-signal container with chained trim/scale (ref RawTable,
+    python/scrappy/__init__.py:47-111)."""
+
+    def __init__(self, data, start: int = 0, end: int | None = None):
+        self._rs = RawSignal(np.asarray(data, dtype=np.float32), start=start,
+                             end=end)
+
+    def data(self, as_numpy: bool = False):
+        if as_numpy:
+            return self._rs.trimmed.copy()
+        return self._rs
+
+    @property
+    def start(self) -> int:
+        return self._rs.start
+
+    @property
+    def end(self) -> int:
+        return self._rs.end
+
+    def trim(self, start=200, end=10, varseg_chunk=100, varseg_thresh=0.0):
+        rs = trim_raw_by_mad(self._rs, varseg_chunk, varseg_thresh)
+        new_start = rs.start + start if (rs.n - rs.start) > start else rs.n
+        new_end = rs.end - end if rs.end > end else 0
+        if new_start >= new_end:
+            new_start, new_end = 0, 0
+        self._rs = RawSignal(rs.raw, start=new_start, end=new_end, uuid=rs.uuid)
+        return self
+
+    def scale(self):
+        raw = self._rs.raw.copy()
+        raw[self._rs.start : self._rs.end] = medmad_normalise(self._rs.trimmed)
+        self._rs = RawSignal(raw, self._rs.start, self._rs.end, self._rs.uuid)
+        return self
+
+
+class Posterior:
+    """Posterior matrix [nblock, nstate] with the reference's optional
+    "sloika" state order (stay first; ref python/scrappy/__init__.py:247-273)."""
+
+    def __init__(self, mat: np.ndarray, model: str):
+        self._mat = np.asarray(mat)
+        self.model = model
+
+    @property
+    def shape(self):
+        return self._mat.shape
+
+    def __len__(self):
+        return self._mat.shape[0]
+
+    def data(self, as_numpy: bool = False, sloika: bool = True):
+        if not as_numpy:
+            return self._mat
+        if sloika:
+            return np.ascontiguousarray(
+                np.concatenate([self._mat[:, -1:], self._mat[:, :-1]], axis=1))
+        return self._mat.copy()
+
+
+@functools.lru_cache(maxsize=None)
+def _model(model: str, device: torch.device) -> RgrgrModel:
+    return RgrgrModel.from_registry(model, device)
+
+
+def calc_post(rt: RawTable, model: str = "rgrgr_r94", min_prob: float = 1e-6,
+              log: bool = True, tempW: float = 1.0, tempb: float = 1.0,
+              device=None) -> Posterior:
+    """Run an rgrgr model over a (trimmed, scaled) RawTable
+    (ref calc_post, python/scrappy/__init__.py:276-298)."""
+    if not isinstance(rt, RawTable):
+        raise TypeError("`rt` should be a RawTable.")
+    rgrgr_spec(model)
+    net = _model(model, as_device(device))
+    sig = torch.as_tensor(rt.data(as_numpy=True).reshape(1, -1, 1),
+                          device=net.device)
+    with torch.no_grad():
+        out = net(sig, min_prob=min_prob, tempW=tempW, tempb=tempb,
+                  return_log=log)
+    return Posterior(out[0].cpu().numpy(), model)
+
+
+def _decode_post_transducer(post: Posterior, stay_pen=0.0, skip_pen=0.0,
+                            local_pen=2.0, use_slip=False,
+                            homopolymer: str | HomopolymerMode | None = None,
+                            device=None):
+    nblock, nstate = post.shape
+    score, path = decode_transducer(post.data(), stay_pen, skip_pen, local_pen,
+                                    use_slip, device=device)
+    path = np.asarray(path).copy()
+    if homopolymer is not None:
+        mode = (HomopolymerMode.parse(homopolymer)
+                if isinstance(homopolymer, str) else homopolymer)
+        path = homopolymer_path(post.data(), path, mode)
+    pos = np.zeros(nblock + 1, dtype=np.int64)
+    seq = overlapper(path, nstate - 1, pos)
+
+    # Decode-collapse guard (scrappie_tpu/models/calibration.py): a
+    # positive skip penalty can absorb a read into the local states;
+    # re-decode with skip_pen=0 instead of returning the collapsed call.
+    if skip_pen > 0:
+        from scrappie_tpu.models.calibration import collapsed
+
+        if collapsed(len(seq or ""), nblock, post.model):
+            from scrappie_tpu.utils.tracing import log
+
+            log("warn", "decode collapsed; re-decoding with skip_pen=0",
+                nbases=len(seq or ""), nblock=nblock, skip_pen=skip_pen)
+            return _decode_post_transducer(post, stay_pen, 0.0, local_pen,
+                                           use_slip, homopolymer, device)
+    return seq, float(score), pos
+
+
+def decode_post(post: Posterior, model: str = "rgrgr_r94", device=None,
+                **kwargs):
+    """Decode a posterior into (basecall, score, block positions)
+    (ref decode_post, python/scrappy/__init__.py:300-319)."""
+    if not isinstance(post, Posterior):
+        raise TypeError("`post` should be a Posterior.")
+    rgrgr_spec(model)
+    return _decode_post_transducer(post, device=device, **kwargs)
+
+
+def basecall_raw(data, model: str = "rgrgr_r94", with_base_probs: bool = False,
+                 calibration: str = "reference", device=None, **kwargs):
+    """Trim, scale, run the network, decode: one read end to end.
+
+    Returns (sequence, score, block positions, trim start, trim end,
+    None); ref basecall_raw, python/scrappy/__init__.py:403-430.
+    ``calibration="real"`` fills the measured decode preset
+    (scrappie_tpu/models/calibration.py) for knobs not passed."""
+    if with_base_probs:
+        raise ValueError("Base probabilities can only be returned for model "
+                         "'rnnrf_r94'.")
+    rgrgr_spec(model)
+    device = as_device(device)
+    if calibration != "reference":
+        from scrappie_tpu.models import calibration as _calibration
+
+        for key, value in _calibration.preset(model, calibration).items():
+            kwargs.setdefault(key, value)
+    raw = RawTable(data)
+    raw.trim().scale()
+    post = calc_post(raw, model, log=True, device=device)
+    seq, score, pos = decode_post(post, model, device=device, **kwargs)
+    return seq, score, pos, raw.start, raw.end, None

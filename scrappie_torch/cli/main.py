@@ -1,0 +1,164 @@
+"""Command line of the port: the `raw` subcommand for the rgrgr models.
+
+Counterpart of scrappie_tpu/cli/main.py (`raw`, FASTA and SAM output),
+with the same flags for what the port runs, plus --device. Run as
+`python -m scrappie_torch raw [flags] files...`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+RGRGR_MODELS = ("rgrgr_r94", "rgrgr_r941", "rgrgr_r10")
+
+
+def _trim_pair(s: str) -> tuple[int, int]:
+    parts = s.split(":")
+    start = int(parts[0])
+    end = int(parts[1]) if len(parts) > 1 else start
+    return start, end
+
+
+def _seg_pair(s: str) -> tuple[int, float]:
+    parts = s.split(":")
+    chunk = int(parts[0])
+    perc = float(parts[1]) / 100.0 if len(parts) > 1 else 0.0
+    return chunk, perc
+
+
+def build_parser() -> argparse.ArgumentParser:
+    top = argparse.ArgumentParser(
+        prog="scrappie_torch",
+        description="scrappie-compatible basecaller on PyTorch and CUDA")
+    sub = top.add_subparsers(dest="command", required=True)
+
+    raw = sub.add_parser("raw", help="basecall from raw signal")
+    raw.add_argument("--output", "-o", default=None,
+                     help="Write to file rather than stdout")
+    raw.add_argument("--prefix", "-p", default="",
+                     help="Prefix to append to name of each read")
+    raw.add_argument("--trim", "-t", type=_trim_pair, default=(200, 10),
+                     metavar="start:end",
+                     help="Number of samples to trim, as start:end")
+    raw.add_argument("--segmentation", type=_seg_pair, default=(100, 0.0),
+                     metavar="chunk:percentile",
+                     help="Chunk size and percentile for variance based "
+                          "segmentation")
+    raw.add_argument("--format", "-f", choices=["fasta", "sam"],
+                     default="fasta", type=str.lower,
+                     help="Format to output reads")
+    raw.add_argument("--limit", "-l", type=int, default=0,
+                     help="Maximum number of reads to call (0 is unlimited)")
+    raw.add_argument("--min_prob", "-m", type=float, default=1e-5,
+                     help="Minimum bound on probability of match")
+    raw.add_argument("--skip", "-s", dest="skip_pen", type=float, default=0.0,
+                     help="Penalty for skipping a base")
+    raw.add_argument("--stay", "-y", dest="stay_pen", type=float, default=0.0,
+                     help="Penalty for staying")
+    raw.add_argument("--local", dest="local_pen", type=float, default=2.0,
+                     help="Penalty for local basecalling")
+    raw.add_argument("--temperature1", type=float, default=1.0,
+                     help="Temperature for softmax weights")
+    raw.add_argument("--temperature2", type=float, default=1.0,
+                     help="Temperature for softmax bias")
+    raw.add_argument("--slip", dest="use_slip", action="store_true",
+                     default=False, help="Use slipping")
+    raw.add_argument("--no-slip", dest="use_slip", action="store_false")
+    raw.add_argument("--uuid", dest="uuid", action="store_true", default=False,
+                     help="Output UUID as read name")
+    raw.add_argument("--no-uuid", dest="uuid", action="store_false")
+    raw.add_argument("--threads", "-#", type=int, default=None,
+                     help="(compatibility) parallelism hint; maps to device "
+                          "batch")
+    raw.add_argument("--calibration", choices=["reference", "real"],
+                     default="reference",
+                     help="Decode calibration preset: 'reference' keeps zero "
+                          "penalties; 'real' applies the per-model stay/skip "
+                          "optimum. Explicit --stay/--skip flags win.")
+    raw.add_argument("--model", default="rgrgr_r94", choices=RGRGR_MODELS,
+                     help="Raw model to use")
+    raw.add_argument("--homopolymer", "-H", default="mean",
+                     choices=["nochange", "mean"],
+                     help="Homopolymer run calc.")
+    raw.add_argument("--chunk-len", type=int, default=10000,
+                     help="Chunk length in samples")
+    raw.add_argument("--overlap", type=int, default=1000,
+                     help="Chunk overlap in samples")
+    raw.add_argument("--batch", type=int, default=8, help="Device batch size")
+    raw.add_argument("--fast", action="store_true", default=False,
+                     help="Fused per-chunk decode and path stitching; "
+                          "posterior-mean homopolymer correction is "
+                          "stitch-mode only")
+    raw.add_argument("--device", default="cuda",
+                     help="Torch device: 'cuda' runs the CUDA kernels, 'cpu' "
+                          "their plain PyTorch twins")
+    raw.add_argument("--stage-report", action="store_true", default=False,
+                     help="Log per-stage wall-clock timings (JSON, stderr)")
+    raw.add_argument("files", nargs="+", help="fast5 files or directories")
+
+    sub.add_parser("version", help="print version")
+    return top
+
+
+def main_raw(args) -> int:
+    from scrappie_torch.parallel.runner import BasecallEngine
+    from scrappie_tpu.io.fasta import format_fasta, format_sam
+    from scrappie_tpu.models import calibration
+
+    batch = max(args.batch, args.threads or 0)
+    engine = BasecallEngine(args.model, chunk_len=args.chunk_len,
+                            overlap=args.overlap, batch_size=batch,
+                            device=args.device, min_prob=args.min_prob,
+                            tempW=args.temperature1, tempb=args.temperature2,
+                            mode="fast" if args.fast else "stitch")
+    call_kwargs = dict(
+        trim_start=args.trim[0], trim_end=args.trim[1],
+        varseg_chunk=args.segmentation[0], varseg_thresh=args.segmentation[1],
+        stay_pen=args.stay_pen, skip_pen=args.skip_pen,
+        local_pen=args.local_pen, use_slip=args.use_slip,
+        homopolymer=args.homopolymer)
+    calibration.apply(args.model, args.calibration, call_kwargs)
+
+    results = engine.basecall_files(args.files, limit=args.limit, **call_kwargs)
+    fh = open(args.output, "w") if args.output else sys.stdout
+    nread = 0
+    try:
+        for name, r in results:
+            if r.sequence is None:
+                print(f"No basecall for {name}", file=sys.stderr)
+                continue
+            nread += 1
+            primary = (r.uuid or name) if args.uuid else name
+            if args.format == "fasta":
+                fh.write(format_fasta(primary, r.sequence, filename=name,
+                                      uuid=r.uuid or "", score=r.score,
+                                      nblock=r.nblock, nsample=r.nsample,
+                                      trim=(r.trim_start, r.trim_end),
+                                      prefix=args.prefix))
+            else:
+                fh.write(format_sam(primary, r.sequence, prefix=args.prefix))
+        fh.flush()
+    finally:
+        if fh is not sys.stdout:
+            fh.close()
+    if args.stage_report:
+        print(json.dumps({"stages": engine.stage.report()}), file=sys.stderr)
+    print(f"Basecalled {nread} reads", file=sys.stderr)
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    if args.command == "version":
+        import scrappie_torch
+
+        print(f"scrappie_torch {scrappie_torch.__version__}")
+        return 0
+    return main_raw(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

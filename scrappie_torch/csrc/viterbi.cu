@@ -1,0 +1,409 @@
+// Transducer Viterbi decoding: the forward pass, the forward pass with the
+// posterior head fused in, and the backtrace.
+//
+// Replaces, in scrappie_tpu/ops/viterbi.py:
+//   _fwd_kernel (with _dp_step and _dp_init)  wrapper viterbi_scores_tm
+//   _fused_kernel                             wrapper viterbi_fused_tm
+//   _bt_kernel                                wrapper viterbi_backtrace_tm
+//
+// State space: nhist kmer-history states, then the local START and END
+// states (nhist + 2 in all). Per block t and history state d:
+//   stay   hist[d] + (stay_lp - stay_pen)                      tb -1
+//   step   lp[d] + max_r hist[r*nhist/4  + (d>>2)],  r < 4     tb pred
+//   skip   lp[d] + max_r hist[r*nhist/16 + (d>>4)] - skip_pen, r < 16
+//   slip   lp[d] + max_r hist[r*nhist/64 + (d>>6)] - 2 skip_pen, r < 64
+//   start  start_prev + lp[d]                                  tb START
+// Candidates contend in that order with a strict `>`; within a predecessor
+// group the first maximum (smallest r) wins. START and END stay at
+// max(-local_pen, stay_lp); END is entered from the first best history
+// state at max(hist) - local_pen. The order of every addition is the
+// JAX programs' order, so scores and tracebacks are identical bit for bit
+// to the plain twins (the DP only adds and takes maxima).
+//
+// What bounds them on the H100:
+//  * forward: sequential in T. Per step a block reads one log-posterior row
+//    (4 KB), 84 (or 148 with slip) predecessor scores per thread from
+//    shared memory, and writes a 2 KB int16 traceback row. The step's
+//    latency (a barrier, a warp reduction and the shared-memory reads), not
+//    bandwidth, sets the time.
+//  * fused: as the forward, plus the head: a [S] x [S, nstate] product per
+//    row and step. W (394 KB in fp32 at S = 96) does not fit in shared
+//    memory, so every step streams it from L2; at one row per block that
+//    L2 traffic is the bound.
+//  * backtrace: one dependent 2-byte load per step and row; latency-bound.
+//
+// Design: one block per batch row and one thread per history state
+// (blockDim = nhist <= 1024). The scores live in shared memory, double
+// buffered, so a step reads the previous scores while writing the next ones
+// and needs a single barrier (the TPU kernel's one-hot MXU lane expansion
+// is replaced by plain shared-memory reads of the predecessors). The START
+// score needs no reduction, so every thread carries its own copy. END
+// needs the first argmax of the previous scores: each warp reduces its 32
+// states and writes (max, index) to a parity buffer, and warp 0 finishes
+// that reduction one step later, off the other warps' critical path. The
+// next step's log posteriors (or hidden row) are loaded into registers
+// while the current step computes. The backtrace runs one thread per row.
+#include <climits>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr float BIG = 1.0e30f;
+constexpr int MAX_WARPS = 32;
+
+struct DpParams {
+  float stay_pen;
+  float skip_pen;
+  float local_pen;
+  int use_slip;
+};
+
+// First maximum over a predecessor group of n scores {r*q + g}.
+__device__ __forceinline__ void group_max(const float* hist, int q, int g,
+                                          int n, float& m, int& r) {
+  m = hist[g];
+  r = 0;
+  for (int i = 1; i < n; ++i) {
+    const float v = hist[i * q + g];
+    if (v > m) {
+      m = v;
+      r = i;
+    }
+  }
+}
+
+// Warp-wide (max, first index) by butterfly: every lane ends with the result.
+__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float v2 = __shfl_xor_sync(0xffffffffu, v, off);
+    const int i2 = __shfl_xor_sync(0xffffffffu, i, off);
+    if (v2 > v || (v2 == v && i2 < i)) {
+      v = v2;
+      i = i2;
+    }
+  }
+}
+
+// One history state's DP update. prev/next are the block's score buffers.
+__device__ __forceinline__ void dp_hist(const float* prev, float* next,
+                                        short* tb_row, float lpd,
+                                        float stay_lp, float start_prev,
+                                        const DpParams& p, int nhist, int d) {
+  float score = __fadd_rn(prev[d], stay_lp);
+  int tb = -1;
+  float m;
+  int r;
+  int q = nhist >> 2;
+  group_max(prev, q, d >> 2, 4, m, r);
+  float cand = __fadd_rn(lpd, m);
+  if (cand > score) {
+    score = cand;
+    tb = r * q + (d >> 2);
+  }
+  q = nhist >> 4;
+  group_max(prev, q, d >> 4, 16, m, r);
+  cand = __fsub_rn(__fadd_rn(lpd, m), p.skip_pen);
+  if (cand > score) {
+    score = cand;
+    tb = r * q + (d >> 4);
+  }
+  if (p.use_slip) {
+    q = nhist >> 6;
+    group_max(prev, q, d >> 6, 64, m, r);
+    cand = __fsub_rn(__fadd_rn(lpd, m), __fmul_rn(2.0f, p.skip_pen));
+    if (cand > score) {
+      score = cand;
+      tb = r * q + (d >> 6);
+    }
+  }
+  cand = __fadd_rn(start_prev, lpd);
+  if (cand > score) {
+    score = cand;
+    tb = nhist;
+  }
+  next[d] = score;
+  tb_row[d] = (short)tb;
+}
+
+// Warp 0 finishes the END-state update of one step from the per-warp
+// (max, index) of that step's previous scores. All lanes keep `end`.
+__device__ __forceinline__ void end_update(const float* wval, const int* widx,
+                                           int nwarp, float local_stay,
+                                           const DpParams& p, int nhist,
+                                           short* tb_row, float& end) {
+  const int lane = threadIdx.x & 31;
+  float v = lane < nwarp ? wval[lane] : -CUDART_INF_F;
+  int i = lane < nwarp ? widx[lane] : INT_MAX;
+  warp_argmax(v, i);
+  const float stay_end = __fadd_rn(end, local_stay);
+  const float enter = __fsub_rn(v, p.local_pen);
+  const bool better = enter > stay_end;
+  end = better ? enter : stay_end;
+  if (lane == 0) {
+    tb_row[nhist] = (short)nhist;
+    tb_row[nhist + 1] = (short)(better ? i : nhist + 1);
+  }
+}
+
+// Everything of one DP step except the END update: history states, the
+// per-warp argmax of the previous scores, and the START score.
+__device__ __forceinline__ void dp_step(const float* prev, float* next,
+                                        float* wval, int* widx, short* tb_row,
+                                        float lpd, float stay_lp, float& start,
+                                        const DpParams& p, int nhist) {
+  const int d = threadIdx.x;
+  float v = prev[d];
+  int i = d;
+  warp_argmax(v, i);
+  if ((d & 31) == 0) {
+    wval[d >> 5] = v;
+    widx[d >> 5] = i;
+  }
+  dp_hist(prev, next, tb_row, lpd, stay_lp, start, p, nhist, d);
+  start = __fadd_rn(start, fmaxf(-p.local_pen, stay_lp));
+}
+
+// lp [T, B, nhist+1] -> final [B, nhist+2], tb [T, B, nhist+2] int16.
+__global__ void __launch_bounds__(1024)
+viterbi_fwd_kernel(const float* __restrict__ lp, float* __restrict__ final_,
+                   short* __restrict__ tb, int T, int B, int nhist,
+                   DpParams p) {
+  __shared__ float hist[2][1024];
+  __shared__ float wval[2][MAX_WARPS];
+  __shared__ int widx[2][MAX_WARPS];
+  const int b = blockIdx.x;
+  const int d = threadIdx.x;
+  const int nwarp = nhist >> 5;
+  const int nstate = nhist + 1;
+  const int nst2 = nhist + 2;
+
+  hist[0][d] = -BIG;
+  float start = 0.0f;
+  float end = -BIG;
+  float local_stay_prev = 0.0f;
+  const float* row = lp + (size_t)b * nstate;
+  float lpd = T > 0 ? fmaxf(row[d], -BIG) : 0.0f;
+  float lps = T > 0 ? fmaxf(row[nhist], -BIG) : 0.0f;
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const int cur = t & 1;
+    float lpd_next = 0.0f, lps_next = 0.0f;
+    if (t + 1 < T) {
+      const float* nrow = lp + ((size_t)(t + 1) * B + b) * nstate;
+      lpd_next = fmaxf(nrow[d], -BIG);
+      lps_next = fmaxf(nrow[nhist], -BIG);
+    }
+    const float stay_lp = __fsub_rn(lps, p.stay_pen);
+    short* tb_row = tb + ((size_t)t * B + b) * nst2;
+    dp_step(hist[cur], hist[cur ^ 1], wval[cur], widx[cur], tb_row, lpd,
+            stay_lp, start, p, nhist);
+    if (d < 32 && t > 0) {
+      end_update(wval[cur ^ 1], widx[cur ^ 1], nwarp, local_stay_prev, p,
+                 nhist, tb_row - (size_t)B * nst2, end);
+    }
+    local_stay_prev = fmaxf(-p.local_pen, stay_lp);
+    lpd = lpd_next;
+    lps = lps_next;
+    __syncthreads();
+  }
+  float* f = final_ + (size_t)b * nst2;
+  if (T > 0 && d < 32) {
+    end_update(wval[(T - 1) & 1], widx[(T - 1) & 1], nwarp, local_stay_prev,
+               p, nhist, tb + ((size_t)(T - 1) * B + b) * nst2, end);
+  }
+  f[d] = hist[T & 1][d];
+  if (d == 0) {
+    f[nhist] = start;
+    f[nhist + 1] = end;
+  }
+}
+
+// Block-wide reduction helper: every thread gets op over the nwarp values.
+__device__ __forceinline__ float block_max_of(const float* w, int nwarp) {
+  float m = w[0];
+  for (int i = 1; i < nwarp; ++i) m = fmaxf(m, w[i]);
+  return m;
+}
+
+// h [T, B, S], W [S, nstate], bvec [nstate] -> final, tb as the forward.
+// Per step: y = ((h * hscale) @ W + b) / tempb, softmax over nstate,
+// lp = log(c0 + c1 * p), then the forward's DP step.
+__global__ void __launch_bounds__(1024)
+viterbi_fused_kernel(const float* __restrict__ h, const float* __restrict__ W,
+                     const float* __restrict__ bvec, float* __restrict__ final_,
+                     short* __restrict__ tb, int T, int B, int S, int nhist,
+                     float hscale, float tempb, float c0, float c1,
+                     DpParams p) {
+  __shared__ float hist[2][1024];
+  __shared__ float wval[2][MAX_WARPS];
+  __shared__ int widx[2][MAX_WARPS];
+  __shared__ float wred[2][MAX_WARPS];
+  __shared__ float y_stay;
+  extern __shared__ float s_h[];  // [2, S] scaled hidden row, double-buffered
+  const int b = blockIdx.x;
+  const int d = threadIdx.x;
+  const int lane = d & 31;
+  const int warp = d >> 5;
+  const int nwarp = nhist >> 5;
+  const int nstate = nhist + 1;
+  const int nst2 = nhist + 2;
+
+  hist[0][d] = -BIG;
+  float start = 0.0f;
+  float end = -BIG;
+  float local_stay_prev = 0.0f;
+  const float bd = bvec[d];
+  const float bstay = bvec[nhist];
+  if (T > 0) {
+    for (int k = d; k < S; k += blockDim.x)
+      s_h[k] = __fmul_rn(h[(size_t)b * S + k], hscale);
+  }
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const int cur = t & 1;
+    const float* hs = s_h + cur * S;
+    // Prefetch the next hidden row into the other buffer; it was last read
+    // in the previous step's head, before this step's first barrier.
+    if (t + 1 < T) {
+      for (int k = d; k < S; k += blockDim.x)
+        s_h[(cur ^ 1) * S + k] =
+            __fmul_rn(h[((size_t)(t + 1) * B + b) * S + k], hscale);
+    }
+    // Head: logit of history state d, and warp 0 the stay logit.
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k < S; ++k) acc = fmaf(hs[k], __ldg(W + (size_t)k * nstate + d), acc);
+    const float y = __fdiv_rn(__fadd_rn(acc, bd), tempb);
+    float ys = -CUDART_INF_F;
+    if (warp == 0) {
+      float part = 0.0f;
+      for (int k = lane; k < S; k += 32)
+        part = fmaf(hs[k], __ldg(W + (size_t)k * nstate + nhist), part);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
+      ys = __fdiv_rn(__fadd_rn(part, bstay), tempb);
+      if (lane == 0) y_stay = ys;
+    }
+    // Softmax maximum over all nstate logits.
+    float m = fmaxf(y, ys);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0) wred[0][warp] = m;
+    __syncthreads();
+    m = block_max_of(wred[0], nwarp);
+    const float ystay = y_stay;
+    const float e = expf(__fsub_rn(y, m));
+    float s = e;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) wred[1][warp] = s;
+    __syncthreads();
+    const float e_stay = expf(__fsub_rn(ystay, m));
+    float sum = e_stay;
+    for (int i = 0; i < nwarp; ++i) sum = __fadd_rn(sum, wred[1][i]);
+    const float lpd = logf(__fadd_rn(c0, __fmul_rn(c1, __fdiv_rn(e, sum))));
+    const float lps = logf(__fadd_rn(c0, __fmul_rn(c1, __fdiv_rn(e_stay, sum))));
+
+    const float stay_lp = __fsub_rn(lps, p.stay_pen);
+    short* tb_row = tb + ((size_t)t * B + b) * nst2;
+    dp_step(hist[cur], hist[cur ^ 1], wval[cur], widx[cur], tb_row, lpd,
+            stay_lp, start, p, nhist);
+    if (d < 32 && t > 0) {
+      end_update(wval[cur ^ 1], widx[cur ^ 1], nwarp, local_stay_prev, p,
+                 nhist, tb_row - (size_t)B * nst2, end);
+    }
+    local_stay_prev = fmaxf(-p.local_pen, stay_lp);
+    // No barrier here: the next step's head touches neither hist nor the
+    // warp buffers before its first barrier, and its writes to wred[0]
+    // follow this step's last read of it (before the second barrier).
+  }
+  __syncthreads();
+  float* f = final_ + (size_t)b * nst2;
+  if (T > 0 && d < 32) {
+    end_update(wval[(T - 1) & 1], widx[(T - 1) & 1], nwarp, local_stay_prev,
+               p, nhist, tb + ((size_t)(T - 1) * B + b) * nst2, end);
+  }
+  f[d] = hist[T & 1][d];
+  if (d == 0) {
+    f[nhist] = start;
+    f[nhist + 1] = end;
+  }
+}
+
+// final [B, nst2], tb [T, B, nst2] int16 -> score [B], path [B, T+1] int32.
+__global__ void viterbi_backtrace_kernel(const float* __restrict__ final_,
+                                         const short* __restrict__ tb,
+                                         float* __restrict__ score,
+                                         int* __restrict__ path, int T, int B,
+                                         int nst2) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const float* f = final_ + (size_t)b * nst2;
+  int cur = 0;
+  float best = f[0];
+  for (int i = 1; i < nst2; ++i) {
+    if (f[i] > best) {
+      best = f[i];
+      cur = i;
+    }
+  }
+  score[b] = best;
+  int* pb = path + (size_t)b * (T + 1);
+  for (int t = T - 1; t >= 0; --t) {
+    const int state = tb[((size_t)t * B + b) * nst2 + cur];
+    pb[t + 1] = state >= 0 ? cur : -1;
+    if (state >= 0) cur = state;
+  }
+  pb[0] = cur;
+  // Leading START and trailing END runs become stays (-1).
+  const int start_state = nst2 - 2;
+  const int end_state = nst2 - 1;
+  for (int i = 0; i <= T && pb[i] == start_state; ++i) pb[i] = -1;
+  for (int i = T; i >= 0 && pb[i] == end_state; --i) pb[i] = -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+int scrappie_viterbi_fwd(const float* lp, float* final_, short* tb, int T,
+                         int B, int nhist, float stay_pen, float skip_pen,
+                         float local_pen, int use_slip, cudaStream_t stream) {
+  if (B == 0) return (int)cudaSuccess;
+  const DpParams p{stay_pen, skip_pen, local_pen, use_slip};
+  viterbi_fwd_kernel<<<B, nhist, 0, stream>>>(lp, final_, tb, T, B, nhist, p);
+  return (int)cudaGetLastError();
+}
+
+int scrappie_viterbi_fused(const float* h, const float* W, const float* bvec,
+                           float* final_, short* tb, int T, int B, int S,
+                           int nhist, float hscale, float tempb, float c0,
+                           float c1, float stay_pen, float skip_pen,
+                           float local_pen, int use_slip,
+                           cudaStream_t stream) {
+  if (B == 0) return (int)cudaSuccess;
+  const DpParams p{stay_pen, skip_pen, local_pen, use_slip};
+  const size_t smem = sizeof(float) * 2 * (size_t)S;
+  viterbi_fused_kernel<<<B, nhist, smem, stream>>>(
+      h, W, bvec, final_, tb, T, B, S, nhist, hscale, tempb, c0, c1, p);
+  return (int)cudaGetLastError();
+}
+
+int scrappie_viterbi_backtrace(const float* final_, const short* tb,
+                               float* score, int* path, int T, int B, int nst2,
+                               cudaStream_t stream) {
+  if (B == 0) return (int)cudaSuccess;
+  const int threads = 64;
+  viterbi_backtrace_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
+      final_, tb, score, path, T, B, nst2);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

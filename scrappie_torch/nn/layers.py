@@ -1,0 +1,63 @@
+"""Layers of the rgrgr networks as plain functions on tensors.
+
+Counterpart of scrappie_tpu/nn/layers.py, with its layouts: features are
+[..., T, C] and conv weights [winlen, Cin, Cout]. The convolution stays a
+library call (`F.conv1d`), as the JAX package leaves it to XLA outside
+any kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def elu(x: torch.Tensor) -> torch.Tensor:
+    """ELU activation (ref src/util.h:67-69)."""
+    return torch.where(x >= 0, x, torch.expm1(torch.clamp(x, max=0.0)))
+
+
+def robustlog(x: torch.Tensor, min_prob: float) -> torch.Tensor:
+    """log(min_prob/nrow + (1-min_prob)*x) along the last axis
+    (ref src/layers.c:79-94)."""
+    nrow = x.shape[-1]
+    return torch.log(min_prob / nrow + (1.0 - min_prob) * x)
+
+
+def feedforward(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Affine map y = x @ W + b (ref affine_map, src/scrappie_matrix.c:323)."""
+    return torch.matmul(x, W) + b
+
+
+def conv_same_pad(T: int, winlen: int, stride: int) -> tuple[int, int]:
+    """Padding of the reference convolution geometry: output column c
+    covers input [c*stride - padL, c*stride - padL + winlen), padL =
+    (winlen-1)//2, and there are ceil(T/stride) columns
+    (ref src/layers.c:159-246)."""
+    padL = (winlen - 1) // 2
+    ncol = -(-T // stride)
+    padR = (ncol - 1) * stride + winlen - padL - T
+    return padL, padR
+
+
+def conv1d(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+           stride: int) -> torch.Tensor:
+    """1-D convolution in the reference geometry:
+    x [..., T, Cin] -> [..., ceil(T/stride), Cout], W [winlen, Cin, Cout]."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[None]
+    winlen = W.shape[0]
+    padL, padR = conv_same_pad(x.shape[-2], winlen, stride)
+    xc = F.pad(x.transpose(1, 2), (padL, padR))        # [B, Cin, T + pad]
+    out = F.conv1d(xc, W.permute(2, 1, 0), stride=stride)  # [B, Cout, ncol]
+    out = out.transpose(1, 2) + b
+    return out[0] if squeeze else out
+
+
+def softmax_with_temperature(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+                             tempW: float = 1.0, tempb: float = 1.0) -> torch.Tensor:
+    """softmax(((x * tempb/tempW) @ W + b) / tempb), computed as the
+    reference does (ref src/layers.c:333-357)."""
+    y = feedforward(x * (tempb / tempW), W, b) / tempb
+    return torch.softmax(y, dim=-1)

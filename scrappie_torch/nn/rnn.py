@@ -1,0 +1,44 @@
+"""The GRU recurrence as a plain loop over time.
+
+Counterpart of scrappie_tpu/nn/rnn.py:gru, and the plain twin of the GRU
+kernel (ops/gru.py, csrc/gru.cu). Gate conventions (scrappie GRU, ref
+gru_step src/layers.c:472-527):
+
+  x ........ precomputed iW·x + b, [..., 3S] blocks (z | r | hbar input)
+  z, r ..... sigmoid(x[:2S] + h @ sW), sW [S, 2S]
+  hbar ..... tanh(x[2S:] + (r*h) @ sW2), sW2 [S, S]
+  h' ....... z*h + (1-z)*hbar          (z gates the OLD state)
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def gru_tm(x_tm: torch.Tensor, sW: torch.Tensor, sW2: torch.Tensor,
+           reverse: bool = False) -> torch.Tensor:
+    """GRU over time-major projected inputs x [T, B, 3S] -> h [T, B, S]."""
+    T, B, _ = x_tm.shape
+    S = sW2.shape[1]
+    h = x_tm.new_zeros((B, S))
+    out = x_tm.new_empty((T, B, S))
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        xt = x_tm[t]
+        zr = torch.sigmoid(xt[:, : 2 * S] + h @ sW)
+        z = zr[:, :S]
+        r = zr[:, S:]
+        hbar = torch.tanh(xt[:, 2 * S :] + (r * h) @ sW2)
+        h = z * h + (1 - z) * hbar
+        out[t] = h
+    return out
+
+
+def gru(x: torch.Tensor, sW: torch.Tensor, sW2: torch.Tensor,
+        reverse: bool = False) -> torch.Tensor:
+    """GRU over projected inputs x [..., T, 3S] -> [..., T, S] (the JAX
+    package's batch-major layout)."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[None]
+    out = gru_tm(x.transpose(0, 1), sW, sW2, reverse).transpose(0, 1)
+    return out[0] if squeeze else out

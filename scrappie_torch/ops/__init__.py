@@ -1,0 +1,56 @@
+"""Hand-written CUDA kernels for the hot sequential loops, with their twins.
+
+Counterpart of scrappie_tpu/ops. Each wrapper here takes tensors on one
+device: on the CPU it runs its plain PyTorch twin (same module), on a
+CUDA device it launches its kernel from `csrc/` (built by `_build`) or
+raises. It never falls back from one to the other.
+
+`LAUNCHES` counts kernel launches per wrapper. A wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its path went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LAUNCHES: dict[str, int] = {
+    "gru_layer": 0,
+    "viterbi_fwd": 0,
+    "viterbi_backtrace": 0,
+    "viterbi_fused": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True if every tensor is on one CUDA device, False if all are on the
+    CPU; raises for anything else (mixed or other devices)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"unsupported device {str(dev)!r} (cpu or cuda)")
+
+
+def check_kernel_input(name: str, t: torch.Tensor, shape: tuple,
+                       dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless `t` has the shape, dtype and layout a kernel takes."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def stream_handle() -> int:
+    return torch.cuda.current_stream().cuda_stream

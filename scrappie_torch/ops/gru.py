@@ -1,0 +1,63 @@
+"""GRU layer with the input projection inside the kernel.
+
+Counterpart of scrappie_tpu/ops/gru.py:gru_layer_fused_tm / gru_layer_tm.
+On a CUDA tensor `gru_layer_tm` launches csrc/gru.cu; on a CPU tensor it
+runs `gru_layer_tm_plain`, the projection followed by the loop of
+nn/rnn.py. There is no lane or batch padding: the output is [T, B, S].
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from scrappie_torch import ops
+from scrappie_torch.nn.layers import feedforward
+from scrappie_torch.nn.rnn import gru_tm
+
+#: Dynamic shared memory a block may use on sm_90.
+MAX_SMEM_BYTES = 232448
+
+
+def gru_layer_tm_plain(x_tm, iW, b, sW, sW2, reverse: bool = False):
+    """Plain twin: x [T, B, C] -> h [T, B, S]."""
+    return gru_tm(feedforward(x_tm, iW, b), sW, sW2, reverse)
+
+
+def gru_layer_tm(x_tm, iW, b, sW, sW2, reverse: bool = False):
+    """One GRU layer on time-major features: x [T, B, C], iW [C, 3S],
+    b [3S], sW [S, 2S], sW2 [S, S] -> h [T, B, S], h0 = 0."""
+    if not ops.on_cuda(x_tm, iW, b, sW, sW2):
+        return gru_layer_tm_plain(x_tm, iW, b, sW, sW2, reverse)
+    return _gru_layer_cuda(x_tm, iW, b, sW, sW2, reverse)
+
+
+def _gru_layer_cuda(x_tm, iW, b, sW, sW2, reverse):
+    from scrappie_torch.ops import _build
+
+    T, B, C = x_tm.shape
+    S = sW2.shape[0]
+    ops.check_kernel_input("x", x_tm, (T, B, C))
+    ops.check_kernel_input("iW", iW, (C, 3 * S))
+    ops.check_kernel_input("b", b, (3 * S,))
+    ops.check_kernel_input("sW", sW, (S, 2 * S))
+    ops.check_kernel_input("sW2", sW2, (S, S))
+    if C > 3 * S or 3 * S > 1024:
+        raise ValueError(f"gru kernel needs C <= 3S <= 1024, got C={C} S={S}")
+    lib = _build.library()
+    smem = lib.scrappie_gru_smem_bytes(C, S)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"gru kernel needs {smem} B of shared memory for "
+                         f"C={C} S={S}; a block may use {MAX_SMEM_BYTES}")
+    y = torch.empty((T, B, S), dtype=torch.float32, device=x_tm.device)
+    if T == 0 or B == 0:
+        return y
+    with torch.cuda.device(x_tm.device):
+        err = lib.scrappie_gru_layer(
+            x_tm.data_ptr(), iW.data_ptr(), b.data_ptr(), sW.data_ptr(),
+            sW2.data_ptr(), y.data_ptr(), T, B, C, S, int(reverse),
+            ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, "gru_layer")
+    ops.LAUNCHES["gru_layer"] += 1
+    return y

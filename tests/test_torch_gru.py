@@ -1,0 +1,78 @@
+"""The port's GRU (the plain twin of csrc/gru.cu, which the CPU runs)
+against the JAX package: the Pallas kernel in interpret mode
+(scrappie_tpu.ops.gru.gru_layer_tm, lane-padded to 128: the first S lanes
+are compared) and the lax.scan program (nn.rnn.gru after feedforward).
+Tolerance 1e-5: fp32 on both sides, the sums in another order."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scrappie_torch import ops
+from scrappie_torch.nn.rnn import gru as t_gru
+from scrappie_torch.ops.gru import gru_layer_tm as t_gru_layer_tm
+from scrappie_torch.ops.gru import gru_layer_tm_plain
+from scrappie_tpu.nn.layers import feedforward
+from scrappie_tpu.nn.rnn import gru as j_gru
+from scrappie_tpu.ops.gru import gru_layer_tm as j_gru_layer_tm
+
+torch.set_num_threads(1)
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _weights(rng, C, S):
+    return (rng.standard_normal((C, 3 * S)).astype(np.float32) * 0.3,
+            rng.standard_normal(3 * S).astype(np.float32) * 0.1,
+            rng.standard_normal((S, 2 * S)).astype(np.float32) * 0.3,
+            rng.standard_normal((S, S)).astype(np.float32) * 0.3)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_layer_matches_pallas_kernel(reverse):
+    rng = np.random.default_rng(3)
+    B, T, C, S = 8, 7, 12, 96
+    x = rng.standard_normal((T, B, C)).astype(np.float32)
+    w = _weights(rng, C, S)
+    ref = np.asarray(j_gru_layer_tm(jnp.asarray(x), *map(jnp.asarray, w),
+                                    reverse=reverse))
+    assert ref.shape == (T, B, 128)
+    ops.reset_launches()
+    out = t_gru_layer_tm(*_t(x, *w), reverse=reverse).numpy()
+    assert ops.LAUNCHES["gru_layer"] == 0  # a CPU tensor takes the twin
+    assert out.shape == (T, B, S)
+    np.testing.assert_allclose(out, ref[..., :S], **TOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,T", [(8, 7), (3, 13)])
+def test_gru_layer_matches_scan(reverse, B, T):
+    rng = np.random.default_rng(5 + B)
+    C, S = 12, 96
+    x = rng.standard_normal((B, T, C)).astype(np.float32)
+    w = _weights(rng, C, S)
+    jw = list(map(jnp.asarray, w))
+    ref = np.asarray(j_gru(feedforward(jnp.asarray(x), jw[0], jw[1]), jw[2],
+                           jw[3], reverse=reverse))
+    x_tm = np.moveaxis(x, 1, 0)
+    out = gru_layer_tm_plain(*_t(x_tm, *w), reverse=reverse).numpy()
+    np.testing.assert_allclose(np.moveaxis(out, 0, 1), ref, **TOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_nn_rnn_gru_matches_jax(reverse):
+    """nn.rnn.gru on projected inputs, batched and unbatched."""
+    rng = np.random.default_rng(11)
+    S = 16
+    xin = rng.standard_normal((2, 9, 3 * S)).astype(np.float32)
+    _, _, sW, sW2 = _weights(rng, 1, S)
+    ref = np.asarray(j_gru(jnp.asarray(xin), jnp.asarray(sW), jnp.asarray(sW2),
+                           reverse=reverse))
+    out = t_gru(*_t(xin, sW, sW2), reverse=reverse).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+    out1 = t_gru(*_t(xin[1], sW, sW2), reverse=reverse).numpy()
+    np.testing.assert_allclose(out1, ref[1], **TOL)

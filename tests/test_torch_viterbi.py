@@ -1,0 +1,153 @@
+"""The port's Viterbi twins (which the CPU runs in place of
+csrc/viterbi.cu) against the JAX package: the Pallas kernels in interpret
+mode and the lax.scan programs. The DP only adds and takes maxima in the
+same order with the same tie rules, so tracebacks and paths must be
+identical and final scores within 1e-6."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scrappie_torch import ops
+from scrappie_torch.decode import transducer as tdec
+from scrappie_torch.nn.layers import robustlog, softmax_with_temperature
+from scrappie_torch.ops import viterbi as tv
+from scrappie_tpu import ops as jops
+from scrappie_tpu.decode import transducer as jdec
+from scrappie_tpu.ops import viterbi as jv
+
+torch.set_num_threads(1)
+FINAL_TOL = dict(rtol=1e-6, atol=1e-6)
+
+# (B, T, nstate, stay_pen, skip_pen, local_pen, use_slip)
+CASES = [
+    (5, 12, 65, 0.3, 0.7, 2.0, False),
+    (5, 12, 65, 0.3, 0.7, 2.0, True),
+    (3, 9, 1025, 0.0, 0.0, 2.0, False),
+    (3, 7, 1025, 0.2, 0.5, 1.5, True),
+]
+IDS = [f"B{c[0]}-n{c[2] - 1}-{'slip' if c[6] else 'noslip'}" for c in CASES]
+
+
+@pytest.fixture(autouse=True)
+def _jax_scan_reference():
+    # The JAX scan programs must not dispatch to Pallas themselves.
+    with jops.pallas(False):
+        yield
+
+
+def _logpost(B, T, nstate, seed, ties=False):
+    rng = np.random.default_rng(seed)
+    if ties:
+        # a few integer levels: equal candidates everywhere, so the
+        # strict-`>` and first-max rules decide most moves
+        return rng.integers(-3, 1, (B, T, nstate)).astype(np.float32)
+    return (rng.standard_normal((B, T, nstate)) - 3.0).astype(np.float32)
+
+
+def _tm(a):
+    return np.ascontiguousarray(np.moveaxis(a, 1, 0))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_forward_and_backtrace_match_scan(case, ties):
+    B, T, nstate, sp, kp, lp_, slip = case
+    lp = _logpost(B, T, nstate, seed=nstate + T, ties=ties)
+    jfinal, jtb = jdec.viterbi_transducer_scores(jnp.asarray(lp), sp, kp, lp_, slip)
+    jscore, jpath = jdec.viterbi_local_backtrace(jfinal, jtb)
+    final, tb = tdec.viterbi_transducer_scores(torch.from_numpy(lp), sp, kp,
+                                               lp_, slip)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jtb))
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), **FINAL_TOL)
+    score, path = tdec.viterbi_local_backtrace(final, tb)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(jpath))
+    np.testing.assert_allclose(score.numpy(), np.asarray(jscore), **FINAL_TOL)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_forward_and_backtrace_match_pallas(case, ties):
+    B, T, nstate, sp, kp, lp_, slip = case
+    lp_tm = _tm(_logpost(B, T, nstate, seed=2 * nstate + T, ties=ties))
+    jfinal, jtb = jv.viterbi_scores_tm(jnp.asarray(lp_tm), sp, kp, lp_, slip,
+                                       interpret=True)
+    jscore, jpath = jv.viterbi_backtrace_tm(jfinal, jtb, interpret=True)
+    ops.reset_launches()
+    final, tb = tv.viterbi_scores_tm(torch.from_numpy(lp_tm), sp, kp, lp_, slip)
+    score, path = tv.viterbi_backtrace_tm(final, tb)
+    assert ops.LAUNCHES["viterbi_fwd"] == ops.LAUNCHES["viterbi_backtrace"] == 0
+    assert tb.dtype == torch.int16 and path.dtype == torch.int32
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jtb))
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), **FINAL_TOL)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(jpath))
+    np.testing.assert_allclose(score.numpy(), np.asarray(jscore), **FINAL_TOL)
+
+
+def test_forward_clamps_minus_infinity_like_the_kernel():
+    """viterbi_scores_tm clamps lp at -1e30, as the JAX kernel does."""
+    lp = _logpost(2, 8, 65, seed=9)
+    lp[:, 3, 5:40] = -np.inf
+    lp_tm = _tm(lp)
+    jfinal, jtb = jv.viterbi_scores_tm(jnp.asarray(lp_tm), 0.0, 0.4, 2.0,
+                                       interpret=True)
+    final, tb = tv.viterbi_scores_tm(torch.from_numpy(lp_tm), 0.0, 0.4, 2.0)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jtb))
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), **FINAL_TOL)
+
+
+@pytest.mark.parametrize("pens", [dict(), dict(stay_pen=0.3, skip_pen=0.6,
+                                              local_pen=3.0, use_slip=True)])
+def test_fused_twin_matches_head_then_decode(pens):
+    rng = np.random.default_rng(21)
+    T, B, S, nstate = 10, 3, 96, 1025
+    h = torch.from_numpy(rng.uniform(-1, 1, (T, B, S)).astype(np.float32))
+    W = torch.from_numpy(rng.standard_normal((S, nstate)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(nstate).astype(np.float32))
+    lp = robustlog(softmax_with_temperature(h, W, b), 1e-5)
+    final_ref, tb_ref = tv.viterbi_scores_tm(lp, **pens)
+    ops.reset_launches()
+    final, tb = tv.viterbi_fused_tm(h, W, b, **pens)
+    assert ops.LAUNCHES["viterbi_fused"] == 0
+    np.testing.assert_array_equal(tb.numpy(), tb_ref.numpy())
+    np.testing.assert_allclose(final.numpy(), final_ref.numpy(), **FINAL_TOL)
+
+
+@pytest.mark.parametrize("temps", [(1.0, 1.0), (0.8, 1.25)])
+def test_fused_twin_matches_pallas_fused(temps):
+    rng = np.random.default_rng(22)
+    T, B, S, nstate = 8, 3, 16, 65
+    h = rng.uniform(-1, 1, (T, B, S)).astype(np.float32)
+    W = (2.0 * rng.standard_normal((S, nstate))).astype(np.float32)
+    b = rng.standard_normal(nstate).astype(np.float32)
+    kw = dict(min_prob=1e-5, tempW=temps[0], tempb=temps[1], stay_pen=0.1,
+              skip_pen=0.3, local_pen=2.0)
+    jfinal, jtb = jv.viterbi_fused_tm(jnp.asarray(h), jnp.asarray(W),
+                                      jnp.asarray(b), interpret=True, **kw)
+    final, tb = tv.viterbi_fused_tm(torch.from_numpy(h), torch.from_numpy(W),
+                                    torch.from_numpy(b), **kw)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jtb))
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_decode_batch_and_unbatched_decode_match_jax():
+    lp = _logpost(3, 11, 1025, seed=31)
+    jscore, jpath = jdec.decode_transducer(lp, 0.1, 0.2, 2.0, False)
+    score, path = tdec.decode_transducer(lp, 0.1, 0.2, 2.0, False, device="cpu")
+    np.testing.assert_array_equal(path, jpath)
+    np.testing.assert_allclose(score, jscore, **FINAL_TOL)
+    s1, p1 = tdec.decode_transducer(lp[1], 0.1, 0.2, 2.0, False, device="cpu")
+    js1, jp1 = jdec.decode_transducer(lp[1], 0.1, 0.2, 2.0, False)
+    np.testing.assert_array_equal(p1, jp1)
+    assert abs(s1 - js1) <= 1e-6 * max(1.0, abs(js1))
+
+
+def test_argmax_decoder_matches_jax():
+    lp = _logpost(2, 13, 65, seed=41)
+    lp[0, 4, -1] = 5.0  # a stay
+    s, p = tdec.argmax_decoder(lp)
+    js, jp = jdec.argmax_decoder(lp)
+    np.testing.assert_array_equal(p, jp)
+    np.testing.assert_allclose(s, js, rtol=1e-6)
