@@ -23,7 +23,16 @@ if any phase fails:
      run of the same reads;
   5. times the fused path at B = 64 chunks of 10 000 samples;
   6. profiles (torch.profiler) the engine in each mode and the fused path,
-     and times the engine and the fused path at several batch sizes.
+     and times the engine and the fused path at several batch sizes;
+  7. holds the three CRF kernels (Viterbi forward, backtrace, partition
+     function) against their twins at T = 5000 blocks (a 10 000-sample
+     chunk at stride 2), B = 8 and 64: on the rnnrf head's transitions, on
+     integer transitions in {-3..0}, and with an emit bias of -1;
+  8. runs BasecallEngine("rnnrf_r94", device="cuda") in fast and stitch
+     mode on the same 16 reads, checks the launch counters and every
+     read's sequence, and compares two reads with the port's CPU run;
+  9. times the rnnrf fused path at B = 64 x 10 000 samples, stage by stage,
+     and profiles the rnnrf engine in both modes.
 
 The last lines are the kernel table, the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -39,10 +48,13 @@ import time
 
 SEED = 20261016
 T_BLOCKS = 2000          # blocks in a 10 000-sample chunk at stride 5
+T_CRF = 5000             # blocks in a 10 000-sample chunk at stride 2
 CHUNK = 10000
 GRU_ATOL = 1e-4
 FUSED_RTOL = 1e-5
 FUSED_MIN_SAME_ROWS = 0.99
+PARTITION_RTOL = 1e-5    # expf/logf against torch's logsumexp, T = 5000
+EMIT_BIAS = -1.0
 NREADS = 16
 READ_LEN = (20000, 100000)
 # the CLI's --stay/--skip/--local/--slip and a calibration's temperatures
@@ -58,7 +70,15 @@ KERNELS = {
                           "scrappie_tpu/ops/viterbi.py:283"),
     "viterbi_fused": ("scrappie_torch/csrc/viterbi.cu",
                       "scrappie_tpu/ops/viterbi.py:385"),
+    "crf_fwd": ("scrappie_torch/csrc/crf.cu", "scrappie_tpu/ops/crf.py:39"),
+    "crf_backtrace": ("scrappie_torch/csrc/crf.cu",
+                      "scrappie_tpu/ops/crf.py:121"),
+    "crf_partition": ("scrappie_torch/csrc/crf.cu",
+                      "scrappie_tpu/nn/layers.py:133 (a lax.scan; no TPU "
+                      "kernel)"),
 }
+RGRGR_KERNELS = ("gru_layer", "viterbi_fwd", "viterbi_backtrace", "viterbi_fused")
+RNNRF_KERNELS = ("gru_layer", "crf_fwd", "crf_backtrace", "crf_partition")
 
 
 def emit(obj) -> None:
@@ -273,7 +293,8 @@ def synthetic_reads() -> list:
 
 
 def main_path(card: str, reads: list) -> dict:
-    """BasecallEngine on the card in fast and both stitch modes."""
+    """BasecallEngine("rgrgr_r94") on the card in fast and both stitch
+    modes."""
     from scrappie_torch import ops
     from scrappie_torch.parallel.runner import BasecallEngine
     from scrappie_torch.utils.seqcompare import edit_distance, within_flip_rule
@@ -305,8 +326,9 @@ def main_path(card: str, reads: list) -> dict:
               "launches": {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES},
               "stages": engines[mode].stage.report(), "card": card})
     launches = dict(ops.LAUNCHES)
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} launched on the main path ({n})")
+    for name in RGRGR_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} launched on the rgrgr path ({launches[name]})")
 
     # The two shortest reads against the port's own CPU run.
     short = sorted(range(len(reads)), key=lambda i: lengths[i])[:2]
@@ -437,6 +459,183 @@ def profile_and_scale(net, card: str, reads: list) -> None:
                   "card": card})
 
 
+def check_crf(trans, what: str) -> dict:
+    """The three CRF kernels against their twins on transitions [T, B, 25]:
+    forward tracebacks and finals, backtrace paths and scores identical,
+    the partition function within PARTITION_RTOL."""
+    import torch
+
+    from scrappie_torch.ops import crf as c
+
+    fk, tbk = c.crf_viterbi_scores_tm(trans)
+    fp, tbp = c.crf_viterbi_scores_tm_plain(trans)
+    sync()
+    require(torch.equal(tbk, tbp), f"crf_fwd traceback identical ({what})")
+    require(torch.equal(fk, fp), f"crf_fwd final identical ({what})")
+    sk, pk = c.crf_backtrace_tm(fk, tbk)
+    sp, pp = c.crf_backtrace_tm_plain(fk, tbk)
+    sync()
+    require(torch.equal(pk, pp), f"crf_backtrace path identical ({what})")
+    require(torch.equal(sk, sp), f"crf_backtrace score identical ({what})")
+    zk = c.crf_partition_tm(trans)
+    zp = c.crf_partition_tm_plain(trans)
+    sync()
+    require(bool(torch.isfinite(zk).all()), f"crf_partition finite ({what})")
+    # Relative to the magnitude the recursion carries, sum_t max |trans|:
+    # that is |logZ| for raw transitions, while after globalnorm logZ is
+    # about 0 and the error of its T-step sum is all there is.
+    scale = torch.maximum(zp.abs(), trans.abs().amax(-1).sum(0)).clamp(min=1.0)
+    rel = float(((zk - zp).abs() / scale).max())
+    require(rel <= PARTITION_RTOL,
+            f"crf_partition rel err {rel} <= {PARTITION_RTOL} ({what})")
+    return {"crf_fwd": float((fk - fp).abs().max()),
+            "crf_backtrace": float((pk - pp).abs().max()),
+            "crf_partition": float((zk - zp).abs().max()),
+            "crf_partition_rel": rel}
+
+
+def check_crf_kernels(rnet, B: int) -> dict:
+    """The CRF kernels on the rnnrf head's transitions of B chunks, on
+    integer transitions in {-3..0} (ties at almost every step) and with an
+    emit bias; then their times and their twins' (CUDA events; fewer
+    repeats for the twins, launch-bound loops over T)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn.layers import feedforward, globalnorm_tm
+    from scrappie_torch.ops import crf as c
+    from scrappie_torch.ops.pipeline import rnnrf_features_tm
+
+    rng = np.random.default_rng(SEED + 10 + B)
+    p = rnet.params
+    sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1)).astype(np.float32),
+                          device=rnet.device)
+    x = rnnrf_features_tm(p, sig, rnet.conv_activation, rnet.stride)
+    require(x.shape == (T_CRF, B, 96), f"rnnrf features shape {tuple(x.shape)}")
+    raw = feedforward(x, p["FF_W"], p["FF_b"])
+    head = globalnorm_tm(x, p["FF_W"], p["FF_b"])
+    ties = torch.as_tensor(rng.integers(-3, 1, (T_CRF, B, 25)).astype(np.float32),
+                           device=rnet.device)
+    errs = {}
+    for what, trans in (("head before globalnorm", raw), ("head", head),
+                        ("integer transitions", ties),
+                        (f"head, emit bias {EMIT_BIAS}",
+                         c.add_emit_bias(head, EMIT_BIAS))):
+        for name, err in check_crf(trans, what).items():
+            errs[name] = max(errs.get(name, 0.0), err)
+    fk, tbk = c.crf_viterbi_scores_tm(head)
+    out = {name: {"max_abs_err": errs[name]} for name in
+           ("crf_fwd", "crf_backtrace", "crf_partition")}
+    out["crf_partition"]["max_rel_err"] = errs["crf_partition_rel"]
+    timed = {"crf_fwd": (lambda: c.crf_viterbi_scores_tm(head),
+                         lambda: c.crf_viterbi_scores_tm_plain(head)),
+             "crf_backtrace": (lambda: c.crf_backtrace_tm(fk, tbk),
+                               lambda: c.crf_backtrace_tm_plain(fk, tbk)),
+             "crf_partition": (lambda: c.crf_partition_tm(raw),
+                               lambda: c.crf_partition_tm_plain(raw))}
+    for name, (kernel, plain) in timed.items():
+        out[name]["ms"] = cuda_ms(kernel)
+        out[name]["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
+        out[name]["us_per_step"] = out[name]["ms"] * 1e3 / T_CRF
+    emit({"phase": "crf_kernels", "B": B, "T": T_CRF,
+          "checked_on": ["head before globalnorm", "head", "integer transitions",
+                         f"head, emit bias {EMIT_BIAS}"],
+          "kernels": out})
+    return out
+
+
+def main_path_rnnrf(card: str, reads: list) -> dict:
+    """BasecallEngine("rnnrf_r94") on the card in fast and stitch mode."""
+    from scrappie_torch import ops
+    from scrappie_torch.parallel.runner import BasecallEngine
+    from scrappie_torch.utils.seqcompare import edit_distance, within_flip_rule
+    from scrappie_torch.utils.tracing import Stage
+
+    lengths = [len(r.raw) for r in reads]
+    nsample = sum(lengths)
+    modes = ("fast", "stitch")
+    engines = {mode: BasecallEngine("rnnrf_r94", device="cuda", mode=mode)
+               for mode in modes}
+    for mode in modes:
+        engines[mode].basecall_signals(reads[:1])
+
+    ops.reset_launches()
+    results = {}
+    for mode in modes:
+        before = dict(ops.LAUNCHES)
+        engines[mode].stage = Stage()
+        t0 = time.perf_counter()
+        res = engines[mode].basecall_signals(reads)
+        seconds = time.perf_counter() - t0
+        require(all(r.sequence for r in res), f"rnnrf {mode}: every read called")
+        results[mode] = res
+        emit({"phase": "main_path_rnnrf", "mode": mode, "reads": len(res),
+              "samples": nsample, "seconds": round(seconds, 4),
+              "samples_per_s": round(nsample / seconds, 1),
+              "bases": sum(len(r.sequence) for r in res),
+              "launches": {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES},
+              "stages": engines[mode].stage.report(), "card": card})
+    launches = dict(ops.LAUNCHES)
+    for name in RNNRF_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} launched on the rnnrf path ({launches[name]})")
+
+    short = sorted(range(len(reads)), key=lambda i: lengths[i])[:2]
+    for mode in modes:
+        cpu = BasecallEngine("rnnrf_r94", device="cpu", mode=mode)
+        cres = cpu.basecall_signals([reads[i] for i in short])
+        for i, c in zip(short, cres):
+            g = results[mode][i].sequence
+            dist = 0 if g == c.sequence else edit_distance(g, c.sequence)
+            emit({"phase": "cpu_vs_cuda_rnnrf", "mode": mode,
+                  "read": reads[i].uuid, "bases": len(g), "edit_distance": dist})
+            require(within_flip_rule(g, c.sequence),
+                    f"rnnrf {mode} {reads[i].uuid}: CUDA and CPU calls agree")
+    return launches
+
+
+def throughput_rnnrf(rnet, card: str, reads: list) -> None:
+    """The rnnrf fused path at B = 64 chunks of 10 000 samples, stage by
+    stage; then the rnnrf engine in each mode under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn.layers import globalnorm_tm
+    from scrappie_torch.ops.crf import crf_backtrace_tm, crf_viterbi_scores_tm
+    from scrappie_torch.ops.pipeline import rnnrf_features_tm
+    from scrappie_torch.parallel.runner import BasecallEngine
+
+    B = 64
+    rng = np.random.default_rng(SEED + 4)
+    sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1)).astype(np.float32),
+                          device=rnet.device)
+    p = rnet.params
+    with torch.inference_mode():
+        total = cuda_ms(lambda: rnet.basecall_fused(sig), reps=5)
+        feats = cuda_ms(lambda: rnnrf_features_tm(p, sig, rnet.conv_activation,
+                                                  rnet.stride), reps=5)
+        x = rnnrf_features_tm(p, sig, rnet.conv_activation, rnet.stride)
+        head = cuda_ms(lambda: globalnorm_tm(x, p["FF_W"], p["FF_b"]), reps=5)
+        trans = globalnorm_tm(x, p["FF_W"], p["FF_b"])
+        fwd = cuda_ms(lambda: crf_viterbi_scores_tm(trans), reps=5)
+        final, tb = crf_viterbi_scores_tm(trans)
+        back = cuda_ms(lambda: crf_backtrace_tm(final, tb), reps=5)
+        emit({"phase": "throughput_rnnrf", "path": "fused", "B": B,
+              "chunk": CHUNK, "ms": round(total, 4),
+              "samples_per_s": round(B * CHUNK / (total / 1e3), 1),
+              "breakdown_ms": {"conv+gru x5 residual": round(feats, 4),
+                               "head+partition": round(head, 4),
+                               "crf forward": round(fwd, 4),
+                               "backtrace": round(back, 4)},
+              "card": card})
+        nsample = sum(len(r.raw) for r in reads)
+        for mode in ("fast", "stitch"):
+            eng = BasecallEngine("rnnrf_r94", device="cuda", mode=mode)
+            profiled(f"rnnrf engine {mode}, batch {eng.batch_size}, "
+                     f"{len(reads)} reads, {nsample} samples",
+                     lambda: eng.basecall_signals(reads), card)
+
+
 def main() -> int:
     import torch
 
@@ -444,19 +643,27 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "runs only on a CUDA GPU", file=sys.stderr)
         return 2
-    from scrappie_torch.models.forward import RgrgrModel
+    from scrappie_torch.models.forward import RgrgrModel, RnnrfModel
 
     card = card_line()
     build()
     net = RgrgrModel.from_registry("rgrgr_r94", "cuda")
+    rnet = RnnrfModel.from_registry("rnnrf_r94", "cuda")
     with torch.inference_mode():
         check_kernels(net, 8)
         table = check_kernels(net, 64)
         check_viterbi_options(net)
+        check_crf_kernels(rnet, 8)
+        table.update(check_crf_kernels(rnet, 64))
     reads = synthetic_reads()
     launches = main_path(card, reads)
     throughput(net, card)
     profile_and_scale(net, card, reads)
+    rnnrf_launches = main_path_rnnrf(card, reads)
+    throughput_rnnrf(rnet, card, reads)
+    # each kernel's launches on its own path; the GRU's on the rgrgr path
+    launches.update({k: rnnrf_launches[k] for k in RNNRF_KERNELS
+                     if k != "gru_layer"})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],

@@ -1,5 +1,5 @@
-"""Public Python API for the rgrgr models, mirroring scrappie_tpu.api
-(and the reference binding, python/scrappy/__init__.py).
+"""Public Python API for the rgrgr and rnnrf models, mirroring
+scrappie_tpu.api (and the reference binding, python/scrappy/__init__.py).
 
 `calc_post`, `decode_post` and `basecall_raw` take a `device`: "cuda"
 (the default) runs the hand-written kernels, "cpu" their plain twins.
@@ -14,10 +14,11 @@ import functools
 import numpy as np
 import torch
 
+from scrappie_torch.decode.crf import crfpath_to_basecall, decode_crf, posterior_crf
 from scrappie_torch.decode.transducer import decode_transducer
 from scrappie_torch.device import as_device
-from scrappie_torch.models.convert import rgrgr_spec
-from scrappie_torch.models.forward import RgrgrModel
+from scrappie_torch.models.convert import raw_spec
+from scrappie_torch.models.forward import RawModel, load_model
 from scrappie_tpu.post.homopolymer import HomopolymerMode, homopolymer_path
 from scrappie_tpu.post.overlapper import overlapper
 from scrappie_tpu.signal.trim import trim_raw_by_mad
@@ -87,18 +88,23 @@ class Posterior:
 
 
 @functools.lru_cache(maxsize=None)
-def _model(model: str, device: torch.device) -> RgrgrModel:
-    return RgrgrModel.from_registry(model, device)
+def _model(model: str, device: torch.device) -> RawModel:
+    return load_model(model, device)
 
 
 def calc_post(rt: RawTable, model: str = "rgrgr_r94", min_prob: float = 1e-6,
               log: bool = True, tempW: float = 1.0, tempb: float = 1.0,
               device=None) -> Posterior:
-    """Run an rgrgr model over a (trimmed, scaled) RawTable
-    (ref calc_post, python/scrappy/__init__.py:276-298)."""
+    """Run a raw model over a (trimmed, scaled) RawTable (ref calc_post,
+    python/scrappy/__init__.py:276-298): the log posterior of an rgrgr
+    model, or the CRF transitions of rnnrf_r94, for which min_prob and the
+    temperatures do not apply."""
+    if not log and model == "rnnrf_r94":
+        raise ValueError("Returning non-log transformed matrix not supported "
+                         "for model type 'rnnrf_r94'.")
     if not isinstance(rt, RawTable):
         raise TypeError("`rt` should be a RawTable.")
-    rgrgr_spec(model)
+    raw_spec(model)
     net = _model(model, as_device(device))
     sig = torch.as_tensor(rt.data(as_numpy=True).reshape(1, -1, 1),
                           device=net.device)
@@ -139,13 +145,24 @@ def _decode_post_transducer(post: Posterior, stay_pen=0.0, skip_pen=0.0,
     return seq, float(score), pos
 
 
+def _decode_post_crf(post: Posterior, emit_bias: float = 0.0, device=None):
+    nblock, _ = post.shape
+    score, path = decode_crf(post.data(), emit_bias=emit_bias, device=device)
+    pos = np.zeros(nblock + 1, dtype=np.int64)
+    seq = crfpath_to_basecall(path[: nblock + 1], pos)
+    return seq, float(score), pos
+
+
 def decode_post(post: Posterior, model: str = "rgrgr_r94", device=None,
                 **kwargs):
-    """Decode a posterior into (basecall, score, block positions)
-    (ref decode_post, python/scrappy/__init__.py:300-319)."""
+    """Decode a posterior (or rnnrf transitions) into (basecall, score,
+    block positions) (ref decode_post, python/scrappy/__init__.py:300-319).
+    The keywords are the decoder's: stay_pen, skip_pen, local_pen,
+    use_slip and homopolymer for rgrgr; emit_bias for rnnrf."""
     if not isinstance(post, Posterior):
         raise TypeError("`post` should be a Posterior.")
-    rgrgr_spec(model)
+    if raw_spec(model).kind == "rnnrf":
+        return _decode_post_crf(post, device=device, **kwargs)
     return _decode_post_transducer(post, device=device, **kwargs)
 
 
@@ -153,22 +170,27 @@ def basecall_raw(data, model: str = "rgrgr_r94", with_base_probs: bool = False,
                  calibration: str = "reference", device=None, **kwargs):
     """Trim, scale, run the network, decode: one read end to end.
 
-    Returns (sequence, score, block positions, trim start, trim end,
-    None); ref basecall_raw, python/scrappy/__init__.py:403-430.
+    Returns (sequence, score, block positions, trim start, trim end, base
+    probabilities or None); ref basecall_raw,
+    python/scrappy/__init__.py:403-430. with_base_probs (rnnrf_r94 only)
+    gives the CRF's forward-backward state posterior [nblock+1, 5].
     ``calibration="real"`` fills the measured decode preset
     (scrappie_tpu/models/calibration.py) for knobs not passed."""
-    if with_base_probs:
+    if with_base_probs and model != "rnnrf_r94":
         raise ValueError("Base probabilities can only be returned for model "
                          "'rnnrf_r94'.")
-    rgrgr_spec(model)
+    raw_spec(model)
     device = as_device(device)
     if calibration != "reference":
         from scrappie_tpu.models import calibration as _calibration
 
         for key, value in _calibration.preset(model, calibration).items():
-            kwargs.setdefault(key, value)
+            # the CRF decoder spells the emit-bias knob `emit_bias`
+            kwargs.setdefault("emit_bias" if key == "crf_emit_bias" else key,
+                              value)
     raw = RawTable(data)
     raw.trim().scale()
     post = calc_post(raw, model, log=True, device=device)
     seq, score, pos = decode_post(post, model, device=device, **kwargs)
-    return seq, score, pos, raw.start, raw.end, None
+    base_probs = posterior_crf(post.data()) if with_base_probs else None
+    return seq, score, pos, raw.start, raw.end, base_probs

@@ -1,4 +1,5 @@
-"""Command line of the port: the `raw` subcommand for the rgrgr models.
+"""Command line of the port: the `raw` subcommand for the rgrgr and rnnrf
+models.
 
 Counterpart of scrappie_tpu/cli/main.py (`raw`, FASTA and SAM output),
 with the same flags for what the port runs, plus --device. Run as
@@ -11,7 +12,7 @@ import argparse
 import json
 import sys
 
-RGRGR_MODELS = ("rgrgr_r94", "rgrgr_r941", "rgrgr_r10")
+RAW_MODELS = ("rgrgr_r94", "rgrgr_r941", "rgrgr_r10", "rnnrf_r94")
 
 
 def _trim_pair(s: str) -> tuple[int, int]:
@@ -76,12 +77,17 @@ def build_parser() -> argparse.ArgumentParser:
                      default="reference",
                      help="Decode calibration preset: 'reference' keeps zero "
                           "penalties; 'real' applies the per-model stay/skip "
-                          "optimum. Explicit --stay/--skip flags win.")
-    raw.add_argument("--model", default="rgrgr_r94", choices=RGRGR_MODELS,
+                          "optimum. Explicit --stay/--skip/--crf-emit-bias "
+                          "flags win.")
+    raw.add_argument("--model", default="rgrgr_r94", choices=RAW_MODELS,
                      help="Raw model to use")
     raw.add_argument("--homopolymer", "-H", default="mean",
                      choices=["nochange", "mean"],
                      help="Homopolymer run calc.")
+    raw.add_argument("--crf-emit-bias", type=float, default=0.0,
+                     help="Decode-time additive prior on CRF transitions "
+                          "into emitting states (rnnrf only; negative "
+                          "calls fewer bases)")
     raw.add_argument("--chunk-len", type=int, default=10000,
                      help="Chunk length in samples")
     raw.add_argument("--overlap", type=int, default=1000,
@@ -118,7 +124,8 @@ def main_raw(args) -> int:
         varseg_chunk=args.segmentation[0], varseg_thresh=args.segmentation[1],
         stay_pen=args.stay_pen, skip_pen=args.skip_pen,
         local_pen=args.local_pen, use_slip=args.use_slip,
-        homopolymer=args.homopolymer)
+        homopolymer=None if args.model == "rnnrf_r94" else args.homopolymer,
+        crf_emit_bias=args.crf_emit_bias)
     calibration.apply(args.model, args.calibration, call_kwargs)
 
     results = engine.basecall_files(args.files, limit=args.limit, **call_kwargs)

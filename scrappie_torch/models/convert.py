@@ -16,10 +16,11 @@ from scrappie_torch.device import as_device
 from scrappie_tpu.models import registry
 from scrappie_tpu.models.specs import RAW_MODELS
 
+#: Model kinds the port runs.
+PORTED_KINDS = ("rgrgr", "rnnrf")
 #: ROADMAP.md queue-1 item that ports each model kind still missing.
 _WAITING_KINDS = {
     "raw": "ROADMAP.md queue 1 item 10 (raw_r94)",
-    "rnnrf": "ROADMAP.md queue 1 item 11 (rnnrf_r94)",
     "events": "ROADMAP.md queue 1 item 12 (events)",
 }
 
@@ -33,8 +34,8 @@ def params_from_numpy(params: dict[str, np.ndarray],
             for k, v in params.items()}
 
 
-def rgrgr_spec(model: str):
-    """The registry spec of an rgrgr model; other kinds raise
+def raw_spec(model: str):
+    """The registry spec of an rgrgr or rnnrf model; other kinds raise
     NotImplementedError naming the ROADMAP item that ports them."""
     if model not in RAW_MODELS:
         if model == "nanonet_events":
@@ -42,7 +43,7 @@ def rgrgr_spec(model: str):
                 f"model {model!r} is not ported yet: {_WAITING_KINDS['events']}")
         raise KeyError(f"Model type {model!r} not recognised.")
     spec = RAW_MODELS[model]
-    if spec.kind != "rgrgr":
+    if spec.kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"model {model!r} is not ported yet: {_WAITING_KINDS[spec.kind]}")
     return spec

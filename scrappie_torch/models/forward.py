@@ -1,9 +1,13 @@
-"""Forward passes of the rgrgr networks.
+"""Forward passes of the rgrgr and rnnrf networks.
 
-Counterpart of scrappie_tpu/models/forward.py:rgrgr_posterior and
-rgrgr_posterior_tm (graph: ref src/networks.c:250-394): conv, ELU (or
-tanh), five alternating GRU layers through ops/gru.py, then the
-temperature softmax and robustlog over 1025 states.
+Counterpart of scrappie_tpu/models/forward.py:
+  * rgrgr_posterior and rgrgr_posterior_tm (graph: ref
+    src/networks.c:250-394): conv, ELU (or tanh), five alternating GRU
+    layers through ops/gru.py, then the temperature softmax and robustlog
+    over 1025 states;
+  * rnnrf_transitions, rnnrf_transitions_tm and rnnrf_features (ref
+    src/networks.c:567-615): conv, ELU, five residual GRU layers, then the
+    globalnorm CRF head over 25 transitions, always in log space.
 """
 
 from __future__ import annotations
@@ -11,9 +15,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from scrappie_torch.models.convert import params_from_numpy, rgrgr_spec
-from scrappie_torch.nn.layers import robustlog, softmax_with_temperature
-from scrappie_torch.ops.pipeline import rgrgr_basecall_fused, rgrgr_features_tm
+from scrappie_torch.models.convert import params_from_numpy, raw_spec
+from scrappie_torch.nn.layers import globalnorm_tm, robustlog, softmax_with_temperature
+from scrappie_torch.ops.pipeline import (
+    rgrgr_basecall_fused,
+    rgrgr_features_tm,
+    rnnrf_basecall_fused,
+    rnnrf_features_tm,
+)
 from scrappie_tpu.models import registry
 
 
@@ -31,28 +40,59 @@ def rgrgr_posterior(params, sig, **kwargs):
     return rgrgr_posterior_tm(params, sig, **kwargs).transpose(0, 1)
 
 
-class RgrgrModel(nn.Module):
-    """An rgrgr network whose weights are buffers on one device."""
+def rnnrf_transitions_tm(params, sig, *, conv_activation="elu", stride=2):
+    """sig [B, T, 1] -> CRF transitions [nblock, B, 25], time-major."""
+    x = rnnrf_features_tm(params, sig, conv_activation, stride)
+    return globalnorm_tm(x, params["FF_W"], params["FF_b"])
+
+
+def rnnrf_transitions(params, sig, *, conv_activation="elu", stride=2,
+                      min_prob=1e-5, tempW=1.0, tempb=1.0, return_log=True):
+    """sig [B, T, 1] -> CRF transitions [B, nblock, 25]. Always log space:
+    min_prob and the temperatures do not apply, as in scrappie_tpu."""
+    del min_prob, tempW, tempb
+    if not return_log:
+        raise ValueError("rnnrf transitions are always log-space")
+    return rnnrf_transitions_tm(params, sig, conv_activation=conv_activation,
+                                stride=stride).transpose(0, 1)
+
+
+def rnnrf_features(params, sig, *, conv_activation="elu", stride=2):
+    """sig [B, T, 1] -> the features below the CRF head, [B, nblock, 96]."""
+    return rnnrf_features_tm(params, sig, conv_activation,
+                             stride).transpose(0, 1)
+
+
+class RawModel(nn.Module):
+    """A raw-signal network whose weights are buffers on one device."""
+
+    kind: str
+    default_model: str
+    default_stride: int
 
     def __init__(self, params: dict[str, torch.Tensor],
-                 conv_activation: str = "elu", stride: int = 5):
+                 conv_activation: str = "elu", stride: int | None = None):
         super().__init__()
         for name, value in params.items():
             self.register_buffer(name, value)
         self.conv_activation = conv_activation
-        self.stride = int(stride)
+        self.stride = int(self.default_stride if stride is None else stride)
 
     @classmethod
     def from_params(cls, params, device=None, *, conv_activation: str = "elu",
-                    stride: int = 5) -> "RgrgrModel":
+                    stride: int | None = None):
         """From the registry's numpy parameter dict (see convert.py)."""
         return cls(params_from_numpy(params, device), conv_activation, stride)
 
     @classmethod
-    def from_registry(cls, model: str = "rgrgr_r94", device=None) -> "RgrgrModel":
-        """The named rgrgr model with the repository's weights."""
-        spec = rgrgr_spec(model)
-        return cls.from_params(registry.load_params(model), device,
+    def from_registry(cls, model: str | None = None, device=None):
+        """The named model, of this class's kind, with the repository's
+        weights."""
+        spec = raw_spec(cls.default_model if model is None else model)
+        if spec.kind != cls.kind:
+            raise ValueError(f"{spec.name!r} is an {spec.kind} model, not "
+                             f"{cls.kind}")
+        return cls.from_params(registry.load_params(spec.name), device,
                                conv_activation=spec.conv_activation,
                                stride=spec.stride)
 
@@ -63,6 +103,14 @@ class RgrgrModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.conv_W.device
+
+
+class RgrgrModel(RawModel):
+    """rgrgr_{r94,r941,r10}: a 1025-state transducer posterior."""
+
+    kind = "rgrgr"
+    default_model = "rgrgr_r94"
+    default_stride = 5
 
     def forward(self, sig, min_prob=1e-5, tempW=1.0, tempb=1.0,
                 return_log=True):
@@ -77,3 +125,35 @@ class RgrgrModel(nn.Module):
         return rgrgr_basecall_fused(self.params, sig,
                                     conv_activation=self.conv_activation,
                                     stride=self.stride, **kwargs)
+
+
+class RnnrfModel(RawModel):
+    """rnnrf_r94: CRF transitions over 5 states."""
+
+    kind = "rnnrf"
+    default_model = "rnnrf_r94"
+    default_stride = 2
+
+    def forward(self, sig, min_prob=1e-5, tempW=1.0, tempb=1.0,
+                return_log=True):
+        """sig [B, T, 1] -> CRF transitions [B, nblock, 25]."""
+        return rnnrf_transitions(self.params, sig,
+                                 conv_activation=self.conv_activation,
+                                 stride=self.stride, min_prob=min_prob,
+                                 tempW=tempW, tempb=tempb,
+                                 return_log=return_log)
+
+    def basecall_fused(self, sig, emit_bias: float = 0.0):
+        """The fast path: sig [B, T, 1] -> (score [B], path [B, nblock+1])."""
+        return rnnrf_basecall_fused(self.params, sig,
+                                    conv_activation=self.conv_activation,
+                                    stride=self.stride, emit_bias=emit_bias)
+
+
+_MODELS = {cls.kind: cls for cls in (RgrgrModel, RnnrfModel)}
+
+
+def load_model(model: str, device=None) -> RawModel:
+    """The named model with the repository's weights, as the class of its
+    kind; kinds not ported raise NotImplementedError (convert.raw_spec)."""
+    return _MODELS[raw_spec(model).kind].from_registry(model, device)

@@ -1,4 +1,4 @@
-"""Layers of the rgrgr networks as plain functions on tensors.
+"""Layers of the rgrgr and rnnrf networks as plain functions on tensors.
 
 Counterpart of scrappie_tpu/nn/layers.py, with its layouts: features are
 [..., T, C] and conv weights [winlen, Cin, Cout]. The convolution stays a
@@ -61,3 +61,41 @@ def softmax_with_temperature(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     reference does (ref src/layers.c:333-357)."""
     y = feedforward(x * (tempb / tempW), W, b) / tempb
     return torch.softmax(y, dim=-1)
+
+
+def crf_partition_function(trans: torch.Tensor) -> torch.Tensor:
+    """Log partition function of the linear CRF (ref src/layers.c:835-871),
+    a loop over time: trans [..., T, nstate^2], entry [t, to*nstate + from]
+    the energy of moving from -> to at block t -> logZ [...]. The plain
+    twin of the partition kernel (ops/crf.py)."""
+    nstate = int(round(trans.shape[-1] ** 0.5))
+    if nstate * nstate != trans.shape[-1]:
+        raise ValueError(f"last axis {trans.shape[-1]} is not a square")
+    tmat = trans.reshape(*trans.shape[:-1], nstate, nstate)  # [..., T, to, from]
+    prev = trans.new_zeros((*trans.shape[:-2], nstate))
+    for t in range(trans.shape[-2]):
+        prev = torch.logsumexp(tmat[..., t, :, :] + prev[..., None, :], dim=-1)
+    return torch.logsumexp(prev, dim=-1)
+
+
+def globalnorm_tm(x_tm: torch.Tensor, W: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """Time-major globalnorm: x [T, B, C] -> transitions [T, B, 25], the
+    affine map less logZ / T per row. logZ comes from ops/crf.py's
+    crf_partition_tm: the partition kernel for a CUDA tensor."""
+    from scrappie_torch.ops.crf import crf_partition_tm
+
+    trans = feedforward(x_tm, W, b)
+    logZ = crf_partition_tm(trans) / trans.shape[0]
+    return trans - logZ[:, None]
+
+
+def globalnorm(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Affine map followed by global CRF normalisation (ref
+    src/layers.c:874-889): x [..., T, C] -> [..., T, 25] (one or no leading
+    batch axis)."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[None]
+    out = globalnorm_tm(x.transpose(0, 1).contiguous(), W, b).transpose(0, 1)
+    return out[0] if squeeze else out

@@ -19,6 +19,9 @@ LAUNCHES: dict[str, int] = {
     "viterbi_fwd": 0,
     "viterbi_backtrace": 0,
     "viterbi_fused": 0,
+    "crf_fwd": 0,
+    "crf_backtrace": 0,
+    "crf_partition": 0,
 }
 
 
@@ -54,3 +57,15 @@ def check_kernel_input(name: str, t: torch.Tensor, shape: tuple,
 
 def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def first_argmax(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(max, index of its first occurrence) along `dim`: the tie rule of
+    the JAX programs' argmax, which the kernels copy."""
+    m = x.amax(dim, keepdim=True)
+    n = x.shape[dim]
+    shape = [1] * x.dim()
+    shape[dim] = n
+    idx = torch.arange(n, device=x.device).view(shape)
+    first = torch.where(x == m, idx, n).amin(dim)
+    return m.squeeze(dim), first

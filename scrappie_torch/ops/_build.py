@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Counterpart of scrappie_tpu/native/build.py. Every `csrc/*.cu` is
-compiled in one nvcc call for sm_90a into a shared library with a plain C
-interface, under `build/scrappie_torch/` at the root of the checkout, at
-first use. The file name carries a hash of the sources and flags, so an
-edited source builds anew and an unchanged one loads the library already
-there. nvcc's output (with `-Xptxas -v`: registers, shared memory and
-spills per kernel) is kept beside the library as a `.log`.
+Counterpart of scrappie_tpu/native/build.py. At first use every
+`csrc/*.cu` is compiled for sm_90a by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain
+C interface, under `build/scrappie_torch/` at the root of the checkout.
+The file name carries a hash of the sources and flags, so an edited source
+builds anew and an unchanged one loads the library already there. nvcc's
+output (with `-Xptxas -v`: registers, shared memory and spills per kernel)
+is kept beside the library as a `.log`.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "scrappie_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +36,9 @@ _SIGNATURES = {
     "scrappie_viterbi_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                                _F, _F, _F, _F, _I, _P),
     "scrappie_viterbi_backtrace": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "scrappie_crf_fwd": (_P, _P, _P, _I, _I, _P),
+    "scrappie_crf_partition": (_P, _P, _I, _I, _P),
+    "scrappie_crf_backtrace": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 
@@ -66,16 +71,37 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for src, _obj, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(f"== {src.name}\n{stdout}{stderr}")
+        if proc.returncode:
+            failed.append(f"{src.name} (code {proc.returncode}):\n{stderr}")
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, out)
+    try:
+        if not failed:
+            proc = subprocess.run(
+                [nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                 *(str(obj) for _src, obj, _proc in jobs)],
+                capture_output=True, text=True)
+            log.append(f"== link\n{proc.stdout}{proc.stderr}")
+            if proc.returncode:
+                failed.append(f"link (code {proc.returncode}):\n{proc.stderr}")
+        out.with_suffix(".log").write_text("".join(log))
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(tmp, out)
+    finally:
+        for _src, obj, _proc in jobs:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -34,17 +34,6 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def _first_argmax(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(max, index of its first occurrence) along `dim`."""
-    m = x.amax(dim, keepdim=True)
-    n = x.shape[dim]
-    shape = [1] * x.dim()
-    shape[dim] = n
-    idx = torch.arange(n, device=x.device).view(shape)
-    first = torch.where(x == m, idx, n).amin(dim)
-    return m.squeeze(dim), first
-
-
 def _check_nhist(nhist: int, use_slip: bool) -> None:
     group = 64 if use_slip else 16
     if nhist % group:
@@ -80,7 +69,7 @@ def viterbi_scores_tm_plain(lp_tm, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
         tbt = torch.full((B, nhist), -1, dtype=torch.int64, device=dev)
         for n, pen in moves:
             q = nhist // n
-            m, r = _first_argmax(hist.view(B, n, q), 1)
+            m, r = ops.first_argmax(hist.view(B, n, q), 1)
             cand = lph + m.repeat_interleave(n, dim=1)
             if pen is not None:
                 cand = cand - pen
@@ -95,7 +84,7 @@ def viterbi_scores_tm_plain(lp_tm, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
 
         local_stay = torch.clamp(stay_lp, min=-local_pen)
         end_score = end + local_stay
-        m, entb = _first_argmax(hist, 1)
+        m, entb = ops.first_argmax(hist, 1)
         enter = m - local_pen
         better = enter > end_score
         end = torch.where(better, enter, end_score)
@@ -113,7 +102,7 @@ def viterbi_backtrace_tm_plain(final, tb_tm):
     leading START and trailing END runs transcoded to -1."""
     T, B, nst2 = tb_tm.shape
     START, END = nst2 - 2, nst2 - 1
-    score, cur = _first_argmax(final, 1)
+    score, cur = ops.first_argmax(final, 1)
     path = torch.empty((B, T + 1), dtype=torch.int64, device=final.device)
     for t in range(T - 1, -1, -1):
         state = tb_tm[t].gather(1, cur[:, None])[:, 0].long()

@@ -1,4 +1,5 @@
-"""Batched multi-read basecalling engine for the rgrgr models, one device.
+"""Batched multi-read basecalling engine for the rgrgr and rnnrf models,
+one device.
 
 Counterpart of scrappie_tpu/parallel/runner.py:BasecallEngine, with an
 explicit `device` in place of the JAX mesh:
@@ -16,6 +17,11 @@ Three paths, as in the JAX engine:
   * stitch on the host (homopolymer "mean"): chunk posteriors come to the
     host, are stitched per read, decoded in length buckets, and the
     homopolymer correction reads the whole-read posterior.
+
+For rnnrf_r94 the "posterior" is the CRF transitions [nblock, 25], the
+decode is the CRF Viterbi (ops/crf.py) and the bases come from
+crfpath_to_basecall. Homopolymer correction does not apply to it, so its
+stitch mode always stitches on the device.
 """
 
 from __future__ import annotations
@@ -26,10 +32,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from scrappie_torch.decode.crf import crfpath_to_basecall
 from scrappie_torch.decode.transducer import viterbi_decode_batch
 from scrappie_torch.device import as_device
-from scrappie_torch.models.convert import rgrgr_spec
-from scrappie_torch.models.forward import RgrgrModel
+from scrappie_torch.models.convert import raw_spec
+from scrappie_torch.models.forward import load_model
+from scrappie_torch.ops.crf import NS, add_emit_bias, crf_viterbi_tm
 from scrappie_torch.utils.tracing import Stage
 from scrappie_tpu.parallel import chunk as chunklib
 from scrappie_tpu.post.homopolymer import HomopolymerMode, homopolymer_path
@@ -87,6 +95,22 @@ def _gather_decode(post, flat_idx, stay_pen, skip_pen, local_pen, use_slip):
     return viterbi_decode_batch(lp, stay_pen, skip_pen, local_pen, use_slip)
 
 
+def _gather_decode_crf(trans, flat_idx, emit_bias):
+    """CRF counterpart of _gather_decode: trans [N, nb, 25] chunk
+    transitions. The appended neutral block allows only moves into the
+    blank state, at cost 0 (as chunk.neutral_pad_crf builds on the host),
+    so pad blocks emit nothing and carry the score unchanged. The gather
+    is time-major, [T, R, 25], as the CRF kernels take it; the emit bias is
+    added after it."""
+    N, nb, nsq = trans.shape
+    neutral = torch.full((1, nsq), -1e30, dtype=trans.dtype, device=trans.device)
+    neutral[0, (NS - 1) * NS :] = 0.0
+    flat = torch.cat([trans.reshape(N * nb, nsq), neutral])
+    # a transposed index would give the gather its strides: copy it first
+    return crf_viterbi_tm(add_emit_bias(flat[flat_idx.T.contiguous()],
+                                        emit_bias))
+
+
 class BasecallEngine:
     """Batched basecalling of many reads on one device.
 
@@ -100,7 +124,7 @@ class BasecallEngine:
                  min_prob: float = 1e-5, tempW: float = 1.0, tempb: float = 1.0,
                  mode: str = "stitch"):
         self.model = model
-        self.spec = rgrgr_spec(model)
+        self.spec = raw_spec(model)
         if mode not in ("stitch", "fast"):
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
@@ -111,7 +135,7 @@ class BasecallEngine:
                                    stride)
         self.overlap = _round_up(1000 if overlap is None else overlap, stride)
         self.batch_size = int(batch_size)
-        self.net = RgrgrModel.from_registry(model, self.device)
+        self.net = load_model(model, self.device)
         self.stage = Stage()
 
     # ------------------------------------------------------------- device
@@ -185,7 +209,7 @@ class BasecallEngine:
         return np.concatenate(scores)[:N], np.concatenate(paths)[:N]
 
     def _stitch_decode_device(self, prepped, read_chunks, stay_pen, skip_pen,
-                              local_pen, use_slip):
+                              local_pen, use_slip, crf_emit_bias=0.0):
         """Exact stitch with the posterior never leaving the device: chunk
         posteriors are gathered into whole-read matrices (padded to the
         decode bucket with neutral blocks) and decoded there; only scores
@@ -241,10 +265,14 @@ class BasecallEngine:
                 off += plan.nchunk
 
             with self.stage("decode"):
-                scores_d, paths_d = _gather_decode(
-                    post, torch.as_tensor(flat_idx, device=self.device),
-                    float(stay_pen), float(skip_pen), float(local_pen),
-                    bool(use_slip))
+                idx = torch.as_tensor(flat_idx, device=self.device)
+                if self.spec.kind == "rnnrf":
+                    scores_d, paths_d = _gather_decode_crf(
+                        post, idx, float(crf_emit_bias))
+                else:
+                    scores_d, paths_d = _gather_decode(
+                        post, idx, float(stay_pen), float(skip_pen),
+                        float(local_pen), bool(use_slip))
             inflight.append((group, scores_d, paths_d))
             if len(inflight) >= PIPELINE_DEPTH:
                 with self.stage("collect"):
@@ -279,6 +307,16 @@ class BasecallEngine:
                 nb = logposts[g].shape[0]
                 results[g] = (float(scores[j]), paths[j, : nb + 1].copy())
         return results
+
+    def _result(self, rt, path, score, nblock: int) -> ReadResult:
+        """A read's result from its whole-read path [nblock+1]."""
+        pos = np.zeros(nblock + 1, dtype=np.int64)
+        if self.spec.kind == "rnnrf":
+            seq = crfpath_to_basecall(path, pos)
+        else:
+            seq = overlapper(path, self.spec.nstate - 1, pos)
+        return ReadResult(rt.uuid, seq, score, nblock, pos, rt.start, rt.end,
+                          rt.n)
 
     # ---------------------------------------------------------------- API
 
@@ -317,6 +355,7 @@ class BasecallEngine:
                                stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
                                use_slip=False,
                                homopolymer: HomopolymerMode | str | None = None,
+                               crf_emit_bias: float = 0.0,
                                with_qualities: bool = False) -> list[ReadResult]:
         if with_qualities:
             raise NotImplementedError(
@@ -360,6 +399,8 @@ class BasecallEngine:
                     yield chunks
 
             def call(x):
+                if self.spec.kind == "rnnrf":
+                    return self.net.basecall_fused(x, emit_bias=crf_emit_bias)
                 return self.net.basecall_fused(
                     x, min_prob=self._min_prob, tempW=self._tempW,
                     tempb=self._tempb, stay_pen=stay_pen, skip_pen=skip_pen,
@@ -381,10 +422,7 @@ class BasecallEngine:
                     scores[off + i] * (hi - lo) / plan.nblock_chunk
                     for i, (lo, hi) in enumerate(keep)))
                 nblock = plan.nblock_total
-                pos = np.zeros(nblock + 1, dtype=np.int64)
-                seq = overlapper(path, self.spec.nstate - 1, pos)
-                results.append(ReadResult(rt.uuid, seq, score, nblock, pos,
-                                          rt.start, rt.end, rt.n))
+                results.append(self._result(rt, path, score, nblock))
             return results
 
         # Stitch modes: prepare every read first (the device stitch groups
@@ -403,9 +441,10 @@ class BasecallEngine:
         if not all_chunks:
             return [_no_call(rs) for rs in signals]
 
-        if _no_homopolymer(homopolymer):
+        if self.spec.kind == "rnnrf" or _no_homopolymer(homopolymer):
             decoded = self._stitch_decode_device(
-                prepped, all_chunks, stay_pen, skip_pen, local_pen, use_slip)
+                prepped, all_chunks, stay_pen, skip_pen, local_pen, use_slip,
+                crf_emit_bias)
             results = []
             for i, (entry, rs) in enumerate(zip(prepped, signals)):
                 if entry is None:
@@ -413,11 +452,7 @@ class BasecallEngine:
                     continue
                 rt, _norm, plan, _ = entry
                 score, path = decoded[i]
-                nblock = plan.nblock_total
-                pos = np.zeros(nblock + 1, dtype=np.int64)
-                seq = overlapper(path, self.spec.nstate - 1, pos)
-                results.append(ReadResult(rt.uuid, seq, score, nblock, pos,
-                                          rt.start, rt.end, rt.n))
+                results.append(self._result(rt, path, score, plan.nblock_total))
             return results
 
         # Host stitch: one device pass over every chunk of every read, then

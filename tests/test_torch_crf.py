@@ -1,0 +1,171 @@
+"""The port's CRF twins (which the CPU runs in place of csrc/crf.cu)
+against the JAX package: the lax.scan program decode/crf._crf_viterbi, the
+Pallas kernels of ops/crf.py in interpret mode, and
+nn.layers.crf_partition_function.
+
+The Viterbi DP only adds and takes maxima, in the same order and with the
+same tie rule (first maximum over `from`), so tracebacks, finals, paths and
+scores must be identical. The partition function takes logsumexp over five
+terms, whose sum the two libraries may take in another order: it is held to
+1e-6. The posterior is the exponential of a difference of two such sums,
+each of order T times the transitions, so its probabilities carry their
+absolute error: they are held to an absolute 1e-5."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scrappie_torch import ops
+from scrappie_torch.decode import crf as tdec
+from scrappie_torch.nn import layers as tl
+from scrappie_torch.ops import crf as tc
+from scrappie_tpu import ops as jops
+from scrappie_tpu.decode import crf as jdec
+from scrappie_tpu.nn import layers as jl
+from scrappie_tpu.ops import crf as jc
+
+torch.set_num_threads(1)
+LSE_TOL = dict(rtol=1e-6, atol=1e-6)
+SHAPES = [(1, 1), (3, 1), (5, 17), (2, 40), (9, 33)]
+IDS = [f"B{b}-T{t}" for b, t in SHAPES]
+
+
+@pytest.fixture(autouse=True)
+def _jax_scan_reference():
+    # The JAX scan programs must not dispatch to Pallas themselves.
+    with jops.pallas(False):
+        yield
+
+
+def _trans(B, T, seed, ties=False):
+    rng = np.random.default_rng(seed)
+    if ties:
+        # a few integer levels: equal candidates at almost every step, so
+        # the strict-`>` first-max rule decides most moves
+        return rng.integers(-3, 1, (B, T, 25)).astype(np.float32)
+    return (2.0 * rng.standard_normal((B, T, 25))).astype(np.float32)
+
+
+def _tm(a):
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, 1, 0)))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_forward_and_backtrace_match_scan(shape, ties):
+    B, T = shape
+    tr = _trans(B, T, seed=B * 100 + T, ties=ties)
+    jscore, jpath = jdec._crf_viterbi(jnp.asarray(tr))
+    score, path = tc.crf_viterbi_tm(_tm(tr))
+    assert path.dtype == torch.int32 and path.shape == (B, T + 1)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(jpath))
+    np.testing.assert_array_equal(score.numpy(), np.asarray(jscore))
+    kscore, kpath = tc.crf_viterbi_kernel(torch.from_numpy(tr))
+    assert torch.equal(kpath, path) and torch.equal(kscore, score)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_forward_and_backtrace_match_pallas(shape, ties):
+    B, T = shape
+    tr = _trans(B, T, seed=B * 200 + T, ties=ties)
+    # the JAX kernel's layout: [T, 32, B], transitions and batch padded
+    jt = jnp.pad(jnp.moveaxis(jnp.asarray(tr), 0, 2),
+                 ((0, 0), (0, jc.TR - 25), (0, 128 - B)))
+    jfinal, jtb = jc.crf_viterbi_scores_tm(jt, interpret=True)
+    jscore, jpath = jc.crf_backtrace_tm(jfinal, jtb, interpret=True)
+    ops.reset_launches()
+    final, tb = tc.crf_viterbi_scores_tm(_tm(tr))
+    score, path = tc.crf_backtrace_tm(final, tb)
+    assert ops.LAUNCHES["crf_fwd"] == ops.LAUNCHES["crf_backtrace"] == 0
+    assert tb.dtype == torch.int8 and tb.shape == (T, 5, B)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jtb)[:, :5, :B])
+    np.testing.assert_array_equal(final.numpy(), np.asarray(jfinal)[:5, :B].T)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(jpath)[:B])
+    np.testing.assert_array_equal(score.numpy(), np.asarray(jscore)[:B])
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_partition_matches_jax(shape, ties):
+    B, T = shape
+    tr = _trans(B, T, seed=B * 300 + T, ties=ties)
+    ref = np.asarray(jl.crf_partition_function(jnp.asarray(tr)))
+    ops.reset_launches()
+    logz = tc.crf_partition_tm(_tm(tr))
+    assert ops.LAUNCHES["crf_partition"] == 0
+    np.testing.assert_allclose(logz.numpy(), ref, **LSE_TOL)
+    np.testing.assert_allclose(tl.crf_partition_function(torch.from_numpy(tr[0])),
+                               ref[0], **LSE_TOL)
+
+
+def test_globalnorm_matches_jax():
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-2, 2, (3, 21, 96)).astype(np.float32)
+    W = (0.3 * rng.standard_normal((96, 25))).astype(np.float32)
+    b = rng.standard_normal(25).astype(np.float32)
+    ref = np.asarray(jl.globalnorm(jnp.asarray(x), jnp.asarray(W), jnp.asarray(b)))
+    args = [torch.from_numpy(a) for a in (W, b)]
+    out = tl.globalnorm(torch.from_numpy(x), *args)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    out1 = tl.globalnorm(torch.from_numpy(x[1]), *args)
+    np.testing.assert_allclose(out1.numpy(), ref[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("emit_bias", [0.0, -1.0, 0.7])
+@pytest.mark.parametrize("ties", [False, True])
+def test_decode_crf_matches_jax(emit_bias, ties):
+    tr = _trans(4, 23, seed=7, ties=ties)
+    jscore, jpath = jdec.decode_crf(tr, emit_bias=emit_bias)
+    score, path = tdec.decode_crf(tr, emit_bias=emit_bias, device="cpu")
+    np.testing.assert_array_equal(path, jpath)
+    np.testing.assert_array_equal(score, jscore)
+    s1, p1 = tdec.decode_crf(tr[2], emit_bias=emit_bias, device="cpu")
+    js1, jp1 = jdec.decode_crf(tr[2], emit_bias=emit_bias)
+    np.testing.assert_array_equal(p1, jp1)
+    assert isinstance(s1, float) and s1 == js1
+
+
+def test_emit_bias_moves_only_transitions_into_emitting_states():
+    tr = torch.from_numpy(_trans(2, 5, seed=8))
+    out = tc.add_emit_bias(tr, -1.5)
+    assert torch.equal(out[..., :20], tr[..., :20] + np.float32(-1.5))
+    assert torch.equal(out[..., 20:], tr[..., 20:])
+    assert tc.add_emit_bias(tr, 0.0) is tr
+
+
+def test_decode_crf_assoc_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdec.decode_crf(_trans(1, 4, seed=9), impl="assoc", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdec.posterior_crf(_trans(1, 4, seed=9), impl="assoc")
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_posterior_crf_matches_jax(batched):
+    tr = _trans(3, 19, seed=10)
+    tr = tr if batched else tr[1]
+    ref = jdec.posterior_crf(tr)
+    post = tdec.posterior_crf(tr)
+    assert post.shape == ref.shape
+    np.testing.assert_allclose(post, ref, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(post.sum(-1), 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("npos", [None, 6])
+def test_crfpath_to_basecall_matches_jax(npos):
+    path = np.array([4, 0, 0, 4, 3, 1, 4, 4, 2, 2, 0], dtype=np.int32)
+    pos = np.zeros(len(path), dtype=np.int64)
+    jpos = np.zeros(len(path), dtype=np.int64)
+    seq = tdec.crfpath_to_basecall(path, pos, npos)
+    assert seq == jdec.crfpath_to_basecall(path, jpos, npos)
+    np.testing.assert_array_equal(pos, jpos)
+    assert tdec.crfpath_to_basecall(path) == "AATCGG"
+
+
+def test_wrappers_check_the_transition_width():
+    with pytest.raises(ValueError, match="25"):
+        tc.crf_viterbi_scores_tm(torch.zeros((4, 2, 24)))
+    with pytest.raises(ValueError, match="25"):
+        tc.crf_partition_tm(torch.zeros((4, 2, 5, 5)))

@@ -16,6 +16,7 @@ import torch
 from scrappie_torch import ops
 from scrappie_torch.device import as_device
 from scrappie_torch.ops import _build
+from scrappie_torch.ops.crf import crf_viterbi_scores_tm
 from scrappie_torch.ops.gru import gru_layer_tm, gru_layer_tm_plain
 from scrappie_torch.ops.viterbi import (
     viterbi_backtrace_tm,
@@ -41,7 +42,8 @@ def test_main_path_modules_import_no_jax():
     code = ("import sys\n"
             "import scrappie_torch, scrappie_torch.api, "
             "scrappie_torch.parallel.runner, scrappie_torch.cli.main, "
-            "scrappie_torch.ops.pipeline, scrappie_torch.ops._build\n"
+            "scrappie_torch.ops.pipeline, scrappie_torch.ops._build, "
+            "scrappie_torch.ops.crf, scrappie_torch.decode.crf\n"
             "bad = sorted(m for m in ('jax', 'jaxlib', 'h5py') if m in sys.modules)\n"
             "assert not bad, bad\n"
             "import torch\n"
@@ -98,6 +100,8 @@ def test_wrappers_refuse_other_devices():
         viterbi_scores_tm(meta)
     with pytest.raises(ValueError, match="several devices"):
         gru_layer_tm(t["x"], t["iW"].to("meta"), t["b"], t["sW"], t["sW2"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        crf_viterbi_scores_tm(torch.zeros((3, 2, 25), device="meta"))
 
 
 def test_kernel_input_checks():

@@ -103,7 +103,7 @@ def test_calc_post_and_decode_post_match_jax():
     assert seq == jseq and abs(score - jscore) <= 1e-5 * abs(jscore) + 1e-3
 
 
-@pytest.mark.parametrize("model", ["raw_r94", "rnnrf_r94"])
+@pytest.mark.parametrize("model", ["raw_r94", "nanonet_events"])
 def test_other_model_kinds_are_not_ported_yet(model):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapi.basecall_raw(synthetic_signal(500, 0), model=model, device="cpu")
