@@ -32,10 +32,23 @@ if any phase fails:
      mode on the same 16 reads, checks the launch counters and every
      read's sequence, and compares two reads with the port's CPU run;
   9. times the rnnrf fused path at B = 64 x 10 000 samples, stage by stage,
-     and profiles the rnnrf engine in both modes.
+     and profiles the rnnrf engine in both modes;
+ 10. holds the peephole-LSTM kernel against its twin with the events
+     network's weights at T = 2048 events, B = 8 and 64, C = 12 and 96, in
+     both directions, and times the layer, its projection and its
+     recurrence (and torch.matmul on the same projection); then holds the
+     fused head + Viterbi, forward and backtrace kernels against their
+     twins on the second stage's output and the FF3 head's posterior;
+ 11. runs BasecallEngine("nanonet_events", device="cuda") in fast and
+     stitch mode on the same 16 reads, checks the launch counters and every
+     read's sequence, and compares two reads with the port's CPU run;
+ 12. times the events fused path at B = 64 x 2048 events, stage by stage,
+     and profiles the events engine in both modes.
 
-The last lines are the kernel table, the card's name and power limit as
-nvidia-smi gives them, and {"ok": true, "device": {...}}.
+The last lines are the kernel table (each kernel's time beside its bound,
+the least time the card could take for the same work), the card's name
+and power limit as nvidia-smi gives them, and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -55,6 +68,8 @@ FUSED_RTOL = 1e-5
 FUSED_MIN_SAME_ROWS = 0.99
 PARTITION_RTOL = 1e-5    # expf/logf against torch's logsumexp, T = 5000
 EMIT_BIAS = -1.0
+T_EVENTS = 2048          # events in a chunk of the events engine
+LSTM_ATOL = 1e-4
 NREADS = 16
 READ_LEN = (20000, 100000)
 # the CLI's --stay/--skip/--local/--slip and a calibration's temperatures
@@ -76,9 +91,16 @@ KERNELS = {
     "crf_partition": ("scrappie_torch/csrc/crf.cu",
                       "scrappie_tpu/nn/layers.py:133 (a lax.scan; no TPU "
                       "kernel)"),
+    "lstm_layer": ("scrappie_torch/csrc/lstm.cu", "scrappie_tpu/ops/lstm.py:53"),
 }
 RGRGR_KERNELS = ("gru_layer", "viterbi_fwd", "viterbi_backtrace", "viterbi_fused")
 RNNRF_KERNELS = ("gru_layer", "crf_fwd", "crf_backtrace", "crf_partition")
+EVENTS_KERNELS = {"fast": ("lstm_layer", "viterbi_fused", "viterbi_backtrace"),
+                  "stitch": ("lstm_layer", "viterbi_fwd", "viterbi_backtrace")}
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
+# fp32 outside the tensor cores (the kernels are exact fp32, TF32 off).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_OPS_PER_S = 67e12
 
 
 def emit(obj) -> None:
@@ -139,6 +161,66 @@ def build() -> None:
     emit({"phase": "build", "seconds": round(seconds, 3), "library": path.name})
 
 
+def bound(nbytes: float, nops: float) -> dict:
+    """The least time the card could take for work that moves nbytes (each
+    input read once, each output written once) and does nops fp32
+    operations (a multiply-add counts 2): the larger of the two times at
+    the published peaks, and which one it is."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def viterbi_ops(T: int, B: int, nhist: int, use_slip: bool = False) -> float:
+    """What a step of the decode needs for each row: the max of each group
+    of predecessors (n - 1 compares for each of the nhist / n groups of
+    n = 4 steps, 16 skips and 64 slips), an add and a compare for each
+    history state and move (stay, step, skip, start, slip), and the max
+    over the states into the end state."""
+    groups = (4, 16, 64) if use_slip else (4, 16)
+    moves = 2 + len(groups)
+    per_step = (sum((n - 1) * (nhist // n) for n in groups)
+                + 2 * moves * nhist + nhist)
+    return float(T) * B * per_step
+
+
+def kernel_work(name: str, **d) -> dict:
+    """bound() of one kernel call at the shapes d. Only the products'
+    multiply-adds and the decoders' adds and maxes are counted as
+    operations (the gates' elementwise arithmetic adds a few percent), so
+    each bound is a lower bound. The backtraces read one traceback entry
+    per step and row: what the data needs, not the whole traceback."""
+    T, B = d["T"], d["B"]
+    if name == "gru_layer":
+        C, S = d["C"], d["S"]
+        return bound(4 * (T * B * (C + S) + 3 * S * (C + 1) + 3 * S * S),
+                     2 * T * B * 3 * S * (C + S))
+    if name == "lstm_layer":
+        C, S = d["C"], d["S"]
+        return bound(4 * (T * B * (C + S) + 4 * S * (C + 1) + 4 * S * S + 3 * S),
+                     2 * T * B * 4 * S * (C + S))
+    if name == "viterbi_fwd":
+        ns = d["nstate"]
+        return bound(4 * T * B * ns + 2 * T * B * (ns + 1) + 4 * B * (ns + 1),
+                     viterbi_ops(T, B, ns - 1))
+    if name == "viterbi_fused":
+        S, ns = d["S"], d["nstate"]
+        return bound(4 * (T * B * S + (S + 1) * ns + B * (ns + 1))
+                     + 2 * T * B * (ns + 1),
+                     2 * T * B * S * ns + 4 * T * B * ns
+                     + viterbi_ops(T, B, ns - 1))
+    if name == "viterbi_backtrace":
+        return bound(4 * B * d["nst2"] + 2 * T * B + 4 * B * (T + 1), T * B)
+    if name == "crf_fwd":
+        return bound(4 * T * B * 25 + T * B * 5 + 4 * B * 5, 2 * T * B * 25)
+    if name == "crf_backtrace":
+        return bound(4 * B * 5 + T * B + 4 * B * (T + 1), T * B)
+    if name == "crf_partition":  # add, max, subtract, exp, sum; 5 logs
+        return bound(4 * T * B * 25 + 4 * B, 5 * T * B * 25 + 5 * T * B)
+    raise KeyError(name)
+
+
 def synthetic_signal(n: int, rng) -> "np.ndarray":
     """Piecewise-constant current levels (about 8 samples a base) plus
     noise, in pA."""
@@ -180,6 +262,7 @@ def check_kernels(net, B: int) -> dict:
     require(err <= GRU_ATOL, f"gru max abs err {err} <= {GRU_ATOL}")
     w = [p[f"gruB1_{k}"] for k in ("iW", "b", "sW", "sW2")]
     out["gru_layer"] = {
+        **kernel_work("gru_layer", T=T_BLOCKS, B=B, C=96, S=96),
         "max_abs_err": err,
         "ms": cuda_ms(lambda: g.gru_layer_tm(x, *w, reverse=True)),
         "plain_ms": cuda_ms(lambda: g.gru_layer_tm_plain(x, *w, reverse=True))}
@@ -188,9 +271,16 @@ def check_kernels(net, B: int) -> dict:
     h = hk  # the F2 layer's output: main-path hidden features
     lp = robustlog(softmax_with_temperature(h, p["FF_W"], p["FF_b"]), 1e-5).contiguous()
     fk, tbk, errs = check_forward_and_backtrace(lp, "main path")
-    out["viterbi_fwd"] = {"max_abs_err": errs[0]}
-    out["viterbi_backtrace"] = {"max_abs_err": errs[1]}
+    nstate = lp.shape[-1]
+    out["viterbi_fwd"] = {"max_abs_err": errs[0],
+                          **kernel_work("viterbi_fwd", T=T_BLOCKS, B=B,
+                                        nstate=nstate)}
+    out["viterbi_backtrace"] = {"max_abs_err": errs[1],
+                                **kernel_work("viterbi_backtrace", T=T_BLOCKS,
+                                              B=B, nst2=nstate + 1)}
     out["viterbi_fused"] = check_fused(h, p["FF_W"], p["FF_b"], "main path")
+    out["viterbi_fused"].update(kernel_work("viterbi_fused", T=T_BLOCKS, B=B,
+                                            S=96, nstate=nstate))
     out["viterbi_fwd"]["ms"] = cuda_ms(lambda: v.viterbi_scores_tm(lp))
     out["viterbi_fwd"]["plain_ms"] = cuda_ms(lambda: v.viterbi_scores_tm_plain(lp))
     out["viterbi_backtrace"]["ms"] = cuda_ms(lambda: v.viterbi_backtrace_tm(fk, tbk))
@@ -524,8 +614,8 @@ def check_crf_kernels(rnet, B: int) -> dict:
         for name, err in check_crf(trans, what).items():
             errs[name] = max(errs.get(name, 0.0), err)
     fk, tbk = c.crf_viterbi_scores_tm(head)
-    out = {name: {"max_abs_err": errs[name]} for name in
-           ("crf_fwd", "crf_backtrace", "crf_partition")}
+    out = {name: {"max_abs_err": errs[name], **kernel_work(name, T=T_CRF, B=B)}
+           for name in ("crf_fwd", "crf_backtrace", "crf_partition")}
     out["crf_partition"]["max_rel_err"] = errs["crf_partition_rel"]
     timed = {"crf_fwd": (lambda: c.crf_viterbi_scores_tm(head),
                          lambda: c.crf_viterbi_scores_tm_plain(head)),
@@ -636,6 +726,181 @@ def throughput_rnnrf(rnet, card: str, reads: list) -> None:
                      lambda: eng.basecall_signals(reads), card)
 
 
+def events_input(enet, B: int, rng) -> "torch.Tensor":
+    """Studentised event features of B chunks of T_EVENTS events, as the
+    engine hands them to the network: [B, T_EVENTS, 4] on the card."""
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(rng.standard_normal((B, T_EVENTS, 4)).astype(np.float32),
+                           device=enet.device)
+
+
+def check_lstm_kernel(enet, B: int) -> dict:
+    """The LSTM kernel against its twin on the events network's four
+    layers (C = 12 for stage 1, 96 for stage 2; forward and backward), on
+    the features a chunk of B x T_EVENTS events gives; then the times of
+    the layer, of its projection and recurrence kernels, of torch.matmul
+    on the same projection (a yardstick the port never calls) and of the
+    twin (median of 3, a loop over T). Last, the decode kernels against
+    their twins on what the events path hands them: the fused head +
+    Viterbi on the second stage's feedforward2_tanh output with FF3, the
+    forward and backtrace on the FF3 head's log posterior."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn.layers import (feedforward, feedforward2_tanh,
+                                          robustlog, softmax_with_temperature,
+                                          window)
+    from scrappie_torch.ops import lstm as L
+
+    rng = np.random.default_rng(SEED + 20 + B)
+    p = enet.params
+    x = window(events_input(enet, B, rng), enet.winlen, 1).transpose(0, 1).contiguous()
+    rows = {}
+    for layer in (1, 2):
+        C = x.shape[-1]
+        h = {}
+        for d in ("F", "B"):
+            w = [p[f"lstm{d}{layer}_{k}"] for k in ("iW", "b", "sW", "p")]
+            hk = L.lstm_layer_tm(x, *w, reverse=(d == "B"))
+            hp = L.lstm_layer_tm_plain(x, *w, reverse=(d == "B"))
+            sync()
+            require(bool(torch.isfinite(hk).all()), f"lstm{d}{layer} kernel output finite")
+            err = float((hk - hp).abs().max())
+            require(err <= LSTM_ATOL, f"lstm{d}{layer} max abs err {err} <= {LSTM_ATOL}")
+            h[d] = hk
+            rows[f"lstm{d}{layer}"] = {"C": C, "max_abs_err": err}
+        w = [p[f"lstmB{layer}_{k}"] for k in ("iW", "b", "sW", "p")]
+        xproj = L.lstm_project_cuda(x, w[0], w[1])
+        rows[f"lstmB{layer}"].update({
+            "ms": cuda_ms(lambda: L.lstm_layer_tm(x, *w, reverse=True)),
+            "projection_ms": cuda_ms(lambda: L.lstm_project_cuda(x, w[0], w[1])),
+            "recurrence_ms": cuda_ms(
+                lambda: L.lstm_recurrence_cuda(xproj, w[2], w[3], reverse=True)),
+            "projection_library_ms": cuda_ms(lambda: feedforward(x, w[0], w[1])),
+            "plain_ms": cuda_ms(lambda: L.lstm_layer_tm_plain(x, *w, reverse=True),
+                                reps=3, warmup=1),
+            **kernel_work("lstm_layer", T=T_EVENTS, B=B, C=C, S=w[2].shape[0])})
+        x = feedforward2_tanh(h["F"], h["B"], p[f"FF{layer}_Wf"],
+                              p[f"FF{layer}_Wb"], p[f"FF{layer}_b"])
+    emit({"phase": "lstm_kernel", "B": B, "T": T_EVENTS, "layers": rows})
+    fused = check_fused(x, p["FF3_W"], p["FF3_b"], "events")
+    lp = robustlog(softmax_with_temperature(x, p["FF3_W"], p["FF3_b"]),
+                   1e-5).contiguous()
+    check_forward_and_backtrace(lp, "events posterior")
+    emit({"phase": "events_decode_kernels", "B": B, "T": T_EVENTS,
+          "fused": fused, "forward_backtrace": "identical"})
+    row = dict(rows["lstmB2"])  # the C = 96 layer, the larger of the two
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    return row
+
+
+def main_path_events(card: str, reads: list) -> dict:
+    """BasecallEngine("nanonet_events") on the card in fast and stitch
+    mode; each mode's kernels must have launched in its own run."""
+    from scrappie_torch import ops
+    from scrappie_torch.parallel.runner import BasecallEngine
+    from scrappie_torch.utils.seqcompare import edit_distance, within_flip_rule
+    from scrappie_torch.utils.tracing import Stage
+
+    lengths = [len(r.raw) for r in reads]
+    nsample = sum(lengths)
+    modes = ("fast", "stitch")
+    engines = {mode: BasecallEngine("nanonet_events", device="cuda", mode=mode)
+               for mode in modes}
+    for mode in modes:
+        engines[mode].basecall_signals(reads[:1])
+
+    ops.reset_launches()
+    results = {}
+    for mode in modes:
+        before = dict(ops.LAUNCHES)
+        engines[mode].stage = Stage()
+        t0 = time.perf_counter()
+        res = engines[mode].basecall_signals(reads)
+        seconds = time.perf_counter() - t0
+        require(all(r.sequence for r in res), f"events {mode}: every read called")
+        results[mode] = res
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        for name in EVENTS_KERNELS[mode]:
+            require(launched[name] > 0,
+                    f"kernel {name} launched on the events {mode} path "
+                    f"({launched[name]})")
+        nevent = sum(r.nblock for r in res)
+        stages = engines[mode].stage.report()
+        emit({"phase": "main_path_events", "mode": mode, "reads": len(res),
+              "samples": nsample, "events": nevent, "seconds": round(seconds, 4),
+              "events_per_s": round(nevent / seconds, 1),
+              "samples_per_s": round(nsample / seconds, 1),
+              "bases": sum(len(r.sequence) for r in res),
+              "detect_events_share": stages["detect_events"]["seconds"] / seconds,
+              "assemble_share": stages["assemble"]["seconds"] / seconds,
+              "launches": launched, "stages": stages, "card": card})
+    launches = dict(ops.LAUNCHES)
+
+    short = sorted(range(len(reads)), key=lambda i: lengths[i])[:2]
+    for mode in modes:
+        cpu = BasecallEngine("nanonet_events", device="cpu", mode=mode)
+        cres = cpu.basecall_signals([reads[i] for i in short])
+        for i, c in zip(short, cres):
+            g = results[mode][i].sequence
+            dist = 0 if g == c.sequence else edit_distance(g, c.sequence)
+            emit({"phase": "cpu_vs_cuda_events", "mode": mode,
+                  "read": reads[i].uuid, "bases": len(g), "edit_distance": dist})
+            require(within_flip_rule(g, c.sequence),
+                    f"events {mode} {reads[i].uuid}: CUDA and CPU calls agree")
+    return launches
+
+
+def throughput_events(enet, card: str, reads: list) -> None:
+    """The events fused path at B = 64 chunks of T_EVENTS events, stage by
+    stage; then the events engine in each mode under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn.layers import feedforward2_tanh, window
+    from scrappie_torch.ops.lstm import lstm_layer_tm
+    from scrappie_torch.ops.viterbi import viterbi_backtrace_tm, viterbi_fused_tm
+    from scrappie_torch.parallel.runner import BasecallEngine
+
+    B = 64
+    p = enet.params
+    feats = events_input(enet, B, np.random.default_rng(SEED + 5))
+    breakdown = {}
+    with torch.inference_mode():
+        total = cuda_ms(lambda: enet.basecall_fused(feats), reps=5)
+        win = lambda: window(feats, enet.winlen, 1).transpose(0, 1).contiguous()
+        breakdown["window"] = cuda_ms(win, reps=5)
+        x = win()
+        for layer in (1, 2):
+            h = {}
+            for d in ("F", "B"):
+                w = [p[f"lstm{d}{layer}_{k}"] for k in ("iW", "b", "sW", "p")]
+                breakdown[f"lstm {d}{layer}"] = cuda_ms(
+                    lambda: lstm_layer_tm(x, *w, reverse=(d == "B")), reps=5)
+                h[d] = lstm_layer_tm(x, *w, reverse=(d == "B"))
+            ff = lambda: feedforward2_tanh(h["F"], h["B"], p[f"FF{layer}_Wf"],
+                                           p[f"FF{layer}_Wb"], p[f"FF{layer}_b"])
+            breakdown[f"feedforward2_tanh {layer}"] = cuda_ms(ff, reps=5)
+            x = ff()
+        breakdown["fused head+viterbi"] = cuda_ms(
+            lambda: viterbi_fused_tm(x, p["FF3_W"], p["FF3_b"]), reps=5)
+        final, tb = viterbi_fused_tm(x, p["FF3_W"], p["FF3_b"])
+        breakdown["backtrace"] = cuda_ms(lambda: viterbi_backtrace_tm(final, tb),
+                                         reps=5)
+        emit({"phase": "throughput_events", "path": "fused", "B": B,
+              "events": T_EVENTS, "ms": total,
+              "events_per_s": B * T_EVENTS / (total / 1e3),
+              "breakdown_ms": breakdown, "card": card})
+        nsample = sum(len(r.raw) for r in reads)
+        for mode in ("fast", "stitch"):
+            eng = BasecallEngine("nanonet_events", device="cuda", mode=mode)
+            profiled(f"events engine {mode}, batch {eng.batch_size}, "
+                     f"{len(reads)} reads, {nsample} samples",
+                     lambda: eng.basecall_signals(reads), card)
+
+
 def main() -> int:
     import torch
 
@@ -643,32 +908,45 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "runs only on a CUDA GPU", file=sys.stderr)
         return 2
-    from scrappie_torch.models.forward import RgrgrModel, RnnrfModel
+    from scrappie_torch.models.forward import EventsModel, RgrgrModel, RnnrfModel
 
     card = card_line()
     build()
     net = RgrgrModel.from_registry("rgrgr_r94", "cuda")
     rnet = RnnrfModel.from_registry("rnnrf_r94", "cuda")
+    enet = EventsModel.from_registry("nanonet_events", "cuda")
     with torch.inference_mode():
         check_kernels(net, 8)
         table = check_kernels(net, 64)
         check_viterbi_options(net)
         check_crf_kernels(rnet, 8)
         table.update(check_crf_kernels(rnet, 64))
+        check_lstm_kernel(enet, 8)
+        table["lstm_layer"] = check_lstm_kernel(enet, 64)
     reads = synthetic_reads()
     launches = main_path(card, reads)
     throughput(net, card)
     profile_and_scale(net, card, reads)
     rnnrf_launches = main_path_rnnrf(card, reads)
     throughput_rnnrf(rnet, card, reads)
-    # each kernel's launches on its own path; the GRU's on the rgrgr path
+    events_launches = main_path_events(card, reads)
+    throughput_events(enet, card, reads)
+    # each kernel's launches on its own path; the GRU's and the Viterbi
+    # kernels' on the rgrgr path
     launches.update({k: rnnrf_launches[k] for k in RNNRF_KERNELS
                      if k != "gru_layer"})
+    launches["lstm_layer"] = events_launches["lstm_layer"]
+    # No single PyTorch call computes any of these functions: torch.nn.GRU
+    # applies r after its matmul (scrappie before), torch.nn.LSTM has no
+    # peepholes, and nothing in PyTorch does a Viterbi decode or the CRF's
+    # partition function. So library_ms is null throughout.
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],
          "max_abs_err": table[name]["max_abs_err"], "ms": table[name]["ms"],
-         "plain_ms": table[name]["plain_ms"]}
+         "plain_ms": table[name]["plain_ms"],
+         "bound_ms": table[name]["bound_ms"],
+         "bound_by": table[name]["bound_by"], "library_ms": None}
         for name in KERNELS]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,9 @@
-"""Public Python API for the rgrgr and rnnrf models, mirroring
+"""Public Python API for the rgrgr, rnnrf and events models, mirroring
 scrappie_tpu.api (and the reference binding, python/scrappy/__init__.py).
 
-`calc_post`, `decode_post` and `basecall_raw` take a `device`: "cuda"
-(the default) runs the hand-written kernels, "cpu" their plain twins.
+`calc_post`, `decode_post`, `basecall_raw` and `basecall_events` take a
+`device`: "cuda" (the default) runs the hand-written kernels, "cpu" their
+plain twins.
 Model kinds the port does not run yet raise NotImplementedError naming
 the ROADMAP item that ports them.
 """
@@ -15,15 +16,19 @@ import numpy as np
 import torch
 
 from scrappie_torch.decode.crf import crfpath_to_basecall, decode_crf, posterior_crf
-from scrappie_torch.decode.transducer import decode_transducer
+from scrappie_torch.decode.transducer import assemble_events, decode_transducer
 from scrappie_torch.device import as_device
+from scrappie_torch.models.calibration import collapsed
 from scrappie_torch.models.convert import raw_spec
-from scrappie_torch.models.forward import RawModel, load_model
-from scrappie_tpu.post.homopolymer import HomopolymerMode, homopolymer_path
-from scrappie_tpu.post.overlapper import overlapper
-from scrappie_tpu.signal.trim import trim_raw_by_mad
-from scrappie_tpu.types import RawSignal
-from scrappie_tpu.utils.maths import medmad_normalise
+from scrappie_torch.models.forward import Network, load_model
+from scrappie_torch.post.homopolymer import HomopolymerMode, homopolymer_path
+from scrappie_torch.post.overlapper import overlapper
+from scrappie_torch.signal.events import detect_events
+from scrappie_torch.signal.features import nanonet_features_from_events
+from scrappie_torch.signal.trim import trim_and_segment_raw, trim_raw_by_mad
+from scrappie_torch.types import RawSignal
+from scrappie_torch.utils.maths import medmad_normalise
+from scrappie_torch.utils.tracing import log
 
 
 class RawTable:
@@ -88,7 +93,7 @@ class Posterior:
 
 
 @functools.lru_cache(maxsize=None)
-def _model(model: str, device: torch.device) -> RawModel:
+def _model(model: str, device: torch.device) -> Network:
     return load_model(model, device)
 
 
@@ -133,11 +138,7 @@ def _decode_post_transducer(post: Posterior, stay_pen=0.0, skip_pen=0.0,
     # positive skip penalty can absorb a read into the local states;
     # re-decode with skip_pen=0 instead of returning the collapsed call.
     if skip_pen > 0:
-        from scrappie_tpu.models.calibration import collapsed
-
         if collapsed(len(seq or ""), nblock, post.model):
-            from scrappie_tpu.utils.tracing import log
-
             log("warn", "decode collapsed; re-decoding with skip_pen=0",
                 nbases=len(seq or ""), nblock=nblock, skip_pen=skip_pen)
             return _decode_post_transducer(post, stay_pen, 0.0, local_pen,
@@ -182,7 +183,7 @@ def basecall_raw(data, model: str = "rgrgr_r94", with_base_probs: bool = False,
     raw_spec(model)
     device = as_device(device)
     if calibration != "reference":
-        from scrappie_tpu.models import calibration as _calibration
+        from scrappie_torch.models import calibration as _calibration
 
         for key, value in _calibration.preset(model, calibration).items():
             # the CRF decoder spells the emit-bias knob `emit_bias`
@@ -194,3 +195,48 @@ def basecall_raw(data, model: str = "rgrgr_r94", with_base_probs: bool = False,
     seq, score, pos = decode_post(post, model, device=device, **kwargs)
     base_probs = posterior_crf(post.data()) if with_base_probs else None
     return seq, score, pos, raw.start, raw.end, base_probs
+
+
+def basecall_events(data, *, trim_start=200, trim_end=10, varseg_chunk=100,
+                    varseg_thresh=0.0, min_prob=1e-5, tempW=1.0, tempb=1.0,
+                    stay_pen=0.0, skip_pen=0.0, local_pen=2.0, use_slip=False,
+                    dwell_correction=True, calibration: str = "reference",
+                    device=None):
+    """Events pipeline: event detection, the nanonet biLSTM network,
+    transducer decode and the optional dwell homopolymer correction, for
+    one read (ref src/scrappie_events.c:271-344).
+
+    Returns (sequence, score, annotated EventTable, trim start, trim end).
+    ``calibration="real"`` fills the measured stay/skip preset for knobs
+    left at their reference defaults (models/calibration.py)."""
+    device = as_device(device)
+    if calibration != "reference":
+        from scrappie_torch.models import calibration as _calibration
+
+        knobs = _calibration.apply("nanonet_events", calibration,
+                                   {"stay_pen": stay_pen, "skip_pen": skip_pen})
+        stay_pen, skip_pen = knobs["stay_pen"], knobs["skip_pen"]
+    rt = trim_and_segment_raw(RawSignal(np.asarray(data, dtype=np.float32)),
+                              trim_start, trim_end, varseg_chunk, varseg_thresh)
+    if rt is None:
+        return None, float("nan"), None, 0, 0
+    et = detect_events(rt)
+    feats = nanonet_features_from_events(et, normalise=True)
+    net = _model("nanonet_events", device)
+    with torch.no_grad():
+        # the log posterior stays on the device; only the path comes back
+        lp = net(torch.as_tensor(feats[None], device=net.device),
+                 min_prob=min_prob, tempW=tempW, tempb=tempb)[0]
+    nev, nstate = lp.shape
+    score, path = decode_transducer(lp, stay_pen, skip_pen, local_pen, use_slip)
+    # Decode-collapse guard (models/calibration.py): re-decode the same
+    # posterior with skip_pen=0 instead of returning a collapsed call.
+    if skip_pen > 0:
+        nbases = len(overlapper(path[:nev], nstate - 1) or "")
+        if collapsed(nbases, nev, "nanonet_events"):
+            log("warn", "events decode collapsed; re-decoding with skip_pen=0",
+                nbases=nbases, nev=nev, skip_pen=skip_pen)
+            score, path = decode_transducer(lp, stay_pen, 0.0, local_pen,
+                                            use_slip)
+    seq, _pos = assemble_events(et, path, nstate, dwell_correction)
+    return seq, float(score), et, rt.start, rt.end

@@ -4,7 +4,8 @@ Counterpart of scrappie_tpu/decode/transducer.py (behavioural spec: ref
 src/decode.c:123-365, backtrace :58-98). `viterbi_transducer_scores` and
 `viterbi_local_backtrace` are the batch-major views of the plain twins in
 ops/viterbi.py; `viterbi_decode_batch` runs the kernels or the twins
-according to the device of the tensor it is given.
+according to the device of the tensor it is given. `assemble_events` turns
+an events read's path into its bases and annotates its event table.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from scrappie_torch.device import as_device
+from scrappie_torch.post.homopolymer import homopolymer_dwell_correction
+from scrappie_torch.post.overlapper import overlapper
 from scrappie_torch.ops.viterbi import (
     viterbi_backtrace_tm,
     viterbi_backtrace_tm_plain,
@@ -66,6 +69,29 @@ def decode_transducer(logpost, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
     if squeeze:
         return float(score[0]), path[0]
     return score, path
+
+
+def assemble_events(et, path, nstate: int, dwell_correction: bool):
+    """An events read's bases from its decoded path [nev+1]: the first nev
+    entries are stitched (ref src/scrappie_events.c:301) and annotate the
+    event table et in place with the decoded state and position (ref
+    :307-311); then the optional dwell homopolymer correction (ref
+    src/decode.c:645-702). Returns (sequence or None, positions [nev+1])."""
+    nev = len(et.active)
+    emit = np.asarray(path)[:nev]
+    pos = np.zeros(nev + 1, dtype=np.int64)
+    seq = overlapper(emit, nstate - 1, pos)
+    ev = et.event
+    ev["state"][et.start : et.start + nev] = 1 + emit
+    ev["pos"][et.start : et.start + nev] = pos[:nev]
+    if dwell_correction and seq is not None:
+        active = et.active[:nev]
+        new = homopolymer_dwell_correction(
+            active["length"], active["start"], emit, active["pos"],
+            active["state"], nstate, len(seq))
+        if new is not None:
+            seq = new
+    return seq, pos
 
 
 def argmax_decoder(logpost):

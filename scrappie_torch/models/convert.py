@@ -1,10 +1,9 @@
 """Carry the JAX package's parameters over to the port.
 
-The weights are the registry's npz files
-(scrappie_tpu/models/registry.py:load_params), so both packages compute
-the same function. The registry's layouts are kept: the port's layers
-take [winlen, Cin, Cout] conv weights and [in, out] matrices, as the JAX
-layers do.
+The weights are the npz files beside the JAX package, read by
+models/registry.py, so both packages compute the same function. The
+files' layouts are kept: the port's layers take [winlen, Cin, Cout] conv
+weights and [in, out] matrices, as the JAX layers do.
 """
 
 from __future__ import annotations
@@ -13,16 +12,12 @@ import numpy as np
 import torch
 
 from scrappie_torch.device import as_device
-from scrappie_tpu.models import registry
-from scrappie_tpu.models.specs import RAW_MODELS
+from scrappie_torch.models.specs import EVENTS_MODEL, RAW_MODELS
 
 #: Model kinds the port runs.
-PORTED_KINDS = ("rgrgr", "rnnrf")
+PORTED_KINDS = ("rgrgr", "rnnrf", "events")
 #: ROADMAP.md queue-1 item that ports each model kind still missing.
-_WAITING_KINDS = {
-    "raw": "ROADMAP.md queue 1 item 10 (raw_r94)",
-    "events": "ROADMAP.md queue 1 item 12 (events)",
-}
+_WAITING_KINDS = {"raw": "ROADMAP.md queue 1 item 10 (raw_r94)"}
 
 
 def params_from_numpy(params: dict[str, np.ndarray],
@@ -34,16 +29,26 @@ def params_from_numpy(params: dict[str, np.ndarray],
             for k, v in params.items()}
 
 
-def raw_spec(model: str):
-    """The registry spec of an rgrgr or rnnrf model; other kinds raise
+def model_spec(model: str):
+    """The registry spec of a model the port runs: an rgrgr or rnnrf raw
+    model, or the events model. Kinds not ported raise
     NotImplementedError naming the ROADMAP item that ports them."""
+    if model == EVENTS_MODEL.name:
+        return EVENTS_MODEL
     if model not in RAW_MODELS:
-        if model == "nanonet_events":
-            raise NotImplementedError(
-                f"model {model!r} is not ported yet: {_WAITING_KINDS['events']}")
         raise KeyError(f"Model type {model!r} not recognised.")
     spec = RAW_MODELS[model]
     if spec.kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"model {model!r} is not ported yet: {_WAITING_KINDS[spec.kind]}")
+    return spec
+
+
+def raw_spec(model: str):
+    """The spec of a raw-signal model (model_spec without the events
+    model, whose entry point is api.basecall_events)."""
+    spec = model_spec(model)
+    if spec.kind == "events":
+        raise ValueError(f"{model!r} basecalls from events, not raw signal: "
+                         "use api.basecall_events or BasecallEngine")
     return spec

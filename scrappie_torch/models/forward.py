@@ -1,4 +1,4 @@
-"""Forward passes of the rgrgr and rnnrf networks.
+"""Forward passes of the rgrgr, rnnrf and events networks.
 
 Counterpart of scrappie_tpu/models/forward.py:
   * rgrgr_posterior and rgrgr_posterior_tm (graph: ref
@@ -7,7 +7,11 @@ Counterpart of scrappie_tpu/models/forward.py:
     over 1025 states;
   * rnnrf_transitions, rnnrf_transitions_tm and rnnrf_features (ref
     src/networks.c:567-615): conv, ELU, five residual GRU layers, then the
-    globalnorm CRF head over 25 transitions, always in log space.
+    globalnorm CRF head over 25 transitions, always in log space;
+  * events_posterior and events_posterior_tm (ref src/networks.c:146-194):
+    window(3) over 4 event features, two stages of forward and backward
+    peephole LSTMs through ops/lstm.py combined by feedforward2_tanh, then
+    the temperature softmax and robustlog over 1025 states.
 """
 
 from __future__ import annotations
@@ -15,15 +19,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from scrappie_torch.models.convert import params_from_numpy, raw_spec
+from scrappie_torch.models import registry
+from scrappie_torch.models.convert import model_spec, params_from_numpy
 from scrappie_torch.nn.layers import globalnorm_tm, robustlog, softmax_with_temperature
 from scrappie_torch.ops.pipeline import (
+    events_basecall_fused,
+    events_features_tm,
     rgrgr_basecall_fused,
     rgrgr_features_tm,
     rnnrf_basecall_fused,
     rnnrf_features_tm,
 )
-from scrappie_tpu.models import registry
 
 
 def rgrgr_posterior_tm(params, sig, *, conv_activation="elu", stride=5,
@@ -63,18 +69,58 @@ def rnnrf_features(params, sig, *, conv_activation="elu", stride=2):
                              stride).transpose(0, 1)
 
 
-class RawModel(nn.Module):
-    """A raw-signal network whose weights are buffers on one device."""
+def events_posterior_tm(params, feats, *, winlen=3, min_prob=1e-5, tempW=1.0,
+                        tempb=1.0, return_log=True):
+    """feats [B, nevent, 4] -> (log) posterior [nevent, B, nstate]."""
+    x = events_features_tm(params, feats, winlen)
+    post = softmax_with_temperature(x, params["FF3_W"], params["FF3_b"], tempW,
+                                    tempb)
+    return robustlog(post, min_prob) if return_log else post
+
+
+def events_posterior(params, feats, **kwargs):
+    """feats [B, nevent, 4] -> (log) posterior [B, nevent, nstate]."""
+    return events_posterior_tm(params, feats, **kwargs).transpose(0, 1)
+
+
+class Network(nn.Module):
+    """A network whose weights are buffers on one device."""
 
     kind: str
     default_model: str
+
+    def __init__(self, params: dict[str, torch.Tensor]):
+        super().__init__()
+        for name, value in params.items():
+            self.register_buffer(name, value)
+
+    @classmethod
+    def _spec(cls, model: str | None):
+        """The spec of the named model, which must be of this class's
+        kind."""
+        spec = model_spec(cls.default_model if model is None else model)
+        if spec.kind != cls.kind:
+            raise ValueError(f"{spec.name!r} is an {spec.kind} model, not "
+                             f"{cls.kind}")
+        return spec
+
+    @property
+    def params(self) -> dict[str, torch.Tensor]:
+        return dict(self.named_buffers())
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.buffers()).device
+
+
+class RawModel(Network):
+    """A raw-signal network."""
+
     default_stride: int
 
     def __init__(self, params: dict[str, torch.Tensor],
                  conv_activation: str = "elu", stride: int | None = None):
-        super().__init__()
-        for name, value in params.items():
-            self.register_buffer(name, value)
+        super().__init__(params)
         self.conv_activation = conv_activation
         self.stride = int(self.default_stride if stride is None else stride)
 
@@ -88,21 +134,10 @@ class RawModel(nn.Module):
     def from_registry(cls, model: str | None = None, device=None):
         """The named model, of this class's kind, with the repository's
         weights."""
-        spec = raw_spec(cls.default_model if model is None else model)
-        if spec.kind != cls.kind:
-            raise ValueError(f"{spec.name!r} is an {spec.kind} model, not "
-                             f"{cls.kind}")
+        spec = cls._spec(model)
         return cls.from_params(registry.load_params(spec.name), device,
                                conv_activation=spec.conv_activation,
                                stride=spec.stride)
-
-    @property
-    def params(self) -> dict[str, torch.Tensor]:
-        return dict(self.named_buffers())
-
-    @property
-    def device(self) -> torch.device:
-        return self.conv_W.device
 
 
 class RgrgrModel(RawModel):
@@ -150,10 +185,42 @@ class RnnrfModel(RawModel):
                                     stride=self.stride, emit_bias=emit_bias)
 
 
-_MODELS = {cls.kind: cls for cls in (RgrgrModel, RnnrfModel)}
+class EventsModel(Network):
+    """nanonet_events: a 1025-state transducer posterior over detected
+    events, from their features [B, nevent, 4]."""
+
+    kind = "events"
+    default_model = "nanonet_events"
+
+    def __init__(self, params: dict[str, torch.Tensor], winlen: int = 3):
+        super().__init__(params)
+        self.winlen = int(winlen)
+
+    @classmethod
+    def from_registry(cls, model: str | None = None, device=None):
+        """The events model with the repository's weights."""
+        spec = cls._spec(model)
+        return cls(params_from_numpy(registry.load_params(spec.name), device),
+                   spec.winlen)
+
+    def forward(self, feats, min_prob=1e-5, tempW=1.0, tempb=1.0,
+                return_log=True):
+        """feats [B, nevent, 4] -> (log) posterior [B, nevent, nstate]."""
+        return events_posterior(self.params, feats, winlen=self.winlen,
+                                min_prob=min_prob, tempW=tempW, tempb=tempb,
+                                return_log=return_log)
+
+    def basecall_fused(self, feats, **kwargs):
+        """The fast path: feats [B, nevent, 4] -> (score [B], path
+        [B, nevent+1])."""
+        return events_basecall_fused(self.params, feats, winlen=self.winlen,
+                                     **kwargs)
 
 
-def load_model(model: str, device=None) -> RawModel:
+_MODELS = {cls.kind: cls for cls in (RgrgrModel, RnnrfModel, EventsModel)}
+
+
+def load_model(model: str, device=None) -> Network:
     """The named model with the repository's weights, as the class of its
-    kind; kinds not ported raise NotImplementedError (convert.raw_spec)."""
-    return _MODELS[raw_spec(model).kind].from_registry(model, device)
+    kind; kinds not ported raise NotImplementedError (convert.model_spec)."""
+    return _MODELS[model_spec(model).kind].from_registry(model, device)

@@ -1,4 +1,5 @@
-"""Layers of the rgrgr and rnnrf networks as plain functions on tensors.
+"""Layers of the rgrgr, rnnrf and events networks as plain functions on
+tensors.
 
 Counterpart of scrappie_tpu/nn/layers.py, with its layouts: features are
 [..., T, C] and conv weights [winlen, Cin, Cout]. The convolution stays a
@@ -27,6 +28,31 @@ def robustlog(x: torch.Tensor, min_prob: float) -> torch.Tensor:
 def feedforward(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Affine map y = x @ W + b (ref affine_map, src/scrappie_matrix.c:323)."""
     return torch.matmul(x, W) + b
+
+
+def feedforward2_tanh(xf: torch.Tensor, xb: torch.Tensor, Wf: torch.Tensor,
+                      Wb: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """tanh(xf @ Wf + xb @ Wb + b), in this order of additions: combines
+    the outputs of a forward and a backward RNN (ref affine_map2 + tanh,
+    src/scrappie_matrix.c:353, src/layers.c:359)."""
+    return torch.tanh(torch.matmul(xf, Wf) + torch.matmul(xb, Wb) + b)
+
+
+def window(x: torch.Tensor, w: int, stride: int) -> torch.Tensor:
+    """Stack w adjacent frames, zero outside the input, subsampled by
+    stride: x [..., T, C] -> [..., ceil(T/stride), w*C]. Output column c
+    reads frames c*stride - wh + 1 + i for i < w, wh = (w+1)//2, so for
+    w = 3 and stride 1 frames c-1, c and c+1 (ref src/layers.c:119-146)."""
+    T = x.shape[-2]
+    first = (torch.arange(-(-T // stride), device=x.device) * stride
+             - (w + 1) // 2 + 1)
+    cols = []
+    for i in range(w):
+        idx = first + i
+        valid = ((idx >= 0) & (idx < T))[:, None]
+        frames = x.index_select(-2, idx.clamp(0, max(T - 1, 0)))
+        cols.append(torch.where(valid, frames, torch.zeros((), dtype=x.dtype)))
+    return torch.cat(cols, dim=-1)
 
 
 def conv_same_pad(T: int, winlen: int, stride: int) -> tuple[int, int]:

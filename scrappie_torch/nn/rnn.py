@@ -1,13 +1,19 @@
-"""The GRU recurrence as a plain loop over time.
+"""The GRU and peephole-LSTM recurrences as plain loops over time.
 
-Counterpart of scrappie_tpu/nn/rnn.py:gru, and the plain twin of the GRU
-kernel (ops/gru.py, csrc/gru.cu). Gate conventions (scrappie GRU, ref
-gru_step src/layers.c:472-527):
+Counterpart of scrappie_tpu/nn/rnn.py:gru and lstm, and the plain twins of
+the GRU and LSTM kernels (ops/gru.py, csrc/gru.cu; ops/lstm.py,
+csrc/lstm.cu). GRU gate conventions (scrappie GRU, ref gru_step
+src/layers.c:472-527):
 
   x ........ precomputed iW·x + b, [..., 3S] blocks (z | r | hbar input)
   z, r ..... sigmoid(x[:2S] + h @ sW), sW [S, 2S]
   hbar ..... tanh(x[2S:] + (r*h) @ sW2), sW2 [S, S]
   h' ....... z*h + (1-z)*hbar          (z gates the OLD state)
+
+LSTM (ref lstm_step src/layers.c:777-832): x is the precomputed iW·x + b,
+[..., 4S] blocks [cell-in (tanh) | input | forget | output]; peep [3S] =
+[input | forget | output] peepholes on c; the output gate's peephole reads
+the NEW c; h0 = c0 = 0.
 """
 
 from __future__ import annotations
@@ -42,3 +48,24 @@ def gru(x: torch.Tensor, sW: torch.Tensor, sW2: torch.Tensor,
         x = x[None]
     out = gru_tm(x.transpose(0, 1), sW, sW2, reverse).transpose(0, 1)
     return out[0] if squeeze else out
+
+
+def lstm_tm(x_tm: torch.Tensor, sW: torch.Tensor, peep: torch.Tensor,
+            reverse: bool = False) -> torch.Tensor:
+    """Peephole LSTM over time-major projected inputs x [T, B, 4S] ->
+    h [T, B, S]."""
+    T, B, _ = x_tm.shape
+    S = sW.shape[0]
+    p_in, p_forget, p_out = peep[:S], peep[S : 2 * S], peep[2 * S :]
+    h = x_tm.new_zeros((B, S))
+    c = x_tm.new_zeros((B, S))
+    out = x_tm.new_empty((T, B, S))
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        xF = x_tm[t] + h @ sW
+        forget = torch.sigmoid(xF[:, 2 * S : 3 * S] + c * p_forget) * c
+        update = torch.sigmoid(xF[:, S : 2 * S] + c * p_in) * torch.tanh(
+            xF[:, :S])
+        c = forget + update
+        h = torch.sigmoid(xF[:, 3 * S :] + c * p_out) * torch.tanh(c)
+        out[t] = h
+    return out

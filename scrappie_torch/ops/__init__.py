@@ -14,6 +14,9 @@ from __future__ import annotations
 
 import torch
 
+#: Dynamic shared memory a block may use on sm_90.
+MAX_SMEM_BYTES = 232448
+
 LAUNCHES: dict[str, int] = {
     "gru_layer": 0,
     "viterbi_fwd": 0,
@@ -22,6 +25,7 @@ LAUNCHES: dict[str, int] = {
     "crf_fwd": 0,
     "crf_backtrace": 0,
     "crf_partition": 0,
+    "lstm_layer": 0,
 }
 
 

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "scrappie_crf_fwd": (_P, _P, _P, _I, _I, _P),
     "scrappie_crf_partition": (_P, _P, _I, _I, _P),
     "scrappie_crf_backtrace": (_P, _P, _P, _P, _I, _I, _P),
+    "scrappie_lstm_project": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -115,6 +117,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.scrappie_gru_smem_bytes.argtypes = (_I, _I)
     lib.scrappie_gru_smem_bytes.restype = ctypes.c_size_t
+    lib.scrappie_lstm_smem_bytes.argtypes = (_I,)
+    lib.scrappie_lstm_smem_bytes.restype = ctypes.c_size_t
     lib.scrappie_error_string.argtypes = (_I,)
     lib.scrappie_error_string.restype = ctypes.c_char_p
     return lib

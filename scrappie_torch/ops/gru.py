@@ -16,10 +16,6 @@ from scrappie_torch import ops
 from scrappie_torch.nn.layers import feedforward
 from scrappie_torch.nn.rnn import gru_tm
 
-#: Dynamic shared memory a block may use on sm_90.
-MAX_SMEM_BYTES = 232448
-
-
 def gru_layer_tm_plain(x_tm, iW, b, sW, sW2, reverse: bool = False):
     """Plain twin: x [T, B, C] -> h [T, B, S]."""
     return gru_tm(feedforward(x_tm, iW, b), sW, sW2, reverse)
@@ -47,9 +43,9 @@ def _gru_layer_cuda(x_tm, iW, b, sW, sW2, reverse):
         raise ValueError(f"gru kernel needs C <= 3S <= 1024, got C={C} S={S}")
     lib = _build.library()
     smem = lib.scrappie_gru_smem_bytes(C, S)
-    if smem > MAX_SMEM_BYTES:
+    if smem > ops.MAX_SMEM_BYTES:
         raise ValueError(f"gru kernel needs {smem} B of shared memory for "
-                         f"C={C} S={S}; a block may use {MAX_SMEM_BYTES}")
+                         f"C={C} S={S}; a block may use {ops.MAX_SMEM_BYTES}")
     y = torch.empty((T, B, S), dtype=torch.float32, device=x_tm.device)
     if T == 0 or B == 0:
         return y

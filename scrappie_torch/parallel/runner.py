@@ -1,12 +1,12 @@
-"""Batched multi-read basecalling engine for the rgrgr and rnnrf models,
-one device.
+"""Batched multi-read basecalling engine for the rgrgr, rnnrf and events
+models, one device.
 
 Counterpart of scrappie_tpu/parallel/runner.py:BasecallEngine, with an
 explicit `device` in place of the JAX mesh:
 
-  host:   read -> trim -> normalise -> chunk             (numpy, shared)
+  host:   read -> trim -> normalise -> chunk             (numpy)
   device: [B, chunk_len] -> posterior or fused decode    (torch + kernels)
-  host:   stitch, overlapper / homopolymer -> bases      (numpy, shared)
+  host:   stitch, overlapper / homopolymer -> bases      (numpy)
 
 Three paths, as in the JAX engine:
   * fast: the fused per-chunk pipeline (ops/pipeline.py), then the chunk
@@ -22,6 +22,14 @@ For rnnrf_r94 the "posterior" is the CRF transitions [nblock, 25], the
 decode is the CRF Viterbi (ops/crf.py) and the bases come from
 crfpath_to_basecall. Homopolymer correction does not apply to it, so its
 stitch mode always stitches on the device.
+
+For nanonet_events a read is trimmed, its events detected and their
+features studentised over the whole read; chunks, overlaps and blocks
+are counted in events ([n, chunk_len, 4] feature rows, one block per
+event). The path of the first nev blocks gives the bases and annotates
+the event table, and the optional dwell correction rewrites homopolymer
+run lengths, in both modes. Posterior-mean homopolymer correction does not
+apply, so its stitch mode also always stitches on the device.
 """
 
 from __future__ import annotations
@@ -33,19 +41,21 @@ import numpy as np
 import torch
 
 from scrappie_torch.decode.crf import crfpath_to_basecall
-from scrappie_torch.decode.transducer import viterbi_decode_batch
+from scrappie_torch.decode.transducer import assemble_events, viterbi_decode_batch
 from scrappie_torch.device import as_device
-from scrappie_torch.models.convert import raw_spec
+from scrappie_torch.models.calibration import collapsed
+from scrappie_torch.models.convert import model_spec
 from scrappie_torch.models.forward import load_model
 from scrappie_torch.ops.crf import NS, add_emit_bias, crf_viterbi_tm
-from scrappie_torch.utils.tracing import Stage
-from scrappie_tpu.parallel import chunk as chunklib
-from scrappie_tpu.post.homopolymer import HomopolymerMode, homopolymer_path
-from scrappie_tpu.post.overlapper import overlapper
-from scrappie_tpu.signal.trim import trim_and_segment_raw
-from scrappie_tpu.types import RawSignal
-from scrappie_tpu.utils.maths import medmad_normalise
-from scrappie_tpu.utils.tracing import log
+from scrappie_torch.parallel import chunk as chunklib
+from scrappie_torch.post.homopolymer import HomopolymerMode, homopolymer_path
+from scrappie_torch.post.overlapper import overlapper
+from scrappie_torch.signal.events import detect_events
+from scrappie_torch.signal.features import nanonet_features_from_events
+from scrappie_torch.signal.trim import trim_and_segment_raw
+from scrappie_torch.types import RawSignal
+from scrappie_torch.utils.maths import medmad_normalise
+from scrappie_torch.utils.tracing import Stage, log
 
 __all__ = ["BasecallEngine", "RawSignal", "ReadResult"]
 
@@ -60,6 +70,7 @@ class ReadResult:
     trim_start: int
     trim_end: int
     nsample: int
+    events: object | None = None  # annotated EventTable (events model only)
 
 
 #: Device batches in flight before the host waits for the oldest one's
@@ -98,10 +109,10 @@ def _gather_decode(post, flat_idx, stay_pen, skip_pen, local_pen, use_slip):
 def _gather_decode_crf(trans, flat_idx, emit_bias):
     """CRF counterpart of _gather_decode: trans [N, nb, 25] chunk
     transitions. The appended neutral block allows only moves into the
-    blank state, at cost 0 (as chunk.neutral_pad_crf builds on the host),
-    so pad blocks emit nothing and carry the score unchanged. The gather
-    is time-major, [T, R, 25], as the CRF kernels take it; the emit bias is
-    added after it."""
+    blank state, at cost 0 (as scrappie_tpu's chunk.neutral_pad_crf builds
+    on the host), so pad blocks emit nothing and carry the score
+    unchanged. The gather is time-major, [T, R, 25], as the CRF kernels
+    take it; the emit bias is added after it."""
     N, nb, nsq = trans.shape
     neutral = torch.full((1, nsq), -1e30, dtype=trans.dtype, device=trans.device)
     neutral[0, (NS - 1) * NS :] = 0.0
@@ -114,26 +125,31 @@ def _gather_decode_crf(trans, flat_idx, emit_bias):
 class BasecallEngine:
     """Batched basecalling of many reads on one device.
 
-    chunk_len/overlap are in samples and are rounded up to multiples of
-    the model stride. mode 'stitch' decodes whole reads from stitched
-    chunk posteriors (chunked == unchunked basecall); 'fast' decodes each
-    chunk with the fused pipeline and stitches the paths."""
+    chunk_len/overlap are in samples (in events for nanonet_events; defaults
+    10 000 / 1 000 samples, 2048 / 256 events) and are rounded up to
+    multiples of the model stride. mode 'stitch' decodes whole reads from
+    stitched chunk posteriors (chunked == unchunked basecall); 'fast'
+    decodes each chunk with the fused pipeline and stitches the paths."""
 
     def __init__(self, model: str = "rgrgr_r94", chunk_len: int | None = None,
                  overlap: int | None = None, batch_size: int = 8, device=None,
                  min_prob: float = 1e-5, tempW: float = 1.0, tempb: float = 1.0,
                  mode: str = "stitch"):
         self.model = model
-        self.spec = raw_spec(model)
+        self.spec = model_spec(model)
+        self.events = self.spec.kind == "events"
         if mode not in ("stitch", "fast"):
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
         self.device = as_device(device)
         self._min_prob, self._tempW, self._tempb = min_prob, tempW, tempb
         stride = self.spec.stride
-        self.chunk_len = _round_up(10000 if chunk_len is None else chunk_len,
-                                   stride)
-        self.overlap = _round_up(1000 if overlap is None else overlap, stride)
+        if chunk_len is None:
+            chunk_len = 2048 if self.events else 10000
+        if overlap is None:
+            overlap = 256 if self.events else 1000
+        self.chunk_len = _round_up(chunk_len, stride)
+        self.overlap = _round_up(overlap, stride)
         self.batch_size = int(batch_size)
         self.net = load_model(model, self.device)
         self.stage = Stage()
@@ -145,8 +161,10 @@ class BasecallEngine:
                         tempb=self._tempb, return_log=True)
 
     def _to_device_batch(self, rows: np.ndarray) -> torch.Tensor:
-        """[n, chunk_len] chunks -> [n, chunk_len, 1] on the device."""
-        return torch.as_tensor(rows[..., None], device=self.device)
+        """[n, chunk_len] raw chunks -> [n, chunk_len, 1] on the device;
+        events chunks [n, chunk_len, 4] keep their shape."""
+        return torch.as_tensor(rows if self.events else rows[..., None],
+                               device=self.device)
 
     def _device_batches(self, all_chunks: np.ndarray):
         for i in range(0, all_chunks.shape[0], self.batch_size):
@@ -308,15 +326,24 @@ class BasecallEngine:
                 results[g] = (float(scores[j]), paths[j, : nb + 1].copy())
         return results
 
-    def _result(self, rt, path, score, nblock: int) -> ReadResult:
-        """A read's result from its whole-read path [nblock+1]."""
-        pos = np.zeros(nblock + 1, dtype=np.int64)
-        if self.spec.kind == "rnnrf":
-            seq = crfpath_to_basecall(path, pos)
-        else:
-            seq = overlapper(path, self.spec.nstate - 1, pos)
-        return ReadResult(rt.uuid, seq, score, nblock, pos, rt.start, rt.end,
-                          rt.n)
+    def _result(self, rt, et, path, score, nblock: int,
+                dwell_correction: bool) -> ReadResult:
+        """A read's result from its whole-read path [nblock+1]; for the
+        events model (nblock = nev), from its event table et as well. Timed
+        as the stage "assemble"."""
+        with self.stage("assemble"):
+            if self.events:
+                seq, pos = assemble_events(et, path, self.spec.nstate,
+                                           dwell_correction)
+                return ReadResult(rt.uuid, seq, score, nblock, pos, rt.start,
+                                  rt.end, rt.n, et)
+            pos = np.zeros(nblock + 1, dtype=np.int64)
+            if self.spec.kind == "rnnrf":
+                seq = crfpath_to_basecall(path, pos)
+            else:
+                seq = overlapper(path, self.spec.nstate - 1, pos)
+            return ReadResult(rt.uuid, seq, score, nblock, pos, rt.start,
+                              rt.end, rt.n)
 
     # ---------------------------------------------------------------- API
 
@@ -333,8 +360,6 @@ class BasecallEngine:
             results = self._basecall_signals_impl(signals, skip_pen=skip_pen,
                                                   **kwargs)
             if skip_pen > 0:
-                from scrappie_tpu.models.calibration import collapsed
-
                 redo = [i for i, r in enumerate(results)
                         if r.nblock and collapsed(len(r.sequence or ""),
                                                   r.nblock, self.model)]
@@ -356,6 +381,7 @@ class BasecallEngine:
                                use_slip=False,
                                homopolymer: HomopolymerMode | str | None = None,
                                crf_emit_bias: float = 0.0,
+                               dwell_correction: bool = True,
                                with_qualities: bool = False) -> list[ReadResult]:
         if with_qualities:
             raise NotImplementedError(
@@ -363,22 +389,33 @@ class BasecallEngine:
                 "queue 1 item 7")
 
         def prep_read(rs):
-            """One read's host preparation -> ((rt, norm, plan), chunks),
-            or (None, None). A read that fails only warns (per-read error
-            isolation, ref src/scrappie_raw.c:397-400)."""
+            """One read's host preparation -> ((rt, et, plan), chunks),
+            or (None, None); et is the event table of an events read, else
+            None. A read that fails only warns (per-read error isolation,
+            ref src/scrappie_raw.c:397-400)."""
             try:
                 rt = trim_and_segment_raw(rs, trim_start, trim_end,
                                           varseg_chunk, varseg_thresh)
                 if rt is None:
                     return None, None
-                norm = medmad_normalise(rt.trimmed)
-                plan = chunklib.plan_chunks(len(norm), self.chunk_len,
+                et = None
+                if self.events:
+                    # features studentised over the whole read, as
+                    # api.basecall_events (ref src/scrappie_events.c:271-299)
+                    with self.stage("detect_events"):
+                        et = detect_events(rt)
+                        rows = nanonet_features_from_events(et, normalise=True)
+                    if not len(rows):
+                        return None, None
+                else:
+                    rows = medmad_normalise(rt.trimmed)
+                plan = chunklib.plan_chunks(len(rows), self.chunk_len,
                                             self.overlap, self.spec.stride)
             except Exception as e:
                 log("warn", "read preprocessing failed", uuid=rs.uuid,
                     error=str(e))
                 return None, None
-            return (rt, norm, plan), chunklib.extract_chunks(norm, plan)
+            return (rt, et, plan), chunklib.extract_chunks(rows, plan)
 
         if self.mode == "fast":
             if not _no_homopolymer(homopolymer):
@@ -415,14 +452,14 @@ class BasecallEngine:
                 if entry is None:
                     results.append(_no_call(rs))
                     continue
-                rt, _norm, plan, off = entry
+                rt, et, plan, off = entry
                 path = chunklib.stitch_paths(paths[off : off + plan.nchunk], plan)
                 keep = chunklib.chunk_keep_ranges(plan)
                 score = float(sum(
                     scores[off + i] * (hi - lo) / plan.nblock_chunk
                     for i, (lo, hi) in enumerate(keep)))
-                nblock = plan.nblock_total
-                results.append(self._result(rt, path, score, nblock))
+                results.append(self._result(rt, et, path, score,
+                                            plan.nblock_total, dwell_correction))
             return results
 
         # Stitch modes: prepare every read first (the device stitch groups
@@ -441,6 +478,11 @@ class BasecallEngine:
         if not all_chunks:
             return [_no_call(rs) for rs in signals]
 
+        if self.events and not _no_homopolymer(homopolymer):
+            log("warn", "posterior homopolymer correction does not apply "
+                        "to the events pipeline (it uses dwell correction); "
+                        "ignoring")
+            homopolymer = None
         if self.spec.kind == "rnnrf" or _no_homopolymer(homopolymer):
             decoded = self._stitch_decode_device(
                 prepped, all_chunks, stay_pen, skip_pen, local_pen, use_slip,
@@ -450,9 +492,10 @@ class BasecallEngine:
                 if entry is None:
                     results.append(_no_call(rs))
                     continue
-                rt, _norm, plan, _ = entry
+                rt, et, plan, _ = entry
                 score, path = decoded[i]
-                results.append(self._result(rt, path, score, plan.nblock_total))
+                results.append(self._result(rt, et, path, score,
+                                            plan.nblock_total, dwell_correction))
             return results
 
         # Host stitch: one device pass over every chunk of every read, then
@@ -462,7 +505,7 @@ class BasecallEngine:
         logposts = []
         for entry in prepped:
             if entry is not None:
-                _rt, _norm, plan, off = entry
+                _rt, _et, plan, off = entry
                 logposts.append(chunklib.stitch_blocks(
                     post[off : off + plan.nchunk], plan))
         with self.stage("decode"):
@@ -494,7 +537,7 @@ class BasecallEngine:
         the number of files)."""
         import sys
 
-        from scrappie_tpu.io.fast5 import iterate_fast5, read_raw_all
+        from scrappie_torch.io.fast5 import iterate_fast5, read_raw_all
 
         files = iterate_fast5(paths)
         if limit:

@@ -1,16 +1,34 @@
-"""Wall-clock accounting per pipeline stage.
+"""Wall-clock accounting per pipeline stage, and structured logging.
 
-Counterpart of scrappie_tpu/utils/tracing.py:Stage, whose spans are JAX
-profiler annotations; here each stage is a `torch.profiler.record_function`
-span, so it shows in a torch.profiler trace when one is being taken.
+Counterpart of scrappie_tpu/utils/tracing.py:
+  * `Stage`, whose spans there are JAX profiler annotations; here each
+    stage is a `torch.profiler.record_function` span, so it shows in a
+    torch.profiler trace when one is being taken;
+  * `log`, a copy: levelled JSON lines on stderr, the level from
+    SCRAPPIE_TORCH_LOG (debug|info|warn|error, default warn).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
+import sys
 import time
 
 import torch
+
+_LEVELS = {"debug": 10, "info": 20, "warn": 30, "error": 40}
+
+
+def log(level: str, msg: str, **fields) -> None:
+    """Structured log line (JSON) to stderr, filtered by level."""
+    threshold = _LEVELS.get(os.environ.get("SCRAPPIE_TORCH_LOG", "warn").lower(), 30)
+    if _LEVELS.get(level, 20) < threshold:
+        return
+    rec = {"ts": round(time.time(), 3), "level": level, "msg": msg}
+    rec.update(fields)
+    print(json.dumps(rec), file=sys.stderr)
 
 
 class Stage:

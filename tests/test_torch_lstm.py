@@ -1,0 +1,97 @@
+"""The peephole-LSTM layer of the port (its plain twin, which the CPU runs)
+against scrappie_tpu: the Pallas kernel's wrapper ops/lstm.py:lstm_layer_tm
+(interpret mode on the CPU) and the lax.scan program, feedforward followed
+by nn/rnn.py:lstm.
+
+Tolerance rtol = atol = 1e-5: fp32 sums of the projection and of h @ sW
+taken in another order, carried through up to 50 steps of the recurrence
+(seen: at most a few 1e-7). On the card the CUDA kernel is held to its twin
+by chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scrappie_torch import ops
+from scrappie_torch.ops.lstm import (
+    check_lstm_input,
+    lstm_layer_tm,
+    lstm_layer_tm_plain,
+    lstm_project_cuda,
+    lstm_recurrence_cuda,
+)
+from scrappie_tpu.nn.layers import feedforward as j_feedforward
+from scrappie_tpu.nn.rnn import lstm as j_lstm
+from scrappie_tpu.ops.lstm import lstm_layer_tm as j_lstm_layer_tm
+
+torch.set_num_threads(1)
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _inputs(T, B, C, S, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, s=1.0: (s * rng.standard_normal(shape)).astype(np.float32)
+    return dict(x=f(T, B, C), iW=f(C, 4 * S, s=0.3), b=f(4 * S, s=0.1),
+                sW=f(S, 4 * S, s=0.3), peep=f(3 * S, s=0.3))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("S", [16, 96])
+@pytest.mark.parametrize("C", [12, 96])
+@pytest.mark.parametrize("T", [1, 9, 50])
+def test_lstm_layer_matches_jax(T, C, S, reverse):
+    a = _inputs(T, 3, C, S, seed=T + C + S)
+    out = lstm_layer_tm(*(torch.from_numpy(a[k]) for k in
+                          ("x", "iW", "b", "sW", "peep")), reverse=reverse)
+    assert out.shape == (T, 3, S)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    # the Pallas wrapper takes a batch of 8 rows, as its callers pad it
+    x8 = jnp.pad(j["x"], ((0, 0), (0, 5), (0, 0)))
+    kernel = np.asarray(j_lstm_layer_tm(x8, j["iW"], j["b"], j["sW"],
+                                        j["peep"], reverse=reverse))
+    np.testing.assert_allclose(out.numpy(), kernel[:, :3, :S], **TOL)
+    xproj = j_feedforward(jnp.moveaxis(j["x"], 0, 1), j["iW"], j["b"])
+    scan = np.moveaxis(np.asarray(j_lstm(xproj, j["sW"], j["peep"],
+                                         reverse=reverse)), 0, 1)
+    np.testing.assert_allclose(out.numpy(), scan, **TOL)
+
+
+def test_cpu_tensors_take_the_twin_and_launch_nothing():
+    a = {k: torch.from_numpy(v) for k, v in _inputs(7, 2, 12, 16).items()}
+    ops.reset_launches()
+    for reverse in (False, True):
+        assert torch.equal(lstm_layer_tm(*a.values(), reverse=reverse),
+                           lstm_layer_tm_plain(*a.values(), reverse=reverse))
+    assert ops.LAUNCHES["lstm_layer"] == 0
+
+
+def test_kernel_input_checks():
+    a = {k: torch.from_numpy(v) for k, v in _inputs(5, 2, 12, 16).items()}
+    check_lstm_input(a["x"], a["iW"], a["b"], a["sW"], a["peep"])
+    bad = {
+        "iW": ("shape", a["iW"][:, :-1]),
+        "b": ("dtype", a["b"].double()),
+        "sW": ("shape", a["sW"][:8]),
+        "peep": ("shape", a["peep"][:-1]),
+        "x": ("contiguous", a["x"].transpose(0, 1).contiguous().transpose(0, 1)),
+    }
+    for name, (what, value) in bad.items():
+        args = dict(a, **{name: value})
+        with pytest.raises(ValueError, match=what):
+            check_lstm_input(args["x"], args["iW"], args["b"], args["sW"],
+                             args["peep"])
+    with pytest.raises(ValueError, match="several devices"):
+        lstm_layer_tm(a["x"], a["iW"].to("meta"), a["b"], a["sW"], a["peep"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm_layer_tm(*(t.to("meta") for t in a.values()))
+
+
+def test_kernel_halves_refuse_cpu_tensors():
+    """The projection and recurrence kernels are reached only through CUDA
+    tensors; they never run a twin."""
+    a = {k: torch.from_numpy(v) for k, v in _inputs(5, 2, 12, 16).items()}
+    with pytest.raises(ValueError, match="cuda"):
+        lstm_project_cuda(a["x"], a["iW"], a["b"])
+    with pytest.raises(ValueError, match="cuda"):
+        lstm_recurrence_cuda(torch.zeros(5, 2, 64), a["sW"], a["peep"])

@@ -1,8 +1,10 @@
-"""Package-level contracts of scrappie_torch: it imports no JAX (the
-machine with the GPU has none), CPU tensors run the plain twins without
+"""Package-level contracts of scrappie_torch: it imports nothing of JAX
+(the machine with the GPU has none) nor of scrappie_tpu (it keeps its own
+copy of the host code it needs), CPU tensors run the plain twins without
 touching the launch counters, and asking for CUDA where there is none
 raises instead of falling back."""
 
+import ast
 import os
 import pathlib
 import shutil
@@ -38,13 +40,17 @@ def no_cuda():
         pytest.skip("checks the behaviour on a machine without CUDA")
 
 
+PORT_FILES = sorted((REPO / "scrappie_torch").rglob("*.py"))
+
+
 def test_main_path_modules_import_no_jax():
+    modules = sorted(".".join(f.relative_to(REPO).with_suffix("").parts)
+                     .removesuffix(".__init__") for f in PORT_FILES
+                     if f.name != "__main__.py")  # that one runs the CLI
     code = ("import sys\n"
-            "import scrappie_torch, scrappie_torch.api, "
-            "scrappie_torch.parallel.runner, scrappie_torch.cli.main, "
-            "scrappie_torch.ops.pipeline, scrappie_torch.ops._build, "
-            "scrappie_torch.ops.crf, scrappie_torch.decode.crf\n"
-            "bad = sorted(m for m in ('jax', 'jaxlib', 'h5py') if m in sys.modules)\n"
+            f"import {', '.join(modules)}\n"
+            "bad = sorted(m for m in ('jax', 'jaxlib', 'h5py', 'scrappie_tpu')\n"
+            "             if m in sys.modules)\n"
             "assert not bad, bad\n"
             "import torch\n"
             "assert not torch.backends.cuda.matmul.allow_tf32\n"
@@ -53,6 +59,23 @@ def test_main_path_modules_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", [*PORT_FILES, REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_of_the_jax_package(path):
+    """Not at module level and not inside a function: the port keeps its
+    own copy of what it needs (comments may name their counterpart)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("scrappie_tpu", "jax", "jaxlib"), \
+                f"{path.name}:{node.lineno} imports {name}"
 
 
 def test_module_entry_point_runs():
