@@ -43,7 +43,23 @@ if any phase fails:
      stitch mode on the same 16 reads, checks the launch counters and every
      read's sequence, and compares two reads with the port's CPU run;
  12. times the events fused path at B = 64 x 2048 events, stage by stage,
-     and profiles the events engine in both modes.
+     and profiles the events engine in both modes;
+ 13. predicts the squiggles of a seeded 2 000-base sequence with the three
+     squiggle models on the card and holds them to the port's CPU run;
+ 14. holds the DTW kernel against its twin, Viterbi and forward, with
+     prob_back 0 and 0.1, on signals simulated from predicted squiggles:
+     state in shared memory (300 positions, 3 000 samples) and in global
+     memory (15 000 positions, 2 000 samples); then times it at 6 000
+     positions and 60 000 samples, with the traceback's copy to the host;
+ 15. holds the seqmap kernel against its twin, Viterbi and forward, in
+     both variants, on the rgrgr_r94 posterior of a synthetic 60 000-sample
+     read (about 12 000 blocks) against a seeded 6 000-base reference, and
+     times it;
+ 16. runs the mapping path through the API on the card,
+     map_signal_to_squiggle on a signal simulated from the squiggle of a
+     6 000-base sequence and map_post_to_sequence (Viterbi with a path,
+     forward, banded), checks that each kernel's launch counter rose, and
+     holds each result to the port's CPU run on the same inputs.
 
 The last lines are the kernel table (each kernel's time beside its bound,
 the least time the card could take for the same work), the card's name
@@ -72,6 +88,17 @@ T_EVENTS = 2048          # events in a chunk of the events engine
 LSTM_ATOL = 1e-4
 NREADS = 16
 READ_LEN = (20000, 100000)
+SQUIGGLE_MODELS = ("squiggle_r94", "squiggle_r94_rna", "squiggle_r10")
+SQUIGGLE_BASES = 2000
+SQUIGGLE_RTOL = 1e-5     # fp32 convolutions summed in another order
+DTW_SHARED = (300, 3000)     # (positions, samples): scores in shared memory
+DTW_GLOBAL = (15000, 2000)   # above the shared-memory limit: global memory
+MAP_BASES = 6000         # the mapping path's sequences, and the timed DTW's
+MAP_SAMPLES = 60000      # the timed DTW's samples; the seqmap read's length
+MAP_BAND = 100           # half-width of the banded mapping
+FORWARD_RTOL = 1e-5      # forward finals: expf/log1pf against the host's
+# map_signal_to_squiggle's defaults
+DTW_OPTIONS = dict(local_pen=2.0, skip_pen=5000.0, minscore=5.0)
 # the CLI's --stay/--skip/--local/--slip and a calibration's temperatures
 VITERBI_OPTIONS = dict(stay_pen=0.3, skip_pen=1.1, local_pen=4.0, use_slip=True)
 TEMPS = dict(tempW=1.2, tempb=0.9)
@@ -92,6 +119,8 @@ KERNELS = {
                       "scrappie_tpu/nn/layers.py:133 (a lax.scan; no TPU "
                       "kernel)"),
     "lstm_layer": ("scrappie_torch/csrc/lstm.cu", "scrappie_tpu/ops/lstm.py:53"),
+    "seqmap": ("scrappie_torch/csrc/seqmap.cu", "scrappie_tpu/ops/seqmap.py:32"),
+    "dtw": ("scrappie_torch/csrc/dtw.cu", "scrappie_tpu/ops/dtw.py:59"),
 }
 RGRGR_KERNELS = ("gru_layer", "viterbi_fwd", "viterbi_backtrace", "viterbi_fused")
 RNNRF_KERNELS = ("gru_layer", "crf_fwd", "crf_backtrace", "crf_partition")
@@ -190,8 +219,22 @@ def kernel_work(name: str, **d) -> dict:
     multiply-adds and the decoders' adds and maxes are counted as
     operations (the gates' elementwise arithmetic adds a few percent), so
     each bound is a lower bound. The backtraces read one traceback entry
-    per step and row: what the data needs, not the whole traceback."""
-    T, B = d["T"], d["B"]
+    per step and row: what the data needs, not the whole traceback. The
+    mapping DPs (one read, Viterbi) write their whole int32 traceback; per
+    step and position the DTW does 23 operations (its forward state 6 adds
+    and 5 compares with the end jump's max, the end-jump candidate's add,
+    the emission's 6 and its 2 adds, the back state's 2 adds and compare)
+    and the seqmap 7 (3 adds, 2 subtractions, 2 compares)."""
+    T, B = d["T"], d.get("B", 1)
+    if name == "dtw":
+        npos = d["npos"]
+        nstate = 2 * npos + 2
+        return bound(4 * (T + 3 * npos + 4 * (npos + 2) + nstate + T * nstate),
+                     23 * T * npos)
+    if name == "seqmap":
+        nst, seqlen = d["nst"], d["seqlen"]
+        return bound(4 * (T * nst + seqlen + (seqlen + 2) * (T + 1)),
+                     7 * T * seqlen)
     if name == "gru_layer":
         C, S = d["C"], d["S"]
         return bound(4 * (T * B * (C + S) + 3 * S * (C + 1) + 3 * S * S),
@@ -901,6 +944,294 @@ def throughput_events(enet, card: str, reads: list) -> None:
                      lambda: eng.basecall_signals(reads), card)
 
 
+def random_bases(n: int, rng) -> str:
+    return "".join(rng.choice(list("ACGT"), n))
+
+
+def simulate_squiggle(squiggle, n: int, rng) -> "np.ndarray":
+    """n normalised samples from an untransformed squiggle [npos, 3]
+    (current, log sd, -log dwell): each base holds round(1.25 dwell)
+    samples (at least 1) of its current plus Gaussian noise of its sd, cut
+    or padded with noise to n."""
+    import numpy as np
+
+    dwell = np.maximum(1, np.rint(1.25 * np.exp(-squiggle[:, 2]))).astype(int)
+    x = (np.repeat(squiggle[:, 0], dwell)
+         + rng.standard_normal(dwell.sum()) * np.repeat(np.exp(squiggle[:, 1]), dwell))
+    x = np.concatenate([x, rng.standard_normal(max(0, n - len(x)))])[:n]
+    return x.astype(np.float32)
+
+
+def check_squiggle(card: str) -> None:
+    """The three squiggle models on the card against the port's CPU run,
+    with and without the unit transform."""
+    import numpy as np
+
+    from scrappie_torch import api
+
+    seq = random_bases(SQUIGGLE_BASES, np.random.default_rng(SEED + 30))
+    rows = {}
+    for model in SQUIGGLE_MODELS:
+        for rescale in (False, True):
+            t0 = time.perf_counter()
+            gpu = api.sequence_to_squiggle(seq, model, rescale, device="cuda")
+            seconds = time.perf_counter() - t0
+            cpu = api.sequence_to_squiggle(seq, model, rescale, device="cpu")
+            require(gpu.shape == (SQUIGGLE_BASES, 3) and bool(np.isfinite(gpu).all()),
+                    f"{model} squiggle finite [{SQUIGGLE_BASES}, 3]")
+            rel = float((np.abs(gpu - cpu) / np.maximum(np.abs(cpu), 1.0)).max())
+            require(rel <= SQUIGGLE_RTOL,
+                    f"{model} squiggle rel err {rel} <= {SQUIGGLE_RTOL}")
+            rows[f"{model}{' rescaled' if rescale else ''}"] = {
+                "max_abs_err": float(np.abs(gpu - cpu).max()), "max_rel_err": rel,
+                "seconds": seconds}
+    emit({"phase": "squiggle", "bases": SQUIGGLE_BASES, "models": rows,
+          "card": card})
+
+
+def dtw_case(npos: int, T: int, rng):
+    """A DTW input: the squiggle_r94 prediction of npos seeded bases (on
+    the card) and T samples simulated from it, as a tensor on the card."""
+    import torch
+
+    from scrappie_torch import api
+
+    params = api.sequence_to_squiggle(random_bases(npos, rng), device="cuda")
+    sig = torch.as_tensor(simulate_squiggle(params, T, rng), device="cuda")
+    return sig, params
+
+
+def check_dtw(sig, params, what: str) -> dict:
+    """The DTW kernel against its twin on one input, Viterbi and forward,
+    prob_back 0 and 0.1: Viterbi finals and tracebacks identical, forward
+    finals within FORWARD_RTOL. Returns the largest differences and the
+    twin's seconds for Viterbi with prob_back 0."""
+    import torch
+
+    from scrappie_torch.decode.dtw import match_inputs
+    from scrappie_torch.ops import dtw as d
+
+    out = {"max_abs_err": 0.0, "forward_rel_err": 0.0}
+    for prob_back in (0.0, 0.1):
+        inputs = match_inputs(params, 1.0, prob_back, "cuda")
+        args = (sig, *inputs, prob_back, DTW_OPTIONS["local_pen"],
+                DTW_OPTIONS["skip_pen"], DTW_OPTIONS["minscore"])
+        for viterbi in (True, False):
+            fk, tbk = d.squiggle_match_tm(*args, viterbi=viterbi)
+            t0 = time.perf_counter()
+            fp, tbp = d.squiggle_match_plain(*args, viterbi=viterbi)
+            sync()
+            if viterbi and not prob_back:
+                out["plain_s"] = time.perf_counter() - t0
+            label = f"{what}, viterbi={viterbi}, prob_back={prob_back}"
+            require(bool(torch.isfinite(fk).all()), f"dtw final finite ({label})")
+            if viterbi:
+                require(torch.equal(tbk, tbp), f"dtw traceback identical ({label})")
+                require(torch.equal(fk, fp), f"dtw final identical ({label})")
+            else:
+                rel = float(((fk - fp).abs() / fp.abs().clamp(min=1.0)).max())
+                require(rel <= FORWARD_RTOL,
+                        f"dtw forward final rel err {rel} <= {FORWARD_RTOL} ({label})")
+                out["forward_rel_err"] = max(out["forward_rel_err"], rel)
+            out["max_abs_err"] = max(out["max_abs_err"], float((fk - fp).abs().max()))
+    return out
+
+
+def check_dtw_kernel(card: str) -> dict:
+    """The DTW kernel in both variants against its twin, then its times at
+    the main path's size (MAP_BASES positions, MAP_SAMPLES samples)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.decode.dtw import match_inputs
+    from scrappie_torch.ops import dtw as d
+
+    rng = np.random.default_rng(SEED + 40)
+    rows = {}
+    for name, (npos, T) in (("shared", DTW_SHARED), ("global", DTW_GLOBAL)):
+        sig, params = dtw_case(npos, T, rng)
+        require((npos <= d.DTW_MAX_SHARED_NPOS) == (name == "shared"),
+                f"dtw {name} case {npos} positions takes its variant")
+        row = check_dtw(sig, params, f"{name}, {npos} x {T}")
+        args = (sig, *match_inputs(params, 1.0, 0.0, "cuda"), 0.0,
+                *DTW_OPTIONS.values())
+        row.update(npos=npos, T=T, ms=cuda_ms(lambda: d.squiggle_match_tm(*args)),
+                   plain_ms=row.pop("plain_s") * 1e3)
+        rows[name] = row
+    npos, T = MAP_BASES, MAP_SAMPLES
+    sig, params = dtw_case(npos, T, rng)
+    args = (sig, *match_inputs(params, 1.0, 0.0, "cuda"), 0.0, *DTW_OPTIONS.values())
+    fk, tbk = d.squiggle_match_tm(*args)
+    t0 = time.perf_counter()
+    fp, tbp = d.squiggle_match_plain(*args)
+    sync()
+    plain_s = time.perf_counter() - t0
+    require(torch.equal(tbk, tbp) and torch.equal(fk, fp),
+            f"dtw traceback and final identical ({npos} x {T})")
+    del tbp
+    timed = {"npos": npos, "T": T, "max_abs_err": float((fk - fp).abs().max()),
+             "ms": cuda_ms(lambda: d.squiggle_match_tm(*args)),
+             "global_ms": cuda_ms(lambda: d.squiggle_match_tm(*args, global_state=True),
+                                  reps=3, warmup=1),
+             "forward_ms": cuda_ms(lambda: d.squiggle_match_tm(*args, viterbi=False),
+                                   reps=3, warmup=1),
+             "plain_ms": plain_s * 1e3,
+             "traceback_bytes": tbk.numel() * 4,
+             "traceback_copy_ms": cuda_ms(lambda: tbk.cpu(), reps=3, warmup=0),
+             **kernel_work("dtw", T=T, npos=npos)}
+    timed["us_per_sample"] = timed["ms"] * 1e3 / T
+    # the table's error: the largest difference of any check
+    timed["max_abs_err"] = max([timed["max_abs_err"]]
+                               + [r["max_abs_err"] for r in rows.values()])
+    emit({"phase": "dtw_kernel", "checked": rows, "timed": timed, "card": card})
+    return timed
+
+
+def seqmap_case(rng):
+    """The rgrgr_r94 log posterior (through api.calc_post on the card) of
+    a synthetic MAP_SAMPLES-sample read, and a seeded MAP_BASES-base
+    reference."""
+    from scrappie_torch import api
+
+    raw = api.RawTable(synthetic_signal(MAP_SAMPLES, rng))
+    raw.trim().scale()
+    return api.calc_post(raw, "rgrgr_r94", device="cuda"), random_bases(MAP_BASES, rng)
+
+
+def check_seqmap_kernel(card: str) -> dict:
+    """The seqmap kernel against its twin, Viterbi (with its traceback)
+    and forward, with the scores in shared and in global memory; then its
+    times."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch import api
+    from scrappie_torch.ops import seqmap as m
+
+    post, ref = seqmap_case(np.random.default_rng(SEED + 50))
+    lp = torch.as_tensor(post.data(), device="cuda")
+    states = torch.as_tensor(api.encode_bases(ref, 5).astype(np.int32), device="cuda")
+    T, nst = lp.shape
+    seqlen = states.shape[0]
+    pens = (0.0, 0.0, 4.0)
+    out = {"T": T, "nst": nst, "seqlen": seqlen, "max_abs_err": 0.0,
+           "forward_rel_err": 0.0}
+    for viterbi in (True, False):
+        t0 = time.perf_counter()
+        fp, tbp = m.map_to_sequence_plain(lp, states, *pens, viterbi=viterbi)
+        sync()
+        if viterbi:
+            out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        for global_state in (False, True):
+            fk, tbk = m.map_to_sequence_tm(lp, states, *pens, viterbi=viterbi,
+                                           global_state=global_state)
+            sync()
+            label = f"viterbi={viterbi}, global_state={global_state}"
+            require(bool(torch.isfinite(fk).all()), f"seqmap final finite ({label})")
+            if viterbi:
+                require(torch.equal(tbk, tbp), f"seqmap traceback identical ({label})")
+                require(torch.equal(fk, fp), f"seqmap final identical ({label})")
+            else:
+                rel = float(((fk - fp).abs() / fp.abs().clamp(min=1.0)).max())
+                require(rel <= FORWARD_RTOL,
+                        f"seqmap forward final rel err {rel} <= {FORWARD_RTOL} ({label})")
+                out["forward_rel_err"] = max(out["forward_rel_err"], rel)
+            out["max_abs_err"] = max(out["max_abs_err"], float((fk - fp).abs().max()))
+    _, tb = m.map_to_sequence_tm(lp, states, *pens)
+    out.update(
+        ms=cuda_ms(lambda: m.map_to_sequence_tm(lp, states, *pens)),
+        global_ms=cuda_ms(lambda: m.map_to_sequence_tm(lp, states, *pens,
+                                                       global_state=True)),
+        forward_ms=cuda_ms(lambda: m.map_to_sequence_tm(lp, states, *pens,
+                                                        viterbi=False), reps=5),
+        traceback_bytes=tb.numel() * 4,
+        traceback_copy_ms=cuda_ms(lambda: tb.cpu(), reps=5),
+        **kernel_work("seqmap", T=T, nst=nst, seqlen=seqlen))
+    out["us_per_block"] = out["ms"] * 1e3 / T
+    emit({"phase": "seqmap_kernel", **out, "card": card})
+    return out
+
+
+def main_path_mapping(card: str) -> dict:
+    """The mapping path through the API on the card: the launches of its
+    two kernels in this run, each call's seconds, and each result held to
+    the port's CPU run on the same inputs. map_signal_to_squiggle's CPU
+    reference aligns the same normalised signal to the card's squiggle (the
+    squiggle phase holds the two squiggles to SQUIGGLE_RTOL; a DP path over
+    tens of thousands of samples is identical only on identical inputs);
+    map_post_to_sequence's maps the same posterior."""
+    import numpy as np
+
+    from scrappie_torch import api, ops
+    from scrappie_torch.decode.dtw import squiggle_match_viterbi
+
+    rng = np.random.default_rng(SEED + 60)
+    seq = random_bases(MAP_BASES, rng)
+    squiggle = api.sequence_to_squiggle(seq, device="cuda")
+    pad = lambda: 150.0 + rng.normal(0.0, 0.3, 300)
+    data = np.concatenate([pad(), 90.0 + 12.0 * simulate_squiggle(
+        squiggle, MAP_SAMPLES, rng), pad()]).astype(np.float32)
+    read = synthetic_signal(MAP_SAMPLES, rng)
+    ref = random_bases(MAP_BASES, rng)
+    calls = (("viterbi, path", dict(viterbi=True, path=True)),
+             ("forward", {}),
+             (f"banded {MAP_BAND}, viterbi", dict(viterbi=True, bands=MAP_BAND)),
+             (f"banded {MAP_BAND}, forward", dict(bands=MAP_BAND)))
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    score, path = api.map_signal_to_squiggle(data, seq, device="cuda")
+    seconds = {"map_signal_to_squiggle": time.perf_counter() - t0}
+    raw = api.RawTable(read)
+    raw.trim().scale()
+    post = api.calc_post(raw, "rgrgr_r94", device="cuda")
+    results = {}
+    for what, kw in calls:
+        t0 = time.perf_counter()
+        results[what] = api.map_post_to_sequence(post, ref, device="cuda", **kw)
+        seconds[what] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for name in ("dtw", "seqmap"):
+        require(launches[name] > 0,
+                f"kernel {name} launched on the mapping path ({launches[name]})")
+
+    raw = api.RawTable(data)
+    raw.trim().scale()
+    require(np.array_equal(api.sequence_to_squiggle(seq, device="cuda"), squiggle),
+            "the card's squiggle is reproducible")
+    t0 = time.perf_counter()
+    cscore, cpath = squiggle_match_viterbi(raw.data(as_numpy=True), squiggle,
+                                           skip_pen=DTW_OPTIONS["skip_pen"],
+                                           device="cpu")
+    cpu_seconds = {"map_signal_to_squiggle": time.perf_counter() - t0}
+    require(np.array_equal(cpath, path[raw.start:raw.end]) and cscore == score,
+            "map_signal_to_squiggle: CUDA and CPU paths and scores identical")
+    mapped = path[path >= 0]
+    for what, kw in calls:
+        t0 = time.perf_counter()
+        cres = api.map_post_to_sequence(post, ref, device="cpu", **kw)
+        cpu_seconds[what] = time.perf_counter() - t0
+        gres = results[what]
+        if kw.get("viterbi"):
+            require(cres[0] == gres[0], f"map_post_to_sequence {what}: scores identical")
+        else:
+            rel = abs(cres[0] - gres[0]) / max(abs(cres[0]), 1.0)
+            require(rel <= FORWARD_RTOL,
+                    f"map_post_to_sequence {what}: score rel err {rel} <= {FORWARD_RTOL}")
+        if kw.get("path"):
+            require(np.array_equal(cres[1], gres[1]),
+                    f"map_post_to_sequence {what}: paths identical")
+    emit({"phase": "main_path_mapping", "bases": MAP_BASES,
+          "samples": len(data), "trimmed": raw.end - raw.start,
+          "blocks": post.shape[0], "score": score,
+          "mapped_samples": int(len(mapped)),
+          "positions_reached": int(mapped.max()) + 1 if len(mapped) else 0,
+          "scores": {k: v[0] for k, v in results.items()},
+          "seconds": seconds, "cpu_seconds": cpu_seconds, "launches": launches,
+          "card": card})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -931,15 +1262,22 @@ def main() -> int:
     throughput_rnnrf(rnet, card, reads)
     events_launches = main_path_events(card, reads)
     throughput_events(enet, card, reads)
+    with torch.inference_mode():
+        check_squiggle(card)
+        table["dtw"] = check_dtw_kernel(card)
+        table["seqmap"] = check_seqmap_kernel(card)
+    mapping_launches = main_path_mapping(card)
     # each kernel's launches on its own path; the GRU's and the Viterbi
     # kernels' on the rgrgr path
     launches.update({k: rnnrf_launches[k] for k in RNNRF_KERNELS
                      if k != "gru_layer"})
     launches["lstm_layer"] = events_launches["lstm_layer"]
+    launches.update({k: mapping_launches[k] for k in ("dtw", "seqmap")})
     # No single PyTorch call computes any of these functions: torch.nn.GRU
     # applies r after its matmul (scrappie before), torch.nn.LSTM has no
-    # peepholes, and nothing in PyTorch does a Viterbi decode or the CRF's
-    # partition function. So library_ms is null throughout.
+    # peepholes, and nothing in PyTorch does a Viterbi decode, the CRF's
+    # partition function or either mapping DP. So library_ms is null
+    # throughout.
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],

@@ -1,9 +1,12 @@
-"""Public Python API for the rgrgr, rnnrf and events models, mirroring
-scrappie_tpu.api (and the reference binding, python/scrappy/__init__.py).
+"""Public Python API, mirroring scrappie_tpu.api (and the reference
+binding, python/scrappy/__init__.py): basecalling with the rgrgr, rnnrf and
+events models, squiggle prediction, signal-to-squiggle alignment and
+posterior-to-sequence mapping.
 
-`calc_post`, `decode_post`, `basecall_raw` and `basecall_events` take a
-`device`: "cuda" (the default) runs the hand-written kernels, "cpu" their
-plain twins.
+`calc_post`, `decode_post`, `basecall_raw`, `basecall_events`,
+`sequence_to_squiggle`, `map_signal_to_squiggle` and `map_post_to_sequence`
+take a `device`: "cuda" (the default) runs the hand-written kernels, "cpu"
+their plain twins.
 Model kinds the port does not run yet raise NotImplementedError naming
 the ROADMAP item that ports them.
 """
@@ -11,16 +14,20 @@ the ROADMAP item that ports them.
 from __future__ import annotations
 
 import functools
+import itertools
 
 import numpy as np
 import torch
 
+from scrappie_torch.decode import mapping
 from scrappie_torch.decode.crf import crfpath_to_basecall, decode_crf, posterior_crf
+from scrappie_torch.decode.dtw import squiggle_match_viterbi
 from scrappie_torch.decode.transducer import assemble_events, decode_transducer
 from scrappie_torch.device import as_device
 from scrappie_torch.models.calibration import collapsed
 from scrappie_torch.models.convert import raw_spec
 from scrappie_torch.models.forward import Network, load_model
+from scrappie_torch.models.specs import RAW_MODELS, SQUIGGLE_MODELS
 from scrappie_torch.post.homopolymer import HomopolymerMode, homopolymer_path
 from scrappie_torch.post.overlapper import overlapper
 from scrappie_torch.signal.events import detect_events
@@ -29,6 +36,23 @@ from scrappie_torch.signal.trim import trim_and_segment_raw, trim_raw_by_mad
 from scrappie_torch.types import RawSignal
 from scrappie_torch.utils.maths import medmad_normalise
 from scrappie_torch.utils.tracing import log
+
+
+def _gsp():
+    # (ref python/scrappy/__init__.py:25-44) transducer state-space sizes
+    alpha_len = range(4, 8)
+    kmer_len = range(1, 10)
+    pairs = [(a, k) for a, k in itertools.product(alpha_len, kmer_len)]
+    lookup = {a**k: (a, k) for a, k in pairs}
+
+    def guess_state_properties(nstate: int):
+        """(alphabet size, kmer length) from transducer state count."""
+        return lookup[nstate - 1]
+
+    return guess_state_properties
+
+
+guess_state_properties = _gsp()
 
 
 class RawTable:
@@ -240,3 +264,122 @@ def basecall_events(data, *, trim_start=200, trim_end=10, varseg_chunk=100,
                                             use_slip)
     seq, _pos = assemble_events(et, path, nstate, dwell_correction)
     return seq, float(score), et, rt.start, rt.end
+
+
+def get_model_stride(model: str) -> int:
+    """Stride of a raw model (ref get_raw_model_stride,
+    src/networks.c:87-106)."""
+    try:
+        return RAW_MODELS[model].stride
+    except KeyError:
+        raise ValueError(f"Invalid model {model!r}") from None
+
+
+_base_to_int = {c: i for i, c in enumerate("ACGT")}
+
+
+def encode_bases(sequence: str, state_len: int = 1) -> np.ndarray:
+    """Rolling kmer encoding of a base string (ref encode_bases_to_integers,
+    src/scrappie_seq_helpers.c:53-74; first base most significant)."""
+    try:
+        enc = np.array([_base_to_int[b] for b in sequence.upper()],
+                       dtype=np.int64)
+    except KeyError as e:
+        raise ValueError(f"sequence contains non-ACGT base {e.args[0]!r}") from None
+    n = len(enc) - state_len + 1
+    if n <= 0:
+        raise ValueError("sequence shorter than state length")
+    out = np.zeros(n, dtype=np.int64)
+    for j in range(state_len):
+        out = out * 4 + enc[j : j + n]
+    return out
+
+
+def sequence_to_squiggle(sequence: str, model: str = "squiggle_r94",
+                         rescale: bool = False, device=None) -> np.ndarray:
+    """Predict (current, sd, dwell) per base of `sequence` [N, 3] (ref
+    sequence_to_squiggle, python/scrappy/__init__.py:433-459).
+    rescale=True applies the unit transform (sd = exp(log sd), dwell =
+    exp(-x)) as the CLI's --rescale does; else the columns are (current,
+    log sd, -log dwell)."""
+    if model not in SQUIGGLE_MODELS:
+        raise KeyError(f"Squiggle model type {model!r} not recognised.")
+    seq = encode_bases(sequence, 1).astype(np.int32)
+    net = _model(model, as_device(device))
+    with torch.no_grad():
+        out = net(torch.as_tensor(seq, device=net.device),
+                  transform_units=rescale)
+    return out.cpu().numpy()
+
+
+def map_signal_to_squiggle(data, sequence: str, model: str = "squiggle_r94",
+                           rate: float = 1.0, back_prob: float = 0.0,
+                           local_pen: float = 2.0, skip_pen: float = 5000.0,
+                           min_score: float = 5.0, device=None):
+    """Align raw signal to the predicted squiggle of `sequence` by DTW (ref
+    map_signal_to_squiggle, python/scrappy/__init__.py:462-489). Returns
+    (score, path over the FULL input with -1 outside the trimmed/mapped
+    region)."""
+    device = as_device(device)
+    raw = RawTable(data)
+    raw.trim().scale()
+    squiggle = sequence_to_squiggle(sequence, model=model, rescale=False,
+                                    device=device)
+    score, path = squiggle_match_viterbi(
+        raw.data(as_numpy=True), squiggle, rate=rate, prob_back=back_prob,
+        local_pen=local_pen, skip_pen=skip_pen, minscore=min_score,
+        device=device)
+    full_path = np.full(len(np.asarray(data)), -1, dtype=np.int32)
+    full_path[raw.start : raw.end] = path
+    return score, full_path
+
+
+def map_post_to_sequence(post: Posterior, sequence: str, stay_pen=0.0,
+                         skip_pen=0.0, local_pen=4.0, viterbi=False,
+                         path=False, bands=None, device=None):
+    """Local-global alignment of a basecall posterior to a reference
+    sequence (ref map_post_to_sequence, python/scrappy/__init__.py:492-578).
+
+    bands: None (full DP), an int half-width (diagonal band), or a
+    (low, high) pair of arrays. Returns (score, path or None)."""
+    if path and not viterbi:
+        raise ValueError("Cannot calculate path with `viterbi==False`.")
+    if not isinstance(post, Posterior):
+        raise TypeError("`post` should be a Posterior.")
+    device = as_device(device)
+
+    nblock, nstate = post.shape
+    _, kmer_len = guess_state_properties(nstate)
+    seq = encode_bases(sequence, kmer_len)
+    seqlen = len(seq)
+
+    if bands is None:
+        if viterbi:
+            res = mapping.map_to_sequence_viterbi(
+                post.data(), seq, stay_pen, skip_pen, local_pen,
+                want_path=path, device=device)
+            score, p = res if path else (res, None)
+        else:
+            score = mapping.map_to_sequence_forward(
+                post.data(), seq, stay_pen, skip_pen, local_pen, device=device)
+            p = None
+        return score, p
+
+    if isinstance(bands, int):
+        gradient = seqlen / nblock
+        half = bands * gradient
+        low = np.maximum(0, (np.arange(nblock) * gradient - half)).astype(np.int64)
+        high = np.minimum(seqlen, (np.arange(nblock) * gradient + half)).astype(np.int64)
+        # Invariants required by are_bounds_sane
+        low[0] = 0
+        high[-1] = seqlen
+        bands = (low, high)
+    elif len(bands) != 2:
+        raise ValueError("`bands` should be `None`, an integer, or length 2.")
+    low, high = (np.asarray(b, dtype=np.int64) for b in bands)
+    if not mapping.are_bounds_sane(low, high, nblock, seqlen):
+        raise ValueError("Supplied banding structure is not valid.")
+    score = mapping.map_to_sequence_banded(
+        post.data(), seq, low, high, stay_pen, skip_pen, local_pen,
+        viterbi=viterbi, device=device)
+    return score, None

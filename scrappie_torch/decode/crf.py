@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from scrappie_torch.device import as_device
+from scrappie_torch.device import float_tensor
 from scrappie_torch.ops.crf import NS, add_emit_bias, crf_viterbi_tm
 
 NBASE = 4
@@ -33,11 +33,7 @@ def _batched(trans, device) -> tuple[torch.Tensor, bool]:
     """[T, 25] or [B, T, 25], numpy or a tensor -> ([B, T, 25] float32,
     whether a batch axis was added). numpy goes to `device`, a tensor stays
     on its own."""
-    if isinstance(trans, torch.Tensor):
-        t = trans.to(torch.float32)
-    else:
-        t = torch.as_tensor(np.asarray(trans, dtype=np.float32),
-                            device=as_device(device))
+    t = float_tensor(trans, device)
     squeeze = t.dim() == 2
     return (t[None] if squeeze else t), squeeze
 

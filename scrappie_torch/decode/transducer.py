@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from scrappie_torch.device import as_device
+from scrappie_torch.device import float_tensor
 from scrappie_torch.post.homopolymer import homopolymer_dwell_correction
 from scrappie_torch.post.overlapper import overlapper
 from scrappie_torch.ops.viterbi import (
@@ -55,11 +55,7 @@ def decode_transducer(logpost, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
     """Full transducer decode: (score, path). Accepts [T, nstate] or
     [B, T, nstate], as numpy or a tensor; numpy input is decoded on
     `device`, a tensor on its own device."""
-    if isinstance(logpost, torch.Tensor):
-        lp = logpost.to(torch.float32)
-    else:
-        lp = torch.as_tensor(np.asarray(logpost, dtype=np.float32),
-                             device=as_device(device))
+    lp = float_tensor(logpost, device)
     squeeze = lp.dim() == 2
     if squeeze:
         lp = lp[None]

@@ -14,6 +14,7 @@ kernels, and asking for CUDA where there is none raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: Device the entry points use when the caller names none.
@@ -39,3 +40,12 @@ def as_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {str(dev)!r} (cpu or cuda)")
     return dev
+
+
+def float_tensor(x, device=None) -> torch.Tensor:
+    """x as a contiguous float32 tensor: a tensor stays on its own device,
+    an array (any layout) goes to `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).contiguous()
+    return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32),
+                           device=as_device(device))

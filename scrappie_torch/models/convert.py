@@ -12,10 +12,10 @@ import numpy as np
 import torch
 
 from scrappie_torch.device import as_device
-from scrappie_torch.models.specs import EVENTS_MODEL, RAW_MODELS
+from scrappie_torch.models.specs import EVENTS_MODEL, RAW_MODELS, SQUIGGLE_MODELS
 
 #: Model kinds the port runs.
-PORTED_KINDS = ("rgrgr", "rnnrf", "events")
+PORTED_KINDS = ("rgrgr", "rnnrf", "events", "squiggle")
 #: ROADMAP.md queue-1 item that ports each model kind still missing.
 _WAITING_KINDS = {"raw": "ROADMAP.md queue 1 item 10 (raw_r94)"}
 
@@ -31,10 +31,12 @@ def params_from_numpy(params: dict[str, np.ndarray],
 
 def model_spec(model: str):
     """The registry spec of a model the port runs: an rgrgr or rnnrf raw
-    model, or the events model. Kinds not ported raise
+    model, the events model or a squiggle model. Kinds not ported raise
     NotImplementedError naming the ROADMAP item that ports them."""
     if model == EVENTS_MODEL.name:
         return EVENTS_MODEL
+    if model in SQUIGGLE_MODELS:
+        return SQUIGGLE_MODELS[model]
     if model not in RAW_MODELS:
         raise KeyError(f"Model type {model!r} not recognised.")
     spec = RAW_MODELS[model]
@@ -44,10 +46,20 @@ def model_spec(model: str):
     return spec
 
 
-def raw_spec(model: str):
-    """The spec of a raw-signal model (model_spec without the events
-    model, whose entry point is api.basecall_events)."""
+def basecaller_spec(model: str):
+    """model_spec of a basecaller: a squiggle model, which predicts signal
+    from a sequence, is refused."""
     spec = model_spec(model)
+    if spec.kind == "squiggle":
+        raise ValueError(f"{model!r} predicts a squiggle from a sequence and "
+                         "calls no bases: use api.sequence_to_squiggle")
+    return spec
+
+
+def raw_spec(model: str):
+    """The spec of a raw-signal basecaller (basecaller_spec without the
+    events model, whose entry point is api.basecall_events)."""
+    spec = basecaller_spec(model)
     if spec.kind == "events":
         raise ValueError(f"{model!r} basecalls from events, not raw signal: "
                          "use api.basecall_events or BasecallEngine")

@@ -1,4 +1,4 @@
-"""Forward passes of the rgrgr, rnnrf and events networks.
+"""Forward passes of the rgrgr, rnnrf, events and squiggle networks.
 
 Counterpart of scrappie_tpu/models/forward.py:
   * rgrgr_posterior and rgrgr_posterior_tm (graph: ref
@@ -11,7 +11,12 @@ Counterpart of scrappie_tpu/models/forward.py:
   * events_posterior and events_posterior_tm (ref src/networks.c:146-194):
     window(3) over 4 event features, two stages of forward and backward
     peephole LSTMs through ops/lstm.py combined by feedforward2_tanh, then
-    the temperature softmax and robustlog over 1025 states.
+    the temperature softmax and robustlog over 1025 states;
+  * squiggle_forward (ref src/networks.c:397-451): an embedding of the
+    bases, tanh(conv), four residual tanh convolutions and a last
+    convolution to (current, log sd, -log dwell) per base, optionally with
+    the unit transform. The convolutions are library calls (`F.conv1d`,
+    fp32 with TF32 off), as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from torch import nn
 
 from scrappie_torch.models import registry
 from scrappie_torch.models.convert import model_spec, params_from_numpy
-from scrappie_torch.nn.layers import globalnorm_tm, robustlog, softmax_with_temperature
+from scrappie_torch.nn.layers import (conv1d, embedding, globalnorm_tm, robustlog,
+                                      softmax_with_temperature)
 from scrappie_torch.ops.pipeline import (
     events_basecall_fused,
     events_features_tm,
@@ -81,6 +87,24 @@ def events_posterior_tm(params, feats, *, winlen=3, min_prob=1e-5, tempW=1.0,
 def events_posterior(params, feats, **kwargs):
     """feats [B, nevent, 4] -> (log) posterior [B, nevent, nstate]."""
     return events_posterior_tm(params, feats, **kwargs).transpose(0, 1)
+
+
+def squiggle_forward(params, seq, *, transform_units=True):
+    """seq [..., N] int bases (0-3 for ACGT) -> predicted squiggle
+    [..., N, 3]: (current, sd, dwell in samples) with transform_units, else
+    (current, log sd, -log dwell). params holds each conv's weights and its
+    stride (`conv{k}_stride`, an int or a one-element tensor)."""
+    stride = lambda k: int(params[f"conv{k}_stride"])
+    x = embedding(seq, params["embed_W"])
+    x = torch.tanh(conv1d(x, params["conv1_W"], params["conv1_b"], stride(1)))
+    for k in range(2, 6):
+        x = x + torch.tanh(conv1d(x, params[f"conv{k}_W"], params[f"conv{k}_b"],
+                                  stride(k)))
+    out = conv1d(x, params["conv6_W"], params["conv6_b"], stride(6))
+    if transform_units:
+        out = torch.cat([out[..., 0:1], torch.exp(out[..., 1:2]),
+                         torch.exp(-out[..., 2:3])], dim=-1)
+    return out
 
 
 class Network(nn.Module):
@@ -217,7 +241,33 @@ class EventsModel(Network):
                                      **kwargs)
 
 
-_MODELS = {cls.kind: cls for cls in (RgrgrModel, RnnrfModel, EventsModel)}
+class SquiggleModel(Network):
+    """squiggle_{r94,r94_rna,r10}: a base sequence -> its predicted squiggle.
+    The convolutions' strides are kept as ints, not buffers."""
+
+    kind = "squiggle"
+    default_model = "squiggle_r94"
+
+    def __init__(self, params: dict[str, torch.Tensor], strides: dict[str, int]):
+        super().__init__(params)
+        self.strides = dict(strides)
+
+    @classmethod
+    def from_registry(cls, model: str | None = None, device=None):
+        """The named squiggle model with the repository's weights."""
+        params = registry.load_params(cls._spec(model).name)
+        strides = {k: int(v) for k, v in params.items() if k.endswith("_stride")}
+        weights = {k: v for k, v in params.items() if k not in strides}
+        return cls(params_from_numpy(weights, device), strides)
+
+    def forward(self, seq, transform_units=True):
+        """seq [..., N] int bases -> squiggle [..., N, 3]."""
+        return squiggle_forward({**self.params, **self.strides}, seq,
+                                transform_units=transform_units)
+
+
+_MODELS = {cls.kind: cls
+           for cls in (RgrgrModel, RnnrfModel, EventsModel, SquiggleModel)}
 
 
 def load_model(model: str, device=None) -> Network:

@@ -8,11 +8,14 @@ Graph shapes per ref src/networks.c (see SURVEY.md Appendix A):
              -> globalnorm CRF (25 transitions over -ACGT)
   events     window(3) over 4 event features -> 2x (biLSTM + FF2-tanh)
              -> softmax_temp
+  squiggle_* embedding(4->3) -> conv+tanh -> 4x residual(conv+tanh)
+             -> conv(3 outputs: current, log sd, -log dwell)
 
 Strides and state counts follow the documented invariants (rgrgr: stride
 5, 1025 states; ref python/test/test_scrappy.py:47-48). Counterpart of
-the basecaller specs of scrappie_tpu/models/specs.py, with only the fields
-the port reads; the weights themselves come from models/registry.py.
+scrappie_tpu/models/specs.py, with only the fields the port reads; the
+weights themselves come from models/registry.py. The squiggle models carry
+their names only: their widths, windows and strides are in their npz files.
 """
 
 from __future__ import annotations
@@ -42,6 +45,12 @@ class EventsModelSpec:
     stride: int = 1  # one block per event (chunk coordinates are events)
 
 
+@dataclasses.dataclass(frozen=True)
+class SquiggleModelSpec:
+    name: str
+    kind: str = "squiggle"
+
+
 RAW_MODELS: dict[str, RawModelSpec] = {
     "raw_r94": RawModelSpec("raw_r94", "raw", 4, "tanh", NSTATE_TRANSDUCER),
     "rgrgr_r94": RawModelSpec("rgrgr_r94", "rgrgr", 5, "elu", NSTATE_TRANSDUCER),
@@ -49,5 +58,9 @@ RAW_MODELS: dict[str, RawModelSpec] = {
     "rgrgr_r10": RawModelSpec("rgrgr_r10", "rgrgr", 5, "tanh", NSTATE_TRANSDUCER),
     "rnnrf_r94": RawModelSpec("rnnrf_r94", "rnnrf", 2, "elu", NSTATE_CRF**2),
 }
+
+SQUIGGLE_MODELS: dict[str, SquiggleModelSpec] = {
+    name: SquiggleModelSpec(name)
+    for name in ("squiggle_r94", "squiggle_r94_rna", "squiggle_r10")}
 
 EVENTS_MODEL = EventsModelSpec()

@@ -1,5 +1,5 @@
-"""Layers of the rgrgr, rnnrf and events networks as plain functions on
-tensors.
+"""Layers of the rgrgr, rnnrf, events and squiggle networks as plain
+functions on tensors.
 
 Counterpart of scrappie_tpu/nn/layers.py, with its layouts: features are
 [..., T, C] and conv weights [winlen, Cin, Cout]. The convolution stays a
@@ -53,6 +53,11 @@ def window(x: torch.Tensor, w: int, stride: int) -> torch.Tensor:
         frames = x.index_select(-2, idx.clamp(0, max(T - 1, 0)))
         cols.append(torch.where(valid, frames, torch.zeros((), dtype=x.dtype)))
     return torch.cat(cols, dim=-1)
+
+
+def embedding(seq: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
+    """Row lookup: seq [..., N] int -> [..., N, width] (ref src/layers.c:97)."""
+    return E[seq.long()]
 
 
 def conv_same_pad(T: int, winlen: int, stride: int) -> tuple[int, int]:

@@ -12,6 +12,7 @@ through the kernels.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: Dynamic shared memory a block may use on sm_90.
@@ -26,6 +27,8 @@ LAUNCHES: dict[str, int] = {
     "crf_backtrace": 0,
     "crf_partition": 0,
     "lstm_layer": 0,
+    "dtw": 0,
+    "seqmap": 0,
 }
 
 
@@ -61,6 +64,28 @@ def check_kernel_input(name: str, t: torch.Tensor, shape: tuple,
 
 def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def f32(v: float) -> float:
+    """A Python number as the float32 value the kernels and JAX use."""
+    return float(np.float32(v))
+
+
+def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """log(exp(a) + exp(b)) by jnp.logaddexp's formula, which the kernels
+    copy: max(a, b) + log1p(exp(-|a - b|)), and a + b where a - b is NaN
+    (two infinities of one sign), so that logaddexp(-inf, -inf) = -inf."""
+    delta = a - b
+    return torch.where(torch.isnan(delta), a + b,
+                       torch.maximum(a, b) + torch.log1p(torch.exp(-delta.abs())))
+
+
+def logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """Log-sum-exp of all of x by jax.nn.logsumexp's formula: the maximum,
+    replaced by 0 where it is not finite, is taken out of the sum."""
+    m = x.max()
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return torch.log(torch.exp(x - m).sum()) + m
 
 
 def first_argmax(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:

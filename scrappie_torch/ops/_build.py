@@ -41,6 +41,9 @@ _SIGNATURES = {
     "scrappie_crf_backtrace": (_P, _P, _P, _P, _I, _I, _P),
     "scrappie_lstm_project": (_P, _P, _P, _P, _I, _I, _I, _P),
     "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "scrappie_dtw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                     _F, _F, _I, _I, _P),
+    "scrappie_seqmap": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P),
 }
 
 

@@ -20,18 +20,12 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from scrappie_torch import ops
 from scrappie_torch.nn.layers import robustlog, softmax_with_temperature
 
 BIG = 1.0e30
-
-
-def _f32(v: float) -> float:
-    """A penalty as the float32 value the kernels and JAX use."""
-    return float(np.float32(v))
 
 
 def _check_nhist(nhist: int, use_slip: bool) -> None:
@@ -47,7 +41,7 @@ def viterbi_scores_tm_plain(lp_tm, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
     nhist = nstate - 1
     _check_nhist(nhist, use_slip)
     START, END = nhist, nhist + 1
-    stay_pen, skip_pen, local_pen = map(_f32, (stay_pen, skip_pen, local_pen))
+    stay_pen, skip_pen, local_pen = map(ops.f32, (stay_pen, skip_pen, local_pen))
     dev = lp_tm.device
     lp_tm = torch.clamp(lp_tm, min=-BIG)
 
@@ -148,7 +142,7 @@ def viterbi_scores_tm(lp_tm, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
     with torch.cuda.device(lp_tm.device):
         err = _build.library().scrappie_viterbi_fwd(
             lp_tm.data_ptr(), final.data_ptr(), tb.data_ptr(), T, B, nhist,
-            _f32(stay_pen), _f32(skip_pen), _f32(local_pen), int(use_slip),
+            ops.f32(stay_pen), ops.f32(skip_pen), ops.f32(local_pen), int(use_slip),
             ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, "viterbi_fwd")
     ops.LAUNCHES["viterbi_fwd"] += 1
@@ -206,8 +200,8 @@ def viterbi_fused_tm(h_tm, W, bvec, min_prob=1e-5, tempW=1.0, tempb=1.0,
         err = _build.library().scrappie_viterbi_fused(
             h_tm.data_ptr(), W.data_ptr(), bvec.data_ptr(), final.data_ptr(),
             tb.data_ptr(), T, B, S, nhist, tempb / tempW, tempb,
-            min_prob / nstate, 1.0 - min_prob, _f32(stay_pen), _f32(skip_pen),
-            _f32(local_pen), int(use_slip),
+            min_prob / nstate, 1.0 - min_prob, ops.f32(stay_pen), ops.f32(skip_pen),
+            ops.f32(local_pen), int(use_slip),
             ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, "viterbi_fused")
     ops.LAUNCHES["viterbi_fused"] += 1

@@ -44,7 +44,7 @@ from scrappie_torch.decode.crf import crfpath_to_basecall
 from scrappie_torch.decode.transducer import assemble_events, viterbi_decode_batch
 from scrappie_torch.device import as_device
 from scrappie_torch.models.calibration import collapsed
-from scrappie_torch.models.convert import model_spec
+from scrappie_torch.models.convert import basecaller_spec
 from scrappie_torch.models.forward import load_model
 from scrappie_torch.ops.crf import NS, add_emit_bias, crf_viterbi_tm
 from scrappie_torch.parallel import chunk as chunklib
@@ -136,7 +136,7 @@ class BasecallEngine:
                  min_prob: float = 1e-5, tempW: float = 1.0, tempb: float = 1.0,
                  mode: str = "stitch"):
         self.model = model
-        self.spec = model_spec(model)
+        self.spec = basecaller_spec(model)
         self.events = self.spec.kind == "events"
         if mode not in ("stitch", "fast"):
             raise ValueError(f"unknown mode {mode!r}")

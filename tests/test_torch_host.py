@@ -3,17 +3,24 @@ against their originals, on seeded inputs: the results must be equal.
 
 scrappie_torch imports nothing of scrappie_tpu, so it keeps its own copy
 of trimming, normalisation, chunking, the overlapper, the homopolymer
-corrections, event detection and features, FASTA/SAM writing, fast5
-reading, the calibration presets and the weight loader. Where
+corrections, event detection and features, FASTA reading and FASTA/SAM
+writing, fast5 reading, the calibration presets, the weight loader, the
+API's base encoding and state-space guess, the DTW's penalties and the
+mapping's band check. Where
 scrappie_tpu runs native C++ (event detection, find_runs, the dwell
 overlapper), the port's numpy and Python code is held to that default
 path."""
+
+import tempfile
 
 import h5py
 import numpy as np
 import pytest
 
+from scrappie_torch import api as tapi
 from scrappie_torch import types as ttypes
+from scrappie_torch.decode import dtw as tdtw
+from scrappie_torch.decode import mapping as tmapping
 from scrappie_torch.io import fast5 as tfast5
 from scrappie_torch.io import fasta as tfasta
 from scrappie_torch.models import calibration as tcal
@@ -25,7 +32,10 @@ from scrappie_torch.signal import events as tevents
 from scrappie_torch.signal import features as tfeat
 from scrappie_torch.signal import trim as ttrim
 from scrappie_torch.utils import maths as tmaths
+from scrappie_tpu import api as japi
 from scrappie_tpu import types as jtypes
+from scrappie_tpu.decode import dtw as jdtw
+from scrappie_tpu.decode import mapping as jmapping
 from scrappie_tpu.io import fast5 as jfast5
 from scrappie_tpu.io import fasta as jfasta
 from scrappie_tpu.models import calibration as jcal
@@ -87,10 +97,12 @@ def both(fn):
     """Run fn on the port's modules and on the JAX package's."""
     port = dict(types=ttypes, trim=ttrim, maths=tmaths, chunk=tchunk,
                 over=tover, hp=thp, events=tevents, feat=tfeat, fasta=tfasta,
-                fast5=tfast5, cal=tcal, reg=treg)
+                fast5=tfast5, cal=tcal, reg=treg, api=tapi, dtw=tdtw,
+                mapping=tmapping)
     ref = dict(types=jtypes, trim=jtrim, maths=jmaths, chunk=jchunk,
                over=jover, hp=jhp, events=jevents, feat=jfeat, fasta=jfasta,
-               fast5=jfast5, cal=jcal, reg=jreg)
+               fast5=jfast5, cal=jcal, reg=jreg, api=japi, dtw=jdtw,
+               mapping=jmapping)
     return fn(**port), fn(**ref)
 
 
@@ -165,6 +177,56 @@ def case_fasta(fasta, **_):
                                trim=(200, 190), prefix="p_"),
             fasta.format_fasta("r2", "", nblock=0),
             fasta.format_sam("r1", "ACGT", prefix="p_"))
+
+
+def case_fasta_read(fasta, **_):
+    text = (">r1 first read\nACGT\nacgtN\n\n>r2\nGG\n"
+            "@q1 a fastq record\nACGTA\n+\n!!##$\n>r3\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/seqs.fa"
+        with open(path, "w") as fh:
+            fh.write(text)
+        with open(f"{tmp}/empty.fa", "w"):
+            pass
+        recs = fasta.read_fasta(path)
+        first = fasta.read_first_sequence(path)
+        empty = fasta.read_first_sequence(f"{tmp}/empty.fa")
+    fields = lambda r: (r.name, r.seq, r.comment, r.qual)
+    return [fields(r) for r in recs], fields(first), empty
+
+
+def case_encode_bases(api, **_):
+    seq = "".join(np.random.default_rng(11).choice(list("ACGTacgt"), 300))
+    out = [api.encode_bases(seq, k) for k in (1, 3, 5)]
+    for bad in ("ACGN", "AC"):
+        try:
+            api.encode_bases(bad, 3)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def case_state_properties(api, **_):
+    return [api.guess_state_properties(n) for n in (5, 17, 65, 1025, 4**9 + 1,
+                                                   6**4 + 1, 7**2 + 1)]
+
+
+def case_dtw_penalties(dtw, **_):
+    rng = np.random.default_rng(12)
+    params = np.stack([rng.standard_normal(40), -0.5 + 0.1 * rng.standard_normal(40),
+                       0.4 * rng.standard_normal(40)], axis=1).astype(np.float32)
+    with np.errstate(divide="ignore"):
+        return [dtw._penalties(params, rate, pb)
+                for rate in (1.0, 1.3) for pb in (0.0, 0.1)]
+
+
+def case_bounds(mapping, **_):
+    low = np.array([0, 0, 1, 2, 4, 5])
+    high = np.array([2, 3, 4, 6, 7, 8])
+    return [mapping.are_bounds_sane(lo, hi, n, seqlen) for lo, hi, n, seqlen in (
+        (low, high, 6, 8), (low, high, 5, 8), (low, high, 6, 9), (low + 1, high, 6, 8),
+        (low, high[::-1], 6, 8), (np.array([0, 3, 3, 4, 5, 6]), high, 6, 8),
+        (np.array([0, 2, 1, 2, 4, 5]), high, 6, 8))]
 
 
 def case_calibration(cal, **_):
