@@ -16,51 +16,69 @@ if any phase fails:
   3. holds the Viterbi kernels against their twins with nonzero penalties,
      slip and temperatures, and on log posteriors drawn from a few
      integers, where ties decide most moves;
-  4. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
+  4. holds the fused ensemble kernel against its twin on the hidden
+     features of rgrgr_r94, rgrgr_r941 and rgrgr_r10 (weights 3:1:1) at
+     T = 2000, B = 8 and 64, also with penalties, slip and temperatures and
+     with K = 2, and times it (phase ens_kernel); holds the GRU recurrence
+     kernel against nn/rnn.gru_tm at T = 2000, S = 96, B = 8 and 64, both
+     directions, and times it (phase gru_recurrence_kernel);
+  5. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
      16 seeded synthetic reads of 20k-100k samples in fast mode and in both
      stitch modes, checks that each kernel's launch counter rose and that
      every read has a sequence, and compares two reads with the port's CPU
      run of the same reads;
-  5. times the fused path at B = 64 chunks of 10 000 samples;
-  6. profiles (torch.profiler) the engine in each mode and the fused path,
+  6. times the fused path at B = 64 chunks of 10 000 samples;
+  7. profiles (torch.profiler) the engine in each mode and the fused path,
      and times the engine and the fused path at several batch sizes;
-  7. holds the three CRF kernels (Viterbi forward, backtrace, partition
+  8. runs BasecallEngine("raw_r94") the same way in its three modes (phase
+     main_path_raw) and times its fused path stage by stage
+     (throughput_raw);
+  9. holds the three CRF kernels (Viterbi forward, backtrace, partition
      function) against their twins at T = 5000 blocks (a 10 000-sample
      chunk at stride 2), B = 8 and 64: on the rnnrf head's transitions, on
      integer transitions in {-3..0}, and with an emit bias of -1;
-  8. runs BasecallEngine("rnnrf_r94", device="cuda") in fast and stitch
+ 10. runs BasecallEngine("rnnrf_r94", device="cuda") in fast and stitch
      mode on the same 16 reads, checks the launch counters and every
      read's sequence, and compares two reads with the port's CPU run;
-  9. times the rnnrf fused path at B = 64 x 10 000 samples, stage by stage,
+ 11. times the rnnrf fused path at B = 64 x 10 000 samples, stage by stage,
      and profiles the rnnrf engine in both modes;
- 10. holds the peephole-LSTM kernel against its twin with the events
+ 12. runs the ensembles through the engine: rgrgr_r94 + rgrgr_r941 +
+     rgrgr_r10 at 3:1:1 in fast mode (the fused ensemble kernel must
+     launch) and device stitch, and the rnnrf_r94 self-ensemble in fast and
+     stitch mode, whose calls must be the solo model's (phases
+     main_path_ensemble, main_path_rnnrf_self_ensemble); then times the
+     3:1:1 fused path stage by stage and profiles its fast engine
+     (throughput_ensemble);
+ 13. holds the peephole-LSTM kernel against its twin with the events
      network's weights at T = 2048 events, B = 8 and 64, C = 12 and 96, in
      both directions, and times the layer, its projection and its
      recurrence (and torch.matmul on the same projection); then holds the
      fused head + Viterbi, forward and backtrace kernels against their
      twins on the second stage's output and the FF3 head's posterior;
- 11. runs BasecallEngine("nanonet_events", device="cuda") in fast and
+ 14. runs BasecallEngine("nanonet_events", device="cuda") in fast and
      stitch mode on the same 16 reads, checks the launch counters and every
      read's sequence, and compares two reads with the port's CPU run;
- 12. times the events fused path at B = 64 x 2048 events, stage by stage,
+ 15. times the events fused path at B = 64 x 2048 events, stage by stage,
      and profiles the events engine in both modes;
- 13. predicts the squiggles of a seeded 2 000-base sequence with the three
+ 16. predicts the squiggles of a seeded 2 000-base sequence with the three
      squiggle models on the card and holds them to the port's CPU run;
- 14. holds the DTW kernel against its twin, Viterbi and forward, with
+ 17. holds the DTW kernel against its twin, Viterbi and forward, with
      prob_back 0 and 0.1, on signals simulated from predicted squiggles:
      state in shared memory (300 positions, 3 000 samples) and in global
      memory (15 000 positions, 2 000 samples); then times it at 6 000
      positions and 60 000 samples, with the traceback's copy to the host;
- 15. holds the seqmap kernel against its twin, Viterbi and forward, in
+ 18. holds the seqmap kernel against its twin, Viterbi and forward, in
      both variants, on the rgrgr_r94 posterior of a synthetic 60 000-sample
      read (about 12 000 blocks) against a seeded 6 000-base reference, and
      times it;
- 16. runs the mapping path through the API on the card,
+ 19. runs the mapping path through the API on the card,
      map_signal_to_squiggle on a signal simulated from the squiggle of a
      6 000-base sequence and map_post_to_sequence (Viterbi with a path,
      forward, banded), checks that each kernel's launch counter rose, and
      holds each result to the port's CPU run on the same inputs.
 
+Each engine path's launch counters are set to 0 just before its runs and
+read just after. Every phase's line carries the seconds since the start.
 The last lines are the kernel table (each kernel's time beside its bound,
 the least time the card could take for the same work), the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device":
@@ -102,6 +120,9 @@ DTW_OPTIONS = dict(local_pen=2.0, skip_pen=5000.0, minscore=5.0)
 # the CLI's --stay/--skip/--local/--slip and a calibration's temperatures
 VITERBI_OPTIONS = dict(stay_pen=0.3, skip_pen=1.1, local_pen=4.0, use_slip=True)
 TEMPS = dict(tempW=1.2, tempb=0.9)
+# the transducer ensemble the JAX package measured (rgrgr_r94 + rgrgr_r941 +
+# rgrgr_r10 at 3:1:1, scrappie_tpu/parallel/runner.py:147-150)
+ENSEMBLE = ("rgrgr_r941", "rgrgr_r10")
 RUNS = (("fast", "nochange"), ("stitch", "nochange"), ("stitch", "mean"))
 
 KERNELS = {
@@ -121,9 +142,17 @@ KERNELS = {
     "lstm_layer": ("scrappie_torch/csrc/lstm.cu", "scrappie_tpu/ops/lstm.py:53"),
     "seqmap": ("scrappie_torch/csrc/seqmap.cu", "scrappie_tpu/ops/seqmap.py:32"),
     "dtw": ("scrappie_torch/csrc/dtw.cu", "scrappie_tpu/ops/dtw.py:59"),
+    "viterbi_fused_ens": ("scrappie_torch/csrc/viterbi.cu",
+                          "scrappie_tpu/ops/viterbi.py:531"),
+    "gru_recurrence": ("scrappie_torch/csrc/gru.cu", "scrappie_tpu/ops/gru.py:67"),
 }
-RGRGR_KERNELS = ("gru_layer", "viterbi_fwd", "viterbi_backtrace", "viterbi_fused")
-RNNRF_KERNELS = ("gru_layer", "crf_fwd", "crf_backtrace", "crf_partition")
+# The kernels each path must launch, by engine mode.
+TRANSDUCER_KERNELS = {"fast": ("gru_layer", "viterbi_fused", "viterbi_backtrace"),
+                      "stitch": ("gru_layer", "viterbi_fwd", "viterbi_backtrace")}
+ENSEMBLE_KERNELS = {"fast": ("gru_layer", "viterbi_fused_ens", "viterbi_backtrace"),
+                    "stitch": TRANSDUCER_KERNELS["stitch"]}
+RNNRF_KERNELS = {mode: ("gru_layer", "crf_fwd", "crf_backtrace", "crf_partition")
+                 for mode in ("fast", "stitch")}
 EVENTS_KERNELS = {"fast": ("lstm_layer", "viterbi_fused", "viterbi_backtrace"),
                   "stitch": ("lstm_layer", "viterbi_fwd", "viterbi_backtrace")}
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
@@ -132,7 +161,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -253,6 +288,16 @@ def kernel_work(name: str, **d) -> dict:
                      + 2 * T * B * (ns + 1),
                      2 * T * B * S * ns + 4 * T * B * ns
                      + viterbi_ops(T, B, ns - 1))
+    if name == "viterbi_fused_ens":  # K heads, the renormalisation, the DP
+        K, S, ns = d["K"], d["S"], d["nstate"]
+        return bound(4 * (K * T * B * S + K * (S + 1) * ns + K + B * (ns + 1))
+                     + 2 * T * B * (ns + 1),
+                     K * (2 * T * B * S * ns + 4 * T * B * ns)
+                     + 4 * T * B * ns + viterbi_ops(T, B, ns - 1))
+    if name == "gru_recurrence":  # x [T, B, 3S] projected, h @ sW and rh @ sW2
+        S = d["S"]
+        return bound(4 * (T * B * 3 * S + 3 * S * S + T * B * S),
+                     2 * T * B * 3 * S * S)
     if name == "viterbi_backtrace":
         return bound(4 * B * d["nst2"] + 2 * T * B + 4 * B * (T + 1), T * B)
     if name == "crf_fwd":
@@ -358,25 +403,32 @@ def check_forward_and_backtrace(lp, what: str, **opts):
     return fk, tbk, (float((fk - fp).abs().max()), float((pk - pp).abs().max()))
 
 
-def check_fused(h, W, b, what: str, **opts) -> dict:
-    """Fused head + forward against head-then-forward: final within
+def check_fused(h, W, b, what: str, weights=None, **opts) -> dict:
+    """Fused head + forward against head-then-forward (with weights, the
+    fused ensemble against its twin, h [K, T, B, S]): final within
     FUSED_RTOL, paths identical in FUSED_MIN_SAME_ROWS of the rows."""
     from scrappie_torch.ops import viterbi as v
 
-    B = h.shape[1]
-    ffk, ftbk = v.viterbi_fused_tm(h, W, b, **opts)
-    ffp, ftbp = v.viterbi_fused_tm_plain(h, W, b, **opts)
+    B = h.shape[-2]
+    if weights is None:
+        name = "viterbi_fused"
+        ffk, ftbk = v.viterbi_fused_tm(h, W, b, **opts)
+        ffp, ftbp = v.viterbi_fused_tm_plain(h, W, b, **opts)
+    else:
+        name = "viterbi_fused_ens"
+        ffk, ftbk = v.viterbi_fused_ens_tm(h, W, b, weights, **opts)
+        ffp, ftbp = v.viterbi_fused_ens_tm_plain(h, W, b, weights, **opts)
     sync()
     rel = float(((ffk - ffp).abs() / ffp.abs().clamp(min=1.0)).max())
     require(rel <= FUSED_RTOL,
-            f"viterbi_fused final rel err {rel} <= {FUSED_RTOL} ({what})")
+            f"{name} final rel err {rel} <= {FUSED_RTOL} ({what})")
     fsk, fpk = v.viterbi_backtrace_tm(ffk, ftbk)
     fsp, fpp = v.viterbi_backtrace_tm_plain(ffp, ftbp)
     differ = (fpk != fpp).any(dim=1)
     ndiff = int(differ.sum())
     gap = float((fsk - fsp).abs()[differ].min()) if ndiff else None
     require(B - ndiff >= FUSED_MIN_SAME_ROWS * B,
-            f"viterbi_fused paths identical in {B - ndiff}/{B} rows ({what})")
+            f"{name} paths identical in {B - ndiff}/{B} rows ({what})")
     return {"max_abs_err": float((ffk - ffp).abs().max()), "max_rel_err": rel,
             "rows_differ": ndiff, "min_score_gap": gap}
 
@@ -413,6 +465,110 @@ def check_viterbi_options(net) -> None:
           "fused": fused})
 
 
+def ensemble_nets(device: str = "cuda") -> list:
+    """The members of the measured transducer ensemble, primary first."""
+    from scrappie_torch.models.forward import RgrgrModel
+
+    return [RgrgrModel.from_registry(m, device)
+            for m in ("rgrgr_r94",) + ENSEMBLE]
+
+
+def ensemble_weights(K: int) -> "torch.Tensor":
+    """The engine's normalised weights (3:1:...:1) of the first K members,
+    on the card."""
+    import torch
+
+    from scrappie_torch.models.ensemble import validate_ensemble
+
+    w = validate_ensemble("rgrgr_r94", ENSEMBLE[: K - 1]).astype("float32")
+    return torch.as_tensor(w, device="cuda")
+
+
+def check_ens_kernel(nets: list, B: int) -> dict:
+    """The fused ensemble kernel against its twin on the hidden features
+    the three rgrgr models give for B chunks of CHUNK samples (T_BLOCKS
+    blocks), at 3:1:1; at B = 8 also with penalties, slip and temperatures,
+    and with K = 2. Then its time (median of 20) and its twin's (median of
+    3, a loop over T)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.ops import viterbi as v
+    from scrappie_torch.ops.pipeline import ensemble_features_tm
+
+    rng = np.random.default_rng(SEED + 70 + B)
+    sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1)).astype(np.float32),
+                          device="cuda")
+    K = len(nets)
+    h, W, b = ensemble_features_tm(
+        [n.params for n in nets], sig, kinds=("rgrgr",) * K,
+        conv_activations=[n.conv_activation for n in nets], stride=5)
+    w = ensemble_weights(K)
+    require(h.shape == (K, T_BLOCKS, B, 96), f"ensemble features {tuple(h.shape)}")
+    row = check_fused(h, W, b, f"3:1:1, B = {B}", weights=w)
+    checked = {"3:1:1": dict(row)}
+    if B == 8:
+        checked["3:1:1, penalties + slip + temperatures"] = check_fused(
+            h, W, b, "3:1:1, penalties + slip + temperatures", weights=w,
+            **VITERBI_OPTIONS, **TEMPS)
+        checked["K = 2, 3:1"] = check_fused(h[:2], W[:2], b[:2], "K = 2",
+                                            weights=ensemble_weights(2))
+    for more in checked.values():
+        row["max_abs_err"] = max(row["max_abs_err"], more["max_abs_err"])
+        row["max_rel_err"] = max(row["max_rel_err"], more["max_rel_err"])
+    nstate = W.shape[-1]
+    row.update(K=K, **kernel_work("viterbi_fused_ens", T=T_BLOCKS, B=B, K=K, S=96,
+                                  nstate=nstate),
+               ms=cuda_ms(lambda: v.viterbi_fused_ens_tm(h, W, b, w)),
+               plain_ms=cuda_ms(lambda: v.viterbi_fused_ens_tm_plain(h, W, b, w),
+                                reps=3, warmup=1))
+    row["us_per_step"] = row["ms"] * 1e3 / T_BLOCKS
+    row["single_head_ms"] = cuda_ms(lambda: v.viterbi_fused_tm(h[0], W[0], b[0]))
+    emit({"phase": "ens_kernel", "B": B, "T": T_BLOCKS, "checked": checked,
+          "timed": row})
+    return row
+
+
+def check_gru_recurrence(net, B: int) -> dict:
+    """The GRU recurrence kernel against nn/rnn.gru_tm, both directions, on
+    rgrgr_r94's first layer's projected conv features of B chunks (T_BLOCKS
+    blocks, S = 96); then the times of the kernel (median of 20) and of the
+    twin (median of 3)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn import rnn
+    from scrappie_torch.nn.layers import feedforward
+    from scrappie_torch.ops import gru as g
+    from scrappie_torch.ops.pipeline import CONV_ACT
+    from scrappie_torch.nn.layers import conv1d
+
+    rng = np.random.default_rng(SEED + 80 + B)
+    p = net.params
+    sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1)).astype(np.float32),
+                          device="cuda")
+    x = CONV_ACT[net.conv_activation](
+        conv1d(sig, p["conv_W"], p["conv_b"], net.stride)).transpose(0, 1)
+    xproj = feedforward(x, p["gruB1_iW"], p["gruB1_b"]).contiguous()
+    sW, sW2 = p["gruB1_sW"], p["gruB1_sW2"]
+    require(xproj.shape == (T_BLOCKS, B, 288), f"projected {tuple(xproj.shape)}")
+    err = 0.0
+    for reverse in (True, False):
+        hk = g.gru_tm(xproj, sW, sW2, reverse)
+        hp = rnn.gru_tm(xproj, sW, sW2, reverse)
+        sync()
+        require(bool(torch.isfinite(hk).all()), "gru_recurrence output finite")
+        err = max(err, float((hk - hp).abs().max()))
+    require(err <= GRU_ATOL, f"gru_recurrence max abs err {err} <= {GRU_ATOL}")
+    row = {"max_abs_err": err,
+           **kernel_work("gru_recurrence", T=T_BLOCKS, B=B, S=96),
+           "ms": cuda_ms(lambda: g.gru_tm(xproj, sW, sW2, True)),
+           "plain_ms": cuda_ms(lambda: rnn.gru_tm(xproj, sW, sW2, True),
+                               reps=3, warmup=1)}
+    emit({"phase": "gru_recurrence_kernel", "B": B, "T": T_BLOCKS, **row})
+    return row
+
+
 def synthetic_reads() -> list:
     """NREADS seeded reads of READ_LEN samples."""
     import numpy as np
@@ -425,9 +581,15 @@ def synthetic_reads() -> list:
             for i, n in enumerate(lengths)]
 
 
-def main_path(card: str, reads: list) -> dict:
-    """BasecallEngine("rgrgr_r94") on the card in fast and both stitch
-    modes."""
+def drive_engine(card: str, phase: str, reads: list, model: str, runs,
+                 kernels: dict, extra=None, **engine_kw) -> tuple[dict, dict]:
+    """BasecallEngine(model, device="cuda", **engine_kw) on the reads in
+    each (mode, homopolymer) of runs, after a warm-up of each: every read
+    must have a sequence and each run must launch kernels[mode]; then the
+    two shortest reads against the port's CPU run of the same engine.
+    extra(results, row) adds fields to a run's line. Returns the launch
+    counts of all the runs (set to 0 just before them) and each run's
+    results."""
     from scrappie_torch import ops
     from scrappie_torch.parallel.runner import BasecallEngine
     from scrappie_torch.utils.seqcompare import edit_distance, within_flip_rule
@@ -435,47 +597,56 @@ def main_path(card: str, reads: list) -> dict:
 
     lengths = [len(r.raw) for r in reads]
     nsample = sum(lengths)
-    engines = {mode: BasecallEngine("rgrgr_r94", device="cuda", mode=mode)
-               for mode in ("fast", "stitch")}
+    engines = {mode: BasecallEngine(model, device="cuda", mode=mode, **engine_kw)
+               for mode in dict.fromkeys(mode for mode, _ in runs)}
     # warm up each path once (cuBLAS / cuDNN handles, allocator)
-    for mode, hp in RUNS:
+    for mode, hp in runs:
         engines[mode].basecall_signals(reads[:1], homopolymer=hp)
 
     ops.reset_launches()
     results = {}
-    for mode, hp in RUNS:
+    for mode, hp in runs:
         before = dict(ops.LAUNCHES)
         engines[mode].stage = Stage()
         t0 = time.perf_counter()
         res = engines[mode].basecall_signals(reads, homopolymer=hp)
         seconds = time.perf_counter() - t0
-        require(all(r.sequence for r in res), f"{mode}/{hp}: every read called")
+        require(all(r.sequence for r in res), f"{phase} {mode}/{hp}: every read called")
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        for name in kernels[mode]:
+            require(launched[name] > 0,
+                    f"kernel {name} launched on {phase} {mode} ({launched[name]})")
         results[(mode, hp)] = res
-        emit({"phase": "main_path", "mode": mode, "homopolymer": hp,
-              "reads": len(res), "samples": nsample,
-              "seconds": round(seconds, 4),
-              "samples_per_s": round(nsample / seconds, 1),
-              "bases": sum(len(r.sequence) for r in res),
-              "launches": {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES},
-              "stages": engines[mode].stage.report(), "card": card})
+        row = {"phase": phase, "mode": mode, "homopolymer": hp,
+               "reads": len(res), "samples": nsample, "seconds": round(seconds, 4),
+               "samples_per_s": round(nsample / seconds, 1),
+               "bases": sum(len(r.sequence) for r in res), "launches": launched,
+               "stages": engines[mode].stage.report(), "card": card}
+        if extra is not None:
+            row.update(extra(res, row))
+        emit(row)
     launches = dict(ops.LAUNCHES)
-    for name in RGRGR_KERNELS:
-        require(launches[name] > 0,
-                f"kernel {name} launched on the rgrgr path ({launches[name]})")
 
-    # The two shortest reads against the port's own CPU run.
     short = sorted(range(len(reads)), key=lambda i: lengths[i])[:2]
-    for mode, hp in RUNS:
-        cpu = BasecallEngine("rgrgr_r94", device="cpu", mode=mode)
+    for mode, hp in runs:
+        cpu = BasecallEngine(model, device="cpu", mode=mode, **engine_kw)
         cres = cpu.basecall_signals([reads[i] for i in short], homopolymer=hp)
         for i, c in zip(short, cres):
             g = results[(mode, hp)][i].sequence
             dist = 0 if g == c.sequence else edit_distance(g, c.sequence)
-            emit({"phase": "cpu_vs_cuda", "mode": mode, "homopolymer": hp,
-                  "read": reads[i].uuid, "bases": len(g), "edit_distance": dist})
+            emit({"phase": "cpu_vs_cuda", "path": phase, "mode": mode,
+                  "homopolymer": hp, "read": reads[i].uuid, "bases": len(g),
+                  "edit_distance": dist})
             require(within_flip_rule(g, c.sequence),
-                    f"{mode}/{hp} {reads[i].uuid}: CUDA and CPU calls agree")
-    return launches
+                    f"{phase} {mode}/{hp} {reads[i].uuid}: CUDA and CPU calls agree")
+    return launches, results
+
+
+def main_path(card: str, reads: list) -> dict:
+    """BasecallEngine("rgrgr_r94") on the card in fast and both stitch
+    modes."""
+    return drive_engine(card, "main_path", reads, "rgrgr_r94", RUNS,
+                        TRANSDUCER_KERNELS)[0]
 
 
 def throughput(net, card: str) -> None:
@@ -677,54 +848,10 @@ def check_crf_kernels(rnet, B: int) -> dict:
     return out
 
 
-def main_path_rnnrf(card: str, reads: list) -> dict:
+def main_path_rnnrf(card: str, reads: list) -> tuple[dict, dict]:
     """BasecallEngine("rnnrf_r94") on the card in fast and stitch mode."""
-    from scrappie_torch import ops
-    from scrappie_torch.parallel.runner import BasecallEngine
-    from scrappie_torch.utils.seqcompare import edit_distance, within_flip_rule
-    from scrappie_torch.utils.tracing import Stage
-
-    lengths = [len(r.raw) for r in reads]
-    nsample = sum(lengths)
-    modes = ("fast", "stitch")
-    engines = {mode: BasecallEngine("rnnrf_r94", device="cuda", mode=mode)
-               for mode in modes}
-    for mode in modes:
-        engines[mode].basecall_signals(reads[:1])
-
-    ops.reset_launches()
-    results = {}
-    for mode in modes:
-        before = dict(ops.LAUNCHES)
-        engines[mode].stage = Stage()
-        t0 = time.perf_counter()
-        res = engines[mode].basecall_signals(reads)
-        seconds = time.perf_counter() - t0
-        require(all(r.sequence for r in res), f"rnnrf {mode}: every read called")
-        results[mode] = res
-        emit({"phase": "main_path_rnnrf", "mode": mode, "reads": len(res),
-              "samples": nsample, "seconds": round(seconds, 4),
-              "samples_per_s": round(nsample / seconds, 1),
-              "bases": sum(len(r.sequence) for r in res),
-              "launches": {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES},
-              "stages": engines[mode].stage.report(), "card": card})
-    launches = dict(ops.LAUNCHES)
-    for name in RNNRF_KERNELS:
-        require(launches[name] > 0,
-                f"kernel {name} launched on the rnnrf path ({launches[name]})")
-
-    short = sorted(range(len(reads)), key=lambda i: lengths[i])[:2]
-    for mode in modes:
-        cpu = BasecallEngine("rnnrf_r94", device="cpu", mode=mode)
-        cres = cpu.basecall_signals([reads[i] for i in short])
-        for i, c in zip(short, cres):
-            g = results[mode][i].sequence
-            dist = 0 if g == c.sequence else edit_distance(g, c.sequence)
-            emit({"phase": "cpu_vs_cuda_rnnrf", "mode": mode,
-                  "read": reads[i].uuid, "bases": len(g), "edit_distance": dist})
-            require(within_flip_rule(g, c.sequence),
-                    f"rnnrf {mode} {reads[i].uuid}: CUDA and CPU calls agree")
-    return launches
+    return drive_engine(card, "main_path_rnnrf", reads, "rnnrf_r94",
+                        (("fast", None), ("stitch", None)), RNNRF_KERNELS)
 
 
 def throughput_rnnrf(rnet, card: str, reads: list) -> None:
@@ -842,58 +969,18 @@ def check_lstm_kernel(enet, B: int) -> dict:
 def main_path_events(card: str, reads: list) -> dict:
     """BasecallEngine("nanonet_events") on the card in fast and stitch
     mode; each mode's kernels must have launched in its own run."""
-    from scrappie_torch import ops
-    from scrappie_torch.parallel.runner import BasecallEngine
-    from scrappie_torch.utils.seqcompare import edit_distance, within_flip_rule
-    from scrappie_torch.utils.tracing import Stage
 
-    lengths = [len(r.raw) for r in reads]
-    nsample = sum(lengths)
-    modes = ("fast", "stitch")
-    engines = {mode: BasecallEngine("nanonet_events", device="cuda", mode=mode)
-               for mode in modes}
-    for mode in modes:
-        engines[mode].basecall_signals(reads[:1])
-
-    ops.reset_launches()
-    results = {}
-    for mode in modes:
-        before = dict(ops.LAUNCHES)
-        engines[mode].stage = Stage()
-        t0 = time.perf_counter()
-        res = engines[mode].basecall_signals(reads)
-        seconds = time.perf_counter() - t0
-        require(all(r.sequence for r in res), f"events {mode}: every read called")
-        results[mode] = res
-        launched = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
-        for name in EVENTS_KERNELS[mode]:
-            require(launched[name] > 0,
-                    f"kernel {name} launched on the events {mode} path "
-                    f"({launched[name]})")
+    def extra(res, row):
         nevent = sum(r.nblock for r in res)
-        stages = engines[mode].stage.report()
-        emit({"phase": "main_path_events", "mode": mode, "reads": len(res),
-              "samples": nsample, "events": nevent, "seconds": round(seconds, 4),
-              "events_per_s": round(nevent / seconds, 1),
-              "samples_per_s": round(nsample / seconds, 1),
-              "bases": sum(len(r.sequence) for r in res),
-              "detect_events_share": stages["detect_events"]["seconds"] / seconds,
-              "assemble_share": stages["assemble"]["seconds"] / seconds,
-              "launches": launched, "stages": stages, "card": card})
-    launches = dict(ops.LAUNCHES)
+        stages = row["stages"]
+        return {"events": nevent,
+                "events_per_s": round(nevent / row["seconds"], 1),
+                "detect_events_share": stages["detect_events"]["seconds"] / row["seconds"],
+                "assemble_share": stages["assemble"]["seconds"] / row["seconds"]}
 
-    short = sorted(range(len(reads)), key=lambda i: lengths[i])[:2]
-    for mode in modes:
-        cpu = BasecallEngine("nanonet_events", device="cpu", mode=mode)
-        cres = cpu.basecall_signals([reads[i] for i in short])
-        for i, c in zip(short, cres):
-            g = results[mode][i].sequence
-            dist = 0 if g == c.sequence else edit_distance(g, c.sequence)
-            emit({"phase": "cpu_vs_cuda_events", "mode": mode,
-                  "read": reads[i].uuid, "bases": len(g), "edit_distance": dist})
-            require(within_flip_rule(g, c.sequence),
-                    f"events {mode} {reads[i].uuid}: CUDA and CPU calls agree")
-    return launches
+    return drive_engine(card, "main_path_events", reads, "nanonet_events",
+                        (("fast", None), ("stitch", None)), EVENTS_KERNELS,
+                        extra)[0]
 
 
 def throughput_events(enet, card: str, reads: list) -> None:
@@ -942,6 +1029,130 @@ def throughput_events(enet, card: str, reads: list) -> None:
             profiled(f"events engine {mode}, batch {eng.batch_size}, "
                      f"{len(reads)} reads, {nsample} samples",
                      lambda: eng.basecall_signals(reads), card)
+
+
+def main_path_raw(card: str, reads: list) -> dict:
+    """BasecallEngine("raw_r94") on the card in fast and both stitch
+    modes."""
+    return drive_engine(card, "main_path_raw", reads, "raw_r94", RUNS,
+                        TRANSDUCER_KERNELS)[0]
+
+
+def throughput_raw(card: str) -> None:
+    """The raw_r94 fused path at B = 64 chunks of CHUNK samples, stage by
+    stage (CUDA events, median of 5)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn.layers import feedforward2_tanh
+    from scrappie_torch.models.forward import RawR94Model
+    from scrappie_torch.ops.gru import gru_layer_tm
+    from scrappie_torch.ops.pipeline import _conv_tm
+    from scrappie_torch.ops.viterbi import viterbi_backtrace_tm, viterbi_fused_tm
+
+    B = 64
+    net = RawR94Model.from_registry("raw_r94", "cuda")
+    p = net.params
+    sig = torch.as_tensor(np.random.default_rng(SEED + 6).standard_normal(
+        (B, CHUNK, 1)).astype(np.float32), device="cuda")
+    breakdown = {}
+    with torch.inference_mode():
+        total = cuda_ms(lambda: net.basecall_fused(sig), reps=5)
+        conv = lambda: _conv_tm(p, sig, "tanh", net.stride)
+        breakdown["conv+tanh"] = cuda_ms(conv, reps=5)
+        x = conv()
+        for layer in (1, 2):
+            h = {}
+            for d in ("F", "B"):
+                w = [p[f"gru{d}{layer}_{k}"] for k in ("iW", "b", "sW", "sW2")]
+                breakdown[f"gru {d}{layer}"] = cuda_ms(
+                    lambda: gru_layer_tm(x, *w, reverse=(d == "B")), reps=5)
+                h[d] = gru_layer_tm(x, *w, reverse=(d == "B"))
+            ff = lambda: feedforward2_tanh(h["F"], h["B"], p[f"FF{layer}_Wf"],
+                                           p[f"FF{layer}_Wb"], p[f"FF{layer}_b"])
+            breakdown[f"feedforward2_tanh {layer}"] = cuda_ms(ff, reps=5)
+            x = ff()
+        breakdown["fused head+viterbi"] = cuda_ms(
+            lambda: viterbi_fused_tm(x, p["FF3_W"], p["FF3_b"]), reps=5)
+        final, tb = viterbi_fused_tm(x, p["FF3_W"], p["FF3_b"])
+        breakdown["backtrace"] = cuda_ms(lambda: viterbi_backtrace_tm(final, tb),
+                                         reps=5)
+    emit({"phase": "throughput_raw", "path": "fused", "B": B, "chunk": CHUNK,
+          "blocks": x.shape[0], "ms": total,
+          "samples_per_s": B * CHUNK / (total / 1e3), "breakdown_ms": breakdown,
+          "card": card})
+
+
+def main_path_ensemble(card: str, reads: list, rnnrf_results: dict) -> dict:
+    """The ensembles through BasecallEngine on the card: rgrgr_r94 with
+    rgrgr_r941 and rgrgr_r10 at 3:1:1 in fast and device-stitch mode, and
+    the rnnrf_r94 self-ensemble (weights 1:1) in fast and stitch mode,
+    whose calls must be the solo model's (rnnrf_results, from
+    main_path_rnnrf on the same reads): the two halves of the weighted sum
+    add up to the solo transitions exactly. Returns the 3:1:1 runs'
+    launch counts."""
+    runs = (("fast", "nochange"), ("stitch", "nochange"))
+    launches = drive_engine(card, "main_path_ensemble", reads, "rgrgr_r94", runs,
+                            ENSEMBLE_KERNELS, ensemble=ENSEMBLE)[0]
+    runs = (("fast", None), ("stitch", None))
+    _, results = drive_engine(card, "main_path_rnnrf_self_ensemble", reads,
+                              "rnnrf_r94", runs, RNNRF_KERNELS,
+                              ensemble=("rnnrf_r94",), ensemble_weights=(1, 1))
+    for run in runs:
+        same = [a.sequence == b.sequence
+                for a, b in zip(results[run], rnnrf_results[run])]
+        require(all(same), f"rnnrf self-ensemble {run[0]}: the solo calls "
+                           f"({sum(same)}/{len(same)})")
+    return launches
+
+
+def throughput_ensemble(card: str, reads: list) -> None:
+    """The 3:1:1 ensemble's fused path at B = 64 chunks of CHUNK samples,
+    stage by stage (CUDA events, median of 5); then its fast engine under
+    torch.profiler."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.ops.pipeline import (ensemble_basecall_fused,
+                                             ensemble_features_tm,
+                                             rgrgr_features_tm)
+    from scrappie_torch.ops.viterbi import (viterbi_backtrace_tm,
+                                            viterbi_fused_ens_tm)
+    from scrappie_torch.parallel.runner import BasecallEngine
+
+    B = 64
+    nets = ensemble_nets()
+    params = [n.params for n in nets]
+    acts = tuple(n.conv_activation for n in nets)
+    w = ensemble_weights(len(nets))
+    sig = torch.as_tensor(np.random.default_rng(SEED + 7).standard_normal(
+        (B, CHUNK, 1)).astype(np.float32), device="cuda")
+    breakdown = {}
+    with torch.inference_mode():
+        total = cuda_ms(lambda: ensemble_basecall_fused(
+            params, w, sig, kinds=("rgrgr",) * len(nets), conv_activations=acts,
+            stride=5), reps=5)
+        for name, n in zip(("rgrgr_r94",) + ENSEMBLE, nets):
+            breakdown[f"{name} conv+gru x5"] = cuda_ms(
+                lambda: rgrgr_features_tm(n.params, sig, n.conv_activation,
+                                          n.stride), reps=5)
+        h, W, b = ensemble_features_tm(params, sig, kinds=("rgrgr",) * len(nets),
+                                       conv_activations=acts, stride=5)
+        breakdown["fused ensemble head+viterbi"] = cuda_ms(
+            lambda: viterbi_fused_ens_tm(h, W, b, w), reps=5)
+        final, tb = viterbi_fused_ens_tm(h, W, b, w)
+        breakdown["backtrace"] = cuda_ms(lambda: viterbi_backtrace_tm(final, tb),
+                                         reps=5)
+        emit({"phase": "throughput_ensemble", "path": "fused", "K": len(nets),
+              "B": B, "chunk": CHUNK, "ms": total,
+              "samples_per_s": B * CHUNK / (total / 1e3),
+              "breakdown_ms": breakdown, "card": card})
+        eng = BasecallEngine("rgrgr_r94", device="cuda", mode="fast",
+                             ensemble=ENSEMBLE)
+        nsample = sum(len(r.raw) for r in reads)
+        profiled(f"3:1:1 ensemble engine fast, batch {eng.batch_size}, "
+                 f"{len(reads)} reads, {nsample} samples",
+                 lambda: eng.basecall_signals(reads), card)
 
 
 def random_bases(n: int, rng) -> str:
@@ -1250,6 +1461,11 @@ def main() -> int:
         check_kernels(net, 8)
         table = check_kernels(net, 64)
         check_viterbi_options(net)
+        nets = ensemble_nets()
+        check_ens_kernel(nets, 8)
+        table["viterbi_fused_ens"] = check_ens_kernel(nets, 64)
+        check_gru_recurrence(net, 8)
+        table["gru_recurrence"] = check_gru_recurrence(net, 64)
         check_crf_kernels(rnet, 8)
         table.update(check_crf_kernels(rnet, 64))
         check_lstm_kernel(enet, 8)
@@ -1258,8 +1474,12 @@ def main() -> int:
     launches = main_path(card, reads)
     throughput(net, card)
     profile_and_scale(net, card, reads)
-    rnnrf_launches = main_path_rnnrf(card, reads)
+    main_path_raw(card, reads)
+    throughput_raw(card)
+    rnnrf_launches, rnnrf_results = main_path_rnnrf(card, reads)
     throughput_rnnrf(rnet, card, reads)
+    ensemble_launches = main_path_ensemble(card, reads, rnnrf_results)
+    throughput_ensemble(card, reads)
     events_launches = main_path_events(card, reads)
     throughput_events(enet, card, reads)
     with torch.inference_mode():
@@ -1267,17 +1487,20 @@ def main() -> int:
         table["dtw"] = check_dtw_kernel(card)
         table["seqmap"] = check_seqmap_kernel(card)
     mapping_launches = main_path_mapping(card)
-    # each kernel's launches on its own path; the GRU's and the Viterbi
-    # kernels' on the rgrgr path
-    launches.update({k: rnnrf_launches[k] for k in RNNRF_KERNELS
+    # each kernel's launches on its own path: the GRU's and the Viterbi
+    # kernels' on the rgrgr path, the ensemble kernel's on the 3:1:1
+    # ensemble's. No path runs the GRU recurrence alone (nor does any in
+    # the JAX package), so its count from the rgrgr path is 0.
+    launches.update({k: rnnrf_launches[k] for k in RNNRF_KERNELS["fast"]
                      if k != "gru_layer"})
+    launches["viterbi_fused_ens"] = ensemble_launches["viterbi_fused_ens"]
     launches["lstm_layer"] = events_launches["lstm_layer"]
     launches.update({k: mapping_launches[k] for k in ("dtw", "seqmap")})
     # No single PyTorch call computes any of these functions: torch.nn.GRU
     # applies r after its matmul (scrappie before), torch.nn.LSTM has no
-    # peepholes, and nothing in PyTorch does a Viterbi decode, the CRF's
-    # partition function or either mapping DP. So library_ms is null
-    # throughout.
+    # peepholes, and nothing in PyTorch does a Viterbi decode (alone, after
+    # a head or after K combined heads), the CRF's partition function or
+    # either mapping DP. So library_ms is null throughout.
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],

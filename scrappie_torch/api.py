@@ -1,14 +1,13 @@
 """Public Python API, mirroring scrappie_tpu.api (and the reference
-binding, python/scrappy/__init__.py): basecalling with the rgrgr, rnnrf and
-events models, squiggle prediction, signal-to-squiggle alignment and
-posterior-to-sequence mapping.
+binding, python/scrappy/__init__.py): basecalling with the raw_r94, rgrgr,
+rnnrf and events models and with posterior ensembles of raw models,
+squiggle prediction, signal-to-squiggle alignment and posterior-to-sequence
+mapping.
 
 `calc_post`, `decode_post`, `basecall_raw`, `basecall_events`,
 `sequence_to_squiggle`, `map_signal_to_squiggle` and `map_post_to_sequence`
 take a `device`: "cuda" (the default) runs the hand-written kernels, "cpu"
 their plain twins.
-Model kinds the port does not run yet raise NotImplementedError naming
-the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from scrappie_torch.decode.transducer import assemble_events, decode_transducer
 from scrappie_torch.device import as_device
 from scrappie_torch.models.calibration import collapsed
 from scrappie_torch.models.convert import raw_spec
+from scrappie_torch.models.ensemble import validate_ensemble
 from scrappie_torch.models.forward import Network, load_model
 from scrappie_torch.models.specs import RAW_MODELS, SQUIGGLE_MODELS
 from scrappie_torch.post.homopolymer import HomopolymerMode, homopolymer_path
@@ -125,9 +125,9 @@ def calc_post(rt: RawTable, model: str = "rgrgr_r94", min_prob: float = 1e-6,
               log: bool = True, tempW: float = 1.0, tempb: float = 1.0,
               device=None) -> Posterior:
     """Run a raw model over a (trimmed, scaled) RawTable (ref calc_post,
-    python/scrappy/__init__.py:276-298): the log posterior of an rgrgr
-    model, or the CRF transitions of rnnrf_r94, for which min_prob and the
-    temperatures do not apply."""
+    python/scrappy/__init__.py:276-298): the log posterior of raw_r94 or an
+    rgrgr model, or the CRF transitions of rnnrf_r94, for which min_prob
+    and the temperatures do not apply."""
     if not log and model == "rnnrf_r94":
         raise ValueError("Returning non-log transformed matrix not supported "
                          "for model type 'rnnrf_r94'.")
@@ -192,7 +192,9 @@ def decode_post(post: Posterior, model: str = "rgrgr_r94", device=None,
 
 
 def basecall_raw(data, model: str = "rgrgr_r94", with_base_probs: bool = False,
-                 calibration: str = "reference", device=None, **kwargs):
+                 calibration: str = "reference", ensemble: tuple[str, ...] = (),
+                 ensemble_weights: tuple[float, ...] | None = None, device=None,
+                 **kwargs):
     """Trim, scale, run the network, decode: one read end to end.
 
     Returns (sequence, score, block positions, trim start, trim end, base
@@ -200,22 +202,39 @@ def basecall_raw(data, model: str = "rgrgr_r94", with_base_probs: bool = False,
     python/scrappy/__init__.py:403-430. with_base_probs (rnnrf_r94 only)
     gives the CRF's forward-backward state posterior [nblock+1, 5].
     ``calibration="real"`` fills the measured decode preset
-    (scrappie_tpu/models/calibration.py) for knobs not passed."""
+    (models/calibration.py) for knobs not passed. ``ensemble`` decodes the
+    members' posteriors combined with the model's, as
+    BasecallEngine(ensemble=...) validates and combines them, here in
+    float64 on the host and cast to float32 (scrappie_tpu.api's numpy
+    combination)."""
     if with_base_probs and model != "rnnrf_r94":
         raise ValueError("Base probabilities can only be returned for model "
                          "'rnnrf_r94'.")
-    raw_spec(model)
+    spec = raw_spec(model)
     device = as_device(device)
+    ensemble = tuple(ensemble)
+    w = (validate_ensemble(model, ensemble, ensemble_weights)
+         if ensemble or ensemble_weights is not None else None)
     if calibration != "reference":
         from scrappie_torch.models import calibration as _calibration
 
-        for key, value in _calibration.preset(model, calibration).items():
+        for key, value in _calibration.preset(model, calibration,
+                                              ensemble).items():
             # the CRF decoder spells the emit-bias knob `emit_bias`
             kwargs.setdefault("emit_bias" if key == "crf_emit_bias" else key,
                               value)
     raw = RawTable(data)
     raw.trim().scale()
     post = calc_post(raw, model, log=True, device=device)
+    if w is not None:
+        lp = w[0] * post.data()
+        for wi, m in zip(w[1:], ensemble):
+            lp = lp + wi * calc_post(raw, m, log=True, device=device).data()
+        if spec.kind != "rnnrf":
+            # CRF members are transition energies: their weighted mean is
+            # the whole combination (models/ensemble.py)
+            lp = lp - np.log(np.exp(lp).sum(-1, keepdims=True))
+        post = Posterior(lp.astype(np.float32), model)
     seq, score, pos = decode_post(post, model, device=device, **kwargs)
     base_probs = posterior_crf(post.data()) if with_base_probs else None
     return seq, score, pos, raw.start, raw.end, base_probs

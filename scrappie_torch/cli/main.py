@@ -1,5 +1,6 @@
-"""Command line of the port: `raw` (the rgrgr and rnnrf models) and
-`events` (nanonet_events) basecall; `squiggle` predicts squiggles, `mappy`
+"""Command line of the port: `raw` (raw_r94, the rgrgr models and rnnrf_r94,
+alone or as a posterior ensemble with `--ensemble`) and `events`
+(nanonet_events) basecall; `squiggle` predicts squiggles, `mappy`
 aligns a read's signal to a sequence's predicted squiggle, `seqmappy` maps
 its rgrgr_r94 posterior to a sequence, and `event_table` dumps its
 detected events.
@@ -18,7 +19,7 @@ import sys
 
 import numpy as np
 
-RAW_MODELS = ("rgrgr_r94", "rgrgr_r941", "rgrgr_r10", "rnnrf_r94")
+RAW_MODELS = ("raw_r94", "rgrgr_r94", "rgrgr_r941", "rgrgr_r10", "rnnrf_r94")
 SQUIGGLE_MODELS = ("squiggle_r94", "squiggle_r94_rna", "squiggle_r10")
 
 
@@ -123,6 +124,16 @@ def build_parser() -> argparse.ArgumentParser:
                      help="Fused per-chunk decode and path stitching; "
                           "posterior-mean homopolymer correction is "
                           "stitch-mode only")
+    raw.add_argument("--ensemble", default=None, metavar="MODELS",
+                     help="Comma-separated extra models of --model's family "
+                          "and stride whose posteriors (raw_r94, rgrgr) or "
+                          "CRF transitions (rnnrf) are combined with "
+                          "--model's before decoding; with --fast the "
+                          "transducer heads combine inside the fused "
+                          "ensemble kernel")
+    raw.add_argument("--ensemble-weights", default=None, metavar="W,W,...",
+                     help="Per-model ensemble weights, --model first "
+                          "(default 3:1:...:1)")
     raw.add_argument("files", nargs="+", help="fast5 files or directories")
 
     ev = sub.add_parser("events", help="basecall via event detection")
@@ -195,16 +206,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main_raw(args) -> int:
-    from scrappie_torch.parallel.runner import BasecallEngine
     from scrappie_torch.io.fasta import format_fasta
     from scrappie_torch.models import calibration
+    from scrappie_torch.models.ensemble import parse_members
+    from scrappie_torch.parallel.runner import BasecallEngine
 
     batch = max(args.batch, args.threads or 0)
-    engine = BasecallEngine(args.model, chunk_len=args.chunk_len,
-                            overlap=args.overlap, batch_size=batch,
-                            device=args.device, min_prob=args.min_prob,
-                            tempW=args.temperature1, tempb=args.temperature2,
-                            mode="fast" if args.fast else "stitch")
+    ensemble = parse_members(args.ensemble)
+    ens_weights = (tuple(float(w) for w in args.ensemble_weights.split(","))
+                   if args.ensemble_weights else None)
+    if ens_weights and not ensemble:
+        print("--ensemble-weights needs --ensemble", file=sys.stderr)
+        return 1
+    try:
+        engine = BasecallEngine(args.model, chunk_len=args.chunk_len,
+                                overlap=args.overlap, batch_size=batch,
+                                device=args.device, min_prob=args.min_prob,
+                                tempW=args.temperature1,
+                                tempb=args.temperature2,
+                                mode="fast" if args.fast else "stitch",
+                                ensemble=ensemble, ensemble_weights=ens_weights)
+    except ValueError as e:  # a bad ensemble gets a clean message
+        print(str(e), file=sys.stderr)
+        return 1
     call_kwargs = dict(
         trim_start=args.trim[0], trim_end=args.trim[1],
         varseg_chunk=args.segmentation[0], varseg_thresh=args.segmentation[1],
@@ -212,7 +236,8 @@ def main_raw(args) -> int:
         local_pen=args.local_pen, use_slip=args.use_slip,
         homopolymer=None if args.model == "rnnrf_r94" else args.homopolymer,
         crf_emit_bias=args.crf_emit_bias)
-    calibration.apply(args.model, args.calibration, call_kwargs)
+    calibration.apply(args.model, args.calibration, call_kwargs,
+                      ensemble=ensemble)
 
     results = engine.basecall_files(args.files, limit=args.limit, **call_kwargs)
 

@@ -1,9 +1,11 @@
 // Transducer Viterbi decoding: the forward pass, the forward pass with the
-// posterior head fused in, and the backtrace.
+// posterior head fused in (one model, or an ensemble of K), and the
+// backtrace.
 //
 // Replaces, in scrappie_tpu/ops/viterbi.py:
 //   _fwd_kernel (with _dp_step and _dp_init)  wrapper viterbi_scores_tm
 //   _fused_kernel                             wrapper viterbi_fused_tm
+//   _fused_ens_kernel                         wrapper viterbi_fused_ens_tm
 //   _bt_kernel                                wrapper viterbi_backtrace_tm
 //
 // State space: nhist kmer-history states, then the local START and END
@@ -30,6 +32,10 @@
 //    row and step. W (394 KB in fp32 at S = 96) does not fit in shared
 //    memory, so every step streams it from L2; at one row per block that
 //    L2 traffic is the bound.
+//  * fused ensemble: K heads per step, so K times the fused kernel's L2
+//    traffic (1.2 MB a step at K = 3), plus four block reductions (the K
+//    softmax maxima and sums together, then the maximum and sum of the
+//    combined log posterior's renormalisation).
 //  * backtrace: one dependent 2-byte load per step and row; latency-bound.
 //
 // Design: one block per batch row and one thread per history state
@@ -42,7 +48,11 @@
 // states and writes (max, index) to a parity buffer, and warp 0 finishes
 // that reduction one step later, off the other warps' critical path. The
 // next step's log posteriors (or hidden row) are loaded into registers
-// while the current step computes. The backtrace runs one thread per row.
+// while the current step computes. The ensemble kernel stages its K hidden
+// rows [2, K, S] in shared memory the same way, keeps each member's logit
+// in a register (K <= MAX_ENS, a loop unrolled to that bound), and shares
+// the head's dot products, the DP step and the final write with the other
+// kernels. The backtrace runs one thread per row.
 #include <climits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -51,6 +61,7 @@ namespace {
 
 constexpr float BIG = 1.0e30f;
 constexpr int MAX_WARPS = 32;
+constexpr int MAX_ENS = 4;  // members of a fused ensemble
 
 struct DpParams {
   float stay_pen;
@@ -165,6 +176,51 @@ __device__ __forceinline__ void dp_step(const float* prev, float* next,
   start = __fadd_rn(start, fmaxf(-p.local_pen, stay_lp));
 }
 
+// One DP step at time t from this step's log posteriors of history state d
+// (lpd) and of the stay (lps), then warp 0's END update of step t - 1.
+__device__ __forceinline__ void dp_advance(float (&hist)[2][1024],
+                                           float (&wval)[2][MAX_WARPS],
+                                           int (&widx)[2][MAX_WARPS],
+                                           short* tb, int t, int B, float lpd,
+                                           float lps, float& start, float& end,
+                                           float& local_stay_prev,
+                                           const DpParams& p, int nhist) {
+  const int cur = t & 1;
+  const int nst2 = nhist + 2;
+  const float stay_lp = __fsub_rn(lps, p.stay_pen);
+  short* tb_row = tb + ((size_t)t * B + blockIdx.x) * nst2;
+  dp_step(hist[cur], hist[cur ^ 1], wval[cur], widx[cur], tb_row, lpd,
+          stay_lp, start, p, nhist);
+  if (threadIdx.x < 32 && t > 0) {
+    end_update(wval[cur ^ 1], widx[cur ^ 1], nhist >> 5, local_stay_prev, p,
+               nhist, tb_row - (size_t)B * nst2, end);
+  }
+  local_stay_prev = fmaxf(-p.local_pen, stay_lp);
+}
+
+// After the last step: warp 0 finishes the last END update, then the
+// block writes the final scores [nhist history | START | END] of its row.
+__device__ __forceinline__ void dp_finish(const float* hist, const float* wval,
+                                          const int* widx,
+                                          float local_stay_prev, float start,
+                                          float end, const DpParams& p,
+                                          float* final_, short* tb, int T,
+                                          int B, int nhist) {
+  const int b = blockIdx.x;
+  const int d = threadIdx.x;
+  const int nst2 = nhist + 2;
+  float* f = final_ + (size_t)b * nst2;
+  if (T > 0 && d < 32) {
+    end_update(wval, widx, nhist >> 5, local_stay_prev, p, nhist,
+               tb + ((size_t)(T - 1) * B + b) * nst2, end);
+  }
+  f[d] = hist[d];
+  if (d == 0) {
+    f[nhist] = start;
+    f[nhist + 1] = end;
+  }
+}
+
 // lp [T, B, nhist+1] -> final [B, nhist+2], tb [T, B, nhist+2] int16.
 __global__ void __launch_bounds__(1024)
 viterbi_fwd_kernel(const float* __restrict__ lp, float* __restrict__ final_,
@@ -175,9 +231,7 @@ viterbi_fwd_kernel(const float* __restrict__ lp, float* __restrict__ final_,
   __shared__ int widx[2][MAX_WARPS];
   const int b = blockIdx.x;
   const int d = threadIdx.x;
-  const int nwarp = nhist >> 5;
   const int nstate = nhist + 1;
-  const int nst2 = nhist + 2;
 
   hist[0][d] = -BIG;
   float start = 0.0f;
@@ -189,43 +243,81 @@ viterbi_fwd_kernel(const float* __restrict__ lp, float* __restrict__ final_,
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    const int cur = t & 1;
     float lpd_next = 0.0f, lps_next = 0.0f;
     if (t + 1 < T) {
       const float* nrow = lp + ((size_t)(t + 1) * B + b) * nstate;
       lpd_next = fmaxf(nrow[d], -BIG);
       lps_next = fmaxf(nrow[nhist], -BIG);
     }
-    const float stay_lp = __fsub_rn(lps, p.stay_pen);
-    short* tb_row = tb + ((size_t)t * B + b) * nst2;
-    dp_step(hist[cur], hist[cur ^ 1], wval[cur], widx[cur], tb_row, lpd,
-            stay_lp, start, p, nhist);
-    if (d < 32 && t > 0) {
-      end_update(wval[cur ^ 1], widx[cur ^ 1], nwarp, local_stay_prev, p,
-                 nhist, tb_row - (size_t)B * nst2, end);
-    }
-    local_stay_prev = fmaxf(-p.local_pen, stay_lp);
+    dp_advance(hist, wval, widx, tb, t, B, lpd, lps, start, end,
+               local_stay_prev, p, nhist);
     lpd = lpd_next;
     lps = lps_next;
     __syncthreads();
   }
-  float* f = final_ + (size_t)b * nst2;
-  if (T > 0 && d < 32) {
-    end_update(wval[(T - 1) & 1], widx[(T - 1) & 1], nwarp, local_stay_prev,
-               p, nhist, tb + ((size_t)(T - 1) * B + b) * nst2, end);
-  }
-  f[d] = hist[T & 1][d];
-  if (d == 0) {
-    f[nhist] = start;
-    f[nhist + 1] = end;
-  }
+  dp_finish(hist[T & 1], wval[(T - 1) & 1], widx[(T - 1) & 1], local_stay_prev,
+            start, end, p, final_, tb, T, B, nhist);
 }
 
-// Block-wide reduction helper: every thread gets op over the nwarp values.
+// Block-wide maximum of the nwarp per-warp values: every thread gets it.
 __device__ __forceinline__ float block_max_of(const float* w, int nwarp) {
   float m = w[0];
   for (int i = 1; i < nwarp; ++i) m = fmaxf(m, w[i]);
   return m;
+}
+
+__device__ __forceinline__ float warp_max(float m) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
+}
+
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// Row (t, blockIdx.x) of a time-major [T, B, S] input, times hscale, into
+// shared memory.
+__device__ __forceinline__ void stage_row(float* dst, const float* h, int t,
+                                          int B, int S, float hscale) {
+  const float* src = h + ((size_t)t * B + blockIdx.x) * S;
+  for (int k = threadIdx.x; k < S; k += blockDim.x)
+    dst[k] = __fmul_rn(src[k], hscale);
+}
+
+// The head's logit of history state d from a scaled hidden row hs:
+// (hs @ W[:, d] + bd) / tempb.
+__device__ __forceinline__ float head_logit(const float* hs,
+                                            const float* __restrict__ W,
+                                            int S, int nstate, int d, float bd,
+                                            float tempb) {
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < S; ++k) acc = fmaf(hs[k], __ldg(W + (size_t)k * nstate + d), acc);
+  return __fdiv_rn(__fadd_rn(acc, bd), tempb);
+}
+
+// The stay logit, computed by one warp (lane-strided partial sums, then a
+// butterfly): every lane of the warp gets it.
+__device__ __forceinline__ float head_stay_logit(const float* hs,
+                                                 const float* __restrict__ W,
+                                                 int S, int nstate, float bstay,
+                                                 float tempb) {
+  const int nhist = nstate - 1;
+  float part = 0.0f;
+  for (int k = threadIdx.x & 31; k < S; k += 32)
+    part = fmaf(hs[k], __ldg(W + (size_t)k * nstate + nhist), part);
+  return __fdiv_rn(__fadd_rn(warp_sum(part), bstay), tempb);
+}
+
+// robustlog of a softmax probability e / sum: log(c0 + c1 * e / sum).
+__device__ __forceinline__ float robust_logp(float e, float sum, float c0,
+                                             float c1) {
+  return logf(__fadd_rn(c0, __fmul_rn(c1, __fdiv_rn(e, sum))));
 }
 
 // h [T, B, S], W [S, nstate], bvec [nstate] -> final, tb as the forward.
@@ -243,13 +335,11 @@ viterbi_fused_kernel(const float* __restrict__ h, const float* __restrict__ W,
   __shared__ float wred[2][MAX_WARPS];
   __shared__ float y_stay;
   extern __shared__ float s_h[];  // [2, S] scaled hidden row, double-buffered
-  const int b = blockIdx.x;
   const int d = threadIdx.x;
   const int lane = d & 31;
   const int warp = d >> 5;
   const int nwarp = nhist >> 5;
   const int nstate = nhist + 1;
-  const int nst2 = nhist + 2;
 
   hist[0][d] = -BIG;
   float start = 0.0f;
@@ -257,10 +347,7 @@ viterbi_fused_kernel(const float* __restrict__ h, const float* __restrict__ W,
   float local_stay_prev = 0.0f;
   const float bd = bvec[d];
   const float bstay = bvec[nhist];
-  if (T > 0) {
-    for (int k = d; k < S; k += blockDim.x)
-      s_h[k] = __fmul_rn(h[(size_t)b * S + k], hscale);
-  }
+  if (T > 0) stage_row(s_h, h, 0, B, S, hscale);
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
@@ -268,73 +355,155 @@ viterbi_fused_kernel(const float* __restrict__ h, const float* __restrict__ W,
     const float* hs = s_h + cur * S;
     // Prefetch the next hidden row into the other buffer; it was last read
     // in the previous step's head, before this step's first barrier.
-    if (t + 1 < T) {
-      for (int k = d; k < S; k += blockDim.x)
-        s_h[(cur ^ 1) * S + k] =
-            __fmul_rn(h[((size_t)(t + 1) * B + b) * S + k], hscale);
-    }
+    if (t + 1 < T) stage_row(s_h + (cur ^ 1) * S, h, t + 1, B, S, hscale);
     // Head: logit of history state d, and warp 0 the stay logit.
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < S; ++k) acc = fmaf(hs[k], __ldg(W + (size_t)k * nstate + d), acc);
-    const float y = __fdiv_rn(__fadd_rn(acc, bd), tempb);
+    const float y = head_logit(hs, W, S, nstate, d, bd, tempb);
     float ys = -CUDART_INF_F;
     if (warp == 0) {
-      float part = 0.0f;
-      for (int k = lane; k < S; k += 32)
-        part = fmaf(hs[k], __ldg(W + (size_t)k * nstate + nhist), part);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      ys = __fdiv_rn(__fadd_rn(part, bstay), tempb);
+      ys = head_stay_logit(hs, W, S, nstate, bstay, tempb);
       if (lane == 0) y_stay = ys;
     }
     // Softmax maximum over all nstate logits.
-    float m = fmaxf(y, ys);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float m = warp_max(fmaxf(y, ys));
     if (lane == 0) wred[0][warp] = m;
     __syncthreads();
     m = block_max_of(wred[0], nwarp);
     const float ystay = y_stay;
     const float e = expf(__fsub_rn(y, m));
-    float s = e;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
+    const float s = warp_sum(e);
     if (lane == 0) wred[1][warp] = s;
     __syncthreads();
     const float e_stay = expf(__fsub_rn(ystay, m));
     float sum = e_stay;
     for (int i = 0; i < nwarp; ++i) sum = __fadd_rn(sum, wred[1][i]);
-    const float lpd = logf(__fadd_rn(c0, __fmul_rn(c1, __fdiv_rn(e, sum))));
-    const float lps = logf(__fadd_rn(c0, __fmul_rn(c1, __fdiv_rn(e_stay, sum))));
-
-    const float stay_lp = __fsub_rn(lps, p.stay_pen);
-    short* tb_row = tb + ((size_t)t * B + b) * nst2;
-    dp_step(hist[cur], hist[cur ^ 1], wval[cur], widx[cur], tb_row, lpd,
-            stay_lp, start, p, nhist);
-    if (d < 32 && t > 0) {
-      end_update(wval[cur ^ 1], widx[cur ^ 1], nwarp, local_stay_prev, p,
-                 nhist, tb_row - (size_t)B * nst2, end);
-    }
-    local_stay_prev = fmaxf(-p.local_pen, stay_lp);
+    dp_advance(hist, wval, widx, tb, t, B, robust_logp(e, sum, c0, c1),
+               robust_logp(e_stay, sum, c0, c1), start, end, local_stay_prev,
+               p, nhist);
     // No barrier here: the next step's head touches neither hist nor the
     // warp buffers before its first barrier, and its writes to wred[0]
     // follow this step's last read of it (before the second barrier).
   }
   __syncthreads();
-  float* f = final_ + (size_t)b * nst2;
-  if (T > 0 && d < 32) {
-    end_update(wval[(T - 1) & 1], widx[(T - 1) & 1], nwarp, local_stay_prev,
-               p, nhist, tb + ((size_t)(T - 1) * B + b) * nst2, end);
+  dp_finish(hist[T & 1], wval[(T - 1) & 1], widx[(T - 1) & 1], local_stay_prev,
+            start, end, p, final_, tb, T, B, nhist);
+}
+
+// h [K, T, B, S], W [K, S, nstate], bvec [K, nstate], weights [K] -> final,
+// tb as the forward, K <= MAX_ENS. Per step, for each member k in order,
+// its head as the fused kernel's: lp_k = log(c0 + c1 * softmax_k) * w_k,
+// summed in member order into acc; then acc is renormalised over the
+// nstate states, lp = acc - (mx + log sum exp(acc - mx)) with mx its
+// maximum, and the forward's DP step runs on lp. Four barriers a step: the
+// K softmax maxima, the K softmax sums, the renormalisation's maximum and
+// its sum, each through its own per-warp buffer.
+__global__ void __launch_bounds__(1024)
+viterbi_fused_ens_kernel(const float* __restrict__ h,
+                         const float* __restrict__ W,
+                         const float* __restrict__ bvec,
+                         const float* __restrict__ weights,
+                         float* __restrict__ final_, short* __restrict__ tb,
+                         int K, int T, int B, int S, int nhist, float hscale,
+                         float tempb, float c0, float c1, DpParams p) {
+  __shared__ float hist[2][1024];
+  __shared__ float wval[2][MAX_WARPS];
+  __shared__ int widx[2][MAX_WARPS];
+  __shared__ float wmax[MAX_ENS][MAX_WARPS];  // each member's softmax maximum
+  __shared__ float wsum[MAX_ENS][MAX_WARPS];  // each member's softmax sum
+  __shared__ float wnorm[2][MAX_WARPS];       // the renormalisation's max, sum
+  __shared__ float y_stay[MAX_ENS];
+  extern __shared__ float s_h[];  // [2, K, S] scaled hidden rows
+  const int d = threadIdx.x;
+  const int lane = d & 31;
+  const int warp = d >> 5;
+  const int nwarp = nhist >> 5;
+  const int nstate = nhist + 1;
+  const size_t hstride = (size_t)T * B * S;  // one member's h
+  const size_t wstride = (size_t)S * nstate;  // one member's W
+
+  hist[0][d] = -BIG;
+  float start = 0.0f;
+  float end = -BIG;
+  float local_stay_prev = 0.0f;
+  if (T > 0) {
+    for (int k = 0; k < K; ++k)
+      stage_row(s_h + k * S, h + k * hstride, 0, B, S, hscale);
   }
-  f[d] = hist[T & 1][d];
-  if (d == 0) {
-    f[nhist] = start;
-    f[nhist + 1] = end;
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const int cur = t & 1;
+    const float* hs = s_h + cur * K * S;
+    // The next step's rows, into the buffer last read before this step's
+    // first barrier (as the fused kernel does).
+    if (t + 1 < T) {
+      for (int k = 0; k < K; ++k)
+        stage_row(s_h + ((cur ^ 1) * K + k) * S, h + k * hstride, t + 1, B,
+                  S, hscale);
+    }
+    float y[MAX_ENS], e[MAX_ENS], e_stay[MAX_ENS];
+#pragma unroll
+    for (int k = 0; k < MAX_ENS; ++k) {
+      if (k < K) {
+        const float* Wk = W + k * wstride;
+        const float* bk = bvec + (size_t)k * nstate;
+        y[k] = head_logit(hs + k * S, Wk, S, nstate, d, __ldg(bk + d), tempb);
+        float ys = -CUDART_INF_F;
+        if (warp == 0) {
+          ys = head_stay_logit(hs + k * S, Wk, S, nstate, __ldg(bk + nhist),
+                               tempb);
+          if (lane == 0) y_stay[k] = ys;
+        }
+        const float m = warp_max(fmaxf(y[k], ys));
+        if (lane == 0) wmax[k][warp] = m;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < MAX_ENS; ++k) {
+      if (k < K) {
+        const float m = block_max_of(wmax[k], nwarp);
+        e[k] = expf(__fsub_rn(y[k], m));
+        e_stay[k] = expf(__fsub_rn(y_stay[k], m));
+        const float s = warp_sum(e[k]);
+        if (lane == 0) wsum[k][warp] = s;
+      }
+    }
+    __syncthreads();
+    float acc = 0.0f;
+    float acc_stay = 0.0f;
+#pragma unroll
+    for (int k = 0; k < MAX_ENS; ++k) {
+      if (k < K) {
+        float sum = e_stay[k];
+        for (int i = 0; i < nwarp; ++i) sum = __fadd_rn(sum, wsum[k][i]);
+        const float wk = __ldg(weights + k);
+        const float lk = __fmul_rn(robust_logp(e[k], sum, c0, c1), wk);
+        const float ls = __fmul_rn(robust_logp(e_stay[k], sum, c0, c1), wk);
+        acc = k ? __fadd_rn(acc, lk) : lk;
+        acc_stay = k ? __fadd_rn(acc_stay, ls) : ls;
+      }
+    }
+    // Renormalise over the nstate states.
+    const float m = warp_max(fmaxf(acc, acc_stay));
+    if (lane == 0) wnorm[0][warp] = m;
+    __syncthreads();
+    const float mx = block_max_of(wnorm[0], nwarp);
+    const float s = warp_sum(expf(__fsub_rn(acc, mx)));
+    if (lane == 0) wnorm[1][warp] = s;
+    __syncthreads();
+    float total = expf(__fsub_rn(acc_stay, mx));
+    for (int i = 0; i < nwarp; ++i) total = __fadd_rn(total, wnorm[1][i]);
+    const float lse = __fadd_rn(mx, logf(total));
+    dp_advance(hist, wval, widx, tb, t, B, __fsub_rn(acc, lse),
+               __fsub_rn(acc_stay, lse), start, end, local_stay_prev, p,
+               nhist);
+    // No barrier here, as in the fused kernel: every shared buffer the next
+    // step writes before its first barrier was last read before this
+    // step's last one.
   }
+  __syncthreads();
+  dp_finish(hist[T & 1], wval[(T - 1) & 1], widx[(T - 1) & 1], local_stay_prev,
+            start, end, p, final_, tb, T, B, nhist);
 }
 
 // final [B, nst2], tb [T, B, nst2] int16 -> score [B], path [B, T+1] int32.
@@ -393,6 +562,23 @@ int scrappie_viterbi_fused(const float* h, const float* W, const float* bvec,
   const size_t smem = sizeof(float) * 2 * (size_t)S;
   viterbi_fused_kernel<<<B, nhist, smem, stream>>>(
       h, W, bvec, final_, tb, T, B, S, nhist, hscale, tempb, c0, c1, p);
+  return (int)cudaGetLastError();
+}
+
+int scrappie_viterbi_fused_ens(const float* h, const float* W,
+                               const float* bvec, const float* weights,
+                               float* final_, short* tb, int K, int T, int B,
+                               int S, int nhist, float hscale, float tempb,
+                               float c0, float c1, float stay_pen,
+                               float skip_pen, float local_pen, int use_slip,
+                               cudaStream_t stream) {
+  if (B == 0) return (int)cudaSuccess;
+  if (K < 1 || K > MAX_ENS) return (int)cudaErrorInvalidValue;
+  const DpParams p{stay_pen, skip_pen, local_pen, use_slip};
+  const size_t smem = sizeof(float) * 2 * (size_t)K * S;
+  viterbi_fused_ens_kernel<<<B, nhist, smem, stream>>>(
+      h, W, bvec, weights, final_, tb, K, T, B, S, nhist, hscale, tempb, c0,
+      c1, p);
   return (int)cudaGetLastError();
 }
 

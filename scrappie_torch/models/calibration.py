@@ -117,23 +117,35 @@ def collapsed(nbases: int, nblock: int, model: str | None = None) -> bool:
     return nbases < COLLAPSE_BASES_PER_BLOCK * nblock
 
 
-def preset(model: str, calibration: str = "reference") -> dict[str, float]:
-    """The decode-kwarg overrides for ``model`` under ``calibration``. An
+def preset(model: str, calibration: str = "reference",
+           ensemble: tuple[str, ...] = ()) -> dict[str, float]:
+    """The decode-kwarg overrides for ``model`` under ``calibration``.
+
+    With ensemble members, any positive skip penalty in the preset is
+    dropped to 0: the geometric-mean combination sharpens member
+    disagreement and the full (0.5, 0.5) preset measurably
+    part-collapses the out-of-distribution bundled read (0.202
+    bases/block vs 0.371 at skip 0 — BASELINE.md "Posterior
+    ensembling" robustness caveat), while ensemble + (stay, 0) still
+    beats every single-model config on the held-out tails.  An
     explicit user skip_pen always wins (apply() only fills reference
-    defaults). The JAX package's ensemble rule (no positive skip penalty
-    with ensemble members) waits for the port's ensembles."""
+    defaults)."""
     if calibration not in PRESETS:
         raise ValueError(
             f"unknown calibration {calibration!r} (choose from {PRESETS})")
     if calibration == "reference":
         return {}
-    return dict(REAL_CALIBRATION.get(model, {}))
+    out = dict(REAL_CALIBRATION.get(model, {}))
+    if ensemble and out.get("skip_pen"):
+        out["skip_pen"] = 0.0
+    return out
 
 
-def apply(model: str, calibration: str, kwargs: dict) -> dict:
+def apply(model: str, calibration: str, kwargs: dict,
+          ensemble: tuple[str, ...] = ()) -> dict:
     """Fill preset values into ``kwargs`` for knobs left at their
     reference defaults; returns ``kwargs`` (mutated in place)."""
-    for key, value in preset(model, calibration).items():
+    for key, value in preset(model, calibration, ensemble).items():
         if kwargs.get(key, REFERENCE_DEFAULTS[key]) == REFERENCE_DEFAULTS[key]:
             kwargs[key] = value
     return kwargs

@@ -14,11 +14,6 @@ import torch
 from scrappie_torch.device import as_device
 from scrappie_torch.models.specs import EVENTS_MODEL, RAW_MODELS, SQUIGGLE_MODELS
 
-#: Model kinds the port runs.
-PORTED_KINDS = ("rgrgr", "rnnrf", "events", "squiggle")
-#: ROADMAP.md queue-1 item that ports each model kind still missing.
-_WAITING_KINDS = {"raw": "ROADMAP.md queue 1 item 10 (raw_r94)"}
-
 
 def params_from_numpy(params: dict[str, np.ndarray],
                       device=None) -> dict[str, torch.Tensor]:
@@ -30,20 +25,16 @@ def params_from_numpy(params: dict[str, np.ndarray],
 
 
 def model_spec(model: str):
-    """The registry spec of a model the port runs: an rgrgr or rnnrf raw
-    model, the events model or a squiggle model. Kinds not ported raise
-    NotImplementedError naming the ROADMAP item that ports them."""
+    """The registry spec of a model: a raw model (raw_r94, rgrgr or
+    rnnrf), the events model or a squiggle model. The port runs every kind
+    of the registry."""
     if model == EVENTS_MODEL.name:
         return EVENTS_MODEL
     if model in SQUIGGLE_MODELS:
         return SQUIGGLE_MODELS[model]
     if model not in RAW_MODELS:
         raise KeyError(f"Model type {model!r} not recognised.")
-    spec = RAW_MODELS[model]
-    if spec.kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"model {model!r} is not ported yet: {_WAITING_KINDS[spec.kind]}")
-    return spec
+    return RAW_MODELS[model]
 
 
 def basecaller_spec(model: str):

@@ -1,10 +1,15 @@
-"""Forward passes of the rgrgr, rnnrf, events and squiggle networks.
+"""Forward passes of the rgrgr, raw_r94, rnnrf, events and squiggle
+networks.
 
 Counterpart of scrappie_tpu/models/forward.py:
   * rgrgr_posterior and rgrgr_posterior_tm (graph: ref
     src/networks.c:250-394): conv, ELU (or tanh), five alternating GRU
     layers through ops/gru.py, then the temperature softmax and robustlog
     over 1025 states;
+  * raw_posterior and raw_posterior_tm (ref src/networks.c:196-247): conv,
+    tanh, two stages of forward and backward GRU layers through ops/gru.py
+    combined by feedforward2_tanh, then the FF3 head's temperature softmax
+    and robustlog over 1025 states;
   * rnnrf_transitions, rnnrf_transitions_tm and rnnrf_features (ref
     src/networks.c:567-615): conv, ELU, five residual GRU layers, then the
     globalnorm CRF head over 25 transitions, always in log space;
@@ -31,6 +36,8 @@ from scrappie_torch.nn.layers import (conv1d, embedding, globalnorm_tm, robustlo
 from scrappie_torch.ops.pipeline import (
     events_basecall_fused,
     events_features_tm,
+    raw_basecall_fused,
+    raw_features_tm,
     rgrgr_basecall_fused,
     rgrgr_features_tm,
     rnnrf_basecall_fused,
@@ -50,6 +57,20 @@ def rgrgr_posterior_tm(params, sig, *, conv_activation="elu", stride=5,
 def rgrgr_posterior(params, sig, **kwargs):
     """sig [B, T, 1] -> (log) posterior [B, nblock, nstate]."""
     return rgrgr_posterior_tm(params, sig, **kwargs).transpose(0, 1)
+
+
+def raw_posterior_tm(params, sig, *, stride=4, min_prob=1e-5, tempW=1.0,
+                     tempb=1.0, return_log=True):
+    """raw_r94: sig [B, T, 1] -> (log) posterior [nblock, B, nstate]."""
+    x = raw_features_tm(params, sig, stride)
+    post = softmax_with_temperature(x, params["FF3_W"], params["FF3_b"], tempW,
+                                    tempb)
+    return robustlog(post, min_prob) if return_log else post
+
+
+def raw_posterior(params, sig, **kwargs):
+    """raw_r94: sig [B, T, 1] -> (log) posterior [B, nblock, nstate]."""
+    return raw_posterior_tm(params, sig, **kwargs).transpose(0, 1)
 
 
 def rnnrf_transitions_tm(params, sig, *, conv_activation="elu", stride=2):
@@ -186,6 +207,27 @@ class RgrgrModel(RawModel):
                                     stride=self.stride, **kwargs)
 
 
+class RawR94Model(RawModel):
+    """raw_r94: a 1025-state transducer posterior from bidirectional GRU
+    stages."""
+
+    kind = "raw"
+    default_model = "raw_r94"
+    default_stride = 4
+
+    def forward(self, sig, min_prob=1e-5, tempW=1.0, tempb=1.0,
+                return_log=True):
+        """sig [B, T, 1] -> (log) posterior [B, nblock, nstate]."""
+        return raw_posterior(self.params, sig, stride=self.stride,
+                             min_prob=min_prob, tempW=tempW, tempb=tempb,
+                             return_log=return_log)
+
+    def basecall_fused(self, sig, **kwargs):
+        """The fast path: sig [B, T, 1] -> (score [B], path [B, nblock+1])."""
+        return raw_basecall_fused(self.params, sig, stride=self.stride,
+                                  **kwargs)
+
+
 class RnnrfModel(RawModel):
     """rnnrf_r94: CRF transitions over 5 states."""
 
@@ -266,11 +308,11 @@ class SquiggleModel(Network):
                                 transform_units=transform_units)
 
 
-_MODELS = {cls.kind: cls
-           for cls in (RgrgrModel, RnnrfModel, EventsModel, SquiggleModel)}
+_MODELS = {cls.kind: cls for cls in (RgrgrModel, RawR94Model, RnnrfModel,
+                                     EventsModel, SquiggleModel)}
 
 
 def load_model(model: str, device=None) -> Network:
     """The named model with the repository's weights, as the class of its
-    kind; kinds not ported raise NotImplementedError (convert.model_spec)."""
+    kind."""
     return _MODELS[model_spec(model).kind].from_registry(model, device)

@@ -20,9 +20,11 @@ MAX_SMEM_BYTES = 232448
 
 LAUNCHES: dict[str, int] = {
     "gru_layer": 0,
+    "gru_recurrence": 0,
     "viterbi_fwd": 0,
     "viterbi_backtrace": 0,
     "viterbi_fused": 0,
+    "viterbi_fused_ens": 0,
     "crf_fwd": 0,
     "crf_backtrace": 0,
     "crf_partition": 0,
@@ -80,12 +82,17 @@ def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                        torch.maximum(a, b) + torch.log1p(torch.exp(-delta.abs())))
 
 
-def logsumexp(x: torch.Tensor) -> torch.Tensor:
-    """Log-sum-exp of all of x by jax.nn.logsumexp's formula: the maximum,
-    replaced by 0 where it is not finite, is taken out of the sum."""
-    m = x.max()
+def logsumexp(x: torch.Tensor, dim: int | None = None) -> torch.Tensor:
+    """Log-sum-exp of all of x, or along `dim` (kept, of size 1), by
+    jax.nn.logsumexp's formula: the maximum, replaced by 0 where it is not
+    finite, is taken out of the sum."""
+    if dim is None:
+        m = x.max()
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        return torch.log(torch.exp(x - m).sum()) + m
+    m = x.amax(dim, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    return torch.log(torch.exp(x - m).sum()) + m
+    return torch.log(torch.exp(x - m).sum(dim, keepdim=True)) + m
 
 
 def first_argmax(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -32,9 +32,12 @@ _F = ctypes.c_float
 # C entry points and their argument types; each returns a cudaError_t.
 _SIGNATURES = {
     "scrappie_gru_layer": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "scrappie_gru_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "scrappie_viterbi_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P),
     "scrappie_viterbi_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                                _F, _F, _F, _F, _I, _P),
+    "scrappie_viterbi_fused_ens": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _F, _F, _F, _F, _F, _F, _F, _I, _P),
     "scrappie_viterbi_backtrace": (_P, _P, _P, _P, _I, _I, _I, _P),
     "scrappie_crf_fwd": (_P, _P, _P, _I, _I, _P),
     "scrappie_crf_partition": (_P, _P, _I, _I, _P),

@@ -7,6 +7,10 @@ Counterpart of scrappie_tpu/ops/pipeline.py:
     (ops/gru.py), the fused head + Viterbi forward (ops/viterbi.py) and the
     backtrace. The [T, B, 1025] posterior is never written to device
     memory.
+  * raw_r94 (raw_basecall_fused, raw_features_tm): conv and tanh, then two
+    stages of forward and backward GRU layers on the same input combined
+    by feedforward2_tanh, then the same fused head + Viterbi with the FF3
+    head.
   * rnnrf (rnnrf_basecall_fused, the features of rnnrf_transitions_tm):
     the same conv and GRU kernel in five residual layers, then the
     globalnorm head (a matmul and the partition kernel), the emit bias and
@@ -17,23 +21,35 @@ Counterpart of scrappie_tpu/ops/pipeline.py:
     event features and one transpose to time-major, two stages of forward
     and backward peephole LSTM layers (ops/lstm.py) combined by
     feedforward2_tanh, then the same fused head + Viterbi forward and
-    backtrace as rgrgr, with the FF3 head. Unlike the JAX pipeline there
-    is no lane or batch padding.
+    backtrace as rgrgr, with the FF3 head.
+  * ensembles: ensemble_basecall_fused runs the K member stacks (rgrgr or
+    raw_r94) and hands their hidden features to the fused ensemble kernel,
+    which combines the K heads' log posteriors before the Viterbi step;
+    rnnrf_ensemble_basecall_fused sums the members' weighted CRF
+    transitions before the CRF kernels.
+
+`decode` keywords are the Viterbi options of ops/viterbi.viterbi_fused_tm:
+min_prob, tempW, tempb, stay_pen, skip_pen, local_pen and use_slip. Unlike
+the JAX pipeline there is no lane or batch padding.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from scrappie_torch.models.specs import GRU_DIRS
 from scrappie_torch.nn.layers import (conv1d, elu, feedforward2_tanh,
-                                     globalnorm_tm, window)
+                                      globalnorm_tm, window)
 from scrappie_torch.ops.crf import add_emit_bias, crf_viterbi_tm
 from scrappie_torch.ops.gru import gru_layer_tm
 from scrappie_torch.ops.lstm import lstm_layer_tm
-from scrappie_torch.ops.viterbi import viterbi_backtrace_tm, viterbi_fused_tm
+from scrappie_torch.ops.viterbi import (viterbi_backtrace_tm, viterbi_fused_ens_tm,
+                                        viterbi_fused_tm)
 
 CONV_ACT = {"elu": elu, "tanh": torch.tanh}
+#: The posterior head of each transducer kind that runs on raw signal.
+HEAD_KEYS = {"rgrgr": ("FF_W", "FF_b"), "raw": ("FF3_W", "FF3_b")}
 
 
 def _conv_tm(params, sig, conv_activation: str, stride: int):
@@ -60,6 +76,19 @@ def rgrgr_features_tm(params, sig, conv_activation: str = "elu",
     return x
 
 
+def raw_features_tm(params, sig, stride: int = 4):
+    """raw_r94: sig [B, T, 1] -> time-major features below the FF3 head
+    [nblock, B, 96]: tanh(conv), then per stage the forward and backward
+    GRU layers on the same input and feedforward2_tanh over their outputs
+    (ref src/networks.c:196-247)."""
+    x = _conv_tm(params, sig, "tanh", stride)
+    for layer in (1, 2):
+        h = {d: _gru(params, x, layer, d) for d in ("f", "b")}
+        x = feedforward2_tanh(h["f"], h["b"], params[f"FF{layer}_Wf"],
+                              params[f"FF{layer}_Wb"], params[f"FF{layer}_b"])
+    return x
+
+
 def rnnrf_features_tm(params, sig, conv_activation: str = "elu",
                       stride: int = 2):
     """sig [B, T, 1] -> time-major features [nblock, B, 96]: conv,
@@ -77,21 +106,31 @@ def wire_path(path):
     return path.to(torch.int16)
 
 
+def _decode_fused(x, W, bvec, **decode):
+    """The fused head + Viterbi forward on features x [T, B, S], then the
+    backtrace -> (logscore [B], path [B, T+1] int16)."""
+    score, path = viterbi_backtrace_tm(*viterbi_fused_tm(x, W, bvec, **decode))
+    return score, wire_path(path)
+
+
 def rgrgr_basecall_fused(params, sig, *, conv_activation: str = "elu",
-                         stride: int = 5, min_prob=1e-5, tempW=1.0, tempb=1.0,
-                         stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
-                         use_slip: bool = False):
+                         stride: int = 5, **decode):
     """sig [B, T, 1] -> (logscore [B], path [B, nblock+1] int16).
 
     Matches rgrgr_posterior followed by the transducer decode, within the
     order of the head's fp32 sums."""
     x = rgrgr_features_tm(params, sig, conv_activation, stride)
-    final, tb = viterbi_fused_tm(
-        x, params["FF_W"], params["FF_b"], min_prob=min_prob, tempW=tempW,
-        tempb=tempb, stay_pen=stay_pen, skip_pen=skip_pen, local_pen=local_pen,
-        use_slip=use_slip)
-    score, path = viterbi_backtrace_tm(final, tb)
-    return score, wire_path(path)
+    return _decode_fused(x, params["FF_W"], params["FF_b"], **decode)
+
+
+def raw_basecall_fused(params, sig, *, stride: int = 4, **decode):
+    """raw_r94 fast path: sig [B, T, 1] -> (logscore [B], path
+    [B, nblock+1] int16).
+
+    Matches raw_posterior followed by the transducer decode, within the
+    order of the head's fp32 sums."""
+    x = raw_features_tm(params, sig, stride)
+    return _decode_fused(x, params["FF3_W"], params["FF3_b"], **decode)
 
 
 def rnnrf_basecall_fused(params, sig, *, conv_activation: str = "elu",
@@ -125,18 +164,72 @@ def events_features_tm(params, feats, winlen: int = 3):
     return x
 
 
-def events_basecall_fused(params, feats, *, winlen: int = 3, min_prob=1e-5,
-                          tempW=1.0, tempb=1.0, stay_pen=0.0, skip_pen=0.0,
-                          local_pen=2.0, use_slip: bool = False):
+def events_basecall_fused(params, feats, *, winlen: int = 3, **decode):
     """nanonet events fast path: feats [B, nevent, 4] -> (logscore [B],
     path [B, nevent+1] int16).
 
     Matches events_posterior followed by the transducer decode, within the
     order of the head's fp32 sums."""
     x = events_features_tm(params, feats, winlen)
-    final, tb = viterbi_fused_tm(
-        x, params["FF3_W"], params["FF3_b"], min_prob=min_prob, tempW=tempW,
-        tempb=tempb, stay_pen=stay_pen, skip_pen=skip_pen, local_pen=local_pen,
-        use_slip=use_slip)
-    score, path = viterbi_backtrace_tm(final, tb)
+    return _decode_fused(x, params["FF3_W"], params["FF3_b"], **decode)
+
+
+def ensemble_features_tm(params_list, sig, *, kinds, conv_activations,
+                         stride: int):
+    """The hidden features and heads of K transducer members (primary
+    first) on one signal batch sig [B, T, 1] -> (h [K, nblock, B, S],
+    W [K, S, nstate], bvec [K, nstate]). A member narrower than the widest
+    is padded with zeros, features and head rows alike (every in-repo
+    member has S = 96)."""
+    xs, Ws, bs = [], [], []
+    for p, kind, ca in zip(params_list, kinds, conv_activations):
+        if kind == "rgrgr":
+            xs.append(rgrgr_features_tm(p, sig, ca, stride))
+        elif kind == "raw":
+            xs.append(raw_features_tm(p, sig, stride))
+        else:
+            raise ValueError(f"fused ensemble supports transducer kinds "
+                             f"only, got {kind!r}")
+        wk, bk = HEAD_KEYS[kind]
+        Ws.append(p[wk])
+        bs.append(p[bk])
+    S = max(x.shape[-1] for x in xs)
+    h = torch.stack([F.pad(x, (0, S - x.shape[-1])) for x in xs])
+    W = torch.stack([F.pad(W, (0, 0, 0, S - W.shape[0])) for W in Ws])
+    return h, W, torch.stack(bs)
+
+
+def ensemble_basecall_fused(params_list, weights, sig, *, kinds,
+                            conv_activations, stride: int = 5, **decode):
+    """Transducer-ensemble fast path: the K member stacks, then the fused
+    ensemble kernel, which combines the members' log posteriors (weights
+    [K], normalised; a weighted log-domain mean renormalised per block)
+    before each Viterbi step, then the backtrace. sig [B, T, 1] ->
+    (logscore [B], path [B, nblock+1] int16). kinds and conv_activations
+    are per member, primary first; every member shares the primary's
+    stride and state space (models/ensemble.validate_ensemble). The calls
+    match the stitch-mode ensemble's per-chunk decode."""
+    h, W, bvec = ensemble_features_tm(params_list, sig, kinds=kinds,
+                                      conv_activations=conv_activations,
+                                      stride=stride)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=h.device)
+    score, path = viterbi_backtrace_tm(
+        *viterbi_fused_ens_tm(h, W, bvec, w, **decode))
+    return score, wire_path(path)
+
+
+def rnnrf_ensemble_basecall_fused(params_list, weights, sig, *,
+                                  conv_activations, stride: int = 2,
+                                  emit_bias: float = 0.0):
+    """CRF-ensemble fast path: the members' globalnorm transitions
+    [nblock, B, 25], weighted and summed in member order (a log-domain
+    product of experts on the shared CRF states; no renormalisation, the
+    CRF is globally normalised), then the emit bias and the CRF kernels.
+    sig [B, T, 1] -> (logscore [B], path [B, nblock+1] int16)."""
+    trans = None
+    for w, p, ca in zip(weights, params_list, conv_activations):
+        x = rnnrf_features_tm(p, sig, ca, stride)
+        tk = float(w) * globalnorm_tm(x, p["FF_W"], p["FF_b"])
+        trans = tk if trans is None else trans + tk
+    score, path = crf_viterbi_tm(add_emit_bias(trans, emit_bias))
     return score, wire_path(path)

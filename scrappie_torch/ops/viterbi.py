@@ -1,7 +1,9 @@
-"""Transducer Viterbi: forward, fused head + forward, and backtrace.
+"""Transducer Viterbi: forward, fused head + forward (one model or an
+ensemble), and backtrace.
 
 Counterpart of scrappie_tpu/ops/viterbi.py (viterbi_scores_tm,
-viterbi_fused_tm, viterbi_backtrace_tm) and of the lax.scan programs in
+viterbi_fused_tm, viterbi_fused_ens_tm, viterbi_backtrace_tm) and of the
+lax.scan programs in
 scrappie_tpu/decode/transducer.py, whose semantics and tie rules the
 plain twins here copy step for step:
 
@@ -26,6 +28,9 @@ from scrappie_torch import ops
 from scrappie_torch.nn.layers import robustlog, softmax_with_temperature
 
 BIG = 1.0e30
+#: The most members the fused ensemble kernel takes (MAX_ENS in
+#: csrc/viterbi.cu); every ensemble of the repository has at most 3.
+MAX_ENS = 4
 
 
 def _check_nhist(nhist: int, use_slip: bool) -> None:
@@ -120,6 +125,47 @@ def viterbi_fused_tm_plain(h_tm, W, bvec, min_prob=1e-5, tempW=1.0, tempb=1.0,
     return viterbi_scores_tm_plain(lp, stay_pen, skip_pen, local_pen, use_slip)
 
 
+def ensemble_logpost_tm(h_tm, W, bvec, weights, min_prob=1e-5, tempW=1.0,
+                        tempb=1.0):
+    """The combined log posterior of K transducer heads: h [K, T, B, S],
+    W [K, S, nstate], bvec [K, nstate], weights [K] -> [T, B, nstate],
+    sum_k w_k robustlog(softmax_k) in member order, renormalised per block
+    by its log-sum-exp (scrappie_tpu's _fused_ens_kernel)."""
+    acc = None
+    for k in range(h_tm.shape[0]):
+        lk = robustlog(softmax_with_temperature(h_tm[k], W[k], bvec[k], tempW,
+                                                tempb), min_prob) * weights[k]
+        acc = lk if acc is None else acc + lk
+    mx = acc.amax(-1, keepdim=True)
+    return acc - (mx + torch.log(torch.exp(acc - mx).sum(-1, keepdim=True)))
+
+
+def viterbi_fused_ens_tm_plain(h_tm, W, bvec, weights, min_prob=1e-5,
+                               tempW=1.0, tempb=1.0, stay_pen=0.0, skip_pen=0.0,
+                               local_pen=2.0, use_slip: bool = False):
+    """Plain twin of the fused ensemble kernel: the combined log posterior,
+    then the forward twin."""
+    lp = ensemble_logpost_tm(h_tm, W, bvec, weights, min_prob, tempW, tempb)
+    return viterbi_scores_tm_plain(lp, stay_pen, skip_pen, local_pen, use_slip)
+
+
+def check_fused_ens_input(h_tm, W, bvec, weights) -> None:
+    """Raise unless the fused ensemble kernel takes these inputs: 1 <= K <=
+    MAX_ENS members, contiguous fp32 h [K, T, B, S], W [K, S, nstate], bvec
+    [K, nstate] and weights [K], and a state space the Viterbi kernels
+    take."""
+    K, T, B, S = h_tm.shape
+    if not 1 <= K <= MAX_ENS:
+        raise ValueError(f"the fused ensemble kernel takes 1 to {MAX_ENS} "
+                         f"members, got {K}")
+    nstate = W.shape[-1]
+    _check_kernel_nhist(nstate - 1)
+    ops.check_kernel_input("h", h_tm, (K, T, B, S))
+    ops.check_kernel_input("W", W, (K, S, nstate))
+    ops.check_kernel_input("bvec", bvec, (K, nstate))
+    ops.check_kernel_input("weights", weights, (K,))
+
+
 def viterbi_scores_tm(lp_tm, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
                       use_slip: bool = False):
     """Forward Viterbi over time-major log posteriors [T, B, nhist+1] ->
@@ -205,6 +251,41 @@ def viterbi_fused_tm(h_tm, W, bvec, min_prob=1e-5, tempW=1.0, tempb=1.0,
             ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, "viterbi_fused")
     ops.LAUNCHES["viterbi_fused"] += 1
+    return final, tb
+
+
+def viterbi_fused_ens_tm(h_tm, W, bvec, weights, min_prob=1e-5, tempW=1.0,
+                         tempb=1.0, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
+                         use_slip: bool = False):
+    """K posterior heads combined and fused into the forward Viterbi: h
+    [K, T, B, S] (each member's hidden features), W [K, S, nstate], bvec
+    [K, nstate], weights [K] (normalised) -> (final [B, nhist+2], tb
+    [T, B, nhist+2] int16) over ensemble_logpost_tm. Neither the members'
+    nor the combined [T, B, nstate] posterior reaches device memory."""
+    if not ops.on_cuda(h_tm, W, bvec, weights):
+        return viterbi_fused_ens_tm_plain(h_tm, W, bvec, weights, min_prob,
+                                          tempW, tempb, stay_pen, skip_pen,
+                                          local_pen, use_slip)
+    from scrappie_torch.ops import _build
+
+    K, T, B, S = h_tm.shape
+    nstate = W.shape[-1]
+    nhist = nstate - 1
+    _check_nhist(nhist, use_slip)
+    check_fused_ens_input(h_tm, W, bvec, weights)
+    final = torch.empty((B, nhist + 2), dtype=torch.float32, device=h_tm.device)
+    tb = torch.empty((T, B, nhist + 2), dtype=torch.int16, device=h_tm.device)
+    if B == 0:
+        return final, tb
+    with torch.cuda.device(h_tm.device):
+        err = _build.library().scrappie_viterbi_fused_ens(
+            h_tm.data_ptr(), W.data_ptr(), bvec.data_ptr(), weights.data_ptr(),
+            final.data_ptr(), tb.data_ptr(), K, T, B, S, nhist, tempb / tempW,
+            tempb, min_prob / nstate, 1.0 - min_prob, ops.f32(stay_pen),
+            ops.f32(skip_pen), ops.f32(local_pen), int(use_slip),
+            ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, "viterbi_fused_ens")
+    ops.LAUNCHES["viterbi_fused_ens"] += 1
     return final, tb
 
 

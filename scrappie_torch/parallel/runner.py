@@ -1,5 +1,5 @@
-"""Batched multi-read basecalling engine for the rgrgr, rnnrf and events
-models, one device.
+"""Batched multi-read basecalling engine for the rgrgr, raw_r94, rnnrf and
+events models, and for ensembles of raw models, on one device.
 
 Counterpart of scrappie_tpu/parallel/runner.py:BasecallEngine, with an
 explicit `device` in place of the JAX mesh:
@@ -17,6 +17,19 @@ Three paths, as in the JAX engine:
   * stitch on the host (homopolymer "mean"): chunk posteriors come to the
     host, are stitched per read, decoded in length buckets, and the
     homopolymer correction reads the whole-read posterior.
+
+raw_r94 takes the rgrgr models' paths: its posterior is a 1025-state
+transducer's too (bidirectional GRU stages, stride 4).
+
+With `ensemble` members (models/ensemble.py), the members' per-block
+outputs are combined with the primary's before the decode, in member order
+with float32 weights: transducers (rgrgr, raw_r94) as a weighted log-domain
+mean renormalised per block by its log-sum-exp, rnnrf as the weighted sum
+of its CRF transitions (no renormalisation: the CRF is globally
+normalised). Both stitch paths decode that combined posterior; fast mode
+runs the member stacks and the fused ensemble kernel
+(ops/pipeline.ensemble_basecall_fused), or sums the weighted transitions
+before the CRF kernels (rnnrf_ensemble_basecall_fused).
 
 For rnnrf_r94 the "posterior" is the CRF transitions [nblock, 25], the
 decode is the CRF Viterbi (ops/crf.py) and the bases come from
@@ -42,10 +55,14 @@ import torch
 
 from scrappie_torch.decode.crf import crfpath_to_basecall
 from scrappie_torch.decode.transducer import assemble_events, viterbi_decode_batch
+from scrappie_torch import ops
 from scrappie_torch.device import as_device
 from scrappie_torch.models.calibration import collapsed
 from scrappie_torch.models.convert import basecaller_spec
+from scrappie_torch.models.ensemble import fused_config, validate_ensemble
 from scrappie_torch.models.forward import load_model
+from scrappie_torch.ops.pipeline import (ensemble_basecall_fused,
+                                         rnnrf_ensemble_basecall_fused)
 from scrappie_torch.ops.crf import NS, add_emit_bias, crf_viterbi_tm
 from scrappie_torch.parallel import chunk as chunklib
 from scrappie_torch.post.homopolymer import HomopolymerMode, homopolymer_path
@@ -129,15 +146,27 @@ class BasecallEngine:
     10 000 / 1 000 samples, 2048 / 256 events) and are rounded up to
     multiples of the model stride. mode 'stitch' decodes whole reads from
     stitched chunk posteriors (chunked == unchunked basecall); 'fast'
-    decodes each chunk with the fused pipeline and stitches the paths."""
+    decodes each chunk with the fused pipeline and stitches the paths.
+
+    ensemble: extra models of the primary's family (rgrgr and raw_r94, or
+    rnnrf) on its block grid, whose outputs are combined with the
+    primary's before the decode in every mode; ensemble_weights: one
+    weight per model, primary first, default 3:1:...:1, normalised
+    (models/ensemble.validate_ensemble)."""
 
     def __init__(self, model: str = "rgrgr_r94", chunk_len: int | None = None,
                  overlap: int | None = None, batch_size: int = 8, device=None,
                  min_prob: float = 1e-5, tempW: float = 1.0, tempb: float = 1.0,
-                 mode: str = "stitch"):
+                 mode: str = "stitch", ensemble: tuple[str, ...] = (),
+                 ensemble_weights: tuple[float, ...] | None = None):
         self.model = model
         self.spec = basecaller_spec(model)
         self.events = self.spec.kind == "events"
+        self.ensemble = tuple(ensemble)
+        self._ens_w = None
+        if self.ensemble or ensemble_weights is not None:
+            self._ens_w = validate_ensemble(model, self.ensemble,
+                                            ensemble_weights).astype(np.float32)
         if mode not in ("stitch", "fast"):
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
@@ -152,13 +181,49 @@ class BasecallEngine:
         self.overlap = _round_up(overlap, stride)
         self.batch_size = int(batch_size)
         self.net = load_model(model, self.device)
+        self.members = tuple(load_model(m, self.device) for m in self.ensemble)
+        # (weights, kinds, conv activations) of the fused transducer ensemble
+        self._fused_ens = fused_config(model, self.ensemble, ensemble_weights)
         self.stage = Stage()
 
     # ------------------------------------------------------------- device
 
     def _posterior(self, x):
-        return self.net(x, min_prob=self._min_prob, tempW=self._tempW,
-                        tempb=self._tempb, return_log=True)
+        """[B, chunk_len, C] -> the (combined) log posterior or CRF
+        transitions [B, nblock, nstate]."""
+        out = [net(x, min_prob=self._min_prob, tempW=self._tempW,
+                   tempb=self._tempb, return_log=True)
+               for net in (self.net,) + self.members]
+        if self._ens_w is None:
+            return out[0]
+        lp = float(self._ens_w[0]) * out[0]
+        for w, member in zip(self._ens_w[1:], out[1:]):
+            lp = lp + float(w) * member
+        if self.spec.kind == "rnnrf":
+            return lp
+        return lp - ops.logsumexp(lp, dim=-1)
+
+    def _fused_call(self, stay_pen, skip_pen, local_pen, use_slip,
+                    crf_emit_bias):
+        """The fast path of the model kind (ops/pipeline.py), single model
+        or ensemble: [B, chunk_len, C] -> (scores [B], paths [B, nblock+1])."""
+        params = [net.params for net in (self.net,) + self.members]
+        if self.spec.kind == "rnnrf":
+            if self._ens_w is None:
+                return lambda x: self.net.basecall_fused(x, emit_bias=crf_emit_bias)
+            acts = tuple(net.conv_activation for net in (self.net,) + self.members)
+            return lambda x: rnnrf_ensemble_basecall_fused(
+                params, self._ens_w, x, conv_activations=acts,
+                stride=self.spec.stride, emit_bias=crf_emit_bias)
+        decode = dict(min_prob=self._min_prob, tempW=self._tempW,
+                      tempb=self._tempb, stay_pen=stay_pen, skip_pen=skip_pen,
+                      local_pen=local_pen, use_slip=use_slip)
+        if self._fused_ens is None:
+            return lambda x: self.net.basecall_fused(x, **decode)
+        w, kinds, acts = self._fused_ens
+        return lambda x: ensemble_basecall_fused(
+            params, w, x, kinds=kinds, conv_activations=acts,
+            stride=self.spec.stride, **decode)
 
     def _to_device_batch(self, rows: np.ndarray) -> torch.Tensor:
         """[n, chunk_len] raw chunks -> [n, chunk_len, 1] on the device;
@@ -435,14 +500,8 @@ class BasecallEngine:
                     nchunk_total += entry[2].nchunk
                     yield chunks
 
-            def call(x):
-                if self.spec.kind == "rnnrf":
-                    return self.net.basecall_fused(x, emit_bias=crf_emit_bias)
-                return self.net.basecall_fused(
-                    x, min_prob=self._min_prob, tempW=self._tempW,
-                    tempb=self._tempb, stay_pen=stay_pen, skip_pen=skip_pen,
-                    local_pen=local_pen, use_slip=use_slip)
-
+            call = self._fused_call(stay_pen, skip_pen, local_pen, use_slip,
+                                    crf_emit_bias)
             with self.stage("decode_fused"):
                 scores, paths = self._decode_chunks_streamed(chunk_iter(), call)
             if scores is None:

@@ -4,9 +4,9 @@ against their originals, on seeded inputs: the results must be equal.
 scrappie_torch imports nothing of scrappie_tpu, so it keeps its own copy
 of trimming, normalisation, chunking, the overlapper, the homopolymer
 corrections, event detection and features, FASTA reading and FASTA/SAM
-writing, fast5 reading, the calibration presets, the weight loader, the
-API's base encoding and state-space guess, the DTW's penalties and the
-mapping's band check. Where
+writing, fast5 reading, the calibration presets, the ensemble validation,
+the weight loader, the API's base encoding and state-space guess, the
+DTW's penalties and the mapping's band check. Where
 scrappie_tpu runs native C++ (event detection, find_runs, the dwell
 overlapper), the port's numpy and Python code is held to that default
 path."""
@@ -24,6 +24,7 @@ from scrappie_torch.decode import mapping as tmapping
 from scrappie_torch.io import fast5 as tfast5
 from scrappie_torch.io import fasta as tfasta
 from scrappie_torch.models import calibration as tcal
+from scrappie_torch.models import ensemble as tens
 from scrappie_torch.models import registry as treg
 from scrappie_torch.parallel import chunk as tchunk
 from scrappie_torch.post import homopolymer as thp
@@ -39,6 +40,7 @@ from scrappie_tpu.decode import mapping as jmapping
 from scrappie_tpu.io import fast5 as jfast5
 from scrappie_tpu.io import fasta as jfasta
 from scrappie_tpu.models import calibration as jcal
+from scrappie_tpu.models import ensemble as jens
 from scrappie_tpu.models import registry as jreg
 from scrappie_tpu.parallel import chunk as jchunk
 from scrappie_tpu.post import homopolymer as jhp
@@ -98,11 +100,11 @@ def both(fn):
     port = dict(types=ttypes, trim=ttrim, maths=tmaths, chunk=tchunk,
                 over=tover, hp=thp, events=tevents, feat=tfeat, fasta=tfasta,
                 fast5=tfast5, cal=tcal, reg=treg, api=tapi, dtw=tdtw,
-                mapping=tmapping)
+                mapping=tmapping, ens=tens)
     ref = dict(types=jtypes, trim=jtrim, maths=jmaths, chunk=jchunk,
                over=jover, hp=jhp, events=jevents, feat=jfeat, fasta=jfasta,
                fast5=jfast5, cal=jcal, reg=jreg, api=japi, dtw=jdtw,
-               mapping=jmapping)
+               mapping=jmapping, ens=jens)
     return fn(**port), fn(**ref)
 
 
@@ -234,8 +236,47 @@ def case_calibration(cal, **_):
     for model in ("rgrgr_r94", "nanonet_events", "rnnrf_r94", "raw_r94"):
         for preset in ("reference", "real"):
             out.append(cal.apply(model, preset, {"stay_pen": 0.0, "skip_pen": 0.7}))
+            for ensemble in ((), ("rgrgr_r941",), ("rgrgr_r941", "rgrgr_r10")):
+                # with members a positive preset skip_pen drops to 0; an
+                # explicit one still wins
+                out += [cal.preset(model, preset, ensemble),
+                        cal.apply(model, preset, {}, ensemble=ensemble),
+                        cal.apply(model, preset, {"skip_pen": 0.4}, ensemble)]
         out += [cal.collapsed(10, 1000, model), cal.collapsed(300, 1000, model)]
     return out + [cal.collapsed(10, 1000), cal.collapsed(3, 40)]
+
+
+def case_ensemble(ens, **_):
+    """parse_members, validate_ensemble and fused_config: the valid
+    configurations and each ValueError's message."""
+    out = [ens.parse_members(s) for s in (None, "", "rgrgr_r941, rgrgr_r10",
+                                          " raw_r94,,")]
+    for args in (("rgrgr_r94", ("rgrgr_r941", "rgrgr_r10")),
+                 ("rgrgr_r94", ("rgrgr_r941", "rgrgr_r10"), (1.0, 5.0, 5.0)),
+                 ("rgrgr_r10", ("rgrgr_r94",), (2, 1)),
+                 ("raw_r94", ("raw_r94",)),
+                 ("rnnrf_r94", ("rnnrf_r94",), (1.0, 1.0)),
+                 ("rgrgr_r94", ()),
+                 ("rnnrf_r94", ("rnnrf_r94",))):
+        out += [ens.validate_ensemble(*args), ens.fused_config(*args)]
+    for args in (("rgrgr_r94", ("raw_r94",)),            # stride 5 vs 4
+                 ("rnnrf_r94", ("rgrgr_r10",)),          # mixed families
+                 ("rgrgr_r94", ("rnnrf_r94",)),
+                 ("nanonet_events", ("rgrgr_r94",)),     # not a raw model
+                 ("rgrgr_r94", ("rgrgr_r94x",)),         # unknown member
+                 ("rgrgr_r94", ("rgrgr_r10",), (1.0,)),  # one weight short
+                 ("rgrgr_r94", ("rgrgr_r10",), (1.0, -1.0)),
+                 ("rgrgr_r94", ("rgrgr_r10",), (0.0, 0.0)),
+                 ("rgrgr_r94", ("rgrgr_r10",), (1.0, float("nan"))),
+                 ("rgrgr_r94", (), (1.0,))):             # weights, no members
+        for fn in (ens.validate_ensemble, ens.fused_config):
+            try:
+                fn(*args)
+            except ValueError as e:
+                out.append(str(e))
+            else:
+                out.append("no error")
+    return out
 
 
 def case_weights(reg, **_):

@@ -19,10 +19,13 @@ from scrappie_torch import ops
 from scrappie_torch.device import as_device
 from scrappie_torch.ops import _build
 from scrappie_torch.ops.crf import crf_viterbi_scores_tm
-from scrappie_torch.ops.gru import gru_layer_tm, gru_layer_tm_plain
+from scrappie_torch.nn.rnn import gru_tm as gru_tm_plain
+from scrappie_torch.ops.gru import gru_layer_tm, gru_layer_tm_plain, gru_tm
 from scrappie_torch.ops.viterbi import (
     viterbi_backtrace_tm,
     viterbi_backtrace_tm_plain,
+    viterbi_fused_ens_tm,
+    viterbi_fused_ens_tm_plain,
     viterbi_fused_tm,
     viterbi_fused_tm_plain,
     viterbi_scores_tm,
@@ -113,6 +116,13 @@ def test_cpu_tensors_take_the_twins_and_launch_nothing():
     for a, b in zip(viterbi_fused_tm(t["h"], t["W"], t["bvec"]),
                     viterbi_fused_tm_plain(t["h"], t["W"], t["bvec"])):
         assert torch.equal(a, b)
+    ens = (torch.stack([t["h"], -t["h"]]), torch.stack([t["W"], t["W"] / 2]),
+           torch.stack([t["bvec"], t["bvec"]]), torch.tensor([0.75, 0.25]))
+    for a, b in zip(viterbi_fused_ens_tm(*ens), viterbi_fused_ens_tm_plain(*ens)):
+        assert torch.equal(a, b)
+    x = t["x"] @ t["iW"] + t["b"]
+    assert torch.equal(gru_tm(x, t["sW"], t["sW2"], True),
+                       gru_tm_plain(x, t["sW"], t["sW2"], True))
     assert ops.LAUNCHES == {name: 0 for name in ops.LAUNCHES}
 
 

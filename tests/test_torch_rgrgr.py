@@ -105,12 +105,20 @@ def test_calc_post_and_decode_post_match_jax():
 
 @pytest.mark.parametrize("model", ["raw_r94", "nanonet_events"])
 def test_other_model_kinds_are_not_ported_yet(model):
-    """raw_r94 waits for its ROADMAP item; the events model is ported, but
-    basecalls from events (api.basecall_events), not raw signal."""
-    error, match = ((NotImplementedError, "ROADMAP") if model == "raw_r94"
-                    else (ValueError, "basecall_events"))
-    with pytest.raises(error, match=match):
-        tapi.basecall_raw(synthetic_signal(500, 0), model=model, device="cpu")
+    """What basecall_raw refuses, as scrappie_tpu does: raw_r94 (stride 4)
+    as a member of an rgrgr_r94 (stride 5) ensemble, whose block grids do
+    not align (raw_r94 alone is tests/test_torch_raw.py's); the events
+    model, which basecalls from events (api.basecall_events), not raw
+    signal."""
+    data = synthetic_signal(500, 0)
+    if model == "raw_r94":
+        with pytest.raises(ValueError, match="block grids must align"):
+            japi.basecall_raw(data, ensemble=(model,))
+        with pytest.raises(ValueError, match="block grids must align"):
+            tapi.basecall_raw(data, ensemble=(model,), device="cpu")
+    else:
+        with pytest.raises(ValueError, match="basecall_events"):
+            tapi.basecall_raw(data, model=model, device="cpu")
 
 
 @pytest.mark.parametrize("mode,homopolymer", [("fast", "nochange"),
