@@ -8,20 +8,32 @@ toolkit (nvcc) and PyTorch built for CUDA; it needs neither JAX nor h5py.
 It prints one JSON line per phase and fails (nonzero exit, no result line)
 if any phase fails:
 
-  1. builds the kernels (scrappie_torch/csrc, nvcc, sm_90a) and prints the
-     build time and nvcc's per-kernel register and spill report (stderr);
+  1. builds the kernels (scrappie_torch/csrc, nvcc, sm_90a), prints the
+     build time and nvcc's per-kernel register and spill report (stderr),
+     and fails if the GRU recurrence spills;
   2. holds each kernel against its plain PyTorch twin at the main path's
      shapes (T = 2000 blocks, S = 96, 1025 states; B = 8 and 64) and times
-     both (CUDA events, median of 20 after warm-up);
+     both (CUDA events after warm-up: a kernel's median of 20, a twin's
+     loop over time median of 3): the GRU layer through
+     the paths' route (projection, then recurrence) and through the
+     superseded layer kernel, the projection also beside torch.addmm, the
+     head kernel's log posterior, and its route (head, then Viterbi
+     forward) against the fused kernel's twin;
   3. holds the Viterbi kernels against their twins with nonzero penalties,
      slip and temperatures, and on log posteriors drawn from a few
      integers, where ties decide most moves;
   4. holds the fused ensemble kernel against its twin on the hidden
      features of rgrgr_r94, rgrgr_r941 and rgrgr_r10 (weights 3:1:1) at
      T = 2000, B = 8 and 64, also with penalties, slip and temperatures and
-     with K = 2, and times it (phase ens_kernel); holds the GRU recurrence
-     kernel against nn/rnn.gru_tm at T = 2000, S = 96, B = 8 and 64, both
-     directions, and times it (phase gru_recurrence_kernel);
+     with K = 2, and times it; holds the head kernel (K = 3 and 5) and its
+     route the same way (phase ens_kernel); times the route against the
+     fused kernels at K = 1 and 3, B = 8, 64 and 256 (phase routes); holds
+     the GRU recurrence kernel against nn/rnn.gru_tm at T = 2000, S = 96,
+     B = 8 and 64, both directions, and times it (phase
+     gru_recurrence_kernel); holds the GRU (S = 160, 352) and LSTM (S =
+     160, 288) layers in their big-S modes against their twins (phase
+     big_s), and the Viterbi forward and backtrace at nhist = 80 and, with
+     slip, 2048 (phase nhist);
   5. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
      16 seeded synthetic reads of 20k-100k samples in fast mode and in both
      stitch modes, checks that each kernel's launch counter rose and that
@@ -43,18 +55,20 @@ if any phase fails:
  11. times the rnnrf fused path at B = 64 x 10 000 samples, stage by stage,
      and profiles the rnnrf engine in both modes;
  12. runs the ensembles through the engine: rgrgr_r94 + rgrgr_r941 +
-     rgrgr_r10 at 3:1:1 in fast mode (the fused ensemble kernel must
-     launch) and device stitch, and the rnnrf_r94 self-ensemble in fast and
-     stitch mode, whose calls must be the solo model's (phases
-     main_path_ensemble, main_path_rnnrf_self_ensemble); then times the
-     3:1:1 fused path stage by stage and profiles its fast engine
-     (throughput_ensemble);
+     rgrgr_r10 at 3:1:1 in fast mode (the head kernel must launch) and
+     device stitch, the same primary with five members (3:1:1:1:1, beyond
+     the fused ensemble kernel's four) in fast mode, and the rnnrf_r94
+     self-ensemble in fast and stitch mode, whose calls must be the solo
+     model's (phases main_path_ensemble, main_path_ensemble_k5,
+     main_path_rnnrf_self_ensemble); then times the 3:1:1 fused path stage
+     by stage and profiles its fast engine (throughput_ensemble);
  13. holds the peephole-LSTM kernel against its twin with the events
      network's weights at T = 2048 events, B = 8 and 64, C = 12 and 96, in
      both directions, and times the layer, its projection and its
      recurrence (and torch.matmul on the same projection); then holds the
-     fused head + Viterbi, forward and backtrace kernels against their
-     twins on the second stage's output and the FF3 head's posterior;
+     fused head + Viterbi kernel and the head route, forward and backtrace
+     kernels against their twins on the second stage's output and the FF3
+     head's posterior;
  14. runs BasecallEngine("nanonet_events", device="cuda") in fast and
      stitch mode on the same 16 reads, checks the launch counters and every
      read's sequence, and compares two reads with the port's CPU run;
@@ -88,6 +102,7 @@ and power limit as nvidia-smi gives them, and {"ok": true, "device":
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -104,6 +119,13 @@ PARTITION_RTOL = 1e-5    # expf/logf against torch's logsumexp, T = 5000
 EMIT_BIAS = -1.0
 T_EVENTS = 2048          # events in a chunk of the events engine
 LSTM_ATOL = 1e-4
+HEAD_RTOL = 1e-6         # the head's lp against its twin: fp32 sums of the
+HEAD_ATOL = 1e-5         # product, softmax and renormalisation in another order
+PROJECT_RTOL = 1e-5      # the projection against its twin, relative to max(|y|, 1)
+BIG_S = {"gru": (160, 352), "lstm": (160, 288)}  # beyond shared memory
+T_BIG_S = 500            # steps of the big-S checks
+NHIST_CASES = ((80, False), (2048, True))  # (nhist, use_slip) beyond 64..1024
+ROUTE_BATCHES = (8, 64, 256)
 NREADS = 16
 READ_LEN = (20000, 100000)
 SQUIGGLE_MODELS = ("squiggle_r94", "squiggle_r94_rna", "squiggle_r10")
@@ -123,10 +145,18 @@ TEMPS = dict(tempW=1.2, tempb=0.9)
 # the transducer ensemble the JAX package measured (rgrgr_r94 + rgrgr_r941 +
 # rgrgr_r10 at 3:1:1, scrappie_tpu/parallel/runner.py:147-150)
 ENSEMBLE = ("rgrgr_r941", "rgrgr_r10")
+# five members, which the fused ensemble kernel (at most four) cannot take
+ENSEMBLE5 = ("rgrgr_r941", "rgrgr_r10", "rgrgr_r941", "rgrgr_r10")
 RUNS = (("fast", "nochange"), ("stitch", "nochange"), ("stitch", "mean"))
 
 KERNELS = {
     "gru_layer": ("scrappie_torch/csrc/gru.cu", "scrappie_tpu/ops/gru.py:152"),
+    "project": ("scrappie_torch/csrc/project.cu",
+                "scrappie_tpu/ops/gru.py:152 and ops/lstm.py:53 (the "
+                "projection in their bodies)"),
+    "head": ("scrappie_torch/csrc/head.cu",
+             "scrappie_tpu/ops/viterbi.py:385 and :531 (the head in their "
+             "bodies)"),
     "viterbi_fwd": ("scrappie_torch/csrc/viterbi.cu",
                     "scrappie_tpu/ops/viterbi.py:169"),
     "viterbi_backtrace": ("scrappie_torch/csrc/viterbi.cu",
@@ -145,16 +175,28 @@ KERNELS = {
     "viterbi_fused_ens": ("scrappie_torch/csrc/viterbi.cu",
                           "scrappie_tpu/ops/viterbi.py:531"),
     "gru_recurrence": ("scrappie_torch/csrc/gru.cu", "scrappie_tpu/ops/gru.py:67"),
+    "gru_recurrence_global": ("scrappie_torch/csrc/gru.cu",
+                              "scrappie_tpu/ops/gru.py:67 (S above 96)"),
+    "lstm_layer_global": ("scrappie_torch/csrc/lstm.cu",
+                          "scrappie_tpu/ops/lstm.py:53 (sW beyond shared "
+                          "memory)"),
 }
 # The kernels each path must launch, by engine mode.
-TRANSDUCER_KERNELS = {"fast": ("gru_layer", "viterbi_fused", "viterbi_backtrace"),
-                      "stitch": ("gru_layer", "viterbi_fwd", "viterbi_backtrace")}
-ENSEMBLE_KERNELS = {"fast": ("gru_layer", "viterbi_fused_ens", "viterbi_backtrace"),
-                    "stitch": TRANSDUCER_KERNELS["stitch"]}
-RNNRF_KERNELS = {mode: ("gru_layer", "crf_fwd", "crf_backtrace", "crf_partition")
+GRU_KERNELS = ("project", "gru_recurrence")
+TRANSDUCER_KERNELS = {
+    "fast": GRU_KERNELS + ("head", "viterbi_fwd", "viterbi_backtrace"),
+    "stitch": GRU_KERNELS + ("viterbi_fwd", "viterbi_backtrace")}
+ENSEMBLE_KERNELS = TRANSDUCER_KERNELS
+RNNRF_KERNELS = {mode: GRU_KERNELS + ("crf_fwd", "crf_backtrace", "crf_partition")
                  for mode in ("fast", "stitch")}
-EVENTS_KERNELS = {"fast": ("lstm_layer", "viterbi_fused", "viterbi_backtrace"),
-                  "stitch": ("lstm_layer", "viterbi_fwd", "viterbi_backtrace")}
+EVENTS_KERNELS = {
+    "fast": ("project", "lstm_layer", "head", "viterbi_fwd", "viterbi_backtrace"),
+    "stitch": ("project", "lstm_layer", "viterbi_fwd", "viterbi_backtrace")}
+# Kept, checked and timed; no path launches them.
+SUPERSEDED = ("gru_layer", "viterbi_fused", "viterbi_fused_ens")
+# Kernels whose design keeps their weights in registers: ptxas must report
+# no spill for any of their instances.
+NO_SPILL = ("gru_recurrence_kernel",)
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
 # fp32 outside the tensor cores (the kernels are exact fp32, TF32 off).
 PEAK_BYTES_PER_S = 3.35e12
@@ -218,11 +260,21 @@ def build() -> None:
     _build.library()
     seconds = time.perf_counter() - t0
     log = path.with_suffix(".log")
-    if log.exists():
-        report = [ln for ln in log.read_text().splitlines()
-                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
-        print("\n".join(report), file=sys.stderr)
-    emit({"phase": "build", "seconds": round(seconds, 3), "library": path.name})
+    require(log.exists(), f"nvcc's report {log.name} beside the library")
+    report = [ln for ln in log.read_text().splitlines()
+              if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    print("\n".join(report), file=sys.stderr)
+    spills, entry = {}, None
+    for ln in report:
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "spill stores" in ln and entry and any(k in entry for k in NO_SPILL):
+            spills[entry] = sum(int(n) for n in re.findall(r"(\d+) bytes spill", ln))
+    for k in NO_SPILL:
+        require(any(k in e for e in spills), f"ptxas reports {k}")
+    require(not any(spills.values()), f"no spill in {NO_SPILL}: {spills}")
+    emit({"phase": "build", "seconds": round(seconds, 3), "library": path.name,
+          "spill_bytes": spills})
 
 
 def bound(nbytes: float, nops: float) -> dict:
@@ -270,6 +322,14 @@ def kernel_work(name: str, **d) -> dict:
         nst, seqlen = d["nst"], d["seqlen"]
         return bound(4 * (T * nst + seqlen + (seqlen + 2) * (T + 1)),
                      7 * T * seqlen)
+    if name == "project":  # x [T, B, C] @ W [C, N] + b
+        C, N = d["C"], d["N"]
+        return bound(4 * (T * B * C + C * N + N + T * B * N), 2 * T * B * C * N)
+    if name == "head":  # K heads' product and softmax; K > 1: renormalise
+        K, S, ns = d.get("K", 1), d["S"], d["nstate"]
+        M = T * B
+        return bound(4 * (K * M * S + K * (S + 1) * ns + K + M * ns),
+                     K * (2 * M * S * ns + 4 * M * ns) + (4 * M * ns if K > 1 else 0))
     if name == "gru_layer":
         C, S = d["C"], d["S"]
         return bound(4 * (T * B * (C + S) + 3 * S * (C + 1) + 3 * S * S),
@@ -338,22 +398,30 @@ def check_kernels(net, B: int) -> dict:
     require(x.shape == (T_BLOCKS, B, 96), f"features shape {tuple(x.shape)}")
     out = {}
 
-    # GRU: one backward (B1) and one forward (F2) layer.
-    err = 0.0
+    # GRU: one backward (B1) and one forward (F2) layer, through the path's
+    # route (projection + recurrence) and the superseded layer kernel.
+    err = {"route": 0.0, "gru_layer": 0.0}
     for pre, reverse in (("gruB1", True), ("gruF2", False)):
         w = [p[f"{pre}_{k}"] for k in ("iW", "b", "sW", "sW2")]
         hk = g.gru_layer_tm(x, *w, reverse=reverse)
+        ho = g.gru_layer_fused_cuda(x, *w, reverse=reverse)
         hp = g.gru_layer_tm_plain(x, *w, reverse=reverse)
         sync()
-        require(bool(torch.isfinite(hk).all()), f"{pre} kernel output finite")
-        err = max(err, float((hk - hp).abs().max()))
-    require(err <= GRU_ATOL, f"gru max abs err {err} <= {GRU_ATOL}")
+        for name, got in (("route", hk), ("gru_layer", ho)):
+            require(bool(torch.isfinite(got).all()), f"{pre} {name} output finite")
+            err[name] = max(err[name], float((got - hp).abs().max()))
+    for name, e in err.items():
+        require(e <= GRU_ATOL, f"gru {name} max abs err {e} <= {GRU_ATOL}")
     w = [p[f"gruB1_{k}"] for k in ("iW", "b", "sW", "sW2")]
     out["gru_layer"] = {
         **kernel_work("gru_layer", T=T_BLOCKS, B=B, C=96, S=96),
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: g.gru_layer_tm(x, *w, reverse=True)),
-        "plain_ms": cuda_ms(lambda: g.gru_layer_tm_plain(x, *w, reverse=True))}
+        "max_abs_err": err["gru_layer"],
+        "ms": cuda_ms(lambda: g.gru_layer_fused_cuda(x, *w, reverse=True)),
+        "route_ms": cuda_ms(lambda: g.gru_layer_tm(x, *w, reverse=True)),
+        "route_max_abs_err": err["route"],
+        "plain_ms": cuda_ms(lambda: g.gru_layer_tm_plain(x, *w, reverse=True),
+                            reps=3, warmup=1)}
+    out["project"] = check_projection(x, w[0], w[1])
 
     # Viterbi forward and backtrace on the main path's posterior.
     h = hk  # the F2 layer's output: main-path hidden features
@@ -369,17 +437,81 @@ def check_kernels(net, B: int) -> dict:
     out["viterbi_fused"] = check_fused(h, p["FF_W"], p["FF_b"], "main path")
     out["viterbi_fused"].update(kernel_work("viterbi_fused", T=T_BLOCKS, B=B,
                                             S=96, nstate=nstate))
+    out["head"] = check_head(h, p["FF_W"], p["FF_b"], "main path")
+    out["head"]["route"] = check_fused(h, p["FF_W"], p["FF_b"], "main path",
+                                       route=True)
     out["viterbi_fwd"]["ms"] = cuda_ms(lambda: v.viterbi_scores_tm(lp))
-    out["viterbi_fwd"]["plain_ms"] = cuda_ms(lambda: v.viterbi_scores_tm_plain(lp))
+    out["viterbi_fwd"]["plain_ms"] = cuda_ms(lambda: v.viterbi_scores_tm_plain(lp),
+                                             reps=3, warmup=1)
     out["viterbi_backtrace"]["ms"] = cuda_ms(lambda: v.viterbi_backtrace_tm(fk, tbk))
     out["viterbi_backtrace"]["plain_ms"] = cuda_ms(
-        lambda: v.viterbi_backtrace_tm_plain(fk, tbk))
+        lambda: v.viterbi_backtrace_tm_plain(fk, tbk), reps=3, warmup=1)
     out["viterbi_fused"]["ms"] = cuda_ms(
         lambda: v.viterbi_fused_tm(h, p["FF_W"], p["FF_b"]))
     out["viterbi_fused"]["plain_ms"] = cuda_ms(
-        lambda: v.viterbi_fused_tm_plain(h, p["FF_W"], p["FF_b"]))
+        lambda: v.viterbi_fused_tm_plain(h, p["FF_W"], p["FF_b"]), reps=3, warmup=1)
+    out["head"]["route_ms"] = cuda_ms(lambda: head_route(h, p["FF_W"], p["FF_b"]))
     emit({"phase": "kernels", "B": B, "T": T_BLOCKS, "kernels": out})
     return out
+
+
+def check_projection(x, W, b) -> dict:
+    """The projection kernel against its twin (nn/layers.feedforward) within
+    PROJECT_RTOL, and its time beside the twin's and torch.addmm's on the
+    same product (TF32 off), which the port never calls."""
+    import torch
+
+    from scrappie_torch.nn.layers import feedforward
+    from scrappie_torch.ops.project import project_tm
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 off for matmul")
+    T, B, C = x.shape
+    yk = project_tm(x, W, b)
+    yp = feedforward(x, W, b)
+    sync()
+    rel = float(((yk - yp).abs() / yp.abs().clamp(min=1.0)).max())
+    require(rel <= PROJECT_RTOL, f"project rel err {rel} <= {PROJECT_RTOL}")
+    x2 = x.view(T * B, C)
+    return {**kernel_work("project", T=T, B=B, C=C, N=W.shape[1]),
+            "max_abs_err": float((yk - yp).abs().max()), "max_rel_err": rel,
+            "ms": cuda_ms(lambda: project_tm(x, W, b)),
+            "plain_ms": cuda_ms(lambda: feedforward(x, W, b)),
+            "library_ms": cuda_ms(lambda: torch.addmm(b, x2, W))}
+
+
+def head_route(h, W, b, weights=None, **opts):
+    """The fast paths' decode up to the traceback: the head kernel (K
+    members with weights), then the Viterbi forward kernel -> (final, tb)."""
+    from scrappie_torch.ops import viterbi as v
+    from scrappie_torch.ops.pipeline import HEAD_OPTIONS
+
+    head = {k: opts.pop(k) for k in HEAD_OPTIONS if k in opts}
+    return v.viterbi_scores_tm(v.head_logpost_tm(h, W, b, weights, **head), **opts)
+
+
+def check_head(h, W, b, what: str, weights=None, **temps) -> dict:
+    """The head kernel's log posterior (K members with weights) against
+    its twin within HEAD_RTOL / HEAD_ATOL; then the kernel's and the
+    twin's times."""
+    import torch
+
+    from scrappie_torch.ops import viterbi as v
+
+    lk = v.head_logpost_tm(h, W, b, weights, **temps)
+    lpl = v.head_logpost_tm_plain(h, W, b, weights, **temps)
+    sync()
+    require(bool(torch.isfinite(lk).all()), f"head lp finite ({what})")
+    excess = float(((lk - lpl).abs() - HEAD_ATOL - HEAD_RTOL * lpl.abs()).max())
+    require(excess <= 0.0, f"head lp within rtol {HEAD_RTOL}, atol {HEAD_ATOL} "
+                           f"({what}; excess {excess})")
+    K = 1 if weights is None else h.shape[0]
+    T, B, S = h.shape[-3:]
+    return {"K": K, **kernel_work("head", T=T, B=B, K=K, S=S, nstate=W.shape[-1]),
+            "max_abs_err": float((lk - lpl).abs().max()),
+            "max_rel_err": float(((lk - lpl).abs() / lpl.abs().clamp(min=1e-6)).max()),
+            "ms": cuda_ms(lambda: v.head_logpost_tm(h, W, b, weights, **temps)),
+            "plain_ms": cuda_ms(lambda: v.head_logpost_tm_plain(h, W, b, weights,
+                                                                **temps))}
 
 
 def check_forward_and_backtrace(lp, what: str, **opts):
@@ -403,20 +535,25 @@ def check_forward_and_backtrace(lp, what: str, **opts):
     return fk, tbk, (float((fk - fp).abs().max()), float((pk - pp).abs().max()))
 
 
-def check_fused(h, W, b, what: str, weights=None, **opts) -> dict:
+def check_fused(h, W, b, what: str, weights=None, route: bool = False,
+                **opts) -> dict:
     """Fused head + forward against head-then-forward (with weights, the
     fused ensemble against its twin, h [K, T, B, S]): final within
-    FUSED_RTOL, paths identical in FUSED_MIN_SAME_ROWS of the rows."""
+    FUSED_RTOL, paths identical in FUSED_MIN_SAME_ROWS of the rows. With
+    route, the paths' route (head kernel, then forward kernel) in place of
+    the fused kernel, held to the same twin."""
     from scrappie_torch.ops import viterbi as v
 
     B = h.shape[-2]
     if weights is None:
-        name = "viterbi_fused"
-        ffk, ftbk = v.viterbi_fused_tm(h, W, b, **opts)
+        name = "head route" if route else "viterbi_fused"
+        run = head_route if route else v.viterbi_fused_tm
+        ffk, ftbk = run(h, W, b, **opts)
         ffp, ftbp = v.viterbi_fused_tm_plain(h, W, b, **opts)
     else:
-        name = "viterbi_fused_ens"
-        ffk, ftbk = v.viterbi_fused_ens_tm(h, W, b, weights, **opts)
+        name = "head route (K members)" if route else "viterbi_fused_ens"
+        run = head_route if route else v.viterbi_fused_ens_tm
+        ffk, ftbk = run(h, W, b, weights, **opts)
         ffp, ftbp = v.viterbi_fused_ens_tm_plain(h, W, b, weights, **opts)
     sync()
     rel = float(((ffk - ffp).abs() / ffp.abs().clamp(min=1.0)).max())
@@ -459,10 +596,14 @@ def check_viterbi_options(net) -> None:
         check_forward_and_backtrace(lp, what, **opts)
     fused = check_fused(h, p["FF_W"], p["FF_b"], "penalties + slip + temperatures",
                         **VITERBI_OPTIONS, **TEMPS)
+    route = check_fused(h, p["FF_W"], p["FF_b"], "penalties + slip + temperatures",
+                        route=True, **VITERBI_OPTIONS, **TEMPS)
+    head = check_head(h, p["FF_W"], p["FF_b"], "temperatures", **TEMPS)
     emit({"phase": "viterbi_options", "B": B, "T": T_BLOCKS,
           "options": VITERBI_OPTIONS, "temperatures": TEMPS,
           "forward_backtrace": "identical (head, integer lp, integer lp + options)",
-          "fused": fused})
+          "fused": fused, "head_route": route,
+          "head_lp": {k: head[k] for k in ("max_abs_err", "max_rel_err")}})
 
 
 def ensemble_nets(device: str = "cuda") -> list:
@@ -474,22 +615,26 @@ def ensemble_nets(device: str = "cuda") -> list:
 
 
 def ensemble_weights(K: int) -> "torch.Tensor":
-    """The engine's normalised weights (3:1:...:1) of the first K members,
-    on the card."""
+    """The engine's normalised weights (3:1:...:1) of the first K members
+    of rgrgr_r94 + ENSEMBLE5 (whose first two are ENSEMBLE), on the card."""
     import torch
 
     from scrappie_torch.models.ensemble import validate_ensemble
 
-    w = validate_ensemble("rgrgr_r94", ENSEMBLE[: K - 1]).astype("float32")
+    w = validate_ensemble("rgrgr_r94", ENSEMBLE5[: K - 1]).astype("float32")
     return torch.as_tensor(w, device="cuda")
 
 
-def check_ens_kernel(nets: list, B: int) -> dict:
+def check_ens_kernel(nets: list, B: int) -> tuple[dict, dict]:
     """The fused ensemble kernel against its twin on the hidden features
     the three rgrgr models give for B chunks of CHUNK samples (T_BLOCKS
     blocks), at 3:1:1; at B = 8 also with penalties, slip and temperatures,
     and with K = 2. Then its time (median of 20) and its twin's (median of
-    3, a loop over T)."""
+    3, a loop over T). The same for the paths' route (head kernel, then
+    forward kernel) at K = 3 and at K = 5 (the three members and two
+    repeated, 3:1:1:1:1, which the fused kernel cannot take), and the head
+    kernel's log posterior against its twin at K = 3 and 5. Returns the
+    fused kernel's row and the K = 3 head kernel's."""
     import numpy as np
     import torch
 
@@ -516,6 +661,19 @@ def check_ens_kernel(nets: list, B: int) -> dict:
     for more in checked.values():
         row["max_abs_err"] = max(row["max_abs_err"], more["max_abs_err"])
         row["max_rel_err"] = max(row["max_rel_err"], more["max_rel_err"])
+    pick = [0, 1, 2, 1, 2]  # ENSEMBLE5's members: the trio's, repeated
+    h5, W5, b5, w5 = h[pick], W[pick], b[pick], ensemble_weights(5)
+    route = {"K = 3, 3:1:1": check_fused(h, W, b, "K = 3", weights=w, route=True),
+             "K = 5, 3:1:1:1:1": check_fused(h5, W5, b5, "K = 5", weights=w5,
+                                             route=True)}
+    if B == 8:
+        route["K = 3, penalties + slip + temperatures"] = check_fused(
+            h, W, b, "K = 3, penalties + slip + temperatures", weights=w,
+            route=True, **VITERBI_OPTIONS, **TEMPS)
+    heads = {3: check_head(h, W, b, "K = 3", weights=w),
+             5: check_head(h5, W5, b5, "K = 5", weights=w5)}
+    heads[3]["route_ms"] = cuda_ms(lambda: head_route(h, W, b, w))
+    heads[5]["route_ms"] = cuda_ms(lambda: head_route(h5, W5, b5, w5))
     nstate = W.shape[-1]
     row.update(K=K, **kernel_work("viterbi_fused_ens", T=T_BLOCKS, B=B, K=K, S=96,
                                   nstate=nstate),
@@ -525,8 +683,8 @@ def check_ens_kernel(nets: list, B: int) -> dict:
     row["us_per_step"] = row["ms"] * 1e3 / T_BLOCKS
     row["single_head_ms"] = cuda_ms(lambda: v.viterbi_fused_tm(h[0], W[0], b[0]))
     emit({"phase": "ens_kernel", "B": B, "T": T_BLOCKS, "checked": checked,
-          "timed": row})
-    return row
+          "timed": row, "route_checked": route, "head": heads})
+    return row, heads[3]
 
 
 def check_gru_recurrence(net, B: int) -> dict:
@@ -567,6 +725,132 @@ def check_gru_recurrence(net, B: int) -> dict:
                                reps=3, warmup=1)}
     emit({"phase": "gru_recurrence_kernel", "B": B, "T": T_BLOCKS, **row})
     return row
+
+
+def compare_routes(nets: list, card: str) -> dict:
+    """The fast paths' decode, the head kernel then the forward kernel,
+    against the fused kernels it replaced, one model (rgrgr_r94's FF head)
+    and the 3:1:1 ensemble, at each of ROUTE_BATCHES chunks of CHUNK
+    samples, timed in turns (fused, route, route, fused; CUDA events,
+    median of 5 each)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.ops import viterbi as v
+    from scrappie_torch.ops.pipeline import ensemble_features_tm
+
+    K = len(nets)
+    w = ensemble_weights(K)
+    rows = {}
+    for B in ROUTE_BATCHES:
+        sig = torch.as_tensor(np.random.default_rng(SEED + 100 + B).standard_normal(
+            (B, CHUNK, 1)).astype(np.float32), device="cuda")
+        h, W, b = ensemble_features_tm(
+            [n.params for n in nets], sig, kinds=("rgrgr",) * K,
+            conv_activations=[n.conv_activation for n in nets], stride=5)
+        h1 = h[0].contiguous()
+        cases = {1: (lambda: v.viterbi_fused_tm(h1, W[0], b[0]),
+                     lambda: head_route(h1, W[0], b[0])),
+                 K: (lambda: v.viterbi_fused_ens_tm(h, W, b, w),
+                     lambda: head_route(h, W, b, w))}
+        for k, (fused, route) in cases.items():
+            f1, r1, r2, f2 = (cuda_ms(fn, reps=5) for fn in (fused, route, route, fused))
+            rows[f"K = {k}, B = {B}"] = {
+                "fused_ms": [f1, f2], "route_ms": [r1, r2],
+                "head_ms": cuda_ms(lambda: v.head_logpost_tm(
+                    *((h1, W[0], b[0]) if k == 1 else (h, W, b, w))), reps=5)}
+        del h, h1
+    emit({"phase": "routes", "T": T_BLOCKS, "rows": rows, "card": card})
+    return rows
+
+
+def check_big_s() -> dict:
+    """The GRU and LSTM wrappers at sizes beyond shared memory (BIG_S): each
+    layer, projection and all, against its twin on seeded weights and
+    inputs (T_BIG_S steps, B = 8, C = 96, both directions), through the
+    big-S mode, whose counter must rise; then the times of the largest
+    size's recurrence (GRU) or layer (LSTM) beside its twin's."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch import ops
+    from scrappie_torch.nn import rnn
+    from scrappie_torch.ops import gru as g
+    from scrappie_torch.ops import lstm as L
+
+    rng = np.random.default_rng(SEED + 90)
+    T, B, C = T_BIG_S, 8, 96
+
+    def f(*shape, scale=1.0):
+        return torch.as_tensor((scale * rng.standard_normal(shape)).astype(np.float32),
+                               device="cuda")
+
+    rows = {"gru_recurrence_global": {"max_abs_err": 0.0},
+            "lstm_layer_global": {"max_abs_err": 0.0}}
+    x = f(T, B, C)
+    for kind, sizes in BIG_S.items():
+        name = "gru_recurrence_global" if kind == "gru" else "lstm_layer_global"
+        for S in sizes:
+            ng = 3 if kind == "gru" else 4
+            iW, bias = f(C, ng * S, scale=C ** -0.5), f(ng * S, scale=0.1)
+            rec = ((f(S, 2 * S, scale=S ** -0.5), f(S, S, scale=S ** -0.5))
+                   if kind == "gru" else (f(S, 4 * S, scale=S ** -0.5),
+                                          f(3 * S, scale=0.3)))
+            layer, plain = ((g.gru_layer_tm, g.gru_layer_tm_plain) if kind == "gru"
+                            else (L.lstm_layer_tm, L.lstm_layer_tm_plain))
+            before = ops.LAUNCHES[name]
+            for reverse in (False, True):
+                hk = layer(x, iW, bias, *rec, reverse=reverse)
+                hp = plain(x, iW, bias, *rec, reverse=reverse)
+                sync()
+                require(bool(torch.isfinite(hk).all()), f"{kind} S={S} finite")
+                err = float((hk - hp).abs().max())
+                tol = GRU_ATOL if kind == "gru" else LSTM_ATOL
+                require(err <= tol, f"{kind} S={S} max abs err {err} <= {tol}")
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            require(ops.LAUNCHES[name] - before == 2,
+                    f"{name} launched for {kind} S={S}")
+        if kind == "gru":
+            xproj = g.project_tm(x, iW, bias)
+            timed = (lambda: g.gru_tm(xproj, *rec), lambda: rnn.gru_tm(xproj, *rec))
+            work = kernel_work("gru_recurrence", T=T, B=B, S=S)
+        else:
+            timed = (lambda: layer(x, iW, bias, *rec), lambda: plain(x, iW, bias, *rec))
+            work = kernel_work("lstm_layer", T=T, B=B, C=C, S=S)
+        rows[name].update(S=S, T=T, B=B, **work, ms=cuda_ms(timed[0], reps=5),
+                          plain_ms=cuda_ms(timed[1], reps=3, warmup=1))
+    emit({"phase": "big_s", "sizes": BIG_S, "T": T, "B": B, "rows": rows})
+    return rows
+
+
+def check_nhist() -> dict:
+    """The Viterbi forward and backtrace kernels at state spaces the first
+    port refused (NHIST_CASES): tracebacks, finals, paths and scores
+    identical to the twins' on seeded log posteriors and on integer ones
+    (ties), at T_BLOCKS blocks and B = 8; then the forward's times."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.ops import viterbi as v
+
+    rng = np.random.default_rng(SEED + 95)
+    B = 8
+    rows = {}
+    for nhist, slip in NHIST_CASES:
+        shape = (T_BLOCKS, B, nhist + 1)
+        lp = torch.as_tensor((rng.standard_normal(shape) - 3.0).astype(np.float32),
+                             device="cuda")
+        ties = torch.as_tensor(rng.integers(-3, 1, shape).astype(np.float32),
+                               device="cuda")
+        for what, x in (("random", lp), ("integer", ties)):
+            check_forward_and_backtrace(x, f"nhist {nhist}, {what}", use_slip=slip)
+        rows[nhist] = {"use_slip": slip, "identical": True,
+                       **kernel_work("viterbi_fwd", T=T_BLOCKS, B=B,
+                                     nstate=nhist + 1),
+                       "ms": cuda_ms(lambda: v.viterbi_scores_tm(lp, use_slip=slip),
+                                     reps=5)}
+    emit({"phase": "nhist", "T": T_BLOCKS, "B": B, "rows": rows})
+    return rows
 
 
 def synthetic_reads() -> list:
@@ -655,7 +939,6 @@ def throughput(net, card: str) -> None:
     import torch
 
     from scrappie_torch.ops.pipeline import rgrgr_features_tm
-    from scrappie_torch.ops.viterbi import viterbi_backtrace_tm, viterbi_fused_tm
 
     B = 64
     rng = np.random.default_rng(SEED + 1)
@@ -667,16 +950,25 @@ def throughput(net, card: str) -> None:
         feats = cuda_ms(lambda: rgrgr_features_tm(p, sig, net.conv_activation,
                                                   net.stride), reps=5)
         x = rgrgr_features_tm(p, sig, net.conv_activation, net.stride)
-        fused = cuda_ms(lambda: viterbi_fused_tm(x, p["FF_W"], p["FF_b"]), reps=5)
-        final, tb = viterbi_fused_tm(x, p["FF_W"], p["FF_b"])
-        back = cuda_ms(lambda: viterbi_backtrace_tm(final, tb), reps=5)
+        breakdown = {"conv+gru x5": feats,
+                     **decode_breakdown(x, p["FF_W"], p["FF_b"])}
     emit({"phase": "throughput", "path": "fused", "B": B, "chunk": CHUNK,
-          "ms": round(total, 4),
-          "samples_per_s": round(B * CHUNK / (total / 1e3), 1),
-          "breakdown_ms": {"conv+gru x5": round(feats, 4),
-                           "fused head+viterbi": round(fused, 4),
-                           "backtrace": round(back, 4)},
-          "card": card})
+          "ms": total, "samples_per_s": B * CHUNK / (total / 1e3),
+          "breakdown_ms": breakdown, "card": card})
+
+
+def decode_breakdown(x, W, b, weights=None) -> dict:
+    """The fast paths' decode stage by stage on features x (K members'
+    with weights): the head kernel, the Viterbi forward and the backtrace
+    (CUDA events, median of 5)."""
+    from scrappie_torch.ops.viterbi import (head_logpost_tm, viterbi_backtrace_tm,
+                                            viterbi_scores_tm)
+
+    lp = head_logpost_tm(x, W, b, weights)
+    final, tb = viterbi_scores_tm(lp)
+    return {"head": cuda_ms(lambda: head_logpost_tm(x, W, b, weights), reps=5),
+            "viterbi forward": cuda_ms(lambda: viterbi_scores_tm(lp), reps=5),
+            "backtrace": cuda_ms(lambda: viterbi_backtrace_tm(final, tb), reps=5)}
 
 
 def device_activity(prof) -> tuple[float, list]:
@@ -923,6 +1215,7 @@ def check_lstm_kernel(enet, B: int) -> dict:
                                           robustlog, softmax_with_temperature,
                                           window)
     from scrappie_torch.ops import lstm as L
+    from scrappie_torch.ops.project import project_tm
 
     rng = np.random.default_rng(SEED + 20 + B)
     p = enet.params
@@ -942,10 +1235,10 @@ def check_lstm_kernel(enet, B: int) -> dict:
             h[d] = hk
             rows[f"lstm{d}{layer}"] = {"C": C, "max_abs_err": err}
         w = [p[f"lstmB{layer}_{k}"] for k in ("iW", "b", "sW", "p")]
-        xproj = L.lstm_project_cuda(x, w[0], w[1])
+        xproj = project_tm(x, w[0], w[1])
         rows[f"lstmB{layer}"].update({
             "ms": cuda_ms(lambda: L.lstm_layer_tm(x, *w, reverse=True)),
-            "projection_ms": cuda_ms(lambda: L.lstm_project_cuda(x, w[0], w[1])),
+            "projection_ms": cuda_ms(lambda: project_tm(x, w[0], w[1])),
             "recurrence_ms": cuda_ms(
                 lambda: L.lstm_recurrence_cuda(xproj, w[2], w[3], reverse=True)),
             "projection_library_ms": cuda_ms(lambda: feedforward(x, w[0], w[1])),
@@ -956,11 +1249,12 @@ def check_lstm_kernel(enet, B: int) -> dict:
                               p[f"FF{layer}_Wb"], p[f"FF{layer}_b"])
     emit({"phase": "lstm_kernel", "B": B, "T": T_EVENTS, "layers": rows})
     fused = check_fused(x, p["FF3_W"], p["FF3_b"], "events")
+    route = check_fused(x, p["FF3_W"], p["FF3_b"], "events", route=True)
     lp = robustlog(softmax_with_temperature(x, p["FF3_W"], p["FF3_b"]),
                    1e-5).contiguous()
     check_forward_and_backtrace(lp, "events posterior")
     emit({"phase": "events_decode_kernels", "B": B, "T": T_EVENTS,
-          "fused": fused, "forward_backtrace": "identical"})
+          "fused": fused, "head_route": route, "forward_backtrace": "identical"})
     row = dict(rows["lstmB2"])  # the C = 96 layer, the larger of the two
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     return row
@@ -991,7 +1285,6 @@ def throughput_events(enet, card: str, reads: list) -> None:
 
     from scrappie_torch.nn.layers import feedforward2_tanh, window
     from scrappie_torch.ops.lstm import lstm_layer_tm
-    from scrappie_torch.ops.viterbi import viterbi_backtrace_tm, viterbi_fused_tm
     from scrappie_torch.parallel.runner import BasecallEngine
 
     B = 64
@@ -1014,11 +1307,7 @@ def throughput_events(enet, card: str, reads: list) -> None:
                                            p[f"FF{layer}_Wb"], p[f"FF{layer}_b"])
             breakdown[f"feedforward2_tanh {layer}"] = cuda_ms(ff, reps=5)
             x = ff()
-        breakdown["fused head+viterbi"] = cuda_ms(
-            lambda: viterbi_fused_tm(x, p["FF3_W"], p["FF3_b"]), reps=5)
-        final, tb = viterbi_fused_tm(x, p["FF3_W"], p["FF3_b"])
-        breakdown["backtrace"] = cuda_ms(lambda: viterbi_backtrace_tm(final, tb),
-                                         reps=5)
+        breakdown.update(decode_breakdown(x, p["FF3_W"], p["FF3_b"]))
         emit({"phase": "throughput_events", "path": "fused", "B": B,
               "events": T_EVENTS, "ms": total,
               "events_per_s": B * T_EVENTS / (total / 1e3),
@@ -1048,7 +1337,6 @@ def throughput_raw(card: str) -> None:
     from scrappie_torch.models.forward import RawR94Model
     from scrappie_torch.ops.gru import gru_layer_tm
     from scrappie_torch.ops.pipeline import _conv_tm
-    from scrappie_torch.ops.viterbi import viterbi_backtrace_tm, viterbi_fused_tm
 
     B = 64
     net = RawR94Model.from_registry("raw_r94", "cuda")
@@ -1072,11 +1360,7 @@ def throughput_raw(card: str) -> None:
                                            p[f"FF{layer}_Wb"], p[f"FF{layer}_b"])
             breakdown[f"feedforward2_tanh {layer}"] = cuda_ms(ff, reps=5)
             x = ff()
-        breakdown["fused head+viterbi"] = cuda_ms(
-            lambda: viterbi_fused_tm(x, p["FF3_W"], p["FF3_b"]), reps=5)
-        final, tb = viterbi_fused_tm(x, p["FF3_W"], p["FF3_b"])
-        breakdown["backtrace"] = cuda_ms(lambda: viterbi_backtrace_tm(final, tb),
-                                         reps=5)
+        breakdown.update(decode_breakdown(x, p["FF3_W"], p["FF3_b"]))
     emit({"phase": "throughput_raw", "path": "fused", "B": B, "chunk": CHUNK,
           "blocks": x.shape[0], "ms": total,
           "samples_per_s": B * CHUNK / (total / 1e3), "breakdown_ms": breakdown,
@@ -1089,11 +1373,14 @@ def main_path_ensemble(card: str, reads: list, rnnrf_results: dict) -> dict:
     the rnnrf_r94 self-ensemble (weights 1:1) in fast and stitch mode,
     whose calls must be the solo model's (rnnrf_results, from
     main_path_rnnrf on the same reads): the two halves of the weighted sum
-    add up to the solo transitions exactly. Returns the 3:1:1 runs'
-    launch counts."""
+    add up to the solo transitions exactly; then rgrgr_r94 with ENSEMBLE5
+    (five members, 3:1:1:1:1) in fast mode, which the fused ensemble
+    kernel could not take. Returns the 3:1:1 runs' launch counts."""
     runs = (("fast", "nochange"), ("stitch", "nochange"))
     launches = drive_engine(card, "main_path_ensemble", reads, "rgrgr_r94", runs,
                             ENSEMBLE_KERNELS, ensemble=ENSEMBLE)[0]
+    drive_engine(card, "main_path_ensemble_k5", reads, "rgrgr_r94",
+                 (("fast", "nochange"),), ENSEMBLE_KERNELS, ensemble=ENSEMBLE5)
     runs = (("fast", None), ("stitch", None))
     _, results = drive_engine(card, "main_path_rnnrf_self_ensemble", reads,
                               "rnnrf_r94", runs, RNNRF_KERNELS,
@@ -1116,8 +1403,6 @@ def throughput_ensemble(card: str, reads: list) -> None:
     from scrappie_torch.ops.pipeline import (ensemble_basecall_fused,
                                              ensemble_features_tm,
                                              rgrgr_features_tm)
-    from scrappie_torch.ops.viterbi import (viterbi_backtrace_tm,
-                                            viterbi_fused_ens_tm)
     from scrappie_torch.parallel.runner import BasecallEngine
 
     B = 64
@@ -1138,11 +1423,7 @@ def throughput_ensemble(card: str, reads: list) -> None:
                                           n.stride), reps=5)
         h, W, b = ensemble_features_tm(params, sig, kinds=("rgrgr",) * len(nets),
                                        conv_activations=acts, stride=5)
-        breakdown["fused ensemble head+viterbi"] = cuda_ms(
-            lambda: viterbi_fused_ens_tm(h, W, b, w), reps=5)
-        final, tb = viterbi_fused_ens_tm(h, W, b, w)
-        breakdown["backtrace"] = cuda_ms(lambda: viterbi_backtrace_tm(final, tb),
-                                         reps=5)
+        breakdown.update(decode_breakdown(h, W, b, w))
         emit({"phase": "throughput_ensemble", "path": "fused", "K": len(nets),
               "B": B, "chunk": CHUNK, "ms": total,
               "samples_per_s": B * CHUNK / (total / 1e3),
@@ -1463,9 +1744,13 @@ def main() -> int:
         check_viterbi_options(net)
         nets = ensemble_nets()
         check_ens_kernel(nets, 8)
-        table["viterbi_fused_ens"] = check_ens_kernel(nets, 64)
+        table["viterbi_fused_ens"], head3 = check_ens_kernel(nets, 64)
+        table["head"]["K3"] = head3
+        compare_routes(nets, card)
         check_gru_recurrence(net, 8)
         table["gru_recurrence"] = check_gru_recurrence(net, 64)
+        table.update(check_big_s())
+        check_nhist()
         check_crf_kernels(rnet, 8)
         table.update(check_crf_kernels(rnet, 64))
         check_lstm_kernel(enet, 8)
@@ -1487,27 +1772,34 @@ def main() -> int:
         table["dtw"] = check_dtw_kernel(card)
         table["seqmap"] = check_seqmap_kernel(card)
     mapping_launches = main_path_mapping(card)
-    # each kernel's launches on its own path: the GRU's and the Viterbi
-    # kernels' on the rgrgr path, the ensemble kernel's on the 3:1:1
-    # ensemble's. No path runs the GRU recurrence alone (nor does any in
-    # the JAX package), so its count from the rgrgr path is 0.
-    launches.update({k: rnnrf_launches[k] for k in RNNRF_KERNELS["fast"]
-                     if k != "gru_layer"})
+    # each kernel's launches on its own path: the projection's, the GRU
+    # recurrence's, the head's and the Viterbi kernels' on the rgrgr path,
+    # the CRF kernels' on rnnrf's, the LSTM's on the events path's, the
+    # fused ensemble kernel's on the 3:1:1 ensemble's. No path runs the
+    # superseded kernels or a big-S mode (no model has S above 96).
+    launches.update({k: rnnrf_launches[k]
+                     for k in ("crf_fwd", "crf_backtrace", "crf_partition")})
     launches["viterbi_fused_ens"] = ensemble_launches["viterbi_fused_ens"]
-    launches["lstm_layer"] = events_launches["lstm_layer"]
+    launches.update({k: events_launches[k]
+                     for k in ("lstm_layer", "lstm_layer_global")})
     launches.update({k: mapping_launches[k] for k in ("dtw", "seqmap")})
-    # No single PyTorch call computes any of these functions: torch.nn.GRU
-    # applies r after its matmul (scrappie before), torch.nn.LSTM has no
-    # peepholes, and nothing in PyTorch does a Viterbi decode (alone, after
-    # a head or after K combined heads), the CRF's partition function or
-    # either mapping DP. So library_ms is null throughout.
+    for name in SUPERSEDED:
+        require(launches[name] == 0, f"superseded {name} launched on a path "
+                                     f"({launches[name]})")
+    # One PyTorch call computes the projection (torch.addmm) and none any
+    # other of these functions: torch.nn.GRU applies r after its matmul
+    # (scrappie before), torch.nn.LSTM has no peepholes, and nothing in
+    # PyTorch does the head's robustlog and renormalised combination, a
+    # Viterbi decode (alone, after a head or after K combined heads), the
+    # CRF's partition function or either mapping DP.
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],
          "max_abs_err": table[name]["max_abs_err"], "ms": table[name]["ms"],
          "plain_ms": table[name]["plain_ms"],
          "bound_ms": table[name]["bound_ms"],
-         "bound_by": table[name]["bound_by"], "library_ms": None}
+         "bound_by": table[name]["bound_by"],
+         "library_ms": table[name].get("library_ms")}
         for name in KERNELS]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,15 @@
-// One GRU layer with the input projection inside the kernel, and (a mode of
-// the same kernel) the GRU recurrence alone over inputs projected before.
+// The GRU recurrence over inputs projected before (csrc/project.cu writes
+// x @ iW + b for every step and row), and the superseded GRU layer kernel
+// that projects inside its step loop.
 //
 // Replaces, in scrappie_tpu/ops/gru.py:
-//   _gru_fused_kernel  wrapper gru_layer_fused_tm  (projecting mode)
-//   _gru_kernel        wrapper gru_tm_padded       (recurrence mode: xin is
-//                      read from a [T, B, 3S] input instead of computed)
+//   _gru_fused_kernel  wrapper gru_layer_fused_tm: the projection kernel,
+//                      then gru_recurrence_kernel (gru_layer_kernel, the
+//                      first port, is kept and timed; no path launches it)
+//   _gru_kernel        wrapper gru_tm_padded: gru_recurrence_kernel
 // Per time step, for one batch row:
 //
-//   xin  = x[t] @ iW + b
+//   xin  = x[t] @ iW + b                     (the projection, [3S])
 //   z, r = sigmoid(xin[:2S] + h @ sW)
 //   hbar = tanh(xin[2S:] + (r * h) @ sW2)
 //   h    = z * h + (1 - z) * hbar
@@ -15,35 +17,256 @@
 // with h = 0 before the first step; `reverse` walks time backwards.
 //
 // What bounds it on the H100: the recurrence is sequential in T, so one
-// row's time is T times the latency of one step: two dependent length-S
-// (or C) dot products per thread, two block barriers and a global load.
-// The arithmetic is small (about 3S(C + S) multiply-adds per row and step);
-// what must not happen is to stream the weights from L2 every step (221 KB
-// in fp32 at C = S = 96, 442 MB per 2000-step row).
+// row's time is T times the latency of one step: two dependent matrix-vector
+// products (h @ sW, then (r * h) @ sW2), a barrier after each, and the
+// gates. The arithmetic is small (3 S^2 multiply-adds per row and step); the
+// weights (27 648 floats at S = 96) must stay on chip, and the step's
+// latency is set by how many dependent instructions and shared-memory
+// transactions each thread issues between the barriers.
 //
-// Design: one block per batch row and one thread per gate column (3S
-// threads). iW, sW and sW2 are copied once into dynamic shared memory and
-// stay there for the whole scan (224 KB of the 227 KB a block may use at
-// C = S = 96); h, r*h, z and a double-buffered input row sit beside them.
-// Thread j accumulates column j of x@iW and, for j < 2S, of h@sW, reading
-// weights along a row so neighbouring threads touch neighbouring words.
-// The next step's input row is loaded into a register while the current
-// step computes, which keeps the global-load latency off the critical
-// path. Exactly T steps run: there is no time padding and no lane padding.
-// The recurrence mode keeps only sW and sW2 resident (109 KB at S = 96) and
-// reads thread j's gate input x[t, b, j] a step ahead into a register; the
-// step after that is the projecting mode's, in the same order of additions.
+// Design (gru_recurrence_kernel): one block per batch row, weights in
+// registers. Thread j < 2S holds z/r column j of sW whole (LA = 1 lane a
+// column, REG_MAX_S = 96 rows); each of the S candidate columns is split
+// over LB = 2 lanes of 48 rows of sW2 (2S threads, 192 at S = 96; 144
+// weights a thread, no spill). A step: every lane reads its slice of h
+// from shared memory as float4 broadcasts, takes its partial dot product
+// (four independent FMA chains), and the lanes of a column add theirs by
+// a warp shuffle; the column's first lane adds the projected input and
+// writes z or r * h to shared memory. Barrier. The same for (r * h) @ sW2,
+// then the first lane of candidate column k writes h[k] to shared memory
+// and to y. Barrier. No weight is read from memory inside the step loop.
+// The projected input of the next RING steps is in flight by cp.async into
+// a ring in shared memory, each column's first lane copying and reading
+// back its own entries, so the load needs no barrier of its own. S <= 96.
+// Why this split: on an H100, at S = 96 and T = 2000, 4 / 8 lanes a
+// column (768 threads) took 2.39 ms, 2 / 4 lanes 1.78 ms and 1 / 2 lanes
+// 1.33 ms (B = 8 and 64): fewer lanes mean fewer shuffles and fewer
+// warps for each barrier, and 24-deep FMA chains still hide their latency.
+//
+// Big-S mode (template switch kGlobal): for S > 96 lanes of GLA = 4 (z/r)
+// and GLB = 8 (candidate) walk the columns in turn (1024 threads) and read
+// sW and sW2 from global memory, where they stay in L2 (1.5 MB at S =
+// 352), and the projected input in the step that uses it. Same arithmetic.
+//
+// The superseded gru_layer_kernel: one block per row and one thread per
+// gate column (3S threads); iW, sW and sW2 in shared memory (224 KB at
+// C = S = 96) and the 96-term projection of each step inside the loop.
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int REG_MAX_S = 96;  // the largest S whose weights stay in registers
+constexpr int LA = 1;          // lanes of a z/r column, on chip
+constexpr int LB = 2;          // lanes of a candidate column, on chip
+constexpr int GLA = 4;         // lanes of a z/r column, big-S mode
+constexpr int GLB = 8;         // lanes of a candidate column, big-S mode
+constexpr int RING = 4;        // steps of projected input in flight
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }
 
-// PROJECT: x [T, B, C], xin = x[t] @ iW + b in the kernel. Otherwise x is
-// [T, B, 3S] already projected (C = 0; iW and bias are not read).
-template <bool PROJECT>
+// Sum over the L lanes of an aligned lane group; every lane gets it.
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// Partial dot product of one lane: vec[k0 .. k0 + N) against w[0 .. N),
+// with vec in shared memory (16-byte aligned at k0) and w in registers.
+template <int N>
+__device__ __forceinline__ float lane_dot(const float* vec, const float (&w)[N]) {
+  const float4* v4 = reinterpret_cast<const float4*>(vec);
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 v = v4[i];
+    a0 = fmaf(v.x, w[4 * i], a0);
+    a1 = fmaf(v.y, w[4 * i + 1], a1);
+    a2 = fmaf(v.z, w[4 * i + 2], a2);
+    a3 = fmaf(v.w, w[4 * i + 3], a3);
+  }
+  return __fadd_rn(__fadd_rn(a0, a1), __fadd_rn(a2, a3));
+}
+
+// Partial dot product of one lane in the big-S mode: vec[k] * W[k, col]
+// for k in [k0, min(k0 + n, S)), W row-major with ncol columns.
+__device__ __forceinline__ float lane_dot_global(const float* vec,
+                                                 const float* __restrict__ W,
+                                                 int ncol, int col, int k0,
+                                                 int n, int S) {
+  float a0 = 0.0f, a1 = 0.0f;
+  const int kend = min(k0 + n, S);
+  int k = k0;
+  for (; k + 2 <= kend; k += 2) {
+    a0 = fmaf(vec[k], __ldg(W + (size_t)k * ncol + col), a0);
+    a1 = fmaf(vec[k + 1], __ldg(W + (size_t)(k + 1) * ncol + col), a1);
+  }
+  if (k < kend) a0 = fmaf(vec[k], __ldg(W + (size_t)k * ncol + col), a0);
+  return __fadd_rn(a0, a1);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x [T, B, 3S] projected, sW [S, 2S], sW2 [S, S] -> y [T, B, S].
+// kLA (kLB) lanes share a z/r (candidate) column, each holding
+// REG_MAX_S / kLA (REG_MAX_S / kLB) of its weights in registers; the big-S
+// mode (kGlobal) reads them from global memory instead. Shared memory: h
+// [SP], r * h [SP], z [S], SP = max(S, REG_MAX_S), the tails past S zero;
+// on chip also a ring of RING projected input rows [RING][3S].
+template <bool kGlobal, int kLA, int kLB>
+__global__ void __launch_bounds__(kGlobal ? 1024 : kLB * REG_MAX_S)
+gru_recurrence_kernel(const float* __restrict__ x, const float* __restrict__ sW,
+                      const float* __restrict__ sW2, float* __restrict__ y,
+                      int T, int B, int S, int reverse) {
+  constexpr int kRowsA = REG_MAX_S / kLA;  // rows of sW a lane holds
+  constexpr int kRowsB = REG_MAX_S / kLB;  // rows of sW2 a lane holds
+  extern __shared__ __align__(16) float smem[];
+  const int SP = max(S, REG_MAX_S);
+  float* s_h = smem;
+  float* s_rh = s_h + SP;
+  float* s_z = s_rh + SP;
+  float* s_x = s_z + SP;  // on chip: [RING][3S]
+  const int S2 = 2 * S;
+  const int S3 = 3 * S;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int la = tid % kLA;  // lane within a z/r column's group
+  const int lb = tid % kLB;  // lane within a candidate column's group
+  const int ga = tid / kLA;  // z/r column (on-chip mode)
+  const int gb = tid / kLB;  // candidate column (on-chip mode)
+  // Big-S mode: the rows of a lane, a multiple of 4.
+  const int na = kGlobal ? ((S + kLA - 1) / kLA + 3) / 4 * 4 : kRowsA;
+  const int nb = kGlobal ? ((S + kLB - 1) / kLB + 3) / 4 * 4 : kRowsB;
+
+  for (int k = tid; k < SP; k += blockDim.x) {
+    s_h[k] = 0.0f;
+    s_rh[k] = 0.0f;
+  }
+  float wa[kGlobal ? 1 : kRowsA];
+  float wb[kGlobal ? 1 : kRowsB];
+  if (!kGlobal) {
+#pragma unroll
+    for (int i = 0; i < kRowsA; ++i) {
+      const int k = la * kRowsA + i;
+      wa[i] = (ga < S2 && k < S) ? sW[(size_t)k * S2 + ga] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsB; ++i) {
+      const int k = lb * kRowsB + i;
+      wb[i] = (gb < S && k < S) ? sW2[(size_t)k * S + gb] : 0.0f;
+    }
+  }
+  const int t0 = reverse ? T - 1 : 0;
+  const int dt = reverse ? -1 : 1;
+  // On chip, the first lane of each column copies its projected input RING
+  // steps ahead into the ring (cp.async) and reads it back itself, so no
+  // barrier and no register waits on the load.
+  const bool ownA = !kGlobal && la == 0 && ga < S2;
+  const bool ownB = !kGlobal && lb == 0 && gb < S;
+  auto fetch = [&](int n) {
+    if (n < T) {
+      const float* row = x + ((size_t)(t0 + n * dt) * B + b) * S3;
+      float* slot = s_x + (n % RING) * S3;
+      if (ownA) cp_async4(slot + ga, row + ga);
+      if (ownB) cp_async4(slot + S2 + gb, row + S2 + gb);
+    }
+    cp_async_commit();
+  };
+  if (!kGlobal) {
+    for (int n = 0; n < RING; ++n) fetch(n);
+  }
+  __syncthreads();
+
+  for (int n = 0; n < T; ++n) {
+    const int t = t0 + n * dt;
+    const float* xrow = x + ((size_t)t * B + b) * S3;
+    float xa = 0.0f, xb = 0.0f;
+    if (!kGlobal) {
+      cp_async_wait<RING - 1>();  // this thread's copies of step n
+      const float* slot = s_x + (n % RING) * S3;
+      if (ownA) xa = slot[ga];
+      if (ownB) xb = slot[S2 + gb];
+    }
+
+    // z and r: h @ sW, one column per group of kLA lanes.
+    if (kGlobal) {
+      const int ngroup = blockDim.x / kLA;
+      for (int j0 = 0; j0 < S2; j0 += ngroup) {
+        const int j = j0 + tid / kLA;
+        const float part = j < S2 ? lane_dot_global(s_h, sW, S2, j, la * na,
+                                                    na, S)
+                                  : 0.0f;
+        const float rec = group_sum<kLA>(part);
+        if (la == 0 && j < S2) {
+          const float g = sigmoid_f32(__fadd_rn(xrow[j], rec));
+          if (j < S) s_z[j] = g;
+          else s_rh[j - S] = __fmul_rn(g, s_h[j - S]);
+        }
+      }
+    } else {
+      const float rec = group_sum<kLA>(lane_dot(s_h + la * kRowsA, wa));
+      if (ownA) {
+        const float g = sigmoid_f32(__fadd_rn(xa, rec));
+        if (ga < S) s_z[ga] = g;
+        else s_rh[ga - S] = __fmul_rn(g, s_h[ga - S]);
+      }
+    }
+    __syncthreads();
+
+    // hbar = tanh(xin + (r * h) @ sW2), one column per group of kLB lanes,
+    // then h.
+    if (kGlobal) {
+      const int ngroup = blockDim.x / kLB;
+      for (int k0 = 0; k0 < S; k0 += ngroup) {
+        const int k = k0 + tid / kLB;
+        const float part = k < S ? lane_dot_global(s_rh, sW2, S, k, lb * nb,
+                                                   nb, S)
+                                 : 0.0f;
+        const float acc = group_sum<kLB>(part);
+        if (lb == 0 && k < S) {
+          const float hbar = tanhf(__fadd_rn(xrow[S2 + k], acc));
+          const float z = s_z[k];
+          const float hn = __fadd_rn(__fmul_rn(z, s_h[k]),
+                                     __fmul_rn(__fsub_rn(1.0f, z), hbar));
+          s_h[k] = hn;
+          y[((size_t)t * B + b) * S + k] = hn;
+        }
+      }
+    } else {
+      const float acc = group_sum<kLB>(lane_dot(s_rh + lb * kRowsB, wb));
+      if (ownB) {
+        const float hbar = tanhf(__fadd_rn(xb, acc));
+        const float z = s_z[gb];
+        const float hn = __fadd_rn(__fmul_rn(z, s_h[gb]),
+                                   __fmul_rn(__fsub_rn(1.0f, z), hbar));
+        s_h[gb] = hn;
+        y[((size_t)t * B + b) * S + gb] = hn;
+      }
+      // Refill this step's slot (its values were consumed above).
+      fetch(n + RING);
+    }
+    __syncthreads();
+  }
+}
+
+// The superseded layer kernel: x [T, B, C], xin = x[t] @ iW + b computed in
+// the step loop by thread j for its gate column j (blockDim.x == 3S >= C).
 __global__ void gru_layer_kernel(const float* __restrict__ x,
                                  const float* __restrict__ iW,
                                  const float* __restrict__ bias,
@@ -59,41 +282,31 @@ __global__ void gru_layer_kernel(const float* __restrict__ x,
   float* s_h = s_sW2 + S * S;     // [S]
   float* s_rh = s_h + S;          // [S] r * h
   float* s_z = s_rh + S;          // [S]
-  float* s_iW = s_z + S;          // [C, 3S], projecting mode
+  float* s_iW = s_z + S;          // [C, 3S]
   float* s_x = s_iW + C * S3;     // [2, C] input row, double-buffered
 
   const int b = blockIdx.x;
-  const int j = threadIdx.x;  // gate column; blockDim.x == 3S >= C
+  const int j = threadIdx.x;  // gate column
   for (int i = j; i < S * S2; i += blockDim.x) s_sW[i] = sW[i];
   for (int i = j; i < S * S; i += blockDim.x) s_sW2[i] = sW2[i];
+  for (int i = j; i < C * S3; i += blockDim.x) s_iW[i] = iW[i];
   if (j < S) s_h[j] = 0.0f;
   const int t0 = reverse ? T - 1 : 0;
   const int dt = reverse ? -1 : 1;
-  float bj = 0.0f;
-  float xin = 0.0f;
-  if (PROJECT) {
-    for (int i = j; i < C * S3; i += blockDim.x) s_iW[i] = iW[i];
-    bj = bias[j];
-    if (j < C) s_x[j] = x[((size_t)t0 * B + b) * C + j];
-  } else {
-    xin = x[((size_t)t0 * B + b) * S3 + j];
-  }
+  const float bj = bias[j];
+  if (j < C) s_x[j] = x[((size_t)t0 * B + b) * C + j];
   __syncthreads();
 
   for (int n = 0; n < T; ++n) {
     const int t = t0 + n * dt;
     const bool more = n + 1 < T;
+    const float* xs = s_x + (n & 1) * C;
     float xnext = 0.0f;
-    if (PROJECT) {
-      const float* xs = s_x + (n & 1) * C;
-      if (j < C && more) xnext = x[((size_t)(t + dt) * B + b) * C + j];
-      float acc = 0.0f;
+    if (j < C && more) xnext = x[((size_t)(t + dt) * B + b) * C + j];
+    float acc = 0.0f;
 #pragma unroll 8
-      for (int c = 0; c < C; ++c) acc = fmaf(xs[c], s_iW[c * S3 + j], acc);
-      xin = __fadd_rn(acc, bj);
-    } else if (more) {
-      xnext = x[((size_t)(t + dt) * B + b) * S3 + j];
-    }
+    for (int c = 0; c < C; ++c) acc = fmaf(xs[c], s_iW[c * S3 + j], acc);
+    const float xin = __fadd_rn(acc, bj);
     if (j < S2) {
       float rec = 0.0f;
 #pragma unroll 8
@@ -105,7 +318,7 @@ __global__ void gru_layer_kernel(const float* __restrict__ x,
         s_rh[j - S] = __fmul_rn(g, s_h[j - S]);
       }
     }
-    if (PROJECT && j < C && more) s_x[((n + 1) & 1) * C + j] = xnext;
+    if (j < C && more) s_x[((n + 1) & 1) * C + j] = xnext;
     __syncthreads();
 
     if (j >= S2) {
@@ -120,21 +333,24 @@ __global__ void gru_layer_kernel(const float* __restrict__ x,
       s_h[k0] = hn;
       y[((size_t)t * B + b) * S + k0] = hn;
     }
-    if (!PROJECT) xin = xnext;
     __syncthreads();
   }
 }
 
-template <bool PROJECT>
-int launch(const float* x, const float* iW, const float* b, const float* sW,
-           const float* sW2, float* y, int T, int B, int C, int S,
-           int reverse, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_layer_kernel<PROJECT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gru_layer_kernel<PROJECT><<<B, 3 * S, smem, stream>>>(x, iW, b, sW, sW2, y,
-                                                       T, B, C, S, reverse);
+template <bool kGlobal, int kLA, int kLB>
+int launch_recurrence(const float* x, const float* sW, const float* sW2,
+                      float* y, int T, int B, int S, int reverse, int threads,
+                      cudaStream_t stream) {
+  const size_t sp = S > REG_MAX_S ? S : REG_MAX_S;
+  const size_t smem = sizeof(float) * (3 * sp + (kGlobal ? 0 : RING * 3 * (size_t)S));
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gru_recurrence_kernel<kGlobal, kLA, kLB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  gru_recurrence_kernel<kGlobal, kLA, kLB><<<B, threads, smem, stream>>>(
+      x, sW, sW2, y, T, B, S, reverse);
   return (int)cudaGetLastError();
 }
 
@@ -142,28 +358,46 @@ int launch(const float* x, const float* iW, const float* b, const float* sW,
 
 extern "C" {
 
-// Dynamic shared memory the kernel needs for input width C and size S
-// (C = 0: the recurrence mode).
+// Dynamic shared memory the superseded layer kernel needs for input width
+// C and size S.
 size_t scrappie_gru_smem_bytes(int C, int S) {
   return sizeof(float) *
          ((size_t)C * 3 * S + (size_t)3 * S * S + 2 * (size_t)C + 3 * (size_t)S);
 }
 
-// x [T, B, C], iW [C, 3S], b [3S], sW [S, 2S], sW2 [S, S] -> y [T, B, S];
-// all fp32, contiguous, on the current device. Returns a cudaError_t.
+// The superseded layer kernel: x [T, B, C], iW [C, 3S], b [3S], sW [S, 2S],
+// sW2 [S, S] -> y [T, B, S]; all fp32, contiguous, on the current device.
+// Returns a cudaError_t.
 int scrappie_gru_layer(const float* x, const float* iW, const float* b,
                        const float* sW, const float* sW2, float* y, int T,
                        int B, int C, int S, int reverse, cudaStream_t stream) {
-  return launch<true>(x, iW, b, sW, sW2, y, T, B, C, S, reverse,
-                      scrappie_gru_smem_bytes(C, S), stream);
+  if (T == 0 || B == 0) return (int)cudaSuccess;
+  const size_t smem = scrappie_gru_smem_bytes(C, S);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gru_layer_kernel<<<B, 3 * S, smem, stream>>>(x, iW, b, sW, sW2, y, T, B, C,
+                                               S, reverse);
+  return (int)cudaGetLastError();
 }
 
-// x [T, B, 3S] projected, sW [S, 2S], sW2 [S, S] -> y [T, B, S]; as above.
+// x [T, B, 3S] projected, sW [S, 2S], sW2 [S, S] -> y [T, B, S]; all fp32,
+// contiguous, on the current device. global = 0: weights in registers
+// (S <= REG_MAX_S, which ops/gru.py names REGISTER_MAX_S); global = 1: the
+// big-S mode.
+// Returns a cudaError_t.
 int scrappie_gru_recurrence(const float* x, const float* sW, const float* sW2,
                             float* y, int T, int B, int S, int reverse,
-                            cudaStream_t stream) {
-  return launch<false>(x, nullptr, nullptr, sW, sW2, y, T, B, 0, S, reverse,
-                       scrappie_gru_smem_bytes(0, S), stream);
+                            int global, cudaStream_t stream) {
+  if (T == 0 || B == 0) return (int)cudaSuccess;
+  if (global)
+    return launch_recurrence<true, GLA, GLB>(x, sW, sW2, y, T, B, S, reverse,
+                                             1024, stream);
+  if (S > REG_MAX_S) return (int)cudaErrorInvalidValue;
+  // LA threads per z/r column, LB per candidate column: 2S either way.
+  static_assert(LA * 2 == LB, "one thread count serves both products");
+  return launch_recurrence<false, LA, LB>(x, sW, sW2, y, T, B, S, reverse,
+                                          ((LB * S + 31) / 32) * 32, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
 // Transducer Viterbi decoding: the forward pass, the forward pass with the
 // posterior head fused in (one model, or an ensemble of K), and the
-// backtrace.
+// backtrace. The paths decode with csrc/head.cu's head kernel and the
+// forward pass; the two fused kernels are kept, checked and timed, and no
+// path launches them.
 //
 // Replaces, in scrappie_tpu/ops/viterbi.py:
 //   _fwd_kernel (with _dp_step and _dp_init)  wrapper viterbi_scores_tm
@@ -24,35 +26,41 @@
 //
 // What bounds them on the H100:
 //  * forward: sequential in T. Per step a block reads one log-posterior row
-//    (4 KB), 84 (or 148 with slip) predecessor scores per thread from
+//    (4 KB), 84 (or 148 with slip) predecessor scores per state from
 //    shared memory, and writes a 2 KB int16 traceback row. The step's
 //    latency (a barrier, a warp reduction and the shared-memory reads), not
 //    bandwidth, sets the time.
 //  * fused: as the forward, plus the head: a [S] x [S, nstate] product per
 //    row and step. W (394 KB in fp32 at S = 96) does not fit in shared
 //    memory, so every step streams it from L2; at one row per block that
-//    L2 traffic is the bound.
+//    L2 traffic is the bound. That is why the paths now take the head
+//    kernel, which reads W once for 128 rows, and this forward.
 //  * fused ensemble: K heads per step, so K times the fused kernel's L2
 //    traffic (1.2 MB a step at K = 3), plus four block reductions (the K
 //    softmax maxima and sums together, then the maximum and sum of the
 //    combined log posterior's renormalisation).
 //  * backtrace: one dependent 2-byte load per step and row; latency-bound.
 //
-// Design: one block per batch row and one thread per history state
-// (blockDim = nhist <= 1024). The scores live in shared memory, double
-// buffered, so a step reads the previous scores while writing the next ones
-// and needs a single barrier (the TPU kernel's one-hot MXU lane expansion
-// is replaced by plain shared-memory reads of the predecessors). The START
-// score needs no reduction, so every thread carries its own copy. END
-// needs the first argmax of the previous scores: each warp reduces its 32
-// states and writes (max, index) to a parity buffer, and warp 0 finishes
-// that reduction one step later, off the other warps' critical path. The
-// next step's log posteriors (or hidden row) are loaded into registers
-// while the current step computes. The ensemble kernel stages its K hidden
-// rows [2, K, S] in shared memory the same way, keeps each member's logit
-// in a register (K <= MAX_ENS, a loop unrolled to that bound), and shares
-// the head's dot products, the DP step and the final write with the other
-// kernels. The backtrace runs one thread per row.
+// Design: one block per batch row. The forward gives each thread SPT
+// history states (one up to nhist = 1024, whole warps, the tail masked;
+// then the least power of two that covers nhist on 1024 threads), so it
+// takes every nhist the JAX package takes: a multiple of 16 (64 with
+// slip), up to what the scores' two rows in shared memory (2 nhist floats)
+// and the int16 traceback (states below 2^15) allow. The fused kernels keep
+// one thread per state, 64 <= nhist <= 1024 in whole warps. The scores
+// live in shared memory, double buffered, so a step reads the previous
+// scores while writing the next ones and needs a single barrier (the TPU
+// kernel's one-hot MXU lane expansion is replaced by plain shared-memory
+// reads of the predecessors). The START score needs no reduction, so every
+// thread carries its own copy. END needs the first argmax of the previous
+// scores: each warp reduces its states and writes (max, index) to a parity
+// buffer, and warp 0 finishes that reduction one step later, off the other
+// warps' critical path. The next step's log posteriors (or hidden row) are
+// loaded into registers while the current step computes. The ensemble
+// kernel stages its K hidden rows [2, K, S] in shared memory the same way,
+// keeps each member's logit in a register (K <= MAX_ENS, a loop unrolled
+// to that bound), and shares the head's dot products, the DP step and the
+// final write with the fused kernel. The backtrace runs one thread per row.
 #include <climits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -61,7 +69,7 @@ namespace {
 
 constexpr float BIG = 1.0e30f;
 constexpr int MAX_WARPS = 32;
-constexpr int MAX_ENS = 4;  // members of a fused ensemble
+constexpr int MAX_ENS = 4;  // members of the fused ensemble kernel
 
 struct DpParams {
   float stay_pen;
@@ -222,41 +230,129 @@ __device__ __forceinline__ void dp_finish(const float* hist, const float* wval,
 }
 
 // lp [T, B, nhist+1] -> final [B, nhist+2], tb [T, B, nhist+2] int16.
+// Thread tid owns history states d = tid + i * blockDim.x, i < SPT; states
+// past nhist are masked (no update, -inf and no index in the argmax). The
+// scores live in dynamic shared memory, [2, nhist]. Up to two states a
+// thread the next step's log posteriors wait in registers; beyond that
+// each is read in the step that uses it.
+template <int SPT>
 __global__ void __launch_bounds__(1024)
 viterbi_fwd_kernel(const float* __restrict__ lp, float* __restrict__ final_,
                    short* __restrict__ tb, int T, int B, int nhist,
                    DpParams p) {
-  __shared__ float hist[2][1024];
+  extern __shared__ float hist[];
   __shared__ float wval[2][MAX_WARPS];
   __shared__ int widx[2][MAX_WARPS];
   const int b = blockIdx.x;
-  const int d = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int nwarp = nthr >> 5;
   const int nstate = nhist + 1;
+  const int nst2 = nhist + 2;
 
-  hist[0][d] = -BIG;
   float start = 0.0f;
   float end = -BIG;
   float local_stay_prev = 0.0f;
+  constexpr bool kAhead = SPT <= 2;
   const float* row = lp + (size_t)b * nstate;
-  float lpd = T > 0 ? fmaxf(row[d], -BIG) : 0.0f;
+  float lpd[kAhead ? SPT : 1];
+#pragma unroll
+  for (int i = 0; i < SPT; ++i) {
+    const int d = tid + i * nthr;
+    if (d < nhist) hist[d] = -BIG;
+    if constexpr (kAhead) lpd[i] = (T > 0 && d < nhist) ? fmaxf(row[d], -BIG) : 0.0f;
+  }
   float lps = T > 0 ? fmaxf(row[nhist], -BIG) : 0.0f;
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    float lpd_next = 0.0f, lps_next = 0.0f;
+    float lpd_next[kAhead ? SPT : 1];
+    float lps_next = 0.0f;
+    const float* crow = lp + ((size_t)t * B + b) * nstate;
     if (t + 1 < T) {
-      const float* nrow = lp + ((size_t)(t + 1) * B + b) * nstate;
-      lpd_next = fmaxf(nrow[d], -BIG);
+      const float* nrow = crow + (size_t)B * nstate;
+      if constexpr (kAhead) {
+#pragma unroll
+        for (int i = 0; i < SPT; ++i) {
+          const int d = tid + i * nthr;
+          lpd_next[i] = d < nhist ? fmaxf(nrow[d], -BIG) : 0.0f;
+        }
+      }
       lps_next = fmaxf(nrow[nhist], -BIG);
     }
-    dp_advance(hist, wval, widx, tb, t, B, lpd, lps, start, end,
-               local_stay_prev, p, nhist);
-    lpd = lpd_next;
+    const int cur = t & 1;
+    const float* prev = hist + cur * nhist;
+    float* next = hist + (cur ^ 1) * nhist;
+    const float stay_lp = __fsub_rn(lps, p.stay_pen);
+    short* tb_row = tb + ((size_t)t * B + b) * nst2;
+    // This thread's first maximum of the previous scores, then the warp's.
+    float v = -CUDART_INF_F;
+    int vi = INT_MAX;
+#pragma unroll
+    for (int i = 0; i < SPT; ++i) {
+      const int d = tid + i * nthr;
+      if (d < nhist && prev[d] > v) {
+        v = prev[d];
+        vi = d;
+      }
+    }
+    warp_argmax(v, vi);
+    if ((tid & 31) == 0) {
+      wval[cur][tid >> 5] = v;
+      widx[cur][tid >> 5] = vi;
+    }
+    if constexpr (kAhead) {
+#pragma unroll
+      for (int i = 0; i < SPT; ++i) {
+        const int d = tid + i * nthr;
+        if (d < nhist)
+          dp_hist(prev, next, tb_row, lpd[i], stay_lp, start, p, nhist, d);
+        lpd[i] = lpd_next[i];
+      }
+    } else {
+      for (int d = tid; d < nhist; d += nthr)
+        dp_hist(prev, next, tb_row, fmaxf(crow[d], -BIG), stay_lp, start, p,
+                nhist, d);
+    }
+    start = __fadd_rn(start, fmaxf(-p.local_pen, stay_lp));
+    if (tid < 32 && t > 0) {
+      end_update(wval[cur ^ 1], widx[cur ^ 1], nwarp, local_stay_prev, p,
+                 nhist, tb_row - (size_t)B * nst2, end);
+    }
+    local_stay_prev = fmaxf(-p.local_pen, stay_lp);
     lps = lps_next;
     __syncthreads();
   }
-  dp_finish(hist[T & 1], wval[(T - 1) & 1], widx[(T - 1) & 1], local_stay_prev,
-            start, end, p, final_, tb, T, B, nhist);
+  if (T > 0 && tid < 32) {
+    end_update(wval[(T - 1) & 1], widx[(T - 1) & 1], nwarp, local_stay_prev,
+               p, nhist, tb + ((size_t)(T - 1) * B + b) * nst2, end);
+  }
+  float* f = final_ + (size_t)b * nst2;
+#pragma unroll
+  for (int i = 0; i < SPT; ++i) {
+    const int d = tid + i * nthr;
+    if (d < nhist) f[d] = hist[(T & 1) * nhist + d];
+  }
+  if (tid == 0) {
+    f[nhist] = start;
+    f[nhist + 1] = end;
+  }
+}
+
+template <int SPT>
+int launch_fwd(const float* lp, float* final_, short* tb, int T, int B,
+               int nhist, const DpParams& p, int threads,
+               cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 2 * (size_t)nhist;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        viterbi_fwd_kernel<SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  viterbi_fwd_kernel<SPT><<<B, threads, smem, stream>>>(lp, final_, tb, T, B,
+                                                        nhist, p);
+  return (int)cudaGetLastError();
 }
 
 // Block-wide maximum of the nwarp per-warp values: every thread gets it.
@@ -547,8 +643,17 @@ int scrappie_viterbi_fwd(const float* lp, float* final_, short* tb, int T,
                          float local_pen, int use_slip, cudaStream_t stream) {
   if (B == 0) return (int)cudaSuccess;
   const DpParams p{stay_pen, skip_pen, local_pen, use_slip};
-  viterbi_fwd_kernel<<<B, nhist, 0, stream>>>(lp, final_, tb, T, B, nhist, p);
-  return (int)cudaGetLastError();
+  // One thread per history state up to 1024 (whole warps), then SPT states
+  // a thread, the least power of two that covers nhist.
+  const int threads = nhist < 1024 ? (nhist + 31) / 32 * 32 : 1024;
+  const int spt = (nhist + threads - 1) / threads;
+  if (spt <= 1) return launch_fwd<1>(lp, final_, tb, T, B, nhist, p, threads, stream);
+  if (spt <= 2) return launch_fwd<2>(lp, final_, tb, T, B, nhist, p, threads, stream);
+  if (spt <= 4) return launch_fwd<4>(lp, final_, tb, T, B, nhist, p, threads, stream);
+  if (spt <= 8) return launch_fwd<8>(lp, final_, tb, T, B, nhist, p, threads, stream);
+  if (spt <= 16) return launch_fwd<16>(lp, final_, tb, T, B, nhist, p, threads, stream);
+  if (spt <= 32) return launch_fwd<32>(lp, final_, tb, T, B, nhist, p, threads, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int scrappie_viterbi_fused(const float* h, const float* W, const float* bvec,

@@ -20,7 +20,10 @@ MAX_SMEM_BYTES = 232448
 
 LAUNCHES: dict[str, int] = {
     "gru_layer": 0,
+    "project": 0,
     "gru_recurrence": 0,
+    "gru_recurrence_global": 0,
+    "head": 0,
     "viterbi_fwd": 0,
     "viterbi_backtrace": 0,
     "viterbi_fused": 0,
@@ -29,6 +32,7 @@ LAUNCHES: dict[str, int] = {
     "crf_backtrace": 0,
     "crf_partition": 0,
     "lstm_layer": 0,
+    "lstm_layer_global": 0,
     "dtw": 0,
     "seqmap": 0,
 }

@@ -32,7 +32,7 @@ _F = ctypes.c_float
 # C entry points and their argument types; each returns a cudaError_t.
 _SIGNATURES = {
     "scrappie_gru_layer": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "scrappie_gru_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "scrappie_gru_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "scrappie_viterbi_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P),
     "scrappie_viterbi_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                                _F, _F, _F, _F, _I, _P),
@@ -42,8 +42,10 @@ _SIGNATURES = {
     "scrappie_crf_fwd": (_P, _P, _P, _I, _I, _P),
     "scrappie_crf_partition": (_P, _P, _I, _I, _P),
     "scrappie_crf_backtrace": (_P, _P, _P, _P, _I, _I, _P),
-    "scrappie_lstm_project": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "scrappie_project": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "scrappie_head": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+                      _P),
     "scrappie_dtw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
                      _F, _F, _I, _I, _P),
     "scrappie_seqmap": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P),
@@ -123,8 +125,6 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.scrappie_gru_smem_bytes.argtypes = (_I, _I)
     lib.scrappie_gru_smem_bytes.restype = ctypes.c_size_t
-    lib.scrappie_lstm_smem_bytes.argtypes = (_I,)
-    lib.scrappie_lstm_smem_bytes.restype = ctypes.c_size_t
     lib.scrappie_error_string.argtypes = (_I,)
     lib.scrappie_error_string.restype = ctypes.c_char_p
     return lib

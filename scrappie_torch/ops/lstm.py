@@ -1,12 +1,14 @@
 """Peephole-LSTM layer with the input projection, for the events model.
 
 Counterpart of scrappie_tpu/ops/lstm.py:lstm_layer_tm (the Pallas kernel
-_lstm_kernel). On a CUDA tensor `lstm_layer_tm` launches csrc/lstm.cu: a
-tiled projection kernel writes x @ iW + b for every step and row into a
-[T, B, 4S] scratch tensor, then the recurrence kernel walks time with sW
-resident in shared memory. On a CPU tensor it runs `lstm_layer_tm_plain`,
-the projection followed by the loop of nn/rnn.py. There is no lane, batch
-or time padding: the output is [T, B, S].
+_lstm_kernel). On a CUDA tensor `lstm_layer_tm` launches the projection
+kernel of ops/project.py, which writes x @ iW + b for every step and row
+into a [T, B, 4S] scratch tensor, then the recurrence kernel of
+csrc/lstm.cu, which walks time with sW resident in shared memory
+("lstm_layer"), or, where sW does not fit there or 4S exceeds 1024
+threads, read from L2 ("lstm_layer_global"). On a CPU tensor it runs
+`lstm_layer_tm_plain`, the projection followed by the loop of nn/rnn.py.
+There is no lane, batch or time padding: the output is [T, B, S].
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from scrappie_torch import ops
 from scrappie_torch.nn.layers import feedforward
 from scrappie_torch.nn.rnn import lstm_tm
+from scrappie_torch.ops.project import check_project_input, project_tm
 
 
 def lstm_layer_tm_plain(x_tm, iW, b, sW, peep, reverse: bool = False):
@@ -31,23 +34,17 @@ def lstm_layer_tm(x_tm, iW, b, sW, peep, reverse: bool = False):
     h0 = c0 = 0."""
     if not ops.on_cuda(x_tm, iW, b, sW, peep):
         return lstm_layer_tm_plain(x_tm, iW, b, sW, peep, reverse)
-    xproj = lstm_project_cuda(x_tm, iW, b)
-    return lstm_recurrence_cuda(xproj, sW, peep, reverse)
+    check_lstm_input(x_tm, iW, b, sW, peep)
+    return lstm_recurrence_cuda(project_tm(x_tm, iW, b), sW, peep, reverse)
 
 
 def check_lstm_input(x_tm, iW, b, sW, peep) -> None:
     """Raise unless a layer's inputs have the shapes, type and layout the
-    two kernels take: the checks of `lstm_project_cuda` and
+    two kernels take: the checks of the projection and of
     `lstm_recurrence_cuda`, which hold iW's width to 4S on xproj."""
     _check_weights(sW, peep)
-    _check_projection(x_tm, iW, b, 4 * sW.shape[0])
-
-
-def _check_projection(x_tm, iW, b, N: int) -> None:
-    T, B, C = x_tm.shape
-    ops.check_kernel_input("x", x_tm, (T, B, C))
-    ops.check_kernel_input("iW", iW, (C, N))
-    ops.check_kernel_input("b", b, (N,))
+    ops.check_kernel_input("iW", iW, (x_tm.shape[-1], 4 * sW.shape[0]))
+    check_project_input(x_tm, iW, b)
 
 
 def _check_weights(sW, peep) -> None:
@@ -58,32 +55,20 @@ def _check_weights(sW, peep) -> None:
 
 def _require_cuda(*tensors) -> None:
     if not ops.on_cuda(*tensors):
-        raise ValueError("the LSTM kernels take cuda tensors; "
+        raise ValueError("the LSTM recurrence kernel takes cuda tensors; "
                          "lstm_layer_tm runs the twin for CPU ones")
 
 
-def lstm_project_cuda(x_tm, iW, b):
-    """The projection kernel alone: x [T, B, C] -> x @ iW + b [T, B, 4S]."""
-    from scrappie_torch.ops import _build
-
-    _require_cuda(x_tm, iW, b)
-    N = iW.shape[1]
-    _check_projection(x_tm, iW, b, N)
-    T, B, C = x_tm.shape
-    out = torch.empty((T, B, N), dtype=torch.float32, device=x_tm.device)
-    if T * B == 0:
-        return out
-    with torch.cuda.device(x_tm.device):
-        err = _build.library().scrappie_lstm_project(
-            x_tm.data_ptr(), iW.data_ptr(), b.data_ptr(), out.data_ptr(),
-            T * B, C, N, ctypes.c_void_p(ops.stream_handle()))
-        _build.check(err, "lstm_project")
-    return out
+def lstm_on_chip(S: int) -> bool:
+    """Whether the recurrence of size S keeps sW in shared memory (4S
+    threads, sW, h, c and the gates within a block's shared memory)."""
+    return 4 * S <= 1024 and 4 * (4 * S * S + 6 * S) <= ops.MAX_SMEM_BYTES
 
 
 def lstm_recurrence_cuda(xproj, sW, peep, reverse: bool = False):
     """The recurrence kernel alone: xproj [T, B, 4S] -> h [T, B, S]. Its
-    launch is the one `LAUNCHES["lstm_layer"]` counts: one per layer."""
+    launch is the one `LAUNCHES["lstm_layer"]` (sW on chip) or
+    `LAUNCHES["lstm_layer_global"]` (sW from L2) counts: one per layer."""
     from scrappie_torch.ops import _build
 
     _require_cuda(xproj, sW, peep)
@@ -91,20 +76,19 @@ def lstm_recurrence_cuda(xproj, sW, peep, reverse: bool = False):
     T, B, _ = xproj.shape
     S = sW.shape[0]
     ops.check_kernel_input("xproj", xproj, (T, B, 4 * S))
-    if 4 * S > 1024:
-        raise ValueError(f"lstm kernel needs 4S <= 1024 threads, got S={S}")
-    lib = _build.library()
-    smem = lib.scrappie_lstm_smem_bytes(S)
-    if smem > ops.MAX_SMEM_BYTES:
-        raise ValueError(f"lstm kernel needs {smem} B of shared memory for "
-                         f"S={S}; a block may use {ops.MAX_SMEM_BYTES}")
+    on_chip = lstm_on_chip(S)
+    if 4 * 6 * S > ops.MAX_SMEM_BYTES:
+        raise ValueError(f"lstm kernel needs 6S floats of shared memory, "
+                         f"S={S}; a block may use {ops.MAX_SMEM_BYTES} B")
     y = torch.empty((T, B, S), dtype=torch.float32, device=xproj.device)
     if T == 0 or B == 0:
         return y
+    name = "lstm_layer" if on_chip else "lstm_layer_global"
     with torch.cuda.device(xproj.device):
-        err = lib.scrappie_lstm_recurrence(
+        err = _build.library().scrappie_lstm_recurrence(
             xproj.data_ptr(), sW.data_ptr(), peep.data_ptr(), y.data_ptr(), T,
-            B, S, int(reverse), ctypes.c_void_p(ops.stream_handle()))
-        _build.check(err, "lstm_recurrence")
-    ops.LAUNCHES["lstm_layer"] += 1
+            B, S, int(reverse), int(not on_chip),
+            ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, name)
+    ops.LAUNCHES[name] += 1
     return y

@@ -4,13 +4,13 @@ Counterpart of scrappie_tpu/ops/pipeline.py:
 
   * rgrgr (rgrgr_basecall_fused, rgrgr_features_tm): conv and ELU (a
     library convolution), one transpose to time-major, the five GRU layers
-    (ops/gru.py), the fused head + Viterbi forward (ops/viterbi.py) and the
-    backtrace. The [T, B, 1025] posterior is never written to device
-    memory.
+    (ops/gru.py: projection, then recurrence), the head kernel, which
+    writes the [T, B, 1025] log posterior for all blocks at once, the
+    Viterbi forward (ops/viterbi.py) and the backtrace.
   * raw_r94 (raw_basecall_fused, raw_features_tm): conv and tanh, then two
     stages of forward and backward GRU layers on the same input combined
-    by feedforward2_tanh, then the same fused head + Viterbi with the FF3
-    head.
+    by feedforward2_tanh, then the same head, forward and backtrace with
+    the FF3 head.
   * rnnrf (rnnrf_basecall_fused, the features of rnnrf_transitions_tm):
     the same conv and GRU kernel in five residual layers, then the
     globalnorm head (a matmul and the partition kernel), the emit bias and
@@ -20,17 +20,20 @@ Counterpart of scrappie_tpu/ops/pipeline.py:
   * events (events_basecall_fused, events_features_tm): window(3) over the
     event features and one transpose to time-major, two stages of forward
     and backward peephole LSTM layers (ops/lstm.py) combined by
-    feedforward2_tanh, then the same fused head + Viterbi forward and
-    backtrace as rgrgr, with the FF3 head.
+    feedforward2_tanh, then the same head, forward and backtrace as rgrgr,
+    with the FF3 head.
   * ensembles: ensemble_basecall_fused runs the K member stacks (rgrgr or
-    raw_r94) and hands their hidden features to the fused ensemble kernel,
-    which combines the K heads' log posteriors before the Viterbi step;
-    rnnrf_ensemble_basecall_fused sums the members' weighted CRF
+    raw_r94) and hands their hidden features to the head kernel, which
+    combines the K heads' log posteriors (any K), then the forward and
+    backtrace; rnnrf_ensemble_basecall_fused sums the members' weighted CRF
     transitions before the CRF kernels.
 
-`decode` keywords are the Viterbi options of ops/viterbi.viterbi_fused_tm:
-min_prob, tempW, tempb, stay_pen, skip_pen, local_pen and use_slip. Unlike
-the JAX pipeline there is no lane or batch padding.
+The JAX pipeline fuses the head into the Viterbi kernel; ops/viterbi.py
+keeps that kernel (viterbi_fused_tm, viterbi_fused_ens_tm) beside this
+route, which decodes the same log posterior. `decode` keywords are the
+head's (min_prob, tempW, tempb) and the forward's (stay_pen, skip_pen,
+local_pen, use_slip). Unlike the JAX pipeline there is no lane or batch
+padding.
 """
 
 from __future__ import annotations
@@ -44,10 +47,12 @@ from scrappie_torch.nn.layers import (conv1d, elu, feedforward2_tanh,
 from scrappie_torch.ops.crf import add_emit_bias, crf_viterbi_tm
 from scrappie_torch.ops.gru import gru_layer_tm
 from scrappie_torch.ops.lstm import lstm_layer_tm
-from scrappie_torch.ops.viterbi import (viterbi_backtrace_tm, viterbi_fused_ens_tm,
-                                        viterbi_fused_tm)
+from scrappie_torch.ops.viterbi import (head_logpost_tm, viterbi_backtrace_tm,
+                                        viterbi_scores_tm)
 
 CONV_ACT = {"elu": elu, "tanh": torch.tanh}
+#: The `decode` keywords the head takes; the rest are the forward's.
+HEAD_OPTIONS = ("min_prob", "tempW", "tempb")
 #: The posterior head of each transducer kind that runs on raw signal.
 HEAD_KEYS = {"rgrgr": ("FF_W", "FF_b"), "raw": ("FF3_W", "FF3_b")}
 
@@ -106,10 +111,13 @@ def wire_path(path):
     return path.to(torch.int16)
 
 
-def _decode_fused(x, W, bvec, **decode):
-    """The fused head + Viterbi forward on features x [T, B, S], then the
-    backtrace -> (logscore [B], path [B, T+1] int16)."""
-    score, path = viterbi_backtrace_tm(*viterbi_fused_tm(x, W, bvec, **decode))
+def _decode_fused(x, W, bvec, weights=None, **decode):
+    """The head on features x [T, B, S] (with weights [K]: K members'
+    features [K, T, B, S], combined), the Viterbi forward on its log
+    posterior and the backtrace -> (logscore [B], path [B, T+1] int16)."""
+    head = {k: decode.pop(k) for k in HEAD_OPTIONS if k in decode}
+    lp = head_logpost_tm(x, W, bvec, weights, **head)
+    score, path = viterbi_backtrace_tm(*viterbi_scores_tm(lp, **decode))
     return score, wire_path(path)
 
 
@@ -201,10 +209,10 @@ def ensemble_features_tm(params_list, sig, *, kinds, conv_activations,
 
 def ensemble_basecall_fused(params_list, weights, sig, *, kinds,
                             conv_activations, stride: int = 5, **decode):
-    """Transducer-ensemble fast path: the K member stacks, then the fused
-    ensemble kernel, which combines the members' log posteriors (weights
-    [K], normalised; a weighted log-domain mean renormalised per block)
-    before each Viterbi step, then the backtrace. sig [B, T, 1] ->
+    """Transducer-ensemble fast path: the K member stacks, then the head
+    kernel, which combines the members' log posteriors (weights [K],
+    normalised; a weighted log-domain mean renormalised per block), then
+    the Viterbi forward and the backtrace. sig [B, T, 1] ->
     (logscore [B], path [B, nblock+1] int16). kinds and conv_activations
     are per member, primary first; every member shares the primary's
     stride and state space (models/ensemble.validate_ensemble). The calls
@@ -213,9 +221,7 @@ def ensemble_basecall_fused(params_list, weights, sig, *, kinds,
                                       conv_activations=conv_activations,
                                       stride=stride)
     w = torch.as_tensor(weights, dtype=torch.float32, device=h.device)
-    score, path = viterbi_backtrace_tm(
-        *viterbi_fused_ens_tm(h, W, bvec, w, **decode))
-    return score, wire_path(path)
+    return _decode_fused(h, W, bvec, w, **decode)
 
 
 def rnnrf_ensemble_basecall_fused(params_list, weights, sig, *,

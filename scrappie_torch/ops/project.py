@@ -1,0 +1,49 @@
+"""The input projection of a recurrent layer, x @ W + b over every step
+and row, which the GRU (ops/gru.py) and the peephole LSTM (ops/lstm.py)
+run before their recurrence kernels.
+
+The TPU kernels compute this product in their own bodies
+(scrappie_tpu/ops/gru.py:_gru_fused_kernel, ops/lstm.py:_lstm_kernel), so
+on a CUDA tensor `project_tm` launches the hand-written tiled fp32 kernel of
+csrc/project.cu; on a CPU tensor it runs its plain twin, nn/layers.feedforward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from scrappie_torch import ops
+from scrappie_torch.nn.layers import feedforward
+
+
+def check_project_input(x_tm, W, b) -> None:
+    """Raise unless the projection kernel takes these inputs: contiguous
+    fp32 x [T, B, C], W [C, N], b [N]."""
+    T, B, C = x_tm.shape
+    N = W.shape[-1]
+    ops.check_kernel_input("x", x_tm, (T, B, C))
+    ops.check_kernel_input("iW", W, (C, N))
+    ops.check_kernel_input("b", b, (N,))
+
+
+def project_tm(x_tm, W, b):
+    """x [T, B, C], W [C, N], b [N] -> x @ W + b [T, B, N]."""
+    if not ops.on_cuda(x_tm, W, b):
+        return feedforward(x_tm, W, b)
+    from scrappie_torch.ops import _build
+
+    check_project_input(x_tm, W, b)
+    T, B, C = x_tm.shape
+    N = W.shape[1]
+    out = torch.empty((T, B, N), dtype=torch.float32, device=x_tm.device)
+    if T * B == 0:
+        return out
+    with torch.cuda.device(x_tm.device):
+        err = _build.library().scrappie_project(
+            x_tm.data_ptr(), W.data_ptr(), b.data_ptr(), out.data_ptr(),
+            T * B, C, N, ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, "project")
+    ops.LAUNCHES["project"] += 1
+    return out

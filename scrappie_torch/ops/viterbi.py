@@ -1,5 +1,5 @@
-"""Transducer Viterbi: forward, fused head + forward (one model or an
-ensemble), and backtrace.
+"""Transducer Viterbi: the head, forward, fused head + forward (one model
+or an ensemble), and backtrace.
 
 Counterpart of scrappie_tpu/ops/viterbi.py (viterbi_scores_tm,
 viterbi_fused_tm, viterbi_fused_ens_tm, viterbi_backtrace_tm) and of the
@@ -12,10 +12,16 @@ plain twins here copy step for step:
   * within a predecessor group the first maximum wins;
   * END is entered from the first best history state.
 
-On a CUDA tensor each wrapper launches its kernel from csrc/viterbi.cu;
-on a CPU tensor it runs its `*_plain` twin. Layouts are time-major, as in
-the JAX wrappers: lp [T, B, nhist+1] -> final [B, nhist+2] f32 and a
-traceback [T, B, nhist+2] int16.
+On a CUDA tensor each wrapper launches its kernel from csrc/viterbi.cu
+(the head: csrc/head.cu); on a CPU tensor it runs its `*_plain` twin.
+Layouts are time-major, as in the JAX wrappers: lp [T, B, nhist+1] ->
+final [B, nhist+2] f32 and a traceback [T, B, nhist+2] int16.
+
+The fast paths (ops/pipeline.py) decode with `head_logpost_tm`, which
+writes the [T, B, nstate] log posterior of one model or of K combined, and
+`viterbi_scores_tm`. The fused kernels, `viterbi_fused_tm` and
+`viterbi_fused_ens_tm`, compute the same in one kernel without the
+posterior in device memory; they are kept and no path calls them.
 """
 
 from __future__ import annotations
@@ -29,8 +35,14 @@ from scrappie_torch.nn.layers import robustlog, softmax_with_temperature
 
 BIG = 1.0e30
 #: The most members the fused ensemble kernel takes (MAX_ENS in
-#: csrc/viterbi.cu); every ensemble of the repository has at most 3.
+#: csrc/viterbi.cu). No path needs it: the head kernel combines any number.
 MAX_ENS = 4
+#: Traceback entries are int16, so every state index (up to nhist + 1) is
+#: below 2^15.
+MAX_TB_STATE = 2**15 - 1
+#: csrc/head.cu's shared memory: columns and depth of a W slice (NT, KT),
+#: padded row of the transposed h tile (HP).
+HEAD_NT, HEAD_KT, HEAD_HP = 128, 32, 132
 
 
 def _check_nhist(nhist: int, use_slip: bool) -> None:
@@ -149,17 +161,94 @@ def viterbi_fused_ens_tm_plain(h_tm, W, bvec, weights, min_prob=1e-5,
     return viterbi_scores_tm_plain(lp, stay_pen, skip_pen, local_pen, use_slip)
 
 
+def head_logpost_tm_plain(h_tm, W, bvec, weights=None, min_prob=1e-5,
+                          tempW=1.0, tempb=1.0):
+    """Plain twin of the head kernel: one model's log posterior (weights
+    None; h [T, B, S], W [S, nstate], bvec [nstate]), robustlog of the
+    temperature softmax, or K members' combined, ensemble_logpost_tm."""
+    if weights is None:
+        return robustlog(softmax_with_temperature(h_tm, W, bvec, tempW, tempb),
+                         min_prob)
+    return ensemble_logpost_tm(h_tm, W, bvec, weights, min_prob, tempW, tempb)
+
+
+def head_smem_bytes(S: int) -> int:
+    """Dynamic shared memory the head kernel needs for hidden size S: the
+    block's transposed h rows and two W slices."""
+    spad = -(-S // HEAD_KT) * HEAD_KT
+    return 4 * (spad * HEAD_HP + 2 * HEAD_KT * HEAD_NT)
+
+
+def check_head_input(h_tm, W, bvec, weights=None) -> None:
+    """Raise unless the head kernel takes these inputs: contiguous fp32 h
+    [T, B, S], W [S, nstate], bvec [nstate] for one model, or h [K, T, B, S],
+    W [K, S, nstate], bvec [K, nstate] and weights [K] for K >= 1 members,
+    with an S whose block fits in shared memory."""
+    if weights is None:
+        h_tm, W, bvec = h_tm[None], W[None], bvec[None]
+    K, T, B, S = h_tm.shape
+    nstate = W.shape[-1]
+    if K < 1:
+        raise ValueError("the head kernel takes at least one member")
+    ops.check_kernel_input("h", h_tm, (K, T, B, S))
+    ops.check_kernel_input("W", W, (K, S, nstate))
+    ops.check_kernel_input("bvec", bvec, (K, nstate))
+    if weights is not None:
+        ops.check_kernel_input("weights", weights, (K,))
+    if head_smem_bytes(S) > ops.MAX_SMEM_BYTES:
+        raise ValueError(f"the head kernel needs {head_smem_bytes(S)} B of "
+                         f"shared memory for S={S}; a block may use "
+                         f"{ops.MAX_SMEM_BYTES}")
+
+
+def head_logpost_tm(h_tm, W, bvec, weights=None, min_prob=1e-5, tempW=1.0,
+                    tempb=1.0):
+    """The transducer head over all T * B rows: h [T, B, S], W
+    [S, nstate], bvec [nstate] -> robustlog(softmax_with_temperature)
+    [T, B, nstate]; or, with weights [K] (normalised), h [K, T, B, S],
+    W [K, S, nstate], bvec [K, nstate] -> the members' combined log
+    posterior, ensemble_logpost_tm, for any K. The wrapper allocates the
+    posterior (525 MB at T = 2000, B = 64, 1025 states) and, for K
+    members, a scratch of the same size for each member's logits."""
+    on_card = (ops.on_cuda(h_tm, W, bvec) if weights is None
+               else ops.on_cuda(h_tm, W, bvec, weights))
+    if not on_card:
+        return head_logpost_tm_plain(h_tm, W, bvec, weights, min_prob, tempW,
+                                     tempb)
+    from scrappie_torch.ops import _build
+
+    check_head_input(h_tm, W, bvec, weights)
+    T, B, S = h_tm.shape[-3:]
+    K = 1 if weights is None else h_tm.shape[0]
+    nstate = W.shape[-1]
+    lp = torch.empty((T, B, nstate), dtype=torch.float32, device=h_tm.device)
+    if T * B == 0:
+        return lp
+    y = None if weights is None else torch.empty_like(lp)
+    with torch.cuda.device(h_tm.device):
+        err = _build.library().scrappie_head(
+            h_tm.data_ptr(), W.data_ptr(), bvec.data_ptr(),
+            None if weights is None else weights.data_ptr(), lp.data_ptr(),
+            None if y is None else y.data_ptr(), K, T * B, S, nstate,
+            tempb / tempW, tempb, min_prob / nstate, 1.0 - min_prob,
+            ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, "head")
+    ops.LAUNCHES["head"] += 1
+    return lp
+
+
 def check_fused_ens_input(h_tm, W, bvec, weights) -> None:
     """Raise unless the fused ensemble kernel takes these inputs: 1 <= K <=
     MAX_ENS members, contiguous fp32 h [K, T, B, S], W [K, S, nstate], bvec
-    [K, nstate] and weights [K], and a state space the Viterbi kernels
-    take."""
+    [K, nstate] and weights [K], and a state space the fused kernels take.
+    No path needs it since the head kernel and the forward kernel decode
+    ensembles of any size; viterbi_fused_ens_tm is kept to be timed."""
     K, T, B, S = h_tm.shape
     if not 1 <= K <= MAX_ENS:
         raise ValueError(f"the fused ensemble kernel takes 1 to {MAX_ENS} "
                          f"members, got {K}")
     nstate = W.shape[-1]
-    _check_kernel_nhist(nstate - 1)
+    _check_fused_nhist(nstate - 1)
     ops.check_kernel_input("h", h_tm, (K, T, B, S))
     ops.check_kernel_input("W", W, (K, S, nstate))
     ops.check_kernel_input("bvec", bvec, (K, nstate))
@@ -234,7 +323,7 @@ def viterbi_fused_tm(h_tm, W, bvec, min_prob=1e-5, tempW=1.0, tempb=1.0,
     nstate = W.shape[1]
     nhist = nstate - 1
     _check_nhist(nhist, use_slip)
-    _check_kernel_nhist(nhist)
+    _check_fused_nhist(nhist)
     ops.check_kernel_input("h", h_tm, (T, B, S))
     ops.check_kernel_input("W", W, (S, nstate))
     ops.check_kernel_input("bvec", bvec, (nstate,))
@@ -290,6 +379,19 @@ def viterbi_fused_ens_tm(h_tm, W, bvec, weights, min_prob=1e-5, tempW=1.0,
 
 
 def _check_kernel_nhist(nhist: int) -> None:
+    """The forward kernel's own limits, beyond the divisibility of
+    _check_nhist: the int16 traceback and the scores' two rows in shared
+    memory."""
+    if nhist + 1 > MAX_TB_STATE:
+        raise ValueError(f"the Viterbi traceback is int16: states up to "
+                         f"nhist + 1 = {nhist + 1} exceed {MAX_TB_STATE}")
+    if 2 * 4 * nhist > ops.MAX_SMEM_BYTES:
+        raise ValueError(f"the Viterbi forward kernel keeps 2 nhist scores in "
+                         f"shared memory: {8 * nhist} B for nhist={nhist}; a "
+                         f"block may use {ops.MAX_SMEM_BYTES}")
+
+
+def _check_fused_nhist(nhist: int) -> None:
     if nhist % 32 or not 64 <= nhist <= 1024:
-        raise ValueError(f"the Viterbi kernels take 64 <= nhist <= 1024, a "
-                         f"multiple of 32; got nhist={nhist}")
+        raise ValueError(f"the fused Viterbi kernels take 64 <= nhist <= 1024, "
+                         f"a multiple of 32; got nhist={nhist}")

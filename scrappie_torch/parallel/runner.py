@@ -27,8 +27,9 @@ with float32 weights: transducers (rgrgr, raw_r94) as a weighted log-domain
 mean renormalised per block by its log-sum-exp, rnnrf as the weighted sum
 of its CRF transitions (no renormalisation: the CRF is globally
 normalised). Both stitch paths decode that combined posterior; fast mode
-runs the member stacks and the fused ensemble kernel
-(ops/pipeline.ensemble_basecall_fused), or sums the weighted transitions
+runs the member stacks, the head kernel that combines any number of
+members and the Viterbi forward (ops/pipeline.ensemble_basecall_fused), or
+sums the weighted transitions
 before the CRF kernels (rnnrf_ensemble_basecall_fused).
 
 For rnnrf_r94 the "posterior" is the CRF transitions [nblock, 25], the

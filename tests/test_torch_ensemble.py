@@ -36,6 +36,9 @@ from scrappie_tpu.types import RawSignal
 torch.set_num_threads(1)
 TRIO = ("rgrgr_r94", "rgrgr_r941", "rgrgr_r10")
 MEMBERS = TRIO[1:]
+# five members: beyond the fused ensemble kernel's four, as scrappie_tpu
+# takes them (repeated members are allowed)
+MEMBERS5 = MEMBERS * 2
 W311 = np.array([3.0, 1.0, 1.0]) / 5.0
 OPTIONS = dict(stay_pen=0.3, skip_pen=1.1, local_pen=4.0, use_slip=True,
                tempW=1.2, tempb=0.9)
@@ -286,36 +289,53 @@ def test_cli_refuses_bad_ensembles_as_scrappie_tpu_does(tmp_path, flags):
     assert err.strip() == jerr.strip().splitlines()[-1]
 
 
-def test_engine_hands_the_ensemble_kernel_its_layout(monkeypatch):
-    """On a CUDA tensor the fused ensemble and backtrace wrappers raise
-    unless their inputs are contiguous and of the kernels' types; the CPU
-    twins take any layout. So the twins here run the kernels' input checks
-    first: the engine's fast ensemble path must already pass them."""
+def _check_decode_layouts(monkeypatch) -> set:
+    """Put the head, forward and backtrace kernels' input checks in front
+    of their twins; returns the set of the names of the twins that ran."""
     from scrappie_torch import ops
+    from scrappie_torch.ops import gru as tgru
 
     seen = set()
 
-    def checked(name, check):
-        plain = getattr(tv, name)
+    def checked(module, name, check):
+        plain = getattr(module, name)
 
         def run(*args, **kwargs):
             check(*args)
             seen.add(name)
             return plain(*args, **kwargs)
-        monkeypatch.setattr(tv, name, run)
+        monkeypatch.setattr(module, name, run)
 
     def check_backtrace(final, tb):
         T, B, n = tb.shape
         ops.check_kernel_input("final", final, (B, n))
         ops.check_kernel_input("tb", tb, (T, B, n), torch.int16)
 
-    checked("viterbi_fused_ens_tm_plain",
-            lambda h, W, b, w, *_: tv.check_fused_ens_input(h, W, b, w))
-    checked("viterbi_backtrace_tm_plain", check_backtrace)
+    checked(tv, "head_logpost_tm_plain",
+            lambda h, W, b, w=None, *_: tv.check_head_input(h, W, b, w))
+    checked(tv, "viterbi_scores_tm_plain",
+            lambda lp, *_: ops.check_kernel_input("lp", lp, tuple(lp.shape)))
+    checked(tv, "viterbi_backtrace_tm_plain", check_backtrace)
+    checked(tgru, "gru_layer_tm_plain",
+            lambda x, iW, b, sW, sW2, *_: tgru.check_gru_layer_input(x, iW, b,
+                                                                     sW, sW2))
+    return seen
+
+
+TWINS = {"head_logpost_tm_plain", "viterbi_scores_tm_plain",
+         "viterbi_backtrace_tm_plain", "gru_layer_tm_plain"}
+
+
+def test_engine_hands_the_ensemble_kernel_its_layout(monkeypatch):
+    """On a CUDA tensor the GRU, head, forward and backtrace wrappers raise
+    unless their inputs are contiguous and of the kernels' types; the CPU
+    twins take any layout. So the twins here run the kernels' input checks
+    first: the engine's fast ensemble path must already pass them."""
+    seen = _check_decode_layouts(monkeypatch)
     engine = TEngine(TRIO[0], device="cpu", chunk_len=1000, overlap=100,
                      mode="fast", ensemble=MEMBERS)
     assert all(r.sequence for r in engine.basecall_signals(_signals(700, (2300, 1400))))
-    assert seen == {"viterbi_fused_ens_tm_plain", "viterbi_backtrace_tm_plain"}
+    assert seen == TWINS
 
 
 def test_kernel_input_check_refuses_what_the_kernel_cannot_take():
@@ -328,3 +348,100 @@ def test_kernel_input_check_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="nhist"):
         tv.check_fused_ens_input(h[:2], W[:2, :, :40], b[:2, :40], w[:2])
     tv.check_fused_ens_input(h[:3], W[:3], b[:3], w[:3])
+
+
+def test_head_twin_matches_pallas_ensemble_kernel_at_k5():
+    """The paths' route for five members on the CPU, the head twin's
+    combined log posterior decoded by the forward twin, against
+    scrappie_tpu's _fused_ens_kernel (interpret mode) at nhist 64, S 16,
+    T 30, B 3, inputs lane-padded to 128 as in the K = 2, 3 test:
+    tracebacks equal, finals within rtol/atol 1e-5."""
+    rng = np.random.default_rng(15)
+    K, T, B, S, nstate, Sp = 5, 30, 3, 16, 65, 128
+    h = rng.standard_normal((K, T, B, S)).astype(np.float32)
+    W = (rng.standard_normal((K, S, nstate)) / 2).astype(np.float32)
+    b = rng.standard_normal((K, nstate)).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, K)
+    w = (w / w.sum()).astype(np.float32)
+    jfinal, jtb = j_fused_ens(
+        jnp.asarray(np.pad(h, ((0, 0), (0, 0), (0, 0), (0, Sp - S)))),
+        jnp.asarray(np.pad(W, ((0, 0), (0, Sp - S), (0, 0)))), jnp.asarray(b),
+        jnp.asarray(w), interpret=True, **OPTIONS)
+    head = {k: OPTIONS[k] for k in ("tempW", "tempb")}
+    dp = {k: v for k, v in OPTIONS.items() if k not in head}
+    lp = tv.head_logpost_tm(*map(torch.from_numpy, (h, W, b, w)), **head)
+    final, tb = tv.viterbi_scores_tm(lp, **dp)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jtb))
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_fused_ensemble_of_five_matches_jax():
+    """ensemble_basecall_fused with five rgrgr members (3:1:1:1:1) at the
+    published widths: paths equal to scrappie_tpu's."""
+    members = (TRIO[0],) + MEMBERS5
+    w = np.array([3.0, 1, 1, 1, 1]) / 7.0
+    sig = np.random.default_rng(5).standard_normal((2, 300, 1)).astype(np.float32)
+    params = {m: _params(m) for m in TRIO}
+    kw = dict(kinds=("rgrgr",) * 5, conv_activations=("elu",) * 5, stride=5,
+              stay_pen=0.3, skip_pen=0.2)
+    jscore, jpath = jpipe.ensemble_basecall_fused([params[m][0] for m in members],
+                                                  w, jnp.asarray(sig), **kw)
+    score, path = tpipe.ensemble_basecall_fused([params[m][1] for m in members], w,
+                                                torch.from_numpy(sig), **kw)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(jpath))
+    np.testing.assert_allclose(score.numpy(), np.asarray(jscore), rtol=1e-5,
+                               atol=2e-4)
+
+
+def test_engine_ensemble_of_five_matches_jax():
+    """BasecallEngine("rgrgr_r94", ensemble=MEMBERS5) in fast mode, which
+    the fused ensemble kernel (at most four members) could not run."""
+    signals = _signals(210, (2600, 1500))
+    kw = dict(chunk_len=2000, overlap=200, mode="fast", ensemble=MEMBERS5)
+    jres = JEngine(TRIO[0], **kw).basecall_signals(signals)
+    tres = TEngine(TRIO[0], device="cpu", **kw).basecall_signals(signals)
+    _same_calls(jres, tres, lambda j: 1e-5 * abs(j.score) + 1e-3)
+
+
+def test_api_ensemble_of_five_matches_jax():
+    data = synthetic_signal(2800, seed=9)
+    kw = dict(ensemble=MEMBERS5)
+    jseq, jscore, jpos, jstart, jend, _ = japi.basecall_raw(data, **kw)
+    seq, score, pos, start, end, _ = tapi.basecall_raw(data, device="cpu", **kw)
+    assert seq and seq == jseq and (start, end) == (jstart, jend)
+    np.testing.assert_array_equal(pos, jpos)
+    assert abs(score - jscore) <= 2e-5 * len(pos) + 1e-3
+
+
+def test_cli_fast_ensemble_of_five_matches_scrappie_tpu(tmp_path):
+    path = tmp_path / "read.fast5"
+    _write_fast5(path, 3000, seed=12, read_id="5e1f-five")
+    argv = ["raw", "--fast", "--ensemble", ",".join(MEMBERS5), "--chunk-len",
+            "2000", "--overlap", "200", str(path)]
+    code, ours, _ = _run(torch_main, argv[:1] + ["--device", "cpu"] + argv[1:])
+    jcode, ref, _ = _run(tpu_main, argv)
+    assert code == jcode == 0
+    same_fasta(ours, ref)
+
+
+def test_engine_hands_the_head_kernel_its_layout_at_k5(monkeypatch):
+    """The engine's fast path with five members passes the GRU, head,
+    forward and backtrace kernels' input checks (in front of the twins)."""
+    seen = _check_decode_layouts(monkeypatch)
+    engine = TEngine(TRIO[0], device="cpu", chunk_len=1000, overlap=100,
+                     mode="fast", ensemble=MEMBERS5)
+    assert all(r.sequence for r in engine.basecall_signals(_signals(710, (1900,))))
+    assert seen == TWINS
+
+
+@pytest.mark.parametrize("model", ["rgrgr_r94", "raw_r94"])
+def test_engine_hands_the_head_kernel_its_layout(monkeypatch, model):
+    """A single transducer's fast path (the main path for rgrgr_r94) passes
+    the projection, GRU recurrence, head, forward and backtrace kernels'
+    input checks (in front of the twins)."""
+    seen = _check_decode_layouts(monkeypatch)
+    engine = TEngine(model, device="cpu", chunk_len=1000, overlap=100,
+                     mode="fast")
+    assert all(r.sequence for r in engine.basecall_signals(_signals(720, (2100,))))
+    assert seen == TWINS

@@ -207,11 +207,8 @@ def test_engine_hands_the_kernels_their_layout(monkeypatch, mode):
             return plain(*args, **kwargs)
         monkeypatch.setattr(module, name, run)
 
-    def check_fused(h, W, bvec, *_):
-        T, B, S = h.shape
-        ops.check_kernel_input("h", h, (T, B, S))
-        ops.check_kernel_input("W", W, (S, W.shape[1]))
-        ops.check_kernel_input("bvec", bvec, (W.shape[1],))
+    def check_head(h, W, bvec, weights=None, *_):
+        tv.check_head_input(h, W, bvec, weights)
 
     def check_scores(lp, *_):
         ops.check_kernel_input("lp", lp, tuple(lp.shape))
@@ -224,7 +221,7 @@ def test_engine_hands_the_kernels_their_layout(monkeypatch, mode):
     checked(tlstm, "lstm_layer_tm_plain",
             lambda x, iW, b, sW, peep, *_: tlstm.check_lstm_input(x, iW, b, sW,
                                                                   peep))
-    checked(tv, "viterbi_fused_tm_plain", check_fused)
+    checked(tv, "head_logpost_tm_plain", check_head)
     checked(tv, "viterbi_scores_tm_plain", check_scores)
     checked(tv, "viterbi_backtrace_tm_plain", check_backtrace)
     signals = [RawSignal(synthetic_signal(n, seed=830 + i), uuid=f"r{i}")
@@ -235,7 +232,7 @@ def test_engine_hands_the_kernels_their_layout(monkeypatch, mode):
     expect = {"lstm_layer_tm_plain", "viterbi_scores_tm_plain",
               "viterbi_backtrace_tm_plain"}
     if mode == "fast":
-        expect.add("viterbi_fused_tm_plain")
+        expect.add("head_logpost_tm_plain")
     assert expect <= seen
 
 

@@ -76,3 +76,68 @@ def test_nn_rnn_gru_matches_jax(reverse):
     np.testing.assert_allclose(out, ref, **TOL)
     out1 = t_gru(*_t(xin[1], sW, sW2), reverse=reverse).numpy()
     np.testing.assert_allclose(out1, ref[1], **TOL)
+
+
+def test_projection_twin_matches_jax_and_launches_nothing():
+    """ops/project.project_tm (on the CPU: nn/layers.feedforward, the twin
+    of csrc/project.cu) against scrappie_tpu's feedforward, tolerance 1e-5;
+    the kernel's input check refuses what it cannot take."""
+    from scrappie_torch.ops.project import check_project_input, project_tm
+
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((7, 3, 12)).astype(np.float32)
+    W = (rng.standard_normal((12, 48)) * 0.3).astype(np.float32)
+    b = (rng.standard_normal(48) * 0.1).astype(np.float32)
+    ref = np.asarray(feedforward(jnp.asarray(x), jnp.asarray(W), jnp.asarray(b)))
+    ops.reset_launches()
+    out = project_tm(*_t(x, W, b))
+    assert ops.LAUNCHES["project"] == 0
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    check_project_input(*_t(x, W, b))
+    tx, tW, tb = _t(x, W, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        check_project_input(tx.transpose(0, 1).contiguous().transpose(0, 1), tW, tb)
+    with pytest.raises(ValueError, match="shape"):
+        check_project_input(tx, tW, tb[:-1])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("S", [160, 352])
+def test_gru_layer_matches_scan_beyond_shared_memory(S, reverse):
+    """The sizes the GRU kernel takes through its big-S mode (weights beyond
+    shared memory; 352 also beyond the first kernel's 3S <= 1024 threads):
+    the twin against scrappie_tpu's scan, tolerance 1e-5."""
+    rng = np.random.default_rng(S)
+    B, T, C = 2, 6, 24
+    x = rng.standard_normal((B, T, C)).astype(np.float32)
+    w = [a * np.float32(16 / S) ** 0.5 for a in _weights(rng, C, S)]
+    jw = list(map(jnp.asarray, w))
+    ref = np.asarray(j_gru(feedforward(jnp.asarray(x), jw[0], jw[1]), jw[2],
+                           jw[3], reverse=reverse))
+    ops.reset_launches()
+    out = t_gru_layer_tm(*_t(np.moveaxis(x, 1, 0), *w), reverse=reverse).numpy()
+    assert ops.LAUNCHES["gru_recurrence_global"] == 0
+    np.testing.assert_allclose(np.moveaxis(out, 0, 1), ref, **TOL)
+
+
+def test_gru_kernel_input_checks():
+    """check_gru_layer_input holds a layer to what the projection and
+    recurrence kernels take; the wrapper picks the big-S mode above
+    REGISTER_MAX_S."""
+    from scrappie_torch.ops import gru as tgru
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((5, 2, 12)).astype(np.float32))
+    iW, b, sW, sW2 = _t(*_weights(rng, 12, 16))
+    tgru.check_gru_layer_input(x, iW, b, sW, sW2)
+    bad = {"iW": ("shape", iW[:, :-3]), "b": ("dtype", b.double()),
+           "sW": ("shape", sW[:8]), "sW2": ("contiguous", sW2.t()),
+           "x": ("contiguous", x.transpose(0, 1).contiguous().transpose(0, 1))}
+    for name, (what, value) in bad.items():
+        args = dict(x_tm=x, iW=iW, b=b, sW=sW, sW2=sW2)
+        args["x_tm" if name == "x" else name] = value
+        with pytest.raises(ValueError, match=what):
+            tgru.check_gru_layer_input(**args)
+    assert tgru.REGISTER_MAX_S == 96
+    with pytest.raises(ValueError, match="cuda"):
+        tgru.gru_layer_fused_cuda(x, iW, b, sW, sW2)

@@ -18,7 +18,7 @@ from scrappie_torch.ops.lstm import (
     check_lstm_input,
     lstm_layer_tm,
     lstm_layer_tm_plain,
-    lstm_project_cuda,
+    lstm_on_chip,
     lstm_recurrence_cuda,
 )
 from scrappie_tpu.nn.layers import feedforward as j_feedforward
@@ -88,10 +88,35 @@ def test_kernel_input_checks():
 
 
 def test_kernel_halves_refuse_cpu_tensors():
-    """The projection and recurrence kernels are reached only through CUDA
-    tensors; they never run a twin."""
+    """The recurrence kernel is reached only through CUDA tensors; it never
+    runs a twin. (The projection, ops/project.project_tm, is shared with the
+    GRU and runs its twin on the CPU: tests/test_torch_gru.py.)"""
     a = {k: torch.from_numpy(v) for k, v in _inputs(5, 2, 12, 16).items()}
     with pytest.raises(ValueError, match="cuda"):
-        lstm_project_cuda(a["x"], a["iW"], a["b"])
-    with pytest.raises(ValueError, match="cuda"):
         lstm_recurrence_cuda(torch.zeros(5, 2, 64), a["sW"], a["peep"])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("S", [160, 288])
+def test_lstm_layer_matches_jax_beyond_shared_memory(S, reverse):
+    """The sizes the recurrence kernel takes through its big-S mode (sW
+    beyond shared memory; 288 also beyond 4S <= 1024 threads): the twin
+    against scrappie_tpu's scan, tolerance 1e-5."""
+    a = _inputs(6, 2, 12, S, seed=S)
+    a["sW"] = a["sW"] * np.float32((16 / S) ** 0.5)
+    ops.reset_launches()
+    out = lstm_layer_tm(*(torch.from_numpy(a[k]) for k in
+                          ("x", "iW", "b", "sW", "peep")), reverse=reverse)
+    assert ops.LAUNCHES["lstm_layer_global"] == ops.LAUNCHES["project"] == 0
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    xproj = j_feedforward(jnp.moveaxis(j["x"], 0, 1), j["iW"], j["b"])
+    scan = np.moveaxis(np.asarray(j_lstm(xproj, j["sW"], j["peep"],
+                                         reverse=reverse)), 0, 1)
+    np.testing.assert_allclose(out.numpy(), scan, **TOL)
+
+
+def test_recurrence_mode_follows_the_size():
+    """sW stays on chip for the events model's S = 96; the big-S mode takes
+    what does not fit (160: shared memory; 288: also 4S > 1024 threads)."""
+    assert lstm_on_chip(96) and lstm_on_chip(16)
+    assert not lstm_on_chip(160) and not lstm_on_chip(288)

@@ -151,3 +151,90 @@ def test_argmax_decoder_matches_jax():
     js, jp = jdec.argmax_decoder(lp)
     np.testing.assert_array_equal(p, jp)
     np.testing.assert_allclose(s, js, rtol=1e-6)
+
+
+# nhist the first kernels refused (64 <= nhist <= 1024, a multiple of 32):
+# 80 is not a multiple of 32, 2048 exceeds 1024 (and takes slip).
+OTHER_NHIST = [(80, False), (2048, True)]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("nhist,slip", OTHER_NHIST, ids=["n80", "n2048-slip"])
+def test_forward_and_backtrace_match_scan_at_other_nhist(nhist, slip, ties):
+    """The forward and backtrace twins (what the kernels are held to on the
+    card) against scrappie_tpu's scan programs at state spaces beyond the
+    fused kernels' limits: tracebacks and paths identical."""
+    B, T = 3, 10
+    lp = _logpost(B, T, nhist + 1, seed=nhist + 7, ties=ties)
+    jfinal, jtb = jdec.viterbi_transducer_scores(jnp.asarray(lp), 0.2, 0.4, 2.0,
+                                                 slip)
+    jscore, jpath = jdec.viterbi_local_backtrace(jfinal, jtb)
+    ops.reset_launches()
+    final, tb = tv.viterbi_scores_tm(torch.from_numpy(_tm(lp)), 0.2, 0.4, 2.0,
+                                     slip)
+    score, path = tv.viterbi_backtrace_tm(final, tb)
+    assert ops.LAUNCHES["viterbi_fwd"] == ops.LAUNCHES["viterbi_backtrace"] == 0
+    np.testing.assert_array_equal(tb.transpose(0, 1).numpy(), np.asarray(jtb))
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), **FINAL_TOL)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(jpath))
+    np.testing.assert_allclose(score.numpy(), np.asarray(jscore), **FINAL_TOL)
+
+
+def test_forward_kernel_limits_are_the_traceback_and_shared_memory():
+    """The forward kernel takes what JAX takes (a multiple of 16, or of 64
+    with slip) up to its own limits, each refused by name; the fused
+    kernels keep theirs."""
+    for nhist in (16, 80, 2048, 16384):
+        tv._check_kernel_nhist(nhist)
+    with pytest.raises(ValueError, match="int16"):
+        tv._check_kernel_nhist(32768)
+    with pytest.raises(ValueError, match="shared memory"):
+        tv._check_kernel_nhist(32752)
+    with pytest.raises(ValueError, match="not divisible by 64"):
+        tv.viterbi_scores_tm(torch.zeros((2, 1, 81)), use_slip=True)
+    with pytest.raises(ValueError, match="fused"):
+        tv._check_fused_nhist(80)
+
+
+@pytest.mark.parametrize("temps", [(1.0, 1.0), (0.8, 1.25)])
+def test_head_twin_then_forward_matches_pallas_fused(temps):
+    """The paths' route on the CPU, the head twin's log posterior decoded by
+    the forward twin, against scrappie_tpu's fused kernel (interpret mode):
+    tracebacks identical, finals within 1e-5 (fp32 softmax sums in another
+    order)."""
+    rng = np.random.default_rng(23)
+    T, B, S, nstate = 8, 3, 16, 65
+    h = rng.uniform(-1, 1, (T, B, S)).astype(np.float32)
+    W = (2.0 * rng.standard_normal((S, nstate))).astype(np.float32)
+    b = rng.standard_normal(nstate).astype(np.float32)
+    head = dict(min_prob=1e-5, tempW=temps[0], tempb=temps[1])
+    dp = dict(stay_pen=0.1, skip_pen=0.3, local_pen=2.0)
+    jfinal, jtb = jv.viterbi_fused_tm(jnp.asarray(h), jnp.asarray(W),
+                                      jnp.asarray(b), interpret=True, **head, **dp)
+    ops.reset_launches()
+    lp = tv.head_logpost_tm(*map(torch.from_numpy, (h, W, b)), **head)
+    final, tb = tv.viterbi_scores_tm(lp, **dp)
+    assert ops.LAUNCHES["head"] == 0  # a CPU tensor takes the twin
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jtb))
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal),
+                               rtol=1e-5, atol=1e-5)
+    fused = tv.viterbi_fused_tm_plain(*map(torch.from_numpy, (h, W, b)), **head,
+                                      **dp)
+    assert torch.equal(final, fused[0]) and torch.equal(tb, fused[1])
+
+
+def test_head_input_check_refuses_what_the_kernel_cannot_take():
+    h, W, b = torch.zeros((4, 2, 16)), torch.zeros((16, 65)), torch.zeros(65)
+    tv.check_head_input(h, W, b)
+    tv.check_head_input(h[None].repeat(5, 1, 1, 1), W[None].repeat(5, 1, 1),
+                        b[None].repeat(5, 1), torch.ones(5) / 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tv.check_head_input(h.transpose(0, 1).contiguous().transpose(0, 1), W, b)
+    with pytest.raises(ValueError, match="shape"):
+        tv.check_head_input(h, W[:8], b)
+    with pytest.raises(ValueError, match="weights"):
+        tv.check_head_input(h[None].repeat(2, 1, 1, 1), W[None].repeat(2, 1, 1),
+                            b[None].repeat(2, 1), torch.ones(3) / 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        S = 512
+        tv.check_head_input(torch.zeros((2, 2, S)), torch.zeros((S, 65)), b)
