@@ -10,13 +10,15 @@ if any phase fails:
 
   1. builds the kernels (scrappie_torch/csrc, nvcc, sm_90a), prints the
      build time and nvcc's per-kernel register and spill report (stderr),
-     and fails if the GRU recurrence spills;
+     and fails if the GRU or LSTM recurrence, which hold their weights in
+     registers, spills;
   2. holds each kernel against its plain PyTorch twin at the main path's
      shapes (T = 2000 blocks, S = 96, 1025 states; B = 8 and 64) and times
      both (CUDA events after warm-up: a kernel's median of 20, a twin's
      loop over time median of 3): the GRU layer through
      the paths' route (projection, then recurrence) and through the
-     superseded layer kernel, the projection also beside torch.addmm, the
+     superseded layer kernel, the projection also beside torch.addmm (also
+     over bursts of 10 calls, which leave out the host time), the
      head kernel's log posterior, and its route (head, then Viterbi
      forward) against the fused kernel's twin;
   3. holds the Viterbi kernels against their twins with nonzero penalties,
@@ -31,9 +33,9 @@ if any phase fails:
      the GRU recurrence kernel against nn/rnn.gru_tm at T = 2000, S = 96,
      B = 8 and 64, both directions, and times it (phase
      gru_recurrence_kernel); holds the GRU (S = 160, 352) and LSTM (S =
-     160, 288) layers in their big-S modes against their twins (phase
-     big_s), and the Viterbi forward and backtrace at nhist = 80 and, with
-     slip, 2048 (phase nhist);
+     160, 288; at 160 also the pair route) layers in their big-S modes
+     against their twins (phase big_s), and the Viterbi forward and
+     backtrace at nhist = 80 and, with slip, 2048 (phase nhist);
   5. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
      16 seeded synthetic reads of 20k-100k samples in fast mode and in both
      stitch modes, checks that each kernel's launch counter rose and that
@@ -62,13 +64,16 @@ if any phase fails:
      model's (phases main_path_ensemble, main_path_ensemble_k5,
      main_path_rnnrf_self_ensemble); then times the 3:1:1 fused path stage
      by stage and profiles its fast engine (throughput_ensemble);
- 13. holds the peephole-LSTM kernel against its twin with the events
-     network's weights at T = 2048 events, B = 8 and 64, C = 12 and 96, in
-     both directions, and times the layer, its projection and its
-     recurrence (and torch.matmul on the same projection); then holds the
-     fused head + Viterbi kernel and the head route, forward and backtrace
-     kernels against their twins on the second stage's output and the FF3
-     head's posterior;
+ 13. holds the peephole-LSTM routes against their twins with the events
+     network's weights at T = 2048 events, B = 8 and 64, C = 12 and 96:
+     each stage through the pair route (one projection against both
+     layers' weights, one recurrence launch for both directions) and each
+     layer through the single-direction route, and both routes at S = 16
+     on seeded weights; times the recurrence alone (one direction and the
+     pair), the layer and the pair route, and the projection at N = 4S and
+     8S beside torch.addmm; then holds the fused head + Viterbi kernel and
+     the head route, forward and backtrace kernels against their twins on
+     the second stage's output and the FF3 head's posterior;
  14. runs BasecallEngine("nanonet_events", device="cuda") in fast and
      stitch mode on the same 16 reads, checks the launch counters and every
      read's sequence, and compares two reads with the port's CPU run;
@@ -122,7 +127,8 @@ LSTM_ATOL = 1e-4
 HEAD_RTOL = 1e-6         # the head's lp against its twin: fp32 sums of the
 HEAD_ATOL = 1e-5         # product, softmax and renormalisation in another order
 PROJECT_RTOL = 1e-5      # the projection against its twin, relative to max(|y|, 1)
-BIG_S = {"gru": (160, 352), "lstm": (160, 288)}  # beyond shared memory
+BIG_S = {"gru": (160, 352), "lstm": (160, 288)}  # above the registers' S = 96
+S_SMALL = 16             # the LSTM routes' check at another size
 T_BIG_S = 500            # steps of the big-S checks
 NHIST_CASES = ((80, False), (2048, True))  # (nhist, use_slip) beyond 64..1024
 ROUTE_BATCHES = (8, 64, 256)
@@ -170,6 +176,9 @@ KERNELS = {
                       "scrappie_tpu/nn/layers.py:133 (a lax.scan; no TPU "
                       "kernel)"),
     "lstm_layer": ("scrappie_torch/csrc/lstm.cu", "scrappie_tpu/ops/lstm.py:53"),
+    "lstm_pair": ("scrappie_torch/csrc/lstm.cu",
+                  "scrappie_tpu/ops/lstm.py:53 (both layers of a "
+                  "bidirectional stage in one launch)"),
     "seqmap": ("scrappie_torch/csrc/seqmap.cu", "scrappie_tpu/ops/seqmap.py:32"),
     "dtw": ("scrappie_torch/csrc/dtw.cu", "scrappie_tpu/ops/dtw.py:59"),
     "viterbi_fused_ens": ("scrappie_torch/csrc/viterbi.cu",
@@ -178,8 +187,7 @@ KERNELS = {
     "gru_recurrence_global": ("scrappie_torch/csrc/gru.cu",
                               "scrappie_tpu/ops/gru.py:67 (S above 96)"),
     "lstm_layer_global": ("scrappie_torch/csrc/lstm.cu",
-                          "scrappie_tpu/ops/lstm.py:53 (sW beyond shared "
-                          "memory)"),
+                          "scrappie_tpu/ops/lstm.py:53 (S above 96)"),
 }
 # The kernels each path must launch, by engine mode.
 GRU_KERNELS = ("project", "gru_recurrence")
@@ -190,13 +198,13 @@ ENSEMBLE_KERNELS = TRANSDUCER_KERNELS
 RNNRF_KERNELS = {mode: GRU_KERNELS + ("crf_fwd", "crf_backtrace", "crf_partition")
                  for mode in ("fast", "stitch")}
 EVENTS_KERNELS = {
-    "fast": ("project", "lstm_layer", "head", "viterbi_fwd", "viterbi_backtrace"),
-    "stitch": ("project", "lstm_layer", "viterbi_fwd", "viterbi_backtrace")}
+    "fast": ("project", "lstm_pair", "head", "viterbi_fwd", "viterbi_backtrace"),
+    "stitch": ("project", "lstm_pair", "viterbi_fwd", "viterbi_backtrace")}
 # Kept, checked and timed; no path launches them.
 SUPERSEDED = ("gru_layer", "viterbi_fused", "viterbi_fused_ens")
 # Kernels whose design keeps their weights in registers: ptxas must report
 # no spill for any of their instances.
-NO_SPILL = ("gru_recurrence_kernel",)
+NO_SPILL = ("gru_recurrence_kernel", "lstm_recurrence_kernel")
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
 # fp32 outside the tensor cores (the kernels are exact fp32, TF32 off).
 PEAK_BYTES_PER_S = 3.35e12
@@ -233,8 +241,12 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median milliseconds of fn() on the current stream (CUDA events)."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 2, burst: int = 1) -> float:
+    """Median milliseconds of fn() on the current stream (CUDA events). A
+    single call's interval includes the host time before its launch, where
+    the card waits for it; with burst > 1 each interval holds that many
+    calls back to back and the time is per call, the device's own where the
+    host keeps ahead of it."""
     import torch
 
     for _ in range(warmup):
@@ -245,10 +257,11 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(burst):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / burst)
     return statistics.median(times)
 
 
@@ -338,6 +351,10 @@ def kernel_work(name: str, **d) -> dict:
         C, S = d["C"], d["S"]
         return bound(4 * (T * B * (C + S) + 4 * S * (C + 1) + 4 * S * S + 3 * S),
                      2 * T * B * 4 * S * (C + S))
+    if name == "lstm_recurrence":  # xproj [T, B, 4S], h @ sW; dirs layers
+        S, n = d["S"], d.get("dirs", 1)
+        return bound(n * 4 * (T * B * 4 * S + 4 * S * S + 3 * S + T * B * S),
+                     n * 2 * T * B * 4 * S * S)
     if name == "viterbi_fwd":
         ns = d["nstate"]
         return bound(4 * T * B * ns + 2 * T * B * (ns + 1) + 4 * B * (ns + 1),
@@ -458,7 +475,8 @@ def check_kernels(net, B: int) -> dict:
 def check_projection(x, W, b) -> dict:
     """The projection kernel against its twin (nn/layers.feedforward) within
     PROJECT_RTOL, and its time beside the twin's and torch.addmm's on the
-    same product (TF32 off), which the port never calls."""
+    same product (TF32 off), which the port never calls; the kernel's and
+    addmm's also over bursts of 10 calls."""
     import torch
 
     from scrappie_torch.nn.layers import feedforward
@@ -476,7 +494,10 @@ def check_projection(x, W, b) -> dict:
             "max_abs_err": float((yk - yp).abs().max()), "max_rel_err": rel,
             "ms": cuda_ms(lambda: project_tm(x, W, b)),
             "plain_ms": cuda_ms(lambda: feedforward(x, W, b)),
-            "library_ms": cuda_ms(lambda: torch.addmm(b, x2, W))}
+            "library_ms": cuda_ms(lambda: torch.addmm(b, x2, W)),
+            "burst_ms": cuda_ms(lambda: project_tm(x, W, b), reps=5, burst=10),
+            "library_burst_ms": cuda_ms(lambda: torch.addmm(b, x2, W), reps=5,
+                                        burst=10)}
 
 
 def head_route(h, W, b, weights=None, **opts):
@@ -765,11 +786,12 @@ def compare_routes(nets: list, card: str) -> dict:
 
 
 def check_big_s() -> dict:
-    """The GRU and LSTM wrappers at sizes beyond shared memory (BIG_S): each
-    layer, projection and all, against its twin on seeded weights and
-    inputs (T_BIG_S steps, B = 8, C = 96, both directions), through the
-    big-S mode, whose counter must rise; then the times of the largest
-    size's recurrence (GRU) or layer (LSTM) beside its twin's."""
+    """The GRU and LSTM wrappers at sizes above the registers' S = 96
+    (BIG_S): each layer, projection and all, against its twin on seeded
+    weights and inputs (T_BIG_S steps, B = 8, C = 96, both directions), and
+    the LSTM's pair route, through the big-S mode, whose counter must rise;
+    then the times of the largest size's recurrence (GRU) or layer (LSTM)
+    beside its twin's."""
     import numpy as np
     import torch
 
@@ -808,7 +830,16 @@ def check_big_s() -> dict:
                 tol = GRU_ATOL if kind == "gru" else LSTM_ATOL
                 require(err <= tol, f"{kind} S={S} max abs err {err} <= {tol}")
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-            require(ops.LAUNCHES[name] - before == 2,
+            if kind == "lstm":  # a second layer's weights: the pair route
+                wB = (f(C, 4 * S, scale=C ** -0.5), f(4 * S, scale=0.1),
+                      f(S, 4 * S, scale=S ** -0.5), f(3 * S, scale=0.3))
+                pair = L.lstm_pair_tm(x, (iW, bias, *rec), wB)
+                twin = L.lstm_pair_tm_plain(x, (iW, bias, *rec), wB)
+                sync()
+                err = max(float((k - t).abs().max()) for k, t in zip(pair, twin))
+                require(err <= LSTM_ATOL, f"lstm pair S={S} max abs err {err}")
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            require(ops.LAUNCHES[name] - before == (2 if kind == "gru" else 4),
                     f"{name} launched for {kind} S={S}")
         if kind == "gru":
             xproj = g.project_tm(x, iW, bias)
@@ -1198,56 +1229,100 @@ def events_input(enet, B: int, rng) -> "torch.Tensor":
                            device=enet.device)
 
 
-def check_lstm_kernel(enet, B: int) -> dict:
-    """The LSTM kernel against its twin on the events network's four
-    layers (C = 12 for stage 1, 96 for stage 2; forward and backward), on
-    the features a chunk of B x T_EVENTS events gives; then the times of
-    the layer, of its projection and recurrence kernels, of torch.matmul
-    on the same projection (a yardstick the port never calls) and of the
-    twin (median of 3, a loop over T). Last, the decode kernels against
-    their twins on what the events path hands them: the fused head +
-    Viterbi on the second stage's feedforward2_tanh output with FF3, the
-    forward and backtrace on the FF3 head's log posterior."""
+def check_lstm_routes(x, wF, wB, what: str) -> tuple[float, float]:
+    """A stage's two LSTM layers (wF, wB: (iW, b, sW, peep)) on x through
+    the pair route and each through the single-direction route, against
+    their twins -> (largest error of the layers, of the pair), both within
+    LSTM_ATOL."""
+    import torch
+
+    from scrappie_torch.ops import lstm as L
+
+    twin = L.lstm_pair_tm_plain(x, wF, wB)
+    pair = L.lstm_pair_tm(x, wF, wB)
+    layers = (L.lstm_layer_tm(x, *wF), L.lstm_layer_tm(x, *wB, reverse=True))
+    sync()
+    errs = []
+    for route, got in (("layer", layers), ("pair", pair)):
+        for d, h, t in zip("FB", got, twin):
+            require(bool(torch.isfinite(h).all()), f"lstm {route} {d} {what} finite")
+        errs.append(max(float((h - t).abs().max()) for h, t in zip(got, twin)))
+        require(errs[-1] <= LSTM_ATOL,
+                f"lstm {route} {what} max abs err {errs[-1]} <= {LSTM_ATOL}")
+    return errs[0], errs[1]
+
+
+def check_lstm_kernel(enet, B: int) -> tuple[dict, dict]:
+    """The LSTM routes against their twins on the events network's two
+    stages (C = 12, then 96; S = 96), on the features a chunk of B x
+    T_EVENTS events gives, and at S = S_SMALL on seeded weights (C = 12
+    and 96); then, per stage, the times of the recurrence kernel alone in
+    one direction (the backward layer) and for the pair, beside their
+    twins (median of 3, loops over T), of the layer and of the pair route,
+    and of the projection at N = 4S and 8S beside torch.addmm. Last, the
+    decode kernels against their twins on what the events path hands them:
+    the fused head + Viterbi on the second stage's feedforward2_tanh output
+    with FF3, the forward and backtrace on the FF3 head's log posterior.
+    Returns the table's rows for the single-direction recurrence and the
+    pair's, at C = 96."""
     import numpy as np
     import torch
 
-    from scrappie_torch.nn.layers import (feedforward, feedforward2_tanh,
-                                          robustlog, softmax_with_temperature,
-                                          window)
+    from scrappie_torch.nn.layers import (feedforward2_tanh, robustlog,
+                                          softmax_with_temperature, window)
+    from scrappie_torch.nn.rnn import lstm_tm
     from scrappie_torch.ops import lstm as L
+    from scrappie_torch.ops.pipeline import lstm_weights
     from scrappie_torch.ops.project import project_tm
 
     rng = np.random.default_rng(SEED + 20 + B)
     p = enet.params
     x = window(events_input(enet, B, rng), enet.winlen, 1).transpose(0, 1).contiguous()
+
+    def f(*shape, scale=1.0):
+        return torch.as_tensor((scale * rng.standard_normal(shape)).astype(np.float32),
+                               device="cuda")
+
+    small = {}
+    for C in (12, 96):
+        S = S_SMALL
+        ws = [(f(C, 4 * S, scale=C ** -0.5), f(4 * S, scale=0.1),
+               f(S, 4 * S, scale=S ** -0.5), f(3 * S, scale=0.3)) for _ in "FB"]
+        small[C] = check_lstm_routes(f(T_EVENTS, B, C), *ws, f"S={S} C={C}")
     rows = {}
     for layer in (1, 2):
         C = x.shape[-1]
-        h = {}
-        for d in ("F", "B"):
-            w = [p[f"lstm{d}{layer}_{k}"] for k in ("iW", "b", "sW", "p")]
-            hk = L.lstm_layer_tm(x, *w, reverse=(d == "B"))
-            hp = L.lstm_layer_tm_plain(x, *w, reverse=(d == "B"))
-            sync()
-            require(bool(torch.isfinite(hk).all()), f"lstm{d}{layer} kernel output finite")
-            err = float((hk - hp).abs().max())
-            require(err <= LSTM_ATOL, f"lstm{d}{layer} max abs err {err} <= {LSTM_ATOL}")
-            h[d] = hk
-            rows[f"lstm{d}{layer}"] = {"C": C, "max_abs_err": err}
-        w = [p[f"lstmB{layer}_{k}"] for k in ("iW", "b", "sW", "p")]
-        xproj = project_tm(x, w[0], w[1])
-        rows[f"lstmB{layer}"].update({
-            "ms": cuda_ms(lambda: L.lstm_layer_tm(x, *w, reverse=True)),
-            "projection_ms": cuda_ms(lambda: project_tm(x, w[0], w[1])),
+        wF, wB = (lstm_weights(p, d, layer) for d in "FB")
+        S = wF[2].shape[0]
+        err, pair_err = check_lstm_routes(x, wF, wB, f"stage {layer}")
+        Wp, bp = torch.cat((wF[0], wB[0]), 1), torch.cat((wF[1], wB[1]))
+        xproj, xpair = project_tm(x, wB[0], wB[1]), project_tm(x, Wp, bp)
+        rows[layer] = {
+            "C": C, "S": S, "max_abs_err": err, "pair_max_abs_err": pair_err,
             "recurrence_ms": cuda_ms(
-                lambda: L.lstm_recurrence_cuda(xproj, w[2], w[3], reverse=True)),
-            "projection_library_ms": cuda_ms(lambda: feedforward(x, w[0], w[1])),
-            "plain_ms": cuda_ms(lambda: L.lstm_layer_tm_plain(x, *w, reverse=True),
-                                reps=3, warmup=1),
-            **kernel_work("lstm_layer", T=T_EVENTS, B=B, C=C, S=w[2].shape[0])})
-        x = feedforward2_tanh(h["F"], h["B"], p[f"FF{layer}_Wf"],
-                              p[f"FF{layer}_Wb"], p[f"FF{layer}_b"])
-    emit({"phase": "lstm_kernel", "B": B, "T": T_EVENTS, "layers": rows})
+                lambda: L.lstm_recurrence_cuda(xproj, *wB[2:], reverse=True)),
+            "recurrence_plain_ms": cuda_ms(
+                lambda: lstm_tm(xproj, *wB[2:], reverse=True), reps=3, warmup=1),
+            "recurrence": kernel_work("lstm_recurrence", T=T_EVENTS, B=B, S=S),
+            "pair_recurrence_ms": cuda_ms(
+                lambda: L.lstm_pair_recurrence_cuda(xpair, *wF[2:], *wB[2:])),
+            "pair_recurrence_plain_ms": cuda_ms(
+                lambda: (lstm_tm(xpair[..., :4 * S], *wF[2:]),
+                         lstm_tm(xpair[..., 4 * S:], *wB[2:], reverse=True)),
+                reps=3, warmup=1),
+            "pair_recurrence": kernel_work("lstm_recurrence", T=T_EVENTS, B=B,
+                                           S=S, dirs=2),
+            "layer_ms": cuda_ms(lambda: L.lstm_layer_tm(x, *wB, reverse=True)),
+            "layer": kernel_work("lstm_layer", T=T_EVENTS, B=B, C=C, S=S),
+            "pair_ms": cuda_ms(lambda: L.lstm_pair_tm(x, wF, wB)),
+            "projection": check_projection(x, wB[0], wB[1]),
+            "pair_projection": check_projection(x, Wp, bp)}
+        hF, hB = L.lstm_pair_tm(x, wF, wB)
+        x = feedforward2_tanh(hF, hB, p[f"FF{layer}_Wf"], p[f"FF{layer}_Wb"],
+                              p[f"FF{layer}_b"])
+    emit({"phase": "lstm_kernel", "B": B, "T": T_EVENTS, "stages": rows,
+          "small_S": {"S": S_SMALL, "max_abs_err": {
+              C: {"layer": e[0], "pair": e[1]} for C, e in small.items()}}})
     fused = check_fused(x, p["FF3_W"], p["FF3_b"], "events")
     route = check_fused(x, p["FF3_W"], p["FF3_b"], "events", route=True)
     lp = robustlog(softmax_with_temperature(x, p["FF3_W"], p["FF3_b"]),
@@ -1255,14 +1330,25 @@ def check_lstm_kernel(enet, B: int) -> dict:
     check_forward_and_backtrace(lp, "events posterior")
     emit({"phase": "events_decode_kernels", "B": B, "T": T_EVENTS,
           "fused": fused, "head_route": route, "forward_backtrace": "identical"})
-    row = dict(rows["lstmB2"])  # the C = 96 layer, the larger of the two
-    row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
-    return row
+    # the table's rows: the C = 96 stage, the errors of every check
+    last = rows[2]
+    errs = [r["max_abs_err"] for r in rows.values()] + [e[0] for e in small.values()]
+    pair_errs = ([r["pair_max_abs_err"] for r in rows.values()]
+                 + [e[1] for e in small.values()])
+    single = {**last["recurrence"], "max_abs_err": max(errs),
+              "ms": last["recurrence_ms"], "plain_ms": last["recurrence_plain_ms"],
+              "layer_ms": last["layer_ms"], "layer_bound_ms": last["layer"]["bound_ms"]}
+    pair = {**last["pair_recurrence"], "max_abs_err": max(pair_errs),
+            "ms": last["pair_recurrence_ms"],
+            "plain_ms": last["pair_recurrence_plain_ms"],
+            "route_ms": last["pair_ms"]}
+    return single, pair
 
 
 def main_path_events(card: str, reads: list) -> dict:
     """BasecallEngine("nanonet_events") on the card in fast and stitch
-    mode; each mode's kernels must have launched in its own run."""
+    mode; each mode's kernels must have launched in its own run, and no
+    LSTM layer outside the pair route."""
 
     def extra(res, row):
         nevent = sum(r.nblock for r in res)
@@ -1272,9 +1358,13 @@ def main_path_events(card: str, reads: list) -> dict:
                 "detect_events_share": stages["detect_events"]["seconds"] / row["seconds"],
                 "assemble_share": stages["assemble"]["seconds"] / row["seconds"]}
 
-    return drive_engine(card, "main_path_events", reads, "nanonet_events",
-                        (("fast", None), ("stitch", None)), EVENTS_KERNELS,
-                        extra)[0]
+    launches = drive_engine(card, "main_path_events", reads, "nanonet_events",
+                            (("fast", None), ("stitch", None)), EVENTS_KERNELS,
+                            extra)[0]
+    for name in ("lstm_layer", "lstm_layer_global"):
+        require(launches[name] == 0,
+                f"events path launched {name} ({launches[name]}), not lstm_pair")
+    return launches
 
 
 def throughput_events(enet, card: str, reads: list) -> None:
@@ -1284,7 +1374,8 @@ def throughput_events(enet, card: str, reads: list) -> None:
     import torch
 
     from scrappie_torch.nn.layers import feedforward2_tanh, window
-    from scrappie_torch.ops.lstm import lstm_layer_tm
+    from scrappie_torch.ops.lstm import lstm_pair_tm
+    from scrappie_torch.ops.pipeline import lstm_weights
     from scrappie_torch.parallel.runner import BasecallEngine
 
     B = 64
@@ -1297,13 +1388,11 @@ def throughput_events(enet, card: str, reads: list) -> None:
         breakdown["window"] = cuda_ms(win, reps=5)
         x = win()
         for layer in (1, 2):
-            h = {}
-            for d in ("F", "B"):
-                w = [p[f"lstm{d}{layer}_{k}"] for k in ("iW", "b", "sW", "p")]
-                breakdown[f"lstm {d}{layer}"] = cuda_ms(
-                    lambda: lstm_layer_tm(x, *w, reverse=(d == "B")), reps=5)
-                h[d] = lstm_layer_tm(x, *w, reverse=(d == "B"))
-            ff = lambda: feedforward2_tanh(h["F"], h["B"], p[f"FF{layer}_Wf"],
+            wF, wB = (lstm_weights(p, d, layer) for d in "FB")
+            breakdown[f"lstm pair {layer}"] = cuda_ms(
+                lambda: lstm_pair_tm(x, wF, wB), reps=5)
+            h = lstm_pair_tm(x, wF, wB)
+            ff = lambda: feedforward2_tanh(*h, p[f"FF{layer}_Wf"],
                                            p[f"FF{layer}_Wb"], p[f"FF{layer}_b"])
             breakdown[f"feedforward2_tanh {layer}"] = cuda_ms(ff, reps=5)
             x = ff()
@@ -1754,7 +1843,7 @@ def main() -> int:
         check_crf_kernels(rnet, 8)
         table.update(check_crf_kernels(rnet, 64))
         check_lstm_kernel(enet, 8)
-        table["lstm_layer"] = check_lstm_kernel(enet, 64)
+        table["lstm_layer"], table["lstm_pair"] = check_lstm_kernel(enet, 64)
     reads = synthetic_reads()
     launches = main_path(card, reads)
     throughput(net, card)
@@ -1772,16 +1861,20 @@ def main() -> int:
         table["dtw"] = check_dtw_kernel(card)
         table["seqmap"] = check_seqmap_kernel(card)
     mapping_launches = main_path_mapping(card)
-    # each kernel's launches on its own path: the projection's, the GRU
-    # recurrence's, the head's and the Viterbi kernels' on the rgrgr path,
-    # the CRF kernels' on rnnrf's, the LSTM's on the events path's, the
-    # fused ensemble kernel's on the 3:1:1 ensemble's. No path runs the
-    # superseded kernels or a big-S mode (no model has S above 96).
+    # each kernel's launches on its own path: the GRU recurrence's, the
+    # head's and the Viterbi kernels' on the rgrgr path, the CRF kernels' on
+    # rnnrf's, the LSTM's on the events path's, the fused ensemble kernel's
+    # on the 3:1:1 ensemble's; the projection's on all four, which it
+    # serves. No path runs the superseded kernels, a big-S mode (no model
+    # has S above 96) or a single LSTM layer (the events path runs pairs).
+    launches["project"] = sum(
+        ls["project"] for ls in (launches, rnnrf_launches, ensemble_launches,
+                                 events_launches))
     launches.update({k: rnnrf_launches[k]
                      for k in ("crf_fwd", "crf_backtrace", "crf_partition")})
     launches["viterbi_fused_ens"] = ensemble_launches["viterbi_fused_ens"]
     launches.update({k: events_launches[k]
-                     for k in ("lstm_layer", "lstm_layer_global")})
+                     for k in ("lstm_layer", "lstm_pair", "lstm_layer_global")})
     launches.update({k: mapping_launches[k] for k in ("dtw", "seqmap")})
     for name in SUPERSEDED:
         require(launches[name] == 0, f"superseded {name} launched on a path "

@@ -1,4 +1,4 @@
-// The recurrence of one peephole-LSTM layer, over inputs projected before
+// The recurrence of the peephole-LSTM layers, over inputs projected before
 // (csrc/project.cu writes x @ iW + b for every step and row).
 //
 // Replaces: scrappie_tpu/ops/lstm.py:_lstm_kernel (wrapper lstm_layer_tm,
@@ -16,30 +16,178 @@
 //
 // What bounds it on the H100: the recurrence is sequential in T, so one
 // row's time is T times the latency of one step: a length-S dot product
-// per thread, two block barriers and the gate nonlinearities. The
-// arithmetic, 2 S 4S flops per row and step, is far below that latency.
-// What must not happen is to stream sW from L2 at every step.
+// per gate column, the gate nonlinearities and one block barrier. The
+// arithmetic, 2 S 4S flops per row and step, is far below that latency,
+// but the SM must issue it: 4S S / 32 warp FMAs a step (288 cycles of
+// issue at S = 96), and shared memory hands only 128 bytes a cycle to the
+// registers, so every thread reading all of h would take 4S S / 32 cycles
+// as well. What must not happen is to read sW from memory at every step.
 //
-// Design: one block per batch row and one thread per gate column (4S
-// threads). sW stays in dynamic shared memory for the whole scan (147 456 B
-// at S = 96), beside h, c and the [4S] gate values. Thread j takes its dot
-// product h @ sW[:, j] (four partial sums, to shorten the chain of
-// dependent FMAs), adds xproj[t, b, j] (loaded one step ahead into a
-// register) and applies its gate's nonlinearity; after a barrier S threads
-// update c and h. Exactly T steps run: there is no time padding and no lane
-// padding.
+// Design (lstm_recurrence_kernel): one block per batch row and direction,
+// sW in registers, 4S threads. The four lanes of a quad hold unit u's four
+// gate columns (g S + u, g = 0..3), lane l rows l QROWS .. l QROWS + QROWS
+// - 1 of them (QROWS = 24; 96 registers, zero past S), so a lane reads
+// only its QROWS entries of h (float4 broadcasts) and takes four partial
+// dot products, two FMA chains each; a transpose-reduce over the quad (3
+// shuffles) leaves gate l's sum in lane l, which adds its projected input.
+// Every lane then takes one sigmoid, of 2 xf for the cell-in gate (tanh(x)
+// = 2 sigmoid(2x) - 1) and of xf + c p for the input and forget gates, so
+// the warp runs one path and not a tanh and a sigmoid in turn; 4 shuffles
+// give each lane the unit's gates, c is updated in every lane of the quad
+// (it stays in registers), and one more sigmoid path gives lane 0 the
+// output gate and lane 1 tanh(c), which a shuffle hands to lane 0. Lane 0
+// writes h[u] to a double-buffered h in shared memory and to y; then the
+// block's single barrier. The projected input of the next RING steps is in
+// flight by cp.async into a ring in shared memory, each lane copying and
+// reading back its own entry, so the load needs no barrier of its own.
+// Both layers of a bidirectional stage run in one launch: blockIdx.y picks
+// the direction, its weights, its output and its columns of the [T, B, 8S]
+// projection (forward, then backward); a single layer launches a grid of
+// B. On an H100 at T = 2048 and S = 96 (B = 8 and 64) one thread a column
+// reading all of h took 1.71 ms a layer, the quad with a tanh and a sigmoid
+// path 1.52 ms, and this design 1.33 ms.
 //
-// Big-S mode (template switch kGlobal): where sW does not fit in shared
-// memory or 4S exceeds the 1024 threads of a block, sW is read from global
-// memory (it stays in L2: 1.3 MB at S = 288) and each thread walks the gate
-// columns j = tid, tid + blockDim, ...; xproj is read in the step that uses
-// it. Same arithmetic in the same order.
+// Big-S mode (lstm_global_kernel): for S > 96 sW is read from global
+// memory (it stays in L2: 1.3 MB at S = 288), the threads walk the gate
+// columns j = tid, tid + blockDim, ..., and the projected input is read in
+// the step that uses it; h, c and the gate values sit in shared memory, with
+// two barriers a step; its gates take tanhf and sigmoid_f32 in the
+// twin's order.
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int REG_MAX_S = 96;  // the largest S whose sW stays in registers
+constexpr int QROWS = REG_MAX_S / 4;  // rows of sW a lane holds
+constexpr int RING = 4;        // steps of projected input in flight
+constexpr unsigned FULL = 0xffffffffu;
+
+// 1 / (1 + exp(-x)); __frcp_rn gives the value __fdiv_rn(1, .) gives.
 __device__ __forceinline__ float sigmoid_f32(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+  return __frcp_rn(__fadd_rn(1.0f, expf(-x)));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One direction's operands.
+struct Dir {
+  const float* sW;    // [S, 4S]
+  const float* peep;  // [3S]
+  float* y;           // [T, B, S]
+  int reverse;
+};
+
+// xproj [T, B, xcols] -> y [T, B, S] for direction blockIdx.y, whose 4S
+// gate columns start at column 4S * blockIdx.y of xproj. blockDim.x = 4S
+// rounded up to a warp; S <= REG_MAX_S. Shared memory: h [2][REG_MAX_S]
+// (the tail past S zero), a ring of RING projected rows [RING][4S].
+__global__ void __launch_bounds__(4 * REG_MAX_S, 1)
+lstm_recurrence_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
+                       Dir d1, int T, int B, int S) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_h = smem;                  // [2][REG_MAX_S]
+  float* s_x = s_h + 2 * REG_MAX_S;   // [RING][4S]
+  const Dir d = blockIdx.y ? d1 : d0;
+  const int S4 = 4 * S;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int u = tid >> 2;   // unit
+  const int g = tid & 3;    // rows g QROWS .. of the dot; then gate g
+  const bool live = u < S;
+  const int col = g * S + u;
+
+  float w[4][QROWS];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < QROWS; ++i) {
+      const int k = g * QROWS + i;
+      w[j][i] = (live && k < S) ? __ldg(d.sW + (size_t)k * S4 + j * S + u) : 0.0f;
+    }
+  const float p_gate =
+      live && (g == 1 || g == 2) ? __ldg(d.peep + (g - 1) * S + u) : 0.0f;
+  const float p_out = live ? __ldg(d.peep + 2 * S + u) : 0.0f;
+  for (int k = tid; k < 2 * REG_MAX_S; k += blockDim.x) s_h[k] = 0.0f;
+
+  const int t0 = d.reverse ? T - 1 : 0;
+  const int dt = d.reverse ? -1 : 1;
+  const float* xcol = xproj + (size_t)S4 * blockIdx.y + col;
+  auto fetch = [&](int n) {
+    if (live && n < T)
+      cp_async4(s_x + (n % RING) * S4 + tid,
+                xcol + ((size_t)(t0 + n * dt) * B + b) * xcols);
+    cp_async_commit();
+  };
+  for (int n = 0; n < RING; ++n) fetch(n);
+  float c = 0.0f;
+  __syncthreads();
+
+  const int quad = lane & ~3;
+  const bool hi = g & 2, odd = g & 1;
+  for (int n = 0; n < T; ++n) {
+    const int t = t0 + n * dt;
+    cp_async_wait<RING - 1>();  // this thread's copy of step n
+    const float xcur = live ? s_x[(n % RING) * S4 + tid] : 0.0f;
+    const float4* h4 =
+        reinterpret_cast<const float4*>(s_h + (n & 1) * REG_MAX_S + g * QROWS);
+    float p[4], p2[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[j] = p2[j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < QROWS / 4; ++i) {
+      const float4 v = h4[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[j] = fmaf(v.x, w[j][4 * i], p[j]);
+        p2[j] = fmaf(v.y, w[j][4 * i + 1], p2[j]);
+        p[j] = fmaf(v.z, w[j][4 * i + 2], p[j]);
+        p2[j] = fmaf(v.w, w[j][4 * i + 3], p2[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[j] = __fadd_rn(p[j], p2[j]);
+    // Lanes with g & 2 keep gates 2, 3, the others 0, 1; then g & 1 picks.
+    const float s0 = __shfl_xor_sync(FULL, hi ? p[0] : p[2], 2);
+    const float s1 = __shfl_xor_sync(FULL, hi ? p[1] : p[3], 2);
+    const float q0 = __fadd_rn(hi ? p[2] : p[0], s0);
+    const float q1 = __fadd_rn(hi ? p[3] : p[1], s1);
+    const float r = __shfl_xor_sync(FULL, odd ? q0 : q1, 1);
+    const float xf = __fadd_rn(xcur, __fadd_rn(odd ? q1 : q0, r));
+    // One sigmoid path for every lane: tanh(x) = 2 sigmoid(2x) - 1 for
+    // the cell-in gate; the output gate keeps xf for the new c.
+    const float sg = sigmoid_f32(g == 0 ? __fmul_rn(2.0f, xf)
+                                        : __fadd_rn(xf, __fmul_rn(c, p_gate)));
+    const float a = g == 0 ? fmaf(2.0f, sg, -1.0f) : g == 3 ? xf : sg;
+    const float cell = __shfl_sync(FULL, a, quad);
+    const float in = __shfl_sync(FULL, a, quad + 1);
+    const float forget = __shfl_sync(FULL, a, quad + 2);
+    const float xo = __shfl_sync(FULL, a, quad + 3);
+    c = __fadd_rn(__fmul_rn(forget, c), __fmul_rn(in, cell));
+    // Lane 0 the output gate, lane 1 tanh(c), on one sigmoid path.
+    const float so = sigmoid_f32(g == 0 ? __fadd_rn(xo, __fmul_rn(c, p_out))
+                                        : __fmul_rn(2.0f, c));
+    const float tc = fmaf(2.0f, __shfl_sync(FULL, so, quad + 1), -1.0f);
+    if (g == 0 && live) {
+      const float h = __fmul_rn(so, tc);
+      s_h[((n + 1) & 1) * REG_MAX_S + u] = h;
+      d.y[((size_t)t * B + b) * S + u] = h;
+    }
+    fetch(n + RING);  // refill the slot read above
+    __syncthreads();
+  }
 }
 
 // Gate column j's peephole weight (0 for the cell-in and output gates).
@@ -50,24 +198,25 @@ __device__ __forceinline__ float gate_peep(const float* __restrict__ peep,
                                   : 0.0f;
 }
 
-// Gate column j's value for this step, from its projected input xcur and
-// its peephole weight p_gate.
-__device__ __forceinline__ float lstm_gate(const float* w, const float* s_h,
-                                           const float* s_c, float p_gate,
-                                           float xcur, int S, int j) {
+// Big-S mode: gate column j's value for this step, sW read from global
+// memory.
+__device__ __forceinline__ float global_gate(const float* __restrict__ sW,
+                                             const float* s_h, const float* s_c,
+                                             float p_gate, float xcur, int S,
+                                             int j) {
   const int S4 = 4 * S;
-  const int gate = j / S;  // 0 cell-in, 1 input, 2 forget, 3 output
+  const int gate = j / S;
   const int u = j - gate * S;
   float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
   int k = 0;
 #pragma unroll 4
   for (; k + 4 <= S; k += 4) {
-    a0 = fmaf(s_h[k], w[k * S4 + j], a0);
-    a1 = fmaf(s_h[k + 1], w[(k + 1) * S4 + j], a1);
-    a2 = fmaf(s_h[k + 2], w[(k + 2) * S4 + j], a2);
-    a3 = fmaf(s_h[k + 3], w[(k + 3) * S4 + j], a3);
+    a0 = fmaf(s_h[k], __ldg(sW + (size_t)k * S4 + j), a0);
+    a1 = fmaf(s_h[k + 1], __ldg(sW + (size_t)(k + 1) * S4 + j), a1);
+    a2 = fmaf(s_h[k + 2], __ldg(sW + (size_t)(k + 2) * S4 + j), a2);
+    a3 = fmaf(s_h[k + 3], __ldg(sW + (size_t)(k + 3) * S4 + j), a3);
   }
-  for (; k < S; ++k) a0 = fmaf(s_h[k], w[k * S4 + j], a0);
+  for (; k < S; ++k) a0 = fmaf(s_h[k], __ldg(sW + (size_t)k * S4 + j), a0);
   const float xf = __fadd_rn(xcur, __fadd_rn(__fadd_rn(a0, a1),
                                              __fadd_rn(a2, a3)));
   if (gate == 0) return tanhf(xf);
@@ -75,54 +224,37 @@ __device__ __forceinline__ float lstm_gate(const float* w, const float* s_h,
   return sigmoid_f32(__fadd_rn(xf, __fmul_rn(s_c[u], p_gate)));
 }
 
-// xproj [T, B, 4S], sW [S, 4S], peep [3S] -> y [T, B, S].
-template <bool kGlobal>
+// Big-S mode: xproj [T, B, 4S], sW [S, 4S], peep [3S] -> y [T, B, S].
+// Shared memory: h [S], c [S], the gate values [4S].
 __global__ void __launch_bounds__(1024)
-lstm_recurrence_kernel(const float* __restrict__ xproj,
-                       const float* __restrict__ sW,
-                       const float* __restrict__ peep, float* __restrict__ y,
-                       int T, int B, int S, int reverse) {
+lstm_global_kernel(const float* __restrict__ xproj,
+                   const float* __restrict__ sW,
+                   const float* __restrict__ peep, float* __restrict__ y,
+                   int T, int B, int S, int reverse) {
   extern __shared__ float smem[];
   const int S4 = 4 * S;
-  float* s_h = smem;       // [S]
-  float* s_c = s_h + S;    // [S]
-  float* s_g = s_c + S;    // [4S] gate values of this step
-  float* s_sW = s_g + S4;  // [S, 4S], on-chip mode
-  const float* w = kGlobal ? sW : s_sW;
-
+  float* s_h = smem;     // [S]
+  float* s_c = s_h + S;  // [S]
+  float* s_g = s_c + S;  // [4S] gate values of this step
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  if (!kGlobal) {
-    for (int i = tid; i < S * S4; i += blockDim.x) s_sW[i] = sW[i];
-  }
   for (int u = tid; u < S; u += blockDim.x) {
     s_h[u] = 0.0f;
     s_c[u] = 0.0f;
   }
   const int t0 = reverse ? T - 1 : 0;
   const int dt = reverse ? -1 : 1;
-  // On-chip mode: blockDim.x == 4S, thread tid owns column tid and keeps
-  // its peephole weights in registers.
-  float xnext = kGlobal ? 0.0f : xproj[((size_t)t0 * B + b) * S4 + tid];
-  const float p_mine = kGlobal ? 0.0f : gate_peep(peep, S, tid);
-  const float p_out_mine = !kGlobal && tid < S ? __ldg(peep + 2 * S + tid) : 0.0f;
   __syncthreads();
 
   for (int n = 0; n < T; ++n) {
     const int t = t0 + n * dt;
-    if (kGlobal) {
-      const float* xrow = xproj + ((size_t)t * B + b) * S4;
-      for (int j = tid; j < S4; j += blockDim.x)
-        s_g[j] = lstm_gate(w, s_h, s_c, gate_peep(peep, S, j), xrow[j], S, j);
-    } else {
-      const float xcur = xnext;
-      if (n + 1 < T) xnext = xproj[((size_t)(t + dt) * B + b) * S4 + tid];
-      s_g[tid] = lstm_gate(w, s_h, s_c, p_mine, xcur, S, tid);
-    }
+    const float* xrow = xproj + ((size_t)t * B + b) * S4;
+    for (int j = tid; j < S4; j += blockDim.x)
+      s_g[j] = global_gate(sW, s_h, s_c, gate_peep(peep, S, j), xrow[j], S, j);
     __syncthreads();
 
     for (int u = tid; u < S; u += blockDim.x) {
-      const float p_out = kGlobal ? __ldg(peep + 2 * S + u) : p_out_mine;
+      const float p_out = __ldg(peep + 2 * S + u);
       const float c_new = __fadd_rn(__fmul_rn(s_g[2 * S + u], s_c[u]),
                                     __fmul_rn(s_g[S + u], s_g[u]));
       const float o = sigmoid_f32(__fadd_rn(s_g[3 * S + u],
@@ -136,24 +268,16 @@ lstm_recurrence_kernel(const float* __restrict__ xproj,
   }
 }
 
-template <bool kGlobal>
-int launch(const float* xproj, const float* sW, const float* peep, float* y,
-           int T, int B, int S, int reverse, int threads, size_t smem,
-           cudaStream_t stream) {
+// The register kernel over ndir directions (grid B x ndir).
+int launch_registers(const float* xproj, int xcols, Dir d0, Dir d1, int ndir,
+                     int T, int B, int S, cudaStream_t stream) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_recurrence_kernel<kGlobal>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  lstm_recurrence_kernel<kGlobal><<<B, threads, smem, stream>>>(
-      xproj, sW, peep, y, T, B, S, reverse);
+  if (S < 1 || S > REG_MAX_S) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (2 * REG_MAX_S + (size_t)RING * 4 * S);
+  const int threads = (4 * S + 31) / 32 * 32;
+  lstm_recurrence_kernel<<<dim3(B, ndir), threads, smem, stream>>>(
+      xproj, xcols, d0, d1, T, B, S);
   return (int)cudaGetLastError();
-}
-
-// Dynamic shared memory each mode needs for size S: sW, h, c and the gate
-// values on chip; h, c and the gate values alone in the big-S mode.
-size_t smem_bytes(int S, int global) {
-  return sizeof(float) * ((global ? 0 : (size_t)4 * S * S) + 6 * (size_t)S);
 }
 
 }  // namespace
@@ -161,18 +285,39 @@ size_t smem_bytes(int S, int global) {
 extern "C" {
 
 // xproj [T, B, 4S], sW [S, 4S], peep [3S] -> y [T, B, S]; all fp32,
-// contiguous, on the current device. global = 0: sW in shared memory, 4S
-// threads (4S <= 1024); global = 1: the big-S mode. Returns a cudaError_t.
+// contiguous, on the current device. global = 0: sW in registers (S <=
+// REG_MAX_S, which ops/lstm.py names REGISTER_MAX_S); global = 1: the
+// big-S mode. Returns a cudaError_t.
 int scrappie_lstm_recurrence(const float* xproj, const float* sW,
                              const float* peep, float* y, int T, int B, int S,
                              int reverse, int global, cudaStream_t stream) {
-  const size_t smem = smem_bytes(S, global);
-  if (!global)
-    return launch<false>(xproj, sW, peep, y, T, B, S, reverse, 4 * S, smem,
-                         stream);
+  if (!global) {
+    const Dir d{sW, peep, y, reverse};
+    return launch_registers(xproj, 4 * S, d, d, 1, T, B, S, stream);
+  }
+  if (T == 0 || B == 0) return (int)cudaSuccess;
+  const size_t smem = sizeof(float) * 6 * (size_t)S;
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const int threads = 4 * S < 1024 ? ((4 * S + 31) / 32) * 32 : 1024;
-  return launch<true>(xproj, sW, peep, y, T, B, S, reverse, threads, smem,
-                      stream);
+  lstm_global_kernel<<<B, threads, smem, stream>>>(xproj, sW, peep, y, T, B,
+                                                    S, reverse);
+  return (int)cudaGetLastError();
+}
+
+// Both directions of a stage in one launch: xproj [T, B, 8S] (the forward
+// layer's 4S gate columns, then the backward one's), sW_f, sW_b [S, 4S],
+// peep_f, peep_b [3S] -> y_f, y_b [T, B, S], the forward layer walking time
+// forwards, the backward one backwards; S <= REG_MAX_S. Returns a
+// cudaError_t.
+int scrappie_lstm_pair(const float* xproj, const float* sW_f,
+                       const float* peep_f, float* y_f, const float* sW_b,
+                       const float* peep_b, float* y_b, int T, int B, int S,
+                       cudaStream_t stream) {
+  return launch_registers(xproj, 8 * S, Dir{sW_f, peep_f, y_f, 0},
+                          Dir{sW_b, peep_b, y_b, 1}, 2, T, B, S, stream);
 }
 
 }  // extern "C"

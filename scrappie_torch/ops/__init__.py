@@ -32,6 +32,7 @@ LAUNCHES: dict[str, int] = {
     "crf_backtrace": 0,
     "crf_partition": 0,
     "lstm_layer": 0,
+    "lstm_pair": 0,
     "lstm_layer_global": 0,
     "dtw": 0,
     "seqmap": 0,

@@ -19,9 +19,10 @@ Counterpart of scrappie_tpu/ops/pipeline.py:
     CRF kernels take them.
   * events (events_basecall_fused, events_features_tm): window(3) over the
     event features and one transpose to time-major, two stages of forward
-    and backward peephole LSTM layers (ops/lstm.py) combined by
-    feedforward2_tanh, then the same head, forward and backtrace as rgrgr,
-    with the FF3 head.
+    and backward peephole LSTM layers combined by feedforward2_tanh (each
+    stage's two layers in one projection and one recurrence launch,
+    ops/lstm.lstm_pair_tm), then the same head, forward and backtrace as
+    rgrgr, with the FF3 head.
   * ensembles: ensemble_basecall_fused runs the K member stacks (rgrgr or
     raw_r94) and hands their hidden features to the head kernel, which
     combines the K heads' log posteriors (any K), then the forward and
@@ -46,7 +47,7 @@ from scrappie_torch.nn.layers import (conv1d, elu, feedforward2_tanh,
                                       globalnorm_tm, window)
 from scrappie_torch.ops.crf import add_emit_bias, crf_viterbi_tm
 from scrappie_torch.ops.gru import gru_layer_tm
-from scrappie_torch.ops.lstm import lstm_layer_tm
+from scrappie_torch.ops.lstm import lstm_pair_tm
 from scrappie_torch.ops.viterbi import (head_logpost_tm, viterbi_backtrace_tm,
                                         viterbi_scores_tm)
 
@@ -162,14 +163,17 @@ def events_features_tm(params, feats, winlen: int = 3):
     (ref src/networks.c:146-194)."""
     x = window(feats, winlen, 1).transpose(0, 1).contiguous()
     for layer in (1, 2):
-        h = {d: lstm_layer_tm(x, params[f"lstm{d}{layer}_iW"],
-                              params[f"lstm{d}{layer}_b"],
-                              params[f"lstm{d}{layer}_sW"],
-                              params[f"lstm{d}{layer}_p"], reverse=(d == "B"))
-             for d in ("F", "B")}
-        x = feedforward2_tanh(h["F"], h["B"], params[f"FF{layer}_Wf"],
+        hF, hB = lstm_pair_tm(x, *(lstm_weights(params, d, layer)
+                                   for d in ("F", "B")))
+        x = feedforward2_tanh(hF, hB, params[f"FF{layer}_Wf"],
                               params[f"FF{layer}_Wb"], params[f"FF{layer}_b"])
     return x
+
+
+def lstm_weights(params, d: str, layer: int) -> tuple:
+    """(iW, b, sW, peep) of the events network's LSTM layer d ("F" or "B")
+    of stage `layer`."""
+    return tuple(params[f"lstm{d}{layer}_{k}"] for k in ("iW", "b", "sW", "p"))
 
 
 def events_basecall_fused(params, feats, *, winlen: int = 3, **decode):

@@ -188,10 +188,11 @@ def test_engine_defaults_count_events():
 
 @pytest.mark.parametrize("mode", ["fast", "stitch"])
 def test_engine_hands_the_kernels_their_layout(monkeypatch, mode):
-    """On a CUDA tensor the LSTM and Viterbi wrappers raise unless their
-    inputs are contiguous and of the kernels' types; the CPU twins take any
-    layout. So the twins here run the kernels' input checks first: every
-    path that reaches them must already pass."""
+    """On a CUDA tensor the LSTM (the pair route of each stage) and Viterbi
+    wrappers raise unless their inputs are contiguous and of the kernels'
+    types; the CPU twins take any layout. So the twins here run the
+    kernels' input checks first: every path that reaches them must already
+    pass."""
     from scrappie_torch import ops
     from scrappie_torch.ops import lstm as tlstm
     from scrappie_torch.ops import viterbi as tv
@@ -221,6 +222,7 @@ def test_engine_hands_the_kernels_their_layout(monkeypatch, mode):
     checked(tlstm, "lstm_layer_tm_plain",
             lambda x, iW, b, sW, peep, *_: tlstm.check_lstm_input(x, iW, b, sW,
                                                                   peep))
+    checked(tlstm, "lstm_pair_tm_plain", tlstm.check_lstm_pair_input)
     checked(tv, "head_logpost_tm_plain", check_head)
     checked(tv, "viterbi_scores_tm_plain", check_scores)
     checked(tv, "viterbi_backtrace_tm_plain", check_backtrace)
@@ -229,8 +231,8 @@ def test_engine_hands_the_kernels_their_layout(monkeypatch, mode):
     engine = TEngine(MODEL, device="cpu", chunk_len=400, overlap=64, mode=mode)
     assert all(r.sequence for r in engine.basecall_signals(signals))
     assert tapi.basecall_events(synthetic_signal(2500, seed=832), device="cpu")[0]
-    expect = {"lstm_layer_tm_plain", "viterbi_scores_tm_plain",
-              "viterbi_backtrace_tm_plain"}
+    expect = {"lstm_pair_tm_plain", "lstm_layer_tm_plain",
+              "viterbi_scores_tm_plain", "viterbi_backtrace_tm_plain"}
     if mode == "fast":
         expect.add("head_logpost_tm_plain")
     assert expect <= seen

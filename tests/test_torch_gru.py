@@ -101,6 +101,30 @@ def test_projection_twin_matches_jax_and_launches_nothing():
         check_project_input(tx, tW, tb[:-1])
 
 
+@pytest.mark.parametrize("T,B,K,N", [(7, 3, 12, 768), (65, 2, 96, 768),
+                                     (43, 3, 13, 290)])
+def test_projection_twin_matches_jax_at_the_lstm_widths(T, B, K, N):
+    """The projection's twin against scrappie_tpu's feedforward where the
+    LSTM's pair route runs it (K = 12 and 96 against both directions'
+    weights, N = 8S = 768), on M = T B rows that fill no whole 128-row tile
+    of the kernel, and at K and N that are not multiples of 4 (the kernel's
+    4-byte path); tolerance 1e-5."""
+    from scrappie_torch.ops.project import check_project_input, project_tm
+
+    rng = np.random.default_rng(K + N)
+    x = rng.standard_normal((T, B, K)).astype(np.float32)
+    W = (rng.standard_normal((K, N)) * K ** -0.5).astype(np.float32)
+    b = (rng.standard_normal(N) * 0.1).astype(np.float32)
+    assert (T * B) % 128
+    ref = np.asarray(feedforward(jnp.asarray(x), jnp.asarray(W), jnp.asarray(b)))
+    ops.reset_launches()
+    out = project_tm(*_t(x, W, b))
+    assert ops.LAUNCHES["project"] == 0
+    assert out.shape == (T, B, N)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    check_project_input(*_t(x, W, b))
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("S", [160, 352])
 def test_gru_layer_matches_scan_beyond_shared_memory(S, reverse):
