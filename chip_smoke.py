@@ -2,6 +2,7 @@
 """Drive scrappie_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab OTHER_CHECKOUT
 
 Run from the root of a checkout on a machine with a CUDA GPU, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA; it needs neither JAX nor h5py.
@@ -34,8 +35,11 @@ if any phase fails:
      B = 8 and 64, both directions, and times it (phase
      gru_recurrence_kernel); holds the GRU (S = 160, 352) and LSTM (S =
      160, 288; at 160 also the pair route) layers in their big-S modes
-     against their twins (phase big_s), and the Viterbi forward and
-     backtrace at nhist = 80 and, with slip, 2048 (phase nhist);
+     against their twins (phase big_s), the Viterbi forward and backtrace
+     at nhist = 80, 1024 and, with slip, 2048, at B = 8, 64 and 256, on
+     random and integer log posteriors (phase nhist), and times the
+     forward on both at B = 8, 64 and 256 and at a stitch shape, B = 4 x
+     12 500 blocks (phase scaling, path "viterbi forward");
   5. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
      16 seeded synthetic reads of 20k-100k samples in fast mode and in both
      stitch modes, checks that each kernel's launch counter rose and that
@@ -81,11 +85,15 @@ if any phase fails:
      and profiles the events engine in both modes;
  16. predicts the squiggles of a seeded 2 000-base sequence with the three
      squiggle models on the card and holds them to the port's CPU run;
- 17. holds the DTW kernel against its twin, Viterbi and forward, with
-     prob_back 0 and 0.1, on signals simulated from predicted squiggles:
-     state in shared memory (300 positions, 3 000 samples) and in global
-     memory (15 000 positions, 2 000 samples); then times it at 6 000
-     positions and 60 000 samples, with the traceback's copy to the host;
+ 17. holds the DTW kernels against their twins, Viterbi (finals, moves,
+     end sources, and the walk kernel's path) and forward, with prob_back 0
+     and 0.1, on signals simulated from predicted squiggles: the cluster
+     kernel at 300 positions x 3 000 samples, at 6 000 x 60 000 and on
+     integer (tied) inputs, 2 000 x 20 000, and the global-state kernel
+     above the cluster's capacity (2 000 samples), the 6 000 x 60 000 case
+     also on clusters of 4 and 8 CTAs; then times the DP at 6 000 x 60 000
+     on clusters of 4, 8 and 16 CTAs, the global kernel and the forward
+     variant, the walk and the path's copy to the host;
  18. holds the seqmap kernel against its twin, Viterbi and forward, in
      both variants, on the rgrgr_r94 posterior of a synthetic 60 000-sample
      read (about 12 000 blocks) against a seeded 6 000-base reference, and
@@ -93,8 +101,10 @@ if any phase fails:
  19. runs the mapping path through the API on the card,
      map_signal_to_squiggle on a signal simulated from the squiggle of a
      6 000-base sequence and map_post_to_sequence (Viterbi with a path,
-     forward, banded), checks that each kernel's launch counter rose, and
-     holds each result to the port's CPU run on the same inputs.
+     forward, banded), checks that each kernel's launch counter rose,
+     records what map_signal_to_squiggle copies to the host (profiler
+     trace), and holds each result to the port's CPU run on the same
+     inputs.
 
 Each engine path's launch counters are set to 0 just before its runs and
 read just after. Every phase's line carries the seconds since the start.
@@ -102,11 +112,20 @@ The last lines are the kernel table (each kernel's time beside its bound,
 the least time the card could take for the same work), the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device":
 {...}}.
+
+With --ab it does none of that: it times the Viterbi forward, the DTW and
+map_signal_to_squiggle of another checkout of the repo (a `git archive`
+of the parent commit, say; its kernels are built there) and of this one
+on the same inputs, each in a fresh process, in turns other, this, this,
+other (time_checkout, compare_checkouts), and prints a JSON line a turn
+and the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import pathlib
 import re
 import statistics
 import subprocess
@@ -130,7 +149,9 @@ PROJECT_RTOL = 1e-5      # the projection against its twin, relative to max(|y|,
 BIG_S = {"gru": (160, 352), "lstm": (160, 288)}  # above the registers' S = 96
 S_SMALL = 16             # the LSTM routes' check at another size
 T_BIG_S = 500            # steps of the big-S checks
-NHIST_CASES = ((80, False), (2048, True))  # (nhist, use_slip) beyond 64..1024
+NHIST_CASES = ((80, False), (1024, False), (2048, True))  # (nhist, use_slip)
+FWD_BATCHES = (8, 64, 256)
+STITCH_SHAPE = (12500, 4)  # (T, B): whole reads of a stitch bucket
 ROUTE_BATCHES = (8, 64, 256)
 NREADS = 16
 READ_LEN = (20000, 100000)
@@ -138,7 +159,10 @@ SQUIGGLE_MODELS = ("squiggle_r94", "squiggle_r94_rna", "squiggle_r10")
 SQUIGGLE_BASES = 2000
 SQUIGGLE_RTOL = 1e-5     # fp32 convolutions summed in another order
 DTW_SHARED = (300, 3000)     # (positions, samples): scores in shared memory
-DTW_GLOBAL = (15000, 2000)   # above the shared-memory limit: global memory
+DTW_GLOBAL_SAMPLES = 2000    # above the cluster's capacity: global memory
+DTW_TIES = (2000, 20000)     # integer signal and locs: candidates tie
+DTW_CLUSTERS = (4, 8, 16)    # cluster sizes timed at the main path's size
+DTW_TWIN_WORKERS = 6         # host processes running the DTW's Viterbi twins
 MAP_BASES = 6000         # the mapping path's sequences, and the timed DTW's
 MAP_SAMPLES = 60000      # the timed DTW's samples; the seqmap read's length
 MAP_BAND = 100           # half-width of the banded mapping
@@ -181,6 +205,9 @@ KERNELS = {
                   "bidirectional stage in one launch)"),
     "seqmap": ("scrappie_torch/csrc/seqmap.cu", "scrappie_tpu/ops/seqmap.py:32"),
     "dtw": ("scrappie_torch/csrc/dtw.cu", "scrappie_tpu/ops/dtw.py:59"),
+    "dtw_walk": ("scrappie_torch/csrc/dtw.cu",
+                 "scrappie_tpu/decode/dtw.py:179 (the host walk of the "
+                 "traceback; no TPU kernel)"),
     "viterbi_fused_ens": ("scrappie_torch/csrc/viterbi.cu",
                           "scrappie_tpu/ops/viterbi.py:531"),
     "gru_recurrence": ("scrappie_torch/csrc/gru.cu", "scrappie_tpu/ops/gru.py:67"),
@@ -320,17 +347,23 @@ def kernel_work(name: str, **d) -> dict:
     operations (the gates' elementwise arithmetic adds a few percent), so
     each bound is a lower bound. The backtraces read one traceback entry
     per step and row: what the data needs, not the whole traceback. The
-    mapping DPs (one read, Viterbi) write their whole int32 traceback; per
-    step and position the DTW does 23 operations (its forward state 6 adds
-    and 5 compares with the end jump's max, the end-jump candidate's add,
-    the emission's 6 and its 2 adds, the back state's 2 adds and compare)
-    and the seqmap 7 (3 adds, 2 subtractions, 2 compares)."""
+    mapping DPs (one read, Viterbi) write their whole traceback: the
+    seqmap's as it lies (int32), the DTW's at a byte a state (the winning
+    candidate, six for a forward state and two for a back state, which is
+    all a walk needs) and its end jump's source a sample; its walk reads a
+    byte a sample and writes the path. Per step and position the DTW does
+    23 operations (its forward state 6 adds and 5 compares with the end
+    jump's max, the end-jump candidate's add, the emission's 6 and its 2
+    adds, the back state's 2 adds and compare) and the seqmap 7 (3 adds, 2
+    subtractions, 2 compares)."""
     T, B = d["T"], d.get("B", 1)
     if name == "dtw":
         npos = d["npos"]
         nstate = 2 * npos + 2
-        return bound(4 * (T + 3 * npos + 4 * (npos + 2) + nstate + T * nstate),
-                     23 * T * npos)
+        return bound(4 * (T + 3 * npos + 4 * (npos + 2) + nstate + T)
+                     + T * nstate, 23 * T * npos)
+    if name == "dtw_walk":  # a move byte a sample, the path, two finals
+        return bound(T + 4 * T + 8, T)
     if name == "seqmap":
         nst, seqlen = d["nst"], d["seqlen"]
         return bound(4 * (T * nst + seqlen + (seqlen + 2) * (T + 1)),
@@ -854,33 +887,63 @@ def check_big_s() -> dict:
     return rows
 
 
+def seeded_logposts(shape, gen) -> tuple:
+    """Log posteriors on the card from the generator gen: standard normal
+    minus 3, and integers in {-3..0} (ties at almost every step)."""
+    import torch
+
+    lp = torch.randn(shape, generator=gen, device="cuda") - 3.0
+    ties = torch.randint(-3, 1, shape, generator=gen, device="cuda").float()
+    return lp, ties
+
+
 def check_nhist() -> dict:
-    """The Viterbi forward and backtrace kernels at state spaces the first
-    port refused (NHIST_CASES): tracebacks, finals, paths and scores
-    identical to the twins' on seeded log posteriors and on integer ones
-    (ties), at T_BLOCKS blocks and B = 8; then the forward's times."""
-    import numpy as np
+    """The Viterbi forward and backtrace kernels at each of NHIST_CASES and
+    FWD_BATCHES: tracebacks, finals, paths and scores identical to the
+    twins' on seeded log posteriors and on integer ones (ties), at
+    T_BLOCKS blocks; then the forward's times at B = 8."""
     import torch
 
     from scrappie_torch.ops import viterbi as v
 
-    rng = np.random.default_rng(SEED + 95)
-    B = 8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 95)
     rows = {}
     for nhist, slip in NHIST_CASES:
-        shape = (T_BLOCKS, B, nhist + 1)
-        lp = torch.as_tensor((rng.standard_normal(shape) - 3.0).astype(np.float32),
-                             device="cuda")
-        ties = torch.as_tensor(rng.integers(-3, 1, shape).astype(np.float32),
-                               device="cuda")
-        for what, x in (("random", lp), ("integer", ties)):
-            check_forward_and_backtrace(x, f"nhist {nhist}, {what}", use_slip=slip)
-        rows[nhist] = {"use_slip": slip, "identical": True,
-                       **kernel_work("viterbi_fwd", T=T_BLOCKS, B=B,
-                                     nstate=nhist + 1),
-                       "ms": cuda_ms(lambda: v.viterbi_scores_tm(lp, use_slip=slip),
-                                     reps=5)}
-    emit({"phase": "nhist", "T": T_BLOCKS, "B": B, "rows": rows})
+        for B in FWD_BATCHES:
+            lp, ties = seeded_logposts((T_BLOCKS, B, nhist + 1), gen)
+            for what, x in (("random", lp), ("integer", ties)):
+                check_forward_and_backtrace(x, f"nhist {nhist}, B = {B}, {what}",
+                                            use_slip=slip)
+            if B == 8:
+                rows[nhist] = {"use_slip": slip, "identical": list(FWD_BATCHES),
+                               "launch": v.forward_launch(nhist),
+                               **kernel_work("viterbi_fwd", T=T_BLOCKS, B=B,
+                                             nstate=nhist + 1),
+                               "ms": cuda_ms(lambda: v.viterbi_scores_tm(
+                                   lp, use_slip=slip), reps=5)}
+            del lp, ties
+    emit({"phase": "nhist", "T": T_BLOCKS, "B": 8, "rows": rows})
+    return rows
+
+
+def forward_scaling(card: str) -> dict:
+    """The forward at nhist 1024 on random and integer log posteriors, at
+    T_BLOCKS blocks and each of FWD_BATCHES and at STITCH_SHAPE: its ms
+    (CUDA events, median of 5) and us a step. Phase nhist holds it to the
+    twin at these batches."""
+    import torch
+
+    from scrappie_torch.ops import viterbi as v
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 96)
+    rows = {}
+    for T, B in [(T_BLOCKS, b) for b in FWD_BATCHES] + [STITCH_SHAPE]:
+        for what, lp in zip(("random", "integer"), seeded_logposts((T, B, 1025), gen)):
+            ms = cuda_ms(lambda: v.viterbi_scores_tm(lp), reps=5)
+            rows[f"B = {B}, T = {T}, {what}"] = {"ms": ms, "us_per_step": ms * 1e3 / T}
+            del lp
+    emit({"phase": "scaling", "path": "viterbi forward", "nhist": 1024,
+          "launch": v.forward_launch(1024), "rows": rows, "card": card})
     return rows
 
 
@@ -1582,45 +1645,111 @@ def dtw_case(npos: int, T: int, rng):
     return sig, params
 
 
-def check_dtw(sig, params, what: str) -> dict:
-    """The DTW kernel against its twin on one input, Viterbi and forward,
-    prob_back 0 and 0.1: Viterbi finals and tracebacks identical, forward
-    finals within FORWARD_RTOL. Returns the largest differences and the
-    twin's seconds for Viterbi with prob_back 0."""
+def dtw_tie_case(npos: int, T: int, rng):
+    """A DTW input where candidates tie: integer locs and signal, unit
+    scales and one dwell for every position."""
+    import numpy as np
+    import torch
+
+    params = np.zeros((npos, 3), np.float32)
+    params[:, 0] = rng.integers(-2, 3, npos)
+    sig = torch.as_tensor(rng.integers(-2, 3, T).astype(np.float32), device="cuda")
+    return sig, params
+
+
+def dtw_twin(args, viterbi: bool):
+    """The DTW's twin on the host CPU, in a worker process: (final, moves,
+    end_src, seconds)."""
+    import torch
+
+    from scrappie_torch.ops import dtw as d
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = d.squiggle_match_plain(*args, viterbi=viterbi)
+    return (*out, time.perf_counter() - t0)
+
+
+def submit_dtw_twins(pool, sig, params) -> dict:
+    """Start the Viterbi twin of one input on the pool, prob_back 0 and
+    0.1, on the host's copy of the inputs (match_inputs computes them on the
+    host for both devices). The DP only adds, divides and takes maxima, so
+    the host's twin is the card's bit for bit."""
+    from scrappie_torch.decode.dtw import match_inputs
+
+    jobs = {}
+    for prob_back in (0.0, 0.1):
+        args = (sig.cpu(), *match_inputs(params, 1.0, prob_back, "cpu"), prob_back,
+                *DTW_OPTIONS.values())
+        jobs[prob_back] = pool.submit(dtw_twin, args, True)
+    return jobs
+
+
+def check_dtw(sig, params, what: str, jobs: dict, clusters=()) -> dict:
+    """The DTW kernel on the card against its twin, prob_back 0 and 0.1:
+    Viterbi finals, moves and end sources identical to the host twin's
+    (jobs, from submit_dtw_twins), and the walk kernel's path identical to
+    the host walk's; forward finals within FORWARD_RTOL of the twin run on
+    the card, whose expf and log1pf are the kernel's (the host's differ by
+    ulps, which a long read adds up). The kernel runs on DTW_CLUSTER CTAs
+    and on each other cluster size in `clusters`. Returns the largest
+    differences and the host twin's seconds for Viterbi with prob_back 0."""
     import torch
 
     from scrappie_torch.decode.dtw import match_inputs
     from scrappie_torch.ops import dtw as d
 
     out = {"max_abs_err": 0.0, "forward_rel_err": 0.0}
-    for prob_back in (0.0, 0.1):
-        inputs = match_inputs(params, 1.0, prob_back, "cuda")
-        args = (sig, *inputs, prob_back, DTW_OPTIONS["local_pen"],
-                DTW_OPTIONS["skip_pen"], DTW_OPTIONS["minscore"])
-        for viterbi in (True, False):
-            fk, tbk = d.squiggle_match_tm(*args, viterbi=viterbi)
-            t0 = time.perf_counter()
-            fp, tbp = d.squiggle_match_plain(*args, viterbi=viterbi)
-            sync()
-            if viterbi and not prob_back:
-                out["plain_s"] = time.perf_counter() - t0
-            label = f"{what}, viterbi={viterbi}, prob_back={prob_back}"
+    for prob_back, viterbi in ((0.0, False), (0.1, False), (0.0, True), (0.1, True)):
+        args = (sig, *match_inputs(params, 1.0, prob_back, "cuda"), prob_back,
+                *DTW_OPTIONS.values())
+        if viterbi:
+            fp, mp, ep, seconds = jobs[prob_back].result()
+            mp, ep = mp.cuda(), ep.cuda()
+            if not prob_back:
+                out["plain_s"] = seconds
+        else:
+            fp, _, _ = d.squiggle_match_plain(*args, viterbi=False)
+        fp = fp.cuda()
+        for k in (d.DTW_CLUSTER, *clusters):
+            fk, mk, ek = d.squiggle_match_tm(*args, viterbi=viterbi, cluster=k)
+            label = f"{what}, {k} CTAs, viterbi={viterbi}, prob_back={prob_back}"
             require(bool(torch.isfinite(fk).all()), f"dtw final finite ({label})")
             if viterbi:
-                require(torch.equal(tbk, tbp), f"dtw traceback identical ({label})")
+                require(torch.equal(mk, mp), f"dtw moves identical ({label})")
+                require(torch.equal(ek, ep), f"dtw end sources identical ({label})")
                 require(torch.equal(fk, fp), f"dtw final identical ({label})")
+                if k == d.DTW_CLUSTER:
+                    pk = d.dtw_walk(fk, mk, ek)
+                    pp = d.dtw_walk_plain(fk, mk, ek)
+                    sync()
+                    require(torch.equal(pk, pp), f"dtw_walk path identical ({label})")
+                del mk
             else:
                 rel = float(((fk - fp).abs() / fp.abs().clamp(min=1.0)).max())
                 require(rel <= FORWARD_RTOL,
                         f"dtw forward final rel err {rel} <= {FORWARD_RTOL} ({label})")
                 out["forward_rel_err"] = max(out["forward_rel_err"], rel)
             out["max_abs_err"] = max(out["max_abs_err"], float((fk - fp).abs().max()))
+        if viterbi:
+            del mp
     return out
 
 
-def check_dtw_kernel(card: str) -> dict:
-    """The DTW kernel in both variants against its twin, then its times at
-    the main path's size (MAP_BASES positions, MAP_SAMPLES samples)."""
+def check_dtw_kernel(card: str) -> tuple[dict, dict]:
+    """The DTW kernels against their twins: the cluster kernel at a small
+    size, on tied inputs and at the main path's size (MAP_BASES positions,
+    MAP_SAMPLES samples), the global-state kernel above the cluster's
+    capacity, each Viterbi twin run on the host CPU in DTW_TWIN_WORKERS
+    processes while the card times the DP at the main path's size at each
+    cluster size (with the card's cudaOccupancyMaxActiveClusters) and runs
+    the kernels (at the main path's size on each cluster size the card
+    places) and the forward twins; then the global kernel's and the
+    forward variant's times, and the walk's and the path's copy to the
+    host. Returns the DP's and the walk's table rows."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import numpy as np
     import torch
 
@@ -1628,44 +1757,77 @@ def check_dtw_kernel(card: str) -> dict:
     from scrappie_torch.ops import dtw as d
 
     rng = np.random.default_rng(SEED + 40)
-    rows = {}
-    for name, (npos, T) in (("shared", DTW_SHARED), ("global", DTW_GLOBAL)):
-        sig, params = dtw_case(npos, T, rng)
-        require((npos <= d.DTW_MAX_SHARED_NPOS) == (name == "shared"),
-                f"dtw {name} case {npos} positions takes its variant")
-        row = check_dtw(sig, params, f"{name}, {npos} x {T}")
-        args = (sig, *match_inputs(params, 1.0, 0.0, "cuda"), 0.0,
-                *DTW_OPTIONS.values())
-        row.update(npos=npos, T=T, ms=cuda_ms(lambda: d.squiggle_match_tm(*args)),
-                   plain_ms=row.pop("plain_s") * 1e3)
-        rows[name] = row
+    npos_global = d.DTW_MAX_SHARED_NPOS + 1000
+    cases = {name: make(npos, T, rng) for name, (npos, T), make in (
+        ("shared", DTW_SHARED, dtw_case),
+        ("ties", DTW_TIES, dtw_tie_case),
+        ("global", (npos_global, DTW_GLOBAL_SAMPLES), dtw_case),
+        ("timed", (MAP_BASES, MAP_SAMPLES), dtw_case))}
+    sig, params = cases["timed"]
     npos, T = MAP_BASES, MAP_SAMPLES
-    sig, params = dtw_case(npos, T, rng)
     args = (sig, *match_inputs(params, 1.0, 0.0, "cuda"), 0.0, *DTW_OPTIONS.values())
-    fk, tbk = d.squiggle_match_tm(*args)
+    rows, clusters = {}, {}
+    with ProcessPoolExecutor(DTW_TWIN_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        # the longest twins first; the card times the main path's size
+        # while they run
+        jobs = {name: submit_dtw_twins(pool, *cases[name])
+                for name in ("timed", "ties", "global", "shared")}
+        for k in DTW_CLUSTERS:
+            fits = d.max_active_clusters(npos, k)
+            clusters[k] = {"max_active_clusters": fits}
+            if fits:
+                ms = cuda_ms(lambda: d.squiggle_match_tm(*args, cluster=k), reps=5)
+                clusters[k].update(
+                    ms=ms, us_per_sample=ms * 1e3 / T,
+                    forward_ms=cuda_ms(lambda: d.squiggle_match_tm(
+                        *args, viterbi=False, cluster=k), reps=3, warmup=1),
+                    layout=d.cluster_layout(npos, k)._asdict())
+        for name in ("shared", "ties", "global", "timed"):
+            csig, cparams = cases[name]
+            cnpos, cT = cparams.shape[0], csig.shape[0]
+            require((cnpos <= d.DTW_MAX_SHARED_NPOS) == (name != "global"),
+                    f"dtw {name} case {cnpos} positions takes its kernel")
+            others = [k for k in DTW_CLUSTERS if k != d.DTW_CLUSTER
+                      and clusters[k]["max_active_clusters"]] if name == "timed" else []
+            row = check_dtw(csig, cparams, f"{name}, {cnpos} x {cT}", jobs.pop(name),
+                            others)
+            cargs = (csig, *match_inputs(cparams, 1.0, 0.0, "cuda"), 0.0,
+                     *DTW_OPTIONS.values())
+            row.update(npos=cnpos, T=cT, plain_ms=row.pop("plain_s") * 1e3)
+            if name != "timed":
+                row["ms"] = cuda_ms(lambda: d.squiggle_match_tm(*cargs), reps=5)
+            rows[name] = row
+            if name == "ties":  # the cluster kernel agrees with the global one
+                fg, mg, eg = d.squiggle_match_tm(*cargs, global_state=True)
+                fc, mc, ec = d.squiggle_match_tm(*cargs)
+                sync()
+                require(torch.equal(mg, mc) and torch.equal(eg, ec) and torch.equal(fg, fc),
+                        "dtw global and cluster kernels identical (ties)")
+    final, moves, end_src = d.squiggle_match_tm(*args)
+    path = d.dtw_walk(final, moves, end_src)
     t0 = time.perf_counter()
-    fp, tbp = d.squiggle_match_plain(*args)
-    sync()
-    plain_s = time.perf_counter() - t0
-    require(torch.equal(tbk, tbp) and torch.equal(fk, fp),
-            f"dtw traceback and final identical ({npos} x {T})")
-    del tbp
-    timed = {"npos": npos, "T": T, "max_abs_err": float((fk - fp).abs().max()),
-             "ms": cuda_ms(lambda: d.squiggle_match_tm(*args)),
+    d.dtw_walk_plain(final, moves, end_src)
+    walk_plain_ms = (time.perf_counter() - t0) * 1e3
+    timed = {**rows["timed"], "cluster": d.DTW_CLUSTER, "clusters": clusters,
+             "ms": clusters[d.DTW_CLUSTER]["ms"],
              "global_ms": cuda_ms(lambda: d.squiggle_match_tm(*args, global_state=True),
                                   reps=3, warmup=1),
              "forward_ms": cuda_ms(lambda: d.squiggle_match_tm(*args, viterbi=False),
                                    reps=3, warmup=1),
-             "plain_ms": plain_s * 1e3,
-             "traceback_bytes": tbk.numel() * 4,
-             "traceback_copy_ms": cuda_ms(lambda: tbk.cpu(), reps=3, warmup=0),
+             "moves_bytes": moves.numel() + end_src.numel() * 4,
              **kernel_work("dtw", T=T, npos=npos)}
     timed["us_per_sample"] = timed["ms"] * 1e3 / T
     # the table's error: the largest difference of any check
-    timed["max_abs_err"] = max([timed["max_abs_err"]]
-                               + [r["max_abs_err"] for r in rows.values()])
-    emit({"phase": "dtw_kernel", "checked": rows, "timed": timed, "card": card})
-    return timed
+    timed["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    walk = {"T": T, "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: d.dtw_walk(final, moves, end_src), reps=5),
+            "plain_ms": walk_plain_ms, "path_bytes": path.numel() * 4,
+            "path_copy_ms": cuda_ms(lambda: path.cpu(), reps=5),
+            **kernel_work("dtw_walk", T=T)}
+    emit({"phase": "dtw_kernel", "checked": rows, "timed": timed, "walk": walk,
+          "card": card})
+    return timed, walk
 
 
 def seqmap_case(rng):
@@ -1733,6 +1895,40 @@ def check_seqmap_kernel(card: str) -> dict:
     return out
 
 
+def host_copies(fn) -> dict:
+    """What fn() copies from the card to the host: the count, bytes and
+    device milliseconds of the memcpy events in torch.profiler's trace
+    (bytes None if the trace does not give them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scrappie_torch.ops import _build
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    trace = _build.BUILD_DIR / f"host_copies.{time.time_ns()}.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    copies = [e for e in events
+              if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    known = all("bytes" in e.get("args", {}) for e in copies)
+    return {"copies": len(copies),
+            "bytes": sum(e["args"]["bytes"] for e in copies) if known else None,
+            "device_ms": sum(e.get("dur", 0.0) for e in copies) / 1e3}
+
+
+def mapping_signal(squiggle, rng) -> "np.ndarray":
+    """A raw read for map_signal_to_squiggle: MAP_SAMPLES samples simulated
+    from the squiggle, scaled to pA, between two flat 300-sample pads."""
+    import numpy as np
+
+    pad = lambda: 150.0 + rng.normal(0.0, 0.3, 300)
+    return np.concatenate([pad(), 90.0 + 12.0 * simulate_squiggle(
+        squiggle, MAP_SAMPLES, rng), pad()]).astype(np.float32)
+
+
 def main_path_mapping(card: str) -> dict:
     """The mapping path through the API on the card: the launches of its
     two kernels in this run, each call's seconds, and each result held to
@@ -1749,9 +1945,7 @@ def main_path_mapping(card: str) -> dict:
     rng = np.random.default_rng(SEED + 60)
     seq = random_bases(MAP_BASES, rng)
     squiggle = api.sequence_to_squiggle(seq, device="cuda")
-    pad = lambda: 150.0 + rng.normal(0.0, 0.3, 300)
-    data = np.concatenate([pad(), 90.0 + 12.0 * simulate_squiggle(
-        squiggle, MAP_SAMPLES, rng), pad()]).astype(np.float32)
+    data = mapping_signal(squiggle, rng)
     read = synthetic_signal(MAP_SAMPLES, rng)
     ref = random_bases(MAP_BASES, rng)
     calls = (("viterbi, path", dict(viterbi=True, path=True)),
@@ -1772,9 +1966,10 @@ def main_path_mapping(card: str) -> dict:
         results[what] = api.map_post_to_sequence(post, ref, device="cuda", **kw)
         seconds[what] = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    for name in ("dtw", "seqmap"):
+    for name in ("dtw", "dtw_walk", "seqmap"):
         require(launches[name] > 0,
                 f"kernel {name} launched on the mapping path ({launches[name]})")
+    copied = host_copies(lambda: api.map_signal_to_squiggle(data, seq, device="cuda"))
 
     raw = api.RawTable(data)
     raw.trim().scale()
@@ -1809,17 +2004,98 @@ def main_path_mapping(card: str) -> dict:
           "positions_reached": int(mapped.max()) + 1 if len(mapped) else 0,
           "scores": {k: v[0] for k, v in results.items()},
           "seconds": seconds, "cpu_seconds": cpu_seconds, "launches": launches,
-          "card": card})
+          "map_signal_to_squiggle_host_copies": copied, "card": card})
     return launches
+
+
+def time_checkout(checkout: pathlib.Path) -> None:
+    """Times the scrappie_torch of `checkout`, imported from there (its
+    kernels built there), on inputs made by this script: the Viterbi
+    forward at nhist 1024 on seeded log posteriors at T_BLOCKS blocks and
+    each of FWD_BATCHES and at STITCH_SHAPE (CUDA events, median of 10),
+    the DTW's Viterbi DP and forward variant at MAP_BASES positions x
+    MAP_SAMPLES samples (dtw_case; median of 3), and map_signal_to_squiggle
+    on a read made as main_path_mapping makes it (host clock, median of 3
+    after one call). Prints one JSON line."""
+    sys.path.insert(0, str(checkout))
+    import numpy as np
+    import torch
+
+    import scrappie_torch
+    from scrappie_torch import api
+    from scrappie_torch.decode.dtw import match_inputs
+    from scrappie_torch.ops import _build, dtw as d, viterbi as v
+
+    require(pathlib.Path(scrappie_torch.__file__).resolve().is_relative_to(checkout),
+            f"scrappie_torch imported from {checkout}")
+    _build.library()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 97)
+    rng = np.random.default_rng(SEED + 98)
+    out = {}
+    with torch.inference_mode():
+        for T, B in [(T_BLOCKS, b) for b in FWD_BATCHES] + [STITCH_SHAPE]:
+            lp, _ = seeded_logposts((T, B, 1025), gen)
+            out[f"viterbi_fwd_ms B = {B}, T = {T}"] = cuda_ms(
+                lambda: v.viterbi_scores_tm(lp), reps=10)
+            del lp
+        sig, params = dtw_case(MAP_BASES, MAP_SAMPLES, rng)
+        args = (sig, *match_inputs(params, 1.0, 0.0, "cuda"), 0.0,
+                *DTW_OPTIONS.values())
+        out["dtw_viterbi_ms"] = cuda_ms(lambda: d.squiggle_match_tm(*args),
+                                        reps=3, warmup=1)
+        out["dtw_forward_ms"] = cuda_ms(
+            lambda: d.squiggle_match_tm(*args, viterbi=False), reps=3, warmup=1)
+    seq = random_bases(MAP_BASES, rng)
+    data = mapping_signal(api.sequence_to_squiggle(seq, device="cuda"), rng)
+    api.map_signal_to_squiggle(data, seq, device="cuda")
+    seconds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        api.map_signal_to_squiggle(data, seq, device="cuda")
+        seconds.append(time.perf_counter() - t0)
+    out["map_signal_to_squiggle_s"] = statistics.median(seconds)
+    print(json.dumps(out), flush=True)
+
+
+def compare_checkouts(other: pathlib.Path) -> None:
+    """time_checkout of another checkout and of this one, each in a fresh
+    process, in turns other, this, this, other, so that both see the card
+    in the same state: one JSON line a turn, then the card's name and power
+    limit."""
+    here = pathlib.Path(__file__).resolve().parent
+    turns = (("other", other), ("this", here), ("this", here), ("other", other))
+    for i, (label, checkout) in enumerate(turns):
+        proc = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
+                               "--times", str(checkout)], capture_output=True,
+                              text=True)
+        require(proc.returncode == 0, f"timing {checkout} exited "
+                                      f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        emit({"turn": i, "checkout": label, "path": str(checkout),
+              **json.loads(proc.stdout.strip().splitlines()[-1])})
+    print(card_line(), flush=True)
 
 
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive scrappie_torch on one "
+                                             "CUDA GPU (see the module's doc).")
+    ap.add_argument("--ab", type=pathlib.Path, metavar="OTHER_CHECKOUT",
+                    help="only time the Viterbi forward, the DTW and "
+                         "map_signal_to_squiggle of OTHER_CHECKOUT and of "
+                         "this checkout, in turns")
+    ap.add_argument("--times", type=pathlib.Path, help=argparse.SUPPRESS)
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "runs only on a CUDA GPU", file=sys.stderr)
         return 2
+    if opts.times:
+        time_checkout(opts.times.resolve())
+        return 0
+    if opts.ab:
+        compare_checkouts(opts.ab.resolve())
+        return 0
     from scrappie_torch.models.forward import EventsModel, RgrgrModel, RnnrfModel
 
     card = card_line()
@@ -1840,6 +2116,7 @@ def main() -> int:
         table["gru_recurrence"] = check_gru_recurrence(net, 64)
         table.update(check_big_s())
         check_nhist()
+        forward_scaling(card)
         check_crf_kernels(rnet, 8)
         table.update(check_crf_kernels(rnet, 64))
         check_lstm_kernel(enet, 8)
@@ -1858,7 +2135,7 @@ def main() -> int:
     throughput_events(enet, card, reads)
     with torch.inference_mode():
         check_squiggle(card)
-        table["dtw"] = check_dtw_kernel(card)
+        table["dtw"], table["dtw_walk"] = check_dtw_kernel(card)
         table["seqmap"] = check_seqmap_kernel(card)
     mapping_launches = main_path_mapping(card)
     # each kernel's launches on its own path: the GRU recurrence's, the
@@ -1875,7 +2152,7 @@ def main() -> int:
     launches["viterbi_fused_ens"] = ensemble_launches["viterbi_fused_ens"]
     launches.update({k: events_launches[k]
                      for k in ("lstm_layer", "lstm_pair", "lstm_layer_global")})
-    launches.update({k: mapping_launches[k] for k in ("dtw", "seqmap")})
+    launches.update({k: mapping_launches[k] for k in ("dtw", "dtw_walk", "seqmap")})
     for name in SUPERSEDED:
         require(launches[name] == 0, f"superseded {name} launched on a path "
                                      f"({launches[name]})")

@@ -26,10 +26,10 @@
 //
 // What bounds them on the H100:
 //  * forward: sequential in T. Per step a block reads one log-posterior row
-//    (4 KB), 84 (or 148 with slip) predecessor scores per state from
-//    shared memory, and writes a 2 KB int16 traceback row. The step's
-//    latency (a barrier, a warp reduction and the shared-memory reads), not
-//    bandwidth, sets the time.
+//    (4 KB) and writes a 2 KB int16 traceback row; each predecessor
+//    group's maximum is needed by 4, 16 or 64 states. The step's latency
+//    (a barrier, the shared-memory reads, the shuffles that merge a group)
+//    and the SM's issue rate, not bandwidth, set the time.
 //  * fused: as the forward, plus the head: a [S] x [S, nstate] product per
 //    row and step. W (394 KB in fp32 at S = 96) does not fit in shared
 //    memory, so every step streams it from L2; at one row per block that
@@ -41,26 +41,30 @@
 //    combined log posterior's renormalisation).
 //  * backtrace: one dependent 2-byte load per step and row; latency-bound.
 //
-// Design: one block per batch row. The forward gives each thread SPT
-// history states (one up to nhist = 1024, whole warps, the tail masked;
-// then the least power of two that covers nhist on 1024 threads), so it
-// takes every nhist the JAX package takes: a multiple of 16 (64 with
-// slip), up to what the scores' two rows in shared memory (2 nhist floats)
-// and the int16 traceback (states below 2^15) allow. The fused kernels keep
-// one thread per state, 64 <= nhist <= 1024 in whole warps. The scores
-// live in shared memory, double buffered, so a step reads the previous
-// scores while writing the next ones and needs a single barrier (the TPU
-// kernel's one-hot MXU lane expansion is replaced by plain shared-memory
-// reads of the predecessors). The START score needs no reduction, so every
-// thread carries its own copy. END needs the first argmax of the previous
-// scores: each warp reduces its states and writes (max, index) to a parity
-// buffer, and warp 0 finishes that reduction one step later, off the other
-// warps' critical path. The next step's log posteriors (or hidden row) are
-// loaded into registers while the current step computes. The ensemble
-// kernel stages its K hidden rows [2, K, S] in shared memory the same way,
-// keeps each member's logit in a register (K <= MAX_ENS, a loop unrolled
-// to that bound), and shares the head's dot products, the DP step and the
-// final write with the fused kernel. The backtrace runs one thread per row.
+// Design: one block per batch row. The forward (viterbi_fwd_kernel) gives
+// each thread quads of four consecutive history states, 256 threads at
+// nhist = 1024, so several rows share an SM: a quad computes its step
+// group's maximum once, the four lanes of a quad share its skip group and
+// sixteen lanes a slip group, each reading a quarter of it, merged by
+// shuffles. More quads a thread (strided by the thread count) take every
+// nhist the JAX package takes: a multiple of 16 (64 with slip), up to what
+// the scores' two rows in shared memory (2 nhist floats) and the int16
+// traceback (states below 2^15) allow. The fused kernels keep one thread
+// per state, 64 <= nhist <= 1024 in whole warps, with dp_step/dp_hist.
+// The scores live in shared memory, double buffered, so a step reads the
+// previous scores while writing the next ones and needs a single barrier
+// (the TPU kernel's one-hot MXU lane expansion is replaced by plain
+// shared-memory reads of the predecessors). The START score needs no
+// reduction, so every thread carries its own copy. END needs the first
+// argmax of the previous scores: each warp reduces (max, index) to a
+// parity buffer, and one warp finishes that reduction one step later, off
+// the other warps' critical path. The next step's log posteriors (or
+// hidden row) are loaded into registers while the current step computes.
+// The ensemble kernel stages its K hidden rows [2, K, S] in shared memory
+// the same way, keeps each member's logit in a register (K <= MAX_ENS, a
+// loop unrolled to that bound), and shares the head's dot products, the
+// DP step and the final write with the fused kernel. The backtrace runs
+// one thread per row.
 #include <climits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -70,6 +74,8 @@ namespace {
 constexpr float BIG = 1.0e30f;
 constexpr int MAX_WARPS = 32;
 constexpr int MAX_ENS = 4;  // members of the fused ensemble kernel
+constexpr int FWD_THREADS = 512;  // at most, the forward's history threads
+constexpr int AHEAD = 3;  // steps of log posteriors the forward loads ahead
 
 struct DpParams {
   float stay_pen;
@@ -146,15 +152,23 @@ __device__ __forceinline__ void dp_hist(const float* prev, float* next,
   tb_row[d] = (short)tb;
 }
 
-// Warp 0 finishes the END-state update of one step from the per-warp
-// (max, index) of that step's previous scores. All lanes keep `end`.
-__device__ __forceinline__ void end_update(const float* wval, const int* widx,
-                                           int nwarp, float local_stay,
+// The END-state update of one step from n partial (max, first index)
+// pairs of that step's previous scores (the fused kernels: one a warp; the
+// forward: one a quad): each lane merges every 32nd, then the warp. All
+// lanes keep `end`.
+__device__ __forceinline__ void end_update(const float* val, const int* idx,
+                                           int n, float local_stay,
                                            const DpParams& p, int nhist,
                                            short* tb_row, float& end) {
   const int lane = threadIdx.x & 31;
-  float v = lane < nwarp ? wval[lane] : -CUDART_INF_F;
-  int i = lane < nwarp ? widx[lane] : INT_MAX;
+  float v = -CUDART_INF_F;
+  int i = INT_MAX;
+  for (int j = lane; j < n; j += 32) {
+    if (val[j] > v || (val[j] == v && idx[j] < i)) {
+      v = val[j];
+      i = idx[j];
+    }
+  }
   warp_argmax(v, i);
   const float stay_end = __fadd_rn(end, local_stay);
   const float enter = __fsub_rn(v, p.local_pen);
@@ -229,129 +243,232 @@ __device__ __forceinline__ void dp_finish(const float* hist, const float* wval,
   }
 }
 
+// (max, first index) over groups of kSpan consecutive lanes (a power of
+// two, at most 32): shuffles xor 1, ..., kSpan / 2. Every lane of a group
+// ends with the result.
+template <int kSpan>
+__device__ __forceinline__ void lanes_argmax(float& v, int& i) {
+#pragma unroll
+  for (int off = 1; off < kSpan; off <<= 1) {
+    const float v2 = __shfl_xor_sync(0xffffffffu, v, off);
+    const int i2 = __shfl_xor_sync(0xffffffffu, i, off);
+    if (v2 > v || (v2 == v && i2 < i)) {
+      v = v2;
+      i = i2;
+    }
+  }
+}
+
+// First maximum of prev[r * q + g] over r in [r0, r0 + 4).
+__device__ __forceinline__ void group_max4(const float* prev, int q, int g,
+                                           int r0, float& m, int& r) {
+  m = prev[r0 * q + g];
+  r = r0;
+#pragma unroll
+  for (int i = 1; i < 4; ++i) {
+    const float v = prev[(r0 + i) * q + g];
+    if (v > m) {
+      m = v;
+      r = r0 + i;
+    }
+  }
+}
+
 // lp [T, B, nhist+1] -> final [B, nhist+2], tb [T, B, nhist+2] int16.
-// Thread tid owns history states d = tid + i * blockDim.x, i < SPT; states
-// past nhist are masked (no update, -inf and no index in the argmax). The
-// scores live in dynamic shared memory, [2, nhist]. Up to two states a
-// thread the next step's log posteriors wait in registers; beyond that
-// each is read in the step that uses it.
-template <int SPT>
-__global__ void __launch_bounds__(1024)
+// The first nthr threads (whole warps) own, for i < NQ, the quad qd = tid
+// + i nthr of history states d = 4 qd + k, k < 4, when qd < nhist / 4.
+// A quad's step group is qd itself: its four predecessors are read once.
+// Its skip group (qd >> 2) is shared by the four lanes of the quad, each
+// reading four of the sixteen predecessors, merged by two shuffles; with
+// slip the group (qd >> 4) is shared by sixteen lanes, each reading four
+// of 64, merged by four. Merges keep the smaller r on a tie, the first
+// maximum. The skip groups cover every history state, so the quads'
+// skip maxima (merged over a thread's quads, one pair for each four
+// threads) give the first argmax of the previous scores for END; the END
+// update of step t - 1 merges them at step t, on one more warp (threads
+// nthr .. nthr + 31) that does nothing else. Scores are read and written
+// as float4 in shared memory ([2, nhist], double-buffered, one barrier a
+// step), the traceback as two 4-byte pairs a quad. Up to two quads a
+// thread, the log posteriors of the next AHEAD steps wait in registers.
+template <int NQ>
+__global__ void __launch_bounds__(FWD_THREADS + 32)
 viterbi_fwd_kernel(const float* __restrict__ lp, float* __restrict__ final_,
-                   short* __restrict__ tb, int T, int B, int nhist,
+                   short* __restrict__ tb, int T, int B, int nhist, int nthr,
                    DpParams p) {
-  extern __shared__ float hist[];
-  __shared__ float wval[2][MAX_WARPS];
-  __shared__ int widx[2][MAX_WARPS];
+  extern __shared__ float4 hist4[];
+  __shared__ float qval[2][FWD_THREADS / 4];  // END partials, a quad each
+  __shared__ int qidx[2][FWD_THREADS / 4];
+  const float* hist = reinterpret_cast<const float*>(hist4);
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int nwarp = nthr >> 5;
+  const int lane = tid & 31;
+  const int nq = nhist >> 2;
+  const int q16 = nhist >> 4;
+  const int q64 = nhist >> 6;
   const int nstate = nhist + 1;
   const int nst2 = nhist + 2;
+  const bool dp = tid < nthr;
+  const bool end_lanes = tid >= nthr;
 
   float start = 0.0f;
   float end = -BIG;
   float local_stay_prev = 0.0f;
-  constexpr bool kAhead = SPT <= 2;
-  const float* row = lp + (size_t)b * nstate;
-  float lpd[kAhead ? SPT : 1];
-#pragma unroll
-  for (int i = 0; i < SPT; ++i) {
-    const int d = tid + i * nthr;
-    if (d < nhist) hist[d] = -BIG;
-    if constexpr (kAhead) lpd[i] = (T > 0 && d < nhist) ? fmaxf(row[d], -BIG) : 0.0f;
-  }
-  float lps = T > 0 ? fmaxf(row[nhist], -BIG) : 0.0f;
-  __syncthreads();
+  for (int i = tid; i < nq; i += blockDim.x)
+    hist4[i] = make_float4(-BIG, -BIG, -BIG, -BIG);
 
-  for (int t = 0; t < T; ++t) {
-    float lpd_next[kAhead ? SPT : 1];
-    float lps_next = 0.0f;
-    const float* crow = lp + ((size_t)t * B + b) * nstate;
-    if (t + 1 < T) {
-      const float* nrow = crow + (size_t)B * nstate;
-      if constexpr (kAhead) {
-#pragma unroll
-        for (int i = 0; i < SPT; ++i) {
-          const int d = tid + i * nthr;
-          lpd_next[i] = d < nhist ? fmaxf(nrow[d], -BIG) : 0.0f;
-        }
-      }
-      lps_next = fmaxf(nrow[nhist], -BIG);
-    }
-    const int cur = t & 1;
-    const float* prev = hist + cur * nhist;
-    float* next = hist + (cur ^ 1) * nhist;
-    const float stay_lp = __fsub_rn(lps, p.stay_pen);
-    short* tb_row = tb + ((size_t)t * B + b) * nst2;
-    // This thread's first maximum of the previous scores, then the warp's.
-    float v = -CUDART_INF_F;
-    int vi = INT_MAX;
-#pragma unroll
-    for (int i = 0; i < SPT; ++i) {
-      const int d = tid + i * nthr;
-      if (d < nhist && prev[d] > v) {
-        v = prev[d];
-        vi = d;
-      }
-    }
-    warp_argmax(v, vi);
-    if ((tid & 31) == 0) {
-      wval[cur][tid >> 5] = v;
-      widx[cur][tid >> 5] = vi;
-    }
+  // The log posteriors of steps t .. t + AHEAD - 1 wait in a ring of
+  // registers, raw (clamped where used): slot t % AHEAD holds step t, and
+  // once step t has read it, it takes step t + AHEAD. The step loop is
+  // unrolled by AHEAD, so each slot keeps its registers and no move waits
+  // on a load in flight. Above two quads a thread each step reads its own.
+  constexpr bool kAhead = NQ <= 2;
+  constexpr int KQ = kAhead ? NQ : 1;
+  const float* base = lp + (size_t)b * nstate;
+  const size_t tstride = (size_t)B * nstate;
+  auto load = [&](int tt, float (&lpv)[KQ][4], float& lsv) {
+    const float* r = base + (size_t)min(tt, T - 1) * tstride;
     if constexpr (kAhead) {
 #pragma unroll
-      for (int i = 0; i < SPT; ++i) {
-        const int d = tid + i * nthr;
-        if (d < nhist)
-          dp_hist(prev, next, tb_row, lpd[i], stay_lp, start, p, nhist, d);
-        lpd[i] = lpd_next[i];
+      for (int i = 0; i < NQ; ++i) {
+        const int qd = tid + i * nthr;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          lpv[i][k] = (dp && qd < nq) ? r[4 * qd + k] : 0.0f;
       }
-    } else {
-      for (int d = tid; d < nhist; d += nthr)
-        dp_hist(prev, next, tb_row, fmaxf(crow[d], -BIG), stay_lp, start, p,
-                nhist, d);
     }
+    lsv = r[nhist];
+  };
+  float ring[AHEAD][KQ][4];
+  float ring_s[AHEAD];
+  if (T > 0) {
+#pragma unroll
+    for (int a = 0; a < AHEAD; ++a) load(a, ring[a], ring_s[a]);
+  }
+  __syncthreads();
+
+  auto step = [&](int t, float (&lpv)[KQ][4], float& lsv) {
+    const float* crow = base + (size_t)t * tstride;
+    const int cur = t & 1;
+    const float* prev = hist + cur * nhist;
+    float4* next4 = hist4 + (cur ^ 1) * nq;
+    const float stay_lp = __fsub_rn(fmaxf(lsv, -BIG), p.stay_pen);
+    short* tb_row = tb + ((size_t)t * B + b) * nst2;
+    if (dp) {
+      float ev = -CUDART_INF_F;  // this thread's quads' END partial
+      int ei = INT_MAX;
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        const int qd = tid + i * nthr;
+        const bool live = qd < nq;  // whole quads, and whole slip groups
+        float ms = -CUDART_INF_F, mk = -CUDART_INF_F, ml = -CUDART_INF_F;
+        int rs = 0, rk = INT_MAX, rl = INT_MAX;
+        float4 pv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (live) {
+          pv = hist4[cur * nq + qd];
+          group_max4(prev, nq, qd, 0, ms, rs);
+          group_max4(prev, q16, qd >> 2, 4 * (qd & 3), mk, rk);
+          if (p.use_slip) group_max4(prev, q64, qd >> 4, 4 * (qd & 15), ml, rl);
+        }
+        lanes_argmax<4>(mk, rk);
+        if (p.use_slip) lanes_argmax<16>(ml, rl);
+        if (live) {
+          float lv[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if constexpr (kAhead) {
+              lv[k] = fmaxf(lpv[i][k], -BIG);
+            } else {
+              lv[k] = fmaxf(crow[4 * qd + k], -BIG);
+            }
+          }
+          const float pd[4] = {pv.x, pv.y, pv.z, pv.w};
+          float sc[4];
+          short tbv[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float score = __fadd_rn(pd[k], stay_lp);
+            int from = -1;
+            float cand = __fadd_rn(lv[k], ms);
+            if (cand > score) {
+              score = cand;
+              from = rs * nq + qd;
+            }
+            cand = __fsub_rn(__fadd_rn(lv[k], mk), p.skip_pen);
+            if (cand > score) {
+              score = cand;
+              from = rk * q16 + (qd >> 2);
+            }
+            if (p.use_slip) {
+              cand = __fsub_rn(__fadd_rn(lv[k], ml), __fmul_rn(2.0f, p.skip_pen));
+              if (cand > score) {
+                score = cand;
+                from = rl * q64 + (qd >> 4);
+              }
+            }
+            cand = __fadd_rn(start, lv[k]);
+            if (cand > score) {
+              score = cand;
+              from = nhist;
+            }
+            sc[k] = score;
+            tbv[k] = (short)from;
+          }
+          next4[qd] = make_float4(sc[0], sc[1], sc[2], sc[3]);
+          short2* tb2 = reinterpret_cast<short2*>(tb_row + 4 * qd);
+          tb2[0] = make_short2(tbv[0], tbv[1]);
+          tb2[1] = make_short2(tbv[2], tbv[3]);
+          const int gi = rk * q16 + (qd >> 2);
+          if (mk > ev || (mk == ev && gi < ei)) {
+            ev = mk;
+            ei = gi;
+          }
+        }
+      }
+      if ((tid & 3) == 0) {
+        qval[cur][tid >> 2] = ev;
+        qidx[cur][tid >> 2] = ei;
+      }
+    }
+    load(t + AHEAD, lpv, lsv);
     start = __fadd_rn(start, fmaxf(-p.local_pen, stay_lp));
-    if (tid < 32 && t > 0) {
-      end_update(wval[cur ^ 1], widx[cur ^ 1], nwarp, local_stay_prev, p,
+    if (end_lanes && t > 0) {
+      end_update(qval[cur ^ 1], qidx[cur ^ 1], nthr >> 2, local_stay_prev, p,
                  nhist, tb_row - (size_t)B * nst2, end);
     }
     local_stay_prev = fmaxf(-p.local_pen, stay_lp);
-    lps = lps_next;
     __syncthreads();
+  };
+  for (int t0 = 0; t0 < T; t0 += AHEAD) {
+#pragma unroll
+    for (int a = 0; a < AHEAD; ++a) {
+      if (t0 + a < T) step(t0 + a, ring[a], ring_s[a]);
+    }
   }
-  if (T > 0 && tid < 32) {
-    end_update(wval[(T - 1) & 1], widx[(T - 1) & 1], nwarp, local_stay_prev,
-               p, nhist, tb + ((size_t)(T - 1) * B + b) * nst2, end);
+  if (T > 0 && end_lanes) {
+    end_update(qval[(T - 1) & 1], qidx[(T - 1) & 1], nthr >> 2,
+               local_stay_prev, p, nhist,
+               tb + ((size_t)(T - 1) * B + b) * nst2, end);
   }
   float* f = final_ + (size_t)b * nst2;
-#pragma unroll
-  for (int i = 0; i < SPT; ++i) {
-    const int d = tid + i * nthr;
-    if (d < nhist) f[d] = hist[(T & 1) * nhist + d];
-  }
-  if (tid == 0) {
+  for (int d = tid; d < nhist; d += blockDim.x) f[d] = hist[(T & 1) * nhist + d];
+  if (end_lanes && lane == 0) {
     f[nhist] = start;
     f[nhist + 1] = end;
   }
 }
 
-template <int SPT>
+template <int NQ>
 int launch_fwd(const float* lp, float* final_, short* tb, int T, int B,
-               int nhist, const DpParams& p, int threads,
-               cudaStream_t stream) {
+               int nhist, const DpParams& p, int nthr, cudaStream_t stream) {
   const size_t smem = sizeof(float) * 2 * (size_t)nhist;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        viterbi_fwd_kernel<SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        viterbi_fwd_kernel<NQ>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  viterbi_fwd_kernel<SPT><<<B, threads, smem, stream>>>(lp, final_, tb, T, B,
-                                                        nhist, p);
+  viterbi_fwd_kernel<NQ><<<B, nthr + 32, smem, stream>>>(lp, final_, tb, T, B,
+                                                         nhist, nthr, p);
   return (int)cudaGetLastError();
 }
 
@@ -638,22 +755,27 @@ __global__ void viterbi_backtrace_kernel(const float* __restrict__ final_,
 
 extern "C" {
 
+// The forward kernel on nthr DP threads (whole warps, at most 512) with nq
+// quads a thread (1, 2, 4, 8 or 16; ops/viterbi.py:forward_launch picks
+// them), and one more warp for the END state.
 int scrappie_viterbi_fwd(const float* lp, float* final_, short* tb, int T,
                          int B, int nhist, float stay_pen, float skip_pen,
-                         float local_pen, int use_slip, cudaStream_t stream) {
+                         float local_pen, int use_slip, int nthr, int nq,
+                         cudaStream_t stream) {
   if (B == 0) return (int)cudaSuccess;
+  if (nthr < 32 || nthr > FWD_THREADS || nthr % 32 || (long)4 * nthr * nq < nhist ||
+      nhist % 16 || (use_slip && nhist % 64))
+    return (int)cudaErrorInvalidValue;
   const DpParams p{stay_pen, skip_pen, local_pen, use_slip};
-  // One thread per history state up to 1024 (whole warps), then SPT states
-  // a thread, the least power of two that covers nhist.
-  const int threads = nhist < 1024 ? (nhist + 31) / 32 * 32 : 1024;
-  const int spt = (nhist + threads - 1) / threads;
-  if (spt <= 1) return launch_fwd<1>(lp, final_, tb, T, B, nhist, p, threads, stream);
-  if (spt <= 2) return launch_fwd<2>(lp, final_, tb, T, B, nhist, p, threads, stream);
-  if (spt <= 4) return launch_fwd<4>(lp, final_, tb, T, B, nhist, p, threads, stream);
-  if (spt <= 8) return launch_fwd<8>(lp, final_, tb, T, B, nhist, p, threads, stream);
-  if (spt <= 16) return launch_fwd<16>(lp, final_, tb, T, B, nhist, p, threads, stream);
-  if (spt <= 32) return launch_fwd<32>(lp, final_, tb, T, B, nhist, p, threads, stream);
-  return (int)cudaErrorInvalidValue;
+  auto go = [&](auto fn) { return fn(lp, final_, tb, T, B, nhist, p, nthr, stream); };
+  switch (nq) {
+    case 1: return go(launch_fwd<1>);
+    case 2: return go(launch_fwd<2>);
+    case 4: return go(launch_fwd<4>);
+    case 8: return go(launch_fwd<8>);
+    case 16: return go(launch_fwd<16>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int scrappie_viterbi_fused(const float* h, const float* W, const float* bvec,

@@ -5,10 +5,12 @@ src/decode.c:1016-1401). Aligns raw samples to a predicted squiggle
 (per-position current, log sd and -log dwell from the squiggle networks).
 States: start, npos sequence positions, end, plus npos "back" states
 modelling backward translocation; start and end absorb unmapped signal at
-local_pen per sample. The DP runs in ops/dtw.py: the CUDA kernel for a
-CUDA tensor, its plain twin for a CPU one. The penalties and the walk of
-the Viterbi traceback stay on the host in numpy, as in the JAX package:
-the traceback [nsample, 2*npos+2] int32 is copied to the host whole.
+local_pen per sample. The DP and the walk of its traceback run in
+ops/dtw.py: the CUDA kernels for a CUDA tensor, their plain twins for a CPU
+one. The traceback (a move byte a state and sample) stays on the device;
+only the path [nsample] int32 and the final scores reach the host, where
+the penalties are made and the path is relabelled in numpy, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from scrappie_torch.device import float_tensor
-from scrappie_torch.ops.dtw import squiggle_match_tm
+from scrappie_torch.ops.dtw import dtw_walk, squiggle_match_tm
 
 
 def _penalties(params, rate: float, prob_back: float):
@@ -68,19 +70,15 @@ def squiggle_match_viterbi(signal, params, rate=1.0, prob_back=0.0,
     prob_back = float(prob_back)
     npos = np.asarray(params).shape[0]
     nfstate = npos + 2
-    final, tbs = _match(signal, params, rate,
-                        prob_back if prob_back > 0 else 0.0, local_pen,
-                        skip_pen, minscore, True, device)
+    final, moves, end_src = _match(signal, params, rate,
+                                   prob_back if prob_back > 0 else 0.0,
+                                   local_pen, skip_pen, minscore, True, device)
+    # Final state: last position or end state (ref :1195-1202), then back
+    # through the moves
+    path = dtw_walk(final, moves, end_src).cpu().numpy()
     final = final.cpu().numpy()
-    tbs = tbs.cpu().numpy()
-    nsample = tbs.shape[0]
-
-    # Final state: last position or end state (ref :1195-1202)
     score = float(max(final[nfstate - 2], final[nfstate - 1]))
-    path = np.zeros(nsample, dtype=np.int32)
-    path[-1] = nfstate - 2 if final[nfstate - 2] > final[nfstate - 1] else nfstate - 1
-    for s in range(nsample - 1, 0, -1):
-        path[s - 1] = tbs[s, path[s]]
+    nsample = path.shape[0]
 
     # Relabel (ref :1210-1234): leading starts / trailing ends -> -1,
     # back states -> position, fwd states -> position (index - 1).
@@ -103,7 +101,7 @@ def squiggle_match_forward(signal, params, rate=1.0, prob_back=0.0,
     """Forward score of the signal-squiggle alignment (ref
     src/decode.c:1262-1401)."""
     nfstate = np.asarray(params).shape[0] + 2
-    final, _ = _match(signal, params, rate, float(prob_back), local_pen,
-                      skip_pen, minscore, False, device)
+    final, _, _ = _match(signal, params, rate, float(prob_back), local_pen,
+                         skip_pen, minscore, False, device)
     final = final.cpu().numpy()
     return float(np.logaddexp(final[nfstate - 2], final[nfstate - 1]))

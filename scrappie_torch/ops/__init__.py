@@ -35,6 +35,7 @@ LAUNCHES: dict[str, int] = {
     "lstm_pair": 0,
     "lstm_layer_global": 0,
     "dtw": 0,
+    "dtw_walk": 0,
     "seqmap": 0,
 }
 

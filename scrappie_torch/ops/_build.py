@@ -33,7 +33,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "scrappie_gru_layer": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "scrappie_gru_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "scrappie_viterbi_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P),
+    "scrappie_viterbi_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P),
     "scrappie_viterbi_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                                _F, _F, _F, _F, _I, _P),
     "scrappie_viterbi_fused_ens": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -47,8 +47,10 @@ _SIGNATURES = {
     "scrappie_lstm_pair": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "scrappie_head": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
                       _P),
-    "scrappie_dtw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
-                     _F, _F, _I, _I, _P),
+    "scrappie_dtw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                     _F, _F, _F, _I, _I, _I, _I, _I, _P),
+    "scrappie_dtw_max_clusters": (_I, _I, _I, _I, _I),
+    "scrappie_dtw_walk": (_P, _P, _P, _P, _I, _I, _P),
     "scrappie_seqmap": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P),
 }
 

@@ -27,16 +27,26 @@ and the twin: in float64 and rounded to float32, which is the fused
 multiply-add that XLA's CPU backend makes of `move_pen - local_pen * k`.
 `scales` is an input, so callers hand both versions one exp(logscales).
 
-On a CUDA tensor `squiggle_match_tm` launches the kernel of csrc/dtw.cu
-(state in shared memory up to DTW_MAX_SHARED_NPOS positions, in global
-memory above); on a CPU tensor it runs `squiggle_match_plain`. Outputs:
-final [2*npos+2] f32 and, for Viterbi, a traceback [T, 2*npos+2] int32
-(None for the forward variant). There is no lane or time padding.
+The Viterbi traceback is a byte a state, the winning candidate (forward
+states: 0 stay, 1 step, 2 skip, 3 start, 4 end, 5 back; back states: 0
+stay, 1 move back), plus end_src [T] int32, the end jump's first argmax at
+every sample: `moves_to_states` rebuilds JAX's int32 traceback from them,
+and `dtw_walk` follows them back from the final state to the path.
+
+On a CUDA tensor `squiggle_match_tm` launches the kernel of csrc/dtw.cu: a
+cluster of DTW_CLUSTER CTAs, each holding its share of the states in
+shared memory (`cluster_layout`), for squiggles up to
+DTW_MAX_SHARED_NPOS positions; above that, a shape limit and not a
+fallback, one block with the states in global memory. On a CPU tensor it
+runs `squiggle_match_plain`. Outputs: final [2*npos+2] f32 and, for
+Viterbi, moves [T, 2*npos+2] uint8 and end_src [T] int32 (None for the
+forward variant). There is no lane or time padding.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,18 +58,71 @@ LOG_HALF = float(np.float32(np.log(0.5)))
 LOG2 = float(np.float32(np.log(2.0)))
 #: Samples whose emissions the twin computes at once.
 EMIT_BLOCK = 256
-#: Bytes of static shared memory the kernel keeps for its reductions.
-_RED_BYTES = 1024
+#: Move bytes of the forward states' candidates, and the back states'.
+STAY, STEP, SKIP, START, END, BACK = range(6)
+MOVE_BACK = 1
+#: CTAs of the cluster one read runs on (csrc/dtw.cu allows 1 to 16; above
+#: 8 the size is non-portable, and a card that cannot place it refuses the
+#: launch), threads a CTA at most, and the states a thread may own.
+DTW_CLUSTER = 16
+DTW_THREADS_MAX = 512
+DTW_SPTS = (1, 2, 4)
+#: Bytes of static shared memory the cluster kernel keeps for the end
+#: jump's partials: (max, sum, index) of up to 16 x 16 warps, two slots.
+RED_BYTES = 2 * 3 * 4 * 16 * (DTW_THREADS_MAX // 32)
 
 
-def shared_state_bytes(npos: int) -> int:
-    """Dynamic shared memory of the kernel's shared-state variant: the
-    forward and back scores, double-buffered."""
-    return 4 * 2 * (2 * npos + 2)
+class ClusterLayout(NamedTuple):
+    """One read's states on a cluster: ncta CTAs of `threads` threads; CTA c
+    owns the forward states [c per, min((c+1) per, npos+2)) and their
+    positions' back states, `spt` consecutive states a thread."""
+    ncta: int
+    per: int
+    spt: int
+    threads: int
 
 
-#: Largest npos whose state the kernel keeps in shared memory.
-DTW_MAX_SHARED_NPOS = ((ops.MAX_SMEM_BYTES - _RED_BYTES) // 8 - 2) // 2
+def cluster_capacity(cluster: int = DTW_CLUSTER) -> int:
+    """The most positions a cluster of `cluster` CTAs holds."""
+    return cluster * DTW_THREADS_MAX * DTW_SPTS[-1] - 2
+
+
+#: Largest npos whose states the kernel keeps in a cluster's shared memory.
+DTW_MAX_SHARED_NPOS = cluster_capacity()
+
+
+def cluster_layout(npos: int, cluster: int = DTW_CLUSTER) -> ClusterLayout:
+    """The states of one read on at most `cluster` CTAs: one CTA while its
+    npos + 2 forward states fit DTW_THREADS_MAX threads at one a thread
+    (the kernel then needs only the block's barrier a sample, and on the
+    H100 a single CTA was faster there and not beyond); else `cluster`
+    CTAs, each owning at least two forward states (its right neighbour's
+    halo) and a multiple of the states a thread owns, so no thread
+    straddles two CTAs, with the fewest states a thread that fit
+    DTW_THREADS_MAX threads. Raises above the cluster's capacity
+    (DTW_MAX_SHARED_NPOS at DTW_CLUSTER)."""
+    if not 1 <= cluster <= 16:
+        raise ValueError(f"a cluster has 1 to 16 CTAs, got {cluster}")
+    if npos > cluster_capacity(cluster):
+        raise ValueError(
+            f"npos={npos} exceeds the shared-memory limit of a {cluster}-CTA "
+            f"cluster, {cluster_capacity(cluster)} positions "
+            f"(DTW_MAX_SHARED_NPOS = {DTW_MAX_SHARED_NPOS} at DTW_CLUSTER = "
+            f"{DTW_CLUSTER}); the global-state kernel takes it")
+    nf = npos + 2
+    per = max(2, -(-nf // cluster)) if nf > DTW_THREADS_MAX else nf
+    spt = next(s for s in DTW_SPTS if -(-per // s) <= DTW_THREADS_MAX)
+    per = -(-per // spt) * spt
+    threads = -(-(per // spt) // 32) * 32
+    return ClusterLayout(-(-nf // per), per, spt, threads)
+
+
+def shared_state_bytes(npos: int, cluster: int = DTW_CLUSTER) -> int:
+    """Dynamic shared memory of a CTA of the cluster kernel: its forward
+    and back scores with their halos and f[0], double-buffered, over the
+    span of its threads' states."""
+    lay = cluster_layout(npos, cluster)
+    return 4 * 2 * (2 * lay.threads * lay.spt + 5)
 
 
 def move_back_penalty(prob_back: float) -> float:
@@ -123,9 +186,10 @@ def squiggle_match_plain(sig, locs, scales, logscales, move_pen, stay_pen,
                          prob_back, local_pen, skip_pen, minscore,
                          viterbi: bool = True):
     """Plain twin of the kernel (the scan of decode/dtw.py): sig [T] ->
-    (final [2*npos+2], tb [T, 2*npos+2] int32 or None). For Viterbi the
-    candidates of a state are stacked in the scan's order and the first
-    maximum is taken, which is what its chain of strict `>` takes."""
+    (final [2*npos+2], moves [T, 2*npos+2] uint8, end_src [T] int32), the
+    last two None for the forward variant. For Viterbi the candidates of a
+    state are stacked in the scan's order and the first maximum is taken,
+    which is what its chain of strict `>` takes; its index is the move."""
     _check(sig, locs, scales, logscales, move_pen, stay_pen)
     T, npos = sig.shape[0], locs.shape[0]
     nf = npos + 2
@@ -133,69 +197,141 @@ def squiggle_match_plain(sig, locs, scales, logscales, move_pen, stay_pen,
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
     mbp, skip, local = f32(move_back_penalty(prob_back)), f32(skip_pen), f32(local_pen)
     sj, ej = jumps(move_pen, local_pen)
-    lanes = torch.arange(nf, dtype=torch.int32, device=dev)
-    back = torch.arange(npos, dtype=torch.int32, device=dev)
     # forward candidates: stay, step, skip, start, end, from back; back
     # candidates: stay, move back. Entries no move reaches stay -1e30
     # (-inf for the end row, which only the end state takes).
     cf = torch.full((6, nf), -LARGE, dtype=torch.float32, device=dev)
-    cf[4] = -float("inf")
+    cf[END] = -float("inf")
     cb = torch.full((2, npos), -LARGE, dtype=torch.float32, device=dev)
-    tb_f = torch.stack([lanes, lanes - 1, lanes - 2, torch.zeros_like(lanes),
-                        lanes, lanes + nf - 2])
-    tb_b = torch.stack([back + nf, back + 2])
 
     f = torch.full((nf,), -LARGE, dtype=torch.float32, device=dev)
     f[0] = 0.0
     b = torch.full((npos,), -LARGE, dtype=torch.float32, device=dev)
-    tb = (torch.empty((T, nf + npos), dtype=torch.int32, device=dev)
-          if viterbi else None)
+    moves = (torch.empty((T, nf + npos), dtype=torch.uint8, device=dev)
+             if viterbi else None)
+    end_src = torch.empty(T, dtype=torch.int32, device=dev) if viterbi else None
 
     for t0 in range(0, T, EMIT_BLOCK):
         em_blk = emissions(sig[t0:t0 + EMIT_BLOCK], locs, scales, logscales,
                            minscore)
         for i in range(em_blk.shape[0]):
-            torch.add(f, stay_pen, out=cf[0])
-            torch.add(f[:-1], move_pen[:-1], out=cf[1, 1:])
-            torch.sub(f[:-2] + move_pen[:-2], skip, out=cf[2, 2:])
-            torch.add(f[0], sj, out=cf[3])
-            torch.add(b[:npos - 1], LOG_HALF, out=cf[5, 2:nf - 1])
-            torch.add(b, LOG_HALF, out=cb[0])
-            torch.add(f[2:nf - 1], mbp, out=cb[1, :npos - 1])
+            torch.add(f, stay_pen, out=cf[STAY])
+            torch.add(f[:-1], move_pen[:-1], out=cf[STEP, 1:])
+            torch.sub(f[:-2] + move_pen[:-2], skip, out=cf[SKIP, 2:])
+            torch.add(f[0], sj, out=cf[START])
+            torch.add(b[:npos - 1], LOG_HALF, out=cf[BACK, 2:nf - 1])
+            torch.add(b, LOG_HALF, out=cb[STAY])
+            torch.add(f[2:nf - 1], mbp, out=cb[MOVE_BACK, :npos - 1])
             ev = f + ej
             if viterbi:
                 # torch.max along a dimension returns the first maximum
                 endc, esrc = ev.max(0)
-                cf[4, nf - 1] = endc
-                tb_f[4, nf - 1] = esrc
+                cf[END, nf - 1] = endc
                 newf, kf = cf.max(0)
                 newb, kb = cb.max(0)
-                tb[t0 + i, :nf] = tb_f.gather(0, kf[None])[0]
-                tb[t0 + i, nf:] = tb_b.gather(0, kb[None])[0]
+                moves[t0 + i, :nf] = kf
+                moves[t0 + i, nf:] = kb
+                end_src[t0 + i] = esrc
             else:
-                newf = cf[0]
-                for k in (1, 2, 3):
+                newf = cf[STAY]
+                for k in (STEP, SKIP, START):
                     newf = ops.logaddexp(newf, cf[k])
                 newf = newf.clone()
                 newf[nf - 1] = ops.logaddexp(newf[nf - 1], ops.logsumexp(ev))
-                newf = ops.logaddexp(newf, cf[5])
-                newb = ops.logaddexp(cb[0], cb[1])
+                newf = ops.logaddexp(newf, cf[BACK])
+                newb = ops.logaddexp(cb[STAY], cb[MOVE_BACK])
             em = em_blk[i]
             newf[1:npos + 1] += em
             newf[::nf - 1] -= local
             f, b = newf, newb + em
-    return torch.cat([f, b]), tb
+    return torch.cat([f, b]), moves, end_src
+
+
+def moves_to_states(moves, end_src):
+    """The int32 state traceback [T, 2*npos+2] of the JAX package (each
+    state's predecessor) from the moves [T, 2*npos+2] and end_src [T]."""
+    T, nstate = moves.shape
+    nf = (nstate + 2) // 2
+    st = torch.arange(nf, dtype=torch.int32, device=moves.device)
+    j = torch.arange(nstate - nf, dtype=torch.int32, device=moves.device)
+    fwd = torch.stack([st, st - 1, st - 2, torch.zeros_like(st), st,
+                       st + nf - 2])
+    bwd = torch.stack([j + nf, j + 2])
+    k = moves.long()
+    states = torch.cat([fwd.gather(0, k[:, :nf]), bwd.gather(0, k[:, nf:])], 1)
+    states[:, :nf] = torch.where(k[:, :nf] == END, end_src[:, None], states[:, :nf])
+    return states
+
+
+def dtw_walk_plain(final, moves, end_src):
+    """Plain twin of the walk kernel, on the host: the last position's
+    state if its final score beats the end state's, else the end state;
+    then each earlier sample's state from the move that entered the later
+    one. Returns path [T] int32 on final's device."""
+    T, nstate = moves.shape
+    nf = (nstate + 2) // 2
+    fin = final.cpu().numpy()
+    mv = moves.cpu().numpy()
+    src = end_src.cpu().numpy()
+    path = np.zeros(T, dtype=np.int32)
+    if T == 0:
+        return torch.from_numpy(path).to(final.device)
+    cur = nf - 2 if fin[nf - 2] > fin[nf - 1] else nf - 1
+    path[-1] = cur
+    for s in range(T - 1, 0, -1):
+        k = mv[s, cur]
+        if cur >= nf:  # a back state: stay, or move back from cur - nf + 2
+            cur = cur if k == STAY else cur - nf + 2
+        elif k == STEP:
+            cur -= 1
+        elif k == SKIP:
+            cur -= 2
+        elif k == START:
+            cur = 0
+        elif k == END:
+            cur = int(src[s])
+        elif k == BACK:
+            cur += nf - 2
+        path[s - 1] = cur
+    return torch.from_numpy(path).to(final.device)
+
+
+def dtw_walk(final, moves, end_src):
+    """The Viterbi path [T] int32 of a squiggle match from its final scores
+    [2*npos+2], moves [T, 2*npos+2] uint8 and end_src [T] int32: on a CUDA
+    tensor the walk kernel of csrc/dtw.cu, which leaves the traceback on
+    the card, else `dtw_walk_plain`."""
+    if not ops.on_cuda(final, moves, end_src):
+        return dtw_walk_plain(final, moves, end_src)
+    from scrappie_torch.ops import _build
+
+    T, nstate = moves.shape
+    ops.check_kernel_input("final", final, (nstate,))
+    ops.check_kernel_input("moves", moves, (T, nstate), torch.uint8)
+    ops.check_kernel_input("end_src", end_src, (T,), torch.int32)
+    path = torch.empty(T, dtype=torch.int32, device=final.device)
+    with torch.cuda.device(final.device):
+        err = _build.library().scrappie_dtw_walk(
+            final.data_ptr(), moves.data_ptr(), end_src.data_ptr(),
+            path.data_ptr(), T, (nstate - 2) // 2,
+            ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, "dtw_walk")
+    ops.LAUNCHES["dtw_walk"] += 1
+    return path
 
 
 def squiggle_match_tm(sig, locs, scales, logscales, move_pen, stay_pen,
                       prob_back, local_pen, skip_pen, minscore,
-                      viterbi: bool = True, global_state: bool | None = None):
+                      viterbi: bool = True, global_state: bool | None = None,
+                      cluster: int | None = None):
     """The squiggle-match DP of one read: sig [T] normalised samples;
     locs/scales/logscales [npos] (scales = exp(logscales)); move/stay_pen
-    [npos+2] -> (final [2*npos+2], tb [T, 2*npos+2] int32, or None for the
-    forward variant), states numbered as in decode/dtw.py. global_state
-    forces the kernel's state into global (True) or shared (False) memory;
-    by default it is shared up to DTW_MAX_SHARED_NPOS positions."""
+    [npos+2] -> (final [2*npos+2], moves [T, 2*npos+2] uint8, end_src [T]
+    int32; the last two None for the forward variant), states numbered as
+    in decode/dtw.py. The kernel runs on a cluster of `cluster` CTAs
+    (default DTW_CLUSTER) up to that cluster's capacity, and on one block
+    with its states in global memory above it: a dispatch on the shape.
+    global_state forces the global (True) or the cluster (False) kernel."""
     if not ops.on_cuda(sig, locs, scales, logscales, move_pen, stay_pen):
         return squiggle_match_plain(sig, locs, scales, logscales, move_pen,
                                     stay_pen, prob_back, local_pen, skip_pen,
@@ -205,27 +341,42 @@ def squiggle_match_tm(sig, locs, scales, logscales, move_pen, stay_pen,
     check_dtw_input(sig, locs, scales, logscales, move_pen, stay_pen)
     T, npos = sig.shape[0], locs.shape[0]
     nstate = 2 * npos + 2
-    shared = npos <= DTW_MAX_SHARED_NPOS if global_state is None else not global_state
-    if shared and npos > DTW_MAX_SHARED_NPOS:
-        raise ValueError(f"npos={npos} does not fit in shared memory "
-                         f"(at most {DTW_MAX_SHARED_NPOS})")
+    cluster = DTW_CLUSTER if cluster is None else cluster
+    if global_state is None:
+        global_state = npos > cluster_capacity(cluster)
+    lay = ClusterLayout(0, 0, 0, 0) if global_state else cluster_layout(npos, cluster)
     dev = sig.device
     sj, ej = jumps(move_pen, local_pen)
     final = torch.empty(nstate, dtype=torch.float32, device=dev)
-    tb = (torch.empty((T, nstate), dtype=torch.int32, device=dev)
-          if viterbi else None)
-    scratch = (None if shared else
-               torch.empty(2 * nstate, dtype=torch.float32, device=dev))
+    moves = (torch.empty((T, nstate), dtype=torch.uint8, device=dev)
+             if viterbi else None)
+    end_src = torch.empty(T, dtype=torch.int32, device=dev) if viterbi else None
+    scratch = (torch.empty(2 * nstate, dtype=torch.float32, device=dev)
+               if global_state else None)
     ptr = lambda t: 0 if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = _build.library().scrappie_dtw(
             sig.data_ptr(), locs.data_ptr(), scales.data_ptr(),
             logscales.data_ptr(), move_pen.data_ptr(), stay_pen.data_ptr(),
             sj.data_ptr(), ej.data_ptr(), ptr(scratch), final.data_ptr(),
-            ptr(tb), T, npos, ops.f32(skip_pen), ops.f32(local_pen),
-            ops.f32(minscore),
-            move_back_penalty(prob_back), int(viterbi), int(shared),
+            ptr(moves), ptr(end_src), T, npos, ops.f32(skip_pen),
+            ops.f32(local_pen), ops.f32(minscore), move_back_penalty(prob_back),
+            int(viterbi), lay.ncta, lay.threads, lay.per, lay.spt,
             ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, "dtw")
     ops.LAUNCHES["dtw"] += 1
-    return final, tb
+    return final, moves, end_src
+
+
+def max_active_clusters(npos: int, cluster: int = DTW_CLUSTER,
+                        viterbi: bool = True) -> int:
+    """cudaOccupancyMaxActiveClusters of the cluster kernel at npos
+    positions: how many such clusters the card holds at once (0: none)."""
+    from scrappie_torch.ops import _build
+
+    lay = cluster_layout(npos, cluster)
+    n = _build.library().scrappie_dtw_max_clusters(int(viterbi), lay.ncta,
+                                                   lay.threads, lay.per, lay.spt)
+    if n < 0:
+        _build.check(-n, "dtw max active clusters")
+    return n

@@ -43,6 +43,11 @@ MAX_TB_STATE = 2**15 - 1
 #: csrc/head.cu's shared memory: columns and depth of a W slice (NT, KT),
 #: padded row of the transposed h tile (HP).
 HEAD_NT, HEAD_KT, HEAD_HP = 128, 32, 132
+#: csrc/viterbi.cu's forward: at most FWD_THREADS_MAX history threads a
+#: block (whole warps), each owning FWD_QUADS[i] quads of four states,
+#: and one more warp that does the END state alone.
+FWD_THREADS_MAX = 512
+FWD_QUADS = (1, 2, 4, 8, 16)
 
 
 def _check_nhist(nhist: int, use_slip: bool) -> None:
@@ -255,6 +260,24 @@ def check_fused_ens_input(h_tm, W, bvec, weights) -> None:
     ops.check_kernel_input("weights", weights, (K,))
 
 
+def forward_launch(nhist: int) -> tuple[int, int]:
+    """(history threads a block, quads a thread) of the forward kernel: the
+    nhist / 4 quads on the fewest whole warps up to FWD_THREADS_MAX (256
+    threads at nhist = 1024), with the fewest quads a thread in FWD_QUADS
+    that cover them. (On the H100, 128 threads with twice the quads, and
+    END on warp 0 in place of its own warp, were slower at every shape
+    timed: PERF.md.)"""
+    quads = nhist // 4
+    threads = min(FWD_THREADS_MAX, -(-quads // 32) * 32)
+    need = -(-quads // threads)
+    nq = next((q for q in FWD_QUADS if q >= need), None)
+    if nq is None:
+        raise ValueError(f"nhist={nhist} needs {need} quads a thread on "
+                         f"{threads} threads; the kernel takes up to "
+                         f"{FWD_QUADS[-1]}")
+    return threads, nq
+
+
 def viterbi_scores_tm(lp_tm, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
                       use_slip: bool = False):
     """Forward Viterbi over time-major log posteriors [T, B, nhist+1] ->
@@ -270,6 +293,7 @@ def viterbi_scores_tm(lp_tm, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
     _check_nhist(nhist, use_slip)
     _check_kernel_nhist(nhist)
     ops.check_kernel_input("lp", lp_tm, (T, B, nstate))
+    nthr, nq = forward_launch(nhist)
     final = torch.empty((B, nhist + 2), dtype=torch.float32, device=lp_tm.device)
     tb = torch.empty((T, B, nhist + 2), dtype=torch.int16, device=lp_tm.device)
     if B == 0:
@@ -278,7 +302,7 @@ def viterbi_scores_tm(lp_tm, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
         err = _build.library().scrappie_viterbi_fwd(
             lp_tm.data_ptr(), final.data_ptr(), tb.data_ptr(), T, B, nhist,
             ops.f32(stay_pen), ops.f32(skip_pen), ops.f32(local_pen), int(use_slip),
-            ctypes.c_void_p(ops.stream_handle()))
+            nthr, nq, ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, "viterbi_fwd")
     ops.LAUNCHES["viterbi_fwd"] += 1
     return final, tb

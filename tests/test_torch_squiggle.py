@@ -147,26 +147,133 @@ def _dtw_inputs(npos: int, T: int, prob_back: float, seed: int):
             (sig, params[:, 0], scales, params[:, 1], move_pen, stay_pen)]
 
 
-@pytest.mark.parametrize("npos,T", [(20, 37), (15, 40), (60, 400)])
-@pytest.mark.parametrize("viterbi", [True, False])
-@pytest.mark.parametrize("prob_back", [0.0, 0.1])
-def test_dtw_twin_matches_jax(npos, T, viterbi, prob_back):
-    arrays = _dtw_inputs(npos, T, prob_back, seed=npos + T)
+def _tie_inputs(npos: int, T: int, prob_back: float, seed: int):
+    """Integer signal and locs, unit scales and one dwell: emissions and
+    penalties repeat, so scores and candidates tie everywhere, and the
+    first-max rules decide the moves."""
+    rng = np.random.default_rng(seed)
+    params = np.zeros((npos, 3), np.float32)
+    params[:, 0] = rng.integers(-2, 3, npos)
+    sig = rng.integers(-2, 3, T).astype(np.float32)
+    with np.errstate(divide="ignore"):
+        move_pen, stay_pen = jdtw._penalties(params, 1.0, prob_back)
+    return [np.ascontiguousarray(a) for a in
+            (sig, params[:, 0], np.exp(params[:, 1]), params[:, 1], move_pen,
+             stay_pen)]
+
+
+def _check_dtw_twin(arrays, viterbi, prob_back):
+    """The twin's final within FINAL_TOL of the scan's and the Pallas
+    kernel's (interpret mode); for Viterbi its moves, through
+    moves_to_states, equal to both int32 tracebacks."""
+    T, npos = arrays[0].shape[0], arrays[1].shape[0]
     scalars = (prob_back, 2.0, 0.5, 5.0)
     jargs = (*map(jnp.asarray, arrays), *scalars)
     scan_final, scan_tb = jdtw._squiggle_match(*jargs, viterbi)
     pallas_final, pallas_tb = j_match_tm(*jargs, viterbi=viterbi, interpret=True)
-    final, tb = tops.squiggle_match_tm(*map(torch.from_numpy, arrays), *scalars,
-                                       viterbi=viterbi)
+    final, moves, end_src = tops.squiggle_match_tm(
+        *map(torch.from_numpy, arrays), *scalars, viterbi=viterbi)
     assert final.shape == (2 * npos + 2,)
     for ref in (scan_final, pallas_final):
         np.testing.assert_allclose(final.numpy(), np.asarray(ref), **FINAL_TOL)
     if viterbi:
-        assert tb.dtype == torch.int32 and tb.shape == (T, 2 * npos + 2)
-        np.testing.assert_array_equal(tb.numpy(), np.asarray(scan_tb))
-        np.testing.assert_array_equal(tb.numpy(), np.asarray(pallas_tb))
+        assert moves.dtype == torch.uint8 and moves.shape == (T, 2 * npos + 2)
+        assert end_src.dtype == torch.int32 and end_src.shape == (T,)
+        states = tops.moves_to_states(moves, end_src)
+        assert states.dtype == torch.int32
+        np.testing.assert_array_equal(states.numpy(), np.asarray(scan_tb))
+        np.testing.assert_array_equal(states.numpy(), np.asarray(pallas_tb))
     else:
-        assert tb is None
+        assert moves is None and end_src is None
+
+
+@pytest.mark.parametrize("npos,T", [(20, 37), (15, 40), (60, 400)])
+@pytest.mark.parametrize("viterbi", [True, False])
+@pytest.mark.parametrize("prob_back", [0.0, 0.1])
+def test_dtw_twin_matches_jax(npos, T, viterbi, prob_back):
+    _check_dtw_twin(_dtw_inputs(npos, T, prob_back, seed=npos + T), viterbi,
+                    prob_back)
+
+
+@pytest.mark.parametrize("viterbi", [True, False])
+@pytest.mark.parametrize("prob_back", [0.0, 0.1])
+def test_dtw_twin_matches_jax_on_ties(viterbi, prob_back):
+    _check_dtw_twin(_tie_inputs(40, 300, prob_back, seed=41), viterbi, prob_back)
+
+
+def _walk_states(final: np.ndarray, tb: np.ndarray) -> np.ndarray:
+    """The host walk over an int32 state traceback, as scrappie_tpu's
+    squiggle_match_viterbi takes it before relabelling."""
+    nf = (tb.shape[1] + 2) // 2
+    path = np.zeros(tb.shape[0], dtype=np.int32)
+    path[-1] = nf - 2 if final[nf - 2] > final[nf - 1] else nf - 1
+    for s in range(tb.shape[0] - 1, 0, -1):
+        path[s - 1] = tb[s, path[s]]
+    return path
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("prob_back", [0.0, 0.1])
+def test_dtw_walk_matches_the_walk_over_jax_traceback(ties, prob_back):
+    """The walk over (final, moves, end_src) takes the states the walk over
+    JAX's int32 traceback takes, sample for sample; relabelled, the path is
+    jdtw.squiggle_match_viterbi's."""
+    make = _tie_inputs if ties else _dtw_inputs
+    arrays = make(50, 500, prob_back, seed=7)
+    scalars = (prob_back, 2.0, 0.5, 5.0)
+    jfinal, jtb = jdtw._squiggle_match(*map(jnp.asarray, arrays), *scalars, True)
+    final, moves, end_src = tops.squiggle_match_tm(
+        *map(torch.from_numpy, arrays), *scalars)
+    ops.reset_launches()
+    path = tops.dtw_walk(final, moves, end_src)
+    assert ops.LAUNCHES["dtw_walk"] == 0
+    assert path.dtype == torch.int32 and path.shape == (500,)
+    want = _walk_states(np.asarray(jfinal), np.asarray(jtb))
+    np.testing.assert_array_equal(path.numpy(), want)
+    assert len(np.unique(want)) > 20  # the path moves along the squiggle
+    params = np.stack([arrays[1], arrays[3], np.zeros_like(arrays[1])], axis=1)
+    kw = dict(prob_back=prob_back, local_pen=2.0, skip_pen=0.5, minscore=5.0)
+    _, jpath = jdtw.squiggle_match_viterbi(arrays[0], params, **kw)
+    _, tpath = tdtw.squiggle_match_viterbi(arrays[0], params, device="cpu", **kw)
+    np.testing.assert_array_equal(tpath, jpath)
+
+
+@pytest.mark.parametrize("cluster", [1, 4, 8, 16])
+def test_dtw_cluster_layout_owns_each_state_once(cluster):
+    """Every forward state (and with it its position's back state) has one
+    owner; each CTA holds at least two states, so the halos (two forward
+    states and a back state to the left, one forward state to the right)
+    come from its neighbours; a thread's states never straddle two CTAs; a
+    read whose states fit one CTA at one a thread takes one CTA; and the
+    limit is refused by name."""
+    for npos in sorted({1, 2, 5, 17, 100, 510, 511, 2047, 3000, 6000,
+                        tops.cluster_capacity(cluster)}):
+        if npos > tops.cluster_capacity(cluster):
+            continue
+        lay = tops.cluster_layout(npos, cluster)
+        nf = npos + 2
+        assert 1 <= lay.ncta <= cluster and lay.spt in tops.DTW_SPTS
+        assert lay.threads % 32 == 0 and lay.threads <= tops.DTW_THREADS_MAX
+        assert lay.per >= 2 and lay.per % lay.spt == 0
+        assert lay.threads * lay.spt >= lay.per
+        owner = np.full(nf, -1)
+        for c in range(lay.ncta):
+            s0, s1 = c * lay.per, min((c + 1) * lay.per, nf)
+            assert s1 - s0 >= (1 if c == lay.ncta - 1 else 2)
+            for t in range(lay.threads):
+                sts = range(s0 + t * lay.spt, min(s0 + (t + 1) * lay.spt, s1))
+                assert all(owner[st] == -1 for st in sts)
+                owner[list(sts)] = c
+        assert (owner >= 0).all()
+        assert (lay.ncta == 1) == (nf <= tops.DTW_THREADS_MAX or cluster == 1)
+        if lay.ncta > 1:
+            assert lay.spt == min(s for s in tops.DTW_SPTS if -(-max(
+                2, -(-nf // cluster)) // s) <= tops.DTW_THREADS_MAX)
+        assert tops.shared_state_bytes(npos, cluster) + tops.RED_BYTES <= ops.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="DTW_MAX_SHARED_NPOS"):
+        tops.cluster_layout(tops.cluster_capacity(cluster) + 1, cluster)
+    with pytest.raises(ValueError, match="1 to 16"):
+        tops.cluster_layout(100, 17)
 
 
 @pytest.mark.parametrize("prob_back", [0.0, 0.1])
@@ -208,11 +315,14 @@ def test_map_signal_to_squiggle_matches_jax(options):
 def test_dtw_launches_nothing_on_the_cpu_and_sizes_its_state():
     ops.reset_launches()
     arrays = [torch.from_numpy(a) for a in _dtw_inputs(10, 20, 0.0, seed=1)]
-    tops.squiggle_match_tm(*arrays, 0.0, 2.0, 0.5, 5.0)
-    assert ops.LAUNCHES["dtw"] == 0
-    assert tops.DTW_MAX_SHARED_NPOS == 14463
-    assert tops.shared_state_bytes(tops.DTW_MAX_SHARED_NPOS) + 1024 <= ops.MAX_SMEM_BYTES
-    assert tops.shared_state_bytes(tops.DTW_MAX_SHARED_NPOS + 1) + 1024 > ops.MAX_SMEM_BYTES
+    final, moves, end_src = tops.squiggle_match_tm(*arrays, 0.0, 2.0, 0.5, 5.0)
+    tops.dtw_walk(final, moves, end_src)
+    assert ops.LAUNCHES["dtw"] == ops.LAUNCHES["dtw_walk"] == 0
+    # a cluster of 16 CTAs of up to 512 threads, 4 states a thread
+    assert tops.DTW_MAX_SHARED_NPOS == 32766 == tops.cluster_capacity(16)
+    assert tops.shared_state_bytes(tops.DTW_MAX_SHARED_NPOS) + tops.RED_BYTES <= ops.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="DTW_MAX_SHARED_NPOS"):
+        tops.shared_state_bytes(tops.DTW_MAX_SHARED_NPOS + 1)
 
 
 def test_dtw_input_checks():

@@ -196,6 +196,35 @@ def test_forward_kernel_limits_are_the_traceback_and_shared_memory():
         tv._check_fused_nhist(80)
 
 
+def test_forward_launch_covers_every_nhist_jax_takes():
+    """Every nhist the JAX package takes (a multiple of 16) that the kernel
+    accepted before its quad layout is still accepted, and has a launch
+    shape: whole warps, at most FWD_THREADS_MAX of them, quads a thread
+    from FWD_QUADS covering nhist / 4 quads with no idle warp; 256 threads
+    of one quad at nhist = 1024."""
+    def accepted_before(nhist):  # the int16 traceback, 2 nhist floats
+        return nhist + 1 <= tv.MAX_TB_STATE and 8 * nhist <= ops.MAX_SMEM_BYTES
+
+    largest = 0
+    for nhist in range(16, 40000, 16):
+        if not accepted_before(nhist):
+            with pytest.raises(ValueError):
+                tv._check_kernel_nhist(nhist)
+            continue
+        tv._check_kernel_nhist(nhist)
+        largest = nhist
+        nthr, nq = tv.forward_launch(nhist)
+        assert nthr % 32 == 0 and 32 <= nthr <= tv.FWD_THREADS_MAX
+        assert nq in tv.FWD_QUADS and 4 * nthr * nq >= nhist
+        assert 4 * (nthr - 32) * nq < nhist or nq > 1
+        assert nq == 1 or 4 * nthr * (nq // 2) < nhist
+    assert largest == 29056
+    assert tv.forward_launch(1024) == (256, 1)
+    assert tv.forward_launch(2048) == (512, 1)
+    assert tv.forward_launch(80) == (32, 1)
+    assert tv.forward_launch(29056) == (512, 16)
+
+
 @pytest.mark.parametrize("temps", [(1.0, 1.0), (0.8, 1.25)])
 def test_head_twin_then_forward_matches_pallas_fused(temps):
     """The paths' route on the CPU, the head twin's log posterior decoded by
