@@ -52,9 +52,13 @@ if any phase fails:
      main_path_raw) and times its fused path stage by stage
      (throughput_raw);
   9. holds the three CRF kernels (Viterbi forward, backtrace, partition
-     function) against their twins at T = 5000 blocks (a 10 000-sample
-     chunk at stride 2), B = 8 and 64: on the rnnrf head's transitions, on
-     integer transitions in {-3..0}, and with an emit bias of -1;
+     function) against their twins at T = 1, 7, 5000 (a 10 000-sample
+     chunk at stride 2) and 31 744 blocks (a stitch group of two reads)
+     and B = 1, 2, 5, 7, 8, 33, 64 and 256: on the rnnrf head's
+     transitions before and after globalnorm, on integer transitions in
+     {-3..0}, with an emit bias of -1, and with stitch padding blocks;
+     times them at T = 5000, B = 8 and 64, and at T = 31 744, B = 2
+     (phase crf_kernels);
  10. runs BasecallEngine("rnnrf_r94", device="cuda") in fast and stitch
      mode on the same 16 reads, checks the launch counters and every
      read's sequence, and compares two reads with the port's CPU run;
@@ -113,8 +117,9 @@ the least time the card could take for the same work), the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device":
 {...}}.
 
-With --ab it does none of that: it times the Viterbi forward, the DTW and
-map_signal_to_squiggle of another checkout of the repo (a `git archive`
+With --ab it does none of that: it times the Viterbi forward, the DTW,
+map_signal_to_squiggle, the CRF forward and partition function and the
+rnnrf fused path of another checkout of the repo (a `git archive`
 of the parent commit, say; its kernels are built there) and of this one
 on the same inputs, each in a fresh process, in turns other, this, this,
 other (time_checkout, compare_checkouts), and prints a JSON line a turn
@@ -139,7 +144,16 @@ CHUNK = 10000
 GRU_ATOL = 1e-4
 FUSED_RTOL = 1e-5
 FUSED_MIN_SAME_ROWS = 0.99
-PARTITION_RTOL = 1e-5    # expf/logf against torch's logsumexp, T = 5000
+PARTITION_RTOL = 1e-5    # expf/logf against torch's logsumexp, T up to 31 744
+NEUTRAL = -1e30          # a stitch pad block's moves into the emitting states
+# The CRF checks' shapes: rows that leave a warp's six-row groups part
+# filled and rows over several blocks; T below and off the prefetch depths,
+# a chunk and a stitch group of two ~62 000-sample reads at stride 2 (T
+# rounded up to parallel/runner.DECODE_BUCKET = 1024).
+CRF_BATCHES = (1, 2, 5, 7, 8, 33, 64, 256)
+CRF_STITCH = (31744, 2)  # (T, B)
+CRF_STEPS = (1, 7, T_CRF, CRF_STITCH[0])
+CRF_AB = ((T_CRF, 8), (T_CRF, 64), CRF_STITCH)  # the CRF shapes --ab times
 EMIT_BIAS = -1.0
 T_EVENTS = 2048          # events in a chunk of the events engine
 LSTM_ATOL = 1e-4
@@ -253,12 +267,16 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def card_line() -> str:
+def smi(query: str, fmt: str = "csv,noheader") -> str:
+    """nvidia-smi's answer to --query-gpu=query for card 0."""
     out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60)
+        ["nvidia-smi", "-i", "0", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return smi("name,power.limit")
 
 
 def sync() -> None:
@@ -1149,89 +1167,148 @@ def profile_and_scale(net, card: str, reads: list) -> None:
                   "card": card})
 
 
-def check_crf(trans, what: str) -> dict:
-    """The three CRF kernels against their twins on transitions [T, B, 25]:
-    forward tracebacks and finals, backtrace paths and scores identical,
-    the partition function within PARTITION_RTOL."""
-    import torch
-
-    from scrappie_torch.ops import crf as c
-
-    fk, tbk = c.crf_viterbi_scores_tm(trans)
-    fp, tbp = c.crf_viterbi_scores_tm_plain(trans)
-    sync()
-    require(torch.equal(tbk, tbp), f"crf_fwd traceback identical ({what})")
-    require(torch.equal(fk, fp), f"crf_fwd final identical ({what})")
-    sk, pk = c.crf_backtrace_tm(fk, tbk)
-    sp, pp = c.crf_backtrace_tm_plain(fk, tbk)
-    sync()
-    require(torch.equal(pk, pp), f"crf_backtrace path identical ({what})")
-    require(torch.equal(sk, sp), f"crf_backtrace score identical ({what})")
-    zk = c.crf_partition_tm(trans)
-    zp = c.crf_partition_tm_plain(trans)
-    sync()
-    require(bool(torch.isfinite(zk).all()), f"crf_partition finite ({what})")
-    # Relative to the magnitude the recursion carries, sum_t max |trans|:
-    # that is |logZ| for raw transitions, while after globalnorm logZ is
-    # about 0 and the error of its T-step sum is all there is.
-    scale = torch.maximum(zp.abs(), trans.abs().amax(-1).sum(0)).clamp(min=1.0)
-    rel = float(((zk - zp).abs() / scale).max())
-    require(rel <= PARTITION_RTOL,
-            f"crf_partition rel err {rel} <= {PARTITION_RTOL} ({what})")
-    return {"crf_fwd": float((fk - fp).abs().max()),
-            "crf_backtrace": float((pk - pp).abs().max()),
-            "crf_partition": float((zk - zp).abs().max()),
-            "crf_partition_rel": rel}
-
-
-def check_crf_kernels(rnet, B: int) -> dict:
-    """The CRF kernels on the rnnrf head's transitions of B chunks, on
-    integer transitions in {-3..0} (ties at almost every step) and with an
-    emit bias; then their times and their twins' (CUDA events; fewer
-    repeats for the twins, launch-bound loops over T)."""
+def crf_sets(rnet, T: int, rng) -> dict:
+    """The CRF checks' transition sets, [T, max(CRF_BATCHES), 25] on the
+    card: the rnnrf head before and after globalnorm on seeded signals of
+    2T samples, integer transitions in {-3..0} (ties at almost every step),
+    the head with an emit bias, and the head whose last quarter (at least
+    one block) is the stitch's neutral padding (-1e30 into the emitting
+    states, 0 into blank: parallel/runner._gather_decode_crf)."""
     import numpy as np
     import torch
 
     from scrappie_torch.nn.layers import feedforward, globalnorm_tm
-    from scrappie_torch.ops import crf as c
+    from scrappie_torch.ops.crf import add_emit_bias
     from scrappie_torch.ops.pipeline import rnnrf_features_tm
 
-    rng = np.random.default_rng(SEED + 10 + B)
-    p = rnet.params
-    sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1)).astype(np.float32),
+    B, p = max(CRF_BATCHES), rnet.params
+    sig = torch.as_tensor(rng.standard_normal((B, 2 * T, 1)).astype(np.float32),
                           device=rnet.device)
-    x = rnnrf_features_tm(p, sig, rnet.conv_activation, rnet.stride)
-    require(x.shape == (T_CRF, B, 96), f"rnnrf features shape {tuple(x.shape)}")
-    raw = feedforward(x, p["FF_W"], p["FF_b"])
+    # 64 rows a pass, as the fused path takes them (at T = 31 744 the
+    # projection of 256 rows would pass 2^31 elements)
+    x = torch.cat([rnnrf_features_tm(p, sig[i:i + 64], rnet.conv_activation,
+                                     rnet.stride) for i in range(0, B, 64)], dim=1)
+    require(x.shape == (T, B, 96), f"rnnrf features shape {tuple(x.shape)}")
     head = globalnorm_tm(x, p["FF_W"], p["FF_b"])
-    ties = torch.as_tensor(rng.integers(-3, 1, (T_CRF, B, 25)).astype(np.float32),
-                           device=rnet.device)
-    errs = {}
-    for what, trans in (("head before globalnorm", raw), ("head", head),
-                        ("integer transitions", ties),
-                        (f"head, emit bias {EMIT_BIAS}",
-                         c.add_emit_bias(head, EMIT_BIAS))):
-        for name, err in check_crf(trans, what).items():
-            errs[name] = max(errs.get(name, 0.0), err)
-    fk, tbk = c.crf_viterbi_scores_tm(head)
-    out = {name: {"max_abs_err": errs[name], **kernel_work(name, T=T_CRF, B=B)}
-           for name in ("crf_fwd", "crf_backtrace", "crf_partition")}
-    out["crf_partition"]["max_rel_err"] = errs["crf_partition_rel"]
-    timed = {"crf_fwd": (lambda: c.crf_viterbi_scores_tm(head),
-                         lambda: c.crf_viterbi_scores_tm_plain(head)),
-             "crf_backtrace": (lambda: c.crf_backtrace_tm(fk, tbk),
-                               lambda: c.crf_backtrace_tm_plain(fk, tbk)),
-             "crf_partition": (lambda: c.crf_partition_tm(raw),
-                               lambda: c.crf_partition_tm_plain(raw))}
-    for name, (kernel, plain) in timed.items():
-        out[name]["ms"] = cuda_ms(kernel)
-        out[name]["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
-        out[name]["us_per_step"] = out[name]["ms"] * 1e3 / T_CRF
-    emit({"phase": "crf_kernels", "B": B, "T": T_CRF,
-          "checked_on": ["head before globalnorm", "head", "integer transitions",
-                         f"head, emit bias {EMIT_BIAS}"],
-          "kernels": out})
-    return out
+    padded = head.clone()
+    npad = max(1, T // 4)
+    padded[T - npad:] = NEUTRAL
+    padded[T - npad:, :, 20:] = 0.0
+    return {"head before globalnorm": feedforward(x, p["FF_W"], p["FF_b"]),
+            "head": head,
+            "integer transitions": torch.as_tensor(
+                rng.integers(-3, 1, (T, B, 25)).astype(np.float32),
+                device=rnet.device),
+            f"head, emit bias {EMIT_BIAS}": add_emit_bias(head, EMIT_BIAS),
+            "head, stitch padding": padded}
+
+
+def check_crf(sets: dict) -> dict:
+    """The three CRF kernels against their twins on each set of
+    transitions [T, max(CRF_BATCHES), 25], at every B of CRF_BATCHES (the
+    kernel on the set's first B rows): forward tracebacks and finals,
+    backtrace paths and scores identical, the partition function within
+    PARTITION_RTOL. The twins, loops over T, run once on all sets' rows
+    side by side; every row is independent of the others."""
+    import torch
+
+    from scrappie_torch.ops import crf as c
+
+    nrow = max(CRF_BATCHES)
+    every = torch.cat(list(sets.values()), dim=1)
+    fp, tbp = c.crf_viterbi_scores_tm_plain(every)
+    sp, pp = c.crf_backtrace_tm_plain(fp, tbp)
+    zp = c.crf_partition_tm_plain(every)
+    errs = {"crf_fwd": 0.0, "crf_backtrace": 0.0, "crf_partition": 0.0,
+            "crf_partition_rel": 0.0}
+    for i, (what, trans_all) in enumerate(sets.items()):
+        for B in CRF_BATCHES:
+            case = f"{what}, T = {trans_all.shape[0]}, B = {B}"
+            rows = slice(i * nrow, i * nrow + B)
+            trans = trans_all[:, :B].contiguous()
+            fk, tbk = c.crf_viterbi_scores_tm(trans)
+            sk, pk = c.crf_backtrace_tm(fk, tbk)
+            zk = c.crf_partition_tm(trans)
+            sync()
+            require(torch.equal(tbk, tbp[:, :, rows]),
+                    f"crf_fwd traceback identical ({case})")
+            require(torch.equal(fk, fp[rows]), f"crf_fwd final identical ({case})")
+            require(torch.equal(pk, pp[rows]), f"crf_backtrace path identical ({case})")
+            require(torch.equal(sk, sp[rows]), f"crf_backtrace score identical ({case})")
+            require(bool(torch.isfinite(zk).all()), f"crf_partition finite ({case})")
+            # Relative to the magnitude the recursion carries, sum_t max
+            # |trans| over the moves that are possible (a neutral block's
+            # -1e30 adds nothing to the scores): that is |logZ| for raw
+            # transitions, while after globalnorm logZ is about 0 and the
+            # error of its T-step sum is all there is.
+            live = torch.where(trans > NEUTRAL / 10, trans.abs(), 0.0)
+            scale = torch.maximum(zp[rows].abs(), live.amax(-1).sum(0)).clamp(min=1.0)
+            rel = float(((zk - zp[rows]).abs() / scale).max())
+            require(rel <= PARTITION_RTOL,
+                    f"crf_partition rel err {rel} <= {PARTITION_RTOL} ({case})")
+            for name, err in (("crf_fwd", (fk - fp[rows]).abs().max()),
+                              ("crf_backtrace", (pk - pp[rows]).abs().max()),
+                              ("crf_partition", (zk - zp[rows]).abs().max()),
+                              ("crf_partition_rel", rel)):
+                errs[name] = max(errs[name], float(err))
+    return errs
+
+
+def check_crf_kernels(rnet) -> dict:
+    """The CRF kernels against their twins at every T of CRF_STEPS and B of
+    CRF_BATCHES on the five sets of crf_sets (one phase line a T); then
+    their times and their twins' at T_CRF and B = 8 and 64 (CUDA events;
+    fewer repeats for the twins, launch-bound loops over T), and the
+    kernels' alone at CRF_STITCH, whose twins are not timed (a loop of
+    31 744 steps), with the SM clock read just after. Returns the B = 64
+    line's kernels, with the largest errors of the checks at T_CRF."""
+    import numpy as np
+
+    from scrappie_torch.ops import crf as c
+
+    rng = np.random.default_rng(SEED + 10)
+    table, inputs = {}, {}
+    for T in CRF_STEPS:
+        t0 = time.perf_counter()
+        sets = crf_sets(rnet, T, rng)
+        for shape in ((T_CRF, 8), (T_CRF, 64), CRF_STITCH):
+            if shape[0] == T:
+                inputs[shape] = [sets[k][:, :shape[1]].contiguous()
+                                 for k in ("head before globalnorm", "head")]
+        errs = check_crf(sets)
+        emit({"phase": "crf_kernels", "checked_T": T, "B": list(CRF_BATCHES),
+              "checked_on": list(sets), "identical": True,
+              "partition_max_rel_err": errs["crf_partition_rel"],
+              "seconds": round(time.perf_counter() - t0, 3)})
+        if T == T_CRF:
+            table = {name: {"max_abs_err": errs[name]}
+                     for name in ("crf_fwd", "crf_backtrace", "crf_partition")}
+            table["crf_partition"]["max_rel_err"] = errs["crf_partition_rel"]
+        del sets
+    for (T, B), (raw, head) in inputs.items():
+        fk, tbk = c.crf_viterbi_scores_tm(head)
+        timed = {"crf_fwd": (lambda: c.crf_viterbi_scores_tm(head),
+                             lambda: c.crf_viterbi_scores_tm_plain(head)),
+                 "crf_backtrace": (lambda: c.crf_backtrace_tm(fk, tbk),
+                                   lambda: c.crf_backtrace_tm_plain(fk, tbk)),
+                 "crf_partition": (lambda: c.crf_partition_tm(raw),
+                                   lambda: c.crf_partition_tm_plain(raw))}
+        out = {name: dict(kernel_work(name, T=T, B=B)) for name in timed}
+        for name, (kernel, plain) in timed.items():
+            out[name]["ms"] = cuda_ms(kernel)
+            out[name]["us_per_step"] = out[name]["ms"] * 1e3 / T
+        mhz = int(smi("clocks.sm", "csv,noheader,nounits"))
+        for name, (kernel, plain) in timed.items():
+            out[name]["cycles_per_step"] = out[name]["us_per_step"] * mhz
+            out[name]["plain_ms"] = (cuda_ms(plain, reps=3, warmup=1)
+                                     if (T, B) != CRF_STITCH else None)
+        emit({"phase": "crf_kernels", "B": B, "T": T, "timed_on": "head "
+              "(partition: head before globalnorm)", "sm_clock_mhz": mhz,
+              "kernels": out})
+        if (T, B) == (T_CRF, 64):
+            for name in timed:
+                table[name].update(out[name])
+    return table
 
 
 def main_path_rnnrf(card: str, reads: list) -> tuple[dict, dict]:
@@ -1745,8 +1822,8 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
     cluster size (with the card's cudaOccupancyMaxActiveClusters) and runs
     the kernels (at the main path's size on each cluster size the card
     places) and the forward twins; then the global kernel's and the
-    forward variant's times, and the walk's and the path's copy to the
-    host. Returns the DP's and the walk's table rows."""
+    forward variant's times, and the walk's (at the small size too) and the
+    path's copy to the host. Returns the DP's and the walk's table rows."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1797,6 +1874,13 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
             row.update(npos=cnpos, T=cT, plain_ms=row.pop("plain_s") * 1e3)
             if name != "timed":
                 row["ms"] = cuda_ms(lambda: d.squiggle_match_tm(*cargs), reps=5)
+            if name == "shared":  # the walk at the first shape too
+                sfinal, smoves, send = d.squiggle_match_tm(*cargs)
+                row["walk_ms"] = cuda_ms(lambda: d.dtw_walk(sfinal, smoves, send),
+                                         reps=5)
+                t0 = time.perf_counter()
+                d.dtw_walk_plain(sfinal, smoves, send)
+                row["walk_plain_ms"] = (time.perf_counter() - t0) * 1e3
             rows[name] = row
             if name == "ties":  # the cluster kernel agrees with the global one
                 fg, mg, eg = d.squiggle_match_tm(*cargs, global_state=True)
@@ -2016,7 +2100,10 @@ def time_checkout(checkout: pathlib.Path) -> None:
     the DTW's Viterbi DP and forward variant at MAP_BASES positions x
     MAP_SAMPLES samples (dtw_case; median of 3), and map_signal_to_squiggle
     on a read made as main_path_mapping makes it (host clock, median of 3
-    after one call). Prints one JSON line."""
+    after one call), the CRF forward and partition function at CRF_AB
+    shapes on seeded transitions (2 x standard normal; CUDA events,
+    median of 10) and the rnnrf fused path, RnnrfModel.basecall_fused, at
+    B = 64 chunks of CHUNK samples (median of 5). Prints one JSON line."""
     sys.path.insert(0, str(checkout))
     import numpy as np
     import torch
@@ -2024,7 +2111,8 @@ def time_checkout(checkout: pathlib.Path) -> None:
     import scrappie_torch
     from scrappie_torch import api
     from scrappie_torch.decode.dtw import match_inputs
-    from scrappie_torch.ops import _build, dtw as d, viterbi as v
+    from scrappie_torch.models.forward import RnnrfModel
+    from scrappie_torch.ops import _build, crf as c, dtw as d, viterbi as v
 
     require(pathlib.Path(scrappie_torch.__file__).resolve().is_relative_to(checkout),
             f"scrappie_torch imported from {checkout}")
@@ -2054,6 +2142,18 @@ def time_checkout(checkout: pathlib.Path) -> None:
         api.map_signal_to_squiggle(data, seq, device="cuda")
         seconds.append(time.perf_counter() - t0)
     out["map_signal_to_squiggle_s"] = statistics.median(seconds)
+    with torch.inference_mode():
+        for T, B in CRF_AB:
+            trans = 2.0 * torch.randn((T, B, 25), generator=gen, device="cuda")
+            out[f"crf_fwd_ms B = {B}, T = {T}"] = cuda_ms(
+                lambda: c.crf_viterbi_scores_tm(trans), reps=10)
+            out[f"crf_partition_ms B = {B}, T = {T}"] = cuda_ms(
+                lambda: c.crf_partition_tm(trans), reps=10)
+        rnet = RnnrfModel.from_registry("rnnrf_r94", "cuda")
+        chunks = torch.as_tensor(
+            rng.standard_normal((64, CHUNK, 1)).astype(np.float32), device="cuda")
+        out["rnnrf_fused_ms B = 64"] = cuda_ms(lambda: rnet.basecall_fused(chunks),
+                                               reps=5)
     print(json.dumps(out), flush=True)
 
 
@@ -2081,9 +2181,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive scrappie_torch on one "
                                              "CUDA GPU (see the module's doc).")
     ap.add_argument("--ab", type=pathlib.Path, metavar="OTHER_CHECKOUT",
-                    help="only time the Viterbi forward, the DTW and "
-                         "map_signal_to_squiggle of OTHER_CHECKOUT and of "
-                         "this checkout, in turns")
+                    help="only time the Viterbi forward, the DTW, "
+                         "map_signal_to_squiggle, the CRF forward and "
+                         "partition function and the rnnrf fused path of "
+                         "OTHER_CHECKOUT and of this checkout, in turns")
     ap.add_argument("--times", type=pathlib.Path, help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2117,8 +2218,7 @@ def main() -> int:
         table.update(check_big_s())
         check_nhist()
         forward_scaling(card)
-        check_crf_kernels(rnet, 8)
-        table.update(check_crf_kernels(rnet, 64))
+        table.update(check_crf_kernels(rnet))
         check_lstm_kernel(enet, 8)
         table["lstm_layer"], table["lstm_pair"] = check_lstm_kernel(enet, 64)
     reads = synthetic_reads()

@@ -2,11 +2,12 @@
 // and the log partition function.
 //
 // Replaces, in scrappie_tpu/ops/crf.py:
-//   _crf_fwd_kernel   wrapper crf_viterbi_scores_tm
-//   _crf_bt_kernel    wrapper crf_backtrace_tm
+//   _crf_fwd_kernel   wrapper crf_viterbi_scores_tm   (crf_fwd_kernel)
+//   _crf_bt_kernel    wrapper crf_backtrace_tm        (crf_backtrace_kernel)
 // and, with no TPU kernel of its own, the lax.scan of
 // scrappie_tpu/nn/layers.py:crf_partition_function (wrapper
-// crf_partition_tm), which globalnorm runs on every rnnrf path.
+// crf_partition_tm, crf_partition_kernel), which globalnorm runs on every
+// rnnrf path.
 //
 // Five states {A, C, G, T, blank}; transitions trans[t, b, to*5 + from],
 // fp32, time-major [T, B, 25]. Scores start at 0. Per step t and state to:
@@ -14,165 +15,184 @@
 //              tr[to*5+from] + prev[from] is taken only if strictly
 //              greater; tb[t, to, b] = the `from` taken (int8);
 //   partition  x_from = tr[to*5+from] + prev[from],
-//              prev'[to] = m + log(sum_from exp(x_from - m)), m = max x_from;
-//              logZ = the same reduction over the last scores.
+//              prev'[to] = m + log(sum_from exp(x_from - m)), m = max x_from
+//              (0 where m is not finite); logZ = the same over the last
+//              scores.
 // The forward's additions and tie rule are those of
 // scrappie_tpu/decode/crf.py:_crf_viterbi (argmax = first max), so finals
 // and tracebacks are identical bit for bit to the plain twins. The
-// partition function uses expf/logf, which differ from the host's by a few
-// ulps; its twin holds it to a relative 1e-5.
+// partition function uses accurate expf/logf (no fast math), which differ
+// from the host's by a few ulps; its twin holds it to a relative 1e-5.
 //
 // Layouts: final [B, 5] f32; tb [T, 5, B] int8, batch innermost (the TPU
-// kernel's [T, 8, B] without its padding rows), so a warp's 32 rows write
-// 32 contiguous bytes per state and the backtrace reads them back
-// coalesced; path [B, T+1] int32; logZ [B] f32.
+// kernel's [T, 8, B] without its padding rows), so the backtrace reads a
+// warp's rows coalesced; path [B, T+1] int32; logZ [B] f32.
 //
-// What bounds them on the H100: latency. Each row is a chain of T
-// dependent steps of 25 adds and 20 compares (forward) or 25 exp and 5 log
-// (partition), and the engine's B rows (8 to 256) fill at most 8 warps of
-// the 132 SMs. Neither bandwidth (100 B of transitions per row and step)
-// nor arithmetic binds; a step costs its issue and dependency latency in a
-// single warp, and a call costs T of them.
+// What bounds the forward and the partition on the H100: the latency of
+// one step. A row is a chain of T dependent steps, and the engine's rows
+// are few (B = 8 in fast mode, 1-2 whole reads of up to 31 744 blocks in a
+// stitch group), so bandwidth (100 B a row and step) and arithmetic are
+// far away; a call costs T times the dependent latency of a step. Measured
+// on an H100 at 1980 MHz (chip_smoke.py, phase crf_kernels and --ab), a
+// step takes about 92 cycles in the forward and 276 in the partition at
+// T = 31 744, B = 2 (145 and 329 at T = 5000, B = 64, where the loads
+// wait: a deeper ring or an L2 prefetch gains about 10% there); the
+// one-thread-a-row kernels this design replaced took about 600 and 960 at
+// B = 2.
 //
-// Design: one thread per batch row, one warp (32 rows) per block. A step's
-// transitions for the warp's rows are 32 x 100 contiguous bytes; the warp
-// copies them into shared memory with coalesced 4-byte cp.async (lane i
-// copies words i, i+32, ...) through a ring of NSTAGE step buffers, so the
-// loads of step t+NSTAGE-1 are in flight while step t computes. Each lane
-// then reads its own 25 words (a stride of 25 words: no bank conflicts).
+// Design: five lanes a row, one per `to` state, six rows a warp (lanes
+// 30-31 and the rows past B repeat the last row and store nothing), one
+// warp a block, so B = 64 spreads over 11 SMs. Lane `to` adds its five
+// transitions to the five previous scores and reduces them: the forward
+// takes their maximum (a 3-deep fmaxf tree) and, off the chain, the first
+// `from` whose candidate equals it, which is the sequential strict-`>`
+// rule for inputs without NaN (no candidate is -0: the scores start at +0);
+// the partition takes their logsumexp (5 expf and 1 logf a lane). The
+// row's five lanes then trade their new scores with five __shfl_sync, so
+// every lane holds all of `prev`. The one-thread-a-row kernels did 25 adds
+// and 20 compares (25 expf, 5 logf) a step in one lane. Each lane reads
+// only its own 20 contiguous bytes a step (a warp's six rows: 600
+// contiguous bytes), so there is no shared-memory ring and no barrier:
+// plain loads fill a ring in registers DEPTH steps ahead, off the chain
+// (a ring of 20 or 24 steps gained at most 5% at B = 8 and 2 and took all
+// 255 registers of a thread). The rows of a block are one step's 600 bytes apart from
+// the next step's, so TMA would only replace these five loads. The
+// traceback bytes are stored as they come, one byte a lane and step, off
+// the chain.
+//
 // The backtrace runs one thread per row and loads the traceback bytes of
 // UNROLL steps, which do not depend on the walk, before it walks them.
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int NS = 5;
 constexpr int NTR = NS * NS;
-constexpr int ROWS = 32;                // batch rows per block: one warp
-constexpr int STEP_WORDS = ROWS * NTR;  // one step's transitions for a block
-constexpr int NSTAGE = 8;               // steps in flight
-constexpr int UNROLL = 8;               // backtrace steps loaded ahead
+constexpr int WARP = 32;
+constexpr int ROWS_PER_WARP = 6;  // five lanes a row: 30 of 32 lanes live
+constexpr int DEPTH = 16;         // steps of transitions in flight
+constexpr int BT_ROWS = 32;       // backtrace rows per block: one warp
+constexpr int UNROLL = 8;         // backtrace steps loaded ahead
+constexpr unsigned FULL = 0xffffffffu;
 
-// Start copying step t's transitions for this block's nrow rows into buf.
-// Every lane commits a group, empty past the end, so the groups stay in
-// step with t.
-__device__ __forceinline__ void issue_step(float* buf,
-                                           const float* __restrict__ trans,
-                                           int t, int T, int B, int b0,
-                                           int nrow) {
-  if (t < T) {
-    const float* src = trans + ((size_t)t * B + b0) * NTR;
-    for (int i = threadIdx.x; i < nrow * NTR; i += ROWS)
-      __pipeline_memcpy_async(buf + i, src + i, sizeof(float));
-  }
-  __pipeline_commit();
+// What a lane of the forward and partition kernels owns: state `to` of
+// batch row b (clamped to B-1 for the lanes that store nothing), whose
+// five lanes start at `first`.
+struct RowLane {
+  int to, first, b;
+  bool live;
+};
+
+__device__ __forceinline__ RowLane row_lane(int B) {
+  const int lane = threadIdx.x;
+  const int r = lane / NS;
+  const int b = blockIdx.x * ROWS_PER_WARP + r;
+  return {lane - r * NS, r * NS, min(b, B - 1), r < ROWS_PER_WARP && b < B};
+}
+
+__device__ __forceinline__ void load5(float (&v)[NS], const float* p) {
+#pragma unroll
+  for (int f = 0; f < NS; ++f) v[f] = __ldg(p + f);
+}
+
+// Every lane of the row gets the row's five new scores.
+__device__ __forceinline__ void trade(float (&prev)[NS], float mine,
+                                      int first) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) prev[s] = __shfl_sync(FULL, mine, first + s);
 }
 
 // logsumexp of five values, as jax.nn.logsumexp and torch.logsumexp take
 // it: a maximum that is not finite is replaced by 0.
 __device__ __forceinline__ float lse5(const float (&x)[NS]) {
-  float m = x[0];
-#pragma unroll
-  for (int f = 1; f < NS; ++f) m = fmaxf(m, x[f]);
+  float m = fmaxf(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])), x[4]);
   if (!isfinite(m)) m = 0.0f;
-  float s = 0.0f;
+  float e[NS];
 #pragma unroll
-  for (int f = 0; f < NS; ++f) s = __fadd_rn(s, expf(__fsub_rn(x[f], m)));
+  for (int f = 0; f < NS; ++f) e[f] = expf(__fsub_rn(x[f], m));
+  const float s = __fadd_rn(__fadd_rn(__fadd_rn(e[0], e[1]),
+                                      __fadd_rn(e[2], e[3])), e[4]);
   return __fadd_rn(logf(s), m);
 }
 
+// The step loop both kernels share: Step(tr, prev, t, real) -> this
+// lane's new score, from its five transitions tr[from] = trans[t, b,
+// to*5 + from]. The loop runs T rounded up to DEPTH steps, so that every
+// load is issued unconditionally (a guarded load made each step wait for
+// it); a step past T (real = false) takes the identity transitions (-0
+// from `to` itself, -inf from the others), which leave both recurrences'
+// scores unchanged bit for bit.
+template <class Step>
+__device__ __forceinline__ void run_steps(const float* __restrict__ trans,
+                                          int T, int B, const RowLane& l,
+                                          float (&prev)[NS], Step step) {
+  if (T == 0) return;
+  const size_t stride = (size_t)B * NTR;
+  const float* src = trans + (size_t)l.b * NTR + l.to * NS;
+  const int last = T - 1;
+  float ring[DEPTH][NS];
+#pragma unroll
+  for (int u = 0; u < DEPTH; ++u)
+    load5(ring[u], src + (size_t)min(u, last) * stride);
+  const float minus_inf = __int_as_float(0xff800000);
+  for (int t0 = 0; t0 < T; t0 += DEPTH) {
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+      const int t = t0 + u;
+      const bool real = t < T;
+      float tr[NS];
+#pragma unroll
+      for (int f = 0; f < NS; ++f)
+        tr[f] = real ? ring[u][f] : (f == l.to ? -0.0f : minus_inf);
+      load5(ring[u], src + (size_t)min(t + DEPTH, last) * stride);
+      trade(prev, step(tr, prev, t, real), l.first);
+    }
+  }
+}
+
 // trans [T, B, 25] -> final [B, 5], tb [T, 5, B] int8.
-__global__ void __launch_bounds__(ROWS)
+__global__ void __launch_bounds__(WARP)
 crf_fwd_kernel(const float* __restrict__ trans, float* __restrict__ final_,
                signed char* __restrict__ tb, int T, int B) {
-  __shared__ float ring[NSTAGE][STEP_WORDS];
-  const int lane = threadIdx.x;
-  const int b0 = blockIdx.x * ROWS;
-  const int nrow = min(ROWS, B - b0);
-  const int b = b0 + lane;
-  const bool live = lane < nrow;
-
-  for (int s = 0; s < NSTAGE - 1; ++s)
-    issue_step(ring[s], trans, s, T, B, b0, nrow);
-  float prev[NS];
+  const RowLane l = row_lane(B);
+  signed char* out = tb + (size_t)l.to * B + l.b;
+  const size_t out_stride = (size_t)NS * B;
+  float prev[NS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  run_steps(
+      trans, T, B, l, prev,
+      [&](const float (&tr)[NS], const float (&p)[NS], int t, bool real) {
+        float c[NS];
 #pragma unroll
-  for (int s = 0; s < NS; ++s) prev[s] = 0.0f;
-
-  for (int t = 0; t < T; ++t) {
-    // This buffer held step t-1, which every lane finished reading before
-    // the __syncwarp that ended the previous iteration.
-    issue_step(ring[(t + NSTAGE - 1) % NSTAGE], trans, t + NSTAGE - 1, T, B,
-               b0, nrow);
-    __pipeline_wait_prior(NSTAGE - 1);
-    __syncwarp();
-    if (live) {
-      const float* tr = ring[t % NSTAGE] + lane * NTR;
-      float next[NS];
+        for (int f = 0; f < NS; ++f) c[f] = __fadd_rn(tr[f], p[f]);
+        const float best =
+            fmaxf(fmaxf(fmaxf(c[0], c[1]), fmaxf(c[2], c[3])), c[4]);
+        int from = NS - 1;
 #pragma unroll
-      for (int to = 0; to < NS; ++to) {
-        float best = __fadd_rn(tr[to * NS], prev[0]);
-        int from = 0;
+        for (int f = NS - 2; f >= 0; --f) from = c[f] == best ? f : from;
+        if (l.live && real) out[(size_t)t * out_stride] = (signed char)from;
+        return best;
+      });
+  if (l.live && l.to == 0) {
 #pragma unroll
-        for (int f = 1; f < NS; ++f) {
-          const float cand = __fadd_rn(tr[to * NS + f], prev[f]);
-          if (cand > best) {
-            best = cand;
-            from = f;
-          }
-        }
-        next[to] = best;
-        tb[((size_t)t * NS + to) * B + b] = (signed char)from;
-      }
-#pragma unroll
-      for (int s = 0; s < NS; ++s) prev[s] = next[s];
-    }
-    __syncwarp();
-  }
-  if (live) {
-#pragma unroll
-    for (int s = 0; s < NS; ++s) final_[(size_t)b * NS + s] = prev[s];
+    for (int s = 0; s < NS; ++s) final_[(size_t)l.b * NS + s] = prev[s];
   }
 }
 
 // trans [T, B, 25] -> logZ [B].
-__global__ void __launch_bounds__(ROWS)
+__global__ void __launch_bounds__(WARP)
 crf_partition_kernel(const float* __restrict__ trans, float* __restrict__ logz,
                      int T, int B) {
-  __shared__ float ring[NSTAGE][STEP_WORDS];
-  const int lane = threadIdx.x;
-  const int b0 = blockIdx.x * ROWS;
-  const int nrow = min(ROWS, B - b0);
-  const int b = b0 + lane;
-  const bool live = lane < nrow;
-
-  for (int s = 0; s < NSTAGE - 1; ++s)
-    issue_step(ring[s], trans, s, T, B, b0, nrow);
-  float prev[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) prev[s] = 0.0f;
-
-  for (int t = 0; t < T; ++t) {
-    issue_step(ring[(t + NSTAGE - 1) % NSTAGE], trans, t + NSTAGE - 1, T, B,
-               b0, nrow);
-    __pipeline_wait_prior(NSTAGE - 1);
-    __syncwarp();
-    if (live) {
-      const float* tr = ring[t % NSTAGE] + lane * NTR;
-      float next[NS];
-#pragma unroll
-      for (int to = 0; to < NS; ++to) {
+  const RowLane l = row_lane(B);
+  float prev[NS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  run_steps(
+      trans, T, B, l, prev,
+      [](const float (&tr)[NS], const float (&p)[NS], int, bool) {
         float x[NS];
 #pragma unroll
-        for (int f = 0; f < NS; ++f) x[f] = __fadd_rn(tr[to * NS + f], prev[f]);
-        next[to] = lse5(x);
-      }
-#pragma unroll
-      for (int s = 0; s < NS; ++s) prev[s] = next[s];
-    }
-    __syncwarp();
-  }
-  if (live) logz[b] = lse5(prev);
+        for (int f = 0; f < NS; ++f) x[f] = __fadd_rn(tr[f], p[f]);
+        return lse5(x);
+      });
+  if (l.live && l.to == 0) logz[l.b] = lse5(prev);
 }
 
 // tb[t, s, b] for the state s that `cur` names, from five loaded values.
@@ -184,12 +204,12 @@ __device__ __forceinline__ int pick(const signed char (&v)[NS], int cur) {
 }
 
 // final [B, 5], tb [T, 5, B] int8 -> score [B], path [B, T+1] int32.
-__global__ void __launch_bounds__(ROWS)
+__global__ void __launch_bounds__(BT_ROWS)
 crf_backtrace_kernel(const float* __restrict__ final_,
                      const signed char* __restrict__ tb,
                      float* __restrict__ score, int* __restrict__ path, int T,
                      int B) {
-  const int b = blockIdx.x * ROWS + threadIdx.x;
+  const int b = blockIdx.x * BT_ROWS + threadIdx.x;
   if (b >= B) return;
   const float* f = final_ + (size_t)b * NS;
   float best = f[0];
@@ -225,7 +245,7 @@ crf_backtrace_kernel(const float* __restrict__ final_,
   pb[0] = cur;
 }
 
-int blocks(int B) { return (B + ROWS - 1) / ROWS; }
+int row_warps(int B) { return (B + ROWS_PER_WARP - 1) / ROWS_PER_WARP; }
 
 }  // namespace
 
@@ -234,14 +254,14 @@ extern "C" {
 int scrappie_crf_fwd(const float* trans, float* final_, signed char* tb,
                      int T, int B, cudaStream_t stream) {
   if (B == 0) return (int)cudaSuccess;
-  crf_fwd_kernel<<<blocks(B), ROWS, 0, stream>>>(trans, final_, tb, T, B);
+  crf_fwd_kernel<<<row_warps(B), WARP, 0, stream>>>(trans, final_, tb, T, B);
   return (int)cudaGetLastError();
 }
 
 int scrappie_crf_partition(const float* trans, float* logz, int T, int B,
                            cudaStream_t stream) {
   if (B == 0) return (int)cudaSuccess;
-  crf_partition_kernel<<<blocks(B), ROWS, 0, stream>>>(trans, logz, T, B);
+  crf_partition_kernel<<<row_warps(B), WARP, 0, stream>>>(trans, logz, T, B);
   return (int)cudaGetLastError();
 }
 
@@ -249,8 +269,8 @@ int scrappie_crf_backtrace(const float* final_, const signed char* tb,
                            float* score, int* path, int T, int B,
                            cudaStream_t stream) {
   if (B == 0) return (int)cudaSuccess;
-  crf_backtrace_kernel<<<blocks(B), ROWS, 0, stream>>>(final_, tb, score, path,
-                                                       T, B);
+  crf_backtrace_kernel<<<(B + BT_ROWS - 1) / BT_ROWS, BT_ROWS, 0, stream>>>(
+      final_, tb, score, path, T, B);
   return (int)cudaGetLastError();
 }
 

@@ -100,6 +100,43 @@ def test_partition_matches_jax(shape, ties):
                                ref[0], **LSE_TOL)
 
 
+def _stitch_padded(B, T, npad, seed, ties=False):
+    """Seeded transitions whose last npad blocks are the stitch's neutral
+    padding: -1e30 into the emitting states, 0 into blank (the block that
+    parallel/runner._gather_decode_crf appends)."""
+    pad = np.full((B, npad, 25), -1e30, dtype=np.float32)
+    pad[..., 20:] = 0.0
+    return np.concatenate([_trans(B, T - npad, seed, ties=ties), pad], axis=1)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_twins_match_jax_on_stitch_padding(ties):
+    B, T, npad = 2, 1500, 300
+    tr = _stitch_padded(B, T, npad, seed=11, ties=ties)
+    jscore, jpath = jdec._crf_viterbi(jnp.asarray(tr))
+    score, path = tc.crf_viterbi_tm(_tm(tr))
+    np.testing.assert_array_equal(path.numpy(), np.asarray(jpath))
+    np.testing.assert_array_equal(score.numpy(), np.asarray(jscore))
+    # the pad blocks emit nothing: the path stays in blank through them
+    assert (path.numpy()[:, T - npad + 1:] == 4).all()
+    ref = np.asarray(jl.crf_partition_function(jnp.asarray(tr)))
+    np.testing.assert_allclose(tc.crf_partition_tm(_tm(tr)).numpy(), ref, **LSE_TOL)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_forward_matches_pallas_on_stitch_padding(ties):
+    # shorter than the scan test: the interpreted kernel takes tens of
+    # milliseconds a step
+    B, T, npad = 2, 100, 30
+    tr = _stitch_padded(B, T, npad, seed=12, ties=ties)
+    jt = jnp.pad(jnp.moveaxis(jnp.asarray(tr), 0, 2),
+                 ((0, 0), (0, jc.TR - 25), (0, 128 - B)))
+    jfinal, jtb = jc.crf_viterbi_scores_tm(jt, interpret=True)
+    final, tb = tc.crf_viterbi_scores_tm(_tm(tr))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jtb)[:, :5, :B])
+    np.testing.assert_array_equal(final.numpy(), np.asarray(jfinal)[:5, :B].T)
+
+
 def test_globalnorm_matches_jax():
     rng = np.random.default_rng(4)
     x = rng.uniform(-2, 2, (3, 21, 96)).astype(np.float32)
