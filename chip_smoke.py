@@ -37,8 +37,13 @@ if any phase fails:
      160, 288; at 160 also the pair route) layers in their big-S modes
      against their twins (phase big_s), the Viterbi forward and backtrace
      at nhist = 80, 1024 and, with slip, 2048, at B = 8, 64 and 256, on
-     random and integer log posteriors (phase nhist), and times the
-     forward on both at B = 8, 64 and 256 and at a stitch shape, B = 4 x
+     random and integer log posteriors (phase nhist); holds the forward
+     and backtrace at the stitch shape and at T = 1, 7 and 2001, and the
+     backtrace alone on hand-built tracebacks (all stays, a START run over
+     the whole row, leading START and trailing END runs, tied finals) at
+     B = 1, 3, 8, 64 and 256 and each of those nhist (phase
+     backtrace_edges); and times the forward on random and integer log
+     posteriors at B = 8, 64 and 256 and at a stitch shape, B = 4 x
      12 500 blocks (phase scaling, path "viterbi forward");
   5. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
      16 seeded synthetic reads of 20k-100k samples in fast mode and in both
@@ -56,7 +61,9 @@ if any phase fails:
      chunk at stride 2) and 31 744 blocks (a stitch group of two reads)
      and B = 1, 2, 5, 7, 8, 33, 64 and 256: on the rnnrf head's
      transitions before and after globalnorm, on integer transitions in
-     {-3..0}, with an emit bias of -1, and with stitch padding blocks;
+     {-3..0}, with an emit bias of -1, and with stitch padding blocks, and
+     the backtrace also on tracebacks built by hand (a constant map and
+     the identity);
      times them at T = 5000, B = 8 and 64, and at T = 31 744, B = 2
      (phase crf_kernels);
  10. runs BasecallEngine("rnnrf_r94", device="cuda") in fast and stitch
@@ -117,9 +124,9 @@ the least time the card could take for the same work), the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device":
 {...}}.
 
-With --ab it does none of that: it times the Viterbi forward, the DTW,
-map_signal_to_squiggle, the CRF forward and partition function and the
-rnnrf fused path of another checkout of the repo (a `git archive`
+With --ab it does none of that: it times the Viterbi forward and
+backtrace, the DTW, map_signal_to_squiggle, the CRF forward, partition
+function and backtrace and the rnnrf fused path of another checkout of the repo (a `git archive`
 of the parent commit, say; its kernels are built there) and of this one
 on the same inputs, each in a fresh process, in turns other, this, this,
 other (time_checkout, compare_checkouts), and prints a JSON line a turn
@@ -166,6 +173,10 @@ T_BIG_S = 500            # steps of the big-S checks
 NHIST_CASES = ((80, False), (1024, False), (2048, True))  # (nhist, use_slip)
 FWD_BATCHES = (8, 64, 256)
 STITCH_SHAPE = (12500, 4)  # (T, B): whole reads of a stitch bucket
+BT_STEPS = (1, 7, T_BLOCKS + 1)  # more backtrace checks, at B = 8
+BT_BATCHES = (1, 3, 8, 64, 256)  # the hand-built tracebacks' batches
+T_BT_HAND = 501          # steps of the hand-built tracebacks
+BT_AB = ((T_BLOCKS, 8), (T_BLOCKS, 64), STITCH_SHAPE)  # the backtrace --ab times
 ROUTE_BATCHES = (8, 64, 256)
 NREADS = 16
 READ_LEN = (20000, 100000)
@@ -512,6 +523,13 @@ def check_kernels(net, B: int) -> dict:
     out["viterbi_fwd"]["plain_ms"] = cuda_ms(lambda: v.viterbi_scores_tm_plain(lp),
                                              reps=3, warmup=1)
     out["viterbi_backtrace"]["ms"] = cuda_ms(lambda: v.viterbi_backtrace_tm(fk, tbk))
+    out["viterbi_backtrace"]["us_per_step"] = (out["viterbi_backtrace"]["ms"] * 1e3
+                                               / T_BLOCKS)
+    out["viterbi_backtrace"]["segments"] = v.backtrace_segments(
+        T_BLOCKS, B, nstate + 1, torch.cuda.get_device_properties(0).multi_processor_count)
+    # the ring's own floor: the whole traceback read once
+    out["viterbi_backtrace"]["stream_floor_ms"] = (tbk.numel() * 2 / PEAK_BYTES_PER_S
+                                                   * 1e3)
     out["viterbi_backtrace"]["plain_ms"] = cuda_ms(
         lambda: v.viterbi_backtrace_tm_plain(fk, tbk), reps=3, warmup=1)
     out["viterbi_fused"]["ms"] = cuda_ms(
@@ -944,6 +962,81 @@ def check_nhist() -> dict:
     return rows
 
 
+def hand_tracebacks(T: int, B: int, nhist: int, gen) -> dict:
+    """Transducer tracebacks [T, B, nhist+2] int16 and finals [B, nhist+2]
+    built by hand on the card, each a case a backtrace can get wrong: every
+    entry a stay (-1); random moves whose START column is START and whose
+    best final is START (a START run over the whole row); random moves,
+    best final END, END staying END over the last third and every history
+    state moving to START at step T // 3 (a leading START and a trailing END
+    run, each about a third of the row); finals tied at 0 and 1."""
+    import torch
+
+    nst2 = nhist + 2
+    start, end = nhist, nhist + 1
+    moves = torch.randint(-1, nhist, (T, B, nst2), generator=gen, device="cuda",
+                          dtype=torch.int16)
+    moves[:, :, start] = start
+    final = torch.randn((B, nst2), generator=gen, device="cuda")
+    start_final = final.clone()
+    start_final[:, start] = 1e3
+    runs = moves.clone()
+    runs[T // 3, :, :nhist] = start
+    runs[2 * T // 3:, :, end] = end
+    runs[2 * T // 3 - 1, :, end] = 5 % nhist
+    end_final = final.clone()
+    end_final[:, end] = 1e3
+    ties = torch.randint(0, 2, (B, nst2), generator=gen, device="cuda").float()
+    return {"all stay": (final, torch.full_like(moves, -1)),
+            "START run over the whole row": (start_final, moves),
+            "leading START and trailing END runs": (end_final, runs),
+            "tied finals": (ties, moves)}
+
+
+def check_backtraces() -> dict:
+    """The transducer backtrace where its ring and its segments can go
+    wrong: the forward and backtrace kernels against their twins at
+    STITCH_SHAPE and, at B = 8, at each T of BT_STEPS (T_BLOCKS + 1 is no
+    multiple of a chunk of the ring) on seeded log posteriors; then the
+    backtrace alone on hand_tracebacks of T_BT_HAND steps at every B of
+    BT_BATCHES and nhist of NHIST_CASES (one pass a row at B = 64 and 256,
+    segments at B <= 8). Paths and scores identical. The twins are not
+    timed here."""
+    import torch
+
+    from scrappie_torch.ops import viterbi as v
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 94)
+    shapes = [STITCH_SHAPE] + [(T, 8) for T in BT_STEPS]
+    for T, B in shapes:
+        lp, _ = seeded_logposts((T, B, 1025), gen)
+        check_forward_and_backtrace(lp, f"T = {T}, B = {B}")
+        del lp
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    segments, names = {}, []
+    for nhist, _slip in NHIST_CASES:
+        for B in BT_BATCHES:
+            cases = hand_tracebacks(T_BT_HAND, B, nhist, gen)
+            for what, (final, tb) in cases.items():
+                sk, pk = v.viterbi_backtrace_tm(final, tb)
+                sp, pp = v.viterbi_backtrace_tm_plain(final, tb)
+                sync()
+                case = f"{what}, nhist {nhist}, B = {B}"
+                require(torch.equal(pk, pp), f"viterbi_backtrace path identical ({case})")
+                require(torch.equal(sk, sp), f"viterbi_backtrace score identical ({case})")
+            segments[f"nhist {nhist}, B = {B}"] = v.backtrace_segments(
+                T_BT_HAND, B, nhist + 2, sms)
+            names = list(cases)
+            del cases
+    out = {"forward_and_backtrace": [f"T = {T}, B = {B}" for T, B in shapes],
+           "hand_built": names, "T": T_BT_HAND,
+           "segments": segments}
+    emit({"phase": "backtrace_edges", "identical": True, **out,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    return out
+
+
 def forward_scaling(card: str) -> dict:
     """The forward at nhist 1024 on random and integer log posteriors, at
     T_BLOCKS blocks and each of FWD_BATCHES and at STITCH_SHAPE: its ms
@@ -1083,12 +1176,14 @@ def decode_breakdown(x, W, b, weights=None) -> dict:
             "backtrace": cuda_ms(lambda: viterbi_backtrace_tm(final, tb), reps=5)}
 
 
-def device_activity(prof) -> tuple[float, list]:
+def device_activity(prof) -> tuple[float, list, list]:
     """Device busy seconds (the union of the intervals of the device's own
-    events: kernels and copies) and the six kernels or copies with the most
-    device time, as [name, ms, count]. CPU ops, which carry their children's
-    kernel time, and user annotation ranges on the device timeline, which
-    span whole stages, are left out, so nothing is counted twice."""
+    events: kernels and copies), the six kernels or copies with the most
+    device time, as [name, ms, count], and the backtraces' kernels (names
+    with "backtrace" or "_bt_") the same way. CPU ops, which carry their
+    children's kernel time, and user annotation ranges on the device
+    timeline, which span whole stages, are left out, so nothing is counted
+    twice."""
     from torch.autograd import DeviceType
 
     spans, per_name = [], {}
@@ -1103,8 +1198,10 @@ def device_activity(prof) -> tuple[float, list]:
         if hi > reach:
             busy_us += hi - max(lo, reach)
             reach = hi
-    top = sorted(per_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
-    return busy_us / 1e6, [[name[:60], ms, n] for name, (ms, n) in top]
+    ranked = sorted(per_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    back = [[name[:60], ms, n] for name, (ms, n) in ranked
+            if "backtrace" in name or "_bt_" in name]
+    return busy_us / 1e6, [[name[:60], ms, n] for name, (ms, n) in ranked[:6]], back
 
 
 def profiled(label: str, fn, card: str) -> None:
@@ -1122,9 +1219,10 @@ def profiled(label: str, fn, card: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, top = device_activity(prof)
+    busy, top, back = device_activity(prof)
     emit({"phase": "profile", "run": label, "wall_s": wall, "device_busy_s": busy,
-          "idle_share": 1.0 - busy / wall, "top_device_ms": top, "card": card})
+          "idle_share": 1.0 - busy / wall, "top_device_ms": top,
+          "backtrace_device_ms": back, "card": card})
 
 
 def profile_and_scale(net, card: str, reads: list) -> None:
@@ -1254,6 +1352,31 @@ def check_crf(sets: dict) -> dict:
     return errs
 
 
+def check_crf_maps(T: int, gen) -> list:
+    """The CRF backtrace against its twin on tracebacks built by hand,
+    [T, 5, max(CRF_BATCHES)], at every B of CRF_BATCHES (the kernel on the
+    first B rows): every byte 0 (a constant map) and tb[t, s, b] = s (the
+    identity), with seeded finals; paths and scores identical."""
+    import torch
+
+    from scrappie_torch.ops import crf as c
+
+    nrow = max(CRF_BATCHES)
+    final = torch.randn((nrow, 5), generator=gen, device="cuda")
+    maps = {"constant": torch.zeros((T, 5, nrow), dtype=torch.int8, device="cuda"),
+            "identity": torch.arange(5, dtype=torch.int8, device="cuda")[None, :, None]
+            .expand(T, 5, nrow).contiguous()}
+    for what, tb in maps.items():
+        sp, pp = c.crf_backtrace_tm_plain(final, tb)
+        for B in CRF_BATCHES:
+            sk, pk = c.crf_backtrace_tm(final[:B].contiguous(), tb[:, :, :B].contiguous())
+            sync()
+            case = f"{what} map, T = {T}, B = {B}"
+            require(torch.equal(pk, pp[:B]), f"crf_backtrace path identical ({case})")
+            require(torch.equal(sk, sp[:B]), f"crf_backtrace score identical ({case})")
+    return list(maps)
+
+
 def check_crf_kernels(rnet) -> dict:
     """The CRF kernels against their twins at every T of CRF_STEPS and B of
     CRF_BATCHES on the five sets of crf_sets (one phase line a T); then
@@ -1266,7 +1389,10 @@ def check_crf_kernels(rnet) -> dict:
 
     from scrappie_torch.ops import crf as c
 
+    import torch
+
     rng = np.random.default_rng(SEED + 10)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     table, inputs = {}, {}
     for T in CRF_STEPS:
         t0 = time.perf_counter()
@@ -1276,8 +1402,10 @@ def check_crf_kernels(rnet) -> dict:
                 inputs[shape] = [sets[k][:, :shape[1]].contiguous()
                                  for k in ("head before globalnorm", "head")]
         errs = check_crf(sets)
+        maps = check_crf_maps(T, gen)
         emit({"phase": "crf_kernels", "checked_T": T, "B": list(CRF_BATCHES),
-              "checked_on": list(sets), "identical": True,
+              "checked_on": list(sets), "backtrace_checked_on": maps,
+              "identical": True,
               "partition_max_rel_err": errs["crf_partition_rel"],
               "seconds": round(time.perf_counter() - t0, 3)})
         if T == T_CRF:
@@ -1294,6 +1422,8 @@ def check_crf_kernels(rnet) -> dict:
                  "crf_partition": (lambda: c.crf_partition_tm(raw),
                                    lambda: c.crf_partition_tm_plain(raw))}
         out = {name: dict(kernel_work(name, T=T, B=B)) for name in timed}
+        # the backtrace's own floor: its traceback bytes read once
+        out["crf_backtrace"]["stream_floor_ms"] = tbk.numel() / PEAK_BYTES_PER_S * 1e3
         for name, (kernel, plain) in timed.items():
             out[name]["ms"] = cuda_ms(kernel)
             out[name]["us_per_step"] = out[name]["ms"] * 1e3 / T
@@ -2097,12 +2227,15 @@ def time_checkout(checkout: pathlib.Path) -> None:
     kernels built there), on inputs made by this script: the Viterbi
     forward at nhist 1024 on seeded log posteriors at T_BLOCKS blocks and
     each of FWD_BATCHES and at STITCH_SHAPE (CUDA events, median of 10),
+    the Viterbi backtrace at BT_AB on the traceback the checkout's own
+    forward wrote from those log posteriors (median of 10),
     the DTW's Viterbi DP and forward variant at MAP_BASES positions x
     MAP_SAMPLES samples (dtw_case; median of 3), and map_signal_to_squiggle
     on a read made as main_path_mapping makes it (host clock, median of 3
-    after one call), the CRF forward and partition function at CRF_AB
-    shapes on seeded transitions (2 x standard normal; CUDA events,
-    median of 10) and the rnnrf fused path, RnnrfModel.basecall_fused, at
+    after one call), the CRF forward, partition function and backtrace
+    (on the checkout's own forward's traceback) at CRF_AB shapes on seeded
+    transitions (2 x standard normal; CUDA events, median of 10) and the
+    rnnrf fused path, RnnrfModel.basecall_fused, at
     B = 64 chunks of CHUNK samples (median of 5). Prints one JSON line."""
     sys.path.insert(0, str(checkout))
     import numpy as np
@@ -2125,6 +2258,11 @@ def time_checkout(checkout: pathlib.Path) -> None:
             lp, _ = seeded_logposts((T, B, 1025), gen)
             out[f"viterbi_fwd_ms B = {B}, T = {T}"] = cuda_ms(
                 lambda: v.viterbi_scores_tm(lp), reps=10)
+            if (T, B) in BT_AB:
+                final, tb = v.viterbi_scores_tm(lp)
+                out[f"viterbi_backtrace_ms B = {B}, T = {T}"] = cuda_ms(
+                    lambda: v.viterbi_backtrace_tm(final, tb), reps=10)
+                del final, tb
             del lp
         sig, params = dtw_case(MAP_BASES, MAP_SAMPLES, rng)
         args = (sig, *match_inputs(params, 1.0, 0.0, "cuda"), 0.0,
@@ -2149,6 +2287,9 @@ def time_checkout(checkout: pathlib.Path) -> None:
                 lambda: c.crf_viterbi_scores_tm(trans), reps=10)
             out[f"crf_partition_ms B = {B}, T = {T}"] = cuda_ms(
                 lambda: c.crf_partition_tm(trans), reps=10)
+            final, tb = c.crf_viterbi_scores_tm(trans)
+            out[f"crf_backtrace_ms B = {B}, T = {T}"] = cuda_ms(
+                lambda: c.crf_backtrace_tm(final, tb), reps=10)
         rnet = RnnrfModel.from_registry("rnnrf_r94", "cuda")
         chunks = torch.as_tensor(
             rng.standard_normal((64, CHUNK, 1)).astype(np.float32), device="cuda")
@@ -2181,10 +2322,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive scrappie_torch on one "
                                              "CUDA GPU (see the module's doc).")
     ap.add_argument("--ab", type=pathlib.Path, metavar="OTHER_CHECKOUT",
-                    help="only time the Viterbi forward, the DTW, "
-                         "map_signal_to_squiggle, the CRF forward and "
-                         "partition function and the rnnrf fused path of "
-                         "OTHER_CHECKOUT and of this checkout, in turns")
+                    help="only time the Viterbi forward and backtrace, the "
+                         "DTW, map_signal_to_squiggle, the CRF forward, "
+                         "partition function and backtrace and the rnnrf "
+                         "fused path of OTHER_CHECKOUT and of this checkout, "
+                         "in turns")
     ap.add_argument("--times", type=pathlib.Path, help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2217,6 +2359,7 @@ def main() -> int:
         table["gru_recurrence"] = check_gru_recurrence(net, 64)
         table.update(check_big_s())
         check_nhist()
+        check_backtraces()
         forward_scaling(card)
         table.update(check_crf_kernels(rnet))
         check_lstm_kernel(enet, 8)

@@ -60,8 +60,26 @@
 // traceback bytes are stored as they come, one byte a lane and step, off
 // the chain.
 //
-// The backtrace runs one thread per row and loads the traceback bytes of
-// UNROLL steps, which do not depend on the walk, before it walks them.
+// The backtrace (replaces _crf_bt_kernel). What bounded the kernel it
+// replaced, one thread a row walking x_t = tb[t, x_{t+1}, b]: one L2
+// round trip a step. It loaded a step's five bytes ahead to pick one, but
+// ptxas turned the pick into five loads predicated on the state, each
+// waiting for the step before (SASS); so a step took about 450, 1270 and
+// 215 cycles at T = 5000, B = 8 and 64 and at T = 31 744, B = 2 (H100,
+// 2 x standard-normal transitions), and leaving out its path stores saved
+// only 3-5%. Design: the walk is split in time. Step t is a map f_t of the
+// five states, f_t(s) = tb[t, s, b], and composing maps is exact, so a
+// lane owns SEG consecutive steps: it loads their 5 SEG bytes (none
+// depends on the walk), composes the SEG maps with prmt (__byte_perm:
+// two a step, the maps as bytes and selectors), a suffix scan of the
+// lanes' maps (shuffles in a warp, shared memory across warps) gives each
+// lane the state its steps start from, and it walks them again in
+// registers. One block a row, up to BT_MAX_THREADS lanes (16 384 steps a
+// chunk, the last first); the path is staged in shared memory (a byte a
+// state, a lane's bytes padded into distinct banks) and written out
+// contiguous. No chain waits on memory: what bounds it now is the loads,
+// 5 bytes a step from 32 steps a warp instruction apart (one sector each),
+// and the scan's two barriers a chunk.
 #include <cuda_runtime.h>
 
 namespace {
@@ -71,8 +89,9 @@ constexpr int NTR = NS * NS;
 constexpr int WARP = 32;
 constexpr int ROWS_PER_WARP = 6;  // five lanes a row: 30 of 32 lanes live
 constexpr int DEPTH = 16;         // steps of transitions in flight
-constexpr int BT_ROWS = 32;       // backtrace rows per block: one warp
-constexpr int UNROLL = 8;         // backtrace steps loaded ahead
+constexpr int SEG = 32;           // backtrace steps a lane composes
+constexpr int SEG_PAD = SEG + 4;  // a lane's states in the backtrace's stage
+constexpr int BT_MAX_THREADS = 512;  // backtrace lanes a row, at most
 constexpr unsigned FULL = 0xffffffffu;
 
 // What a lane of the forward and partition kernels owns: state `to` of
@@ -195,54 +214,125 @@ crf_partition_kernel(const float* __restrict__ trans, float* __restrict__ logz,
   if (l.live && l.to == 0) logz[l.b] = lse5(prev);
 }
 
-// tb[t, s, b] for the state s that `cur` names, from five loaded values.
-__device__ __forceinline__ int pick(const signed char (&v)[NS], int cur) {
-  int r = v[0];
-#pragma unroll
-  for (int s = 1; s < NS; ++s) r = cur == s ? v[s] : r;
-  return r;
+// The backtrace composes maps of the five states. A map m: {0..4} ->
+// {0..4} is kept as bytes (entry s in byte s of lo, hi), which prmt
+// (__byte_perm) indexes, or as a selector (entry s in nibble s), which
+// prmt takes. Composition is exact, so a row's walk may be split in time.
+struct Map {
+  unsigned lo, hi;
+};
+
+__device__ __forceinline__ Map id_map() { return {0x03020100u, 4u}; }
+constexpr unsigned ID_SEL = 0x43210u;
+
+// m as a selector: the entries are below 8, so bytes 0-3 fold into four
+// nibbles (the bytes above hi's first do not reach bits 16-23).
+__device__ __forceinline__ unsigned selector(const Map& m) {
+  const unsigned y = m.lo | (m.lo >> 4);  // bytes 0 and 2: e0|e1<<4, e2|e3<<4
+  return __byte_perm(y, 0, 0x4420) | (m.hi << 16);
 }
 
-// final [B, 5], tb [T, 5, B] int8 -> score [B], path [B, T+1] int32.
-__global__ void __launch_bounds__(BT_ROWS)
+// a o g (g first), g as a selector: entry s is a's entry g(s). Only byte 0
+// of hi is kept meaningful.
+__device__ __forceinline__ Map compose(const Map& a, unsigned g) {
+  return {__byte_perm(a.lo, a.hi, g), __byte_perm(a.lo, a.hi, g >> 16)};
+}
+
+__device__ __forceinline__ int apply(const Map& m, int x) {
+  return __byte_perm(m.lo, m.hi, x) & 0xff;
+}
+
+__device__ __forceinline__ Map shfl_down(const Map& m, int off) {
+  return {__shfl_down_sync(FULL, m.lo, off), __shfl_down_sync(FULL, m.hi, off)};
+}
+
+// Suffix scan over the warp's lanes: lane i ends with m_i o m_{i+1} o ...
+// o m_31, each m_j the map of a later stretch of time than m_{j-1}.
+__device__ __forceinline__ Map suffix_compose(Map m, int lane) {
+#pragma unroll
+  for (int off = 1; off < WARP; off <<= 1) {
+    const Map later = shfl_down(m, off);
+    if (lane + off < WARP) m = compose(m, selector(later));
+  }
+  return m;
+}
+
+// final [B, 5], tb [T, 5, B] int8 -> score [B], path [B, T+1] int32. One
+// block a row. The states are x_T = first argmax of the finals and
+// x_t = f_t(x_{t+1}), f_t(s) = tb[t, s, b]; path[b, t] = x_t. The row's
+// steps are cut into chunks of blockDim.x * SEG, walked from the last;
+// lane k of a chunk owns its steps [c0 + k SEG, c0 + (k+1) SEG).
+__global__ void __launch_bounds__(BT_MAX_THREADS)
 crf_backtrace_kernel(const float* __restrict__ final_,
                      const signed char* __restrict__ tb,
                      float* __restrict__ score, int* __restrict__ path, int T,
                      int B) {
-  const int b = blockIdx.x * BT_ROWS + threadIdx.x;
-  if (b >= B) return;
+  extern __shared__ unsigned char stage[];  // blockDim.x * SEG_PAD states
+  __shared__ Map warp_map[BT_MAX_THREADS / WARP];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid % WARP, warp = tid / WARP;
+  const int nwarp = blockDim.x / WARP;
   const float* f = final_ + (size_t)b * NS;
   float best = f[0];
-  int cur = 0;
+  int x = 0;  // x_{c1}, the state the chunk's last step leads from
 #pragma unroll
   for (int s = 1; s < NS; ++s) {
     if (f[s] > best) {
       best = f[s];
-      cur = s;
+      x = s;
     }
   }
-  score[b] = best;
   int* pb = path + (size_t)b * (T + 1);
-  int t = T - 1;
-  for (; t >= UNROLL - 1; t -= UNROLL) {
-    signed char v[UNROLL][NS];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-        v[u][s] = tb[((size_t)(t - u) * NS + s) * B + b];
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      pb[t - u + 1] = cur;
-      cur = pick(v[u], cur);
-    }
+  if (tid == 0) {
+    score[b] = best;
+    pb[T] = x;
   }
-  for (; t >= 0; --t) {
-    pb[t + 1] = cur;
-    cur = tb[((size_t)t * NS + cur) * B + b];
+  const int chunk = blockDim.x * SEG;
+  for (int c1 = T; c1 > 0; c1 -= chunk) {
+    const int c0 = max(c1 - chunk, 0);
+    const int s0 = c0 + tid * SEG;
+    const int n = min(max(c1 - s0, 0), SEG);
+    // This lane's maps as selectors, all loaded before any is used (steps
+    // past its own are the identity; their loads stay in bounds).
+    unsigned sel[SEG];
+#pragma unroll
+    for (int u = 0; u < SEG; ++u) {
+      const signed char* p = tb + (size_t)min(s0 + u, c1 - 1) * NS * B + b;
+      unsigned v = 0;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) v |= (unsigned)__ldg(p + (size_t)s * B) << (4 * s);
+      sel[u] = u < n ? v : ID_SEL;
+    }
+    // g = f_{s0} o ... o f_{s0+SEG-1}: x_{s0} from x_{s0+SEG}.
+    Map g = id_map();
+#pragma unroll
+    for (int u = 0; u < SEG; ++u) g = compose(g, sel[u]);
+    g = suffix_compose(g, lane);  // lanes [lane, 32) of this warp
+    const Map after_lane = shfl_down(g, 1);
+    if (lane == 0) warp_map[warp] = g;
+    __syncthreads();
+    // Warps [w, nwarp) likewise, over lanes w; then this lane's entry state
+    // x_{s0+SEG}: the later warps' map, then the later lanes', applied to x.
+    const Map w = suffix_compose(lane < nwarp ? warp_map[lane] : id_map(), lane);
+    const Map after_warp{__shfl_sync(FULL, w.lo, min(warp + 1, WARP - 1)),
+                         __shfl_sync(FULL, w.hi, min(warp + 1, WARP - 1))};
+    int cur = warp + 1 < nwarp ? apply(after_warp, x) : x;
+    if (lane + 1 < WARP) cur = apply(after_lane, cur);
+    // The walk again, now from a known state, into the stage (a lane's
+    // SEG states padded to SEG_PAD bytes: the lanes' stores fall in
+    // distinct banks).
+    unsigned char* mine = stage + tid * SEG_PAD;
+#pragma unroll
+    for (int u = SEG - 1; u >= 0; --u) {
+      cur = (sel[u] >> (4 * cur)) & 0xf;
+      if (u < n) mine[u] = (unsigned char)cur;
+    }
+    __syncthreads();
+    for (int i = tid; i < c1 - c0; i += blockDim.x)
+      pb[c0 + i] = stage[(i / SEG) * SEG_PAD + i % SEG];
+    x = stage[0];
+    __syncthreads();
   }
-  pb[0] = cur;
 }
 
 int row_warps(int B) { return (B + ROWS_PER_WARP - 1) / ROWS_PER_WARP; }
@@ -269,7 +359,10 @@ int scrappie_crf_backtrace(const float* final_, const signed char* tb,
                            float* score, int* path, int T, int B,
                            cudaStream_t stream) {
   if (B == 0) return (int)cudaSuccess;
-  crf_backtrace_kernel<<<(B + BT_ROWS - 1) / BT_ROWS, BT_ROWS, 0, stream>>>(
+  // a lane for each SEG steps, in whole warps, at most BT_MAX_THREADS
+  const int lanes = (T + SEG - 1) / SEG;
+  const int threads = min(BT_MAX_THREADS, max(WARP, (lanes + WARP - 1) / WARP * WARP));
+  crf_backtrace_kernel<<<B, threads, threads * SEG_PAD, stream>>>(
       final_, tb, score, path, T, B);
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,41 @@
 //    traffic (1.2 MB a step at K = 3), plus four block reductions (the K
 //    softmax maxima and sums together, then the maximum and sum of the
 //    combined log posterior's renormalisation).
-//  * backtrace: one dependent 2-byte load per step and row; latency-bound.
+//  * backtrace (replaces _bt_kernel): the kernel it replaced, one thread a
+//    row, made one dependent 2-byte load a step from a traceback of
+//    T B (nhist+2) 2 bytes (263 MB at T = 2000, B = 64, beyond the 50 MB
+//    L2): about 420, 760 and 360 cycles a step at B = 8, 64 and at a
+//    stitch bucket, 4 rows of 12 500 (H100); without its path stores,
+//    3-13% less. Now nothing on the walk's chain leaves shared memory.
+//    One block a row streams the row's traceback rows t = T-1 down through
+//    a ring in shared memory, as the TPU kernel streams [CT, Bt, nhist]
+//    blocks through VMEM: one bulk copy (cp.async.bulk, the TMA unit) a
+//    row, issued by a copier warp, full and empty mbarriers a chunk of
+//    rows. A row starts only 4-byte aligned (2 (nhist+2) bytes = 4 mod
+//    16) and bulk copies need 16: the slot takes the row's 16-byte blocks
+//    from its start rounded down to its end rounded up, and the walker
+//    reads it at (start & 15); only the blocks past tb's two ends are
+//    copied two bytes at a time. A step is a shared-memory load, a compare
+//    and a select (the next row's address for a move and for a stay are
+//    computed aside): about 60 cycles, and the ring supplies a 2 KB row
+//    about every 100 (one SM's bulk copies reach about 20 B a cycle,
+//    whether from L2 or DRAM; 16-, 64- or 128-byte alignment alike, and a
+//    cp.async ring from four warps supplies half that). So a row takes
+//    about 100 cycles a step on its SM whatever B, and at small B (a stitch
+//    bucket, the fast engine's 8 rows) most SMs idle. There the walk is
+//    also split in time: segment k of a row maps each state entering it to
+//    the state leaving it (a block walks all nhist + 2 states at once, 224
+//    threads holding up to 16 each in registers), and the walk's block for
+//    segment k starts from the first argmax taken through the later
+//    segments' maps. The leading START and trailing END runs are then
+//    found by a third kernel's reductions over the path (first entry not
+//    START, last not END); in one pass the walker tracks them as it goes
+//    (the trailing run is written as stays while every entry from T down
+//    is END; the lowest entry that is not START bounds the leading run,
+//    which the block blanks at the end). The first argmax of the finals is
+//    a block reduction (strict >, smallest index on ties). Path entries
+//    are staged in shared memory (int16) and the copier warp writes each
+//    chunk's out, contiguous.
 //
 // Design: one block per batch row. The forward (viterbi_fwd_kernel) gives
 // each thread quads of four consecutive history states, 256 threads at
@@ -63,9 +97,9 @@
 // The ensemble kernel stages its K hidden rows [2, K, S] in shared memory
 // the same way, keeps each member's logit in a register (K <= MAX_ENS, a
 // loop unrolled to that bound), and shares the head's dot products, the
-// DP step and the final write with the fused kernel. The backtrace runs
-// one thread per row.
+// DP step and the final write with the fused kernel.
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -76,6 +110,17 @@ constexpr int MAX_WARPS = 32;
 constexpr int MAX_ENS = 4;  // members of the fused ensemble kernel
 constexpr int FWD_THREADS = 512;  // at most, the forward's history threads
 constexpr int AHEAD = 3;  // steps of log posteriors the forward loads ahead
+// The backtrace: four warps a block (warp 0 walks, warp 1 copies, a lane a
+// row, all four take the first argmax); a ring of chunks of traceback
+// rows, about BT_RING_BYTES, at most BT_MAX_SMEM with the path stage.
+constexpr int BT_THREADS = 128;
+// The segments' maps kernel: warp 0 copies, the others walk up to 16
+// states a thread (nst2 <= 16 * (BT_MAPS_THREADS - 32)).
+constexpr int BT_MAPS_THREADS = 256;
+constexpr int BT_MAX_NBUF = 6;
+constexpr int BT_MAX_CHUNK = 16;
+constexpr int BT_RING_BYTES = 192 * 1024;
+constexpr size_t BT_MAX_SMEM = 232448 - 1024;  // less the static arrays
 
 struct DpParams {
   float stay_pen;
@@ -719,36 +764,392 @@ viterbi_fused_ens_kernel(const float* __restrict__ h,
             start, end, p, final_, tb, T, B, nhist);
 }
 
-// final [B, nst2], tb [T, B, nst2] int16 -> score [B], path [B, T+1] int32.
-__global__ void viterbi_backtrace_kernel(const float* __restrict__ final_,
-                                         const short* __restrict__ tb,
-                                         float* __restrict__ score,
-                                         int* __restrict__ path, int T, int B,
-                                         int nst2) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const float* f = final_ + (size_t)b * nst2;
-  int cur = 0;
-  float best = f[0];
-  for (int i = 1; i < nst2; ++i) {
-    if (f[i] > best) {
-      best = f[i];
-      cur = i;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count));
+}
+
+// Adds `bytes` to the transfer the barrier's current phase waits for.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by the TMA unit; completion is counted on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A ring slot: a row's 2 nst2 bytes from their start rounded down to 16
+// bytes (at most 14 before it) to their end rounded up.
+__host__ __device__ __forceinline__ int bt_slot_bytes(int nst2) {
+  return (2 * nst2 + 14 + 15) / 16 * 16;
+}
+
+__device__ __forceinline__ const char* align16_down(const char* p) {
+  return reinterpret_cast<const char*>((uintptr_t)p & ~(uintptr_t)15);
+}
+
+__device__ __forceinline__ const char* align16_up(const char* p) {
+  return reinterpret_cast<const char*>(((uintptr_t)p + 15) & ~(uintptr_t)15);
+}
+
+// Segment k of K of a row's T steps: rows [t0, t1), L = ceil(T / K) rows
+// each but the last.
+__device__ __forceinline__ void bt_segment(int T, int K, int k, int& t0,
+                                           int& t1) {
+  const int L = (T + K - 1) / K;
+  t0 = min(k * L, T);
+  t1 = min(t0 + L, T);
+}
+
+// Byte (start % 16) of slot r holds row t's first entry.
+__device__ __forceinline__ int bt_row_offset(const short* tb, int t, int B,
+                                             int b, int nst2) {
+  return (int)((uintptr_t)(tb + ((size_t)t * B + b) * nst2) & 15);
+}
+
+// The path entries t + 1 of chunk c's rows t = t1-1 - c ch - r, from the
+// walker's stage to pb, contiguous (lane r writes row r's).
+__device__ __forceinline__ void bt_flush(int* pb, const short* staged, int t1,
+                                         int t0, int ch, int nbuf, int c,
+                                         int lane) {
+  if (lane < min(ch, t1 - t0 - c * ch))
+    pb[t1 - c * ch - lane] = staged[(c % nbuf) * ch + lane];
+}
+
+// The copier warp. Chunk c of the rows t = t1-1 down to t0 goes into
+// buffer c % nbuf once its walkers have released the chunk before it there
+// (whose path entries, when pb is given, are then written out): lane r
+// copies row t = t1-1 - c ch - r into slot (c % nbuf) ch + r. A slot holds
+// its row's 16-byte blocks, from the row's start rounded down: one bulk
+// copy. The bytes of a block that reaches outside tb (only at its two ends)
+// are copied two at a time, then fenced from the bulk copies that may
+// write the slot later. Last, the path entries of the final chunks.
+__device__ void bt_copier(unsigned char* ring, const short* staged,
+                          uint64_t* full, uint64_t* empty, const short* tb,
+                          int* pb, int T, int B, int b, int t1, int t0,
+                          int nst2, int ch, int nbuf, int lane) {
+  const char* lo = reinterpret_cast<const char*>(tb);
+  const char* hi = lo + (size_t)T * B * nst2 * sizeof(short);
+  const int slot_bytes = bt_slot_bytes(nst2);
+  const int nch = (t1 - t0 + ch - 1) / ch;
+  for (int c = 0; c < nch; ++c) {
+    const int buf = c % nbuf;
+    if (c >= nbuf) {
+      mbar_wait(&empty[buf], (c / nbuf - 1) & 1);
+      if (pb) bt_flush(pb, staged, t1, t0, ch, nbuf, c - nbuf, lane);
+    }
+    const int t = t1 - 1 - c * ch - lane;
+    if (lane < ch && t >= t0) {
+      const char* gs = lo + ((size_t)t * B + b) * nst2 * sizeof(short);
+      const char* ge = gs + nst2 * sizeof(short);
+      const char* a0 = align16_down(gs);
+      const char* x0 = a0 > lo ? a0 : align16_up(lo);  // bulk copy [x0, x1)
+      const char* x1 = align16_up(ge) < hi ? align16_up(ge) : align16_down(hi);
+      unsigned char* slot = ring + (size_t)(buf * ch + lane) * slot_bytes;
+      if (gs < x0 || x1 < ge) {
+        for (const char* p = gs; p < ge && p < x0; p += 2)
+          *reinterpret_cast<short*>(slot + (p - a0)) =
+              *reinterpret_cast<const short*>(p);
+        for (const char* p = x1 > gs ? x1 : gs; p < ge; p += 2)
+          *reinterpret_cast<short*>(slot + (p - a0)) =
+              *reinterpret_cast<const short*>(p);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+      if (x1 > x0) {
+        mbar_expect(&full[buf], (unsigned)(x1 - x0));
+        bulk_copy(slot + (x0 - a0), x0, (unsigned)(x1 - x0), &full[buf]);
+      }
+    }
+    __syncwarp();  // every row's bytes counted before the phase can end
+    if (lane == 0) mbar_arrive(&full[buf]);
+  }
+  if (!pb) return;
+  for (int c = max(nch - nbuf, 0); c < nch; ++c) {
+    mbar_wait(&empty[c % nbuf], (c / nbuf) & 1);
+    bt_flush(pb, staged, t1, t0, ch, nbuf, c, lane);
+  }
+}
+
+__device__ __forceinline__ void bt_init_barriers(uint64_t* full,
+                                                 uint64_t* empty, int nbuf,
+                                                 unsigned walkers) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < nbuf; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], walkers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// The first argmax of the finals, on every thread of the block: each
+// thread over its strided share, then the warps (the smaller index wins a
+// tie), then the block. Ends with a barrier, which also publishes the
+// mbarriers' initialisation.
+__device__ __forceinline__ int bt_first_argmax(const float* f, int nst2,
+                                               float& best) {
+  __shared__ float warp_v[BT_THREADS / 32];
+  __shared__ int warp_i[BT_THREADS / 32];
+  float v = -CUDART_INF_F;
+  int x = INT_MAX;
+  for (int i = threadIdx.x; i < nst2; i += BT_THREADS) {
+    const float fi = f[i];
+    if (x == INT_MAX || fi > v) {
+      v = fi;
+      x = i;
     }
   }
-  score[b] = best;
-  int* pb = path + (size_t)b * (T + 1);
-  for (int t = T - 1; t >= 0; --t) {
-    const int state = tb[((size_t)t * B + b) * nst2 + cur];
-    pb[t + 1] = state >= 0 ? cur : -1;
-    if (state >= 0) cur = state;
+  warp_argmax(v, x);
+  if (threadIdx.x % 32 == 0) {
+    warp_v[threadIdx.x / 32] = v;
+    warp_i[threadIdx.x / 32] = x;
   }
-  pb[0] = cur;
-  // Leading START and trailing END runs become stays (-1).
-  const int start_state = nst2 - 2;
-  const int end_state = nst2 - 1;
-  for (int i = 0; i <= T && pb[i] == start_state; ++i) pb[i] = -1;
-  for (int i = T; i >= 0 && pb[i] == end_state; --i) pb[i] = -1;
+  __syncthreads();
+  v = warp_v[0];
+  x = warp_i[0];
+  for (int w = 1; w < BT_THREADS / 32; ++w) {
+    if (warp_v[w] > v || (warp_v[w] == v && warp_i[w] < x)) {
+      v = warp_v[w];
+      x = warp_i[w];
+    }
+  }
+  best = v;
+  return x;
+}
+
+// The walk: final [B, nst2], tb [T, B, nst2] int16 -> score [B], path
+// [B, T+1] int32. Block (b, k) walks segment k of row b (K = gridDim.y),
+// its rows t = t1-1 down to t0 streaming through a ring of nbuf chunks of
+// ch rows in shared memory: warp 1 issues a chunk's bulk copies (a lane a
+// row) as soon as lane 0 of warp 0, the walker, has released the buffer,
+// one full and one empty mbarrier a buffer; warp 1 writes each walked
+// chunk's path entries out, contiguous. With one segment (kSeg false) the walker
+// starts from the first argmax of the finals and writes the leading START
+// and trailing END runs as stays; with several, from the later segments'
+// maps applied to it, and viterbi_bt_runs_kernel rewrites the runs.
+template <bool kSeg>
+__global__ void __launch_bounds__(BT_THREADS)
+viterbi_backtrace_kernel(const float* __restrict__ final_,
+                         const short* __restrict__ tb,
+                         const short* __restrict__ maps,
+                         float* __restrict__ score, int* __restrict__ path,
+                         int T, int B, int nst2, int ch, int nbuf) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[BT_MAX_NBUF], empty[BT_MAX_NBUF];
+  __shared__ int lead_end;
+  const int b = blockIdx.x, k = blockIdx.y, K = gridDim.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slot_bytes = bt_slot_bytes(nst2);
+  unsigned char* ring = smem;
+  short* staged = reinterpret_cast<short*>(ring + (size_t)nbuf * ch * slot_bytes);
+  int t0, t1;
+  bt_segment(T, K, k, t0, t1);
+  int* pb = path + (size_t)b * (T + 1);
+  bt_init_barriers(full, empty, nbuf, 1);
+  float best;
+  const int x = bt_first_argmax(final_ + (size_t)b * nst2, nst2, best);
+  if (warp >= 2) return;
+  if (warp == 1) {
+    bt_copier(ring, staged, full, empty, tb, pb, T, B, b, t1, t0, nst2, ch,
+              nbuf, lane);
+  } else if (lane == 0) {
+    if (k == K - 1) score[b] = best;
+    const int start_state = nst2 - 2, end_state = nst2 - 1;
+    const int row_step = (int)(((size_t)B * nst2 * sizeof(short)) & 15);
+    int cur = x;
+    if (kSeg)  // the state entering row t1 - 1
+      for (int j = K - 1; j > k; --j) cur = maps[((size_t)b * K + j) * nst2 + cur];
+    // One segment: whether every path entry so far (from T down) is END
+    // (the trailing run, written as -1), and the lowest entry that is not
+    // START (the leading run lies below it).
+    bool trailing = true;
+    int lowest = T + 1;
+    const int nch = (t1 - t0 + ch - 1) / ch;
+    for (int c = 0; c < nch; ++c) {
+      const int buf = c % nbuf;
+      mbar_wait(&full[buf], (c / nbuf) & 1);
+      // `at` is the byte of shared memory the step reads, tb[t, b, cur]. A
+      // step's chain is that load, a compare and a select between the next
+      // row's entry for the state read and for cur (a stay), both
+      // computed aside.
+      const int top = t1 - 1 - c * ch;
+      int off = bt_row_offset(tb, top, B, b, nst2);
+      int row = buf * ch * slot_bytes + off;
+      int at = row + 2 * cur;
+      short* out = staged + buf * ch;
+      const int rows = min(ch, t1 - t0 - c * ch);
+#pragma unroll 4
+      for (int r = 0; r < rows; ++r) {
+        const int state = *reinterpret_cast<const short*>(smem + at);
+        const int next_off = (off - row_step) & 15;
+        const int next = row + slot_bytes + next_off - off;
+        const bool emit = state >= 0;
+        const int val = emit ? cur : -1;
+        if (!kSeg) {
+          trailing = trailing && val == end_state;
+          lowest = val != start_state ? top - r + 1 : lowest;
+        }
+        out[r] = (short)(!kSeg && trailing ? -1 : val);
+        at = emit ? next + 2 * state : next + 2 * cur;
+        cur = emit ? state : cur;
+        row = next;
+        off = next_off;
+      }
+      mbar_arrive(&empty[buf]);
+    }
+    if (k == 0) {
+      if (!kSeg) {
+        trailing = trailing && cur == end_state;
+        if (cur != start_state) lowest = 0;
+        lead_end = lowest;
+      }
+      pb[0] = !kSeg && trailing ? -1 : cur;
+    }
+  }
+  if (kSeg) return;
+  // Warps 0 and 1: every entry is written; then the leading START run,
+  // [0, lead_end), becomes stays (-1).
+  asm volatile("bar.sync 1, 64;\n" ::: "memory");
+  if (warp == 0)
+    for (int i = lane; i < lead_end; i += 32) pb[i] = -1;
+}
+
+// The maps of the segments: block (b, k) walks segment k of row b from
+// every state s at once, maps[b, k, s] = the state entering row t0 - 1
+// (the path's entry t0) from state s entering row t1 - 1. Warp 0 copies
+// as in the walk; the other warps walk, thread w the states w + i WALKERS
+// (i < SPT) in registers, row by row, and release a buffer warp by warp.
+template <int SPT>
+__global__ void __launch_bounds__(BT_MAPS_THREADS)
+viterbi_bt_maps_kernel(const short* __restrict__ tb, short* __restrict__ maps,
+                       int T, int B, int nst2, int ch, int nbuf) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[BT_MAX_NBUF], empty[BT_MAX_NBUF];
+  constexpr int WALKERS = BT_MAPS_THREADS - 32;
+  const int b = blockIdx.x, k = blockIdx.y, K = gridDim.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slot_bytes = bt_slot_bytes(nst2);
+  int t0, t1;
+  bt_segment(T, K, k, t0, t1);
+  bt_init_barriers(full, empty, nbuf, WALKERS / 32);
+  __syncthreads();
+  if (warp == 0) {
+    bt_copier(smem, nullptr, full, empty, tb, nullptr, T, B, b, t1, t0, nst2,
+              ch, nbuf, lane);
+    return;
+  }
+  const int w = threadIdx.x - 32;
+  int x[SPT];  // past nst2, a repeat of the last state, not stored
+#pragma unroll
+  for (int i = 0; i < SPT; ++i) x[i] = min(w + i * WALKERS, nst2 - 1);
+  const int row_step = (int)(((size_t)B * nst2 * sizeof(short)) & 15);
+  const int nch = (t1 - t0 + ch - 1) / ch;
+  for (int c = 0; c < nch; ++c) {
+    const int buf = c % nbuf;
+    mbar_wait(&full[buf], (c / nbuf) & 1);
+    int off = bt_row_offset(tb, t1 - 1 - c * ch, B, b, nst2);
+    const unsigned char* slot = smem + (size_t)buf * ch * slot_bytes;
+    const int rows = min(ch, t1 - t0 - c * ch);
+    for (int r = 0; r < rows; ++r) {
+      const short* row = reinterpret_cast<const short*>(slot + off);
+#pragma unroll
+      for (int i = 0; i < SPT; ++i) {
+        const int state = row[x[i]];
+        x[i] = state >= 0 ? state : x[i];
+      }
+      slot += slot_bytes;
+      off = (off - row_step) & 15;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[buf]);
+  }
+  short* out = maps + ((size_t)b * K + k) * nst2;
+#pragma unroll
+  for (int i = 0; i < SPT; ++i)
+    if (w + i * WALKERS < nst2) out[w + i * WALKERS] = (short)x[i];
+}
+
+// After the segmented walk: row b's leading START run, [0, the first entry
+// that is not START), and trailing END run, (the last that is not END, T],
+// become stays (-1).
+__global__ void __launch_bounds__(256)
+viterbi_bt_runs_kernel(int* __restrict__ path, int T, int nst2) {
+  __shared__ int lead, trail;
+  int* pb = path + (size_t)blockIdx.x * (T + 1);
+  if (threadIdx.x == 0) {
+    lead = T + 1;
+    trail = -1;
+  }
+  __syncthreads();
+  int my_lead = T + 1, my_trail = -1;
+  for (int i = threadIdx.x; i <= T; i += blockDim.x) {
+    const int v = pb[i];
+    if (v != nst2 - 2) my_lead = min(my_lead, i);
+    if (v != nst2 - 1) my_trail = max(my_trail, i);
+  }
+  my_lead = __reduce_min_sync(0xffffffffu, my_lead);
+  my_trail = __reduce_max_sync(0xffffffffu, my_trail);
+  if (threadIdx.x % 32 == 0) {
+    atomicMin(&lead, my_lead);
+    atomicMax(&trail, my_trail);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < lead; i += blockDim.x) pb[i] = -1;
+  for (int i = trail + 1 + threadIdx.x; i <= T; i += blockDim.x) pb[i] = -1;
+}
+
+// The ring for rows of nst2 states, with `reserve` bytes of shared memory
+// beside it: nbuf chunks of ch rows in about BT_RING_BYTES, up to
+// BT_MAX_CHUNK rows a chunk, at least three chunks, up to BT_MAX_NBUF.
+// Rows too long for three there take one a chunk, three (or two) as fit
+// BT_MAX_SMEM. ch = 0 if two do not fit. Returns the shared memory bytes.
+size_t bt_ring(int nst2, size_t reserve, int& ch, int& nbuf) {
+  const size_t slot = bt_slot_bytes(nst2) + sizeof(short);
+  size_t rows = BT_RING_BYTES / slot;
+  if (rows < 3 && BT_MAX_SMEM > reserve) rows = (BT_MAX_SMEM - reserve) / slot;
+  if (rows < 2 || reserve >= BT_MAX_SMEM) {
+    ch = nbuf = 0;
+    return 0;
+  }
+  ch = (int)(rows / 3 < 1 ? 1 : (rows / 3 < BT_MAX_CHUNK ? rows / 3 : BT_MAX_CHUNK));
+  nbuf = (int)(rows / ch < BT_MAX_NBUF ? rows / ch : BT_MAX_NBUF);
+  return (size_t)nbuf * ch * slot + reserve;
+}
+
+template <class Kernel>
+cudaError_t bt_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
@@ -809,13 +1210,43 @@ int scrappie_viterbi_fused_ens(const float* h, const float* W,
   return (int)cudaGetLastError();
 }
 
+// The backtrace, each row's walk in K segments: K = 1, one block a row;
+// K > 1, the maps kernel (maps: [B, K, nst2] int16 scratch), the walk and
+// the runs kernel (ops/viterbi.py:backtrace_segments picks K).
 int scrappie_viterbi_backtrace(const float* final_, const short* tb,
-                               float* score, int* path, int T, int B, int nst2,
-                               cudaStream_t stream) {
+                               float* score, int* path, short* maps, int T,
+                               int B, int nst2, int K, cudaStream_t stream) {
   if (B == 0) return (int)cudaSuccess;
-  const int threads = 64;
-  viterbi_backtrace_kernel<<<(B + threads - 1) / threads, threads, 0, stream>>>(
-      final_, tb, score, path, T, B, nst2);
+  if (nst2 < 1 || K < 1 || K > 65535 || (K > 1 && !maps))
+    return (int)cudaErrorInvalidValue;
+  int ch, nbuf;
+  const size_t smem = bt_ring(nst2, 0, ch, nbuf);
+  if (ch == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (K == 1) {
+    if ((err = bt_smem(viterbi_backtrace_kernel<false>, smem))) return (int)err;
+    viterbi_backtrace_kernel<false><<<dim3(B, 1), BT_THREADS, smem, stream>>>(
+        final_, tb, nullptr, score, path, T, B, nst2, ch, nbuf);
+    return (int)cudaGetLastError();
+  }
+  int mch, mnbuf;
+  const size_t msmem = bt_ring(nst2, 0, mch, mnbuf);
+  const int spt = (nst2 + BT_MAPS_THREADS - 33) / (BT_MAPS_THREADS - 32);
+  auto maps_kernel = spt <= 1   ? viterbi_bt_maps_kernel<1>
+                     : spt <= 2 ? viterbi_bt_maps_kernel<2>
+                     : spt <= 4 ? viterbi_bt_maps_kernel<4>
+                     : spt <= 8 ? viterbi_bt_maps_kernel<8>
+                                : viterbi_bt_maps_kernel<16>;
+  if (spt > 16) return (int)cudaErrorInvalidValue;
+  if ((err = bt_smem(maps_kernel, msmem))) return (int)err;
+  maps_kernel<<<dim3(B, K), BT_MAPS_THREADS, msmem, stream>>>(
+      tb, maps, T, B, nst2, mch, mnbuf);
+  if ((err = cudaGetLastError())) return (int)err;
+  if ((err = bt_smem(viterbi_backtrace_kernel<true>, smem))) return (int)err;
+  viterbi_backtrace_kernel<true><<<dim3(B, K), BT_THREADS, smem, stream>>>(
+      final_, tb, maps, score, path, T, B, nst2, ch, nbuf);
+  if ((err = cudaGetLastError())) return (int)err;
+  viterbi_bt_runs_kernel<<<B, 256, 0, stream>>>(path, T, nst2);
   return (int)cudaGetLastError();
 }
 

@@ -38,7 +38,7 @@ _SIGNATURES = {
                                _F, _F, _F, _F, _I, _P),
     "scrappie_viterbi_fused_ens": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _F, _F, _F, _F, _F, _F, _F, _I, _P),
-    "scrappie_viterbi_backtrace": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "scrappie_viterbi_backtrace": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "scrappie_crf_fwd": (_P, _P, _P, _I, _I, _P),
     "scrappie_crf_partition": (_P, _P, _I, _I, _P),
     "scrappie_crf_backtrace": (_P, _P, _P, _P, _I, _I, _P),

@@ -48,6 +48,14 @@ HEAD_NT, HEAD_KT, HEAD_HP = 128, 32, 132
 #: and one more warp that does the END state alone.
 FWD_THREADS_MAX = 512
 FWD_QUADS = (1, 2, 4, 8, 16)
+#: csrc/viterbi.cu's backtrace splits a row's walk in time only while the
+#: rows leave at least BT_MIN_SMS_A_ROW SMs a row and the segments' maps
+#: kernel holds a row's states (BT_MAPS_MAX_STATES: 16 a thread on 224
+#: threads), into at most BT_MAX_SEG segments of at least BT_MIN_SEG steps.
+BT_MIN_SMS_A_ROW = 8
+BT_MIN_SEG = 64
+BT_MAX_SEG = 16
+BT_MAPS_MAX_STATES = 16 * 224
 
 
 def _check_nhist(nhist: int, use_slip: bool) -> None:
@@ -308,10 +316,25 @@ def viterbi_scores_tm(lp_tm, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
     return final, tb
 
 
+def backtrace_segments(T: int, B: int, nst2: int, sms: int) -> int:
+    """Segments the backtrace kernel cuts each row's walk into, for B rows
+    of T steps and nst2 states on a card of `sms` SMs: 1 (one block a row
+    streams the row's whole traceback) unless the rows leave at least
+    BT_MIN_SMS_A_ROW SMs a row and nst2 <= BT_MAPS_MAX_STATES; then one for
+    each SM a row, sms // B, at most BT_MAX_SEG and T // BT_MIN_SEG."""
+    per_row = sms // B if B else 0
+    if per_row < BT_MIN_SMS_A_ROW or nst2 > BT_MAPS_MAX_STATES:
+        return 1
+    return max(1, min(per_row, BT_MAX_SEG, T // BT_MIN_SEG))
+
+
 def viterbi_backtrace_tm(final, tb_tm):
     """Walk the time-major traceback (ref src/decode.c:58-98): final
     [B, nhist+2], tb [T, B, nhist+2] int16 -> (score [B], path [B, T+1]
-    int32)."""
+    int32). On the card, with K = backtrace_segments(...) > 1, the wrapper
+    allocates the segments' maps [B, K, nhist+2] int16 as scratch; the
+    caching allocator hands that memory on only to later work on this
+    stream."""
     if not ops.on_cuda(final, tb_tm):
         return viterbi_backtrace_tm_plain(final, tb_tm)
     from scrappie_torch.ops import _build
@@ -323,10 +346,15 @@ def viterbi_backtrace_tm(final, tb_tm):
     path = torch.empty((B, T + 1), dtype=torch.int32, device=final.device)
     if B == 0:
         return score, path
+    sms = torch.cuda.get_device_properties(final.device).multi_processor_count
+    K = backtrace_segments(T, B, nst2, sms)
+    maps = (torch.empty((B, K, nst2), dtype=torch.int16, device=final.device)
+            if K > 1 else None)
     with torch.cuda.device(final.device):
         err = _build.library().scrappie_viterbi_backtrace(
             final.data_ptr(), tb_tm.data_ptr(), score.data_ptr(),
-            path.data_ptr(), T, B, nst2, ctypes.c_void_p(ops.stream_handle()))
+            path.data_ptr(), None if maps is None else maps.data_ptr(), T, B,
+            nst2, K, ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, "viterbi_backtrace")
     ops.LAUNCHES["viterbi_backtrace"] += 1
     return score, path

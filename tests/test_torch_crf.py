@@ -206,3 +206,33 @@ def test_wrappers_check_the_transition_width():
         tc.crf_viterbi_scores_tm(torch.zeros((4, 2, 24)))
     with pytest.raises(ValueError, match="25"):
         tc.crf_partition_tm(torch.zeros((4, 2, 5, 5)))
+
+
+@pytest.mark.parametrize("T", [1, 7, 40])
+@pytest.mark.parametrize("which", ["constant", "identity"])
+def test_backtrace_twin_matches_pallas_on_hand_built_maps(which, T):
+    # the tracebacks chip_smoke.py also feeds the kernel: every byte 0 (a
+    # constant map) and tb[t, s, b] = s (the identity)
+    B = 3
+    final = np.random.default_rng(T).standard_normal((B, 5)).astype(np.float32)
+    if which == "constant":
+        tb = np.zeros((T, 5, B), dtype=np.int8)
+    else:
+        tb = np.ascontiguousarray(np.broadcast_to(
+            np.arange(5, dtype=np.int8)[None, :, None], (T, 5, B)))
+    score, path = tc.crf_backtrace_tm_plain(torch.from_numpy(final),
+                                            torch.from_numpy(tb))
+    # the JAX kernel's layout: final [8, B], tb [T, 8, B], B lane-padded
+    jf = np.zeros((jc.ROWS, 128), dtype=np.float32)
+    jf[:5, :B] = final.T
+    jtb = np.zeros((T, jc.ROWS, 128), dtype=np.int8)
+    jtb[:, :5, :B] = tb
+    jscore, jpath = jc.crf_backtrace_tm(jnp.asarray(jf), jnp.asarray(jtb),
+                                        interpret=True)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(jpath)[:B])
+    np.testing.assert_array_equal(score.numpy(), np.asarray(jscore)[:B])
+    first = final.argmax(1)
+    expect = (np.zeros((B, T + 1), np.int32) if which == "constant"
+              else np.repeat(first[:, None], T + 1, 1))
+    expect[:, T] = first
+    np.testing.assert_array_equal(path.numpy(), expect)

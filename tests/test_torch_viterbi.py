@@ -267,3 +267,79 @@ def test_head_input_check_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="shared memory"):
         S = 512
         tv.check_head_input(torch.zeros((2, 2, S)), torch.zeros((S, 65)), b)
+
+
+def _hand_tracebacks(B, T, nhist, seed):
+    """Tracebacks [T, B, nhist+2] int16 and finals [B, nhist+2] built by
+    hand, as chip_smoke.py's hand_tracebacks builds them on the card: every
+    entry a stay; random moves whose START column is START, best final
+    START (a START run over the whole row); random moves, best final END,
+    END staying END over the last third and every history state moving to
+    START at step T // 3 (leading START and trailing END runs); finals tied
+    at 0 and 1."""
+    rng = np.random.default_rng(seed)
+    nst2 = nhist + 2
+    start, end = nhist, nhist + 1
+    moves = rng.integers(-1, nhist, (T, B, nst2)).astype(np.int16)
+    moves[:, :, start] = start
+    final = rng.standard_normal((B, nst2)).astype(np.float32)
+    start_final = final.copy()
+    start_final[:, start] = 1e3
+    runs = moves.copy()
+    runs[T // 3, :, :nhist] = start
+    runs[2 * T // 3:, :, end] = end
+    runs[2 * T // 3 - 1, :, end] = 5
+    end_final = final.copy()
+    end_final[:, end] = 1e3
+    ties = rng.integers(0, 2, (B, nst2)).astype(np.float32)
+    return {"all-stay": (final, np.full_like(moves, -1)),
+            "start-run": (start_final, moves),
+            "start-and-end-runs": (end_final, runs),
+            "tied-finals": (ties, moves)}
+
+
+HAND_CASES = ["all-stay", "start-run", "start-and-end-runs", "tied-finals"]
+
+
+@pytest.mark.parametrize("case", HAND_CASES)
+def test_backtrace_twin_matches_jax_on_hand_built_tracebacks(case):
+    B, T, nhist = 3, 21, 64
+    final, tb = _hand_tracebacks(B, T, nhist, seed=HAND_CASES.index(case))[case]
+    score, path = tv.viterbi_backtrace_tm_plain(torch.from_numpy(final),
+                                                torch.from_numpy(tb))
+    jscore, jpath = jv.viterbi_backtrace_tm(jnp.asarray(final), jnp.asarray(tb),
+                                            interpret=True)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(jpath))
+    np.testing.assert_array_equal(score.numpy(), np.asarray(jscore))
+    sscore, spath = jdec.viterbi_local_backtrace(jnp.asarray(final),
+                                                 jnp.asarray(np.moveaxis(tb, 1, 0)))
+    np.testing.assert_array_equal(path.numpy(), np.asarray(spath))
+    np.testing.assert_array_equal(score.numpy(), np.asarray(sscore))
+    p = path.numpy()
+    if case in ("all-stay", "start-run"):
+        assert (p[:, 1:] == -1).all()
+    if case == "start-and-end-runs":
+        # both runs, a third of the row each, became stays
+        assert (p[:, :T // 3 + 1] == -1).all() and (p[:, 2 * T // 3:] == -1).all()
+
+
+# (T, B, nst2, SMs) -> segments of each row's walk
+SEGMENT_CASES = [
+    (0, 8, 1026, 132, 1),        # no steps
+    (100, 8, 1026, 132, 1),      # under two segments of BT_MIN_SEG steps
+    (300, 1, 1026, 132, 4),      # T // BT_MIN_SEG bounds it
+    (2000, 8, 1026, 132, 16),    # the fast engine's batch: BT_MAX_SEG
+    (12500, 4, 1026, 132, 16),   # a stitch bucket
+    (2000, 16, 1026, 132, 8),    # sms // B
+    (2000, 17, 1026, 132, 1),    # fewer than BT_MIN_SMS_A_ROW SMs a row
+    (2000, 64, 1026, 132, 1),    # the fused path's batch: one pass a row
+    (2000, 8, 16 * 224, 132, 16),
+    (2000, 8, 16 * 224 + 1, 132, 1),  # more states than the maps kernel holds
+    (2000, 0, 1026, 132, 1),     # no rows
+]
+
+
+@pytest.mark.parametrize("T,B,nst2,sms,K", SEGMENT_CASES)
+def test_backtrace_segments(T, B, nst2, sms, K):
+    assert tv.backtrace_segments(T, B, nst2, sms) == K
+    assert tv.BT_MAPS_MAX_STATES == 16 * 224
