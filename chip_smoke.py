@@ -105,17 +105,25 @@ if any phase fails:
      also on clusters of 4 and 8 CTAs; then times the DP at 6 000 x 60 000
      on clusters of 4, 8 and 16 CTAs, the global kernel and the forward
      variant, the walk and the path's copy to the host;
- 18. holds the seqmap kernel against its twin, Viterbi and forward, in
-     both variants, on the rgrgr_r94 posterior of a synthetic 60 000-sample
-     read (about 12 000 blocks) against a seeded 6 000-base reference, and
-     times it;
+ 18. holds the seqmap kernel (moves and finals, Viterbi and forward, the
+     scores in registers and in global memory) and its walk kernel against
+     their twins on the rgrgr_r94 posterior of a synthetic 60 000-sample
+     read (about 12 000 blocks) against a seeded 6 000-base reference, on
+     2 000 of its blocks against 12 000 and 20 000 bases, and on 65 small
+     edge cases (ties, -inf, walks through the states -1 and -2 and START,
+     seqlen 1 to 3, T = 1), and times the DP, its forward variant and the
+     walk (phase seqmap_kernel); holds the banded kernel against its twin
+     on the read's band of half-width 100, at widths 1, 2 and 3 (shifts of
+     the whole width, blocks at low == 0), above 1 024 and with its window
+     in global memory, and times it (phase seqmap_banded_kernel);
  19. runs the mapping path through the API on the card,
      map_signal_to_squiggle on a signal simulated from the squiggle of a
      6 000-base sequence and map_post_to_sequence (Viterbi with a path,
      forward, banded), checks that each kernel's launch counter rose,
-     records what map_signal_to_squiggle copies to the host (profiler
-     trace), and holds each result to the port's CPU run on the same
-     inputs.
+     records what map_signal_to_squiggle and map_post_to_sequence (Viterbi
+     with a path) copy to the host (profiler trace; the latter at most the
+     path, two finals and one byte), and holds each result to the port's
+     CPU run on the same inputs.
 
 Each engine path's launch counters are set to 0 just before its runs and
 read just after. Every phase's line carries the seconds since the start.
@@ -126,7 +134,8 @@ and power limit as nvidia-smi gives them, and {"ok": true, "device":
 
 With --ab it does none of that: it times the Viterbi forward and
 backtrace, the DTW, map_signal_to_squiggle, the CRF forward, partition
-function and backtrace and the rnnrf fused path of another checkout of the repo (a `git archive`
+function and backtrace, the rnnrf fused path, the seqmap DP and
+map_post_to_sequence's four calls of another checkout of the repo (a `git archive`
 of the parent commit, say; its kernels are built there) and of this one
 on the same inputs, each in a fresh process, in turns other, this, this,
 other (time_checkout, compare_checkouts), and prints a JSON line a turn
@@ -229,6 +238,12 @@ KERNELS = {
                   "scrappie_tpu/ops/lstm.py:53 (both layers of a "
                   "bidirectional stage in one launch)"),
     "seqmap": ("scrappie_torch/csrc/seqmap.cu", "scrappie_tpu/ops/seqmap.py:32"),
+    "seqmap_walk": ("scrappie_torch/csrc/seqmap.cu",
+                    "scrappie_tpu/decode/mapping.py:150 (the host walk of the "
+                    "traceback; no TPU kernel)"),
+    "seqmap_banded": ("scrappie_torch/csrc/seqmap.cu",
+                      "scrappie_tpu/decode/mapping.py:170 (_map_banded, a "
+                      "lax.scan; no TPU kernel)"),
     "dtw": ("scrappie_torch/csrc/dtw.cu", "scrappie_tpu/ops/dtw.py:59"),
     "dtw_walk": ("scrappie_torch/csrc/dtw.cu",
                  "scrappie_tpu/decode/dtw.py:179 (the host walk of the "
@@ -252,6 +267,12 @@ RNNRF_KERNELS = {mode: GRU_KERNELS + ("crf_fwd", "crf_backtrace", "crf_partition
 EVENTS_KERNELS = {
     "fast": ("project", "lstm_pair", "head", "viterbi_fwd", "viterbi_backtrace"),
     "stitch": ("project", "lstm_pair", "viterbi_fwd", "viterbi_backtrace")}
+# map_post_to_sequence's calls on the mapping path, Viterbi with a path first
+MAP_CALLS = (("viterbi, path", dict(viterbi=True, path=True)),
+             ("forward", {}),
+             (f"banded {MAP_BAND}, viterbi", dict(viterbi=True, bands=MAP_BAND)),
+             (f"banded {MAP_BAND}, forward", dict(bands=MAP_BAND)))
+MAPPING_KERNELS = ("dtw", "dtw_walk", "seqmap", "seqmap_walk", "seqmap_banded")
 # Kept, checked and timed; no path launches them.
 SUPERSEDED = ("gru_layer", "viterbi_fused", "viterbi_fused_ens")
 # Kernels whose design keeps their weights in registers: ptxas must report
@@ -376,15 +397,17 @@ def kernel_work(name: str, **d) -> dict:
     operations (the gates' elementwise arithmetic adds a few percent), so
     each bound is a lower bound. The backtraces read one traceback entry
     per step and row: what the data needs, not the whole traceback. The
-    mapping DPs (one read, Viterbi) write their whole traceback: the
-    seqmap's as it lies (int32), the DTW's at a byte a state (the winning
-    candidate, six for a forward state and two for a back state, which is
-    all a walk needs) and its end jump's source a sample; its walk reads a
-    byte a sample and writes the path. Per step and position the DTW does
+    mapping DPs (one read, Viterbi) write their whole traceback at a byte a
+    state (the winning candidate: the seqmap's four moves; the DTW's six
+    for a forward state and two for a back state, which is all a walk
+    needs, and its end jump's source a sample); each walk reads a byte a
+    step and writes the path. The banded DP reads the emissions of its
+    window's positions, the stay and entry emissions and the band's bounds
+    a block. Per step and position the DTW does
     23 operations (its forward state 6 adds and 5 compares with the end
     jump's max, the end-jump candidate's add, the emission's 6 and its 2
-    adds, the back state's 2 adds and compare) and the seqmap 7 (3 adds, 2
-    subtractions, 2 compares)."""
+    adds, the back state's 2 adds and compare) and the seqmap and banded
+    DPs 7 (3 adds, 2 subtractions, 2 compares or maxima)."""
     T, B = d["T"], d.get("B", 1)
     if name == "dtw":
         npos = d["npos"]
@@ -393,10 +416,17 @@ def kernel_work(name: str, **d) -> dict:
                      + T * nstate, 23 * T * npos)
     if name == "dtw_walk":  # a move byte a sample, the path, two finals
         return bound(T + 4 * T + 8, T)
-    if name == "seqmap":
+    if name == "seqmap":  # a move byte a state (int32=True: an int32 traceback)
         nst, seqlen = d["nst"], d["seqlen"]
-        return bound(4 * (T * nst + seqlen + (seqlen + 2) * (T + 1)),
-                     7 * T * seqlen)
+        per_state = 4 if d.get("int32") else 1
+        return bound(4 * (T * nst + seqlen + seqlen + 2)
+                     + per_state * T * (seqlen + 2), 7 * T * seqlen)
+    if name == "seqmap_walk":  # a move byte a block, the path, two finals
+        return bound(T + 4 * T + 8, T)
+    if name == "seqmap_banded":  # the band's emissions, stay and entry a block
+        width = d["width"]
+        return bound(4 * (T * (width + 2) + 2 * T + width + width + 1),
+                     7 * T * width)
     if name == "project":  # x [T, B, C] @ W [C, N] + b
         C, N = d["C"], d["N"]
         return bound(4 * (T * B * C + C * N + N + T * B * N), 2 * T * B * C * N)
@@ -2055,57 +2085,248 @@ def seqmap_case(rng):
     return api.calc_post(raw, "rgrgr_r94", device="cuda"), random_bases(MAP_BASES, rng)
 
 
-def check_seqmap_kernel(card: str) -> dict:
-    """The seqmap kernel against its twin, Viterbi (with its traceback)
-    and forward, with the scores in shared and in global memory; then its
-    times."""
+def finite_max_diff(a, b) -> float:
+    """The largest |a - b| where it is finite (equal infinities give NaN)."""
+    import torch
+
+    err = (a - b).abs()
+    err = err[torch.isfinite(err)]
+    return float(err.max()) if err.numel() else 0.0
+
+
+def seqmap_edge_cases(rng) -> list:
+    """Small dense maps at the seqmap kernel's edges, as (lp, seqstates,
+    penalties) on the host: 60 with integer log posteriors (ties), half of
+    them -inf, seqlen 1 to 3, T from 1 to 8, and a huge local penalty
+    (2e30) or skip bonus (-1e30), whose walks pass through the states -1
+    and -2 and sit in START; and T = 1 and 1025 states at seqlen 1, 2, 3
+    and 9."""
+    import numpy as np
+
+    cases = []
+    for _ in range(60):
+        T, seqlen = int(rng.integers(1, 9)), int(rng.integers(1, 4))
+        lp = rng.integers(-3, 1, (T, 5)).astype(np.float32)
+        lp[rng.random((T, 5)) < 0.5] = -np.inf
+        pens = (float(rng.choice([0.0, 0.5])), float(rng.choice([0.0, -1e30, 1.0])),
+                float(rng.choice([4.0, 2e30])))
+        cases.append((lp, rng.integers(0, 4, seqlen).astype(np.int32), pens))
+    for T, seqlen in ((1, 9), (40, 1), (40, 2), (40, 3), (300, 9)):
+        lp = np.log(rng.dirichlet(np.ones(1025), T)).astype(np.float32)
+        cases.append((lp, rng.integers(0, 1024, seqlen).astype(np.int32),
+                      (0.2, 0.7, 4.0)))
+    return cases
+
+
+def check_seqmap_case(lp, states, pens, label: str, twin_on_host: bool) -> dict:
+    """The seqmap kernel against its twin, Viterbi and forward, in every
+    state mode that takes the read (registers while it fits, global
+    memory): Viterbi finals and moves identical, forward finals within
+    FORWARD_RTOL; and the walk kernel's path identical to the twin walk's.
+    The twins run on the host (tiny cases) or on the card. Returns the
+    largest differences, the Viterbi twin's and the walk twin's ms."""
+    import torch
+
+    from scrappie_torch.ops import seqmap as m
+
+    seqlen = states.shape[0]
+    modes = (False, True) if seqlen <= m.SEQMAP_MAX_REGISTER_SEQLEN else (True,)
+    out = {"max_abs_err": 0.0, "forward_rel_err": 0.0}
+    for viterbi in (True, False):
+        args = (lp.cpu(), states.cpu()) if twin_on_host else (lp, states)
+        t0 = time.perf_counter()
+        fp, mp = m.map_to_sequence_plain(*args, *pens, viterbi=viterbi)
+        sync()
+        if viterbi:
+            out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            pp = m.seqmap_walk_plain(fp, mp, seqlen).cuda()
+            out["walk_plain_ms"] = (time.perf_counter() - t0) * 1e3
+            mp = mp.cuda()
+        fp = fp.cuda()
+        for global_state in modes:
+            fk, mk = m.map_to_sequence_tm(lp, states, *pens, viterbi=viterbi,
+                                          global_state=global_state)
+            sync()
+            what = f"{label}, viterbi={viterbi}, global_state={global_state}"
+            if viterbi:
+                require(torch.equal(mk, mp), f"seqmap moves identical ({what})")
+                require(torch.equal(fk, fp), f"seqmap final identical ({what})")
+                pk = m.seqmap_walk(fk, mk, seqlen)
+                sync()
+                require(torch.equal(pk, pp), f"seqmap_walk path identical ({what})")
+            else:
+                finite = torch.isfinite(fp)
+                require(torch.equal(finite, torch.isfinite(fk)) and torch.equal(
+                    fk[~finite], fp[~finite]), f"seqmap forward infinities ({what})")
+                rel = float(((fk - fp).abs() / fp.abs().clamp(min=1.0))[finite].max()
+                            if finite.any() else 0.0)
+                require(rel <= FORWARD_RTOL,
+                        f"seqmap forward final rel err {rel} <= {FORWARD_RTOL} ({what})")
+                out["forward_rel_err"] = max(out["forward_rel_err"], rel)
+            out["max_abs_err"] = max(out["max_abs_err"], finite_max_diff(fk, fp))
+    return out
+
+
+def check_seqmap_kernel(card: str) -> tuple[dict, dict]:
+    """The seqmap and walk kernels against their twins (check_seqmap_case):
+    on the edge cases (twins on the host), on the rgrgr_r94 posterior of a
+    synthetic read against a seeded MAP_BASES-base reference (twins on the
+    card), and on its first 2000 blocks against 12 000 bases (16 states a
+    thread) and against 20 000 (past the registers: global memory); then
+    the DP's times (registers, global memory, the forward variant), the
+    walk's and the path's copy to the host at the read's size. Returns the
+    DP's and the walk's table rows."""
     import numpy as np
     import torch
 
     from scrappie_torch import api
     from scrappie_torch.ops import seqmap as m
 
-    post, ref = seqmap_case(np.random.default_rng(SEED + 50))
+    rng = np.random.default_rng(SEED + 50)
+    post, ref = seqmap_case(rng)
     lp = torch.as_tensor(post.data(), device="cuda")
     states = torch.as_tensor(api.encode_bases(ref, 5).astype(np.int32), device="cuda")
     T, nst = lp.shape
     seqlen = states.shape[0]
     pens = (0.0, 0.0, 4.0)
-    out = {"T": T, "nst": nst, "seqlen": seqlen, "max_abs_err": 0.0,
-           "forward_rel_err": 0.0}
-    for viterbi in (True, False):
-        t0 = time.perf_counter()
-        fp, tbp = m.map_to_sequence_plain(lp, states, *pens, viterbi=viterbi)
-        sync()
-        if viterbi:
-            out["plain_ms"] = (time.perf_counter() - t0) * 1e3
-        for global_state in (False, True):
-            fk, tbk = m.map_to_sequence_tm(lp, states, *pens, viterbi=viterbi,
-                                           global_state=global_state)
-            sync()
-            label = f"viterbi={viterbi}, global_state={global_state}"
-            require(bool(torch.isfinite(fk).all()), f"seqmap final finite ({label})")
-            if viterbi:
-                require(torch.equal(tbk, tbp), f"seqmap traceback identical ({label})")
-                require(torch.equal(fk, fp), f"seqmap final identical ({label})")
-            else:
-                rel = float(((fk - fp).abs() / fp.abs().clamp(min=1.0)).max())
-                require(rel <= FORWARD_RTOL,
-                        f"seqmap forward final rel err {rel} <= {FORWARD_RTOL} ({label})")
-                out["forward_rel_err"] = max(out["forward_rel_err"], rel)
-            out["max_abs_err"] = max(out["max_abs_err"], float((fk - fp).abs().max()))
-    _, tb = m.map_to_sequence_tm(lp, states, *pens)
+    edges = {"max_abs_err": 0.0, "forward_rel_err": 0.0}
+    for k, (elp, est, epens) in enumerate(seqmap_edge_cases(rng)):
+        row = check_seqmap_case(torch.as_tensor(elp, device="cuda"),
+                                torch.as_tensor(est, device="cuda"), epens,
+                                f"edge case {k}", twin_on_host=True)
+        for key in edges:
+            edges[key] = max(edges[key], row[key])
+    checked = {"edges": edges}
+    for name, blocks, bases in (("long", 2000, 12000), ("global", 2000, 20000)):
+        big = torch.as_tensor(rng.integers(0, 1024, bases).astype(np.int32),
+                              device="cuda")
+        checked[name] = check_seqmap_case(lp[:blocks].contiguous(), big, pens,
+                                          f"{name}, {blocks} x {bases}", False)
+        checked[name]["layout"] = m.seqmap_layout(bases)._asdict()
+    out = check_seqmap_case(lp, states, pens, f"read, {T} x {seqlen}", False)
+    final, moves = m.map_to_sequence_tm(lp, states, *pens)
+    path = m.seqmap_walk(final, moves, seqlen)
     out.update(
+        T=T, nst=nst, seqlen=seqlen, layout=m.seqmap_layout(seqlen)._asdict(),
         ms=cuda_ms(lambda: m.map_to_sequence_tm(lp, states, *pens)),
         global_ms=cuda_ms(lambda: m.map_to_sequence_tm(lp, states, *pens,
-                                                       global_state=True)),
+                                                       global_state=True), reps=5),
         forward_ms=cuda_ms(lambda: m.map_to_sequence_tm(lp, states, *pens,
                                                         viterbi=False), reps=5),
-        traceback_bytes=tb.numel() * 4,
-        traceback_copy_ms=cuda_ms(lambda: tb.cpu(), reps=5),
+        moves_bytes=moves.numel(),
         **kernel_work("seqmap", T=T, nst=nst, seqlen=seqlen))
+    out["bound_int32_ms"] = kernel_work("seqmap", T=T, nst=nst, seqlen=seqlen,
+                                        int32=True)["bound_ms"]
     out["us_per_block"] = out["ms"] * 1e3 / T
-    emit({"phase": "seqmap_kernel", **out, "card": card})
+    for row in checked.values():
+        out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
+    walk = {"T": T, "max_abs_err": 0.0, "plain_ms": out.pop("walk_plain_ms"),
+            "ms": cuda_ms(lambda: m.seqmap_walk(final, moves, seqlen), reps=10),
+            "path_bytes": path.numel() * 4,
+            "path_copy_ms": cuda_ms(lambda: path.cpu(), reps=5),
+            **kernel_work("seqmap_walk", T=T)}
+    emit({"phase": "seqmap_kernel", **out, "checked": checked, "walk": walk,
+          "card": card})
+    return out, walk
+
+
+def banded_case(lp, seqlen: int, half: int):
+    """The bands api.map_post_to_sequence makes for an int half-width."""
+    import numpy as np
+
+    nblock = lp.shape[0]
+    gradient = seqlen / nblock
+    low = np.maximum(0, np.arange(nblock) * gradient - half * gradient).astype(np.int64)
+    high = np.minimum(seqlen, np.arange(nblock) * gradient + half * gradient).astype(np.int64)
+    low[0], high[-1] = 0, seqlen
+    return low, high
+
+
+def narrow_bands(T: int, width: int, rng):
+    """(low, high, seqlen) of a sane band of the given width whose shift
+    reaches the width: the first 6 blocks keep low == 0, then low rises by
+    0 to width a block, high = low + width, the last block one narrower."""
+    import numpy as np
+
+    steps = rng.integers(0, width + 1, T)
+    steps[:7] = 0
+    steps[7::7] = width
+    low = np.cumsum(steps).astype(np.int64)
+    seqlen = int(low[-1]) + width - 1 if width > 1 else int(low[-1]) + 1
+    return low, np.minimum(low + width, seqlen), seqlen
+
+
+def check_banded_kernel(card: str) -> dict:
+    """The banded kernel against its twin: on the seqmap read with the
+    bands of MAP_BAND (twins on the card, timed), at widths 1, 2 and 3 on
+    bands whose shift reaches the width and at a width above 1024 (T =
+    2000 blocks of the read; twins on the host), and with the window in
+    global memory; Viterbi identical, forward within FORWARD_RTOL; then
+    the kernel's times at the read's size. Returns its table row."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch import api
+    from scrappie_torch.decode.mapping import banded_inputs
+    from scrappie_torch.ops import seqmap as m
+
+    rng = np.random.default_rng(SEED + 55)
+    post, ref = seqmap_case(rng)
+    lp = torch.as_tensor(post.data(), device="cuda")
+    seq = api.encode_bases(ref, 5).astype(np.int64)
+    pens = (0.0, 0.3, 4.0)
+    short = lp[:T_BLOCKS].contiguous()
+    cases = [("read", lp, seq, *banded_case(lp, len(seq), MAP_BAND), False, None)]
+    for width in (1, 2, 3):
+        low, high, seqlen = narrow_bands(T_BLOCKS, width, rng)
+        cases.append((f"width {width}", short, rng.integers(0, 1024, seqlen),
+                      low, high, True, None))
+    wide_seq = rng.integers(0, 1024, 3000)
+    low, high = banded_case(short, 3000, 700)
+    cases.append(("wide", short, wide_seq, low, high, True, None))
+    cases.append(("wide, global", short, wide_seq, low, high, True, True))
+    out = {"max_abs_err": 0.0, "forward_rel_err": 0.0, "widths": {}}
+    for name, clp, cseq, low, high, host, global_state in cases:
+        states, bands, init = banded_inputs(clp, cseq, low, high, pens[1])
+        width = init.shape[0]
+        out["widths"][name] = width
+        for viterbi in (True, False):
+            targs = ((clp.cpu(), states.cpu(), bands.cpu(), init.cpu()) if host
+                     else (clp, states, bands, init))
+            t0 = time.perf_counter()
+            tp = m.map_banded_plain(*targs, *pens, viterbi=viterbi).cuda()
+            sync()
+            if name == "read":
+                out["plain_ms" if viterbi else "forward_plain_ms"] = (
+                    time.perf_counter() - t0) * 1e3
+            tk = m.map_banded_tm(clp, states, bands, init, *pens, viterbi=viterbi,
+                                 global_state=global_state)
+            sync()
+            what = f"{name}, width {width}, viterbi={viterbi}"
+            if viterbi:
+                require(torch.equal(tk, tp), f"seqmap_banded identical ({what})")
+            else:
+                finite = torch.isfinite(tp)
+                require(torch.equal(finite, torch.isfinite(tk)),
+                        f"seqmap_banded forward infinities ({what})")
+                rel = float(((tk - tp).abs() / tp.abs().clamp(min=1.0))[finite].max())
+                require(rel <= FORWARD_RTOL,
+                        f"seqmap_banded forward rel err {rel} <= {FORWARD_RTOL} ({what})")
+                out["forward_rel_err"] = max(out["forward_rel_err"], rel)
+            out["max_abs_err"] = max(out["max_abs_err"], finite_max_diff(tk, tp))
+    states, bands, init = banded_inputs(lp, seq, *banded_case(lp, len(seq), MAP_BAND),
+                                        pens[1])
+    T, width = lp.shape[0], init.shape[0]
+    out.update(
+        T=T, seqlen=len(seq), width=width,
+        layout=m.banded_layout(lp.shape[1], width),
+        ms=cuda_ms(lambda: m.map_banded_tm(lp, states, bands, init, *pens), reps=10),
+        forward_ms=cuda_ms(lambda: m.map_banded_tm(lp, states, bands, init, *pens,
+                                                   viterbi=False), reps=10),
+        **kernel_work("seqmap_banded", T=T, width=width))
+    out["us_per_block"] = out["ms"] * 1e3 / T
+    emit({"phase": "seqmap_banded_kernel", **out, "card": card})
     return out
 
 
@@ -2145,7 +2366,8 @@ def mapping_signal(squiggle, rng) -> "np.ndarray":
 
 def main_path_mapping(card: str) -> dict:
     """The mapping path through the API on the card: the launches of its
-    two kernels in this run, each call's seconds, and each result held to
+    kernels (MAPPING_KERNELS) in this run, what map_post_to_sequence copies
+    to the host, each call's seconds, and each result held to
     the port's CPU run on the same inputs. map_signal_to_squiggle's CPU
     reference aligns the same normalised signal to the card's squiggle (the
     squiggle phase holds the two squiggles to SQUIGGLE_RTOL; a DP path over
@@ -2162,10 +2384,6 @@ def main_path_mapping(card: str) -> dict:
     data = mapping_signal(squiggle, rng)
     read = synthetic_signal(MAP_SAMPLES, rng)
     ref = random_bases(MAP_BASES, rng)
-    calls = (("viterbi, path", dict(viterbi=True, path=True)),
-             ("forward", {}),
-             (f"banded {MAP_BAND}, viterbi", dict(viterbi=True, bands=MAP_BAND)),
-             (f"banded {MAP_BAND}, forward", dict(bands=MAP_BAND)))
 
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -2175,15 +2393,29 @@ def main_path_mapping(card: str) -> dict:
     raw.trim().scale()
     post = api.calc_post(raw, "rgrgr_r94", device="cuda")
     results = {}
-    for what, kw in calls:
+    for what, kw in MAP_CALLS:
         t0 = time.perf_counter()
         results[what] = api.map_post_to_sequence(post, ref, device="cuda", **kw)
         seconds[what] = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    for name in ("dtw", "dtw_walk", "seqmap"):
+    for name in MAPPING_KERNELS:
         require(launches[name] > 0,
                 f"kernel {name} launched on the mapping path ({launches[name]})")
     copied = host_copies(lambda: api.map_signal_to_squiggle(data, seq, device="cuda"))
+    # Viterbi with a path copies the path, the two finals and the one byte
+    # of the seqmap wrapper's check of the kmer states, and no traceback.
+    # It copies the path for certain, so a trace without a copy lost its
+    # events: profile again.
+    for _ in range(3):
+        mapped_copies = host_copies(lambda: api.map_post_to_sequence(
+            post, ref, device="cuda", **MAP_CALLS[0][1]))
+        if mapped_copies["copies"]:
+            break
+    allowed = 4 * post.shape[0] + 8 + 1
+    require(mapped_copies["copies"] > 0 and mapped_copies["bytes"] is not None
+            and mapped_copies["bytes"] <= allowed,
+            f"map_post_to_sequence viterbi, path copies {mapped_copies} "
+            f"(at most {allowed} bytes) to the host")
 
     raw = api.RawTable(data)
     raw.trim().scale()
@@ -2197,7 +2429,7 @@ def main_path_mapping(card: str) -> dict:
     require(np.array_equal(cpath, path[raw.start:raw.end]) and cscore == score,
             "map_signal_to_squiggle: CUDA and CPU paths and scores identical")
     mapped = path[path >= 0]
-    for what, kw in calls:
+    for what, kw in MAP_CALLS:
         t0 = time.perf_counter()
         cres = api.map_post_to_sequence(post, ref, device="cpu", **kw)
         cpu_seconds[what] = time.perf_counter() - t0
@@ -2218,7 +2450,8 @@ def main_path_mapping(card: str) -> dict:
           "positions_reached": int(mapped.max()) + 1 if len(mapped) else 0,
           "scores": {k: v[0] for k, v in results.items()},
           "seconds": seconds, "cpu_seconds": cpu_seconds, "launches": launches,
-          "map_signal_to_squiggle_host_copies": copied, "card": card})
+          "map_signal_to_squiggle_host_copies": copied,
+          "map_post_to_sequence_host_copies": mapped_copies, "card": card})
     return launches
 
 
@@ -2234,9 +2467,13 @@ def time_checkout(checkout: pathlib.Path) -> None:
     on a read made as main_path_mapping makes it (host clock, median of 3
     after one call), the CRF forward, partition function and backtrace
     (on the checkout's own forward's traceback) at CRF_AB shapes on seeded
-    transitions (2 x standard normal; CUDA events, median of 10) and the
+    transitions (2 x standard normal; CUDA events, median of 10), the
     rnnrf fused path, RnnrfModel.basecall_fused, at
-    B = 64 chunks of CHUNK samples (median of 5). Prints one JSON line."""
+    B = 64 chunks of CHUNK samples (median of 5), the seqmap DP, Viterbi
+    with its traceback (median of 10) and forward (median of 5), on the
+    posterior and reference of seqmap_case, and the four MAP_CALLS of
+    map_post_to_sequence on them (host clock, median of 3 after one call).
+    Prints one JSON line."""
     sys.path.insert(0, str(checkout))
     import numpy as np
     import torch
@@ -2245,7 +2482,8 @@ def time_checkout(checkout: pathlib.Path) -> None:
     from scrappie_torch import api
     from scrappie_torch.decode.dtw import match_inputs
     from scrappie_torch.models.forward import RnnrfModel
-    from scrappie_torch.ops import _build, crf as c, dtw as d, viterbi as v
+    from scrappie_torch.ops import _build, crf as c, dtw as d, seqmap as m
+    from scrappie_torch.ops import viterbi as v
 
     require(pathlib.Path(scrappie_torch.__file__).resolve().is_relative_to(checkout),
             f"scrappie_torch imported from {checkout}")
@@ -2295,6 +2533,24 @@ def time_checkout(checkout: pathlib.Path) -> None:
             rng.standard_normal((64, CHUNK, 1)).astype(np.float32), device="cuda")
         out["rnnrf_fused_ms B = 64"] = cuda_ms(lambda: rnet.basecall_fused(chunks),
                                                reps=5)
+    post, ref = seqmap_case(np.random.default_rng(SEED + 99))
+    lp = torch.as_tensor(post.data(), device="cuda")
+    states = torch.as_tensor(api.encode_bases(ref, 5).astype(np.int32), device="cuda")
+    with torch.inference_mode():
+        out["seqmap_viterbi_ms"] = cuda_ms(
+            lambda: m.map_to_sequence_tm(lp, states, 0.0, 0.0, 4.0), reps=10)
+        out["seqmap_forward_ms"] = cuda_ms(
+            lambda: m.map_to_sequence_tm(lp, states, 0.0, 0.0, 4.0, viterbi=False),
+            reps=5)
+    del lp, states
+    for what, kw in MAP_CALLS:
+        api.map_post_to_sequence(post, ref, device="cuda", **kw)
+        seconds = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            api.map_post_to_sequence(post, ref, device="cuda", **kw)
+            seconds.append(time.perf_counter() - t0)
+        out[f"map_post_to_sequence_s {what}"] = statistics.median(seconds)
     print(json.dumps(out), flush=True)
 
 
@@ -2324,9 +2580,9 @@ def main() -> int:
     ap.add_argument("--ab", type=pathlib.Path, metavar="OTHER_CHECKOUT",
                     help="only time the Viterbi forward and backtrace, the "
                          "DTW, map_signal_to_squiggle, the CRF forward, "
-                         "partition function and backtrace and the rnnrf "
-                         "fused path of OTHER_CHECKOUT and of this checkout, "
-                         "in turns")
+                         "partition function and backtrace, the rnnrf "
+                         "fused path, the seqmap DP and map_post_to_sequence "
+                         "of OTHER_CHECKOUT and of this checkout, in turns")
     ap.add_argument("--times", type=pathlib.Path, help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2379,7 +2635,8 @@ def main() -> int:
     with torch.inference_mode():
         check_squiggle(card)
         table["dtw"], table["dtw_walk"] = check_dtw_kernel(card)
-        table["seqmap"] = check_seqmap_kernel(card)
+        table["seqmap"], table["seqmap_walk"] = check_seqmap_kernel(card)
+        table["seqmap_banded"] = check_banded_kernel(card)
     mapping_launches = main_path_mapping(card)
     # each kernel's launches on its own path: the GRU recurrence's, the
     # head's and the Viterbi kernels' on the rgrgr path, the CRF kernels' on
@@ -2395,7 +2652,7 @@ def main() -> int:
     launches["viterbi_fused_ens"] = ensemble_launches["viterbi_fused_ens"]
     launches.update({k: events_launches[k]
                      for k in ("lstm_layer", "lstm_pair", "lstm_layer_global")})
-    launches.update({k: mapping_launches[k] for k in ("dtw", "dtw_walk", "seqmap")})
+    launches.update({k: mapping_launches[k] for k in MAPPING_KERNELS})
     for name in SUPERSEDED:
         require(launches[name] == 0, f"superseded {name} launched on a path "
                                      f"({launches[name]})")
@@ -2404,7 +2661,7 @@ def main() -> int:
     # (scrappie before), torch.nn.LSTM has no peepholes, and nothing in
     # PyTorch does the head's robustlog and renormalised combination, a
     # Viterbi decode (alone, after a head or after K combined heads), the
-    # CRF's partition function or either mapping DP.
+    # CRF's partition function, a mapping DP or a walk.
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],

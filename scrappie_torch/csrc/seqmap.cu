@@ -1,59 +1,108 @@
 // Posterior-to-sequence mapping: the DP over the blocks of one read's log
-// posterior against a reference's kmer states, Viterbi (with an int32
-// traceback) or forward (log-sum-exp).
+// posterior against a reference's kmer states, Viterbi (with a move byte a
+// state) or forward (log-sum-exp); the walk of the Viterbi moves back to the
+// path; and the same DP restricted to a band.
 //
-// Replaces scrappie_tpu/ops/seqmap.py:_seqmap_kernel (wrapper
-// map_to_sequence_tm, scrappie_torch/ops/seqmap.py), whose lax.scan
-// program scrappie_tpu/decode/mapping.py:_map_dense gives the order of
-// operations. States: the seqlen reference positions, then the local START
-// (seqlen) and END (seqlen + 1). Per block t, with stay_lp = lp[t, nst-1]
-// and emit[pos] = lp[t, seqstates[pos]]:
+// Replaces scrappie_tpu/ops/seqmap.py:_seqmap_kernel: seqmap_kernel
+// (wrapper map_to_sequence_tm, scrappie_torch/ops/seqmap.py), whose order
+// of operations the lax.scan program of
+// scrappie_tpu/decode/mapping.py:_map_dense gives. States: the seqlen
+// reference positions, then the local START (seqlen) and END (seqlen + 1).
+// Per block t, with stay_lp = lp[t, nst-1] and emit[pos] =
+// lp[t, seqstates[pos]]:
 //   position pos, candidates in this order:
-//     stay   (prev[pos] - stay_pen) + stay_lp                 tb pos
-//     step   prev[pos-1] + emit[pos]                           tb pos-1
-//     skip   (prev[pos-2] - skip_pen) + emit[pos]              tb pos-2
-//     entry  (pos = 0 only) prev[START] + emit[0]              tb START
-//   START    prev[START] + local_stay                          tb START
+//     stay   (prev[pos] - stay_pen) + stay_lp                 move 0
+//     step   prev[pos-1] + emit[pos]                           move 1
+//     skip   (prev[pos-2] - skip_pen) + emit[pos]              move 2
+//     entry  (pos = 0 only) prev[START] + emit[0]              move 3
+//   START    prev[START] + local_stay                          move 0
 //   END      prev[END] + local_stay, then the exit
-//            prev[seqlen-1] - local_pen                        tb seqlen-1
+//            prev[seqlen-1] - local_pen                        move 2
 // with local_stay = max(-local_pen, stay_lp) (Viterbi) or
-// logaddexp(-local_pen, stay_lp) (forward). Out-of-range predecessors are
-// -1e30, as in the scan. Viterbi takes a candidate only if strictly
-// greater; the forward variant combines by jnp.logaddexp's formula
-// (-inf with -inf stays -inf). Every addition is an explicit
-// __fadd_rn/__fsub_rn in the scan's order, so the Viterbi scores and
-// traceback are identical bit for bit to the plain twin
-// (ops/seqmap.py:map_to_sequence_plain). As in the scan, and unlike the
-// Pallas kernel, -inf log posteriors are not clamped.
+// logaddexp(-local_pen, stay_lp) (forward). A state's predecessor is its
+// index less its move, or START for move 3, which gives back JAX's int32
+// traceback, its -1 and -2 (a step or skip into position 0 or 1 that won
+// on a -inf posterior) included. Out-of-range predecessors are -1e30, as in
+// the scan. Viterbi takes a candidate only if strictly greater; the forward
+// variant combines by jnp.logaddexp's formula (-inf with -inf stays -inf).
+// Every addition is an explicit __fadd_rn/__fsub_rn in the scan's order,
+// so the Viterbi scores and moves are identical bit for bit to the plain
+// twin (ops/seqmap.py:map_to_sequence_plain). As in the scan, and unlike
+// the Pallas kernel, -inf log posteriors are not clamped.
 //
 // What bounds it on the H100: latency. The DP is sequential in the blocks
 // (about 12 000 for a 60 000-sample read at stride 5) and each block needs
-// the previous block's scores; the work per block (seqlen + 2 states of a
-// few adds and compares) fits one SM. The traceback, 4 (seqlen + 2) bytes
-// per block, and the posterior rows (4 nst bytes per block) are the only
-// traffic.
+// the previous block's scores; a block's work (seqlen + 2 states, each a
+// gather of its kmer's posterior and a few adds and compares) fits one SM.
+// Its traffic, the posterior rows (4 nst bytes a block) and the moves
+// (seqlen + 2 bytes a block), is small.
 //
-// Design: one block of 1024 threads per call (one read, as in JAX); thread
-// i owns the states pos = i, i + 1024, ..., so a warp writes 32 consecutive
-// traceback entries. The scores live in shared memory, double-buffered
-// ([2][seqlen+2] floats, up to SEQMAP_MAX_SHARED_SEQLEN = 28 029 positions
-// at nst = 1025), or for longer references in a global scratch of the same
-// layout (the template switch kShared; block-local, so the barrier orders
-// it too). Each block's posterior row is staged in shared memory by
-// cp.async one block ahead (the copy overlaps the block before), so the
-// kmer lookup lp[t, seqstates[pos]] is a
-// shared-memory read: the TPU kernel's one-hot MXU gather (_expand), its
-// lane rolls, 128-lane padding and time padding are gone (exactly T
-// steps). One __syncthreads per block: START, END and position seqlen-1
-// are read by every thread from the previous scores, so no reduction is
-// needed.
+// Design: one block per call (one read, as in JAX). Thread i owns the run
+// of R consecutive states from i R (R = 4, 8 or 16, the forward variant
+// also 6 or 12 for more threads; ops/seqmap.seqmap_layout): their scores
+// and kmer indices stay in registers, a step
+// updates the run from its end down so that pos-1 and pos-2 are still the
+// previous block's, the run's two left neighbours come from the lane below
+// by shuffle and from the warp below through shared memory (double-buffered
+// by the parity of the block), and the run's R move bytes go out as one
+// store (a warp's stores are contiguous; the rows of `moves` are padded to
+// 16 bytes). START's score is a scalar recurrence every thread keeps (the
+// entry at position 0 reads it); END sits at the end of the last run, whose
+// pos-2 is seqlen-1, its exit's source. The posterior rows come through a
+// ring of RING rows in shared memory, copied RING - 1 blocks ahead by
+// 16-byte cp.async pieces of the 16-byte-aligned span around the row (a row
+// of 1025 floats is 4100 bytes and starts at any multiple of 4 bytes; a
+// piece that would leave the tensor is copied a float at a time). A bulk
+// TMA copy of the span would read up to 12 bytes past the tensor's end, and
+// every thread takes part in the block's one barrier a step anyway. The
+// emissions are a shared-memory gather (random banks) at the end of the
+// block before, after the run's arithmetic. One __syncthreads a step: it
+// orders the ring and the edge exchange. Above 16 * 1024 states (a reference of
+// more than 16 382 bases) the scores live in a global scratch [2, ld]
+// instead, read and written a float4 run at a time (kGlobal), which takes
+// any length.
+//
+// seqmap_walk_kernel follows the moves back from the final state (the
+// host walk of scrappie_tpu/decode/mapping.py:map_to_sequence_viterbi,
+// with its quirks: the last position only if its final beats END's
+// strictly, START and END written as -1, a state of -1 or -2 read as
+// column seqlen + 1 or seqlen). Going back, the column falls by 0, 1 or 2
+// a block, so the next WALK_ROWS rows' bytes lie in the 65 bytes up to
+// the current column, inside an aligned window of 80: one warp loads the
+// windows in one go (16 bytes a lane), lane 0 walks them in shared memory,
+// the warp writes the path. The window breaks only where the walk jumps
+// up (an entry to START, a negative state), and a walk in START stays
+// there: the rest is -1.
+//
+// seqmap_banded_kernel is the DP restricted to a band (no TPU kernel: the
+// lax.scan of scrappie_tpu/decode/mapping.py:_map_banded), over blocks 1 to
+// T-1 after the caller's block 0: a window of `width` scores at positions
+// low[t] + w slides along the sequence. Per block, in the scan's order,
+// comb(comb(stay, step), skip) from the previous window shifted by
+// d = low[t] - low[t-1] (lax.dynamic_slice's clamp), the entry at w = 0
+// while low[t] == 0, the in-band mask, then START and END (the exit reads
+// position seqlen-1 in the previous window). comb is fmaxf (Viterbi) or
+// logaddexp. It takes low and high on the card and derives the shift, the
+// entry flag, the mask and the exit's offset itself; the posterior rows
+// and the band's bounds come through the same ring. A thread takes window
+// offsets tid, tid + threads, ... (any width); the window's scores are
+// double-buffered in shared memory, or in a global scratch when 2 width
+// floats do not fit. One __syncthreads a block.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr float BIG = 1.0e30f;
-constexpr int THREADS = 1024;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_THREADS = 1024;
+constexpr int WARP = 32;
+constexpr int RING = 8;       // posterior rows in the shared-memory ring
+constexpr int WALK_ROWS = 32; // rows a walk window covers
+constexpr int WALK_SPAN = 80; // bytes of a row a walk window covers
+constexpr int GLOBAL_RUN = 4; // states a thread in the global-memory mode
 
 struct SeqmapParams {
   float stay_pen;
@@ -69,113 +118,468 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
 }
 
 template <bool kViterbi>
-__device__ __forceinline__ void contend(float& cur, int& tb, float cand,
-                                        int ctb) {
+__device__ __forceinline__ void contend(float& cur, int& move, float cand,
+                                        int cmove) {
   if (kViterbi) {
     if (cand > cur) {
       cur = cand;
-      tb = ctb;
+      move = cmove;
     }
   } else {
     cur = logaddexp(cur, cand);
   }
 }
 
-// Start copying posterior row t into buf; every thread commits a group,
-// empty past the end, so the groups stay in step with t.
-__device__ __forceinline__ void stage_row(float* buf,
-                                          const float* __restrict__ lp, int t,
-                                          int T, int nst) {
-  if (t < T) {
-    const float* src = lp + (size_t)t * nst;
-    for (int i = threadIdx.x; i < nst; i += THREADS)
-      __pipeline_memcpy_async(buf + i, src + i, sizeof(float));
-  }
-  __pipeline_commit();
+template <bool kViterbi>
+__device__ __forceinline__ float comb(float a, float b) {
+  return kViterbi ? fmaxf(a, b) : logaddexp(a, b);
 }
 
-// lp [T, nst]; seqstates [seqlen] -> final [seqlen+2], tb [T, seqlen+2]
-// int32 (Viterbi with a path; may be null). Dynamic shared memory: two
-// posterior rows, then (kShared) the scores [2, seqlen+2]; else the scores
-// live in scratch [2, seqlen+2].
-template <bool kViterbi, bool kShared>
-__global__ void __launch_bounds__(THREADS)
+// Floats of a ring slot: a row and the 16-byte-aligned span around it.
+__host__ __device__ __forceinline__ int slot_floats(int nst) {
+  return (nst + 3 + 3) & ~3;
+}
+
+// The ring of posterior rows: row t lies in slot t % RING at float offset
+// row_offset(t) (the row's start within its 16-byte-aligned span).
+struct RowRing {
+  const float* lp;
+  int T, nst, slot;
+
+  __device__ __forceinline__ int row_offset(int t) const {
+    return (int)((reinterpret_cast<uintptr_t>(lp + (size_t)t * nst) & 15) >> 2);
+  }
+
+  __device__ __forceinline__ const float* row(const float* ring, int t) const {
+    return ring + (t % RING) * slot + row_offset(t);
+  }
+
+  // Start copying row t (if t < T) into its slot, and with it `nextra` ints
+  // of `extra` + t * nextra into ints + (t % RING) * nextra; every thread
+  // commits a group, empty past the end, so that the groups stay in step
+  // with t.
+  __device__ __forceinline__ void stage(float* ring, int t, int tid,
+                                        int nthreads, const int* extra = nullptr,
+                                        int* ints = nullptr, int nextra = 0) const {
+    if (t < T) {
+      const int off = row_offset(t);
+      const float* span = lp + (size_t)t * nst - off;
+      float* dst = ring + (t % RING) * slot;
+      const uintptr_t first = reinterpret_cast<uintptr_t>(lp);
+      const uintptr_t last = reinterpret_cast<uintptr_t>(lp + (size_t)T * nst);
+      const int pieces = (off + nst + 3) >> 2;
+      const uintptr_t a0 = reinterpret_cast<uintptr_t>(span);
+      const bool inside = a0 >= first && a0 + 16 * pieces <= last;
+      for (int c = tid; c < pieces; c += nthreads) {
+        const float* src = span + 4 * c;
+        const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+        if (inside || (a >= first && a + 16 <= last)) {
+          __pipeline_memcpy_async(dst + 4 * c, src, 16);
+        } else {
+          for (int k = 0; k < 4; ++k) {
+            const uintptr_t ak = a + 4 * k;
+            if (ak >= first && ak < last)
+              __pipeline_memcpy_async(dst + 4 * c + k, src + k, 4);
+          }
+        }
+      }
+      if (tid < nextra)
+        __pipeline_memcpy_async(ints + (t % RING) * nextra + tid,
+                                extra + (size_t)tid * T + t, 4);
+    }
+    __pipeline_commit();
+  }
+};
+
+// One block's update of a run of R states from base: s holds the previous
+// block's scores and gets the new ones; e holds the emissions of the run's
+// positions; nb1 and nb2 are the previous scores of states base-1 and
+// base-2 (-BIG below 0). Runs from the end down, so that s[i-1] and s[i-2]
+// are still the previous block's when state i reads them. Returns the
+// moves, a byte a state (state base + i in byte i). local_stay is read
+// only by a run that holds START or END, pstart only by the run of
+// position 0.
+template <bool kViterbi, int R>
+__device__ __forceinline__ void update_run(float (&s)[R], const float (&e)[R],
+                                           float nb1, float nb2, float stay_lp,
+                                           float local_stay, float pstart,
+                                           int base, int seqlen,
+                                           const SeqmapParams& p,
+                                           uint32_t (&moves)[(R + 3) / 4]) {
+#pragma unroll
+  for (int j = 0; j < (R + 3) / 4; ++j) moves[j] = 0;
+  if (base + R <= seqlen) {  // positions only
+#pragma unroll
+    for (int i = R - 1; i >= 0; --i) {
+      const float step = i >= 1 ? s[i - 1] : nb1;
+      const float skip = i >= 2 ? s[i - 2] : (i == 1 ? nb1 : nb2);
+      float cur = __fadd_rn(__fsub_rn(s[i], p.stay_pen), stay_lp);
+      int move = 0;
+      contend<kViterbi>(cur, move, __fadd_rn(step, e[i]), 1);
+      contend<kViterbi>(cur, move,
+                        __fadd_rn(__fsub_rn(skip, p.skip_pen), e[i]), 2);
+      if (i == 0 && base == 0)
+        contend<kViterbi>(cur, move, __fadd_rn(pstart, e[i]), 3);
+      s[i] = cur;
+      moves[i / 4] |= (uint32_t)move << (8 * (i % 4));
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = R - 1; i >= 0; --i) {
+    const int g = base + i;
+    const float skip = i >= 2 ? s[i - 2] : (i == 1 ? nb1 : nb2);
+    float cur = s[i];
+    int move = 0;
+    if (g < seqlen) {
+      const float step = i >= 1 ? s[i - 1] : nb1;
+      cur = __fadd_rn(__fsub_rn(s[i], p.stay_pen), stay_lp);
+      contend<kViterbi>(cur, move, __fadd_rn(step, e[i]), 1);
+      contend<kViterbi>(cur, move,
+                        __fadd_rn(__fsub_rn(skip, p.skip_pen), e[i]), 2);
+      if (g == 0) contend<kViterbi>(cur, move, __fadd_rn(pstart, e[i]), 3);
+    } else if (g == seqlen) {
+      cur = __fadd_rn(s[i], local_stay);
+    } else if (g == seqlen + 1) {
+      cur = __fadd_rn(s[i], local_stay);
+      contend<kViterbi>(cur, move, __fsub_rn(skip, p.local_pen), 2);
+    }
+    s[i] = cur;
+    moves[i / 4] |= (uint32_t)move << (8 * (i % 4));
+  }
+}
+
+// A run's kmer indices, two 16-bit halves a register (nst is far below
+// 65 536: RING rows of it fit shared memory).
+template <int R>
+struct Kmers {
+  uint32_t k[R / 2];
+
+  __device__ __forceinline__ void load(const int* __restrict__ seqstates,
+                                       int base, int seqlen) {
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) {
+      const int g = base + 2 * i;
+      k[i] = (g < seqlen ? (uint32_t)__ldg(seqstates + g) : 0u) |
+             (g + 1 < seqlen ? (uint32_t)__ldg(seqstates + g + 1) << 16 : 0u);
+    }
+  }
+
+  __device__ __forceinline__ int operator[](int i) const {
+    return (k[i / 2] >> (16 * (i % 2))) & 0xffff;
+  }
+};
+
+template <int R>
+__device__ __forceinline__ void gather(float (&e)[R], const Kmers<R>& kmer,
+                                       const float* row) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) e[i] = row[kmer[i]];
+}
+
+template <int R>
+__device__ __forceinline__ void store_moves(uint8_t* dst,
+                                            const uint32_t (&m)[(R + 3) / 4]) {
+  if constexpr (R == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = m[0];
+  } else if constexpr (R == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(m[0], m[1]);
+  } else {
+    static_assert(R == 16, "Viterbi runs of 4, 8 or 16 states");
+    *reinterpret_cast<uint4*>(dst) = make_uint4(m[0], m[1], m[2], m[3]);
+  }
+}
+
+__device__ __forceinline__ float local_stay_of(bool viterbi, float local_pen,
+                                               float stay_lp) {
+  return viterbi ? fmaxf(-local_pen, stay_lp) : logaddexp(-local_pen, stay_lp);
+}
+
+// lp [T, nst]; seqstates [seqlen] -> final [seqlen+2], moves [T, ld] uint8
+// (Viterbi with a path; may be null; bytes from seqlen + 2 on are 0).
+// Dynamic shared memory: the ring, then the warps' edges [2][32] float2.
+// kGlobal: the scores live in scratch [2, ld], runs of GLOBAL_RUN = 4.
+template <bool kViterbi, int R, bool kGlobal>
+__global__ void __launch_bounds__(MAX_THREADS)
 seqmap_kernel(const float* __restrict__ lp, const int* __restrict__ seqstates,
               float* scratch, float* __restrict__ final_,
-              int* __restrict__ tb, int T, int nst, int seqlen,
+              uint8_t* __restrict__ moves, int T, int nst, int seqlen, int ld,
               SeqmapParams p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & (WARP - 1);
+  const int warp = tid / WARP;
+  const int n = seqlen + 2;
+  const RowRing ring{lp, T, nst, slot_floats(nst)};
+  float* rows = smem;
+  float2* edge = reinterpret_cast<float2*>(smem + RING * ring.slot);
+  const int base = tid * R;
+  float s[R];
+  Kmers<R> kmer;
+  float e[R];
+  uint32_t mv[(R + 3) / 4];
+  float pstart = 0.0f;
+
+  if constexpr (kGlobal) {
+    static_assert(R == 4, "a float4 run");
+    for (int g = tid; g < ld; g += nthreads) scratch[g] = g == seqlen ? 0.0f : -BIG;
+    for (int t = 0; t < RING - 1; ++t) ring.stage(rows, t, tid, nthreads);
+    for (int t = 0; t < T; ++t) {
+      __pipeline_wait_prior(RING - 2);
+      // Row t is staged and block t-1's scores are written; every thread
+      // is done with row t-1, whose slot now takes row t + RING - 1.
+      __syncthreads();
+      ring.stage(rows, t + RING - 1, tid, nthreads);
+      const float* row = ring.row(rows, t);
+      const float stay_lp = row[nst - 1];
+      const float local_stay = local_stay_of(kViterbi, p.local_pen, stay_lp);
+      const float* prev = scratch + (t & 1) * ld;
+      float* next = scratch + ((t + 1) & 1) * ld;
+      for (int b = base; b < ld; b += nthreads * R) {
+        const float4 v = *reinterpret_cast<const float4*>(prev + b);
+        s[0] = v.x;
+        s[1] = v.y;
+        s[2] = v.z;
+        s[3] = v.w;
+        kmer.load(seqstates, b, seqlen);
+        gather<R>(e, kmer, row);
+        update_run<kViterbi, R>(s, e, b >= 1 ? prev[b - 1] : -BIG,
+                                b >= 2 ? prev[b - 2] : -BIG, stay_lp,
+                                local_stay, pstart, b, seqlen, p, mv);
+        *reinterpret_cast<float4*>(next + b) = make_float4(s[0], s[1], s[2], s[3]);
+        if (kViterbi && moves != nullptr)
+          store_moves<R>(moves + (size_t)t * ld + b, mv);
+      }
+      pstart = __fadd_rn(pstart, local_stay);
+    }
+    __syncthreads();
+    const float* last = scratch + (T & 1) * ld;
+    for (int g = tid; g < n; g += nthreads) final_[g] = last[g];
+    return;
+  }
+
+  for (int t = 0; t < RING - 1; ++t) ring.stage(rows, t, tid, nthreads);
+#pragma unroll
+  for (int i = 0; i < R; ++i) s[i] = base + i == seqlen ? 0.0f : -BIG;
+  kmer.load(seqstates, base, seqlen);
+  if (lane == WARP - 1) edge[warp] = make_float2(s[R - 2], s[R - 1]);
+  // Before the barrier that ends block t-1, rows t and t+1 are staged; a
+  // block's emissions are gathered at the end of the block before, when
+  // the run's arithmetic is done.
+  __pipeline_wait_prior(RING - 3);
+  __syncthreads();
+  gather<R>(e, kmer, ring.row(rows, 0));
+  float stay_lp = ring.row(rows, 0)[nst - 1];
+  // Only the runs of position 0 (the entry reads START's score) and of
+  // START and END need the local states' stay, a logaddexp in the forward
+  // variant.
+  const bool local_run = base == 0 || base + R > seqlen;
+  for (int t = 0; t < T; ++t) {
+    const float local_stay =
+        local_run ? local_stay_of(kViterbi, p.local_pen, stay_lp) : 0.0f;
+    float nb1 = __shfl_up_sync(FULL, s[R - 1], 1);
+    float nb2 = __shfl_up_sync(FULL, s[R - 2], 1);
+    if (lane == 0) {
+      const float2 left = warp > 0 ? edge[(t & 1) * WARP + warp - 1]
+                                   : make_float2(-BIG, -BIG);
+      nb2 = left.x;
+      nb1 = left.y;
+    }
+    update_run<kViterbi, R>(s, e, nb1, nb2, stay_lp, local_stay, pstart, base,
+                            seqlen, p, mv);
+    pstart = __fadd_rn(pstart, local_stay);
+    if (lane == WARP - 1)
+      edge[((t + 1) & 1) * WARP + warp] = make_float2(s[R - 2], s[R - 1]);
+    if constexpr (kViterbi) {
+      if (moves != nullptr && base < ld)
+        store_moves<R>(moves + (size_t)t * ld + base, mv);
+    }
+    if (t + 1 < T) {
+      const float* row = ring.row(rows, t + 1);
+      gather<R>(e, kmer, row);
+      stay_lp = row[nst - 1];
+    }
+    // Row t-1's slot, last read before the barrier that ended block t-2,
+    // takes row t + RING - 1.
+    ring.stage(rows, t + RING - 1, tid, nthreads);
+    __pipeline_wait_prior(RING - 3);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (base + i < n) final_[base + i] = s[i];
+}
+
+__global__ void __launch_bounds__(WARP)
+seqmap_walk_kernel(const float* __restrict__ final_,
+                   const uint8_t* __restrict__ moves, int* __restrict__ path,
+                   int T, int seqlen, int ld) {
+  __shared__ __align__(16) uint8_t win[WALK_ROWS][WALK_SPAN];
+  __shared__ int out[WALK_ROWS];
+  const int lane = threadIdx.x;
   const int n = seqlen + 2;
   const int START = seqlen;
   const int END = seqlen + 1;
-  float* rows = smem;
-  float* state = kShared ? smem + 2 * nst : scratch;
-
-  for (int s = tid; s < n; s += THREADS) state[s] = s == START ? 0.0f : -BIG;
-  stage_row(rows, lp, 0, T, nst);
-
-  for (int t = 0; t < T; ++t) {
-    __pipeline_wait_prior(0);
-    // Row t is staged and block t-1's scores are written; every thread is
-    // done with row t-1, whose buffer now takes row t+1 while block t runs.
-    __syncthreads();
-    stage_row(rows + ((t + 1) & 1) * nst, lp, t + 1, T, nst);
-    const float* row = rows + (t & 1) * nst;
-    const float* prev = state + (t & 1) * n;
-    float* next = state + ((t + 1) & 1) * n;
-    int* tbrow = tb == nullptr ? nullptr : tb + (size_t)t * n;
-    const float stay_lp = row[nst - 1];
-    const float local_stay = kViterbi ? fmaxf(-p.local_pen, stay_lp)
-                                      : logaddexp(-p.local_pen, stay_lp);
-    const float pstart = prev[START];
-
-    for (int pos = tid; pos < n; pos += THREADS) {
-      float cur;
-      int tbv;
-      if (pos < seqlen) {
-        const float emit = row[__ldg(seqstates + pos)];
-        cur = __fadd_rn(__fsub_rn(prev[pos], p.stay_pen), stay_lp);
-        tbv = pos;
-        contend<kViterbi>(cur, tbv,
-                          __fadd_rn(pos >= 1 ? prev[pos - 1] : -BIG, emit),
-                          pos - 1);
-        contend<kViterbi>(
-            cur, tbv,
-            __fadd_rn(__fsub_rn(pos >= 2 ? prev[pos - 2] : -BIG, p.skip_pen),
-                      emit),
-            pos - 2);
-        if (pos == 0) contend<kViterbi>(cur, tbv, __fadd_rn(pstart, emit), START);
-      } else if (pos == START) {
-        cur = __fadd_rn(pstart, local_stay);
-        tbv = START;
-      } else {
-        cur = __fadd_rn(prev[END], local_stay);
-        tbv = END;
-        contend<kViterbi>(cur, tbv, __fsub_rn(prev[seqlen - 1], p.local_pen),
-                          seqlen - 1);
-      }
-      next[pos] = cur;
-      if (tbrow != nullptr) tbrow[pos] = tbv;
+  auto shown = [&](int state) {
+    return state == START || state == END ? -1 : state;
+  };
+  int cur = final_[seqlen - 1] > final_[END] ? seqlen - 1 : END;
+  if (lane == 0) path[T - 1] = shown(cur);
+  int t = T - 1;  // path[t] = cur is written; tb[t, cur] gives path[t-1]
+  while (t > 0) {
+    const int col = cur < 0 ? cur + n : cur;
+    if (col == START) {  // START's predecessor is START
+      for (int i = lane; i < t; i += WARP) path[i] = -1;
+      break;
     }
+    const int lo = max(col - 2 * WALK_ROWS, 0) & ~15;
+    const int pieces = (((col + 16) & ~15) - lo) >> 4;
+    const int nrows = min(WALK_ROWS, t);
+    constexpr int PER_ROW = WALK_SPAN / 16;
+    for (int i = lane; i < nrows * PER_ROW; i += WARP) {
+      const int r = i / PER_ROW;
+      const int c = i % PER_ROW;
+      if (c < pieces)
+        *reinterpret_cast<uint4*>(&win[r][16 * c]) = __ldg(
+            reinterpret_cast<const uint4*>(moves + (size_t)(t - r) * ld + lo) + c);
+    }
+    __syncwarp();
+    int done = 0;
+    if (lane == 0) {
+      int c = col;
+      const int hi = lo + 16 * pieces;
+      while (done < nrows) {
+        const int move = win[done][c - lo];
+        cur = move == 3 ? START : c - move;
+        out[done++] = shown(cur);
+        c = cur < 0 ? cur + n : cur;
+        if (c < lo || c >= hi) break;  // the walk left the window
+      }
+    }
+    done = __shfl_sync(FULL, done, 0);
+    cur = __shfl_sync(FULL, cur, 0);
+    __syncwarp();
+    if (lane < done) path[t - 1 - lane] = out[lane];
+    t -= done;
+    __syncwarp();
+  }
+}
+
+// lp [T, nst]; seqstates [seqlen]; bands [2, T] int32 (low, then high);
+// init [width] (block 0's window) -> out [width + 1]: the last block's
+// window, then END's score. Dynamic shared memory: the ring, the ring's
+// bounds [RING][2] ints, then (kShared) the window [2, width]; else the
+// window lives in scratch [2, width].
+template <bool kViterbi, bool kShared>
+__global__ void __launch_bounds__(MAX_THREADS)
+seqmap_banded_kernel(const float* __restrict__ lp,
+                     const int* __restrict__ seqstates,
+                     const int* __restrict__ bands,
+                     const float* __restrict__ init, float* scratch,
+                     float* __restrict__ out, int T, int nst, int seqlen,
+                     int width, SeqmapParams p) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const RowRing ring{lp, T, nst, slot_floats(nst)};
+  float* rows = smem;
+  int* bounds = reinterpret_cast<int*>(smem + RING * ring.slot);
+  float* win = kShared ? smem + RING * ring.slot + 2 * RING : scratch;
+
+  for (int w = tid; w < width; w += nthreads) win[w] = init[w];
+  for (int t = 1; t < RING; ++t)
+    ring.stage(rows, t, tid, nthreads, bands, bounds, 2);
+  const int seq0 = __ldg(seqstates);
+  int lo_prev = __ldg(bands);
+  int hi_prev = __ldg(bands + T);
+  // Carries after block 0: START stayed once; END is reached only by the
+  // direct start->end transition, which the reference allows in the
+  // first block alone.
+  float start = local_stay_of(kViterbi, p.local_pen, __ldg(lp + nst - 1));
+  float end = -p.local_pen;
+  for (int t = 1; t < T; ++t) {
+    __pipeline_wait_prior(RING - 2);
+    __syncthreads();
+    ring.stage(rows, t + RING - 1, tid, nthreads, bands, bounds, 2);
+    const float* row = ring.row(rows, t);
+    const int lo = bounds[(t % RING) * 2];
+    const int hi = bounds[(t % RING) * 2 + 1];
+    const float* prev = win + ((t - 1) & 1) * width;
+    float* next = win + (t & 1) * width;
+    const float stay_lp = row[nst - 1];
+    const float local_stay = local_stay_of(kViterbi, p.local_pen, stay_lp);
+    const float entry = __fadd_rn(start, row[seq0]);
+    // new[w] reads old offset w + d - by, the slice's start clamped as
+    // lax.dynamic_slice clamps it into [0, 2 width] of the padded window
+    const int d = lo - lo_prev;
+    const int sh0 = min(max(width + d, 0), 2 * width) - width;
+    const int sh1 = min(max(width + d - 1, 0), 2 * width) - width;
+    const int sh2 = min(max(width + d - 2, 0), 2 * width) - width;
+    auto old = [&](int i) {
+      return i >= 0 && i < width ? prev[i] : -BIG;
+    };
+    for (int w = tid; w < width; w += nthreads) {
+      const int pos = min(max(lo + w, 0), seqlen - 1);
+      const float emit = row[__ldg(seqstates + pos)];
+      const float stay_c = __fadd_rn(__fsub_rn(old(sh0 + w), p.stay_pen), stay_lp);
+      const float step_c = __fadd_rn(old(sh1 + w), emit);
+      const float skip_c = __fadd_rn(__fsub_rn(old(sh2 + w), p.skip_pen), emit);
+      float cur = comb<kViterbi>(comb<kViterbi>(stay_c, step_c), skip_c);
+      if (w == 0 && lo == 0) cur = comb<kViterbi>(cur, entry);
+      next[w] = lo + w < hi ? cur : -BIG;
+    }
+    if (tid == 0) {
+      const float exit_src =
+          lo_prev <= seqlen - 1 && seqlen - 1 < hi_prev
+              ? prev[min(max(seqlen - 1 - lo_prev, 0), width - 1)]
+              : -BIG;
+      end = comb<kViterbi>(__fadd_rn(end, local_stay),
+                           __fsub_rn(exit_src, p.local_pen));
+    }
+    start = __fadd_rn(start, local_stay);
+    lo_prev = lo;
+    hi_prev = hi;
   }
   __syncthreads();
-  const float* last = state + (T & 1) * n;
-  for (int s = tid; s < n; s += THREADS) final_[s] = last[s];
+  const float* last = win + ((T - 1) & 1) * width;
+  for (int w = tid; w < width; w += nthreads) out[w] = last[w];
+  if (tid == 0) out[width] = end;
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <bool kViterbi, int R, bool kGlobal>
+cudaError_t launch(const float* lp, const int* seqstates, float* scratch,
+                   float* final_, uint8_t* moves, int T, int nst, int seqlen,
+                   int ld, int threads, SeqmapParams p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * RING * slot_floats(nst) +
+                      sizeof(float2) * 2 * WARP;
+  auto kernel = seqmap_kernel<kViterbi, R, kGlobal>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, threads, smem, stream>>>(lp, seqstates, scratch, final_, moves,
+                                       T, nst, seqlen, ld, p);
+  return cudaGetLastError();
 }
 
 template <bool kViterbi, bool kShared>
-cudaError_t launch(const float* lp, const int* seqstates, float* scratch,
-                   float* final_, int* tb, int T, int nst, int seqlen,
-                   SeqmapParams p, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)nst + (kShared ? 2 * (size_t)(seqlen + 2) : 0));
-  const cudaError_t err = cudaFuncSetAttribute(
-      seqmap_kernel<kViterbi, kShared>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_banded(const float* lp, const int* seqstates,
+                          const int* bands, const float* init, float* scratch,
+                          float* out, int T, int nst, int seqlen, int width,
+                          int threads, SeqmapParams p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * RING * slot_floats(nst) +
+                      sizeof(int) * 2 * RING +
+                      (kShared ? sizeof(float) * 2 * (size_t)width : 0);
+  auto kernel = seqmap_banded_kernel<kViterbi, kShared>;
+  const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  seqmap_kernel<kViterbi, kShared><<<1, THREADS, smem, stream>>>(
-      lp, seqstates, scratch, final_, tb, T, nst, seqlen, p);
+  kernel<<<1, threads, smem, stream>>>(lp, seqstates, bands, init, scratch,
+                                       out, T, nst, seqlen, width, p);
   return cudaGetLastError();
 }
 
@@ -183,19 +587,59 @@ cudaError_t launch(const float* lp, const int* seqstates, float* scratch,
 
 extern "C" {
 
+// run: states a thread (Viterbi 4, 8, 16, forward also 6, 12, in
+// registers; GLOBAL_RUN with global); threads: a multiple of 32, at most
+// 1024 (ops/seqmap.seqmap_layout).
 int scrappie_seqmap(const float* lp, const int* seqstates, float* scratch,
-                    float* final_, int* tb, int T, int nst, int seqlen,
-                    float stay_pen, float skip_pen, float local_pen,
-                    int viterbi, int shared, cudaStream_t stream) {
+                    float* final_, uint8_t* moves, int T, int nst, int seqlen,
+                    int ld, float stay_pen, float skip_pen, float local_pen,
+                    int viterbi, int run, int threads, int global,
+                    cudaStream_t stream) {
   const SeqmapParams p{stay_pen, skip_pen, local_pen};
   auto go = [&](auto fn) {
-    return (int)fn(lp, seqstates, scratch, final_, tb, T, nst, seqlen, p,
-                   stream);
+    return (int)fn(lp, seqstates, scratch, final_, moves, T, nst, seqlen, ld,
+                   threads, p, stream);
+  };
+  if (global) {
+    if (run != GLOBAL_RUN) return (int)cudaErrorInvalidValue;
+    return viterbi ? go(launch<true, GLOBAL_RUN, true>)
+                   : go(launch<false, GLOBAL_RUN, true>);
+  }
+  switch (run * 2 + (viterbi ? 1 : 0)) {
+    case 9: return go(launch<true, 4, false>);
+    case 8: return go(launch<false, 4, false>);
+    case 17: return go(launch<true, 8, false>);
+    case 16: return go(launch<false, 8, false>);
+    case 33: return go(launch<true, 16, false>);
+    case 32: return go(launch<false, 16, false>);
+    case 12: return go(launch<false, 6, false>);
+    case 24: return go(launch<false, 12, false>);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int scrappie_seqmap_walk(const float* final_, const uint8_t* moves, int* path,
+                         int T, int seqlen, int ld, cudaStream_t stream) {
+  if (T == 0) return (int)cudaSuccess;
+  seqmap_walk_kernel<<<1, WARP, 0, stream>>>(final_, moves, path, T, seqlen, ld);
+  return (int)cudaGetLastError();
+}
+
+int scrappie_seqmap_banded(const float* lp, const int* seqstates,
+                           const int* bands, const float* init, float* scratch,
+                           float* out, int T, int nst, int seqlen, int width,
+                           float stay_pen, float skip_pen, float local_pen,
+                           int viterbi, int threads, int shared,
+                           cudaStream_t stream) {
+  const SeqmapParams p{stay_pen, skip_pen, local_pen};
+  auto go = [&](auto fn) {
+    return (int)fn(lp, seqstates, bands, init, scratch, out, T, nst, seqlen,
+                   width, threads, p, stream);
   };
   if (viterbi) {
-    return shared ? go(launch<true, true>) : go(launch<true, false>);
+    return shared ? go(launch_banded<true, true>) : go(launch_banded<true, false>);
   }
-  return shared ? go(launch<false, true>) : go(launch<false, false>);
+  return shared ? go(launch_banded<false, true>) : go(launch_banded<false, false>);
 }
 
 }  // extern "C"

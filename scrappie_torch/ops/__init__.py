@@ -37,6 +37,8 @@ LAUNCHES: dict[str, int] = {
     "dtw": 0,
     "dtw_walk": 0,
     "seqmap": 0,
+    "seqmap_walk": 0,
+    "seqmap_banded": 0,
 }
 
 

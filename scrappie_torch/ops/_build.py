@@ -51,7 +51,11 @@ _SIGNATURES = {
                      _F, _F, _F, _I, _I, _I, _I, _I, _P),
     "scrappie_dtw_max_clusters": (_I, _I, _I, _I, _I),
     "scrappie_dtw_walk": (_P, _P, _P, _P, _I, _I, _P),
-    "scrappie_seqmap": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P),
+    "scrappie_seqmap": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I,
+                        _I, _I, _P),
+    "scrappie_seqmap_walk": (_P, _P, _P, _I, _I, _I, _P),
+    "scrappie_seqmap_banded": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                               _F, _I, _I, _I, _P),
 }
 
 

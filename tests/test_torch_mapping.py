@@ -74,18 +74,21 @@ def test_seqmap_twin_matches_jax(T, nst, seqlen, viterbi):
                                           *pens, viterbi, True)
     pallas_final, pallas_tb = j_map_tm(jnp.asarray(lp), jnp.asarray(seqstates),
                                        *pens, viterbi=viterbi, interpret=True)
-    final, tb = tops.map_to_sequence_tm(torch.from_numpy(lp),
-                                        torch.from_numpy(seqstates), *pens,
-                                        viterbi=viterbi)
+    final, moves = tops.map_to_sequence_tm(torch.from_numpy(lp),
+                                           torch.from_numpy(seqstates), *pens,
+                                           viterbi=viterbi)
     assert final.shape == (seqlen + 2,)
     for ref in (scan_final, pallas_final):
         np.testing.assert_allclose(final.numpy(), np.asarray(ref), **FINAL_TOL)
     if viterbi:
-        assert tb.dtype == torch.int32 and tb.shape == (T, seqlen + 2)
-        np.testing.assert_array_equal(tb.numpy(), np.asarray(scan_tb))
-        np.testing.assert_array_equal(tb.numpy(), np.asarray(pallas_tb))
+        assert moves.dtype == torch.uint8
+        assert moves.shape == (T, tops.move_stride(seqlen))
+        assert not moves[:, seqlen + 2:].any()
+        tb = tops.moves_to_traceback(moves, seqlen).numpy()
+        np.testing.assert_array_equal(tb, np.asarray(scan_tb))
+        np.testing.assert_array_equal(tb, np.asarray(pallas_tb))
     else:
-        assert tb is None
+        assert moves is None
 
 
 @pytest.mark.parametrize("viterbi", [True, False])
@@ -99,13 +102,223 @@ def test_seqmap_keeps_minus_inf_as_the_scan_does(viterbi):
     seqstates = np.array([4, 4, 1, 4, 7, 4, 2, 4], dtype=np.int32)
     ref_final, ref_tb = jmap._map_dense(jnp.asarray(lp), jnp.asarray(seqstates),
                                         0.0, 0.0, 4.0, viterbi, True)
-    final, tb = tops.map_to_sequence_plain(torch.from_numpy(lp),
-                                           torch.from_numpy(seqstates),
-                                           viterbi=viterbi)
+    final, moves = tops.map_to_sequence_plain(torch.from_numpy(lp),
+                                              torch.from_numpy(seqstates),
+                                              viterbi=viterbi)
     assert not torch.isnan(final).any()
     np.testing.assert_allclose(final.numpy(), np.asarray(ref_final), **FINAL_TOL)
     if viterbi:
-        np.testing.assert_array_equal(tb.numpy(), np.asarray(ref_tb))
+        tb = tops.moves_to_traceback(moves, len(seqstates)).numpy()
+        np.testing.assert_array_equal(tb, np.asarray(ref_tb))
+
+
+def tiny_cases(n: int, seed: int) -> list:
+    """Seeded small maps where the walk meets its edge cases: integer log
+    posteriors (ties), half of them -inf, seqlen 2 or 3, T from 1 to 8, and
+    penalties that include a huge local penalty (2e30: the local states
+    lose) and a huge skip bonus (-1e30), so that steps and skips from below
+    position 0 win and the walk reads the states -1 and -2."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for _ in range(n):
+        T, nst, seqlen = int(rng.integers(1, 9)), 5, int(rng.integers(2, 4))
+        lp = rng.integers(-3, 1, (T, nst)).astype(np.float32)
+        lp[rng.random((T, nst)) < 0.5] = -np.inf
+        seq = rng.integers(0, nst - 1, seqlen).astype(np.int32)
+        pens = (float(rng.choice([0.0, 0.5])), float(rng.choice([0.0, -1e30, 1.0])),
+                float(rng.choice([4.0, 2e30])))
+        cases.append((lp, seq, pens))
+    return cases
+
+
+def edge_case(name: str):
+    """(lp, seqstates, penalties) of a named edge case of the dense map."""
+    rng = np.random.default_rng(len(name))
+    if name == "minus_inf":  # the -inf case above: a -1 in the traceback
+        lp = dirichlet_logpost(40, 17, seed=5)
+        lp[::3, 4] = -np.inf
+        lp[5:9, -1] = -np.inf
+        return lp, np.array([4, 4, 1, 4, 7, 4, 2, 4], np.int32), (0.0, 0.0, 4.0)
+    if name == "ties":  # integer-valued log posteriors and penalties
+        lp = rng.integers(-4, 1, (60, 17)).astype(np.float32)
+        return lp, rng.integers(0, 16, 20).astype(np.int32), (0.0, 1.0, 4.0)
+    T, seqlen = {"T1": (1, 9), "seqlen2": (30, 2), "seqlen3": (30, 3)}[name]
+    lp = dirichlet_logpost(T, 17, seed=T + seqlen)
+    return lp, rng.integers(0, 16, seqlen).astype(np.int32), tuple(PENALTIES.values())
+
+
+EDGE_CASES = ("minus_inf", "ties", "T1", "seqlen2", "seqlen3")
+
+
+def numpy_walk(final, tbs, seqlen: int) -> np.ndarray:
+    """The walk of scrappie_tpu/decode/mapping.py:map_to_sequence_viterbi
+    over a traceback (for references the scan cannot give)."""
+    T, END = tbs.shape[0], seqlen + 1
+    path = np.zeros(T, dtype=np.int32)
+    path[T - 1] = seqlen - 1 if final[seqlen - 1] > final[END] else END
+    for t in range(T - 1, 0, -1):
+        path[t - 1] = tbs[t, path[t]]
+    path[(path == seqlen) | (path == END)] = -1
+    return path
+
+
+def _dense_pair(lp, seq, pens):
+    """(final, moves) of the port's twin and (final, tb) of JAX's scan."""
+    final, moves = tops.map_to_sequence_tm(torch.from_numpy(lp),
+                                           torch.from_numpy(seq), *pens)
+    ref_final, ref_tb = jmap._map_dense(jnp.asarray(lp), jnp.asarray(seq), *pens,
+                                        True, True)
+    return final, moves, np.asarray(ref_final), np.asarray(ref_tb)
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_moves_rebuild_the_scan_traceback(name):
+    """moves_to_traceback of the twin's move bytes is JAX's int32 traceback
+    element by element, and the finals are identical."""
+    lp, seq, pens = edge_case(name)
+    final, moves, ref_final, ref_tb = _dense_pair(lp, seq, pens)
+    np.testing.assert_array_equal(final.numpy(), ref_final)
+    np.testing.assert_array_equal(tops.moves_to_traceback(moves, len(seq)).numpy(),
+                                  ref_tb)
+    if name == "minus_inf":
+        assert (ref_tb < 0).any()
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_walk_twin_matches_jax(name):
+    """The walk twin's path is map_to_sequence_viterbi(want_path=True)'s,
+    through decode/mapping.py on the CPU and through the twins directly."""
+    lp, seq, pens = edge_case(name)
+    jscore, jpath = jmap.map_to_sequence_viterbi(lp, seq, *pens, want_path=True)
+    score, path = tmap.map_to_sequence_viterbi(lp, seq, *pens, want_path=True,
+                                               device="cpu")
+    assert score == jscore and path.dtype == np.int32
+    np.testing.assert_array_equal(path, jpath)
+    final, moves = tops.map_to_sequence_tm(torch.from_numpy(lp),
+                                           torch.from_numpy(seq), *pens)
+    np.testing.assert_array_equal(tops.seqmap_walk(final, moves, len(seq)).numpy(),
+                                  jpath)
+
+
+def test_walk_reads_states_below_zero_as_numpy_does():
+    """On the tiny cases, whose walks pass through the states -1 and -2
+    (read as the columns END and START by numpy's negative indexing), the
+    twins' tracebacks and paths are JAX's."""
+    below = set()
+    for lp, seq, pens in tiny_cases(40, seed=11):
+        final, moves, ref_final, ref_tb = _dense_pair(lp, seq, pens)
+        np.testing.assert_array_equal(final.numpy(), ref_final)
+        np.testing.assert_array_equal(
+            tops.moves_to_traceback(moves, len(seq)).numpy(), ref_tb)
+        jscore, jpath = jmap.map_to_sequence_viterbi(lp, seq, *pens, want_path=True)
+        score, path = tmap.map_to_sequence_viterbi(lp, seq, *pens, want_path=True,
+                                                   device="cpu")
+        assert score == jscore
+        np.testing.assert_array_equal(path, jpath)
+        raw = numpy_walk(ref_final, ref_tb, len(seq))
+        below.update(int(v) for v in raw if v == -2)
+        below.update(-1 for t in range(1, len(raw)) if ref_tb[t, raw[t]] == -1)
+    assert below == {-1, -2}
+
+
+@pytest.mark.parametrize("T", [1, 6])
+def test_seqmap_twin_at_seqlen_1_matches_the_pallas_kernel(T):
+    """At seqlen 1 the scan of _map_dense raises (its skip candidates
+    broadcast to the wrong length), so the JAX package's Pallas kernel, in
+    interpret mode, is the reference, with the scan's walk over its
+    traceback."""
+    lp = dirichlet_logpost(T, 17, seed=T)
+    seq = np.array([3], np.int32)
+    pens = tuple(PENALTIES.values())
+    with pytest.raises(TypeError):
+        jmap._map_dense(jnp.asarray(lp), jnp.asarray(seq), *pens, True, True)
+    ref_final, ref_tb = (np.asarray(a) for a in j_map_tm(
+        jnp.asarray(lp), jnp.asarray(seq), *pens, viterbi=True, interpret=True))
+    final, moves = tops.map_to_sequence_tm(torch.from_numpy(lp),
+                                           torch.from_numpy(seq), *pens)
+    np.testing.assert_array_equal(final.numpy(), ref_final)
+    np.testing.assert_array_equal(tops.moves_to_traceback(moves, 1).numpy(), ref_tb)
+    np.testing.assert_array_equal(tops.seqmap_walk(final, moves, 1).numpy(),
+                                  numpy_walk(ref_final, ref_tb, 1))
+    fwd, _ = tops.map_to_sequence_tm(torch.from_numpy(lp), torch.from_numpy(seq),
+                                     *pens, viterbi=False)
+    jfwd, _ = j_map_tm(jnp.asarray(lp), jnp.asarray(seq), *pens, viterbi=False,
+                       interpret=True)
+    np.testing.assert_allclose(fwd.numpy(), np.asarray(jfwd), **FINAL_TOL)
+
+
+def explicit_bands(T: int, width: int, lead: int, rng):
+    """(low, high, seqlen) of a sane band of the given width: the first
+    `lead` blocks keep low == 0 (entry allowed), then low rises by 0 to
+    width a block (delta reaches the width), high = low + width, and the
+    last block's band is one narrower (masked)."""
+    steps = rng.integers(0, width + 1, T)
+    steps[:lead + 1] = 0
+    steps[lead + 1::7] = width
+    low = np.cumsum(steps).astype(np.int64)
+    seqlen = int(low[-1]) + width - 1 if width > 1 else int(low[-1]) + 1
+    high = np.minimum(low + width, seqlen)
+    return low, high, seqlen
+
+
+def _jax_banded(lp, seq, low, high, pens, viterbi):
+    """(window, END) of scrappie_tpu's _map_banded on the inputs its
+    map_to_sequence_banded builds."""
+    width = int((high - low).max())
+    seqlen = len(seq)
+    offs = low[:, None] + np.arange(width)[None, :]
+    emit = np.take_along_axis(lp, seq[np.minimum(offs, seqlen - 1)], axis=1)
+    mask = (low <= seqlen - 1) & (seqlen - 1 < high)
+    prev_low = np.concatenate([[0], low[:-1]])
+    sm1 = np.stack([np.concatenate([[False], mask[:-1]]).astype(np.int32),
+                    np.clip(seqlen - 1 - prev_low, 0, width - 1).astype(np.int32)], 1)
+    init = np.full(width, -1e30, np.float32)
+    init[0] = lp[0, seq[0]]
+    if width > 1 and seqlen > 1 and high[0] > 1:
+        init[1] = lp[0, seq[1]]
+    if width > 2 and seqlen > 2 and high[0] > 2:
+        init[2] = lp[0, seq[2]] - pens[1]
+    win, end = jmap._map_banded(
+        jnp.asarray(lp), jnp.asarray(emit[1:]), jnp.asarray((offs < high[:, None])[1:]),
+        jnp.asarray(np.diff(low).astype(np.int32)), jnp.asarray((low == 0)[1:]),
+        *pens, jnp.asarray(lp[1:, seq[0]]), jnp.asarray(sm1[1:]), jnp.asarray(init),
+        width, viterbi)
+    return np.asarray(win), float(end), init
+
+
+@pytest.mark.parametrize("width", [1, 2, 3])
+@pytest.mark.parametrize("viterbi", [True, False])
+def test_banded_twin_matches_jax_at_narrow_widths(width, viterbi):
+    """The banded twin against JAX's scan on explicit bands of width 1, 2
+    and 3 whose shift reaches the width, with leading blocks at low == 0:
+    the window and END identical for Viterbi (the forward within
+    FINAL_TOL), and the decode functions' scores."""
+    rng = np.random.default_rng(width)
+    T = 80
+    low, high, seqlen = explicit_bands(T, width, lead=6, rng=rng)
+    assert int((high - low).max()) == width and np.diff(low).max() == width
+    assert jmap.are_bounds_sane(low, high, T, seqlen)
+    lp = dirichlet_logpost(T, 17, seed=width + 20)
+    seq = rng.integers(0, 16, seqlen)
+    pens = tuple(PENALTIES.values())
+    jwin, jend, init = _jax_banded(lp, seq, low, high, pens, viterbi)
+    out = tops.map_banded_tm(
+        torch.from_numpy(lp), torch.from_numpy(seq.astype(np.int32)),
+        torch.from_numpy(np.stack([low, high]).astype(np.int32)),
+        torch.from_numpy(init), *pens, viterbi=viterbi).numpy()
+    assert out.shape == (width + 1,)
+    if viterbi:
+        np.testing.assert_array_equal(out[:width], jwin)
+        assert out[width] == jend
+    else:
+        np.testing.assert_allclose(out[:width], jwin, **FINAL_TOL)
+        np.testing.assert_allclose(out[width], jend, **FINAL_TOL)
+    ref = jmap.map_to_sequence_banded(lp, seq, low, high, *pens, viterbi=viterbi)
+    score = tmap.map_to_sequence_banded(lp, seq, low, high, *pens, viterbi=viterbi,
+                                        device="cpu")
+    if viterbi:
+        assert score == ref
+    np.testing.assert_allclose(score, ref, **FINAL_TOL)
 
 
 def _bands(nblock: int, seqlen: int, half: int):
@@ -190,35 +403,83 @@ def test_map_post_to_sequence_errors(read_post):
 def test_seqmap_launches_nothing_on_the_cpu_and_sizes_its_state():
     ops.reset_launches()
     lp = torch.from_numpy(dirichlet_logpost(10, 17, seed=1))
-    tops.map_to_sequence_tm(lp, torch.arange(5, dtype=torch.int32))
-    assert ops.LAUNCHES["seqmap"] == 0
-    assert tops.SEQMAP_MAX_SHARED_SEQLEN == 28029
-    n = tops.SEQMAP_MAX_SHARED_SEQLEN
-    assert tops.shared_bytes(1025, n, True) <= ops.MAX_SMEM_BYTES
-    assert tops.shared_bytes(1025, n + 1, True) > ops.MAX_SMEM_BYTES
-    tops.check_seqmap_input(lp, torch.arange(5, dtype=torch.int32))
+    states = torch.arange(5, dtype=torch.int32)
+    final, moves = tops.map_to_sequence_tm(lp, states)
+    tops.seqmap_walk(final, moves, 5)
+    low = torch.tensor([0] * 4 + [1] * 6, dtype=torch.int32)
+    tops.map_banded_tm(lp, states, torch.stack([low, low + 4]),
+                       torch.zeros(4))
+    for name in ("seqmap", "seqmap_walk", "seqmap_banded"):
+        assert ops.LAUNCHES[name] == 0
+    # the scores of a run of 4, 8 or 16 states a thread in registers
+    assert tops.SEQMAP_MAX_REGISTER_SEQLEN == 16382
+    assert tops.seqmap_layout(9) == (4, 32, True)
+    assert tops.seqmap_layout(4094) == (4, 1024, True)
+    assert tops.seqmap_layout(5996) == (8, 768, True)  # chip_smoke's read
+    assert tops.seqmap_layout(16382) == (16, 1024, True)
+    assert tops.seqmap_layout(16383) == (4, 1024, False)
+    assert tops.seqmap_layout(9, global_state=True) == (4, 1024, False)
+    # the forward variant stores no moves: more threads, runs of 6 and 12
+    assert tops.seqmap_layout(5996, viterbi=False) == (6, 1024, True)
+    assert tops.seqmap_layout(9000, viterbi=False) == (12, 768, True)
+    assert tops.seqmap_layout(4094, viterbi=False) == (4, 1024, True)
+    assert tops.seqmap_layout(16383, viterbi=False) == (4, 1024, False)
+    with pytest.raises(ValueError, match="registers"):
+        tops.seqmap_layout(16383, global_state=False)
+    for seqlen in (1, 9, 4094, 5996, 16382):
+        run, threads, _ = tops.seqmap_layout(seqlen)
+        assert threads * run >= tops.move_stride(seqlen) >= seqlen + 2
+        assert threads % 32 == 0 and tops.move_stride(seqlen) % 16 == 0
+    assert tops.move_stride(5996) == 6000 and tops.move_stride(14) == 16
+    assert tops.shared_bytes(1025) <= ops.MAX_SMEM_BYTES
+    # the banded window in shared memory while it fits
+    n = tops.max_shared_width(1025)
+    assert tops.banded_shared_bytes(1025, n, True) <= ops.MAX_SMEM_BYTES
+    assert tops.banded_shared_bytes(1025, n + 1, True) > ops.MAX_SMEM_BYTES
+    assert tops.banded_layout(1025, 1) == (32, True)
+    assert tops.banded_layout(1025, 100) == (128, True)
+    assert tops.banded_layout(1025, 1500) == (1024, True)
+    assert tops.banded_layout(1025, n + 1) == (1024, False)
+    assert tops.banded_layout(1025, 100, global_state=True) == (128, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        tops.banded_layout(1025, n + 1, global_state=False)
+    tops.check_seqmap_input(lp, states)
     with pytest.raises(ValueError, match="dtype"):
         tops.check_seqmap_input(lp, torch.arange(5))
     with pytest.raises(ValueError, match="contiguous"):
-        tops.check_seqmap_input(lp.t().contiguous().t(), torch.arange(5, dtype=torch.int32))
+        tops.check_seqmap_input(lp.t().contiguous().t(), states)
     with pytest.raises(ValueError, match="shared memory"):
-        tops.check_seqmap_input(torch.zeros((2, 30000)), torch.arange(5, dtype=torch.int32))
+        tops.check_seqmap_input(torch.zeros((2, 30000)), states)
+    tops.check_walk_input(final, moves, 5)
+    with pytest.raises(ValueError, match="shape"):
+        tops.check_walk_input(final, moves[:, :7], 5)
+    with pytest.raises(ValueError, match="dtype"):
+        tops.check_walk_input(final, moves.int(), 5)
+    bands = torch.stack([low, low + 4])
+    tops.check_banded_input(lp, states, bands, torch.zeros(4))
+    with pytest.raises(ValueError, match="dtype"):
+        tops.check_banded_input(lp, states, bands.long(), torch.zeros(4))
+    with pytest.raises(ValueError, match="bands"):
+        tops.check_banded_input(lp, states, bands[:, :5], torch.zeros(4))
 
 
 def test_api_hands_the_seqmap_kernel_its_layout(monkeypatch, read_post):
-    """On a CUDA tensor the seqmap wrapper raises unless its inputs are
-    contiguous and of the kernel's types; the twin takes any layout. So the
-    twin here runs the kernel's input checks first: every path that
-    reaches it must pass."""
+    """On a CUDA tensor the mapping wrappers raise unless their inputs are
+    contiguous and of the kernels' types; the twins take any layout. So the
+    twins here run the kernels' input checks first: every path that
+    reaches them must pass (the DP, the walk and the banded DP)."""
     seen = []
-    plain = tops.map_to_sequence_plain
 
-    def checked(lp, seqstates, *args, **kwargs):
-        tops.check_seqmap_input(lp, seqstates)
-        seen.append(tuple(lp.shape))
-        return plain(lp, seqstates, *args, **kwargs)
+    def checked(name, check, plain):
+        def run(*args, **kwargs):
+            check(*args[:check.__code__.co_argcount])
+            seen.append(name)
+            return plain(*args, **kwargs)
+        monkeypatch.setattr(tops, plain.__name__, run)
 
-    monkeypatch.setattr(tops, "map_to_sequence_plain", checked)
+    checked("seqmap", tops.check_seqmap_input, tops.map_to_sequence_plain)
+    checked("seqmap_walk", tops.check_walk_input, tops.seqmap_walk_plain)
+    checked("seqmap_banded", tops.check_banded_input, tops.map_banded_plain)
     lp, seq = read_post
     post = tapi.Posterior(lp, "rgrgr_r94")
     tapi.map_post_to_sequence(post, seq, viterbi=True, path=True, device="cpu")
@@ -226,7 +487,11 @@ def test_api_hands_the_seqmap_kernel_its_layout(monkeypatch, read_post):
     sloika = tapi.Posterior(post.data(as_numpy=True, sloika=False)[:, ::-1],
                             "rgrgr_r94")
     tapi.map_post_to_sequence(sloika, seq, viterbi=True, device="cpu")
-    assert len(seen) == 3
+    tapi.map_post_to_sequence(sloika, seq, viterbi=True, bands=20, device="cpu")
+    low, high = _bands(lp.shape[0], len(seq) - 4, 20)
+    tapi.map_post_to_sequence(post, seq, bands=(low, high), device="cpu")
+    assert seen == ["seqmap", "seqmap_walk", "seqmap", "seqmap",
+                    "seqmap_banded", "seqmap_banded"]
 
 
 def _write_fast5(path, data: np.ndarray, read_id: str) -> None:
