@@ -123,7 +123,33 @@ if any phase fails:
      records what map_signal_to_squiggle and map_post_to_sequence (Viterbi
      with a path) copy to the host (profiler trace; the latter at most the
      path, two finals and one byte), and holds each result to the port's
-     CPU run on the same inputs.
+     CPU run on the same inputs;
+ 20. runs BasecallEngine(..., device="cuda") with_qualities=True on the 16
+     reads (phase qualities): rgrgr_r94 fast and stitch "nochange",
+     raw_r94 fast, the 3:1:1 ensemble fast (also with
+     qual_calibration="real", which must be the raw qualities through the
+     ensemble's fit), nanonet_events fast and stitch without the dwell
+     correction, and rnnrf_r94 stitch; every quality string has its
+     sequence's length, every sequence equals the same call without
+     qualities, and the two shortest reads' calls and qualities equal the
+     port's CPU run (run in TWIN_WORKERS host processes meanwhile) within
+     utils/seqcompare.quals_agree; prints each run's seconds with and
+     without qualities and its stages (rnnrf's host forward-backward is
+     "posterior_crf");
+ 21. checks that a row decodes alike at B = 1 and 8 (phase
+     batch_invariance: the rgrgr fused path and posterior), then serves
+     on the card (phase main_path_serve): make_server(device=
+     "cuda", batch 8, chunk 10 000 / overlap 1 000) on 127.0.0.1 in a
+     daemon thread, and four concurrent connections send the 16 reads as
+     whole-read requests (half with qualities), one read routed to
+     rnnrf_r94 and one to nanonet_events, four live raw channels and one
+     events channel in 4 000-sample feeds, flushed, and the stats op;
+     every kernel of the serving path must launch in that run; each
+     response must equal a direct BasecallEngine call on the card with its
+     options, each channel a solo stream on the card fed the whole signal,
+     and one channel the port's CPU stream; prints requests/s, the p50 and
+     p95 request latency, live samples/s and the service's batches and
+     engine calls.
 
 Each engine path's launch counters are set to 0 just before its runs and
 read just after. Every phase's line carries the seconds since the start.
@@ -2455,6 +2481,365 @@ def main_path_mapping(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- qualities
+
+# The engine runs of phase `qualities`: (label, model, engine options,
+# call options). The second 3:1:1 run recalibrates ("real") the first's
+# qualities with the ensemble's own fit.
+QUALITY_RUNS = (
+    ("rgrgr_r94 fast", "rgrgr_r94", dict(mode="fast"), {}),
+    ("rgrgr_r94 stitch nochange", "rgrgr_r94", dict(mode="stitch"),
+     dict(homopolymer="nochange")),
+    ("raw_r94 fast", "raw_r94", dict(mode="fast"), {}),
+    ("3:1:1 fast", "rgrgr_r94", dict(mode="fast", ensemble=ENSEMBLE), {}),
+    ("3:1:1 fast, real", "rgrgr_r94",
+     dict(mode="fast", ensemble=ENSEMBLE, qual_calibration="real"), {}),
+    ("nanonet_events fast", "nanonet_events", dict(mode="fast"),
+     dict(dwell_correction=False)),
+    ("nanonet_events stitch", "nanonet_events", dict(mode="stitch"),
+     dict(dwell_correction=False)),
+    ("rnnrf_r94 stitch", "rnnrf_r94", dict(mode="stitch"), {}),
+)
+TWIN_WORKERS = 6         # host processes running the CPU references
+
+
+def cpu_calls(model: str, engine_kw: dict, call_kw: dict, signals: list):
+    """BasecallEngine on the CPU with qualities, in a worker process:
+    [(sequence, qual)] of the signals."""
+    import torch
+
+    from scrappie_torch.parallel.runner import BasecallEngine
+
+    torch.set_num_threads(1)
+    eng = BasecallEngine(model, device="cpu", **engine_kw)
+    return [(r.sequence, r.qual) for r in
+            eng.basecall_signals(signals, with_qualities=True, **call_kw)]
+
+
+def cpu_stream(model: str, chunk_len: int, overlap: int, sig) -> str:
+    """A solo StreamingBasecaller on the CPU, in a worker process."""
+    import torch
+
+    from scrappie_torch.parallel.streaming import StreamingBasecaller
+
+    torch.set_num_threads(1)
+    sb = StreamingBasecaller(model, chunk_len, overlap, device="cpu")
+    sb.feed(sig)
+    sb.flush()
+    return sb.sequence
+
+
+def check_qualities(card: str, reads: list, pool) -> None:
+    """BasecallEngine(..., device="cuda") with_qualities=True on the reads
+    in each of QUALITY_RUNS: every call's quality string has its
+    sequence's length, every sequence equals the same call without
+    qualities, the recalibrated 3:1:1 run is the raw one's qualities
+    through the ensemble's fit, and the two shortest reads' calls and
+    qualities match the port's CPU run (utils/seqcompare.quals_agree).
+    Prints each run's seconds with and without qualities and its stages
+    (rnnrf's host forward-backward is the stage "posterior_crf")."""
+    from scrappie_torch.parallel.runner import BasecallEngine
+    from scrappie_torch.post.quality import recalibrate_phred
+    from scrappie_torch.utils.seqcompare import qual_diffs, quals_agree
+    from scrappie_torch.utils.tracing import Stage
+
+    lengths = [len(r.raw) for r in reads]
+    short = sorted(range(len(reads)), key=lambda i: lengths[i])[:2]
+    twins = {label: pool.submit(cpu_calls, model, ekw, ckw,
+                                [reads[i] for i in short])
+             for label, model, ekw, ckw in QUALITY_RUNS}
+    calls = {}
+    for label, model, ekw, ckw in QUALITY_RUNS:
+        eng = BasecallEngine(model, device="cuda", **ekw)
+        for quals in (False, True):  # warm up both paths
+            eng.basecall_signals(reads[:1], with_qualities=quals, **ckw)
+        recal = ekw.get("qual_calibration") == "real"
+        if not recal:
+            t0 = time.perf_counter()
+            plain = eng.basecall_signals(reads, **ckw)
+            plain_s = time.perf_counter() - t0
+        eng.stage = Stage()
+        t0 = time.perf_counter()
+        res = eng.basecall_signals(reads, with_qualities=True, **ckw)
+        qual_s = time.perf_counter() - t0
+        require(all(r.sequence and r.qual and len(r.qual) == len(r.sequence)
+                    for r in res), f"qualities {label}: a code a base")
+        if recal:
+            raw = calls["3:1:1 fast"]
+            key = "+".join(("rgrgr_r94",) + tuple(sorted(ENSEMBLE)))
+            require(all(r.sequence == w.sequence
+                        and r.qual == recalibrate_phred(w.qual, key)
+                        for r, w in zip(res, raw)),
+                    f"qualities {label}: the raw qualities through {key}'s fit")
+            plain, plain_s = raw, None
+        require(all(r.sequence == p.sequence for r, p in zip(res, plain)),
+                f"qualities {label}: the calls without qualities")
+        calls[label] = res
+        nsample = sum(lengths)
+        emit({"phase": "qualities", "run": label, "reads": len(res),
+              "samples": nsample, "bases": sum(len(r.sequence) for r in res),
+              "seconds_without": plain_s, "seconds_with": qual_s,
+              "samples_per_s_with": nsample / qual_s,
+              "stages_with": eng.stage.report(), "card": card})
+    for label, *_ in QUALITY_RUNS:
+        for i, (cseq, cqual) in zip(short, twins[label].result()):
+            g = calls[label][i]
+            require(g.sequence == cseq,
+                    f"qualities {label} {reads[i].uuid}: the CPU run's call")
+            n, step = qual_diffs(g.qual, cqual)
+            emit({"phase": "cpu_vs_cuda", "path": "qualities", "run": label,
+                  "read": reads[i].uuid, "bases": len(cseq),
+                  "qual_codes_differing": n, "largest_step": step})
+            require(quals_agree(g.qual, cqual),
+                    f"qualities {label} {reads[i].uuid}: the CPU run's codes")
+
+
+# ----------------------------------------------------------------- serve
+
+SERVE = dict(model="rgrgr_r94", batch_size=8, chunk_len=CHUNK, overlap=1000)
+SERVE_FEED = 4000        # samples a live feed request
+SERVE_CLIENTS = 4
+SERVE_TIMEOUT = 300.0    # seconds a socket read and a client thread may take
+# every kernel on the serving path: the GRU models' (the whole reads, the
+# raw channels), the head (the channels' fused route), the CRF kernels
+# (the request routed to rnnrf_r94) and the LSTM pair (events)
+SERVE_KERNELS = ("project", "gru_recurrence", "head", "viterbi_fwd",
+                 "viterbi_backtrace", "crf_fwd", "crf_backtrace",
+                 "crf_partition", "lstm_pair")
+
+
+class ServeClient:
+    """One connection to the server: rpc() sends a request line and reads
+    its answer, both bounded by SERVE_TIMEOUT."""
+
+    def __init__(self, port: int):
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=SERVE_TIMEOUT)
+        self.rfile = self.sock.makefile("rb")
+
+    def rpc(self, obj) -> dict:
+        self.sock.sendall((json.dumps(obj) + "\n").encode())
+        line = self.rfile.readline()
+        require(bool(line), f"a response to {obj.get('op', 'read')}")
+        resp = json.loads(line)
+        require("error" not in resp, f"request {obj.get('id')}: {resp}")
+        return resp
+
+    def close(self) -> None:
+        self.rfile.close()
+        self.sock.close()
+
+
+def b64(sig) -> str:
+    import base64
+
+    import numpy as np
+
+    return base64.b64encode(np.asarray(sig, "<f4").tobytes()).decode()
+
+
+def serve_client(port: int, i: int, reads: list, live: dict, out: dict) -> None:
+    """Client i: opens its live raw channel (client 2 also the events
+    channel), then alternates its whole-read requests (every other one
+    with qualities) with SERVE_FEED-sample feeds until both are done, and
+    flushes; client 0 routes a read to rnnrf_r94, client 1 one to
+    nanonet_events, client 3 asks for the stats last. Records each
+    whole read's response and latency, and each channel's bases."""
+    c = ServeClient(port)
+    try:
+        chans = {"c": live[i]}
+        if i == 2:
+            chans["e"] = live["events"]
+        for name in chans:
+            req = {"op": "open", "channel": name}
+            if name == "e":
+                req["pipeline"] = "events"
+            require(c.rpc(req)["open"], f"client {i} opens {name}")
+        requests = [(j, {"id": f"read{j:02d}", "signal_b64": b64(reads[j].raw)}
+                     | ({"opts": {"with_qualities": True}} if j % 2 else {}))
+                    for j in range(i, len(reads), SERVE_CLIENTS)]
+        if i in (0, 1):
+            model = ("rnnrf_r94", "nanonet_events")[i]
+            requests.append((model, {"id": model, "model": model,
+                                     "signal_b64": b64(reads[i].raw)}))
+        offsets = {name: 0 for name in chans}
+        bases = {name: "" for name in chans}
+        while requests or any(offsets[n] < len(chans[n]) for n in chans):
+            if requests:
+                key, req = requests.pop(0)
+                t0 = time.perf_counter()
+                resp = c.rpc(req)
+                out["latency"].append(time.perf_counter() - t0)
+                out["responses"][key] = resp
+            for name, sig in chans.items():
+                off = offsets[name]
+                if off < len(sig):
+                    resp = c.rpc({"op": "feed", "channel": name,
+                                  "signal_b64": b64(sig[off : off + SERVE_FEED])})
+                    bases[name] += resp["bases"]
+                    offsets[name] = off + SERVE_FEED
+        for name in chans:
+            resp = c.rpc({"op": "flush", "channel": name})
+            require(resp["final"], f"client {i} flushes {name}")
+            bases[name] += resp["bases"]
+        out["live"][i] = bases["c"]
+        if "e" in bases:
+            out["live"]["events"] = bases["e"]
+        if i == 3:
+            out["stats"] = c.rpc({"op": "stats", "id": "stats"})
+    finally:
+        c.close()
+
+
+def check_batch_invariance(card: str) -> None:
+    """What a channel or a served read relies on: a row's decode does not
+    depend on its batch. Eight seeded chunks of CHUNK samples through the
+    rgrgr fused path (the channels' route) and the rgrgr posterior (the
+    whole reads' stitch) at B = 8 and one at a time must give identical
+    rows (paths, scores and log posteriors bit for bit)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.models.forward import load_model
+
+    net = load_model("rgrgr_r94", "cuda")
+    rng = np.random.default_rng(SEED + 70)
+    sig = torch.as_tensor(rng.standard_normal((8, CHUNK, 1)).astype(np.float32),
+                          device="cuda")
+    with torch.inference_mode():
+        score, path = net.basecall_fused(sig)
+        post = net(sig)
+        fused = posterior = 0
+        for i in range(len(sig)):
+            row = sig[i : i + 1].contiguous()
+            s1, p1 = net.basecall_fused(row)
+            fused += int(torch.equal(p1[0], path[i]) and torch.equal(s1[0], score[i]))
+            posterior += int(torch.equal(net(row)[0], post[i]))
+    emit({"phase": "batch_invariance", "rows": len(sig),
+          "fused_rows_identical": fused, "posterior_rows_identical": posterior,
+          "card": card})
+    require(fused == posterior == len(sig), "rows decode alike at B = 1 and 8")
+
+
+def main_path_serve(card: str, reads: list, pool) -> dict:
+    """The serving path on the card: make_server(device="cuda", batch 8,
+    chunk 10 000 / overlap 1 000) on 127.0.0.1 in a daemon thread, and
+    SERVE_CLIENTS concurrent connections (serve_client) sending the reads
+    as whole-read requests (half with qualities), a read routed to
+    rnnrf_r94 and one to nanonet_events, four live raw channels and one
+    events channel fed SERVE_FEED samples a request, and the stats op.
+    Every kernel of SERVE_KERNELS must launch in that run (counts set to 0
+    just before it). Then each whole read must equal a direct
+    BasecallEngine call on the card with its options (sequence, nblock and
+    nsample equal, score within FUSED_RTOL relative, qualities by
+    quals_agree), each live channel a solo stream on the card fed its
+    whole signal, and the shortest raw channel the port's CPU stream.
+    Prints requests/s, the p50 and p95 request latency, live samples/s
+    and the service's batches and engine calls."""
+    import threading
+
+    import numpy as np
+
+    from scrappie_torch import ops
+    from scrappie_torch.parallel.runner import BasecallEngine
+    from scrappie_torch.parallel.streaming import StreamingBasecaller
+    from scrappie_torch.parallel.streaming_events import (
+        EventsStreamingBasecaller,
+    )
+    from scrappie_torch.serve import make_server
+    from scrappie_torch.utils.seqcompare import qual_diffs, quals_agree
+
+    chunk, overlap = SERVE["chunk_len"], SERVE["overlap"]
+    live = {i: reads[len(reads) - 1 - i].raw for i in range(SERVE_CLIENTS)}
+    live["events"] = reads[len(reads) - 1 - SERVE_CLIENTS].raw
+    short = min(range(SERVE_CLIENTS), key=lambda i: len(live[i]))
+    twin = pool.submit(cpu_stream, SERVE["model"], chunk, overlap, live[short])
+
+    server = make_server("127.0.0.1", 0, device="cuda", **SERVE)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    out = {"responses": {}, "latency": [], "live": {}, "stats": None}
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=serve_client,
+                                    args=(port, i, reads, live, out))
+                   for i in range(SERVE_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=4 * SERVE_TIMEOUT)
+            require(not t.is_alive(), "a serve client finished in time")
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+        server.close_services()
+        server.server_close()
+    require(not thread.is_alive(), "the server thread stopped")
+    require(len(out["responses"]) == len(reads) + 2 and out["stats"]
+            and len(out["live"]) == SERVE_CLIENTS + 1,
+            f"every client finished ({len(out['responses'])} responses, "
+            f"{len(out['live'])} channels)")
+    for name in SERVE_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} launched on the serve path ({launches[name]})")
+    stats = out["stats"]
+
+    # the same calls made directly on the card
+    engines = {m: BasecallEngine(m, device="cuda", **(
+        {k: v for k, v in SERVE.items() if k != "model"}
+        if m != "nanonet_events" else {"batch_size": SERVE["batch_size"]}))
+        for m in ("rgrgr_r94", "rnnrf_r94", "nanonet_events")}
+    compared = 0
+    for key, resp in out["responses"].items():
+        model = key if isinstance(key, str) else "rgrgr_r94"
+        j = {"rnnrf_r94": 0, "nanonet_events": 1}.get(key, key)
+        opts = {"with_qualities": True} if resp.get("qual") else {}
+        want = engines[model].basecall_signals([reads[j]], **opts)[0]
+        require(resp["sequence"] == want.sequence and want.sequence
+                and resp["nblock"] == want.nblock
+                and resp["nsample"] == want.nsample,
+                f"serve {resp['id']}: the direct engine call's call")
+        rel = abs(resp["score"] - want.score) / max(abs(want.score), 1e-30)
+        require(rel <= FUSED_RTOL, f"serve {resp['id']}: score rel err {rel}")
+        if opts:
+            require(quals_agree(resp["qual"], want.qual),
+                    f"serve {resp['id']}: qualities {qual_diffs(resp['qual'], want.qual)}")
+        compared += 1
+    require(sum(1 for r in out["responses"].values() if "qual" in r)
+            == len(reads) // 2, "half the reads came back with qualities")
+    for key, sig in live.items():
+        if key == "events":
+            solo = EventsStreamingBasecaller(chunk, overlap, device="cuda")
+        else:
+            solo = StreamingBasecaller(SERVE["model"], chunk, overlap,
+                                       device="cuda")
+        solo.feed(sig)
+        solo.flush()
+        require(out["live"][key] == solo.sequence and solo.sequence,
+                f"live channel {key}: the solo stream's bases")
+    require(out["live"][short] == twin.result(),
+            f"live channel {short}: the CPU stream's bases")
+    lat = np.asarray(out["latency"])
+    live_samples = sum(len(s) for s in live.values())
+    emit({"phase": "main_path_serve", "requests": len(lat),
+          "requests_per_s": len(lat) / wall,
+          "latency_p50_s": float(np.percentile(lat, 50)),
+          "latency_p95_s": float(np.percentile(lat, 95)),
+          "live_channels": len(live), "live_samples": live_samples,
+          "live_samples_per_s": live_samples / wall, "wall_s": wall,
+          "service_batches": stats["batches"],
+          "service_engine_calls": stats["engine_calls"],
+          "service_requests": stats["requests"], "compared": compared,
+          "launches": launches, "card": card})
+    return launches
+
+
 def time_checkout(checkout: pathlib.Path) -> None:
     """Times the scrappie_torch of `checkout`, imported from there (its
     kernels built there), on inputs made by this script: the Viterbi
@@ -2638,6 +3023,15 @@ def main() -> int:
         table["seqmap"], table["seqmap_walk"] = check_seqmap_kernel(card)
         table["seqmap_banded"] = check_banded_kernel(card)
     mapping_launches = main_path_mapping(card)
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(TWIN_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        with torch.inference_mode():
+            check_qualities(card, reads, pool)
+        check_batch_invariance(card)
+        main_path_serve(card, reads, pool)
     # each kernel's launches on its own path: the GRU recurrence's, the
     # head's and the Viterbi kernels' on the rgrgr path, the CRF kernels' on
     # rnnrf's, the LSTM's on the events path's, the fused ensemble kernel's

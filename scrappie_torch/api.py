@@ -281,7 +281,7 @@ def basecall_events(data, *, trim_start=200, trim_end=10, varseg_chunk=100,
                 nbases=nbases, nev=nev, skip_pen=skip_pen)
             score, path = decode_transducer(lp, stay_pen, 0.0, local_pen,
                                             use_slip)
-    seq, _pos = assemble_events(et, path, nstate, dwell_correction)
+    seq, _pos, _ = assemble_events(et, path, nstate, dwell_correction)
     return seq, float(score), et, rt.start, rt.end
 
 

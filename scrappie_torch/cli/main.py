@@ -1,14 +1,15 @@
 """Command line of the port: `raw` (raw_r94, the rgrgr models and rnnrf_r94,
 alone or as a posterior ensemble with `--ensemble`) and `events`
-(nanonet_events) basecall; `squiggle` predicts squiggles, `mappy`
-aligns a read's signal to a sequence's predicted squiggle, `seqmappy` maps
-its rgrgr_r94 posterior to a sequence, and `event_table` dumps its
-detected events.
+(nanonet_events) basecall to FASTA, SAM or FASTQ; `squiggle` predicts
+squiggles, `mappy` aligns a read's signal to a sequence's predicted
+squiggle, `seqmappy` maps its rgrgr_r94 posterior to a sequence,
+`event_table` dumps its detected events, and `serve` runs the JSON-lines
+TCP basecall server (serve.py).
 
-Counterpart of scrappie_tpu/cli/main.py (FASTA and SAM output, the same
-TSV), with the same flags for what the port runs, plus --device. Run as
-`python -m scrappie_torch raw|events|squiggle|mappy|seqmappy|event_table
-[flags] files...`.
+Counterpart of scrappie_tpu/cli/main.py (the same records and TSV), with
+the same flags for what the port runs, plus --device. Run as
+`python -m scrappie_torch raw|events|squiggle|mappy|seqmappy|event_table|
+serve [flags] [files...]`.
 """
 
 from __future__ import annotations
@@ -62,9 +63,15 @@ def _add_common(p) -> None:
 def _add_basecall_common(p) -> None:
     """The flags `raw` and `events` share."""
     _add_common(p)
-    p.add_argument("--format", "-f", choices=["fasta", "sam"],
+    p.add_argument("--format", "-f", choices=["fasta", "sam", "fastq"],
                    default="fasta", type=str.lower,
-                   help="Format to output reads")
+                   help="Format to output reads (FASTQ adds per-base Phred "
+                        "qualities from the block posteriors; events needs "
+                        "--no-dwell, rnnrf_r94 stitch mode)")
+    p.add_argument("--qual-calibration", default="raw",
+                   choices=["raw", "real"],
+                   help="FASTQ qualities: 'raw' posterior-derived proxy, or "
+                        "'real', the measured linear Phred recalibration")
     p.add_argument("--limit", "-l", type=int, default=0,
                    help="Maximum number of reads to call (0 is unlimited)")
     p.add_argument("--min_prob", "-m", type=float, default=1e-5,
@@ -201,16 +208,46 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(et)
     et.add_argument("files", nargs="+", help="fast5 files or directories")
 
+    sv = sub.add_parser("serve", help="TCP basecall server (dynamic batching)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=7777)
+    sv.add_argument("--model", default="rgrgr_r94",
+                    choices=RAW_MODELS + ("nanonet_events",))
+    sv.add_argument("--batch", type=int, default=8, help="Device batch size")
+    sv.add_argument("--chunk-len", type=int, default=10000)
+    sv.add_argument("--overlap", type=int, default=1000)
+    sv.add_argument("--max-batch-reads", type=int, default=16,
+                    help="Max reads coalesced into one engine call")
+    sv.add_argument("--max-wait-ms", type=float, default=25.0,
+                    help="Max wait for co-batched requests")
+    sv.add_argument("--ensemble", default=None, metavar="MODELS",
+                    help="Posterior-ensemble members for the default "
+                         "model's service (see `raw --ensemble`); requests "
+                         "routed to other models use those models alone")
+    sv.add_argument("--qual-calibration", default="raw",
+                    choices=["raw", "real"],
+                    help="FASTQ qualities for every service: 'raw' proxy or "
+                         "the measured 'real' Phred recalibration")
+    sv.add_argument("--fast", action="store_true", default=False,
+                    help="Serve the fused per-chunk fast path (ensembles "
+                         "included) instead of the exact stitch decode")
+    _add_device(sv)
+
     sub.add_parser("version", help="print version")
     return top
 
 
 def main_raw(args) -> int:
-    from scrappie_torch.io.fasta import format_fasta
+    from scrappie_torch.io.fasta import format_fasta, format_fastq
     from scrappie_torch.models import calibration
     from scrappie_torch.models.ensemble import parse_members
     from scrappie_torch.parallel.runner import BasecallEngine
 
+    if args.format == "fastq" and args.fast and args.model == "rnnrf_r94":
+        print("--format fastq for the CRF model needs whole-read "
+              "forward-backward posteriors; incompatible with --fast",
+              file=sys.stderr)
+        return 1
     batch = max(args.batch, args.threads or 0)
     ensemble = parse_members(args.ensemble)
     ens_weights = (tuple(float(w) for w in args.ensemble_weights.split(","))
@@ -225,7 +262,8 @@ def main_raw(args) -> int:
                                 tempW=args.temperature1,
                                 tempb=args.temperature2,
                                 mode="fast" if args.fast else "stitch",
-                                ensemble=ensemble, ensemble_weights=ens_weights)
+                                ensemble=ensemble, ensemble_weights=ens_weights,
+                                qual_calibration=args.qual_calibration)
     except ValueError as e:  # a bad ensemble gets a clean message
         print(str(e), file=sys.stderr)
         return 1
@@ -235,7 +273,8 @@ def main_raw(args) -> int:
         stay_pen=args.stay_pen, skip_pen=args.skip_pen,
         local_pen=args.local_pen, use_slip=args.use_slip,
         homopolymer=None if args.model == "rnnrf_r94" else args.homopolymer,
-        crf_emit_bias=args.crf_emit_bias)
+        crf_emit_bias=args.crf_emit_bias,
+        with_qualities=args.format == "fastq")
     calibration.apply(args.model, args.calibration, call_kwargs,
                       ensemble=ensemble)
 
@@ -247,7 +286,13 @@ def main_raw(args) -> int:
                             nsample=r.nsample, trim=(r.trim_start, r.trim_end),
                             prefix=args.prefix)
 
-    return _write(args, engine, results, fasta)
+    def fastq(name, primary, r):
+        return format_fastq(primary, r.sequence, r.qual or "", filename=name,
+                            uuid=r.uuid or "", score=r.score, nblock=r.nblock,
+                            nsample=r.nsample, trim=(r.trim_start, r.trim_end),
+                            prefix=args.prefix)
+
+    return _write(args, engine, results, fasta, fastq)
 
 
 def main_events(args) -> int:
@@ -255,22 +300,30 @@ def main_events(args) -> int:
     from scrappie_torch.models import calibration
     from scrappie_torch.parallel.runner import BasecallEngine
 
+    if args.format == "fastq" and args.dwell_correction:
+        print("--format fastq for events requires --no-dwell: dwell "
+              "correction rewrites homopolymer run lengths after the "
+              "qualities are derived from the block posteriors",
+              file=sys.stderr)
+        return 1
     batch = max(args.batch, args.threads or 0)
     engine = BasecallEngine("nanonet_events", chunk_len=args.chunk_len,
                             overlap=args.overlap, batch_size=batch,
                             device=args.device, min_prob=args.min_prob,
                             tempW=args.temperature1, tempb=args.temperature2,
-                            mode="fast" if args.fast else "stitch")
+                            mode="fast" if args.fast else "stitch",
+                            qual_calibration=args.qual_calibration)
     call_kwargs = dict(
         trim_start=args.trim[0], trim_end=args.trim[1],
         varseg_chunk=args.segmentation[0], varseg_thresh=args.segmentation[1],
         stay_pen=args.stay_pen, skip_pen=args.skip_pen,
         local_pen=args.local_pen, use_slip=args.use_slip,
-        dwell_correction=args.dwell_correction)
+        dwell_correction=args.dwell_correction,
+        with_qualities=args.format == "fastq")
     calibration.apply("nanonet_events", args.calibration, call_kwargs)
     results = engine.basecall_files(args.files, limit=args.limit, **call_kwargs)
 
-    def fasta(name, primary, r):
+    def title(name, primary, r):
         # the JSON meta of scrappie_tpu's events command
         nev = r.nblock
         meta = {"filename": name, "uuid": r.uuid or "",
@@ -278,14 +331,21 @@ def main_events(args) -> int:
                 "sequence_length": len(r.sequence),
                 "events_per_base": nev / len(r.sequence),
                 "nsample": r.nsample, "trim": [r.trim_start, r.trim_end]}
-        return f">{args.prefix}{primary}  {json.dumps(meta)}\n{r.sequence}\n"
+        return f"{args.prefix}{primary}  {json.dumps(meta)}"
 
-    return _write(args, engine, results, fasta)
+    def fasta(name, primary, r):
+        return f">{title(name, primary, r)}\n{r.sequence}\n"
+
+    def fastq(name, primary, r):
+        return f"@{title(name, primary, r)}\n{r.sequence}\n+\n{r.qual or ''}\n"
+
+    return _write(args, engine, results, fasta, fastq)
 
 
-def _write(args, engine, results, fasta) -> int:
-    """Write the called reads as FASTA (fasta(name, primary, result) gives
-    a record) or SAM, then the stage report and the read count."""
+def _write(args, engine, results, fasta, fastq) -> int:
+    """Write the called reads as FASTA or FASTQ (fasta(name, primary,
+    result) and fastq(...) give a record) or SAM, then the stage report and
+    the read count."""
     from scrappie_torch.io.fasta import format_sam
 
     fh = _out(args)
@@ -299,8 +359,11 @@ def _write(args, engine, results, fasta) -> int:
             primary = (r.uuid or name) if args.uuid else name
             if args.format == "fasta":
                 fh.write(fasta(name, primary, r))
+            elif args.format == "fastq":
+                fh.write(fastq(name, primary, r))
             else:
-                fh.write(format_sam(primary, r.sequence, prefix=args.prefix))
+                fh.write(format_sam(primary, r.sequence, prefix=args.prefix,
+                                    qual=r.qual))
         fh.flush()
     finally:
         if fh is not sys.stdout:
@@ -477,9 +540,22 @@ def main_event_table(args) -> int:
     return 0
 
 
+def main_serve(args) -> int:
+    from scrappie_torch.models.ensemble import parse_members
+    from scrappie_torch.serve import serve
+
+    serve(args.host, args.port, model=args.model,
+          max_batch_reads=args.max_batch_reads, max_wait_ms=args.max_wait_ms,
+          batch_size=args.batch, chunk_len=args.chunk_len,
+          overlap=args.overlap, ensemble=parse_members(args.ensemble),
+          qual_calibration=args.qual_calibration,
+          mode="fast" if args.fast else "stitch", device=args.device)
+    return 0
+
+
 _COMMANDS = {"raw": main_raw, "events": main_events, "squiggle": main_squiggle,
              "mappy": main_mappy, "seqmappy": main_seqmappy,
-             "event_table": main_event_table}
+             "event_table": main_event_table, "serve": main_serve}
 
 
 def main(argv=None) -> int:

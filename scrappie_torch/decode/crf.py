@@ -19,7 +19,7 @@ from scrappie_torch.ops.crf import NS, add_emit_bias, crf_viterbi_tm
 NBASE = 4
 
 _ASSOC = ("the parallel-in-time associative scan (impl='assoc') is not "
-          "ported yet: ROADMAP.md queue 1 item 19")
+          "ported yet: ROADMAP.md queue 1 item 9")
 
 
 def _check_impl(impl: str | None) -> None:

@@ -22,6 +22,7 @@ from scrappie_torch.ops.viterbi import (
     viterbi_scores_tm,
     viterbi_scores_tm_plain,
 )
+from scrappie_torch.utils.tracing import log
 
 
 def viterbi_transducer_scores(logpost, stay_pen=0.0, skip_pen=0.0,
@@ -67,12 +68,15 @@ def decode_transducer(logpost, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
     return score, path
 
 
-def assemble_events(et, path, nstate: int, dwell_correction: bool):
+def assemble_events(et, path, nstate: int, dwell_correction: bool,
+                    qual: str | None = None):
     """An events read's bases from its decoded path [nev+1]: the first nev
     entries are stitched (ref src/scrappie_events.c:301) and annotate the
     event table et in place with the decoded state and position (ref
     :307-311); then the optional dwell homopolymer correction (ref
-    src/decode.c:645-702). Returns (sequence or None, positions [nev+1])."""
+    src/decode.c:645-702). qual, the qualities of the path's bases, is
+    dropped with a warning if the correction changes the call's length.
+    Returns (sequence or None, positions [nev+1], qual)."""
     nev = len(et.active)
     emit = np.asarray(path)[:nev]
     pos = np.zeros(nev + 1, dtype=np.int64)
@@ -86,8 +90,13 @@ def assemble_events(et, path, nstate: int, dwell_correction: bool):
             active["length"], active["start"], emit, active["pos"],
             active["state"], nstate, len(seq))
         if new is not None:
+            if qual is not None and len(new) != len(seq):
+                log("warn", "dwell correction changed the basecall length; "
+                            "dropping per-base qualities",
+                    was=len(seq), now=len(new))
+                qual = None
             seq = new
-    return seq, pos
+    return seq, pos, qual
 
 
 def argmax_decoder(logpost):

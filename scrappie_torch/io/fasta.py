@@ -1,9 +1,9 @@
-"""FASTA/FASTQ reading and FASTA/SAM writing.
+"""FASTA/FASTQ reading and FASTA/SAM/FASTQ writing.
 
 Behavioural spec: ref src/kseq.h (parsing) and the drivers' fprintf_fasta
 / fprintf_sam (ref src/scrappie_raw.c:317-331), including the JSON
 metadata embedded in the FASTA description. A copy of the readers and the
-FASTA/SAM writers of scrappie_tpu/io/fasta.py.
+FASTA/SAM/FASTQ writers of scrappie_tpu/io/fasta.py.
 """
 
 from __future__ import annotations
@@ -101,3 +101,16 @@ def format_sam(name: str, seq: str, prefix: str = "",
     return (f"{prefix}{name}\t4\t*\t0\t0\t*\t*\t0\t0\t{seq}\t"
             f"{qual or '*'}\n")
 
+
+def format_fastq(name: str, seq: str, qual: str, *, filename: str = "",
+                 uuid: str = "", score: float = 0.0, nblock: int = 0,
+                 nsample: int = 0, trim: tuple[int, int] = (0, 0),
+                 prefix: str = "") -> str:
+    """FASTQ record (no reference analogue — scrappie emits FASTA/SAM
+    only); carries the same JSON metadata in the title line and
+    Phred+33 qualities from post/quality.py."""
+    fasta = format_fasta(name, seq, filename=filename, uuid=uuid, score=score,
+                         nblock=nblock, nsample=nsample, trim=trim,
+                         prefix=prefix)
+    title, _ = fasta[1:].split("\n", 1)
+    return f"@{title}\n{seq}\n+\n{qual}\n"

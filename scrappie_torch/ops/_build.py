@@ -19,6 +19,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "scrappie_torch"
@@ -122,9 +123,19 @@ def build() -> pathlib.Path:
     return out
 
 
-@functools.lru_cache(maxsize=None)
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call). Thread-safe: the
+    threads of a server may make their first launches at once, and one
+    build must not race another into the build directory."""
+    with _LIBRARY_LOCK:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

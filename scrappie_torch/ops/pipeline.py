@@ -29,6 +29,18 @@ Counterpart of scrappie_tpu/ops/pipeline.py:
     backtrace; rnnrf_ensemble_basecall_fused sums the members' weighted CRF
     transitions before the CRF kernels.
 
+With `with_qual=True` the transducer paths (rgrgr, raw_r94, events and the
+ensembles) also return a quality stream, uint8 [B, T+1, klen]: per path
+entry, the Phred+33 code of the decoded kmer's base at each kmer position
+(quality_stream_tm, the counterpart of scrappie_tpu/ops/pipeline.py's
+_fused_quality_stream, _fused_quality_stream_ens and
+_qual_from_kmer_scores). As there, it is computed outside any kernel, in
+plain PyTorch: the head's softmax once more from the features, and its
+[T, B, nstate] float32 posterior (one per member) is held on the device
+while the stream is made. post/quality.qualities_from_stream turns it into
+a read's quality string. rnnrf has no such stream (its qualities need the
+whole read's forward-backward).
+
 The JAX pipeline fuses the head into the Viterbi kernel; ops/viterbi.py
 keeps that kernel (viterbi_fused_tm, viterbi_fused_ens_tm) beside this
 route, which decodes the same log posterior. `decode` keywords are the
@@ -44,7 +56,8 @@ import torch.nn.functional as F
 
 from scrappie_torch.models.specs import GRU_DIRS
 from scrappie_torch.nn.layers import (conv1d, elu, feedforward2_tanh,
-                                      globalnorm_tm, window)
+                                      globalnorm_tm, softmax_with_temperature,
+                                      window)
 from scrappie_torch.ops.crf import add_emit_bias, crf_viterbi_tm
 from scrappie_torch.ops.gru import gru_layer_tm
 from scrappie_torch.ops.lstm import lstm_pair_tm
@@ -112,19 +125,82 @@ def wire_path(path):
     return path.to(torch.int16)
 
 
-def _decode_fused(x, W, bvec, weights=None, **decode):
+def _decode_fused(x, W, bvec, weights=None, with_qual: bool = False,
+                  **decode):
     """The head on features x [T, B, S] (with weights [K]: K members'
     features [K, T, B, S], combined), the Viterbi forward on its log
-    posterior and the backtrace -> (logscore [B], path [B, T+1] int16)."""
+    posterior and the backtrace -> (logscore [B], path [B, T+1] int16),
+    and with with_qual the quality stream [B, T+1, klen] uint8."""
     head = {k: decode.pop(k) for k in HEAD_OPTIONS if k in decode}
     lp = head_logpost_tm(x, W, bvec, weights, **head)
     score, path = viterbi_backtrace_tm(*viterbi_scores_tm(lp, **decode))
+    if with_qual:
+        del lp  # the stream holds its own posterior
+        return score, wire_path(path), quality_stream_tm(x, W, bvec, path,
+                                                         weights, **head)
     return score, wire_path(path)
+
+
+def quality_stream_tm(x, W, bvec, path, weights=None, *, min_prob=1e-5,
+                      tempW=1.0, tempb=1.0, klen: int = 5):
+    """Per-entry quality stream of the fast paths: uint8 [B, T+1, klen].
+
+    x [T, B, S] and the head W [S, nstate], bvec [nstate] of one model, or
+    with weights [K] the K members' x [K, T, B, S], W [K, S, nstate],
+    bvec [K, nstate]; path [B, T+1], the decoded kmers (-1 = stay). The
+    head's softmax is computed again from x, and each entry's base
+    marginals come from the robustlog-adjusted kmer posterior
+    (min_prob/nstate + (1 - min_prob) p), renormalised over the kmer
+    states: for K members, from their weighted log-domain sum
+    (scrappie_tpu/ops/pipeline.py:_fused_quality_stream and
+    _fused_quality_stream_ens). Entry e >= 1 reads posterior row e-1,
+    entry 0 row 0, as post/quality.transducer_qualities."""
+    if weights is None:
+        nstate = W.shape[1]
+        post = softmax_with_temperature(x, W, bvec, tempW, tempb)
+        return qual_from_kmer_scores(
+            min_prob / nstate + (1.0 - min_prob) * post[..., : nstate - 1],
+            path, klen)
+    nstate = W.shape[2]
+    acc = None
+    for k in range(x.shape[0]):
+        post = softmax_with_temperature(x[k], W[k], bvec[k], tempW, tempb)
+        lk = weights[k] * torch.log(
+            min_prob / nstate + (1.0 - min_prob) * post[..., : nstate - 1])
+        del post
+        acc = lk if acc is None else acc + lk
+    return qual_from_kmer_scores(torch.exp(acc - acc.amax(-1, keepdim=True)),
+                                 path, klen)
+
+
+def qual_from_kmer_scores(pkflat, path, klen: int):
+    """Unnormalised kmer scores pkflat [T, B, nkmer] -> per-position base
+    marginals, gathered along the decoded path [B, T+1] and Phred+33
+    encoded as uint8 [B, T+1, klen] (scrappie_tpu/ops/pipeline.py:
+    _qual_from_kmer_scores; error floor 1e-6, codes clipped to 0-93)."""
+    T, B, nkmer = pkflat.shape
+    msum = pkflat.sum(-1)  # [T, B] kmer normaliser
+    pk = pkflat.reshape((T, B) + (4,) * klen)
+    marg = torch.stack(
+        [pk.sum(dim=tuple(a for a in range(2, klen + 2) if a != j + 2))
+         for j in range(klen)], dim=2)  # [T, B, klen, 4]
+    dev = pkflat.device
+    rows = (torch.arange(path.shape[1], device=dev) - 1).clamp(0, T - 1)
+    kmer = path.long().clamp(0, nkmer - 1)  # [B, T+1]
+    shifts = 2 * (klen - 1 - torch.arange(klen, device=dev))
+    digits = (kmer[:, :, None] >> shifts) & 3  # [B, T+1, klen]
+    marg_e = marg[rows].transpose(0, 1)  # [B, T+1, klen, 4]
+    q = torch.gather(marg_e, 3, digits[..., None])[..., 0]
+    q = q / msum[rows].transpose(0, 1)[:, :, None]
+    perr = torch.clamp(1.0 - q, 1e-6, 1.0)
+    phred = torch.clamp(torch.round(-10.0 * torch.log10(perr)), 0, 93) + 33
+    return phred.to(torch.uint8)
 
 
 def rgrgr_basecall_fused(params, sig, *, conv_activation: str = "elu",
                          stride: int = 5, **decode):
-    """sig [B, T, 1] -> (logscore [B], path [B, nblock+1] int16).
+    """sig [B, T, 1] -> (logscore [B], path [B, nblock+1] int16[, quality
+    stream [B, nblock+1, 5] uint8 with with_qual=True]).
 
     Matches rgrgr_posterior followed by the transducer decode, within the
     order of the head's fp32 sums."""
@@ -134,7 +210,7 @@ def rgrgr_basecall_fused(params, sig, *, conv_activation: str = "elu",
 
 def raw_basecall_fused(params, sig, *, stride: int = 4, **decode):
     """raw_r94 fast path: sig [B, T, 1] -> (logscore [B], path
-    [B, nblock+1] int16).
+    [B, nblock+1] int16[, quality stream with with_qual=True]).
 
     Matches raw_posterior followed by the transducer decode, within the
     order of the head's fp32 sums."""
@@ -178,7 +254,7 @@ def lstm_weights(params, d: str, layer: int) -> tuple:
 
 def events_basecall_fused(params, feats, *, winlen: int = 3, **decode):
     """nanonet events fast path: feats [B, nevent, 4] -> (logscore [B],
-    path [B, nevent+1] int16).
+    path [B, nevent+1] int16[, quality stream with with_qual=True]).
 
     Matches events_posterior followed by the transducer decode, within the
     order of the head's fp32 sums."""
@@ -217,7 +293,8 @@ def ensemble_basecall_fused(params_list, weights, sig, *, kinds,
     kernel, which combines the members' log posteriors (weights [K],
     normalised; a weighted log-domain mean renormalised per block), then
     the Viterbi forward and the backtrace. sig [B, T, 1] ->
-    (logscore [B], path [B, nblock+1] int16). kinds and conv_activations
+    (logscore [B], path [B, nblock+1] int16[, quality stream with
+    with_qual=True, from the combined posterior]). kinds and conv_activations
     are per member, primary first; every member shares the primary's
     stride and state space (models/ensemble.validate_ensemble). The calls
     match the stitch-mode ensemble's per-chunk decode."""

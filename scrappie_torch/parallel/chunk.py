@@ -133,8 +133,10 @@ def stitch_paths(chunk_paths: np.ndarray, plan: ChunkPlan) -> np.ndarray:
     starts_blk = plan.starts // plan.stride
     # Also stitches per-entry side streams (e.g. the fused quality
     # stream [nchunk, nblock_chunk+1, klen]) with the same geometry.
-    out = np.full((total + 1,) + chunk_paths.shape[2:], -1,
-                  dtype=chunk_paths.dtype)
+    # -1 cast as numpy casts it (255 in a uint8 stream), which NumPy 2
+    # refuses to do with a Python integer as the fill value
+    out = np.full((total + 1,) + chunk_paths.shape[2:],
+                  np.asarray(-1).astype(chunk_paths.dtype))
     out[0] = chunk_paths[0, 0]
     for i, (lo, hi) in enumerate(chunk_keep_ranges(plan)):
         if hi <= lo:
@@ -142,6 +144,25 @@ def stitch_paths(chunk_paths: np.ndarray, plan: ChunkPlan) -> np.ndarray:
         emit = chunk_paths[i, 1:]
         out[1 + lo : 1 + hi] = emit[lo - starts_blk[i] : hi - starts_blk[i]]
     return out
+
+
+def neutral_pad_crf(trans: np.ndarray, target_blocks: int) -> np.ndarray:
+    """Pad CRF transition blocks so extra blocks are decode-neutral.
+
+    Pad blocks allow only moves INTO the blank state (cost 0): the path
+    jumps to blank at the first pad block and stays, emitting nothing
+    (crfpath_to_basecall emits only states < 4), and every real state's
+    final score is carried into blank unchanged, so the decode over the
+    real blocks is unaffected.
+    """
+    T, nsq = trans.shape
+    if T >= target_blocks:
+        return trans
+    ns = int(round(np.sqrt(nsq)))
+    blank = ns - 1
+    pad = np.full((target_blocks - T, nsq), -1e30, dtype=trans.dtype)
+    pad[:, blank * ns : (blank + 1) * ns] = 0.0  # to-blank from any state
+    return np.concatenate([trans, pad], axis=0)
 
 
 def neutral_pad_logpost(logpost: np.ndarray, target_blocks: int,

@@ -44,6 +44,17 @@ event). The path of the first nev blocks gives the bases and annotates
 the event table, and the optional dwell correction rewrites homopolymer
 run lengths, in both modes. Posterior-mean homopolymer correction does not
 apply, so its stitch mode also always stitches on the device.
+
+Per-base qualities (`with_qualities=True`, for FASTQ; post/quality.py), as
+in the JAX engine: fast mode reads them from the fused paths' quality
+stream (ops/pipeline.quality_stream_tm), stitched like the paths; rnnrf
+has none there and warns. Stitch mode takes the host path for every model,
+since the qualities read the whole-read posterior: transducer_qualities
+for the transducers, crf_qualities of decode/crf.posterior_crf (a plain
+loop on the CPU) for rnnrf. An events read's qualities are dropped, with
+a warning, when the dwell correction changes its length.
+`qual_calibration="real"` recalibrates them with the measured fit of the
+model or of the ensemble configuration (post/quality.QUAL_RECAL).
 """
 
 from __future__ import annotations
@@ -54,7 +65,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from scrappie_torch.decode.crf import crfpath_to_basecall
+from scrappie_torch.decode.crf import (crfpath_to_basecall, decode_crf,
+                                       posterior_crf)
 from scrappie_torch.decode.transducer import assemble_events, viterbi_decode_batch
 from scrappie_torch import ops
 from scrappie_torch.device import as_device
@@ -68,6 +80,10 @@ from scrappie_torch.ops.crf import NS, add_emit_bias, crf_viterbi_tm
 from scrappie_torch.parallel import chunk as chunklib
 from scrappie_torch.post.homopolymer import HomopolymerMode, homopolymer_path
 from scrappie_torch.post.overlapper import overlapper
+from scrappie_torch.post.quality import (QUAL_RECAL, crf_qualities,
+                                         qualities_from_stream,
+                                         recalibrate_phred,
+                                         transducer_qualities)
 from scrappie_torch.signal.events import detect_events
 from scrappie_torch.signal.features import nanonet_features_from_events
 from scrappie_torch.signal.trim import trim_and_segment_raw
@@ -88,6 +104,7 @@ class ReadResult:
     trim_start: int
     trim_end: int
     nsample: int
+    qual: str | None = None  # Phred+33, only with with_qualities=True
     events: object | None = None  # annotated EventTable (events model only)
 
 
@@ -153,13 +170,19 @@ class BasecallEngine:
     rnnrf) on its block grid, whose outputs are combined with the
     primary's before the decode in every mode; ensemble_weights: one
     weight per model, primary first, default 3:1:...:1, normalised
-    (models/ensemble.validate_ensemble)."""
+    (models/ensemble.validate_ensemble).
+
+    qual_calibration: 'raw' (default) gives the posterior-derived Phred
+    proxies as they are; 'real' applies the measured recalibration
+    (post/quality.QUAL_RECAL): the ensemble configuration's own fit at its
+    default weights, else the primary model's."""
 
     def __init__(self, model: str = "rgrgr_r94", chunk_len: int | None = None,
                  overlap: int | None = None, batch_size: int = 8, device=None,
                  min_prob: float = 1e-5, tempW: float = 1.0, tempb: float = 1.0,
                  mode: str = "stitch", ensemble: tuple[str, ...] = (),
-                 ensemble_weights: tuple[float, ...] | None = None):
+                 ensemble_weights: tuple[float, ...] | None = None,
+                 qual_calibration: str = "raw"):
         self.model = model
         self.spec = basecaller_spec(model)
         self.events = self.spec.kind == "events"
@@ -185,7 +208,29 @@ class BasecallEngine:
         self.members = tuple(load_model(m, self.device) for m in self.ensemble)
         # (weights, kinds, conv activations) of the fused transducer ensemble
         self._fused_ens = fused_config(model, self.ensemble, ensemble_weights)
+        self._qual_recal_key = self._recal_key(qual_calibration,
+                                               ensemble_weights is None)
         self.stage = Stage()
+
+    def _recal_key(self, qual_calibration: str, default_weights: bool):
+        """The QUAL_RECAL key of qual_calibration 'real', None for 'raw'."""
+        if qual_calibration not in ("raw", "real"):
+            raise ValueError(f"unknown qual_calibration {qual_calibration!r}")
+        if qual_calibration == "raw":
+            return None
+        # the configuration's fit applies at its fitted (default) weights;
+        # member order does not change the posterior
+        composed = "+".join((self.model,) + tuple(sorted(self.ensemble)))
+        if composed in QUAL_RECAL and default_weights:
+            return composed
+        if self.model not in QUAL_RECAL:
+            raise ValueError(f"no measured quality recalibration for "
+                             f"{self.model!r} (post/quality.QUAL_RECAL)")
+        if self.ensemble:
+            log("warn", "no quality recalibration fitted for this ensemble "
+                        "configuration; using the primary model's fit",
+                config=composed)
+        return self.model
 
     # ------------------------------------------------------------- device
 
@@ -205,9 +250,11 @@ class BasecallEngine:
         return lp - ops.logsumexp(lp, dim=-1)
 
     def _fused_call(self, stay_pen, skip_pen, local_pen, use_slip,
-                    crf_emit_bias):
+                    crf_emit_bias, with_qual: bool = False):
         """The fast path of the model kind (ops/pipeline.py), single model
-        or ensemble: [B, chunk_len, C] -> (scores [B], paths [B, nblock+1])."""
+        or ensemble: [B, chunk_len, C] -> (scores [B], paths [B, nblock+1]
+        [, quality stream [B, nblock+1, klen] with with_qual, transducers
+        only])."""
         params = [net.params for net in (self.net,) + self.members]
         if self.spec.kind == "rnnrf":
             if self._ens_w is None:
@@ -218,7 +265,8 @@ class BasecallEngine:
                 stride=self.spec.stride, emit_bias=crf_emit_bias)
         decode = dict(min_prob=self._min_prob, tempW=self._tempW,
                       tempb=self._tempb, stay_pen=stay_pen, skip_pen=skip_pen,
-                      local_pen=local_pen, use_slip=use_slip)
+                      local_pen=local_pen, use_slip=use_slip,
+                      with_qual=with_qual)
         if self._fused_ens is None:
             return lambda x: self.net.basecall_fused(x, **decode)
         w, kinds, acts = self._fused_ens
@@ -255,16 +303,19 @@ class BasecallEngine:
     def _decode_chunks_streamed(self, chunk_iter, call):
         """Fused per-chunk decode over an iterator of per-read chunk arrays:
         a device batch is dispatched as soon as batch_size chunks are
-        there. Returns (scores [N], paths [N, nblock_chunk+1] int32), or
-        (None, None) when the iterator yields nothing."""
+        there. Returns (scores [N], paths [N, nblock_chunk+1] int32,
+        quality streams [N, nblock_chunk+1, klen] or None), or
+        (None, None, None) when the iterator yields nothing."""
         B = self.batch_size
-        scores, paths = [], []
+        scores, paths, quals = [], [], []
         pend: collections.deque = collections.deque()
 
         def collect():
-            score, path = pend.popleft()
-            scores.append(score.cpu().numpy())
-            paths.append(path.cpu().numpy().astype(np.int32))
+            out = pend.popleft()
+            scores.append(out[0].cpu().numpy())
+            paths.append(out[1].cpu().numpy().astype(np.int32))
+            if len(out) > 2:
+                quals.append(out[2].cpu().numpy())
 
         def dispatch(rows):
             pend.append(call(self._to_device_batch(rows)))
@@ -289,8 +340,9 @@ class BasecallEngine:
         while pend:
             collect()
         if N == 0:
-            return None, None
-        return np.concatenate(scores)[:N], np.concatenate(paths)[:N]
+            return None, None, None
+        return (np.concatenate(scores)[:N], np.concatenate(paths)[:N],
+                np.concatenate(quals)[:N] if quals else None)
 
     def _stitch_decode_device(self, prepped, read_chunks, stay_pen, skip_pen,
                               local_pen, use_slip, crf_emit_bias=0.0):
@@ -366,50 +418,52 @@ class BasecallEngine:
                 collect_one()
         return results
 
-    def _decode_bucketed(self, logposts: list[np.ndarray], stay_pen, skip_pen,
-                         local_pen, use_slip):
-        """Batched decode of host posteriors, neutrally padded to bucketed
-        lengths."""
-        order = np.argsort([lp.shape[0] for lp in logposts])
-        results: list = [None] * len(logposts)
+    def _decode_bucketed(self, outputs: list[np.ndarray], pad, decode):
+        """Batched decode of host posteriors or CRF transitions, each padded
+        to a multiple of DECODE_BUCKET blocks with neutral blocks
+        (pad(x, target)) and decoded with reads of the same padded length
+        (decode(padded [G, T, ns]) -> numpy scores, paths)
+        -> [(score, path [nblock+1])]."""
+        order = np.argsort([x.shape[0] for x in outputs])
+        results: list = [None] * len(outputs)
         i = 0
         while i < len(order):
-            target = _round_up(logposts[order[i]].shape[0], DECODE_BUCKET)
+            target = _round_up(outputs[order[i]].shape[0], DECODE_BUCKET)
             group = []
-            while i < len(order) and logposts[order[i]].shape[0] <= target:
+            while i < len(order) and outputs[order[i]].shape[0] <= target:
                 group.append(order[i])
                 i += 1
-            padded = np.stack(
-                [chunklib.neutral_pad_logpost(logposts[g], target, stay_pen)
-                 for g in group])
-            scores, paths = viterbi_decode_batch(
-                torch.as_tensor(padded, device=self.device), stay_pen,
-                skip_pen, local_pen, use_slip)
-            scores = scores.cpu().numpy()
-            paths = paths.cpu().numpy()
+            scores, paths = decode(np.stack([pad(outputs[g], target)
+                                             for g in group]))
             for j, g in enumerate(group):
-                nb = logposts[g].shape[0]
+                nb = outputs[g].shape[0]
                 results[g] = (float(scores[j]), paths[j, : nb + 1].copy())
         return results
 
+    def _recal(self, qual: str | None) -> str | None:
+        """The measured Phred recalibration, with qual_calibration 'real'."""
+        if qual is None or self._qual_recal_key is None:
+            return qual
+        return recalibrate_phred(qual, self._qual_recal_key)
+
     def _result(self, rt, et, path, score, nblock: int,
-                dwell_correction: bool) -> ReadResult:
-        """A read's result from its whole-read path [nblock+1]; for the
-        events model (nblock = nev), from its event table et as well. Timed
-        as the stage "assemble"."""
+                dwell_correction: bool, qual: str | None = None) -> ReadResult:
+        """A read's result from its whole-read path [nblock+1] and its
+        qualities, if any; for the events model (nblock = nev), from its
+        event table et as well. Timed as the stage "assemble"."""
         with self.stage("assemble"):
             if self.events:
-                seq, pos = assemble_events(et, path, self.spec.nstate,
-                                           dwell_correction)
+                seq, pos, qual = assemble_events(et, path, self.spec.nstate,
+                                                 dwell_correction, qual)
                 return ReadResult(rt.uuid, seq, score, nblock, pos, rt.start,
-                                  rt.end, rt.n, et)
+                                  rt.end, rt.n, qual, et)
             pos = np.zeros(nblock + 1, dtype=np.int64)
             if self.spec.kind == "rnnrf":
                 seq = crfpath_to_basecall(path, pos)
             else:
                 seq = overlapper(path, self.spec.nstate - 1, pos)
             return ReadResult(rt.uuid, seq, score, nblock, pos, rt.start,
-                              rt.end, rt.n)
+                              rt.end, rt.n, qual)
 
     # ---------------------------------------------------------------- API
 
@@ -449,11 +503,6 @@ class BasecallEngine:
                                crf_emit_bias: float = 0.0,
                                dwell_correction: bool = True,
                                with_qualities: bool = False) -> list[ReadResult]:
-        if with_qualities:
-            raise NotImplementedError(
-                "per-base qualities (FASTQ) are not ported yet: ROADMAP.md "
-                "queue 1 item 7")
-
         def prep_read(rs):
             """One read's host preparation -> ((rt, et, plan), chunks),
             or (None, None); et is the event table of an events read, else
@@ -501,10 +550,16 @@ class BasecallEngine:
                     nchunk_total += entry[2].nchunk
                     yield chunks
 
+            fused_qual = with_qualities and self.spec.kind != "rnnrf"
+            if with_qualities and not fused_qual:
+                log("warn", "fast mode cannot compute CRF per-base "
+                            "qualities (forward-backward needs the "
+                            "whole-read transitions); skipping")
             call = self._fused_call(stay_pen, skip_pen, local_pen, use_slip,
-                                    crf_emit_bias)
+                                    crf_emit_bias, with_qual=fused_qual)
             with self.stage("decode_fused"):
-                scores, paths = self._decode_chunks_streamed(chunk_iter(), call)
+                scores, paths, quals = self._decode_chunks_streamed(
+                    chunk_iter(), call)
             if scores is None:
                 return [_no_call(rs) for rs in signals]
             results = []
@@ -514,12 +569,22 @@ class BasecallEngine:
                     continue
                 rt, et, plan, off = entry
                 path = chunklib.stitch_paths(paths[off : off + plan.nchunk], plan)
+                qual = None
+                if quals is not None:
+                    qstream = chunklib.stitch_paths(
+                        quals[off : off + plan.nchunk], plan)
+                    # an events read emits its first nev entries
+                    n = len(et.active) if self.events else len(path)
+                    with self.stage("qualities"):
+                        qual = self._recal(qualities_from_stream(qstream[:n],
+                                                                 path[:n]))
                 keep = chunklib.chunk_keep_ranges(plan)
                 score = float(sum(
                     scores[off + i] * (hi - lo) / plan.nblock_chunk
                     for i, (lo, hi) in enumerate(keep)))
                 results.append(self._result(rt, et, path, score,
-                                            plan.nblock_total, dwell_correction))
+                                            plan.nblock_total, dwell_correction,
+                                            qual))
             return results
 
         # Stitch modes: prepare every read first (the device stitch groups
@@ -543,7 +608,8 @@ class BasecallEngine:
                         "to the events pipeline (it uses dwell correction); "
                         "ignoring")
             homopolymer = None
-        if self.spec.kind == "rnnrf" or _no_homopolymer(homopolymer):
+        if not with_qualities and (self.spec.kind == "rnnrf"
+                                   or _no_homopolymer(homopolymer)):
             decoded = self._stitch_decode_device(
                 prepped, all_chunks, stay_pen, skip_pen, local_pen, use_slip,
                 crf_emit_bias)
@@ -559,7 +625,8 @@ class BasecallEngine:
             return results
 
         # Host stitch: one device pass over every chunk of every read, then
-        # per-read stitching, bucketed decode and homopolymer correction.
+        # per-read stitching, bucketed decode, and the homopolymer
+        # correction and qualities, which read the whole-read posterior.
         with self.stage("posterior"):
             post = self._posterior_chunks(np.concatenate(all_chunks, axis=0))
         logposts = []
@@ -569,25 +636,48 @@ class BasecallEngine:
                 logposts.append(chunklib.stitch_blocks(
                     post[off : off + plan.nchunk], plan))
         with self.stage("decode"):
-            decoded = iter(self._decode_bucketed(logposts, stay_pen, skip_pen,
-                                                 local_pen, use_slip))
+            if self.spec.kind == "rnnrf":
+                decoded = self._decode_bucketed(
+                    logposts, chunklib.neutral_pad_crf,
+                    lambda x: decode_crf(x, emit_bias=crf_emit_bias,
+                                         device=self.device))
+            else:
+                decoded = self._decode_bucketed(
+                    logposts,
+                    lambda lp, t: chunklib.neutral_pad_logpost(lp, t, stay_pen),
+                    lambda x: [t.cpu().numpy() for t in viterbi_decode_batch(
+                        torch.as_tensor(x, device=self.device), stay_pen,
+                        skip_pen, local_pen, use_slip)])
         mode = (HomopolymerMode.parse(homopolymer)
                 if isinstance(homopolymer, str) else homopolymer)
         results = []
-        lps = iter(logposts)
+        lps, decoded = iter(logposts), iter(decoded)
         for entry, rs in zip(prepped, signals):
             if entry is None:
                 results.append(_no_call(rs))
                 continue
-            rt = entry[0]
+            rt, et = entry[:2]
             lp = next(lps)
             score, path = next(decoded)
             nblock = lp.shape[0]
-            path = homopolymer_path(lp, np.asarray(path).copy(), mode)
-            pos = np.zeros(nblock + 1, dtype=np.int64)
-            seq = overlapper(path, lp.shape[1] - 1, pos)
-            results.append(ReadResult(rt.uuid, seq, score, nblock, pos,
-                                      rt.start, rt.end, rt.n))
+            qual = None
+            if self.events:  # an events read emits its first nev entries
+                emitted = path[: len(et.active)]
+            elif self.spec.kind != "rnnrf":
+                path = emitted = homopolymer_path(lp, np.asarray(path).copy(),
+                                                  mode)
+            if with_qualities and self.spec.kind == "rnnrf":
+                # the emit bias calibrates the decode, not the model's
+                # reported confidence
+                with self.stage("posterior_crf"):
+                    states = posterior_crf(lp)
+                with self.stage("qualities"):
+                    qual = self._recal(crf_qualities(states, path))
+            elif with_qualities:
+                with self.stage("qualities"):
+                    qual = self._recal(transducer_qualities(lp, emitted))
+            results.append(self._result(rt, et, path, score, nblock,
+                                        dwell_correction, qual))
         return results
 
     def basecall_files(self, paths, limit: int = 0,

@@ -181,9 +181,11 @@ def test_engine_matches_jax(mode, homopolymer):
 def test_engine_defaults_count_events():
     engine = TEngine(MODEL, device="cpu")
     assert (engine.chunk_len, engine.overlap) == (2048, 256)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        engine.basecall_signals([RawSignal(synthetic_signal(3000, 1))],
-                                with_qualities=True)
+    # per-base qualities are ported: one code a base
+    res = engine.basecall_signals([RawSignal(synthetic_signal(3000, 1))],
+                                  with_qualities=True,
+                                  dwell_correction=False)[0]
+    assert res.sequence and len(res.qual) == len(res.sequence)
 
 
 @pytest.mark.parametrize("mode", ["fast", "stitch"])

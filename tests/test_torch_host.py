@@ -3,8 +3,9 @@ against their originals, on seeded inputs: the results must be equal.
 
 scrappie_torch imports nothing of scrappie_tpu, so it keeps its own copy
 of trimming, normalisation, chunking, the overlapper, the homopolymer
-corrections, event detection and features, FASTA reading and FASTA/SAM
-writing, fast5 reading, the calibration presets, the ensemble validation,
+corrections, the per-base qualities and their recalibration, event
+detection and features, FASTA reading and FASTA/SAM/FASTQ writing, fast5
+reading, the calibration presets, the ensemble validation,
 the weight loader, the API's base encoding and state-space guess, the
 DTW's penalties and the mapping's band check. Where
 scrappie_tpu runs native C++ (event detection, find_runs, the dwell
@@ -29,6 +30,7 @@ from scrappie_torch.models import registry as treg
 from scrappie_torch.parallel import chunk as tchunk
 from scrappie_torch.post import homopolymer as thp
 from scrappie_torch.post import overlapper as tover
+from scrappie_torch.post import quality as tquality
 from scrappie_torch.signal import events as tevents
 from scrappie_torch.signal import features as tfeat
 from scrappie_torch.signal import trim as ttrim
@@ -45,6 +47,7 @@ from scrappie_tpu.models import registry as jreg
 from scrappie_tpu.parallel import chunk as jchunk
 from scrappie_tpu.post import homopolymer as jhp
 from scrappie_tpu.post import overlapper as jover
+from scrappie_tpu.post import quality as jquality
 from scrappie_tpu.signal import events as jevents
 from scrappie_tpu.signal import features as jfeat
 from scrappie_tpu.signal import trim as jtrim
@@ -100,11 +103,11 @@ def both(fn):
     port = dict(types=ttypes, trim=ttrim, maths=tmaths, chunk=tchunk,
                 over=tover, hp=thp, events=tevents, feat=tfeat, fasta=tfasta,
                 fast5=tfast5, cal=tcal, reg=treg, api=tapi, dtw=tdtw,
-                mapping=tmapping, ens=tens)
+                mapping=tmapping, ens=tens, quality=tquality)
     ref = dict(types=jtypes, trim=jtrim, maths=jmaths, chunk=jchunk,
                over=jover, hp=jhp, events=jevents, feat=jfeat, fasta=jfasta,
                fast5=jfast5, cal=jcal, reg=jreg, api=japi, dtw=jdtw,
-               mapping=jmapping, ens=jens)
+               mapping=jmapping, ens=jens, quality=jquality)
     return fn(**port), fn(**ref)
 
 
@@ -132,9 +135,13 @@ def case_chunks(chunk, **_):
         nb = plan.nblock_chunk
         blocks = rng.standard_normal((plan.nchunk, nb, 3)).astype(np.float32)
         paths = rng.integers(-1, 1024, (plan.nchunk, nb + 1)).astype(np.int32)
+        quals = rng.integers(33, 127, (plan.nchunk, nb + 1, 5)).astype(np.uint8)
         out += [plan.starts, chunks, chunk.chunk_keep_ranges(plan),
                 chunk.stitch_blocks(blocks, plan), chunk.stitch_paths(paths, plan),
-                chunk.neutral_pad_logpost(blocks[0], nb + 7, 0.5)]
+                chunk.stitch_paths(quals, plan),
+                chunk.neutral_pad_logpost(blocks[0], nb + 7, 0.5),
+                chunk.neutral_pad_crf(blocks[0, :, :1].repeat(25, 1), nb + 7),
+                chunk.neutral_pad_crf(blocks[0, :, :1].repeat(25, 1), nb)]
     return out
 
 
@@ -178,7 +185,12 @@ def case_fasta(fasta, **_):
                                score=-12.5, nblock=40, nsample=200,
                                trim=(200, 190), prefix="p_"),
             fasta.format_fasta("r2", "", nblock=0),
-            fasta.format_sam("r1", "ACGT", prefix="p_"))
+            fasta.format_sam("r1", "ACGT", prefix="p_"),
+            fasta.format_sam("r1", "ACGT", qual="+5]!"),
+            fasta.format_fastq("r1", "ACGT", "+5]!", filename="f.fast5",
+                               uuid="u", score=-12.5, nblock=40, nsample=200,
+                               trim=(200, 190), prefix="p_"),
+            fasta.format_fastq("r2", "", "", nblock=0))
 
 
 def case_fasta_read(fasta, **_):
@@ -195,6 +207,40 @@ def case_fasta_read(fasta, **_):
         empty = fasta.read_first_sequence(f"{tmp}/empty.fa")
     fields = lambda r: (r.name, r.seq, r.comment, r.qual)
     return [fields(r) for r in recs], fields(first), empty
+
+
+def case_quality(quality, over, **_):
+    """Phred codes, the transducer (5-mer and 2-mer) and CRF qualities, the
+    quality stream's assembly and the recalibration of every fitted key."""
+    rng = np.random.default_rng(13)
+    out = [quality.QUAL_RECAL, quality.phred_string(np.array([0.9, 0.99, 1.0])),
+           quality.phred_string(rng.random(200)),
+           quality.phred_string(np.array([]))]
+    path = kmer_path(1201, 14)
+    lp = logpost(1200, 15)
+    out += [quality.transducer_qualities(lp, path),
+            quality.transducer_qualities(lp, np.full(1201, -1))]
+    small = rng.standard_normal((40, 17))
+    small -= np.log(np.exp(small).sum(-1, keepdims=True))
+    spath = rng.integers(-1, 16, 41)
+    spath[0] = 5
+    out.append(quality.transducer_qualities(small, spath))
+    qstream = rng.integers(33, 127, (1201, 5)).astype(np.uint8)
+    out += [quality.qualities_from_stream(qstream, path),
+            quality.qualities_from_stream(qstream, np.full(1201, -1))]
+    cpath = rng.integers(0, 5, 301)
+    post = rng.random((301, 5))
+    post /= post.sum(-1, keepdims=True)
+    out += [quality.crf_qualities(post, cpath),
+            quality.crf_qualities(post, cpath, npos=150),
+            quality.crf_qualities(post, np.full(301, 4))]
+    qual = "".join(chr(33 + q) for q in range(94))
+    out += [quality.recalibrate_phred(qual, key) for key in quality.QUAL_RECAL]
+    try:
+        quality.recalibrate_phred(qual, "no_such_model")
+    except KeyError as e:
+        out.append(str(e))
+    return out
 
 
 def case_encode_bases(api, **_):
