@@ -44,7 +44,11 @@ if any phase fails:
      B = 1, 3, 8, 64 and 256 and each of those nhist (phase
      backtrace_edges); and times the forward on random and integer log
      posteriors at B = 8, 64 and 256 and at a stitch shape, B = 4 x
-     12 500 blocks (phase scaling, path "viterbi forward");
+     12 500 blocks (phase scaling, path "viterbi forward"); holds the GRU
+     recurrence's backward walk kernel against its twin, and the whole
+     backward (gates, walk, weight products) against torch.autograd
+     through nn/rnn.gru_tm, at T = 2000, S = 96, B = 8 and 64, both
+     directions, and times it (phase gru_backward_kernel);
   5. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
      16 seeded synthetic reads of 20k-100k samples in fast mode and in both
      stitch modes, checks that each kernel's launch counter rose and that
@@ -63,7 +67,10 @@ if any phase fails:
      transitions before and after globalnorm, on integer transitions in
      {-3..0}, with an emit bias of -1, and with stitch padding blocks, and
      the backtrace also on tracebacks built by hand (a constant map and
-     the identity);
+     the identity); the forward-backward kernel in both its modes (the
+     state posterior; the partition's gradient, the edge marginals times a
+     seeded g) at B = 1, 2, 5 and 64 on the same sets and T, within
+     FWDBWD_ATOL of its twins, rows and blocks summing to 1;
      times them at T = 5000, B = 8 and 64, and at T = 31 744, B = 2
      (phase crf_kernels);
  10. runs BasecallEngine("rnnrf_r94", device="cuda") in fast and stitch
@@ -134,9 +141,19 @@ if any phase fails:
      qualities, and the two shortest reads' calls and qualities equal the
      port's CPU run (run in TWIN_WORKERS host processes meanwhile) within
      utils/seqcompare.quals_agree; prints each run's seconds with and
-     without qualities and its stages (rnnrf's host forward-backward is
-     "posterior_crf");
- 21. checks that a row decodes alike at B = 1 and 8 (phase
+     without qualities, its stages and launches (rnnrf's forward-backward,
+     stage "posterior_crf", must launch its kernel on the card);
+ 21. trains rgrgr_r94, raw_r94 and rnnrf_r94 on the card (phase
+     main_path_train): scrappie_torch.train.trainer.train(device="cuda")
+     for 8 steps of 8 simulated reads of 4 000 samples from a seeded random
+     init, through the projection, GRU recurrence and partition kernels
+     forward and the GRU recurrence's backward and the CRF
+     forward-backward kernels backward; every loss finite and the last
+     below the first; the first step's loss and every gradient against
+     the port's CPU run on the same batch (in a host process); seconds a
+     step, launches by kernel, and two steps under the profiler (device
+     busy time, idle share);
+ 22. checks that a row decodes alike at B = 1 and 8 (phase
      batch_invariance: the rgrgr fused path and posterior), then serves
      on the card (phase main_path_serve): make_server(device=
      "cuda", batch 8, chunk 10 000 / overlap 1 000) on 127.0.0.1 in a
@@ -152,7 +169,7 @@ if any phase fails:
      engine calls.
 
 Each engine path's launch counters are set to 0 just before its runs and
-read just after. Every phase's line carries the seconds since the start.
+read just after; no inference path may launch a backward kernel. Every phase's line carries the seconds since the start.
 The last lines are the kernel table (each kernel's time beside its bound,
 the least time the card could take for the same work), the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device":
@@ -187,6 +204,16 @@ GRU_ATOL = 1e-4
 FUSED_RTOL = 1e-5
 FUSED_MIN_SAME_ROWS = 0.99
 PARTITION_RTOL = 1e-5    # expf/logf against torch's logsumexp, T up to 31 744
+# The CRF forward-backward (posterior, the partition's gradient) against its
+# twin: max-normalised scores, so each marginal is a softmax of values
+# within the transitions' range; expf/logf against torch's, summed in
+# another order. Absolute, probabilities (the gradient: times max |g|).
+FWDBWD_ATOL = 1e-5
+FWDBWD_BATCHES = (1, 2, 5, 64)
+# The GRU recurrence's backward walk against its twin and against autograd
+# through the plain forward: float32 sums in another order over T steps,
+# relative to the largest |gradient| (seen 1.5e-7 on an H100).
+GRU_BWD_RTOL = 1e-5
 NEUTRAL = -1e30          # a stitch pad block's moves into the emitting states
 # The CRF checks' shapes: rows that leave a warp's six-row groups part
 # filled and rows over several blocks; T below and off the prefetch depths,
@@ -281,6 +308,15 @@ KERNELS = {
                               "scrappie_tpu/ops/gru.py:67 (S above 96)"),
     "lstm_layer_global": ("scrappie_torch/csrc/lstm.cu",
                           "scrappie_tpu/ops/lstm.py:53 (S above 96)"),
+    "gru_recurrence_bwd": ("scrappie_torch/csrc/gru.cu",
+                           "scrappie_tpu/nn/rnn.py:40 (the VJP of gru's "
+                           "lax.scan, which XLA differentiates; no TPU kernel)"),
+    "crf_posterior": ("scrappie_torch/csrc/crf.cu",
+                      "scrappie_tpu/decode/crf.py:134 (_crf_posterior, a "
+                      "lax.scan; no TPU kernel)"),
+    "crf_partition_grad": ("scrappie_torch/csrc/crf.cu",
+                           "scrappie_tpu/nn/layers.py:133 (the VJP of "
+                           "crf_partition_function's lax.scan; no TPU kernel)"),
 }
 # The kernels each path must launch, by engine mode.
 GRU_KERNELS = ("project", "gru_recurrence")
@@ -299,11 +335,30 @@ MAP_CALLS = (("viterbi, path", dict(viterbi=True, path=True)),
              (f"banded {MAP_BAND}, viterbi", dict(viterbi=True, bands=MAP_BAND)),
              (f"banded {MAP_BAND}, forward", dict(bands=MAP_BAND)))
 MAPPING_KERNELS = ("dtw", "dtw_walk", "seqmap", "seqmap_walk", "seqmap_banded")
+# Training (phase main_path_train): each model from a seeded random init
+# (0.1 standard normal, as tests/test_models.py:124-129), the first step's
+# loss and gradients against the port's CPU run on the same batch: loss
+# relative 1e-5; each gradient relative to its largest entry 1e-4, the
+# limit the CPU tests hold the port's gradients to against JAX (the
+# kernels' float32 forward and backward against the twins' over up to
+# 2 000 steps and five layers; seen at most 2.5e-6, raw_r94's conv_W).
+TRAIN_MODELS = ("rgrgr_r94", "raw_r94", "rnnrf_r94")
+TRAIN = dict(steps=8, batch=8, nsample=4000, lr=2e-3)
+TRAIN_PROFILE_STEPS = 2
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_KERNELS = {kind: GRU_KERNELS + ("gru_recurrence_bwd",) + crf
+                 for kind, crf in (("rgrgr", ()), ("raw", ()),
+                                   ("rnnrf", ("crf_partition",
+                                              "crf_partition_grad")))}
+# Launched by training alone: no inference path may launch them.
+BACKWARD_KERNELS = ("gru_recurrence_bwd", "crf_partition_grad")
 # Kept, checked and timed; no path launches them.
 SUPERSEDED = ("gru_layer", "viterbi_fused", "viterbi_fused_ens")
 # Kernels whose design keeps their weights in registers: ptxas must report
 # no spill for any of their instances.
-NO_SPILL = ("gru_recurrence_kernel", "lstm_recurrence_kernel")
+NO_SPILL = ("gru_recurrence_kernel", "lstm_recurrence_kernel",
+            "gru_recurrence_bwd_kernel")
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
 # fp32 outside the tensor cores (the kernels are exact fp32, TF32 off).
 PEAK_BYTES_PER_S = 3.35e12
@@ -501,6 +556,16 @@ def kernel_work(name: str, **d) -> dict:
         return bound(4 * B * 5 + T * B + 4 * B * (T + 1), T * B)
     if name == "crf_partition":  # add, max, subtract, exp, sum; 5 logs
         return bound(4 * T * B * 25 + 4 * B, 5 * T * B * 25 + 5 * T * B)
+    if name == "crf_posterior":  # two walks as the partition's, a softmax
+        return bound(4 * T * B * 25 + 4 * B * (T + 1) * 5,
+                     2 * (5 * T * B * 25 + 5 * T * B) + 4 * T * B * 5)
+    if name == "crf_partition_grad":  # two walks; add, lse, exp, mul an edge
+        return bound(4 * T * B * 25 * 2 + 4 * B,
+                     2 * (5 * T * B * 25 + 5 * T * B) + 9 * T * B * 25)
+    if name == "gru_recurrence_bwd":  # gates, h_prev, gh in; da out; 3S^2 MACs
+        S = d["S"]
+        return bound(4 * (T * B * 5 * S + 3 * S * S + T * B * 3 * S),
+                     2 * T * B * 3 * S * S)
     raise KeyError(name)
 
 
@@ -873,6 +938,68 @@ def check_gru_recurrence(net, B: int) -> dict:
     return row
 
 
+def check_gru_backward(net, B: int) -> dict:
+    """The GRU recurrence's backward walk kernel (ops/gru.gru_walk) against
+    its twin and ops/gru.gru_tm_backward against torch.autograd through
+    the plain forward (nn/rnn.gru_tm), both directions, on rgrgr_r94's
+    first layer's projected conv features of B chunks (T_BLOCKS blocks,
+    S = 96) and a seeded output gradient; then the times of the walk
+    kernel (median of 20), of its twin (median of 3) and of the whole
+    backward (the gates' and weights' products with the walk)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn import rnn
+    from scrappie_torch.nn.layers import conv1d, feedforward
+    from scrappie_torch.ops import gru as g
+    from scrappie_torch.ops.pipeline import CONV_ACT
+
+    rng = np.random.default_rng(SEED + 90 + B)
+    p = net.params
+    with torch.no_grad():
+        sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1)).astype(np.float32),
+                              device="cuda")
+        x = CONV_ACT[net.conv_activation](
+            conv1d(sig, p["conv_W"], p["conv_b"], net.stride)).transpose(0, 1)
+        xproj = feedforward(x, p["gruB1_iW"], p["gruB1_b"]).contiguous()
+        gh = torch.as_tensor(rng.standard_normal((T_BLOCKS, B, 96)).astype(np.float32),
+                             device="cuda")
+    sW, sW2 = p["gruB1_sW"], p["gruB1_sW2"]
+    errs = {"walk": 0.0, "autograd": 0.0}
+    for reverse in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in (xproj, sW, sW2)]
+        h = rnn.gru_tm(*leaves, reverse)
+        h.backward(gh)
+        with torch.no_grad():
+            h = h.detach()
+            h_prev, gates = g.backward_inputs(xproj, h, sW, sW2, reverse)
+            dk = g.gru_walk(gates, h_prev, gh, sW, sW2, reverse)
+            dp = g.gru_walk_plain(gates, h_prev, gh, sW, sW2, reverse)
+            full = g.gru_tm_backward(xproj, h, sW, sW2, gh, reverse)
+            sync()
+            require(bool(torch.isfinite(dk).all()), "gru_recurrence_bwd finite")
+            rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+            errs["walk"] = max(errs["walk"], rel(dk, dp))
+            for got, leaf in zip(full, leaves):
+                errs["autograd"] = max(errs["autograd"], rel(got, leaf.grad))
+    for what, err in errs.items():
+        require(err <= GRU_BWD_RTOL,
+                f"gru_recurrence_bwd {what}: rel err {err} <= {GRU_BWD_RTOL}")
+    with torch.no_grad():
+        row = {"max_abs_err": float((dk - dp).abs().max()),
+               "max_rel_err": errs["walk"], "autograd_max_rel_err": errs["autograd"],
+               **kernel_work("gru_recurrence_bwd", T=T_BLOCKS, B=B, S=96),
+               "ms": cuda_ms(lambda: g.gru_walk(gates, h_prev, gh, sW, sW2, False)),
+               "plain_ms": cuda_ms(lambda: g.gru_walk_plain(gates, h_prev, gh, sW,
+                                                            sW2, False),
+                                   reps=3, warmup=1),
+               "backward_ms": cuda_ms(lambda: g.gru_tm_backward(xproj, h, sW, sW2,
+                                                                gh, False)),
+               "forward_ms": cuda_ms(lambda: g.gru_tm(xproj, sW, sW2, False))}
+    emit({"phase": "gru_backward_kernel", "B": B, "T": T_BLOCKS, **row})
+    return row
+
+
 def compare_routes(nets: list, card: str) -> dict:
     """The fast paths' decode, the head kernel then the forward kernel,
     against the fused kernels it replaced, one model (rgrgr_r94's FF head)
@@ -924,6 +1051,7 @@ def check_big_s() -> dict:
     from scrappie_torch.nn import rnn
     from scrappie_torch.ops import gru as g
     from scrappie_torch.ops import lstm as L
+    from scrappie_torch.ops.project import project_tm
 
     rng = np.random.default_rng(SEED + 90)
     T, B, C = T_BIG_S, 8, 96
@@ -967,7 +1095,7 @@ def check_big_s() -> dict:
             require(ops.LAUNCHES[name] - before == (2 if kind == "gru" else 4),
                     f"{name} launched for {kind} S={S}")
         if kind == "gru":
-            xproj = g.project_tm(x, iW, bias)
+            xproj = project_tm(x, iW, bias)
             timed = (lambda: g.gru_tm(xproj, *rec), lambda: rnn.gru_tm(xproj, *rec))
             work = kernel_work("gru_recurrence", T=T, B=B, S=S)
         else:
@@ -1161,6 +1289,9 @@ def drive_engine(card: str, phase: str, reads: list, model: str, runs,
         for name in kernels[mode]:
             require(launched[name] > 0,
                     f"kernel {name} launched on {phase} {mode} ({launched[name]})")
+        for name in BACKWARD_KERNELS:
+            require(launched[name] == 0, f"no backward kernel {name} on "
+                                         f"{phase} {mode} ({launched[name]})")
         results[(mode, hp)] = res
         row = {"phase": phase, "mode": mode, "homopolymer": hp,
                "reads": len(res), "samples": nsample, "seconds": round(seconds, 4),
@@ -1373,8 +1504,13 @@ def check_crf(sets: dict) -> dict:
     fp, tbp = c.crf_viterbi_scores_tm_plain(every)
     sp, pp = c.crf_backtrace_tm_plain(fp, tbp)
     zp = c.crf_partition_tm_plain(every)
+    gen = torch.Generator(device=every.device).manual_seed(SEED + 12)
+    g_every = torch.randn(every.shape[1], generator=gen, device=every.device)
+    postp = c.crf_posterior_tm_plain(every)
+    gradp = c.crf_partition_grad_tm_plain(every, g_every)
     errs = {"crf_fwd": 0.0, "crf_backtrace": 0.0, "crf_partition": 0.0,
-            "crf_partition_rel": 0.0}
+            "crf_partition_rel": 0.0, "crf_posterior": 0.0,
+            "crf_partition_grad": 0.0}
     for i, (what, trans_all) in enumerate(sets.items()):
         for B in CRF_BATCHES:
             case = f"{what}, T = {trans_all.shape[0]}, B = {B}"
@@ -1405,6 +1541,26 @@ def check_crf(sets: dict) -> dict:
                               ("crf_partition", (zk - zp[rows]).abs().max()),
                               ("crf_partition_rel", rel)):
                 errs[name] = max(errs[name], float(err))
+            if B not in FWDBWD_BATCHES:
+                continue
+            g = g_every[rows].contiguous()
+            post = c.crf_posterior_tm(trans)
+            grad = c.crf_partition_grad_tm(trans, g)
+            sync()
+            perr = float((post - postp[rows]).abs().max())
+            gerr = float((grad - gradp[:, rows]).abs().max())
+            gmax = max(1.0, float(g.abs().max()))
+            require(perr <= FWDBWD_ATOL,
+                    f"crf_posterior max abs err {perr} <= {FWDBWD_ATOL} ({case})")
+            require(float((post.sum(-1) - 1).abs().max()) <= FWDBWD_ATOL,
+                    f"crf_posterior rows sum to 1 ({case})")
+            require(gerr <= FWDBWD_ATOL * gmax, f"crf_partition_grad max abs err "
+                                               f"{gerr} <= {FWDBWD_ATOL} * {gmax} ({case})")
+            edges = c.crf_partition_grad_tm(trans, torch.ones_like(g)).sum(-1)
+            require(float((edges - 1).abs().max()) <= FWDBWD_ATOL,
+                    f"crf_partition_grad: a block's edge marginals sum to 1 ({case})")
+            errs["crf_posterior"] = max(errs["crf_posterior"], perr)
+            errs["crf_partition_grad"] = max(errs["crf_partition_grad"], gerr / gmax)
     return errs
 
 
@@ -1463,10 +1619,14 @@ def check_crf_kernels(rnet) -> dict:
               "checked_on": list(sets), "backtrace_checked_on": maps,
               "identical": True,
               "partition_max_rel_err": errs["crf_partition_rel"],
+              "fwdbwd_B": list(FWDBWD_BATCHES),
+              "posterior_max_abs_err": errs["crf_posterior"],
+              "partition_grad_max_abs_err_per_g": errs["crf_partition_grad"],
               "seconds": round(time.perf_counter() - t0, 3)})
         if T == T_CRF:
             table = {name: {"max_abs_err": errs[name]}
-                     for name in ("crf_fwd", "crf_backtrace", "crf_partition")}
+                     for name in ("crf_fwd", "crf_backtrace", "crf_partition",
+                                  "crf_posterior", "crf_partition_grad")}
             table["crf_partition"]["max_rel_err"] = errs["crf_partition_rel"]
         del sets
     for (T, B), (raw, head) in inputs.items():
@@ -1476,7 +1636,13 @@ def check_crf_kernels(rnet) -> dict:
                  "crf_backtrace": (lambda: c.crf_backtrace_tm(fk, tbk),
                                    lambda: c.crf_backtrace_tm_plain(fk, tbk)),
                  "crf_partition": (lambda: c.crf_partition_tm(raw),
-                                   lambda: c.crf_partition_tm_plain(raw))}
+                                   lambda: c.crf_partition_tm_plain(raw)),
+                 "crf_posterior": (lambda: c.crf_posterior_tm(head),
+                                   lambda: c.crf_posterior_tm_plain(head)),
+                 "crf_partition_grad": (
+                     lambda: c.crf_partition_grad_tm(raw, ones),
+                     lambda: c.crf_partition_grad_tm_plain(raw, ones))}
+        ones = torch.ones(B, device=head.device)
         out = {name: dict(kernel_work(name, T=T, B=B)) for name in timed}
         # the backtrace's own floor: its traceback bytes read once
         out["crf_backtrace"]["stream_floor_ms"] = tbk.numel() / PEAK_BYTES_PER_S * 1e3
@@ -1489,7 +1655,8 @@ def check_crf_kernels(rnet) -> dict:
             out[name]["plain_ms"] = (cuda_ms(plain, reps=3, warmup=1)
                                      if (T, B) != CRF_STITCH else None)
         emit({"phase": "crf_kernels", "B": B, "T": T, "timed_on": "head "
-              "(partition: head before globalnorm)", "sm_clock_mhz": mhz,
+              "(partition and its gradient: head before globalnorm)",
+              "sm_clock_mhz": mhz,
               "kernels": out})
         if (T, B) == (T_CRF, 64):
             for name in timed:
@@ -2529,15 +2696,19 @@ def cpu_stream(model: str, chunk_len: int, overlap: int, sig) -> str:
     return sb.sequence
 
 
-def check_qualities(card: str, reads: list, pool) -> None:
+def check_qualities(card: str, reads: list, pool) -> dict:
     """BasecallEngine(..., device="cuda") with_qualities=True on the reads
     in each of QUALITY_RUNS: every call's quality string has its
     sequence's length, every sequence equals the same call without
     qualities, the recalibrated 3:1:1 run is the raw one's qualities
     through the ensemble's fit, and the two shortest reads' calls and
     qualities match the port's CPU run (utils/seqcompare.quals_agree).
-    Prints each run's seconds with and without qualities and its stages
-    (rnnrf's host forward-backward is the stage "posterior_crf")."""
+    Prints each run's seconds with and without qualities, its stages
+    (rnnrf's forward-backward is the stage "posterior_crf") and its
+    launches (set to 0 just before the run with qualities, read just
+    after); rnnrf's must launch the forward-backward kernel. Returns the
+    launches of the runs, crf_posterior among them."""
+    from scrappie_torch import ops
     from scrappie_torch.parallel.runner import BasecallEngine
     from scrappie_torch.post.quality import recalibrate_phred
     from scrappie_torch.utils.seqcompare import qual_diffs, quals_agree
@@ -2548,7 +2719,7 @@ def check_qualities(card: str, reads: list, pool) -> None:
     twins = {label: pool.submit(cpu_calls, model, ekw, ckw,
                                 [reads[i] for i in short])
              for label, model, ekw, ckw in QUALITY_RUNS}
-    calls = {}
+    calls, launches = {}, dict.fromkeys(ops.LAUNCHES, 0)
     for label, model, ekw, ckw in QUALITY_RUNS:
         eng = BasecallEngine(model, device="cuda", **ekw)
         for quals in (False, True):  # warm up both paths
@@ -2559,9 +2730,17 @@ def check_qualities(card: str, reads: list, pool) -> None:
             plain = eng.basecall_signals(reads, **ckw)
             plain_s = time.perf_counter() - t0
         eng.stage = Stage()
+        ops.reset_launches()
         t0 = time.perf_counter()
         res = eng.basecall_signals(reads, with_qualities=True, **ckw)
         qual_s = time.perf_counter() - t0
+        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for name in BACKWARD_KERNELS:
+            require(name not in launched, f"qualities {label}: no {name}")
+        if model == "rnnrf_r94":
+            require(launched.get("crf_posterior", 0) > 0,
+                    f"qualities {label}: the forward-backward kernel launched")
+            launches["crf_posterior"] += launched["crf_posterior"]
         require(all(r.sequence and r.qual and len(r.qual) == len(r.sequence)
                     for r in res), f"qualities {label}: a code a base")
         if recal:
@@ -2580,7 +2759,8 @@ def check_qualities(card: str, reads: list, pool) -> None:
               "samples": nsample, "bases": sum(len(r.sequence) for r in res),
               "seconds_without": plain_s, "seconds_with": qual_s,
               "samples_per_s_with": nsample / qual_s,
-              "stages_with": eng.stage.report(), "card": card})
+              "stages_with": eng.stage.report(), "launches_with": launched,
+              "card": card})
     for label, *_ in QUALITY_RUNS:
         for i, (cseq, cqual) in zip(short, twins[label].result()):
             g = calls[label][i]
@@ -2592,6 +2772,118 @@ def check_qualities(card: str, reads: list, pool) -> None:
                   "qual_codes_differing": n, "largest_step": step})
             require(quals_agree(g.qual, cqual),
                     f"qualities {label} {reads[i].uuid}: the CPU run's codes")
+    return launches
+
+
+# -------------------------------------------------------------- training
+
+def random_params(model: str, seed: int) -> dict:
+    """A seeded random init of the model's weights: 0.1 standard normal in
+    the registry's keys and shapes (tests/test_models.py:124-129)."""
+    import numpy as np
+
+    from scrappie_torch.models import registry
+
+    rng = np.random.default_rng(seed)
+    return {k: (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+            for k, v in registry.load_params(model).items()}
+
+
+def cpu_value_and_grad(model: str, params: dict, sig, labels):
+    """The training loss and every gradient on the CPU (the plain twins),
+    in a worker process, as numpy."""
+    import torch
+
+    from scrappie_torch.train.trainer import value_and_grad
+
+    torch.set_num_threads(1)
+    loss, grads = value_and_grad(
+        model, {k: torch.as_tensor(v) for k, v in params.items()}, sig, labels)
+    return float(loss), {k: g.numpy() for k, g in grads.items()}
+
+
+def main_path_train(card: str, pool) -> dict:
+    """train(model, device="cuda", **TRAIN) for each of TRAIN_MODELS from a
+    seeded random init (phase main_path_train): every loss finite, the last
+    below the first, each kernel of TRAIN_KERNELS launched (the counts set
+    to 0 just before the run, read just after), and one backward walk
+    launched for each forward recurrence; the first step's loss and every
+    gradient, on the same batch, against the port's CPU run (in a worker
+    process) within TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL; then
+    TRAIN_PROFILE_STEPS steps under the profiler (device busy time, idle
+    share). Returns the launches summed over the models."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch import ops
+    from scrappie_torch.models.specs import RAW_MODELS
+    from scrappie_torch.train import trainer
+    from scrappie_torch.train.simulate import SquiggleSimulator
+
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    for i, model in enumerate(TRAIN_MODELS):
+        spec = RAW_MODELS[model]
+        params = random_params(model, SEED + 130 + i)
+        seed = SEED + 140 + i
+        sim = SquiggleSimulator(seed=seed, device="cuda")
+        make = (sim.crf_labelled_batch if spec.kind == "rnnrf"
+                else sim.labelled_batch)
+        sig, labels = make(TRAIN["batch"], TRAIN["nsample"], spec.stride)
+        job = pool.submit(cpu_value_and_grad, model, params, sig, labels)
+        loss, grads = trainer.value_and_grad(
+            model, {k: torch.as_tensor(v, device="cuda") for k, v in params.items()},
+            sig, labels)
+        sync()
+        # train() draws its first batch from a simulator of the same seed
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        trained, losses = trainer.train(model, params=params, seed=seed,
+                                        log_every=0, device="cuda", **TRAIN)
+        sync()
+        seconds = time.perf_counter() - t0
+        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+        require(all(np.isfinite(losses)), f"train {model}: every loss finite")
+        require(losses[-1] < losses[0],
+                f"train {model}: the loss falls ({losses[0]} -> {losses[-1]})")
+        require(all(np.isfinite(v).all() for v in trained.values()),
+                f"train {model}: finite parameters")
+        for name in TRAIN_KERNELS[spec.kind]:
+            require(launched.get(name, 0) > 0, f"kernel {name} launched on "
+                                               f"train {model}")
+        n = lambda name: launched.get(name, 0)
+        require(n("gru_recurrence_bwd") == n("gru_recurrence"),
+                f"train {model}: a backward walk launched for each recurrence")
+        if spec.kind == "rnnrf":
+            require(n("crf_partition_grad") == n("crf_partition") == TRAIN["steps"],
+                    f"train {model}: a partition gradient launched a step")
+        require(abs(losses[0] - float(loss)) <= TRAIN_LOSS_RTOL * abs(float(loss)),
+                f"train {model}: the first step's loss ({losses[0]}) is its "
+                f"batch's ({float(loss)})")
+        for k, v in launched.items():
+            total[k] += v
+        cpu_loss, cpu_grads = job.result()
+        loss_rel = abs(float(loss) - cpu_loss) / abs(cpu_loss)
+        grad_rel = {k: float(np.abs(grads[k].cpu().numpy() - g).max()
+                             / max(float(np.abs(g).max()), 1e-30))
+                    for k, g in cpu_grads.items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        require(loss_rel <= TRAIN_LOSS_RTOL,
+                f"train {model}: loss {float(loss)} against the CPU's {cpu_loss}")
+        require(grad_rel[worst] <= TRAIN_GRAD_RTOL,
+                f"train {model}: gradient {worst} rel err {grad_rel[worst]} <= "
+                f"{TRAIN_GRAD_RTOL}")
+        emit({"phase": "main_path_train", "model": model, **TRAIN,
+              "losses": losses, "seconds": seconds,
+              "seconds_per_step": seconds / TRAIN["steps"],
+              "launches": launched, "cpu_loss_rel_err": loss_rel,
+              "cpu_grad_max_rel_err": grad_rel[worst], "cpu_grad_worst": worst,
+              "card": card})
+        profiled(f"train {model}, {TRAIN_PROFILE_STEPS} steps",
+                 lambda: trainer.train(model, params=params, seed=seed,
+                                       log_every=0, device="cuda",
+                                       **{**TRAIN, "steps": TRAIN_PROFILE_STEPS}),
+                 card)
+    return total
 
 
 # ----------------------------------------------------------------- serve
@@ -3005,6 +3297,8 @@ def main() -> int:
         table.update(check_crf_kernels(rnet))
         check_lstm_kernel(enet, 8)
         table["lstm_layer"], table["lstm_pair"] = check_lstm_kernel(enet, 64)
+    check_gru_backward(net, 8)  # autograd is its reference: no inference mode
+    table["gru_recurrence_bwd"] = check_gru_backward(net, 64)
     reads = synthetic_reads()
     launches = main_path(card, reads)
     throughput(net, card)
@@ -3028,16 +3322,19 @@ def main() -> int:
 
     with ProcessPoolExecutor(TWIN_WORKERS,
                              mp_context=multiprocessing.get_context("spawn")) as pool:
+        train_launches = main_path_train(card, pool)
         with torch.inference_mode():
-            check_qualities(card, reads, pool)
+            quality_launches = check_qualities(card, reads, pool)
         check_batch_invariance(card)
         main_path_serve(card, reads, pool)
     # each kernel's launches on its own path: the GRU recurrence's, the
     # head's and the Viterbi kernels' on the rgrgr path, the CRF kernels' on
     # rnnrf's, the LSTM's on the events path's, the fused ensemble kernel's
     # on the 3:1:1 ensemble's; the projection's on all four, which it
-    # serves. No path runs the superseded kernels, a big-S mode (no model
-    # has S above 96) or a single LSTM layer (the events path runs pairs).
+    # serves; the backward kernels' on the training path, the
+    # forward-backward's posterior on rnnrf's qualities. No path runs the
+    # superseded kernels, a big-S mode (no model has S above 96) or a
+    # single LSTM layer (the events path runs pairs).
     launches["project"] = sum(
         ls["project"] for ls in (launches, rnnrf_launches, ensemble_launches,
                                  events_launches))
@@ -3047,6 +3344,8 @@ def main() -> int:
     launches.update({k: events_launches[k]
                      for k in ("lstm_layer", "lstm_pair", "lstm_layer_global")})
     launches.update({k: mapping_launches[k] for k in MAPPING_KERNELS})
+    launches.update({k: train_launches[k] for k in BACKWARD_KERNELS})
+    launches["crf_posterior"] = quality_launches["crf_posterior"]
     for name in SUPERSEDED:
         require(launches[name] == 0, f"superseded {name} launched on a path "
                                      f"({launches[name]})")
@@ -3055,7 +3354,9 @@ def main() -> int:
     # (scrappie before), torch.nn.LSTM has no peepholes, and nothing in
     # PyTorch does the head's robustlog and renormalised combination, a
     # Viterbi decode (alone, after a head or after K combined heads), the
-    # CRF's partition function, a mapping DP or a walk.
+    # CRF's partition function, its gradient or posterior, a mapping DP or
+    # a walk, or the backward of scrappie's GRU (torch.nn.GRU's
+    # differentiates its own gate order).
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],

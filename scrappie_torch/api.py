@@ -236,7 +236,8 @@ def basecall_raw(data, model: str = "rgrgr_r94", with_base_probs: bool = False,
             lp = lp - np.log(np.exp(lp).sum(-1, keepdims=True))
         post = Posterior(lp.astype(np.float32), model)
     seq, score, pos = decode_post(post, model, device=device, **kwargs)
-    base_probs = posterior_crf(post.data()) if with_base_probs else None
+    base_probs = (posterior_crf(post.data(), device=device) if with_base_probs
+                  else None)
     return seq, score, pos, raw.start, raw.end, base_probs
 
 

@@ -1,5 +1,6 @@
-// CRF decoding for the rnnrf head: the Viterbi forward pass, the backtrace
-// and the log partition function.
+// CRF decoding for the rnnrf head: the Viterbi forward pass, the backtrace,
+// the log partition function, and the forward-backward (the state posterior
+// and the partition's gradient).
 //
 // Replaces, in scrappie_tpu/ops/crf.py:
 //   _crf_fwd_kernel   wrapper crf_viterbi_scores_tm   (crf_fwd_kernel)
@@ -7,7 +8,10 @@
 // and, with no TPU kernel of its own, the lax.scan of
 // scrappie_tpu/nn/layers.py:crf_partition_function (wrapper
 // crf_partition_tm, crf_partition_kernel), which globalnorm runs on every
-// rnnrf path.
+// rnnrf path; and, with none either, the lax.scan of
+// scrappie_tpu/decode/crf.py:_crf_posterior and the VJP XLA derives for
+// crf_partition_function's in the JAX trainer (crf_fwdbwd_kernel, wrappers
+// crf_posterior_tm and crf_partition_grad_tm; its note is beside it).
 //
 // Five states {A, C, G, T, blank}; transitions trans[t, b, to*5 + from],
 // fp32, time-major [T, B, 25]. Scores start at 0. Per step t and state to:
@@ -214,6 +218,131 @@ crf_partition_kernel(const float* __restrict__ trans, float* __restrict__ logz,
   if (l.live && l.to == 0) logz[l.b] = lse5(prev);
 }
 
+// The forward-backward (crf_fwdbwd_kernel): the partition's forward walk,
+// storing each boundary's scores, then the walk back. Both walks keep their
+// scores less their maximum over the five states, a_t = alpha_t - max
+// alpha_t and b_t = beta_t - max beta_t, with alpha_0 = beta_T = 0,
+//   alpha_{t+1}[to] = lse_from(trans[t, to, from] + a_t[from]),
+//   beta_t[from]    = lse_to(trans[t, to, from] + b_{t+1}[to]);
+// a marginal is a softmax in which each step's offsets cancel, so it is
+// computed from these without logZ: mode 0, the state posterior,
+// post[b, t, s] = softmax_s(a_t[s] + b_t[s]) for t = 0..T, [B, T+1, 5];
+// mode 1, the partition's gradient, grad[t, b, to*5 + from] =
+// softmax over the 25 (to, from) of v = a_t[from] + (trans[t, to, from] +
+// b_{t+1}[to]), times g[b]: the edge marginals times the incoming gradient
+// of logZ, [T, B, 25]. Unnormalised, alpha, beta and logZ grow as the sum
+// of T steps' transitions (logZ about 5 400 over 300 blocks of the rnnrf
+// head with the repository's weights), and exp(alpha + trans + beta -
+// logZ) keeps only their float32 precision: the gradient was off by 1e-3
+// relative there. The normalised scores stay within the transitions' range.
+// Five lanes a row as above: lane s is state `to` = s on the way forward
+// and `from` = s on the way back, so a lane reads back only the scores it
+// stored itself (a [T+1, B, 5] in global memory, 20 bytes a row and step:
+// 10 MB at T = 2000, B = 64; checkpoints would trade that for a second
+// forward walk). The walk back loads a lane's five transitions out of
+// column `from` (stride 5 floats, inside the row's 100 bytes) and its a_t
+// DEPTH steps ahead into a register ring; a step is one lse5, five
+// shuffles and the max, then two lse5, five shuffles, five expf and five
+// stores (mode 1) or five shuffles, five expf and one store (mode 0).
+__device__ __forceinline__ float max5(const float (&v)[NS]) {
+  return fmaxf(fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3])), v[4]);
+}
+
+__global__ void __launch_bounds__(WARP)
+crf_fwdbwd_kernel(const float* __restrict__ trans, const float* __restrict__ g,
+                  float* __restrict__ score, float* __restrict__ out, int T,
+                  int B, int mode) {
+  const RowLane l = row_lane(B);
+  const int s = l.to;
+  const size_t sstride = (size_t)B * NS;
+  float* mine = score + (size_t)l.b * NS + s;  // a_t[s] at t * sstride
+  float prev[NS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  run_steps(
+      trans, T, B, l, prev,
+      [&](const float (&tr)[NS], const float (&p)[NS], int t, bool real) {
+        const float m = max5(p);
+        float x[NS];
+#pragma unroll
+        for (int f = 0; f < NS; ++f) x[f] = __fadd_rn(tr[f], __fsub_rn(p[f], m));
+        if (l.live && real) mine[(size_t)t * sstride] = __fsub_rn(p[s], m);
+        return lse5(x);
+      });
+  const float mT = max5(prev);
+  if (l.live) mine[(size_t)T * sstride] = __fsub_rn(prev[s], mT);
+  const float gb = mode == 1 ? g[l.b] : 0.0f;
+  // softmax over the five states of v (every lane holds all five), as
+  // jax.nn.softmax: exp(v - max) / sum; this lane's entry.
+  auto post_entry = [&](const float (&v)[NS]) {
+    const float m = max5(v);
+    float e[NS];
+#pragma unroll
+    for (int f = 0; f < NS; ++f) e[f] = expf(__fsub_rn(v[f], m));
+    const float sum = __fadd_rn(__fadd_rn(__fadd_rn(e[0], e[1]),
+                                          __fadd_rn(e[2], e[3])), e[4]);
+    return __fdiv_rn(e[s], sum);
+  };
+  float* post = out + (size_t)l.b * (T + 1) * NS + s;  // mode 0, at t * NS
+  if (mode == 0 && l.live) {
+    float v[NS];
+#pragma unroll
+    for (int f = 0; f < NS; ++f) v[f] = __fsub_rn(prev[f], mT);
+    post[(size_t)T * NS] = post_entry(v);
+  }
+  if (T == 0) return;
+  // The walk back, step n at t = T-1-n; nxt = b_{t+1}, all five.
+  float nxt[NS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  const size_t stride = (size_t)B * NTR;
+  const float* col = trans + (size_t)l.b * NTR + s;  // + to * NS
+  float ring[DEPTH][NS];
+  float aring[DEPTH];
+  auto fetch = [&](int u, int n) {
+    const size_t t = max(T - 1 - n, 0);
+#pragma unroll
+    for (int to = 0; to < NS; ++to) ring[u][to] = __ldg(col + t * stride + to * NS);
+    aring[u] = mine[t * sstride];  // stored above by this lane
+  };
+#pragma unroll
+  for (int u = 0; u < DEPTH; ++u) fetch(u, u);
+  float* grad = out + (size_t)l.b * NTR + s;  // mode 1, + t * stride + to * NS
+  for (int n0 = 0; n0 < T; n0 += DEPTH) {
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+      const int n = n0 + u;
+      if (n >= T) break;  // uniform across the warp
+      const int t = T - 1 - n;
+      float x[NS];
+#pragma unroll
+      for (int to = 0; to < NS; ++to) x[to] = __fadd_rn(ring[u][to], nxt[to]);
+      const float a = aring[u];
+      fetch(u, n + DEPTH);
+      float w[NS];
+      trade(w, lse5(x), l.first);
+      if (mode == 1) {
+        float v[NS];
+#pragma unroll
+        for (int to = 0; to < NS; ++to) v[to] = __fadd_rn(a, x[to]);
+        float part[NS];
+        trade(part, lse5(v), l.first);  // each lane's lse over `to`
+        const float total = lse5(part);
+        if (l.live) {
+#pragma unroll
+          for (int to = 0; to < NS; ++to)
+            grad[(size_t)t * stride + to * NS] =
+                __fmul_rn(expf(__fsub_rn(v[to], total)), gb);
+        }
+      }
+      const float m = max5(w);
+#pragma unroll
+      for (int f = 0; f < NS; ++f) nxt[f] = __fsub_rn(w[f], m);
+      if (mode == 0) {
+        float v[NS];
+        trade(v, __fadd_rn(a, nxt[s]), l.first);
+        if (l.live) post[(size_t)t * NS] = post_entry(v);
+      }
+    }
+  }
+}
+
 // The backtrace composes maps of the five states. A map m: {0..4} ->
 // {0..4} is kept as bytes (entry s in byte s of lo, hi), which prmt
 // (__byte_perm) indexes, or as a selector (entry s in nibble s), which
@@ -352,6 +481,17 @@ int scrappie_crf_partition(const float* trans, float* logz, int T, int B,
                            cudaStream_t stream) {
   if (B == 0) return (int)cudaSuccess;
   crf_partition_kernel<<<row_warps(B), WARP, 0, stream>>>(trans, logz, T, B);
+  return (int)cudaGetLastError();
+}
+
+// trans [T, B, 25], score scratch [T+1, B, 5]; mode 0: out = post
+// [B, T+1, 5] (g unused); mode 1: g [B], out = grad [T, B, 25].
+int scrappie_crf_fwdbwd(const float* trans, const float* g, float* score,
+                        float* out, int T, int B, int mode,
+                        cudaStream_t stream) {
+  if (B == 0) return (int)cudaSuccess;
+  crf_fwdbwd_kernel<<<row_warps(B), WARP, 0, stream>>>(trans, g, score, out,
+                                                       T, B, mode);
   return (int)cudaGetLastError();
 }
 

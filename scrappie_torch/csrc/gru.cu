@@ -7,6 +7,10 @@
 //                      then gru_recurrence_kernel (gru_layer_kernel, the
 //                      first port, is kept and timed; no path launches it)
 //   _gru_kernel        wrapper gru_tm_padded: gru_recurrence_kernel
+// and, with no TPU kernel of its own, the VJP XLA derives for the lax.scan
+// of scrappie_tpu/nn/rnn.py:gru when the JAX trainer differentiates it:
+// gru_recurrence_bwd_kernel (wrapper ops/gru.gru_walk, the walk of
+// gru_tm_backward; its note is beside it).
 // Per time step, for one batch row:
 //
 //   xin  = x[t] @ iW + b                     (the projection, [3S])
@@ -265,6 +269,115 @@ gru_recurrence_kernel(const float* __restrict__ x, const float* __restrict__ sW,
   }
 }
 
+// The recurrence's backward walk: gates [T, B, 3S] = (z | r | hbar) and
+// h_prev [T, B, S] (h at the step before in the forward's order, 0 at its
+// first step) of the forward, gh [T, B, S] the gradient of its output ->
+// da [T, B, 3S] = (da_z | da_r | da_h), the gradient of the pre-activations
+// (= of the projected input). dh is carried opposite to the forward's
+// direction; per step, for one batch row:
+//
+//   dh   = carry + gh[t]
+//   da_z = dh * (h_prev - hbar) * z * (1 - z)
+//   da_h = dh * (1 - z) * (1 - hbar^2)
+//   drh  = da_h @ sW2^T                         (d(r * h_prev))
+//   da_r = drh * h_prev * r * (1 - r)
+//   carry = dh * z + drh * r + [da_z | da_r] @ sW^T
+//
+// Design, as the forward's: one block a row, 2S threads, the transposed
+// weights in registers. Output k has two lanes: lane l holds sW2[k, 48 l ..
+// 48 l + 48) (drh) and sW[k, l S .. l S + 96), the z (l = 0) or r (l = 1)
+// columns (the carry's product), 144 weights a thread as in the forward.
+// Lane 0 keeps the carry and does the gates' arithmetic; da_h, then da_z
+// and da_r, go through shared memory (double-buffered by step parity, so
+// two barriers a step). The step's five inputs are loaded RING steps
+// ahead into registers (unconditional loads, clamped at the ends). What
+// bounds it: as the forward, two dependent matrix-vector products a step.
+template <int kL>
+__global__ void __launch_bounds__(kL * REG_MAX_S)
+gru_recurrence_bwd_kernel(const float* __restrict__ gates,
+                          const float* __restrict__ h_prev,
+                          const float* __restrict__ gh,
+                          const float* __restrict__ sW,
+                          const float* __restrict__ sW2,
+                          float* __restrict__ da, int T, int B, int S,
+                          int reverse) {
+  constexpr int kRows2 = REG_MAX_S / kL;  // columns of sW2 a lane holds
+  __shared__ __align__(16) float s_ah[2][REG_MAX_S];        // da_h
+  __shared__ __align__(16) float s_zr[2][2 * REG_MAX_S];    // da_z | da_r
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int l = tid % kL;
+  const int k = tid / kL;
+  const bool own = k < S && l == 0;
+  const int S3 = 3 * S;
+  for (int i = tid; i < 2 * REG_MAX_S; i += blockDim.x) {
+    s_ah[i / REG_MAX_S][i % REG_MAX_S] = 0.0f;
+    s_zr[0][i] = 0.0f;
+    s_zr[1][i] = 0.0f;
+  }
+  float w2[kRows2];
+  float w1[REG_MAX_S];
+#pragma unroll
+  for (int i = 0; i < kRows2; ++i) {
+    const int j = l * kRows2 + i;
+    w2[i] = (k < S && j < S) ? sW2[(size_t)k * S + j] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < REG_MAX_S; ++i)
+    w1[i] = (k < S && i < S) ? sW[(size_t)k * 2 * S + l * S + i] : 0.0f;
+  // step n at t = reverse ? n : T-1-n (the forward's steps backwards)
+  auto step_t = [&](int n) { return reverse ? n : T - 1 - n; };
+  const int kc = min(k, S - 1);
+  float rz[RING], rr[RING], rhb[RING], rhp[RING], rg[RING];
+  auto fetch = [&](int u, int n) {
+    const size_t row = (size_t)step_t(min(n, T - 1)) * B + b;
+    rz[u] = __ldg(gates + row * S3 + kc);
+    rr[u] = __ldg(gates + row * S3 + S + kc);
+    rhb[u] = __ldg(gates + row * S3 + 2 * S + kc);
+    rhp[u] = __ldg(h_prev + row * S + kc);
+    rg[u] = __ldg(gh + row * S + kc);
+  };
+#pragma unroll
+  for (int u = 0; u < RING; ++u) fetch(u, u);
+  __syncthreads();
+  float carry = 0.0f;
+  for (int n0 = 0; n0 < T; n0 += RING) {
+#pragma unroll
+    for (int u = 0; u < RING; ++u) {
+      const int n = n0 + u;
+      if (n >= T) break;  // uniform across the block
+      const int buf = n & 1;
+      const size_t row = (size_t)step_t(n) * B + b;
+      const float z = rz[u], r = rr[u], hb = rhb[u], hp = rhp[u];
+      const float dh = __fadd_rn(carry, rg[u]);
+      fetch(u, n + RING);
+      if (own) {
+        const float one_z = __fsub_rn(1.0f, z);
+        const float az = __fmul_rn(__fmul_rn(__fmul_rn(dh, __fsub_rn(hp, hb)), z),
+                                   one_z);
+        const float ah = __fmul_rn(__fmul_rn(dh, one_z),
+                                   __fsub_rn(1.0f, __fmul_rn(hb, hb)));
+        s_ah[buf][k] = ah;
+        s_zr[buf][k] = az;
+        da[row * S3 + k] = az;
+        da[row * S3 + 2 * S + k] = ah;
+      }
+      __syncthreads();
+      const float drh = group_sum<kL>(lane_dot(&s_ah[buf][l * kRows2], w2));
+      if (own) {
+        const float ar = __fmul_rn(__fmul_rn(__fmul_rn(drh, hp), r),
+                                   __fsub_rn(1.0f, r));
+        s_zr[buf][REG_MAX_S + k] = ar;
+        da[row * S3 + S + k] = ar;
+      }
+      __syncthreads();
+      const float rec = group_sum<kL>(lane_dot(&s_zr[buf][l * REG_MAX_S], w1));
+      if (own)
+        carry = __fadd_rn(__fadd_rn(__fmul_rn(dh, z), __fmul_rn(drh, r)), rec);
+    }
+  }
+}
+
 // The superseded layer kernel: x [T, B, C], xin = x[t] @ iW + b computed in
 // the step loop by thread j for its gate column j (blockDim.x == 3S >= C).
 __global__ void gru_layer_kernel(const float* __restrict__ x,
@@ -398,6 +511,21 @@ int scrappie_gru_recurrence(const float* x, const float* sW, const float* sW2,
   static_assert(LA * 2 == LB, "one thread count serves both products");
   return launch_recurrence<false, LA, LB>(x, sW, sW2, y, T, B, S, reverse,
                                           ((LB * S + 31) / 32) * 32, stream);
+}
+
+// The recurrence's backward walk: gates [T, B, 3S] (z | r | hbar), h_prev
+// [T, B, S], gh [T, B, S], sW [S, 2S], sW2 [S, S] -> da [T, B, 3S]; all
+// fp32, contiguous, on the current device; S <= REG_MAX_S. Returns a
+// cudaError_t.
+int scrappie_gru_recurrence_bwd(const float* gates, const float* h_prev,
+                                const float* gh, const float* sW,
+                                const float* sW2, float* da, int T, int B,
+                                int S, int reverse, cudaStream_t stream) {
+  if (T == 0 || B == 0) return (int)cudaSuccess;
+  if (S > REG_MAX_S) return (int)cudaErrorInvalidValue;
+  gru_recurrence_bwd_kernel<LB><<<B, ((LB * S + 31) / 32) * 32, 0, stream>>>(
+      gates, h_prev, gh, sW, sW2, da, T, B, S, reverse);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

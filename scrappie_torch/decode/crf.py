@@ -3,9 +3,9 @@
 Counterpart of scrappie_tpu/decode/crf.py (behavioural spec: ref
 src/decode.c:836-1012). States are {A, C, G, T, blank}; transitions
 [T, 25], entry [t, to*5 + from] the energy of moving from -> to at block t
-(log-space, globally normalised upstream). The Viterbi decode runs the
-CRF kernels for a CUDA tensor and their plain twins for a CPU one
-(ops/crf.py); the posterior is a plain PyTorch loop.
+(log-space, globally normalised upstream). The Viterbi decode and the
+posterior run the CRF kernels for a CUDA tensor and their plain twins for a
+CPU one (ops/crf.py).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from scrappie_torch.device import float_tensor
-from scrappie_torch.ops.crf import NS, add_emit_bias, crf_viterbi_tm
+from scrappie_torch.ops.crf import add_emit_bias, crf_posterior_tm, crf_viterbi_tm
 
 NBASE = 4
 
@@ -59,24 +59,15 @@ def decode_crf(trans, impl: str | None = None, emit_bias: float = 0.0,
     return score, path
 
 
-def posterior_crf(trans, impl: str | None = None) -> np.ndarray:
+def posterior_crf(trans, impl: str | None = None, device=None) -> np.ndarray:
     """Forward-backward state posterior (ref posterior_crf,
     src/decode.c:928-1012): trans [T, 25] or [B, T, 25] -> probabilities
-    [.., T+1, 5], one row per block boundary, as numpy. A plain loop of
-    small operations, so numpy input runs on the CPU."""
+    [.., T+1, 5], one row per block boundary, as numpy. numpy input goes to
+    `device` (CUDA unless named), a tensor stays on its own: the
+    forward-backward kernel runs on the card, its plain twin on the CPU."""
     _check_impl(impl)
-    t, squeeze = _batched(trans, "cpu")
-    B, T, _ = t.shape
-    tmat = t.reshape(B, T, NS, NS).transpose(0, 1)  # [T, B, to, from]
-    init = t.new_zeros((B, NS))
-    fwd = [init]
-    for i in range(T):
-        fwd.append(torch.logsumexp(tmat[i] + fwd[-1][:, None, :], dim=-1))
-    bwd = [init]
-    for i in range(T - 1, -1, -1):
-        bwd.append(torch.logsumexp(tmat[i] + bwd[-1][:, :, None], dim=-2))
-    logpost = torch.stack(fwd) + torch.stack(bwd[::-1])  # [T+1, B, ns]
-    post = torch.softmax(logpost, dim=-1).transpose(0, 1).cpu().numpy()
+    t, squeeze = _batched(trans, device)
+    post = crf_posterior_tm(t.transpose(0, 1).contiguous()).cpu().numpy()
     return post[0] if squeeze else post
 
 

@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import dataclasses
 
-NSTATE_TRANSDUCER = 4**5 + 1  # 1024 5-mers + stay
+KMER_LEN = 5
+NSTATE_TRANSDUCER = 4**KMER_LEN + 1  # 1024 5-mers + stay
 NSTATE_CRF = 5  # -ACGT
 GRU_DIRS = ("b", "f", "b", "f", "b")  # rgrgr/rnnrf layer directions B1,F2,B3,F4,B5
 

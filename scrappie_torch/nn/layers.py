@@ -113,11 +113,12 @@ def globalnorm_tm(x_tm: torch.Tensor, W: torch.Tensor,
                   b: torch.Tensor) -> torch.Tensor:
     """Time-major globalnorm: x [T, B, C] -> transitions [T, B, 25], the
     affine map less logZ / T per row. logZ comes from ops/crf.py's
-    crf_partition_tm: the partition kernel for a CUDA tensor."""
-    from scrappie_torch.ops.crf import crf_partition_tm
+    CrfPartition: the partition kernel for a CUDA tensor, its twin for a
+    CPU one; its backward is the forward-backward kernel."""
+    from scrappie_torch.ops.crf import CrfPartition
 
     trans = feedforward(x_tm, W, b)
-    logZ = crf_partition_tm(trans) / trans.shape[0]
+    logZ = CrfPartition.apply(trans) / trans.shape[0]
     return trans - logZ[:, None]
 
 

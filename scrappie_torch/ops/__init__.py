@@ -23,6 +23,7 @@ LAUNCHES: dict[str, int] = {
     "project": 0,
     "gru_recurrence": 0,
     "gru_recurrence_global": 0,
+    "gru_recurrence_bwd": 0,
     "head": 0,
     "viterbi_fwd": 0,
     "viterbi_backtrace": 0,
@@ -31,6 +32,8 @@ LAUNCHES: dict[str, int] = {
     "crf_fwd": 0,
     "crf_backtrace": 0,
     "crf_partition": 0,
+    "crf_posterior": 0,
+    "crf_partition_grad": 0,
     "lstm_layer": 0,
     "lstm_pair": 0,
     "lstm_layer_global": 0,

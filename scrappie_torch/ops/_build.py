@@ -34,6 +34,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "scrappie_gru_layer": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "scrappie_gru_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "scrappie_gru_recurrence_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "scrappie_viterbi_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P),
     "scrappie_viterbi_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                                _F, _F, _F, _F, _I, _P),
@@ -42,6 +43,7 @@ _SIGNATURES = {
     "scrappie_viterbi_backtrace": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "scrappie_crf_fwd": (_P, _P, _P, _I, _I, _P),
     "scrappie_crf_partition": (_P, _P, _I, _I, _P),
+    "scrappie_crf_fwdbwd": (_P, _P, _P, _P, _I, _I, _I, _P),
     "scrappie_crf_backtrace": (_P, _P, _P, _P, _I, _I, _P),
     "scrappie_project": (_P, _P, _P, _P, _I, _I, _I, _P),
     "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -1,19 +1,22 @@
-"""CRF decoding for the rnnrf head: Viterbi forward, backtrace, and the log
-partition function.
+"""CRF decoding for the rnnrf head: Viterbi forward, backtrace, the log
+partition function with its gradient, and the forward-backward posterior.
 
 Counterpart of scrappie_tpu/ops/crf.py (crf_viterbi_scores_tm,
 crf_backtrace_tm, crf_viterbi_kernel), of the lax.scan program
 scrappie_tpu/decode/crf.py:_crf_viterbi, whose tie rule the plain twins
 copy (for each `to`, the first maximum over `from`, by strict `>`), and of
 the partition-function scan of scrappie_tpu/nn/layers.py, which has no TPU
-kernel.
+kernel, and of the scans that have none either: its VJP (CrfPartition's
+backward, the edge marginals) and scrappie_tpu/decode/crf.py:_crf_posterior
+(crf_posterior_tm, the state marginals), both one forward-backward kernel.
 
 On a CUDA tensor each wrapper launches its kernel from csrc/crf.cu; on a
 CPU tensor it runs its `*_plain` twin. Layouts: transitions are
 time-major, trans [T, B, 25] with entry to*5 + from; the forward gives
 final [B, 5] f32 and a traceback [T, 5, B] int8 (the TPU kernel's
 [T, 8, B] without its padding rows), the backtrace score [B] and path
-[B, T+1] int32. There is no lane, batch or time padding.
+[B, T+1] int32, the posterior [B, T+1, 5] and the partition's gradient
+[T, B, 25]. There is no lane, batch or time padding.
 """
 
 from __future__ import annotations
@@ -165,6 +168,121 @@ def crf_partition_tm(trans_tm):
         _build.check(err, "crf_partition")
     ops.LAUNCHES["crf_partition"] += 1
     return logz
+
+
+def crf_fwdbwd_plain(trans_tm):
+    """The forward and backward log scores of the CRF, each less its
+    maximum over the states at every boundary, plain loops over time:
+    trans [T, B, 25] -> (a [T+1, B, 5], b [T+1, B, 5]) with alpha_0 =
+    beta_T = 0, alpha_{t+1}[to] = lse over `from` of trans[t, to, from] +
+    a_t[from], beta_t[from] = lse over `to` of trans[t, to, from] +
+    b_{t+1}[to], a_t = alpha_t - max alpha_t, b_t = beta_t - max beta_t.
+    The marginals are softmaxes in which these offsets cancel, and the
+    normalised scores keep float32 precision where alpha and beta would grow
+    with T (the kernel's note in csrc/crf.cu)."""
+    _check_trans(trans_tm)
+    T, B, _ = trans_tm.shape
+    tmat = trans_tm.reshape(T, B, NS, NS)  # [T, B, to, from]
+    norm = lambda v: v - v.amax(-1, keepdim=True)
+    v = trans_tm.new_zeros((B, NS))
+    a = []
+    for t in range(T):
+        a.append(norm(v))
+        v = torch.logsumexp(tmat[t] + a[-1][:, None, :], dim=-1)
+    a.append(norm(v))
+    b = [trans_tm.new_zeros((B, NS))]
+    for t in range(T - 1, -1, -1):
+        b.append(norm(torch.logsumexp(tmat[t] + b[-1][:, :, None], dim=-2)))
+    return torch.stack(a), torch.stack(b[::-1])
+
+
+def crf_posterior_tm_plain(trans_tm):
+    """Plain twin of the forward-backward kernel's posterior: trans
+    [T, B, 25] -> softmax over the states of a_t + b_t, [B, T+1, 5]
+    (scrappie_tpu/decode/crf.py:_crf_posterior)."""
+    a, b = crf_fwdbwd_plain(trans_tm)
+    return torch.softmax(a + b, dim=-1).transpose(0, 1).contiguous()
+
+
+def crf_partition_grad_tm_plain(trans_tm, g):
+    """Plain twin of the forward-backward kernel's gradient: trans
+    [T, B, 25], g [B] (the gradient of logZ) -> d logZ / d trans times g,
+    [T, B, 25]: each block's edge marginals, the softmax over its 25
+    (to, from) of a_t[from] + (trans[t, to, from] + b_{t+1}[to]) (the lse
+    over `to`, then over `from`), times g[b]."""
+    a, b = crf_fwdbwd_plain(trans_tm)
+    T, B, _ = trans_tm.shape
+    v = a[:-1, :, None, :] + (trans_tm.reshape(T, B, NS, NS)
+                              + b[1:, :, :, None])
+    total = torch.logsumexp(torch.logsumexp(v, dim=-2), dim=-1)
+    edge = torch.exp(v - total[:, :, None, None])
+    return (edge * g[:, None, None]).reshape(T, B, NS * NS)
+
+
+def _fwdbwd(trans_tm, g, out, mode: int, name: str):
+    """Launch the forward-backward kernel in `mode` into `out`."""
+    from scrappie_torch.ops import _build
+
+    T, B, _ = trans_tm.shape
+    if B == 0:
+        return out
+    score = torch.empty((T + 1, B, NS), dtype=torch.float32,
+                        device=trans_tm.device)
+    with torch.cuda.device(trans_tm.device):
+        err = _build.library().scrappie_crf_fwdbwd(
+            trans_tm.data_ptr(), g.data_ptr() if g is not None else None,
+            score.data_ptr(), out.data_ptr(), T, B, mode,
+            ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, name)
+    ops.LAUNCHES[name] += 1
+    return out
+
+
+def crf_posterior_tm(trans_tm):
+    """Forward-backward state posterior (ref posterior_crf,
+    src/decode.c:928-1012) of time-major transitions [T, B, 25] ->
+    probabilities [B, T+1, 5], one row per block boundary."""
+    if not ops.on_cuda(trans_tm):
+        return crf_posterior_tm_plain(trans_tm)
+    check_trans_input(trans_tm)
+    T, B, _ = trans_tm.shape
+    post = torch.empty((B, T + 1, NS), dtype=torch.float32,
+                       device=trans_tm.device)
+    return _fwdbwd(trans_tm, None, post, 0, "crf_posterior")
+
+
+def check_partition_grad_input(trans_tm, g) -> None:
+    """Raise unless the forward-backward kernel takes these inputs for the
+    gradient: contiguous float32 trans [T, B, 25] and g [B]."""
+    check_trans_input(trans_tm)
+    ops.check_kernel_input("g", g, (trans_tm.shape[1],))
+
+
+def crf_partition_grad_tm(trans_tm, g):
+    """The gradient of the log partition function times the incoming one:
+    trans [T, B, 25], g [B] -> [T, B, 25], each block's edge marginals
+    times g (the VJP of crf_partition_tm)."""
+    if not ops.on_cuda(trans_tm, g):
+        return crf_partition_grad_tm_plain(trans_tm, g)
+    check_partition_grad_input(trans_tm, g)
+    grad = torch.empty_like(trans_tm)
+    return _fwdbwd(trans_tm, g, grad, 1, "crf_partition_grad")
+
+
+class CrfPartition(torch.autograd.Function):
+    """logZ [B] of time-major transitions [T, B, 25], differentiable: the
+    forward is crf_partition_tm (the partition kernel on the card), the
+    backward crf_partition_grad_tm (the forward-backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, trans_tm):
+        ctx.save_for_backward(trans_tm)
+        return crf_partition_tm(trans_tm)
+
+    @staticmethod
+    def backward(ctx, g):
+        (trans_tm,) = ctx.saved_tensors
+        return crf_partition_grad_tm(trans_tm, g.contiguous())
 
 
 def crf_viterbi_tm(trans_tm):

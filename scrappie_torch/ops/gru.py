@@ -1,13 +1,24 @@
 """GRU layer: the input projection, then the GRU recurrence.
 
 Counterpart of scrappie_tpu/ops/gru.py:gru_layer_fused_tm / gru_layer_tm
-and gru_tm_padded. On a CUDA tensor `gru_layer_tm` launches the projection
-kernel (ops/project.py) and then `gru_tm`'s recurrence kernel
-(csrc/gru.cu): weights in registers for S <= 96, the big-S mode (weights
-read from L2) above, each counted under its own name. On a CPU tensor
-`gru_layer_tm` runs `gru_layer_tm_plain`, the projection followed by the
-loop of nn/rnn.py, and `gru_tm` that loop, nn/rnn.gru_tm. There is no lane
-or batch padding: the output is [T, B, S].
+and gru_tm_padded. `gru_layer_tm` runs the projection and then the
+recurrence through their autograd Functions, `Project` and
+`GruRecurrence`. On a CUDA tensor their forwards launch the projection kernel (ops/project.py) and then
+`gru_tm`'s recurrence kernel (csrc/gru.cu): weights in registers for
+S <= 96, the big-S mode (weights read from L2) above, each counted under
+its own name. On a CPU tensor they run the plain twins, nn/layers.feedforward
+and the loop of nn/rnn.gru_tm, which is `gru_layer_tm_plain`. With grad
+off (torch.no_grad, torch.inference_mode) autograd records nothing and the
+launches are those of the forwards alone. There is no lane or batch
+padding: the output is [T, B, S].
+
+`GruRecurrence`'s backward is `gru_tm_backward`: the gates again from the
+saved h by two products over all steps (torch.matmul, as XLA computes them
+outside any kernel in the JAX package's VJP of nn/rnn.gru's scan), then
+the walk of dh back through time, which on the card is the kernel
+gru_recurrence_bwd_kernel (csrc/gru.cu, S <= REGISTER_MAX_S; counted as
+"gru_recurrence_bwd") and on the CPU its plain twin `gru_walk_plain`, then
+the weights' gradients by two more products.
 
 `gru_layer_fused_cuda` launches the first port's kernel, which projects
 inside its step loop; no path calls it.
@@ -22,7 +33,7 @@ import torch
 from scrappie_torch import ops
 from scrappie_torch.nn import rnn
 from scrappie_torch.nn.layers import feedforward
-from scrappie_torch.ops.project import check_project_input, project_tm
+from scrappie_torch.ops.project import Project, check_project_input
 
 #: The largest S whose recurrence keeps its weights in registers (REG_MAX_S
 #: in csrc/gru.cu); above it the big-S mode reads them from L2.
@@ -30,17 +41,17 @@ REGISTER_MAX_S = 96
 
 
 def gru_layer_tm_plain(x_tm, iW, b, sW, sW2, reverse: bool = False):
-    """Plain twin: x [T, B, C] -> h [T, B, S]."""
+    """Plain twin: x [T, B, C] -> h [T, B, S] (what gru_layer_tm computes on
+    a CPU tensor)."""
     return rnn.gru_tm(feedforward(x_tm, iW, b), sW, sW2, reverse)
 
 
 def gru_layer_tm(x_tm, iW, b, sW, sW2, reverse: bool = False):
     """One GRU layer on time-major features: x [T, B, C], iW [C, 3S],
     b [3S], sW [S, 2S], sW2 [S, S] -> h [T, B, S], h0 = 0."""
-    if not ops.on_cuda(x_tm, iW, b, sW, sW2):
-        return gru_layer_tm_plain(x_tm, iW, b, sW, sW2, reverse)
-    check_gru_layer_input(x_tm, iW, b, sW, sW2)
-    return gru_tm(project_tm(x_tm, iW, b), sW, sW2, reverse)
+    if ops.on_cuda(x_tm, iW, b, sW, sW2):
+        check_gru_layer_input(x_tm, iW, b, sW, sW2)
+    return GruRecurrence.apply(Project.apply(x_tm, iW, b), sW, sW2, reverse)
 
 
 def check_gru_layer_input(x_tm, iW, b, sW, sW2) -> None:
@@ -96,6 +107,121 @@ def gru_tm(x_tm, sW, sW2, reverse: bool = False):
         _build.check(err, name)
     ops.LAUNCHES[name] += 1
     return y
+
+
+def backward_inputs(x_tm, h, sW, sW2, reverse: bool = False):
+    """What the backward walk reads, from the forward's input x [T, B, 3S]
+    and output h [T, B, S]: (h_prev [T, B, S], h at the step before in the
+    forward's order and 0 at its first step; gates [T, B, 3S], z | r |
+    hbar), two products over every step and row."""
+    S = sW2.shape[0]
+    zero = h.new_zeros((1, *h.shape[1:]))
+    h_prev = (torch.cat([h[1:], zero]) if reverse
+              else torch.cat([zero, h[:-1]]))
+    zr = torch.sigmoid(x_tm[..., : 2 * S] + torch.matmul(h_prev, sW))
+    hbar = torch.tanh(x_tm[..., 2 * S :]
+                      + torch.matmul(zr[..., S:] * h_prev, sW2))
+    return h_prev, torch.cat([zr, hbar], dim=-1)
+
+
+def gru_walk_plain(gates, h_prev, gh, sW, sW2, reverse: bool = False):
+    """Plain twin of the backward walk kernel: gates [T, B, 3S] (z | r |
+    hbar), h_prev, gh [T, B, S] -> da [T, B, 3S] = (da_z | da_r | da_h),
+    the gradient of the pre-activations, carrying dh opposite to the
+    forward's direction (the step's formulas in csrc/gru.cu)."""
+    T, B, _ = gates.shape
+    S = sW2.shape[0]
+    da = gates.new_empty((T, B, 3 * S))
+    carry = gates.new_zeros((B, S))
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        z, r, hb = gates[t, :, :S], gates[t, :, S : 2 * S], gates[t, :, 2 * S :]
+        hp = h_prev[t]
+        dh = carry + gh[t]
+        az = dh * (hp - hb) * z * (1 - z)
+        ah = dh * (1 - z) * (1 - hb * hb)
+        drh = torch.matmul(ah, sW2.T)
+        ar = drh * hp * r * (1 - r)
+        da[t, :, :S], da[t, :, S : 2 * S], da[t, :, 2 * S :] = az, ar, ah
+        carry = dh * z + drh * r + torch.matmul(da[t, :, : 2 * S], sW.T)
+    return da
+
+
+def check_gru_walk_input(gates, h_prev, gh, sW, sW2) -> None:
+    """Raise unless the backward walk kernel takes these inputs: the
+    weights with S <= REGISTER_MAX_S and contiguous fp32 gates [T, B, 3S],
+    h_prev and gh [T, B, S]."""
+    check_gru_weights(sW, sW2)
+    T, B, _ = gates.shape
+    S = sW2.shape[0]
+    if S > REGISTER_MAX_S:
+        raise ValueError(f"the GRU's backward kernel keeps its weights in "
+                         f"registers, S <= {REGISTER_MAX_S}; got S = {S} "
+                         "(ROADMAP.md queue 1 item 10)")
+    ops.check_kernel_input("gates", gates, (T, B, 3 * S))
+    ops.check_kernel_input("h_prev", h_prev, (T, B, S))
+    ops.check_kernel_input("gh", gh, (T, B, S))
+
+
+def gru_walk(gates, h_prev, gh, sW, sW2, reverse: bool = False):
+    """The backward walk (gru_walk_plain's arguments and result): on the
+    card the kernel gru_recurrence_bwd_kernel, S <= REGISTER_MAX_S."""
+    if not ops.on_cuda(gates, h_prev, gh, sW, sW2):
+        return gru_walk_plain(gates, h_prev, gh, sW, sW2, reverse)
+    from scrappie_torch.ops import _build
+
+    check_gru_walk_input(gates, h_prev, gh, sW, sW2)
+    T, B, _ = gates.shape
+    S = sW2.shape[0]
+    da = torch.empty((T, B, 3 * S), dtype=torch.float32, device=gates.device)
+    if T == 0 or B == 0:
+        return da
+    with torch.cuda.device(gates.device):
+        err = _build.library().scrappie_gru_recurrence_bwd(
+            gates.data_ptr(), h_prev.data_ptr(), gh.data_ptr(), sW.data_ptr(),
+            sW2.data_ptr(), da.data_ptr(), T, B, S, int(reverse),
+            ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, "gru_recurrence_bwd")
+    ops.LAUNCHES["gru_recurrence_bwd"] += 1
+    return da
+
+
+def _weight_grads(da, h_prev, gates, S):
+    """(dsW, dsW2) from the walk's da: sum over steps and rows of
+    h_prev^T [da_z | da_r] and (r h_prev)^T da_h."""
+    hp = h_prev.reshape(-1, S)
+    rh = (gates[..., S : 2 * S] * h_prev).reshape(-1, S)
+    da2 = da.reshape(-1, 3 * S)
+    return (torch.matmul(hp.T, da2[:, : 2 * S]),
+            torch.matmul(rh.T, da2[:, 2 * S :]))
+
+
+def gru_tm_backward(x_tm, h, sW, sW2, gh, reverse: bool = False):
+    """The VJP of gru_tm: projected input x [T, B, 3S], its output h
+    [T, B, S], sW [S, 2S], sW2 [S, S], the output's gradient gh [T, B, S]
+    -> (dx [T, B, 3S], dsW [S, 2S], dsW2 [S, S]). The walk through time is
+    the kernel on the card, its twin on the CPU; the rest are products."""
+    h_prev, gates = backward_inputs(x_tm, h, sW, sW2, reverse)
+    da = gru_walk(gates, h_prev, gh, sW, sW2, reverse)
+    return (da, *_weight_grads(da, h_prev, gates, sW2.shape[0]))
+
+
+class GruRecurrence(torch.autograd.Function):
+    """gru_tm, differentiable: forward the recurrence (the kernel on the
+    card, nn/rnn.gru_tm on the CPU), backward gru_tm_backward."""
+
+    @staticmethod
+    def forward(ctx, x_tm, sW, sW2, reverse: bool):
+        h = gru_tm(x_tm, sW, sW2, reverse)
+        ctx.save_for_backward(x_tm, h, sW, sW2)
+        ctx.reverse = reverse
+        return h
+
+    @staticmethod
+    def backward(ctx, gh):
+        x_tm, h, sW, sW2 = ctx.saved_tensors
+        dx, dsW, dsW2 = gru_tm_backward(x_tm, h, sW, sW2, gh.contiguous(),
+                                        ctx.reverse)
+        return dx, dsW, dsW2, None
 
 
 def gru_layer_fused_cuda(x_tm, iW, b, sW, sW2, reverse: bool = False):

@@ -6,6 +6,9 @@ The TPU kernels compute this product in their own bodies
 (scrappie_tpu/ops/gru.py:_gru_fused_kernel, ops/lstm.py:_lstm_kernel), so
 on a CUDA tensor `project_tm` launches the hand-written tiled fp32 kernel of
 csrc/project.cu; on a CPU tensor it runs its plain twin, nn/layers.feedforward.
+`Project` makes it differentiable: its backward is three plain products
+(torch.matmul and a sum), as XLA computes this product's VJP outside any
+kernel in the JAX training step.
 """
 
 from __future__ import annotations
@@ -47,3 +50,21 @@ def project_tm(x_tm, W, b):
         _build.check(err, "project")
     ops.LAUNCHES["project"] += 1
     return out
+
+
+class Project(torch.autograd.Function):
+    """project_tm, differentiable: dx = g @ W^T, dW = x^T g and db = the
+    sum of g over every step and row."""
+
+    @staticmethod
+    def forward(ctx, x_tm, W, b):
+        ctx.save_for_backward(x_tm, W)
+        return project_tm(x_tm, W, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_tm, W = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = torch.matmul(g, W.T)
+        dW = torch.matmul(x_tm.reshape(-1, x_tm.shape[-1]).T, g2)
+        return dx, dW, g2.sum(0)

@@ -50,8 +50,8 @@ in the JAX engine: fast mode reads them from the fused paths' quality
 stream (ops/pipeline.quality_stream_tm), stitched like the paths; rnnrf
 has none there and warns. Stitch mode takes the host path for every model,
 since the qualities read the whole-read posterior: transducer_qualities
-for the transducers, crf_qualities of decode/crf.posterior_crf (a plain
-loop on the CPU) for rnnrf. An events read's qualities are dropped, with
+for the transducers, crf_qualities of decode/crf.posterior_crf (the
+forward-backward kernel on the engine's device) for rnnrf. An events read's qualities are dropped, with
 a warning, when the dwell correction changes its length.
 `qual_calibration="real"` recalibrates them with the measured fit of the
 model or of the ensemble configuration (post/quality.QUAL_RECAL).
@@ -670,7 +670,7 @@ class BasecallEngine:
                 # the emit bias calibrates the decode, not the model's
                 # reported confidence
                 with self.stage("posterior_crf"):
-                    states = posterior_crf(lp)
+                    states = posterior_crf(lp, device=self.device)
                 with self.stage("qualities"):
                     qual = self._recal(crf_qualities(states, path))
             elif with_qualities:

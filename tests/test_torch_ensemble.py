@@ -290,10 +290,12 @@ def test_cli_refuses_bad_ensembles_as_scrappie_tpu_does(tmp_path, flags):
 
 
 def _check_decode_layouts(monkeypatch) -> set:
-    """Put the head, forward and backtrace kernels' input checks in front
-    of their twins; returns the set of the names of the twins that ran."""
+    """Put the projection, GRU recurrence, head, forward and backtrace
+    kernels' input checks in front of their twins; returns the set of the names of the twins that ran."""
     from scrappie_torch import ops
+    from scrappie_torch.nn import rnn as trnn
     from scrappie_torch.ops import gru as tgru
+    from scrappie_torch.ops import project as tproject
 
     seen = set()
 
@@ -316,14 +318,14 @@ def _check_decode_layouts(monkeypatch) -> set:
     checked(tv, "viterbi_scores_tm_plain",
             lambda lp, *_: ops.check_kernel_input("lp", lp, tuple(lp.shape)))
     checked(tv, "viterbi_backtrace_tm_plain", check_backtrace)
-    checked(tgru, "gru_layer_tm_plain",
-            lambda x, iW, b, sW, sW2, *_: tgru.check_gru_layer_input(x, iW, b,
-                                                                     sW, sW2))
+    checked(tproject, "feedforward", tproject.check_project_input)
+    checked(trnn, "gru_tm",
+            lambda x, sW, sW2, *_: tgru.check_gru_recurrence_input(x, sW, sW2))
     return seen
 
 
 TWINS = {"head_logpost_tm_plain", "viterbi_scores_tm_plain",
-         "viterbi_backtrace_tm_plain", "gru_layer_tm_plain"}
+         "viterbi_backtrace_tm_plain", "feedforward", "gru_tm"}
 
 
 def test_engine_hands_the_ensemble_kernel_its_layout(monkeypatch):

@@ -7,10 +7,14 @@ corrections, the per-base qualities and their recalibration, event
 detection and features, FASTA reading and FASTA/SAM/FASTQ writing, fast5
 reading, the calibration presets, the ensemble validation,
 the weight loader, the API's base encoding and state-space guess, the
-DTW's penalties and the mapping's band check. Where
+DTW's penalties, the mapping's band check and the training simulator's
+kmer labels. Where
 scrappie_tpu runs native C++ (event detection, find_runs, the dwell
 overlapper), the port's numpy and Python code is held to that default
-path."""
+path. The training simulator (train/simulate.py) runs the port's squiggle
+network, which differs from JAX's by float noise: from the same seed its
+bases and labels must be equal and its signals within 1e-5 (seen 1.4e-6;
+no rounded dwell flipped with these seeds)."""
 
 import tempfile
 
@@ -34,6 +38,7 @@ from scrappie_torch.post import quality as tquality
 from scrappie_torch.signal import events as tevents
 from scrappie_torch.signal import features as tfeat
 from scrappie_torch.signal import trim as ttrim
+from scrappie_torch.train import simulate as tsim
 from scrappie_torch.utils import maths as tmaths
 from scrappie_tpu import api as japi
 from scrappie_tpu import types as jtypes
@@ -51,6 +56,8 @@ from scrappie_tpu.post import quality as jquality
 from scrappie_tpu.signal import events as jevents
 from scrappie_tpu.signal import features as jfeat
 from scrappie_tpu.signal import trim as jtrim
+from scrappie_tpu.train import realdata as jrealdata
+from scrappie_tpu.train import simulate as jsim
 from scrappie_tpu.utils import maths as jmaths
 
 
@@ -103,11 +110,11 @@ def both(fn):
     port = dict(types=ttypes, trim=ttrim, maths=tmaths, chunk=tchunk,
                 over=tover, hp=thp, events=tevents, feat=tfeat, fasta=tfasta,
                 fast5=tfast5, cal=tcal, reg=treg, api=tapi, dtw=tdtw,
-                mapping=tmapping, ens=tens, quality=tquality)
+                mapping=tmapping, ens=tens, quality=tquality, kmers=tsim)
     ref = dict(types=jtypes, trim=jtrim, maths=jmaths, chunk=jchunk,
                over=jover, hp=jhp, events=jevents, feat=jfeat, fasta=jfasta,
                fast5=jfast5, cal=jcal, reg=jreg, api=japi, dtw=jdtw,
-               mapping=jmapping, ens=jens, quality=jquality)
+               mapping=jmapping, ens=jens, quality=jquality, kmers=jrealdata)
     return fn(**port), fn(**ref)
 
 
@@ -331,6 +338,11 @@ def case_weights(reg, **_):
              "nanonet_events")]
 
 
+def case_rolling_kmers(kmers, **_):
+    bases = np.random.default_rng(11).integers(0, 4, size=300)
+    return [kmers._rolling_kmers(bases, k) for k in (1, 2, 5)]
+
+
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items()
          if name.startswith("case_")}
 
@@ -378,6 +390,31 @@ def test_port_copy_equals_original(name, tmp_path):
         case = CASES[name]
     port, ref = both(case)
     assert_equal(port, ref)
+
+
+SIM_CALLS = {
+    "simulate_read": lambda sim: sim.simulate_read(400),
+    "labelled_batch": lambda sim: sim.labelled_batch(3, 1000, 5),
+    "crf_labelled_batch": lambda sim: sim.crf_labelled_batch(3, 1000, 2),
+}
+
+
+@pytest.mark.parametrize("call", sorted(SIM_CALLS))
+def test_simulator_copy_equals_original(call):
+    """train/simulate.SquiggleSimulator (squiggle network on the CPU)
+    against scrappie_tpu's from the same seed, twice in a row (the random
+    stream must stay in step): integer outputs equal, float signals within
+    1e-5."""
+    port_sim = tsim.SquiggleSimulator(seed=12, device="cpu")
+    ref_sim = jsim.SquiggleSimulator(seed=12)
+    for _ in range(2):
+        port, ref = SIM_CALLS[call](port_sim), SIM_CALLS[call](ref_sim)
+        for a, b in zip(port, ref):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            if a.dtype.kind == "f":
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+            else:
+                np.testing.assert_array_equal(a, b)
 
 
 def test_missing_weights_raise():

@@ -211,6 +211,62 @@ def test_engine_rnnrf_stitch_qualities(reads):
     assert_same_calls(got, want)
 
 
+def test_posterior_crf_runs_on_the_named_device(monkeypatch):
+    """decode/crf.posterior_crf: numpy input goes to `device`; on the CPU it
+    equals scrappie_tpu's (absolute 1e-5, as tests/test_torch_crf.py); CUDA,
+    the default, raises where there is none (no fallback to the CPU); a
+    tensor stays on its own device."""
+    from scrappie_torch.decode import crf as tdec
+    from scrappie_tpu.decode import crf as jdec
+
+    tr = (2.0 * np.random.default_rng(13).standard_normal((2, 30, 25))
+          ).astype(np.float32)
+    want = np.asarray(jdec.posterior_crf(tr))
+    np.testing.assert_allclose(tdec.posterior_crf(tr, device="cpu"), want,
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tdec.posterior_crf(torch.tensor(tr)), want,
+                               rtol=0, atol=1e-5)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            tdec.posterior_crf(tr, device=device)
+
+
+def test_engine_and_api_pass_their_device_to_posterior_crf(reads, monkeypatch):
+    """The engine's rnnrf qualities and api.basecall_raw(with_base_probs)
+    run the forward-backward on their own device, through the wrapper whose
+    CUDA kernel takes contiguous float32 [T, B, 25]: the twin here checks
+    that input first."""
+    from scrappie_torch import api as tapi
+    from scrappie_torch.ops import crf as tc
+    from scrappie_torch.parallel import runner
+
+    devices, shapes = [], []
+    for module in (runner, tapi):
+        real = module.posterior_crf
+
+        def spy(trans, impl=None, device=None, _real=real):
+            devices.append(device)
+            return _real(trans, impl, device)
+        monkeypatch.setattr(module, "posterior_crf", spy)
+    twin = tc.crf_posterior_tm_plain
+
+    def checked(trans_tm):
+        tc.check_trans_input(trans_tm)
+        shapes.append(tuple(trans_tm.shape))
+        return twin(trans_tm)
+    monkeypatch.setattr(tc, "crf_posterior_tm_plain", checked)
+    engine = TEngine("rnnrf_r94", device="cpu", **GEOMETRY)
+    res = engine.basecall_signals([RawSignal(reads[0], uuid="r0")],
+                                  with_qualities=True)
+    assert res[0].qual is not None and len(res[0].qual) == len(res[0].sequence)
+    base_probs = tapi.basecall_raw(reads[1], "rnnrf_r94", with_base_probs=True,
+                                   device="cpu")[-1]
+    assert base_probs.shape[-1] == 5
+    assert [torch.device(d) for d in devices] == [torch.device("cpu")] * 2
+    assert len(shapes) == 2 and all(s[1:] == (1, 25) for s in shapes)
+
+
 def test_engine_rnnrf_fast_has_no_qualities(reads):
     """rnnrf has no fused quality stream: fast mode warns and calls without
     qualities, as the JAX engine does."""
