@@ -48,7 +48,8 @@ if any phase fails:
      recurrence's backward walk kernel against its twin, and the whole
      backward (gates, walk, weight products) against torch.autograd
      through nn/rnn.gru_tm, at T = 2000, S = 96, B = 8 and 64, both
-     directions, and times it (phase gru_backward_kernel);
+     directions, and at S = 40 and 7 (T = 300, B = 5, seeded weights)
+     against the twin, and times it (phase gru_backward_kernel);
   5. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
      16 seeded synthetic reads of 20k-100k samples in fast mode and in both
      stitch modes, checks that each kernel's launch counter rose and that
@@ -70,7 +71,11 @@ if any phase fails:
      the identity); the forward-backward kernel in both its modes (the
      state posterior; the partition's gradient, the edge marginals times a
      seeded g) at B = 1, 2, 5 and 64 on the same sets and T, within
-     FWDBWD_ATOL of its twins, rows and blocks summing to 1;
+     FWDBWD_ATOL of its twins, rows and blocks summing to 1, and at T =
+     5000 the batched posterior of reads of unequal lengths (1 and 7
+     blocks among them, padded as the engine pads them) in one launch and
+     in the engine's launches (parallel/runner.crf_groups), each read's
+     rows equal to its own call's bit for bit;
      times them at T = 5000, B = 8 and 64, and at T = 31 744, B = 2
      (phase crf_kernels);
  10. runs BasecallEngine("rnnrf_r94", device="cuda") in fast and stitch
@@ -142,7 +147,9 @@ if any phase fails:
      port's CPU run (run in TWIN_WORKERS host processes meanwhile) within
      utils/seqcompare.quals_agree; prints each run's seconds with and
      without qualities, its stages and launches (rnnrf's forward-backward,
-     stage "posterior_crf", must launch its kernel on the card);
+     stage "posterior_crf", must launch its kernels on the card once for
+     each launch that parallel/runner.crf_groups gives the engine call's
+     reads);
  21. trains rgrgr_r94, raw_r94 and rnnrf_r94 on the card (phase
      main_path_train): scrappie_torch.train.trainer.train(device="cuda")
      for 8 steps of 8 simulated reads of 4 000 samples from a seeded random
@@ -177,7 +184,8 @@ and power limit as nvidia-smi gives them, and {"ok": true, "device":
 
 With --ab it does none of that: it times the Viterbi forward and
 backtrace, the DTW, map_signal_to_squiggle, the CRF forward, partition
-function and backtrace, the rnnrf fused path, the seqmap DP and
+function, backtrace, posterior and partition gradient, the GRU
+recurrence, its backward walk and whole backward, the rnnrf fused path, the seqmap DP and
 map_post_to_sequence's four calls of another checkout of the repo (a `git archive`
 of the parent commit, say; its kernels are built there) and of this one
 on the same inputs, each in a fresh process, in turns other, this, this,
@@ -214,6 +222,7 @@ FWDBWD_BATCHES = (1, 2, 5, 64)
 # through the plain forward: float32 sums in another order over T steps,
 # relative to the largest |gradient| (seen 1.5e-7 on an H100).
 GRU_BWD_RTOL = 1e-5
+GRU_BWD_SMALL = ((300, 5, 40), (300, 5, 7))  # (T, B, S): tiles part past S
 NEUTRAL = -1e30          # a stitch pad block's moves into the emitting states
 # The CRF checks' shapes: rows that leave a warp's six-row groups part
 # filled and rows over several blocks; T below and off the prefetch depths,
@@ -223,6 +232,8 @@ CRF_BATCHES = (1, 2, 5, 7, 8, 33, 64, 256)
 CRF_STITCH = (31744, 2)  # (T, B)
 CRF_STEPS = (1, 7, T_CRF, CRF_STITCH[0])
 CRF_AB = ((T_CRF, 8), (T_CRF, 64), CRF_STITCH)  # the CRF shapes --ab times
+# the batched posterior's reads (blocks), rows of the T_CRF sets cut short
+CRF_BATCH_READS = (1, 7, 300, 2048, T_CRF - 1, T_CRF)
 EMIT_BIAS = -1.0
 T_EVENTS = 2048          # events in a chunk of the events engine
 LSTM_ATOL = 1e-4
@@ -311,6 +322,9 @@ KERNELS = {
     "gru_recurrence_bwd": ("scrappie_torch/csrc/gru.cu",
                            "scrappie_tpu/nn/rnn.py:40 (the VJP of gru's "
                            "lax.scan, which XLA differentiates; no TPU kernel)"),
+    # crf_posterior and crf_partition_grad count forward-backward calls,
+    # each of two kernels: crf_walk_kernel, then the marginal pass
+    # (crf_state_marginals_kernel or crf_edge_marginals_kernel)
     "crf_posterior": ("scrappie_torch/csrc/crf.cu",
                       "scrappie_tpu/decode/crf.py:134 (_crf_posterior, a "
                       "lax.scan; no TPU kernel)"),
@@ -557,11 +571,12 @@ def kernel_work(name: str, **d) -> dict:
     if name == "crf_partition":  # add, max, subtract, exp, sum; 5 logs
         return bound(4 * T * B * 25 + 4 * B, 5 * T * B * 25 + 5 * T * B)
     if name == "crf_posterior":  # two walks as the partition's, a softmax
-        return bound(4 * T * B * 25 + 4 * B * (T + 1) * 5,
-                     2 * (5 * T * B * 25 + 5 * T * B) + 4 * T * B * 5)
-    if name == "crf_partition_grad":  # two walks; add, lse, exp, mul an edge
-        return bound(4 * T * B * 25 * 2 + 4 * B,
-                     2 * (5 * T * B * 25 + 5 * T * B) + 9 * T * B * 25)
+        return bound(4 * T * B * 25 + 4 * B * (T + 1) * 5,  # add, sub, exp,
+                     2 * (5 * T * B * 25 + 5 * T * B)      # sum, div a state
+                     + 5 * B * (T + 1) * 5)
+    if name == "crf_partition_grad":  # two walks; 2 adds, max, sub, exp,
+        return bound(4 * T * B * 25 * 2 + 4 * B,  # sum, mul an edge
+                     2 * (5 * T * B * 25 + 5 * T * B) + 7 * T * B * 25)
     if name == "gru_recurrence_bwd":  # gates, h_prev, gh in; da out; 3S^2 MACs
         S = d["S"]
         return bound(4 * (T * B * 5 * S + 3 * S * S + T * B * 3 * S),
@@ -943,7 +958,8 @@ def check_gru_backward(net, B: int) -> dict:
     its twin and ops/gru.gru_tm_backward against torch.autograd through
     the plain forward (nn/rnn.gru_tm), both directions, on rgrgr_r94's
     first layer's projected conv features of B chunks (T_BLOCKS blocks,
-    S = 96) and a seeded output gradient; then the times of the walk
+    S = 96) and a seeded output gradient (at B = 8 also the walk against
+    its twin at GRU_BWD_SMALL's sizes); then the times of the walk
     kernel (median of 20), of its twin (median of 3) and of the whole
     backward (the gates' and weights' products with the walk)."""
     import numpy as np
@@ -966,6 +982,7 @@ def check_gru_backward(net, B: int) -> dict:
                              device="cuda")
     sW, sW2 = p["gruB1_sW"], p["gruB1_sW2"]
     errs = {"walk": 0.0, "autograd": 0.0}
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
     for reverse in (True, False):
         leaves = [t.clone().requires_grad_(True) for t in (xproj, sW, sW2)]
         h = rnn.gru_tm(*leaves, reverse)
@@ -978,16 +995,32 @@ def check_gru_backward(net, B: int) -> dict:
             full = g.gru_tm_backward(xproj, h, sW, sW2, gh, reverse)
             sync()
             require(bool(torch.isfinite(dk).all()), "gru_recurrence_bwd finite")
-            rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
             errs["walk"] = max(errs["walk"], rel(dk, dp))
             for got, leaf in zip(full, leaves):
                 errs["autograd"] = max(errs["autograd"], rel(got, leaf.grad))
+    if B == 8:  # and at the sizes of GRU_BWD_SMALL, on seeded weights
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
+        errs["small_S"] = 0.0
+        with torch.no_grad():
+            for T, Bs, S in GRU_BWD_SMALL:
+                xs = torch.randn((T, Bs, 3 * S), generator=gen, device="cuda")
+                ws = [0.3 * torch.randn(shape, generator=gen, device="cuda")
+                      for shape in ((S, 2 * S), (S, S))]
+                ghs = torch.randn((T, Bs, S), generator=gen, device="cuda")
+                for reverse in (True, False):
+                    hs = g.gru_tm(xs, *ws, reverse)
+                    hps, gs = g.backward_inputs(xs, hs, *ws, reverse)
+                    errs["small_S"] = max(errs["small_S"], rel(
+                        g.gru_walk(gs, hps, ghs, *ws, reverse),
+                        g.gru_walk_plain(gs, hps, ghs, *ws, reverse)))
     for what, err in errs.items():
         require(err <= GRU_BWD_RTOL,
                 f"gru_recurrence_bwd {what}: rel err {err} <= {GRU_BWD_RTOL}")
     with torch.no_grad():
         row = {"max_abs_err": float((dk - dp).abs().max()),
                "max_rel_err": errs["walk"], "autograd_max_rel_err": errs["autograd"],
+               **({"small_S": GRU_BWD_SMALL, "small_S_max_rel_err": errs["small_S"]}
+                  if "small_S" in errs else {}),
                **kernel_work("gru_recurrence_bwd", T=T_BLOCKS, B=B, S=96),
                "ms": cuda_ms(lambda: g.gru_walk(gates, h_prev, gh, sW, sW2, False)),
                "plain_ms": cuda_ms(lambda: g.gru_walk_plain(gates, h_prev, gh, sW,
@@ -1564,6 +1597,56 @@ def check_crf(sets: dict) -> dict:
     return errs
 
 
+def check_crf_batch(sets: dict) -> dict:
+    """parallel/runner's batched posterior, as the engine's rnnrf qualities
+    call it, on reads of CRF_BATCH_READS blocks (row i of the head set cut
+    to the i-th length) and one of the integer set (ties): all of them in
+    one launch (posterior_crf_padded) and in the engine's launches
+    (posterior_crf_batch, one a group of crf_groups), each read's rows
+    equal to its own posterior_crf call bit for bit both ways, and within
+    FWDBWD_ATOL of the twin run on the padded batch."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch import ops
+    from scrappie_torch.decode.crf import posterior_crf
+    from scrappie_torch.ops.crf import crf_posterior_tm_plain
+    from scrappie_torch.parallel.chunk import neutral_pad_crf
+    from scrappie_torch.parallel.runner import (crf_groups,
+                                                posterior_crf_batch,
+                                                posterior_crf_padded)
+
+    n = len(CRF_BATCH_READS)
+    head = sets["head"][:, :n].cpu().numpy()
+    ties = sets["integer transitions"][:, 0].cpu().numpy()
+    reads = ([head[:T, i] for i, T in enumerate(CRF_BATCH_READS)]
+             + [ties[: CRF_BATCH_READS[2]]])
+    groups = crf_groups([len(r) for r in reads])
+    out = {}
+    for label, fn, want in (("padded", posterior_crf_padded, 1),
+                            ("batch", posterior_crf_batch, len(groups))):
+        before = ops.LAUNCHES["crf_posterior"]
+        out[label] = fn(reads, device="cuda")
+        launched = ops.LAUNCHES["crf_posterior"] - before
+        require(launched == want,
+                f"{fn.__name__}: {want} launches ({launched})")
+    T = max(len(r) for r in reads)
+    twin = crf_posterior_tm_plain(torch.as_tensor(
+        np.stack([neutral_pad_crf(r, T) for r in reads], 1), device="cuda"))
+    err = 0.0
+    for i, (r, post, grouped) in enumerate(zip(reads, out["padded"],
+                                               out["batch"])):
+        require(post.shape == (len(r) + 1, 5), f"batched posterior {i} shape")
+        own = posterior_crf(r, device="cuda")
+        require(np.array_equal(post, own) and np.array_equal(grouped, own),
+                f"batched posterior of a {len(r)}-block read: its own call's")
+        err = max(err, float(np.abs(post - twin[i, : len(r) + 1].cpu().numpy()).max()))
+    require(err <= FWDBWD_ATOL, f"batched posterior max abs err {err} <= "
+                                f"{FWDBWD_ATOL}")
+    return {"batched_reads": [len(r) for r in reads], "batched_identical": True,
+            "batched_groups": groups, "batched_max_abs_err": err}
+
+
 def check_crf_maps(T: int, gen) -> list:
     """The CRF backtrace against its twin on tracebacks built by hand,
     [T, 5, max(CRF_BATCHES)], at every B of CRF_BATCHES (the kernel on the
@@ -1596,7 +1679,8 @@ def check_crf_kernels(rnet) -> dict:
     fewer repeats for the twins, launch-bound loops over T), and the
     kernels' alone at CRF_STITCH, whose twins are not timed (a loop of
     31 744 steps), with the SM clock read just after. Returns the B = 64
-    line's kernels, with the largest errors of the checks at T_CRF."""
+    line's kernels, with the largest errors of the checks at T_CRF; at
+    T_CRF also the batched posterior (check_crf_batch)."""
     import numpy as np
 
     from scrappie_torch.ops import crf as c
@@ -1615,6 +1699,7 @@ def check_crf_kernels(rnet) -> dict:
                                  for k in ("head before globalnorm", "head")]
         errs = check_crf(sets)
         maps = check_crf_maps(T, gen)
+        batched = check_crf_batch(sets) if T == T_CRF else {}
         emit({"phase": "crf_kernels", "checked_T": T, "B": list(CRF_BATCHES),
               "checked_on": list(sets), "backtrace_checked_on": maps,
               "identical": True,
@@ -1622,7 +1707,7 @@ def check_crf_kernels(rnet) -> dict:
               "fwdbwd_B": list(FWDBWD_BATCHES),
               "posterior_max_abs_err": errs["crf_posterior"],
               "partition_grad_max_abs_err_per_g": errs["crf_partition_grad"],
-              "seconds": round(time.perf_counter() - t0, 3)})
+              **batched, "seconds": round(time.perf_counter() - t0, 3)})
         if T == T_CRF:
             table = {name: {"max_abs_err": errs[name]}
                      for name in ("crf_fwd", "crf_backtrace", "crf_partition",
@@ -2706,10 +2791,11 @@ def check_qualities(card: str, reads: list, pool) -> dict:
     Prints each run's seconds with and without qualities, its stages
     (rnnrf's forward-backward is the stage "posterior_crf") and its
     launches (set to 0 just before the run with qualities, read just
-    after); rnnrf's must launch the forward-backward kernel. Returns the
-    launches of the runs, crf_posterior among them."""
+    after); rnnrf's must launch the forward-backward once for each launch
+    that parallel/runner.crf_groups gives the call's reads.
+    Returns the launches of the runs, crf_posterior among them."""
     from scrappie_torch import ops
-    from scrappie_torch.parallel.runner import BasecallEngine
+    from scrappie_torch.parallel.runner import BasecallEngine, crf_groups
     from scrappie_torch.post.quality import recalibrate_phred
     from scrappie_torch.utils.seqcompare import qual_diffs, quals_agree
     from scrappie_torch.utils.tracing import Stage
@@ -2738,8 +2824,12 @@ def check_qualities(card: str, reads: list, pool) -> dict:
         for name in BACKWARD_KERNELS:
             require(name not in launched, f"qualities {label}: no {name}")
         if model == "rnnrf_r94":
-            require(launched.get("crf_posterior", 0) > 0,
-                    f"qualities {label}: the forward-backward kernel launched")
+            want = len(crf_groups([r.nblock for r in res
+                                   if r.sequence is not None]))
+            require(launched.get("crf_posterior", 0) == want,
+                    f"qualities {label}: the forward-backward launched once "
+                    f"a group of crf_groups, {want} "
+                    f"({launched.get('crf_posterior', 0)})")
             launches["crf_posterior"] += launched["crf_posterior"]
         require(all(r.sequence and r.qual and len(r.qual) == len(r.sequence)
                     for r in res), f"qualities {label}: a code a base")
@@ -3142,10 +3232,15 @@ def time_checkout(checkout: pathlib.Path) -> None:
     the DTW's Viterbi DP and forward variant at MAP_BASES positions x
     MAP_SAMPLES samples (dtw_case; median of 3), and map_signal_to_squiggle
     on a read made as main_path_mapping makes it (host clock, median of 3
-    after one call), the CRF forward, partition function and backtrace
-    (on the checkout's own forward's traceback) at CRF_AB shapes on seeded
-    transitions (2 x standard normal; CUDA events, median of 10), the
-    rnnrf fused path, RnnrfModel.basecall_fused, at
+    after one call), the CRF forward, partition function, backtrace (on
+    the checkout's own forward's traceback), posterior and partition
+    gradient (g = 1) at CRF_AB shapes on seeded transitions (2 x standard
+    normal; CUDA events, median of 10), the GRU recurrence, its backward
+    walk and whole backward (ops/gru.gru_tm, gru_walk, gru_tm_backward:
+    T_BLOCKS blocks, S = 96,
+    B = 8 and 64, seeded input, weights 0.1 x standard normal and output
+    gradient, the gates from the checkout's own forward; median of 10),
+    the rnnrf fused path, RnnrfModel.basecall_fused, at
     B = 64 chunks of CHUNK samples (median of 5), the seqmap DP, Viterbi
     with its traceback (median of 10) and forward (median of 5), on the
     posterior and reference of seqmap_case, and the four MAP_CALLS of
@@ -3159,8 +3254,8 @@ def time_checkout(checkout: pathlib.Path) -> None:
     from scrappie_torch import api
     from scrappie_torch.decode.dtw import match_inputs
     from scrappie_torch.models.forward import RnnrfModel
-    from scrappie_torch.ops import _build, crf as c, dtw as d, seqmap as m
-    from scrappie_torch.ops import viterbi as v
+    from scrappie_torch.ops import _build, crf as c, dtw as d, gru as g
+    from scrappie_torch.ops import seqmap as m, viterbi as v
 
     require(pathlib.Path(scrappie_torch.__file__).resolve().is_relative_to(checkout),
             f"scrappie_torch imported from {checkout}")
@@ -3205,6 +3300,25 @@ def time_checkout(checkout: pathlib.Path) -> None:
             final, tb = c.crf_viterbi_scores_tm(trans)
             out[f"crf_backtrace_ms B = {B}, T = {T}"] = cuda_ms(
                 lambda: c.crf_backtrace_tm(final, tb), reps=10)
+            out[f"crf_posterior_ms B = {B}, T = {T}"] = cuda_ms(
+                lambda: c.crf_posterior_tm(trans), reps=10)
+            ones = torch.ones(B, device="cuda")
+            out[f"crf_partition_grad_ms B = {B}, T = {T}"] = cuda_ms(
+                lambda: c.crf_partition_grad_tm(trans, ones), reps=10)
+        S = 96
+        for B in (8, 64):
+            x = torch.randn((T_BLOCKS, B, 3 * S), generator=gen, device="cuda")
+            sW = 0.1 * torch.randn((S, 2 * S), generator=gen, device="cuda")
+            sW2 = 0.1 * torch.randn((S, S), generator=gen, device="cuda")
+            gh = torch.randn((T_BLOCKS, B, S), generator=gen, device="cuda")
+            h = g.gru_tm(x, sW, sW2, False)
+            out[f"gru_tm_ms B = {B}, T = {T_BLOCKS}"] = cuda_ms(
+                lambda: g.gru_tm(x, sW, sW2, False), reps=10)
+            h_prev, gates = g.backward_inputs(x, h, sW, sW2, False)
+            out[f"gru_walk_ms B = {B}, T = {T_BLOCKS}"] = cuda_ms(
+                lambda: g.gru_walk(gates, h_prev, gh, sW, sW2, False), reps=10)
+            out[f"gru_tm_backward_ms B = {B}, T = {T_BLOCKS}"] = cuda_ms(
+                lambda: g.gru_tm_backward(x, h, sW, sW2, gh, False), reps=10)
         rnet = RnnrfModel.from_registry("rnnrf_r94", "cuda")
         chunks = torch.as_tensor(
             rng.standard_normal((64, CHUNK, 1)).astype(np.float32), device="cuda")
@@ -3257,9 +3371,12 @@ def main() -> int:
     ap.add_argument("--ab", type=pathlib.Path, metavar="OTHER_CHECKOUT",
                     help="only time the Viterbi forward and backtrace, the "
                          "DTW, map_signal_to_squiggle, the CRF forward, "
-                         "partition function and backtrace, the rnnrf "
-                         "fused path, the seqmap DP and map_post_to_sequence "
-                         "of OTHER_CHECKOUT and of this checkout, in turns")
+                         "partition function, backtrace, posterior and "
+                         "partition gradient, the GRU recurrence, its "
+                         "backward walk and whole backward, the rnnrf fused "
+                         "path, the seqmap "
+                         "DP and map_post_to_sequence of OTHER_CHECKOUT and "
+                         "of this checkout, in turns")
     ap.add_argument("--times", type=pathlib.Path, help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if not torch.cuda.is_available():

@@ -10,8 +10,9 @@
 // crf_partition_tm, crf_partition_kernel), which globalnorm runs on every
 // rnnrf path; and, with none either, the lax.scan of
 // scrappie_tpu/decode/crf.py:_crf_posterior and the VJP XLA derives for
-// crf_partition_function's in the JAX trainer (crf_fwdbwd_kernel, wrappers
-// crf_posterior_tm and crf_partition_grad_tm; its note is beside it).
+// crf_partition_function's in the JAX trainer (crf_walk_kernel, then
+// crf_state_marginals_kernel or crf_edge_marginals_kernel; wrappers
+// crf_posterior_tm and crf_partition_grad_tm; the note is beside them).
 //
 // Five states {A, C, G, T, blank}; transitions trans[t, b, to*5 + from],
 // fp32, time-major [T, B, 25]. Scores start at 0. Per step t and state to:
@@ -106,16 +107,17 @@ struct RowLane {
   bool live;
 };
 
-__device__ __forceinline__ RowLane row_lane(int B) {
+__device__ __forceinline__ RowLane row_lane(int B, int group) {
   const int lane = threadIdx.x;
   const int r = lane / NS;
-  const int b = blockIdx.x * ROWS_PER_WARP + r;
+  const int b = group * ROWS_PER_WARP + r;
   return {lane - r * NS, r * NS, min(b, B - 1), r < ROWS_PER_WARP && b < B};
 }
 
+template <int kStride>
 __device__ __forceinline__ void load5(float (&v)[NS], const float* p) {
 #pragma unroll
-  for (int f = 0; f < NS; ++f) v[f] = __ldg(p + f);
+  for (int f = 0; f < NS; ++f) v[f] = __ldg(p + f * kStride);
 }
 
 // Every lane of the row gets the row's five new scores.
@@ -126,49 +128,72 @@ __device__ __forceinline__ void trade(float (&prev)[NS], float mine,
 }
 
 // logsumexp of five values, as jax.nn.logsumexp and torch.logsumexp take
-// it: a maximum that is not finite is replaced by 0.
-__device__ __forceinline__ float lse5(const float (&x)[NS]) {
-  float m = fmaxf(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])), x[4]);
+// it, in two parts: m, the maximum (0 where it is not finite), and the
+// returned log(sum_f exp(x_f - m)).
+__device__ __forceinline__ float log_sum_shifted(const float (&x)[NS], float& m) {
+  m = fmaxf(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])), x[4]);
   if (!isfinite(m)) m = 0.0f;
   float e[NS];
 #pragma unroll
   for (int f = 0; f < NS; ++f) e[f] = expf(__fsub_rn(x[f], m));
   const float s = __fadd_rn(__fadd_rn(__fadd_rn(e[0], e[1]),
                                       __fadd_rn(e[2], e[3])), e[4]);
-  return __fadd_rn(logf(s), m);
+  return logf(s);
 }
 
-// The step loop both kernels share: Step(tr, prev, t, real) -> this
-// lane's new score, from its five transitions tr[from] = trans[t, b,
-// to*5 + from]. The loop runs T rounded up to DEPTH steps, so that every
+__device__ __forceinline__ float lse5(const float (&x)[NS]) {
+  float m;
+  const float l = log_sum_shifted(x, m);
+  return __fadd_rn(l, m);
+}
+
+// lse5(x) - k, with k taken from m before the log is added (m - k does not
+// wait for the exponentials).
+__device__ __forceinline__ float lse5_less(const float (&x)[NS], float k) {
+  float m;
+  const float l = log_sum_shifted(x, m);
+  return __fadd_rn(l, __fsub_rn(m, k));
+}
+
+// The step loop the forward, partition and walk kernels share: Step(tr,
+// prev, n, real) -> this lane's new score. Forward (kBack false), step n
+// reads block t = n and lane `to` its five transitions tr[from] =
+// trans[t, b, to*5 + from] (20 contiguous bytes); back, step n reads
+// block t = T-1-n and lane `from` tr[to] = trans[t, b, to*5 + from]
+// (stride 5). The loop runs T rounded up to DEPTH steps, so that every
 // load is issued unconditionally (a guarded load made each step wait for
 // it); a step past T (real = false) takes the identity transitions (-0
-// from `to` itself, -inf from the others), which leave both recurrences'
-// scores unchanged bit for bit.
-template <class Step>
+// from the lane's own state, -inf from the others), which leave the
+// forward's and the partition's scores unchanged bit for bit.
+template <bool kBack, class Step>
 __device__ __forceinline__ void run_steps(const float* __restrict__ trans,
                                           int T, int B, const RowLane& l,
                                           float (&prev)[NS], Step step) {
   if (T == 0) return;
+  constexpr int kStride = kBack ? NS : 1;
   const size_t stride = (size_t)B * NTR;
-  const float* src = trans + (size_t)l.b * NTR + l.to * NS;
+  const float* src = trans + (size_t)l.b * NTR + l.to * (NS / kStride);
   const int last = T - 1;
+  auto block = [&](int n) -> size_t {
+    const int c = min(n, last);
+    return kBack ? last - c : c;
+  };
   float ring[DEPTH][NS];
 #pragma unroll
   for (int u = 0; u < DEPTH; ++u)
-    load5(ring[u], src + (size_t)min(u, last) * stride);
+    load5<kStride>(ring[u], src + block(u) * stride);
   const float minus_inf = __int_as_float(0xff800000);
-  for (int t0 = 0; t0 < T; t0 += DEPTH) {
+  for (int n0 = 0; n0 < T; n0 += DEPTH) {
 #pragma unroll
     for (int u = 0; u < DEPTH; ++u) {
-      const int t = t0 + u;
-      const bool real = t < T;
+      const int n = n0 + u;
+      const bool real = n < T;
       float tr[NS];
 #pragma unroll
       for (int f = 0; f < NS; ++f)
         tr[f] = real ? ring[u][f] : (f == l.to ? -0.0f : minus_inf);
-      load5(ring[u], src + (size_t)min(t + DEPTH, last) * stride);
-      trade(prev, step(tr, prev, t, real), l.first);
+      load5<kStride>(ring[u], src + block(n + DEPTH) * stride);
+      trade(prev, step(tr, prev, n, real), l.first);
     }
   }
 }
@@ -177,11 +202,11 @@ __device__ __forceinline__ void run_steps(const float* __restrict__ trans,
 __global__ void __launch_bounds__(WARP)
 crf_fwd_kernel(const float* __restrict__ trans, float* __restrict__ final_,
                signed char* __restrict__ tb, int T, int B) {
-  const RowLane l = row_lane(B);
+  const RowLane l = row_lane(B, blockIdx.x);
   signed char* out = tb + (size_t)l.to * B + l.b;
   const size_t out_stride = (size_t)NS * B;
   float prev[NS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  run_steps(
+  run_steps<false>(
       trans, T, B, l, prev,
       [&](const float (&tr)[NS], const float (&p)[NS], int t, bool real) {
         float c[NS];
@@ -205,9 +230,9 @@ crf_fwd_kernel(const float* __restrict__ trans, float* __restrict__ final_,
 __global__ void __launch_bounds__(WARP)
 crf_partition_kernel(const float* __restrict__ trans, float* __restrict__ logz,
                      int T, int B) {
-  const RowLane l = row_lane(B);
+  const RowLane l = row_lane(B, blockIdx.x);
   float prev[NS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  run_steps(
+  run_steps<false>(
       trans, T, B, l, prev,
       [](const float (&tr)[NS], const float (&p)[NS], int, bool) {
         float x[NS];
@@ -218,10 +243,10 @@ crf_partition_kernel(const float* __restrict__ trans, float* __restrict__ logz,
   if (l.live && l.to == 0) logz[l.b] = lse5(prev);
 }
 
-// The forward-backward (crf_fwdbwd_kernel): the partition's forward walk,
-// storing each boundary's scores, then the walk back. Both walks keep their
-// scores less their maximum over the five states, a_t = alpha_t - max
-// alpha_t and b_t = beta_t - max beta_t, with alpha_0 = beta_T = 0,
+// The forward-backward (wrappers crf_posterior_tm, crf_partition_grad_tm):
+// two walks and a marginal pass. The walks keep their scores less their
+// maximum over the five states, a_t = alpha_t - max alpha_t and b_t =
+// beta_t - max beta_t, with alpha_0 = beta_T = 0,
 //   alpha_{t+1}[to] = lse_from(trans[t, to, from] + a_t[from]),
 //   beta_t[from]    = lse_to(trans[t, to, from] + b_{t+1}[to]);
 // a marginal is a softmax in which each step's offsets cancel, so it is
@@ -235,112 +260,132 @@ crf_partition_kernel(const float* __restrict__ trans, float* __restrict__ logz,
 // head with the repository's weights), and exp(alpha + trans + beta -
 // logZ) keeps only their float32 precision: the gradient was off by 1e-3
 // relative there. The normalised scores stay within the transitions' range.
-// Five lanes a row as above: lane s is state `to` = s on the way forward
-// and `from` = s on the way back, so a lane reads back only the scores it
-// stored itself (a [T+1, B, 5] in global memory, 20 bytes a row and step:
-// 10 MB at T = 2000, B = 64; checkpoints would trade that for a second
-// forward walk). The walk back loads a lane's five transitions out of
-// column `from` (stride 5 floats, inside the row's 100 bytes) and its a_t
-// DEPTH steps ahead into a register ring; a step is one lse5, five
-// shuffles and the max, then two lse5, five shuffles, five expf and five
-// stores (mode 1) or five shuffles, five expf and one store (mode 0).
+//
+// What bounded the kernel this design replaced (one warp walked a row's T
+// steps forward, then T steps back with the marginal's softmax, or its
+// gradient's two lse5, in the walk back's instruction stream): about 1 400
+// cycles a block at T = 5000 and 31 744 (H100), where the partition's
+// step takes 276-330. Design: alpha depends only on the walk forward and
+// beta only on the walk back, so crf_walk_kernel runs both at once, in
+// twice the partition's grid (block i < nw walks row group i forward,
+// block nw + i walks it back), the serial length T instead of 2T. Each is
+// the partition's step on five lanes a row (lane s is state `to` = s
+// forward, `from` = s back, whose five transitions are a stride-5 column
+// of the row's 100 bytes): one lse5 and five shuffles, the carried
+// c_{t+1} = lse(trans + c_t) - max c_t, its subtraction folded into the
+// lse5's last addition so the max does not wait on the chain; c_t differs
+// from alpha_t (beta_t) by a constant, and the lane stores its entry less
+// the max, off the chain, into scores [T+1, B, 5] (mode 1) or [B, T+1, 5]
+// (mode 0, the posterior's own layout). A stitch pad block (moves into
+// blank only, at cost 0) turns five equal scores into five equal scores,
+// so the walk back reaches a padded row's last real boundary with c = 0
+// exactly, as an unpadded row starts: each row of a padded batch equals
+// its own call bit for bit. The marginals are then a pass parallel over
+// (t, b), bound by bandwidth: one max, five (mode 0) or 25 (mode 1) expf
+// and one division a thread. Measured on an H100 at 1980 MHz (chip_smoke.py,
+// phase crf_kernels): 314 cycles a block at T = 31 744, B = 2 and 383 at
+// T = 5000, B = 64 (the posterior, its marginal pass included), against
+// the partition's 271 and 331.
 __device__ __forceinline__ float max5(const float (&v)[NS]) {
   return fmaxf(fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3])), v[4]);
 }
 
-__global__ void __launch_bounds__(WARP)
-crf_fwdbwd_kernel(const float* __restrict__ trans, const float* __restrict__ g,
-                  float* __restrict__ score, float* __restrict__ out, int T,
-                  int B, int mode) {
-  const RowLane l = row_lane(B);
-  const int s = l.to;
-  const size_t sstride = (size_t)B * NS;
-  float* mine = score + (size_t)l.b * NS + s;  // a_t[s] at t * sstride
-  float prev[NS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  run_steps(
-      trans, T, B, l, prev,
-      [&](const float (&tr)[NS], const float (&p)[NS], int t, bool real) {
-        const float m = max5(p);
+template <bool kBack>
+__device__ __forceinline__ void walk(const float* __restrict__ trans,
+                                     float* __restrict__ score, int T, int B,
+                                     size_t ts, size_t bs, const RowLane& l) {
+  float* mine = score + (size_t)l.b * bs + l.to;  // boundary u at + u * ts
+  float c[NS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  run_steps<kBack>(
+      trans, T, B, l, c,
+      [&](const float (&tr)[NS], const float (&p)[NS], int n, bool real) {
+        const float mc = max5(p);
+        if (l.live && real)
+          mine[(size_t)(kBack ? T - n : n) * ts] = __fsub_rn(p[l.to], mc);
         float x[NS];
 #pragma unroll
-        for (int f = 0; f < NS; ++f) x[f] = __fadd_rn(tr[f], __fsub_rn(p[f], m));
-        if (l.live && real) mine[(size_t)t * sstride] = __fsub_rn(p[s], m);
-        return lse5(x);
+        for (int f = 0; f < NS; ++f) x[f] = __fadd_rn(tr[f], p[f]);
+        return lse5_less(x, mc);
       });
-  const float mT = max5(prev);
-  if (l.live) mine[(size_t)T * sstride] = __fsub_rn(prev[s], mT);
-  const float gb = mode == 1 ? g[l.b] : 0.0f;
-  // softmax over the five states of v (every lane holds all five), as
-  // jax.nn.softmax: exp(v - max) / sum; this lane's entry.
-  auto post_entry = [&](const float (&v)[NS]) {
-    const float m = max5(v);
-    float e[NS];
-#pragma unroll
-    for (int f = 0; f < NS; ++f) e[f] = expf(__fsub_rn(v[f], m));
-    const float sum = __fadd_rn(__fadd_rn(__fadd_rn(e[0], e[1]),
-                                          __fadd_rn(e[2], e[3])), e[4]);
-    return __fdiv_rn(e[s], sum);
-  };
-  float* post = out + (size_t)l.b * (T + 1) * NS + s;  // mode 0, at t * NS
-  if (mode == 0 && l.live) {
-    float v[NS];
-#pragma unroll
-    for (int f = 0; f < NS; ++f) v[f] = __fsub_rn(prev[f], mT);
-    post[(size_t)T * NS] = post_entry(v);
+  if (l.live) mine[(size_t)(kBack ? 0 : T) * ts] = __fsub_rn(c[l.to], max5(c));
+}
+
+// trans [T, B, 25] -> a, b at boundary t and row r at (t ts + r bs) * 5.
+__global__ void __launch_bounds__(WARP)
+crf_walk_kernel(const float* __restrict__ trans, float* __restrict__ a,
+                float* __restrict__ b, int T, int B, int ts, int bs) {
+  const int nw = gridDim.x / 2;
+  if (blockIdx.x < nw) {
+    walk<false>(trans, a, T, B, (size_t)ts * NS, (size_t)bs * NS,
+                row_lane(B, blockIdx.x));
+  } else {
+    walk<true>(trans, b, T, B, (size_t)ts * NS, (size_t)bs * NS,
+               row_lane(B, blockIdx.x - nw));
   }
-  if (T == 0) return;
-  // The walk back, step n at t = T-1-n; nxt = b_{t+1}, all five.
-  float nxt[NS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  const size_t stride = (size_t)B * NTR;
-  const float* col = trans + (size_t)l.b * NTR + s;  // + to * NS
-  float ring[DEPTH][NS];
-  float aring[DEPTH];
-  auto fetch = [&](int u, int n) {
-    const size_t t = max(T - 1 - n, 0);
+}
+
+constexpr int MARGINAL_THREADS = 256;
+
+// Mode 0: a, b, post [n, 5] (n = B (T+1) entries, the posterior's layout);
+// post = softmax(a + b) over the five states, as jax.nn.softmax.
+__global__ void __launch_bounds__(MARGINAL_THREADS)
+crf_state_marginals_kernel(const float* __restrict__ a,
+                           const float* __restrict__ b,
+                           float* __restrict__ post, int n) {
+  const int i = blockIdx.x * MARGINAL_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const size_t o = (size_t)i * NS;
+  float v[NS];
 #pragma unroll
-    for (int to = 0; to < NS; ++to) ring[u][to] = __ldg(col + t * stride + to * NS);
-    aring[u] = mine[t * sstride];  // stored above by this lane
-  };
+  for (int s = 0; s < NS; ++s) v[s] = __fadd_rn(a[o + s], b[o + s]);
+  const float m = max5(v);
 #pragma unroll
-  for (int u = 0; u < DEPTH; ++u) fetch(u, u);
-  float* grad = out + (size_t)l.b * NTR + s;  // mode 1, + t * stride + to * NS
-  for (int n0 = 0; n0 < T; n0 += DEPTH) {
+  for (int s = 0; s < NS; ++s) v[s] = expf(__fsub_rn(v[s], m));
+  const float sum = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]),
+                                        __fadd_rn(v[2], v[3])), v[4]);
 #pragma unroll
-    for (int u = 0; u < DEPTH; ++u) {
-      const int n = n0 + u;
-      if (n >= T) break;  // uniform across the warp
-      const int t = T - 1 - n;
-      float x[NS];
+  for (int s = 0; s < NS; ++s) post[o + s] = __fdiv_rn(v[s], sum);
+}
+
+// Mode 1: trans, grad [T, B, 25], a, b [T+1, B, 5], g [B]; a thread a
+// block and row (entry i = t B + row): grad = softmax over the 25 of
+// a_t[from] + (trans + b_{t+1}[to]), times g.
+__global__ void __launch_bounds__(MARGINAL_THREADS)
+crf_edge_marginals_kernel(const float* __restrict__ trans,
+                          const float* __restrict__ a,
+                          const float* __restrict__ b,
+                          const float* __restrict__ g,
+                          float* __restrict__ grad, int n, int B) {
+  const int i = blockIdx.x * MARGINAL_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const float* tr = trans + (size_t)i * NTR;
+  float at[NS], bt[NS];
 #pragma unroll
-      for (int to = 0; to < NS; ++to) x[to] = __fadd_rn(ring[u][to], nxt[to]);
-      const float a = aring[u];
-      fetch(u, n + DEPTH);
-      float w[NS];
-      trade(w, lse5(x), l.first);
-      if (mode == 1) {
-        float v[NS];
+  for (int s = 0; s < NS; ++s) {
+    at[s] = a[(size_t)i * NS + s];
+    bt[s] = b[((size_t)i + B) * NS + s];
+  }
+  float v[NTR];
+  float m = __int_as_float(0xff800000);
 #pragma unroll
-        for (int to = 0; to < NS; ++to) v[to] = __fadd_rn(a, x[to]);
-        float part[NS];
-        trade(part, lse5(v), l.first);  // each lane's lse over `to`
-        const float total = lse5(part);
-        if (l.live) {
+  for (int to = 0; to < NS; ++to) {
 #pragma unroll
-          for (int to = 0; to < NS; ++to)
-            grad[(size_t)t * stride + to * NS] =
-                __fmul_rn(expf(__fsub_rn(v[to], total)), gb);
-        }
-      }
-      const float m = max5(w);
-#pragma unroll
-      for (int f = 0; f < NS; ++f) nxt[f] = __fsub_rn(w[f], m);
-      if (mode == 0) {
-        float v[NS];
-        trade(v, __fadd_rn(a, nxt[s]), l.first);
-        if (l.live) post[(size_t)t * NS] = post_entry(v);
-      }
+    for (int from = 0; from < NS; ++from) {
+      const int k = to * NS + from;
+      v[k] = __fadd_rn(at[from], __fadd_rn(__ldg(tr + k), bt[to]));
+      m = fmaxf(m, v[k]);
     }
   }
+  float sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NTR; ++k) {
+    v[k] = expf(__fsub_rn(v[k], m));
+    sum = __fadd_rn(sum, v[k]);
+  }
+  const float scale = __fdiv_rn(g[i % B], sum);
+  float* out = grad + (size_t)i * NTR;
+#pragma unroll
+  for (int k = 0; k < NTR; ++k) out[k] = __fmul_rn(v[k], scale);
 }
 
 // The backtrace composes maps of the five states. A map m: {0..4} ->
@@ -484,14 +529,29 @@ int scrappie_crf_partition(const float* trans, float* logz, int T, int B,
   return (int)cudaGetLastError();
 }
 
-// trans [T, B, 25], score scratch [T+1, B, 5]; mode 0: out = post
-// [B, T+1, 5] (g unused); mode 1: g [B], out = grad [T, B, 25].
-int scrappie_crf_fwdbwd(const float* trans, const float* g, float* score,
-                        float* out, int T, int B, int mode,
+// trans [T, B, 25], scratch a and b [T+1, B, 5] floats each; mode 0: out
+// = post [B, T+1, 5] (g unused); mode 1: g [B], out = grad [T, B, 25].
+// The walks, then the marginal pass, on `stream`.
+int scrappie_crf_fwdbwd(const float* trans, const float* g, float* a,
+                        float* b, float* out, int T, int B, int mode,
                         cudaStream_t stream) {
   if (B == 0) return (int)cudaSuccess;
-  crf_fwdbwd_kernel<<<row_warps(B), WARP, 0, stream>>>(trans, g, score, out,
-                                                       T, B, mode);
+  // strides of boundary and row, in entries of five floats
+  const int ts = mode == 0 ? 1 : B;
+  const int bs = mode == 0 ? T + 1 : 1;
+  crf_walk_kernel<<<2 * row_warps(B), WARP, 0, stream>>>(trans, a, b, T, B,
+                                                         ts, bs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = mode == 0 ? B * (T + 1) : B * T;
+  if (n == 0) return (int)cudaSuccess;
+  const int grid = (n + MARGINAL_THREADS - 1) / MARGINAL_THREADS;
+  if (mode == 0)
+    crf_state_marginals_kernel<<<grid, MARGINAL_THREADS, 0, stream>>>(a, b,
+                                                                      out, n);
+  else
+    crf_edge_marginals_kernel<<<grid, MARGINAL_THREADS, 0, stream>>>(
+        trans, a, b, g, out, n, B);
   return (int)cudaGetLastError();
 }
 

@@ -113,9 +113,13 @@ __device__ __forceinline__ float lane_dot_global(const float* vec,
   return __fadd_rn(a0, a1);
 }
 
+// The copy and the wait are compiler barriers for memory ("memory"
+// clobber), so that no read of a ring slot moves across the wait and no copy
+// into a slot moves above the reads of its old values.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -124,7 +128,7 @@ __device__ __forceinline__ void cp_async_commit() {
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // x [T, B, 3S] projected, sW [S, 2S], sW2 [S, S] -> y [T, B, S].
@@ -277,23 +281,87 @@ gru_recurrence_kernel(const float* __restrict__ x, const float* __restrict__ sW,
 // direction; per step, for one batch row:
 //
 //   dh   = carry + gh[t]
-//   da_z = dh * (h_prev - hbar) * z * (1 - z)
-//   da_h = dh * (1 - z) * (1 - hbar^2)
+//   da_z = dh * c_z,  c_z = (h_prev - hbar) * z * (1 - z)
+//   da_h = dh * c_h,  c_h = (1 - z) * (1 - hbar^2)
 //   drh  = da_h @ sW2^T                         (d(r * h_prev))
-//   da_r = drh * h_prev * r * (1 - r)
-//   carry = dh * z + drh * r + [da_z | da_r] @ sW^T
+//   da_r = drh * c_r, c_r = h_prev * r * (1 - r)
+//   carry = dh * z + drh * r + da_z @ sW_z^T + da_r @ sW_r^T
 //
-// Design, as the forward's: one block a row, 2S threads, the transposed
-// weights in registers. Output k has two lanes: lane l holds sW2[k, 48 l ..
-// 48 l + 48) (drh) and sW[k, l S .. l S + 96), the z (l = 0) or r (l = 1)
-// columns (the carry's product), 144 weights a thread as in the forward.
-// Lane 0 keeps the carry and does the gates' arithmetic; da_h, then da_z
-// and da_r, go through shared memory (double-buffered by step parity, so
-// two barriers a step). The step's five inputs are loaded RING steps
-// ahead into registers (unconditional loads, clamped at the ends). What
-// bounds it: as the forward, two dependent matrix-vector products a step.
-template <int kL>
-__global__ void __launch_bounds__(kL * REG_MAX_S)
+// (sW = [sW_z | sW_r]); c_z, c_h and c_r do not depend on the carry.
+//
+// What bounded the walk this design replaced (2S threads, a thread an output and
+// row half: a row half of sW2 and the whole z or r row of sW, the gates'
+// arithmetic on the carried chain, five plain loads RING steps ahead and
+// three plain stores a step), by timing probes that leave one part out
+// (PERF.md section 6): its global memory
+// accesses first, then the products' shared-memory reads. bar.sync waits
+// until each thread's earlier memory accesses are performed (PTX ISA), so
+// a load issued before a barrier is waited for there however many steps
+// ahead it was issued; a cp.async copy is not. Design: the step's five
+// inputs are copied by cp.async into a ring in shared memory RING steps
+// ahead, each thread its own column, and a thread waits only for its own
+// copies (cp.async.wait_group). Each thread holds a 4 x 12 tile (4
+// outputs k, 12 rows j) of each of the three matrices, 144 weights in
+// registers as before, so it reads only its 12 rows of each vector (three
+// float4 a matrix, 8 distinct float4 a warp instruction, conflict-free): a
+// quarter of the bytes. The 8 row groups of an output group are lanes of
+// one warp; their partial sums are reduced by a reduce-scatter of shuffles
+// (4 a matrix: xor 4 on pairs of outputs, xor 2, xor 1), after which lanes
+// q and q^1 of the group both hold the whole sum of output k = 4 (tid / 8)
+// + (q >> 1). The products that need only dh (da_h @ sW2^T and da_z @
+// sW_z^T) run together before the second barrier, leaving after it only
+// da_r @ sW_r^T, and the gates' factors c_z, c_h, c_r are taken off the
+// chain, which is dh -> one multiply -> shared memory -> barrier -> two
+// products -> one multiply -> barrier -> one product -> the carry. Two
+// barriers a step remain: every output needs every output of the step's
+// previous product. The stores of da stay plain stores (the lane pair
+// splits them: one writes da_h and s_ah, the other da_z and s_az; then
+// s_ar and da_r). They cost about a fifth of the step (1.19 against 0.96
+// ms at T = 2000, B = 64 without them, on an H100), but every other way
+// the probes tried was no faster: after the barriers, as float4 rows from
+// shared memory, staged and written by bulk copies a step or 8 steps at a
+// time, or with L2-only or streaming cache hints. 192 threads for any
+// S <= 96 (tiles past S hold zeros).
+constexpr int BW_OUT = 4;                       // outputs a thread
+constexpr int BW_ROWS = 12;                     // rows of each matrix a thread
+constexpr int BW_GROUP = REG_MAX_S / BW_ROWS;   // lanes of an output group
+constexpr int BW_THREADS = REG_MAX_S / BW_OUT * BW_GROUP;
+static_assert(BW_GROUP == 8, "the reduce-scatter's xor 4, 2, 1");
+
+// The 4 outputs' partial sums of the 8 lanes of a group -> the whole sum of
+// output q >> 1 (q the lane in the group), in lanes q and q^1 alike.
+__device__ __forceinline__ float reduce_scatter(const float (&p)[BW_OUT],
+                                                int q) {
+  const bool hi = q & 4;
+  const float s0 = __fadd_rn(hi ? p[2] : p[0],
+                             __shfl_xor_sync(FULL, hi ? p[0] : p[2], 4));
+  const float s1 = __fadd_rn(hi ? p[3] : p[1],
+                             __shfl_xor_sync(FULL, hi ? p[1] : p[3], 4));
+  const bool mid = q & 2;
+  const float t = __fadd_rn(mid ? s1 : s0,
+                            __shfl_xor_sync(FULL, mid ? s0 : s1, 2));
+  return __fadd_rn(t, __shfl_xor_sync(FULL, t, 1));
+}
+
+// p[i] += sum over the thread's 12 rows of vec[j] * w[i][j], vec in shared
+// memory (16-byte aligned), one FMA chain an output.
+__device__ __forceinline__ void tile_dot(float (&p)[BW_OUT], const float* vec,
+                                         const float (&w)[BW_OUT][BW_ROWS]) {
+  const float4* v4 = reinterpret_cast<const float4*>(vec);
+#pragma unroll
+  for (int c = 0; c < BW_ROWS / 4; ++c) {
+    const float4 v = v4[c];
+#pragma unroll
+    for (int i = 0; i < BW_OUT; ++i) {
+      p[i] = fmaf(v.x, w[i][4 * c], p[i]);
+      p[i] = fmaf(v.y, w[i][4 * c + 1], p[i]);
+      p[i] = fmaf(v.z, w[i][4 * c + 2], p[i]);
+      p[i] = fmaf(v.w, w[i][4 * c + 3], p[i]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BW_THREADS)
 gru_recurrence_bwd_kernel(const float* __restrict__ gates,
                           const float* __restrict__ h_prev,
                           const float* __restrict__ gh,
@@ -301,79 +369,97 @@ gru_recurrence_bwd_kernel(const float* __restrict__ gates,
                           const float* __restrict__ sW2,
                           float* __restrict__ da, int T, int B, int S,
                           int reverse) {
-  constexpr int kRows2 = REG_MAX_S / kL;  // columns of sW2 a lane holds
-  __shared__ __align__(16) float s_ah[2][REG_MAX_S];        // da_h
-  __shared__ __align__(16) float s_zr[2][2 * REG_MAX_S];    // da_z | da_r
+  __shared__ __align__(16) float s_az[REG_MAX_S];
+  __shared__ __align__(16) float s_ah[REG_MAX_S];
+  __shared__ __align__(16) float s_ar[REG_MAX_S];
+  __shared__ float s_in[RING][5][BW_THREADS];  // the inputs' ring
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int l = tid % kL;
-  const int k = tid / kL;
-  const bool own = k < S && l == 0;
+  const int q = tid % BW_GROUP;          // row group: rows 12q .. 12q + 11
+  const int k0 = tid / BW_GROUP * BW_OUT;  // the group's outputs k0 .. k0 + 3
+  const int k = k0 + (q >> 1);           // the output this lane ends with
+  const bool live = k < S;
+  const bool odd = q & 1;
   const int S3 = 3 * S;
-  for (int i = tid; i < 2 * REG_MAX_S; i += blockDim.x) {
-    s_ah[i / REG_MAX_S][i % REG_MAX_S] = 0.0f;
-    s_zr[0][i] = 0.0f;
-    s_zr[1][i] = 0.0f;
+  for (int i = tid; i < REG_MAX_S; i += BW_THREADS) {
+    s_az[i] = 0.0f;
+    s_ah[i] = 0.0f;
+    s_ar[i] = 0.0f;
   }
-  float w2[kRows2];
-  float w1[REG_MAX_S];
+  float w2[BW_OUT][BW_ROWS], wz[BW_OUT][BW_ROWS], wr[BW_OUT][BW_ROWS];
 #pragma unroll
-  for (int i = 0; i < kRows2; ++i) {
-    const int j = l * kRows2 + i;
-    w2[i] = (k < S && j < S) ? sW2[(size_t)k * S + j] : 0.0f;
+  for (int i = 0; i < BW_OUT; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < BW_ROWS; ++jj) {
+      const int ki = k0 + i, j = q * BW_ROWS + jj;
+      const bool in = ki < S && j < S;
+      w2[i][jj] = in ? sW2[(size_t)ki * S + j] : 0.0f;
+      wz[i][jj] = in ? sW[(size_t)ki * 2 * S + j] : 0.0f;
+      wr[i][jj] = in ? sW[(size_t)ki * 2 * S + S + j] : 0.0f;
+    }
   }
-#pragma unroll
-  for (int i = 0; i < REG_MAX_S; ++i)
-    w1[i] = (k < S && i < S) ? sW[(size_t)k * 2 * S + l * S + i] : 0.0f;
   // step n at t = reverse ? n : T-1-n (the forward's steps backwards)
   auto step_t = [&](int n) { return reverse ? n : T - 1 - n; };
   const int kc = min(k, S - 1);
-  float rz[RING], rr[RING], rhb[RING], rhp[RING], rg[RING];
+  // This thread's five inputs of step n (z, r, hbar, h_prev, gh of output
+  // k), copied by cp.async into its own column of slot n % RING.
   auto fetch = [&](int u, int n) {
     const size_t row = (size_t)step_t(min(n, T - 1)) * B + b;
-    rz[u] = __ldg(gates + row * S3 + kc);
-    rr[u] = __ldg(gates + row * S3 + S + kc);
-    rhb[u] = __ldg(gates + row * S3 + 2 * S + kc);
-    rhp[u] = __ldg(h_prev + row * S + kc);
-    rg[u] = __ldg(gh + row * S + kc);
+    cp_async4(&s_in[u][0][tid], gates + row * S3 + kc);
+    cp_async4(&s_in[u][1][tid], gates + row * S3 + S + kc);
+    cp_async4(&s_in[u][2][tid], gates + row * S3 + 2 * S + kc);
+    cp_async4(&s_in[u][3][tid], h_prev + row * S + kc);
+    cp_async4(&s_in[u][4][tid], gh + row * S + kc);
+    cp_async_commit();
   };
 #pragma unroll
   for (int u = 0; u < RING; ++u) fetch(u, u);
-  __syncthreads();
+  __syncthreads();  // the zeros before any step's writes
   float carry = 0.0f;
   for (int n0 = 0; n0 < T; n0 += RING) {
 #pragma unroll
     for (int u = 0; u < RING; ++u) {
       const int n = n0 + u;
       if (n >= T) break;  // uniform across the block
-      const int buf = n & 1;
       const size_t row = (size_t)step_t(n) * B + b;
-      const float z = rz[u], r = rr[u], hb = rhb[u], hp = rhp[u];
-      const float dh = __fadd_rn(carry, rg[u]);
+      cp_async_wait<RING - 1>();  // this thread's copies of step n
+      const float z = s_in[u][0][tid], r = s_in[u][1][tid];
+      const float hb = s_in[u][2][tid], hp = s_in[u][3][tid];
+      const float one_z = __fsub_rn(1.0f, z);
+      const float cz = __fmul_rn(__fmul_rn(__fsub_rn(hp, hb), z), one_z);
+      const float ch = __fmul_rn(one_z, __fsub_rn(1.0f, __fmul_rn(hb, hb)));
+      const float cr = __fmul_rn(__fmul_rn(hp, r), __fsub_rn(1.0f, r));
+      const float dh = __fadd_rn(carry, s_in[u][4][tid]);
       fetch(u, n + RING);
-      if (own) {
-        const float one_z = __fsub_rn(1.0f, z);
-        const float az = __fmul_rn(__fmul_rn(__fmul_rn(dh, __fsub_rn(hp, hb)), z),
-                                   one_z);
-        const float ah = __fmul_rn(__fmul_rn(dh, one_z),
-                                   __fsub_rn(1.0f, __fmul_rn(hb, hb)));
-        s_ah[buf][k] = ah;
-        s_zr[buf][k] = az;
-        da[row * S3 + k] = az;
-        da[row * S3 + 2 * S + k] = ah;
+      if (live) {
+        if (odd) {
+          const float az = __fmul_rn(dh, cz);
+          s_az[k] = az;
+          da[row * S3 + k] = az;
+        } else {
+          const float ah = __fmul_rn(dh, ch);
+          s_ah[k] = ah;
+          da[row * S3 + 2 * S + k] = ah;
+        }
       }
       __syncthreads();
-      const float drh = group_sum<kL>(lane_dot(&s_ah[buf][l * kRows2], w2));
-      if (own) {
-        const float ar = __fmul_rn(__fmul_rn(__fmul_rn(drh, hp), r),
-                                   __fsub_rn(1.0f, r));
-        s_zr[buf][REG_MAX_S + k] = ar;
-        da[row * S3 + S + k] = ar;
+      float p2[BW_OUT] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float pz[BW_OUT] = {0.0f, 0.0f, 0.0f, 0.0f};
+      tile_dot(p2, s_ah + q * BW_ROWS, w2);
+      tile_dot(pz, s_az + q * BW_ROWS, wz);
+      const float drh = reduce_scatter(p2, q);
+      const float recz = reduce_scatter(pz, q);
+      const float ar = __fmul_rn(drh, cr);
+      if (live) {
+        if (odd) da[row * S3 + S + k] = ar;
+        else s_ar[k] = ar;
       }
       __syncthreads();
-      const float rec = group_sum<kL>(lane_dot(&s_zr[buf][l * REG_MAX_S], w1));
-      if (own)
-        carry = __fadd_rn(__fadd_rn(__fmul_rn(dh, z), __fmul_rn(drh, r)), rec);
+      float pr[BW_OUT] = {0.0f, 0.0f, 0.0f, 0.0f};
+      tile_dot(pr, s_ar + q * BW_ROWS, wr);
+      const float recr = reduce_scatter(pr, q);
+      carry = __fadd_rn(__fadd_rn(__fmul_rn(dh, z), __fmul_rn(drh, r)),
+                        __fadd_rn(recz, recr));
     }
   }
 }
@@ -523,7 +609,7 @@ int scrappie_gru_recurrence_bwd(const float* gates, const float* h_prev,
                                 int S, int reverse, cudaStream_t stream) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
   if (S > REG_MAX_S) return (int)cudaErrorInvalidValue;
-  gru_recurrence_bwd_kernel<LB><<<B, ((LB * S + 31) / 32) * 32, 0, stream>>>(
+  gru_recurrence_bwd_kernel<<<B, BW_THREADS, 0, stream>>>(
       gates, h_prev, gh, sW, sW2, da, T, B, S, reverse);
   return (int)cudaGetLastError();
 }

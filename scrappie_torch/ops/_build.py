@@ -43,7 +43,7 @@ _SIGNATURES = {
     "scrappie_viterbi_backtrace": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "scrappie_crf_fwd": (_P, _P, _P, _I, _I, _P),
     "scrappie_crf_partition": (_P, _P, _I, _I, _P),
-    "scrappie_crf_fwdbwd": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "scrappie_crf_fwdbwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "scrappie_crf_backtrace": (_P, _P, _P, _P, _I, _I, _P),
     "scrappie_project": (_P, _P, _P, _P, _I, _I, _I, _P),
     "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

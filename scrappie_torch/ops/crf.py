@@ -8,7 +8,9 @@ copy (for each `to`, the first maximum over `from`, by strict `>`), and of
 the partition-function scan of scrappie_tpu/nn/layers.py, which has no TPU
 kernel, and of the scans that have none either: its VJP (CrfPartition's
 backward, the edge marginals) and scrappie_tpu/decode/crf.py:_crf_posterior
-(crf_posterior_tm, the state marginals), both one forward-backward kernel.
+(crf_posterior_tm, the state marginals), both the same two walks and a
+marginal pass (crf_fwdbwd_plain, then crf_state_marginals_plain or
+crf_edge_marginals_plain).
 
 On a CUDA tensor each wrapper launches its kernel from csrc/crf.cu; on a
 CPU tensor it runs its `*_plain` twin. Layouts: transitions are
@@ -179,7 +181,8 @@ def crf_fwdbwd_plain(trans_tm):
     b_{t+1}[to], a_t = alpha_t - max alpha_t, b_t = beta_t - max beta_t.
     The marginals are softmaxes in which these offsets cancel, and the
     normalised scores keep float32 precision where alpha and beta would grow
-    with T (the kernel's note in csrc/crf.cu)."""
+    with T (the kernels' note in csrc/crf.cu). Plain twin of crf_walk_kernel
+    (whose scores differ from these by rounding alone)."""
     _check_trans(trans_tm)
     T, B, _ = trans_tm.shape
     tmat = trans_tm.reshape(T, B, NS, NS)  # [T, B, to, from]
@@ -196,42 +199,55 @@ def crf_fwdbwd_plain(trans_tm):
     return torch.stack(a), torch.stack(b[::-1])
 
 
-def crf_posterior_tm_plain(trans_tm):
-    """Plain twin of the forward-backward kernel's posterior: trans
-    [T, B, 25] -> softmax over the states of a_t + b_t, [B, T+1, 5]
-    (scrappie_tpu/decode/crf.py:_crf_posterior)."""
-    a, b = crf_fwdbwd_plain(trans_tm)
+def crf_state_marginals_plain(a, b):
+    """Plain twin of the marginal pass of the posterior: the walks' scores
+    a, b [T+1, B, 5] -> softmax over the states of a_t + b_t, [B, T+1, 5]."""
     return torch.softmax(a + b, dim=-1).transpose(0, 1).contiguous()
 
 
-def crf_partition_grad_tm_plain(trans_tm, g):
-    """Plain twin of the forward-backward kernel's gradient: trans
-    [T, B, 25], g [B] (the gradient of logZ) -> d logZ / d trans times g,
-    [T, B, 25]: each block's edge marginals, the softmax over its 25
-    (to, from) of a_t[from] + (trans[t, to, from] + b_{t+1}[to]) (the lse
-    over `to`, then over `from`), times g[b]."""
-    a, b = crf_fwdbwd_plain(trans_tm)
+def crf_edge_marginals_plain(trans_tm, a, b, g):
+    """Plain twin of the marginal pass of the gradient: trans [T, B, 25],
+    the walks' scores a, b [T+1, B, 5], g [B] -> each block's edge
+    marginals, the softmax over its 25 (to, from) of a_t[from] +
+    (trans[t, to, from] + b_{t+1}[to]), times g[b], [T, B, 25]."""
     T, B, _ = trans_tm.shape
     v = a[:-1, :, None, :] + (trans_tm.reshape(T, B, NS, NS)
                               + b[1:, :, :, None])
-    total = torch.logsumexp(torch.logsumexp(v, dim=-2), dim=-1)
-    edge = torch.exp(v - total[:, :, None, None])
-    return (edge * g[:, None, None]).reshape(T, B, NS * NS)
+    edge = torch.softmax(v.reshape(T, B, NS * NS), dim=-1)
+    return edge * g[:, None]
+
+
+def crf_posterior_tm_plain(trans_tm):
+    """Plain twin of the forward-backward kernels' posterior: trans
+    [T, B, 25] -> softmax over the states of a_t + b_t, [B, T+1, 5]
+    (scrappie_tpu/decode/crf.py:_crf_posterior)."""
+    return crf_state_marginals_plain(*crf_fwdbwd_plain(trans_tm))
+
+
+def crf_partition_grad_tm_plain(trans_tm, g):
+    """Plain twin of the forward-backward kernels' gradient: trans
+    [T, B, 25], g [B] (the gradient of logZ) -> d logZ / d trans times g,
+    [T, B, 25]: each block's edge marginals times g[b]."""
+    return crf_edge_marginals_plain(trans_tm, *crf_fwdbwd_plain(trans_tm), g)
 
 
 def _fwdbwd(trans_tm, g, out, mode: int, name: str):
-    """Launch the forward-backward kernel in `mode` into `out`."""
+    """Launch the forward-backward in `mode` into `out`: the two walks at
+    once (crf_walk_kernel), then the marginal pass; one C call, counted as
+    one launch of `name`."""
     from scrappie_torch.ops import _build
 
     T, B, _ = trans_tm.shape
     if B == 0:
         return out
-    score = torch.empty((T + 1, B, NS), dtype=torch.float32,
-                        device=trans_tm.device)
+    # the walks' scores, in the marginal pass's order: [B, T+1, 5] for the
+    # posterior, [T+1, B, 5] for the gradient
+    a, b = torch.empty((2, (T + 1) * B * NS), dtype=torch.float32,
+                       device=trans_tm.device)
     with torch.cuda.device(trans_tm.device):
         err = _build.library().scrappie_crf_fwdbwd(
             trans_tm.data_ptr(), g.data_ptr() if g is not None else None,
-            score.data_ptr(), out.data_ptr(), T, B, mode,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), T, B, mode,
             ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, name)
     ops.LAUNCHES[name] += 1
@@ -252,7 +268,7 @@ def crf_posterior_tm(trans_tm):
 
 
 def check_partition_grad_input(trans_tm, g) -> None:
-    """Raise unless the forward-backward kernel takes these inputs for the
+    """Raise unless the forward-backward kernels take these inputs for the
     gradient: contiguous float32 trans [T, B, 25] and g [B]."""
     check_trans_input(trans_tm)
     ops.check_kernel_input("g", g, (trans_tm.shape[1],))

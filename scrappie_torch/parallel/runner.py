@@ -50,8 +50,9 @@ in the JAX engine: fast mode reads them from the fused paths' quality
 stream (ops/pipeline.quality_stream_tm), stitched like the paths; rnnrf
 has none there and warns. Stitch mode takes the host path for every model,
 since the qualities read the whole-read posterior: transducer_qualities
-for the transducers, crf_qualities of decode/crf.posterior_crf (the
-forward-backward kernel on the engine's device) for rnnrf. An events read's qualities are dropped, with
+for the transducers, crf_qualities of posterior_crf_batch (the
+forward-backward kernels on the engine's device, the call's reads in the
+few launches of crf_groups) for rnnrf. An events read's qualities are dropped, with
 a warning, when the dwell correction changes its length.
 `qual_calibration="real"` recalibrates them with the measured fit of the
 model or of the ensemble configuration (post/quality.QUAL_RECAL).
@@ -65,18 +66,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from scrappie_torch.decode.crf import (crfpath_to_basecall, decode_crf,
-                                       posterior_crf)
+from scrappie_torch.decode.crf import crfpath_to_basecall, decode_crf
 from scrappie_torch.decode.transducer import assemble_events, viterbi_decode_batch
 from scrappie_torch import ops
-from scrappie_torch.device import as_device
+from scrappie_torch.device import as_device, float_tensor
 from scrappie_torch.models.calibration import collapsed
 from scrappie_torch.models.convert import basecaller_spec
 from scrappie_torch.models.ensemble import fused_config, validate_ensemble
 from scrappie_torch.models.forward import load_model
 from scrappie_torch.ops.pipeline import (ensemble_basecall_fused,
                                          rnnrf_ensemble_basecall_fused)
-from scrappie_torch.ops.crf import NS, add_emit_bias, crf_viterbi_tm
+from scrappie_torch.ops.crf import (NS, add_emit_bias, crf_posterior_tm,
+                                    crf_viterbi_tm)
 from scrappie_torch.parallel import chunk as chunklib
 from scrappie_torch.post.homopolymer import HomopolymerMode, homopolymer_path
 from scrappie_torch.post.overlapper import overlapper
@@ -114,6 +115,10 @@ PIPELINE_DEPTH = 2
 #: Whole-read decodes are padded with neutral blocks to a multiple of this
 #: many blocks, so reads of similar length decode together.
 DECODE_BUCKET = 1024
+#: The reads of one forward-backward launch (rnnrf's qualities) are padded
+#: to its longest; a read joins a launch only while the launch's blocks,
+#: padding included, stay within this many times its reads' own.
+CRF_PAD_RATIO = 2
 
 
 def _round_up(x: int, m: int) -> int:
@@ -139,6 +144,57 @@ def _gather_decode(post, flat_idx, stay_pen, skip_pen, local_pen, use_slip):
     flat = torch.cat([post.reshape(N * nb, ns), neutral])
     lp = flat[flat_idx]  # [R, T, ns] whole-read stitched log posteriors
     return viterbi_decode_batch(lp, stay_pen, skip_pen, local_pen, use_slip)
+
+
+def crf_groups(lengths) -> list[list[int]]:
+    """The launches of posterior_crf_batch for reads of these lengths (in
+    blocks): their indices, longest first, a new launch wherever the next
+    read would take the current one's padded blocks past CRF_PAD_RATIO
+    times its real ones. A call thus holds at most CRF_PAD_RATIO times the
+    sum of its reads' lengths on the card, however skewed they are."""
+    groups: list[list[int]] = []
+    real = 0
+    for i in sorted(range(len(lengths)), key=lambda i: -lengths[i]):
+        if groups and (lengths[groups[-1][0]] * (len(groups[-1]) + 1)
+                       <= CRF_PAD_RATIO * (real + lengths[i])):
+            groups[-1].append(i)
+            real += lengths[i]
+        else:
+            groups.append([i])
+            real = lengths[i]
+    return groups
+
+
+def posterior_crf_padded(trans_list, device) -> list[np.ndarray]:
+    """decode/crf.posterior_crf of reads' transitions [T_i, 25] (numpy) in
+    one launch -> each read's [T_i + 1, 5]: one copy to `device` of the
+    reads and a stitch pad block (chunk.neutral_pad_crf's), one gather
+    padding each read to the longest with that block, time-major as the
+    kernels take it, one forward-backward over [T, B, 25] and one copy
+    back. A pad block's moves go into blank alone, at cost 0, so the walk
+    back reaches a read's last real boundary with five equal scores, as
+    its own call starts: each read's rows equal posterior_crf's bit for
+    bit."""
+    lengths = np.array([len(t) for t in trans_list])
+    pad = chunklib.neutral_pad_crf(np.empty((0, NS * NS), np.float32), 1)
+    flat = float_tensor(np.concatenate([*trans_list, pad]), device)
+    starts = np.cumsum(lengths) - lengths
+    t = np.arange(lengths.max())[:, None]
+    idx = np.where(t < lengths, starts + t, len(flat) - 1)  # [T, B]
+    post = crf_posterior_tm(flat[torch.as_tensor(idx, device=flat.device)])
+    post = post.cpu().numpy()
+    return [post[i, : n + 1] for i, n in enumerate(lengths)]
+
+
+def posterior_crf_batch(trans_list, device) -> list[np.ndarray]:
+    """posterior_crf_padded of every read of an engine call, in the
+    launches of crf_groups -> each read's [T_i + 1, 5], in order."""
+    out: list = [None] * len(trans_list)
+    for group in crf_groups([len(t) for t in trans_list]):
+        posts = posterior_crf_padded([trans_list[i] for i in group], device)
+        for i, post in zip(group, posts):
+            out[i] = post
+    return out
 
 
 def _gather_decode_crf(trans, flat_idx, emit_bias):
@@ -650,6 +706,13 @@ class BasecallEngine:
                         skip_pen, local_pen, use_slip)])
         mode = (HomopolymerMode.parse(homopolymer)
                 if isinstance(homopolymer, str) else homopolymer)
+        crf_states = iter(())
+        if with_qualities and self.spec.kind == "rnnrf":
+            # every read's forward-backward in a few launches; the emit
+            # bias calibrates the decode, not the model's reported confidence
+            with self.stage("posterior_crf"):
+                crf_states = iter(posterior_crf_batch(logposts,
+                                                      device=self.device))
         results = []
         lps, decoded = iter(logposts), iter(decoded)
         for entry, rs in zip(prepped, signals):
@@ -667,12 +730,8 @@ class BasecallEngine:
                 path = emitted = homopolymer_path(lp, np.asarray(path).copy(),
                                                   mode)
             if with_qualities and self.spec.kind == "rnnrf":
-                # the emit bias calibrates the decode, not the model's
-                # reported confidence
-                with self.stage("posterior_crf"):
-                    states = posterior_crf(lp, device=self.device)
                 with self.stage("qualities"):
-                    qual = self._recal(crf_qualities(states, path))
+                    qual = self._recal(crf_qualities(next(crf_states), path))
             elif with_qualities:
                 with self.stage("qualities"):
                     qual = self._recal(transducer_qualities(lp, emitted))

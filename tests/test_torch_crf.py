@@ -20,6 +20,7 @@ from scrappie_torch import ops
 from scrappie_torch.decode import crf as tdec
 from scrappie_torch.nn import layers as tl
 from scrappie_torch.ops import crf as tc
+from scrappie_torch.parallel import runner
 from scrappie_tpu import ops as jops
 from scrappie_tpu.decode import crf as jdec
 from scrappie_tpu.nn import layers as jl
@@ -236,3 +237,120 @@ def test_backtrace_twin_matches_pallas_on_hand_built_maps(which, T):
               else np.repeat(first[:, None], T + 1, 1))
     expect[:, T] = first
     np.testing.assert_array_equal(path.numpy(), expect)
+
+
+FWDBWD_CASES = [(B, T) for B in (1, 5) for T in (1, 7, 300)]
+FWDBWD_IDS = [f"B{b}-T{t}" for b, t in FWDBWD_CASES]
+
+
+def _jax64(fn, *arrays):
+    """fn of the JAX package run in float64 on float32 data, as numpy. Its
+    float32 scans carry unnormalised scores of order T |trans|, whose
+    rounding moves a probability by up to 3.5e-5 at T = 300 (2 x standard
+    normal transitions); the twins' max-normalised scores stay within
+    2.2e-7 of float64 there."""
+    import jax
+
+    with jax.enable_x64(True):
+        return np.asarray(fn(*(jnp.asarray(a, dtype=jnp.float64)
+                               for a in arrays)))
+
+
+@pytest.mark.parametrize("B,T", FWDBWD_CASES, ids=FWDBWD_IDS)
+def test_walks_and_state_marginals_match_jax(B, T):
+    """The twins of the forward-backward's passes, as the kernels split
+    them: the two walks' scores (crf_fwdbwd_plain: each boundary's scores
+    less their maximum, 0 at both ends) and the posterior's marginal pass
+    on them, against scrappie_tpu.decode.crf._crf_posterior (absolute
+    1e-5; the reference in float64, _jax64)."""
+    tr = _trans(B, T, seed=7 * T + B)
+    a, b = tc.crf_fwdbwd_plain(_tm(tr))
+    assert a.shape == b.shape == (T + 1, B, 5)
+    assert torch.equal(a.amax(-1), torch.zeros(T + 1, B))
+    assert torch.equal(b.amax(-1), torch.zeros(T + 1, B))
+    assert torch.equal(a[0], torch.zeros(B, 5))
+    assert torch.equal(b[T], torch.zeros(B, 5))
+    post = tc.crf_state_marginals_plain(a, b)
+    want = _jax64(jdec._crf_posterior, tr)
+    np.testing.assert_allclose(post.numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,T", FWDBWD_CASES, ids=FWDBWD_IDS)
+def test_walks_and_edge_marginals_match_jax_grad(B, T):
+    """The gradient's marginal pass on the walks' scores (each block's 25
+    edge marginals, one softmax, times g) against jax.grad of
+    nn.layers.crf_partition_function on <logZ, g> (absolute 1e-5 times the
+    largest |g|; the reference in float64, _jax64)."""
+    import jax
+
+    tr = _trans(B, T, seed=11 * T + B)
+    g = np.random.default_rng(T + B).standard_normal(B).astype(np.float32)
+    want = _jax64(jax.grad(lambda t, w: (jl.crf_partition_function(t) * w).sum()),
+                  tr, g)
+    got = tc.crf_edge_marginals_plain(_tm(tr), *tc.crf_fwdbwd_plain(_tm(tr)),
+                                      torch.from_numpy(g))
+    assert got.shape == (T, B, 25)
+    np.testing.assert_allclose(got.transpose(0, 1).numpy(), np.asarray(want),
+                               rtol=0, atol=1e-5 * max(1.0, np.abs(g).max()))
+
+
+def _spy_posterior(monkeypatch) -> list:
+    """The shapes of the posterior wrapper's CPU calls, as a list that
+    fills as they come."""
+    shapes = []
+    real = tc.crf_posterior_tm_plain
+
+    def spy(trans_tm):
+        shapes.append(tuple(trans_tm.shape))
+        return real(trans_tm)
+    monkeypatch.setattr(tc, "crf_posterior_tm_plain", spy)
+    return shapes
+
+
+def test_posterior_crf_batch_equals_one_read_calls(monkeypatch):
+    """parallel/runner.posterior_crf_batch, the engine's call for all the
+    reads of an rnnrf engine call with qualities, on three reads of different
+    lengths: in the launches of crf_groups ([300, 2, 25] for the reads of
+    300 and 7 blocks, [1, 1, 25] for the read of 1) and, through
+    posterior_crf_padded, in one ([300, 3, 25]), each read padded to the
+    longest with stitch pad blocks. Each read's rows equal its own
+    posterior_crf call exactly and JAX's posterior within 1e-5 (in
+    float64, _jax64)."""
+    reads = [_trans(1, T, seed=40 + T)[0] for T in (7, 300, 1)]
+    shapes = _spy_posterior(monkeypatch)
+    batch = runner.posterior_crf_batch(reads, device="cpu")
+    assert shapes == [(300, 2, 25), (1, 1, 25)]
+    shapes.clear()
+    padded = runner.posterior_crf_padded(reads, device="cpu")
+    assert shapes == [(300, 3, 25)]
+    for r, post, one in zip(reads, batch, padded):
+        assert post.shape == (len(r) + 1, 5)
+        np.testing.assert_array_equal(post, tdec.posterior_crf(r, device="cpu"))
+        np.testing.assert_array_equal(one, post)
+        np.testing.assert_allclose(post, _jax64(jdec._crf_posterior, r[None])[0],
+                                   rtol=0, atol=1e-5)
+    assert runner.posterior_crf_batch([], device="cpu") == []
+
+
+def test_posterior_crf_batch_bounds_its_padding(monkeypatch):
+    """One long read among many short ones: the launches of crf_groups hold
+    at most CRF_PAD_RATIO times the reads' blocks (the long read does not
+    pad the short ones to its length), each launch is its longest read by
+    its reads, every read is in one launch, and each read's rows still
+    equal its own posterior_crf call exactly."""
+    lengths = [12, 9, 600] + [5 + i % 11 for i in range(30)] + [1]
+    reads = [_trans(1, T, seed=70 + i)[0] for i, T in enumerate(lengths)]
+    groups = runner.crf_groups(lengths)
+    assert sorted(i for g in groups for i in g) == list(range(len(lengths)))
+    assert groups[0][0] == 2 and len(groups) < len(lengths)
+    shapes = _spy_posterior(monkeypatch)
+    batch = runner.posterior_crf_batch(reads, device="cpu")
+    assert shapes == [(lengths[g[0]], len(g), 25) for g in groups]
+    assert all(T == max(lengths[i] for i in g) for (T, _, _), g in
+               zip(shapes, groups))
+    assert (sum(T * B for T, B, _ in shapes)
+            <= runner.CRF_PAD_RATIO * sum(lengths))
+    for r, post in zip(reads, batch):
+        np.testing.assert_array_equal(post, tdec.posterior_crf(r, device="cpu"))
+    assert runner.crf_groups([]) == []
+    assert runner.crf_groups([7, 7, 7]) == [[0, 1, 2]]

@@ -235,20 +235,24 @@ def test_posterior_crf_runs_on_the_named_device(monkeypatch):
 def test_engine_and_api_pass_their_device_to_posterior_crf(reads, monkeypatch):
     """The engine's rnnrf qualities and api.basecall_raw(with_base_probs)
     run the forward-backward on their own device, through the wrapper whose
-    CUDA kernel takes contiguous float32 [T, B, 25]: the twin here checks
-    that input first."""
+    CUDA kernels take contiguous float32 [T, B, 25]: the twin here checks
+    that input first. The engine makes one call for all the reads of an
+    engine call, in the launches of runner.crf_groups (each padded to its
+    longest read), the api one for its read."""
     from scrappie_torch import api as tapi
     from scrappie_torch.ops import crf as tc
     from scrappie_torch.parallel import runner
 
-    devices, shapes = [], []
-    for module in (runner, tapi):
-        real = module.posterior_crf
+    devices, shapes, inputs = [], [], []
+    for module, name in ((runner, "posterior_crf_batch"),
+                         (tapi, "posterior_crf")):
+        real = getattr(module, name)
 
-        def spy(trans, impl=None, device=None, _real=real):
+        def spy(trans, *args, device=None, _real=real):
             devices.append(device)
-            return _real(trans, impl, device)
-        monkeypatch.setattr(module, "posterior_crf", spy)
+            inputs.append(trans)
+            return _real(trans, *args, device=device)
+        monkeypatch.setattr(module, name, spy)
     twin = tc.crf_posterior_tm_plain
 
     def checked(trans_tm):
@@ -257,14 +261,20 @@ def test_engine_and_api_pass_their_device_to_posterior_crf(reads, monkeypatch):
         return twin(trans_tm)
     monkeypatch.setattr(tc, "crf_posterior_tm_plain", checked)
     engine = TEngine("rnnrf_r94", device="cpu", **GEOMETRY)
-    res = engine.basecall_signals([RawSignal(reads[0], uuid="r0")],
+    res = engine.basecall_signals([RawSignal(r, uuid=f"r{i}")
+                                   for i, r in enumerate(reads)],
                                   with_qualities=True)
-    assert res[0].qual is not None and len(res[0].qual) == len(res[0].sequence)
+    assert all(r.qual is not None and len(r.qual) == len(r.sequence)
+               for r in res)
     base_probs = tapi.basecall_raw(reads[1], "rnnrf_r94", with_base_probs=True,
                                    device="cpu")[-1]
     assert base_probs.shape[-1] == 5
     assert [torch.device(d) for d in devices] == [torch.device("cpu")] * 2
-    assert len(shapes) == 2 and all(s[1:] == (1, 25) for s in shapes)
+    nblock = [len(t) for t in inputs[0]]
+    assert len(nblock) == len(reads)
+    assert shapes[:-1] == [(nblock[g[0]], len(g), 25)
+                           for g in runner.crf_groups(nblock)]
+    assert shapes[-1][1:] == (1, 25)
 
 
 def test_engine_rnnrf_fast_has_no_qualities(reads):

@@ -5,8 +5,9 @@ The port's plain twins stand in for its CUDA kernels here: the GRU
 recurrence's backward walk (ops/gru.gru_walk_plain, the twin of
 gru_recurrence_bwd_kernel) and the CRF forward-backward
 (ops/crf.crf_partition_grad_tm_plain, crf_posterior_tm_plain, the twins of
-crf_fwdbwd_kernel). The references are torch.autograd through the plain
-forward loops, and jax.grad / jax.value_and_grad of the JAX functions.
+crf_walk_kernel and its marginal passes). The references are torch.autograd
+through the plain forward loops, and jax.grad / jax.value_and_grad of the
+JAX functions.
 
 Tolerances, and why:
   * GRU backward: 1e-5 relative to each gradient's largest entry. Float32
