@@ -49,7 +49,23 @@ if any phase fails:
      backward (gates, walk, weight products) against torch.autograd
      through nn/rnn.gru_tm, at T = 2000, S = 96, B = 8 and 64, both
      directions, and at S = 40 and 7 (T = 300, B = 5, seeded weights)
-     against the twin, and times it (phase gru_backward_kernel);
+     against the twin, and times it (phase gru_backward_kernel); holds the
+     LSTM pair's store-c mode (h equal to the inference launch's, c
+     against the plain loop's), the LSTM's backward walk kernel against
+     its twin and the whole backward against torch.autograd through
+     nn/rnn.lstm_tm, on the events network's first stage at T = 2048,
+     S = 96, B = 8 and 64, both directions in one launch, and the walk at
+     S = 40 and 7, and times them with the forward with and without the
+     c stores (phase lstm_backward_kernel); holds the transducer and CRF
+     lattice kernels (forward, then backward) against their twins on
+     log P, logZ_local and the gradient, on rgrgr_r94's log posterior of
+     8 simulated windows of 800 blocks against 800 kmer states and on
+     rnnrf_r94's transitions of 8 windows of 2 000 blocks against 1 408
+     bases (a row without a sequence; again with the score rows in global
+     memory; L = 1 and 2 too) and at a whole read of 30 720 blocks and
+     7 000 bases (against the twins on the card and, in two host
+     processes, in float64), and times them there, with the bytes they
+     hold (phase lattice_kernels);
   5. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
      16 seeded synthetic reads of 20k-100k samples in fast mode and in both
      stitch modes, checks that each kernel's launch counter rose and that
@@ -150,16 +166,24 @@ if any phase fails:
      stage "posterior_crf", must launch its kernels on the card once for
      each launch that parallel/runner.crf_groups gives the engine call's
      reads);
- 21. trains rgrgr_r94, raw_r94 and rnnrf_r94 on the card (phase
-     main_path_train): scrappie_torch.train.trainer.train(device="cuda")
-     for 8 steps of 8 simulated reads of 4 000 samples from a seeded random
-     init, through the projection, GRU recurrence and partition kernels
-     forward and the GRU recurrence's backward and the CRF
-     forward-backward kernels backward; every loss finite and the last
-     below the first; the first step's loss and every gradient against
-     the port's CPU run on the same batch (in a host process); seconds a
-     step, launches by kernel, and two steps under the profiler (device
-     busy time, idle share);
+ 21. trains rgrgr_r94, raw_r94, rnnrf_r94 and nanonet_events on the card
+     (phase main_path_train): scrappie_torch.train.trainer.train(device=
+     "cuda") for 8 steps of 8 simulated reads of 4 000 samples (the events
+     model: 400 detected events) from a seeded random init, through the
+     projection, GRU recurrence, LSTM pair (store-c mode) and partition
+     kernels forward and the GRU's and LSTM's backward walks and the CRF
+     forward-backward kernels backward; then make_lattice_train_step for 8
+     steps each for rgrgr_r94 and rnnrf_r94 on seq_batch windows (8 x
+     4 000 samples, 800 and 1 408 states), through the lattice kernels;
+     then one make_wholeread_transducer_step (rgrgr_r94),
+     make_wholeread_step and make_head_step (rnnrf_r94) on a simulated
+     region of 61 440 samples (12 288 and 30 720 blocks, chunk 256);
+     every loss finite and the last of each 8-step run below its first;
+     seconds a step, launches by kernel, peak memory of the whole-read
+     steps, and each run under the profiler (device busy time, idle
+     share); after every timed run, the first step's loss and every
+     gradient against the port's CPU run on the same batch (in host
+     processes; the whole-read steps on the region's first 2 560 blocks);
  22. checks that a row decodes alike at B = 1 and 8 (phase
      batch_invariance: the rgrgr fused path and posterior), then serves
      on the card (phase main_path_serve): make_server(device=
@@ -176,7 +200,8 @@ if any phase fails:
      engine calls.
 
 Each engine path's launch counters are set to 0 just before its runs and
-read just after; no inference path may launch a backward kernel. Every phase's line carries the seconds since the start.
+read just after; no inference path may launch a backward kernel, the
+LSTM's store-c mode or a lattice kernel. Every phase's line carries the seconds since the start.
 The last lines are the kernel table (each kernel's time beside its bound,
 the least time the card could take for the same work), the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device":
@@ -261,6 +286,7 @@ DTW_GLOBAL_SAMPLES = 2000    # above the cluster's capacity: global memory
 DTW_TIES = (2000, 20000)     # integer signal and locs: candidates tie
 DTW_CLUSTERS = (4, 8, 16)    # cluster sizes timed at the main path's size
 DTW_TWIN_WORKERS = 6         # host processes running the DTW's Viterbi twins
+DTW_CARD_TWIN_WORKERS = 4    # processes running its forward twins on the card
 MAP_BASES = 6000         # the mapping path's sequences, and the timed DTW's
 MAP_SAMPLES = 60000      # the timed DTW's samples; the seqmap read's length
 MAP_BAND = 100           # half-width of the banded mapping
@@ -331,6 +357,22 @@ KERNELS = {
     "crf_partition_grad": ("scrappie_torch/csrc/crf.cu",
                            "scrappie_tpu/nn/layers.py:133 (the VJP of "
                            "crf_partition_function's lax.scan; no TPU kernel)"),
+    "lstm_pair_train": ("scrappie_torch/csrc/lstm.cu",
+                        "scrappie_tpu/ops/lstm.py:53 (the pair launch that "
+                        "also stores the cell states, for training)"),
+    "lstm_recurrence_bwd": ("scrappie_torch/csrc/lstm.cu",
+                            "scrappie_tpu/nn/rnn.py:80 (the VJP of lstm's "
+                            "lax.scan, which XLA differentiates; no TPU "
+                            "kernel)"),
+    # lattice_fwdbwd and crf_lattice_fwdbwd count launches of one kernel
+    # each, its forward mode and its backward mode
+    "lattice_fwdbwd": ("scrappie_torch/csrc/lattice.cu",
+                       "scrappie_tpu/train/lattice.py:49 (_lattice_forward_"
+                       "impl, a lax.scan, and its VJP; no TPU kernel)"),
+    "crf_lattice_fwdbwd": ("scrappie_torch/csrc/lattice.cu",
+                           "scrappie_tpu/train/lattice.py:125 and :210 (the "
+                           "CRF lattice's and local partition's lax.scans "
+                           "and their VJPs; no TPU kernel)"),
 }
 # The kernels each path must launch, by engine mode.
 GRU_KERNELS = ("project", "gru_recurrence")
@@ -356,7 +398,8 @@ MAPPING_KERNELS = ("dtw", "dtw_walk", "seqmap", "seqmap_walk", "seqmap_banded")
 # limit the CPU tests hold the port's gradients to against JAX (the
 # kernels' float32 forward and backward against the twins' over up to
 # 2 000 steps and five layers; seen at most 2.5e-6, raw_r94's conv_W).
-TRAIN_MODELS = ("rgrgr_r94", "raw_r94", "rnnrf_r94")
+# nanonet_events trains on TRAIN["nsample"] // 10 detected events a row.
+TRAIN_MODELS = ("rgrgr_r94", "raw_r94", "rnnrf_r94", "nanonet_events")
 TRAIN = dict(steps=8, batch=8, nsample=4000, lr=2e-3)
 TRAIN_PROFILE_STEPS = 2
 TRAIN_LOSS_RTOL = 1e-5
@@ -365,14 +408,58 @@ TRAIN_KERNELS = {kind: GRU_KERNELS + ("gru_recurrence_bwd",) + crf
                  for kind, crf in (("rgrgr", ()), ("raw", ()),
                                    ("rnnrf", ("crf_partition",
                                               "crf_partition_grad")))}
+TRAIN_KERNELS["events"] = ("project", "lstm_pair_train", "lstm_recurrence_bwd")
+# The lattice runs (make_lattice_train_step on seq_batch windows of
+# TRAIN["nsample"] samples and L kmer states, as scripts/train_wholeread_
+# {transducer,crf}.py size them) and the whole-read steps (one simulated
+# region of WHOLE_SAMPLES samples, chunk WHOLE_CHUNK; held to the CPU on
+# its first WHOLE_CPU_BLOCKS blocks). Their gradients are held to the CPU
+# at LATTICE_GRAD_RTOL, the limit tests/test_torch_lattice.py holds the
+# lattice losses' to JAX: the lattice's posteriors feed five GRU layers,
+# and rnnrf's is the difference of logZ_local's and log P's, which largely
+# cancel (float32 against float64 on the CPU: up to 2.3e-4).
+LATTICE_RUNS = (("rgrgr_r94", 4000 // 5),
+                ("rnnrf_r94", 4000 // 2 * 3 // 4 // 128 * 128))
+LATTICE_KERNELS = {
+    "rgrgr": GRU_KERNELS + ("gru_recurrence_bwd", "lattice_fwdbwd"),
+    "rnnrf": GRU_KERNELS + ("gru_recurrence_bwd", "crf_partition",
+                            "crf_partition_grad", "crf_lattice_fwdbwd")}
+LATTICE_GRAD_RTOL = 5e-4
+WHOLE_SAMPLES = 61440
+WHOLE_CHUNK = 256
+WHOLE_CPU_BLOCKS = 2560
 # Launched by training alone: no inference path may launch them.
-BACKWARD_KERNELS = ("gru_recurrence_bwd", "crf_partition_grad")
+BACKWARD_KERNELS = ("gru_recurrence_bwd", "crf_partition_grad",
+                    "lstm_pair_train",
+                    "lstm_recurrence_bwd", "lattice_fwdbwd",
+                    "crf_lattice_fwdbwd")
+# The LSTM's backward (phase lstm_backward_kernel): the walk against its
+# twin and the whole backward against autograd, relative to the largest
+# entry (float32 sums in another order over 2 048 steps, as GRU_BWD_RTOL),
+# also at LSTM_BWD_SMALL's sizes.
+LSTM_BWD_RTOL = 1e-5
+LSTM_BWD_SMALL = ((300, 5, 40), (300, 5, 7))  # (T, B, S): tiles part past S
+# The lattice kernels (phase lattice_kernels) against their twins: log P
+# and logZ relative 1e-5; the gradient relative to its largest entry 5e-5
+# (expf and log1pf against torch's, and the states' atomics in another
+# order, over up to 30 720 steps). The windows (B, samples, L), and the
+# whole-read shape.
+LATTICE_RTOL = 1e-5
+LATTICE_GRAD_TWIN_RTOL = 5e-5
+# At the whole-read shape also against the twins in float64: log P and
+# logZ at LATTICE_RTOL, the gradient relative to its largest entry at
+# LATTICE_F64_GRAD_RTOL (float32's rounding over 30 720 steps, which each
+# step's normalisation to a posterior sum of 1 leaves only where the
+# states' scores drift apart; seen at most 3.2e-3).
+LATTICE_F64_GRAD_RTOL = 1e-2
+LATTICE_WINDOWS = {"transducer": (8, 4000, 4000 // 5), "crf": (8, 4000, 1408)}
+WHOLE_READ_SHAPE = (30720, 7000)  # (blocks, bases), B = 1
 # Kept, checked and timed; no path launches them.
 SUPERSEDED = ("gru_layer", "viterbi_fused", "viterbi_fused_ens")
 # Kernels whose design keeps their weights in registers: ptxas must report
 # no spill for any of their instances.
 NO_SPILL = ("gru_recurrence_kernel", "lstm_recurrence_kernel",
-            "gru_recurrence_bwd_kernel")
+            "gru_recurrence_bwd_kernel", "lstm_recurrence_bwd_kernel")
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
 # fp32 outside the tensor cores (the kernels are exact fp32, TF32 off).
 PEAK_BYTES_PER_S = 3.35e12
@@ -380,6 +467,7 @@ PEAK_FP32_OPS_PER_S = 67e12
 
 
 START = time.perf_counter()
+SPILLS: dict[str, int] = {}  # ptxas's spill bytes of the NO_SPILL kernels
 
 
 def emit(obj) -> None:
@@ -458,6 +546,7 @@ def build() -> None:
     for k in NO_SPILL:
         require(any(k in e for e in spills), f"ptxas reports {k}")
     require(not any(spills.values()), f"no spill in {NO_SPILL}: {spills}")
+    SPILLS.update(spills)
     emit({"phase": "build", "seconds": round(seconds, 3), "library": path.name,
           "spill_bytes": spills})
 
@@ -502,7 +591,14 @@ def kernel_work(name: str, **d) -> dict:
     23 operations (its forward state 6 adds and 5 compares with the end
     jump's max, the end-jump candidate's add, the emission's 6 and its 2
     adds, the back state's 2 adds and compare) and the seqmap and banded
-    DPs 7 (3 adds, 2 subtractions, 2 compares or maxima)."""
+    DPs 7 (3 adds, 2 subtractions, 2 compares or maxima). The lattices'
+    forward-backward (both modes together) reads each row's emissions once
+    a step (the transducer: its distinct valid kmer states and the stay; the
+    CRF: the transition row) and writes the gradient once; per valid
+    position and step the transducer does 27 operations (forward two
+    logaddexps of 6 and 4 adds and subtractions; backward three exps,
+    two logaddexps and their adds) and the CRF 36 (its two states), and
+    the CRF's local partition 200 a row and step."""
     T, B = d["T"], d.get("B", 1)
     if name == "dtw":
         npos = d["npos"]
@@ -581,6 +677,21 @@ def kernel_work(name: str, **d) -> dict:
         S = d["S"]
         return bound(4 * (T * B * 5 * S + 3 * S * S + T * B * 3 * S),
                      2 * T * B * 3 * S * S)
+    if name == "lstm_recurrence_bwd":  # gates, c, gh in; da out; 4S^2 MACs
+        S, n = d["S"], d.get("dirs", 1)
+        return bound(n * 4 * (T * B * 10 * S + 4 * S * S + 3 * S),
+                     n * 2 * T * B * 4 * S * S)
+    if name == "lstm_pair_train":  # the pair's recurrence, and c written
+        S, n = d["S"], d.get("dirs", 2)
+        return bound(n * 4 * (T * B * 6 * S + 4 * S * S + 3 * S),
+                     n * 2 * T * B * 4 * S * S)
+    if name == "lattice_fwdbwd":  # both modes; see the docstring
+        S, L, nd, nv = d["S"], d["L"], d["distinct"], d["valid"]
+        return bound(4 * (T * (nd + B) + B * L + T * B * S), 27 * T * nv)
+    if name == "crf_lattice_fwdbwd":  # both modes and both lattices
+        L, nv = d["L"], d["valid"]
+        return bound(4 * (2 * T * B * 25 + B * L),
+                     36 * T * (nv + B) + 200 * T * B)
     raise KeyError(name)
 
 
@@ -1031,6 +1142,372 @@ def check_gru_backward(net, B: int) -> dict:
                "forward_ms": cuda_ms(lambda: g.gru_tm(xproj, sW, sW2, False))}
     emit({"phase": "gru_backward_kernel", "B": B, "T": T_BLOCKS, **row})
     return row
+
+
+def check_lstm_backward(enet, B: int) -> tuple[dict, dict]:
+    """The LSTM's training kernels on the events network's first stage
+    (S = 96) over B chunks of T_EVENTS events, both directions in one
+    launch: the pair's store-c mode (its h equal to the inference launch's
+    bit for bit, its c against the plain loop's), the backward walk kernel
+    against its twin and ops/lstm.lstm_tm_backward against torch.autograd
+    through the plain forward, on a seeded output gradient (at B = 8 also
+    the walk at LSTM_BWD_SMALL's sizes on seeded weights, one and two
+    directions); then the times of the walk (median of 20) and its twin
+    (median of 3), of the whole backward, and of the pair's forward with
+    and without the c stores, and ptxas's spill report. Returns the
+    table's rows for the walk and the store-c mode."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn.layers import window
+    from scrappie_torch.nn.rnn import lstm_tm
+    from scrappie_torch.ops import lstm as L
+    from scrappie_torch.ops.pipeline import lstm_weights
+    from scrappie_torch.ops.project import project_tm
+
+    rng = np.random.default_rng(SEED + 150 + B)
+    p = enet.params
+    wF, wB = (lstm_weights(p, d, 1) for d in "FB")
+    S = wF[2].shape[0]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    with torch.no_grad():
+        x = window(events_input(enet, B, rng), enet.winlen, 1).transpose(0, 1).contiguous()
+        xpair = project_tm(x, torch.cat((wF[0], wB[0]), 1), torch.cat((wF[1], wB[1])))
+        hF, hB, cF, cB = L.lstm_pair_train_cuda(xpair, *wF[2:], *wB[2:])
+        iF, iB = L.lstm_pair_recurrence_cuda(xpair, *wF[2:], *wB[2:])
+        xs = (xpair[..., : 4 * S].contiguous(), xpair[..., 4 * S :].contiguous())
+        twin = (lstm_tm(xs[0], *wF[2:], False, return_c=True),
+                lstm_tm(xs[1], *wB[2:], True, return_c=True))
+        sync()
+        require(torch.equal(hF, iF) and torch.equal(hB, iB),
+                "lstm_pair_train: h equal to the inference launch's")
+        c_err = max(float((c - t[1]).abs().max()) for c, t in zip((cF, cB), twin))
+        require(c_err <= LSTM_ATOL, f"lstm_pair_train c max abs err {c_err} <= {LSTM_ATOL}")
+        gh = [torch.as_tensor(rng.standard_normal((T_EVENTS, B, S)).astype(np.float32),
+                              device="cuda") for _ in "FB"]
+        layers = [(xs[0], hF, cF, *wF[2:], False, gh[0]),
+                  (xs[1], hB, cB, *wB[2:], True, gh[1])]
+        walks = [(L.backward_inputs(xx, h, c, sW, pe, rev)[2], c, g, sW, pe, rev)
+                 for xx, h, c, sW, pe, rev, g in layers]
+        dk = L.lstm_walk_pair(walks)
+        dp = torch.cat([L.lstm_walk_plain(*w) for w in walks], -1)
+        full_da, full_w = L.lstm_tm_backward(layers)
+        sync()
+        require(bool(torch.isfinite(dk).all()), "lstm_recurrence_bwd finite")
+    errs = {"walk": rel(dk, dp), "autograd": 0.0}
+    for k, (xx, h, c, sW, pe, rev, g) in enumerate(layers):
+        leaves = [t.clone().requires_grad_(True) for t in (xx, sW, pe)]
+        lstm_tm(*leaves, rev).backward(g)
+        got = (full_da[..., 4 * S * k : 4 * S * (k + 1)], *full_w[k])
+        for a, leaf in zip(got, leaves):
+            errs["autograd"] = max(errs["autograd"], rel(a, leaf.grad))
+    if B == 8:  # and at the sizes of LSTM_BWD_SMALL, on seeded weights
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 151)
+        errs["small_S"] = 0.0
+        with torch.no_grad():
+            for T, Bs, Ss in LSTM_BWD_SMALL:
+                xx = torch.randn((T, Bs, 8 * Ss), generator=gen, device="cuda")
+                ws = [(0.3 * torch.randn((Ss, 4 * Ss), generator=gen, device="cuda"),
+                       0.3 * torch.randn(3 * Ss, generator=gen, device="cuda"))
+                      for _ in "FB"]
+                h0, h1, c0, c1 = L.lstm_pair_train_cuda(xx, *ws[0], *ws[1])
+                g0, g1 = (torch.randn((T, Bs, Ss), generator=gen, device="cuda")
+                          for _ in "FB")
+                ww = [(L.backward_inputs(xx[..., : 4 * Ss], h0, c0, *ws[0], False)[2],
+                       c0, g0, *ws[0], False),
+                      (L.backward_inputs(xx[..., 4 * Ss :], h1, c1, *ws[1], True)[2],
+                       c1, g1, *ws[1], True)]
+                for dirs in (ww, ww[1:]):
+                    errs["small_S"] = max(errs["small_S"], rel(
+                        L.lstm_walk_pair(dirs),
+                        torch.cat([L.lstm_walk_plain(*w) for w in dirs], -1)))
+    for what, err in errs.items():
+        require(err <= LSTM_BWD_RTOL,
+                f"lstm_recurrence_bwd {what}: rel err {err} <= {LSTM_BWD_RTOL}")
+    with torch.no_grad():
+        walk = {**kernel_work("lstm_recurrence_bwd", T=T_EVENTS, B=B, S=S, dirs=2),
+                "max_abs_err": float((dk - dp).abs().max()),
+                "max_rel_err": errs["walk"], "autograd_max_rel_err": errs["autograd"],
+                **({"small_S": LSTM_BWD_SMALL, "small_S_max_rel_err": errs["small_S"]}
+                   if "small_S" in errs else {}),
+                "ms": cuda_ms(lambda: L.lstm_walk_pair(walks)),
+                "plain_ms": cuda_ms(lambda: [L.lstm_walk_plain(*w) for w in walks],
+                                    reps=3, warmup=1),
+                "backward_ms": cuda_ms(lambda: L.lstm_tm_backward(layers))}
+        store = {**kernel_work("lstm_pair_train", T=T_EVENTS, B=B, S=S),
+                 "max_abs_err": c_err,
+                 "ms": cuda_ms(lambda: L.lstm_pair_train_cuda(xpair, *wF[2:], *wB[2:])),
+                 "inference_ms": cuda_ms(
+                     lambda: L.lstm_pair_recurrence_cuda(xpair, *wF[2:], *wB[2:])),
+                 "plain_ms": cuda_ms(
+                     lambda: (lstm_tm(xs[0], *wF[2:], False, return_c=True),
+                              lstm_tm(xs[1], *wB[2:], True, return_c=True)),
+                     reps=3, warmup=1)}
+    emit({"phase": "lstm_backward_kernel", "B": B, "T": T_EVENTS, "S": S,
+          "walk": walk, "store_c": store,
+          "spill_bytes": {k: v for k, v in SPILLS.items() if "lstm" in k}})
+    return walk, store
+
+
+def lattice_window(model_net, kind: str):
+    """A window batch for the lattice of `kind` ("transducer" or "crf"):
+    LATTICE_WINDOWS' B seq_batch windows from the simulator (seeded), the
+    last row's sequence removed; through the model's real weights, its log
+    posterior [T, B, 1025] or transitions [T, B, 25] (time-major) and the
+    kmer states [B, L] int32 (the CRF: their bases, state % 4)."""
+    import torch
+
+    from scrappie_torch.train.simulate import SquiggleSimulator
+
+    import numpy as np
+
+    B, nsample, L = LATTICE_WINDOWS[kind]
+    sim = SquiggleSimulator(seed=SEED + 160 + len(kind), device="cuda")
+    sig, seq = sim.seq_batch(B, nsample, L)
+    seq[-1] = -1
+    if kind == "crf":
+        seq = np.where(seq >= 0, seq % 4, -1)
+    with torch.no_grad():
+        x = model_net(torch.as_tensor(sig, device="cuda"))
+    return (x.transpose(0, 1).contiguous(),
+            torch.as_tensor(seq, dtype=torch.int32, device="cuda"))
+
+
+def lattice_pair(kind: str, x, seq, gen, twin: bool, global_rows: bool = False):
+    """The kind's kernels (forward, then backward on a seeded gP, and gZ
+    for the CRF; with global_rows their score rows in global memory, the
+    mode of an L above shared memory's) or with twin their plain twins ->
+    (log P, logZ or None, the gradient)."""
+    import torch
+
+    from scrappie_torch.ops import lattice as tl
+
+    B = seq.shape[0]
+    gP = torch.randn(B, generator=gen, device="cuda")
+    if kind == "transducer":
+        if twin:
+            logp, alpha, m = tl.lattice_fwd_plain(x, seq, 0.0, 4.0, 4.0)
+            return logp, None, tl.lattice_bwd_plain(x, seq, alpha, m, gP, 0.0, 4.0, 4.0)
+        logp, alpha, m = tl.lattice_fwd_cuda(x, seq, 0.0, 4.0, 4.0, global_rows)
+        return logp, None, tl.lattice_bwd_cuda(x, seq, alpha, m, gP, 0.0, 4.0, 4.0,
+                                               global_rows)
+    gZ = torch.randn(B, generator=gen, device="cuda")
+    if not twin:
+        logp, logz, *saved = tl.crf_lattice_fwd_cuda(x, seq, 4.0, global_rows)
+        return logp, logz, tl.crf_lattice_bwd_cuda(x, seq, *saved, gP, gZ, 4.0,
+                                                   global_rows)
+    logp, alpha, m = tl.crf_fwd_plain(x, seq, 4.0)
+    logz, z, zm = tl.partition_fwd_plain(x, 4.0)
+    return logp, logz, (tl.crf_bwd_plain(x, seq, alpha, m, gP, 4.0)
+                        + tl.partition_bwd_plain(x, z, zm, gZ, 4.0))
+
+
+def lattice_seeded():
+    """The generator of the lattice checks' output gradients."""
+    import torch
+
+    return torch.Generator(device="cuda").manual_seed(SEED + 161)
+
+
+def check_lattice_case(kind: str, x, seq, what: str, global_rows: bool = False,
+                       want=None) -> tuple[float, tuple]:
+    """The kind's kernels (global_rows: see lattice_pair) against their
+    twins (want: their result on lattice_seeded()'s output gradients, if
+    already taken) on the same inputs and seeded output gradients: log P
+    (and logZ) finite and within LATTICE_RTOL on the rows with a sequence,
+    the sentinel on those without, the gradient within
+    LATTICE_GRAD_TWIN_RTOL of its largest entry and exactly 0 on the
+    transducer's rows without a sequence -> (the largest gradient error,
+    the kernels' result)."""
+    import torch
+
+    has = (seq >= 0).any(1)
+    got = lattice_pair(kind, x, seq, lattice_seeded(), False, global_rows)
+    if want is None:
+        want = lattice_pair(kind, x, seq, lattice_seeded(), True)
+    sync()
+    for a, b, name in zip(got[:2], want[:2], ("log P", "logZ")):
+        if b is None:
+            continue
+        rows = has if name == "log P" else torch.ones_like(has)
+        require(bool(torch.isfinite(a[rows]).all() and (a[rows] > -1e29).all()),
+                f"{kind} {what} {name}: finite")
+        err = float(((a - b).abs() / b.abs())[rows].max())
+        require(err <= LATTICE_RTOL, f"{kind} {what} {name}: rel err {err}")
+        if name == "log P":
+            require(bool((a[~has] < -1e29).all()), f"{kind} {what}: sentinels")
+    require(bool(torch.isfinite(got[2]).all()), f"{kind} {what}: finite gradient")
+    gerr = float((got[2] - want[2]).abs().max() / want[2].abs().max())
+    require(gerr <= LATTICE_GRAD_TWIN_RTOL, f"{kind} {what} gradient: rel err {gerr}")
+    if kind == "transducer":
+        require(not bool(got[2][:, ~has].any()), f"{what}: rows without a sequence get 0")
+    return gerr, got
+
+
+def whole_read_lattice(kind: str, S: int):
+    """Seeded inputs of the kind's lattice at WHOLE_READ_SHAPE, B = 1: a
+    log posterior [T, 1, S] and kmer states, or transitions [T, 1, 25] and
+    bases -> (x, seq, the bytes the kernel's forward keeps for the
+    backward)."""
+    import torch
+
+    TW, LW = WHOLE_READ_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(SEED + 162)
+    if kind == "transducer":
+        x = torch.log_softmax(2.0 * torch.randn((TW, 1, S), generator=g, device="cuda"), -1)
+        seq = torch.randint(0, S - 1, (1, LW), generator=g, device="cuda",
+                            dtype=torch.int32)
+        return x, seq, 4 * ((TW + 1) * (LW + 2) + TW + 1)
+    x = 2.0 * torch.randn((TW, 1, 25), generator=g, device="cuda")
+    seq = torch.randint(0, 4, (1, LW), generator=g, device="cuda", dtype=torch.int32)
+    return x, seq, 4 * ((TW + 1) * (2 * LW + 4) + 10 * (TW + 1))
+
+
+def lattice_twin(part: str, device: str, dtype: str, x, seq, g):
+    """One part of the lattice kernels' plain twins ("transducer"; "crf",
+    the CRF's sequence lattice; "partition", its local partition) in a
+    worker process, on the device in float32 or float64: numpy inputs x,
+    seq and output gradient g -> (log P or logZ, the gradient) as numpy,
+    and the seconds they took."""
+    import torch
+
+    from scrappie_torch.ops import lattice as tl
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(2)
+    x = torch.as_tensor(x, device=device).to(getattr(torch, dtype))
+    seq = torch.as_tensor(seq, device=device)
+    g = torch.as_tensor(g, device=device).to(x.dtype)
+    if part == "transducer":
+        value, alpha, m = tl.lattice_fwd_plain(x, seq, 0.0, 4.0, 4.0)
+        grad = tl.lattice_bwd_plain(x, seq, alpha, m, g, 0.0, 4.0, 4.0)
+    elif part == "crf":
+        value, alpha, m = tl.crf_fwd_plain(x, seq, 4.0)
+        grad = tl.crf_bwd_plain(x, seq, alpha, m, g, 4.0)
+    else:
+        value, z, zm = tl.partition_fwd_plain(x, 4.0)
+        grad = tl.partition_bwd_plain(x, z, zm, g, 4.0)
+    return value.cpu().numpy(), grad.cpu().numpy(), time.perf_counter() - t0
+
+
+def check_lattice_kernels(net, rnet) -> dict:
+    """Each lattice kernel against its twins on log P (and logZ_local)
+    and the gradient (phase lattice_kernels): at its window shape
+    (LATTICE_WINDOWS: rgrgr_r94's log posterior and rnnrf_r94's
+    transitions of simulated windows, the last row without a sequence),
+    there again with its score rows in global memory (the mode of an L
+    whose rows shared memory cannot hold), at L = 1 and 2 on the window's
+    first rows, and at the whole-read shape (WHOLE_READ_SHAPE, seeded
+    inputs): against the twins on the card at the windows' tolerances,
+    and against the twins in float64 (on the host CPU; the CRF lattice's
+    on the card) within LATTICE_RTOL and LATTICE_F64_GRAD_RTOL, the twins'
+    parts all at once in worker processes. Timed at the window (forward
+    and backward, the kernels' median of 5, the twins' single run) and at
+    the whole-read shape (the kernels' median of 3, with the bytes they
+    hold; the twins' seconds, side by side). Returns the table's rows."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    kinds = (("transducer", "lattice_fwdbwd", net), ("crf", "crf_lattice_fwdbwd", rnet))
+    rows, errs = {}, {}
+    for kind, name, model_net in kinds:
+        x, seq = lattice_window(model_net, kind)
+        T, B = x.shape[:2]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        sync()
+        ev[0].record()
+        want = lattice_pair(kind, x, seq, lattice_seeded(), True)
+        ev[1].record()
+        ev[1].synchronize()
+        e = errs[kind] = {}
+        e["window"], got = check_lattice_case(kind, x, seq, "window", want=want)
+        e["window, global rows"] = check_lattice_case(
+            kind, x, seq, "window, global rows", True, want)[0]
+        for L in (1, 2):
+            e[f"L={L}"] = check_lattice_case(kind, x[:, :2].contiguous(),
+                                             seq[:2, :L].contiguous(), f"L={L}")[0]
+        valid = int((seq >= 0).sum())
+        distinct = sum(len(set(r[r >= 0].tolist())) for r in seq.cpu())
+        gen = torch.Generator(device="cuda")
+        work = (kernel_work(name, T=T, B=B, S=x.shape[2], L=seq.shape[1],
+                            distinct=distinct, valid=valid) if kind == "transducer"
+                else kernel_work(name, T=T, B=B, L=seq.shape[1], valid=valid))
+        rows[name] = {**work, "T": T, "B": B, "L": seq.shape[1],
+                      "max_abs_err": float((got[2] - want[2]).abs().max()),
+                      "ms": cuda_ms(lambda: lattice_pair(kind, x, seq, gen, False), reps=5),
+                      "plain_ms": ev[0].elapsed_time(ev[1])}
+        del got, want
+    # the whole-read shape: the kernels timed, then held against the twins
+    TW, LW = WHOLE_READ_SHAPE
+    whole = {}
+    for kind, name, _ in kinds:
+        xw, sw, held = whole_read_lattice(kind, 1025)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gen = torch.Generator(device="cuda")
+        ms = cuda_ms(lambda: lattice_pair(kind, xw, sw, gen, False), reps=3, warmup=1)
+        wv = int((sw >= 0).sum())
+        rows[name]["whole_read"] = {
+            "T": TW, "L": LW, "ms": ms, "bytes_held": held,
+            "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            **(kernel_work(name, T=TW, B=1, S=xw.shape[2], L=LW, valid=wv,
+                           distinct=len(set(sw[0].tolist())))
+               if kind == "transducer" else kernel_work(name, T=TW, B=1, L=LW, valid=wv))}
+        whole[kind] = (xw, sw)
+    # the twins of each part (the transducer; the CRF's lattice and its
+    # partition) in float32 on the card and in float64 on the host CPU
+    # (the CRF lattice's, the longest there, on the card too), all at once
+    # in worker processes: a twin's step is tens of small launches or host
+    # ops, bound by the host, over 30 720 steps
+    parts = {"transducer": ("transducer",), "crf": ("crf", "partition")}
+    dtypes = ("float32", "float64")
+    place = lambda part, dtype: "cpu" if dtype == "float64" and part != "crf" else "cuda"
+    npart = sum(len(v) for v in parts.values()) * len(dtypes)
+    twin_s = {}
+    with ProcessPoolExecutor(npart, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = {}
+        for kind, (xw, sw) in whole.items():
+            g = lattice_seeded()  # lattice_pair draws the output gradients so
+            gP, gZ = (torch.randn(1, generator=g, device="cuda").cpu().numpy()
+                      for _ in range(2))
+            xn, sn = xw.cpu().numpy(), sw.cpu().numpy()
+            for part in parts[kind]:
+                for dtype in dtypes:
+                    jobs[kind, part, dtype] = pool.submit(
+                        lattice_twin, part, place(part, dtype), dtype, xn, sn,
+                        gZ if part == "partition" else gP)
+        for kind, (xw, sw) in whole.items():
+            got = lattice_pair(kind, xw, sw, lattice_seeded(), False)
+            for dtype in dtypes:
+                res = [jobs[kind, part, dtype].result() for part in parts[kind]]
+                for part, r in zip(parts[kind], res):
+                    twin_s[f"{part} {dtype} {place(part, dtype)}"] = r[2]
+                want = (res[0][0], res[1][0] if kind == "crf" else None,
+                        sum(r[1] for r in res))
+                if dtype == "float32":
+                    want = [None if v is None else torch.as_tensor(v, device="cuda")
+                            for v in want]
+                    errs[kind]["whole read"] = check_lattice_case(
+                        kind, xw, sw, "whole read", want=want)[0]
+                    continue
+                f64 = {n: float(np.abs(a.double().cpu().numpy() - r).max() / np.abs(r).max())
+                       for n, a, r in zip(("log P", "logZ", "gradient"), got, want)
+                       if r is not None}
+                for n, err in f64.items():
+                    limit = LATTICE_F64_GRAD_RTOL if n == "gradient" else LATTICE_RTOL
+                    require(err <= limit, f"{kind} whole read {n} against float64: "
+                                          f"rel err {err} <= {limit}")
+                errs[kind]["whole read, float64"] = f64
+    for kind, name, _ in kinds:
+        rows[name]["grad_max_rel_err"] = errs[kind]
+        rows[name]["whole_read"]["twin_s"] = {k: v for k, v in twin_s.items()
+                                              if k.split()[0] in parts[kind]}
+        emit({"phase": "lattice_kernels", "kind": kind, "kernel": name, **rows[name]})
+    return rows
 
 
 def compare_routes(nets: list, card: str) -> dict:
@@ -2172,31 +2649,37 @@ def dtw_tie_case(npos: int, T: int, rng):
     return sig, params
 
 
-def dtw_twin(args, viterbi: bool):
-    """The DTW's twin on the host CPU, in a worker process: (final, moves,
-    end_src, seconds)."""
+def dtw_twin(args, viterbi: bool, device: str = "cpu"):
+    """The DTW's twin in a worker process, on the host CPU or the card, on
+    the host's copy of the inputs: (final, moves, end_src, seconds), on the
+    host."""
     import torch
 
     from scrappie_torch.ops import dtw as d
 
     torch.set_num_threads(1)
+    args = [a.to(device) if isinstance(a, torch.Tensor) else a for a in args]
     t0 = time.perf_counter()
     out = d.squiggle_match_plain(*args, viterbi=viterbi)
+    out = [None if o is None else o.cpu() for o in out]
     return (*out, time.perf_counter() - t0)
 
 
-def submit_dtw_twins(pool, sig, params) -> dict:
-    """Start the Viterbi twin of one input on the pool, prob_back 0 and
-    0.1, on the host's copy of the inputs (match_inputs computes them on the
-    host for both devices). The DP only adds, divides and takes maxima, so
-    the host's twin is the card's bit for bit."""
+def submit_dtw_twins(pool, sig, params, viterbi: bool = True) -> dict:
+    """Start the twin of one input on the pool, prob_back 0 and 0.1, on the
+    host's copy of the inputs (match_inputs computes them on the host for
+    both devices): Viterbi on the host CPU (the DP only adds, divides and
+    takes maxima, so the host's twin is the card's bit for bit), or the
+    forward variant on the card (its expf and log1pf are the kernel's)
+    under the keys ("forward", prob_back)."""
     from scrappie_torch.decode.dtw import match_inputs
 
     jobs = {}
     for prob_back in (0.0, 0.1):
         args = (sig.cpu(), *match_inputs(params, 1.0, prob_back, "cpu"), prob_back,
                 *DTW_OPTIONS.values())
-        jobs[prob_back] = pool.submit(dtw_twin, args, True)
+        key = prob_back if viterbi else ("forward", prob_back)
+        jobs[key] = pool.submit(dtw_twin, args, viterbi, "cpu" if viterbi else "cuda")
     return jobs
 
 
@@ -2205,8 +2688,9 @@ def check_dtw(sig, params, what: str, jobs: dict, clusters=()) -> dict:
     Viterbi finals, moves and end sources identical to the host twin's
     (jobs, from submit_dtw_twins), and the walk kernel's path identical to
     the host walk's; forward finals within FORWARD_RTOL of the twin run on
-    the card, whose expf and log1pf are the kernel's (the host's differ by
-    ulps, which a long read adds up). The kernel runs on DTW_CLUSTER CTAs
+    the card (jobs too), whose expf and log1pf are the kernel's (the
+    host's differ by ulps, which a long read adds up). The kernel runs on
+    DTW_CLUSTER CTAs
     and on each other cluster size in `clusters`. Returns the largest
     differences and the host twin's seconds for Viterbi with prob_back 0."""
     import torch
@@ -2224,7 +2708,7 @@ def check_dtw(sig, params, what: str, jobs: dict, clusters=()) -> dict:
             if not prob_back:
                 out["plain_s"] = seconds
         else:
-            fp, _, _ = d.squiggle_match_plain(*args, viterbi=False)
+            fp = jobs["forward", prob_back].result()[0]
         fp = fp.cuda()
         for k in (d.DTW_CLUSTER, *clusters):
             fk, mk, ek = d.squiggle_match_tm(*args, viterbi=viterbi, cluster=k)
@@ -2257,11 +2741,13 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
     MAP_SAMPLES samples), the global-state kernel above the cluster's
     capacity, each Viterbi twin run on the host CPU in DTW_TWIN_WORKERS
     processes while the card times the DP at the main path's size at each
-    cluster size (with the card's cudaOccupancyMaxActiveClusters) and runs
-    the kernels (at the main path's size on each cluster size the card
-    places) and the forward twins; then the global kernel's and the
-    forward variant's times, and the walk's (at the small size too) and the
-    path's copy to the host. Returns the DP's and the walk's table rows."""
+    cluster size (with the card's cudaOccupancyMaxActiveClusters), the
+    other cases, the global kernel and the forward variant, and the walk
+    (at the small size too) and the path's copy to the host; then, the
+    card's times taken, the forward twins run on the card in
+    DTW_CARD_TWIN_WORKERS processes while the kernels run (at the main
+    path's size on each cluster size the card places) and are held to the
+    twins. Returns the DP's and the walk's table rows."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2278,14 +2764,15 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
         ("ties", DTW_TIES, dtw_tie_case),
         ("global", (npos_global, DTW_GLOBAL_SAMPLES), dtw_case),
         ("timed", (MAP_BASES, MAP_SAMPLES), dtw_case))}
-    sig, params = cases["timed"]
+    card_args = lambda name: (cases[name][0], *match_inputs(cases[name][1], 1.0, 0.0, "cuda"),
+                              0.0, *DTW_OPTIONS.values())
+    args = card_args("timed")
     npos, T = MAP_BASES, MAP_SAMPLES
-    args = (sig, *match_inputs(params, 1.0, 0.0, "cuda"), 0.0, *DTW_OPTIONS.values())
-    rows, clusters = {}, {}
-    with ProcessPoolExecutor(DTW_TWIN_WORKERS,
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
-        # the longest twins first; the card times the main path's size
-        # while they run
+    rows, clusters, times = {}, {}, {}
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(DTW_TWIN_WORKERS, mp_context=spawn) as pool:
+        # the longest twins first; the card takes the phase's times while
+        # they run
         jobs = {name: submit_dtw_twins(pool, *cases[name])
                 for name in ("timed", "ties", "global", "shared")}
         for k in DTW_CLUSTERS:
@@ -2298,55 +2785,61 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
                     forward_ms=cuda_ms(lambda: d.squiggle_match_tm(
                         *args, viterbi=False, cluster=k), reps=3, warmup=1),
                     layout=d.cluster_layout(npos, k)._asdict())
-        for name in ("shared", "ties", "global", "timed"):
-            csig, cparams = cases[name]
-            cnpos, cT = cparams.shape[0], csig.shape[0]
-            require((cnpos <= d.DTW_MAX_SHARED_NPOS) == (name != "global"),
-                    f"dtw {name} case {cnpos} positions takes its kernel")
-            others = [k for k in DTW_CLUSTERS if k != d.DTW_CLUSTER
-                      and clusters[k]["max_active_clusters"]] if name == "timed" else []
-            row = check_dtw(csig, cparams, f"{name}, {cnpos} x {cT}", jobs.pop(name),
-                            others)
-            cargs = (csig, *match_inputs(cparams, 1.0, 0.0, "cuda"), 0.0,
-                     *DTW_OPTIONS.values())
-            row.update(npos=cnpos, T=cT, plain_ms=row.pop("plain_s") * 1e3)
-            if name != "timed":
-                row["ms"] = cuda_ms(lambda: d.squiggle_match_tm(*cargs), reps=5)
-            if name == "shared":  # the walk at the first shape too
-                sfinal, smoves, send = d.squiggle_match_tm(*cargs)
-                row["walk_ms"] = cuda_ms(lambda: d.dtw_walk(sfinal, smoves, send),
-                                         reps=5)
-                t0 = time.perf_counter()
-                d.dtw_walk_plain(sfinal, smoves, send)
-                row["walk_plain_ms"] = (time.perf_counter() - t0) * 1e3
-            rows[name] = row
-            if name == "ties":  # the cluster kernel agrees with the global one
-                fg, mg, eg = d.squiggle_match_tm(*cargs, global_state=True)
-                fc, mc, ec = d.squiggle_match_tm(*cargs)
-                sync()
-                require(torch.equal(mg, mc) and torch.equal(eg, ec) and torch.equal(fg, fc),
-                        "dtw global and cluster kernels identical (ties)")
-    final, moves, end_src = d.squiggle_match_tm(*args)
-    path = d.dtw_walk(final, moves, end_src)
-    t0 = time.perf_counter()
-    d.dtw_walk_plain(final, moves, end_src)
-    walk_plain_ms = (time.perf_counter() - t0) * 1e3
-    timed = {**rows["timed"], "cluster": d.DTW_CLUSTER, "clusters": clusters,
-             "ms": clusters[d.DTW_CLUSTER]["ms"],
-             "global_ms": cuda_ms(lambda: d.squiggle_match_tm(*args, global_state=True),
-                                  reps=3, warmup=1),
-             "forward_ms": cuda_ms(lambda: d.squiggle_match_tm(*args, viterbi=False),
-                                   reps=3, warmup=1),
-             "moves_bytes": moves.numel() + end_src.numel() * 4,
-             **kernel_work("dtw", T=T, npos=npos)}
+        for name in ("shared", "ties", "global"):
+            cargs = card_args(name)
+            times[name] = {"ms": cuda_ms(lambda: d.squiggle_match_tm(*cargs), reps=5)}
+        # the walk at the first shape too
+        sfinal, smoves, send = d.squiggle_match_tm(*card_args("shared"))
+        times["shared"]["walk_ms"] = cuda_ms(lambda: d.dtw_walk(sfinal, smoves, send), reps=5)
+        t0 = time.perf_counter()
+        d.dtw_walk_plain(sfinal, smoves, send)
+        times["shared"]["walk_plain_ms"] = (time.perf_counter() - t0) * 1e3
+        del sfinal, smoves, send
+        final, moves, end_src = d.squiggle_match_tm(*args)
+        path = d.dtw_walk(final, moves, end_src)
+        t0 = time.perf_counter()
+        d.dtw_walk_plain(final, moves, end_src)
+        walk_plain_ms = (time.perf_counter() - t0) * 1e3
+        timed = {"cluster": d.DTW_CLUSTER, "clusters": clusters,
+                 "ms": clusters[d.DTW_CLUSTER]["ms"],
+                 "global_ms": cuda_ms(lambda: d.squiggle_match_tm(*args, global_state=True),
+                                      reps=3, warmup=1),
+                 "forward_ms": cuda_ms(lambda: d.squiggle_match_tm(*args, viterbi=False),
+                                       reps=3, warmup=1),
+                 "moves_bytes": moves.numel() + end_src.numel() * 4,
+                 **kernel_work("dtw", T=T, npos=npos)}
+        walk = {"T": T, "max_abs_err": 0.0,
+                "ms": cuda_ms(lambda: d.dtw_walk(final, moves, end_src), reps=5),
+                "plain_ms": walk_plain_ms, "path_bytes": path.numel() * 4,
+                "path_copy_ms": cuda_ms(lambda: path.cpu(), reps=5),
+                **kernel_work("dtw_walk", T=T)}
+        del final, moves, end_src, path
+        with ProcessPoolExecutor(DTW_CARD_TWIN_WORKERS, mp_context=spawn) as card_pool:
+            for name in ("timed", "ties", "global", "shared"):
+                jobs[name].update(submit_dtw_twins(card_pool, *cases[name], viterbi=False))
+            for name in ("shared", "ties", "global", "timed"):
+                csig, cparams = cases[name]
+                cnpos, cT = cparams.shape[0], csig.shape[0]
+                require((cnpos <= d.DTW_MAX_SHARED_NPOS) == (name != "global"),
+                        f"dtw {name} case {cnpos} positions takes its kernel")
+                others = [k for k in DTW_CLUSTERS if k != d.DTW_CLUSTER
+                          and clusters[k]["max_active_clusters"]] if name == "timed" else []
+                row = check_dtw(csig, cparams, f"{name}, {cnpos} x {cT}", jobs.pop(name),
+                                others)
+                row.update(npos=cnpos, T=cT, plain_ms=row.pop("plain_s") * 1e3,
+                           **times.get(name, {}))
+                rows[name] = row
+                if name == "ties":  # the cluster kernel agrees with the global one
+                    cargs = card_args(name)
+                    fg, mg, eg = d.squiggle_match_tm(*cargs, global_state=True)
+                    fc, mc, ec = d.squiggle_match_tm(*cargs)
+                    sync()
+                    require(torch.equal(mg, mc) and torch.equal(eg, ec) and torch.equal(fg, fc),
+                            "dtw global and cluster kernels identical (ties)")
+    timed = {**rows["timed"], **timed}
     timed["us_per_sample"] = timed["ms"] * 1e3 / T
     # the table's error: the largest difference of any check
     timed["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
-    walk = {"T": T, "max_abs_err": 0.0,
-            "ms": cuda_ms(lambda: d.dtw_walk(final, moves, end_src), reps=5),
-            "plain_ms": walk_plain_ms, "path_bytes": path.numel() * 4,
-            "path_copy_ms": cuda_ms(lambda: path.cpu(), reps=5),
-            **kernel_work("dtw_walk", T=T)}
     emit({"phase": "dtw_kernel", "checked": rows, "timed": timed, "walk": walk,
           "card": card})
     return timed, walk
@@ -2892,16 +3385,83 @@ def cpu_value_and_grad(model: str, params: dict, sig, labels):
     return float(loss), {k: g.numpy() for k, g in grads.items()}
 
 
+def loss_of(kind: str, model: str):
+    """The loss a lattice or whole-read step of `kind` takes its gradient
+    of, lfn(params, x, seq): "lattice" (train/lattice.make_lattice_train_
+    step's), "transducer", "crf" or "head" (train/wholeread's steps', chunk
+    WHOLE_CHUNK)."""
+    from scrappie_torch.train import lattice, wholeread
+
+    if kind == "lattice":
+        return lattice.lattice_loss(model)
+    if kind == "transducer":
+        return wholeread.transducer_wholeread_loss(model, chunk=WHOLE_CHUNK)
+    if kind == "crf":
+        return wholeread.crf_wholeread_loss(model, chunk=WHOLE_CHUNK)
+    return wholeread.head_loss(chunk=WHOLE_CHUNK)
+
+
+def value_and_grad_on(kind: str, model: str, params: dict, x, seq, device):
+    """loss_of(kind, model)'s value and gradients at params (numpy) on x
+    and seq (numpy) on the device -> (loss, {key: numpy gradient})."""
+    import torch
+
+    from scrappie_torch.train.trainer import value_and_grad_of
+
+    loss, grads = value_and_grad_of(
+        loss_of(kind, model),
+        {k: torch.as_tensor(v, device=device) for k, v in params.items()},
+        torch.as_tensor(x, dtype=torch.float32, device=device),
+        torch.as_tensor(seq, device=device).long())
+    return float(loss), {k: g.cpu().numpy() for k, g in grads.items()}
+
+
+def cpu_value_and_grad_on(kind: str, model: str, params: dict, x, seq):
+    """value_and_grad_on on the CPU (the plain twins), in a worker."""
+    import torch
+
+    torch.set_num_threads(1)
+    return value_and_grad_on(kind, model, params, x, seq, "cpu")
+
+
+def compare_with_cpu(what: str, card, cpu, rtol: float) -> dict:
+    """The card's (loss, gradients) against the CPU's: the loss within
+    TRAIN_LOSS_RTOL, each gradient within rtol of its largest entry."""
+    import numpy as np
+
+    (loss, grads), (cpu_loss, cpu_grads) = card, cpu
+    loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
+    grad_rel = {k: float(np.abs(grads[k] - g).max()
+                         / max(float(np.abs(g).max()), 1e-30))
+                for k, g in cpu_grads.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    require(loss_rel <= TRAIN_LOSS_RTOL,
+            f"{what}: loss {loss} against the CPU's {cpu_loss}")
+    require(grad_rel[worst] <= rtol,
+            f"{what}: gradient {worst} rel err {grad_rel[worst]} <= {rtol}")
+    return {"cpu_loss_rel_err": loss_rel, "cpu_grad_max_rel_err": grad_rel[worst],
+            "cpu_grad_worst": worst}
+
+
+def require_kernels(what: str, launched: dict, names) -> None:
+    for name in names:
+        require(launched.get(name, 0) > 0, f"kernel {name} launched on {what}")
+
+
 def main_path_train(card: str, pool) -> dict:
     """train(model, device="cuda", **TRAIN) for each of TRAIN_MODELS from a
     seeded random init (phase main_path_train): every loss finite, the last
     below the first, each kernel of TRAIN_KERNELS launched (the counts set
     to 0 just before the run, read just after), and one backward walk
-    launched for each forward recurrence; the first step's loss and every
-    gradient, on the same batch, against the port's CPU run (in a worker
-    process) within TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL; then
-    TRAIN_PROFILE_STEPS steps under the profiler (device busy time, idle
-    share). Returns the launches summed over the models."""
+    launched for each forward recurrence; then TRAIN_PROFILE_STEPS steps
+    under the profiler (device busy time, idle share). Then the lattice
+    runs and the whole-read steps (main_path_lattice, main_path_wholeread).
+    Last, after every timed run (they are host-bound, and busy workers
+    beside them would slow them), each run's first step's loss and every
+    gradient, on the same batch, against the port's CPU run in the pool's
+    worker processes (compare_with_cpu; TRAIN_GRAD_RTOL, LATTICE_GRAD_RTOL
+    for the lattice losses), and each run's line. Returns the launches
+    summed over every run."""
     import numpy as np
     import torch
 
@@ -2911,20 +3471,24 @@ def main_path_train(card: str, pool) -> dict:
     from scrappie_torch.train.simulate import SquiggleSimulator
 
     total = dict.fromkeys(ops.LAUNCHES, 0)
+    runs = []
     for i, model in enumerate(TRAIN_MODELS):
-        spec = RAW_MODELS[model]
+        spec = RAW_MODELS.get(model)
+        kind = "events" if spec is None else spec.kind
         params = random_params(model, SEED + 130 + i)
         seed = SEED + 140 + i
+        # train() draws its first batch from a simulator of the same seed
         sim = SquiggleSimulator(seed=seed, device="cuda")
-        make = (sim.crf_labelled_batch if spec.kind == "rnnrf"
-                else sim.labelled_batch)
-        sig, labels = make(TRAIN["batch"], TRAIN["nsample"], spec.stride)
-        job = pool.submit(cpu_value_and_grad, model, params, sig, labels)
+        if spec is None:
+            sig, labels = sim.detected_events_batch(TRAIN["batch"], TRAIN["nsample"] // 10)
+        else:
+            make = (sim.crf_labelled_batch if spec.kind == "rnnrf"
+                    else sim.labelled_batch)
+            sig, labels = make(TRAIN["batch"], TRAIN["nsample"], spec.stride)
         loss, grads = trainer.value_and_grad(
             model, {k: torch.as_tensor(v, device="cuda") for k, v in params.items()},
             sig, labels)
         sync()
-        # train() draws its first batch from a simulator of the same seed
         ops.reset_launches()
         t0 = time.perf_counter()
         trained, losses = trainer.train(model, params=params, seed=seed,
@@ -2937,13 +3501,16 @@ def main_path_train(card: str, pool) -> dict:
                 f"train {model}: the loss falls ({losses[0]} -> {losses[-1]})")
         require(all(np.isfinite(v).all() for v in trained.values()),
                 f"train {model}: finite parameters")
-        for name in TRAIN_KERNELS[spec.kind]:
-            require(launched.get(name, 0) > 0, f"kernel {name} launched on "
-                                               f"train {model}")
+        require_kernels(f"train {model}", launched, TRAIN_KERNELS[kind])
         n = lambda name: launched.get(name, 0)
-        require(n("gru_recurrence_bwd") == n("gru_recurrence"),
-                f"train {model}: a backward walk launched for each recurrence")
-        if spec.kind == "rnnrf":
+        if kind == "events":
+            require(n("lstm_recurrence_bwd") == n("lstm_pair_train")
+                    and n("lstm_pair") == 0,
+                    f"train {model}: a backward walk for each stored forward")
+        else:
+            require(n("gru_recurrence_bwd") == n("gru_recurrence"),
+                    f"train {model}: a backward walk launched for each recurrence")
+        if kind == "rnnrf":
             require(n("crf_partition_grad") == n("crf_partition") == TRAIN["steps"],
                     f"train {model}: a partition gradient launched a step")
         require(abs(losses[0] - float(loss)) <= TRAIN_LOSS_RTOL * abs(float(loss)),
@@ -2951,29 +3518,203 @@ def main_path_train(card: str, pool) -> dict:
                 f"batch's ({float(loss)})")
         for k, v in launched.items():
             total[k] += v
-        cpu_loss, cpu_grads = job.result()
-        loss_rel = abs(float(loss) - cpu_loss) / abs(cpu_loss)
-        grad_rel = {k: float(np.abs(grads[k].cpu().numpy() - g).max()
-                             / max(float(np.abs(g).max()), 1e-30))
-                    for k, g in cpu_grads.items()}
-        worst = max(grad_rel, key=grad_rel.get)
-        require(loss_rel <= TRAIN_LOSS_RTOL,
-                f"train {model}: loss {float(loss)} against the CPU's {cpu_loss}")
-        require(grad_rel[worst] <= TRAIN_GRAD_RTOL,
-                f"train {model}: gradient {worst} rel err {grad_rel[worst]} <= "
-                f"{TRAIN_GRAD_RTOL}")
-        emit({"phase": "main_path_train", "model": model, **TRAIN,
-              "losses": losses, "seconds": seconds,
-              "seconds_per_step": seconds / TRAIN["steps"],
-              "launches": launched, "cpu_loss_rel_err": loss_rel,
-              "cpu_grad_max_rel_err": grad_rel[worst], "cpu_grad_worst": worst,
-              "card": card})
+        runs.append((f"train {model}",
+                     {"phase": "main_path_train", "model": model, **TRAIN,
+                      "losses": losses, "seconds": seconds,
+                      "seconds_per_step": seconds / TRAIN["steps"],
+                      "launches": launched, "card": card},
+                     (float(loss), {k: g.cpu().numpy() for k, g in grads.items()}),
+                     (cpu_value_and_grad, model, params, sig, labels), TRAIN_GRAD_RTOL))
         profiled(f"train {model}, {TRAIN_PROFILE_STEPS} steps",
                  lambda: trainer.train(model, params=params, seed=seed,
                                        log_every=0, device="cuda",
                                        **{**TRAIN, "steps": TRAIN_PROFILE_STEPS}),
                  card)
+    runs += main_path_lattice(card, total)
+    runs += main_path_wholeread(card, total)
+    jobs = [pool.submit(*job) for _, _, _, job, _ in runs]
+    for (what, line, card_vg, _, rtol), job in zip(runs, jobs):
+        emit({**line, **compare_with_cpu(what, card_vg, job.result(), rtol)})
     return total
+
+
+def lattice_batches(model: str, L: int) -> list:
+    """TRAIN["steps"] seq_batch windows for the lattice run of `model`."""
+    from scrappie_torch.train.simulate import SquiggleSimulator
+
+    sim = SquiggleSimulator(seed=SEED + 180 + L, device="cuda")
+    return [sim.seq_batch(TRAIN["batch"], TRAIN["nsample"], L)
+            for _ in range(TRAIN["steps"])]
+
+
+def main_path_lattice(card: str, total: dict) -> list:
+    """make_lattice_train_step for each of LATTICE_RUNS on the card (phase
+    main_path_train, run "lattice"): TRAIN["steps"] steps on seq_batch
+    windows from a seeded random init, every loss finite and the last
+    below the first, the first its batch's value_and_grad's, each kernel of
+    LATTICE_KERNELS launched; then TRAIN_PROFILE_STEPS steps under the
+    profiler. Adds the launches to total; returns main_path_train's runs
+    (the first step against the CPU within LATTICE_GRAD_RTOL)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch import ops
+    from scrappie_torch.models.specs import RAW_MODELS
+    from scrappie_torch.train.lattice import make_lattice_train_step
+    from scrappie_torch.train.optim import FiniteClippedAdam
+
+    runs = []
+    for i, (model, L) in enumerate(LATTICE_RUNS):
+        params = random_params(model, SEED + 185 + i)
+        batches = lattice_batches(model, L)
+        card_vg = value_and_grad_on("lattice", model, params, *batches[0], "cuda")
+        sync()
+
+        def run(steps):
+            opt = FiniteClippedAdam({k: torch.as_tensor(v, device="cuda").clone()
+                                     for k, v in params.items()}, TRAIN["lr"])
+            step = make_lattice_train_step(model, opt)
+            return [float(step(*b)) for b in batches[:steps]], opt
+
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        losses, opt = run(TRAIN["steps"])
+        sync()
+        seconds = time.perf_counter() - t0
+        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+        what = f"lattice {model}"
+        require(all(np.isfinite(losses)), f"{what}: every loss finite")
+        require(losses[-1] < losses[0],
+                f"{what}: the loss falls ({losses[0]} -> {losses[-1]})")
+        require(all(bool(torch.isfinite(v).all()) for v in opt.params.values()),
+                f"{what}: finite parameters")
+        require_kernels(what, launched, LATTICE_KERNELS[RAW_MODELS[model].kind])
+        require(abs(losses[0] - card_vg[0]) <= TRAIN_LOSS_RTOL * abs(card_vg[0]),
+                f"{what}: the first step's loss is its batch's")
+        for k, v in launched.items():
+            total[k] += v
+        runs.append((what, {"phase": "main_path_train", "run": "lattice", "model": model,
+                            "L": L, **TRAIN, "losses": losses, "seconds": seconds,
+                            "seconds_per_step": seconds / TRAIN["steps"],
+                            "launches": launched, "card": card},
+                     card_vg, (cpu_value_and_grad_on, "lattice", model, params,
+                               *batches[0]), LATTICE_GRAD_RTOL))
+        profiled(f"lattice {model}, {TRAIN_PROFILE_STEPS} steps",
+                 lambda: run(TRAIN_PROFILE_STEPS), card)
+    return runs
+
+
+def whole_read():
+    """A simulated read (squiggle_r94 on the card, seeded) of at least
+    WHOLE_SAMPLES samples, with the attributes train/wholeread's region
+    functions read."""
+    import types
+
+    from scrappie_torch.train.simulate import SquiggleSimulator
+    from scrappie_torch.utils.maths import medmad_normalise
+
+    sim = SquiggleSimulator(seed=SEED + 190, device="cuda")
+    sig, bases, base_at = sim.simulate_read(WHOLE_SAMPLES // 6)
+    require(len(sig) >= WHOLE_SAMPLES, f"whole read: {len(sig)} samples")
+    return types.SimpleNamespace(norm=medmad_normalise(sig), base_at=base_at,
+                                 bases=bases, name="whole")
+
+
+# The whole-read steps: (kind, model, the region function)
+WHOLE_RUNS = (("transducer", "rgrgr_r94", "region_seqstates"),
+              ("crf", "rnnrf_r94", "region_sequence"),
+              ("head", "rnnrf_r94", "region_sequence"))
+
+
+def wholeread_inputs(read, kind: str, model: str, region: str, params: dict,
+                     nsample: int):
+    """(x, seq [1, L]) of the read's region of nsample samples for the
+    kind's step: the signal [1, Tsig, 1], or for "head" rnnrf_r94's
+    features [1, T, 96] under params on the card."""
+    import torch
+
+    from scrappie_torch.models import forward
+    from scrappie_torch.models.specs import RAW_MODELS
+    from scrappie_torch.train import wholeread
+
+    spec = RAW_MODELS[model]
+    sig, seq = getattr(wholeread, region)(read, nsample, spec.stride, WHOLE_CHUNK)
+    x = sig[None, :, None]
+    if kind == "head":
+        with torch.no_grad():
+            x = forward.rnnrf_features(
+                {k: torch.as_tensor(v, device="cuda") for k, v in params.items()},
+                torch.as_tensor(x, device="cuda"),
+                conv_activation=spec.conv_activation, stride=spec.stride).cpu().numpy()
+    return x, seq[None]
+
+
+def main_path_wholeread(card: str, total: dict) -> list:
+    """One step of each of WHOLE_RUNS on the card (phase main_path_train,
+    run "wholeread"): make_wholeread_transducer_step (rgrgr_r94),
+    make_wholeread_step and make_head_step (rnnrf_r94) on the simulated
+    region of WHOLE_SAMPLES samples (12 288 and 30 720 blocks, chunk
+    WHOLE_CHUNK), its loss finite and the lattice kernel launched, with its
+    seconds and peak device memory; then the step under the profiler. Adds
+    the launches to total; returns main_path_train's runs (the loss and
+    gradients on the region's first WHOLE_CPU_BLOCKS blocks against the
+    CPU's within LATTICE_GRAD_RTOL)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch import ops
+    from scrappie_torch.models.specs import RAW_MODELS
+    from scrappie_torch.train import wholeread
+    from scrappie_torch.train.optim import FiniteClippedAdam
+
+    makers = {"transducer": lambda m, o: wholeread.make_wholeread_transducer_step(
+                  m, o, chunk=WHOLE_CHUNK),
+              "crf": lambda m, o: wholeread.make_wholeread_step(m, o, chunk=WHOLE_CHUNK),
+              "head": lambda m, o: wholeread.make_head_step(o, chunk=WHOLE_CHUNK)}
+    kernels = {"transducer": ("lattice_fwdbwd", "gru_recurrence_bwd"),
+               "crf": ("crf_lattice_fwdbwd", "crf_partition_grad", "gru_recurrence_bwd"),
+               "head": ("crf_lattice_fwdbwd", "crf_partition_grad")}
+    read = whole_read()
+    runs = []
+    for i, (kind, model, region) in enumerate(WHOLE_RUNS):
+        what = f"wholeread {kind} {model}"
+        params = random_params(model, SEED + 195 + i)
+        stride = RAW_MODELS[model].stride
+        full = wholeread_inputs(read, kind, model, region, params, WHOLE_SAMPLES)
+        cut = wholeread_inputs(read, kind, model, region, params,
+                               WHOLE_CPU_BLOCKS * stride)
+        if kind == "head":
+            params = {k: params[k] for k in wholeread.HEAD_KEYS}
+        card_vg = value_and_grad_on(kind, model, params, *cut, "cuda")
+
+        def run():
+            opt = FiniteClippedAdam({k: torch.as_tensor(v, device="cuda").clone()
+                                     for k, v in params.items()}, TRAIN["lr"])
+            return float(makers[kind](model, opt)(*full))
+
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        loss = run()
+        sync()
+        seconds = time.perf_counter() - t0
+        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+        require(bool(np.isfinite(loss)), f"{what}: the loss finite")
+        require_kernels(what, launched, kernels[kind])
+        for k, v in launched.items():
+            total[k] += v
+        blocks = full[0].shape[1] // (1 if kind == "head" else stride)
+        runs.append((what, {"phase": "main_path_train", "run": "wholeread", "kind": kind,
+                            "model": model, "blocks": blocks, "seq_len": full[1].shape[1],
+                            "chunk": WHOLE_CHUNK, "loss": loss, "seconds": seconds,
+                            "peak_bytes": torch.cuda.max_memory_allocated(),
+                            "launches": launched, "cpu_blocks": WHOLE_CPU_BLOCKS,
+                            "card": card},
+                     card_vg, (cpu_value_and_grad_on, kind, model, params, *cut),
+                     LATTICE_GRAD_RTOL))
+        profiled(f"wholeread {kind} {model}, 1 step", run, card)
+    return runs
 
 
 # ----------------------------------------------------------------- serve
@@ -3416,6 +4157,10 @@ def main() -> int:
         table["lstm_layer"], table["lstm_pair"] = check_lstm_kernel(enet, 64)
     check_gru_backward(net, 8)  # autograd is its reference: no inference mode
     table["gru_recurrence_bwd"] = check_gru_backward(net, 64)
+    check_lstm_backward(enet, 8)
+    table["lstm_recurrence_bwd"], table["lstm_pair_train"] = check_lstm_backward(enet, 64)
+    with torch.inference_mode():
+        table.update(check_lattice_kernels(net, rnet))
     reads = synthetic_reads()
     launches = main_path(card, reads)
     throughput(net, card)
@@ -3472,8 +4217,10 @@ def main() -> int:
     # PyTorch does the head's robustlog and renormalised combination, a
     # Viterbi decode (alone, after a head or after K combined heads), the
     # CRF's partition function, its gradient or posterior, a mapping DP or
-    # a walk, or the backward of scrappie's GRU (torch.nn.GRU's
-    # differentiates its own gate order).
+    # a walk, the backward of scrappie's GRU (torch.nn.GRU's
+    # differentiates its own gate order) or of its peephole LSTM, or a
+    # lattice's forward-backward (torch's ctc_loss has no stay and skip
+    # moves, kmer states, local START and END, or CRF transitions).
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],

@@ -53,6 +53,49 @@
 // the step that uses it; h, c and the gate values sit in shared memory, with
 // two barriers a step; its gates take tanhf and sigmoid_f32 in the
 // twin's order.
+//
+// Training (store-c mode, template kStoreC): the same kernel also writes
+// the cell state c of every step to a [T, B, S] array a direction (lane 0
+// of each quad, beside h: every lane of the quad holds c), for the backward
+// walk; ops/lstm.py launches it only when a gradient is wanted, and its h
+// is the inference launch's bit for bit. The c array lies a fixed number
+// of floats (coff) past each direction's y, so its address is h's plus a
+// kernel parameter and takes no register of its own: a pointer of its
+// own, or the store in another lane than h's, spilled (the kernel is at
+// its 168 registers a thread).
+//
+// Backward (lstm_recurrence_bwd_kernel): the VJP of the lax.scan of
+// scrappie_tpu/nn/rnn.py:80 (lstm), which has no TPU kernel: XLA
+// differentiates the scan when the JAX trainer takes its gradient. With the
+// forward's activated gates (g = tanh(a_c), i, f, o), its c and c_prev and
+// the gradient gh of its output, per step in the reverse of the forward's
+// order, for one row (ops/lstm.lstm_walk_plain is the same loop):
+//
+//   dh    = carry_h + gh[t]
+//   da_o  = dh tanh(c) o (1 - o)
+//   dc    = carry_c + dh o (1 - tanh(c)^2) + da_o p_out
+//   da_f  = dc c_prev f (1 - f),  da_i = dc g i (1 - i),  da_c = dc i (1 - g^2)
+//   carry_c = dc f + da_f p_f + da_i p_in
+//   carry_h = [da_c | da_i | da_f | da_o] @ sW^T        (4S -> S)
+//
+// What bounds it: as the forward, the latency of a step, whose chain is
+// the product da @ sW^T (4 S^2 multiply-adds, 36 864 at S = 96) behind one
+// barrier; a step reads 6S floats of a row (gates, c_prev, gh) and writes
+// 4S (da), 11S with the c it keeps from the step before. Design, from
+// csrc/gru.cu's gru_recurrence_bwd_kernel: 384 threads, each holding a
+// 4 x 24 tile of sW^T in registers (4 outputs k, 24 of the 4S rows; the 16
+// row groups of an output group are half a warp), so a thread reads only
+// its 24 entries of da (six float4) and a reduce-scatter of shuffles (xor
+// 8, 4, 2, 1) leaves output k's sum in the four lanes of a quad. Lane r of
+// the quad then takes gate r of unit k: its projected gate value, and for
+// lanes 0 and 1 c_prev and gh, come by 4-byte cp.async into its own slot
+// of a ring RING steps ahead (c_prev zero-filled at the forward's first
+// step), and 6 shuffles hand the quad all six; every lane of the quad
+// takes the step's arithmetic, lane r writes da of gate r to a
+// double-buffered da in shared memory and to the output; then the block's
+// one barrier a step and the product. Both directions of a stage run in
+// one launch (blockIdx.y), each writing its 4S columns of a [T, B, 8S] da,
+// the pair projection's layout.
 #include <cuda_runtime.h>
 
 namespace {
@@ -93,9 +136,11 @@ struct Dir {
 // gate columns start at column 4S * blockIdx.y of xproj. blockDim.x = 4S
 // rounded up to a warp; S <= REG_MAX_S. Shared memory: h [2][REG_MAX_S]
 // (the tail past S zero), a ring of RING projected rows [RING][4S].
+// kStoreC: also write c of every step to d.y + coff ([T, B, S]).
+template <bool kStoreC>
 __global__ void __launch_bounds__(4 * REG_MAX_S, 1)
 lstm_recurrence_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
-                       Dir d1, int T, int B, int S) {
+                       Dir d1, int T, int B, int S, long long coff) {
   extern __shared__ __align__(16) float smem[];
   float* s_h = smem;                  // [2][REG_MAX_S]
   float* s_x = s_h + 2 * REG_MAX_S;   // [RING][4S]
@@ -183,7 +228,9 @@ lstm_recurrence_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
     if (g == 0 && live) {
       const float h = __fmul_rn(so, tc);
       s_h[((n + 1) & 1) * REG_MAX_S + u] = h;
-      d.y[((size_t)t * B + b) * S + u] = h;
+      float* yt = d.y + ((size_t)t * B + b) * S + u;
+      *yt = h;
+      if (kStoreC) yt[coff] = c;
     }
     fetch(n + RING);  // refill the slot read above
     __syncthreads();
@@ -269,15 +316,183 @@ lstm_global_kernel(const float* __restrict__ xproj,
 }
 
 // The register kernel over ndir directions (grid B x ndir).
+template <bool kStoreC>
 int launch_registers(const float* xproj, int xcols, Dir d0, Dir d1, int ndir,
-                     int T, int B, int S, cudaStream_t stream) {
+                     int T, int B, int S, cudaStream_t stream,
+                     long long coff = 0) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
   if (S < 1 || S > REG_MAX_S) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (2 * REG_MAX_S + (size_t)RING * 4 * S);
   const int threads = (4 * S + 31) / 32 * 32;
-  lstm_recurrence_kernel<<<dim3(B, ndir), threads, smem, stream>>>(
-      xproj, xcols, d0, d1, T, B, S);
+  lstm_recurrence_kernel<kStoreC><<<dim3(B, ndir), threads, smem, stream>>>(
+      xproj, xcols, d0, d1, T, B, S, coff);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- backward
+
+constexpr int BW_OUT = 4;                          // outputs a thread
+constexpr int BW_ROWS = 24;                        // rows of da a thread
+constexpr int BW_GROUP = 4 * REG_MAX_S / BW_ROWS;  // lanes of an output group
+constexpr int BW_THREADS = REG_MAX_S / BW_OUT * BW_GROUP;
+static_assert(BW_GROUP == 16, "the reduce-scatter's xor 8, 4, 2, 1");
+static_assert(BW_THREADS == 384, "a 4 x 24 tile of sW^T a thread");
+
+// cp.async of 4 bytes, zero-filled when n = 0; with the wait below, a
+// compiler barrier for memory, so no read of a ring slot moves across the
+// wait and no copy into a slot moves above the reads of its old values.
+__device__ __forceinline__ void cp_async4_fill(float* dst, const float* src,
+                                               int n) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_mem() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One direction's operands of the backward walk.
+struct BwdDir {
+  const float* gates;  // [T, B, 4S]: tanh(a_c) | i | f | o
+  const float* c;      // [T, B, S]
+  const float* gh;     // [T, B, S]
+  const float* sW;     // [S, 4S]
+  const float* peep;   // [3S]
+  int reverse;         // the forward's direction
+};
+
+// The 4 outputs' partial sums of the 16 lanes of a group -> the whole sum
+// of output q >> 2 (q the lane in the group) in the four lanes of its quad.
+__device__ __forceinline__ float reduce_scatter16(const float (&p)[BW_OUT],
+                                                  int q) {
+  const bool hi = q & 8;
+  const float s0 = __fadd_rn(hi ? p[2] : p[0],
+                             __shfl_xor_sync(FULL, hi ? p[0] : p[2], 8));
+  const float s1 = __fadd_rn(hi ? p[3] : p[1],
+                             __shfl_xor_sync(FULL, hi ? p[1] : p[3], 8));
+  const bool mid = q & 4;
+  float t = __fadd_rn(mid ? s1 : s0, __shfl_xor_sync(FULL, mid ? s0 : s1, 4));
+  t = __fadd_rn(t, __shfl_xor_sync(FULL, t, 2));
+  return __fadd_rn(t, __shfl_xor_sync(FULL, t, 1));
+}
+
+// gates, c, gh of direction blockIdx.y -> its 4S columns of da [T, B,
+// dcols] (column 4S blockIdx.y on). blockDim.x = BW_THREADS; S <= REG_MAX_S.
+__global__ void __launch_bounds__(BW_THREADS, 1)
+lstm_recurrence_bwd_kernel(BwdDir d0, BwdDir d1, float* __restrict__ da,
+                           int dcols, int T, int B, int S) {
+  __shared__ __align__(16) float s_da[2][4 * REG_MAX_S];  // padded per gate
+  __shared__ float s_in[RING][2][BW_THREADS];  // the inputs' ring
+  const BwdDir d = blockIdx.y ? d1 : d0;
+  const int S4 = 4 * S;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int q = tid % BW_GROUP;            // rows 24q .. 24q + 23 of da
+  const int k0 = tid / BW_GROUP * BW_OUT;  // the group's outputs k0 .. k0 + 3
+  const int k = k0 + (q >> 2);             // the unit this lane ends with
+  const int r = q & 3;                     // the gate it writes
+  const int quad = (tid & 31) & ~3;
+  const bool live = k < S;
+  const int kc = min(k, S - 1);
+  float* dcol = da + (size_t)S4 * blockIdx.y;
+  for (int i = tid; i < 2 * 4 * REG_MAX_S; i += BW_THREADS)
+    (&s_da[0][0])[i] = 0.0f;
+  float w[BW_OUT][BW_ROWS];
+#pragma unroll
+  for (int i = 0; i < BW_OUT; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < BW_ROWS; ++jj) {
+      const int j = q * BW_ROWS + jj;
+      const int gate = j / REG_MAX_S, unit = j % REG_MAX_S, ki = k0 + i;
+      w[i][jj] = (ki < S && unit < S)
+                     ? __ldg(d.sW + (size_t)ki * S4 + gate * S + unit)
+                     : 0.0f;
+    }
+  }
+  const float p_in = live ? __ldg(d.peep + k) : 0.0f;
+  const float p_f = live ? __ldg(d.peep + S + k) : 0.0f;
+  const float p_out = live ? __ldg(d.peep + 2 * S + k) : 0.0f;
+  // walk step n at t = reverse ? n : T-1-n (the forward's steps backwards);
+  // the forward's step before t is t + 1 (reverse) or t - 1
+  auto step_t = [&](int n) { return d.reverse ? n : T - 1 - n; };
+  auto fetch = [&](int u, int n) {
+    const int t = step_t(min(n, T - 1));
+    const size_t row = (size_t)t * B + b;
+    cp_async4_fill(&s_in[u][0][tid], d.gates + row * S4 + r * S + kc, 4);
+    if (r == 0) {
+      const int tp = d.reverse ? t + 1 : t - 1;
+      const bool has = tp >= 0 && tp < T;
+      cp_async4_fill(&s_in[u][1][tid],
+                     d.c + ((size_t)(has ? tp : t) * B + b) * S + kc,
+                     has ? 4 : 0);
+    } else if (r == 1) {
+      cp_async4_fill(&s_in[u][1][tid], d.gh + row * S + kc, 4);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int u = 0; u < RING; ++u) fetch(u, u);
+  float c_now = __ldg(d.c + ((size_t)step_t(0) * B + b) * S + kc);
+  __syncthreads();  // the zeros before any step's writes
+  float carry_h = 0.0f, carry_c = 0.0f;
+  for (int n0 = 0; n0 < T; n0 += RING) {
+#pragma unroll
+    for (int u = 0; u < RING; ++u) {
+      const int n = n0 + u;
+      if (n >= T) break;  // uniform across the block
+      const size_t row = (size_t)step_t(n) * B + b;
+      cp_async_wait_mem<RING - 1>();  // this thread's copies of step n
+      const float v0 = s_in[u][0][tid], v1 = s_in[u][1][tid];
+      fetch(u, n + RING);
+      const float g = __shfl_sync(FULL, v0, quad);
+      const float ig = __shfl_sync(FULL, v0, quad + 1);
+      const float fg = __shfl_sync(FULL, v0, quad + 2);
+      const float og = __shfl_sync(FULL, v0, quad + 3);
+      const float cprev = __shfl_sync(FULL, v1, quad);
+      const float ghv = __shfl_sync(FULL, v1, quad + 1);
+      const float tc = tanhf(c_now);
+      const float dh = __fadd_rn(carry_h, ghv);
+      const float da_o =
+          __fmul_rn(__fmul_rn(__fmul_rn(dh, tc), og), __fsub_rn(1.0f, og));
+      const float dc = __fadd_rn(
+          __fadd_rn(carry_c, __fmul_rn(__fmul_rn(dh, og),
+                                       __fsub_rn(1.0f, __fmul_rn(tc, tc)))),
+          __fmul_rn(da_o, p_out));
+      const float da_f =
+          __fmul_rn(__fmul_rn(__fmul_rn(dc, cprev), fg), __fsub_rn(1.0f, fg));
+      const float da_i =
+          __fmul_rn(__fmul_rn(__fmul_rn(dc, g), ig), __fsub_rn(1.0f, ig));
+      const float da_c =
+          __fmul_rn(__fmul_rn(dc, ig), __fsub_rn(1.0f, __fmul_rn(g, g)));
+      carry_c = __fadd_rn(__fadd_rn(__fmul_rn(dc, fg), __fmul_rn(da_f, p_f)),
+                          __fmul_rn(da_i, p_in));
+      const float mine = r == 0 ? da_c : r == 1 ? da_i : r == 2 ? da_f : da_o;
+      float* buf = s_da[n & 1];
+      if (live) {
+        buf[r * REG_MAX_S + k] = mine;
+        dcol[row * dcols + r * S + k] = mine;
+      }
+      __syncthreads();
+      float p[BW_OUT] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const float4* v4 = reinterpret_cast<const float4*>(buf + q * BW_ROWS);
+#pragma unroll
+      for (int cc = 0; cc < BW_ROWS / 4; ++cc) {
+        const float4 v = v4[cc];
+#pragma unroll
+        for (int i = 0; i < BW_OUT; ++i) {
+          p[i] = fmaf(v.x, w[i][4 * cc], p[i]);
+          p[i] = fmaf(v.y, w[i][4 * cc + 1], p[i]);
+          p[i] = fmaf(v.z, w[i][4 * cc + 2], p[i]);
+          p[i] = fmaf(v.w, w[i][4 * cc + 3], p[i]);
+        }
+      }
+      carry_h = reduce_scatter16(p, q);
+      c_now = cprev;
+    }
+  }
 }
 
 }  // namespace
@@ -293,7 +508,7 @@ int scrappie_lstm_recurrence(const float* xproj, const float* sW,
                              int reverse, int global, cudaStream_t stream) {
   if (!global) {
     const Dir d{sW, peep, y, reverse};
-    return launch_registers(xproj, 4 * S, d, d, 1, T, B, S, stream);
+    return launch_registers<false>(xproj, 4 * S, d, d, 1, T, B, S, stream);
   }
   if (T == 0 || B == 0) return (int)cudaSuccess;
   const size_t smem = sizeof(float) * 6 * (size_t)S;
@@ -316,8 +531,41 @@ int scrappie_lstm_pair(const float* xproj, const float* sW_f,
                        const float* peep_f, float* y_f, const float* sW_b,
                        const float* peep_b, float* y_b, int T, int B, int S,
                        cudaStream_t stream) {
-  return launch_registers(xproj, 8 * S, Dir{sW_f, peep_f, y_f, 0},
-                          Dir{sW_b, peep_b, y_b, 1}, 2, T, B, S, stream);
+  return launch_registers<false>(xproj, 8 * S, Dir{sW_f, peep_f, y_f, 0},
+                                 Dir{sW_b, peep_b, y_b, 1}, 2, T, B, S,
+                                 stream);
+}
+
+// The store-c mode of scrappie_lstm_pair: also writes c_f, c_b [T, B, S],
+// which must lie as far past y_f as c_b past y_b. Returns a cudaError_t.
+int scrappie_lstm_pair_train(const float* xproj, const float* sW_f,
+                             const float* peep_f, float* y_f, float* c_f,
+                             const float* sW_b, const float* peep_b,
+                             float* y_b, float* c_b, int T, int B, int S,
+                             cudaStream_t stream) {
+  if (c_f - y_f != c_b - y_b) return (int)cudaErrorInvalidValue;
+  return launch_registers<true>(xproj, 8 * S, Dir{sW_f, peep_f, y_f, 0},
+                                Dir{sW_b, peep_b, y_b, 1}, 2, T, B, S, stream,
+                                c_f - y_f);
+}
+
+// The backward walk of ndir (1 or 2) directions in one launch: for
+// direction d, gates [T, B, 4S] (tanh(a_c) | i | f | o), c and gh
+// [T, B, S], sW [S, 4S], peep [3S] and the forward's direction ->
+// columns 4S d .. 4S d + 4S - 1 of da [T, B, dcols]; all fp32, contiguous,
+// on the current device; S <= REG_MAX_S. Returns a cudaError_t.
+int scrappie_lstm_recurrence_bwd(
+    const float* gates0, const float* c0, const float* gh0, const float* sW0,
+    const float* peep0, int reverse0, const float* gates1, const float* c1,
+    const float* gh1, const float* sW1, const float* peep1, int reverse1,
+    float* da, int dcols, int ndir, int T, int B, int S, cudaStream_t stream) {
+  if (T == 0 || B == 0) return (int)cudaSuccess;
+  if (S < 1 || S > REG_MAX_S || ndir < 1 || ndir > 2 || dcols < 4 * S * ndir)
+    return (int)cudaErrorInvalidValue;
+  lstm_recurrence_bwd_kernel<<<dim3(B, ndir), BW_THREADS, 0, stream>>>(
+      BwdDir{gates0, c0, gh0, sW0, peep0, reverse0},
+      BwdDir{gates1, c1, gh1, sW1, peep1, reverse1}, da, dcols, T, B, S);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

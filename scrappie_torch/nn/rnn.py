@@ -51,15 +51,17 @@ def gru(x: torch.Tensor, sW: torch.Tensor, sW2: torch.Tensor,
 
 
 def lstm_tm(x_tm: torch.Tensor, sW: torch.Tensor, peep: torch.Tensor,
-            reverse: bool = False) -> torch.Tensor:
+            reverse: bool = False, return_c: bool = False):
     """Peephole LSTM over time-major projected inputs x [T, B, 4S] ->
-    h [T, B, S]."""
+    h [T, B, S]; with return_c, (h, c) with the cell state c [T, B, S] of
+    every step, which the backward walk reads (ops/lstm.py)."""
     T, B, _ = x_tm.shape
     S = sW.shape[0]
     p_in, p_forget, p_out = peep[:S], peep[S : 2 * S], peep[2 * S :]
     h = x_tm.new_zeros((B, S))
     c = x_tm.new_zeros((B, S))
     out = x_tm.new_empty((T, B, S))
+    cs = x_tm.new_empty((T, B, S)) if return_c else None
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         xF = x_tm[t] + h @ sW
         forget = torch.sigmoid(xF[:, 2 * S : 3 * S] + c * p_forget) * c
@@ -68,4 +70,6 @@ def lstm_tm(x_tm: torch.Tensor, sW: torch.Tensor, peep: torch.Tensor,
         c = forget + update
         h = torch.sigmoid(xF[:, 3 * S :] + c * p_out) * torch.tanh(c)
         out[t] = h
-    return out
+        if return_c:
+            cs[t] = c
+    return (out, cs) if return_c else out

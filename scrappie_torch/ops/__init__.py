@@ -37,6 +37,10 @@ LAUNCHES: dict[str, int] = {
     "lstm_layer": 0,
     "lstm_pair": 0,
     "lstm_layer_global": 0,
+    "lstm_pair_train": 0,
+    "lstm_recurrence_bwd": 0,
+    "lattice_fwdbwd": 0,
+    "crf_lattice_fwdbwd": 0,
     "dtw": 0,
     "dtw_walk": 0,
     "seqmap": 0,

@@ -48,6 +48,14 @@ _SIGNATURES = {
     "scrappie_project": (_P, _P, _P, _P, _I, _I, _I, _P),
     "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "scrappie_lstm_pair": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "scrappie_lstm_pair_train": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _P),
+    "scrappie_lstm_recurrence_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                                     _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    "scrappie_lattice": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                         _F, _F, _P),
+    "scrappie_crf_lattice": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _F, _P),
     "scrappie_head": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
                       _P),
     "scrappie_dtw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,

@@ -16,6 +16,22 @@ big-S mode reads sW from L2, one launch per layer ("lstm_layer_global").
 On CPU tensors each wrapper runs its plain twin, the projection followed
 by the loop of nn/rnn.py. There is no lane, batch or time padding: each
 output is [T, B, S].
+
+Training: when a gradient is wanted (grad mode on and an input that
+requires one), `lstm_pair_tm` goes through autograd Functions instead,
+`ops/project.Project` and then `LstmPair`. Its forward runs the pair
+launch in the recurrence kernel's store-c mode, which also writes the cell
+state c of every step ("lstm_pair_train"); inference never launches that
+mode. `lstm_layer_tm` has no training route on the card (it raises there
+when a gradient is wanted; on the CPU autograd runs through its twin).
+LstmPair's backward is `lstm_tm_backward`: the gates again from the saved h and c by one
+product over all steps (torch.matmul, as XLA computes it outside any
+kernel in the JAX package's VJP of nn/rnn.lstm's scan), then the walk of
+dh and dc back through time, which on the card is the kernel
+lstm_recurrence_bwd_kernel (csrc/lstm.cu, both directions of a stage in
+one launch, S <= REGISTER_MAX_S; counted as "lstm_recurrence_bwd") and on
+the CPU its plain twin `lstm_walk_plain`, then the weights' gradients
+(dsW, dpeep) by products and sums.
 """
 
 from __future__ import annotations
@@ -27,7 +43,7 @@ import torch
 from scrappie_torch import ops
 from scrappie_torch.nn.layers import feedforward
 from scrappie_torch.nn.rnn import lstm_tm
-from scrappie_torch.ops.project import check_project_input, project_tm
+from scrappie_torch.ops.project import Project, check_project_input, project_tm
 
 #: The largest S whose recurrence keeps sW in registers (REG_MAX_S in
 #: csrc/lstm.cu); above it the big-S mode reads sW from L2.
@@ -39,12 +55,20 @@ def lstm_layer_tm_plain(x_tm, iW, b, sW, peep, reverse: bool = False):
     return lstm_tm(feedforward(x_tm, iW, b), sW, peep, reverse)
 
 
+def wants_grad(*tensors) -> bool:
+    """Whether autograd records an operation on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def lstm_layer_tm(x_tm, iW, b, sW, peep, reverse: bool = False):
     """One peephole-LSTM layer on time-major features: x [T, B, C],
     iW [C, 4S], b [4S], sW [S, 4S], peep [3S] -> h [T, B, S], with
     h0 = c0 = 0."""
     if not ops.on_cuda(x_tm, iW, b, sW, peep):
         return lstm_layer_tm_plain(x_tm, iW, b, sW, peep, reverse)
+    if wants_grad(x_tm, iW, b, sW, peep):
+        raise ValueError("lstm_layer_tm runs inference only on the card; "
+                         "train a stage through lstm_pair_tm")
     check_lstm_input(x_tm, iW, b, sW, peep)
     return lstm_recurrence_cuda(project_tm(x_tm, iW, b), sW, peep, reverse)
 
@@ -60,6 +84,13 @@ def lstm_pair_tm(x_tm, wF, wB):
     and wB are the forward and backward layers' (iW [C, 4S], b [4S],
     sW [S, 4S], peep [3S]) -> (h_F, h_B), each [T, B, S], the forward
     layer walking time forwards and the backward one backwards."""
+    if wants_grad(x_tm, *wF, *wB):
+        if ops.on_cuda(x_tm, *wF, *wB):
+            check_lstm_pair_input(x_tm, wF, wB)
+            check_walk_size(wF[2].shape[0])
+        xproj = Project.apply(x_tm, torch.cat((wF[0], wB[0]), 1),
+                              torch.cat((wF[1], wB[1])))
+        return LstmPair.apply(xproj, *wF[2:], *wB[2:])
     if not ops.on_cuda(x_tm, *wF, *wB):
         return lstm_pair_tm_plain(x_tm, wF, wB)
     check_lstm_pair_input(x_tm, wF, wB)
@@ -169,3 +200,210 @@ def lstm_pair_recurrence_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
         _build.check(err, "lstm_pair")
     ops.LAUNCHES["lstm_pair"] += 1
     return y[0], y[1]
+
+
+# ------------------------------------------------------------- training
+
+def check_walk_size(S: int) -> None:
+    """Raise unless the store-c mode and the backward walk take size S:
+    both keep sW in registers, S <= REGISTER_MAX_S."""
+    if not lstm_in_registers(S):
+        raise ValueError(f"the LSTM's backward kernel keeps sW in registers, "
+                         f"S <= {REGISTER_MAX_S}; got S = {S}")
+
+
+def lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
+    """The pair launch in its store-c mode (counted as
+    `LAUNCHES["lstm_pair_train"]`): xproj [T, B, 8S] -> (h_F, h_B, c_F,
+    c_B), each [T, B, S]; the h are the inference launch's bit for bit."""
+    from scrappie_torch.ops import _build
+
+    _require_cuda(xproj, sW_f, peep_f, sW_b, peep_b)
+    S = sW_f.shape[0]
+    for d, sW, peep in (("f", sW_f, peep_f), ("b", sW_b, peep_b)):
+        ops.check_kernel_input(f"sW_{d}", sW, (S, 4 * S))
+        ops.check_kernel_input(f"peep_{d}", peep, (3 * S,))
+    check_walk_size(S)
+    T, B, _ = xproj.shape
+    ops.check_kernel_input("xproj", xproj, (T, B, 8 * S))
+    out = torch.empty((4, T, B, S), dtype=torch.float32, device=xproj.device)
+    if T == 0 or B == 0:
+        return tuple(out)
+    with torch.cuda.device(xproj.device):
+        err = _build.library().scrappie_lstm_pair_train(
+            xproj.data_ptr(), sW_f.data_ptr(), peep_f.data_ptr(),
+            out[0].data_ptr(), out[2].data_ptr(), sW_b.data_ptr(),
+            peep_b.data_ptr(), out[1].data_ptr(), out[3].data_ptr(), T, B, S,
+            ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, "lstm_pair_train")
+    ops.LAUNCHES["lstm_pair_train"] += 1
+    return tuple(out)
+
+
+def _shifted(a, reverse: bool):
+    """a at the step before in the forward's order, 0 at its first step."""
+    zero = a.new_zeros((1, *a.shape[1:]))
+    return torch.cat([a[1:], zero]) if reverse else torch.cat([zero, a[:-1]])
+
+
+def backward_inputs(x_tm, h, c, sW, peep, reverse: bool = False):
+    """What the backward walk reads, from the forward's input x [T, B, 4S]
+    and its h and c [T, B, S]: (h_prev, c_prev [T, B, S], h and c at the
+    step before in the forward's order, 0 at its first step; gates
+    [T, B, 4S], tanh(a_c) | i | f | o, the activated gates), one product
+    over every step and row."""
+    S = sW.shape[0]
+    h_prev, c_prev = _shifted(h, reverse), _shifted(c, reverse)
+    xF = x_tm + torch.matmul(h_prev, sW)
+    gates = torch.cat([
+        torch.tanh(xF[..., :S]),
+        torch.sigmoid(xF[..., S : 2 * S] + c_prev * peep[:S]),
+        torch.sigmoid(xF[..., 2 * S : 3 * S] + c_prev * peep[S : 2 * S]),
+        torch.sigmoid(xF[..., 3 * S :] + c * peep[2 * S :])], dim=-1)
+    return h_prev, c_prev, gates
+
+
+def lstm_walk_plain(gates, c, gh, sW, peep, reverse: bool = False):
+    """Plain twin of the backward walk kernel: gates [T, B, 4S] (tanh(a_c)
+    | i | f | o), the cell states c and the output's gradient gh
+    [T, B, S] -> da [T, B, 4S] = (da_c | da_i | da_f | da_o), the gradient
+    of the pre-activations (= of the projected input), carrying dh and dc
+    opposite to the forward's direction (the step's formulas in
+    csrc/lstm.cu)."""
+    T, B, _ = gates.shape
+    S = sW.shape[0]
+    p_in, p_f, p_out = peep[:S], peep[S : 2 * S], peep[2 * S :]
+    c_prev = _shifted(c, reverse)
+    da = gates.new_empty((T, B, 4 * S))
+    carry_h = gates.new_zeros((B, S))
+    carry_c = gates.new_zeros((B, S))
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        g, i, f, o = gates[t].split(S, dim=-1)
+        tc = torch.tanh(c[t])
+        dh = carry_h + gh[t]
+        da_o = dh * tc * o * (1 - o)
+        dc = carry_c + dh * o * (1 - tc * tc) + da_o * p_out
+        da_f = dc * c_prev[t] * f * (1 - f)
+        da_i = dc * g * i * (1 - i)
+        da_c = dc * i * (1 - g * g)
+        carry_c = dc * f + da_f * p_f + da_i * p_in
+        da[t] = torch.cat([da_c, da_i, da_f, da_o], dim=-1)
+        carry_h = torch.matmul(da[t], sW.T)
+    return da
+
+
+def check_walk_input(gates, c, gh, sW, peep) -> None:
+    """Raise unless the backward walk kernel takes these inputs: the
+    weights with S <= REGISTER_MAX_S and contiguous fp32 gates [T, B, 4S],
+    c and gh [T, B, S]."""
+    _check_weights(sW, peep)
+    S = sW.shape[0]
+    check_walk_size(S)
+    T, B, _ = gates.shape
+    ops.check_kernel_input("gates", gates, (T, B, 4 * S))
+    ops.check_kernel_input("c", c, (T, B, S))
+    ops.check_kernel_input("gh", gh, (T, B, S))
+
+
+def lstm_walk_pair(dirs):
+    """The backward walk of one or two layers of a stage in one launch:
+    dirs is a sequence of (gates, c, gh, sW, peep, reverse), one a
+    direction, each as `lstm_walk_plain` takes them -> da [T, B, 4S *
+    len(dirs)], the directions' columns side by side (the layout of the
+    pair's projection). On the card the kernel lstm_recurrence_bwd_kernel
+    over a grid of len(dirs) x B blocks, counted once as
+    "lstm_recurrence_bwd"; on the CPU the twin, a direction at a time."""
+    first = dirs[0]
+    tensors = [t for d in dirs for t in d[:5]]
+    if not ops.on_cuda(*tensors):
+        return torch.cat([lstm_walk_plain(*d) for d in dirs], dim=-1)
+    from scrappie_torch.ops import _build
+
+    if not 1 <= len(dirs) <= 2:
+        raise ValueError(f"the walk kernel takes one or two directions, "
+                         f"got {len(dirs)}")
+    T, B, _ = first[0].shape
+    S = first[3].shape[0]
+    for gates, c, gh, sW, peep, _rev in dirs:
+        check_walk_input(gates, c, gh, sW, peep)
+        ops.check_kernel_input("gates", gates, (T, B, 4 * S))
+    n = len(dirs)
+    da = torch.empty((T, B, 4 * S * n), dtype=torch.float32,
+                     device=first[0].device)
+    if T == 0 or B == 0:
+        return da
+    d0, d1 = dirs[0], dirs[-1]
+    ptrs = lambda d: (d[0].data_ptr(), d[1].data_ptr(), d[2].data_ptr(),
+                      d[3].data_ptr(), d[4].data_ptr(), int(d[5]))
+    with torch.cuda.device(da.device):
+        err = _build.library().scrappie_lstm_recurrence_bwd(
+            *ptrs(d0), *ptrs(d1), da.data_ptr(), 4 * S * n, n, T, B, S,
+            ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, "lstm_recurrence_bwd")
+    ops.LAUNCHES["lstm_recurrence_bwd"] += 1
+    return da
+
+
+def _weight_grads(da, h_prev, c_prev, c):
+    """(dsW [S, 4S], dpeep [3S]) from the walk's da [T, B, 4S]: the sum
+    over steps and rows of h_prev^T da, and of da_i c_prev, da_f c_prev
+    and da_o c."""
+    S = c.shape[-1]
+    dsW = torch.matmul(h_prev.reshape(-1, S).T, da.reshape(-1, 4 * S))
+    dpeep = torch.cat([(da[..., S : 2 * S] * c_prev).sum((0, 1)),
+                       (da[..., 2 * S : 3 * S] * c_prev).sum((0, 1)),
+                       (da[..., 3 * S :] * c).sum((0, 1))])
+    return dsW, dpeep
+
+
+def lstm_tm_backward(layers):
+    """The VJP of one or two LSTM recurrences on their inputs: layers is
+    a sequence of (x [T, B, 4S], h, c [T, B, S], sW, peep, reverse, gh
+    [T, B, S]), one a direction -> (dx [T, B, 4S * len(layers)], the
+    directions' columns side by side, [(dsW, dpeep)] a direction). The walk
+    through time is one kernel launch on the card, its twin on the CPU;
+    the rest are products."""
+    inputs, walks = [], []
+    for x, h, c, sW, peep, reverse, gh in layers:
+        h_prev, c_prev, gates = backward_inputs(x, h, c, sW, peep, reverse)
+        inputs.append((h_prev, c_prev, c))
+        walks.append((gates, c, gh.contiguous(), sW, peep, reverse))
+    da = lstm_walk_pair(walks)
+    S4 = 4 * layers[0][3].shape[0]
+    return da, [_weight_grads(da[..., k * S4 : (k + 1) * S4], *inp)
+                for k, inp in enumerate(inputs)]
+
+
+def _zeros_if_none(g, like):
+    return torch.zeros_like(like) if g is None else g
+
+
+class LstmPair(torch.autograd.Function):
+    """Both recurrences of a stage, differentiable: xproj [T, B, 8S] (the
+    forward layer's 4S columns, then the backward one's), sW_f, peep_f,
+    sW_b, peep_b -> (h_F, h_B). Forward: the pair launch in its store-c
+    mode on the card (nn/rnn.lstm_tm a direction on the CPU); backward:
+    lstm_tm_backward, both walks in one launch."""
+
+    @staticmethod
+    def forward(ctx, xproj, sW_f, peep_f, sW_b, peep_b):
+        S4 = 4 * sW_f.shape[0]
+        if ops.on_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
+            hF, hB, cF, cB = lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b,
+                                                  peep_b)
+        else:
+            hF, cF = lstm_tm(xproj[..., :S4], sW_f, peep_f, False, return_c=True)
+            hB, cB = lstm_tm(xproj[..., S4:], sW_b, peep_b, True, return_c=True)
+        ctx.save_for_backward(xproj, hF, hB, cF, cB, sW_f, peep_f, sW_b, peep_b)
+        return hF, hB
+
+    @staticmethod
+    def backward(ctx, ghF, ghB):
+        xproj, hF, hB, cF, cB, sW_f, peep_f, sW_b, peep_b = ctx.saved_tensors
+        S4 = 4 * sW_f.shape[0]
+        da, ((dsW_f, dp_f), (dsW_b, dp_b)) = lstm_tm_backward([
+            (xproj[..., :S4], hF, cF, sW_f, peep_f, False,
+             _zeros_if_none(ghF, hF)),
+            (xproj[..., S4:], hB, cB, sW_b, peep_b, True,
+             _zeros_if_none(ghB, hB))])
+        return da, dsW_f, dp_f, dsW_b, dp_b

@@ -343,6 +343,17 @@ def case_rolling_kmers(kmers, **_):
     return [kmers._rolling_kmers(bases, k) for k in (1, 2, 5)]
 
 
+def case_window_seqstates(kmers, **_):
+    rng = np.random.default_rng(12)
+    bases = rng.integers(0, 4, size=300)
+    base_at = np.repeat(np.arange(300), rng.integers(1, 12, size=300))
+    cases = [(base_at[s0 : s0 + n], L) for s0, n, L in
+             ((0, 900, 120), (500, 900, 40), (0, 30, 10), (2000, 300, 80))]
+    cases.append((np.full(50, -1), 10))  # no aligned base
+    cases.append((np.array([-1, 1, 2, 3, -1]), 10))  # spans no full kmer
+    return [kmers.window_seqstates(ba, bases, L) for ba, L in cases]
+
+
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items()
          if name.startswith("case_")}
 

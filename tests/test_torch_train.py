@@ -300,10 +300,6 @@ def test_train_matches_jax(model):
 def test_train_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
         tt.train("rgrgr_r94", steps=1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="LSTM"):
-        tt.train("nanonet_events", steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="LSTM"):
-        tt.posterior_fn("nanonet_events")
     with pytest.raises(ValueError, match="no trainer"):
         tt.make_train_step("squiggle_r94", None)
 
