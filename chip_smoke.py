@@ -56,16 +56,21 @@ if any phase fails:
      nn/rnn.lstm_tm, on the events network's first stage at T = 2048,
      S = 96, B = 8 and 64, both directions in one launch, and the walk at
      S = 40 and 7, and times them with the forward with and without the
-     c stores (phase lstm_backward_kernel); holds the transducer and CRF
-     lattice kernels (forward, then backward) against their twins on
-     log P, logZ_local and the gradient, on rgrgr_r94's log posterior of
-     8 simulated windows of 800 blocks against 800 kmer states and on
-     rnnrf_r94's transitions of 8 windows of 2 000 blocks against 1 408
-     bases (a row without a sequence; again with the score rows in global
-     memory; L = 1 and 2 too) and at a whole read of 30 720 blocks and
-     7 000 bases (against the twins on the card and, in two host
-     processes, in float64), and times them there, with the bytes they
-     hold (phase lattice_kernels);
+     c stores (phase lstm_backward_kernel); holds the GRU's and the LSTM
+     pair's training kernels at S = 160 in their big-S modes against their
+     twins and against autograd (phase big_s_backward); holds the
+     transducer and CRF lattice kernels (forward, then backward) against
+     their twins on log P, logZ_local and the gradient, on rgrgr_r94's log
+     posterior of 8 simulated windows of 800 blocks against 800 kmer
+     states and on rnnrf_r94's transitions of 8 windows of 2 000 blocks
+     against 1 408 bases (a row without a sequence; again checkpointed
+     every 96 steps, with the CTAs' arrays in shared and in global
+     memory, the gradient equal to chunk = T's; L = 1 and 2 too) and at a
+     whole read of 30 720 blocks and 7 000 bases, checkpointed every 256
+     steps (against the twins on the card and, in host processes, in
+     float64; equal to chunk = T's bit for bit), and times them there,
+     with the bytes they keep; and at 70 000 bases, above what one run of
+     positions a thread holds (phase lattice_kernels);
   5. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
      16 seeded synthetic reads of 20k-100k samples in fast mode and in both
      stitch modes, checks that each kernel's launch counter rose and that
@@ -175,9 +180,10 @@ if any phase fails:
      forward-backward kernels backward; then make_lattice_train_step for 8
      steps each for rgrgr_r94 and rnnrf_r94 on seq_batch windows (8 x
      4 000 samples, 800 and 1 408 states), through the lattice kernels;
-     then one make_wholeread_transducer_step (rgrgr_r94),
-     make_wholeread_step and make_head_step (rnnrf_r94) on a simulated
-     region of 61 440 samples (12 288 and 30 720 blocks, chunk 256);
+     then one make_wholeread_transducer_step (rgrgr_r94, and
+     nanonet_events on the region's detected events), make_wholeread_step
+     and make_head_step (rnnrf_r94) on a simulated region of 61 440
+     samples (12 288 and 30 720 blocks, chunk 256);
      every loss finite and the last of each 8-step run below its first;
      seconds a step, launches by kernel, peak memory of the whole-read
      steps, and each run under the profiler (device busy time, idle
@@ -221,6 +227,7 @@ and the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import re
@@ -266,6 +273,7 @@ HEAD_RTOL = 1e-6         # the head's lp against its twin: fp32 sums of the
 HEAD_ATOL = 1e-5         # product, softmax and renormalisation in another order
 PROJECT_RTOL = 1e-5      # the projection against its twin, relative to max(|y|, 1)
 BIG_S = {"gru": (160, 352), "lstm": (160, 288)}  # above the registers' S = 96
+BIG_S_BWD = 160          # the big-S backward walks' check
 S_SMALL = 16             # the LSTM routes' check at another size
 T_BIG_S = 500            # steps of the big-S checks
 NHIST_CASES = ((80, False), (1024, False), (2048, True))  # (nhist, use_slip)
@@ -364,6 +372,16 @@ KERNELS = {
                             "scrappie_tpu/nn/rnn.py:80 (the VJP of lstm's "
                             "lax.scan, which XLA differentiates; no TPU "
                             "kernel)"),
+    "gru_recurrence_bwd_global": ("scrappie_torch/csrc/gru.cu",
+                                  "scrappie_tpu/nn/rnn.py:40 (the VJP of "
+                                  "gru's lax.scan, S above 96; no TPU kernel)"),
+    "lstm_pair_train_global": ("scrappie_torch/csrc/lstm.cu",
+                               "scrappie_tpu/ops/lstm.py:53 (the pair launch "
+                               "that also stores the cell states, S above 96)"),
+    "lstm_recurrence_bwd_global": ("scrappie_torch/csrc/lstm.cu",
+                                   "scrappie_tpu/nn/rnn.py:80 (the VJP of "
+                                   "lstm's lax.scan, S above 96; no TPU "
+                                   "kernel)"),
     # lattice_fwdbwd and crf_lattice_fwdbwd count launches of one kernel
     # each, its forward mode and its backward mode
     "lattice_fwdbwd": ("scrappie_torch/csrc/lattice.cu",
@@ -441,9 +459,10 @@ LSTM_BWD_RTOL = 1e-5
 LSTM_BWD_SMALL = ((300, 5, 40), (300, 5, 7))  # (T, B, S): tiles part past S
 # The lattice kernels (phase lattice_kernels) against their twins: log P
 # and logZ relative 1e-5; the gradient relative to its largest entry 5e-5
-# (expf and log1pf against torch's, and the states' atomics in another
-# order, over up to 30 720 steps). The windows (B, samples, L), and the
-# whole-read shape.
+# (expf and log1pf against torch's, and the posteriors summed into states
+# and classes in another order, over up to 30 720 steps). The windows (B,
+# samples, L), and the whole-read shape, checkpointed every WHOLE_CHUNK
+# steps as the whole-read steps run it.
 LATTICE_RTOL = 1e-5
 LATTICE_GRAD_TWIN_RTOL = 5e-5
 # At the whole-read shape also against the twins in float64: log P and
@@ -454,6 +473,19 @@ LATTICE_GRAD_TWIN_RTOL = 5e-5
 LATTICE_F64_GRAD_RTOL = 1e-2
 LATTICE_WINDOWS = {"transducer": (8, 4000, 4000 // 5), "crf": (8, 4000, 1408)}
 WHOLE_READ_SHAPE = (30720, 7000)  # (blocks, bases), B = 1
+# Above 16 CTAs x 512 threads x 8 positions a thread walks more than one
+# run of positions a step (ops/lattice.cluster_layout's groups). Held to
+# the twins at the windows with the layout's limits forced down
+# (LATTICE_SMALL_RUNS: MAX_CLUSTER, MAX_THREADS), so that a thread walks
+# two or three runs; and at 70 000 bases (LATTICE_LONG: blocks, bases; a
+# path must cross every base, one a block for the CRF, two for the
+# transducer), kernels only: finite, and a checkpoint every WHOLE_CHUNK
+# steps bit for bit every LATTICE_LONG_CHUNK's (chunk = T would keep
+# 11 GB and 39 GB of rows).
+LATTICE_SMALL_RUNS = (2, 32)
+LATTICE_LONG = {"transducer": (40000, 70000), "crf": (72000, 70000)}
+LATTICE_LONG_CHUNK = 1024
+WINDOW_CHUNK = 96        # the windows' checkpoint check: 800 and 2 000 steps
 # Kept, checked and timed; no path launches them.
 SUPERSEDED = ("gru_layer", "viterbi_fused", "viterbi_fused_ens")
 # Kernels whose design keeps their weights in registers: ptxas must report
@@ -1273,9 +1305,11 @@ def lattice_window(model_net, kind: str):
             torch.as_tensor(seq, dtype=torch.int32, device="cuda"))
 
 
-def lattice_pair(kind: str, x, seq, gen, twin: bool, global_rows: bool = False):
+def lattice_pair(kind: str, x, seq, gen, twin: bool, global_rows: bool = False,
+                 chunk=None):
     """The kind's kernels (forward, then backward on a seeded gP, and gZ
-    for the CRF; with global_rows their score rows in global memory, the
+    for the CRF; a checkpoint every `chunk` steps, None keeping every
+    step's rows; with global_rows their CTAs' arrays in global memory, the
     mode of an L above shared memory's) or with twin their plain twins ->
     (log P, logZ or None, the gradient)."""
     import torch
@@ -1286,20 +1320,33 @@ def lattice_pair(kind: str, x, seq, gen, twin: bool, global_rows: bool = False):
     gP = torch.randn(B, generator=gen, device="cuda")
     if kind == "transducer":
         if twin:
-            logp, alpha, m = tl.lattice_fwd_plain(x, seq, 0.0, 4.0, 4.0)
-            return logp, None, tl.lattice_bwd_plain(x, seq, alpha, m, gP, 0.0, 4.0, 4.0)
-        logp, alpha, m = tl.lattice_fwd_cuda(x, seq, 0.0, 4.0, 4.0, global_rows)
-        return logp, None, tl.lattice_bwd_cuda(x, seq, alpha, m, gP, 0.0, 4.0, 4.0,
+            logp, *kept = tl.lattice_fwd_plain(x, seq, 0.0, 4.0, 4.0, chunk)
+            return logp, None, tl.lattice_bwd_plain(x, seq, *kept, gP, 0.0, 4.0, 4.0)
+        logp, *kept = tl.lattice_fwd_cuda(x, seq, 0.0, 4.0, 4.0, chunk, global_rows)
+        return logp, None, tl.lattice_bwd_cuda(x, seq, *kept, gP, 0.0, 4.0, 4.0,
                                                global_rows)
     gZ = torch.randn(B, generator=gen, device="cuda")
     if not twin:
-        logp, logz, *saved = tl.crf_lattice_fwd_cuda(x, seq, 4.0, global_rows)
+        logp, logz, *saved = tl.crf_lattice_fwd_cuda(x, seq, 4.0, chunk, global_rows)
         return logp, logz, tl.crf_lattice_bwd_cuda(x, seq, *saved, gP, gZ, 4.0,
                                                    global_rows)
-    logp, alpha, m = tl.crf_fwd_plain(x, seq, 4.0)
+    logp, *kept = tl.crf_fwd_plain(x, seq, 4.0, chunk)
     logz, z, zm = tl.partition_fwd_plain(x, 4.0)
-    return logp, logz, (tl.crf_bwd_plain(x, seq, alpha, m, gP, 4.0)
+    return logp, logz, (tl.crf_bwd_plain(x, seq, *kept, gP, 4.0)
                         + tl.partition_bwd_plain(x, z, zm, gZ, 4.0))
+
+
+def lattice_held_bytes(kind: str, x, seq, chunk) -> int:
+    """The bytes the kind's forward kernel keeps for its backward at
+    `chunk`: the checkpoints, the last chunk's rows and the maxima (the
+    CRF's partition's rows and maxima too)."""
+    from scrappie_torch.ops import lattice as tl
+
+    if kind == "transducer":
+        kept = tl.lattice_fwd_cuda(x, seq, 0.0, 4.0, 4.0, chunk)[1:]
+    else:
+        kept = tl.crf_lattice_fwd_cuda(x, seq, 4.0, chunk)[2:]
+    return sum(t.numel() * t.element_size() for t in kept)
 
 
 def lattice_seeded():
@@ -1310,19 +1357,19 @@ def lattice_seeded():
 
 
 def check_lattice_case(kind: str, x, seq, what: str, global_rows: bool = False,
-                       want=None) -> tuple[float, tuple]:
-    """The kind's kernels (global_rows: see lattice_pair) against their
-    twins (want: their result on lattice_seeded()'s output gradients, if
-    already taken) on the same inputs and seeded output gradients: log P
-    (and logZ) finite and within LATTICE_RTOL on the rows with a sequence,
-    the sentinel on those without, the gradient within
-    LATTICE_GRAD_TWIN_RTOL of its largest entry and exactly 0 on the
-    transducer's rows without a sequence -> (the largest gradient error,
-    the kernels' result)."""
+                       want=None, chunk=None) -> tuple[float, tuple]:
+    """The kind's kernels (global_rows: see lattice_pair; a checkpoint
+    every `chunk` steps) against their twins (want: their result on
+    lattice_seeded()'s output gradients, if already taken) on the same
+    inputs and seeded output gradients: log P (and logZ) finite and within
+    LATTICE_RTOL on the rows with a sequence, the sentinel on those
+    without, the gradient within LATTICE_GRAD_TWIN_RTOL of its largest
+    entry and exactly 0 on the transducer's rows without a sequence ->
+    (the largest gradient error, the kernels' result)."""
     import torch
 
     has = (seq >= 0).any(1)
-    got = lattice_pair(kind, x, seq, lattice_seeded(), False, global_rows)
+    got = lattice_pair(kind, x, seq, lattice_seeded(), False, global_rows, chunk)
     if want is None:
         want = lattice_pair(kind, x, seq, lattice_seeded(), True)
     sync()
@@ -1344,23 +1391,36 @@ def check_lattice_case(kind: str, x, seq, what: str, global_rows: bool = False,
     return gerr, got
 
 
-def whole_read_lattice(kind: str, S: int):
-    """Seeded inputs of the kind's lattice at WHOLE_READ_SHAPE, B = 1: a
-    log posterior [T, 1, S] and kmer states, or transitions [T, 1, 25] and
-    bases -> (x, seq, the bytes the kernel's forward keeps for the
-    backward)."""
+def whole_read_lattice(kind: str, S: int, shape=WHOLE_READ_SHAPE):
+    """Seeded inputs of the kind's lattice at shape (blocks, bases), B =
+    1: a log posterior [T, 1, S] and kmer states, or transitions [T, 1,
+    25] and bases."""
     import torch
 
-    TW, LW = WHOLE_READ_SHAPE
+    TW, LW = shape
     g = torch.Generator(device="cuda").manual_seed(SEED + 162)
     if kind == "transducer":
         x = torch.log_softmax(2.0 * torch.randn((TW, 1, S), generator=g, device="cuda"), -1)
         seq = torch.randint(0, S - 1, (1, LW), generator=g, device="cuda",
                             dtype=torch.int32)
-        return x, seq, 4 * ((TW + 1) * (LW + 2) + TW + 1)
+        return x, seq
     x = 2.0 * torch.randn((TW, 1, 25), generator=g, device="cuda")
     seq = torch.randint(0, 4, (1, LW), generator=g, device="cuda", dtype=torch.int32)
-    return x, seq, 4 * ((TW + 1) * (2 * LW + 4) + 10 * (TW + 1))
+    return x, seq
+
+
+@contextlib.contextmanager
+def lattice_limits(max_cluster: int, max_threads: int):
+    """ops/lattice's layout limits (MAX_CLUSTER, MAX_THREADS) set lower
+    for the block: the kernels take any layout within their own."""
+    from scrappie_torch.ops import lattice as tl
+
+    old = tl.MAX_CLUSTER, tl.MAX_THREADS
+    tl.MAX_CLUSTER, tl.MAX_THREADS = max_cluster, max_threads
+    try:
+        yield
+    finally:
+        tl.MAX_CLUSTER, tl.MAX_THREADS = old
 
 
 def lattice_twin(part: str, device: str, dtype: str, x, seq, g):
@@ -1375,18 +1435,19 @@ def lattice_twin(part: str, device: str, dtype: str, x, seq, g):
 
     t0 = time.perf_counter()
     torch.set_num_threads(2)
-    x = torch.as_tensor(x, device=device).to(getattr(torch, dtype))
-    seq = torch.as_tensor(seq, device=device)
-    g = torch.as_tensor(g, device=device).to(x.dtype)
-    if part == "transducer":
-        value, alpha, m = tl.lattice_fwd_plain(x, seq, 0.0, 4.0, 4.0)
-        grad = tl.lattice_bwd_plain(x, seq, alpha, m, g, 0.0, 4.0, 4.0)
-    elif part == "crf":
-        value, alpha, m = tl.crf_fwd_plain(x, seq, 4.0)
-        grad = tl.crf_bwd_plain(x, seq, alpha, m, g, 4.0)
-    else:
-        value, z, zm = tl.partition_fwd_plain(x, 4.0)
-        grad = tl.partition_bwd_plain(x, z, zm, g, 4.0)
+    with torch.inference_mode():
+        x = torch.as_tensor(x, device=device).to(getattr(torch, dtype))
+        seq = torch.as_tensor(seq, device=device)
+        g = torch.as_tensor(g, device=device).to(x.dtype)
+        if part == "transducer":
+            value, *kept = tl.lattice_fwd_plain(x, seq, 0.0, 4.0, 4.0)
+            grad = tl.lattice_bwd_plain(x, seq, *kept, g, 0.0, 4.0, 4.0)
+        elif part == "crf":
+            value, *kept = tl.crf_fwd_plain(x, seq, 4.0)
+            grad = tl.crf_bwd_plain(x, seq, *kept, g, 4.0)
+        else:
+            value, z, zm = tl.partition_fwd_plain(x, 4.0)
+            grad = tl.partition_bwd_plain(x, z, zm, g, 4.0)
     return value.cpu().numpy(), grad.cpu().numpy(), time.perf_counter() - t0
 
 
@@ -1395,21 +1456,30 @@ def check_lattice_kernels(net, rnet) -> dict:
     and the gradient (phase lattice_kernels): at its window shape
     (LATTICE_WINDOWS: rgrgr_r94's log posterior and rnnrf_r94's
     transitions of simulated windows, the last row without a sequence),
-    there again with its score rows in global memory (the mode of an L
-    whose rows shared memory cannot hold), at L = 1 and 2 on the window's
-    first rows, and at the whole-read shape (WHOLE_READ_SHAPE, seeded
-    inputs): against the twins on the card at the windows' tolerances,
-    and against the twins in float64 (on the host CPU; the CRF lattice's
-    on the card) within LATTICE_RTOL and LATTICE_F64_GRAD_RTOL, the twins'
-    parts all at once in worker processes. Timed at the window (forward
-    and backward, the kernels' median of 5, the twins' single run) and at
-    the whole-read shape (the kernels' median of 3, with the bytes they
-    hold; the twins' seconds, side by side). Returns the table's rows."""
+    there again with its CTAs' arrays in global memory (the mode of an L
+    whose arrays shared memory cannot hold), at L = 1 and 2 on the
+    window's first rows, with several runs of positions a thread (at the
+    window under LATTICE_SMALL_RUNS' limits, in shared and in global
+    memory, also checkpointed, equal to chunk = T's bit for bit; and at
+    LATTICE_LONG, the kernels alone, their first call timed), and at the
+    whole-read shape (WHOLE_READ_SHAPE, seeded inputs, a checkpoint every
+    WHOLE_CHUNK steps): against the twins on the card at the windows'
+    tolerances, and against the twins in float64 (on the card; the
+    partition's on the host CPU) within LATTICE_RTOL and
+    LATTICE_F64_GRAD_RTOL, the twins' parts all at once
+    in worker processes; and its log P, logZ and gradient at WHOLE_CHUNK
+    equal to chunk = T's bit for bit. Timed at the window (forward and
+    backward, the kernels' median of 5, the twins' single run) and at the
+    whole-read shape (the kernels' median of 3 at WHOLE_CHUNK and at
+    chunk = T, with the bytes they keep and their peak; the twins'
+    seconds, side by side). Returns the table's rows."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     import numpy as np
     import torch
+
+    from scrappie_torch.ops import lattice as tl
 
     kinds = (("transducer", "lattice_fwdbwd", net), ("crf", "crf_lattice_fwdbwd", rnet))
     rows, errs = {}, {}
@@ -1424,8 +1494,16 @@ def check_lattice_kernels(net, rnet) -> dict:
         ev[1].synchronize()
         e = errs[kind] = {}
         e["window"], got = check_lattice_case(kind, x, seq, "window", want=want)
-        e["window, global rows"] = check_lattice_case(
-            kind, x, seq, "window, global rows", True, want)[0]
+        # checkpoints every WINDOW_CHUNK steps (a ragged last chunk), in
+        # shared memory and in global memory: the gradient of chunk = T
+        # bit for bit
+        for glob in (False, True):
+            what = f"window, chunk {WINDOW_CHUNK}" + (", global rows" if glob else "")
+            e[what], chunked = check_lattice_case(kind, x, seq, what, glob, want,
+                                                  WINDOW_CHUNK)
+            require(torch.equal(chunked[2], got[2]) and torch.equal(chunked[0], got[0]),
+                    f"{kind} {what}: equal to chunk = T")
+            del chunked
         for L in (1, 2):
             e[f"L={L}"] = check_lattice_case(kind, x[:, :2].contiguous(),
                                              seq[:2, :L].contiguous(), f"L={L}")[0]
@@ -1435,37 +1513,89 @@ def check_lattice_kernels(net, rnet) -> dict:
         work = (kernel_work(name, T=T, B=B, S=x.shape[2], L=seq.shape[1],
                             distinct=distinct, valid=valid) if kind == "transducer"
                 else kernel_work(name, T=T, B=B, L=seq.shape[1], valid=valid))
+        npos = seq.shape[1] + (kind == "crf")
         rows[name] = {**work, "T": T, "B": B, "L": seq.shape[1],
+                      "layout": tl.cluster_layout(npos)._asdict(),
                       "max_abs_err": float((got[2] - want[2]).abs().max()),
                       "ms": cuda_ms(lambda: lattice_pair(kind, x, seq, gen, False), reps=5),
                       "plain_ms": ev[0].elapsed_time(ev[1])}
-        del got, want
-    # the whole-read shape: the kernels timed, then held against the twins
+        # several runs of positions a thread, at the window
+        with lattice_limits(*LATTICE_SMALL_RUNS):
+            lay = tl.cluster_layout(npos)
+            require(lay.groups > 1, f"{kind} {LATTICE_SMALL_RUNS}: {lay} walks one run")
+            e["runs"], full = check_lattice_case(kind, x, seq, "runs", want=want)
+            for glob in (False, True):
+                what = f"runs, chunk {WINDOW_CHUNK}" + (", global rows" if glob else "")
+                e[what], chunked = check_lattice_case(kind, x, seq, what, glob, want,
+                                                      WINDOW_CHUNK)
+                require(all(torch.equal(a, b) for a, b in zip(chunked, full)
+                            if b is not None), f"{kind} {what}: equal to chunk = T")
+        rows[name]["runs"] = {"limits": LATTICE_SMALL_RUNS, "layout": lay._asdict()}
+        del got, want, full, chunked
+        # a real row above one run of positions a thread, the kernels alone
+        TL, LL = LATTICE_LONG[kind]
+        xl, sl = whole_read_lattice(kind, x.shape[2], (TL, LL))
+        lay = tl.cluster_layout(LL + (kind == "crf"))
+        require(lay.groups > 1, f"{kind} {LATTICE_LONG[kind]}: {lay} walks one run")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        sync()
+        ev[0].record()
+        a = lattice_pair(kind, xl, sl, lattice_seeded(), False, chunk=WHOLE_CHUNK)
+        ev[1].record()
+        b = lattice_pair(kind, xl, sl, lattice_seeded(), False, chunk=LATTICE_LONG_CHUNK)
+        for u, v, what in zip(a, b, ("log P", "logZ", "gradient")):
+            if v is not None:
+                require(bool(torch.isfinite(u).all() and (u > -1e29).all()),
+                        f"{kind} long {what}: finite")
+                require(torch.equal(u, v), f"{kind} long {what}: chunk {WHOLE_CHUNK} "
+                                           f"equal to chunk {LATTICE_LONG_CHUNK}")
+        rows[name]["long"] = {
+            "T": TL, "L": LL, "chunk": WHOLE_CHUNK, "layout": lay._asdict(),
+            "log_p": float(a[0][0]), "grad_abs_max": float(a[2].abs().max()),
+            "ms": ev[0].elapsed_time(ev[1])}
+        del xl, sl, a, b
+    # the whole-read shape: the kernels timed, their chunks against
+    # chunk = T, then held against the twins
     TW, LW = WHOLE_READ_SHAPE
     whole = {}
     for kind, name, _ in kinds:
-        xw, sw, held = whole_read_lattice(kind, 1025)
+        xw, sw = whole_read_lattice(kind, 1025)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         gen = torch.Generator(device="cuda")
-        ms = cuda_ms(lambda: lattice_pair(kind, xw, sw, gen, False), reps=3, warmup=1)
+        ms = cuda_ms(lambda: lattice_pair(kind, xw, sw, gen, False, chunk=WHOLE_CHUNK),
+                     reps=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() - base
+        held = lattice_held_bytes(kind, xw, sw, WHOLE_CHUNK)
+        held_T = lattice_held_bytes(kind, xw, sw, None)
+        ms_T = cuda_ms(lambda: lattice_pair(kind, xw, sw, gen, False), reps=3, warmup=1)
+        chunked = lattice_pair(kind, xw, sw, lattice_seeded(), False, chunk=WHOLE_CHUNK)
+        full = lattice_pair(kind, xw, sw, lattice_seeded(), False)
+        for a, b, what in zip(chunked, full, ("log P", "logZ", "gradient")):
+            if b is not None:
+                require(torch.equal(a, b), f"{kind} whole read {what}: chunk "
+                                           f"{WHOLE_CHUNK} equal to chunk = T")
+        del chunked, full
         wv = int((sw >= 0).sum())
         rows[name]["whole_read"] = {
-            "T": TW, "L": LW, "ms": ms, "bytes_held": held,
-            "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "T": TW, "L": LW, "chunk": WHOLE_CHUNK, "ms": ms, "bytes_held": held,
+            "peak_bytes": peak, "ms_chunk_T": ms_T, "bytes_held_chunk_T": held_T,
+            "equal_to_chunk_T": True,
+            "layout": tl.cluster_layout(LW + (kind == "crf"))._asdict(),
             **(kernel_work(name, T=TW, B=1, S=xw.shape[2], L=LW, valid=wv,
                            distinct=len(set(sw[0].tolist())))
                if kind == "transducer" else kernel_work(name, T=TW, B=1, L=LW, valid=wv))}
         whole[kind] = (xw, sw)
     # the twins of each part (the transducer; the CRF's lattice and its
-    # partition) in float32 on the card and in float64 on the host CPU
-    # (the CRF lattice's, the longest there, on the card too), all at once
-    # in worker processes: a twin's step is tens of small launches or host
-    # ops, bound by the host, over 30 720 steps
+    # partition) in float32 and in float64 on the card (the partition's
+    # float64 on the host CPU, where its seven states run fastest), all at
+    # once in worker processes: a twin's step is tens of small launches or
+    # host ops, bound by the host, over 30 720 steps (the lattices'
+    # float64 on a busy host CPU took twice the card's time)
     parts = {"transducer": ("transducer",), "crf": ("crf", "partition")}
     dtypes = ("float32", "float64")
-    place = lambda part, dtype: "cpu" if dtype == "float64" and part != "crf" else "cuda"
+    place = lambda part, dtype: "cpu" if dtype == "float64" and part == "partition" else "cuda"
     npart = sum(len(v) for v in parts.values()) * len(dtypes)
     twin_s = {}
     with ProcessPoolExecutor(npart, mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -1481,7 +1611,7 @@ def check_lattice_kernels(net, rnet) -> dict:
                         lattice_twin, part, place(part, dtype), dtype, xn, sn,
                         gZ if part == "partition" else gP)
         for kind, (xw, sw) in whole.items():
-            got = lattice_pair(kind, xw, sw, lattice_seeded(), False)
+            got = lattice_pair(kind, xw, sw, lattice_seeded(), False, chunk=WHOLE_CHUNK)
             for dtype in dtypes:
                 res = [jobs[kind, part, dtype].result() for part in parts[kind]]
                 for part, r in zip(parts[kind], res):
@@ -1492,7 +1622,7 @@ def check_lattice_kernels(net, rnet) -> dict:
                     want = [None if v is None else torch.as_tensor(v, device="cuda")
                             for v in want]
                     errs[kind]["whole read"] = check_lattice_case(
-                        kind, xw, sw, "whole read", want=want)[0]
+                        kind, xw, sw, "whole read", want=want, chunk=WHOLE_CHUNK)[0]
                     continue
                 f64 = {n: float(np.abs(a.double().cpu().numpy() - r).max() / np.abs(r).max())
                        for n, a, r in zip(("log P", "logZ", "gradient"), got, want)
@@ -1614,6 +1744,123 @@ def check_big_s() -> dict:
         rows[name].update(S=S, T=T, B=B, **work, ms=cuda_ms(timed[0], reps=5),
                           plain_ms=cuda_ms(timed[1], reps=3, warmup=1))
     emit({"phase": "big_s", "sizes": BIG_S, "T": T, "B": B, "rows": rows})
+    return rows
+
+
+def check_big_s_backward() -> dict:
+    """The training kernels above the registers' S = 96, at S = BIG_S_BWD
+    (phase big_s_backward; T_BIG_S steps, B = 8, C = 96, seeded weights of
+    scale S^-1/2): the GRU's big-S walk (ops/gru.gru_walk) against its
+    twin on the gates of the big-S forward, both directions; the LSTM
+    pair's big-S store-c forward against the twin loops' h and c, and its
+    big-S walk over both directions (ops/lstm.lstm_walk_pair) against the
+    twin; each counter must rise. Then a GRU layer (ops/gru.gru_layer_tm)
+    and an LSTM stage (ops/lstm.lstm_pair_tm) with gradients wanted,
+    through those kernels, against torch.autograd through their plain
+    twins: every input's and weight's gradient within TRAIN_GRAD_RTOL of its
+    largest entry (the two routes' forwards differ too, as a training
+    step's on the card and on the CPU). Times of each kernel (median of 5)
+    beside its twin's (median of 3)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch import ops
+    from scrappie_torch.nn.rnn import lstm_tm
+    from scrappie_torch.ops import gru as g
+    from scrappie_torch.ops import lstm as L
+    from scrappie_torch.ops.project import project_tm
+
+    rng = np.random.default_rng(SEED + 92)
+    T, B, C, S = T_BIG_S, 8, 96, BIG_S_BWD
+
+    def f(*shape, scale=1.0):
+        return torch.as_tensor((scale * rng.standard_normal(shape)).astype(np.float32),
+                               device="cuda")
+
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    rows = {}
+    x = f(T, B, C)
+    with torch.no_grad():
+        # the GRU's walk
+        iW, bias = f(C, 3 * S, scale=C ** -0.5), f(3 * S, scale=0.1)
+        sW, sW2 = f(S, 2 * S, scale=S ** -0.5), f(S, S, scale=S ** -0.5)
+        xg, gh = project_tm(x, iW, bias), f(T, B, S)
+        before = ops.LAUNCHES["gru_recurrence_bwd_global"]
+        err = 0.0
+        for reverse in (False, True):
+            h = g.gru_tm(xg, sW, sW2, reverse)
+            h_prev, gates = g.backward_inputs(xg, h, sW, sW2, reverse)
+            dk = g.gru_walk(gates, h_prev, gh, sW, sW2, reverse)
+            dp = g.gru_walk_plain(gates, h_prev, gh, sW, sW2, reverse)
+            sync()
+            require(bool(torch.isfinite(dk).all()), "gru_recurrence_bwd_global finite")
+            err = max(err, rel(dk, dp))
+        require(err <= GRU_BWD_RTOL, f"gru big-S walk: rel err {err} <= {GRU_BWD_RTOL}")
+        require(ops.LAUNCHES["gru_recurrence_bwd_global"] - before == 2,
+                "gru_recurrence_bwd_global launched")
+        rows["gru_recurrence_bwd_global"] = {
+            "S": S, "T": T, "B": B, "max_abs_err": float((dk - dp).abs().max()),
+            "max_rel_err": err, **kernel_work("gru_recurrence_bwd", T=T, B=B, S=S),
+            "ms": cuda_ms(lambda: g.gru_walk(gates, h_prev, gh, sW, sW2, True), reps=5),
+            "plain_ms": cuda_ms(lambda: g.gru_walk_plain(gates, h_prev, gh, sW, sW2,
+                                                         True), reps=3, warmup=1)}
+        # the LSTM pair's store-c forward and walk
+        wF, wB = ((f(C, 4 * S, scale=C ** -0.5), f(4 * S, scale=0.1),
+                   f(S, 4 * S, scale=S ** -0.5), f(3 * S, scale=0.3)) for _ in "FB")
+        xp = project_tm(x, torch.cat((wF[0], wB[0]), 1), torch.cat((wF[1], wB[1])))
+        ghF, ghB = f(T, B, S), f(T, B, S)
+        before = {k: ops.LAUNCHES[k] for k in ("lstm_pair_train_global",
+                                               "lstm_recurrence_bwd_global")}
+        hF, hB, cF, cB = L.lstm_pair_train_cuda(xp, *wF[2:], *wB[2:])
+        twin = lambda: (lstm_tm(xp[..., : 4 * S], *wF[2:], False, return_c=True),
+                        lstm_tm(xp[..., 4 * S :], *wB[2:], True, return_c=True))
+        (tF, tcF), (tB, tcB) = twin()
+        sync()
+        ferr = max(float((a - b).abs().max())
+                   for a, b in ((hF, tF), (hB, tB), (cF, tcF), (cB, tcB)))
+        require(ferr <= LSTM_ATOL, f"lstm big-S store-c: max abs err {ferr}")
+        dirs = []
+        for xs, h, c, w, gh_, rev in ((xp[..., : 4 * S], hF, cF, wF, ghF, False),
+                                      (xp[..., 4 * S :], hB, cB, wB, ghB, True)):
+            _, _, gates = L.backward_inputs(xs, h, c, w[2], w[3], rev)
+            dirs.append((gates, c, gh_, w[2], w[3], rev))
+        dk = L.lstm_walk_pair(dirs)
+        dp = torch.cat([L.lstm_walk_plain(*d) for d in dirs], dim=-1)
+        sync()
+        require(bool(torch.isfinite(dk).all()), "lstm_recurrence_bwd_global finite")
+        werr = rel(dk, dp)
+        require(werr <= LSTM_BWD_RTOL, f"lstm big-S walk: rel err {werr}")
+        for k, v in before.items():
+            require(ops.LAUNCHES[k] - v == 1, f"{k} launched")
+        rows["lstm_pair_train_global"] = {
+            "S": S, "T": T, "B": B, "max_abs_err": ferr,
+            **kernel_work("lstm_pair_train", T=T, B=B, S=S),
+            "ms": cuda_ms(lambda: L.lstm_pair_train_cuda(xp, *wF[2:], *wB[2:]), reps=5),
+            "plain_ms": cuda_ms(twin, reps=3, warmup=1)}
+        rows["lstm_recurrence_bwd_global"] = {
+            "S": S, "T": T, "B": B, "max_abs_err": float((dk - dp).abs().max()),
+            "max_rel_err": werr, **kernel_work("lstm_recurrence_bwd", T=T, B=B, S=S,
+                                               dirs=2),
+            "ms": cuda_ms(lambda: L.lstm_walk_pair(dirs), reps=5),
+            "plain_ms": cuda_ms(lambda: [L.lstm_walk_plain(*d) for d in dirs],
+                                reps=3, warmup=1)}
+    # the routes with gradients wanted against autograd through the twins
+    grads = {}
+    for route, layer in (("kernels", True), ("twins", False)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, iW, bias, sW, sW2)]
+        fn = g.gru_layer_tm if layer else g.gru_layer_tm_plain
+        (fn(*leaves, reverse=True) * gh).sum().backward()
+        wl = [[t.clone().requires_grad_(True) for t in w] for w in (wF, wB)]
+        xl = x.clone().requires_grad_(True)
+        pair = (L.lstm_pair_tm if layer else L.lstm_pair_tm_plain)(xl, *wl)
+        ((pair[0] * ghF).sum() + (pair[1] * ghB).sum()).backward()
+        grads[route] = [t.grad for t in leaves + [xl] + wl[0] + wl[1]]
+    sync()
+    route_err = max(rel(a, b) for a, b in zip(grads["kernels"], grads["twins"]))
+    require(route_err <= TRAIN_GRAD_RTOL,
+            f"big-S training routes against autograd: rel err {route_err}")
+    emit({"phase": "big_s_backward", "S": S, "T": T, "B": B,
+          "routes_max_rel_err": route_err, "rows": rows})
     return rows
 
 
@@ -3623,20 +3870,56 @@ def whole_read():
 # The whole-read steps: (kind, model, the region function)
 WHOLE_RUNS = (("transducer", "rgrgr_r94", "region_seqstates"),
               ("crf", "rnnrf_r94", "region_sequence"),
-              ("head", "rnnrf_r94", "region_sequence"))
+              ("head", "rnnrf_r94", "region_sequence"),
+              ("transducer", "nanonet_events", "region_event_seqstates"))
+
+
+def events_sampler(read, nsample: int, nev: int | None = None):
+    """What train/wholeread.region_event_seqstates reads of a read (as the
+    JAX package's real-data sampler builds it): the events the port's
+    detector finds in the read's signal, their nanonet features, each
+    event's base (at its last sample) and the read's kmers, the training
+    region ending at the first event past nsample samples, or after its
+    first nev events."""
+    import types
+
+    import numpy as np
+
+    from scrappie_torch.models.specs import KMER_LEN
+    from scrappie_torch.signal.events import detect_events
+    from scrappie_torch.signal.features import nanonet_features_from_events
+    from scrappie_torch.train.simulate import _rolling_kmers
+    from scrappie_torch.types import RawSignal
+
+    et = detect_events(RawSignal(read.norm))
+    ev = et.active
+    last = np.minimum(ev["start"].astype(np.int64) + ev["length"].astype(np.int64) - 1,
+                      len(read.base_at) - 1)
+    return types.SimpleNamespace(
+        _ev=[{"feats": nanonet_features_from_events(et, normalise=True),
+              "ev_base": read.base_at[last].astype(np.int64),
+              "kmers": _rolling_kmers(read.bases, KMER_LEN)}],
+        _train_nev=[int(np.searchsorted(last, nsample)) if nev is None else
+                    min(nev, len(last))], klen=KMER_LEN)
 
 
 def wholeread_inputs(read, kind: str, model: str, region: str, params: dict,
-                     nsample: int):
+                     nsample: int, nev: int | None = None):
     """(x, seq [1, L]) of the read's region of nsample samples for the
-    kind's step: the signal [1, Tsig, 1], or for "head" rnnrf_r94's
-    features [1, T, 96] under params on the card."""
+    kind's step: the signal [1, Tsig, 1], for "head" rnnrf_r94's features
+    [1, T, 96] under params on the card, for region_event_seqstates the
+    features [1, T, 4] of the events in those samples, or of the first
+    nev."""
     import torch
 
     from scrappie_torch.models import forward
     from scrappie_torch.models.specs import RAW_MODELS
     from scrappie_torch.train import wholeread
 
+    if region == "region_event_seqstates":
+        feats, seq = wholeread.region_event_seqstates(events_sampler(read, nsample, nev),
+                                                      0, WHOLE_CHUNK)
+        return feats[None], seq[None]
     spec = RAW_MODELS[model]
     sig, seq = getattr(wholeread, region)(read, nsample, spec.stride, WHOLE_CHUNK)
     x = sig[None, :, None]
@@ -3651,14 +3934,16 @@ def wholeread_inputs(read, kind: str, model: str, region: str, params: dict,
 
 def main_path_wholeread(card: str, total: dict) -> list:
     """One step of each of WHOLE_RUNS on the card (phase main_path_train,
-    run "wholeread"): make_wholeread_transducer_step (rgrgr_r94),
+    run "wholeread"): make_wholeread_transducer_step (rgrgr_r94, and
+    nanonet_events on the region's detected events),
     make_wholeread_step and make_head_step (rnnrf_r94) on the simulated
-    region of WHOLE_SAMPLES samples (12 288 and 30 720 blocks, chunk
-    WHOLE_CHUNK), its loss finite and the lattice kernel launched, with its
-    seconds and peak device memory; then the step under the profiler. Adds
-    the launches to total; returns main_path_train's runs (the loss and
-    gradients on the region's first WHOLE_CPU_BLOCKS blocks against the
-    CPU's within LATTICE_GRAD_RTOL)."""
+    region of WHOLE_SAMPLES samples (12 288 and 30 720 blocks, the events
+    the detector finds there; chunk WHOLE_CHUNK), its loss finite and the
+    lattice kernel launched, with its seconds and peak device memory; then
+    the step under the profiler. Adds the launches to total; returns
+    main_path_train's runs (the loss and gradients on the region's first
+    WHOLE_CPU_BLOCKS blocks or events against the CPU's within
+    LATTICE_GRAD_RTOL)."""
     import numpy as np
     import torch
 
@@ -3673,16 +3958,19 @@ def main_path_wholeread(card: str, total: dict) -> list:
               "head": lambda m, o: wholeread.make_head_step(o, chunk=WHOLE_CHUNK)}
     kernels = {"transducer": ("lattice_fwdbwd", "gru_recurrence_bwd"),
                "crf": ("crf_lattice_fwdbwd", "crf_partition_grad", "gru_recurrence_bwd"),
-               "head": ("crf_lattice_fwdbwd", "crf_partition_grad")}
+               "head": ("crf_lattice_fwdbwd", "crf_partition_grad"),
+               "events": ("lattice_fwdbwd", "lstm_pair_train", "lstm_recurrence_bwd")}
     read = whole_read()
     runs = []
     for i, (kind, model, region) in enumerate(WHOLE_RUNS):
         what = f"wholeread {kind} {model}"
         params = random_params(model, SEED + 195 + i)
-        stride = RAW_MODELS[model].stride
+        events = model not in RAW_MODELS
         full = wholeread_inputs(read, kind, model, region, params, WHOLE_SAMPLES)
-        cut = wholeread_inputs(read, kind, model, region, params,
-                               WHOLE_CPU_BLOCKS * stride)
+        cut = (wholeread_inputs(read, kind, model, region, params, WHOLE_SAMPLES,
+                                WHOLE_CPU_BLOCKS) if events else
+               wholeread_inputs(read, kind, model, region, params,
+                                WHOLE_CPU_BLOCKS * RAW_MODELS[model].stride))
         if kind == "head":
             params = {k: params[k] for k in wholeread.HEAD_KEYS}
         card_vg = value_and_grad_on(kind, model, params, *cut, "cuda")
@@ -3701,10 +3989,11 @@ def main_path_wholeread(card: str, total: dict) -> list:
         seconds = time.perf_counter() - t0
         launched = {k: v for k, v in ops.LAUNCHES.items() if v}
         require(bool(np.isfinite(loss)), f"{what}: the loss finite")
-        require_kernels(what, launched, kernels[kind])
+        require_kernels(what, launched, kernels["events" if events else kind])
         for k, v in launched.items():
             total[k] += v
-        blocks = full[0].shape[1] // (1 if kind == "head" else stride)
+        blocks = full[0].shape[1] // (1 if kind == "head" or events
+                                      else RAW_MODELS[model].stride)
         runs.append((what, {"phase": "main_path_train", "run": "wholeread", "kind": kind,
                             "model": model, "blocks": blocks, "seq_len": full[1].shape[1],
                             "chunk": WHOLE_CHUNK, "loss": loss, "seconds": seconds,
@@ -3976,7 +4265,8 @@ def time_checkout(checkout: pathlib.Path) -> None:
     after one call), the CRF forward, partition function, backtrace (on
     the checkout's own forward's traceback), posterior and partition
     gradient (g = 1) at CRF_AB shapes on seeded transitions (2 x standard
-    normal; CUDA events, median of 10), the GRU recurrence, its backward
+    normal; CUDA events, median of 10), the lattice losses
+    (time_lattices), the GRU recurrence, its backward
     walk and whole backward (ops/gru.gru_tm, gru_walk, gru_tm_backward:
     T_BLOCKS blocks, S = 96,
     B = 8 and 64, seeded input, weights 0.1 x standard normal and output
@@ -4083,7 +4373,73 @@ def time_checkout(checkout: pathlib.Path) -> None:
             api.map_post_to_sequence(post, ref, device="cuda", **kw)
             seconds.append(time.perf_counter() - t0)
         out[f"map_post_to_sequence_s {what}"] = statistics.median(seconds)
+    out.update(time_lattices())
     print(json.dumps(out), flush=True)
+
+
+# The lattices --ab times: (kind, what, (T, B, L), chunk); None keeps every
+# step's rows, as the windows' losses do.
+LATTICE_AB = (("transducer", "window", (800, 8, 800), None),
+              ("crf", "window", (2000, 8, 1408), None),
+              ("transducer", "whole read", (*WHOLE_READ_SHAPE[:1], 1, WHOLE_READ_SHAPE[1]),
+               WHOLE_CHUNK),
+              ("crf", "whole read", (*WHOLE_READ_SHAPE[:1], 1, WHOLE_READ_SHAPE[1]),
+               WHOLE_CHUNK))
+
+
+def time_lattices() -> dict:
+    """The imported scrappie_torch's lattice losses, forward and backward
+    through ops/lattice's lattice_forward_tm and crf_lattice_tm and
+    torch.autograd.grad (both logZ_local and log P for the CRF), at each of
+    LATTICE_AB's shapes on seeded inputs (log_softmax of 2 x standard
+    normal, or 2 x standard normal transitions; random kmer states or
+    bases), with its chunk where the checkout takes one (CUDA events,
+    median of 5, the whole read's of 3), and each whole read's peak device
+    memory above what it was before."""
+    import inspect
+
+    import torch
+
+    from scrappie_torch.ops import lattice as tl
+
+    takes_chunk = "chunk" in inspect.signature(tl.lattice_forward_tm).parameters
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 163)
+    out = {"lattice_chunked": takes_chunk}
+    for kind, what, (T, B, L), chunk in LATTICE_AB:
+        if kind == "transducer":
+            x = torch.log_softmax(2.0 * torch.randn((T, B, 1025), generator=gen,
+                                                   device="cuda"), -1)
+            seq = torch.randint(0, 1024, (B, L), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        else:
+            x = 2.0 * torch.randn((T, B, 25), generator=gen, device="cuda")
+            seq = torch.randint(0, 4, (B, L), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        x.requires_grad_(True)
+        g = torch.randn((2, B), generator=gen, device="cuda")
+        kw = {"chunk": chunk} if takes_chunk and chunk else {}
+
+        def run():
+            if kind == "transducer":
+                loss = (tl.lattice_forward_tm(x, seq, 0.0, 4.0, 4.0, **kw) * g[0]).sum()
+            else:
+                logp, logz = tl.crf_lattice_tm(x, seq, 4.0, **kw)
+                loss = (logp * g[0]).sum() + (logz * g[1]).sum()
+            return torch.autograd.grad(loss, x)
+
+        whole = what == "whole read"
+        key = f"{kind}_lattice_ms {what} T = {T}, B = {B}, L = {L}"
+        out[key] = cuda_ms(run, reps=3 if whole else 5, warmup=1)
+        if whole:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            run()
+            torch.cuda.synchronize()
+            out[f"{kind}_lattice_peak_bytes {what}"] = (
+                torch.cuda.max_memory_allocated() - base)
+        del x, seq
+    return out
 
 
 def compare_checkouts(other: pathlib.Path) -> None:
@@ -4113,7 +4469,9 @@ def main() -> int:
                     help="only time the Viterbi forward and backtrace, the "
                          "DTW, map_signal_to_squiggle, the CRF forward, "
                          "partition function, backtrace, posterior and "
-                         "partition gradient, the GRU recurrence, its "
+                         "partition gradient, the lattice losses at "
+                         "their windows and a whole read, the GRU "
+                         "recurrence, its "
                          "backward walk and whole backward, the rnnrf fused "
                          "path, the seqmap "
                          "DP and map_post_to_sequence of OTHER_CHECKOUT and "
@@ -4159,6 +4517,7 @@ def main() -> int:
     table["gru_recurrence_bwd"] = check_gru_backward(net, 64)
     check_lstm_backward(enet, 8)
     table["lstm_recurrence_bwd"], table["lstm_pair_train"] = check_lstm_backward(enet, 64)
+    table.update(check_big_s_backward())
     with torch.inference_mode():
         table.update(check_lattice_kernels(net, rnet))
     reads = synthetic_reads()

@@ -52,6 +52,16 @@
 // sW and sW2 from global memory, where they stay in L2 (1.5 MB at S =
 // 352), and the projected input in the step that uses it. Same arithmetic.
 //
+// Big-S walk (gru_walk_global_kernel, S > 96): the backward walk's weights
+// read from global memory, where they stay in L2, one block of 1024
+// threads a row, three barriers a step: a thread a unit k takes dh, da_z
+// and da_h and keeps the gates' factors in shared memory; then lanes of
+// BGL = 8 an output take da_h @ sW2^T and da_z @ sW_z^T from the weights'
+// rows (sW2[k, :] and sW[k, :S], contiguous) and da_r; then da_r @ sW_r^T
+// and the carry. The same arithmetic as gru_recurrence_bwd_kernel's, the
+// sums in another order. A simple kernel: it runs only above the shipped
+// models' S = 96.
+//
 // The superseded gru_layer_kernel: one block per row and one thread per
 // gate column (3S threads); iW, sW and sW2 in shared memory (224 KB at
 // C = S = 96) and the 96-term projection of each step inside the loop.
@@ -464,6 +474,97 @@ gru_recurrence_bwd_kernel(const float* __restrict__ gates,
   }
 }
 
+constexpr int BGL = 8;  // lanes of an output in the big-S walk
+
+// Partial dot product of one lane of BGL: vec[j] * W[k, col0 + j] for
+// j = la, la + BGL, ... < S, vec in shared memory, W's row k contiguous.
+__device__ __forceinline__ float row_dot(const float* vec,
+                                         const float* __restrict__ wrow,
+                                         int la, int S) {
+  float a0 = 0.0f, a1 = 0.0f;
+  int j = la;
+  for (; j + BGL < S; j += 2 * BGL) {
+    a0 = fmaf(vec[j], __ldg(wrow + j), a0);
+    a1 = fmaf(vec[j + BGL], __ldg(wrow + j + BGL), a1);
+  }
+  if (j < S) a0 = fmaf(vec[j], __ldg(wrow + j), a0);
+  return __fadd_rn(a0, a1);
+}
+
+// The walk with its weights in global memory: gru_recurrence_bwd_kernel's
+// arguments, any S (shared memory: 10 S floats).
+__global__ void __launch_bounds__(1024)
+gru_walk_global_kernel(const float* __restrict__ gates,
+                       const float* __restrict__ h_prev,
+                       const float* __restrict__ gh,
+                       const float* __restrict__ sW,
+                       const float* __restrict__ sW2, float* __restrict__ da,
+                       int T, int B, int S, int reverse) {
+  extern __shared__ float sm[];
+  float* s_carry = sm;
+  float* s_dh = s_carry + S;
+  float* s_z = s_dh + S;
+  float* s_r = s_z + S;
+  float* s_cr = s_r + S;
+  float* s_az = s_cr + S;
+  float* s_ah = s_az + S;
+  float* s_ar = s_ah + S;
+  float* s_part = s_ar + S;
+  float* s_recz = s_part + S;
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int la = tid % BGL, ngroup = nt / BGL;
+  const int S2 = 2 * S, S3 = 3 * S;
+  for (int k = tid; k < S; k += nt) s_carry[k] = 0.0f;
+  __syncthreads();
+  for (int n = 0; n < T; ++n) {
+    const int t = reverse ? n : T - 1 - n;
+    const size_t row = (size_t)t * B + b;
+    for (int k = tid; k < S; k += nt) {
+      const float z = gates[row * S3 + k], r = gates[row * S3 + S + k];
+      const float hb = gates[row * S3 + S2 + k], hp = h_prev[row * S + k];
+      const float one_z = __fsub_rn(1.0f, z);
+      const float cz = __fmul_rn(__fmul_rn(__fsub_rn(hp, hb), z), one_z);
+      const float ch = __fmul_rn(one_z, __fsub_rn(1.0f, __fmul_rn(hb, hb)));
+      const float cr = __fmul_rn(__fmul_rn(hp, r), __fsub_rn(1.0f, r));
+      const float dh = __fadd_rn(s_carry[k], gh[row * S + k]);
+      const float az = __fmul_rn(dh, cz), ah = __fmul_rn(dh, ch);
+      s_az[k] = az;
+      s_ah[k] = ah;
+      da[row * S3 + k] = az;
+      da[row * S3 + S2 + k] = ah;
+      s_dh[k] = dh;
+      s_z[k] = z;
+      s_r[k] = r;
+      s_cr[k] = cr;
+    }
+    __syncthreads();
+    for (int k0 = 0; k0 < S; k0 += ngroup) {
+      const int k = k0 + tid / BGL;
+      const bool live = k < S;
+      const float p2 = group_sum<BGL>(
+          live ? row_dot(s_ah, sW2 + (size_t)k * S, la, S) : 0.0f);
+      const float pz = group_sum<BGL>(
+          live ? row_dot(s_az, sW + (size_t)k * S2, la, S) : 0.0f);
+      if (live && la == 0) {
+        const float ar = __fmul_rn(p2, s_cr[k]);
+        s_ar[k] = ar;
+        da[row * S3 + S + k] = ar;
+        s_part[k] = __fadd_rn(__fmul_rn(s_dh[k], s_z[k]), __fmul_rn(p2, s_r[k]));
+        s_recz[k] = pz;
+      }
+    }
+    __syncthreads();
+    for (int k0 = 0; k0 < S; k0 += ngroup) {
+      const int k = k0 + tid / BGL;
+      const bool live = k < S;
+      const float pr = group_sum<BGL>(
+          live ? row_dot(s_ar, sW + (size_t)k * S2 + S, la, S) : 0.0f);
+      if (live && la == 0) s_carry[k] = __fadd_rn(s_part[k], __fadd_rn(s_recz[k], pr));
+    }
+    __syncthreads();
+  }
+}
+
 // The superseded layer kernel: x [T, B, C], xin = x[t] @ iW + b computed in
 // the step loop by thread j for its gate column j (blockDim.x == 3S >= C).
 __global__ void gru_layer_kernel(const float* __restrict__ x,
@@ -601,13 +702,26 @@ int scrappie_gru_recurrence(const float* x, const float* sW, const float* sW2,
 
 // The recurrence's backward walk: gates [T, B, 3S] (z | r | hbar), h_prev
 // [T, B, S], gh [T, B, S], sW [S, 2S], sW2 [S, S] -> da [T, B, 3S]; all
-// fp32, contiguous, on the current device; S <= REG_MAX_S. Returns a
+// fp32, contiguous, on the current device. global = 0: the weights in
+// registers, S <= REG_MAX_S; global = 1: the big-S walk. Returns a
 // cudaError_t.
 int scrappie_gru_recurrence_bwd(const float* gates, const float* h_prev,
                                 const float* gh, const float* sW,
                                 const float* sW2, float* da, int T, int B,
-                                int S, int reverse, cudaStream_t stream) {
+                                int S, int reverse, int global,
+                                cudaStream_t stream) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
+  if (global) {
+    const size_t smem = sizeof(float) * 10 * (size_t)S;
+    cudaError_t err = cudaFuncSetAttribute(
+        gru_walk_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    gru_walk_global_kernel<<<B, 1024, smem, stream>>>(gates, h_prev, gh, sW,
+                                                      sW2, da, T, B, S,
+                                                      reverse);
+    return (int)cudaGetLastError();
+  }
   if (S > REG_MAX_S) return (int)cudaErrorInvalidValue;
   gru_recurrence_bwd_kernel<<<B, BW_THREADS, 0, stream>>>(
       gates, h_prev, gh, sW, sW2, da, T, B, S, reverse);

@@ -52,7 +52,9 @@
 // columns j = tid, tid + blockDim, ..., and the projected input is read in
 // the step that uses it; h, c and the gate values sit in shared memory, with
 // two barriers a step; its gates take tanhf and sigmoid_f32 in the
-// twin's order.
+// twin's order. One layer a launch, or both directions of a stage (grid
+// B x 2, as the register kernel's pair), and a store-c mode for training
+// (kStoreC, c a fixed offset past h as below).
 //
 // Training (store-c mode, template kStoreC): the same kernel also writes
 // the cell state c of every step to a [T, B, S] array a direction (lane 0
@@ -96,6 +98,14 @@
 // one barrier a step and the product. Both directions of a stage run in
 // one launch (blockIdx.y), each writing its 4S columns of a [T, B, 8S] da,
 // the pair projection's layout.
+//
+// Big-S walk (lstm_walk_global_kernel, S > 96): sW read from global memory
+// (L2), one block of 1024 threads a row and direction, two barriers a
+// step: a thread a unit takes the gates' arithmetic from its inputs in
+// global memory and keeps carry_c, da in shared memory; then lanes of 8 an
+// output take da @ sW^T from sW's rows (contiguous). The same arithmetic,
+// the product's sums in another order; a simple kernel, for sizes above
+// the shipped models'.
 #include <cuda_runtime.h>
 
 namespace {
@@ -271,14 +281,19 @@ __device__ __forceinline__ float global_gate(const float* __restrict__ sW,
   return sigmoid_f32(__fadd_rn(xf, __fmul_rn(s_c[u], p_gate)));
 }
 
-// Big-S mode: xproj [T, B, 4S], sW [S, 4S], peep [3S] -> y [T, B, S].
-// Shared memory: h [S], c [S], the gate values [4S].
+// Big-S mode: xproj [T, B, xcols] -> y [T, B, S] for direction blockIdx.y,
+// whose 4S gate columns start at column 4S * blockIdx.y; kStoreC: also c
+// to d.y + coff. Shared memory: h [S], c [S], the gate values [4S].
+template <bool kStoreC>
 __global__ void __launch_bounds__(1024)
-lstm_global_kernel(const float* __restrict__ xproj,
-                   const float* __restrict__ sW,
-                   const float* __restrict__ peep, float* __restrict__ y,
-                   int T, int B, int S, int reverse) {
+lstm_global_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
+                   Dir d1, int T, int B, int S, long long coff) {
   extern __shared__ float smem[];
+  const Dir d = blockIdx.y ? d1 : d0;
+  const float* __restrict__ sW = d.sW;
+  const float* __restrict__ peep = d.peep;
+  float* __restrict__ y = d.y;
+  const int reverse = d.reverse;
   const int S4 = 4 * S;
   float* s_h = smem;     // [S]
   float* s_c = s_h + S;  // [S]
@@ -295,7 +310,8 @@ lstm_global_kernel(const float* __restrict__ xproj,
 
   for (int n = 0; n < T; ++n) {
     const int t = t0 + n * dt;
-    const float* xrow = xproj + ((size_t)t * B + b) * S4;
+    const float* xrow =
+        xproj + ((size_t)t * B + b) * xcols + (size_t)S4 * blockIdx.y;
     for (int j = tid; j < S4; j += blockDim.x)
       s_g[j] = global_gate(sW, s_h, s_c, gate_peep(peep, S, j), xrow[j], S, j);
     __syncthreads();
@@ -309,7 +325,9 @@ lstm_global_kernel(const float* __restrict__ xproj,
       const float h = __fmul_rn(o, tanhf(c_new));
       s_c[u] = c_new;
       s_h[u] = h;
-      y[((size_t)t * B + b) * S + u] = h;
+      float* yt = y + ((size_t)t * B + b) * S + u;
+      *yt = h;
+      if (kStoreC) yt[coff] = c_new;
     }
     __syncthreads();
   }
@@ -495,6 +513,105 @@ lstm_recurrence_bwd_kernel(BwdDir d0, BwdDir d1, float* __restrict__ da,
   }
 }
 
+constexpr int WGL = 8;  // lanes of an output in the big-S walk
+
+// gates, c, gh of direction blockIdx.y -> its 4S columns of da [T, B,
+// dcols], sW read from global memory; any S (shared memory: 6S floats:
+// carry_h [S], carry_c [S], da [4S]).
+__global__ void __launch_bounds__(1024)
+lstm_walk_global_kernel(BwdDir d0, BwdDir d1, float* __restrict__ da,
+                        int dcols, int T, int B, int S) {
+  extern __shared__ float sm[];
+  const BwdDir d = blockIdx.y ? d1 : d0;
+  const int S4 = 4 * S;
+  float* s_ch = sm;
+  float* s_cc = s_ch + S;
+  float* s_da = s_cc + S;
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int la = tid % WGL, ngroup = nt / WGL;
+  float* dcol = da + (size_t)S4 * blockIdx.y;
+  for (int u = tid; u < S; u += nt) {
+    s_ch[u] = 0.0f;
+    s_cc[u] = 0.0f;
+  }
+  __syncthreads();
+  for (int n = 0; n < T; ++n) {
+    const int t = d.reverse ? n : T - 1 - n;
+    const int tp = d.reverse ? t + 1 : t - 1;  // the forward's step before
+    const bool has = tp >= 0 && tp < T;
+    const size_t row = (size_t)t * B + b;
+    for (int u = tid; u < S; u += nt) {
+      const float g = d.gates[row * S4 + u], ig = d.gates[row * S4 + S + u];
+      const float fg = d.gates[row * S4 + 2 * S + u];
+      const float og = d.gates[row * S4 + 3 * S + u];
+      const float cprev = has ? d.c[((size_t)tp * B + b) * S + u] : 0.0f;
+      const float tc = tanhf(d.c[row * S + u]);
+      const float dh = __fadd_rn(s_ch[u], d.gh[row * S + u]);
+      const float p_in = __ldg(d.peep + u), p_f = __ldg(d.peep + S + u);
+      const float p_out = __ldg(d.peep + 2 * S + u);
+      const float da_o =
+          __fmul_rn(__fmul_rn(__fmul_rn(dh, tc), og), __fsub_rn(1.0f, og));
+      const float dc = __fadd_rn(
+          __fadd_rn(s_cc[u], __fmul_rn(__fmul_rn(dh, og),
+                                       __fsub_rn(1.0f, __fmul_rn(tc, tc)))),
+          __fmul_rn(da_o, p_out));
+      const float da_f =
+          __fmul_rn(__fmul_rn(__fmul_rn(dc, cprev), fg), __fsub_rn(1.0f, fg));
+      const float da_i =
+          __fmul_rn(__fmul_rn(__fmul_rn(dc, g), ig), __fsub_rn(1.0f, ig));
+      const float da_c =
+          __fmul_rn(__fmul_rn(dc, ig), __fsub_rn(1.0f, __fmul_rn(g, g)));
+      s_cc[u] = __fadd_rn(__fadd_rn(__fmul_rn(dc, fg), __fmul_rn(da_f, p_f)),
+                          __fmul_rn(da_i, p_in));
+      s_da[u] = da_c;
+      s_da[S + u] = da_i;
+      s_da[2 * S + u] = da_f;
+      s_da[3 * S + u] = da_o;
+      float* out = dcol + row * dcols;
+      out[u] = da_c;
+      out[S + u] = da_i;
+      out[2 * S + u] = da_f;
+      out[3 * S + u] = da_o;
+    }
+    __syncthreads();
+    for (int k0 = 0; k0 < S; k0 += ngroup) {
+      const int k = k0 + tid / WGL;
+      float a0 = 0.0f, a1 = 0.0f;
+      if (k < S) {
+        const float* wrow = d.sW + (size_t)k * S4;
+        int j = la;
+        for (; j + WGL < S4; j += 2 * WGL) {
+          a0 = fmaf(s_da[j], __ldg(wrow + j), a0);
+          a1 = fmaf(s_da[j + WGL], __ldg(wrow + j + WGL), a1);
+        }
+        if (j < S4) a0 = fmaf(s_da[j], __ldg(wrow + j), a0);
+      }
+      float v = __fadd_rn(a0, a1);
+#pragma unroll
+      for (int o = WGL / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+      if (k < S && la == 0) s_ch[k] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// The big-S forward over ndir directions (grid B x ndir).
+template <bool kStoreC>
+int launch_global(const float* xproj, int xcols, Dir d0, Dir d1, int ndir,
+                  int T, int B, int S, cudaStream_t stream,
+                  long long coff = 0) {
+  if (T == 0 || B == 0) return (int)cudaSuccess;
+  const size_t smem = sizeof(float) * 6 * (size_t)S;
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_global_kernel<kStoreC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 4 * S < 1024 ? ((4 * S + 31) / 32) * 32 : 1024;
+  lstm_global_kernel<kStoreC><<<dim3(B, ndir), threads, smem, stream>>>(
+      xproj, xcols, d0, d1, T, B, S, coff);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -506,20 +623,10 @@ extern "C" {
 int scrappie_lstm_recurrence(const float* xproj, const float* sW,
                              const float* peep, float* y, int T, int B, int S,
                              int reverse, int global, cudaStream_t stream) {
-  if (!global) {
-    const Dir d{sW, peep, y, reverse};
+  const Dir d{sW, peep, y, reverse};
+  if (!global)
     return launch_registers<false>(xproj, 4 * S, d, d, 1, T, B, S, stream);
-  }
-  if (T == 0 || B == 0) return (int)cudaSuccess;
-  const size_t smem = sizeof(float) * 6 * (size_t)S;
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = 4 * S < 1024 ? ((4 * S + 31) / 32) * 32 : 1024;
-  lstm_global_kernel<<<B, threads, smem, stream>>>(xproj, sW, peep, y, T, B,
-                                                    S, reverse);
-  return (int)cudaGetLastError();
+  return launch_global<false>(xproj, 4 * S, d, d, 1, T, B, S, stream);
 }
 
 // Both directions of a stage in one launch: xproj [T, B, 8S] (the forward
@@ -537,15 +644,20 @@ int scrappie_lstm_pair(const float* xproj, const float* sW_f,
 }
 
 // The store-c mode of scrappie_lstm_pair: also writes c_f, c_b [T, B, S],
-// which must lie as far past y_f as c_b past y_b. Returns a cudaError_t.
+// which must lie as far past y_f as c_b past y_b. global = 0: sW in
+// registers (S <= REG_MAX_S); global = 1: the big-S kernel. Returns a
+// cudaError_t.
 int scrappie_lstm_pair_train(const float* xproj, const float* sW_f,
                              const float* peep_f, float* y_f, float* c_f,
                              const float* sW_b, const float* peep_b,
                              float* y_b, float* c_b, int T, int B, int S,
-                             cudaStream_t stream) {
+                             int global, cudaStream_t stream) {
   if (c_f - y_f != c_b - y_b) return (int)cudaErrorInvalidValue;
-  return launch_registers<true>(xproj, 8 * S, Dir{sW_f, peep_f, y_f, 0},
-                                Dir{sW_b, peep_b, y_b, 1}, 2, T, B, S, stream,
+  const Dir df{sW_f, peep_f, y_f, 0}, db{sW_b, peep_b, y_b, 1};
+  if (global)
+    return launch_global<true>(xproj, 8 * S, df, db, 2, T, B, S, stream,
+                               c_f - y_f);
+  return launch_registers<true>(xproj, 8 * S, df, db, 2, T, B, S, stream,
                                 c_f - y_f);
 }
 
@@ -553,18 +665,32 @@ int scrappie_lstm_pair_train(const float* xproj, const float* sW_f,
 // direction d, gates [T, B, 4S] (tanh(a_c) | i | f | o), c and gh
 // [T, B, S], sW [S, 4S], peep [3S] and the forward's direction ->
 // columns 4S d .. 4S d + 4S - 1 of da [T, B, dcols]; all fp32, contiguous,
-// on the current device; S <= REG_MAX_S. Returns a cudaError_t.
+// on the current device. global = 0: sW in registers, S <= REG_MAX_S;
+// global = 1: the big-S walk. Returns a cudaError_t.
 int scrappie_lstm_recurrence_bwd(
     const float* gates0, const float* c0, const float* gh0, const float* sW0,
     const float* peep0, int reverse0, const float* gates1, const float* c1,
     const float* gh1, const float* sW1, const float* peep1, int reverse1,
-    float* da, int dcols, int ndir, int T, int B, int S, cudaStream_t stream) {
+    float* da, int dcols, int ndir, int T, int B, int S, int global,
+    cudaStream_t stream) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
-  if (S < 1 || S > REG_MAX_S || ndir < 1 || ndir > 2 || dcols < 4 * S * ndir)
+  if (S < 1 || ndir < 1 || ndir > 2 || dcols < 4 * S * ndir ||
+      (!global && S > REG_MAX_S))
     return (int)cudaErrorInvalidValue;
+  const BwdDir e0{gates0, c0, gh0, sW0, peep0, reverse0};
+  const BwdDir e1{gates1, c1, gh1, sW1, peep1, reverse1};
+  if (global) {
+    const size_t smem = sizeof(float) * 6 * (size_t)S;
+    cudaError_t err = cudaFuncSetAttribute(
+        lstm_walk_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    lstm_walk_global_kernel<<<dim3(B, ndir), 1024, smem, stream>>>(
+        e0, e1, da, dcols, T, B, S);
+    return (int)cudaGetLastError();
+  }
   lstm_recurrence_bwd_kernel<<<dim3(B, ndir), BW_THREADS, 0, stream>>>(
-      BwdDir{gates0, c0, gh0, sW0, peep0, reverse0},
-      BwdDir{gates1, c1, gh1, sW1, peep1, reverse1}, da, dcols, T, B, S);
+      e0, e1, da, dcols, T, B, S);
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,7 @@ LAUNCHES: dict[str, int] = {
     "gru_recurrence": 0,
     "gru_recurrence_global": 0,
     "gru_recurrence_bwd": 0,
+    "gru_recurrence_bwd_global": 0,
     "head": 0,
     "viterbi_fwd": 0,
     "viterbi_backtrace": 0,
@@ -38,7 +39,9 @@ LAUNCHES: dict[str, int] = {
     "lstm_pair": 0,
     "lstm_layer_global": 0,
     "lstm_pair_train": 0,
+    "lstm_pair_train_global": 0,
     "lstm_recurrence_bwd": 0,
+    "lstm_recurrence_bwd_global": 0,
     "lattice_fwdbwd": 0,
     "crf_lattice_fwdbwd": 0,
     "dtw": 0,

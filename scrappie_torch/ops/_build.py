@@ -34,7 +34,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "scrappie_gru_layer": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "scrappie_gru_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "scrappie_gru_recurrence_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "scrappie_gru_recurrence_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _P),
     "scrappie_viterbi_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P),
     "scrappie_viterbi_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                                _F, _F, _F, _F, _I, _P),
@@ -49,13 +50,12 @@ _SIGNATURES = {
     "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "scrappie_lstm_pair": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "scrappie_lstm_pair_train": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _P),
+                                 _I, _I, _P),
     "scrappie_lstm_recurrence_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                                     _P, _I, _P, _I, _I, _I, _I, _I, _P),
-    "scrappie_lattice": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                         _F, _F, _P),
-    "scrappie_crf_lattice": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _F, _P),
+                                     _P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
+    "scrappie_lattice": (_I, *(_P,) * 14, *(_I,) * 9, _F, _F, _F, _P),
+    "scrappie_crf_lattice": (_I, *(_P,) * 16, *(_I,) * 8, _F, _P),
+    "scrappie_lattice_floats": (_I, _I),
     "scrappie_head": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
                       _P),
     "scrappie_dtw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,

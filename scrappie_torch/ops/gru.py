@@ -16,9 +16,11 @@ padding: the output is [T, B, S].
 saved h by two products over all steps (torch.matmul, as XLA computes them
 outside any kernel in the JAX package's VJP of nn/rnn.gru's scan), then
 the walk of dh back through time, which on the card is the kernel
-gru_recurrence_bwd_kernel (csrc/gru.cu, S <= REGISTER_MAX_S; counted as
-"gru_recurrence_bwd") and on the CPU its plain twin `gru_walk_plain`, then
-the weights' gradients by two more products.
+gru_recurrence_bwd_kernel (csrc/gru.cu, weights in registers, S <=
+REGISTER_MAX_S; counted as "gru_recurrence_bwd") or above that its big-S
+mode gru_walk_global_kernel (weights read from L2; counted as
+"gru_recurrence_bwd_global"), and on the CPU its plain twin
+`gru_walk_plain`, then the weights' gradients by two more products.
 
 `gru_layer_fused_cuda` launches the first port's kernel, which projects
 inside its step loop; no path calls it.
@@ -146,42 +148,47 @@ def gru_walk_plain(gates, h_prev, gh, sW, sW2, reverse: bool = False):
     return da
 
 
-def check_gru_walk_input(gates, h_prev, gh, sW, sW2) -> None:
+def check_gru_walk_input(gates, h_prev, gh, sW, sW2) -> bool:
     """Raise unless the backward walk kernel takes these inputs: the
-    weights with S <= REGISTER_MAX_S and contiguous fp32 gates [T, B, 3S],
-    h_prev and gh [T, B, S]."""
+    weights and contiguous fp32 gates [T, B, 3S], h_prev and gh [T, B, S];
+    return whether they take its big-S mode (S > REGISTER_MAX_S: the
+    weights read from L2, 10 S floats of shared memory)."""
     check_gru_weights(sW, sW2)
     T, B, _ = gates.shape
     S = sW2.shape[0]
-    if S > REGISTER_MAX_S:
-        raise ValueError(f"the GRU's backward kernel keeps its weights in "
-                         f"registers, S <= {REGISTER_MAX_S}; got S = {S} "
-                         "(ROADMAP.md queue 1 item 10)")
+    big = S > REGISTER_MAX_S
+    if big and 10 * S * 4 > ops.MAX_SMEM_BYTES:
+        raise ValueError(f"the GRU's big-S backward walk needs 10S floats "
+                         f"of shared memory, S = {S}; a block may use "
+                         f"{ops.MAX_SMEM_BYTES} B")
     ops.check_kernel_input("gates", gates, (T, B, 3 * S))
     ops.check_kernel_input("h_prev", h_prev, (T, B, S))
     ops.check_kernel_input("gh", gh, (T, B, S))
+    return big
 
 
 def gru_walk(gates, h_prev, gh, sW, sW2, reverse: bool = False):
     """The backward walk (gru_walk_plain's arguments and result): on the
-    card the kernel gru_recurrence_bwd_kernel, S <= REGISTER_MAX_S."""
+    card the kernel gru_recurrence_bwd_kernel, or its big-S mode above
+    S = REGISTER_MAX_S."""
     if not ops.on_cuda(gates, h_prev, gh, sW, sW2):
         return gru_walk_plain(gates, h_prev, gh, sW, sW2, reverse)
     from scrappie_torch.ops import _build
 
-    check_gru_walk_input(gates, h_prev, gh, sW, sW2)
+    big = check_gru_walk_input(gates, h_prev, gh, sW, sW2)
     T, B, _ = gates.shape
     S = sW2.shape[0]
     da = torch.empty((T, B, 3 * S), dtype=torch.float32, device=gates.device)
     if T == 0 or B == 0:
         return da
+    name = "gru_recurrence_bwd_global" if big else "gru_recurrence_bwd"
     with torch.cuda.device(gates.device):
         err = _build.library().scrappie_gru_recurrence_bwd(
             gates.data_ptr(), h_prev.data_ptr(), gh.data_ptr(), sW.data_ptr(),
-            sW2.data_ptr(), da.data_ptr(), T, B, S, int(reverse),
+            sW2.data_ptr(), da.data_ptr(), T, B, S, int(reverse), int(big),
             ctypes.c_void_p(ops.stream_handle()))
-        _build.check(err, "gru_recurrence_bwd")
-    ops.LAUNCHES["gru_recurrence_bwd"] += 1
+        _build.check(err, name)
+    ops.LAUNCHES[name] += 1
     return da
 
 

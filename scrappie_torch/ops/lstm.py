@@ -29,9 +29,11 @@ product over all steps (torch.matmul, as XLA computes it outside any
 kernel in the JAX package's VJP of nn/rnn.lstm's scan), then the walk of
 dh and dc back through time, which on the card is the kernel
 lstm_recurrence_bwd_kernel (csrc/lstm.cu, both directions of a stage in
-one launch, S <= REGISTER_MAX_S; counted as "lstm_recurrence_bwd") and on
-the CPU its plain twin `lstm_walk_plain`, then the weights' gradients
-(dsW, dpeep) by products and sums.
+one launch, sW in registers, S <= REGISTER_MAX_S; counted as
+"lstm_recurrence_bwd") and on the CPU its plain twin `lstm_walk_plain`,
+then the weights' gradients (dsW, dpeep) by products and sums. Above
+REGISTER_MAX_S the store-c pair and the walk run their big-S modes, sW
+read from L2 ("lstm_pair_train_global", "lstm_recurrence_bwd_global").
 """
 
 from __future__ import annotations
@@ -204,18 +206,22 @@ def lstm_pair_recurrence_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
 
 # ------------------------------------------------------------- training
 
-def check_walk_size(S: int) -> None:
-    """Raise unless the store-c mode and the backward walk take size S:
-    both keep sW in registers, S <= REGISTER_MAX_S."""
-    if not lstm_in_registers(S):
-        raise ValueError(f"the LSTM's backward kernel keeps sW in registers, "
-                         f"S <= {REGISTER_MAX_S}; got S = {S}")
+def check_walk_size(S: int) -> bool:
+    """Raise unless the store-c mode and the backward walk take size S;
+    return whether they run their big-S modes (S > REGISTER_MAX_S: sW read
+    from L2, 6S floats of shared memory)."""
+    if 4 * 6 * S > ops.MAX_SMEM_BYTES:
+        raise ValueError(f"the LSTM's big-S training kernels need 6S floats "
+                         f"of shared memory, S = {S}; a block may use "
+                         f"{ops.MAX_SMEM_BYTES} B")
+    return not lstm_in_registers(S)
 
 
 def lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
     """The pair launch in its store-c mode (counted as
-    `LAUNCHES["lstm_pair_train"]`): xproj [T, B, 8S] -> (h_F, h_B, c_F,
-    c_B), each [T, B, S]; the h are the inference launch's bit for bit."""
+    `LAUNCHES["lstm_pair_train"]`, or its big-S mode's as
+    "lstm_pair_train_global"): xproj [T, B, 8S] -> (h_F, h_B, c_F, c_B),
+    each [T, B, S]; the h are the inference launch's bit for bit."""
     from scrappie_torch.ops import _build
 
     _require_cuda(xproj, sW_f, peep_f, sW_b, peep_b)
@@ -223,20 +229,21 @@ def lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
     for d, sW, peep in (("f", sW_f, peep_f), ("b", sW_b, peep_b)):
         ops.check_kernel_input(f"sW_{d}", sW, (S, 4 * S))
         ops.check_kernel_input(f"peep_{d}", peep, (3 * S,))
-    check_walk_size(S)
+    big = check_walk_size(S)
     T, B, _ = xproj.shape
     ops.check_kernel_input("xproj", xproj, (T, B, 8 * S))
     out = torch.empty((4, T, B, S), dtype=torch.float32, device=xproj.device)
     if T == 0 or B == 0:
         return tuple(out)
+    name = "lstm_pair_train_global" if big else "lstm_pair_train"
     with torch.cuda.device(xproj.device):
         err = _build.library().scrappie_lstm_pair_train(
             xproj.data_ptr(), sW_f.data_ptr(), peep_f.data_ptr(),
             out[0].data_ptr(), out[2].data_ptr(), sW_b.data_ptr(),
             peep_b.data_ptr(), out[1].data_ptr(), out[3].data_ptr(), T, B, S,
-            ctypes.c_void_p(ops.stream_handle()))
-        _build.check(err, "lstm_pair_train")
-    ops.LAUNCHES["lstm_pair_train"] += 1
+            int(big), ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, name)
+    ops.LAUNCHES[name] += 1
     return tuple(out)
 
 
@@ -292,17 +299,18 @@ def lstm_walk_plain(gates, c, gh, sW, peep, reverse: bool = False):
     return da
 
 
-def check_walk_input(gates, c, gh, sW, peep) -> None:
+def check_walk_input(gates, c, gh, sW, peep) -> bool:
     """Raise unless the backward walk kernel takes these inputs: the
-    weights with S <= REGISTER_MAX_S and contiguous fp32 gates [T, B, 4S],
-    c and gh [T, B, S]."""
+    weights and contiguous fp32 gates [T, B, 4S], c and gh [T, B, S];
+    return whether they take its big-S mode (`check_walk_size`)."""
     _check_weights(sW, peep)
     S = sW.shape[0]
-    check_walk_size(S)
+    big = check_walk_size(S)
     T, B, _ = gates.shape
     ops.check_kernel_input("gates", gates, (T, B, 4 * S))
     ops.check_kernel_input("c", c, (T, B, S))
     ops.check_kernel_input("gh", gh, (T, B, S))
+    return big
 
 
 def lstm_walk_pair(dirs):
@@ -312,7 +320,9 @@ def lstm_walk_pair(dirs):
     len(dirs)], the directions' columns side by side (the layout of the
     pair's projection). On the card the kernel lstm_recurrence_bwd_kernel
     over a grid of len(dirs) x B blocks, counted once as
-    "lstm_recurrence_bwd"; on the CPU the twin, a direction at a time."""
+    "lstm_recurrence_bwd" (above REGISTER_MAX_S its big-S mode,
+    "lstm_recurrence_bwd_global"); on the CPU the twin, a direction at a
+    time."""
     first = dirs[0]
     tensors = [t for d in dirs for t in d[:5]]
     if not ops.on_cuda(*tensors):
@@ -325,7 +335,7 @@ def lstm_walk_pair(dirs):
     T, B, _ = first[0].shape
     S = first[3].shape[0]
     for gates, c, gh, sW, peep, _rev in dirs:
-        check_walk_input(gates, c, gh, sW, peep)
+        big = check_walk_input(gates, c, gh, sW, peep)
         ops.check_kernel_input("gates", gates, (T, B, 4 * S))
     n = len(dirs)
     da = torch.empty((T, B, 4 * S * n), dtype=torch.float32,
@@ -335,12 +345,13 @@ def lstm_walk_pair(dirs):
     d0, d1 = dirs[0], dirs[-1]
     ptrs = lambda d: (d[0].data_ptr(), d[1].data_ptr(), d[2].data_ptr(),
                       d[3].data_ptr(), d[4].data_ptr(), int(d[5]))
+    name = "lstm_recurrence_bwd_global" if big else "lstm_recurrence_bwd"
     with torch.cuda.device(da.device):
         err = _build.library().scrappie_lstm_recurrence_bwd(
             *ptrs(d0), *ptrs(d1), da.data_ptr(), 4 * S * n, n, T, B, S,
-            ctypes.c_void_p(ops.stream_handle()))
-        _build.check(err, "lstm_recurrence_bwd")
-    ops.LAUNCHES["lstm_recurrence_bwd"] += 1
+            int(big), ctypes.c_void_p(ops.stream_handle()))
+        _build.check(err, name)
+    ops.LAUNCHES[name] += 1
     return da
 
 

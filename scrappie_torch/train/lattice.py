@@ -11,7 +11,9 @@ These losses marginalise over the alignment instead:
 
 with local START/END states that absorb the uncertain window edges. The
 forward-backward of both lattices is ops/lattice.py: a kernel on the card
-(csrc/lattice.cu), its plain twins on the CPU.
+(csrc/lattice.cu), its plain twins on the CPU. The windows keep every
+step's scores (chunk None: their rows are some 20 MB at 8 windows of 800
+blocks); train/wholeread.py passes its chunk.
 
 The functions take the JAX package's batch-major layouts (log posteriors
 [B, T, S], transitions [B, T, 25]) and hand the ops their time-major
@@ -31,13 +33,15 @@ from scrappie_torch.train.trainer import posterior_fn, value_and_grad_of
 
 
 def lattice_forward_batch(logpost, seqstates, stay_pen: float = 0.0,
-                          skip_pen: float = 4.0, local_pen: float = 4.0):
+                          skip_pen: float = 4.0, local_pen: float = 4.0,
+                          chunk: int | None = None):
     """Batched forward score of sequences under transducer posteriors:
     logpost [B, T, S] log-probabilities (stay class S-1), seqstates [B, L]
     kmer state per position (-1 right padding) -> [B] log P(sequence |
-    posterior), local-global."""
+    posterior), local-global. The backward keeps a checkpoint every
+    `chunk` steps (None: every step's scores; ops/lattice.py)."""
     return lattice_forward_tm(logpost.transpose(0, 1).contiguous(), seqstates,
-                              stay_pen, skip_pen, local_pen)
+                              stay_pen, skip_pen, local_pen, chunk)
 
 
 def lattice_loss_fn(params, sig, seqstates, model: str, stay_pen=0.0,
@@ -70,11 +74,13 @@ def crf_local_partition(trans, local_pen: float = 4.0):
                           local_pen)[1]
 
 
-def crf_lattice_nll(trans, bases, local_pen: float = 4.0):
+def crf_lattice_nll(trans, bases, local_pen: float = 4.0,
+                    chunk: int | None = None):
     """Per row, (logZ_local - log P(bases)) [B] of trans [B, T, 25]: both
-    lattices in one forward-backward."""
+    lattices in one forward-backward, a checkpoint every `chunk` steps
+    (None: every step's scores)."""
     logp, logz = crf_lattice_tm(trans.transpose(0, 1).contiguous(), bases,
-                                local_pen)
+                                local_pen, chunk)
     return logz - logp
 
 

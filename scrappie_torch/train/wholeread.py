@@ -10,16 +10,17 @@ alignment's jitter; a whole region has two ends in some 20 000 blocks and
 no interior label derived from an alignment.
 
 The JAX package bounds the memory of a 30 000-block backward with
-chunked_scan, a remat of its lax.scan in `chunk`-step pieces; that is a
-JAX device and has no port. The lattices' forward-backward is
-ops/lattice.py (csrc/lattice.cu on the card), which keeps every step's
-forward scores (0.86 GB for a transducer region of 30 720 blocks and 7 000
-bases, 1.72 GB for the CRF's) and walks the backward from them. `chunk`
-keeps its contract: the losses raise ValueError unless the region's
-blocks are a multiple of it, and the region functions trim to a multiple.
-It does not bound memory here and changes no value: the kept scores grow
-as blocks x bases, without a limit (recomputing them from checkpoints
-every `chunk` steps would bound them).
+chunked_scan, a remat of its lax.scan in `chunk`-step pieces. The port's
+lattices (ops/lattice.py, csrc/lattice.cu on the card) do the same: the
+forward keeps the maxima, a checkpoint row every `chunk` steps and the
+last chunk's rows, and the backward recomputes each chunk's rows from its
+checkpoint before it walks them back (11 MB for a transducer region of
+30 720 blocks and 7 000 bases at chunk 256, 21 MB for the CRF's, where
+every step's scores took 0.86 and 1.72 GB). The recompute repeats the
+forward's arithmetic, so the values and gradients are those of any other
+chunk bit for bit. The losses raise ValueError unless the region's blocks
+are a multiple of `chunk`, as JAX's do (the kernels take a ragged last
+chunk), and the region functions trim to a multiple.
 
 The steps are in the port's idiom: step(sig, seq) -> loss, which updates
 a FiniteClippedAdam's parameters in place (one read a call, sig
@@ -48,10 +49,12 @@ def crf_wholeread_nll(trans, bases, local_pen: float = 4.0,
                       chunk: int = 256):
     """Sound per-block NLL of `bases` under transitions: trans [B, T, 25]
     (T % chunk == 0), bases [B, L] (-1 right padding) -> scalar, the mean
-    over rows of (logZ_local - log P(seq)) / T. chunk only checks T: the
-    forward-backward keeps every step's scores (T x 2L floats a row)."""
+    over rows of (logZ_local - log P(seq)) / T. The forward-backward keeps
+    a checkpoint every `chunk` steps (T / chunk + chunk rows of 2L + 4
+    floats a row) and recomputes the rows between them."""
     _check_chunk(trans.shape[1], chunk)
-    return (crf_lattice_nll(trans, bases, local_pen) / trans.shape[1]).mean()
+    return (crf_lattice_nll(trans, bases, local_pen, chunk)
+            / trans.shape[1]).mean()
 
 
 def transducer_wholeread_nll(lp, seqstates, stay_pen: float = 0.0,
@@ -60,10 +63,12 @@ def transducer_wholeread_nll(lp, seqstates, stay_pen: float = 0.0,
     """Whole-region transducer lattice NLL: lp [B, T, S] per-block
     normalised log posteriors (T % chunk == 0), seqstates [B, L] -> scalar,
     the mean over rows of -log P(seq) / T (no partition term: the
-    posterior is normalised a block). chunk only checks T: the
-    forward-backward keeps every step's scores (T x L floats a row)."""
+    posterior is normalised a block). The forward-backward keeps a
+    checkpoint every `chunk` steps (T / chunk + chunk rows of L + 2 floats
+    a row) and recomputes the rows between them."""
     _check_chunk(lp.shape[1], chunk)
-    logp = lattice_forward_batch(lp, seqstates, stay_pen, skip_pen, local_pen)
+    logp = lattice_forward_batch(lp, seqstates, stay_pen, skip_pen, local_pen,
+                                 chunk)
     return (-logp / lp.shape[1]).mean()
 
 

@@ -337,3 +337,160 @@ def test_lattice_input_checks():
         tl.lattice_forward_tm(lp, torch.tensor([[1, 9], [0, -1]]))
     with pytest.raises(ValueError, match="state 4"):
         tl.crf_lattice_tm(torch.zeros((4, 2, 25)), torch.tensor([[0, 4]] * 2))
+
+
+# Chunked checkpoints (ops/lattice.py): T = 40 steps, chunks that divide it
+# and chunks whose last piece is ragged, chunk 1 and chunk = T.
+CHUNK_T, CHUNKS = 40, (1, 3, 7, 8, 16, 40)
+
+
+def chunk_inputs(kind: str, seed: int):
+    rng = np.random.default_rng(seed)
+    if kind == "transducer":
+        x = torch.tensor(logposts(3, CHUNK_T, 65, seed=seed + 1)).transpose(0, 1)
+        seq = rng.integers(0, 64, size=(3, 9)).astype(np.int32)
+    else:
+        x = torch.tensor((2.0 * rng.standard_normal((CHUNK_T, 3, 25)))
+                         .astype(np.float32))
+        seq = rng.integers(0, 4, size=(3, 9)).astype(np.int32)
+    seq[1, 6:] = -1
+    seq[2, 3] = seq[2, 1]
+    return x.contiguous(), torch.tensor(seq)
+
+
+def twin_pair(kind: str, x, seq, chunk):
+    """(log P, the kept rows, m, the gradient on a seeded gP) of the kind's
+    twins at `chunk`."""
+    gP = torch.tensor([1.0, -0.5, 2.0])
+    if kind == "transducer":
+        logp, ckpt, rows, m = tl.lattice_fwd_plain(x, seq, *PENS, chunk)
+        grad = tl.lattice_bwd_plain(x, seq, ckpt, rows, m, gP, *PENS)
+    else:
+        logp, ckpt, rows, m = tl.crf_fwd_plain(x, seq, 4.0, chunk)
+        grad = tl.crf_bwd_plain(x, seq, ckpt, rows, m, gP, 4.0)
+    return logp, ckpt, rows, m, grad
+
+
+@pytest.mark.parametrize("kind", ["transducer", "crf"])
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_chunked_twins_equal_unchunked(kind, chunk):
+    """The twins at any chunk (the backward recomputing each chunk's rows
+    from its checkpoint with the kept maxima) give log P, m and the
+    gradient of chunk = T bit for bit, and their checkpoints are the
+    unchunked forward's rows."""
+    x, seq = chunk_inputs(kind, seed=70)
+    logp0, _, rows0, m0, grad0 = twin_pair(kind, x, seq, None)
+    logp, ckpt, rows, m, grad = twin_pair(kind, x, seq, chunk)
+    C, n = tl.chunking(CHUNK_T, chunk)
+    assert (ckpt.shape[1], rows.shape[1]) == (n + 1, C)
+    for c in range(n):
+        assert torch.equal(ckpt[:, c], rows0[:, c * C]), c
+    lo = (n - 1) * C
+    assert torch.equal(rows[:, : CHUNK_T - lo], rows0[:, lo:])
+    assert torch.equal(logp, logp0)
+    assert torch.equal(m, m0)
+    assert torch.equal(grad, grad0)
+
+
+@pytest.mark.parametrize("kind", ["transducer", "crf"])
+def test_lattice_functions_save_the_checkpoints(kind):
+    """The autograd Functions save, beside their inputs, the checkpoints
+    every chunk steps, the last chunk's rows and the maxima (and the CRF's
+    partition, 9 floats a step): O(T / chunk + chunk) rows, not T rows."""
+    T, L, chunk = 96, 60, 8
+    rng = np.random.default_rng(71)
+    if kind == "transducer":
+        x = torch.tensor(logposts(1, T, 65, seed=72)[0][:, None], requires_grad=True)
+        seq = torch.tensor(rng.integers(0, 64, size=(1, L)).astype(np.int32))
+        out = tl.lattice_forward_tm(x, seq, *PENS, chunk=chunk)
+        R = L + 2
+    else:
+        x = torch.tensor((2.0 * rng.standard_normal((T, 1, 25))).astype(np.float32),
+                         requires_grad=True)
+        seq = torch.tensor(rng.integers(0, 4, size=(1, L)).astype(np.int32))
+        out = tl.crf_lattice_tm(x, seq, chunk=chunk)[0]
+        R = 2 * L + 4
+    saved = out.grad_fn.saved_tensors
+    kept = sum(t.numel() for t in saved[2:])
+    assert kept <= (T // chunk + 1 + chunk) * R + 10 * (T + 1)
+    assert kept < T * R / 3
+    assert saved[0] is x or torch.equal(saved[0], x)
+
+
+LATTICE_CAP = tl.MAX_CLUSTER * tl.MAX_THREADS * tl.PPTS[-1]
+
+
+@pytest.mark.parametrize("npos", [1, 2, 3, 800, 1024, 1025, 1409, 7000, 7001,
+                                  14004, LATTICE_CAP, LATTICE_CAP + 1,
+                                  70001, 3 * LATTICE_CAP + 5])
+def test_lattice_cluster_layout_owns_each_position_once(npos):
+    """cluster_layout (pure Python): every position owned once, by CTA c
+    in [c per, (c + 1) per) and thread i at c per + i + k threads (k <
+    ppt groups); a CTA for each CLUSTER_PER positions (4 at the
+    transducer's window, 6 at the CRF's), 16 at a whole read's and above;
+    every CTA but the last owns at least two positions (its right
+    neighbour's halo); a thread walks more than one run of positions only
+    above LATTICE_CAP, and then runs of max(PPTS) on MAX_THREADS threads
+    (the kernels' MULTI instances)."""
+    lay = tl.cluster_layout(npos)
+    assert 1 <= lay.ncta <= tl.MAX_CLUSTER
+    assert lay.threads % 32 == 0 and 32 <= lay.threads <= tl.MAX_THREADS
+    assert lay.ppt in tl.PPTS and lay.per >= 2
+    assert (lay.ncta - 1) * lay.per < npos <= lay.ncta * lay.per
+    assert (lay.groups > 1) == (npos > LATTICE_CAP)
+    if lay.groups > 1:
+        assert (lay.threads, lay.ppt) == (tl.MAX_THREADS, tl.PPTS[-1])
+    assert lay.threads * lay.ppt * (lay.groups - 1) < lay.per
+    c, i, k = np.meshgrid(np.arange(lay.ncta), np.arange(lay.threads),
+                          np.arange(lay.ppt * lay.groups), indexing="ij")
+    pos = c * lay.per + i + k * lay.threads
+    owned = pos[(pos < np.minimum((c + 1) * lay.per, npos))]
+    assert np.array_equal(np.sort(owned), np.arange(npos))
+    assert lay.ncta == min(tl.MAX_CLUSTER, -(-npos // tl.CLUSTER_PER))
+    if npos >= 7000:
+        assert lay.ncta == tl.MAX_CLUSTER
+
+
+def test_lattice_cluster_layout_limits():
+    """The layouts of the windows, a whole read and a row above what one
+    run a thread holds; any row of a position or more has one."""
+    assert tl.cluster_layout(800) == tl.Layout(4, 200, 224, 1, 1)
+    assert tl.cluster_layout(1409) == tl.Layout(6, 235, 256, 1, 1)
+    assert tl.cluster_layout(7001) == tl.Layout(16, 438, 448, 1, 1)
+    assert tl.cluster_layout(70001) == tl.Layout(16, 4376, 512, 8, 2)
+    with pytest.raises(ValueError, match="a position"):
+        tl.cluster_layout(0)
+
+
+def test_gradient_lists_follow_the_sequences():
+    """state_lists gives each kmer state's positions in order; class_lists
+    each CTA's ee, es and se posteriors of each transition class, in
+    order: the kernels' deterministic gradient sums read them."""
+    rng = np.random.default_rng(73)
+    seq = rng.integers(0, 9, size=(3, 40)).astype(np.int32)
+    seq[1, 25:] = -1
+    start, pos = tl.state_lists(torch.tensor(seq), 10)
+    for b in range(3):
+        for s in range(10):
+            got = pos[b, start[b, s] : start[b, s + 1]].tolist()
+            assert got == np.flatnonzero(seq[b] == s).tolist()
+    bases = rng.integers(0, 4, size=(2, 30)).astype(np.int32)
+    bases[1, 20:] = -1
+    lay = tl.Layout(3, 11, 32, 1, 1)  # three CTAs, the last one part-full
+    start, idx = tl.class_lists(torch.tensor(bases), lay)
+    for b in range(2):
+        want = {}
+        for j in range(31):
+            if j > 0 and bases[b, j - 1] < 0:
+                continue
+            bj = bases[b, j - 1] if j >= 1 else 0
+            bjm1 = bases[b, j - 2] if j >= 2 else 0
+            c, i = divmod(j, lay.per)
+            classes = [(2, 20 + bj)] + ([(0, bj * 5 + bjm1), (1, bj * 5 + 4)]
+                                        if j >= 1 else [])
+            for kind, cls in classes:
+                want.setdefault((c, cls), []).append(kind * lay.per + i)
+        for c in range(lay.ncta):
+            for cls in range(24):
+                got = idx[b, c, start[b, c, cls] : start[b, c, cls + 1]].tolist()
+                assert got == sorted(want.get((c, cls), [])), (b, c, cls)

@@ -121,6 +121,36 @@ def test_gru_recurrence_backward_matches_jax(reverse):
         assert_rel_close(leaf.grad, w, GRU_RTOL, name)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_recurrence_backward_matches_jax_above_the_registers(reverse):
+    """At S = 160, above the register kernels' S = 96: the walk's checks
+    choose the big-S mode (no longer raise), and GruRecurrence's backward
+    (the CPU's twin walk) matches jax.grad of scrappie_tpu.nn.rnn.gru."""
+    S, T, B = 160, 23, 2
+    rng = np.random.default_rng(24 + reverse)
+    x = rng.standard_normal((T, B, 3 * S)).astype(np.float32)
+    sW = (S ** -0.5 * rng.standard_normal((S, 2 * S))).astype(np.float32)
+    sW2 = (S ** -0.5 * rng.standard_normal((S, S))).astype(np.float32)
+    gh = rng.standard_normal((T, B, S)).astype(np.float32)
+
+    def f(x, sW, sW2):
+        h = jrnn.gru(jnp.moveaxis(x, 0, 1), sW, sW2, reverse)
+        return (h * jnp.moveaxis(gh, 0, 1)).sum()
+
+    want = jax.grad(f, argnums=(0, 1, 2))(x, sW, sW2)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, sW, sW2)]
+    (tg.GruRecurrence.apply(*leaves, reverse) * torch.tensor(gh)).sum().backward()
+    for name, w, leaf in zip(("dx", "dsW", "dsW2"), want, leaves):
+        assert_rel_close(leaf.grad, w, GRU_RTOL, name)
+    walk = (torch.zeros((T, B, 3 * S)), torch.zeros((T, B, S)),
+            torch.zeros((T, B, S)), torch.tensor(sW), torch.tensor(sW2))
+    assert tg.check_gru_walk_input(*walk) is True
+    small = (torch.zeros((T, B, 288)), torch.zeros((T, B, 96)),
+             torch.zeros((T, B, 96)), torch.zeros((96, 192)),
+             torch.zeros((96, 96)))
+    assert tg.check_gru_walk_input(*small) is False
+
+
 def test_gru_layer_builds_a_graph_only_for_gradients():
     """The layer always goes through Project and GruRecurrence: under
     inference_mode autograd records nothing (no grad_fn), with parameters

@@ -161,6 +161,44 @@ def test_lstm_pair_backward_matches_jax():
             assert_rel_close(t.grad, w, LSTM_RTOL, f"{d} {name}")
 
 
+def test_lstm_pair_backward_matches_jax_above_the_registers():
+    """At S = 160, above the register kernels' S = 96: the store-c mode's
+    and the walk's checks choose the big-S modes (no longer raise), and a
+    stage through lstm_pair_tm with gradients wanted (Project, LstmPair)
+    matches jax.grad of the JAX stage, every input's and weight's
+    gradient."""
+    T, B, C, S = 17, 2, 6, 160
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((T, B, C)).astype(np.float32)
+    gF, gB = (rng.standard_normal((T, B, S)).astype(np.float32) for _ in "FB")
+    f32 = lambda *shape, s: (s * rng.standard_normal(shape)).astype(np.float32)
+    wF, wB = ([f32(C, 4 * S, s=C ** -0.5), f32(4 * S, s=0.1),
+               f32(S, 4 * S, s=S ** -0.5), f32(3 * S, s=0.3)] for _ in "FB")
+
+    def f(x, wF, wB):
+        xb = jnp.moveaxis(x, 0, 1)
+        hF = jrnn.lstm(xb @ wF[0] + wF[1], wF[2], wF[3], False)
+        hB = jrnn.lstm(xb @ wB[0] + wB[1], wB[2], wB[3], True)
+        return ((hF * jnp.moveaxis(gF, 0, 1)).sum()
+                + (hB * jnp.moveaxis(gB, 0, 1)).sum())
+
+    want = jax.grad(f, argnums=(0, 1, 2))(x, wF, wB)
+    xt = torch.tensor(x, requires_grad=True)
+    tw = [[torch.tensor(a, requires_grad=True) for a in w] for w in (wF, wB)]
+    hF, hB = tlstm.lstm_pair_tm(xt, tw[0], tw[1])
+    assert type(hF.grad_fn).__name__ == "LstmPairBackward"
+    ((hF * torch.tensor(gF)).sum() + (hB * torch.tensor(gB)).sum()).backward()
+    assert_rel_close(xt.grad, want[0], LSTM_RTOL, "dx")
+    for d, ws, jw in zip("FB", tw, want[1:]):
+        for name, t, w in zip(("iW", "b", "sW", "peep"), ws, jw):
+            assert_rel_close(t.grad, w, LSTM_RTOL, f"{d} {name}")
+    assert tlstm.check_walk_size(S) is True
+    assert tlstm.check_walk_size(96) is False
+    walk = (torch.zeros((T, B, 4 * S)), torch.zeros((T, B, S)),
+            torch.zeros((T, B, S)), torch.tensor(wF[2]), torch.tensor(wF[3]))
+    assert tlstm.check_walk_input(*walk) is True
+
+
 def test_lstm_builds_a_graph_only_for_gradients():
     """The events network's stages go through Project and LstmPair only
     when a gradient is wanted: under inference_mode autograd records

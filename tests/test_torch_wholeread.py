@@ -4,8 +4,9 @@ scrappie_tpu/train/wholeread.py on the same seeded inputs.
 
 JAX runs its lattices through chunked_scan (a remat of the scan in
 `chunk`-step pieces); the port's forward-backward (ops/lattice.py, here
-its plain twins) keeps every step instead, so only the chunk rule is
-shared: both raise ValueError unless T % chunk == 0.
+its plain twins) keeps a checkpoint every `chunk` steps and recomputes the
+rows between them, so its values do not depend on the chunk (bit for
+bit). Both raise ValueError unless T % chunk == 0.
 
 Tolerances, and why: the NLLs 1e-5 relative and their gradients 5e-5
 relative to the largest entry (tests/test_torch_lattice.py's limits for
@@ -90,6 +91,30 @@ def test_wholeread_nll_matches_jax(kind):
     np.testing.assert_allclose(float(got.detach()), float(want),
                                rtol=VALUE_RTOL)
     assert_rel_close(leaf.grad, want_g, GRAD_RTOL, kind)
+
+
+@pytest.mark.parametrize("kind", ["crf", "transducer"])
+@pytest.mark.parametrize("chunk", [1, 8, 32, 64])
+def test_wholeread_nll_matches_jax_at_each_chunk(kind, chunk):
+    """At every chunk (the port recomputing each chunk's rows from its
+    checkpoint, JAX's chunked_scan rematerialising each chunk) the NLL and
+    its gradient against JAX's at the same chunk, T = 64; and the port's
+    equal to its own at chunk = T bit for bit."""
+    x, seq = nll_inputs(kind, 64, seed=5 + len(kind))
+    jfn, tfn = nll_pair(kind)
+    want, want_g = jax.value_and_grad(
+        lambda a: jfn(a, seq, chunk=chunk))(jnp.asarray(x))
+    got, grads = [], []
+    for c in (chunk, 64):
+        leaf = torch.tensor(x, requires_grad=True)
+        value = tfn(leaf, torch.tensor(seq), chunk=c)
+        value.backward()
+        got.append(value.detach())
+        grads.append(leaf.grad)
+    np.testing.assert_allclose(float(got[0]), float(want), rtol=VALUE_RTOL)
+    assert_rel_close(grads[0], want_g, GRAD_RTOL, kind)
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(grads[0], grads[1])
 
 
 @pytest.mark.parametrize("kind", ["crf", "transducer"])
