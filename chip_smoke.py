@@ -50,13 +50,15 @@ if any phase fails:
      through nn/rnn.gru_tm, at T = 2000, S = 96, B = 8 and 64, both
      directions, and at S = 40 and 7 (T = 300, B = 5, seeded weights)
      against the twin, and times it (phase gru_backward_kernel); holds the
-     LSTM pair's store-c mode (h equal to the inference launch's, c
-     against the plain loop's), the LSTM's backward walk kernel against
-     its twin and the whole backward against torch.autograd through
-     nn/rnn.lstm_tm, on the events network's first stage at T = 2048,
-     S = 96, B = 8 and 64, both directions in one launch, and the walk at
-     S = 40 and 7, and times them with the forward with and without the
-     c stores (phase lstm_backward_kernel); holds the GRU's and the LSTM
+     LSTM pair's training mode (h equal to the inference launch's, the
+     planes the walk reads, c, tanh(c) and the gates, against the plain
+     loop's), the LSTM's backward walk kernel (da and the dpeep partials)
+     against its twin and the whole backward against torch.autograd
+     through nn/rnn.lstm_tm, on the events network's first stage at T =
+     2048, S = 96, B = 8 and 64, both directions in one launch, the walk
+     at S = 40 and 7, and both kernels at the whole-read events step's
+     11 520 events, B = 1, and times them with the forward in both modes
+     (phase lstm_backward_kernel); holds the GRU's and the LSTM
      pair's training kernels at S = 160 in their big-S modes against their
      twins and against autograd (phase big_s_backward); holds the
      transducer and CRF lattice kernels (forward, then backward) against
@@ -175,7 +177,7 @@ if any phase fails:
      (phase main_path_train): scrappie_torch.train.trainer.train(device=
      "cuda") for 8 steps of 8 simulated reads of 4 000 samples (the events
      model: 400 detected events) from a seeded random init, through the
-     projection, GRU recurrence, LSTM pair (store-c mode) and partition
+     projection, GRU recurrence, LSTM pair (training mode) and partition
      kernels forward and the GRU's and LSTM's backward walks and the CRF
      forward-backward kernels backward; then make_lattice_train_step for 8
      steps each for rgrgr_r94 and rnnrf_r94 on seq_batch windows (8 x
@@ -207,7 +209,7 @@ if any phase fails:
 
 Each engine path's launch counters are set to 0 just before its runs and
 read just after; no inference path may launch a backward kernel, the
-LSTM's store-c mode or a lattice kernel. Every phase's line carries the seconds since the start.
+LSTM's training mode or a lattice kernel. Every phase's line carries the seconds since the start.
 The last lines are the kernel table (each kernel's time beside its bound,
 the least time the card could take for the same work), the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device":
@@ -268,6 +270,7 @@ CRF_AB = ((T_CRF, 8), (T_CRF, 64), CRF_STITCH)  # the CRF shapes --ab times
 CRF_BATCH_READS = (1, 7, 300, 2048, T_CRF - 1, T_CRF)
 EMIT_BIAS = -1.0
 T_EVENTS = 2048          # events in a chunk of the events engine
+T_WHOLE_EVENTS = 11520   # the whole-read events step's detected events
 LSTM_ATOL = 1e-4
 HEAD_RTOL = 1e-6         # the head's lp against its twin: fp32 sums of the
 HEAD_ATOL = 1e-5         # product, softmax and renormalisation in another order
@@ -367,7 +370,8 @@ KERNELS = {
                            "crf_partition_function's lax.scan; no TPU kernel)"),
     "lstm_pair_train": ("scrappie_torch/csrc/lstm.cu",
                         "scrappie_tpu/ops/lstm.py:53 (the pair launch that "
-                        "also stores the cell states, for training)"),
+                        "also stores the planes the walk reads, for "
+                        "training)"),
     "lstm_recurrence_bwd": ("scrappie_torch/csrc/lstm.cu",
                             "scrappie_tpu/nn/rnn.py:80 (the VJP of lstm's "
                             "lax.scan, which XLA differentiates; no TPU "
@@ -377,7 +381,7 @@ KERNELS = {
                                   "gru's lax.scan, S above 96; no TPU kernel)"),
     "lstm_pair_train_global": ("scrappie_torch/csrc/lstm.cu",
                                "scrappie_tpu/ops/lstm.py:53 (the pair launch "
-                               "that also stores the cell states, S above 96)"),
+                               "that also stores the planes, S above 96)"),
     "lstm_recurrence_bwd_global": ("scrappie_torch/csrc/lstm.cu",
                                    "scrappie_tpu/nn/rnn.py:80 (the VJP of "
                                    "lstm's lax.scan, S above 96; no TPU "
@@ -709,13 +713,13 @@ def kernel_work(name: str, **d) -> dict:
         S = d["S"]
         return bound(4 * (T * B * 5 * S + 3 * S * S + T * B * 3 * S),
                      2 * T * B * 3 * S * S)
-    if name == "lstm_recurrence_bwd":  # gates, c, gh in; da out; 4S^2 MACs
+    if name == "lstm_recurrence_bwd":  # 6 planes, gh in; da, dpeep out
         S, n = d["S"], d.get("dirs", 1)
-        return bound(n * 4 * (T * B * 10 * S + 4 * S * S + 3 * S),
+        return bound(n * 4 * (T * B * 11 * S + 4 * S * S + 3 * S + B * 3 * S),
                      n * 2 * T * B * 4 * S * S)
-    if name == "lstm_pair_train":  # the pair's recurrence, and c written
+    if name == "lstm_pair_train":  # the pair's recurrence, h and 6 planes out
         S, n = d["S"], d.get("dirs", 2)
-        return bound(n * 4 * (T * B * 6 * S + 4 * S * S + 3 * S),
+        return bound(n * 4 * (T * B * 11 * S + 4 * S * S + 3 * S),
                      n * 2 * T * B * 4 * S * S)
     if name == "lattice_fwdbwd":  # both modes; see the docstring
         S, L, nd, nv = d["S"], d["L"], d["distinct"], d["valid"]
@@ -1179,15 +1183,19 @@ def check_gru_backward(net, B: int) -> dict:
 def check_lstm_backward(enet, B: int) -> tuple[dict, dict]:
     """The LSTM's training kernels on the events network's first stage
     (S = 96) over B chunks of T_EVENTS events, both directions in one
-    launch: the pair's store-c mode (its h equal to the inference launch's
-    bit for bit, its c against the plain loop's), the backward walk kernel
-    against its twin and ops/lstm.lstm_tm_backward against torch.autograd
-    through the plain forward, on a seeded output gradient (at B = 8 also
-    the walk at LSTM_BWD_SMALL's sizes on seeded weights, one and two
-    directions); then the times of the walk (median of 20) and its twin
-    (median of 3), of the whole backward, and of the pair's forward with
-    and without the c stores, and ptxas's spill report. Returns the
-    table's rows for the walk and the store-c mode."""
+    launch: the pair's training mode (its h equal to the inference
+    launch's bit for bit, its planes, c, tanh(c) and the gates, against
+    the plain loop's), the backward walk kernel (da and each row's dpeep
+    partials) against its twin on those planes, and
+    ops/lstm.lstm_tm_backward against torch.autograd through the plain
+    forward, on a seeded output gradient (at B = 8 also the walk at
+    LSTM_BWD_SMALL's sizes on seeded weights, one and two directions);
+    then the times of the walk (median of 20) and its twin (one run), of
+    the whole backward, and of the pair's forward in both modes. At B = 8
+    also both kernels at the whole-read events step's shape (T_WHOLE_EVENTS
+    events, B = 1): held to their twins once and timed (median of 5), the
+    twins not timed. Returns the table's rows for the walk and the
+    training forward, with ptxas's spill report in the phase's line."""
     import numpy as np
     import torch
 
@@ -1202,38 +1210,64 @@ def check_lstm_backward(enet, B: int) -> tuple[dict, dict]:
     wF, wB = (lstm_weights(p, d, 1) for d in "FB")
     S = wF[2].shape[0]
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
-    with torch.no_grad():
-        x = window(events_input(enet, B, rng), enet.winlen, 1).transpose(0, 1).contiguous()
+
+    def stage(T: int, Bs: int):
+        """A stage's projected input, its training forward and the twins'
+        (h, planes) a direction, and seeded output gradients."""
+        feats = torch.as_tensor(rng.standard_normal((Bs, T, 4)).astype(np.float32),
+                                device=enet.device)
+        x = window(feats, enet.winlen, 1).transpose(0, 1).contiguous()
         xpair = project_tm(x, torch.cat((wF[0], wB[0]), 1), torch.cat((wF[1], wB[1])))
-        hF, hB, cF, cB = L.lstm_pair_train_cuda(xpair, *wF[2:], *wB[2:])
+        out = L.lstm_pair_train_cuda(xpair, *wF[2:], *wB[2:])
+        gh = [torch.as_tensor(rng.standard_normal((T, Bs, S)).astype(np.float32),
+                              device="cuda") for _ in "FB"]
+        return xpair, out, gh
+
+    def held(xpair, out, gh, what: str) -> dict:
+        """The training forward against the inference launch and the
+        twin's planes, the walk against its twin; the errors."""
+        hF, hB, pF, pB = out
         iF, iB = L.lstm_pair_recurrence_cuda(xpair, *wF[2:], *wB[2:])
-        xs = (xpair[..., : 4 * S].contiguous(), xpair[..., 4 * S :].contiguous())
-        twin = (lstm_tm(xs[0], *wF[2:], False, return_c=True),
-                lstm_tm(xs[1], *wB[2:], True, return_c=True))
+        twin = (lstm_tm(xpair[..., : 4 * S], *wF[2:], False, return_planes=True),
+                lstm_tm(xpair[..., 4 * S :], *wB[2:], True, return_planes=True))
+        walks = [(pF, gh[0], *wF[2:], False), (pB, gh[1], *wB[2:], True)]
+        dk, parts = L.lstm_walk_pair(walks)
+        dp = [L.lstm_walk_plain(*w) for w in walks]
         sync()
         require(torch.equal(hF, iF) and torch.equal(hB, iB),
-                "lstm_pair_train: h equal to the inference launch's")
-        c_err = max(float((c - t[1]).abs().max()) for c, t in zip((cF, cB), twin))
-        require(c_err <= LSTM_ATOL, f"lstm_pair_train c max abs err {c_err} <= {LSTM_ATOL}")
-        gh = [torch.as_tensor(rng.standard_normal((T_EVENTS, B, S)).astype(np.float32),
-                              device="cuda") for _ in "FB"]
-        layers = [(xs[0], hF, cF, *wF[2:], False, gh[0]),
-                  (xs[1], hB, cB, *wB[2:], True, gh[1])]
-        walks = [(L.backward_inputs(xx, h, c, sW, pe, rev)[2], c, g, sW, pe, rev)
-                 for xx, h, c, sW, pe, rev, g in layers]
-        dk = L.lstm_walk_pair(walks)
-        dp = torch.cat([L.lstm_walk_plain(*w) for w in walks], -1)
+                f"lstm_pair_train {what}: h equal to the inference launch's")
+        planes_err = max(float((pk - t[1]).abs().max()) for pk, t in zip((pF, pB), twin))
+        require(planes_err <= LSTM_ATOL,
+                f"lstm_pair_train {what}: planes max abs err {planes_err} <= {LSTM_ATOL}")
+        require(bool(torch.isfinite(dk).all()), f"lstm_recurrence_bwd {what} finite")
+        errs = {"planes_max_abs_err": planes_err,
+                "max_abs_err": float((dk - torch.cat([d[0] for d in dp], -1)).abs().max()),
+                "max_rel_err": rel(dk, torch.cat([d[0] for d in dp], -1)),
+                "dpeep_max_rel_err": rel(parts, torch.stack([d[1] for d in dp]))}
+        for k in ("max_rel_err", "dpeep_max_rel_err"):
+            require(errs[k] <= LSTM_BWD_RTOL,
+                    f"lstm_recurrence_bwd {what} {k} {errs[k]} <= {LSTM_BWD_RTOL}")
+        return errs
+
+    with torch.no_grad():
+        xpair, out, gh = stage(T_EVENTS, B)
+        errs = held(xpair, out, gh, f"B={B}")
+        hF, hB, pF, pB = out
+        walks = [(pF, gh[0], *wF[2:], False), (pB, gh[1], *wB[2:], True)]
+        layers = [(hF, pF, *wF[2:], False, gh[0]), (hB, pB, *wB[2:], True, gh[1])]
         full_da, full_w = L.lstm_tm_backward(layers)
-        sync()
-        require(bool(torch.isfinite(dk).all()), "lstm_recurrence_bwd finite")
-    errs = {"walk": rel(dk, dp), "autograd": 0.0}
-    for k, (xx, h, c, sW, pe, rev, g) in enumerate(layers):
-        leaves = [t.clone().requires_grad_(True) for t in (xx, sW, pe)]
+    errs["autograd"] = 0.0
+    for k, (h, planes, sW, pe, rev, g) in enumerate(layers):
+        xs = xpair[..., 4 * S * k : 4 * S * (k + 1)]
+        leaves = [t.clone().requires_grad_(True) for t in (xs, sW, pe)]
         lstm_tm(*leaves, rev).backward(g)
         got = (full_da[..., 4 * S * k : 4 * S * (k + 1)], *full_w[k])
         for a, leaf in zip(got, leaves):
             errs["autograd"] = max(errs["autograd"], rel(a, leaf.grad))
-    if B == 8:  # and at the sizes of LSTM_BWD_SMALL, on seeded weights
+    require(errs["autograd"] <= LSTM_BWD_RTOL,
+            f"lstm backward against autograd: rel err {errs['autograd']} <= {LSTM_BWD_RTOL}")
+    whole = {}
+    if B == 8:  # the sizes of LSTM_BWD_SMALL on seeded weights; the whole read
         gen = torch.Generator(device="cuda").manual_seed(SEED + 151)
         errs["small_S"] = 0.0
         with torch.no_grad():
@@ -1242,43 +1276,59 @@ def check_lstm_backward(enet, B: int) -> tuple[dict, dict]:
                 ws = [(0.3 * torch.randn((Ss, 4 * Ss), generator=gen, device="cuda"),
                        0.3 * torch.randn(3 * Ss, generator=gen, device="cuda"))
                       for _ in "FB"]
-                h0, h1, c0, c1 = L.lstm_pair_train_cuda(xx, *ws[0], *ws[1])
+                _, _, p0, p1 = L.lstm_pair_train_cuda(xx, *ws[0], *ws[1])
                 g0, g1 = (torch.randn((T, Bs, Ss), generator=gen, device="cuda")
                           for _ in "FB")
-                ww = [(L.backward_inputs(xx[..., : 4 * Ss], h0, c0, *ws[0], False)[2],
-                       c0, g0, *ws[0], False),
-                      (L.backward_inputs(xx[..., 4 * Ss :], h1, c1, *ws[1], True)[2],
-                       c1, g1, *ws[1], True)]
+                ww = [(p0, g0, *ws[0], False), (p1, g1, *ws[1], True)]
                 for dirs in (ww, ww[1:]):
-                    errs["small_S"] = max(errs["small_S"], rel(
-                        L.lstm_walk_pair(dirs),
-                        torch.cat([L.lstm_walk_plain(*w) for w in dirs], -1)))
-    for what, err in errs.items():
-        require(err <= LSTM_BWD_RTOL,
-                f"lstm_recurrence_bwd {what}: rel err {err} <= {LSTM_BWD_RTOL}")
+                    got, got_parts = L.lstm_walk_pair(dirs)
+                    want = [L.lstm_walk_plain(*w) for w in dirs]
+                    errs["small_S"] = max(
+                        errs["small_S"], rel(got, torch.cat([w[0] for w in want], -1)),
+                        rel(got_parts, torch.stack([w[1] for w in want])))
+            require(errs["small_S"] <= LSTM_BWD_RTOL,
+                    f"lstm_recurrence_bwd small S: rel err {errs['small_S']}")
+            wx, wout, wgh = stage(T_WHOLE_EVENTS, 1)
+            whole = {"T": T_WHOLE_EVENTS, "B": 1, **held(wx, wout, wgh, "whole read")}
+            wwalks = [(wout[2], wgh[0], *wF[2:], False), (wout[3], wgh[1], *wB[2:], True)]
+            whole.update(
+                walk_ms=cuda_ms(lambda: L.lstm_walk_pair(wwalks), reps=5, warmup=1),
+                train_ms=cuda_ms(lambda: L.lstm_pair_train_cuda(wx, *wF[2:], *wB[2:]),
+                                 reps=5, warmup=1),
+                inference_ms=cuda_ms(
+                    lambda: L.lstm_pair_recurrence_cuda(wx, *wF[2:], *wB[2:]),
+                    reps=5, warmup=1),
+                walk_bound_ms=kernel_work("lstm_recurrence_bwd", T=T_WHOLE_EVENTS, B=1,
+                                          S=S, dirs=2)["bound_ms"],
+                train_bound_ms=kernel_work("lstm_pair_train", T=T_WHOLE_EVENTS, B=1,
+                                           S=S)["bound_ms"])
     with torch.no_grad():
         walk = {**kernel_work("lstm_recurrence_bwd", T=T_EVENTS, B=B, S=S, dirs=2),
-                "max_abs_err": float((dk - dp).abs().max()),
-                "max_rel_err": errs["walk"], "autograd_max_rel_err": errs["autograd"],
+                "max_abs_err": errs["max_abs_err"], "max_rel_err": errs["max_rel_err"],
+                "dpeep_max_rel_err": errs["dpeep_max_rel_err"],
+                "autograd_max_rel_err": errs["autograd"],
                 **({"small_S": LSTM_BWD_SMALL, "small_S_max_rel_err": errs["small_S"]}
                    if "small_S" in errs else {}),
                 "ms": cuda_ms(lambda: L.lstm_walk_pair(walks)),
                 "plain_ms": cuda_ms(lambda: [L.lstm_walk_plain(*w) for w in walks],
-                                    reps=3, warmup=1),
+                                    reps=1, warmup=0),
                 "backward_ms": cuda_ms(lambda: L.lstm_tm_backward(layers))}
-        store = {**kernel_work("lstm_pair_train", T=T_EVENTS, B=B, S=S),
-                 "max_abs_err": c_err,
+        train = {**kernel_work("lstm_pair_train", T=T_EVENTS, B=B, S=S),
+                 "max_abs_err": errs["planes_max_abs_err"],
                  "ms": cuda_ms(lambda: L.lstm_pair_train_cuda(xpair, *wF[2:], *wB[2:])),
                  "inference_ms": cuda_ms(
                      lambda: L.lstm_pair_recurrence_cuda(xpair, *wF[2:], *wB[2:])),
                  "plain_ms": cuda_ms(
-                     lambda: (lstm_tm(xs[0], *wF[2:], False, return_c=True),
-                              lstm_tm(xs[1], *wB[2:], True, return_c=True)),
-                     reps=3, warmup=1)}
+                     lambda: (lstm_tm(xpair[..., : 4 * S], *wF[2:], False,
+                                      return_planes=True),
+                              lstm_tm(xpair[..., 4 * S :], *wB[2:], True,
+                                      return_planes=True)),
+                     reps=1, warmup=0)}
     emit({"phase": "lstm_backward_kernel", "B": B, "T": T_EVENTS, "S": S,
-          "walk": walk, "store_c": store,
+          "walk": walk, "train_forward": train,
+          **({"whole_read": whole} if whole else {}),
           "spill_bytes": {k: v for k, v in SPILLS.items() if "lstm" in k}})
-    return walk, store
+    return walk, train
 
 
 def lattice_window(model_net, kind: str):
@@ -1752,9 +1802,9 @@ def check_big_s_backward() -> dict:
     (phase big_s_backward; T_BIG_S steps, B = 8, C = 96, seeded weights of
     scale S^-1/2): the GRU's big-S walk (ops/gru.gru_walk) against its
     twin on the gates of the big-S forward, both directions; the LSTM
-    pair's big-S store-c forward against the twin loops' h and c, and its
-    big-S walk over both directions (ops/lstm.lstm_walk_pair) against the
-    twin; each counter must rise. Then a GRU layer (ops/gru.gru_layer_tm)
+    pair's big-S training forward against the twin loops' h and planes,
+    and its big-S walk over both directions (ops/lstm.lstm_walk_pair, da
+    and the dpeep partials) against the twin; each counter must rise. Then a GRU layer (ops/gru.gru_layer_tm)
     and an LSTM stage (ops/lstm.lstm_pair_tm) with gradients wanted,
     through those kernels, against torch.autograd through their plain
     twins: every input's and weight's gradient within TRAIN_GRAD_RTOL of its
@@ -1804,31 +1854,28 @@ def check_big_s_backward() -> dict:
             "ms": cuda_ms(lambda: g.gru_walk(gates, h_prev, gh, sW, sW2, True), reps=5),
             "plain_ms": cuda_ms(lambda: g.gru_walk_plain(gates, h_prev, gh, sW, sW2,
                                                          True), reps=3, warmup=1)}
-        # the LSTM pair's store-c forward and walk
+        # the LSTM pair's training forward and walk
         wF, wB = ((f(C, 4 * S, scale=C ** -0.5), f(4 * S, scale=0.1),
                    f(S, 4 * S, scale=S ** -0.5), f(3 * S, scale=0.3)) for _ in "FB")
         xp = project_tm(x, torch.cat((wF[0], wB[0]), 1), torch.cat((wF[1], wB[1])))
         ghF, ghB = f(T, B, S), f(T, B, S)
         before = {k: ops.LAUNCHES[k] for k in ("lstm_pair_train_global",
                                                "lstm_recurrence_bwd_global")}
-        hF, hB, cF, cB = L.lstm_pair_train_cuda(xp, *wF[2:], *wB[2:])
-        twin = lambda: (lstm_tm(xp[..., : 4 * S], *wF[2:], False, return_c=True),
-                        lstm_tm(xp[..., 4 * S :], *wB[2:], True, return_c=True))
-        (tF, tcF), (tB, tcB) = twin()
+        hF, hB, pF, pB = L.lstm_pair_train_cuda(xp, *wF[2:], *wB[2:])
+        twin = lambda: (lstm_tm(xp[..., : 4 * S], *wF[2:], False, return_planes=True),
+                        lstm_tm(xp[..., 4 * S :], *wB[2:], True, return_planes=True))
+        (tF, tpF), (tB, tpB) = twin()
         sync()
         ferr = max(float((a - b).abs().max())
-                   for a, b in ((hF, tF), (hB, tB), (cF, tcF), (cB, tcB)))
-        require(ferr <= LSTM_ATOL, f"lstm big-S store-c: max abs err {ferr}")
-        dirs = []
-        for xs, h, c, w, gh_, rev in ((xp[..., : 4 * S], hF, cF, wF, ghF, False),
-                                      (xp[..., 4 * S :], hB, cB, wB, ghB, True)):
-            _, _, gates = L.backward_inputs(xs, h, c, w[2], w[3], rev)
-            dirs.append((gates, c, gh_, w[2], w[3], rev))
-        dk = L.lstm_walk_pair(dirs)
-        dp = torch.cat([L.lstm_walk_plain(*d) for d in dirs], dim=-1)
+                   for a, b in ((hF, tF), (hB, tB), (pF, tpF), (pB, tpB)))
+        require(ferr <= LSTM_ATOL, f"lstm big-S training forward: max abs err {ferr}")
+        dirs = [(pF, ghF, *wF[2:], False), (pB, ghB, *wB[2:], True)]
+        dk, dparts = L.lstm_walk_pair(dirs)
+        want = [L.lstm_walk_plain(*d) for d in dirs]
+        dp = torch.cat([w[0] for w in want], dim=-1)
         sync()
         require(bool(torch.isfinite(dk).all()), "lstm_recurrence_bwd_global finite")
-        werr = rel(dk, dp)
+        werr = max(rel(dk, dp), rel(dparts, torch.stack([w[1] for w in want])))
         require(werr <= LSTM_BWD_RTOL, f"lstm big-S walk: rel err {werr}")
         for k, v in before.items():
             require(ops.LAUNCHES[k] - v == 1, f"{k} launched")
@@ -1843,7 +1890,7 @@ def check_big_s_backward() -> dict:
                                                dirs=2),
             "ms": cuda_ms(lambda: L.lstm_walk_pair(dirs), reps=5),
             "plain_ms": cuda_ms(lambda: [L.lstm_walk_plain(*d) for d in dirs],
-                                reps=3, warmup=1)}
+                                reps=1, warmup=0)}
     # the routes with gradients wanted against autograd through the twins
     grads = {}
     for route, layer in (("kernels", True), ("twins", False)):

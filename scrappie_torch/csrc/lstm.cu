@@ -53,60 +53,78 @@
 // the step that uses it; h, c and the gate values sit in shared memory, with
 // two barriers a step; its gates take tanhf and sigmoid_f32 in the
 // twin's order. One layer a launch, or both directions of a stage (grid
-// B x 2, as the register kernel's pair), and a store-c mode for training
-// (kStoreC, c a fixed offset past h as below).
+// B x 2, as the register kernel's pair), and a training mode (kTrain, the
+// planes as below).
 //
-// Training (store-c mode, template kStoreC): the same kernel also writes
-// the cell state c of every step to a [T, B, S] array a direction (lane 0
-// of each quad, beside h: every lane of the quad holds c), for the backward
-// walk; ops/lstm.py launches it only when a gradient is wanted, and its h
-// is the inference launch's bit for bit. The c array lies a fixed number
-// of floats (coff) past each direction's y, so its address is h's plus a
-// kernel parameter and takes no register of its own: a pointer of its
-// own, or the store in another lane than h's, spilled (the kernel is at
-// its 168 registers a thread).
+// Training (template kTrain): the same kernel also writes, for every step,
+// the planes the backward walk reads: c, tanh(c) and the activated gates
+// g = tanh(a_c), i, f, o, each a [T, B, S] array a direction, stored by
+// lane 0 of each quad beside h (lane 0 holds every one of them after the
+// step's shuffles); ops/lstm.py launches it only when a gradient is
+// wanted, and its h is the inference launch's bit for bit. Plane m lies m
+// coff floats past each direction's y, so its address is h's plus a
+// multiple of a kernel parameter and takes no register of its own: a
+// pointer of its own, or a store in another lane than h's, spilled (the
+// kernel is at its 168 registers a thread).
 //
 // Backward (lstm_recurrence_bwd_kernel): the VJP of the lax.scan of
 // scrappie_tpu/nn/rnn.py:80 (lstm), which has no TPU kernel: XLA
-// differentiates the scan when the JAX trainer takes its gradient. With the
-// forward's activated gates (g = tanh(a_c), i, f, o), its c and c_prev and
-// the gradient gh of its output, per step in the reverse of the forward's
-// order, for one row (ops/lstm.lstm_walk_plain is the same loop):
+// differentiates the scan when the JAX trainer takes its gradient. Per
+// step, in the reverse of the forward's order, for one row
+// (ops/lstm.lstm_walk_plain is the same loop), with the forward's planes
+// and the gradient gh of its output:
 //
 //   dh    = carry_h + gh[t]
-//   da_o  = dh tanh(c) o (1 - o)
-//   dc    = carry_c + dh o (1 - tanh(c)^2) + da_o p_out
-//   da_f  = dc c_prev f (1 - f),  da_i = dc g i (1 - i),  da_c = dc i (1 - g^2)
-//   carry_c = dc f + da_f p_f + da_i p_in
-//   carry_h = [da_c | da_i | da_f | da_o] @ sW^T        (4S -> S)
+//   dc    = carry_c + dh Bc
+//   da    = [dc G | dc I | dc F | dh A]          (da_c | da_i | da_f | da_o)
+//   carry_c = dc K
+//   carry_h = da @ sW^T                                 (4S -> S)
+//
+// whose six coefficients do not depend on the carry:
+//
+//   A = tanh(c) o (1 - o),  Bc = o (1 - tanh(c)^2) + A p_out,
+//   F = c_prev f (1 - f),   I = g i (1 - i),  G = i (1 - g^2),
+//   K = f + F p_f + I p_in                            (c_prev 0 at the first)
+//
+// and the peephole gradient's terms, summed over steps: da_i c_prev, da_f
+// c_prev and da_o c.
 //
 // What bounds it: as the forward, the latency of a step, whose chain is
 // the product da @ sW^T (4 S^2 multiply-adds, 36 864 at S = 96) behind one
-// barrier; a step reads 6S floats of a row (gates, c_prev, gh) and writes
-// 4S (da), 11S with the c it keeps from the step before. Design, from
-// csrc/gru.cu's gru_recurrence_bwd_kernel: 384 threads, each holding a
-// 4 x 24 tile of sW^T in registers (4 outputs k, 24 of the 4S rows; the 16
-// row groups of an output group are half a warp), so a thread reads only
-// its 24 entries of da (six float4) and a reduce-scatter of shuffles (xor
-// 8, 4, 2, 1) leaves output k's sum in the four lanes of a quad. Lane r of
-// the quad then takes gate r of unit k: its projected gate value, and for
-// lanes 0 and 1 c_prev and gh, come by 4-byte cp.async into its own slot
-// of a ring RING steps ahead (c_prev zero-filled at the forward's first
-// step), and 6 shuffles hand the quad all six; every lane of the quad
-// takes the step's arithmetic, lane r writes da of gate r to a
-// double-buffered da in shared memory and to the output; then the block's
-// one barrier a step and the product. Both directions of a stage run in
-// one launch (blockIdx.y), each writing its 4S columns of a [T, B, 8S] da,
-// the pair projection's layout.
+// barrier, and the SM's issue of that product and of everything else a
+// step does. Design: 384 threads, each holding a 4 x 24 tile of sW^T in
+// registers (4 outputs k, 24 of the 4S rows; the 16 row groups of an
+// output group are half a warp), so a thread reads only its 24 entries of
+// da (six float4, from a layout padded so that a warp's reads spread over
+// the banks), two accumulators an output, and a reduce-scatter of
+// shuffles (xor 8, 4, 2, 1) leaves output k's sum in the four lanes of a
+// quad. Lane r of the quad takes gate r of unit k. The chain of a step is
+// then three operations (dh, dc, lane r's da), a store to a double-buffered
+// da in shared memory and the block's one barrier; everything else is off
+// it, after the barrier, beside the product: the lane's da to global
+// memory, the copies of a later step's inputs (the five planes at
+// the step, c at the step before and gh, by 16-byte cp.async into a ring
+// in shared memory BW_RING steps ahead, each thread waiting only for its
+// own copies before the barrier that publishes them), and the next step's
+// six coefficients, formed in registers from the ring by every lane of
+// the quad. Each lane keeps its dpeep term's sum in a double and writes one
+// partial a row and direction; ops/lstm.py sums the rows' partials (no
+// atomics: the same result every run). sW^T's tile is read from a copy of
+// sW padded to S = 96, so that its 96 loads are fixed offsets from one
+// address (bounds tests on each spilled). Both directions of a stage run
+// in one launch (blockIdx.y), each writing its 4S columns of a [T, B, 8S]
+// da, the pair projection's layout.
 //
 // Big-S walk (lstm_walk_global_kernel, S > 96): sW read from global memory
 // (L2), one block of 1024 threads a row and direction, two barriers a
-// step: a thread a unit takes the gates' arithmetic from its inputs in
-// global memory and keeps carry_c, da in shared memory; then lanes of 8 an
-// output take da @ sW^T from sW's rows (contiguous). The same arithmetic,
-// the product's sums in another order; a simple kernel, for sizes above
-// the shipped models'.
+// step: a thread a unit takes the step's arithmetic from the planes in
+// global memory and keeps carry_c, its dpeep sums and da in shared memory;
+// then lanes of 8 an output take da @ sW^T from sW's rows (contiguous).
+// The same arithmetic, the product's sums in another order; a simple
+// kernel, for sizes above the shipped models'.
 #include <cuda_runtime.h>
+
+#include <cstddef>
 
 namespace {
 
@@ -146,8 +164,9 @@ struct Dir {
 // gate columns start at column 4S * blockIdx.y of xproj. blockDim.x = 4S
 // rounded up to a warp; S <= REG_MAX_S. Shared memory: h [2][REG_MAX_S]
 // (the tail past S zero), a ring of RING projected rows [RING][4S].
-// kStoreC: also write c of every step to d.y + coff ([T, B, S]).
-template <bool kStoreC>
+// kTrain: also the planes the backward walk reads, c, tanh(c) and the
+// activated gates g, i, f, o of every step, plane m (1 .. 6) at d.y + m coff.
+template <bool kTrain>
 __global__ void __launch_bounds__(4 * REG_MAX_S, 1)
 lstm_recurrence_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
                        Dir d1, int T, int B, int S, long long coff) {
@@ -240,7 +259,14 @@ lstm_recurrence_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
       s_h[((n + 1) & 1) * REG_MAX_S + u] = h;
       float* yt = d.y + ((size_t)t * B + b) * S + u;
       *yt = h;
-      if (kStoreC) yt[coff] = c;
+      if (kTrain) {
+        yt[coff] = c;
+        yt[2 * coff] = tc;
+        yt[3 * coff] = cell;
+        yt[4 * coff] = in;
+        yt[5 * coff] = forget;
+        yt[6 * coff] = so;
+      }
     }
     fetch(n + RING);  // refill the slot read above
     __syncthreads();
@@ -282,9 +308,10 @@ __device__ __forceinline__ float global_gate(const float* __restrict__ sW,
 }
 
 // Big-S mode: xproj [T, B, xcols] -> y [T, B, S] for direction blockIdx.y,
-// whose 4S gate columns start at column 4S * blockIdx.y; kStoreC: also c
-// to d.y + coff. Shared memory: h [S], c [S], the gate values [4S].
-template <bool kStoreC>
+// whose 4S gate columns start at column 4S * blockIdx.y; kTrain: also c
+// and the four activated gates, planes 1 .. 5 at d.y + m coff. Shared
+// memory: h [S], c [S], the gate values [4S].
+template <bool kTrain>
 __global__ void __launch_bounds__(1024)
 lstm_global_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
                    Dir d1, int T, int B, int S, long long coff) {
@@ -322,19 +349,27 @@ lstm_global_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
                                     __fmul_rn(s_g[S + u], s_g[u]));
       const float o = sigmoid_f32(__fadd_rn(s_g[3 * S + u],
                                             __fmul_rn(c_new, p_out)));
-      const float h = __fmul_rn(o, tanhf(c_new));
+      const float tc = tanhf(c_new);
+      const float h = __fmul_rn(o, tc);
       s_c[u] = c_new;
       s_h[u] = h;
       float* yt = y + ((size_t)t * B + b) * S + u;
       *yt = h;
-      if (kStoreC) yt[coff] = c_new;
+      if (kTrain) {
+        yt[coff] = c_new;
+        yt[2 * coff] = tc;
+        yt[3 * coff] = s_g[u];
+        yt[4 * coff] = s_g[S + u];
+        yt[5 * coff] = s_g[2 * S + u];
+        yt[6 * coff] = o;
+      }
     }
     __syncthreads();
   }
 }
 
 // The register kernel over ndir directions (grid B x ndir).
-template <bool kStoreC>
+template <bool kTrain>
 int launch_registers(const float* xproj, int xcols, Dir d0, Dir d1, int ndir,
                      int T, int B, int S, cudaStream_t stream,
                      long long coff = 0) {
@@ -342,7 +377,7 @@ int launch_registers(const float* xproj, int xcols, Dir d0, Dir d1, int ndir,
   if (S < 1 || S > REG_MAX_S) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (2 * REG_MAX_S + (size_t)RING * 4 * S);
   const int threads = (4 * S + 31) / 32 * 32;
-  lstm_recurrence_kernel<kStoreC><<<dim3(B, ndir), threads, smem, stream>>>(
+  lstm_recurrence_kernel<kTrain><<<dim3(B, ndir), threads, smem, stream>>>(
       xproj, xcols, d0, d1, T, B, S, coff);
   return (int)cudaGetLastError();
 }
@@ -353,20 +388,21 @@ constexpr int BW_OUT = 4;                          // outputs a thread
 constexpr int BW_ROWS = 24;                        // rows of da a thread
 constexpr int BW_GROUP = 4 * REG_MAX_S / BW_ROWS;  // lanes of an output group
 constexpr int BW_THREADS = REG_MAX_S / BW_OUT * BW_GROUP;
+constexpr int BW_RING = 4;                         // steps in the inputs' ring
+constexpr int BW_PLANE = REG_MAX_S + 8;            // a ring plane, padded
+constexpr int BW_UNROLL = 2;                       // steps a loop iteration
+// da in shared memory: row j (gate j / 96's unit j % 96) at j + 4 (j / 24),
+// so that the float4 reads of a warp's 16 row groups (24 rows each) fall
+// in 8 bank groups (2 wavefronts) and not 4 (4 wavefronts)
+constexpr int BW_DA = 4 * REG_MAX_S + 4 * (4 * REG_MAX_S / BW_ROWS);
+__device__ constexpr int da_at(int j) { return j + 4 * (j / BW_ROWS); }
 static_assert(BW_GROUP == 16, "the reduce-scatter's xor 8, 4, 2, 1");
 static_assert(BW_THREADS == 384, "a 4 x 24 tile of sW^T a thread");
+static_assert((BW_RING & (BW_RING - 1)) == 0 && BW_RING >= 3, "the ring");
 
-// cp.async of 4 bytes, zero-filled when n = 0; with the wait below, a
-// compiler barrier for memory, so no read of a ring slot moves across the
-// wait and no copy into a slot moves above the reads of its old values.
-__device__ __forceinline__ void cp_async4_fill(float* dst, const float* src,
-                                               int n) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
+// cp.async.wait_group with a compiler barrier for memory, so that no read
+// of a ring slot moves across the wait and no copy into a slot moves above
+// the reads of its old values.
 template <int N>
 __device__ __forceinline__ void cp_async_wait_mem() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -374,8 +410,7 @@ __device__ __forceinline__ void cp_async_wait_mem() {
 
 // One direction's operands of the backward walk.
 struct BwdDir {
-  const float* gates;  // [T, B, 4S]: tanh(a_c) | i | f | o
-  const float* c;      // [T, B, S]
+  const float* c;      // [T, B, S]; the forward's next planes at c + m poff
   const float* gh;     // [T, B, S]
   const float* sW;     // [S, 4S]
   const float* peep;   // [3S]
@@ -397,13 +432,67 @@ __device__ __forceinline__ float reduce_scatter16(const float (&p)[BW_OUT],
   return __fadd_rn(t, __shfl_xor_sync(FULL, t, 1));
 }
 
-// gates, c, gh of direction blockIdx.y -> its 4S columns of da [T, B,
-// dcols] (column 4S blockIdx.y on). blockDim.x = BW_THREADS; S <= REG_MAX_S.
+// The walk step's six coefficients (csrc header), from the forward's
+// tanh(c) and activated gates g, i, f, o at the step and its c_prev.
+struct LstmCoef {
+  float G, I, F, A, Bc, K;
+};
+
+__device__ __forceinline__ LstmCoef lstm_coef(float tc, float g, float i,
+                                              float f, float o, float cp,
+                                              float p_in, float p_f,
+                                              float p_out) {
+  LstmCoef k;
+  k.G = i * (1.0f - g * g);
+  k.I = g * i * (1.0f - i);
+  k.F = cp * f * (1.0f - f);
+  k.A = tc * o * (1.0f - o);
+  k.Bc = o * (1.0f - tc * tc) + k.A * p_out;
+  k.K = f + k.F * p_f + k.I * p_in;
+  return k;
+}
+
+// What the chain of a walk step needs in one lane (gate r of unit k): gh,
+// Bc, K, its gate's coefficient x (G, I, F or A for r = 0 .. 3) and the
+// factor of its dpeep term pc (c_prev for r = 1, 2; c for r = 3; 0 for 0).
+struct WalkStep {
+  float gh, bc, kk, x, pc;
+};
+
+// cp.async of VEC (4 or 1) floats, zero-filled when nbytes = 0; with
+// cp_async_wait_mem, a compiler barrier for memory.
+template <int VEC>
+__device__ __forceinline__ void cp_async_vec(float* dst, const float* src,
+                                             int nbytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (VEC == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(nbytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(nbytes)
+                 : "memory");
+}
+
+// The forward's planes of direction blockIdx.y (c at d.c, then tanh(c)
+// and the gates g, i, f, o, poff floats apart) and gh -> its 4S columns of
+// da [T, B, dcols] (column 4S blockIdx.y on) and its dpeep partials,
+// [ndir, B, 3S] (this row's sums over time of da_i c_prev, da_f c_prev
+// and da_o c). blockDim.x = BW_THREADS; S <= REG_MAX_S; d.sW padded to
+// [REG_MAX_S, 4, REG_MAX_S] with zeros (sW itself at S = REG_MAX_S). A
+// step's plane rows come by cp.async copies of VEC floats: 4 where S and
+// poff are multiples of 4 and the planes and gh 16-byte aligned, else 1.
+template <int VEC>
 __global__ void __launch_bounds__(BW_THREADS, 1)
-lstm_recurrence_bwd_kernel(BwdDir d0, BwdDir d1, float* __restrict__ da,
-                           int dcols, int T, int B, int S) {
-  __shared__ __align__(16) float s_da[2][4 * REG_MAX_S];  // padded per gate
-  __shared__ float s_in[RING][2][BW_THREADS];  // the inputs' ring
+lstm_recurrence_bwd_kernel(BwdDir d0, BwdDir d1, long long poff,
+                           float* __restrict__ da, int dcols,
+                           float* __restrict__ dpeep, int T, int B, int S) {
+  constexpr int NG = 5;       // planes tanh(c), g, i, f, o
+  constexpr int NP = NG + 2;  // and c at the walk's next step, gh
+  __shared__ __align__(16) float s_da[2][BW_DA];  // row j at j + 4 (j / 24)
+  __shared__ __align__(16) float s_in[BW_RING][NP][BW_PLANE];  // the ring
+  __shared__ float s_peep[3][REG_MAX_S];  // not in registers: they spilled
   const BwdDir d = blockIdx.y ? d1 : d0;
   const int S4 = 4 * S;
   const int b = blockIdx.x;
@@ -412,127 +501,155 @@ lstm_recurrence_bwd_kernel(BwdDir d0, BwdDir d1, float* __restrict__ da,
   const int k0 = tid / BW_GROUP * BW_OUT;  // the group's outputs k0 .. k0 + 3
   const int k = k0 + (q >> 2);             // the unit this lane ends with
   const int r = q & 3;                     // the gate it writes
-  const int quad = (tid & 31) & ~3;
   const bool live = k < S;
   const int kc = min(k, S - 1);
-  float* dcol = da + (size_t)S4 * blockIdx.y;
-  for (int i = tid; i < 2 * 4 * REG_MAX_S; i += BW_THREADS)
-    (&s_da[0][0])[i] = 0.0f;
+  // sW^T's tile (rows k0 .. k0 + 3 of sW, its padded columns 24q ..
+  // 24q + 23): fixed offsets from one address, no bounds to test
   float w[BW_OUT][BW_ROWS];
+  const float* wtile = d.sW + (size_t)k0 * 4 * REG_MAX_S + q * BW_ROWS;
 #pragma unroll
-  for (int i = 0; i < BW_OUT; ++i) {
+  for (int i = 0; i < BW_OUT; ++i)
 #pragma unroll
-    for (int jj = 0; jj < BW_ROWS; ++jj) {
-      const int j = q * BW_ROWS + jj;
-      const int gate = j / REG_MAX_S, unit = j % REG_MAX_S, ki = k0 + i;
-      w[i][jj] = (ki < S && unit < S)
-                     ? __ldg(d.sW + (size_t)ki * S4 + gate * S + unit)
-                     : 0.0f;
-    }
+    for (int jj = 0; jj < BW_ROWS; ++jj)
+      w[i][jj] = __ldg(wtile + i * 4 * REG_MAX_S + jj);
+  for (int i = tid; i < 2 * BW_DA; i += BW_THREADS)
+    (&s_da[0][0])[i] = 0.0f;
+  for (int i = tid; i < 3 * REG_MAX_S; i += BW_THREADS) {
+    const int g = i / REG_MAX_S, u = i % REG_MAX_S;
+    s_peep[g][u] = u < S ? __ldg(d.peep + g * S + u) : 0.0f;
   }
-  const float p_in = live ? __ldg(d.peep + k) : 0.0f;
-  const float p_f = live ? __ldg(d.peep + S + k) : 0.0f;
-  const float p_out = live ? __ldg(d.peep + 2 * S + k) : 0.0f;
-  // walk step n at t = reverse ? n : T-1-n (the forward's steps backwards);
-  // the forward's step before t is t + 1 (reverse) or t - 1
-  auto step_t = [&](int n) { return d.reverse ? n : T - 1 - n; };
-  auto fetch = [&](int u, int n) {
-    const int t = step_t(min(n, T - 1));
-    const size_t row = (size_t)t * B + b;
-    cp_async4_fill(&s_in[u][0][tid], d.gates + row * S4 + r * S + kc, 4);
-    if (r == 0) {
-      const int tp = d.reverse ? t + 1 : t - 1;
-      const bool has = tp >= 0 && tp < T;
-      cp_async4_fill(&s_in[u][1][tid],
-                     d.c + ((size_t)(has ? tp : t) * B + b) * S + kc,
-                     has ? 4 : 0);
-    } else if (r == 1) {
-      cp_async4_fill(&s_in[u][1][tid], d.gh + row * S + kc, 4);
+  // Walk step n is the forward's step t = reverse ? n : T-1-n; the
+  // forward's step before it, t + ws, is the walk's next step.
+  const int ws = d.reverse ? 1 : -1;
+  const int t0 = d.reverse ? 0 : T - 1;
+  // This thread's copies of a step, at most NE: copy e = tid + i
+  // BW_THREADS is plane e / (S / VEC)'s floats VEC (e % (S / VEC)) on, its
+  // source at the forward's step 0 and its slot offset (-1: none). Plane
+  // p < NG is the forward's plane p + 1 past c, NG c at the walk's next
+  // step (zero-filled at the walk's last, the forward's first), NG + 1 gh.
+  constexpr int NE = (NP * REG_MAX_S / VEC + BW_THREADS - 1) / BW_THREADS;
+  const float* src[NE];
+  int dst[NE];
+#pragma unroll
+  for (int i = 0; i < NE; ++i) {
+    const int e = tid + i * BW_THREADS, sv = S / VEC;
+    const int p = e / sv, unit = e % sv * VEC;
+    dst[i] = e < NP * sv ? p * BW_PLANE + unit : -1;
+    src[i] = (p < NG ? d.c + (p + 1) * poff : p == NG ? d.c : d.gh) +
+             (p == NG ? (ptrdiff_t)ws * B * S : 0) + (size_t)b * S + unit;
+  }
+  // Copies step n's inputs into its ring slot (none past the walk's end).
+  auto fetch = [&](int n) {
+    float* slot = &s_in[n & (BW_RING - 1)][0][0];
+    const ptrdiff_t row = (ptrdiff_t)(t0 + ws * n) * B * S;
+#pragma unroll
+    for (int i = 0; i < NE; ++i) {
+      if (dst[i] >= 0 && n < T) {
+        const bool none = n == T - 1 && dst[i] >= NG * BW_PLANE &&
+                          dst[i] < (NG + 1) * BW_PLANE;
+        cp_async_vec<VEC>(slot + dst[i], src[i] + (none ? 0 : row),
+                          none ? 0 : 4 * VEC);
+      }
     }
     cp_async_commit();
   };
+  // Step n's chain inputs from the ring (its copies waited for), c the
+  // forward's c at step n.
+  auto coefficients = [&](int n, float c) -> WalkStep {
+    const float* in = &s_in[n & (BW_RING - 1)][0][0] + kc;
+    const float cp = in[NG * BW_PLANE];
+    const LstmCoef co =
+        lstm_coef(in[0], in[BW_PLANE], in[2 * BW_PLANE], in[3 * BW_PLANE],
+                  in[4 * BW_PLANE], cp, s_peep[0][kc], s_peep[1][kc],
+                  s_peep[2][kc]);
+    WalkStep s;
+    s.gh = in[(NG + 1) * BW_PLANE];
+    s.x = r == 0 ? co.G : r == 1 ? co.I : r == 2 ? co.F : co.A;
+    s.bc = co.Bc;
+    s.kk = co.K;
+    s.pc = r == 0 ? 0.0f : r == 3 ? c : cp;
+    return s;
+  };
 #pragma unroll
-  for (int u = 0; u < RING; ++u) fetch(u, u);
-  float c_now = __ldg(d.c + ((size_t)step_t(0) * B + b) * S + kc);
-  __syncthreads();  // the zeros before any step's writes
+  for (int n = 0; n < BW_RING - 1; ++n) fetch(n);
+  cp_async_wait_mem<BW_RING - 2>();  // step 0's copies
+  __syncthreads();  // and the zeros, before any step's writes
+  WalkStep cur = coefficients(0, __ldg(d.c + ((size_t)t0 * B + b) * S + kc));
+  float c_now = s_in[0][NG][kc];  // c at the walk's next step
   float carry_h = 0.0f, carry_c = 0.0f;
-  for (int n0 = 0; n0 < T; n0 += RING) {
+  double dp = 0.0;
+  float* dout = da + (size_t)S4 * blockIdx.y + ((size_t)t0 * B + b) * dcols +
+                r * S + kc;
+#pragma unroll 1
+  for (int n0 = 0; n0 < T; n0 += BW_UNROLL) {
 #pragma unroll
-    for (int u = 0; u < RING; ++u) {
+    for (int u = 0; u < BW_UNROLL; ++u) {
       const int n = n0 + u;
       if (n >= T) break;  // uniform across the block
-      const size_t row = (size_t)step_t(n) * B + b;
-      cp_async_wait_mem<RING - 1>();  // this thread's copies of step n
-      const float v0 = s_in[u][0][tid], v1 = s_in[u][1][tid];
-      fetch(u, n + RING);
-      const float g = __shfl_sync(FULL, v0, quad);
-      const float ig = __shfl_sync(FULL, v0, quad + 1);
-      const float fg = __shfl_sync(FULL, v0, quad + 2);
-      const float og = __shfl_sync(FULL, v0, quad + 3);
-      const float cprev = __shfl_sync(FULL, v1, quad);
-      const float ghv = __shfl_sync(FULL, v1, quad + 1);
-      const float tc = tanhf(c_now);
-      const float dh = __fadd_rn(carry_h, ghv);
-      const float da_o =
-          __fmul_rn(__fmul_rn(__fmul_rn(dh, tc), og), __fsub_rn(1.0f, og));
-      const float dc = __fadd_rn(
-          __fadd_rn(carry_c, __fmul_rn(__fmul_rn(dh, og),
-                                       __fsub_rn(1.0f, __fmul_rn(tc, tc)))),
-          __fmul_rn(da_o, p_out));
-      const float da_f =
-          __fmul_rn(__fmul_rn(__fmul_rn(dc, cprev), fg), __fsub_rn(1.0f, fg));
-      const float da_i =
-          __fmul_rn(__fmul_rn(__fmul_rn(dc, g), ig), __fsub_rn(1.0f, ig));
-      const float da_c =
-          __fmul_rn(__fmul_rn(dc, ig), __fsub_rn(1.0f, __fmul_rn(g, g)));
-      carry_c = __fadd_rn(__fadd_rn(__fmul_rn(dc, fg), __fmul_rn(da_f, p_f)),
-                          __fmul_rn(da_i, p_in));
-      const float mine = r == 0 ? da_c : r == 1 ? da_i : r == 2 ? da_f : da_o;
-      float* buf = s_da[n & 1];
-      if (live) {
-        buf[r * REG_MAX_S + k] = mine;
-        dcol[row * dcols + r * S + k] = mine;
-      }
+      const float dh = __fadd_rn(carry_h, cur.gh);
+      const float dc = fmaf(dh, cur.bc, carry_c);
+      const float mine = __fmul_rn(r == 3 ? dh : dc, cur.x);
+      float* buf = s_da[u & 1];
+      if (live) buf[da_at(r * REG_MAX_S + k)] = mine;
+      carry_c = __fmul_rn(dc, cur.kk);
+      dp = fma((double)mine, (double)cur.pc, dp);
+      cp_async_wait_mem<BW_RING - 3>();  // this thread's copies of n + 1
       __syncthreads();
-      float p[BW_OUT] = {0.0f, 0.0f, 0.0f, 0.0f};
-      const float4* v4 = reinterpret_cast<const float4*>(buf + q * BW_ROWS);
+      fetch(n + BW_RING - 1);  // into the slot of step n - 1
+      if (live) *dout = mine;
+      dout += (ptrdiff_t)ws * B * dcols;
+      float p[BW_OUT], p2[BW_OUT];
+#pragma unroll
+      for (int i = 0; i < BW_OUT; ++i) p[i] = p2[i] = 0.0f;
+      const float4* v4 =
+          reinterpret_cast<const float4*>(buf + da_at(q * BW_ROWS));
 #pragma unroll
       for (int cc = 0; cc < BW_ROWS / 4; ++cc) {
         const float4 v = v4[cc];
 #pragma unroll
         for (int i = 0; i < BW_OUT; ++i) {
           p[i] = fmaf(v.x, w[i][4 * cc], p[i]);
-          p[i] = fmaf(v.y, w[i][4 * cc + 1], p[i]);
+          p2[i] = fmaf(v.y, w[i][4 * cc + 1], p2[i]);
           p[i] = fmaf(v.z, w[i][4 * cc + 2], p[i]);
-          p[i] = fmaf(v.w, w[i][4 * cc + 3], p[i]);
+          p2[i] = fmaf(v.w, w[i][4 * cc + 3], p2[i]);
         }
       }
+#pragma unroll
+      for (int i = 0; i < BW_OUT; ++i) p[i] = __fadd_rn(p[i], p2[i]);
+      // (past the walk's end from a stale slot, and unused)
+      cur = coefficients(n + 1, c_now);
+      c_now = s_in[(n + 1) & (BW_RING - 1)][NG][kc];
       carry_h = reduce_scatter16(p, q);
-      c_now = cprev;
     }
   }
+  cp_async_wait_mem<0>();
+  if (live && r > 0)
+    dpeep[((size_t)blockIdx.y * B + b) * 3 * S + (r - 1) * S + k] = (float)dp;
 }
 
 constexpr int WGL = 8;  // lanes of an output in the big-S walk
 
-// gates, c, gh of direction blockIdx.y -> its 4S columns of da [T, B,
-// dcols], sW read from global memory; any S (shared memory: 6S floats:
-// carry_h [S], carry_c [S], da [4S]).
+// As lstm_recurrence_bwd_kernel (the gates' planes), sW read from global
+// memory; any S (shared memory: 9S floats: carry_h [S], carry_c [S], the
+// dpeep sums [3S], da [4S]).
 __global__ void __launch_bounds__(1024)
-lstm_walk_global_kernel(BwdDir d0, BwdDir d1, float* __restrict__ da,
-                        int dcols, int T, int B, int S) {
+lstm_walk_global_kernel(BwdDir d0, BwdDir d1, long long poff,
+                        float* __restrict__ da, int dcols,
+                        float* __restrict__ dpeep, int T, int B, int S) {
   extern __shared__ float sm[];
   const BwdDir d = blockIdx.y ? d1 : d0;
   const int S4 = 4 * S;
   float* s_ch = sm;
   float* s_cc = s_ch + S;
-  float* s_da = s_cc + S;
+  float* s_dp = s_cc + S;
+  float* s_da = s_dp + 3 * S;
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int la = tid % WGL, ngroup = nt / WGL;
   float* dcol = da + (size_t)S4 * blockIdx.y;
   for (int u = tid; u < S; u += nt) {
     s_ch[u] = 0.0f;
     s_cc[u] = 0.0f;
+    s_dp[u] = s_dp[S + u] = s_dp[2 * S + u] = 0.0f;
   }
   __syncthreads();
   for (int n = 0; n < T; ++n) {
@@ -541,37 +658,25 @@ lstm_walk_global_kernel(BwdDir d0, BwdDir d1, float* __restrict__ da,
     const bool has = tp >= 0 && tp < T;
     const size_t row = (size_t)t * B + b;
     for (int u = tid; u < S; u += nt) {
-      const float g = d.gates[row * S4 + u], ig = d.gates[row * S4 + S + u];
-      const float fg = d.gates[row * S4 + 2 * S + u];
-      const float og = d.gates[row * S4 + 3 * S + u];
-      const float cprev = has ? d.c[((size_t)tp * B + b) * S + u] : 0.0f;
-      const float tc = tanhf(d.c[row * S + u]);
+      const float* pl = d.c + row * S + u;
+      const float c = pl[0];
+      const float cp = has ? d.c[((size_t)tp * B + b) * S + u] : 0.0f;
+      const LstmCoef k = lstm_coef(
+          pl[poff], pl[2 * poff], pl[3 * poff], pl[4 * poff], pl[5 * poff], cp,
+          __ldg(d.peep + u), __ldg(d.peep + S + u), __ldg(d.peep + 2 * S + u));
       const float dh = __fadd_rn(s_ch[u], d.gh[row * S + u]);
-      const float p_in = __ldg(d.peep + u), p_f = __ldg(d.peep + S + u);
-      const float p_out = __ldg(d.peep + 2 * S + u);
-      const float da_o =
-          __fmul_rn(__fmul_rn(__fmul_rn(dh, tc), og), __fsub_rn(1.0f, og));
-      const float dc = __fadd_rn(
-          __fadd_rn(s_cc[u], __fmul_rn(__fmul_rn(dh, og),
-                                       __fsub_rn(1.0f, __fmul_rn(tc, tc)))),
-          __fmul_rn(da_o, p_out));
-      const float da_f =
-          __fmul_rn(__fmul_rn(__fmul_rn(dc, cprev), fg), __fsub_rn(1.0f, fg));
-      const float da_i =
-          __fmul_rn(__fmul_rn(__fmul_rn(dc, g), ig), __fsub_rn(1.0f, ig));
-      const float da_c =
-          __fmul_rn(__fmul_rn(dc, ig), __fsub_rn(1.0f, __fmul_rn(g, g)));
-      s_cc[u] = __fadd_rn(__fadd_rn(__fmul_rn(dc, fg), __fmul_rn(da_f, p_f)),
-                          __fmul_rn(da_i, p_in));
-      s_da[u] = da_c;
-      s_da[S + u] = da_i;
-      s_da[2 * S + u] = da_f;
-      s_da[3 * S + u] = da_o;
+      const float dc = fmaf(dh, k.Bc, s_cc[u]);
+      const float a[4] = {__fmul_rn(dc, k.G), __fmul_rn(dc, k.I),
+                          __fmul_rn(dc, k.F), __fmul_rn(dh, k.A)};
+      s_cc[u] = __fmul_rn(dc, k.K);
+      s_dp[u] = fmaf(a[1], cp, s_dp[u]);
+      s_dp[S + u] = fmaf(a[2], cp, s_dp[S + u]);
+      s_dp[2 * S + u] = fmaf(a[3], c, s_dp[2 * S + u]);
       float* out = dcol + row * dcols;
-      out[u] = da_c;
-      out[S + u] = da_i;
-      out[2 * S + u] = da_f;
-      out[3 * S + u] = da_o;
+      for (int r = 0; r < 4; ++r) {
+        s_da[r * S + u] = a[r];
+        out[r * S + u] = a[r];
+      }
     }
     __syncthreads();
     for (int k0 = 0; k0 < S; k0 += ngroup) {
@@ -593,21 +698,25 @@ lstm_walk_global_kernel(BwdDir d0, BwdDir d1, float* __restrict__ da,
     }
     __syncthreads();
   }
+  for (int u = tid; u < S; u += nt)
+    for (int r = 0; r < 3; ++r)
+      dpeep[((size_t)blockIdx.y * B + b) * 3 * S + r * S + u] =
+          s_dp[r * S + u];
 }
 
 // The big-S forward over ndir directions (grid B x ndir).
-template <bool kStoreC>
+template <bool kTrain>
 int launch_global(const float* xproj, int xcols, Dir d0, Dir d1, int ndir,
                   int T, int B, int S, cudaStream_t stream,
                   long long coff = 0) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
   const size_t smem = sizeof(float) * 6 * (size_t)S;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_global_kernel<kStoreC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_global_kernel<kTrain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = 4 * S < 1024 ? ((4 * S + 31) / 32) * 32 : 1024;
-  lstm_global_kernel<kStoreC><<<dim3(B, ndir), threads, smem, stream>>>(
+  lstm_global_kernel<kTrain><<<dim3(B, ndir), threads, smem, stream>>>(
       xproj, xcols, d0, d1, T, B, S, coff);
   return (int)cudaGetLastError();
 }
@@ -643,10 +752,11 @@ int scrappie_lstm_pair(const float* xproj, const float* sW_f,
                                  stream);
 }
 
-// The store-c mode of scrappie_lstm_pair: also writes c_f, c_b [T, B, S],
-// which must lie as far past y_f as c_b past y_b. global = 0: sW in
-// registers (S <= REG_MAX_S); global = 1: the big-S kernel. Returns a
-// cudaError_t.
+// The training mode of scrappie_lstm_pair: also writes c_f, c_b and the
+// directions' other planes [T, B, S], tanh(c) and the activated gates g,
+// i, f, o, plane m at y + m (c - y), which must be the same for both
+// directions. global = 0: sW in registers (S <= REG_MAX_S); global = 1:
+// the big-S kernel. Returns a cudaError_t.
 int scrappie_lstm_pair_train(const float* xproj, const float* sW_f,
                              const float* peep_f, float* y_f, float* c_f,
                              const float* sW_b, const float* peep_b,
@@ -662,35 +772,47 @@ int scrappie_lstm_pair_train(const float* xproj, const float* sW_f,
 }
 
 // The backward walk of ndir (1 or 2) directions in one launch: for
-// direction d, gates [T, B, 4S] (tanh(a_c) | i | f | o), c and gh
-// [T, B, S], sW [S, 4S], peep [3S] and the forward's direction ->
-// columns 4S d .. 4S d + 4S - 1 of da [T, B, dcols]; all fp32, contiguous,
-// on the current device. global = 0: sW in registers, S <= REG_MAX_S;
-// global = 1: the big-S walk. Returns a cudaError_t.
-int scrappie_lstm_recurrence_bwd(
-    const float* gates0, const float* c0, const float* gh0, const float* sW0,
-    const float* peep0, int reverse0, const float* gates1, const float* c1,
-    const float* gh1, const float* sW1, const float* peep1, int reverse1,
-    float* da, int dcols, int ndir, int T, int B, int S, int global,
-    cudaStream_t stream) {
+// direction d, c [T, B, S] and the forward's next planes at c + m poff
+// (tanh(c), g, i, f, o), gh [T, B, S], sW [S, 4S], peep [3S] and the
+// forward's direction -> columns 4S d .. 4S d + 4S - 1 of da [T, B, dcols]
+// and dpeep [ndir, B, 3S], each row's sums over time of da_i c_prev, da_f
+// c_prev and da_o c; all fp32, each plane contiguous, on the current
+// device. global = 0: sW in registers, S <= REG_MAX_S, sW0 and sW1 padded
+// to [REG_MAX_S, 4, REG_MAX_S] with zeros; global = 1: the big-S walk.
+// Returns a cudaError_t.
+int scrappie_lstm_recurrence_bwd(const float* c0, const float* gh0,
+                                 const float* sW0, const float* peep0,
+                                 int reverse0, const float* c1,
+                                 const float* gh1, const float* sW1,
+                                 const float* peep1, int reverse1,
+                                 long long poff, float* da, int dcols,
+                                 float* dpeep, int ndir, int T, int B, int S,
+                                 int global, cudaStream_t stream) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
   if (S < 1 || ndir < 1 || ndir > 2 || dcols < 4 * S * ndir ||
       (!global && S > REG_MAX_S))
     return (int)cudaErrorInvalidValue;
-  const BwdDir e0{gates0, c0, gh0, sW0, peep0, reverse0};
-  const BwdDir e1{gates1, c1, gh1, sW1, peep1, reverse1};
+  const BwdDir e0{c0, gh0, sW0, peep0, reverse0};
+  const BwdDir e1{c1, gh1, sW1, peep1, reverse1};
+  const dim3 grid(B, ndir);
   if (global) {
-    const size_t smem = sizeof(float) * 6 * (size_t)S;
+    const size_t smem = sizeof(float) * 9 * (size_t)S;
     cudaError_t err = cudaFuncSetAttribute(
         lstm_walk_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
-    lstm_walk_global_kernel<<<dim3(B, ndir), 1024, smem, stream>>>(
-        e0, e1, da, dcols, T, B, S);
+    lstm_walk_global_kernel<<<grid, 1024, smem, stream>>>(
+        e0, e1, poff, da, dcols, dpeep, T, B, S);
     return (int)cudaGetLastError();
   }
-  lstm_recurrence_bwd_kernel<<<dim3(B, ndir), BW_THREADS, 0, stream>>>(
-      e0, e1, da, dcols, T, B, S);
+  const auto aligned = [](const void* p) { return (size_t)p % 16 == 0; };
+  if (S % 4 == 0 && poff % 4 == 0 && aligned(c0) && aligned(c1) &&
+      aligned(gh0) && aligned(gh1))
+    lstm_recurrence_bwd_kernel<4><<<grid, BW_THREADS, 0, stream>>>(
+        e0, e1, poff, da, dcols, dpeep, T, B, S);
+  else
+    lstm_recurrence_bwd_kernel<1><<<grid, BW_THREADS, 0, stream>>>(
+        e0, e1, poff, da, dcols, dpeep, T, B, S);
   return (int)cudaGetLastError();
 }
 

@@ -51,25 +51,29 @@ def gru(x: torch.Tensor, sW: torch.Tensor, sW2: torch.Tensor,
 
 
 def lstm_tm(x_tm: torch.Tensor, sW: torch.Tensor, peep: torch.Tensor,
-            reverse: bool = False, return_c: bool = False):
+            reverse: bool = False, return_planes: bool = False):
     """Peephole LSTM over time-major projected inputs x [T, B, 4S] ->
-    h [T, B, S]; with return_c, (h, c) with the cell state c [T, B, S] of
-    every step, which the backward walk reads (ops/lstm.py)."""
+    h [T, B, S]; with return_planes, (h, planes) with planes [6, T, B, S]:
+    the cell state c, tanh(c) and the activated gates g = tanh(a_c), i, f,
+    o of every step, which the backward walk reads (ops/lstm.py; the planes
+    the training forward kernel writes)."""
     T, B, _ = x_tm.shape
     S = sW.shape[0]
     p_in, p_forget, p_out = peep[:S], peep[S : 2 * S], peep[2 * S :]
     h = x_tm.new_zeros((B, S))
     c = x_tm.new_zeros((B, S))
     out = x_tm.new_empty((T, B, S))
-    cs = x_tm.new_empty((T, B, S)) if return_c else None
+    planes = x_tm.new_empty((6, T, B, S)) if return_planes else None
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         xF = x_tm[t] + h @ sW
-        forget = torch.sigmoid(xF[:, 2 * S : 3 * S] + c * p_forget) * c
-        update = torch.sigmoid(xF[:, S : 2 * S] + c * p_in) * torch.tanh(
-            xF[:, :S])
-        c = forget + update
-        h = torch.sigmoid(xF[:, 3 * S :] + c * p_out) * torch.tanh(c)
+        f = torch.sigmoid(xF[:, 2 * S : 3 * S] + c * p_forget)
+        i = torch.sigmoid(xF[:, S : 2 * S] + c * p_in)
+        g = torch.tanh(xF[:, :S])
+        c = f * c + i * g
+        o = torch.sigmoid(xF[:, 3 * S :] + c * p_out)
+        tc = torch.tanh(c)
+        h = o * tc
         out[t] = h
-        if return_c:
-            cs[t] = c
-    return (out, cs) if return_c else out
+        if return_planes:
+            planes[:, t] = torch.stack((c, tc, g, i, f, o))
+    return (out, planes) if return_planes else out

@@ -29,6 +29,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points and their argument types; each returns a cudaError_t.
 _SIGNATURES = {
@@ -49,10 +50,9 @@ _SIGNATURES = {
     "scrappie_project": (_P, _P, _P, _P, _I, _I, _I, _P),
     "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "scrappie_lstm_pair": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "scrappie_lstm_pair_train": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _P),
-    "scrappie_lstm_recurrence_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                                     _P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
+    "scrappie_lstm_pair_train": (*(_P,) * 9, *(_I,) * 4, _P),
+    "scrappie_lstm_recurrence_bwd": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                                     _L, _P, _I, _P, *(_I,) * 5, _P),
     "scrappie_lattice": (_I, *(_P,) * 14, *(_I,) * 9, _F, _F, _F, _P),
     "scrappie_crf_lattice": (_I, *(_P,) * 16, *(_I,) * 8, _F, _P),
     "scrappie_lattice_floats": (_I, _I),

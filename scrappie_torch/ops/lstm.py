@@ -20,20 +20,22 @@ output is [T, B, S].
 Training: when a gradient is wanted (grad mode on and an input that
 requires one), `lstm_pair_tm` goes through autograd Functions instead,
 `ops/project.Project` and then `LstmPair`. Its forward runs the pair
-launch in the recurrence kernel's store-c mode, which also writes the cell
-state c of every step ("lstm_pair_train"); inference never launches that
-mode. `lstm_layer_tm` has no training route on the card (it raises there
-when a gradient is wanted; on the CPU autograd runs through its twin).
-LstmPair's backward is `lstm_tm_backward`: the gates again from the saved h and c by one
-product over all steps (torch.matmul, as XLA computes it outside any
-kernel in the JAX package's VJP of nn/rnn.lstm's scan), then the walk of
-dh and dc back through time, which on the card is the kernel
-lstm_recurrence_bwd_kernel (csrc/lstm.cu, both directions of a stage in
-one launch, sW in registers, S <= REGISTER_MAX_S; counted as
-"lstm_recurrence_bwd") and on the CPU its plain twin `lstm_walk_plain`,
-then the weights' gradients (dsW, dpeep) by products and sums. Above
-REGISTER_MAX_S the store-c pair and the walk run their big-S modes, sW
-read from L2 ("lstm_pair_train_global", "lstm_recurrence_bwd_global").
+launch in the recurrence kernel's training mode, which also writes each
+direction's planes (c, tanh(c) and the activated gates of every step;
+"lstm_pair_train"); inference never launches that mode, and LstmPair
+keeps the planes for its backward, not the projected input. `lstm_layer_tm`
+has no training route on the card (it raises there when a gradient is
+wanted; on the CPU autograd runs through its twin). LstmPair's backward is
+`lstm_tm_backward`, which recomputes nothing: the walk of dh and dc back
+through time, which on the card is the kernel lstm_recurrence_bwd_kernel
+(csrc/lstm.cu, both directions of a stage in one launch, sW in registers,
+S <= REGISTER_MAX_S; counted as "lstm_recurrence_bwd") and on the CPU its
+plain twin `lstm_walk_plain`, returns da and each row's dpeep partials,
+summed here; dsW is one product over h and da offset by a step
+(torch.matmul, as XLA computes it outside any kernel in the JAX package's
+VJP of nn/rnn.lstm's scan). Above REGISTER_MAX_S the training forward and
+the walk run their big-S modes, sW read from L2 ("lstm_pair_train_global",
+"lstm_recurrence_bwd_global").
 """
 
 from __future__ import annotations
@@ -206,22 +208,31 @@ def lstm_pair_recurrence_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
 
 # ------------------------------------------------------------- training
 
+#: The training forward's planes a direction, each [T, B, S], in the order
+#: the kernels write them and nn/rnn.lstm_tm(return_planes=True) returns
+#: them: the cell state c, tanh(c), then the activated gates g = tanh(a_c),
+#: i, f, o.
+TRAIN_PLANES = 6
+
+
 def check_walk_size(S: int) -> bool:
-    """Raise unless the store-c mode and the backward walk take size S;
+    """Raise unless the training forward and the backward walk take size S;
     return whether they run their big-S modes (S > REGISTER_MAX_S: sW read
-    from L2, 6S floats of shared memory)."""
-    if 4 * 6 * S > ops.MAX_SMEM_BYTES:
-        raise ValueError(f"the LSTM's big-S training kernels need 6S floats "
+    from L2, the walk 9S floats of shared memory)."""
+    if 4 * 9 * S > ops.MAX_SMEM_BYTES:
+        raise ValueError(f"the LSTM's big-S backward walk needs 9S floats "
                          f"of shared memory, S = {S}; a block may use "
                          f"{ops.MAX_SMEM_BYTES} B")
     return not lstm_in_registers(S)
 
 
 def lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
-    """The pair launch in its store-c mode (counted as
+    """The pair launch in its training mode (counted as
     `LAUNCHES["lstm_pair_train"]`, or its big-S mode's as
-    "lstm_pair_train_global"): xproj [T, B, 8S] -> (h_F, h_B, c_F, c_B),
-    each [T, B, S]; the h are the inference launch's bit for bit."""
+    "lstm_pair_train_global"): xproj [T, B, 8S] -> (h_F, h_B, planes_F,
+    planes_B), h [T, B, S] the inference launch's bit for bit, planes
+    [TRAIN_PLANES, T, B, S] a direction (c, tanh(c), g, i, f, o), each plane
+    contiguous and the two directions' planes equally far apart."""
     from scrappie_torch.ops import _build
 
     _require_cuda(xproj, sW_f, peep_f, sW_b, peep_b)
@@ -232,19 +243,20 @@ def lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
     big = check_walk_size(S)
     T, B, _ = xproj.shape
     ops.check_kernel_input("xproj", xproj, (T, B, 8 * S))
-    out = torch.empty((4, T, B, S), dtype=torch.float32, device=xproj.device)
+    out = torch.empty((1 + TRAIN_PLANES, 2, T, B, S), dtype=torch.float32,
+                      device=xproj.device)
     if T == 0 or B == 0:
-        return tuple(out)
+        return out[0, 0], out[0, 1], out[1:, 0], out[1:, 1]
     name = "lstm_pair_train_global" if big else "lstm_pair_train"
     with torch.cuda.device(xproj.device):
         err = _build.library().scrappie_lstm_pair_train(
             xproj.data_ptr(), sW_f.data_ptr(), peep_f.data_ptr(),
-            out[0].data_ptr(), out[2].data_ptr(), sW_b.data_ptr(),
-            peep_b.data_ptr(), out[1].data_ptr(), out[3].data_ptr(), T, B, S,
-            int(big), ctypes.c_void_p(ops.stream_handle()))
+            out[0, 0].data_ptr(), out[1, 0].data_ptr(), sW_b.data_ptr(),
+            peep_b.data_ptr(), out[0, 1].data_ptr(), out[1, 1].data_ptr(), T,
+            B, S, int(big), ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, name)
     ops.LAUNCHES[name] += 1
-    return tuple(out)
+    return out[0, 0], out[0, 1], out[1:, 0], out[1:, 1]
 
 
 def _shifted(a, reverse: bool):
@@ -253,136 +265,141 @@ def _shifted(a, reverse: bool):
     return torch.cat([a[1:], zero]) if reverse else torch.cat([zero, a[:-1]])
 
 
-def backward_inputs(x_tm, h, c, sW, peep, reverse: bool = False):
-    """What the backward walk reads, from the forward's input x [T, B, 4S]
-    and its h and c [T, B, S]: (h_prev, c_prev [T, B, S], h and c at the
-    step before in the forward's order, 0 at its first step; gates
-    [T, B, 4S], tanh(a_c) | i | f | o, the activated gates), one product
-    over every step and row."""
-    S = sW.shape[0]
-    h_prev, c_prev = _shifted(h, reverse), _shifted(c, reverse)
-    xF = x_tm + torch.matmul(h_prev, sW)
-    gates = torch.cat([
-        torch.tanh(xF[..., :S]),
-        torch.sigmoid(xF[..., S : 2 * S] + c_prev * peep[:S]),
-        torch.sigmoid(xF[..., 2 * S : 3 * S] + c_prev * peep[S : 2 * S]),
-        torch.sigmoid(xF[..., 3 * S :] + c * peep[2 * S :])], dim=-1)
-    return h_prev, c_prev, gates
-
-
-def lstm_walk_plain(gates, c, gh, sW, peep, reverse: bool = False):
-    """Plain twin of the backward walk kernel: gates [T, B, 4S] (tanh(a_c)
-    | i | f | o), the cell states c and the output's gradient gh
-    [T, B, S] -> da [T, B, 4S] = (da_c | da_i | da_f | da_o), the gradient
-    of the pre-activations (= of the projected input), carrying dh and dc
-    opposite to the forward's direction (the step's formulas in
-    csrc/lstm.cu)."""
-    T, B, _ = gates.shape
-    S = sW.shape[0]
+def lstm_walk_plain(planes, gh, sW, peep, reverse: bool = False):
+    """Plain twin of the backward walk kernel: the forward's planes
+    [TRAIN_PLANES, T, B, S] (c, tanh(c), g, i, f, o) and the output's
+    gradient gh [T, B, S] -> (da [T, B, 4S] = (da_c | da_i | da_f | da_o),
+    the gradient of the pre-activations (= of the projected input),
+    carrying dh and dc opposite to the forward's direction; dpeep [B, 3S],
+    each row's sums over time of da_i c_prev, da_f c_prev and da_o c). The
+    step's six coefficients (csrc/lstm.cu's header) are formed first, for
+    every step; the loop carries only what depends on the carry."""
+    c, tc, g, i, f, o = planes
+    T, B, S = c.shape
     p_in, p_f, p_out = peep[:S], peep[S : 2 * S], peep[2 * S :]
     c_prev = _shifted(c, reverse)
-    da = gates.new_empty((T, B, 4 * S))
-    carry_h = gates.new_zeros((B, S))
-    carry_c = gates.new_zeros((B, S))
+    A = tc * o * (1 - o)
+    Bc = o * (1 - tc * tc) + A * p_out
+    F = c_prev * f * (1 - f)
+    I = g * i * (1 - i)
+    G = i * (1 - g * g)
+    K = f + F * p_f + I * p_in
+    da = c.new_empty((T, B, 4 * S))
+    carry_h = c.new_zeros((B, S))
+    carry_c = c.new_zeros((B, S))
     for t in (range(T) if reverse else range(T - 1, -1, -1)):
-        g, i, f, o = gates[t].split(S, dim=-1)
-        tc = torch.tanh(c[t])
         dh = carry_h + gh[t]
-        da_o = dh * tc * o * (1 - o)
-        dc = carry_c + dh * o * (1 - tc * tc) + da_o * p_out
-        da_f = dc * c_prev[t] * f * (1 - f)
-        da_i = dc * g * i * (1 - i)
-        da_c = dc * i * (1 - g * g)
-        carry_c = dc * f + da_f * p_f + da_i * p_in
-        da[t] = torch.cat([da_c, da_i, da_f, da_o], dim=-1)
+        dc = carry_c + dh * Bc[t]
+        da[t] = torch.cat([dc * G[t], dc * I[t], dc * F[t], dh * A[t]], dim=-1)
+        carry_c = dc * K[t]
         carry_h = torch.matmul(da[t], sW.T)
-    return da
+    dpeep = torch.cat([(da[..., S : 2 * S] * c_prev).sum(0),
+                       (da[..., 2 * S : 3 * S] * c_prev).sum(0),
+                       (da[..., 3 * S :] * c).sum(0)], dim=-1)
+    return da, dpeep
 
 
-def check_walk_input(gates, c, gh, sW, peep) -> bool:
+def check_walk_input(planes, gh, sW, peep) -> bool:
     """Raise unless the backward walk kernel takes these inputs: the
-    weights and contiguous fp32 gates [T, B, 4S], c and gh [T, B, S];
-    return whether they take its big-S mode (`check_walk_size`)."""
+    weights, fp32 planes [TRAIN_PLANES, T, B, S], each plane contiguous,
+    and a contiguous gh [T, B, S]; return whether they take its big-S mode
+    (`check_walk_size`)."""
     _check_weights(sW, peep)
     S = sW.shape[0]
     big = check_walk_size(S)
-    T, B, _ = gates.shape
-    ops.check_kernel_input("gates", gates, (T, B, 4 * S))
-    ops.check_kernel_input("c", c, (T, B, S))
+    T, B = gh.shape[:2]
+    ops.check_kernel_input("planes[0]", planes[0], (T, B, S))
+    if planes.shape[0] != TRAIN_PLANES or planes.dtype != torch.float32:
+        raise ValueError(f"planes: {TRAIN_PLANES} float32 planes expected, "
+                         f"got {tuple(planes.shape)} {planes.dtype}")
     ops.check_kernel_input("gh", gh, (T, B, S))
     return big
 
 
 def lstm_walk_pair(dirs):
     """The backward walk of one or two layers of a stage in one launch:
-    dirs is a sequence of (gates, c, gh, sW, peep, reverse), one a
-    direction, each as `lstm_walk_plain` takes them -> da [T, B, 4S *
-    len(dirs)], the directions' columns side by side (the layout of the
-    pair's projection). On the card the kernel lstm_recurrence_bwd_kernel
-    over a grid of len(dirs) x B blocks, counted once as
-    "lstm_recurrence_bwd" (above REGISTER_MAX_S its big-S mode,
-    "lstm_recurrence_bwd_global"); on the CPU the twin, a direction at a
-    time."""
-    first = dirs[0]
-    tensors = [t for d in dirs for t in d[:5]]
+    dirs is a sequence of (planes, gh, sW, peep, reverse), one a direction,
+    each as `lstm_walk_plain` takes them -> (da [T, B, 4S * len(dirs)], the
+    directions' columns side by side (the layout of the pair's
+    projection); dpeep [len(dirs), B, 3S], each row's partial sums). On the
+    card the kernel lstm_recurrence_bwd_kernel over a grid of len(dirs) x B
+    blocks, counted once as "lstm_recurrence_bwd" (above REGISTER_MAX_S its
+    big-S mode, "lstm_recurrence_bwd_global"); the directions' planes must
+    lie equally far apart. On the CPU the twin, a direction at a time."""
+    tensors = [t for d in dirs for t in d[:4]]
     if not ops.on_cuda(*tensors):
-        return torch.cat([lstm_walk_plain(*d) for d in dirs], dim=-1)
+        walks = [lstm_walk_plain(*d) for d in dirs]
+        return (torch.cat([w[0] for w in walks], dim=-1),
+                torch.stack([w[1] for w in walks]))
     from scrappie_torch.ops import _build
 
     if not 1 <= len(dirs) <= 2:
         raise ValueError(f"the walk kernel takes one or two directions, "
                          f"got {len(dirs)}")
-    T, B, _ = first[0].shape
-    S = first[3].shape[0]
-    for gates, c, gh, sW, peep, _rev in dirs:
-        big = check_walk_input(gates, c, gh, sW, peep)
-        ops.check_kernel_input("gates", gates, (T, B, 4 * S))
+    T, B, S = dirs[0][1].shape
+    for planes, gh, sW, peep, _rev in dirs:
+        big = check_walk_input(planes, gh, sW, peep)
+        ops.check_kernel_input("gh", gh, (T, B, S))
+    poff = dirs[0][0].stride(0)
+    if any(d[0].stride(0) != poff for d in dirs):
+        raise ValueError("the directions' planes must lie equally far apart")
     n = len(dirs)
     da = torch.empty((T, B, 4 * S * n), dtype=torch.float32,
-                     device=first[0].device)
+                     device=gh.device)
+    dpeep = torch.empty((n, B, 3 * S), dtype=torch.float32, device=gh.device)
     if T == 0 or B == 0:
-        return da
+        return da, dpeep.zero_()
     d0, d1 = dirs[0], dirs[-1]
-    ptrs = lambda d: (d[0].data_ptr(), d[1].data_ptr(), d[2].data_ptr(),
-                      d[3].data_ptr(), d[4].data_ptr(), int(d[5]))
+    sWs = [d[2] if big else _padded(d[2]) for d in (d0, d1)]
+    ptrs = lambda d, sW: (d[0].data_ptr(), d[1].data_ptr(), sW.data_ptr(),
+                          d[3].data_ptr(), int(d[4]))
     name = "lstm_recurrence_bwd_global" if big else "lstm_recurrence_bwd"
     with torch.cuda.device(da.device):
         err = _build.library().scrappie_lstm_recurrence_bwd(
-            *ptrs(d0), *ptrs(d1), da.data_ptr(), 4 * S * n, n, T, B, S,
-            int(big), ctypes.c_void_p(ops.stream_handle()))
+            *ptrs(d0, sWs[0]), *ptrs(d1, sWs[1]), poff, da.data_ptr(),
+            4 * S * n,
+            dpeep.data_ptr(), n, T, B, S, int(big),
+            ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, name)
     ops.LAUNCHES[name] += 1
-    return da
+    return da, dpeep
 
 
-def _weight_grads(da, h_prev, c_prev, c):
-    """(dsW [S, 4S], dpeep [3S]) from the walk's da [T, B, 4S]: the sum
-    over steps and rows of h_prev^T da, and of da_i c_prev, da_f c_prev
-    and da_o c."""
-    S = c.shape[-1]
-    dsW = torch.matmul(h_prev.reshape(-1, S).T, da.reshape(-1, 4 * S))
-    dpeep = torch.cat([(da[..., S : 2 * S] * c_prev).sum((0, 1)),
-                       (da[..., 2 * S : 3 * S] * c_prev).sum((0, 1)),
-                       (da[..., 3 * S :] * c).sum((0, 1))])
-    return dsW, dpeep
+def _padded(sW):
+    """sW [S, 4S] as the register walk reads it: [REGISTER_MAX_S, 4,
+    REGISTER_MAX_S], zero past S (sW itself at S = REGISTER_MAX_S)."""
+    S = sW.shape[0]
+    if S == REGISTER_MAX_S:
+        return sW
+    out = sW.new_zeros((REGISTER_MAX_S, 4, REGISTER_MAX_S))
+    out[:S, :, :S] = sW.view(S, 4, S)
+    return out
+
+
+def _dsW(h, da, reverse: bool):
+    """dsW [S, 4S], the sum over steps and rows of h_prev^T da: one product
+    over views of h and da offset by a step (h_prev is h at the forward's
+    step before, 0 at its first step)."""
+    S, S4 = h.shape[-1], da.shape[-1]
+    hp, dn = (h[1:], da[:-1]) if reverse else (h[:-1], da[1:])
+    return torch.matmul(hp.reshape(-1, S).T, dn.reshape(-1, S4))
 
 
 def lstm_tm_backward(layers):
     """The VJP of one or two LSTM recurrences on their inputs: layers is
-    a sequence of (x [T, B, 4S], h, c [T, B, S], sW, peep, reverse, gh
-    [T, B, S]), one a direction -> (dx [T, B, 4S * len(layers)], the
-    directions' columns side by side, [(dsW, dpeep)] a direction). The walk
-    through time is one kernel launch on the card, its twin on the CPU;
-    the rest are products."""
-    inputs, walks = [], []
-    for x, h, c, sW, peep, reverse, gh in layers:
-        h_prev, c_prev, gates = backward_inputs(x, h, c, sW, peep, reverse)
-        inputs.append((h_prev, c_prev, c))
-        walks.append((gates, c, gh.contiguous(), sW, peep, reverse))
-    da = lstm_walk_pair(walks)
-    S4 = 4 * layers[0][3].shape[0]
-    return da, [_weight_grads(da[..., k * S4 : (k + 1) * S4], *inp)
-                for k, inp in enumerate(inputs)]
+    a sequence of (h [T, B, S], planes [TRAIN_PLANES, T, B, S], sW, peep,
+    reverse, gh [T, B, S]), one a direction -> (dx [T, B, 4S *
+    len(layers)], the directions' columns side by side, [(dsW, dpeep)] a
+    direction). The walk through time is one kernel launch on the card,
+    its twin on the CPU, and returns dpeep's partials a row, summed here;
+    dsW is one product a direction. Nothing recomputes the gates."""
+    da, parts = lstm_walk_pair([
+        (planes, gh.contiguous(), sW, peep, reverse)
+        for _h, planes, sW, peep, reverse, gh in layers])
+    S4 = 4 * layers[0][2].shape[0]
+    return da, [(_dsW(h, da[..., k * S4 : (k + 1) * S4], reverse),
+                 parts[k].sum(0))
+                for k, (h, _p, _w, _q, reverse, _g) in enumerate(layers)]
 
 
 def _zeros_if_none(g, like):
@@ -392,29 +409,29 @@ def _zeros_if_none(g, like):
 class LstmPair(torch.autograd.Function):
     """Both recurrences of a stage, differentiable: xproj [T, B, 8S] (the
     forward layer's 4S columns, then the backward one's), sW_f, peep_f,
-    sW_b, peep_b -> (h_F, h_B). Forward: the pair launch in its store-c
-    mode on the card (nn/rnn.lstm_tm a direction on the CPU); backward:
-    lstm_tm_backward, both walks in one launch."""
+    sW_b, peep_b -> (h_F, h_B). Forward: the pair launch in its training
+    mode on the card (nn/rnn.lstm_tm a direction on the CPU), which keeps
+    each direction's planes (c and the activated gates) for the backward,
+    not xproj; backward: lstm_tm_backward, both walks in one launch."""
 
     @staticmethod
     def forward(ctx, xproj, sW_f, peep_f, sW_b, peep_b):
         S4 = 4 * sW_f.shape[0]
         if ops.on_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
-            hF, hB, cF, cB = lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b,
+            hF, hB, pF, pB = lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b,
                                                   peep_b)
         else:
-            hF, cF = lstm_tm(xproj[..., :S4], sW_f, peep_f, False, return_c=True)
-            hB, cB = lstm_tm(xproj[..., S4:], sW_b, peep_b, True, return_c=True)
-        ctx.save_for_backward(xproj, hF, hB, cF, cB, sW_f, peep_f, sW_b, peep_b)
+            hF, pF = lstm_tm(xproj[..., :S4], sW_f, peep_f, False,
+                             return_planes=True)
+            hB, pB = lstm_tm(xproj[..., S4:], sW_b, peep_b, True,
+                             return_planes=True)
+        ctx.save_for_backward(hF, hB, pF, pB, sW_f, peep_f, sW_b, peep_b)
         return hF, hB
 
     @staticmethod
     def backward(ctx, ghF, ghB):
-        xproj, hF, hB, cF, cB, sW_f, peep_f, sW_b, peep_b = ctx.saved_tensors
-        S4 = 4 * sW_f.shape[0]
+        hF, hB, pF, pB, sW_f, peep_f, sW_b, peep_b = ctx.saved_tensors
         da, ((dsW_f, dp_f), (dsW_b, dp_b)) = lstm_tm_backward([
-            (xproj[..., :S4], hF, cF, sW_f, peep_f, False,
-             _zeros_if_none(ghF, hF)),
-            (xproj[..., S4:], hB, cB, sW_b, peep_b, True,
-             _zeros_if_none(ghB, hB))])
+            (hF, pF, sW_f, peep_f, False, _zeros_if_none(ghF, hF)),
+            (hB, pB, sW_b, peep_b, True, _zeros_if_none(ghB, hB))])
         return da, dsW_f, dp_f, dsW_b, dp_b

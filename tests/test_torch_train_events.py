@@ -4,8 +4,9 @@ batches, against the JAX package on the same seeded inputs.
 
 The port's plain twins stand in for its CUDA kernels here: the LSTM's
 backward walk (ops/lstm.lstm_walk_plain, the twin of
-lstm_recurrence_bwd_kernel) and the recurrence that also returns c
-(nn/rnn.lstm_tm(return_c=True), the twin of the forward's store-c mode).
+lstm_recurrence_bwd_kernel) and the recurrence that also returns the
+planes the walk reads (nn/rnn.lstm_tm(return_planes=True), the twin of the
+forward's training mode).
 The references are torch.autograd through the plain forward loop, and
 jax.grad / jax.value_and_grad of the JAX functions under
 jops.pallas(False), as the JAX trainer runs them.
@@ -88,17 +89,17 @@ def lstm_inputs(S: int, T: int, B: int, seed: int):
 @pytest.mark.parametrize("S", [8, 16])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_lstm_backward_twin_matches_autograd(S, reverse):
-    """lstm_tm_backward on CPU tensors (the gates from h and c, the walk's
-    twin, the weight products) against torch.autograd through the plain
-    forward loop; the twin's c is the loop's."""
+    """lstm_tm_backward on CPU tensors (the walk's twin on the forward's
+    planes, its dpeep partials, the dsW product) against torch.autograd
+    through the plain forward loop; the twin's h is the loop's."""
     x, sW, peep, gh = (torch.tensor(a) for a in lstm_inputs(S, 37, 3, seed=S))
     leaves = [t.clone().requires_grad_(True) for t in (x, sW, peep)]
     h = trnn.lstm_tm(*leaves, reverse)
     h.backward(gh)
-    h2, c = trnn.lstm_tm(x, sW, peep, reverse, return_c=True)
+    h2, planes = trnn.lstm_tm(x, sW, peep, reverse, return_planes=True)
     torch.testing.assert_close(h2, h.detach(), rtol=0, atol=0)
     da, ((dsW, dpeep),) = tlstm.lstm_tm_backward(
-        [(x, h2, c, sW, peep, reverse, gh)])
+        [(h2, planes, sW, peep, reverse, gh)])
     for name, g, leaf in zip(("dx", "dsW", "dpeep"), (da, dsW, dpeep), leaves):
         assert_rel_close(g, leaf.grad, LSTM_RTOL, name)
     assert ops.LAUNCHES["lstm_recurrence_bwd"] == 0
@@ -117,9 +118,9 @@ def test_lstm_recurrence_backward_matches_jax(reverse):
 
     want = jax.grad(f, argnums=(0, 1, 2))(x, sW, peep)
     x, sW, peep, gh = (torch.tensor(a) for a in (x, sW, peep, gh))
-    h, c = trnn.lstm_tm(x, sW, peep, reverse, return_c=True)
+    h, planes = trnn.lstm_tm(x, sW, peep, reverse, return_planes=True)
     da, ((dsW, dpeep),) = tlstm.lstm_tm_backward(
-        [(x, h, c, sW, peep, reverse, gh)])
+        [(h, planes, sW, peep, reverse, gh)])
     for name, w, g in zip(("dx", "dsW", "dpeep"), want, (da, dsW, dpeep)):
         assert_rel_close(g, w, LSTM_RTOL, name)
 
@@ -162,8 +163,8 @@ def test_lstm_pair_backward_matches_jax():
 
 
 def test_lstm_pair_backward_matches_jax_above_the_registers():
-    """At S = 160, above the register kernels' S = 96: the store-c mode's
-    and the walk's checks choose the big-S modes (no longer raise), and a
+    """At S = 160, above the register kernels' S = 96: the training
+    forward's and the walk's checks choose the big-S modes, and a
     stage through lstm_pair_tm with gradients wanted (Project, LstmPair)
     matches jax.grad of the JAX stage, every input's and weight's
     gradient."""
@@ -194,8 +195,8 @@ def test_lstm_pair_backward_matches_jax_above_the_registers():
             assert_rel_close(t.grad, w, LSTM_RTOL, f"{d} {name}")
     assert tlstm.check_walk_size(S) is True
     assert tlstm.check_walk_size(96) is False
-    walk = (torch.zeros((T, B, 4 * S)), torch.zeros((T, B, S)),
-            torch.zeros((T, B, S)), torch.tensor(wF[2]), torch.tensor(wF[3]))
+    walk = (torch.zeros((tlstm.TRAIN_PLANES, T, B, S)), torch.zeros((T, B, S)),
+            torch.tensor(wF[2]), torch.tensor(wF[3]))
     assert tlstm.check_walk_input(*walk) is True
 
 
