@@ -12,7 +12,15 @@ if any phase fails:
   1. builds the kernels (scrappie_torch/csrc, nvcc, sm_90a), prints the
      build time and nvcc's per-kernel register and spill report (stderr),
      and fails if the GRU or LSTM recurrence, which hold their weights in
-     registers, spills;
+     registers, spills; then builds the port's C++ host library
+     (scrappie_torch/native, g++) and holds each of its functions to its
+     Python twin bit for bit on what one rgrgr stitch "mean" and one
+     events stitch engine call hand it from the 16 reads of step 5
+     (detect_events on every read, find_runs, the dwell overlapper), with
+     the build's seconds and each function's host seconds in the library
+     and the twin (phase host_native); and traces one rgrgr fast engine
+     call with utils/tracing.profile, whose trace must name
+     gru_recurrence_kernel (phase profile_trace);
   2. holds each kernel against its plain PyTorch twin at the main path's
      shapes (T = 2000 blocks, S = 96, 1025 states; B = 8 and 64) and times
      both (CUDA events after warm-up: a kernel's median of 20, a twin's
@@ -209,7 +217,8 @@ if any phase fails:
 
 Each engine path's launch counters are set to 0 just before its runs and
 read just after; no inference path may launch a backward kernel, the
-LSTM's training mode or a lattice kernel. Every phase's line carries the seconds since the start.
+LSTM's training mode or a lattice kernel. Every phase's line carries the
+seconds since the start; a line "total" gives the seconds of all phases.
 The last lines are the kernel table (each kernel's time beside its bound,
 the least time the card could take for the same work), the card's name
 and power limit as nvidia-smi gives them, and {"ok": true, "device":
@@ -2127,6 +2136,120 @@ def main_path(card: str, reads: list) -> dict:
     modes."""
     return drive_engine(card, "main_path", reads, "rgrgr_r94", RUNS,
                         TRANSDUCER_KERNELS)[0]
+
+
+def host_native(card: str, reads: list) -> None:
+    """The port's C++ host library (phase host_native): its build seconds,
+    then each of its functions against its Python twin, bit for bit, on
+    what the main paths hand it from the reads: detect_events on each
+    read's trimmed signal (the events engine), find_runs on the rgrgr
+    stitch "mean" paths, the dwell overlapper on the events paths; each
+    function's host seconds in the library and in the twin. The inputs are
+    recorded from one engine call of each path on the card."""
+    from scrappie_torch.native import bindings
+    from scrappie_torch.native import build as native_build
+    from scrappie_torch.parallel import runner
+    from scrappie_torch.parallel.runner import BasecallEngine
+    from scrappie_torch.post import homopolymer
+    from scrappie_torch.signal import events
+
+    t0 = time.perf_counter()
+    built = not native_build.library_path().exists()
+    bindings.library()
+    build_s = time.perf_counter() - t0
+
+    calls = {"detect_events": [], "find_runs": [], "dwell_overlapper": []}
+    patched = ((runner, "detect_events", "detect_events"),
+               (homopolymer, "find_runs", "find_runs"),
+               (homopolymer, "dwell_corrected_overlapper", "dwell_overlapper"))
+
+    def recording(name, fn):
+        def record(*args):
+            # copies: homopolymer_path rewrites its path after find_runs
+            calls[name].append([a.copy() if hasattr(a, "copy") else a
+                                for a in args])
+            return fn(*args)
+        return record
+
+    originals = [getattr(mod, attr) for mod, attr, _ in patched]
+    try:
+        for (mod, attr, name), fn in zip(patched, originals):
+            setattr(mod, attr, recording(name, fn))
+        BasecallEngine("rgrgr_r94", device="cuda", mode="stitch").basecall_signals(
+            reads, homopolymer="mean")
+        BasecallEngine("nanonet_events", device="cuda", mode="stitch").basecall_signals(
+            reads)
+    finally:
+        for (mod, attr, _), fn in zip(patched, originals):
+            setattr(mod, attr, fn)
+    require(len(calls["detect_events"]) == len(reads), "host_native: detect_events "
+            f"called once a read ({len(calls['detect_events'])})")
+    require(calls["find_runs"] and calls["dwell_overlapper"],
+            "host_native: find_runs and the dwell overlapper called")
+
+    pairs = {
+        "detect_events": (events.detect_events, events.detect_events_python,
+                          lambda et: et.event.tobytes()),
+        "find_runs": (homopolymer.find_runs, homopolymer.find_runs_python,
+                      lambda runs: runs),
+        "dwell_overlapper": (homopolymer.dwell_corrected_overlapper,
+                             homopolymer.dwell_corrected_overlapper_python,
+                             lambda seq: seq),
+    }
+    seconds, sizes = {}, {}
+    for name, (lib_fn, twin_fn, key) in pairs.items():
+        t0 = time.perf_counter()
+        ours = [key(lib_fn(*args)) for args in calls[name]]
+        t_lib = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        twins = [key(twin_fn(*args)) for args in calls[name]]
+        t_twin = time.perf_counter() - t0
+        differ = sum(a != b for a, b in zip(ours, twins))
+        require(differ == 0, f"host_native: {name} equals its twin bit for bit "
+                             f"({differ} of {len(ours)} calls differ)")
+        seconds[name] = {"library": t_lib, "twin": t_twin}
+        sizes[name] = {"calls": len(ours),
+                       "entries": sum(len(args[0].trimmed) if name == "detect_events"
+                                      else len(args[0]) for args in calls[name])}
+    emit({"phase": "host_native", "library": native_build.library_path().name,
+          "built": built, "build_s": build_s, "bit_for_bit": True,
+          "inputs": sizes, "seconds": seconds, "card": card})
+
+
+def profile_trace(card: str, reads: list) -> None:
+    """One rgrgr_r94 fast engine call on the card under utils/tracing.profile
+    (phase profile_trace): the Chrome trace it writes must name the GRU
+    recurrence kernel and the engine's decode_fused stage."""
+    import shutil
+
+    from scrappie_torch.parallel.runner import BasecallEngine
+    from scrappie_torch.utils.tracing import profile
+
+    eng = BasecallEngine("rgrgr_r94", device="cuda", mode="fast")
+    eng.basecall_signals(reads[:1])
+    trace_dir = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        with profile(trace_dir):
+            eng.basecall_signals(reads[:4])
+        seconds = time.perf_counter() - t0
+        traces = list(trace_dir.glob("*.json"))
+        require(len(traces) == 1, f"profile wrote one trace ({traces})")
+        nbytes = traces[0].stat().st_size
+        trace = json.loads(traces[0].read_text())["traceEvents"]
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    kernels = [e["name"] for e in trace if e.get("cat") == "kernel"]
+    spans = {e["name"] for e in trace if e.get("cat") == "user_annotation"}
+    require(any("gru_recurrence_kernel" in k for k in kernels),
+            "the profile trace names gru_recurrence_kernel")
+    require("decode_fused" in spans,
+            f"the profile trace names the engine's stages ({sorted(spans)})")
+    emit({"phase": "profile_trace", "seconds": seconds, "trace_bytes": nbytes,
+          "kernel_events": len(kernels),
+          "gru_recurrence_kernel": sum("gru_recurrence_kernel" in k for k in kernels),
+          "stages": sorted(spans), "card": card})
 
 
 def throughput(net, card: str) -> None:
@@ -4539,6 +4662,10 @@ def main() -> int:
 
     card = card_line()
     build()
+    reads = synthetic_reads()
+    with torch.inference_mode():
+        host_native(card, reads)
+        profile_trace(card, reads)
     net = RgrgrModel.from_registry("rgrgr_r94", "cuda")
     rnet = RnnrfModel.from_registry("rnnrf_r94", "cuda")
     enet = EventsModel.from_registry("nanonet_events", "cuda")
@@ -4567,7 +4694,6 @@ def main() -> int:
     table.update(check_big_s_backward())
     with torch.inference_mode():
         table.update(check_lattice_kernels(net, rnet))
-    reads = synthetic_reads()
     launches = main_path(card, reads)
     throughput(net, card)
     profile_and_scale(net, card, reads)
@@ -4627,6 +4753,7 @@ def main() -> int:
     # differentiates its own gate order) or of its peephole LSTM, or a
     # lattice's forward-backward (torch's ctc_loss has no stay and skip
     # moves, kmer states, local START and END, or CRF transitions).
+    emit({"phase": "total", "seconds": time.perf_counter() - START, "card": card})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],

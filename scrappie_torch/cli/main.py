@@ -3,22 +3,32 @@ alone or as a posterior ensemble with `--ensemble`) and `events`
 (nanonet_events) basecall to FASTA, SAM or FASTQ; `squiggle` predicts
 squiggles, `mappy` aligns a read's signal to a sequence's predicted
 squiggle, `seqmappy` maps its rgrgr_r94 posterior to a sequence,
-`event_table` dumps its detected events, and `serve` runs the JSON-lines
-TCP basecall server (serve.py).
+`event_table` dumps its detected events, `serve` runs the JSON-lines
+TCP basecall server (serve.py), and `help [topic]`, `version`, `licence`
+print what they name.
 
-Counterpart of scrappie_tpu/cli/main.py (the same records and TSV), with
-the same flags for what the port runs, plus --device. Run as
-`python -m scrappie_torch raw|events|squiggle|mappy|seqmappy|event_table|
-serve [flags] [files...]`.
+Counterpart of scrappie_tpu/cli/main.py (the same records, TSV and event
+dumps), with the same flags for what the port runs, plus --device:
+`raw` and `events` take `--profile DIR` (a torch.profiler trace,
+utils/tracing.profile), `raw` takes `--watch SECONDS` (basecall a live
+run directory's files as they appear), `events` takes `--dump FILE`. Run
+as `python -m scrappie_torch raw|events|squiggle|mappy|seqmappy|
+event_table|serve [flags] [files...]` or `python -m scrappie_torch.cli`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
+import time
 
 import numpy as np
+
+LICENCE = """scrappie_torch is a PyTorch and CUDA port of scrappie_tpu, an original
+implementation of the capabilities of ONT's scrappie basecaller. See
+LICENSE in the repository."""
 
 RAW_MODELS = ("raw_r94", "rgrgr_r94", "rgrgr_r941", "rgrgr_r10", "rnnrf_r94")
 SQUIGGLE_MODELS = ("squiggle_r94", "squiggle_r94_rna", "squiggle_r10")
@@ -57,6 +67,8 @@ def _add_common(p) -> None:
                    metavar="chunk:percentile",
                    help="Chunk size and percentile for variance based "
                         "segmentation")
+    p.add_argument("--licence", "--license", action="store_true",
+                   help=argparse.SUPPRESS)
     _add_device(p)
 
 
@@ -98,6 +110,9 @@ def _add_basecall_common(p) -> None:
     p.add_argument("--batch", type=int, default=8, help="Device batch size")
     p.add_argument("--stage-report", action="store_true", default=False,
                    help="Log per-stage wall-clock timings (JSON, stderr)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="Write a torch.profiler trace (Chrome JSON) of the "
+                        "basecall to DIR")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -141,6 +156,10 @@ def build_parser() -> argparse.ArgumentParser:
     raw.add_argument("--ensemble-weights", default=None, metavar="W,W,...",
                      help="Per-model ensemble weights, --model first "
                           "(default 3:1:...:1)")
+    raw.add_argument("--watch", type=float, default=None, metavar="SECONDS",
+                     help="Poll inputs every SECONDS for new fast5 files and "
+                          "basecall them as they appear (live run directory); "
+                          "with --limit N, exit after N reads")
     raw.add_argument("files", nargs="+", help="fast5 files or directories")
 
     ev = sub.add_parser("events", help="basecall via event detection")
@@ -155,6 +174,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Perform dwell correction of homopolymer lengths")
     ev.add_argument("--no-dwell", dest="dwell_correction",
                     action="store_false")
+    ev.add_argument("--dump", default=None,
+                    help="Dump annotated events to HDF5 file")
+    ev.add_argument("--hdf5-compression", type=int, default=1)
+    ev.add_argument("--hdf5-chunk", type=int, default=200)
     ev.add_argument("--chunk-len", type=int, default=2048,
                     help="Chunk length in events")
     ev.add_argument("--overlap", type=int, default=256,
@@ -234,7 +257,17 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(sv)
 
     sub.add_parser("version", help="print version")
+    sub.add_parser("licence", help="print licensing information")
+    sub.add_parser("license", help="print licensing information")
+    hp = sub.add_parser("help", help="print help")
+    hp.add_argument("topic", nargs="?", default=None)
     return top
+
+
+def _profile(args):
+    from scrappie_torch.utils.tracing import profile
+
+    return profile(args.profile) if args.profile else contextlib.nullcontext()
 
 
 def main_raw(args) -> int:
@@ -278,8 +311,6 @@ def main_raw(args) -> int:
     calibration.apply(args.model, args.calibration, call_kwargs,
                       ensemble=ensemble)
 
-    results = engine.basecall_files(args.files, limit=args.limit, **call_kwargs)
-
     def fasta(name, primary, r):
         return format_fasta(primary, r.sequence, filename=name,
                             uuid=r.uuid or "", score=r.score, nblock=r.nblock,
@@ -292,7 +323,55 @@ def main_raw(args) -> int:
                             nsample=r.nsample, trim=(r.trim_start, r.trim_end),
                             prefix=args.prefix)
 
-    return _write(args, engine, results, fasta, fastq)
+    with _profile(args):
+        if args.watch is None:
+            polls = [engine.basecall_files(args.files, limit=args.limit,
+                                           **call_kwargs)]
+        else:
+            polls = _watch(args, engine, call_kwargs)
+        return _write(args, engine, polls, fasta, fastq)
+
+
+def _watch(args, engine, call_kwargs):
+    """Each poll's results: every args.watch seconds the fast5 files under
+    args.files that were not called yet are called (a live run directory,
+    which the sequencer fills). With --limit N it stops once N reads have
+    a call. A file that fails to read (still being written) is tried again
+    at later polls, and given up after five failures in a row. Ctrl-C
+    ends it."""
+    from scrappie_torch.io.fast5 import iterate_fast5
+
+    seen: set = set()
+    fails: dict = {}
+    ncalled = 0
+    try:
+        while True:
+            new = [str(f) for f in iterate_fast5(args.files)
+                   if str(f) not in seen]
+            if args.limit:
+                new = new[: args.limit - ncalled]
+            if new:
+                results = engine.basecall_files(new, **call_kwargs)
+                ncalled += sum(r.sequence is not None for _, r in results)
+                yield results
+                # a multi-read file's results are named <path>:<read_id>
+                read = {f for f in new for name, _ in results
+                        if name == f or name.startswith(f + ":")}
+                seen.update(read)
+                for f in new:
+                    if f in read:
+                        fails.pop(f, None)
+                        continue
+                    fails[f] = fails.get(f, 0) + 1
+                    if fails[f] >= 5:
+                        print(f"Giving up on {f} after {fails[f]} failed "
+                              "reads", file=sys.stderr)
+                        seen.add(f)
+            if args.limit and ncalled >= args.limit:
+                return
+            time.sleep(args.watch)
+    except KeyboardInterrupt:
+        return
 
 
 def main_events(args) -> int:
@@ -321,7 +400,9 @@ def main_events(args) -> int:
         dwell_correction=args.dwell_correction,
         with_qualities=args.format == "fastq")
     calibration.apply("nanonet_events", args.calibration, call_kwargs)
-    results = engine.basecall_files(args.files, limit=args.limit, **call_kwargs)
+    with _profile(args):
+        results = engine.basecall_files(args.files, limit=args.limit,
+                                        **call_kwargs)
 
     def title(name, primary, r):
         # the JSON meta of scrappie_tpu's events command
@@ -339,32 +420,43 @@ def main_events(args) -> int:
     def fastq(name, primary, r):
         return f"@{title(name, primary, r)}\n{r.sequence}\n+\n{r.qual or ''}\n"
 
-    return _write(args, engine, results, fasta, fastq)
+    code = _write(args, engine, [results], fasta, fastq)
+    if args.dump:
+        from scrappie_torch.io.fast5 import write_annotated_events
+
+        for name, r in results:
+            if r.sequence is not None and r.events is not None:
+                write_annotated_events(args.dump, name.replace("/", "_"),
+                                       r.events, args.hdf5_chunk,
+                                       args.hdf5_compression)
+    return code
 
 
-def _write(args, engine, results, fasta, fastq) -> int:
-    """Write the called reads as FASTA or FASTQ (fasta(name, primary,
-    result) and fastq(...) give a record) or SAM, then the stage report and
-    the read count."""
+def _write(args, engine, polls, fasta, fastq) -> int:
+    """Write the called reads of each list of results in polls as FASTA or
+    FASTQ (fasta(name, primary, result) and fastq(...) give a record) or
+    SAM, flushing after each list; then the stage report and the read
+    count."""
     from scrappie_torch.io.fasta import format_sam
 
     fh = _out(args)
     nread = 0
     try:
-        for name, r in results:
-            if r.sequence is None:
-                print(f"No basecall for {name}", file=sys.stderr)
-                continue
-            nread += 1
-            primary = (r.uuid or name) if args.uuid else name
-            if args.format == "fasta":
-                fh.write(fasta(name, primary, r))
-            elif args.format == "fastq":
-                fh.write(fastq(name, primary, r))
-            else:
-                fh.write(format_sam(primary, r.sequence, prefix=args.prefix,
-                                    qual=r.qual))
-        fh.flush()
+        for results in polls:
+            for name, r in results:
+                if r.sequence is None:
+                    print(f"No basecall for {name}", file=sys.stderr)
+                    continue
+                nread += 1
+                primary = (r.uuid or name) if args.uuid else name
+                if args.format == "fasta":
+                    fh.write(fasta(name, primary, r))
+                elif args.format == "fastq":
+                    fh.write(fastq(name, primary, r))
+                else:
+                    fh.write(format_sam(primary, r.sequence,
+                                        prefix=args.prefix, qual=r.qual))
+            fh.flush()
     finally:
         if fh is not sys.stdout:
             fh.close()
@@ -560,11 +652,20 @@ _COMMANDS = {"raw": main_raw, "events": main_events, "squiggle": main_squiggle,
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if getattr(args, "licence", False) or args.command in ("licence", "license"):
+        print(LICENCE)
+        return 0
     if args.command == "version":
         import scrappie_torch
 
         print(f"scrappie_torch {scrappie_torch.__version__}")
+        return 0
+    if args.command == "help":
+        if args.topic:
+            parser.parse_args([args.topic, "--help"])  # exits
+        parser.print_help()
         return 0
     return _COMMANDS[args.command](args)
 

@@ -7,15 +7,16 @@ Beyond the reference: MULTI-read fast5 files (the post-2018 MinKNOW
 bulk format — top-level ``read_<uuid>`` groups, per-read channel
 metadata — which the reference predates) are handled transparently by
 ``read_raw_all``; the basecall engine and CLI emit one record per
-contained read. A copy of the readers of scrappie_tpu/io/fast5.py
-(without its fault injection); h5py is imported when a file is read.
+contained read. A copy of the readers and the event writer of
+scrappie_tpu/io/fast5.py (without its fault injection); h5py is imported
+when a file is read or written (the machine with the card has none).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from scrappie_torch.types import RawSignal
+from scrappie_torch.types import EventTable, RawSignal
 
 
 def read_raw(filename, scale_to_pA: bool = True) -> RawSignal:
@@ -79,6 +80,43 @@ def read_raw_all(filename, scale_to_pA: bool = True,
         raise ValueError(f"{filename}: no reads found (neither Raw/Reads "
                          "nor read_<uuid> groups)")
     return out
+
+
+def read_scaling(filename) -> dict:
+    """Channel scaling attributes (ref get_raw_scaling, src/fast5_interface.c:109-128)."""
+    import h5py
+
+    with h5py.File(filename, "r") as h:
+        meta = h["/UniqueGlobalKey/channel_id"].attrs
+        return {
+            "digitisation": float(meta["digitisation"]),
+            "offset": float(meta["offset"]),
+            "range": float(meta["range"]),
+            "sample_rate": float(meta["sampling_rate"]),
+        }
+
+
+def write_annotated_events(filename, readname: str, et: EventTable,
+                           chunk_size: int = 200, compression_level: int = 1) -> None:
+    """Dump an annotated event table to HDF5.
+
+    (ref write_annotated_events, src/fast5_interface.c:219-301: compound
+    dataset under the given name, shuffle + gzip, chunked.)
+    """
+    import h5py
+
+    ev = et.event
+    with h5py.File(filename, "a") as h:
+        if readname in h:
+            del h[readname]
+        h.create_dataset(
+            readname,
+            data=ev,
+            chunks=(max(1, min(chunk_size, len(ev))),),
+            shuffle=compression_level > 0,
+            compression="gzip" if compression_level > 0 else None,
+            compression_opts=compression_level if compression_level > 0 else None,
+        )
 
 
 def iterate_fast5(paths) -> list:

@@ -11,17 +11,21 @@ Two independent mechanisms in the reference:
    (ref src/decode.c:511-702): scale accumulated event dwell within a
    homopolymer by the calibrated mean step dwell.
 
-A copy of scrappie_tpu/post/homopolymer.py without its native C++
-dispatch (find_runs and the dwell overlapper run as numpy and Python
-loops, with the same results).
+A copy of scrappie_tpu/post/homopolymer.py: `find_runs` and
+`dwell_corrected_overlapper` run in the port's C++ library (native/), on
+every path and with no fallback; `find_runs_python` and
+`dwell_corrected_overlapper_python` are their twins, equal bit for bit
+(tests/test_torch_native.py).
 """
 
 from __future__ import annotations
 
 import enum
+import math
 
 import numpy as np
 
+from scrappie_torch.native import bindings
 from scrappie_torch.post.overlapper import kmer_len_from_nkmer, overlap_lengths
 
 NBASE = 4
@@ -49,7 +53,14 @@ def repeatblock(base: int, nrep: int) -> int:
 
 
 def find_runs(path: np.ndarray, klen: int) -> list[tuple[int, int, int]]:
-    """Find ambiguous homopolymer run segments (ref findRuns, src/homopolymer.c:67-157).
+    """Find ambiguous homopolymer run segments (ref findRuns,
+    src/homopolymer.c:67-157), in the port's C++ library: (start, length,
+    base) per run, as find_runs_python."""
+    return bindings.find_runs(path, klen)
+
+
+def find_runs_python(path: np.ndarray, klen: int) -> list[tuple[int, int, int]]:
+    """find_runs's twin in Python.
 
     Returns (start, length, base) per run.  A run starts either at the
     first (YYYYY|stay) after an XYYYY block (X != Y), or at the first
@@ -123,9 +134,14 @@ def is_kmer_homopolymer(kmer: int, klen: int) -> bool:
 
 
 def calibrated_dwell(hdwell: float, base: int, scale: float, base_adj) -> int:
-    # roundf semantics (half away from zero), not Python banker's rounding
-    x = (hdwell - base_adj[base]) / scale
-    return int(np.floor(x + 0.5)) if x >= 0 else int(np.ceil(x - 0.5))
+    """(hdwell - base_adj[base]) / scale rounded half away from zero, as
+    C's llround (not Python's banker's rounding; exact, where floor(x +
+    0.5) rounds 0.49999999999999994 up)."""
+    x = float((hdwell - base_adj[base]) / scale)
+    whole = math.floor(abs(x))
+    if abs(x) - whole >= 0.5:
+        whole += 1
+    return whole if x >= 0 else -whole
 
 
 def dwell_corrected_overlapper(path: np.ndarray, dwell: np.ndarray, nkmer: int,
@@ -135,10 +151,20 @@ def dwell_corrected_overlapper(path: np.ndarray, dwell: np.ndarray, nkmer: int,
     (ref dwell_corrected_overlapper, src/decode.c:516-643).  Within a
     homopolymer (all-same-base kmer), blocks and stays accumulate event
     dwell; on leaving, the emitted run length is dwell/scale instead of
-    the path length.
+    the path length. Runs in the port's C++ library, as
+    dwell_corrected_overlapper_python; dwell is read as float64.
     """
+    return bindings.dwell_overlapper(path, dwell, kmer_len_from_nkmer(nkmer),
+                                     scale, base_adj)
+
+
+def dwell_corrected_overlapper_python(path: np.ndarray, dwell: np.ndarray,
+                                      nkmer: int, scale: float,
+                                      base_adj=(0.0, 0.0, 0.0, 0.0)) -> str | None:
+    """dwell_corrected_overlapper's twin in Python: dwell summed in float64
+    in path order, as the library sums it."""
     path = np.asarray(path)
-    dwell = np.asarray(dwell)
+    dwell = np.asarray(dwell, np.float64)
     klen = kmer_len_from_nkmer(nkmer)
     nonstay = np.flatnonzero(path >= 0)
     if len(nonstay) == 0:

@@ -1,10 +1,12 @@
 """Event detection: two-window t-statistic peak detector.
 
 Behavioural spec from ref src/event_detection.c. A copy of
-scrappie_tpu/signal/events.py without its native C++ dispatch: the
-cumulative sums and t-statistics are vectorised numpy and the short/long
-peak state machine is the Python loop, which give the same events as the
-native path (tests/test_torch_host.py).
+scrappie_tpu/signal/events.py: `detect_events` runs the statistics and the
+short/long peak state machine in the port's C++ library (native/), on
+every path and with no fallback; the vectorised numpy statistics
+(`compute_sum_sumsq`, `compute_tstat`), the Python state machine
+(`_peak_detector_python`) and `detect_events_python` are its twins, equal
+bit for bit (tests/test_torch_native.py).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import dataclasses
 
 import numpy as np
 
+from scrappie_torch.native import bindings
 from scrappie_torch.types import EVENT_DTYPE, EventTable, RawSignal
 
 
@@ -160,11 +163,23 @@ def create_events(peaks: np.ndarray, sums: np.ndarray, sumsqs: np.ndarray, nsamp
 
 
 def detect_events(rt: RawSignal, params: EventDetectionParams = EVENT_DETECTION_DEFAULTS) -> EventTable:
-    """Full event-detection pipeline (ref src/event_detection.c:268-320)."""
+    """Full event-detection pipeline (ref src/event_detection.c:268-320),
+    in the port's C++ library."""
     data = rt.trimmed
-    nsample = len(data)
+    sums, sumsqs, tstat1, tstat2 = bindings.detect_tstat(
+        data, params.window_length1, params.window_length2)
+    peaks = bindings.peak_detector(tstat1, tstat2, params.threshold1,
+                                   params.threshold2, params.window_length1,
+                                   params.window_length2, params.peak_height)
+    return create_events(peaks, sums, sumsqs, len(data))
+
+
+def detect_events_python(rt: RawSignal,
+                         params: EventDetectionParams = EVENT_DETECTION_DEFAULTS) -> EventTable:
+    """detect_events's twin in numpy and Python."""
+    data = rt.trimmed
     sums, sumsqs = compute_sum_sumsq(data)
     tstat1 = compute_tstat(sums, sumsqs, params.window_length1)
     tstat2 = compute_tstat(sums, sumsqs, params.window_length2)
     peaks = _peak_detector_python(tstat1, tstat2, params)
-    return create_events(peaks, sums, sumsqs, nsample)
+    return create_events(peaks, sums, sumsqs, len(data))

@@ -1,9 +1,14 @@
 """Wall-clock accounting per pipeline stage, and structured logging.
 
 Counterpart of scrappie_tpu/utils/tracing.py:
-  * `Stage`, whose spans there are JAX profiler annotations; here each
-    stage is a `torch.profiler.record_function` span, so it shows in a
-    torch.profiler trace when one is being taken;
+  * `profile(dir)`, a torch.profiler trace (CPU activity, and CUDA
+    activity where there is a card) of everything inside the block,
+    written to dir as a Chrome trace (`.json`; chrome://tracing,
+    Perfetto);
+  * `annotate(name)`, a named span in that trace
+    (`torch.profiler.record_function`);
+  * `Stage`, host seconds per pipeline stage, each stage an `annotate`
+    span;
   * `log`, a copy: levelled JSON lines on stderr, the level from
     SCRAPPIE_TORCH_LOG (debug|info|warn|error, default warn).
 """
@@ -13,6 +18,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import pathlib
 import sys
 import time
 
@@ -31,6 +37,34 @@ def log(level: str, msg: str, **fields) -> None:
     print(json.dumps(rec), file=sys.stderr)
 
 
+@contextlib.contextmanager
+def profile(trace_dir):
+    """Trace everything inside the block with torch.profiler; on leaving
+    it, write the trace into trace_dir (created if need be) as
+    `trace.<pid>.<ns>.json` and log its path at level info."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = pathlib.Path(trace_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with torch_profile(activities=activities) as prof:
+        yield
+    path = out / f"trace.{os.getpid()}.{time.time_ns()}.json"
+    prof.export_chrome_trace(str(path))
+    log("info", "profiler trace written", path=str(path))
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named span in the profiler's trace (host, with the device work it
+    launches beneath it)."""
+    with torch.profiler.record_function(name):
+        yield
+
+
 class Stage:
     """>>> st = Stage()
     >>> with st("posterior"): ...
@@ -46,7 +80,7 @@ class Stage:
     def __call__(self, name: str):
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(name):
+            with annotate(name):
                 yield
         finally:
             self._acc.setdefault(name, []).append(time.perf_counter() - t0)

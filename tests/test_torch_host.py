@@ -8,13 +8,14 @@ detection and features, FASTA reading and FASTA/SAM/FASTQ writing, fast5
 reading, the calibration presets, the ensemble validation,
 the weight loader, the API's base encoding and state-space guess, the
 DTW's penalties, the mapping's band check and the training simulator's
-kmer labels. Where
-scrappie_tpu runs native C++ (event detection, find_runs, the dwell
-overlapper), the port's numpy and Python code is held to that default
-path. The training simulator (train/simulate.py) runs the port's squiggle
-network, which differs from JAX's by float noise: from the same seed its
-bases and labels must be equal and its signals within 1e-5 (seen 1.4e-6;
-no rounded dwell flipped with these seeds)."""
+kmer labels. Event detection, find_runs and the dwell overlapper run in
+C++ in both packages (each its own library); here the port's library is
+held to scrappie_tpu's default path, and tests/test_torch_native.py holds
+it to its Python twins bit for bit. The training simulator
+(train/simulate.py) runs the port's squiggle network, which differs from
+JAX's by float noise: from the same seed its bases and labels must be
+equal and its signals within 1e-5 (seen 1.4e-6; no rounded dwell flipped
+with these seeds)."""
 
 import tempfile
 
