@@ -22,9 +22,10 @@ if any phase fails:
      call with utils/tracing.profile, whose trace must name
      gru_recurrence_kernel (phase profile_trace);
   2. holds each kernel against its plain PyTorch twin at the main path's
-     shapes (T = 2000 blocks, S = 96, 1025 states; B = 8 and 64) and times
-     both (CUDA events after warm-up: a kernel's median of 20, a twin's
-     loop over time median of 3): the GRU layer through
+     shapes (T = 2000 blocks, S = 96, 1025 states, B = 64; at B = 8 the
+     Viterbi forward and backtrace, whose backtrace walks segments of a
+     row there) and times both (CUDA events after warm-up: a kernel's
+     median of 20, a twin's loop over time one run): the GRU layer through
      the paths' route (projection, then recurrence) and through the
      superseded layer kernel, the projection also beside torch.addmm (also
      over bursts of 10 calls, which leave out the host time), the
@@ -35,7 +36,7 @@ if any phase fails:
      integers, where ties decide most moves;
   4. holds the fused ensemble kernel against its twin on the hidden
      features of rgrgr_r94, rgrgr_r941 and rgrgr_r10 (weights 3:1:1) at
-     T = 2000, B = 8 and 64, also with penalties, slip and temperatures and
+     T = 2000, B = 64, also with penalties, slip and temperatures and
      with K = 2, and times it; holds the head kernel (K = 3 and 5) and its
      route the same way (phase ens_kernel); times the route against the
      fused kernels at K = 1 and 3, B = 8, 64 and 256 (phase routes); holds
@@ -84,7 +85,7 @@ if any phase fails:
   5. runs the main path, BasecallEngine("rgrgr_r94", device="cuda"), on
      16 seeded synthetic reads of 20k-100k samples in fast mode and in both
      stitch modes, checks that each kernel's launch counter rose and that
-     every read has a sequence, and compares two reads with the port's CPU
+     every read has a sequence, and compares the shortest read with the port's CPU
      run of the same reads;
   6. times the fused path at B = 64 chunks of 10 000 samples;
   7. profiles (torch.profiler) the engine in each mode and the fused path,
@@ -108,10 +109,14 @@ if any phase fails:
      in the engine's launches (parallel/runner.crf_groups), each read's
      rows equal to its own call's bit for bit;
      times them at T = 5000, B = 8 and 64, and at T = 31 744, B = 2
-     (phase crf_kernels);
+     (phase crf_kernels); at that stitch shape holds the CRF Viterbi
+     kernels and the forward-backward to decode/crf's parallel-in-time
+     decode and posterior (impl "assoc", plain PyTorch on the card): paths
+     equal, scores within 1e-4 relative, posteriors within 1e-4, and
+     times both (phase crf_assoc);
  10. runs BasecallEngine("rnnrf_r94", device="cuda") in fast and stitch
      mode on the same 16 reads, checks the launch counters and every
-     read's sequence, and compares two reads with the port's CPU run;
+     read's sequence, and compares the shortest read with the port's CPU run;
  11. times the rnnrf fused path at B = 64 x 10 000 samples, stage by stage,
      and profiles the rnnrf engine in both modes;
  12. runs the ensembles through the engine: rgrgr_r94 + rgrgr_r941 +
@@ -123,7 +128,7 @@ if any phase fails:
      main_path_rnnrf_self_ensemble); then times the 3:1:1 fused path stage
      by stage and profiles its fast engine (throughput_ensemble);
  13. holds the peephole-LSTM routes against their twins with the events
-     network's weights at T = 2048 events, B = 8 and 64, C = 12 and 96:
+     network's weights at T = 2048 events, B = 64, C = 12 and 96:
      each stage through the pair route (one projection against both
      layers' weights, one recurrence launch for both directions) and each
      layer through the single-direction route, and both routes at S = 16
@@ -134,7 +139,7 @@ if any phase fails:
      the second stage's output and the FF3 head's posterior;
  14. runs BasecallEngine("nanonet_events", device="cuda") in fast and
      stitch mode on the same 16 reads, checks the launch counters and every
-     read's sequence, and compares two reads with the port's CPU run;
+     read's sequence, and compares the shortest read with the port's CPU run;
  15. times the events fused path at B = 64 x 2048 events, stage by stage,
      and profiles the events engine in both modes;
  16. predicts the squiggles of a seeded 2 000-base sequence with the three
@@ -142,9 +147,9 @@ if any phase fails:
  17. holds the DTW kernels against their twins, Viterbi (finals, moves,
      end sources, and the walk kernel's path) and forward, with prob_back 0
      and 0.1, on signals simulated from predicted squiggles: the cluster
-     kernel at 300 positions x 3 000 samples, at 6 000 x 60 000 and on
+     kernel at 300 positions x 3 000 samples, at 6 000 x 15 000 and on
      integer (tied) inputs, 2 000 x 20 000, and the global-state kernel
-     above the cluster's capacity (2 000 samples), the 6 000 x 60 000 case
+     above the cluster's capacity (2 000 samples), the 6 000 x 15 000 case
      also on clusters of 4 and 8 CTAs; then times the DP at 6 000 x 60 000
      on clusters of 4, 8 and 16 CTAs, the global kernel and the forward
      variant, the walk and the path's copy to the host;
@@ -213,7 +218,36 @@ if any phase fails:
      options, each channel a solo stream on the card fed the whole signal,
      and one channel the port's CPU stream; prints requests/s, the p50 and
      p95 request latency, live samples/s and the service's batches and
-     engine calls.
+     engine calls;
+ 23. holds the four kernels with products to their twins under the
+     precision policy's 'default' (TF32 operands on the card) and 'bf16'
+     (bfloat16 operands), the twins rounding the same operands: the
+     projection and the head (K = 1 and 3) at T = 2000, B = 64 within
+     1e-3, the GRU recurrence (and its big-S mode at S = 160) and the
+     LSTM recurrence (the events network's first stage, T = 2048, B = 64,
+     both directions a launch; one layer; its big-S mode at S = 160)
+     within 2e-3 on h, and times each in each mode beside 'highest'
+     (phase precision_kernels); then runs the 16 reads through rgrgr_r94
+     fast, rnnrf_r94 stitch, nanonet_events fast and the 3:1:1 ensemble
+     fast in each mode and prints each mode's edit distance to
+     'highest''s calls, a figure, and the shortest read's 'bf16' call on
+     the card against the CPU's 'bf16' call (phase precision_paths);
+ 24. labels a simulated read of 80 790 samples (the bundled read
+     ch174_read172's trimmed length) against its truth on the card
+     (train/realdata.label_read: rgrgr_r94's posterior, then the seqmap
+     kernel in both orientations), and a 20 000-sample one also on the
+     CPU (the same orientation and base_at, the score within 1e-5
+     relative); fits realsim.EmpiricalModel to them and takes rgrgr_r94
+     framewise training steps on a RealReadSampler and a
+     RealisticSimulator batch and a whole-read transducer step on the
+     labelled region, every loss finite (phase realdata);
+ 25. runs the rgrgr_r94 fast engine over 8 reads, one poisoned with NaN,
+     with SCRAPPIE_TORCH_VALIDATE's checks on: the poisoned read skipped,
+     the others' calls those of the run without them; and a poisoned
+     forward's checks on the card raised by validate.raise_pending
+     (phase validate);
+ 26. calls scrappie_torch.embed (the C shim's module) on the card, equal
+     to the api's calls (phase embed).
 
 Each engine path's launch counters are set to 0 just before its runs and
 read just after; no inference path may launch a backward kernel, the
@@ -273,7 +307,10 @@ NEUTRAL = -1e30          # a stitch pad block's moves into the emitting states
 # rounded up to parallel/runner.DECODE_BUCKET = 1024).
 CRF_BATCHES = (1, 2, 5, 7, 8, 33, 64, 256)
 CRF_STITCH = (31744, 2)  # (T, B)
-CRF_STEPS = (1, 7, T_CRF, CRF_STITCH[0])
+# The twins' checks: up to T_CRF (every layout is a matter of B, checked
+# there); at CRF_STITCH the kernels are timed, and phase crf_assoc holds
+# them to the parallel-in-time decode and posterior (decode/crf.py).
+CRF_STEPS = (1, 7, T_CRF)
 CRF_AB = ((T_CRF, 8), (T_CRF, 64), CRF_STITCH)  # the CRF shapes --ab times
 # the batched posterior's reads (blocks), rows of the T_CRF sets cut short
 CRF_BATCH_READS = (1, 7, 300, 2048, T_CRF - 1, T_CRF)
@@ -290,6 +327,7 @@ S_SMALL = 16             # the LSTM routes' check at another size
 T_BIG_S = 500            # steps of the big-S checks
 NHIST_CASES = ((80, False), (1024, False), (2048, True))  # (nhist, use_slip)
 FWD_BATCHES = (8, 64, 256)
+NHIST_BATCHES = (8, 256)  # phase nhist's twin checks: the smallest and largest
 STITCH_SHAPE = (12500, 4)  # (T, B): whole reads of a stitch bucket
 BT_STEPS = (1, 7, T_BLOCKS + 1)  # more backtrace checks, at B = 8
 BT_BATCHES = (1, 3, 8, 64, 256)  # the hand-built tracebacks' batches
@@ -309,6 +347,10 @@ DTW_TWIN_WORKERS = 6         # host processes running the DTW's Viterbi twins
 DTW_CARD_TWIN_WORKERS = 4    # processes running its forward twins on the card
 MAP_BASES = 6000         # the mapping path's sequences, and the timed DTW's
 MAP_SAMPLES = 60000      # the timed DTW's samples; the seqmap read's length
+# The DTW's cluster sizes are held to the twins at MAP_BASES positions
+# (the main path's layouts, a matter of the positions) and a quarter of
+# its samples; the kernels are timed at MAP_SAMPLES.
+DTW_CLUSTER_SAMPLES = MAP_SAMPLES // 4
 MAP_BAND = 100           # half-width of the banded mapping
 FORWARD_RTOL = 1e-5      # forward finals: expf/log1pf against the host's
 # map_signal_to_squiggle's defaults
@@ -486,6 +528,11 @@ LATTICE_GRAD_TWIN_RTOL = 5e-5
 LATTICE_F64_GRAD_RTOL = 1e-2
 LATTICE_WINDOWS = {"transducer": (8, 4000, 4000 // 5), "crf": (8, 4000, 1408)}
 WHOLE_READ_SHAPE = (30720, 7000)  # (blocks, bases), B = 1
+# The whole-read twins (float32 and float64) run on the read's first
+# WHOLE_TWIN_BLOCKS blocks against all its bases: the kernels' layout is a
+# matter of the bases (16 CTAs a row), each of the twins' steps a round of
+# launches, and 7 680 blocks still take a path across 7 000 bases.
+WHOLE_TWIN_BLOCKS = 7680
 # Above 16 CTAs x 512 threads x 8 positions a thread walks more than one
 # run of positions a step (ops/lattice.cluster_layout's groups). Held to
 # the twins at the windows with the layout's limits forced down
@@ -499,6 +546,9 @@ LATTICE_SMALL_RUNS = (2, 32)
 LATTICE_LONG = {"transducer": (40000, 70000), "crf": (72000, 70000)}
 LATTICE_LONG_CHUNK = 1024
 WINDOW_CHUNK = 96        # the windows' checkpoint check: 800 and 2 000 steps
+# A plain twin's time is one run, without a warm-up: a launch-bound loop
+# over T whose figure sits beside the kernel's, timed by no gate.
+TWIN_REPS = dict(reps=1, warmup=0)
 # Kept, checked and timed; no path launches them.
 SUPERSEDED = ("gru_layer", "viterbi_fused", "viterbi_fused_ens")
 # Kernels whose design keeps their weights in registers: ptxas must report
@@ -791,7 +841,7 @@ def check_kernels(net, B: int) -> dict:
         "route_ms": cuda_ms(lambda: g.gru_layer_tm(x, *w, reverse=True)),
         "route_max_abs_err": err["route"],
         "plain_ms": cuda_ms(lambda: g.gru_layer_tm_plain(x, *w, reverse=True),
-                            reps=3, warmup=1)}
+                            **TWIN_REPS)}
     out["project"] = check_projection(x, w[0], w[1])
 
     # Viterbi forward and backtrace on the main path's posterior.
@@ -813,7 +863,7 @@ def check_kernels(net, B: int) -> dict:
                                        route=True)
     out["viterbi_fwd"]["ms"] = cuda_ms(lambda: v.viterbi_scores_tm(lp))
     out["viterbi_fwd"]["plain_ms"] = cuda_ms(lambda: v.viterbi_scores_tm_plain(lp),
-                                             reps=3, warmup=1)
+                                             **TWIN_REPS)
     out["viterbi_backtrace"]["ms"] = cuda_ms(lambda: v.viterbi_backtrace_tm(fk, tbk))
     out["viterbi_backtrace"]["us_per_step"] = (out["viterbi_backtrace"]["ms"] * 1e3
                                                / T_BLOCKS)
@@ -823,14 +873,42 @@ def check_kernels(net, B: int) -> dict:
     out["viterbi_backtrace"]["stream_floor_ms"] = (tbk.numel() * 2 / PEAK_BYTES_PER_S
                                                    * 1e3)
     out["viterbi_backtrace"]["plain_ms"] = cuda_ms(
-        lambda: v.viterbi_backtrace_tm_plain(fk, tbk), reps=3, warmup=1)
+        lambda: v.viterbi_backtrace_tm_plain(fk, tbk), **TWIN_REPS)
     out["viterbi_fused"]["ms"] = cuda_ms(
         lambda: v.viterbi_fused_tm(h, p["FF_W"], p["FF_b"]))
     out["viterbi_fused"]["plain_ms"] = cuda_ms(
-        lambda: v.viterbi_fused_tm_plain(h, p["FF_W"], p["FF_b"]), reps=3, warmup=1)
+        lambda: v.viterbi_fused_tm_plain(h, p["FF_W"], p["FF_b"]), **TWIN_REPS)
     out["head"]["route_ms"] = cuda_ms(lambda: head_route(h, p["FF_W"], p["FF_b"]))
     emit({"phase": "kernels", "B": B, "T": T_BLOCKS, "kernels": out})
     return out
+
+
+def check_decode_kernels(net, B: int) -> None:
+    """The Viterbi forward and backtrace against their twins on the main
+    path's posterior of B chunks (at B <= 16 the backtrace splits each
+    row's walk into segments, a mode of its own), the features through the
+    GRU kernels: the B = 8 half of check_kernels, whose other kernels take
+    the same code path at every B and are held to their twins at B = 64."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn.layers import conv1d, robustlog, softmax_with_temperature
+    from scrappie_torch.ops import gru as g
+    from scrappie_torch.ops.pipeline import CONV_ACT
+
+    rng = np.random.default_rng(SEED + B)
+    p = net.params
+    sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1)).astype(np.float32),
+                          device=net.device)
+    h = CONV_ACT[net.conv_activation](
+        conv1d(sig, p["conv_W"], p["conv_b"], net.stride)).transpose(0, 1).contiguous()
+    for pre, reverse in (("gruB1", True), ("gruF2", False)):
+        h = g.gru_layer_tm(h, *(p[f"{pre}_{k}"] for k in ("iW", "b", "sW", "sW2")),
+                           reverse=reverse)
+    lp = robustlog(softmax_with_temperature(h, p["FF_W"], p["FF_b"]), 1e-5).contiguous()
+    _, _, errs = check_forward_and_backtrace(lp, f"main path, B = {B}")
+    emit({"phase": "kernels", "B": B, "T": T_BLOCKS,
+          "checked": ["viterbi_fwd", "viterbi_backtrace"], "max_abs_err": errs})
 
 
 def check_projection(x, W, b) -> dict:
@@ -1010,7 +1088,7 @@ def ensemble_weights(K: int) -> "torch.Tensor":
 def check_ens_kernel(nets: list, B: int) -> tuple[dict, dict]:
     """The fused ensemble kernel against its twin on the hidden features
     the three rgrgr models give for B chunks of CHUNK samples (T_BLOCKS
-    blocks), at 3:1:1; at B = 8 also with penalties, slip and temperatures,
+    blocks), at 3:1:1; at B = 64 also with penalties, slip and temperatures,
     and with K = 2. Then its time (median of 20) and its twin's (median of
     3, a loop over T). The same for the paths' route (head kernel, then
     forward kernel) at K = 3 and at K = 5 (the three members and two
@@ -1034,7 +1112,7 @@ def check_ens_kernel(nets: list, B: int) -> tuple[dict, dict]:
     require(h.shape == (K, T_BLOCKS, B, 96), f"ensemble features {tuple(h.shape)}")
     row = check_fused(h, W, b, f"3:1:1, B = {B}", weights=w)
     checked = {"3:1:1": dict(row)}
-    if B == 8:
+    if B == 64:
         checked["3:1:1, penalties + slip + temperatures"] = check_fused(
             h, W, b, "3:1:1, penalties + slip + temperatures", weights=w,
             **VITERBI_OPTIONS, **TEMPS)
@@ -1048,7 +1126,7 @@ def check_ens_kernel(nets: list, B: int) -> tuple[dict, dict]:
     route = {"K = 3, 3:1:1": check_fused(h, W, b, "K = 3", weights=w, route=True),
              "K = 5, 3:1:1:1:1": check_fused(h5, W5, b5, "K = 5", weights=w5,
                                              route=True)}
-    if B == 8:
+    if B == 64:
         route["K = 3, penalties + slip + temperatures"] = check_fused(
             h, W, b, "K = 3, penalties + slip + temperatures", weights=w,
             route=True, **VITERBI_OPTIONS, **TEMPS)
@@ -1061,7 +1139,7 @@ def check_ens_kernel(nets: list, B: int) -> tuple[dict, dict]:
                                   nstate=nstate),
                ms=cuda_ms(lambda: v.viterbi_fused_ens_tm(h, W, b, w)),
                plain_ms=cuda_ms(lambda: v.viterbi_fused_ens_tm_plain(h, W, b, w),
-                                reps=3, warmup=1))
+                                **TWIN_REPS))
     row["us_per_step"] = row["ms"] * 1e3 / T_BLOCKS
     row["single_head_ms"] = cuda_ms(lambda: v.viterbi_fused_tm(h[0], W[0], b[0]))
     emit({"phase": "ens_kernel", "B": B, "T": T_BLOCKS, "checked": checked,
@@ -1104,7 +1182,7 @@ def check_gru_recurrence(net, B: int) -> dict:
            **kernel_work("gru_recurrence", T=T_BLOCKS, B=B, S=96),
            "ms": cuda_ms(lambda: g.gru_tm(xproj, sW, sW2, True)),
            "plain_ms": cuda_ms(lambda: rnn.gru_tm(xproj, sW, sW2, True),
-                               reps=3, warmup=1)}
+                               **TWIN_REPS)}
     emit({"phase": "gru_recurrence_kernel", "B": B, "T": T_BLOCKS, **row})
     return row
 
@@ -1114,7 +1192,7 @@ def check_gru_backward(net, B: int) -> dict:
     its twin and ops/gru.gru_tm_backward against torch.autograd through
     the plain forward (nn/rnn.gru_tm), both directions, on rgrgr_r94's
     first layer's projected conv features of B chunks (T_BLOCKS blocks,
-    S = 96) and a seeded output gradient (at B = 8 also the walk against
+    S = 96) and a seeded output gradient (at B = 64 also the walk against
     its twin at GRU_BWD_SMALL's sizes); then the times of the walk
     kernel (median of 20), of its twin (median of 3) and of the whole
     backward (the gates' and weights' products with the walk)."""
@@ -1154,7 +1232,7 @@ def check_gru_backward(net, B: int) -> dict:
             errs["walk"] = max(errs["walk"], rel(dk, dp))
             for got, leaf in zip(full, leaves):
                 errs["autograd"] = max(errs["autograd"], rel(got, leaf.grad))
-    if B == 8:  # and at the sizes of GRU_BWD_SMALL, on seeded weights
+    if B == 64:  # and at the sizes of GRU_BWD_SMALL, on seeded weights
         gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
         errs["small_S"] = 0.0
         with torch.no_grad():
@@ -1181,7 +1259,7 @@ def check_gru_backward(net, B: int) -> dict:
                "ms": cuda_ms(lambda: g.gru_walk(gates, h_prev, gh, sW, sW2, False)),
                "plain_ms": cuda_ms(lambda: g.gru_walk_plain(gates, h_prev, gh, sW,
                                                             sW2, False),
-                                   reps=3, warmup=1),
+                                   **TWIN_REPS),
                "backward_ms": cuda_ms(lambda: g.gru_tm_backward(xproj, h, sW, sW2,
                                                                 gh, False)),
                "forward_ms": cuda_ms(lambda: g.gru_tm(xproj, sW, sW2, False))}
@@ -1197,10 +1275,10 @@ def check_lstm_backward(enet, B: int) -> tuple[dict, dict]:
     the plain loop's), the backward walk kernel (da and each row's dpeep
     partials) against its twin on those planes, and
     ops/lstm.lstm_tm_backward against torch.autograd through the plain
-    forward, on a seeded output gradient (at B = 8 also the walk at
+    forward, on a seeded output gradient (at B = 64 also the walk at
     LSTM_BWD_SMALL's sizes on seeded weights, one and two directions);
     then the times of the walk (median of 20) and its twin (one run), of
-    the whole backward, and of the pair's forward in both modes. At B = 8
+    the whole backward, and of the pair's forward in both modes. At B = 64
     also both kernels at the whole-read events step's shape (T_WHOLE_EVENTS
     events, B = 1): held to their twins once and timed (median of 5), the
     twins not timed. Returns the table's rows for the walk and the
@@ -1276,7 +1354,7 @@ def check_lstm_backward(enet, B: int) -> tuple[dict, dict]:
     require(errs["autograd"] <= LSTM_BWD_RTOL,
             f"lstm backward against autograd: rel err {errs['autograd']} <= {LSTM_BWD_RTOL}")
     whole = {}
-    if B == 8:  # the sizes of LSTM_BWD_SMALL on seeded weights; the whole read
+    if B == 64:  # the sizes of LSTM_BWD_SMALL on seeded weights; the whole read
         gen = torch.Generator(device="cuda").manual_seed(SEED + 151)
         errs["small_S"] = 0.0
         with torch.no_grad():
@@ -1522,8 +1600,9 @@ def check_lattice_kernels(net, rnet) -> dict:
     memory, also checkpointed, equal to chunk = T's bit for bit; and at
     LATTICE_LONG, the kernels alone, their first call timed), and at the
     whole-read shape (WHOLE_READ_SHAPE, seeded inputs, a checkpoint every
-    WHOLE_CHUNK steps): against the twins on the card at the windows'
-    tolerances, and against the twins in float64 (on the card; the
+    WHOLE_CHUNK steps): on its first WHOLE_TWIN_BLOCKS blocks against the
+    twins on the card at the windows' tolerances, and against the twins in
+    float64 (on the card; the
     partition's on the host CPU) within LATTICE_RTOL and
     LATTICE_F64_GRAD_RTOL, the twins' parts all at once
     in worker processes; and its log P, logZ and gradient at WHOLE_CHUNK
@@ -1624,11 +1703,11 @@ def check_lattice_kernels(net, rnet) -> dict:
         base = torch.cuda.memory_allocated()
         gen = torch.Generator(device="cuda")
         ms = cuda_ms(lambda: lattice_pair(kind, xw, sw, gen, False, chunk=WHOLE_CHUNK),
-                     reps=3, warmup=1)
+                     **TWIN_REPS)
         peak = torch.cuda.max_memory_allocated() - base
         held = lattice_held_bytes(kind, xw, sw, WHOLE_CHUNK)
         held_T = lattice_held_bytes(kind, xw, sw, None)
-        ms_T = cuda_ms(lambda: lattice_pair(kind, xw, sw, gen, False), reps=3, warmup=1)
+        ms_T = cuda_ms(lambda: lattice_pair(kind, xw, sw, gen, False), **TWIN_REPS)
         chunked = lattice_pair(kind, xw, sw, lattice_seeded(), False, chunk=WHOLE_CHUNK)
         full = lattice_pair(kind, xw, sw, lattice_seeded(), False)
         for a, b, what in zip(chunked, full, ("log P", "logZ", "gradient")):
@@ -1645,7 +1724,7 @@ def check_lattice_kernels(net, rnet) -> dict:
             **(kernel_work(name, T=TW, B=1, S=xw.shape[2], L=LW, valid=wv,
                            distinct=len(set(sw[0].tolist())))
                if kind == "transducer" else kernel_work(name, T=TW, B=1, L=LW, valid=wv))}
-        whole[kind] = (xw, sw)
+        whole[kind] = (xw[:WHOLE_TWIN_BLOCKS].contiguous(), sw)
     # the twins of each part (the transducer; the CRF's lattice and its
     # partition) in float32 and in float64 on the card (the partition's
     # float64 on the host CPU, where its seven states run fastest), all at
@@ -1801,7 +1880,7 @@ def check_big_s() -> dict:
             timed = (lambda: layer(x, iW, bias, *rec), lambda: plain(x, iW, bias, *rec))
             work = kernel_work("lstm_layer", T=T, B=B, C=C, S=S)
         rows[name].update(S=S, T=T, B=B, **work, ms=cuda_ms(timed[0], reps=5),
-                          plain_ms=cuda_ms(timed[1], reps=3, warmup=1))
+                          plain_ms=cuda_ms(timed[1], **TWIN_REPS))
     emit({"phase": "big_s", "sizes": BIG_S, "T": T, "B": B, "rows": rows})
     return rows
 
@@ -1862,7 +1941,7 @@ def check_big_s_backward() -> dict:
             "max_rel_err": err, **kernel_work("gru_recurrence_bwd", T=T, B=B, S=S),
             "ms": cuda_ms(lambda: g.gru_walk(gates, h_prev, gh, sW, sW2, True), reps=5),
             "plain_ms": cuda_ms(lambda: g.gru_walk_plain(gates, h_prev, gh, sW, sW2,
-                                                         True), reps=3, warmup=1)}
+                                                         True), **TWIN_REPS)}
         # the LSTM pair's training forward and walk
         wF, wB = ((f(C, 4 * S, scale=C ** -0.5), f(4 * S, scale=0.1),
                    f(S, 4 * S, scale=S ** -0.5), f(3 * S, scale=0.3)) for _ in "FB")
@@ -1892,7 +1971,7 @@ def check_big_s_backward() -> dict:
             "S": S, "T": T, "B": B, "max_abs_err": ferr,
             **kernel_work("lstm_pair_train", T=T, B=B, S=S),
             "ms": cuda_ms(lambda: L.lstm_pair_train_cuda(xp, *wF[2:], *wB[2:]), reps=5),
-            "plain_ms": cuda_ms(twin, reps=3, warmup=1)}
+            "plain_ms": cuda_ms(twin, **TWIN_REPS)}
         rows["lstm_recurrence_bwd_global"] = {
             "S": S, "T": T, "B": B, "max_abs_err": float((dk - dp).abs().max()),
             "max_rel_err": werr, **kernel_work("lstm_recurrence_bwd", T=T, B=B, S=S,
@@ -1932,7 +2011,7 @@ def seeded_logposts(shape, gen) -> tuple:
 
 def check_nhist() -> dict:
     """The Viterbi forward and backtrace kernels at each of NHIST_CASES and
-    FWD_BATCHES: tracebacks, finals, paths and scores identical to the
+    NHIST_BATCHES: tracebacks, finals, paths and scores identical to the
     twins' on seeded log posteriors and on integer ones (ties), at
     T_BLOCKS blocks; then the forward's times at B = 8."""
     import torch
@@ -1942,13 +2021,13 @@ def check_nhist() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 95)
     rows = {}
     for nhist, slip in NHIST_CASES:
-        for B in FWD_BATCHES:
+        for B in NHIST_BATCHES:
             lp, ties = seeded_logposts((T_BLOCKS, B, nhist + 1), gen)
             for what, x in (("random", lp), ("integer", ties)):
                 check_forward_and_backtrace(x, f"nhist {nhist}, B = {B}, {what}",
                                             use_slip=slip)
             if B == 8:
-                rows[nhist] = {"use_slip": slip, "identical": list(FWD_BATCHES),
+                rows[nhist] = {"use_slip": slip, "identical": list(NHIST_BATCHES),
                                "launch": v.forward_launch(nhist),
                                **kernel_work("viterbi_fwd", T=T_BLOCKS, B=B,
                                              nstate=nhist + 1),
@@ -2072,7 +2151,7 @@ def drive_engine(card: str, phase: str, reads: list, model: str, runs,
     """BasecallEngine(model, device="cuda", **engine_kw) on the reads in
     each (mode, homopolymer) of runs, after a warm-up of each: every read
     must have a sequence and each run must launch kernels[mode]; then the
-    two shortest reads against the port's CPU run of the same engine.
+    shortest read against the port's CPU run of the same engine.
     extra(results, row) adds fields to a run's line. Returns the launch
     counts of all the runs (set to 0 just before them) and each run's
     results."""
@@ -2116,7 +2195,7 @@ def drive_engine(card: str, phase: str, reads: list, model: str, runs,
         emit(row)
     launches = dict(ops.LAUNCHES)
 
-    short = sorted(range(len(reads)), key=lambda i: lengths[i])[:2]
+    short = sorted(range(len(reads)), key=lambda i: lengths[i])[:1]
     for mode, hp in runs:
         cpu = BasecallEngine(model, device="cpu", mode=mode, **engine_kw)
         cres = cpu.basecall_signals([reads[i] for i in short], homopolymer=hp)
@@ -2568,7 +2647,8 @@ def check_crf_maps(T: int, gen) -> list:
 
 def check_crf_kernels(rnet) -> dict:
     """The CRF kernels against their twins at every T of CRF_STEPS and B of
-    CRF_BATCHES on the five sets of crf_sets (one phase line a T); then
+    CRF_BATCHES on the five sets of crf_sets (one phase line a T; at
+    CRF_STITCH phase crf_assoc holds them to the associative scan); then
     their times and their twins' at T_CRF and B = 8 and 64 (CUDA events;
     fewer repeats for the twins, launch-bound loops over T), and the
     kernels' alone at CRF_STITCH, whose twins are not timed (a loop of
@@ -2584,13 +2664,16 @@ def check_crf_kernels(rnet) -> dict:
     rng = np.random.default_rng(SEED + 10)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     table, inputs = {}, {}
-    for T in CRF_STEPS:
+    for T in CRF_STEPS + (CRF_STITCH[0],):
         t0 = time.perf_counter()
         sets = crf_sets(rnet, T, rng)
         for shape in ((T_CRF, 8), (T_CRF, 64), CRF_STITCH):
             if shape[0] == T:
                 inputs[shape] = [sets[k][:, :shape[1]].contiguous()
                                  for k in ("head before globalnorm", "head")]
+        if T not in CRF_STEPS:
+            del sets
+            continue
         errs = check_crf(sets)
         maps = check_crf_maps(T, gen)
         batched = check_crf_batch(sets) if T == T_CRF else {}
@@ -2631,7 +2714,7 @@ def check_crf_kernels(rnet) -> dict:
         mhz = int(smi("clocks.sm", "csv,noheader,nounits"))
         for name, (kernel, plain) in timed.items():
             out[name]["cycles_per_step"] = out[name]["us_per_step"] * mhz
-            out[name]["plain_ms"] = (cuda_ms(plain, reps=3, warmup=1)
+            out[name]["plain_ms"] = (cuda_ms(plain, **TWIN_REPS)
                                      if (T, B) != CRF_STITCH else None)
         emit({"phase": "crf_kernels", "B": B, "T": T, "timed_on": "head "
               "(partition and its gradient: head before globalnorm)",
@@ -2774,14 +2857,14 @@ def check_lstm_kernel(enet, B: int) -> tuple[dict, dict]:
             "recurrence_ms": cuda_ms(
                 lambda: L.lstm_recurrence_cuda(xproj, *wB[2:], reverse=True)),
             "recurrence_plain_ms": cuda_ms(
-                lambda: lstm_tm(xproj, *wB[2:], reverse=True), reps=3, warmup=1),
+                lambda: lstm_tm(xproj, *wB[2:], reverse=True), **TWIN_REPS),
             "recurrence": kernel_work("lstm_recurrence", T=T_EVENTS, B=B, S=S),
             "pair_recurrence_ms": cuda_ms(
                 lambda: L.lstm_pair_recurrence_cuda(xpair, *wF[2:], *wB[2:])),
             "pair_recurrence_plain_ms": cuda_ms(
                 lambda: (lstm_tm(xpair[..., :4 * S], *wF[2:]),
                          lstm_tm(xpair[..., 4 * S:], *wB[2:], reverse=True)),
-                reps=3, warmup=1),
+                **TWIN_REPS),
             "pair_recurrence": kernel_work("lstm_recurrence", T=T_EVENTS, B=B,
                                            S=S, dirs=2),
             "layer_ms": cuda_ms(lambda: L.lstm_layer_tm(x, *wB, reverse=True)),
@@ -2907,7 +2990,7 @@ def throughput_raw(card: str) -> None:
     breakdown = {}
     with torch.inference_mode():
         total = cuda_ms(lambda: net.basecall_fused(sig), reps=5)
-        conv = lambda: _conv_tm(p, sig, "tanh", net.stride)
+        conv = lambda: _conv_tm(p, sig, "tanh", net.stride, "raw")
         breakdown["conv+tanh"] = cuda_ms(conv, reps=5)
         x = conv()
         for layer in (1, 2):
@@ -3154,8 +3237,9 @@ def check_dtw(sig, params, what: str, jobs: dict, clusters=()) -> dict:
 
 def check_dtw_kernel(card: str) -> tuple[dict, dict]:
     """The DTW kernels against their twins: the cluster kernel at a small
-    size, on tied inputs and at the main path's size (MAP_BASES positions,
-    MAP_SAMPLES samples), the global-state kernel above the cluster's
+    size, on tied inputs and at the main path's positions (MAP_BASES,
+    DTW_CLUSTER_SAMPLES samples) on each cluster size, the global-state
+    kernel above the cluster's
     capacity, each Viterbi twin run on the host CPU in DTW_TWIN_WORKERS
     processes while the card times the DP at the main path's size at each
     cluster size (with the card's cudaOccupancyMaxActiveClusters), the
@@ -3180,6 +3264,7 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
         ("shared", DTW_SHARED, dtw_case),
         ("ties", DTW_TIES, dtw_tie_case),
         ("global", (npos_global, DTW_GLOBAL_SAMPLES), dtw_case),
+        ("clusters", (MAP_BASES, DTW_CLUSTER_SAMPLES), dtw_case),
         ("timed", (MAP_BASES, MAP_SAMPLES), dtw_case))}
     card_args = lambda name: (cases[name][0], *match_inputs(cases[name][1], 1.0, 0.0, "cuda"),
                               0.0, *DTW_OPTIONS.values())
@@ -3191,7 +3276,7 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
         # the longest twins first; the card takes the phase's times while
         # they run
         jobs = {name: submit_dtw_twins(pool, *cases[name])
-                for name in ("timed", "ties", "global", "shared")}
+                for name in ("clusters", "ties", "global", "shared")}
         for k in DTW_CLUSTERS:
             fits = d.max_active_clusters(npos, k)
             clusters[k] = {"max_active_clusters": fits}
@@ -3200,7 +3285,7 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
                 clusters[k].update(
                     ms=ms, us_per_sample=ms * 1e3 / T,
                     forward_ms=cuda_ms(lambda: d.squiggle_match_tm(
-                        *args, viterbi=False, cluster=k), reps=3, warmup=1),
+                        *args, viterbi=False, cluster=k), **TWIN_REPS),
                     layout=d.cluster_layout(npos, k)._asdict())
         for name in ("shared", "ties", "global"):
             cargs = card_args(name)
@@ -3220,9 +3305,9 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
         timed = {"cluster": d.DTW_CLUSTER, "clusters": clusters,
                  "ms": clusters[d.DTW_CLUSTER]["ms"],
                  "global_ms": cuda_ms(lambda: d.squiggle_match_tm(*args, global_state=True),
-                                      reps=3, warmup=1),
+                                      **TWIN_REPS),
                  "forward_ms": cuda_ms(lambda: d.squiggle_match_tm(*args, viterbi=False),
-                                       reps=3, warmup=1),
+                                       **TWIN_REPS),
                  "moves_bytes": moves.numel() + end_src.numel() * 4,
                  **kernel_work("dtw", T=T, npos=npos)}
         walk = {"T": T, "max_abs_err": 0.0,
@@ -3232,15 +3317,15 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
                 **kernel_work("dtw_walk", T=T)}
         del final, moves, end_src, path
         with ProcessPoolExecutor(DTW_CARD_TWIN_WORKERS, mp_context=spawn) as card_pool:
-            for name in ("timed", "ties", "global", "shared"):
+            for name in ("clusters", "ties", "global", "shared"):
                 jobs[name].update(submit_dtw_twins(card_pool, *cases[name], viterbi=False))
-            for name in ("shared", "ties", "global", "timed"):
+            for name in ("shared", "ties", "global", "clusters"):
                 csig, cparams = cases[name]
                 cnpos, cT = cparams.shape[0], csig.shape[0]
                 require((cnpos <= d.DTW_MAX_SHARED_NPOS) == (name != "global"),
                         f"dtw {name} case {cnpos} positions takes its kernel")
                 others = [k for k in DTW_CLUSTERS if k != d.DTW_CLUSTER
-                          and clusters[k]["max_active_clusters"]] if name == "timed" else []
+                          and clusters[k]["max_active_clusters"]] if name == "clusters" else []
                 row = check_dtw(csig, cparams, f"{name}, {cnpos} x {cT}", jobs.pop(name),
                                 others)
                 row.update(npos=cnpos, T=cT, plain_ms=row.pop("plain_s") * 1e3,
@@ -3253,7 +3338,8 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
                     sync()
                     require(torch.equal(mg, mc) and torch.equal(eg, ec) and torch.equal(fg, fc),
                             "dtw global and cluster kernels identical (ties)")
-    timed = {**rows["timed"], **timed}
+    # the twin's time at the clusters' check (DTW_CLUSTER_SAMPLES samples)
+    timed = {**rows["clusters"], **timed, "T": T, "plain_T": DTW_CLUSTER_SAMPLES}
     timed["us_per_sample"] = timed["ms"] * 1e3 / T
     # the table's error: the largest difference of any check
     timed["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
@@ -4479,9 +4565,9 @@ def time_checkout(checkout: pathlib.Path) -> None:
         args = (sig, *match_inputs(params, 1.0, 0.0, "cuda"), 0.0,
                 *DTW_OPTIONS.values())
         out["dtw_viterbi_ms"] = cuda_ms(lambda: d.squiggle_match_tm(*args),
-                                        reps=3, warmup=1)
+                                        **TWIN_REPS)
         out["dtw_forward_ms"] = cuda_ms(
-            lambda: d.squiggle_match_tm(*args, viterbi=False), reps=3, warmup=1)
+            lambda: d.squiggle_match_tm(*args, viterbi=False), **TWIN_REPS)
     seq = random_bases(MAP_BASES, rng)
     data = mapping_signal(api.sequence_to_squiggle(seq, device="cuda"), rng)
     api.map_signal_to_squiggle(data, seq, device="cuda")
@@ -4630,6 +4716,450 @@ def compare_checkouts(other: pathlib.Path) -> None:
     print(card_line(), flush=True)
 
 
+# ------------------------------------------------------------ precision
+# The precision policy (nn/config.py) on the card: each kernel with
+# products against its twin with the same operand rounding, in 'default'
+# (TF32) and 'bf16' (phase precision_kernels). Kernel and twin round the
+# same operands the same way and multiply them exactly, so only the order
+# of the fp32 sums differs: the projection's and the head's outputs within
+# PRECISION_ATOL. A recurrence rounds the h it carries at every step, so a
+# sum's last bit can move a rounded h by one of its mode's ulps, and the
+# next steps carry that: h (bounded by 1) within four ulps of the mode at
+# 1 (TF32 2^-11, bfloat16 2^-8; measured: bfloat16's GRU h 5.4e-3 apart).
+PRECISION_MODES = ("default", "bf16")
+PRECISION_ROUNDING = {"highest": None, "default": "tf32", "bf16": "bf16"}
+PRECISION_H_ATOL = {"default": 4 * 2.0 ** -11, "bf16": 4 * 2.0 ** -8}
+PRECISION_ATOL = {"default": 1e-3, "bf16": 1e-3}
+# The paths whose calls each mode changes (phase precision_paths): model,
+# engine keywords.
+PRECISION_PATHS = (("rgrgr_r94", dict(mode="fast")),
+                   ("rnnrf_r94", dict(mode="stitch")),
+                   ("nanonet_events", dict(mode="fast")),
+                   ("rgrgr_r94", dict(mode="fast", ensemble=ENSEMBLE)))
+# Phase realdata: a simulated read of the bundled read ch174_read172's
+# trimmed length ([200, 80 990)), and a shorter one held to the CPU.
+REAL_SAMPLES = 80790
+REAL_CPU_SAMPLES = 20000
+REAL_SCORE_RTOL = 1e-5
+# Phase crf_assoc: the associative scan against the sequential kernels.
+# (the posteriors of two float32 recursions over 31 744 steps, the scan's
+# sums in log depth; measured 1.35e-4 apart)
+ASSOC_SCORE_RTOL = 1e-4
+ASSOC_POST_ATOL = 5e-4
+
+
+def in_mode(mode: str, fn):
+    """fn() under precision `mode`, the mode before restored after."""
+    from scrappie_torch.nn import config
+
+    with config.precision(mode):
+        return fn()
+
+
+def precision_case(name: str, kernel, twin, tol: float) -> dict:
+    """kernel() (a tensor or a tuple of them) in each mode against
+    twin(rounding) with the mode's rounding: finite, the largest
+    difference within tol[mode]; its time in each mode and in 'highest', and how
+    far 'bf16' moved it from 'highest'."""
+    import torch
+
+    as_tuple = lambda t: t if isinstance(t, tuple) else (t,)
+    diff = lambda a, b: max(float((x - y).abs().max()) for x, y in zip(a, b))
+    row = {"ms_highest": cuda_ms(lambda: in_mode("highest", kernel), reps=10)}
+    exact = as_tuple(in_mode("highest", kernel))
+    for mode in PRECISION_MODES:
+        got = as_tuple(in_mode(mode, kernel))
+        want = as_tuple(twin(PRECISION_ROUNDING[mode]))
+        sync()
+        require(all(bool(torch.isfinite(t).all()) for t in got),
+                f"{name} {mode}: finite")
+        err = diff(got, want)
+        require(err <= tol[mode], f"{name} {mode}: max abs err {err} <= {tol[mode]}")
+        row[f"max_abs_err_{mode}"] = err
+        row[f"moved_from_highest_{mode}"] = diff(got, exact)
+        row[f"ms_{mode}"] = cuda_ms(lambda: in_mode(mode, kernel), reps=10)
+    return row
+
+
+def check_precision_kernels(net, enet, card: str) -> dict:
+    """The four kernels with products in 'default' and 'bf16' against
+    their twins with the same rounding, at the shapes their paths run: the
+    projection (rgrgr_r94's first GRU layer, T = 2000, B = 64, K = 96,
+    N = 288), the GRU recurrence (its projected input, both modes of the
+    kernel: registers at S = 96, and the big-S mode at S = 160), the head
+    (K = 1 and 3 at T = 2000, B = 64) and the LSTM recurrence (the events
+    network's first stage, T = 2048, B = 64, both directions a launch; one
+    layer in the big-S mode at S = 160); each kernel's time in each mode
+    beside 'highest' (phase precision_kernels). Returns
+    {kernel: {max_abs_err_<mode>, ms_<mode>}} for the kernels line."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.nn import rnn
+    from scrappie_torch.nn.layers import affine, conv1d, window
+    from scrappie_torch.ops import gru as g
+    from scrappie_torch.ops import lstm as L
+    from scrappie_torch.ops import viterbi as v
+    from scrappie_torch.ops.pipeline import (CONV_ACT, ensemble_features_tm,
+                                             lstm_weights)
+    from scrappie_torch.ops.project import project_tm
+
+    t0 = time.perf_counter()
+    B = 64
+    rng = np.random.default_rng(SEED + 300)
+    p = net.params
+    sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1)).astype(np.float32),
+                          device="cuda")
+    x = CONV_ACT[net.conv_activation](
+        conv1d(sig, p["conv_W"], p["conv_b"], net.stride)).transpose(0, 1).contiguous()
+    iW, bias, sW, sW2 = (p[f"gruB1_{k}"] for k in ("iW", "b", "sW", "sW2"))
+    xproj = project_tm(x, iW, bias)
+    h = g.gru_layer_tm(x, *(p[f"gruF2_{k}"] for k in ("iW", "b", "sW", "sW2")))
+    out = {
+        "project": precision_case(
+            "project", lambda: project_tm(x, iW, bias),
+            lambda r: affine(x, iW, bias, r), PRECISION_ATOL),
+        "gru_recurrence": precision_case(
+            "gru_recurrence", lambda: g.gru_tm(xproj, sW, sW2, True),
+            lambda r: rnn.gru_tm(xproj, sW, sW2, True, r), PRECISION_H_ATOL),
+        "head": precision_case(
+            "head K = 1", lambda: v.head_logpost_tm(h, p["FF_W"], p["FF_b"]),
+            lambda r: v.head_logpost_tm_plain(h, p["FF_W"], p["FF_b"], rounding=r),
+            PRECISION_ATOL)}
+    nets = ensemble_nets()
+    h3, W3, b3 = ensemble_features_tm(
+        [n.params for n in nets], sig, kinds=("rgrgr",) * 3,
+        conv_activations=[n.conv_activation for n in nets], stride=5)
+    w3 = ensemble_weights(3)
+    out["head"]["K3"] = precision_case(
+        "head K = 3", lambda: v.head_logpost_tm(h3, W3, b3, w3),
+        lambda r: v.head_logpost_tm_plain(h3, W3, b3, w3, rounding=r),
+        PRECISION_ATOL)
+    del h3, W3, b3
+    # the LSTM: the events network's first stage
+    e = enet.params
+    xe = window(events_input(enet, B, rng), enet.winlen, 1).transpose(0, 1).contiguous()
+    wF, wB = (lstm_weights(e, d, 1) for d in ("F", "B"))
+    S = wF[2].shape[0]
+    xpair = project_tm(xe, torch.cat((wF[0], wB[0]), 1), torch.cat((wF[1], wB[1])))
+    out["lstm_pair"] = precision_case(
+        "lstm_pair", lambda: L.lstm_pair_recurrence_cuda(xpair, *wF[2:], *wB[2:]),
+        lambda r: (rnn.lstm_tm(xpair[..., :4 * S], *wF[2:], False, rounding=r),
+                   rnn.lstm_tm(xpair[..., 4 * S:], *wB[2:], True, rounding=r)),
+        PRECISION_H_ATOL)
+    out["lstm_layer"] = precision_case(
+        "lstm_layer", lambda: L.lstm_recurrence_cuda(
+            xpair[..., 4 * S:].contiguous(), *wB[2:], True),
+        lambda r: rnn.lstm_tm(xpair[..., 4 * S:], *wB[2:], True, rounding=r),
+        PRECISION_H_ATOL)
+    # the big-S modes (weights read from L2), seeded weights at S = 160
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 301)
+    Sb, Tb, Bb = BIG_S_BWD, T_BIG_S, 8
+    rnd = lambda *shape, s=0.3: s * torch.randn(shape, generator=gen, device="cuda")
+    gx, gsW, gsW2 = rnd(Tb, Bb, 3 * Sb, s=1.0), rnd(Sb, 2 * Sb, s=0.1), rnd(Sb, Sb, s=0.1)
+    out["gru_recurrence_global"] = precision_case(
+        "gru_recurrence_global", lambda: g.gru_tm(gx, gsW, gsW2, False),
+        lambda r: rnn.gru_tm(gx, gsW, gsW2, False, r), PRECISION_H_ATOL)
+    lx, lsW, lp = rnd(Tb, Bb, 4 * Sb, s=1.0), rnd(Sb, 4 * Sb, s=0.1), rnd(3 * Sb)
+    out["lstm_layer_global"] = precision_case(
+        "lstm_layer_global", lambda: L.lstm_recurrence_cuda(lx, lsW, lp, False),
+        lambda r: rnn.lstm_tm(lx, lsW, lp, False, rounding=r), PRECISION_H_ATOL)
+    emit({"phase": "precision_kernels", "T": T_BLOCKS, "B": B,
+          "lstm": {"T": T_EVENTS, "B": B, "S": S},
+          "big_s": {"S": Sb, "T": Tb, "B": Bb}, "kernels": out,
+          "seconds": round(time.perf_counter() - t0, 3), "card": card})
+    return out
+
+
+def precision_cpu_call(mode: str, model: str, engine_kw: dict, sig):
+    """One read's call on the CPU under precision `mode`, in a worker
+    process."""
+    import torch
+
+    from scrappie_torch.nn import config
+    from scrappie_torch.parallel.runner import BasecallEngine
+
+    torch.set_num_threads(1)
+    with config.precision(mode):  # the worker runs other jobs after
+        return BasecallEngine(model, device="cpu",
+                              **engine_kw).basecall_signals([sig])[0].sequence
+
+
+def precision_paths(card: str, reads: list, pool) -> dict:
+    """The 16 reads through each of PRECISION_PATHS on the card in
+    'highest', 'default' and 'bf16': every read called in each mode, and
+    the edit distance of each mode's calls to 'highest''s (a figure, not a
+    gate); then each path's shortest read in 'bf16' on the card against
+    the CPU's 'bf16' call (phase cpu_vs_cuda, a figure: the CPU runs in
+    the pool meanwhile). Returns {path: {mode: (edits, bases)}}."""
+    from scrappie_torch.parallel.runner import BasecallEngine
+    from scrappie_torch.utils.seqcompare import edit_distance
+
+    t0 = time.perf_counter()
+    short = min(range(len(reads)), key=lambda i: len(reads[i].raw))
+    jobs = {i: pool.submit(precision_cpu_call, "bf16", model, kw, reads[short])
+            for i, (model, kw) in enumerate(PRECISION_PATHS)}
+    table = {}
+    for i, (model, kw) in enumerate(PRECISION_PATHS):
+        label = model + (" 3:1:1" if "ensemble" in kw else "") + f" {kw['mode']}"
+        engine = BasecallEngine(model, device="cuda", **kw)
+        calls, seconds = {}, {}
+        for mode in ("highest",) + PRECISION_MODES:
+            t1 = time.perf_counter()
+            res = in_mode(mode, lambda: engine.basecall_signals(reads))
+            seconds[mode] = time.perf_counter() - t1
+            require(all(r.sequence for r in res), f"precision {label} {mode}: every read called")
+            calls[mode] = [r.sequence for r in res]
+        row = {}
+        for mode in PRECISION_MODES:
+            dists = [edit_distance(a, b) for a, b in zip(calls[mode], calls["highest"])]
+            row[mode] = {"edits": sum(dists), "bases": sum(map(len, calls["highest"])),
+                         "reads_differing": sum(d > 0 for d in dists),
+                         "edits_per_base": sum(dists) / sum(map(len, calls["highest"]))}
+        table[label] = row
+        emit({"phase": "precision_paths", "path": label, "reads": len(reads),
+              "against_highest": row, "seconds": seconds, "card": card})
+        cpu = jobs[i].result()
+        g = calls["bf16"][short]
+        emit({"phase": "cpu_vs_cuda", "path": f"precision_paths {label}",
+              "precision": "bf16", "read": reads[short].uuid, "bases": len(g),
+              "edit_distance": 0 if g == cpu else edit_distance(g, cpu)})
+    emit({"phase": "precision_paths", "seconds": round(time.perf_counter() - t0, 3)})
+    return table
+
+
+# ------------------------------------------------------------ realdata
+
+
+def simulated_read(nsample: int, seed: int):
+    """A med/MAD-normalised read of nsample samples from the port's
+    squiggle simulator (on the card) and the truth bases it covers."""
+    import numpy as np
+
+    from scrappie_torch.train.simulate import SquiggleSimulator
+
+    sim = SquiggleSimulator(seed=seed, device="cuda")
+    sig, bases, base_at = sim.simulate_read(nsample // 7)
+    require(len(sig) >= nsample, f"simulated {len(sig)} >= {nsample} samples")
+    sig = sig[:nsample]
+    med = np.median(sig)
+    norm = ((sig - med) / (np.median(np.abs(sig - med)) * 1.4826)).astype(np.float32)
+    return norm, "".join("ACGT"[b] for b in bases[: base_at[nsample - 1] + 1])
+
+
+def cpu_label_read(norm, truth):
+    """label_read on the CPU, in a worker process."""
+    import torch
+
+    from scrappie_torch.train.realdata import label_read
+
+    torch.set_num_threads(2)
+    return label_read(norm, truth, device="cpu", name="cpu")
+
+
+def check_realdata(card: str, pool) -> None:
+    """Real-read training data on the card (phase realdata): label_read of
+    a simulated read of REAL_SAMPLES samples (rgrgr_r94's posterior, then
+    the seqmap kernel and its walk in both orientations), its aligned
+    fraction, score a block and seconds; label_read of a
+    REAL_CPU_SAMPLES-sample read held to the port's CPU run (the same
+    orientation, base_at equal, the score within REAL_SCORE_RTOL); then
+    EmpiricalModel.fit on both labelled reads, one rgrgr_r94 framewise
+    training step on a RealReadSampler batch and one on a
+    RealisticSimulator batch, and one whole-read transducer step on the
+    shorter read's labelled region: their losses finite."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.models import registry
+    from scrappie_torch.models.convert import params_from_numpy
+    from scrappie_torch.train import trainer, wholeread
+    from scrappie_torch.train.optim import FiniteClippedAdam
+    from scrappie_torch.train.realdata import RealReadSampler, label_read
+    from scrappie_torch.train.realsim import EmpiricalModel, RealisticSimulator
+
+    t0 = time.perf_counter()
+    short, short_truth = simulated_read(REAL_CPU_SAMPLES, SEED + 311)
+    job = pool.submit(cpu_label_read, short, short_truth)
+    norm, truth = simulated_read(REAL_SAMPLES, SEED + 310)
+    sync()
+    t1 = time.perf_counter()
+    lr = label_read(norm, truth, device="cuda", name="simulated")
+    seconds = time.perf_counter() - t1
+    aligned = float((lr.base_at >= 0).mean())
+    require(aligned > 0.5, f"label_read aligned fraction {aligned}")
+    require(np.isfinite(lr.map_score), "label_read score finite")
+    row = {"samples": len(norm), "blocks": len(norm) // 5, "truth_bases": len(truth),
+           "aligned_fraction": aligned, "score_per_block": lr.map_score,
+           "orientation_kept": "fwd" if len(lr.bases) == len(truth) and
+           "".join("ACGT"[b] for b in lr.bases) == truth else "rc",
+           "seconds": seconds}
+    ls = label_read(short, short_truth, device="cuda", name="short")
+    lc = job.result()
+    require(np.array_equal(ls.bases, lc.bases), "label_read orientation: card = CPU")
+    same = float((ls.base_at == lc.base_at).mean())
+    rel = abs(ls.map_score - lc.map_score) / abs(lc.map_score)
+    row["cpu_check"] = {"samples": len(short), "score_rel_err": rel,
+                        "base_at_equal_fraction": same,
+                        "blocks_differing": int((ls.base_at[::5] != lc.base_at[::5]).sum())}
+    emit({"phase": "realdata", "cpu_check": row["cpu_check"]})
+    require(rel <= REAL_SCORE_RTOL, f"label_read score rel err {rel} <= {REAL_SCORE_RTOL}")
+    require(same == 1.0, f"label_read base_at: card = CPU on {same}")
+    reads = [lr, ls]
+    model = EmpiricalModel.fit(reads)
+    require(np.isfinite(model.level).all() and 0 <= model.phi < 1, "EmpiricalModel fit")
+    params = params_from_numpy(registry.load_params("rgrgr_r94"), "cuda")
+    opt = FiniteClippedAdam({k: v.clone() for k, v in params.items()}, 1e-4)
+    step = trainer.make_train_step("rgrgr_r94", opt)
+    sampler = RealReadSampler(reads, seed=SEED)
+    losses = {"framewise, RealReadSampler": float(step(*sampler.batch(8, 4000, 5)))}
+    sim = RealisticSimulator(model, seed=SEED)
+    losses["framewise, RealisticSimulator"] = float(step(*sim.labelled_batch(8, 4000, 5)))
+    wstep = wholeread.make_wholeread_transducer_step(
+        "rgrgr_r94", FiniteClippedAdam({k: v.clone() for k, v in params.items()}, 1e-4))
+    rsig, rseq = wholeread.region_seqstates(ls, sampler._train_end[1], 5, WHOLE_CHUNK)
+    losses["whole-read transducer, labelled region"] = float(
+        wstep(rsig[None, :, None], rseq[None]))
+    for what, loss in losses.items():
+        require(np.isfinite(loss), f"realdata {what}: loss finite ({loss})")
+    emit({"phase": "realdata", "label_read": row,
+          "empirical_model": {"phi": model.phi, "sigma": model.sigma,
+                              "dwell_pool": len(model.dwell_pool)},
+          "losses": losses, "region": {"samples": len(rsig), "states": len(rseq)},
+          "seconds": round(time.perf_counter() - t0, 3), "card": card})
+
+
+# ------------------------------------------------------------ validate
+
+
+def check_validate(card: str, reads: list) -> None:
+    """SCRAPPIE_TORCH_VALIDATE on the card (phase validate): the rgrgr_r94
+    fast engine over 8 reads, one poisoned with NaN, with validation off
+    and on: on, the poisoned read is skipped (no sequence) and the others'
+    calls equal the run's with validation off; then a forward on a
+    poisoned chunk raises nothing until validate.raise_pending() reads
+    the card's checks, and a clean one leaves nothing pending."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.parallel.runner import BasecallEngine, RawSignal
+    from scrappie_torch.utils import validate
+
+    t0 = time.perf_counter()
+    batch = list(reads[:8])
+    raw = batch[3].raw.copy()
+    raw[5000:5100] = np.nan
+    batch[3] = RawSignal(raw, uuid="poisoned")
+    engine = BasecallEngine("rgrgr_r94", device="cuda", mode="fast")
+    try:
+        validate.set_enabled(False)  # the seven good reads
+        off = engine.basecall_signals(batch[:3] + batch[4:])
+        validate.set_enabled(True)
+        on = engine.basecall_signals(batch)
+        require(on[3].sequence is None, "validate: the poisoned read is skipped")
+        same = [a.sequence == b.sequence for a, b in zip(on[:3] + on[4:], off)]
+        require(all(same) and all(r.sequence for r in off),
+                f"validate: the other calls equal validation off's ({sum(same)}/7)")
+        net = engine.net
+        sig = torch.randn((2, CHUNK, 1), device="cuda")
+        with torch.inference_mode():
+            net(sig)
+            validate.raise_pending()
+            sig[1, 500:510] = float("nan")
+            net(sig)
+        sync()
+        try:
+            validate.raise_pending()
+            raised = None
+        except validate.ValidationError as err:
+            raised = str(err)
+        require(raised is not None and "non-finite" in raised,
+                f"validate: the card's checks raise at raise_pending ({raised})")
+    finally:
+        validate.set_enabled(None)
+        validate._pending.clear()
+    emit({"phase": "validate", "reads": len(batch), "skipped": ["poisoned"],
+          "others_equal": True, "deferred_error": raised[:200],
+          "seconds": round(time.perf_counter() - t0, 3), "card": card})
+
+
+# ------------------------------------------------------------ crf_assoc
+
+
+def check_crf_assoc(rnet, card: str) -> None:
+    """decode/crf's parallel-in-time decode and posterior (impl "assoc":
+    associative scans of the 5 x 5 transition matrices, plain PyTorch) on
+    the card at the rnnrf stitch shape CRF_STITCH, on rnnrf_r94's
+    transitions of seeded signal, against the sequential kernels (the CRF
+    forward and backtrace, the forward-backward): paths equal, scores
+    within ASSOC_SCORE_RTOL, posteriors within ASSOC_POST_ATOL; each
+    one's time (phase crf_assoc)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.decode import crf as dc
+    from scrappie_torch.nn.layers import globalnorm_tm
+    from scrappie_torch.ops import crf as c
+    from scrappie_torch.ops.pipeline import rnnrf_features_tm
+
+    T, B = CRF_STITCH
+    rng = np.random.default_rng(SEED + 320)
+    sig = torch.as_tensor(rng.standard_normal((B, 2 * T, 1)).astype(np.float32),
+                          device="cuda")
+    p = rnet.params
+    trans = globalnorm_tm(rnnrf_features_tm(p, sig, rnet.conv_activation, rnet.stride),
+                          p["FF_W"], p["FF_b"]).contiguous()
+    sk, pk = c.crf_viterbi_tm(trans)
+    sa, pa = dc.crf_viterbi_assoc_tm(trans)
+    postk = c.crf_posterior_tm(trans)
+    posta = dc.crf_posterior_assoc_tm(trans)
+    sync()
+    require(torch.equal(pk.long(), pa.long()), "crf assoc: paths equal to the kernels'")
+    srel = float(((sk - sa).abs() / sk.abs()).max())
+    require(srel <= ASSOC_SCORE_RTOL, f"crf assoc score rel err {srel}")
+    perr = float((postk - posta).abs().max())
+    require(bool(torch.isfinite(posta).all()) and perr <= ASSOC_POST_ATOL,
+            f"crf assoc posterior max abs err {perr} <= {ASSOC_POST_ATOL}")
+    emit({"phase": "crf_assoc", "T": T, "B": B, "paths_equal": True,
+          "score_max_rel_err": srel, "posterior_max_abs_err": perr,
+          "ms": {"viterbi kernels": cuda_ms(lambda: c.crf_viterbi_tm(trans), reps=5),
+                 "viterbi assoc": cuda_ms(lambda: dc.crf_viterbi_assoc_tm(trans), reps=3),
+                 "posterior kernels": cuda_ms(lambda: c.crf_posterior_tm(trans), reps=5),
+                 "posterior assoc": cuda_ms(lambda: dc.crf_posterior_assoc_tm(trans),
+                                            reps=3)},
+          "card": card})
+
+
+# ------------------------------------------------------------ embed
+
+
+def check_embed(card: str, reads: list) -> None:
+    """scrappie_torch.embed (what the C shim calls) on the card, its
+    device None as the shim's null: basecall_raw and calc_post equal to
+    api.basecall_raw's and api.calc_post's on the card, for rgrgr_r94 and
+    rnnrf_r94 (phase embed; the shim itself is built and run by
+    tests/test_torch_embed.py)."""
+    import numpy as np
+
+    from scrappie_torch import api, embed
+
+    raw = np.ascontiguousarray(reads[0].raw[:20000], dtype=np.float32)
+    rows = {}
+    for model in ("rgrgr_r94", "rnnrf_r94"):
+        seq, score = embed.basecall_raw(memoryview(raw), model, None)
+        want = api.basecall_raw(raw, model=model, device="cuda")
+        require(seq and (seq, score) == (want[0], float(want[1])),
+                f"embed {model}: basecall_raw equals api's")
+        data, nblock, nstate = embed.calc_post(memoryview(raw), model, None)
+        rt = api.RawTable(raw)
+        rt.trim().scale()
+        post = api.calc_post(rt, model, device="cuda").data()
+        require(np.array_equal(np.frombuffer(data, np.float32).reshape(nblock, nstate),
+                               post), f"embed {model}: calc_post equals api's")
+        rows[model] = {"bases": len(seq), "post": [nblock, nstate]}
+    emit({"phase": "embed", "version": embed.version(), "models": rows, "card": card})
+
+
 def main() -> int:
     import torch
 
@@ -4670,11 +5200,10 @@ def main() -> int:
     rnet = RnnrfModel.from_registry("rnnrf_r94", "cuda")
     enet = EventsModel.from_registry("nanonet_events", "cuda")
     with torch.inference_mode():
-        check_kernels(net, 8)
+        check_decode_kernels(net, 8)
         table = check_kernels(net, 64)
         check_viterbi_options(net)
         nets = ensemble_nets()
-        check_ens_kernel(nets, 8)
         table["viterbi_fused_ens"], head3 = check_ens_kernel(nets, 64)
         table["head"]["K3"] = head3
         compare_routes(nets, card)
@@ -4685,11 +5214,11 @@ def main() -> int:
         check_backtraces()
         forward_scaling(card)
         table.update(check_crf_kernels(rnet))
-        check_lstm_kernel(enet, 8)
+        check_crf_assoc(rnet, card)
         table["lstm_layer"], table["lstm_pair"] = check_lstm_kernel(enet, 64)
-    check_gru_backward(net, 8)  # autograd is its reference: no inference mode
+        precision = check_precision_kernels(net, enet, card)
+    # autograd is its reference: no inference mode
     table["gru_recurrence_bwd"] = check_gru_backward(net, 64)
-    check_lstm_backward(enet, 8)
     table["lstm_recurrence_bwd"], table["lstm_pair_train"] = check_lstm_backward(enet, 64)
     table.update(check_big_s_backward())
     with torch.inference_mode():
@@ -4721,6 +5250,10 @@ def main() -> int:
             quality_launches = check_qualities(card, reads, pool)
         check_batch_invariance(card)
         main_path_serve(card, reads, pool)
+        precision_paths(card, reads, pool)
+        check_realdata(card, pool)
+    check_validate(card, reads)
+    check_embed(card, reads)
     # each kernel's launches on its own path: the GRU recurrence's, the
     # head's and the Viterbi kernels' on the rgrgr path, the CRF kernels' on
     # rnnrf's, the LSTM's on the events path's, the fused ensemble kernel's
@@ -4761,7 +5294,11 @@ def main() -> int:
          "plain_ms": table[name]["plain_ms"],
          "bound_ms": table[name]["bound_ms"],
          "bound_by": table[name]["bound_by"],
-         "library_ms": table[name].get("library_ms")}
+         "library_ms": table[name].get("library_ms"),
+         # the kernels with products, in the precision policy's other modes
+         **{f"{k}_{mode}": precision[name][f"{k}_{mode}"]
+            for k in ("max_abs_err", "ms") for mode in PRECISION_MODES
+            if name in precision}}
         for name in KERNELS]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -21,6 +21,6 @@ map_post_to_sequence), scrappie_torch.parallel.runner.BasecallEngine, and
 `python -m scrappie_torch raw|events|squiggle|mappy|seqmappy|event_table`.
 """
 
-from scrappie_torch import device as _device  # noqa: F401  (sets exact fp32)
+from scrappie_torch import device as _device  # noqa: F401  (sets the precision policy)
 
 __version__ = "0.1.0"

@@ -52,6 +52,14 @@ def _add_device(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="Torch device: 'cuda' runs the CUDA kernels, 'cpu' "
                         "their plain PyTorch twins")
+    p.add_argument("--precision", choices=["highest", "default", "bf16"],
+                   default=None,
+                   help="Precision of the matrix products: 'highest' (exact "
+                        "fp32, reference parity; the default), 'default' "
+                        "(TF32 on the card, plain fp32 on the CPU), 'bf16' "
+                        "(bfloat16 operands, fp32 sums, on any device). "
+                        "Also settable as SCRAPPIE_TORCH_PRECISION; the "
+                        "flag wins for the command's duration.")
 
 
 def _add_common(p) -> None:
@@ -667,7 +675,13 @@ def main(argv=None) -> int:
             parser.parse_args([args.topic, "--help"])  # exits
         parser.print_help()
         return 0
-    return _COMMANDS[args.command](args)
+    precision = getattr(args, "precision", None)
+    if precision is None:
+        return _COMMANDS[args.command](args)
+    from scrappie_torch.nn.config import precision as precision_mode
+
+    with precision_mode(precision):
+        return _COMMANDS[args.command](args)
 
 
 if __name__ == "__main__":

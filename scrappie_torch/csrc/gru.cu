@@ -62,10 +62,19 @@
 // sums in another order. A simple kernel: it runs only above the shipped
 // models' S = 96.
 //
+// Precision (template kRound of gru_recurrence_kernel, rounding.cuh): in
+// 'default' and 'bf16' the weights are rounded once, where they are loaded
+// into registers (the big-S mode rounds each weight it reads from L2), and
+// the two activations where they are formed: r * h when it is written to
+// shared memory, and h into a rounded copy beside it (the gates read the
+// unrounded h), so a step does the same FMAs as in 'highest'.
+//
 // The superseded gru_layer_kernel: one block per row and one thread per
 // gate column (3S threads); iW, sW and sW2 in shared memory (224 KB at
 // C = S = 96) and the 96-term projection of each step inside the loop.
 #include <cuda_runtime.h>
+
+#include "rounding.cuh"
 
 namespace {
 
@@ -107,7 +116,9 @@ __device__ __forceinline__ float lane_dot(const float* vec, const float (&w)[N])
 }
 
 // Partial dot product of one lane in the big-S mode: vec[k] * W[k, col]
-// for k in [k0, min(k0 + n, S)), W row-major with ncol columns.
+// for k in [k0, min(k0 + n, S)), W row-major with ncol columns, each
+// weight rounded as it is read.
+template <int kRound>
 __device__ __forceinline__ float lane_dot_global(const float* vec,
                                                  const float* __restrict__ W,
                                                  int ncol, int col, int k0,
@@ -116,10 +127,14 @@ __device__ __forceinline__ float lane_dot_global(const float* vec,
   const int kend = min(k0 + n, S);
   int k = k0;
   for (; k + 2 <= kend; k += 2) {
-    a0 = fmaf(vec[k], __ldg(W + (size_t)k * ncol + col), a0);
-    a1 = fmaf(vec[k + 1], __ldg(W + (size_t)(k + 1) * ncol + col), a1);
+    a0 = fmaf(vec[k], round_weight<kRound>(__ldg(W + (size_t)k * ncol + col)),
+              a0);
+    a1 = fmaf(vec[k + 1],
+              round_weight<kRound>(__ldg(W + (size_t)(k + 1) * ncol + col)), a1);
   }
-  if (k < kend) a0 = fmaf(vec[k], __ldg(W + (size_t)k * ncol + col), a0);
+  if (k < kend)
+    a0 = fmaf(vec[k], round_weight<kRound>(__ldg(W + (size_t)k * ncol + col)),
+              a0);
   return __fadd_rn(a0, a1);
 }
 
@@ -145,9 +160,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // kLA (kLB) lanes share a z/r (candidate) column, each holding
 // REG_MAX_S / kLA (REG_MAX_S / kLB) of its weights in registers; the big-S
 // mode (kGlobal) reads them from global memory instead. Shared memory: h
-// [SP], r * h [SP], z [S], SP = max(S, REG_MAX_S), the tails past S zero;
-// on chip also a ring of RING projected input rows [RING][3S].
-template <bool kGlobal, int kLA, int kLB>
+// [SP], r * h [SP], z [SP], h rounded [SP] (kRound only),
+// SP = max(S, REG_MAX_S), the tails past S zero; on chip also a ring of
+// RING projected input rows [RING][3S].
+template <bool kGlobal, int kLA, int kLB, int kRound>
 __global__ void __launch_bounds__(kGlobal ? 1024 : kLB * REG_MAX_S)
 gru_recurrence_kernel(const float* __restrict__ x, const float* __restrict__ sW,
                       const float* __restrict__ sW2, float* __restrict__ y,
@@ -159,7 +175,9 @@ gru_recurrence_kernel(const float* __restrict__ x, const float* __restrict__ sW,
   float* s_h = smem;
   float* s_rh = s_h + SP;
   float* s_z = s_rh + SP;
-  float* s_x = s_z + SP;  // on chip: [RING][3S]
+  float* s_hr = s_z + SP;  // h rounded, the products' operand
+  float* s_x = s_hr + SP;  // on chip: [RING][3S]
+  const float* s_hd = kRound ? s_hr : s_h;  // what the products read
   const int S2 = 2 * S;
   const int S3 = 3 * S;
   const int b = blockIdx.x;
@@ -175,6 +193,7 @@ gru_recurrence_kernel(const float* __restrict__ x, const float* __restrict__ sW,
   for (int k = tid; k < SP; k += blockDim.x) {
     s_h[k] = 0.0f;
     s_rh[k] = 0.0f;
+    s_hr[k] = 0.0f;
   }
   float wa[kGlobal ? 1 : kRowsA];
   float wb[kGlobal ? 1 : kRowsB];
@@ -182,12 +201,14 @@ gru_recurrence_kernel(const float* __restrict__ x, const float* __restrict__ sW,
 #pragma unroll
     for (int i = 0; i < kRowsA; ++i) {
       const int k = la * kRowsA + i;
-      wa[i] = (ga < S2 && k < S) ? sW[(size_t)k * S2 + ga] : 0.0f;
+      wa[i] = (ga < S2 && k < S) ? round_weight<kRound>(sW[(size_t)k * S2 + ga])
+                                 : 0.0f;
     }
 #pragma unroll
     for (int i = 0; i < kRowsB; ++i) {
       const int k = lb * kRowsB + i;
-      wb[i] = (gb < S && k < S) ? sW2[(size_t)k * S + gb] : 0.0f;
+      wb[i] = (gb < S && k < S) ? round_weight<kRound>(sW2[(size_t)k * S + gb])
+                                : 0.0f;
     }
   }
   const int t0 = reverse ? T - 1 : 0;
@@ -227,22 +248,22 @@ gru_recurrence_kernel(const float* __restrict__ x, const float* __restrict__ sW,
       const int ngroup = blockDim.x / kLA;
       for (int j0 = 0; j0 < S2; j0 += ngroup) {
         const int j = j0 + tid / kLA;
-        const float part = j < S2 ? lane_dot_global(s_h, sW, S2, j, la * na,
-                                                    na, S)
+        const float part = j < S2 ? lane_dot_global<kRound>(s_hd, sW, S2, j,
+                                                            la * na, na, S)
                                   : 0.0f;
         const float rec = group_sum<kLA>(part);
         if (la == 0 && j < S2) {
           const float g = sigmoid_f32(__fadd_rn(xrow[j], rec));
           if (j < S) s_z[j] = g;
-          else s_rh[j - S] = __fmul_rn(g, s_h[j - S]);
+          else s_rh[j - S] = round_operand<kRound>(__fmul_rn(g, s_h[j - S]));
         }
       }
     } else {
-      const float rec = group_sum<kLA>(lane_dot(s_h + la * kRowsA, wa));
+      const float rec = group_sum<kLA>(lane_dot(s_hd + la * kRowsA, wa));
       if (ownA) {
         const float g = sigmoid_f32(__fadd_rn(xa, rec));
         if (ga < S) s_z[ga] = g;
-        else s_rh[ga - S] = __fmul_rn(g, s_h[ga - S]);
+        else s_rh[ga - S] = round_operand<kRound>(__fmul_rn(g, s_h[ga - S]));
       }
     }
     __syncthreads();
@@ -253,8 +274,8 @@ gru_recurrence_kernel(const float* __restrict__ x, const float* __restrict__ sW,
       const int ngroup = blockDim.x / kLB;
       for (int k0 = 0; k0 < S; k0 += ngroup) {
         const int k = k0 + tid / kLB;
-        const float part = k < S ? lane_dot_global(s_rh, sW2, S, k, lb * nb,
-                                                   nb, S)
+        const float part = k < S ? lane_dot_global<kRound>(s_rh, sW2, S, k,
+                                                           lb * nb, nb, S)
                                  : 0.0f;
         const float acc = group_sum<kLB>(part);
         if (lb == 0 && k < S) {
@@ -263,6 +284,7 @@ gru_recurrence_kernel(const float* __restrict__ x, const float* __restrict__ sW,
           const float hn = __fadd_rn(__fmul_rn(z, s_h[k]),
                                      __fmul_rn(__fsub_rn(1.0f, z), hbar));
           s_h[k] = hn;
+          if (kRound) s_hr[k] = round_operand<kRound>(hn);
           y[((size_t)t * B + b) * S + k] = hn;
         }
       }
@@ -274,6 +296,7 @@ gru_recurrence_kernel(const float* __restrict__ x, const float* __restrict__ sW,
         const float hn = __fadd_rn(__fmul_rn(z, s_h[gb]),
                                    __fmul_rn(__fsub_rn(1.0f, z), hbar));
         s_h[gb] = hn;
+        if (kRound) s_hr[gb] = round_operand<kRound>(hn);
         y[((size_t)t * B + b) * S + gb] = hn;
       }
       // Refill this step's slot (its values were consumed above).
@@ -637,19 +660,19 @@ __global__ void gru_layer_kernel(const float* __restrict__ x,
   }
 }
 
-template <bool kGlobal, int kLA, int kLB>
+template <bool kGlobal, int kLA, int kLB, int kRound>
 int launch_recurrence(const float* x, const float* sW, const float* sW2,
                       float* y, int T, int B, int S, int reverse, int threads,
                       cudaStream_t stream) {
   const size_t sp = S > REG_MAX_S ? S : REG_MAX_S;
-  const size_t smem = sizeof(float) * (3 * sp + (kGlobal ? 0 : RING * 3 * (size_t)S));
+  const size_t smem = sizeof(float) * (4 * sp + (kGlobal ? 0 : RING * 3 * (size_t)S));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        gru_recurrence_kernel<kGlobal, kLA, kLB>,
+        gru_recurrence_kernel<kGlobal, kLA, kLB, kRound>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  gru_recurrence_kernel<kGlobal, kLA, kLB><<<B, threads, smem, stream>>>(
+  gru_recurrence_kernel<kGlobal, kLA, kLB, kRound><<<B, threads, smem, stream>>>(
       x, sW, sW2, y, T, B, S, reverse);
   return (int)cudaGetLastError();
 }
@@ -684,20 +707,23 @@ int scrappie_gru_layer(const float* x, const float* iW, const float* b,
 // x [T, B, 3S] projected, sW [S, 2S], sW2 [S, S] -> y [T, B, S]; all fp32,
 // contiguous, on the current device. global = 0: weights in registers
 // (S <= REG_MAX_S, which ops/gru.py names REGISTER_MAX_S); global = 1: the
-// big-S mode.
+// big-S mode. rounding 0, 1 or 2: none, TF32 or bfloat16 operands.
 // Returns a cudaError_t.
 int scrappie_gru_recurrence(const float* x, const float* sW, const float* sW2,
                             float* y, int T, int B, int S, int reverse,
-                            int global, cudaStream_t stream) {
+                            int global, int rounding, cudaStream_t stream) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
-  if (global)
-    return launch_recurrence<true, GLA, GLB>(x, sW, sW2, y, T, B, S, reverse,
-                                             1024, stream);
-  if (S > REG_MAX_S) return (int)cudaErrorInvalidValue;
+  if (!global && S > REG_MAX_S) return (int)cudaErrorInvalidValue;
   // LA threads per z/r column, LB per candidate column: 2S either way.
   static_assert(LA * 2 == LB, "one thread count serves both products");
-  return launch_recurrence<false, LA, LB>(x, sW, sW2, y, T, B, S, reverse,
-                                          ((LB * S + 31) / 32) * 32, stream);
+  return with_rounding(rounding, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (global)
+      return launch_recurrence<true, GLA, GLB, R>(x, sW, sW2, y, T, B, S,
+                                                  reverse, 1024, stream);
+    return launch_recurrence<false, LA, LB, R>(x, sW, sW2, y, T, B, S, reverse,
+                                               ((LB * S + 31) / 32) * 32, stream);
+  });
 }
 
 // The recurrence's backward walk: gates [T, B, 3S] (z | r | hbar), h_prev

@@ -42,8 +42,16 @@
 // Recomputing the product in a second pass per member, with no scratch,
 // took 14.5 ms at K = 3, T = 2000, B = 64 on an H100, against the plain
 // twin's 13.6 ms.
+//
+// Precision (template kRound, rounding.cuh): in 'default' and 'bf16' the
+// scaled rows h * hscale are rounded where they are staged (the scale
+// before the rounding, as softmax_with_temperature scales x before its
+// product), and each thread rounds the W entries it copied into a slice
+// once they have landed, before the barrier that hands the slice on.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "rounding.cuh"
 
 namespace {
 
@@ -121,7 +129,7 @@ __device__ __forceinline__ void load_slice(float* dst,
 // One pass over all of W for the block's rows: acc = hs @ W slice by
 // slice, and at the end of each column tile epi(tile, acc) with the tile's
 // 8 x 8 outputs of this thread, then acc = 0.
-template <typename Epilogue>
+template <int kRound, typename Epilogue>
 __device__ __forceinline__ void gemm_pass(const float* s_h, float* s_w,
                                           const float* __restrict__ W, int S,
                                           int nstate, Epilogue epi) {
@@ -142,6 +150,11 @@ __device__ __forceinline__ void gemm_pass(const float* s_h, float* s_w,
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
+    }
+    if constexpr (kRound != 0) {  // this thread's entries of slice s
+      float* own = s_w + (s & 1) * KT * NT;
+      for (int i = threadIdx.x; i < KT * NT; i += THREADS)
+        own[i] = round_weight<kRound>(own[i]);
     }
     __syncthreads();
     const float* ws = s_w + (s & 1) * KT * NT;
@@ -195,7 +208,7 @@ __device__ __forceinline__ void for_own_entries(int M, int nstate, int row0,
 // -> lp [M, nstate]; kCombine: y [M, nstate] holds each member's logits in
 // turn. Dynamic shared memory: h tile [SPAD][HP], W slices [2][KT][NT],
 // SPAD = S rounded up to KT.
-template <bool kCombine>
+template <bool kCombine, int kRound>
 __global__ void __launch_bounds__(THREADS, 2)
 head_kernel(const float* __restrict__ h, const float* __restrict__ W,
             const float* __restrict__ bvec, const float* __restrict__ weights,
@@ -221,7 +234,8 @@ head_kernel(const float* __restrict__ h, const float* __restrict__ W,
       const int r = i / spad, kk = i % spad;
       const int gr = row0 + r;
       s_h[kk * HP + r] = (gr < M && kk < S)
-                             ? __fmul_rn(hk[(size_t)gr * S + kk], hscale)
+                             ? round_operand<kRound>(
+                                   __fmul_rn(hk[(size_t)gr * S + kk], hscale))
                              : 0.0f;
     }
 
@@ -234,7 +248,7 @@ head_kernel(const float* __restrict__ h, const float* __restrict__ W,
       sm[i] = -CUDART_INF_F;
       ss[i] = 0.0f;
     }
-    gemm_pass(s_h, s_w, Wk, S, nstate, [&](int tile, float (&acc)[8][8]) {
+    gemm_pass<kRound>(s_h, s_w, Wk, S, nstate, [&](int tile, float (&acc)[8][8]) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = tile * NT + tile_col(tx, j);
@@ -287,16 +301,16 @@ head_kernel(const float* __restrict__ h, const float* __restrict__ W,
   });
 }
 
-template <bool kCombine>
+template <bool kCombine, int kRound>
 int launch(const float* h, const float* W, const float* bvec,
            const float* weights, float* lp, float* y, int K, int M, int S,
            int nstate, float hscale, float tempb, float c0, float c1,
            size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      head_kernel<kCombine>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      head_kernel<kCombine, kRound>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  head_kernel<kCombine><<<(M + RT - 1) / RT, THREADS, smem, stream>>>(
+  head_kernel<kCombine, kRound><<<(M + RT - 1) / RT, THREADS, smem, stream>>>(
       h, W, bvec, weights, lp, y, K, M, S, nstate, hscale, tempb, c0, c1);
   return (int)cudaGetLastError();
 }
@@ -315,21 +329,25 @@ extern "C" {
 // h [K, M, S], W [K, S, nstate], bvec [K, nstate], weights [K] -> lp
 // [M, nstate], with y [M, nstate] a scratch for the members' logits; all
 // fp32, contiguous, on the current device. weights null: one model (K must
-// be 1), no combination, y unused. Returns a cudaError_t.
+// be 1), no combination, y unused. rounding 0, 1 or 2: none, TF32 or
+// bfloat16 operands. Returns a cudaError_t.
 int scrappie_head(const float* h, const float* W, const float* bvec,
                   const float* weights, float* lp, float* y, int K, int M,
                   int S, int nstate, float hscale, float tempb, float c0,
-                  float c1, cudaStream_t stream) {
+                  float c1, int rounding, cudaStream_t stream) {
   if (M == 0) return (int)cudaSuccess;
   if (K < 1 || (weights == nullptr && K != 1) ||
       (weights != nullptr && y == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(S);
-  if (weights == nullptr)
-    return launch<false>(h, W, bvec, weights, lp, y, K, M, S, nstate, hscale,
-                         tempb, c0, c1, smem, stream);
-  return launch<true>(h, W, bvec, weights, lp, y, K, M, S, nstate, hscale,
-                      tempb, c0, c1, smem, stream);
+  return with_rounding(rounding, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (weights == nullptr)
+      return launch<false, R>(h, W, bvec, weights, lp, y, K, M, S, nstate,
+                              hscale, tempb, c0, c1, smem, stream);
+    return launch<true, R>(h, W, bvec, weights, lp, y, K, M, S, nstate,
+                           hscale, tempb, c0, c1, smem, stream);
+  });
 }
 
 }  // extern "C"

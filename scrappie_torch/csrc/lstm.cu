@@ -122,9 +122,17 @@
 // then lanes of 8 an output take da @ sW^T from sW's rows (contiguous).
 // The same arithmetic, the product's sums in another order; a simple
 // kernel, for sizes above the shipped models'.
+//
+// Precision (template kRound of the inference modes, rounding.cuh): in
+// 'default' and 'bf16' sW is rounded once, where it is loaded into
+// registers (the big-S mode rounds each weight it reads from L2), and h
+// where it is written to shared memory, which only the product reads (y
+// gets the unrounded h). The training modes run only in 'highest'.
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "rounding.cuh"
 
 namespace {
 
@@ -166,7 +174,7 @@ struct Dir {
 // (the tail past S zero), a ring of RING projected rows [RING][4S].
 // kTrain: also the planes the backward walk reads, c, tanh(c) and the
 // activated gates g, i, f, o of every step, plane m (1 .. 6) at d.y + m coff.
-template <bool kTrain>
+template <bool kTrain, int kRound>
 __global__ void __launch_bounds__(4 * REG_MAX_S, 1)
 lstm_recurrence_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
                        Dir d1, int T, int B, int S, long long coff) {
@@ -189,7 +197,9 @@ lstm_recurrence_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
 #pragma unroll
     for (int i = 0; i < QROWS; ++i) {
       const int k = g * QROWS + i;
-      w[j][i] = (live && k < S) ? __ldg(d.sW + (size_t)k * S4 + j * S + u) : 0.0f;
+      w[j][i] = (live && k < S)
+                    ? round_weight<kRound>(__ldg(d.sW + (size_t)k * S4 + j * S + u))
+                    : 0.0f;
     }
   const float p_gate =
       live && (g == 1 || g == 2) ? __ldg(d.peep + (g - 1) * S + u) : 0.0f;
@@ -256,7 +266,7 @@ lstm_recurrence_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
     const float tc = fmaf(2.0f, __shfl_sync(FULL, so, quad + 1), -1.0f);
     if (g == 0 && live) {
       const float h = __fmul_rn(so, tc);
-      s_h[((n + 1) & 1) * REG_MAX_S + u] = h;
+      s_h[((n + 1) & 1) * REG_MAX_S + u] = round_operand<kRound>(h);
       float* yt = d.y + ((size_t)t * B + b) * S + u;
       *yt = h;
       if (kTrain) {
@@ -282,7 +292,8 @@ __device__ __forceinline__ float gate_peep(const float* __restrict__ peep,
 }
 
 // Big-S mode: gate column j's value for this step, sW read from global
-// memory.
+// memory (each weight rounded as it is read).
+template <int kRound>
 __device__ __forceinline__ float global_gate(const float* __restrict__ sW,
                                              const float* s_h, const float* s_c,
                                              float p_gate, float xcur, int S,
@@ -294,12 +305,16 @@ __device__ __forceinline__ float global_gate(const float* __restrict__ sW,
   int k = 0;
 #pragma unroll 4
   for (; k + 4 <= S; k += 4) {
-    a0 = fmaf(s_h[k], __ldg(sW + (size_t)k * S4 + j), a0);
-    a1 = fmaf(s_h[k + 1], __ldg(sW + (size_t)(k + 1) * S4 + j), a1);
-    a2 = fmaf(s_h[k + 2], __ldg(sW + (size_t)(k + 2) * S4 + j), a2);
-    a3 = fmaf(s_h[k + 3], __ldg(sW + (size_t)(k + 3) * S4 + j), a3);
+    a0 = fmaf(s_h[k], round_weight<kRound>(__ldg(sW + (size_t)k * S4 + j)), a0);
+    a1 = fmaf(s_h[k + 1],
+              round_weight<kRound>(__ldg(sW + (size_t)(k + 1) * S4 + j)), a1);
+    a2 = fmaf(s_h[k + 2],
+              round_weight<kRound>(__ldg(sW + (size_t)(k + 2) * S4 + j)), a2);
+    a3 = fmaf(s_h[k + 3],
+              round_weight<kRound>(__ldg(sW + (size_t)(k + 3) * S4 + j)), a3);
   }
-  for (; k < S; ++k) a0 = fmaf(s_h[k], __ldg(sW + (size_t)k * S4 + j), a0);
+  for (; k < S; ++k)
+    a0 = fmaf(s_h[k], round_weight<kRound>(__ldg(sW + (size_t)k * S4 + j)), a0);
   const float xf = __fadd_rn(xcur, __fadd_rn(__fadd_rn(a0, a1),
                                              __fadd_rn(a2, a3)));
   if (gate == 0) return tanhf(xf);
@@ -310,8 +325,8 @@ __device__ __forceinline__ float global_gate(const float* __restrict__ sW,
 // Big-S mode: xproj [T, B, xcols] -> y [T, B, S] for direction blockIdx.y,
 // whose 4S gate columns start at column 4S * blockIdx.y; kTrain: also c
 // and the four activated gates, planes 1 .. 5 at d.y + m coff. Shared
-// memory: h [S], c [S], the gate values [4S].
-template <bool kTrain>
+// memory: h [S] (rounded in kRound), c [S], the gate values [4S].
+template <bool kTrain, int kRound>
 __global__ void __launch_bounds__(1024)
 lstm_global_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
                    Dir d1, int T, int B, int S, long long coff) {
@@ -340,7 +355,8 @@ lstm_global_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
     const float* xrow =
         xproj + ((size_t)t * B + b) * xcols + (size_t)S4 * blockIdx.y;
     for (int j = tid; j < S4; j += blockDim.x)
-      s_g[j] = global_gate(sW, s_h, s_c, gate_peep(peep, S, j), xrow[j], S, j);
+      s_g[j] = global_gate<kRound>(sW, s_h, s_c, gate_peep(peep, S, j), xrow[j],
+                                   S, j);
     __syncthreads();
 
     for (int u = tid; u < S; u += blockDim.x) {
@@ -352,7 +368,7 @@ lstm_global_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
       const float tc = tanhf(c_new);
       const float h = __fmul_rn(o, tc);
       s_c[u] = c_new;
-      s_h[u] = h;
+      s_h[u] = round_operand<kRound>(h);
       float* yt = y + ((size_t)t * B + b) * S + u;
       *yt = h;
       if (kTrain) {
@@ -369,7 +385,7 @@ lstm_global_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
 }
 
 // The register kernel over ndir directions (grid B x ndir).
-template <bool kTrain>
+template <bool kTrain, int kRound = 0>
 int launch_registers(const float* xproj, int xcols, Dir d0, Dir d1, int ndir,
                      int T, int B, int S, cudaStream_t stream,
                      long long coff = 0) {
@@ -377,7 +393,7 @@ int launch_registers(const float* xproj, int xcols, Dir d0, Dir d1, int ndir,
   if (S < 1 || S > REG_MAX_S) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (2 * REG_MAX_S + (size_t)RING * 4 * S);
   const int threads = (4 * S + 31) / 32 * 32;
-  lstm_recurrence_kernel<kTrain><<<dim3(B, ndir), threads, smem, stream>>>(
+  lstm_recurrence_kernel<kTrain, kRound><<<dim3(B, ndir), threads, smem, stream>>>(
       xproj, xcols, d0, d1, T, B, S, coff);
   return (int)cudaGetLastError();
 }
@@ -705,18 +721,18 @@ lstm_walk_global_kernel(BwdDir d0, BwdDir d1, long long poff,
 }
 
 // The big-S forward over ndir directions (grid B x ndir).
-template <bool kTrain>
+template <bool kTrain, int kRound = 0>
 int launch_global(const float* xproj, int xcols, Dir d0, Dir d1, int ndir,
                   int T, int B, int S, cudaStream_t stream,
                   long long coff = 0) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
   const size_t smem = sizeof(float) * 6 * (size_t)S;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_global_kernel<kTrain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      lstm_global_kernel<kTrain, kRound>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = 4 * S < 1024 ? ((4 * S + 31) / 32) * 32 : 1024;
-  lstm_global_kernel<kTrain><<<dim3(B, ndir), threads, smem, stream>>>(
+  lstm_global_kernel<kTrain, kRound><<<dim3(B, ndir), threads, smem, stream>>>(
       xproj, xcols, d0, d1, T, B, S, coff);
   return (int)cudaGetLastError();
 }
@@ -728,28 +744,35 @@ extern "C" {
 // xproj [T, B, 4S], sW [S, 4S], peep [3S] -> y [T, B, S]; all fp32,
 // contiguous, on the current device. global = 0: sW in registers (S <=
 // REG_MAX_S, which ops/lstm.py names REGISTER_MAX_S); global = 1: the
-// big-S mode. Returns a cudaError_t.
+// big-S mode. rounding 0, 1 or 2: none, TF32 or bfloat16 operands.
+// Returns a cudaError_t.
 int scrappie_lstm_recurrence(const float* xproj, const float* sW,
                              const float* peep, float* y, int T, int B, int S,
-                             int reverse, int global, cudaStream_t stream) {
+                             int reverse, int global, int rounding,
+                             cudaStream_t stream) {
   const Dir d{sW, peep, y, reverse};
-  if (!global)
-    return launch_registers<false>(xproj, 4 * S, d, d, 1, T, B, S, stream);
-  return launch_global<false>(xproj, 4 * S, d, d, 1, T, B, S, stream);
+  return with_rounding(rounding, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (!global)
+      return launch_registers<false, R>(xproj, 4 * S, d, d, 1, T, B, S, stream);
+    return launch_global<false, R>(xproj, 4 * S, d, d, 1, T, B, S, stream);
+  });
 }
 
 // Both directions of a stage in one launch: xproj [T, B, 8S] (the forward
 // layer's 4S gate columns, then the backward one's), sW_f, sW_b [S, 4S],
 // peep_f, peep_b [3S] -> y_f, y_b [T, B, S], the forward layer walking time
-// forwards, the backward one backwards; S <= REG_MAX_S. Returns a
-// cudaError_t.
+// forwards, the backward one backwards; S <= REG_MAX_S; rounding as
+// scrappie_lstm_recurrence's. Returns a cudaError_t.
 int scrappie_lstm_pair(const float* xproj, const float* sW_f,
                        const float* peep_f, float* y_f, const float* sW_b,
                        const float* peep_b, float* y_b, int T, int B, int S,
-                       cudaStream_t stream) {
-  return launch_registers<false>(xproj, 8 * S, Dir{sW_f, peep_f, y_f, 0},
-                                 Dir{sW_b, peep_b, y_b, 1}, 2, T, B, S,
-                                 stream);
+                       int rounding, cudaStream_t stream) {
+  return with_rounding(rounding, [&](auto r) {
+    return launch_registers<false, decltype(r)::value>(
+        xproj, 8 * S, Dir{sW_f, peep_f, y_f, 0}, Dir{sW_b, peep_b, y_b, 1}, 2,
+        T, B, S, stream);
+  });
 }
 
 // The training mode of scrappie_lstm_pair: also writes c_f, c_b and the

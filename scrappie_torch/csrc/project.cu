@@ -44,8 +44,16 @@
 // not a multiple of 4 or a pointer not 16-byte aligned (4-byte copies and
 // stores). Rows, columns and depth past the edge are zero-filled by
 // cp.async and masked at the store, so any M, K, N is taken.
+//
+// Precision (template kRound, rounding.cuh): in 'default' and 'bf16' each
+// thread rounds, in shared memory, the elements of x and W it copied
+// itself, once its copies have landed and before the barrier that hands
+// them to the other threads (W once a block, each x element once a column
+// tile); the FMAs are those of 'highest'.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "rounding.cuh"
 
 namespace {
 
@@ -182,6 +190,32 @@ __device__ __forceinline__ void load_x16(float* s_x, const float* __restrict__ x
   }
 }
 
+// Round in place the x entries load_x16 copied for this thread (the same
+// steps [q0, q1) of the tile's rows), after its copies have landed.
+template <int kRound>
+__device__ __forceinline__ void round_x16(float* s_x, int q0, int q1, int xs) {
+  if constexpr (kRound != 0) {
+    const int nq = q1 - q0;
+    for (int i = threadIdx.x; i < kBM * nq; i += kThreads) {
+      const int r = i / nq, q = q0 + i - r * nq;
+      float4* v = reinterpret_cast<float4*>(s_x + r * xs + 4 * q);
+      *v = round_operand4<kRound>(*v);
+    }
+  }
+}
+
+// Round in place the W entries load_w16 copied for this thread (kn rows).
+template <int kRound>
+__device__ __forceinline__ void round_w16(float* s_w, int kn) {
+  if constexpr (kRound != 0) {
+    for (int i = threadIdx.x; i < kn * (kBN / 4); i += kThreads) {
+      float4* v = reinterpret_cast<float4*>(s_w + 4 * i);
+      *v = make_float4(round_weight<kRound>(v->x), round_weight<kRound>(v->y),
+                       round_weight<kRound>(v->z), round_weight<kRound>(v->w));
+    }
+  }
+}
+
 // Copy kn rows of W from k0, the tile's kBN columns at col0, into s_w by
 // 16-byte cp.async; columns past N are zero-filled.
 __device__ __forceinline__ void load_w16(float* s_w, const float* __restrict__ W,
@@ -196,7 +230,7 @@ __device__ __forceinline__ void load_w16(float* s_w, const float* __restrict__ W
 
 // out [M, N] = x [M, K] @ W [K, N] + bias [N]; all row-major. One tile a
 // block. kVec: K and N multiples of 4 and x, W, out 16-byte aligned.
-template <bool kVec>
+template <bool kVec, int kRound>
 __global__ void __launch_bounds__(kThreads, 2)
 project_kernel(const float* __restrict__ x, const float* __restrict__ W,
                const float* __restrict__ bias, float* __restrict__ out, int M,
@@ -240,6 +274,17 @@ project_kernel(const float* __restrict__ x, const float* __restrict__ W,
       }
     }
     cp_async_wait_all();
+    if (kVec) {
+      round_x16<kRound>(s_x, 0, kq, xs);
+      round_w16<kRound>(s_w, kn);
+    } else if (kRound != 0) {
+      for (int i = threadIdx.x; i < kBM * 4 * kq; i += kThreads) {
+        float* v = s_x + (i / (4 * kq)) * xs + i % (4 * kq);
+        *v = round_operand<kRound>(*v);
+      }
+      for (int i = threadIdx.x; i < 4 * kq * kBN; i += kThreads)
+        s_w[i] = round_weight<kRound>(s_w[i]);
+    }
     __syncthreads();
     tile_fma(acc, s_x + row_group() * xs, s_w + 4 * col_group(), xs, 0, kq);
   }
@@ -249,6 +294,7 @@ project_kernel(const float* __restrict__ x, const float* __restrict__ W,
 // The persistent form (K <= kKS, the 16-byte path): block b keeps column
 // tile b % ntn of W and walks the row tiles b / ntn, b / ntn + per, ...,
 // with per = gridDim.x / ntn blocks on each column tile.
+template <int kRound>
 __global__ void __launch_bounds__(kThreads, 2)
 project_pipe_kernel(const float* __restrict__ x, const float* __restrict__ W,
                     const float* __restrict__ bias, float* __restrict__ out,
@@ -276,16 +322,21 @@ project_pipe_kernel(const float* __restrict__ x, const float* __restrict__ W,
   load_w16(s_w, W, col0, 0, K, N);
   load_x16(s_x, x, mt * kBM, 0, 0, kq, xs, M, K);
   cp_async_wait_all();
+  round_w16<kRound>(s_w, K);
+  round_x16<kRound>(s_x, 0, kq, xs);  // this thread's copies of the first tile
+  const int mt0 = mt;
   __syncthreads();
   for (; mt < ntm; mt += per) {
     const int next = mt + per;
     tile_fma(acc, xr, wc, xs, 0, qh);
     cp_async_wait_all();  // the second half of this tile has landed
+    if (mt != mt0) round_x16<kRound>(s_x, qh, kq, xs);
     __syncthreads();      // ... for all, and every thread read the first
     if (next < ntm) load_x16(s_x, x, next * kBM, 0, 0, qh, xs, M, K);
     tile_fma(acc, xr, wc, xs, qh, kq);
     tile_store<true>(acc, bias, out, mt * kBM, col0, M, N);
     cp_async_wait_all();  // the first half of the next tile has landed
+    if (next < ntm) round_x16<kRound>(s_x, 0, qh, xs);
     __syncthreads();      // ... for all, and every thread read the second
     if (next < ntm) load_x16(s_x, x, next * kBM, 0, qh, kq, xs, M, K);
   }
@@ -298,25 +349,26 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-template <bool kVec>
+template <bool kVec, int kRound>
 int launch(const float* x, const float* W, const float* b, float* out, int M,
            int K, int N, cudaStream_t stream) {
   const int ks4 = slice_depth(K);
   const size_t smem = sizeof(float) * ((size_t)kBM * x_stride(ks4) + (size_t)ks4 * kBN);
-  cudaError_t err = allow_smem(project_kernel<kVec>, smem);
+  cudaError_t err = allow_smem(project_kernel<kVec, kRound>, smem);
   if (err != cudaSuccess) return (int)err;
   const long long tiles =
       (long long)((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  project_kernel<kVec><<<(unsigned)tiles, kThreads, smem, stream>>>(
+  project_kernel<kVec, kRound><<<(unsigned)tiles, kThreads, smem, stream>>>(
       x, W, b, out, M, K, N);
   return (int)cudaGetLastError();
 }
 
+template <int kRound>
 int launch_pipe(const float* x, const float* W, const float* b, float* out,
                 int M, int K, int N, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)kBM * x_stride(K) + (size_t)K * kBN);
-  cudaError_t err = allow_smem(project_pipe_kernel, smem);
+  cudaError_t err = allow_smem(project_pipe_kernel<kRound>, smem);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -330,8 +382,8 @@ int launch_pipe(const float* x, const float* W, const float* b, float* out,
   if (per < 1) per = 1;
   const int rounds = (ntm + per - 1) / per;
   per = (ntm + rounds - 1) / rounds;
-  project_pipe_kernel<<<per * ntn, kThreads, smem, stream>>>(x, W, b, out, M,
-                                                             K, N);
+  project_pipe_kernel<kRound><<<per * ntn, kThreads, smem, stream>>>(
+      x, W, b, out, M, K, N);
   return (int)cudaGetLastError();
 }
 
@@ -342,14 +394,19 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 extern "C" {
 
 // x [M, K], W [K, N], b [N] -> out [M, N]; all fp32, contiguous, on the
-// current device. Returns a cudaError_t.
+// current device; rounding 0, 1 or 2 (none, TF32, bfloat16 operands).
+// Returns a cudaError_t.
 int scrappie_project(const float* x, const float* W, const float* b,
-                     float* out, int M, int K, int N, cudaStream_t stream) {
+                     float* out, int M, int K, int N, int rounding,
+                     cudaStream_t stream) {
   if (M == 0 || N == 0) return (int)cudaSuccess;
-  if (K % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(W) && aligned16(out))
-    return 0 < K && K <= kKS ? launch_pipe(x, W, b, out, M, K, N, stream)
-                             : launch<true>(x, W, b, out, M, K, N, stream);
-  return launch<false>(x, W, b, out, M, K, N, stream);
+  return with_rounding(rounding, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (K % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(W) && aligned16(out))
+      return 0 < K && K <= kKS ? launch_pipe<R>(x, W, b, out, M, K, N, stream)
+                               : launch<true, R>(x, W, b, out, M, K, N, stream);
+    return launch<false, R>(x, W, b, out, M, K, N, stream);
+  });
 }
 
 }  // extern "C"

@@ -1,11 +1,14 @@
 """Device and precision policy of the port.
 
-Counterpart of scrappie_tpu/nn/config.py (the precision policy) and the
-kernel dispatch of scrappie_tpu/ops/__init__.py. Exact fp32 is the only
-mode: the reference computes in fp32, and the parity tests hold the port
-to the JAX package at fp32. PyTorch runs a float32 matmul in full fp32 by
-default but a float32 convolution through cuDNN in TF32, so both flags
-are set here, when the package is imported.
+Counterpart of the kernel dispatch of scrappie_tpu/ops/__init__.py; the
+precision policy itself is nn/config.py (counterpart of
+scrappie_tpu/nn/config.py). Its default, 'highest', is exact fp32: the
+reference computes in fp32, and the parity tests hold the port to the
+JAX package there. PyTorch runs a float32 matmul in full fp32 by default
+but a float32 convolution through cuDNN in TF32, so the policy sets both
+flags when it is imported: off under 'highest' and 'bf16', on under
+'default' (TF32 on the card). SCRAPPIE_TORCH_PRECISION or the CLI's
+--precision choose another mode.
 
 There is no backend probing. Every entry point takes a `device`; a CPU
 tensor runs the plain PyTorch twins, a CUDA tensor runs the hand-written
@@ -17,17 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from scrappie_torch.nn import config  # noqa: F401  (sets the policy's flags)
+
 #: Device the entry points use when the caller names none.
 DEFAULT_DEVICE = "cuda"
-
-
-def use_exact_fp32() -> None:
-    """Turn TF32 off for matmuls and cuDNN convolutions."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
-use_exact_fp32()
 
 
 def as_device(device: str | torch.device | None = None) -> torch.device:

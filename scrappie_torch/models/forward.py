@@ -21,7 +21,12 @@ Counterpart of scrappie_tpu/models/forward.py:
     bases, tanh(conv), four residual tanh convolutions and a last
     convolution to (current, log sd, -log dwell) per base, optionally with
     the unit transform. The convolutions are library calls (`F.conv1d`,
-    fp32 with TF32 off), as the JAX package leaves them to XLA.
+    under the precision policy of nn/config.py), as the JAX package leaves
+    them to XLA.
+
+With SCRAPPIE_TORCH_VALIDATE set, utils/validate.checked checks each
+layer's output (ops/pipeline.py) and each network's last one here, at the
+counterparts of the JAX package's checked() sites.
 """
 
 from __future__ import annotations
@@ -43,14 +48,16 @@ from scrappie_torch.ops.pipeline import (
     rnnrf_basecall_fused,
     rnnrf_features_tm,
 )
+from scrappie_torch.utils.validate import checked
 
 
 def rgrgr_posterior_tm(params, sig, *, conv_activation="elu", stride=5,
                        min_prob=1e-5, tempW=1.0, tempb=1.0, return_log=True):
     """sig [B, T, 1] -> (log) posterior [nblock, B, nstate]."""
     x = rgrgr_features_tm(params, sig, conv_activation, stride)
-    post = softmax_with_temperature(x, params["FF_W"], params["FF_b"], tempW,
-                                    tempb)
+    post = checked(softmax_with_temperature(x, params["FF_W"], params["FF_b"],
+                                            tempW, tempb),
+                   "rgrgr.softmax", lo=0.0, hi=1.0)
     return robustlog(post, min_prob) if return_log else post
 
 
@@ -63,8 +70,9 @@ def raw_posterior_tm(params, sig, *, stride=4, min_prob=1e-5, tempW=1.0,
                      tempb=1.0, return_log=True):
     """raw_r94: sig [B, T, 1] -> (log) posterior [nblock, B, nstate]."""
     x = raw_features_tm(params, sig, stride)
-    post = softmax_with_temperature(x, params["FF3_W"], params["FF3_b"], tempW,
-                                    tempb)
+    post = checked(softmax_with_temperature(x, params["FF3_W"],
+                                            params["FF3_b"], tempW, tempb),
+                   "raw.softmax", lo=0.0, hi=1.0)
     return robustlog(post, min_prob) if return_log else post
 
 
@@ -76,7 +84,8 @@ def raw_posterior(params, sig, **kwargs):
 def rnnrf_transitions_tm(params, sig, *, conv_activation="elu", stride=2):
     """sig [B, T, 1] -> CRF transitions [nblock, B, 25], time-major."""
     x = rnnrf_features_tm(params, sig, conv_activation, stride)
-    return globalnorm_tm(x, params["FF_W"], params["FF_b"])
+    return checked(globalnorm_tm(x, params["FF_W"], params["FF_b"]),
+                   "rnnrf.globalnorm")
 
 
 def rnnrf_transitions(params, sig, *, conv_activation="elu", stride=2,
@@ -100,8 +109,9 @@ def events_posterior_tm(params, feats, *, winlen=3, min_prob=1e-5, tempW=1.0,
                         tempb=1.0, return_log=True):
     """feats [B, nevent, 4] -> (log) posterior [nevent, B, nstate]."""
     x = events_features_tm(params, feats, winlen)
-    post = softmax_with_temperature(x, params["FF3_W"], params["FF3_b"], tempW,
-                                    tempb)
+    post = checked(softmax_with_temperature(x, params["FF3_W"],
+                                            params["FF3_b"], tempW, tempb),
+                   "events.softmax", lo=0.0, hi=1.0)
     return robustlog(post, min_prob) if return_log else post
 
 
@@ -121,7 +131,8 @@ def squiggle_forward(params, seq, *, transform_units=True):
     for k in range(2, 6):
         x = x + torch.tanh(conv1d(x, params[f"conv{k}_W"], params[f"conv{k}_b"],
                                   stride(k)))
-    out = conv1d(x, params["conv6_W"], params["conv6_b"], stride(6))
+    out = checked(conv1d(x, params["conv6_W"], params["conv6_b"], stride(6)),
+                  "squiggle.conv6")
     if transform_units:
         out = torch.cat([out[..., 0:1], torch.exp(out[..., 1:2]),
                          torch.exp(-out[..., 2:3])], dim=-1)

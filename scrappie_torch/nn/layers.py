@@ -4,13 +4,17 @@ functions on tensors.
 Counterpart of scrappie_tpu/nn/layers.py, with its layouts: features are
 [..., T, C] and conv weights [winlen, Cin, Cout]. The convolution stays a
 library call (`F.conv1d`), as the JAX package leaves it to XLA outside
-any kernel.
+any kernel. Every product goes through the precision policy
+(nn/config.pmatmul, pconv_operands), where the JAX package's goes
+through pdot and pconv_operands.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from scrappie_torch.nn.config import pconv_operands, pmatmul, rmatmul
 
 
 def elu(x: torch.Tensor) -> torch.Tensor:
@@ -27,7 +31,14 @@ def robustlog(x: torch.Tensor, min_prob: float) -> torch.Tensor:
 
 def feedforward(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Affine map y = x @ W + b (ref affine_map, src/scrappie_matrix.c:323)."""
-    return torch.matmul(x, W) + b
+    return pmatmul(x, W) + b
+
+
+def affine(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+           rounding: str | None = None) -> torch.Tensor:
+    """x @ W + b with both operands rounded by `rounding` (None, 'tf32',
+    'bf16'): the projection kernel's plain twin in each mode."""
+    return rmatmul(x, W, rounding) + b
 
 
 def feedforward2_tanh(xf: torch.Tensor, xb: torch.Tensor, Wf: torch.Tensor,
@@ -35,7 +46,7 @@ def feedforward2_tanh(xf: torch.Tensor, xb: torch.Tensor, Wf: torch.Tensor,
     """tanh(xf @ Wf + xb @ Wb + b), in this order of additions: combines
     the outputs of a forward and a backward RNN (ref affine_map2 + tanh,
     src/scrappie_matrix.c:353, src/layers.c:359)."""
-    return torch.tanh(torch.matmul(xf, Wf) + torch.matmul(xb, Wb) + b)
+    return torch.tanh(pmatmul(xf, Wf) + pmatmul(xb, Wb) + b)
 
 
 def window(x: torch.Tensor, w: int, stride: int) -> torch.Tensor:
@@ -80,6 +91,7 @@ def conv1d(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
         x = x[None]
     winlen = W.shape[0]
     padL, padR = conv_same_pad(x.shape[-2], winlen, stride)
+    x, W = pconv_operands(x, W)
     xc = F.pad(x.transpose(1, 2), (padL, padR))        # [B, Cin, T + pad]
     out = F.conv1d(xc, W.permute(2, 1, 0), stride=stride)  # [B, Cout, ncol]
     out = out.transpose(1, 2) + b

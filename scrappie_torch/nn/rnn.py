@@ -14,44 +14,89 @@ LSTM (ref lstm_step src/layers.c:777-832): x is the precomputed iW·x + b,
 [..., 4S] blocks [cell-in (tanh) | input | forget | output]; peep [3S] =
 [input | forget | output] peepholes on c; the output gate's peephole reads
 the NEW c; h0 = c0 = 0.
+
+`rounding` (None, 'tf32', 'bf16'; nn/config.round_operand) rounds each
+product's operands as the kernels do in that mode: the weights once, the
+carried h (and the GRU's r * h) at every step. ops/gru.py and ops/lstm.py
+pass the policy's rounding for the device, as the JAX package's scans
+round through pdot.
 """
 
 from __future__ import annotations
 
 import torch
 
+from scrappie_torch.nn.config import round_operand
+
 
 def gru_tm(x_tm: torch.Tensor, sW: torch.Tensor, sW2: torch.Tensor,
-           reverse: bool = False) -> torch.Tensor:
+           reverse: bool = False, rounding: str | None = None) -> torch.Tensor:
     """GRU over time-major projected inputs x [T, B, 3S] -> h [T, B, S]."""
     T, B, _ = x_tm.shape
     S = sW2.shape[1]
+    sW, sW2 = round_operand(sW, rounding), round_operand(sW2, rounding)
     h = x_tm.new_zeros((B, S))
     out = x_tm.new_empty((T, B, S))
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         xt = x_tm[t]
-        zr = torch.sigmoid(xt[:, : 2 * S] + h @ sW)
+        zr = torch.sigmoid(xt[:, : 2 * S] + round_operand(h, rounding) @ sW)
         z = zr[:, :S]
         r = zr[:, S:]
-        hbar = torch.tanh(xt[:, 2 * S :] + (r * h) @ sW2)
+        hbar = torch.tanh(xt[:, 2 * S :]
+                          + round_operand(r * h, rounding) @ sW2)
         h = z * h + (1 - z) * hbar
         out[t] = h
     return out
 
 
 def gru(x: torch.Tensor, sW: torch.Tensor, sW2: torch.Tensor,
-        reverse: bool = False) -> torch.Tensor:
+        reverse: bool = False, rounding: str | None = None) -> torch.Tensor:
     """GRU over projected inputs x [..., T, 3S] -> [..., T, S] (the JAX
     package's batch-major layout)."""
     squeeze = x.dim() == 2
     if squeeze:
         x = x[None]
-    out = gru_tm(x.transpose(0, 1), sW, sW2, reverse).transpose(0, 1)
+    out = gru_tm(x.transpose(0, 1), sW, sW2, reverse, rounding).transpose(0, 1)
+    return out[0] if squeeze else out
+
+
+def grumod(x: torch.Tensor, sW: torch.Tensor, reverse: bool = False,
+           rounding: str | None = None) -> torch.Tensor:
+    """Modified GRU over projected inputs x [..., T, 3S] -> [..., T, S]
+    (ref grumod_step src/layers.c:620-671; scrappie_tpu/nn/rnn.py:grumod).
+    One recurrent matrix sW [S, 3S]; r gates the recurrent part of the
+    candidate's pre-activation, not the state:
+
+        z, r = sigmoid(x[:2S] + (h @ sW)[:2S])
+        hbar = tanh(r * (h @ sW)[2S:] + x[2S:])
+        h'   = z * h + (1 - z) * hbar
+
+    No model uses it, so it has no kernel."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[None]
+    x_tm = x.transpose(0, 1)
+    T, B, _ = x_tm.shape
+    S = sW.shape[0]
+    sW = round_operand(sW, rounding)
+    h = x_tm.new_zeros((B, S))
+    out = x_tm.new_empty((T, B, S))
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        xt = x_tm[t]
+        rec = round_operand(h, rounding) @ sW
+        zr = torch.sigmoid(xt[:, : 2 * S] + rec[:, : 2 * S])
+        z = zr[:, :S]
+        r = zr[:, S:]
+        hbar = torch.tanh(r * rec[:, 2 * S :] + xt[:, 2 * S :])
+        h = z * h + (1 - z) * hbar
+        out[t] = h
+    out = out.transpose(0, 1)
     return out[0] if squeeze else out
 
 
 def lstm_tm(x_tm: torch.Tensor, sW: torch.Tensor, peep: torch.Tensor,
-            reverse: bool = False, return_planes: bool = False):
+            reverse: bool = False, return_planes: bool = False,
+            rounding: str | None = None):
     """Peephole LSTM over time-major projected inputs x [T, B, 4S] ->
     h [T, B, S]; with return_planes, (h, planes) with planes [6, T, B, S]:
     the cell state c, tanh(c) and the activated gates g = tanh(a_c), i, f,
@@ -60,12 +105,13 @@ def lstm_tm(x_tm: torch.Tensor, sW: torch.Tensor, peep: torch.Tensor,
     T, B, _ = x_tm.shape
     S = sW.shape[0]
     p_in, p_forget, p_out = peep[:S], peep[S : 2 * S], peep[2 * S :]
+    sW = round_operand(sW, rounding)
     h = x_tm.new_zeros((B, S))
     c = x_tm.new_zeros((B, S))
     out = x_tm.new_empty((T, B, S))
     planes = x_tm.new_empty((6, T, B, S)) if return_planes else None
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        xF = x_tm[t] + h @ sW
+        xF = x_tm[t] + round_operand(h, rounding) @ sW
         f = torch.sigmoid(xF[:, 2 * S : 3 * S] + c * p_forget)
         i = torch.sigmoid(xF[:, S : 2 * S] + c * p_in)
         g = torch.tanh(xF[:, :S])

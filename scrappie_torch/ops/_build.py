@@ -34,7 +34,7 @@ _F = ctypes.c_float
 # C entry points and their argument types; each returns a cudaError_t.
 _SIGNATURES = {
     "scrappie_gru_layer": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "scrappie_gru_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "scrappie_gru_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "scrappie_gru_recurrence_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _P),
     "scrappie_viterbi_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P),
@@ -47,9 +47,9 @@ _SIGNATURES = {
     "scrappie_crf_partition": (_P, _P, _I, _I, _P),
     "scrappie_crf_fwdbwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "scrappie_crf_backtrace": (_P, _P, _P, _P, _I, _I, _P),
-    "scrappie_project": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "scrappie_lstm_pair": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "scrappie_project": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "scrappie_lstm_pair": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "scrappie_lstm_pair_train": (*(_P,) * 9, *(_I,) * 4, _P),
     "scrappie_lstm_recurrence_bwd": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
                                      _L, _P, _I, _P, *(_I,) * 5, _P),
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "scrappie_crf_lattice": (_I, *(_P,) * 16, *(_I,) * 8, _F, _P),
     "scrappie_lattice_floats": (_I, _I),
     "scrappie_head": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
-                      _P),
+                      _I, _P),
     "scrappie_dtw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                      _F, _F, _F, _I, _I, _I, _I, _I, _P),
     "scrappie_dtw_max_clusters": (_I, _I, _I, _I, _I),

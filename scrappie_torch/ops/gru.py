@@ -33,8 +33,8 @@ import ctypes
 import torch
 
 from scrappie_torch import ops
-from scrappie_torch.nn import rnn
-from scrappie_torch.nn.layers import feedforward
+from scrappie_torch.nn import config, rnn
+from scrappie_torch.nn.layers import affine
 from scrappie_torch.ops.project import Project, check_project_input
 
 #: The largest S whose recurrence keeps its weights in registers (REG_MAX_S
@@ -44,8 +44,8 @@ REGISTER_MAX_S = 96
 
 def gru_layer_tm_plain(x_tm, iW, b, sW, sW2, reverse: bool = False):
     """Plain twin: x [T, B, C] -> h [T, B, S] (what gru_layer_tm computes on
-    a CPU tensor)."""
-    return rnn.gru_tm(feedforward(x_tm, iW, b), sW, sW2, reverse)
+    a CPU tensor under 'highest')."""
+    return rnn.gru_tm(affine(x_tm, iW, b), sW, sW2, reverse)
 
 
 def gru_layer_tm(x_tm, iW, b, sW, sW2, reverse: bool = False):
@@ -86,17 +86,19 @@ def gru_tm(x_tm, sW, sW2, reverse: bool = False):
     (x @ iW + b), sW [S, 2S], sW2 [S, S] -> h [T, B, S], h0 = 0. Its plain
     twin is nn/rnn.gru_tm. On the card S <= REGISTER_MAX_S launches the
     kernel with its weights in registers ("gru_recurrence"), a larger S
-    its big-S mode ("gru_recurrence_global")."""
+    its big-S mode ("gru_recurrence_global"). Both round the products'
+    operands as the precision policy asks for the device."""
+    rounding = config.kernel_rounding(x_tm.device)
     if not ops.on_cuda(x_tm, sW, sW2):
-        return rnn.gru_tm(x_tm, sW, sW2, reverse)
+        return rnn.gru_tm(x_tm, sW, sW2, reverse, rounding)
     from scrappie_torch.ops import _build
 
     check_gru_recurrence_input(x_tm, sW, sW2)
     T, B, _ = x_tm.shape
     S = sW2.shape[0]
     big = S > REGISTER_MAX_S
-    if big and 3 * S * 4 > ops.MAX_SMEM_BYTES:
-        raise ValueError(f"gru recurrence needs 3S floats of shared memory, "
+    if big and 4 * S * 4 > ops.MAX_SMEM_BYTES:
+        raise ValueError(f"gru recurrence needs 4S floats of shared memory, "
                          f"S={S}; a block may use {ops.MAX_SMEM_BYTES} B")
     y = torch.empty((T, B, S), dtype=torch.float32, device=x_tm.device)
     if T == 0 or B == 0:
@@ -105,7 +107,8 @@ def gru_tm(x_tm, sW, sW2, reverse: bool = False):
     with torch.cuda.device(x_tm.device):
         err = _build.library().scrappie_gru_recurrence(
             x_tm.data_ptr(), sW.data_ptr(), sW2.data_ptr(), y.data_ptr(), T, B,
-            S, int(reverse), int(big), ctypes.c_void_p(ops.stream_handle()))
+            S, int(reverse), int(big), config.rounding_code(rounding),
+            ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, name)
     ops.LAUNCHES[name] += 1
     return y

@@ -45,7 +45,8 @@ import ctypes
 import torch
 
 from scrappie_torch import ops
-from scrappie_torch.nn.layers import feedforward
+from scrappie_torch.nn import config
+from scrappie_torch.nn.layers import affine
 from scrappie_torch.nn.rnn import lstm_tm
 from scrappie_torch.ops.project import Project, check_project_input, project_tm
 
@@ -54,9 +55,12 @@ from scrappie_torch.ops.project import Project, check_project_input, project_tm
 REGISTER_MAX_S = 96
 
 
-def lstm_layer_tm_plain(x_tm, iW, b, sW, peep, reverse: bool = False):
-    """Plain twin: x [T, B, C] -> h [T, B, S]."""
-    return lstm_tm(feedforward(x_tm, iW, b), sW, peep, reverse)
+def lstm_layer_tm_plain(x_tm, iW, b, sW, peep, reverse: bool = False,
+                        rounding=None):
+    """Plain twin: x [T, B, C] -> h [T, B, S], the products' operands
+    rounded by `rounding` (None, 'tf32', 'bf16')."""
+    return lstm_tm(affine(x_tm, iW, b, rounding), sW, peep, reverse,
+                   rounding=rounding)
 
 
 def wants_grad(*tensors) -> bool:
@@ -67,9 +71,11 @@ def wants_grad(*tensors) -> bool:
 def lstm_layer_tm(x_tm, iW, b, sW, peep, reverse: bool = False):
     """One peephole-LSTM layer on time-major features: x [T, B, C],
     iW [C, 4S], b [4S], sW [S, 4S], peep [3S] -> h [T, B, S], with
-    h0 = c0 = 0."""
+    h0 = c0 = 0; the products' operands rounded as the precision policy
+    asks for the device."""
     if not ops.on_cuda(x_tm, iW, b, sW, peep):
-        return lstm_layer_tm_plain(x_tm, iW, b, sW, peep, reverse)
+        return lstm_layer_tm_plain(x_tm, iW, b, sW, peep, reverse,
+                                   config.kernel_rounding(x_tm.device))
     if wants_grad(x_tm, iW, b, sW, peep):
         raise ValueError("lstm_layer_tm runs inference only on the card; "
                          "train a stage through lstm_pair_tm")
@@ -77,10 +83,10 @@ def lstm_layer_tm(x_tm, iW, b, sW, peep, reverse: bool = False):
     return lstm_recurrence_cuda(project_tm(x_tm, iW, b), sW, peep, reverse)
 
 
-def lstm_pair_tm_plain(x_tm, wF, wB):
+def lstm_pair_tm_plain(x_tm, wF, wB, rounding=None):
     """Plain twin of `lstm_pair_tm`: the two layers one after the other."""
-    return (lstm_layer_tm_plain(x_tm, *wF),
-            lstm_layer_tm_plain(x_tm, *wB, reverse=True))
+    return (lstm_layer_tm_plain(x_tm, *wF, rounding=rounding),
+            lstm_layer_tm_plain(x_tm, *wB, reverse=True, rounding=rounding))
 
 
 def lstm_pair_tm(x_tm, wF, wB):
@@ -96,7 +102,8 @@ def lstm_pair_tm(x_tm, wF, wB):
                               torch.cat((wF[1], wB[1])))
         return LstmPair.apply(xproj, *wF[2:], *wB[2:])
     if not ops.on_cuda(x_tm, *wF, *wB):
-        return lstm_pair_tm_plain(x_tm, wF, wB)
+        return lstm_pair_tm_plain(x_tm, wF, wB,
+                                  config.kernel_rounding(x_tm.device))
     check_lstm_pair_input(x_tm, wF, wB)
     if not lstm_in_registers(wF[2].shape[0]):
         return lstm_layer_tm(x_tm, *wF), lstm_layer_tm(x_tm, *wB, reverse=True)
@@ -170,6 +177,7 @@ def lstm_recurrence_cuda(xproj, sW, peep, reverse: bool = False):
         err = _build.library().scrappie_lstm_recurrence(
             xproj.data_ptr(), sW.data_ptr(), peep.data_ptr(), y.data_ptr(), T,
             B, S, int(reverse), int(not in_registers),
+            config.rounding_code(config.kernel_rounding(xproj.device)),
             ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, name)
     ops.LAUNCHES[name] += 1
@@ -200,7 +208,9 @@ def lstm_pair_recurrence_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
         err = _build.library().scrappie_lstm_pair(
             xproj.data_ptr(), sW_f.data_ptr(), peep_f.data_ptr(),
             y[0].data_ptr(), sW_b.data_ptr(), peep_b.data_ptr(),
-            y[1].data_ptr(), T, B, S, ctypes.c_void_p(ops.stream_handle()))
+            y[1].data_ptr(), T, B, S,
+            config.rounding_code(config.kernel_rounding(xproj.device)),
+            ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, "lstm_pair")
     ops.LAUNCHES["lstm_pair"] += 1
     return y[0], y[1]

@@ -63,6 +63,7 @@ from scrappie_torch.ops.gru import gru_layer_tm
 from scrappie_torch.ops.lstm import lstm_pair_tm
 from scrappie_torch.ops.viterbi import (head_logpost_tm, viterbi_backtrace_tm,
                                         viterbi_scores_tm)
+from scrappie_torch.utils.validate import checked
 
 CONV_ACT = {"elu": elu, "tanh": torch.tanh}
 #: The `decode` keywords the head takes; the rest are the forward's.
@@ -71,11 +72,12 @@ HEAD_OPTIONS = ("min_prob", "tempW", "tempb")
 HEAD_KEYS = {"rgrgr": ("FF_W", "FF_b"), "raw": ("FF3_W", "FF3_b")}
 
 
-def _conv_tm(params, sig, conv_activation: str, stride: int):
-    """sig [B, T, 1] -> activated conv features, time-major [nblock, B, C]."""
+def _conv_tm(params, sig, conv_activation: str, stride: int, kind: str):
+    """sig [B, T, 1] -> activated conv features, time-major [nblock, B, C]
+    (checked as "<kind>.conv" under SCRAPPIE_TORCH_VALIDATE)."""
     x = CONV_ACT[conv_activation](
         conv1d(sig, params["conv_W"], params["conv_b"], int(stride)))
-    return x.transpose(0, 1).contiguous()
+    return checked(x.transpose(0, 1).contiguous(), f"{kind}.conv")
 
 
 def _gru(params, x, i: int, d: str):
@@ -89,9 +91,10 @@ def rgrgr_features_tm(params, sig, conv_activation: str = "elu",
                       stride: int = 5):
     """sig [B, T, 1] -> time-major hidden features [nblock, B, S]: conv,
     activation and the five alternating GRU layers (B1 F2 B3 F4 B5)."""
-    x = _conv_tm(params, sig, conv_activation, stride)
+    x = _conv_tm(params, sig, conv_activation, stride, "rgrgr")
     for i, d in enumerate(GRU_DIRS, start=1):
-        x = _gru(params, x, i, d)
+        x = checked(_gru(params, x, i, d), f"rgrgr.gru{d.upper()}{i}",
+                    lo=-1.0, hi=1.0)
     return x
 
 
@@ -100,11 +103,13 @@ def raw_features_tm(params, sig, stride: int = 4):
     [nblock, B, 96]: tanh(conv), then per stage the forward and backward
     GRU layers on the same input and feedforward2_tanh over their outputs
     (ref src/networks.c:196-247)."""
-    x = _conv_tm(params, sig, "tanh", stride)
+    x = _conv_tm(params, sig, "tanh", stride, "raw")
     for layer in (1, 2):
         h = {d: _gru(params, x, layer, d) for d in ("f", "b")}
-        x = feedforward2_tanh(h["f"], h["b"], params[f"FF{layer}_Wf"],
-                              params[f"FF{layer}_Wb"], params[f"FF{layer}_b"])
+        x = checked(feedforward2_tanh(h["f"], h["b"], params[f"FF{layer}_Wf"],
+                                      params[f"FF{layer}_Wb"],
+                                      params[f"FF{layer}_b"]),
+                    f"raw.ff2_{layer}", lo=-1.0, hi=1.0)
     return x
 
 
@@ -113,9 +118,9 @@ def rnnrf_features_tm(params, sig, conv_activation: str = "elu",
     """sig [B, T, 1] -> time-major features [nblock, B, 96]: conv,
     activation and five residual GRU layers, x = x + gru(x) (ref
     src/networks.c:567-607). The width stays 96 throughout."""
-    x = _conv_tm(params, sig, conv_activation, stride)
+    x = _conv_tm(params, sig, conv_activation, stride, "rnnrf")
     for i, d in enumerate(GRU_DIRS, start=1):
-        x = x + _gru(params, x, i, d)
+        x = checked(x + _gru(params, x, i, d), f"rnnrf.res_gru{d.upper()}{i}")
     return x
 
 
@@ -241,8 +246,10 @@ def events_features_tm(params, feats, winlen: int = 3):
     for layer in (1, 2):
         hF, hB = lstm_pair_tm(x, *(lstm_weights(params, d, layer)
                                    for d in ("F", "B")))
-        x = feedforward2_tanh(hF, hB, params[f"FF{layer}_Wf"],
-                              params[f"FF{layer}_Wb"], params[f"FF{layer}_b"])
+        x = checked(feedforward2_tanh(hF, hB, params[f"FF{layer}_Wf"],
+                                      params[f"FF{layer}_Wb"],
+                                      params[f"FF{layer}_b"]),
+                    f"events.ff2_{layer}", lo=-1.0, hi=1.0)
     return x
 
 

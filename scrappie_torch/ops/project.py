@@ -5,7 +5,10 @@ run before their recurrence kernels.
 The TPU kernels compute this product in their own bodies
 (scrappie_tpu/ops/gru.py:_gru_fused_kernel, ops/lstm.py:_lstm_kernel), so
 on a CUDA tensor `project_tm` launches the hand-written tiled fp32 kernel of
-csrc/project.cu; on a CPU tensor it runs its plain twin, nn/layers.feedforward.
+csrc/project.cu; on a CPU tensor it runs its plain twin, nn/layers.feedforward
+(nn/layers.affine with the CPU's rounding). Both round their operands as
+the precision policy asks for the device (nn/config.kernel_rounding: none,
+TF32 or bfloat16).
 `Project` makes it differentiable: its backward is three plain products
 (torch.matmul and a sum), as XLA computes this product's VJP outside any
 kernel in the JAX training step.
@@ -18,6 +21,7 @@ import ctypes
 import torch
 
 from scrappie_torch import ops
+from scrappie_torch.nn import config
 from scrappie_torch.nn.layers import feedforward
 
 
@@ -32,7 +36,8 @@ def check_project_input(x_tm, W, b) -> None:
 
 
 def project_tm(x_tm, W, b):
-    """x [T, B, C], W [C, N], b [N] -> x @ W + b [T, B, N]."""
+    """x [T, B, C], W [C, N], b [N] -> x @ W + b [T, B, N], the operands
+    rounded as the precision policy asks for their device."""
     if not ops.on_cuda(x_tm, W, b):
         return feedforward(x_tm, W, b)
     from scrappie_torch.ops import _build
@@ -46,7 +51,9 @@ def project_tm(x_tm, W, b):
     with torch.cuda.device(x_tm.device):
         err = _build.library().scrappie_project(
             x_tm.data_ptr(), W.data_ptr(), b.data_ptr(), out.data_ptr(),
-            T * B, C, N, ctypes.c_void_p(ops.stream_handle()))
+            T * B, C, N,
+            config.rounding_code(config.kernel_rounding(x_tm.device)),
+            ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, "project")
     ops.LAUNCHES["project"] += 1
     return out

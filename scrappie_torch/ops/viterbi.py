@@ -31,7 +31,8 @@ import ctypes
 import torch
 
 from scrappie_torch import ops
-from scrappie_torch.nn.layers import robustlog, softmax_with_temperature
+from scrappie_torch.nn import config
+from scrappie_torch.nn.layers import affine, robustlog, softmax_with_temperature
 
 BIG = 1.0e30
 #: The most members the fused ensemble kernel takes (MAX_ENS in
@@ -150,16 +151,24 @@ def viterbi_fused_tm_plain(h_tm, W, bvec, min_prob=1e-5, tempW=1.0, tempb=1.0,
     return viterbi_scores_tm_plain(lp, stay_pen, skip_pen, local_pen, use_slip)
 
 
+def head_softmax(h_tm, W, bvec, tempW=1.0, tempb=1.0, rounding=None):
+    """softmax_with_temperature with its product's operands rounded by
+    `rounding` (None, 'tf32', 'bf16'), the scaled h before its rounding:
+    the head kernel's softmax in each mode."""
+    y = affine(h_tm * (tempb / tempW), W, bvec, rounding) / tempb
+    return torch.softmax(y, dim=-1)
+
+
 def ensemble_logpost_tm(h_tm, W, bvec, weights, min_prob=1e-5, tempW=1.0,
-                        tempb=1.0):
+                        tempb=1.0, rounding=None):
     """The combined log posterior of K transducer heads: h [K, T, B, S],
     W [K, S, nstate], bvec [K, nstate], weights [K] -> [T, B, nstate],
     sum_k w_k robustlog(softmax_k) in member order, renormalised per block
     by its log-sum-exp (scrappie_tpu's _fused_ens_kernel)."""
     acc = None
     for k in range(h_tm.shape[0]):
-        lk = robustlog(softmax_with_temperature(h_tm[k], W[k], bvec[k], tempW,
-                                                tempb), min_prob) * weights[k]
+        lk = robustlog(head_softmax(h_tm[k], W[k], bvec[k], tempW, tempb,
+                                    rounding), min_prob) * weights[k]
         acc = lk if acc is None else acc + lk
     mx = acc.amax(-1, keepdim=True)
     return acc - (mx + torch.log(torch.exp(acc - mx).sum(-1, keepdim=True)))
@@ -175,14 +184,16 @@ def viterbi_fused_ens_tm_plain(h_tm, W, bvec, weights, min_prob=1e-5,
 
 
 def head_logpost_tm_plain(h_tm, W, bvec, weights=None, min_prob=1e-5,
-                          tempW=1.0, tempb=1.0):
+                          tempW=1.0, tempb=1.0, rounding=None):
     """Plain twin of the head kernel: one model's log posterior (weights
     None; h [T, B, S], W [S, nstate], bvec [nstate]), robustlog of the
-    temperature softmax, or K members' combined, ensemble_logpost_tm."""
+    temperature softmax, or K members' combined, ensemble_logpost_tm; the
+    product's operands rounded by `rounding` (None, 'tf32', 'bf16')."""
     if weights is None:
-        return robustlog(softmax_with_temperature(h_tm, W, bvec, tempW, tempb),
+        return robustlog(head_softmax(h_tm, W, bvec, tempW, tempb, rounding),
                          min_prob)
-    return ensemble_logpost_tm(h_tm, W, bvec, weights, min_prob, tempW, tempb)
+    return ensemble_logpost_tm(h_tm, W, bvec, weights, min_prob, tempW, tempb,
+                               rounding)
 
 
 def head_smem_bytes(S: int) -> int:
@@ -222,12 +233,15 @@ def head_logpost_tm(h_tm, W, bvec, weights=None, min_prob=1e-5, tempW=1.0,
     W [K, S, nstate], bvec [K, nstate] -> the members' combined log
     posterior, ensemble_logpost_tm, for any K. The wrapper allocates the
     posterior (525 MB at T = 2000, B = 64, 1025 states) and, for K
-    members, a scratch of the same size for each member's logits."""
+    members, a scratch of the same size for each member's logits. The
+    product's operands are rounded as the precision policy asks for the
+    device (nn/config.kernel_rounding)."""
     on_card = (ops.on_cuda(h_tm, W, bvec) if weights is None
                else ops.on_cuda(h_tm, W, bvec, weights))
+    rounding = config.kernel_rounding(h_tm.device)
     if not on_card:
         return head_logpost_tm_plain(h_tm, W, bvec, weights, min_prob, tempW,
-                                     tempb)
+                                     tempb, rounding)
     from scrappie_torch.ops import _build
 
     check_head_input(h_tm, W, bvec, weights)
@@ -244,7 +258,7 @@ def head_logpost_tm(h_tm, W, bvec, weights=None, min_prob=1e-5, tempW=1.0,
             None if weights is None else weights.data_ptr(), lp.data_ptr(),
             None if y is None else y.data_ptr(), K, T * B, S, nstate,
             tempb / tempW, tempb, min_prob / nstate, 1.0 - min_prob,
-            ctypes.c_void_p(ops.stream_handle()))
+            config.rounding_code(rounding), ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, "head")
     ops.LAUNCHES["head"] += 1
     return lp

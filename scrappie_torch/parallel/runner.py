@@ -90,6 +90,7 @@ from scrappie_torch.signal.features import nanonet_features_from_events
 from scrappie_torch.signal.trim import trim_and_segment_raw
 from scrappie_torch.types import RawSignal
 from scrappie_torch.utils.maths import medmad_normalise
+from scrappie_torch.utils.validate import checked, raise_pending
 from scrappie_torch.utils.tracing import Stage, log
 
 __all__ = ["BasecallEngine", "RawSignal", "ReadResult"]
@@ -349,6 +350,7 @@ class BasecallEngine:
             if len(pend) >= PIPELINE_DEPTH:
                 outs.append(pend.popleft().cpu().numpy())
         outs.extend(p.cpu().numpy() for p in pend)
+        raise_pending()  # SCRAPPIE_TORCH_VALIDATE's checks on the card
         return np.concatenate(outs, axis=0)[: all_chunks.shape[0]]
 
     def _posterior_chunks_device(self, all_chunks: np.ndarray) -> torch.Tensor:
@@ -369,6 +371,7 @@ class BasecallEngine:
         def collect():
             out = pend.popleft()
             scores.append(out[0].cpu().numpy())
+            raise_pending()  # SCRAPPIE_TORCH_VALIDATE's checks on the card
             paths.append(out[1].cpu().numpy().astype(np.int32))
             if len(out) > 2:
                 quals.append(out[2].cpu().numpy())
@@ -419,6 +422,9 @@ class BasecallEngine:
             group, scores_d, paths_d = inflight.popleft()
             scores = scores_d.cpu().numpy()
             paths = paths_d.cpu().numpy()
+            # SCRAPPIE_TORCH_VALIDATE's checks on the card, for the group
+            # collected (which may lag the dispatch by the pipeline depth)
+            raise_pending()
             for j, (i, e, _c) in enumerate(group):
                 nblock = e[2].nblock_total
                 results[i] = (float(scores[j]), paths[j, : nblock + 1].copy())
@@ -578,8 +584,13 @@ class BasecallEngine:
                         rows = nanonet_features_from_events(et, normalise=True)
                     if not len(rows):
                         return None, None
+                    # SCRAPPIE_TORCH_VALIDATE: a non-finite read is skipped
+                    # here, not sent to the card (ref validate_scrappie_matrix,
+                    # src/scrappie_matrix.c:138-220)
+                    checked(rows, f"read.features[{rs.uuid}]")
                 else:
                     rows = medmad_normalise(rt.trimmed)
+                    checked(rows, f"read.norm[{rs.uuid}]")
                 plan = chunklib.plan_chunks(len(rows), self.chunk_len,
                                             self.overlap, self.spec.stride)
             except Exception as e:

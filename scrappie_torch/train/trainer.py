@@ -31,11 +31,12 @@ import torch
 from scrappie_torch.device import as_device
 from scrappie_torch.models import forward, registry
 from scrappie_torch.models.specs import RAW_MODELS
+from scrappie_torch.nn import config
 from scrappie_torch.train.optim import FiniteClippedAdam
 from scrappie_torch.train.simulate import SquiggleSimulator
 
 _MESH = ("train(mesh=) is not ported: multi-GPU training comes with "
-         "ROADMAP.md queue 1 item 7")
+         "ROADMAP.md queue 1, \"Multi-GPU\"")
 
 
 def posterior_fn(model: str):
@@ -111,7 +112,9 @@ def _loss_for(model: str):
 def value_and_grad_of(lfn, params: dict[str, torch.Tensor], *args):
     """(loss, {key: gradient}) of lfn(params, *args) at params (tensors on
     one device); args are tensors already on that device. A parameter the
-    loss does not read gets a zero gradient, as jax.grad gives it."""
+    loss does not read gets a zero gradient, as jax.grad gives it.
+    Raises NotImplementedError under a precision other than 'highest'."""
+    config.require_highest("training")
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
         loss = lfn(leaves, *args)
@@ -137,6 +140,7 @@ def value_and_grad(model: str, params: dict[str, torch.Tensor], sig, labels):
 def make_train_step(model: str, optimizer: FiniteClippedAdam):
     """step(sig, labels) -> loss: one value_and_grad and one optimiser
     update of optimizer.params, in place."""
+    config.require_highest("make_train_step")
     _loss_for(model)
 
     def train_step(sig, labels):
@@ -155,9 +159,11 @@ def train(model: str, steps: int = 200, batch: int = 8, nsample: int = 4000,
     package's keys and shapes) and each step's loss. nanonet_events trains
     on nsample // 10 events a row that the event detector finds in
     simulated signal (detected_events_batch). `device` defaults to CUDA;
-    device="cpu" runs the plain twins."""
+    device="cpu" runs the plain twins. Training runs only under
+    precision 'highest'."""
     if mesh is not None:
         raise NotImplementedError(_MESH)
+    config.require_highest("train")
     _loss_for(model)
     dev = as_device(device)
     if params is None:

@@ -173,11 +173,74 @@ def test_emit_bias_moves_only_transitions_into_emitting_states():
     assert tc.add_emit_bias(tr, 0.0) is tr
 
 
-def test_decode_crf_assoc_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdec.decode_crf(_trans(1, 4, seed=9), impl="assoc", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdec.posterior_crf(_trans(1, 4, seed=9), impl="assoc")
+ASSOC_SHAPES = [(1, 1), (3, 2), (3, 7), (3, 40), (2, 129)]
+
+
+@pytest.mark.parametrize("emit_bias", [0.0, -0.5])
+@pytest.mark.parametrize("shape", ASSOC_SHAPES,
+                         ids=[f"B{b}-T{t}" for b, t in ASSOC_SHAPES])
+def test_decode_crf_assoc_matches_jax_assoc_and_the_scan(shape, emit_bias):
+    """impl="assoc" (max-plus prefix products in JAX's combining order)
+    against JAX's impl="assoc" and against the port's sequential scan, at
+    tests/test_ops.py's tolerances: scores rtol 1e-5, paths equal (seeded
+    inputs without ties)."""
+    tr = _trans(*shape, seed=9 + shape[1])
+    score, path = tdec.decode_crf(tr, impl="assoc", emit_bias=emit_bias,
+                                  device="cpu")
+    jscore, jpath = jdec.decode_crf(tr, impl="assoc", emit_bias=emit_bias)
+    sscore, spath = tdec.decode_crf(tr, impl="scan", emit_bias=emit_bias,
+                                    device="cpu")
+    np.testing.assert_array_equal(path, jpath)
+    np.testing.assert_array_equal(path, spath)
+    np.testing.assert_allclose(score, jscore, rtol=1e-5)
+    np.testing.assert_allclose(score, sscore, rtol=1e-5)
+    s1, p1 = tdec.decode_crf(tr[0], impl="assoc", emit_bias=emit_bias,
+                             device="cpu")
+    np.testing.assert_array_equal(p1, path[0])
+    assert isinstance(s1, float)
+
+
+@pytest.mark.parametrize("shape", ASSOC_SHAPES,
+                         ids=[f"B{b}-T{t}" for b, t in ASSOC_SHAPES])
+def test_posterior_crf_assoc_matches_jax_assoc_and_the_scan(shape):
+    """posterior_crf(impl="assoc") (logsumexp prefix and suffix products)
+    against JAX's impl="assoc" and the port's sequential forward-backward,
+    rtol 1e-4 / atol 1e-6 (tests/test_ops.py)."""
+    tr = _trans(*shape, seed=30 + shape[1])
+    post = tdec.posterior_crf(tr, impl="assoc", device="cpu")
+    np.testing.assert_allclose(post, jdec.posterior_crf(tr, impl="assoc"),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(post, tdec.posterior_crf(tr, device="cpu"),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(tdec.posterior_crf(tr[0], impl="assoc",
+                                                  device="cpu"), post[0])
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 13])
+def test_associative_scan_combines_in_jax_order(n):
+    """The scan of a non-commutative associative product (small integer
+    matrices, exact in float64) gives every prefix, forwards and from the
+    end; float32 additions come out equal to jax.lax.associative_scan's bit
+    for bit, so the elements are combined in JAX's order."""
+    import jax
+
+    rng = np.random.default_rng(n)
+    m = torch.from_numpy(rng.integers(-2, 3, (n, 2, 2)).astype(np.float64))
+    got = tdec.associative_scan(lambda a, b: b @ a, m)
+    want = [m[0]]
+    for t in range(1, n):
+        want.append(m[t] @ want[-1])
+    assert torch.equal(got, torch.stack(want))
+    rgot = tdec.associative_scan(lambda b, a: b @ a, m, reverse=True)
+    rwant = [m[n - 1]]
+    for t in range(n - 2, -1, -1):
+        rwant.insert(0, rwant[0] @ m[t])
+    assert torch.equal(rgot, torch.stack(rwant))
+    x = rng.standard_normal(n).astype(np.float32)
+    for reverse in (False, True):
+        got = tdec.associative_scan(torch.add, torch.from_numpy(x), reverse)
+        ref = jax.lax.associative_scan(jnp.add, jnp.asarray(x), reverse=reverse)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 @pytest.mark.parametrize("batched", [False, True])

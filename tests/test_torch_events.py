@@ -224,7 +224,8 @@ def test_engine_hands_the_kernels_their_layout(monkeypatch, mode):
     checked(tlstm, "lstm_layer_tm_plain",
             lambda x, iW, b, sW, peep, *_: tlstm.check_lstm_input(x, iW, b, sW,
                                                                   peep))
-    checked(tlstm, "lstm_pair_tm_plain", tlstm.check_lstm_pair_input)
+    checked(tlstm, "lstm_pair_tm_plain",
+            lambda x, wF, wB, *_: tlstm.check_lstm_pair_input(x, wF, wB))
     checked(tv, "head_logpost_tm_plain", check_head)
     checked(tv, "viterbi_scores_tm_plain", check_scores)
     checked(tv, "viterbi_backtrace_tm_plain", check_backtrace)

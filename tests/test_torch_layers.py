@@ -88,3 +88,23 @@ def test_softmax_with_temperature_matches_jax(tempW, tempb):
         jnp.asarray(x), jnp.asarray(W), jnp.asarray(b), tempW, tempb))
     out = tl.softmax_with_temperature(_t(x), _t(W), _t(b), tempW, tempb).numpy()
     np.testing.assert_allclose(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batched", [False, True])
+def test_grumod_matches_jax(reverse, batched):
+    """nn/rnn.grumod against scrappie_tpu.nn.rnn.grumod (ref grumod_step,
+    src/layers.c:620-671), forward and reverse, within 1e-6: the same fp32
+    recurrence, only the order of the sums of h @ sW differs."""
+    from scrappie_torch.nn import rnn as trnn
+    from scrappie_tpu.nn import rnn as jrnn
+
+    rng = np.random.default_rng(40 + reverse + 2 * batched)
+    S, T = 12, 23
+    x = rng.standard_normal((3, T, 3 * S) if batched else (T, 3 * S))
+    x = x.astype(np.float32)
+    sW = (0.3 * rng.standard_normal((S, 3 * S))).astype(np.float32)
+    ref = np.asarray(jrnn.grumod(jnp.asarray(x), jnp.asarray(sW), reverse))
+    out = trnn.grumod(_t(x), _t(sW), reverse).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)

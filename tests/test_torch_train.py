@@ -328,7 +328,7 @@ def test_train_matches_jax(model):
 
 
 def test_train_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md queue 1, "Multi-GPU"'):
         tt.train("rgrgr_r94", steps=1, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="no trainer"):
         tt.make_train_step("squiggle_r94", None)
@@ -428,7 +428,7 @@ def test_training_hands_the_kernels_their_layout(monkeypatch):
             tg.check_gru_walk_input(gates, hp, gh, sW, sW2))
     checked(tc, "crf_partition_grad_tm_plain", tc.check_partition_grad_input)
     checked(tc, "crf_partition_tm_plain", tc.check_trans_input)
-    checked(trnn, "gru_tm", lambda x, sW, sW2, rev:
+    checked(trnn, "gru_tm", lambda x, sW, sW2, rev, *_:
             tg.check_gru_recurrence_input(x, sW, sW2))
     for model in MODELS:
         params = perturbed(model, seed=8)
