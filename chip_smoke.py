@@ -247,7 +247,32 @@ if any phase fails:
      forward's checks on the card raised by validate.raise_pending
      (phase validate);
  26. calls scrappie_torch.embed (the C shim's module) on the card, equal
-     to the api's calls (phase embed).
+     to the api's calls (phase embed);
+ 27. runs the multi-device layer (parallel/sharding.py) on meshes whose
+     devices repeat the one card, ["cuda:0"] * 2 (data 2) and * 4 (data 2
+     x state 2) (phase multigpu): BasecallEngine(mesh=) for rgrgr_r94
+     stitch and fast, raw_r94 fast, rnnrf_r94 fast, nanonet_events stitch
+     and fast and the 3:1:1 ensemble stitch and fast on the 16 reads at
+     the models' full width, each call's sequences equal to the one-card
+     engine's and scores within MESH_SCORE_RTOL, each path's kernels
+     launched by the mesh runs (their counts set to 0 before them) and
+     their seconds beside the one-card call's (repeated devices share the
+     SMs: information, no speed-up asked); StreamingBatcher(mesh=) and
+     EventsStreamingBatcher(mesh=) on four channels, equal to solo
+     streams; one training step of each of the four models on both
+     meshes against the one-card step (trainer.value_and_grad_on_mesh
+     against value_and_grad: loss and the gradient's global norm within
+     MESH_TRAIN_RTOL); then the launcher (parallel/launcher.py) in worker
+     processes on the card: one process basecalling the 16 reads, two
+     processes each its round-robin half (a NCCL process group, no
+     collective), whose merged calls must equal one process's; two
+     processes training two steps over gloo on CUDA tensors and one
+     process training two steps over NCCL at world size 1 (NCCL refuses
+     two ranks on one card), each held to the in-process two-step run on
+     the same global batch: both losses within MESH_TRAIN_RTOL and the
+     weights within LAUNCHER_WEIGHT_ATOL (Adam's first update moves a
+     weight by lr whatever its gradient; the second step's loss and
+     weights read the all_reduce'd gradients).
 
 Each engine path's launch counters are set to 0 just before its runs and
 read just after; no inference path may launch a backward kernel, the
@@ -274,11 +299,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import pathlib
 import re
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 20261016
@@ -5160,6 +5188,314 @@ def check_embed(card: str, reads: list) -> None:
     emit({"phase": "embed", "version": embed.version(), "models": rows, "card": card})
 
 
+# ------------------------------------------------------------- multigpu
+
+# The mesh paths: scrappie_tpu's dryrun_multichip's kinds and modes.
+MESH_PATHS = (("rgrgr_r94", "stitch", ()), ("rgrgr_r94", "fast", ()),
+              ("raw_r94", "fast", ()), ("rnnrf_r94", "fast", ()),
+              ("nanonet_events", "stitch", ()),
+              ("nanonet_events", "fast", ()),
+              ("rgrgr_r94", "stitch", ENSEMBLE), ("rgrgr_r94", "fast", ENSEMBLE))
+MESH_SHAPES = {"2x1": (2, 1), "2x2": (2, 2)}
+# A slice is a smaller batch, and on a 'state' axis the posterior's output
+# layer sums two partial products: equal sequences, scores this close.
+MESH_SCORE_RTOL = 1e-5
+MESH_TRAIN_RTOL = 1e-5
+# The launcher's two steps: Adam's second update reads the gradients' size,
+# so a wrong or missing gradient all_reduce moves weights by about lr.
+LAUNCHER_WEIGHT_ATOL = 1e-2 * TRAIN["lr"]
+MESH_CHANNELS = 4
+LAUNCHER_TIMEOUT = 300   # seconds a launcher worker may take
+
+
+def card_mesh(shape):
+    """A mesh of the given shape over one card repeated."""
+    from scrappie_torch.parallel.sharding import make_mesh
+
+    n_data, n_state = shape
+    return make_mesh(n_data, n_state, devices=["cuda:0"] * (n_data * n_state))
+
+
+def mesh_kernels(model: str, mode: str) -> tuple:
+    kind = {"rnnrf_r94": RNNRF_KERNELS, "nanonet_events": EVENTS_KERNELS}
+    return kind.get(model, TRANSDUCER_KERNELS)[mode]
+
+
+def timed_calls(engine, reads):
+    engine.basecall_signals(reads[:1])  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    res = engine.basecall_signals(reads)
+    return res, time.perf_counter() - t0
+
+
+def check_mesh_engines(card: str, reads: list) -> None:
+    """Every MESH_PATHS path on both meshes against the one-card engine."""
+    from scrappie_torch import ops
+    from scrappie_torch.parallel.runner import BasecallEngine
+
+    meshes = {k: card_mesh(v) for k, v in MESH_SHAPES.items()}
+    for model, mode, ens in MESH_PATHS:
+        kw = dict(mode=mode, ensemble=ens, batch_size=8)
+        want, one_s = timed_calls(BasecallEngine(model, device="cuda", **kw),
+                                  reads)
+        row = {"phase": "multigpu", "path": f"{model} {mode}"
+               + (" 3:1:1" if ens else ""), "one_card_seconds": round(one_s, 4),
+               "card": card}
+        for name, mesh in meshes.items():
+            eng = BasecallEngine(model, mesh=mesh, **kw)
+            require(len(eng.replicas) == 2 and eng.batch_size == 8,
+                    f"{name}: two data rows")
+            eng.basecall_signals(reads[:1])
+            ops.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            got = eng.basecall_signals(reads)
+            seconds = time.perf_counter() - t0
+            launched = dict(ops.LAUNCHES)
+            require_kernels(f"multigpu {model} {mode} {name}", launched,
+                            mesh_kernels(model, mode))
+            rel = 0.0
+            for g, w in zip(got, want, strict=True):
+                require(g.sequence and g.sequence == w.sequence,
+                        f"multigpu {model} {mode} {name} {w.uuid}: sequence "
+                        "equals the one-card call")
+                rel = max(rel, abs(g.score - w.score) / abs(w.score))
+            require(rel <= MESH_SCORE_RTOL,
+                    f"multigpu {model} {mode} {name}: scores within "
+                    f"{MESH_SCORE_RTOL} ({rel})")
+            row[name] = {"seconds": round(seconds, 4),
+                         "score_max_rel_err": rel,
+                         "launches": {k: v for k, v in launched.items() if v}}
+        row["bases"] = sum(len(r.sequence) for r in want)
+        emit(row)
+
+
+def check_mesh_batchers(card: str, reads: list) -> None:
+    """Both streaming batchers on the 2 x 1 mesh against solo streams."""
+    from scrappie_torch.parallel import streaming, streaming_events
+
+    mesh = card_mesh(MESH_SHAPES["2x1"])
+    sigs = [r.raw for r in reads[:MESH_CHANNELS]]
+    for label, solo, bat in (
+            ("raw rgrgr_r94",
+             lambda: streaming.StreamingBasecaller("rgrgr_r94", CHUNK, 1000,
+                                                   device="cuda"),
+             streaming.StreamingBatcher("rgrgr_r94", CHUNK, 1000,
+                                        batch_size=8, mesh=mesh)),
+            ("events",
+             lambda: streaming_events.EventsStreamingBasecaller(
+                 CHUNK, 2000, device="cuda"),
+             streaming_events.EventsStreamingBatcher(CHUNK, 2000, batch_size=8,
+                                                     mesh=mesh))):
+        want = []
+        for sig in sigs:
+            sb = solo()
+            sb.feed(sig)
+            sb.flush()
+            want.append(sb.sequence)
+        t0 = time.perf_counter()
+        got = {}
+        for i in range(len(sigs)):
+            bat.add_stream(i)
+            got[i] = ""
+        for lo in range(0, max(map(len, sigs)), 4 * CHUNK):
+            for i, sig in enumerate(sigs):
+                if lo < len(sig):
+                    got[i] += bat.feed(i, sig[lo:lo + 4 * CHUNK])
+        got = [got[i] + bat.flush(i) for i in range(len(sigs))]
+        seconds = time.perf_counter() - t0
+        require(all(want) and got == want,
+                f"multigpu {label} batcher on a mesh equals solo streams")
+        emit({"phase": "multigpu", "batcher": label, "channels": len(sigs),
+              "mesh": "2x1", "seconds": round(seconds, 4),
+              "bases": sum(map(len, got)), "card": card})
+
+
+def check_mesh_train(card: str) -> None:
+    """One step of each model on both meshes against the one-card step."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.models.specs import RAW_MODELS
+    from scrappie_torch.train.simulate import SquiggleSimulator
+    from scrappie_torch.train.trainer import (value_and_grad,
+                                              value_and_grad_on_mesh)
+
+    def norm(grads):
+        return float(torch.sqrt(sum((g.double() ** 2).sum()
+                                    for g in grads.values())))
+
+    sim = SquiggleSimulator(seed=SEED, device="cuda")
+    B, n = TRAIN["batch"], TRAIN["nsample"]
+    for model in TRAIN_MODELS:
+        spec = RAW_MODELS.get(model)
+        if spec is None:
+            sig, labels = sim.detected_events_batch(B, n // 10)
+        elif spec.kind == "rnnrf":
+            sig, labels = sim.crf_labelled_batch(B, n, spec.stride)
+        else:
+            sig, labels = sim.labelled_batch(B, n, spec.stride)
+        params = {k: torch.as_tensor(v, device="cuda")
+                  for k, v in random_params(model, SEED).items()}
+        value_and_grad(model, params, sig, labels)  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(model, params, sig, labels)
+        want = (float(loss), norm(grads))
+        one_s = time.perf_counter() - t0
+        row = {"phase": "multigpu", "train": model, "loss": want[0],
+               "one_card_seconds": round(one_s, 4), "card": card}
+        for name, shape in MESH_SHAPES.items():
+            sync()
+            t0 = time.perf_counter()
+            mloss, mgrads = value_and_grad_on_mesh(model, params,
+                                                   card_mesh(shape), sig,
+                                                   labels)
+            got = (float(mloss), norm(mgrads))
+            seconds = time.perf_counter() - t0
+            rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+            require(max(rel) <= MESH_TRAIN_RTOL and np.isfinite(got).all(),
+                    f"multigpu train {model} {name}: loss and gradient norm "
+                    f"within {MESH_TRAIN_RTOL} ({rel})")
+            row[name] = {"seconds": round(seconds, 4), "loss_rel_err": rel[0],
+                         "grad_norm_rel_err": rel[1]}
+        emit(row)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_workers(argvs: list) -> float:
+    """Start every argv at once; each must exit 0 within LAUNCHER_TIMEOUT;
+    every process is stopped either way. Returns the wall seconds."""
+    env = {**os.environ, "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv in argvs]
+    try:
+        for argv, p in zip(argvs, procs):
+            _, err = p.communicate(timeout=LAUNCHER_TIMEOUT)
+            require(p.returncode == 0, f"launcher worker {argv[3:]} exit "
+                                       f"{p.returncode}:\n{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.perf_counter() - t0
+
+
+def fasta_seqs(path) -> dict:
+    seqs, name = {}, None
+    for line in pathlib.Path(path).read_text().splitlines():
+        if line.startswith(">"):
+            name = line[1:].split()[0]
+            seqs[name] = ""
+        elif name:
+            seqs[name] += line.strip()
+    return seqs
+
+
+def check_launcher(card: str) -> None:
+    """The launcher in worker processes on the card (see the module doc)."""
+    import numpy as np
+
+    from scrappie_torch.parallel.launcher import backend_for
+    from scrappie_torch.parallel.sharding import make_mesh
+    from scrappie_torch.train.trainer import train
+
+    me = [sys.executable, str(pathlib.Path(__file__).resolve()),
+          "--launcher-worker"]
+    mod = [sys.executable, "-m", "scrappie_torch.parallel.launcher"]
+    call = ["--devices", "cuda:0", "--batch-per-device", "8"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp)
+        one_s = launch_workers([me + call + ["-o", str(out / "one.fa")]])
+        url = f"localhost:{free_port()}"
+        two_s = launch_workers([me + call + [
+            "--coordinator", url, "--num-processes", "2", "--process-id",
+            str(i), "-o", str(out / f"two.{i}.fa")] for i in range(2)])
+        one = fasta_seqs(out / "one.fa")
+        merged = {}
+        for i in range(2):
+            part = fasta_seqs(out / f"two.{i}.fa")
+            require(part and not set(part) & set(merged),
+                    f"launcher process {i} calls its own shard")
+            merged.update(part)
+        require(len(one) == NREADS and merged == one,
+                "two launcher processes' merged calls equal one process's")
+        emit({"phase": "multigpu", "launcher": "basecall", "reads": len(one),
+              "one_process_seconds": round(one_s, 4),
+              "two_process_seconds": round(two_s, 4),
+              "backend": backend_for(make_mesh(devices=["cuda:0"])),
+              "card": card})
+
+        # two steps on the global batch: two gloo processes, each one data
+        # row on the card, and NCCL at world size 1, against this process
+        # on a 2 x 1 mesh of the card
+        step = ["--train", "2", "--model", "rgrgr_r94", "--batch",
+                str(TRAIN["batch"]), "--nsample", str(TRAIN["nsample"]),
+                "--lr", str(TRAIN["lr"]), "--seed", str(SEED)]
+        t0 = time.perf_counter()
+        params, losses = train("rgrgr_r94", steps=2, batch=TRAIN["batch"],
+                               nsample=TRAIN["nsample"], lr=TRAIN["lr"],
+                               seed=SEED, log_every=0,
+                               mesh=make_mesh(devices=["cuda:0"] * 2))
+        in_s = time.perf_counter() - t0
+        gloo = f"localhost:{free_port()}"
+        nccl = f"localhost:{free_port()}"
+        t_s = launch_workers(
+            [mod + step + ["--devices", "cuda:0", "--backend", "gloo",
+                           "--coordinator", gloo, "--num-processes", "2",
+                           "--process-id", str(i), "-o",
+                           str(out / "gloo.npz")] for i in range(2)]
+            + [mod + step + ["--devices", "cuda:0,cuda:0", "--backend", "nccl",
+                             "--coordinator", nccl, "--num-processes", "1",
+                             "--process-id", "0", "-o",
+                             str(out / "nccl.npz")]])
+        row = {"phase": "multigpu", "launcher": "train", "model": "rgrgr_r94",
+               "losses": losses, "in_process_seconds": round(in_s, 4),
+               "workers_seconds": round(t_s, 4), "card": card}
+        for backend in ("gloo", "nccl"):
+            got = np.load(out / f"{backend}.npz")
+            require(len(got["losses"]) == 2,
+                    f"launcher {backend}: two losses, not {got['losses']}")
+            rel = max(abs(float(g) - w) / abs(w)
+                      for g, w in zip(got["losses"], losses))
+            off = max(float(np.abs(got[k] - v).max()) for k, v in params.items())
+            require(rel <= MESH_TRAIN_RTOL and off <= LAUNCHER_WEIGHT_ATOL,
+                    f"launcher {backend} steps equal the in-process steps "
+                    f"(losses {rel}, weights {off})")
+            row[backend] = {"loss_rel_err": rel, "weights_max_abs_diff": off}
+        emit(row)
+
+
+def launcher_worker(argv: list) -> int:
+    """A launcher process basecalling the 16 synthetic reads in memory."""
+    from scrappie_torch.parallel import launcher
+
+    reads = synthetic_reads()
+    return launcher.run(argv, reads=([r.uuid for r in reads], reads))
+
+
+def check_multigpu(card: str, reads: list) -> None:
+    import torch
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        check_mesh_engines(card, reads)
+        check_mesh_batchers(card, reads)
+    check_mesh_train(card)
+    check_launcher(card)
+    emit({"phase": "multigpu", "seconds": round(time.perf_counter() - t0, 3),
+          "card": card})
+
+
 def main() -> int:
     import torch
 
@@ -5177,11 +5513,15 @@ def main() -> int:
                          "DP and map_post_to_sequence of OTHER_CHECKOUT and "
                          "of this checkout, in turns")
     ap.add_argument("--times", type=pathlib.Path, help=argparse.SUPPRESS)
+    ap.add_argument("--launcher-worker", nargs=argparse.REMAINDER,
+                    help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "runs only on a CUDA GPU", file=sys.stderr)
         return 2
+    if opts.launcher_worker is not None:
+        return launcher_worker(opts.launcher_worker)
     if opts.times:
         time_checkout(opts.times.resolve())
         return 0
@@ -5254,6 +5594,7 @@ def main() -> int:
         check_realdata(card, pool)
     check_validate(card, reads)
     check_embed(card, reads)
+    check_multigpu(card, reads)
     # each kernel's launches on its own path: the GRU recurrence's, the
     # head's and the Viterbi kernels' on the rgrgr path, the CRF kernels' on
     # rnnrf's, the LSTM's on the events path's, the fused ensemble kernel's

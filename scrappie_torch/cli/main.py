@@ -49,9 +49,12 @@ def _seg_pair(s: str) -> tuple[int, float]:
 
 
 def _add_device(p) -> None:
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default=None,
                    help="Torch device: 'cuda' runs the CUDA kernels, 'cpu' "
-                        "their plain PyTorch twins")
+                        "their plain PyTorch twins. Given, it pins one "
+                        "device; by default raw, events and serve span "
+                        "every visible card (parallel/sharding.make_mesh), "
+                        "the other commands take 'cuda'")
     p.add_argument("--precision", choices=["highest", "default", "bf16"],
                    default=None,
                    help="Precision of the matrix products: 'highest' (exact "

@@ -36,7 +36,8 @@ from torch import nn
 
 from scrappie_torch.models import registry
 from scrappie_torch.models.convert import model_spec, params_from_numpy
-from scrappie_torch.nn.layers import (conv1d, embedding, globalnorm_tm, robustlog,
+from scrappie_torch.nn.layers import (StateShards, conv1d, embedding,
+                                      globalnorm_tm, robustlog,
                                       softmax_with_temperature)
 from scrappie_torch.ops.pipeline import (
     events_basecall_fused,
@@ -140,7 +141,11 @@ def squiggle_forward(params, seq, *, transform_units=True):
 
 
 class Network(nn.Module):
-    """A network whose weights are buffers on one device."""
+    """A network whose weights are buffers on one device. On a mesh with a
+    'state' axis (parallel/sharding.load_replicas), `state_shards` also
+    holds the output layer's weight split over the row's state devices:
+    the posterior paths (forward) read it there, the fused paths read the
+    whole buffer."""
 
     kind: str
     default_model: str
@@ -149,6 +154,7 @@ class Network(nn.Module):
         super().__init__()
         for name, value in params.items():
             self.register_buffer(name, value)
+        self.state_shards: dict[str, StateShards] = {}
 
     @classmethod
     def _spec(cls, model: str | None):
@@ -163,6 +169,11 @@ class Network(nn.Module):
     @property
     def params(self) -> dict[str, torch.Tensor]:
         return dict(self.named_buffers())
+
+    @property
+    def posterior_params(self) -> dict:
+        """params, with state_shards in place of the weights they split."""
+        return {**self.params, **self.state_shards}
 
     @property
     def device(self) -> torch.device:
@@ -206,7 +217,7 @@ class RgrgrModel(RawModel):
     def forward(self, sig, min_prob=1e-5, tempW=1.0, tempb=1.0,
                 return_log=True):
         """sig [B, T, 1] -> (log) posterior [B, nblock, nstate]."""
-        return rgrgr_posterior(self.params, sig,
+        return rgrgr_posterior(self.posterior_params, sig,
                                conv_activation=self.conv_activation,
                                stride=self.stride, min_prob=min_prob,
                                tempW=tempW, tempb=tempb, return_log=return_log)
@@ -229,7 +240,7 @@ class RawR94Model(RawModel):
     def forward(self, sig, min_prob=1e-5, tempW=1.0, tempb=1.0,
                 return_log=True):
         """sig [B, T, 1] -> (log) posterior [B, nblock, nstate]."""
-        return raw_posterior(self.params, sig, stride=self.stride,
+        return raw_posterior(self.posterior_params, sig, stride=self.stride,
                              min_prob=min_prob, tempW=tempW, tempb=tempb,
                              return_log=return_log)
 
@@ -249,7 +260,7 @@ class RnnrfModel(RawModel):
     def forward(self, sig, min_prob=1e-5, tempW=1.0, tempb=1.0,
                 return_log=True):
         """sig [B, T, 1] -> CRF transitions [B, nblock, 25]."""
-        return rnnrf_transitions(self.params, sig,
+        return rnnrf_transitions(self.posterior_params, sig,
                                  conv_activation=self.conv_activation,
                                  stride=self.stride, min_prob=min_prob,
                                  tempW=tempW, tempb=tempb,
@@ -283,7 +294,7 @@ class EventsModel(Network):
     def forward(self, feats, min_prob=1e-5, tempW=1.0, tempb=1.0,
                 return_log=True):
         """feats [B, nevent, 4] -> (log) posterior [B, nevent, nstate]."""
-        return events_posterior(self.params, feats, winlen=self.winlen,
+        return events_posterior(self.posterior_params, feats, winlen=self.winlen,
                                 min_prob=min_prob, tempW=tempW, tempb=tempb,
                                 return_log=return_log)
 
@@ -327,3 +338,14 @@ def load_model(model: str, device=None) -> Network:
     """The named model with the repository's weights, as the class of its
     kind."""
     return _MODELS[model_spec(model).kind].from_registry(model, device)
+
+
+def network_of(model: str, params: dict[str, torch.Tensor]) -> Network:
+    """The named basecaller's network over parameters already placed
+    (tensors on their device)."""
+    spec = model_spec(model)
+    if spec.kind == "squiggle":
+        raise ValueError(f"{model!r} is not a basecaller")
+    if spec.kind == "events":
+        return EventsModel(params, spec.winlen)
+    return _MODELS[spec.kind](params, spec.conv_activation, spec.stride)

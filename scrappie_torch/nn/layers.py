@@ -29,9 +29,80 @@ def robustlog(x: torch.Tensor, min_prob: float) -> torch.Tensor:
     return torch.log(min_prob / nrow + (1.0 - min_prob) * x)
 
 
-def feedforward(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Affine map y = x @ W + b (ref affine_map, src/scrappie_matrix.c:323)."""
+def feedforward(x: torch.Tensor, W, b: torch.Tensor) -> torch.Tensor:
+    """Affine map y = x @ W + b (ref affine_map, src/scrappie_matrix.c:323).
+    W may be StateShards: the partial products are then summed onto x's
+    device before the bias."""
+    if isinstance(W, StateShards):
+        return state_matmul(x, W) + b
     return pmatmul(x, W) + b
+
+
+class StateShards:
+    """A weight [K, N] split along K (the contraction axis), each part on
+    its own device: shards[s] = W[bounds[s][0]:bounds[s][1]] (a mesh's
+    'state' axis, placed by parallel/sharding.shard_params); `full`, the
+    whole W on the first part's device, or None."""
+
+    def __init__(self, shards, full: torch.Tensor | None = None):
+        self.shards = tuple(shards)
+        self.full = full
+        rows = [0]
+        for w in self.shards:
+            rows.append(rows[-1] + w.shape[0])
+        self.bounds = tuple(zip(rows[:-1], rows[1:]))
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return tuple(w.device for w in self.shards)
+
+
+class _ToStateDevices(torch.autograd.Function):
+    """x [..., K] -> its column slices, one on each state device; the
+    backward joins the slices' gradients into x's full gradient on x's
+    device."""
+
+    @staticmethod
+    def forward(ctx, x, devices, bounds):
+        ctx.device, ctx.shape, ctx.bounds = x.device, x.shape, bounds
+        return tuple(x[..., lo:hi].to(device=dev, copy=True,
+                                      memory_format=torch.contiguous_format)
+                     for dev, (lo, hi) in zip(devices, bounds))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        parts = [g.to(ctx.device) if g is not None else
+                 torch.zeros(*ctx.shape[:-1], hi - lo, device=ctx.device)
+                 for g, (lo, hi) in zip(grads, ctx.bounds)]
+        return torch.cat(parts, dim=-1), None, None
+
+
+class _SumOnto(torch.autograd.Function):
+    """Partial products on the state devices -> their sum on `device`,
+    added in state order; the backward hands each partial the whole
+    gradient on its own device."""
+
+    @staticmethod
+    def forward(ctx, device, *partials):
+        ctx.devices = [p.device for p in partials]
+        out = partials[0].to(device) + partials[1].to(device)
+        for p in partials[2:]:
+            out = out + p.to(device)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(g.to(dev) for dev in ctx.devices))
+
+
+def state_matmul(x: torch.Tensor, w: StateShards) -> torch.Tensor:
+    """x @ W with W split along its contraction axis: each part's device
+    computes x[..., slice] @ W[slice], and the partials are summed onto x's
+    device in part order (row-parallel; the backward gives x its full
+    gradient)."""
+    xs = _ToStateDevices.apply(x, w.devices, w.bounds)
+    return _SumOnto.apply(x.device, *(pmatmul(xi, wi)
+                                      for xi, wi in zip(xs, w.shards)))
 
 
 def affine(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,

@@ -1,8 +1,17 @@
 """Batched multi-read basecalling engine for the rgrgr, raw_r94, rnnrf and
-events models, and for ensembles of raw models, on one device.
+events models, and for ensembles of raw models, on a device mesh.
 
-Counterpart of scrappie_tpu/parallel/runner.py:BasecallEngine, with an
-explicit `device` in place of the JAX mesh:
+Counterpart of scrappie_tpu/parallel/runner.py:BasecallEngine. It runs on
+a mesh of devices (parallel/sharding.py): with neither `device` nor `mesh`
+every visible card, as the JAX engine's default mesh; `device=` pins one.
+Every device batch is split into contiguous row slices over the mesh's
+data devices, each slice runs on its own device's replica (kernels launch
+asynchronously, so distinct cards overlap), and the outputs come back in
+chunk order. On a mesh with a 'state' axis the posterior paths split the
+output layer's product over the row's state devices
+(nn/layers.state_matmul); the fused paths' head kernel takes that weight
+whole from the data device. On a one-device mesh the one slice is the
+whole batch: one copy to the device, as without a mesh.
 
   host:   read -> trim -> normalise -> chunk             (numpy)
   device: [B, chunk_len] -> posterior or fused decode    (torch + kernels)
@@ -12,8 +21,9 @@ Three paths, as in the JAX engine:
   * fast: the fused per-chunk pipeline (ops/pipeline.py), then the chunk
     paths are stitched at the overlap midpoints;
   * stitch on the device (homopolymer None or "nochange"): chunk
-    posteriors stay on the device, are gathered into whole-read matrices
-    there and decoded;
+    posteriors stay on the mesh, each read group's are gathered onto one
+    data device (groups in turn over the data devices; each device's part
+    copied once) into whole-read matrices there and decoded;
   * stitch on the host (homopolymer "mean"): chunk posteriors come to the
     host, are stitched per read, decoded in length buckets, and the
     homopolymer correction reads the whole-read posterior.
@@ -69,16 +79,18 @@ import torch
 from scrappie_torch.decode.crf import crfpath_to_basecall, decode_crf
 from scrappie_torch.decode.transducer import assemble_events, viterbi_decode_batch
 from scrappie_torch import ops
-from scrappie_torch.device import as_device, float_tensor
+from scrappie_torch.device import float_tensor
 from scrappie_torch.models.calibration import collapsed
 from scrappie_torch.models.convert import basecaller_spec
 from scrappie_torch.models.ensemble import fused_config, validate_ensemble
-from scrappie_torch.models.forward import load_model
 from scrappie_torch.ops.pipeline import (ensemble_basecall_fused,
                                          rnnrf_ensemble_basecall_fused)
 from scrappie_torch.ops.crf import (NS, add_emit_bias, crf_posterior_tm,
                                     crf_viterbi_tm)
 from scrappie_torch.parallel import chunk as chunklib
+from scrappie_torch.parallel.sharding import (gather_rows, load_replicas,
+                                              resolve_mesh, round_batch,
+                                              split_rows)
 from scrappie_torch.post.homopolymer import HomopolymerMode, homopolymer_path
 from scrappie_torch.post.overlapper import overlapper
 from scrappie_torch.post.quality import (QUAL_RECAL, crf_qualities,
@@ -215,7 +227,12 @@ def _gather_decode_crf(trans, flat_idx, emit_bias):
 
 
 class BasecallEngine:
-    """Batched basecalling of many reads on one device.
+    """Batched basecalling of many reads on a device mesh.
+
+    mesh: a parallel/sharding.Mesh; device: one device (a one-device
+    mesh); with neither, every visible card (sharding.make_mesh()).
+    batch_size is the global device batch, rounded up to a multiple of
+    the mesh's data axis.
 
     chunk_len/overlap are in samples (in events for nanonet_events; defaults
     10 000 / 1 000 samples, 2048 / 256 events) and are rounded up to
@@ -236,8 +253,8 @@ class BasecallEngine:
 
     def __init__(self, model: str = "rgrgr_r94", chunk_len: int | None = None,
                  overlap: int | None = None, batch_size: int = 8, device=None,
-                 min_prob: float = 1e-5, tempW: float = 1.0, tempb: float = 1.0,
-                 mode: str = "stitch", ensemble: tuple[str, ...] = (),
+                 mesh=None, min_prob: float = 1e-5, tempW: float = 1.0,
+                 tempb: float = 1.0, mode: str = "stitch", ensemble: tuple[str, ...] = (),
                  ensemble_weights: tuple[float, ...] | None = None,
                  qual_calibration: str = "raw"):
         self.model = model
@@ -251,7 +268,9 @@ class BasecallEngine:
         if mode not in ("stitch", "fast"):
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
-        self.device = as_device(device)
+        self.mesh = resolve_mesh(device, mesh)
+        # where the host-stitch path decodes, and the first data device
+        self.device = self.mesh.devices[0, 0]
         self._min_prob, self._tempW, self._tempb = min_prob, tempW, tempb
         stride = self.spec.stride
         if chunk_len is None:
@@ -260,9 +279,11 @@ class BasecallEngine:
             overlap = 256 if self.events else 1000
         self.chunk_len = _round_up(chunk_len, stride)
         self.overlap = _round_up(overlap, stride)
-        self.batch_size = int(batch_size)
-        self.net = load_model(model, self.device)
-        self.members = tuple(load_model(m, self.device) for m in self.ensemble)
+        self.batch_size = round_batch(batch_size, self.mesh)
+        # replicas[d]: the primary and the members on data row d
+        self.replicas = list(zip(*[load_replicas(m, self.mesh)
+                                   for m in (model,) + self.ensemble]))
+        self.net, self.members = self.replicas[0][0], self.replicas[0][1:]
         # (weights, kinds, conv activations) of the fused transducer ensemble
         self._fused_ens = fused_config(model, self.ensemble, ensemble_weights)
         self._qual_recal_key = self._recal_key(qual_calibration,
@@ -291,12 +312,12 @@ class BasecallEngine:
 
     # ------------------------------------------------------------- device
 
-    def _posterior(self, x):
-        """[B, chunk_len, C] -> the (combined) log posterior or CRF
-        transitions [B, nblock, nstate]."""
+    def _posterior(self, x, r: int = 0):
+        """[B, chunk_len, C] on data row r's device -> the (combined) log
+        posterior or CRF transitions [B, nblock, nstate] there."""
         out = [net(x, min_prob=self._min_prob, tempW=self._tempW,
                    tempb=self._tempb, return_log=True)
-               for net in (self.net,) + self.members]
+               for net in self.replicas[r]]
         if self._ens_w is None:
             return out[0]
         lp = float(self._ens_w[0]) * out[0]
@@ -309,54 +330,59 @@ class BasecallEngine:
     def _fused_call(self, stay_pen, skip_pen, local_pen, use_slip,
                     crf_emit_bias, with_qual: bool = False):
         """The fast path of the model kind (ops/pipeline.py), single model
-        or ensemble: [B, chunk_len, C] -> (scores [B], paths [B, nblock+1]
-        [, quality stream [B, nblock+1, klen] with with_qual, transducers
-        only])."""
-        params = [net.params for net in (self.net,) + self.members]
+        or ensemble: ([B, chunk_len, C] on data row r's device, r) ->
+        (scores [B], paths [B, nblock+1] [, quality stream
+        [B, nblock+1, klen] with with_qual, transducers only])."""
+        params = [[net.params for net in nets] for nets in self.replicas]
         if self.spec.kind == "rnnrf":
             if self._ens_w is None:
-                return lambda x: self.net.basecall_fused(x, emit_bias=crf_emit_bias)
-            acts = tuple(net.conv_activation for net in (self.net,) + self.members)
-            return lambda x: rnnrf_ensemble_basecall_fused(
-                params, self._ens_w, x, conv_activations=acts,
+                return lambda x, r: self.replicas[r][0].basecall_fused(
+                    x, emit_bias=crf_emit_bias)
+            acts = tuple(net.conv_activation for net in self.replicas[0])
+            return lambda x, r: rnnrf_ensemble_basecall_fused(
+                params[r], self._ens_w, x, conv_activations=acts,
                 stride=self.spec.stride, emit_bias=crf_emit_bias)
         decode = dict(min_prob=self._min_prob, tempW=self._tempW,
                       tempb=self._tempb, stay_pen=stay_pen, skip_pen=skip_pen,
                       local_pen=local_pen, use_slip=use_slip,
                       with_qual=with_qual)
         if self._fused_ens is None:
-            return lambda x: self.net.basecall_fused(x, **decode)
+            return lambda x, r: self.replicas[r][0].basecall_fused(x, **decode)
         w, kinds, acts = self._fused_ens
-        return lambda x: ensemble_basecall_fused(
-            params, w, x, kinds=kinds, conv_activations=acts,
+        return lambda x, r: ensemble_basecall_fused(
+            params[r], w, x, kinds=kinds, conv_activations=acts,
             stride=self.spec.stride, **decode)
 
-    def _to_device_batch(self, rows: np.ndarray) -> torch.Tensor:
-        """[n, chunk_len] raw chunks -> [n, chunk_len, 1] on the device;
-        events chunks [n, chunk_len, 4] keep their shape."""
-        return torch.as_tensor(rows if self.events else rows[..., None],
-                               device=self.device)
+    def _on_mesh(self, rows: np.ndarray, fn) -> list:
+        """fn(x, r) on each data row's slice of a device batch ([n,
+        chunk_len] raw chunks become [n, chunk_len, 1]; events chunks
+        [n, chunk_len, 4] keep their shape) -> the outputs in row order."""
+        rows = rows if self.events else rows[..., None]
+        return [fn(x, r) for r, x in split_rows(rows, self.mesh.data_devices)]
 
     def _device_batches(self, all_chunks: np.ndarray):
         for i in range(0, all_chunks.shape[0], self.batch_size):
-            yield self._to_device_batch(all_chunks[i : i + self.batch_size])
+            yield all_chunks[i : i + self.batch_size]
 
     def _posterior_chunks(self, all_chunks: np.ndarray) -> np.ndarray:
         """Run [N, chunk_len] chunks through the net; posteriors to the host."""
         outs = []
         pend: collections.deque = collections.deque()
-        for x in self._device_batches(all_chunks):
-            pend.append(self._posterior(x))
+        for rows in self._device_batches(all_chunks):
+            pend.append(self._on_mesh(rows, self._posterior))
             if len(pend) >= PIPELINE_DEPTH:
-                outs.append(pend.popleft().cpu().numpy())
-        outs.extend(p.cpu().numpy() for p in pend)
+                outs.extend(p.cpu().numpy() for p in pend.popleft())
+        outs.extend(p.cpu().numpy() for parts in pend for p in parts)
         raise_pending()  # SCRAPPIE_TORCH_VALIDATE's checks on the card
         return np.concatenate(outs, axis=0)[: all_chunks.shape[0]]
 
-    def _posterior_chunks_device(self, all_chunks: np.ndarray) -> torch.Tensor:
-        """Chunk posteriors kept on the device: [N, nblock_chunk, ns]."""
-        outs = [self._posterior(x) for x in self._device_batches(all_chunks)]
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+    def _posterior_chunks_device(self, all_chunks: np.ndarray,
+                                 device) -> torch.Tensor:
+        """Chunk posteriors gathered on `device`: [N, nblock_chunk, ns]
+        (each data device's part of a batch copied once)."""
+        return gather_rows([p for rows in self._device_batches(all_chunks)
+                            for p in self._on_mesh(rows, self._posterior)],
+                           device)
 
     def _decode_chunks_streamed(self, chunk_iter, call):
         """Fused per-chunk decode over an iterator of per-read chunk arrays:
@@ -369,15 +395,15 @@ class BasecallEngine:
         pend: collections.deque = collections.deque()
 
         def collect():
-            out = pend.popleft()
-            scores.append(out[0].cpu().numpy())
-            raise_pending()  # SCRAPPIE_TORCH_VALIDATE's checks on the card
-            paths.append(out[1].cpu().numpy().astype(np.int32))
-            if len(out) > 2:
-                quals.append(out[2].cpu().numpy())
+            for out in pend.popleft():
+                scores.append(out[0].cpu().numpy())
+                raise_pending()  # SCRAPPIE_TORCH_VALIDATE's checks on the card
+                paths.append(out[1].cpu().numpy().astype(np.int32))
+                if len(out) > 2:
+                    quals.append(out[2].cpu().numpy())
 
         def dispatch(rows):
-            pend.append(call(self._to_device_batch(rows)))
+            pend.append(self._on_mesh(rows, call))
             if len(pend) >= PIPELINE_DEPTH:
                 collect()
 
@@ -429,7 +455,7 @@ class BasecallEngine:
                 nblock = e[2].nblock_total
                 results[i] = (float(scores[j]), paths[j, : nblock + 1].copy())
 
-        gi = 0
+        gi = ngroup = 0
         while gi < len(live):
             # group reads so that one posterior pass covers the group
             group = []
@@ -443,8 +469,11 @@ class BasecallEngine:
                 gi += 1
 
             chunks = np.concatenate([c for _, _, c in group], axis=0)
+            # the group decodes on one data device, the groups in turn
+            device = self.mesh.data_devices[ngroup % len(self.replicas)]
+            ngroup += 1
             with self.stage("posterior"):
-                post = self._posterior_chunks_device(chunks)
+                post = self._posterior_chunks_device(chunks, device)
             nb = post.shape[1]
             neutral_idx = post.shape[0] * nb  # the row _gather_decode appends
 
@@ -463,7 +492,7 @@ class BasecallEngine:
                 off += plan.nchunk
 
             with self.stage("decode"):
-                idx = torch.as_tensor(flat_idx, device=self.device)
+                idx = torch.as_tensor(flat_idx, device=device)
                 if self.spec.kind == "rnnrf":
                     scores_d, paths_d = _gather_decode_crf(
                         post, idx, float(crf_emit_bias))

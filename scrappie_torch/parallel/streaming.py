@@ -29,9 +29,13 @@ ops/pipeline.rgrgr_basecall_fused, transducer ensembles through
 ensemble_basecall_fused (models/ensemble.fused_config), raw_r94 through its
 posterior, then the Viterbi forward and backtrace kernels, and rnnrf (with
 its members' weighted transitions) through its head, then the CRF kernels
-(ops/crf.crf_viterbi_tm). A solo stream builds its own; `StreamingBatcher`
-shares one across channels and decodes their ready chunks in batches of at
-most `batch_size`.
+(ops/crf.crf_viterbi_tm). A solo stream builds its own on one device;
+`StreamingBatcher` shares one across channels and decodes their ready
+chunks in batches of at most `batch_size` on a device mesh
+(parallel/sharding.py; every visible card unless `device` or `mesh` says
+otherwise, as the JAX batcher's default mesh): each batch is split into
+row slices over the data devices, each decoded by its device's replica
+of the weights (replicated, as the JAX batcher places them).
 """
 
 from __future__ import annotations
@@ -43,9 +47,11 @@ from scrappie_torch.decode.transducer import viterbi_decode_batch
 from scrappie_torch.device import as_device
 from scrappie_torch.models.convert import raw_spec
 from scrappie_torch.models.ensemble import fused_config, validate_ensemble
-from scrappie_torch.models.forward import load_model
 from scrappie_torch.ops.crf import crf_viterbi_tm
 from scrappie_torch.ops.pipeline import ensemble_basecall_fused
+from scrappie_torch.parallel.sharding import (load_replicas, make_mesh,
+                                              resolve_mesh, round_batch,
+                                              split_rows)
 from scrappie_torch.post.overlapper import kmer_len_from_nkmer, overlapper
 from scrappie_torch.utils.maths import madf, medianf
 
@@ -60,46 +66,57 @@ class ChunkDecoder:
     [n, chunk_len] -> per-block emissions [n, nblock_chunk] (kmer or -1 for
     the transducers, CRF states for rnnrf) and chunk scores [n].
 
-    launch() dispatches the kernels and returns tensors on the device;
-    collect() copies a launch's results to the host. __call__ does both."""
+    launch() dispatches the kernels and returns tensors on the devices;
+    collect() copies a launch's results to the host. __call__ does both.
+    On a mesh (`mesh`, else the one device `device`, default CUDA) the
+    windows are split into row slices over the data devices."""
 
-    def __init__(self, model: str, device=None, *, min_prob: float = 1e-5,
+    def __init__(self, model: str, device=None, *, mesh=None,
+                 min_prob: float = 1e-5,
                  tempW: float = 1.0, tempb: float = 1.0, stay_pen: float = 0.0,
                  skip_pen: float = 0.0, local_pen: float = 2.0,
                  use_slip: bool = False, ensemble: tuple[str, ...] = (),
                  ensemble_weights: tuple[float, ...] | None = None):
         self.spec = raw_spec(model)
-        self.device = as_device(device)
+        self.mesh = (mesh if mesh is not None
+                     else make_mesh(devices=[as_device(device)]))
+        self.device = self.mesh.devices[0, 0]
         ensemble = tuple(ensemble)
         self._ens_w = None
         if ensemble or ensemble_weights is not None:
             self._ens_w = validate_ensemble(model, ensemble,
                                             ensemble_weights).astype(np.float32)
         self._fused_ens = fused_config(model, ensemble, ensemble_weights)
-        self.nets = tuple(load_model(m, self.device)
-                          for m in (model,) + ensemble)
+        # replicas[d]: the model and its members on data row d, replicated
+        self.replicas = list(zip(*[load_replicas(m, self.mesh, ())
+                                   for m in (model,) + ensemble]))
         self._head = dict(min_prob=float(min_prob), tempW=float(tempW),
                           tempb=float(tempb))
         self._decode = dict(stay_pen=float(stay_pen), skip_pen=float(skip_pen),
                             local_pen=float(local_pen), use_slip=bool(use_slip))
 
     @torch.inference_mode()
-    def launch(self, xs: np.ndarray):
-        x = torch.as_tensor(np.ascontiguousarray(xs, np.float32)[..., None],
-                            device=self.device)
+    def launch(self, xs: np.ndarray) -> list:
+        """Dispatch [n, chunk_len] windows -> each data row's (emissions,
+        scores) tensors on its device, in row order."""
+        x = np.ascontiguousarray(xs, np.float32)[..., None]
+        return [self._launch(self.replicas[r], part)
+                for r, part in split_rows(x, self.mesh.data_devices)]
+
+    def _launch(self, nets, x):
         kind = self.spec.kind
         if self._fused_ens is not None:
             w, kinds, acts = self._fused_ens
             scores, paths = ensemble_basecall_fused(
-                [net.params for net in self.nets], w, x, kinds=kinds,
+                [net.params for net in nets], w, x, kinds=kinds,
                 conv_activations=acts, stride=self.spec.stride, **self._head,
                 **self._decode)
             return paths[:, 1:], scores
         if kind == "rgrgr":
-            scores, paths = self.nets[0].basecall_fused(x, **self._head,
-                                                        **self._decode)
+            scores, paths = nets[0].basecall_fused(x, **self._head,
+                                                   **self._decode)
             return paths[:, 1:], scores
-        out = [net(x, return_log=True, **self._head) for net in self.nets]
+        out = [net(x, return_log=True, **self._head) for net in nets]
         if kind == "rnnrf":
             # the members' transitions, weighted and summed in member order
             trans = out[0]
@@ -114,9 +131,11 @@ class ChunkDecoder:
 
     @staticmethod
     def collect(launched) -> tuple[np.ndarray, np.ndarray]:
-        emissions, scores = launched
-        return (emissions.cpu().numpy().astype(np.int32),
-                scores.cpu().numpy())
+        emissions = [e.cpu().numpy().astype(np.int32) for e, _ in launched]
+        scores = [s.cpu().numpy() for _, s in launched]
+        if len(launched) == 1:
+            return emissions[0], scores[0]
+        return np.concatenate(emissions), np.concatenate(scores)
 
     def __call__(self, xs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         return self.collect(self.launch(xs))
@@ -436,11 +455,15 @@ class StreamingBatcher:
     feed(key, samples) -> new bases for that channel; bases decoded for
     other channels in the same batch wait for their next
     feed()/poll()/flush()/collect().
+
+    mesh: a parallel/sharding.Mesh; device: one device; with neither,
+    every visible card. batch_size is rounded up to a multiple of the
+    mesh's data axis.
     """
 
     def __init__(self, model: str = "rgrgr_r94", chunk_len: int = 10000,
                  overlap: int = 1000, batch_size: int = 8, *, device=None,
-                 min_prob: float = 1e-5, tempW: float = 1.0,
+                 mesh=None, min_prob: float = 1e-5, tempW: float = 1.0,
                  tempb: float = 1.0, stay_pen: float = 0.0,
                  skip_pen: float = 0.0, local_pen: float = 2.0,
                  use_slip: bool = False, ensemble: tuple[str, ...] = (),
@@ -449,9 +472,10 @@ class StreamingBatcher:
         self.model = model
         self.spec = raw_spec(model)
         self.chunk_len, self.overlap = chunk_len, overlap
-        self.batch_size = int(batch_size)
+        self.mesh = resolve_mesh(device, mesh)
+        self.batch_size = round_batch(batch_size, self.mesh)
         self._decoder = ChunkDecoder(
-            model, device, min_prob=min_prob, tempW=tempW, tempb=tempb,
+            model, mesh=self.mesh, min_prob=min_prob, tempW=tempW, tempb=tempb,
             stay_pen=stay_pen, skip_pen=skip_pen, local_pen=local_pen,
             use_slip=use_slip, ensemble=tuple(ensemble),
             ensemble_weights=ensemble_weights)

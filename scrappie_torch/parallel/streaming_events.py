@@ -23,8 +23,11 @@ at the overlap midpoints:
 
 The device half (`EventsChunkDecoder`) runs the events network's LSTM pair
 kernels and head on the card (models/forward.events_posterior_tm), then
-the neutral rows and the Viterbi kernels. The dwell homopolymer
-correction needs the whole read and does not apply.
+the neutral rows and the Viterbi kernels; `EventsStreamingBatcher` splits
+its batches into row slices over a device mesh's data devices
+(parallel/sharding.py; by default every visible card), as
+streaming.StreamingBatcher does. The dwell homopolymer correction needs
+the whole read and does not apply.
 """
 
 from __future__ import annotations
@@ -33,9 +36,12 @@ import numpy as np
 import torch
 
 from scrappie_torch.device import as_device
-from scrappie_torch.models.forward import events_posterior_tm, load_model
+from scrappie_torch.models.forward import events_posterior_tm
 from scrappie_torch.models.specs import NSTATE_TRANSDUCER
 from scrappie_torch.ops.viterbi import viterbi_backtrace_tm, viterbi_scores_tm
+from scrappie_torch.parallel.sharding import (load_replicas, make_mesh,
+                                              resolve_mesh, round_batch,
+                                              split_rows)
 from scrappie_torch.parallel.streaming import SampleBufferMixin
 from scrappie_torch.post.overlapper import kmer_len_from_nkmer, overlapper
 from scrappie_torch.signal.events import EVENT_DETECTION_DEFAULTS, detect_events
@@ -53,24 +59,39 @@ class EventsChunkDecoder:
     [n, event_bucket, 4] and event counts [n] -> per-event emissions
     (each chunk's first nev path entries) and chunk scores, through the
     events network's posterior, the neutral padding rows and the Viterbi
-    kernels. launch() dispatches, collect() copies back."""
+    kernels. launch() dispatches, collect() copies back. On a mesh
+    (`mesh`, else the one device `device`, default CUDA) the chunks are
+    split into row slices over the data devices."""
 
-    def __init__(self, device=None, *, min_prob: float = 1e-5,
+    def __init__(self, device=None, *, mesh=None, min_prob: float = 1e-5,
                  tempW: float = 1.0, tempb: float = 1.0, stay_pen: float = 0.0,
                  skip_pen: float = 0.0, local_pen: float = 2.0,
                  use_slip: bool = False):
-        self.device = as_device(device)
-        self.net = load_model("nanonet_events", self.device)
+        self.mesh = (mesh if mesh is not None
+                     else make_mesh(devices=[as_device(device)]))
+        self.device = self.mesh.devices[0, 0]
+        self.nets = load_replicas("nanonet_events", self.mesh, ())
+        self.net = self.nets[0]
         self._head = dict(min_prob=float(min_prob), tempW=float(tempW),
                           tempb=float(tempb))
         self._decode = dict(stay_pen=float(stay_pen), skip_pen=float(skip_pen),
                             local_pen=float(local_pen), use_slip=bool(use_slip))
 
     @torch.inference_mode()
-    def launch(self, sfeats: np.ndarray, nevs: list[int]):
-        feats = torch.as_tensor(np.ascontiguousarray(sfeats, np.float32),
-                                device=self.device)
-        lp = events_posterior_tm(self.net.params, feats, winlen=self.net.winlen,
+    def launch(self, sfeats: np.ndarray, nevs: list[int]) -> list:
+        """Dispatch [n, bucket, 4] features -> each data row's (paths,
+        scores, event counts), in row order."""
+        feats = np.ascontiguousarray(sfeats, np.float32)
+        out, lo = [], 0
+        for r, part in split_rows(feats, self.mesh.data_devices):
+            out.append(self._launch(self.nets[r], part,
+                                    list(nevs[lo:lo + len(part)])))
+            lo += len(part)
+        return out
+
+    def _launch(self, net, feats, nevs: list[int]):
+        lp = events_posterior_tm(net.posterior_params, feats,
+                                 winlen=net.winlen,
                                  **self._head)  # [bucket, n, ns]
         ns = lp.shape[-1]
         neutral = torch.full((ns,), -1e30, dtype=lp.dtype, device=lp.device)
@@ -81,15 +102,18 @@ class EventsChunkDecoder:
         lp = torch.where(pad_row[:, :, None], neutral, lp).contiguous()
         scores, paths = viterbi_backtrace_tm(*viterbi_scores_tm(lp,
                                                                 **self._decode))
-        return paths, scores, list(nevs)
+        return paths, scores, nevs
 
     @staticmethod
     def collect(launched) -> list[tuple[np.ndarray, float]]:
-        paths, scores, nevs = launched
-        paths = paths.cpu().numpy()
-        scores = scores.cpu().numpy()
-        # emission of event i is path entry i (ref src/scrappie_events.c:301)
-        return [(paths[i][: nevs[i]], float(scores[i])) for i in range(len(nevs))]
+        out = []
+        for paths, scores, nevs in launched:
+            paths = paths.cpu().numpy()
+            scores = scores.cpu().numpy()
+            # emission of event i is path entry i (ref src/scrappie_events.c:301)
+            out += [(paths[i][: nevs[i]], float(scores[i]))
+                    for i in range(len(nevs))]
+        return out
 
     def __call__(self, sfeats: np.ndarray, nev: int):
         """One chunk -> (emissions [nev], score)."""
@@ -375,19 +399,22 @@ class EventsStreamingBatcher:
     Event detection and features run on the host per chunk; the ready
     chunks of all channels are decoded in groups of at most batch_size
     through one shared EventsChunkDecoder. A channel's bases equal a solo
-    EventsStreamingBasecaller's.
+    EventsStreamingBasecaller's. mesh, device and the batch size's
+    rounding as streaming.StreamingBatcher's.
     """
 
     def __init__(self, chunk_len: int = 10000, overlap: int = 2000,
-                 batch_size: int = 8, *, device=None, min_prob: float = 1e-5,
+                 batch_size: int = 8, *, device=None, mesh=None,
+                 min_prob: float = 1e-5,
                  tempW: float = 1.0, tempb: float = 1.0,
                  stay_pen: float = 0.0, skip_pen: float = 0.0,
                  local_pen: float = 2.0, use_slip: bool = False,
                  **stream_kwargs):
         self.chunk_len, self.overlap = chunk_len, overlap
-        self.batch_size = int(batch_size)
+        self.mesh = resolve_mesh(device, mesh)
+        self.batch_size = round_batch(batch_size, self.mesh)
         self._decoder = EventsChunkDecoder(
-            device, min_prob=min_prob, tempW=tempW, tempb=tempb,
+            mesh=self.mesh, min_prob=min_prob, tempW=tempW, tempb=tempb,
             stay_pen=stay_pen, skip_pen=skip_pen, local_pen=local_pen,
             use_slip=use_slip)
         self._stream_kwargs = dict(stream_kwargs)

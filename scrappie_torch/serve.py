@@ -1,10 +1,12 @@
 """Dynamic-batching basecall serving, and a JSON-lines TCP server.
 
-Counterpart of scrappie_tpu/serve.py, with the same wire protocol and an
-explicit `device` (default "cuda"). The card's throughput comes from
-batching, so `BasecallService` queues incoming reads from many clients and
-hands groups of them to one `parallel/runner.BasecallEngine`, waiting at
-most `max_wait_ms` for company.
+Counterpart of scrappie_tpu/serve.py, with the same wire protocol. Its
+engines and batchers run on a device mesh (parallel/sharding.py): `mesh`,
+or the one device `device`, or by default every visible card, as the JAX
+server's default mesh. The card's throughput comes from batching, so
+`BasecallService` queues incoming reads from many clients and hands groups
+of them to one `parallel/runner.BasecallEngine`, waiting at most
+`max_wait_ms` for company.
 
 Two surfaces:
   - in-process: `BasecallService.submit(signal) -> concurrent Future`
@@ -65,15 +67,15 @@ from concurrent.futures import Future
 
 import numpy as np
 
-from scrappie_torch.device import as_device
+from scrappie_torch.parallel.sharding import resolve_mesh
 from scrappie_torch.types import RawSignal
 from scrappie_torch.utils.tracing import log
 
 
-def _prepare(device) -> None:
-    """Resolve the device and, for CUDA, build and load the kernels now,
+def _prepare(device=None, mesh=None) -> None:
+    """Resolve the mesh and, on cards, build and load the kernels now,
     before any service thread can launch one."""
-    if as_device(device).type == "cuda":
+    if resolve_mesh(device, mesh).device_type == "cuda":
         from scrappie_torch.ops import _build
 
         _build.library()
@@ -94,7 +96,7 @@ class BasecallService:
         if engine is None:
             from scrappie_torch.parallel.runner import BasecallEngine
 
-            _prepare(engine_kwargs.get("device"))
+            _prepare(engine_kwargs.get("device"), engine_kwargs.get("mesh"))
             engine = BasecallEngine(model, **engine_kwargs)
         self.engine = engine
         self.model = engine.model
@@ -221,16 +223,17 @@ class StreamingService:
 
     def __init__(self, model: str = "rgrgr_r94", *, chunk_len: int = 10000,
                  overlap: int = 1000, batch_size: int = 8,
-                 poll_ms: float = 50.0, device=None, **stream_kwargs):
+                 poll_ms: float = 50.0, device=None, mesh=None,
+                 **stream_kwargs):
         from scrappie_torch.parallel.streaming import StreamingBatcher
 
-        _prepare(device)
+        _prepare(device, mesh)
         self.batcher = StreamingBatcher(model, chunk_len, overlap,
                                         batch_size=batch_size, device=device,
-                                        **stream_kwargs)
+                                        mesh=mesh, **stream_kwargs)
         self._chunk_len, self._overlap = chunk_len, overlap
         self._batch_size = batch_size
-        self._device = device
+        self._device, self._mesh = device, mesh
         self._stream_kwargs = dict(stream_kwargs)
         self._events_batcher = None  # built by the first events channel
         self._route: dict = {}       # key -> the batcher that owns it
@@ -270,7 +273,7 @@ class StreamingService:
                     self._events_batcher = EventsStreamingBatcher(
                         self._chunk_len, max(self._overlap, 1),
                         batch_size=self._batch_size, device=self._device,
-                        **shared)
+                        mesh=self._mesh, **shared)
                 bat = self._events_batcher
             else:
                 raise ValueError(f"unknown pipeline {pipeline!r}")
@@ -425,7 +428,7 @@ def make_server(host: str = "127.0.0.1", port: int = 0,
     server._ss_lock = threading.Lock()
     ss_kwargs = dict(streaming_kwargs or {})
     ss_kwargs.setdefault("model", service_kwargs.get("model", "rgrgr_r94"))
-    for k in ("chunk_len", "overlap", "batch_size", "device"):
+    for k in ("chunk_len", "overlap", "batch_size", "device", "mesh"):
         if k in service_kwargs:
             ss_kwargs.setdefault(k, service_kwargs[k])
     server._ss_kwargs = ss_kwargs

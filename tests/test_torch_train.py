@@ -328,8 +328,25 @@ def test_train_matches_jax(model):
 
 
 def test_train_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match='ROADMAP.md queue 1, "Multi-GPU"'):
-        tt.train("rgrgr_r94", steps=1, mesh=object(), device="cpu")
+    """train(mesh=) trains now (tests/test_torch_mesh_train.py holds it to
+    mesh=None for every model): here one step on a (2, 1) CPU mesh gives
+    mesh=None's loss within LOSS_RTOL. What is still refused: a mesh that
+    is not a sharding.Mesh, a device and a mesh at once, a model with no
+    trainer."""
+    from scrappie_torch.parallel.sharding import make_mesh
+
+    kw = dict(steps=1, batch=BATCH, nsample=NSAMPLE, lr=LR, log_every=0)
+    batches = jax_batch("rgrgr_r94", seed=9)
+    _, want = tt.train("rgrgr_r94", simulator=Replay(batches), device="cpu",
+                       **kw)
+    _, got = tt.train("rgrgr_r94", simulator=Replay(batches),
+                      mesh=make_mesh(devices=["cpu"] * 2), **kw)
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    with pytest.raises(TypeError, match="Mesh"):
+        tt.train("rgrgr_r94", steps=1, mesh=object())
+    with pytest.raises(ValueError, match="not both"):
+        tt.train("rgrgr_r94", steps=1, mesh=make_mesh(devices=["cpu"]),
+                 device="cpu")
     with pytest.raises(ValueError, match="no trainer"):
         tt.make_train_step("squiggle_r94", None)
 
