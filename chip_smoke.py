@@ -232,6 +232,17 @@ if any phase fails:
      fast in each mode and prints each mode's edit distance to
      'highest''s calls, a figure, and the shortest read's 'bf16' call on
      the card against the CPU's 'bf16' call (phase precision_paths);
+     then trains in 'default' and 'bf16' (phase precision_train): the
+     six training kernels that take the mode's rounding (the GRU walk
+     and its big-S mode, the LSTM pair's walk and training forward and
+     their big-S modes) against their twins in each mode, within four
+     ulps of the mode at the output's largest magnitude, timed beside
+     'highest'; one bf16 framewise step of rgrgr_r94, rnnrf_r94 and
+     nanonet_events against the CPU's bf16 step on the same batch (loss
+     within 1e-3, gradient norm within 2e-2); 8 steps of rgrgr_r94 and
+     nanonet_events in each mode, the loss falling, seconds a step; a
+     bf16 lattice window step and whole-read step, finite and not
+     'highest''s;
  24. labels a simulated read of 80 790 samples (the bundled read
      ch174_read172's trimmed length) against its truth on the card
      (train/realdata.label_read: rgrgr_r94's posterior, then the seqmap
@@ -4784,15 +4795,19 @@ def in_mode(mode: str, fn):
         return fn()
 
 
-def precision_case(name: str, kernel, twin, tol: float) -> dict:
+def precision_case(name: str, kernel, twin, tol) -> dict:
     """kernel() (a tensor or a tuple of them) in each mode against
     twin(rounding) with the mode's rounding: finite, the largest
-    difference within tol[mode]; its time in each mode and in 'highest', and how
-    far 'bf16' moved it from 'highest'."""
+    difference within tol[mode] (one bound for every output, or a list of
+    one an output); its time in each mode and in 'highest', and how far
+    'bf16' moved it from 'highest'. A tuple's row also lists each output's
+    error and move (max_abs_errs_<mode>, moved_from_highest_<mode>); every
+    row each output's relative L2 to the twin and to 'highest'
+    (rel_l2_<mode>, moved_rel_l2_<mode>)."""
     import torch
 
     as_tuple = lambda t: t if isinstance(t, tuple) else (t,)
-    diff = lambda a, b: max(float((x - y).abs().max()) for x, y in zip(a, b))
+    diffs = lambda a, b: [float((x - y).abs().max()) for x, y in zip(a, b)]
     row = {"ms_highest": cuda_ms(lambda: in_mode("highest", kernel), reps=10)}
     exact = as_tuple(in_mode("highest", kernel))
     for mode in PRECISION_MODES:
@@ -4801,10 +4816,17 @@ def precision_case(name: str, kernel, twin, tol: float) -> dict:
         sync()
         require(all(bool(torch.isfinite(t).all()) for t in got),
                 f"{name} {mode}: finite")
-        err = diff(got, want)
-        require(err <= tol[mode], f"{name} {mode}: max abs err {err} <= {tol[mode]}")
-        row[f"max_abs_err_{mode}"] = err
-        row[f"moved_from_highest_{mode}"] = diff(got, exact)
+        errs, moved = diffs(got, want), diffs(got, exact)
+        bounds = tol[mode] if isinstance(tol[mode], list) else [tol[mode]] * len(errs)
+        for i, (err, bound) in enumerate(zip(errs, bounds)):
+            require(err <= bound,
+                    f"{name} {mode} output {i}: max abs err {err} <= {bound}")
+        row[f"max_abs_err_{mode}"] = max(errs)
+        row[f"moved_from_highest_{mode}"] = max(moved) if len(got) == 1 else moved
+        if len(got) > 1:
+            row[f"max_abs_errs_{mode}"] = errs
+        row[f"rel_l2_{mode}"] = [rel_l2(g, w) for g, w in zip(got, want)]
+        row[f"moved_rel_l2_{mode}"] = [rel_l2(g, e) for g, e in zip(got, exact)]
         row[f"ms_{mode}"] = cuda_ms(lambda: in_mode(mode, kernel), reps=10)
     return row
 
@@ -4954,6 +4976,297 @@ def precision_paths(card: str, reads: list, pool) -> dict:
               "edit_distance": 0 if g == cpu else edit_distance(g, cpu)})
     emit({"phase": "precision_paths", "seconds": round(time.perf_counter() - t0, 3)})
     return table
+
+
+# ------------------------------------------------------- precision_train
+
+#: One ulp of a mode's rounding (fp32 carries 24 bits; TF32 11, bfloat16
+#: 8): each output of a walk or training forward is held to PRECISION_ULPS
+#: of the mode at its own largest magnitude in the 'highest' twin,
+#: precision_kernels' gate for h in [-1, 1] (PRECISION_H_ATOL) carried to
+#: outputs of any scale.
+PRECISION_ULP = {"default": 2.0 ** -11, "bf16": 2.0 ** -8}
+PRECISION_ULPS = 4
+#: That gate is wider than the mode's own move: over thousands of steps a
+#: rounding that the kernel's and the twin's fp32 orders of summation take
+#: apart is carried into every later step and its roundings, so at the
+#: full length a kernel lies as little as 1.7 times nearer its mode's twin
+#: than the 'highest' one (relative L2; PERF.md, section 6). The
+#: rounding itself is checked where no such flip has been carried far: on
+#: the first PRECISION_SHORT_T steps of the same inputs each output's
+#: relative L2 to its mode's twin is at most 1/PRECISION_NEARER of its
+#: relative L2 to the 'highest' twin (at 16 steps the TF32 walks were
+#: already only 4.6 times nearer). A kernel that ignores its rounding code
+#: lies as near the 'highest' twin as its mode's twin moves from it.
+PRECISION_SHORT_T = 4
+PRECISION_NEARER = 4
+#: A framewise step under 'bf16' on the card against the port's CPU step on
+#: the same batch: two fp32 orders of summation that round to bfloat16 take
+#: different roundings once one falls the other way, so the loss, the
+#: gradient's global norm and the whole gradient's relative L2 are
+#: compared, not each entry; the gradient also lies PRECISION_NEARER times
+#: nearer the CPU's 'bf16' one than the card's 'highest' one does.
+PRECISION_TRAIN_LOSS_RTOL = 1e-3
+PRECISION_TRAIN_NORM_RTOL = 2e-2
+PRECISION_TRAIN_GRAD_RTOL = 2e-3
+PRECISION_TRAIN_MODELS = ("rgrgr_r94", "rnnrf_r94", "nanonet_events")
+PRECISION_TRAIN_BATCH = dict(batch=4, nsample=2000)
+
+
+def rel_l2(got, want) -> float:
+    """|got - want| / |want| over every entry, in float64 (tensors on
+    their device, or arrays)."""
+    import numpy as np
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got, want = got.double(), want.to(got.device).double()
+        return float(torch.linalg.vector_norm(got - want)
+                     / torch.linalg.vector_norm(want).clamp(min=1e-300))
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-300))
+
+
+def precision_walk_case(name: str, make) -> dict:
+    """precision_case for a backward or training kernel: make(n) gives
+    (kernel, twin) on the first n steps of the case's inputs (all of them
+    for None); kernel() reads the mode's rounding
+    (nn/config.kernel_rounding) and twin(rounding) is its plain twin. The
+    full length is held to PRECISION_ULPS ulps of the mode at each output's
+    scale, the first PRECISION_SHORT_T steps to lie PRECISION_NEARER times
+    nearer the mode's twin than the 'highest' twin, output by output."""
+    as_tuple = lambda t: t if isinstance(t, tuple) else (t,)
+    kernel, twin = make(None)
+    scales = [float(t.abs().max()) for t in as_tuple(twin(None))]
+    tol = {m: [PRECISION_ULPS * PRECISION_ULP[m] * s for s in scales]
+           for m in PRECISION_MODES}
+    row = precision_case(name, kernel, twin, tol)
+    row["tol"] = tol
+    kernel, twin = make(PRECISION_SHORT_T)
+    highest = as_tuple(twin(None))
+    for mode in PRECISION_MODES:
+        got = as_tuple(in_mode(mode, kernel))
+        near = [rel_l2(g, w) for g, w in zip(got, as_tuple(twin(PRECISION_ROUNDING[mode])))]
+        moved = [rel_l2(g, h) for g, h in zip(got, highest)]
+        for i, (e, m) in enumerate(zip(near, moved)):
+            require(m > 0 and e * PRECISION_NEARER <= m,
+                    f"{name} {mode} output {i}, {PRECISION_SHORT_T} steps: rel L2 "
+                    f"{e} to the mode's twin, {m} to the 'highest' twin")
+        row[f"short_rel_l2_{mode}"] = near
+        row[f"short_moved_{mode}"] = moved
+    return row
+
+
+def cpu_value_and_grad_mode(mode: str, model: str, params: dict, sig, labels):
+    """cpu_value_and_grad under precision `mode`, in a worker process."""
+    from scrappie_torch.nn import config
+
+    with config.precision(mode):
+        return cpu_value_and_grad(model, params, sig, labels)
+
+
+def global_norm(grads: dict) -> float:
+    import numpy as np
+
+    return float(np.sqrt(sum(float((np.asarray(g, np.float64) ** 2).sum())
+                             for g in grads.values())))
+
+
+def check_precision_train(net, enet, card: str, pool) -> dict:
+    """Training under 'default' and 'bf16' on the card (phase
+    precision_train): (1) each of the six kernel instances that take the
+    backward's rounding in each mode against its twin with the mode's
+    rounding (precision_walk_case), with its ms beside 'highest''s: the
+    GRU walk (rgrgr_r94's first layer, T_BLOCKS steps, B = 64, S = 96) and
+    its big-S walk, the LSTM pair's walk (the events network's first stage,
+    T_EVENTS steps, B = 64) and its big-S walk, the pair's training forward
+    (h and the planes) and its big-S mode (big-S: seeded weights, T_BIG_S
+    steps, B = 8, S = BIG_S_BWD); (2) one framewise step of each of
+    PRECISION_TRAIN_MODELS under 'bf16' on the card against the port's CPU
+    'bf16' step on the same batch (in the pool): the loss within
+    PRECISION_TRAIN_LOSS_RTOL, the gradient's global norm within
+    PRECISION_TRAIN_NORM_RTOL, the whole gradient within
+    PRECISION_TRAIN_GRAD_RTOL relative L2 and PRECISION_NEARER times
+    nearer than the card's 'highest' gradient; (3) TRAIN["steps"] steps of
+    rgrgr_r94 and nanonet_events in each mode after one untimed step, the
+    loss falling, the seconds a step of each mode; (4) one lattice window
+    step and one rgrgr_r94 whole-read step under 'bf16': the loss finite, the gradient finite and not
+    'highest''s. Returns {kernel: {max_abs_err_<mode>, ms_<mode>}} for the
+    kernels line."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.models.specs import RAW_MODELS
+    from scrappie_torch.nn import config, rnn
+    from scrappie_torch.nn.layers import conv1d, feedforward, window
+    from scrappie_torch.ops import gru as g
+    from scrappie_torch.ops import lstm as L
+    from scrappie_torch.ops.pipeline import CONV_ACT, lstm_weights
+    from scrappie_torch.ops.project import project_tm
+    from scrappie_torch.train import trainer
+    from scrappie_torch.train.simulate import SquiggleSimulator
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 400)
+    cuda_r = lambda: config.kernel_rounding("cuda")
+    out = {}
+    with torch.no_grad():
+        # (1) the GRU walk on rgrgr_r94's first layer
+        p, B = net.params, 64
+        sig = torch.as_tensor(rng.standard_normal((B, CHUNK, 1)).astype(np.float32),
+                              device="cuda")
+        x = CONV_ACT[net.conv_activation](
+            conv1d(sig, p["conv_W"], p["conv_b"], net.stride)).transpose(0, 1)
+        xg = feedforward(x, p["gruB1_iW"], p["gruB1_b"]).contiguous()
+        sW, sW2 = p["gruB1_sW"], p["gruB1_sW2"]
+        gh = torch.as_tensor(rng.standard_normal((T_BLOCKS, B, 96)).astype(np.float32),
+                             device="cuda")
+        h = g.gru_tm(xg, sW, sW2, False)
+        hp, gates = g.backward_inputs(xg, h, sW, sW2, False)
+
+        def gru_walk_case(name, gates, hp, gh, sW, sW2, reverse):
+            def make(n):
+                w = (gates[:n], hp[:n], gh[:n], sW, sW2, reverse)
+                return (lambda: g.gru_walk(*w, cuda_r()),
+                        lambda r: g.gru_walk_plain(*w, r))
+            return precision_walk_case(name, make)
+
+        out["gru_recurrence_bwd"] = gru_walk_case("gru_recurrence_bwd", gates, hp, gh,
+                                                  sW, sW2, False)
+        del sig, x, xg, gh, h, hp, gates
+        # the big-S walk and training forward, seeded weights
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 401)
+        Sb, Tb, Bb = BIG_S_BWD, T_BIG_S, 8
+        rnd = lambda *shape, s=1.0: s * torch.randn(shape, generator=gen, device="cuda")
+        bx, bgh = rnd(Tb, Bb, 3 * Sb), rnd(Tb, Bb, Sb)
+        bsW, bsW2 = rnd(Sb, 2 * Sb, s=Sb ** -0.5), rnd(Sb, Sb, s=Sb ** -0.5)
+        bhp, bgates = g.backward_inputs(bx, g.gru_tm(bx, bsW, bsW2, True), bsW, bsW2,
+                                        True)
+        out["gru_recurrence_bwd_global"] = gru_walk_case(
+            "gru_recurrence_bwd_global", bgates, bhp, bgh, bsW, bsW2, True)
+        # the LSTM pair: the events network's first stage
+        e = enet.params
+        wF, wB = (lstm_weights(e, d, 1) for d in "FB")
+        S = wF[2].shape[0]
+        feats = torch.as_tensor(rng.standard_normal((B, T_EVENTS, 4)).astype(np.float32),
+                                device="cuda")
+        xe = window(feats, enet.winlen, 1).transpose(0, 1).contiguous()
+        xpair = project_tm(xe, torch.cat((wF[0], wB[0]), 1), torch.cat((wF[1], wB[1])))
+        ghs = [torch.as_tensor(rng.standard_normal((T_EVENTS, B, S)).astype(np.float32),
+                               device="cuda") for _ in "FB"]
+
+        def pair_twin(xp, w_f, w_b, r):
+            S4 = 4 * w_f[0].shape[0]
+            hF, pF = rnn.lstm_tm(xp[..., :S4], *w_f, False, True, r)
+            hB, pB = rnn.lstm_tm(xp[..., S4:], *w_b, True, True, r)
+            return hF, hB, pF, pB
+
+        def pair_case(name, xp, w_f, w_b, gh2):
+            def make_train(n):
+                return (lambda: L.lstm_pair_train_cuda(xp[:n], *w_f, *w_b, cuda_r()),
+                        lambda r: pair_twin(xp[:n], w_f, w_b, r))
+
+            def make_walk(n):
+                _, _, pF, pB = L.lstm_pair_train_cuda(xp[:n], *w_f, *w_b)
+                dirs = [(pF, gh2[0][:n], *w_f, False), (pB, gh2[1][:n], *w_b, True)]
+
+                def twin(r):
+                    walks = [L.lstm_walk_plain(*d, r) for d in dirs]
+                    return (torch.cat([w[0] for w in walks], -1),
+                            torch.stack([w[1] for w in walks]))
+                return lambda: L.lstm_walk_pair(dirs, cuda_r()), twin
+
+            return (precision_walk_case(name, make_train),
+                    precision_walk_case(name.replace("lstm_pair_train",
+                                                     "lstm_recurrence_bwd"), make_walk))
+
+        out["lstm_pair_train"], out["lstm_recurrence_bwd"] = pair_case(
+            "lstm_pair_train", xpair, wF[2:], wB[2:], ghs)
+        del feats, xe, xpair, ghs
+        lw = [(rnd(Sb, 4 * Sb, s=Sb ** -0.5), rnd(3 * Sb, s=0.1)) for _ in "FB"]
+        out["lstm_pair_train_global"], out["lstm_recurrence_bwd_global"] = pair_case(
+            "lstm_pair_train_global", rnd(Tb, Bb, 8 * Sb), lw[0], lw[1],
+            [rnd(Tb, Bb, Sb) for _ in "FB"])
+    emit({"phase": "precision_train", "part": "kernels",
+          "shapes": {"gru": {"T": T_BLOCKS, "B": B, "S": 96},
+                     "lstm": {"T": T_EVENTS, "B": B, "S": S},
+                     "big_s": {"T": Tb, "B": Bb, "S": Sb}},
+          "kernels": out, "card": card})
+    # (2) a framewise step of each model under 'bf16', card against CPU
+    sim = SquiggleSimulator(seed=SEED + 402, device="cuda")
+    runs = []
+    for i, model in enumerate(PRECISION_TRAIN_MODELS):
+        spec = RAW_MODELS.get(model)
+        nb, ns = PRECISION_TRAIN_BATCH["batch"], PRECISION_TRAIN_BATCH["nsample"]
+        if spec is None:
+            sigb, labels = sim.detected_events_batch(nb, ns // 10)
+        else:
+            make = sim.crf_labelled_batch if spec.kind == "rnnrf" else sim.labelled_batch
+            sigb, labels = make(nb, ns, spec.stride)
+        params = random_params(model, SEED + 410 + i)
+        job = pool.submit(cpu_value_and_grad_mode, "bf16", model, params, sigb, labels)
+        tp = {k: torch.as_tensor(v, device="cuda") for k, v in params.items()}
+        loss, grads = in_mode("bf16", lambda: trainer.value_and_grad(model, tp, sigb, labels))
+        hloss, hgrads = trainer.value_and_grad(model, tp, sigb, labels)
+        runs.append((model, float(loss), {k: v.cpu().numpy() for k, v in grads.items()},
+                     {k: v.cpu().numpy() for k, v in hgrads.items()}, job))
+    steps = {}
+    # (3) TRAIN["steps"] steps in each mode
+    for i, model in enumerate(("rgrgr_r94", "nanonet_events")):
+        params = random_params(model, SEED + 420 + i)
+        steps[model] = {}
+        run = lambda steps: trainer.train(model, params=params, seed=SEED + 425 + i,
+                                          log_every=0, device="cuda",
+                                          **{**TRAIN, "steps": steps})
+        for mode in ("highest",) + PRECISION_MODES:
+            in_mode(mode, lambda: run(1))  # the mode's first products, untimed
+            sync()
+            t1 = time.perf_counter()
+            _, losses = in_mode(mode, lambda: run(TRAIN["steps"]))
+            sync()
+            sec = (time.perf_counter() - t1) / TRAIN["steps"]
+            require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                    f"precision_train {model} {mode}: the loss falls ({losses})")
+            steps[model][mode] = {"seconds_per_step": sec, "losses": losses}
+    emit({"phase": "precision_train", "part": "steps", **TRAIN, "steps": steps,
+          "card": card})
+    # (4) a lattice window step and an rgrgr whole-read step under 'bf16'
+    read = whole_read()
+    lattice_x = lattice_batches("rgrgr_r94", LATTICE_RUNS[0][1])[0]
+    params = random_params("rgrgr_r94", SEED + 430)
+    wx, wseq = wholeread_inputs(read, "transducer", "rgrgr_r94", "region_seqstates",
+                                params, WHOLE_CPU_BLOCKS * 5)
+    losses = {}
+    for kind, xs in (("lattice", lattice_x), ("transducer", (wx, wseq))):
+        bl, bg = in_mode("bf16", lambda: value_and_grad_on(kind, "rgrgr_r94", params,
+                                                           *xs, "cuda"))
+        hl, hg = value_and_grad_on(kind, "rgrgr_r94", params, *xs, "cuda")
+        require(np.isfinite(bl) and all(np.isfinite(v).all() for v in bg.values()),
+                f"precision_train {kind} bf16: finite loss and gradient")
+        moved = max(float(np.abs(bg[k] - hg[k]).max()) for k in bg)
+        require(moved > 0, f"precision_train {kind}: bf16's gradient is not highest's")
+        losses[kind] = {"loss_bf16": bl, "loss_highest": hl, "grad_moved": moved}
+    emit({"phase": "precision_train", "part": "lattice", "runs": losses, "card": card})
+    for model, loss, grads, hgrads, job in runs:
+        cpu_loss, cpu_grads = job.result()
+        loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
+        norm_rel = abs(global_norm(grads) - global_norm(cpu_grads)) / global_norm(cpu_grads)
+        flat = lambda gs: np.concatenate([np.ravel(gs[k]) for k in sorted(cpu_grads)])
+        grad_rel, highest_rel = (rel_l2(flat(gs), flat(cpu_grads)) for gs in (grads, hgrads))
+        require(loss_rel <= PRECISION_TRAIN_LOSS_RTOL,
+                f"precision_train {model}: bf16 loss {loss} against the CPU's {cpu_loss}")
+        require(norm_rel <= PRECISION_TRAIN_NORM_RTOL,
+                f"precision_train {model}: bf16 gradient norm rel err {norm_rel}")
+        require(grad_rel <= PRECISION_TRAIN_GRAD_RTOL and highest_rel > 0
+                and grad_rel * PRECISION_NEARER <= highest_rel,
+                f"precision_train {model}: bf16 gradient rel L2 {grad_rel} to the "
+                f"CPU's, 'highest''s {highest_rel}")
+        emit({"phase": "precision_train", "part": "cpu", "model": model,
+              **PRECISION_TRAIN_BATCH, "loss_rel_err": loss_rel,
+              "grad_norm_rel_err": norm_rel, "grad_rel_l2_to_cpu": grad_rel,
+              "highest_grad_rel_l2_to_cpu": highest_rel, "card": card})
+    emit({"phase": "precision_train", "seconds": round(time.perf_counter() - t0, 3)})
+    return out
 
 
 # ------------------------------------------------------------ realdata
@@ -5591,6 +5904,7 @@ def main() -> int:
         check_batch_invariance(card)
         main_path_serve(card, reads, pool)
         precision_paths(card, reads, pool)
+        precision.update(check_precision_train(net, enet, card, pool))
         check_realdata(card, pool)
     check_validate(card, reads)
     check_embed(card, reads)

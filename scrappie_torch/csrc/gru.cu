@@ -67,7 +67,14 @@
 // into registers (the big-S mode rounds each weight it reads from L2), and
 // the two activations where they are formed: r * h when it is written to
 // shared memory, and h into a rounded copy beside it (the gates read the
-// unrounded h), so a step does the same FMAs as in 'highest'.
+// unrounded h), so a step does the same FMAs as in 'highest'. The two
+// walks take the same kRound (the forward's, nn/config.grad_rounding):
+// the weights rounded where they are loaded (or read, big-S); in 'default'
+// (1) the cotangents da_z, da_r and da_h rounded to TF32 where they are
+// written to shared memory, which only the products read (da gets them
+// unrounded); in 'bf16' (2) each product's result rounded to bfloat16
+// before it enters the step, drh = R(da_h @ sW2^T) (so da_r and the carry
+// take the rounded drh) and R(da_z @ sW_z^T + da_r @ sW_r^T).
 //
 // The superseded gru_layer_kernel: one block per row and one thread per
 // gate column (3S threads); iW, sW and sW2 in shared memory (224 KB at
@@ -394,6 +401,7 @@ __device__ __forceinline__ void tile_dot(float (&p)[BW_OUT], const float* vec,
   }
 }
 
+template <int kRound>
 __global__ void __launch_bounds__(BW_THREADS)
 gru_recurrence_bwd_kernel(const float* __restrict__ gates,
                           const float* __restrict__ h_prev,
@@ -426,9 +434,10 @@ gru_recurrence_bwd_kernel(const float* __restrict__ gates,
     for (int jj = 0; jj < BW_ROWS; ++jj) {
       const int ki = k0 + i, j = q * BW_ROWS + jj;
       const bool in = ki < S && j < S;
-      w2[i][jj] = in ? sW2[(size_t)ki * S + j] : 0.0f;
-      wz[i][jj] = in ? sW[(size_t)ki * 2 * S + j] : 0.0f;
-      wr[i][jj] = in ? sW[(size_t)ki * 2 * S + S + j] : 0.0f;
+      w2[i][jj] = in ? round_weight<kRound>(sW2[(size_t)ki * S + j]) : 0.0f;
+      wz[i][jj] = in ? round_weight<kRound>(sW[(size_t)ki * 2 * S + j]) : 0.0f;
+      wr[i][jj] = in ? round_weight<kRound>(sW[(size_t)ki * 2 * S + S + j])
+                     : 0.0f;
     }
   }
   // step n at t = reverse ? n : T-1-n (the forward's steps backwards)
@@ -467,11 +476,11 @@ gru_recurrence_bwd_kernel(const float* __restrict__ gates,
       if (live) {
         if (odd) {
           const float az = __fmul_rn(dh, cz);
-          s_az[k] = az;
+          s_az[k] = round_cotangent<kRound>(az);
           da[row * S3 + k] = az;
         } else {
           const float ah = __fmul_rn(dh, ch);
-          s_ah[k] = ah;
+          s_ah[k] = round_cotangent<kRound>(ah);
           da[row * S3 + 2 * S + k] = ah;
         }
       }
@@ -480,19 +489,19 @@ gru_recurrence_bwd_kernel(const float* __restrict__ gates,
       float pz[BW_OUT] = {0.0f, 0.0f, 0.0f, 0.0f};
       tile_dot(p2, s_ah + q * BW_ROWS, w2);
       tile_dot(pz, s_az + q * BW_ROWS, wz);
-      const float drh = reduce_scatter(p2, q);
+      const float drh = round_result<kRound>(reduce_scatter(p2, q));
       const float recz = reduce_scatter(pz, q);
       const float ar = __fmul_rn(drh, cr);
       if (live) {
         if (odd) da[row * S3 + S + k] = ar;
-        else s_ar[k] = ar;
+        else s_ar[k] = round_cotangent<kRound>(ar);
       }
       __syncthreads();
       float pr[BW_OUT] = {0.0f, 0.0f, 0.0f, 0.0f};
       tile_dot(pr, s_ar + q * BW_ROWS, wr);
       const float recr = reduce_scatter(pr, q);
       carry = __fadd_rn(__fadd_rn(__fmul_rn(dh, z), __fmul_rn(drh, r)),
-                        __fadd_rn(recz, recr));
+                        round_result<kRound>(__fadd_rn(recz, recr)));
     }
   }
 }
@@ -500,22 +509,25 @@ gru_recurrence_bwd_kernel(const float* __restrict__ gates,
 constexpr int BGL = 8;  // lanes of an output in the big-S walk
 
 // Partial dot product of one lane of BGL: vec[j] * W[k, col0 + j] for
-// j = la, la + BGL, ... < S, vec in shared memory, W's row k contiguous.
+// j = la, la + BGL, ... < S, vec in shared memory, W's row k contiguous,
+// each weight rounded as it is read.
+template <int kRound>
 __device__ __forceinline__ float row_dot(const float* vec,
                                          const float* __restrict__ wrow,
                                          int la, int S) {
   float a0 = 0.0f, a1 = 0.0f;
   int j = la;
   for (; j + BGL < S; j += 2 * BGL) {
-    a0 = fmaf(vec[j], __ldg(wrow + j), a0);
-    a1 = fmaf(vec[j + BGL], __ldg(wrow + j + BGL), a1);
+    a0 = fmaf(vec[j], round_weight<kRound>(__ldg(wrow + j)), a0);
+    a1 = fmaf(vec[j + BGL], round_weight<kRound>(__ldg(wrow + j + BGL)), a1);
   }
-  if (j < S) a0 = fmaf(vec[j], __ldg(wrow + j), a0);
+  if (j < S) a0 = fmaf(vec[j], round_weight<kRound>(__ldg(wrow + j)), a0);
   return __fadd_rn(a0, a1);
 }
 
 // The walk with its weights in global memory: gru_recurrence_bwd_kernel's
 // arguments, any S (shared memory: 10 S floats).
+template <int kRound>
 __global__ void __launch_bounds__(1024)
 gru_walk_global_kernel(const float* __restrict__ gates,
                        const float* __restrict__ h_prev,
@@ -551,8 +563,8 @@ gru_walk_global_kernel(const float* __restrict__ gates,
       const float cr = __fmul_rn(__fmul_rn(hp, r), __fsub_rn(1.0f, r));
       const float dh = __fadd_rn(s_carry[k], gh[row * S + k]);
       const float az = __fmul_rn(dh, cz), ah = __fmul_rn(dh, ch);
-      s_az[k] = az;
-      s_ah[k] = ah;
+      s_az[k] = round_cotangent<kRound>(az);
+      s_ah[k] = round_cotangent<kRound>(ah);
       da[row * S3 + k] = az;
       da[row * S3 + S2 + k] = ah;
       s_dh[k] = dh;
@@ -564,13 +576,13 @@ gru_walk_global_kernel(const float* __restrict__ gates,
     for (int k0 = 0; k0 < S; k0 += ngroup) {
       const int k = k0 + tid / BGL;
       const bool live = k < S;
-      const float p2 = group_sum<BGL>(
-          live ? row_dot(s_ah, sW2 + (size_t)k * S, la, S) : 0.0f);
+      const float p2 = round_result<kRound>(group_sum<BGL>(
+          live ? row_dot<kRound>(s_ah, sW2 + (size_t)k * S, la, S) : 0.0f));
       const float pz = group_sum<BGL>(
-          live ? row_dot(s_az, sW + (size_t)k * S2, la, S) : 0.0f);
+          live ? row_dot<kRound>(s_az, sW + (size_t)k * S2, la, S) : 0.0f);
       if (live && la == 0) {
         const float ar = __fmul_rn(p2, s_cr[k]);
-        s_ar[k] = ar;
+        s_ar[k] = round_cotangent<kRound>(ar);
         da[row * S3 + S + k] = ar;
         s_part[k] = __fadd_rn(__fmul_rn(s_dh[k], s_z[k]), __fmul_rn(p2, s_r[k]));
         s_recz[k] = pz;
@@ -581,8 +593,10 @@ gru_walk_global_kernel(const float* __restrict__ gates,
       const int k = k0 + tid / BGL;
       const bool live = k < S;
       const float pr = group_sum<BGL>(
-          live ? row_dot(s_ar, sW + (size_t)k * S2 + S, la, S) : 0.0f);
-      if (live && la == 0) s_carry[k] = __fadd_rn(s_part[k], __fadd_rn(s_recz[k], pr));
+          live ? row_dot<kRound>(s_ar, sW + (size_t)k * S2 + S, la, S) : 0.0f);
+      if (live && la == 0)
+        s_carry[k] = __fadd_rn(s_part[k],
+                               round_result<kRound>(__fadd_rn(s_recz[k], pr)));
     }
     __syncthreads();
   }
@@ -729,29 +743,33 @@ int scrappie_gru_recurrence(const float* x, const float* sW, const float* sW2,
 // The recurrence's backward walk: gates [T, B, 3S] (z | r | hbar), h_prev
 // [T, B, S], gh [T, B, S], sW [S, 2S], sW2 [S, S] -> da [T, B, 3S]; all
 // fp32, contiguous, on the current device. global = 0: the weights in
-// registers, S <= REG_MAX_S; global = 1: the big-S walk. Returns a
-// cudaError_t.
+// registers, S <= REG_MAX_S; global = 1: the big-S walk. rounding 0, 1 or
+// 2: the forward's (none, TF32 or bfloat16 operands), the backward's
+// products rounded as rounding.cuh's round_cotangent and round_result
+// say. Returns a cudaError_t.
 int scrappie_gru_recurrence_bwd(const float* gates, const float* h_prev,
                                 const float* gh, const float* sW,
                                 const float* sW2, float* da, int T, int B,
-                                int S, int reverse, int global,
+                                int S, int reverse, int global, int rounding,
                                 cudaStream_t stream) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
-  if (global) {
-    const size_t smem = sizeof(float) * 10 * (size_t)S;
-    cudaError_t err = cudaFuncSetAttribute(
-        gru_walk_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    gru_walk_global_kernel<<<B, 1024, smem, stream>>>(gates, h_prev, gh, sW,
-                                                      sW2, da, T, B, S,
-                                                      reverse);
+  if (!global && S > REG_MAX_S) return (int)cudaErrorInvalidValue;
+  return with_rounding(rounding, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (global) {
+      const size_t smem = sizeof(float) * 10 * (size_t)S;
+      cudaError_t err = cudaFuncSetAttribute(
+          gru_walk_global_kernel<R>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      gru_walk_global_kernel<R><<<B, 1024, smem, stream>>>(
+          gates, h_prev, gh, sW, sW2, da, T, B, S, reverse);
+      return (int)cudaGetLastError();
+    }
+    gru_recurrence_bwd_kernel<R><<<B, BW_THREADS, 0, stream>>>(
+        gates, h_prev, gh, sW, sW2, da, T, B, S, reverse);
     return (int)cudaGetLastError();
-  }
-  if (S > REG_MAX_S) return (int)cudaErrorInvalidValue;
-  gru_recurrence_bwd_kernel<<<B, BW_THREADS, 0, stream>>>(
-      gates, h_prev, gh, sW, sW2, da, T, B, S, reverse);
-  return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

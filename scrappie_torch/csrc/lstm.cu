@@ -123,11 +123,19 @@
 // The same arithmetic, the product's sums in another order; a simple
 // kernel, for sizes above the shipped models'.
 //
-// Precision (template kRound of the inference modes, rounding.cuh): in
-// 'default' and 'bf16' sW is rounded once, where it is loaded into
-// registers (the big-S mode rounds each weight it reads from L2), and h
-// where it is written to shared memory, which only the product reads (y
-// gets the unrounded h). The training modes run only in 'highest'.
+// Precision (template kRound, rounding.cuh): in 'default' and 'bf16' sW
+// is rounded once, where it is loaded into registers (on the integer
+// bits, round_weight_bits: the training mode spilled with a cvt there;
+// the big-S mode rounds each weight it reads from L2), and h where it is
+// written to
+// shared memory, which only the product reads (y gets the unrounded h).
+// The training forward is the same template in its training mode, so its
+// h is the inference launch's bit for bit in each mode. The walks take the
+// forward's kRound (nn/config.grad_rounding): sW^T rounded where it is
+// loaded (or read, big-S); in 'default' (1) da rounded to TF32 where it is
+// written to shared memory, which only the product reads (da in global
+// memory and the dpeep sums take it unrounded); in 'bf16' (2) the
+// product's result, carry_h = R(da @ sW^T), rounded to bfloat16.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -198,7 +206,7 @@ lstm_recurrence_kernel(const float* __restrict__ xproj, int xcols, Dir d0,
     for (int i = 0; i < QROWS; ++i) {
       const int k = g * QROWS + i;
       w[j][i] = (live && k < S)
-                    ? round_weight<kRound>(__ldg(d.sW + (size_t)k * S4 + j * S + u))
+                    ? round_weight_bits<kRound>(__ldg(d.sW + (size_t)k * S4 + j * S + u))
                     : 0.0f;
     }
   const float p_gate =
@@ -499,7 +507,7 @@ __device__ __forceinline__ void cp_async_vec(float* dst, const float* src,
 // [REG_MAX_S, 4, REG_MAX_S] with zeros (sW itself at S = REG_MAX_S). A
 // step's plane rows come by cp.async copies of VEC floats: 4 where S and
 // poff are multiples of 4 and the planes and gh 16-byte aligned, else 1.
-template <int VEC>
+template <int VEC, int kRound>
 __global__ void __launch_bounds__(BW_THREADS, 1)
 lstm_recurrence_bwd_kernel(BwdDir d0, BwdDir d1, long long poff,
                            float* __restrict__ da, int dcols,
@@ -527,7 +535,7 @@ lstm_recurrence_bwd_kernel(BwdDir d0, BwdDir d1, long long poff,
   for (int i = 0; i < BW_OUT; ++i)
 #pragma unroll
     for (int jj = 0; jj < BW_ROWS; ++jj)
-      w[i][jj] = __ldg(wtile + i * 4 * REG_MAX_S + jj);
+      w[i][jj] = round_weight<kRound>(__ldg(wtile + i * 4 * REG_MAX_S + jj));
   for (int i = tid; i < 2 * BW_DA; i += BW_THREADS)
     (&s_da[0][0])[i] = 0.0f;
   for (int i = tid; i < 3 * REG_MAX_S; i += BW_THREADS) {
@@ -606,7 +614,7 @@ lstm_recurrence_bwd_kernel(BwdDir d0, BwdDir d1, long long poff,
       const float dc = fmaf(dh, cur.bc, carry_c);
       const float mine = __fmul_rn(r == 3 ? dh : dc, cur.x);
       float* buf = s_da[u & 1];
-      if (live) buf[da_at(r * REG_MAX_S + k)] = mine;
+      if (live) buf[da_at(r * REG_MAX_S + k)] = round_cotangent<kRound>(mine);
       carry_c = __fmul_rn(dc, cur.kk);
       dp = fma((double)mine, (double)cur.pc, dp);
       cp_async_wait_mem<BW_RING - 3>();  // this thread's copies of n + 1
@@ -635,7 +643,7 @@ lstm_recurrence_bwd_kernel(BwdDir d0, BwdDir d1, long long poff,
       // (past the walk's end from a stale slot, and unused)
       cur = coefficients(n + 1, c_now);
       c_now = s_in[(n + 1) & (BW_RING - 1)][NG][kc];
-      carry_h = reduce_scatter16(p, q);
+      carry_h = round_result<kRound>(reduce_scatter16(p, q));
     }
   }
   cp_async_wait_mem<0>();
@@ -648,6 +656,7 @@ constexpr int WGL = 8;  // lanes of an output in the big-S walk
 // As lstm_recurrence_bwd_kernel (the gates' planes), sW read from global
 // memory; any S (shared memory: 9S floats: carry_h [S], carry_c [S], the
 // dpeep sums [3S], da [4S]).
+template <int kRound>
 __global__ void __launch_bounds__(1024)
 lstm_walk_global_kernel(BwdDir d0, BwdDir d1, long long poff,
                         float* __restrict__ da, int dcols,
@@ -690,7 +699,7 @@ lstm_walk_global_kernel(BwdDir d0, BwdDir d1, long long poff,
       s_dp[2 * S + u] = fmaf(a[3], c, s_dp[2 * S + u]);
       float* out = dcol + row * dcols;
       for (int r = 0; r < 4; ++r) {
-        s_da[r * S + u] = a[r];
+        s_da[r * S + u] = round_cotangent<kRound>(a[r]);
         out[r * S + u] = a[r];
       }
     }
@@ -702,15 +711,17 @@ lstm_walk_global_kernel(BwdDir d0, BwdDir d1, long long poff,
         const float* wrow = d.sW + (size_t)k * S4;
         int j = la;
         for (; j + WGL < S4; j += 2 * WGL) {
-          a0 = fmaf(s_da[j], __ldg(wrow + j), a0);
-          a1 = fmaf(s_da[j + WGL], __ldg(wrow + j + WGL), a1);
+          a0 = fmaf(s_da[j], round_weight<kRound>(__ldg(wrow + j)), a0);
+          a1 = fmaf(s_da[j + WGL], round_weight<kRound>(__ldg(wrow + j + WGL)),
+                    a1);
         }
-        if (j < S4) a0 = fmaf(s_da[j], __ldg(wrow + j), a0);
+        if (j < S4)
+          a0 = fmaf(s_da[j], round_weight<kRound>(__ldg(wrow + j)), a0);
       }
       float v = __fadd_rn(a0, a1);
 #pragma unroll
       for (int o = WGL / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-      if (k < S && la == 0) s_ch[k] = v;
+      if (k < S && la == 0) s_ch[k] = round_result<kRound>(v);
     }
     __syncthreads();
   }
@@ -779,19 +790,23 @@ int scrappie_lstm_pair(const float* xproj, const float* sW_f,
 // directions' other planes [T, B, S], tanh(c) and the activated gates g,
 // i, f, o, plane m at y + m (c - y), which must be the same for both
 // directions. global = 0: sW in registers (S <= REG_MAX_S); global = 1:
-// the big-S kernel. Returns a cudaError_t.
+// the big-S kernel. rounding as scrappie_lstm_recurrence's. Returns a
+// cudaError_t.
 int scrappie_lstm_pair_train(const float* xproj, const float* sW_f,
                              const float* peep_f, float* y_f, float* c_f,
                              const float* sW_b, const float* peep_b,
                              float* y_b, float* c_b, int T, int B, int S,
-                             int global, cudaStream_t stream) {
+                             int global, int rounding, cudaStream_t stream) {
   if (c_f - y_f != c_b - y_b) return (int)cudaErrorInvalidValue;
   const Dir df{sW_f, peep_f, y_f, 0}, db{sW_b, peep_b, y_b, 1};
-  if (global)
-    return launch_global<true>(xproj, 8 * S, df, db, 2, T, B, S, stream,
-                               c_f - y_f);
-  return launch_registers<true>(xproj, 8 * S, df, db, 2, T, B, S, stream,
-                                c_f - y_f);
+  return with_rounding(rounding, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (global)
+      return launch_global<true, R>(xproj, 8 * S, df, db, 2, T, B, S, stream,
+                                    c_f - y_f);
+    return launch_registers<true, R>(xproj, 8 * S, df, db, 2, T, B, S, stream,
+                                     c_f - y_f);
+  });
 }
 
 // The backward walk of ndir (1 or 2) directions in one launch: for
@@ -802,7 +817,9 @@ int scrappie_lstm_pair_train(const float* xproj, const float* sW_f,
 // c_prev and da_o c; all fp32, each plane contiguous, on the current
 // device. global = 0: sW in registers, S <= REG_MAX_S, sW0 and sW1 padded
 // to [REG_MAX_S, 4, REG_MAX_S] with zeros; global = 1: the big-S walk.
-// Returns a cudaError_t.
+// rounding 0, 1 or 2: the forward's (none, TF32 or bfloat16 operands), the
+// carry's product rounded as rounding.cuh's round_cotangent and
+// round_result say. Returns a cudaError_t.
 int scrappie_lstm_recurrence_bwd(const float* c0, const float* gh0,
                                  const float* sW0, const float* peep0,
                                  int reverse0, const float* c1,
@@ -810,7 +827,8 @@ int scrappie_lstm_recurrence_bwd(const float* c0, const float* gh0,
                                  const float* peep1, int reverse1,
                                  long long poff, float* da, int dcols,
                                  float* dpeep, int ndir, int T, int B, int S,
-                                 int global, cudaStream_t stream) {
+                                 int global, int rounding,
+                                 cudaStream_t stream) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
   if (S < 1 || ndir < 1 || ndir > 2 || dcols < 4 * S * ndir ||
       (!global && S > REG_MAX_S))
@@ -818,25 +836,28 @@ int scrappie_lstm_recurrence_bwd(const float* c0, const float* gh0,
   const BwdDir e0{c0, gh0, sW0, peep0, reverse0};
   const BwdDir e1{c1, gh1, sW1, peep1, reverse1};
   const dim3 grid(B, ndir);
-  if (global) {
-    const size_t smem = sizeof(float) * 9 * (size_t)S;
-    cudaError_t err = cudaFuncSetAttribute(
-        lstm_walk_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    lstm_walk_global_kernel<<<grid, 1024, smem, stream>>>(
-        e0, e1, poff, da, dcols, dpeep, T, B, S);
-    return (int)cudaGetLastError();
-  }
   const auto aligned = [](const void* p) { return (size_t)p % 16 == 0; };
-  if (S % 4 == 0 && poff % 4 == 0 && aligned(c0) && aligned(c1) &&
-      aligned(gh0) && aligned(gh1))
-    lstm_recurrence_bwd_kernel<4><<<grid, BW_THREADS, 0, stream>>>(
-        e0, e1, poff, da, dcols, dpeep, T, B, S);
-  else
-    lstm_recurrence_bwd_kernel<1><<<grid, BW_THREADS, 0, stream>>>(
-        e0, e1, poff, da, dcols, dpeep, T, B, S);
-  return (int)cudaGetLastError();
+  const bool vec4 = S % 4 == 0 && poff % 4 == 0 && aligned(c0) &&
+                    aligned(c1) && aligned(gh0) && aligned(gh1);
+  return with_rounding(rounding, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    if (global) {
+      const size_t smem = sizeof(float) * 9 * (size_t)S;
+      cudaError_t err = cudaFuncSetAttribute(
+          lstm_walk_global_kernel<R>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      lstm_walk_global_kernel<R><<<grid, 1024, smem, stream>>>(
+          e0, e1, poff, da, dcols, dpeep, T, B, S);
+    } else if (vec4) {
+      lstm_recurrence_bwd_kernel<4, R><<<grid, BW_THREADS, 0, stream>>>(
+          e0, e1, poff, da, dcols, dpeep, T, B, S);
+    } else {
+      lstm_recurrence_bwd_kernel<1, R><<<grid, BW_THREADS, 0, stream>>>(
+          e0, e1, poff, da, dcols, dpeep, T, B, S);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

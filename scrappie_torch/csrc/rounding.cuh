@@ -1,6 +1,7 @@
 // Operand rounding of the precision policy (scrappie_torch/nn/config.py),
 // shared by the kernels with products: the projection (project.cu), the
-// head (head.cu) and the GRU and LSTM recurrences (gru.cu, lstm.cu).
+// head (head.cu), the GRU and LSTM recurrences and their backward walks
+// (gru.cu, lstm.cu).
 //
 // kRound 0 leaves an fp32 operand as it is ('highest'); 1 rounds it to
 // TF32 ('default' on the card): the low 13 mantissa bits rounded half
@@ -12,8 +13,9 @@
 // twin (nn/config.round_operand) differ only in the order of the sums.
 // round_weight takes TF32's rounding on the integer bits, which the
 // compiler schedules with the loads (as an inline cvt.rna.tf32.f32 the
-// LSTM recurrence's 96 weights a thread spilled); both give every finite
-// value the same bits, and pass Inf and NaN on as Inf and NaN. The C entry
+// LSTM recurrence's 96 weights a thread spilled; round_weight_bits does
+// the same for bfloat16 there); both give every finite value the same
+// bits, and pass Inf and NaN on as Inf and NaN. The C entry
 // points take the mode as an int and dispatch once to a template
 // instance, so 'highest' runs the same code as before the policy existed.
 #pragma once
@@ -46,6 +48,35 @@ __device__ __forceinline__ float round_weight(float x) {
   } else {
     return round_operand<kRound>(x);
   }
+}
+
+// round_weight with bfloat16's rounding on the integer bits too (round to
+// nearest even), for the LSTM recurrence's 96 weights a thread, whose
+// training mode spilled with cvt.rn.bf16.f32 at their loads.
+template <int kRound>
+__device__ __forceinline__ float round_weight_bits(float x) {
+  if constexpr (kRound == 2) {
+    const unsigned u = __float_as_uint(x);
+    return (u & 0x7f800000u) == 0x7f800000u
+               ? x
+               : __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
+  } else {
+    return round_weight<kRound>(x);
+  }
+}
+
+// The backward of a product whose forward rounded by kRound
+// (nn/config.grad_rounding): TF32 rounds the cotangent operand as well
+// (round_cotangent), bfloat16 the product's result (round_result, the VJP
+// of the forward's cast); each leaves the other as it is.
+template <int kRound>
+__device__ __forceinline__ float round_cotangent(float x) {
+  return kRound == 1 ? round_operand<1>(x) : x;
+}
+
+template <int kRound>
+__device__ __forceinline__ float round_result(float x) {
+  return kRound == 2 ? round_operand<2>(x) : x;
 }
 
 template <int kRound>

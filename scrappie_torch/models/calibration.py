@@ -13,7 +13,8 @@ and users tune by hand (ref src/scrappie_raw.c:98-121 defaults).  We
 keep those exact semantics as the default and expose the measured
 optima behind ``--calibration real`` / ``calibration="real"`` so the
 numbers in BASELINE.md are one flag away instead of folklore. A copy of
-scrappie_tpu/models/calibration.py without its weight-hash checks.
+scrappie_tpu/models/calibration.py without its weight-hash checks (it
+keeps `weights_sha`, the hash they compare).
 
 The presets are fit to only two reads; the *direction* (positive stay
 penalty) is consistent across all models and both reads, the exact
@@ -63,6 +64,15 @@ REAL_CALIBRATION: dict[str, dict[str, float]] = {
     "rnnrf_r94": {},
     "nanonet_events": {"stay_pen": 1.0, "skip_pen": 0.0},
 }
+
+def weights_sha(model: str) -> str:
+    """16-hex sha256 prefix of the model's shipped npz weight file."""
+    import hashlib
+
+    from scrappie_torch.models.registry import weights_path
+
+    return hashlib.sha256(weights_path(model).read_bytes()).hexdigest()[:16]
+
 
 PRESETS = ("reference", "real")
 

@@ -12,10 +12,20 @@ import pathlib
 
 import numpy as np
 
+from scrappie_torch.models.specs import RAW_MODELS
+
 PARAMS_DIR = (pathlib.Path(__file__).resolve().parents[2] / "scrappie_tpu"
               / "models" / "params")
 
 _cache: dict[str, dict[str, np.ndarray]] = {}
+
+
+def get_model_stride(model: str) -> int:
+    """Stride of a raw model (ref get_raw_model_stride, src/networks.c:87-106)."""
+    try:
+        return RAW_MODELS[model].stride
+    except KeyError:
+        raise ValueError(f"Invalid model {model!r}") from None
 
 
 def weights_path(model: str) -> pathlib.Path:

@@ -26,7 +26,36 @@ the head, the GRU and LSTM recurrences) take their operand rounding from
 `kernel_rounding(device)`. Their plain twins take the rounding as an
 argument (`rmatmul`, `round_operand`), so that a kernel and its twin can
 be held to each other in each mode. The mode is read when a product
-runs. Training runs only under 'highest' (`require_highest`).
+runs.
+
+Training runs in every mode. A backward product of y = a @ W (a the
+activation, W the weight, dy the cotangent of y) computes da and dW:
+
+  'highest'  da = dy @ W^T, dW = a^T @ dy in fp32, nothing rounded.
+  'bf16'     da = round_bf16(dy @ W_r^T), dW = round_bf16(a_r^T @ dy):
+             a_r and W_r are the forward's rounded operands, dy is not
+             rounded, and the product is rounded (the VJP of the
+             forward's cast, as jax.grad of pdot computes it, and torch's
+             ToCopyBackward of `round_operand`). Inside a recurrence each step's dW_t is
+             rounded, then the rounded terms are summed over the steps in
+             fp32 (`weight_grad`), as the JAX package's scan rounds the
+             weights inside its step body; the input projection is one
+             product over every step, rounded once. The same on any
+             device: the JAX package on the CPU is the reference.
+  'default'  on the card both operands of every backward product rounded
+             to TF32 and the result not rounded (torch's own TF32 matmuls
+             under the flags; the kernels' `round_operand`); on the CPU
+             plain fp32, equal to 'highest' bit for bit, as the JAX
+             package's 'default' is off the TPU.
+
+`grad_rounding(rounding)` names, for a forward's operand rounding, the
+rounding of a backward product's cotangent operand and of its result.
+Elementwise terms take no rounding: the peepholes, the bias, the gate
+nonlinearities, the CRF partition and the lattices. An autograd Function
+keeps the rounding of its forward for its backward, as autograd through
+`pmatmul` does. `round_tf32` works on int32 views and has no gradient:
+no autograd graph goes through it (`pmatmul` leaves TF32 to torch's
+flags; the backward Functions call it on tensors outside any graph).
 """
 
 from __future__ import annotations
@@ -111,11 +140,12 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
 
 def round_operand(x: torch.Tensor, rounding: str | None) -> torch.Tensor:
     """x rounded as a product's operand: unchanged (None), to TF32
-    ('tf32') or to bfloat16 with round to nearest even ('bf16'), in fp32."""
+    ('tf32', fp32 only) or to bfloat16 with round to nearest even ('bf16'),
+    in x's own type (fp32; fp64 for the twins' exact references)."""
     if rounding is None:
         return x
     if rounding == "bf16":
-        return x.to(torch.bfloat16).to(torch.float32)
+        return x.to(torch.bfloat16).to(x.dtype)
     if rounding == "tf32":
         return round_tf32(x)
     raise ValueError(f"unknown rounding {rounding!r}")
@@ -141,16 +171,54 @@ def pconv_operands(x: torch.Tensor, w: torch.Tensor):
     return x, w
 
 
-def require_highest(what: str) -> None:
-    """Raise NotImplementedError unless the mode is 'highest': training
-    runs in exact fp32 only (ROADMAP.md queue 1, "Training under
-    'default' / 'bf16'")."""
-    if _mode != "highest":
-        raise NotImplementedError(
-            f"{what} runs only under precision 'highest' (now {_mode!r}): the "
-            "backward kernels do not round their cotangents as the JAX "
-            "package's VJP of the rounding does; see ROADMAP.md queue 1, "
-            "\"Training under 'default' / 'bf16'\"")
+def grad_rounding(rounding: str | None) -> tuple[str | None, str | None]:
+    """(the cotangent's rounding, the result's rounding) of a backward
+    product whose forward rounded its operands by `rounding`
+    (kernel_rounding of the device): none for None; TF32 operands and an
+    unrounded result for 'tf32'; an unrounded cotangent and a bfloat16
+    result for 'bf16'. The forward's own operand enters rounded as the
+    forward rounded it."""
+    if rounding not in ROUNDINGS:
+        raise ValueError(f"unknown rounding {rounding!r}")
+    return (rounding, None) if rounding == "tf32" else (None, rounding)
+
+
+def grad_matmul(cot: torch.Tensor, w: torch.Tensor,
+                rounding: str | None) -> torch.Tensor:
+    """A backward product cot @ w: cot a cotangent, w the forward's
+    operand (transposed as the product needs it), both rounded and the
+    result rounded as `grad_rounding(rounding)` says."""
+    rc, rr = grad_rounding(rounding)
+    return round_operand(torch.matmul(round_operand(cot, rc),
+                                      round_operand(w, rounding)), rr)
+
+
+# Steps a chunk of a per-step weight gradient: a whole read (12 288 steps at
+# S = 96) would hold about 0.9 GB of [T, S, 2S] terms at once.
+_WEIGHT_GRAD_CHUNK = 512
+
+
+def weight_grad(a: torch.Tensor, d: torch.Tensor, rounding: str | None,
+                per_step: bool = False) -> torch.Tensor:
+    """The weight gradient of a product: a [..., K], the forward's operand,
+    and d [..., N], the cotangent of the product -> [K, N], the sum over
+    every leading axis of a^T d, the operands and the result rounded as
+    `grad_matmul` rounds them: one product, rounded once. per_step, for a
+    product inside a recurrence (a and d [T, B, .]): with a rounding of
+    the result (bf16) each step's [K, N] product is rounded, then the
+    steps are summed in fp32, _WEIGHT_GRAD_CHUNK steps at a time
+    (torch.bmm)."""
+    rc, rr = grad_rounding(rounding)
+    a, d = round_operand(a, rounding), round_operand(d, rc)
+    if rr is None or not per_step:
+        return round_operand(torch.matmul(a.reshape(-1, a.shape[-1]).T,
+                                          d.reshape(-1, d.shape[-1])), rr)
+    out = a.new_zeros((a.shape[-1], d.shape[-1]))
+    chunk = _WEIGHT_GRAD_CHUNK
+    for t in range(0, a.shape[0], chunk):
+        terms = torch.bmm(a[t : t + chunk].transpose(1, 2), d[t : t + chunk])
+        out += round_operand(terms, rr).sum(0)
+    return out
 
 
 set_precision(os.environ.get(ENV) or "highest")

@@ -1,6 +1,6 @@
 """The GRU and peephole-LSTM recurrences as plain loops over time.
 
-Counterpart of scrappie_tpu/nn/rnn.py:gru and lstm, and the plain twins of
+Counterpart of scrappie_tpu/nn/rnn.py:gru, grumod and lstm, and the plain twins of
 the GRU and LSTM kernels (ops/gru.py, csrc/gru.cu; ops/lstm.py,
 csrc/lstm.cu). GRU gate conventions (scrappie GRU, ref gru_step
 src/layers.c:472-527):
@@ -16,17 +16,21 @@ LSTM (ref lstm_step src/layers.c:777-832): x is the precomputed iW·x + b,
 the NEW c; h0 = c0 = 0.
 
 `rounding` (None, 'tf32', 'bf16'; nn/config.round_operand) rounds each
-product's operands as the kernels do in that mode: the weights once, the
-carried h (and the GRU's r * h) at every step. ops/gru.py and ops/lstm.py
-pass the policy's rounding for the device, as the JAX package's scans
-round through pdot.
+product's operands as the kernels do in that mode: the weights, the
+carried h (and the GRU's r * h). ops/gru.py and ops/lstm.py pass the
+policy's rounding for the device, as the JAX package's scans round
+through pdot. The weights are rounded inside each step, as the JAX
+package's step body rounds them: the values are those of a rounding
+before the loop, but autograd through a twin then rounds each step's
+weight gradient before the sum over the steps ('bf16',
+nn/config.weight_grad), as jax.grad of the scan does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from scrappie_torch.nn.config import round_operand
+from scrappie_torch.nn.config import rmatmul
 
 
 def gru_tm(x_tm: torch.Tensor, sW: torch.Tensor, sW2: torch.Tensor,
@@ -34,16 +38,14 @@ def gru_tm(x_tm: torch.Tensor, sW: torch.Tensor, sW2: torch.Tensor,
     """GRU over time-major projected inputs x [T, B, 3S] -> h [T, B, S]."""
     T, B, _ = x_tm.shape
     S = sW2.shape[1]
-    sW, sW2 = round_operand(sW, rounding), round_operand(sW2, rounding)
     h = x_tm.new_zeros((B, S))
     out = x_tm.new_empty((T, B, S))
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         xt = x_tm[t]
-        zr = torch.sigmoid(xt[:, : 2 * S] + round_operand(h, rounding) @ sW)
+        zr = torch.sigmoid(xt[:, : 2 * S] + rmatmul(h, sW, rounding))
         z = zr[:, :S]
         r = zr[:, S:]
-        hbar = torch.tanh(xt[:, 2 * S :]
-                          + round_operand(r * h, rounding) @ sW2)
+        hbar = torch.tanh(xt[:, 2 * S :] + rmatmul(r * h, sW2, rounding))
         h = z * h + (1 - z) * hbar
         out[t] = h
     return out
@@ -78,12 +80,11 @@ def grumod(x: torch.Tensor, sW: torch.Tensor, reverse: bool = False,
     x_tm = x.transpose(0, 1)
     T, B, _ = x_tm.shape
     S = sW.shape[0]
-    sW = round_operand(sW, rounding)
     h = x_tm.new_zeros((B, S))
     out = x_tm.new_empty((T, B, S))
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         xt = x_tm[t]
-        rec = round_operand(h, rounding) @ sW
+        rec = rmatmul(h, sW, rounding)
         zr = torch.sigmoid(xt[:, : 2 * S] + rec[:, : 2 * S])
         z = zr[:, :S]
         r = zr[:, S:]
@@ -105,13 +106,12 @@ def lstm_tm(x_tm: torch.Tensor, sW: torch.Tensor, peep: torch.Tensor,
     T, B, _ = x_tm.shape
     S = sW.shape[0]
     p_in, p_forget, p_out = peep[:S], peep[S : 2 * S], peep[2 * S :]
-    sW = round_operand(sW, rounding)
     h = x_tm.new_zeros((B, S))
     c = x_tm.new_zeros((B, S))
     out = x_tm.new_empty((T, B, S))
     planes = x_tm.new_empty((6, T, B, S)) if return_planes else None
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        xF = x_tm[t] + round_operand(h, rounding) @ sW
+        xF = x_tm[t] + rmatmul(h, sW, rounding)
         f = torch.sigmoid(xF[:, 2 * S : 3 * S] + c * p_forget)
         i = torch.sigmoid(xF[:, S : 2 * S] + c * p_in)
         g = torch.tanh(xF[:, :S])
@@ -123,3 +123,15 @@ def lstm_tm(x_tm: torch.Tensor, sW: torch.Tensor, peep: torch.Tensor,
         if return_planes:
             planes[:, t] = torch.stack((c, tc, g, i, f, o))
     return (out, planes) if return_planes else out
+
+
+def lstm(x: torch.Tensor, sW: torch.Tensor, peep: torch.Tensor,
+         reverse: bool = False, rounding: str | None = None) -> torch.Tensor:
+    """Peephole LSTM over projected inputs x [..., T, 4S] -> [..., T, S]
+    (the JAX package's batch-major layout; scrappie_tpu/nn/rnn.py:lstm)."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[None]
+    out = lstm_tm(x.transpose(0, 1), sW, peep, reverse,
+                  rounding=rounding).transpose(0, 1)
+    return out[0] if squeeze else out

@@ -36,7 +36,7 @@ _SIGNATURES = {
     "scrappie_gru_layer": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "scrappie_gru_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "scrappie_gru_recurrence_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _P),
+                                    _I, _P),
     "scrappie_viterbi_fwd": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P),
     "scrappie_viterbi_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                                _F, _F, _F, _F, _I, _P),
@@ -50,9 +50,9 @@ _SIGNATURES = {
     "scrappie_project": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "scrappie_lstm_recurrence": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "scrappie_lstm_pair": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "scrappie_lstm_pair_train": (*(_P,) * 9, *(_I,) * 4, _P),
+    "scrappie_lstm_pair_train": (*(_P,) * 9, *(_I,) * 5, _P),
     "scrappie_lstm_recurrence_bwd": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                                     _L, _P, _I, _P, *(_I,) * 5, _P),
+                                     _L, _P, _I, _P, *(_I,) * 6, _P),
     "scrappie_lattice": (_I, *(_P,) * 14, *(_I,) * 9, _F, _F, _F, _P),
     "scrappie_crf_lattice": (_I, *(_P,) * 16, *(_I,) * 8, _F, _P),
     "scrappie_lattice_floats": (_I, _I),

@@ -20,7 +20,13 @@ gru_recurrence_bwd_kernel (csrc/gru.cu, weights in registers, S <=
 REGISTER_MAX_S; counted as "gru_recurrence_bwd") or above that its big-S
 mode gru_walk_global_kernel (weights read from L2; counted as
 "gru_recurrence_bwd_global"), and on the CPU its plain twin
-`gru_walk_plain`, then the weights' gradients by two more products.
+`gru_walk_plain`, then the weights' gradients by two more products. Every
+product of the backward rounds as nn/config.py sets out for the forward's
+mode and device (the rounding GruRecurrence keeps from its forward): the
+gates from the forward's rounded operands, so that they are the forward
+kernel's; in the walk the carry's products, rounded in 'bf16', with TF32
+operands in 'default' on the card; in 'bf16' each step's weight gradient
+rounded before the sum over the steps (nn/config.weight_grad).
 
 `gru_layer_fused_cuda` launches the first port's kernel, which projects
 inside its step loop; no path calls it.
@@ -42,10 +48,14 @@ from scrappie_torch.ops.project import Project, check_project_input
 REGISTER_MAX_S = 96
 
 
-def gru_layer_tm_plain(x_tm, iW, b, sW, sW2, reverse: bool = False):
-    """Plain twin: x [T, B, C] -> h [T, B, S] (what gru_layer_tm computes on
-    a CPU tensor under 'highest')."""
-    return rnn.gru_tm(affine(x_tm, iW, b), sW, sW2, reverse)
+def gru_layer_tm_plain(x_tm, iW, b, sW, sW2, reverse: bool = False,
+                       rounding=None):
+    """Plain twin: x [T, B, C] -> h [T, B, S], the products' operands
+    rounded by `rounding` (what gru_layer_tm computes on a CPU tensor in
+    the mode of that rounding); autograd through it is the VJP that
+    GruRecurrence and Project compute."""
+    return rnn.gru_tm(affine(x_tm, iW, b, rounding), sW, sW2, reverse,
+                      rounding)
 
 
 def gru_layer_tm(x_tm, iW, b, sW, sW2, reverse: bool = False):
@@ -114,26 +124,32 @@ def gru_tm(x_tm, sW, sW2, reverse: bool = False):
     return y
 
 
-def backward_inputs(x_tm, h, sW, sW2, reverse: bool = False):
+def backward_inputs(x_tm, h, sW, sW2, reverse: bool = False, rounding=None):
     """What the backward walk reads, from the forward's input x [T, B, 3S]
     and output h [T, B, S]: (h_prev [T, B, S], h at the step before in the
     forward's order and 0 at its first step; gates [T, B, 3S], z | r |
-    hbar), two products over every step and row."""
+    hbar), two products over every step and row of the operands rounded
+    by the forward's `rounding`, round(h_prev) @ round(sW) and
+    round(r h_prev) @ round(sW2), so that the gates are the forward's."""
     S = sW2.shape[0]
     zero = h.new_zeros((1, *h.shape[1:]))
     h_prev = (torch.cat([h[1:], zero]) if reverse
               else torch.cat([zero, h[:-1]]))
-    zr = torch.sigmoid(x_tm[..., : 2 * S] + torch.matmul(h_prev, sW))
+    zr = torch.sigmoid(x_tm[..., : 2 * S] + config.rmatmul(h_prev, sW, rounding))
     hbar = torch.tanh(x_tm[..., 2 * S :]
-                      + torch.matmul(zr[..., S:] * h_prev, sW2))
+                      + config.rmatmul(zr[..., S:] * h_prev, sW2, rounding))
     return h_prev, torch.cat([zr, hbar], dim=-1)
 
 
-def gru_walk_plain(gates, h_prev, gh, sW, sW2, reverse: bool = False):
+def gru_walk_plain(gates, h_prev, gh, sW, sW2, reverse: bool = False,
+                   rounding=None):
     """Plain twin of the backward walk kernel: gates [T, B, 3S] (z | r |
     hbar), h_prev, gh [T, B, S] -> da [T, B, 3S] = (da_z | da_r | da_h),
     the gradient of the pre-activations, carrying dh opposite to the
-    forward's direction (the step's formulas in csrc/gru.cu)."""
+    forward's direction (the step's formulas in csrc/gru.cu). The carry's
+    two products, drh = R(da_h @ sW2_r^T) and R(da[:2S] @ sW_r^T), round
+    for the forward's `rounding` (nn/config.grad_matmul): the weights as
+    the forward rounded them, in 'bf16' the results, in 'tf32' da too."""
     T, B, _ = gates.shape
     S = sW2.shape[0]
     da = gates.new_empty((T, B, 3 * S))
@@ -144,10 +160,11 @@ def gru_walk_plain(gates, h_prev, gh, sW, sW2, reverse: bool = False):
         dh = carry + gh[t]
         az = dh * (hp - hb) * z * (1 - z)
         ah = dh * (1 - z) * (1 - hb * hb)
-        drh = torch.matmul(ah, sW2.T)
+        drh = config.grad_matmul(ah, sW2.T, rounding)
         ar = drh * hp * r * (1 - r)
         da[t, :, :S], da[t, :, S : 2 * S], da[t, :, 2 * S :] = az, ar, ah
-        carry = dh * z + drh * r + torch.matmul(da[t, :, : 2 * S], sW.T)
+        carry = dh * z + drh * r + config.grad_matmul(da[t, :, : 2 * S], sW.T,
+                                                      rounding)
     return da
 
 
@@ -170,12 +187,13 @@ def check_gru_walk_input(gates, h_prev, gh, sW, sW2) -> bool:
     return big
 
 
-def gru_walk(gates, h_prev, gh, sW, sW2, reverse: bool = False):
+def gru_walk(gates, h_prev, gh, sW, sW2, reverse: bool = False,
+             rounding=None):
     """The backward walk (gru_walk_plain's arguments and result): on the
     card the kernel gru_recurrence_bwd_kernel, or its big-S mode above
-    S = REGISTER_MAX_S."""
+    S = REGISTER_MAX_S, each rounding as its twin for `rounding`."""
     if not ops.on_cuda(gates, h_prev, gh, sW, sW2):
-        return gru_walk_plain(gates, h_prev, gh, sW, sW2, reverse)
+        return gru_walk_plain(gates, h_prev, gh, sW, sW2, reverse, rounding)
     from scrappie_torch.ops import _build
 
     big = check_gru_walk_input(gates, h_prev, gh, sW, sW2)
@@ -189,48 +207,51 @@ def gru_walk(gates, h_prev, gh, sW, sW2, reverse: bool = False):
         err = _build.library().scrappie_gru_recurrence_bwd(
             gates.data_ptr(), h_prev.data_ptr(), gh.data_ptr(), sW.data_ptr(),
             sW2.data_ptr(), da.data_ptr(), T, B, S, int(reverse), int(big),
-            ctypes.c_void_p(ops.stream_handle()))
+            config.rounding_code(rounding), ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, name)
     ops.LAUNCHES[name] += 1
     return da
 
 
-def _weight_grads(da, h_prev, gates, S):
+def _weight_grads(da, h_prev, gates, S, rounding=None):
     """(dsW, dsW2) from the walk's da: sum over steps and rows of
-    h_prev^T [da_z | da_r] and (r h_prev)^T da_h."""
-    hp = h_prev.reshape(-1, S)
-    rh = (gates[..., S : 2 * S] * h_prev).reshape(-1, S)
-    da2 = da.reshape(-1, 3 * S)
-    return (torch.matmul(hp.T, da2[:, : 2 * S]),
-            torch.matmul(rh.T, da2[:, 2 * S :]))
+    round(h_prev)^T [da_z | da_r] and round(r h_prev)^T da_h, each step's
+    product rounded in 'bf16' (nn/config.weight_grad)."""
+    rh = gates[..., S : 2 * S] * h_prev
+    return (config.weight_grad(h_prev, da[..., : 2 * S], rounding, True),
+            config.weight_grad(rh, da[..., 2 * S :], rounding, True))
 
 
-def gru_tm_backward(x_tm, h, sW, sW2, gh, reverse: bool = False):
+def gru_tm_backward(x_tm, h, sW, sW2, gh, reverse: bool = False,
+                    rounding=None):
     """The VJP of gru_tm: projected input x [T, B, 3S], its output h
     [T, B, S], sW [S, 2S], sW2 [S, S], the output's gradient gh [T, B, S]
-    -> (dx [T, B, 3S], dsW [S, 2S], dsW2 [S, S]). The walk through time is
-    the kernel on the card, its twin on the CPU; the rest are products."""
-    h_prev, gates = backward_inputs(x_tm, h, sW, sW2, reverse)
-    da = gru_walk(gates, h_prev, gh, sW, sW2, reverse)
-    return (da, *_weight_grads(da, h_prev, gates, sW2.shape[0]))
+    -> (dx [T, B, 3S], dsW [S, 2S], dsW2 [S, S]), each product rounded for
+    the forward's `rounding`. The walk through time is the kernel on the
+    card, its twin on the CPU; the rest are products."""
+    h_prev, gates = backward_inputs(x_tm, h, sW, sW2, reverse, rounding)
+    da = gru_walk(gates, h_prev, gh, sW, sW2, reverse, rounding)
+    return (da, *_weight_grads(da, h_prev, gates, sW2.shape[0], rounding))
 
 
 class GruRecurrence(torch.autograd.Function):
     """gru_tm, differentiable: forward the recurrence (the kernel on the
-    card, nn/rnn.gru_tm on the CPU), backward gru_tm_backward."""
+    card, nn/rnn.gru_tm on the CPU), backward gru_tm_backward in the
+    forward's rounding."""
 
     @staticmethod
     def forward(ctx, x_tm, sW, sW2, reverse: bool):
         h = gru_tm(x_tm, sW, sW2, reverse)
         ctx.save_for_backward(x_tm, h, sW, sW2)
         ctx.reverse = reverse
+        ctx.rounding = config.kernel_rounding(x_tm.device)
         return h
 
     @staticmethod
     def backward(ctx, gh):
         x_tm, h, sW, sW2 = ctx.saved_tensors
         dx, dsW, dsW2 = gru_tm_backward(x_tm, h, sW, sW2, gh.contiguous(),
-                                        ctx.reverse)
+                                        ctx.reverse, ctx.rounding)
         return dx, dsW, dsW2, None
 
 

@@ -35,7 +35,12 @@ summed here; dsW is one product over h and da offset by a step
 (torch.matmul, as XLA computes it outside any kernel in the JAX package's
 VJP of nn/rnn.lstm's scan). Above REGISTER_MAX_S the training forward and
 the walk run their big-S modes, sW read from L2 ("lstm_pair_train_global",
-"lstm_recurrence_bwd_global").
+"lstm_recurrence_bwd_global"). Training runs in every precision mode:
+LstmPair keeps its forward's rounding (nn/config.kernel_rounding), the
+training forward rounds as the inference launch does (the same h bit for
+bit), the walk's carry R(da @ sW_r^T) rounds as nn/config.grad_matmul
+does, and in 'bf16' dsW rounds each step's product before the sum over
+the steps (nn/config.weight_grad).
 """
 
 from __future__ import annotations
@@ -99,7 +104,7 @@ def lstm_pair_tm(x_tm, wF, wB):
             check_lstm_pair_input(x_tm, wF, wB)
             check_walk_size(wF[2].shape[0])
         xproj = Project.apply(x_tm, torch.cat((wF[0], wB[0]), 1),
-                              torch.cat((wF[1], wB[1])))
+                              torch.cat((wF[1], wB[1])), 2)
         return LstmPair.apply(xproj, *wF[2:], *wB[2:])
     if not ops.on_cuda(x_tm, *wF, *wB):
         return lstm_pair_tm_plain(x_tm, wF, wB,
@@ -236,11 +241,12 @@ def check_walk_size(S: int) -> bool:
     return not lstm_in_registers(S)
 
 
-def lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
+def lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b, peep_b, rounding=None):
     """The pair launch in its training mode (counted as
     `LAUNCHES["lstm_pair_train"]`, or its big-S mode's as
-    "lstm_pair_train_global"): xproj [T, B, 8S] -> (h_F, h_B, planes_F,
-    planes_B), h [T, B, S] the inference launch's bit for bit, planes
+    "lstm_pair_train_global"), the products' operands rounded by
+    `rounding`: xproj [T, B, 8S] -> (h_F, h_B, planes_F, planes_B), h
+    [T, B, S] the inference launch's in that rounding bit for bit, planes
     [TRAIN_PLANES, T, B, S] a direction (c, tanh(c), g, i, f, o), each plane
     contiguous and the two directions' planes equally far apart."""
     from scrappie_torch.ops import _build
@@ -263,7 +269,8 @@ def lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
             xproj.data_ptr(), sW_f.data_ptr(), peep_f.data_ptr(),
             out[0, 0].data_ptr(), out[1, 0].data_ptr(), sW_b.data_ptr(),
             peep_b.data_ptr(), out[0, 1].data_ptr(), out[1, 1].data_ptr(), T,
-            B, S, int(big), ctypes.c_void_p(ops.stream_handle()))
+            B, S, int(big), config.rounding_code(rounding),
+            ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, name)
     ops.LAUNCHES[name] += 1
     return out[0, 0], out[0, 1], out[1:, 0], out[1:, 1]
@@ -275,7 +282,8 @@ def _shifted(a, reverse: bool):
     return torch.cat([a[1:], zero]) if reverse else torch.cat([zero, a[:-1]])
 
 
-def lstm_walk_plain(planes, gh, sW, peep, reverse: bool = False):
+def lstm_walk_plain(planes, gh, sW, peep, reverse: bool = False,
+                    rounding=None):
     """Plain twin of the backward walk kernel: the forward's planes
     [TRAIN_PLANES, T, B, S] (c, tanh(c), g, i, f, o) and the output's
     gradient gh [T, B, S] -> (da [T, B, 4S] = (da_c | da_i | da_f | da_o),
@@ -283,7 +291,9 @@ def lstm_walk_plain(planes, gh, sW, peep, reverse: bool = False):
     carrying dh and dc opposite to the forward's direction; dpeep [B, 3S],
     each row's sums over time of da_i c_prev, da_f c_prev and da_o c). The
     step's six coefficients (csrc/lstm.cu's header) are formed first, for
-    every step; the loop carries only what depends on the carry."""
+    every step; the loop carries only what depends on the carry. The
+    carry's product, carry_h = R(da @ sW_r^T), rounds for the forward's
+    `rounding` (nn/config.grad_matmul)."""
     c, tc, g, i, f, o = planes
     T, B, S = c.shape
     p_in, p_f, p_out = peep[:S], peep[S : 2 * S], peep[2 * S :]
@@ -302,7 +312,7 @@ def lstm_walk_plain(planes, gh, sW, peep, reverse: bool = False):
         dc = carry_c + dh * Bc[t]
         da[t] = torch.cat([dc * G[t], dc * I[t], dc * F[t], dh * A[t]], dim=-1)
         carry_c = dc * K[t]
-        carry_h = torch.matmul(da[t], sW.T)
+        carry_h = config.grad_matmul(da[t], sW.T, rounding)
     dpeep = torch.cat([(da[..., S : 2 * S] * c_prev).sum(0),
                        (da[..., 2 * S : 3 * S] * c_prev).sum(0),
                        (da[..., 3 * S :] * c).sum(0)], dim=-1)
@@ -326,19 +336,20 @@ def check_walk_input(planes, gh, sW, peep) -> bool:
     return big
 
 
-def lstm_walk_pair(dirs):
+def lstm_walk_pair(dirs, rounding=None):
     """The backward walk of one or two layers of a stage in one launch:
     dirs is a sequence of (planes, gh, sW, peep, reverse), one a direction,
-    each as `lstm_walk_plain` takes them -> (da [T, B, 4S * len(dirs)], the
-    directions' columns side by side (the layout of the pair's
-    projection); dpeep [len(dirs), B, 3S], each row's partial sums). On the
-    card the kernel lstm_recurrence_bwd_kernel over a grid of len(dirs) x B
-    blocks, counted once as "lstm_recurrence_bwd" (above REGISTER_MAX_S its
+    each as `lstm_walk_plain` takes them, the carry's products rounded
+    for `rounding` -> (da [T, B, 4S * len(dirs)], the directions' columns
+    side by side (the layout of the pair's projection); dpeep [len(dirs),
+    B, 3S], each row's partial sums). On the card the kernel
+    lstm_recurrence_bwd_kernel over a grid of len(dirs) x B blocks,
+    counted once as "lstm_recurrence_bwd" (above REGISTER_MAX_S its
     big-S mode, "lstm_recurrence_bwd_global"); the directions' planes must
     lie equally far apart. On the CPU the twin, a direction at a time."""
     tensors = [t for d in dirs for t in d[:4]]
     if not ops.on_cuda(*tensors):
-        walks = [lstm_walk_plain(*d) for d in dirs]
+        walks = [lstm_walk_plain(*d, rounding) for d in dirs]
         return (torch.cat([w[0] for w in walks], dim=-1),
                 torch.stack([w[1] for w in walks]))
     from scrappie_torch.ops import _build
@@ -369,7 +380,7 @@ def lstm_walk_pair(dirs):
             *ptrs(d0, sWs[0]), *ptrs(d1, sWs[1]), poff, da.data_ptr(),
             4 * S * n,
             dpeep.data_ptr(), n, T, B, S, int(big),
-            ctypes.c_void_p(ops.stream_handle()))
+            config.rounding_code(rounding), ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, name)
     ops.LAUNCHES[name] += 1
     return da, dpeep
@@ -386,28 +397,31 @@ def _padded(sW):
     return out
 
 
-def _dsW(h, da, reverse: bool):
-    """dsW [S, 4S], the sum over steps and rows of h_prev^T da: one product
-    over views of h and da offset by a step (h_prev is h at the forward's
-    step before, 0 at its first step)."""
-    S, S4 = h.shape[-1], da.shape[-1]
+def _dsW(h, da, reverse: bool, rounding=None):
+    """dsW [S, 4S], the sum over steps and rows of round(h_prev)^T da: one
+    product over views of h and da offset by a step (h_prev is h at the
+    forward's step before, 0 at its first step, where it adds nothing); in
+    'bf16' each step's product rounded before the sum (nn/config.
+    weight_grad)."""
     hp, dn = (h[1:], da[:-1]) if reverse else (h[:-1], da[1:])
-    return torch.matmul(hp.reshape(-1, S).T, dn.reshape(-1, S4))
+    return config.weight_grad(hp, dn, rounding, True)
 
 
-def lstm_tm_backward(layers):
+def lstm_tm_backward(layers, rounding=None):
     """The VJP of one or two LSTM recurrences on their inputs: layers is
     a sequence of (h [T, B, S], planes [TRAIN_PLANES, T, B, S], sW, peep,
     reverse, gh [T, B, S]), one a direction -> (dx [T, B, 4S *
     len(layers)], the directions' columns side by side, [(dsW, dpeep)] a
-    direction). The walk through time is one kernel launch on the card,
-    its twin on the CPU, and returns dpeep's partials a row, summed here;
-    dsW is one product a direction. Nothing recomputes the gates."""
+    direction), the products rounded for the forward's `rounding`. The
+    walk through time is one kernel launch on the card, its twin on the
+    CPU, and returns dpeep's partials a row, summed here; dsW is one
+    product a direction (a product a step, rounded, in 'bf16'). Nothing
+    recomputes the gates."""
     da, parts = lstm_walk_pair([
         (planes, gh.contiguous(), sW, peep, reverse)
-        for _h, planes, sW, peep, reverse, gh in layers])
+        for _h, planes, sW, peep, reverse, gh in layers], rounding)
     S4 = 4 * layers[0][2].shape[0]
-    return da, [(_dsW(h, da[..., k * S4 : (k + 1) * S4], reverse),
+    return da, [(_dsW(h, da[..., k * S4 : (k + 1) * S4], reverse, rounding),
                  parts[k].sum(0))
                 for k, (h, _p, _w, _q, reverse, _g) in enumerate(layers)]
 
@@ -422,19 +436,21 @@ class LstmPair(torch.autograd.Function):
     sW_b, peep_b -> (h_F, h_B). Forward: the pair launch in its training
     mode on the card (nn/rnn.lstm_tm a direction on the CPU), which keeps
     each direction's planes (c and the activated gates) for the backward,
-    not xproj; backward: lstm_tm_backward, both walks in one launch."""
+    not xproj; backward: lstm_tm_backward, both walks in one launch, in
+    the forward's rounding."""
 
     @staticmethod
     def forward(ctx, xproj, sW_f, peep_f, sW_b, peep_b):
         S4 = 4 * sW_f.shape[0]
+        ctx.rounding = rounding = config.kernel_rounding(xproj.device)
         if ops.on_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
             hF, hB, pF, pB = lstm_pair_train_cuda(xproj, sW_f, peep_f, sW_b,
-                                                  peep_b)
+                                                  peep_b, rounding)
         else:
             hF, pF = lstm_tm(xproj[..., :S4], sW_f, peep_f, False,
-                             return_planes=True)
+                             return_planes=True, rounding=rounding)
             hB, pB = lstm_tm(xproj[..., S4:], sW_b, peep_b, True,
-                             return_planes=True)
+                             return_planes=True, rounding=rounding)
         ctx.save_for_backward(hF, hB, pF, pB, sW_f, peep_f, sW_b, peep_b)
         return hF, hB
 
@@ -443,5 +459,6 @@ class LstmPair(torch.autograd.Function):
         hF, hB, pF, pB, sW_f, peep_f, sW_b, peep_b = ctx.saved_tensors
         da, ((dsW_f, dp_f), (dsW_b, dp_b)) = lstm_tm_backward([
             (hF, pF, sW_f, peep_f, False, _zeros_if_none(ghF, hF)),
-            (hB, pB, sW_b, peep_b, True, _zeros_if_none(ghB, hB))])
+            (hB, pB, sW_b, peep_b, True, _zeros_if_none(ghB, hB))],
+            ctx.rounding)
         return da, dsW_f, dp_f, dsW_b, dp_b

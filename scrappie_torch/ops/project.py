@@ -9,9 +9,12 @@ csrc/project.cu; on a CPU tensor it runs its plain twin, nn/layers.feedforward
 (nn/layers.affine with the CPU's rounding). Both round their operands as
 the precision policy asks for the device (nn/config.kernel_rounding: none,
 TF32 or bfloat16).
-`Project` makes it differentiable: its backward is three plain products
-(torch.matmul and a sum), as XLA computes this product's VJP outside any
-kernel in the JAX training step.
+`Project` makes it differentiable: its backward is two plain products
+and a sum (torch.matmul), as XLA computes this product's VJP outside any
+kernel in the JAX training step, rounded as nn/config.py's docstring sets
+out for the forward's mode: in 'bf16' dx and dW each rounded once (dW is
+one product over every step and row), in 'default' on the card both
+operands of each rounded to TF32 (torch's TF32 matmul under the flags).
 """
 
 from __future__ import annotations
@@ -61,17 +64,29 @@ def project_tm(x_tm, W, b):
 
 class Project(torch.autograd.Function):
     """project_tm, differentiable: dx = g @ W^T, dW = x^T g and db = the
-    sum of g over every step and row."""
+    sum of g over every step and row, the products rounded for the
+    forward's mode and device (nn/config.grad_matmul, weight_grad).
+    `parts` > 1: W is that many layers' weights side by side (the LSTM
+    pair's), whose dx the reference computes as a product a layer, each
+    rounded on its own ('bf16'), then summed."""
 
     @staticmethod
-    def forward(ctx, x_tm, W, b):
+    def forward(ctx, x_tm, W, b, parts: int = 1):
         ctx.save_for_backward(x_tm, W)
+        ctx.rounding = config.kernel_rounding(x_tm.device)
+        ctx.parts = parts
         return project_tm(x_tm, W, b)
 
     @staticmethod
     def backward(ctx, g):
         x_tm, W = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1])
-        dx = torch.matmul(g, W.T)
-        dW = torch.matmul(x_tm.reshape(-1, x_tm.shape[-1]).T, g2)
-        return dx, dW, g2.sum(0)
+        if ctx.parts == 1 or config.grad_rounding(ctx.rounding)[1] is None:
+            dx = config.grad_matmul(g, W.T, ctx.rounding)
+        else:
+            n = W.shape[1] // ctx.parts
+            dx = sum(config.grad_matmul(g[..., k * n : (k + 1) * n],
+                                        W[:, k * n : (k + 1) * n].T,
+                                        ctx.rounding)
+                     for k in range(ctx.parts))
+        dW = config.weight_grad(x_tm, g, ctx.rounding)
+        return dx, dW, g.reshape(-1, g.shape[-1]).sum(0), None

@@ -330,6 +330,18 @@ def viterbi_scores_tm(lp_tm, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
     return final, tb
 
 
+def viterbi_scores_batch(logpost, stay_pen=0.0, skip_pen=0.0, local_pen=2.0,
+                         use_slip: bool = False):
+    """Batch-major convenience wrapper: logpost [B, T, nstate] (a tensor
+    or an array) -> (final [B, nhist+2], tb [B, T, nhist+2]), the layout of
+    decode/transducer.viterbi_transducer_scores; the kernel for a CUDA
+    tensor (scrappie_tpu/ops/viterbi.py:viterbi_scores_batch)."""
+    lp = torch.as_tensor(logpost, dtype=torch.float32)
+    final, tb = viterbi_scores_tm(lp.transpose(0, 1).contiguous(), stay_pen,
+                                  skip_pen, local_pen, use_slip)
+    return final, tb.transpose(0, 1)
+
+
 def backtrace_segments(T: int, B: int, nst2: int, sms: int) -> int:
     """Segments the backtrace kernel cuts each row's walk into, for B rows
     of T steps and nst2 states on a card of `sms` SMs: 1 (one block a row

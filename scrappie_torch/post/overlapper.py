@@ -75,3 +75,22 @@ def overlapper(path: np.ndarray, nkmer: int, pos: np.ndarray | None = None) -> s
         np.cumsum(incr, out=pos[: len(path)])
     return seq
 
+
+def ctc_remove_stays_and_repeats(path: np.ndarray, pos: np.ndarray | None = None) -> str:
+    """Decoder for single-base models (ref src/decode.c:414-447)."""
+    path = np.asarray(path)
+    # A repeated base after intervening stays is NOT re-emitted (prev
+    # tracks the last emitted state, not the previous block).
+    emit = np.zeros(len(path), dtype=bool)
+    prev = -2
+    loc = -1
+    locs = np.full(len(path), -1, dtype=np.int64)
+    for i, s in enumerate(path):
+        if s >= 0 and s != prev:
+            emit[i] = True
+            prev = s
+            loc += 1
+        locs[i] = loc
+    if pos is not None:
+        pos[: len(path)] = locs
+    return BASES[path[emit] & 3].tobytes().decode()

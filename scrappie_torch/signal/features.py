@@ -2,14 +2,15 @@
 
 Behavioural spec: ref src/nnfeatures.c.  Output layout is time-major
 [T, nfeature] float32 (the reference stores features as matrix columns).
-A copy of the events features of scrappie_tpu/signal/features.py.
+A copy of scrappie_tpu/signal/features.py.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from scrappie_torch.types import EventTable
+from scrappie_torch.types import EventTable, RawSignal
+from scrappie_torch.utils.maths import madf
 
 
 def feature_stats(feats: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -59,3 +60,23 @@ def nanonet_features_from_events(et: EventTable, normalise: bool = True) -> np.n
         feats = studentise_features(feats)
     return feats
 
+
+def features_from_raw(rt: RawSignal) -> np.ndarray:
+    """Raw signal as a [T, 1] feature matrix (ref src/nnfeatures.c:102-115)."""
+    return rt.trimmed.reshape(-1, 1).astype(np.float32)
+
+
+def deltasample_features_from_raw(
+    rt: RawSignal, shift: float, scale: float, sdthresh: float
+) -> np.ndarray:
+    """Forward-differenced, shift/scaled, outlier-filtered signal.
+
+    (ref src/nnfeatures.c:118-133)
+    """
+    sig = rt.trimmed.astype(np.float32)
+    sig_mad = madf(sig)
+    d = np.zeros_like(sig)
+    d[:-1] = sig[1:] - sig[:-1]
+    d = (d - np.float32(shift)) / np.float32(scale)
+    d[np.abs(d) > sdthresh * sig_mad] = 0.0
+    return d.reshape(-1, 1)

@@ -27,7 +27,6 @@ from __future__ import annotations
 import torch
 
 from scrappie_torch.models.specs import RAW_MODELS
-from scrappie_torch.nn import config
 from scrappie_torch.ops.lattice import crf_lattice_tm, lattice_forward_tm
 from scrappie_torch.train.optim import FiniteClippedAdam
 from scrappie_torch.train.trainer import posterior_fn, value_and_grad_of
@@ -118,8 +117,7 @@ def make_lattice_train_step(model: str, optimizer: FiniteClippedAdam,
                             stay_pen=0.0, skip_pen=4.0, local_pen=4.0):
     """Lattice (alignment-marginal) train step: step(sig, seqstates) ->
     loss, one value_and_grad of lattice_loss and one update of
-    optimizer.params in place. Precision 'highest' only."""
-    config.require_highest("make_lattice_train_step")
+    optimizer.params in place, in the precision mode that is set."""
     lfn = lattice_loss(model, stay_pen, skip_pen, local_pen)
 
     def train_step(sig, seqstates):

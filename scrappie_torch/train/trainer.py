@@ -49,7 +49,6 @@ import torch.distributed as dist
 
 from scrappie_torch.models import forward, registry
 from scrappie_torch.models.specs import RAW_MODELS
-from scrappie_torch.nn import config
 from scrappie_torch.nn.layers import StateShards
 from scrappie_torch.parallel.sharding import (STATE_SHARD_KEYS, resolve_mesh,
                                               shard_params, split_rows)
@@ -146,9 +145,10 @@ def _terms_for(model: str):
 def value_and_grad_of(lfn, params: dict[str, torch.Tensor], *args):
     """(loss, {key: gradient}) of lfn(params, *args) at params (tensors on
     one device); args are tensors already on that device. A parameter the
-    loss does not read gets a zero gradient, as jax.grad gives it.
-    Raises NotImplementedError under a precision other than 'highest'."""
-    config.require_highest("training")
+    loss does not read gets a zero gradient, as jax.grad gives it. The
+    products round their gradients as the precision mode asks for the
+    device (nn/config.py), as jax.grad does under the JAX package's
+    mode."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
         loss = lfn(leaves, *args)
@@ -202,8 +202,10 @@ def value_and_grad_on_mesh(model: str, params: dict[str, torch.Tensor], mesh,
     losses add up to the global batch's mean. The gradients (a split
     weight's shards joined along its first axis) are summed onto the first
     device in row order, then all_reduce'd over the process group, and so
-    is the loss."""
-    config.require_highest("training")
+    is the loss. In 'bf16' each replica rounds its own weight-gradient
+    products before they are summed (one device rounds the whole batch's
+    product once), so the gradients differ from one device's by bfloat16
+    roundings and the losses by what the updates make of them."""
     terms = _terms_for(model)
     dev0 = mesh.devices[0, 0]
     devices = mesh.data_devices
@@ -262,7 +264,6 @@ def make_train_step(model: str, optimizer: FiniteClippedAdam, mesh=None):
     """step(sig, labels) -> loss: one value_and_grad (on the mesh, with
     value_and_grad_on_mesh, when one is given) and one optimiser update of
     optimizer.params, in place."""
-    config.require_highest("make_train_step")
     _loss_for(model)
 
     def train_step(sig, labels):
@@ -289,8 +290,8 @@ def train(model: str, steps: int = 200, batch: int = 8, nsample: int = 4000,
     over 'state'; `device` pins one device (device="cpu" runs the plain
     twins); with neither, every visible card. Under a process group
     (parallel/launcher.initialize) the batch is the global one, split over
-    the processes. Training runs only under precision 'highest'."""
-    config.require_highest("train")
+    the processes. Training runs in the precision mode that is set
+    (nn/config.py: SCRAPPIE_TORCH_PRECISION or the precision() context)."""
     _loss_for(model)
     mesh = resolve_mesh(device, mesh)
     dev = mesh.devices[0, 0]

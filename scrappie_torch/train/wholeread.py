@@ -34,7 +34,6 @@ import torch
 
 from scrappie_torch.api import encode_bases
 from scrappie_torch.models.specs import KMER_LEN
-from scrappie_torch.nn import config
 from scrappie_torch.nn.layers import globalnorm
 from scrappie_torch.train.lattice import crf_lattice_nll, lattice_forward_batch
 from scrappie_torch.train.optim import FiniteClippedAdam
@@ -124,9 +123,8 @@ def region_event_seqstates(sampler, ridx: int, chunk: int
 
 def _step(optimizer: FiniteClippedAdam, lfn):
     """step(x, seq) -> loss: lfn(params, x, seq)'s value and gradient on
-    the optimiser's device, then one update in place. Precision
-    'highest' only."""
-    config.require_highest("the whole-read steps")
+    the optimiser's device, then one update in place, in the precision
+    mode that is set."""
 
     def train_step(x, seq):
         dev = next(iter(optimizer.params.values())).device

@@ -1,8 +1,7 @@
 """Quantiles, MAD and med/MAD normalisation for the host signal pipeline.
 
 numpy versions that follow the reference semantics exactly (ref:
-src/util.{h,c}). A copy of what the port uses of
-scrappie_tpu/utils/maths.py.
+src/util.{h,c}). A copy of scrappie_tpu/utils/maths.py.
 """
 
 from __future__ import annotations
@@ -47,3 +46,31 @@ def medmad_normalise(x: np.ndarray) -> np.ndarray:
     mad = madf(x, med)
     return ((x - med) / np.float32(mad)).astype(np.float32)
 
+
+def studentise(x: np.ndarray) -> np.ndarray:
+    """(x - mean) / std with float64 accumulation (ref src/util.c:216-245).
+
+    The reference uses Kahan summation in double precision; plain float64
+    numpy sums are at least as accurate.
+    """
+    x = np.asarray(x, dtype=np.float32)
+    m = x.astype(np.float64).mean()
+    v = (x.astype(np.float64) ** 2).mean() - m * m
+    sd = np.sqrt(v)
+    return ((x - np.float32(m)) / np.float32(sd)).astype(np.float32)
+
+
+def logsumexp2(x: float, y: float) -> float:
+    """Pairwise log-sum-exp (ref src/util.h:162-164)."""
+    mx = max(x, y)
+    return mx + np.log1p(np.exp(-abs(x - y)))
+
+
+def loglaplace(x, loc, sc, logsc):
+    """Log-density of the Laplace distribution (ref src/util.h:75-77)."""
+    return -np.abs(x - loc) / sc - logsc - np.log(2.0)
+
+
+def plogistic(x):
+    """Logistic CDF (ref src/util.h:110-112)."""
+    return 0.5 * (1.0 + np.tanh(x / 2.0))

@@ -194,7 +194,9 @@ def test_events_dump_matches_scrappie_tpu(fast5, tmp_path):
 def _watch(tmp_path, after, garbage=()):
     """`raw --watch 0.2 --limit 2 --uuid` on a directory holding r0.fast5 and
     the files named in garbage (not HDF5), in a thread; after(dir) runs two
-    seconds in. Returns the FASTA names and stderr."""
+    seconds in, or with garbage once the first read of it has failed (the
+    watcher gives up on a file after five failed polls, one second).
+    Returns the FASTA names and stderr."""
     watch = tmp_path / "run"
     watch.mkdir()
     outfa = tmp_path / "out.fa"
@@ -202,25 +204,29 @@ def _watch(tmp_path, after, garbage=()):
     for name in garbage:
         (watch / name).write_bytes(b"not yet a fast5")
     res = {}
+    err = io.StringIO()
 
     def run():
-        out, err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stderr(err):
             res["code"] = torch_main([
                 "raw", "--device", "cpu", str(watch), "--watch", "0.2",
                 "--limit", "2", "--trim", "0:0", "--uuid", "-o", str(outfa)])
-        res["err"] = err.getvalue()
 
-    t = threading.Thread(target=run)
+    t = threading.Thread(target=run, daemon=True)
     t.start()
-    time.sleep(2.0)
+    if garbage:
+        deadline = time.monotonic() + 300
+        while "Failed to read" not in err.getvalue() and time.monotonic() < deadline:
+            time.sleep(0.01)
+    else:
+        time.sleep(2.0)
     after(watch)
     t.join(timeout=300)
     assert not t.is_alive(), "--watch did not exit at --limit"
-    assert res["code"] == 0, res["err"]
+    assert res["code"] == 0, err.getvalue()
     names = [line[1:].split()[0] for line in outfa.read_text().splitlines()
              if line.startswith(">")]
-    return names, res["err"]
+    return names, err.getvalue()
 
 
 def _appear(path, seed, read_id):

@@ -22,6 +22,7 @@ import tempfile
 import h5py
 import numpy as np
 import pytest
+import torch
 
 from scrappie_torch import api as tapi
 from scrappie_torch import types as ttypes
@@ -32,6 +33,8 @@ from scrappie_torch.io import fasta as tfasta
 from scrappie_torch.models import calibration as tcal
 from scrappie_torch.models import ensemble as tens
 from scrappie_torch.models import registry as treg
+from scrappie_torch.nn import rnn as trnn
+from scrappie_torch.ops import viterbi as tvit
 from scrappie_torch.parallel import chunk as tchunk
 from scrappie_torch.post import homopolymer as thp
 from scrappie_torch.post import overlapper as tover
@@ -40,6 +43,7 @@ from scrappie_torch.signal import events as tevents
 from scrappie_torch.signal import features as tfeat
 from scrappie_torch.signal import trim as ttrim
 from scrappie_torch.train import simulate as tsim
+from scrappie_torch import utils as tutils
 from scrappie_torch.utils import maths as tmaths
 from scrappie_tpu import api as japi
 from scrappie_tpu import types as jtypes
@@ -50,6 +54,8 @@ from scrappie_tpu.io import fasta as jfasta
 from scrappie_tpu.models import calibration as jcal
 from scrappie_tpu.models import ensemble as jens
 from scrappie_tpu.models import registry as jreg
+from scrappie_tpu.nn import rnn as jrnn
+from scrappie_tpu.ops import viterbi as jvit
 from scrappie_tpu.parallel import chunk as jchunk
 from scrappie_tpu.post import homopolymer as jhp
 from scrappie_tpu.post import overlapper as jover
@@ -59,6 +65,7 @@ from scrappie_tpu.signal import features as jfeat
 from scrappie_tpu.signal import trim as jtrim
 from scrappie_tpu.train import realdata as jrealdata
 from scrappie_tpu.train import simulate as jsim
+from scrappie_tpu import utils as jutils
 from scrappie_tpu.utils import maths as jmaths
 
 
@@ -111,12 +118,22 @@ def both(fn):
     port = dict(types=ttypes, trim=ttrim, maths=tmaths, chunk=tchunk,
                 over=tover, hp=thp, events=tevents, feat=tfeat, fasta=tfasta,
                 fast5=tfast5, cal=tcal, reg=treg, api=tapi, dtw=tdtw,
-                mapping=tmapping, ens=tens, quality=tquality, kmers=tsim)
+                mapping=tmapping, ens=tens, quality=tquality, kmers=tsim,
+                utils=tutils, rnn=trnn, vit=tvit, array=torch.from_numpy)
     ref = dict(types=jtypes, trim=jtrim, maths=jmaths, chunk=jchunk,
                over=jover, hp=jhp, events=jevents, feat=jfeat, fasta=jfasta,
                fast5=jfast5, cal=jcal, reg=jreg, api=japi, dtw=jdtw,
-               mapping=jmapping, ens=jens, quality=jquality, kmers=jrealdata)
+               mapping=jmapping, ens=jens, quality=jquality, kmers=jrealdata,
+               utils=jutils, rnn=jrnn, vit=jvit, array=np.asarray)
     return fn(**port), fn(**ref)
+
+
+class Close:
+    """A float array held within atol of its original, not bit for bit:
+    products summed in torch's order and in XLA's."""
+
+    def __init__(self, a, atol: float):
+        self.a, self.atol = np.asarray(a), atol
 
 
 def case_trim(types, trim, **_):
@@ -355,12 +372,77 @@ def case_window_seqstates(kmers, **_):
     return [kmers.window_seqstates(ba, bases, L) for ba, L in cases]
 
 
+def case_ctc_decode(over, **_):
+    rng = np.random.default_rng(13)
+    out = []
+    for path in (rng.integers(-1, 4, 400), np.full(9, -1), np.array([2, 2, -1, 2, 3])):
+        pos = np.zeros(len(path), dtype=np.int64)
+        out += [over.ctc_remove_stays_and_repeats(path, pos), pos]
+    return out
+
+
+def case_maths_helpers(maths, utils, **_):
+    x = signal(3001, 14)
+    return ([m.studentise(x) for m in (maths, utils)],
+            [maths.logsumexp2(a, b) for a, b in ((0.5, -3.0), (-2.0, -2.0), (7.0, 1.0))],
+            maths.loglaplace(x[:50], 90.0, 2.0, np.log(2.0)),
+            maths.plogistic(x[:50] - 90.0),
+            [getattr(utils, k) is getattr(maths, k)
+             for k in ("logsumexp2", "loglaplace", "plogistic", "madf", "medianf",
+                       "quantilef", "medmad_normalise", "studentise")])
+
+
+def case_raw_features(types, feat, **_):
+    rs = types.RawSignal(signal(4000, 15), start=120, end=3800)
+    return (feat.features_from_raw(rs),
+            feat.deltasample_features_from_raw(rs, 0.5, 2.0, 3.0),
+            feat.deltasample_features_from_raw(rs, 0.0, 1.0, 0.2))
+
+
+def case_model_stride(reg, **_):
+    out = [reg.get_model_stride(m) for m in
+           ("rgrgr_r94", "rgrgr_r941", "rgrgr_r10", "raw_r94", "rnnrf_r94")]
+    for m in ("nanonet_events", "nope"):
+        try:
+            reg.get_model_stride(m)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def case_weights_sha(cal, **_):
+    return [cal.weights_sha(m) for m in
+            ("rgrgr_r94", "raw_r94", "rnnrf_r94", "nanonet_events")]
+
+
+def case_viterbi_batch(vit, **_):
+    lp = np.stack([logpost(60, 16), logpost(60, 17)])
+    out = []
+    for opts in ((0.0, 0.0, 2.0, False), (0.3, 0.5, 1.5, True)):
+        final, tb = vit.viterbi_scores_batch(lp, *opts)
+        out += [np.asarray(tb), Close(final, 1e-4)]
+    return out
+
+
+def case_lstm(rnn, array, **_):
+    rng = np.random.default_rng(18)
+    S = 8
+    x = (rng.standard_normal((2, 30, 4 * S))).astype(np.float32)
+    sW = (0.3 * rng.standard_normal((S, 4 * S))).astype(np.float32)
+    peep = (0.3 * rng.standard_normal(3 * S)).astype(np.float32)
+    return [Close(rnn.lstm(array(a), array(sW), array(peep), rev), 1e-5)
+            for a in (x, x[0]) for rev in (False, True)]
+
+
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items()
          if name.startswith("case_")}
 
 
 def assert_equal(a, b):
-    if isinstance(a, dict):
+    if isinstance(a, Close):
+        assert a.a.dtype == b.a.dtype and a.a.shape == b.a.shape
+        np.testing.assert_allclose(a.a, b.a, rtol=0, atol=a.atol)
+    elif isinstance(a, dict):
         assert a.keys() == b.keys()
         for k in a:
             assert_equal(a[k], b[k])

@@ -81,6 +81,32 @@ def test_no_import_of_the_jax_package(path):
                 f"{path.name}:{node.lineno} imports {name}"
 
 
+#: The JAX package's public helpers that the port copies (scrappie_tpu's
+#: module of the same path), each held to its original in
+#: tests/test_torch_host.py.
+HELPERS = (
+    ("post.overlapper", "ctc_remove_stays_and_repeats"),
+    ("utils.maths", "studentise"), ("utils.maths", "logsumexp2"),
+    ("utils.maths", "loglaplace"), ("utils.maths", "plogistic"),
+    ("utils", "studentise"), ("signal.features", "features_from_raw"),
+    ("signal.features", "deltasample_features_from_raw"),
+    ("models.registry", "get_model_stride"), ("models.calibration", "weights_sha"),
+    ("ops.viterbi", "viterbi_scores_batch"), ("nn.rnn", "lstm"),
+)
+
+
+@pytest.mark.parametrize("module,name", HELPERS, ids=lambda v: str(v))
+def test_public_helpers_are_the_ports_own(module, name):
+    """Each copied helper is defined in a file of the port, which the
+    import scans above cover (no scrappie_tpu, no JAX)."""
+    import importlib
+    import inspect
+
+    fn = getattr(importlib.import_module(f"scrappie_torch.{module}"), name)
+    source = pathlib.Path(inspect.getsourcefile(fn)).resolve()
+    assert source in PORT_FILES, source
+
+
 def test_module_entry_point_runs():
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-m", "scrappie_torch", "version"],

@@ -364,24 +364,3 @@ def test_default_on_the_cpu_equals_highest_bit_for_bit(rgrgr_bf16):
         with config.precision(mode):
             outs.append(tapi.sequence_to_squiggle(seq, device="cpu"))
     np.testing.assert_array_equal(np.asarray(outs[0]), np.asarray(outs[1]))
-
-
-@pytest.mark.parametrize("mode", ["default", "bf16"])
-def test_training_refuses_a_reduced_precision(mode):
-    from scrappie_torch.train import lattice, trainer, wholeread
-    from scrappie_torch.train.optim import FiniteClippedAdam
-
-    opt = FiniteClippedAdam({"w": torch.zeros(2)}, 1e-3)
-    with config.precision(mode):
-        with pytest.raises(NotImplementedError, match="'highest'"):
-            trainer.train("rgrgr_r94", steps=1, batch=1, nsample=500,
-                          device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer.make_train_step("rgrgr_r94", opt)
-        with pytest.raises(NotImplementedError):
-            lattice.make_lattice_train_step("rgrgr_r94", opt)
-        with pytest.raises(NotImplementedError):
-            wholeread.make_wholeread_step("rnnrf_r94", opt)
-        with pytest.raises(NotImplementedError):
-            trainer.value_and_grad_of(lambda p, x: p["w"].sum(), {"w": torch.ones(2)},
-                                      None)

@@ -441,7 +441,7 @@ def test_training_hands_the_kernels_their_layout(monkeypatch):
             return plain(*args)
         monkeypatch.setattr(module, name, run)
 
-    checked(tg, "gru_walk_plain", lambda gates, hp, gh, sW, sW2, rev:
+    checked(tg, "gru_walk_plain", lambda gates, hp, gh, sW, sW2, rev, *_:
             tg.check_gru_walk_input(gates, hp, gh, sW, sW2))
     checked(tc, "crf_partition_grad_tm_plain", tc.check_partition_grad_input)
     checked(tc, "crf_partition_tm_plain", tc.check_trans_input)
