@@ -40,6 +40,11 @@ if any phase fails:
      with K = 2, and times it; holds the head kernel (K = 3 and 5) and its
      route the same way (phase ens_kernel); times the route against the
      fused kernels at K = 1 and 3, B = 8, 64 and 256 (phase routes); holds
+     the head kernel against its twin at K = 1 (B = 8, 64 and 256), 3 and
+     5 (B = 8 and 64), with and without temperatures, with its launch
+     plan, its bound in each precision mode, torch.addmm's time for its
+     product alone and a K = 3, B = 64 call's peak device memory (phase
+     head_kernel); holds
      the GRU recurrence kernel against nn/rnn.gru_tm at T = 2000, S = 96,
      B = 8 and 64, both directions, and times it (phase
      gru_recurrence_kernel); holds the GRU (S = 160, 352) and LSTM (S =
@@ -297,8 +302,11 @@ and power limit as nvidia-smi gives them, and {"ok": true, "device":
 With --ab it does none of that: it times the Viterbi forward and
 backtrace, the DTW, map_signal_to_squiggle, the CRF forward, partition
 function, backtrace, posterior and partition gradient, the GRU
-recurrence, its backward walk and whole backward, the rnnrf fused path, the seqmap DP and
-map_post_to_sequence's four calls of another checkout of the repo (a `git archive`
+recurrence, its backward walk and whole backward, the rnnrf fused path, the seqmap DP,
+map_post_to_sequence's four calls, the head (one model and 3:1:1 at
+B = 8 and 64: alone, in bursts and the host's time a call, and the 3:1:1
+call's peak device memory) and the fast engine (rgrgr_r94 and 3:1:1) of another
+checkout of the repo (a `git archive`
 of the parent commit, say; its kernels are built there) and of this one
 on the same inputs, each in a fresh process, in turns other, this, this,
 other (time_checkout, compare_checkouts), and prints a JSON line a turn
@@ -359,6 +367,8 @@ T_WHOLE_EVENTS = 11520   # the whole-read events step's detected events
 LSTM_ATOL = 1e-4
 HEAD_RTOL = 1e-6         # the head's lp against its twin: fp32 sums of the
 HEAD_ATOL = 1e-5         # product, softmax and renormalisation in another order
+HEAD_BATCHES = (8, 64, 256)  # phase head_kernel: one model at each B,
+HEAD_ENS_BATCHES = (8, 64)   # K = 3 and 5 members at these
 PROJECT_RTOL = 1e-5      # the projection against its twin, relative to max(|y|, 1)
 BIG_S = {"gru": (160, 352), "lstm": (160, 288)}  # above the registers' S = 96
 BIG_S_BWD = 160          # the big-S backward walks' check
@@ -598,6 +608,9 @@ NO_SPILL = ("gru_recurrence_kernel", "lstm_recurrence_kernel",
 # fp32 outside the tensor cores (the kernels are exact fp32, TF32 off).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+# and the dense tensor-core peaks of the head's product in 'default' (TF32)
+# and 'bf16' (kernel_work("head", mode=...))
+PEAK_TC_OPS_PER_S = {"default": 495e12, "bf16": 989e12}
 
 
 START = time.perf_counter()
@@ -732,7 +745,11 @@ def kernel_work(name: str, **d) -> dict:
     position and step the transducer does 27 operations (forward two
     logaddexps of 6 and 4 adds and subtractions; backward three exps,
     two logaddexps and their adds) and the CRF 36 (its two states), and
-    the CRF's local partition 200 a row and step."""
+    the CRF's local partition 200 a row and step. The head's bound is for a
+    precision mode (d["mode"], "bound_mode" in the result): 'highest' (the
+    default) counts every operation at the fp32 peak; 'default' and 'bf16'
+    its product at the dense TF32 or bf16 tensor-core peak and its 4
+    operations an entry (K > 1: 4 more) at the fp32 peak."""
     T, B = d["T"], d.get("B", 1)
     if name == "dtw":
         npos = d["npos"]
@@ -758,8 +775,18 @@ def kernel_work(name: str, **d) -> dict:
     if name == "head":  # K heads' product and softmax; K > 1: renormalise
         K, S, ns = d.get("K", 1), d["S"], d["nstate"]
         M = T * B
-        return bound(4 * (K * M * S + K * (S + 1) * ns + K + M * ns),
-                     K * (2 * M * S * ns + 4 * M * ns) + (4 * M * ns if K > 1 else 0))
+        nbytes = 4 * (K * M * S + K * (S + 1) * ns + K + M * ns)
+        product = K * 2 * M * S * ns
+        rest = K * 4 * M * ns + (4 * M * ns if K > 1 else 0)
+        mode = d.get("mode", "highest")
+        if mode == "highest":  # every operation at the fp32 peak
+            return {**bound(nbytes, product + rest), "bound_mode": mode}
+        # the product on the tensor cores, the softmax's work in fp32
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = (product / PEAK_TC_OPS_PER_S[mode] + rest / PEAK_FP32_OPS_PER_S) * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_mode": mode}
     if name == "gru_layer":
         C, S = d["C"], d["S"]
         return bound(4 * (T * B * (C + S) + 3 * S * (C + 1) + 3 * S * S),
@@ -1011,6 +1038,128 @@ def check_head(h, W, b, what: str, weights=None, **temps) -> dict:
             "ms": cuda_ms(lambda: v.head_logpost_tm(h, W, b, weights, **temps)),
             "plain_ms": cuda_ms(lambda: v.head_logpost_tm_plain(h, W, b, weights,
                                                                 **temps))}
+
+
+def product_library_ms(h, W, b, weights=None) -> float:
+    """torch.addmm of the head's product alone (TF32 off), K calls for K
+    members: the product's time, not the head's (no one PyTorch call
+    computes the head's softmax, robustlog and combination)."""
+    import torch
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 off for matmul")
+    if weights is None:
+        h, W, b = h[None], W[None], b[None]
+    S = h.shape[-1]
+    rows = [h[k].reshape(-1, S) for k in range(h.shape[0])]
+    return cuda_ms(lambda: [torch.addmm(b[k], x, W[k]) for k, x in enumerate(rows)])
+
+
+def check_head_kernel(nets: list, card: str) -> dict:
+    """The head kernel against its twin within HEAD_RTOL / HEAD_ATOL
+    ('highest') on the features the three rgrgr models give for B chunks
+    of CHUNK samples: one model (rgrgr_r94) at each of HEAD_BATCHES, 3:1:1
+    (K = 3) and 3:1:1:1:1 (K = 5, the trio's two repeated) at B = 8 and 64,
+    each with and without TEMPS (check_head); beside each shape without
+    temperatures the launch plan, the bound in each precision mode and
+    product_library_ms; and the device's peak memory above what it held
+    for one K = 3, B = 64 call, which must not exceed the posterior's
+    (phase head_kernel). Returns {"K = k, B = b": row}."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.ops import viterbi as v
+    from scrappie_torch.ops.pipeline import ensemble_features_tm
+
+    pick = [0, 1, 2, 1, 2]  # ENSEMBLE5's members: the trio's, repeated
+    rows = {}
+    for B in HEAD_BATCHES:
+        members = nets if B in HEAD_ENS_BATCHES else nets[:1]
+        sig = torch.as_tensor(np.random.default_rng(SEED + 400 + B).standard_normal(
+            (B, CHUNK, 1)).astype(np.float32), device="cuda")
+        h, W, b = ensemble_features_tm(
+            [n.params for n in members], sig, kinds=("rgrgr",) * len(members),
+            conv_activations=[n.conv_activation for n in members], stride=5)
+        cases = {1: (h[0], W[0], b[0], None)}
+        if B in HEAD_ENS_BATCHES:
+            cases[3] = (h, W, b, ensemble_weights(3))
+            cases[5] = (h[pick], W[pick], b[pick], ensemble_weights(5))
+        for K, (hk, Wk, bk, wk) in cases.items():
+            what = f"K = {K}, B = {B}"
+            row = check_head(hk, Wk, bk, what, wk)
+            tempered = check_head(hk, Wk, bk, f"{what}, temperatures", wk, **TEMPS)
+            row["max_abs_err"] = max(row["max_abs_err"], tempered["max_abs_err"])
+            row["temps_ms"] = tempered["ms"]
+            row["bounds"] = {mode: kernel_work("head", T=T_BLOCKS, B=B, K=K, S=96,
+                                               nstate=Wk.shape[-1], mode=mode)
+                             for mode in PRECISION_ROUNDING}
+            row["product_library_ms"] = product_library_ms(hk, Wk, bk, wk)
+            row["launch"] = v.head_launch(
+                T_BLOCKS * B, 96, Wk.shape[-1],
+                v.head_max_clusters(0, Wk.shape[-1], 96, wk is not None, 0))
+            if (K, B) == (3, 64):
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                lp = v.head_logpost_tm(hk, Wk, bk, wk)
+                sync()
+                row["peak_bytes_above"] = torch.cuda.max_memory_allocated() - base
+                row["posterior_bytes"] = lp.numel() * 4
+                require(row["peak_bytes_above"] <= row["posterior_bytes"] + 2 ** 21,
+                        f"head K = 3, B = 64 allocates only its posterior "
+                        f"({row['peak_bytes_above']} B)")
+                del lp
+            rows[what] = row
+        del h, W, b, cases
+    emit({"phase": "head_kernel", "T": T_BLOCKS, "rows": rows, "card": card})
+    return rows
+
+
+# Phase head_widths: hidden sizes the resident mode cannot take (S not a
+# multiple of 4, or above 208: the big-S GRU's and LSTM's), and h not
+# 16-byte aligned, all in the head kernel's streamed mode.
+HEAD_WIDTHS = ((18, 1, True), (18, 3, True), (BIG_S["lstm"][1], 1, True),
+               (BIG_S["gru"][1], 1, True), (BIG_S["gru"][1], 3, True),
+               (96, 1, False))
+
+
+def check_head_widths(card: str) -> None:
+    """The head kernel's streamed mode against its twin on seeded inputs
+    (tanh of 2 x standard normal; W 2 / sqrt(S) x standard normal, bias
+    0.1 x, placed outside inference mode; T_BIG_S blocks, B = 8, 1025
+    states), at each of HEAD_WIDTHS (S,
+    K, h aligned): within HEAD_RTOL / HEAD_ATOL in 'highest', with and
+    without TEMPS (check_head), and at the widest S and K = 1 and 3 in
+    'default' and 'bf16' within HEAD_TC_ATOL of the rounded twin (phase
+    head_widths)."""
+    import torch
+
+    from scrappie_torch.ops import viterbi as v
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 410)
+    T, B, nstate = T_BIG_S, 8, 1025
+    rows = {}
+    for S, K, aligned in HEAD_WIDTHS:
+        rnd = lambda *shape, s: s * torch.randn(shape, generator=gen, device="cuda")
+        with torch.inference_mode(False):  # placed as the port's loaders place weights
+            W, b = rnd(K, S, nstate, s=2.0 / S ** 0.5), rnd(K, nstate, s=0.1)
+        h = torch.tanh(rnd(K, T, B, S, s=2.0))
+        if not aligned:  # the same rows one float past a 16-byte boundary
+            buf = torch.empty(h.numel() + 4, device="cuda")
+            h = buf[1:1 + h.numel()].view(h.shape).copy_(h)
+        wk = ensemble_weights(K) if K > 1 else None
+        args = (h, W, b, wk) if K > 1 else (h[0], W[0], b[0], None)
+        require(v.head_streams(S, args[0].data_ptr() % 16 == 0),
+                f"head S = {S}{'' if aligned else ', h unaligned'} runs streamed")
+        what = f"S = {S}, K = {K}" + ("" if aligned else ", h unaligned")
+        row = check_head(*args[:3], what, args[3])
+        tempered = check_head(*args[:3], f"{what}, temperatures", args[3], **TEMPS)
+        row["max_abs_err"] = max(row["max_abs_err"], tempered["max_abs_err"])
+        if S == BIG_S["gru"][1]:
+            row.update(precision_case(
+                f"head {what}", lambda: v.head_logpost_tm(*args),
+                lambda r: v.head_logpost_tm_plain(*args, rounding=r), HEAD_TC_ATOL))
+        rows[what] = row
+    emit({"phase": "head_widths", "T": T, "B": B, "rows": rows, "card": card})
 
 
 def check_forward_and_backtrace(lp, what: str, **opts):
@@ -4570,8 +4719,9 @@ def time_checkout(checkout: pathlib.Path) -> None:
     B = 64 chunks of CHUNK samples (median of 5), the seqmap DP, Viterbi
     with its traceback (median of 10) and forward (median of 5), on the
     posterior and reference of seqmap_case, and the four MAP_CALLS of
-    map_post_to_sequence on them (host clock, median of 3 after one call).
-    Prints one JSON line."""
+    map_post_to_sequence on them (host clock, median of 3 after one call),
+    the head (time_head), the lattice losses (time_lattices) and the fast
+    engine (time_engines). Prints one JSON line."""
     sys.path.insert(0, str(checkout))
     import numpy as np
     import torch
@@ -4668,8 +4818,99 @@ def time_checkout(checkout: pathlib.Path) -> None:
             api.map_post_to_sequence(post, ref, device="cuda", **kw)
             seconds.append(time.perf_counter() - t0)
         out[f"map_post_to_sequence_s {what}"] = statistics.median(seconds)
+    with torch.inference_mode():
+        out.update(time_head())
     out.update(time_lattices())
+    out.update(time_engines())
     print(json.dumps(out), flush=True)
+
+
+def time_engines() -> dict:
+    """The imported scrappie_torch's fast engine, rgrgr_r94 alone and the
+    3:1:1 ensemble (ENSEMBLE), on synthetic_reads(): wall seconds of
+    basecall_signals, median of 3 after one call."""
+    import torch
+
+    from scrappie_torch.parallel.runner import BasecallEngine
+
+    reads = synthetic_reads()
+    out = {}
+    for label, kw in (("rgrgr_r94 fast", {}), ("3:1:1 fast", {"ensemble": ENSEMBLE})):
+        eng = BasecallEngine("rgrgr_r94", device="cuda", mode="fast", **kw)
+        eng.basecall_signals(reads)
+        seconds = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.basecall_signals(reads)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        out[f"engine_s {label}"] = statistics.median(seconds)
+    return out
+
+
+def host_us(fn, reps: int = 20) -> float:
+    """Microseconds of host time a call of fn() takes while the card runs
+    behind it: reps calls back to back, no synchronisation between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
+def time_head() -> dict:
+    """The imported scrappie_torch's head, ops/viterbi.head_logpost_tm, on
+    seeded features (tanh of 2 x standard normal, T_BLOCKS blocks, S = 96)
+    with the FF heads of rgrgr_r94 and ENSEMBLE (this script's npz files,
+    placed outside inference mode as the port's loaders place weights):
+    one model and the three at 3:1:1, at each of HEAD_ENS_BATCHES: a call
+    alone (CUDA events, median of 10; the host's time before the launch
+    included), per call in bursts of 10 (the device's own time where the
+    host keeps ahead) and the host's time a call (host_us); and the
+    device's peak memory above what it held for one call of the three at
+    the last B; then one model at the widest S the parent took (S = 352,
+    seeded W, T_BIG_S blocks, B = 8; in bursts of 10)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.ops import viterbi as v
+
+    params = pathlib.Path(__file__).resolve().parent / "scrappie_tpu" / "models" / "params"
+    heads = [np.load(params / f"{m}.npz") for m in ("rgrgr_r94",) + ENSEMBLE]
+    with torch.inference_mode(False):  # placed as the port's loaders place weights
+        W = torch.as_tensor(np.stack([z["FF_W"] for z in heads]), device="cuda")
+        b = torch.as_tensor(np.stack([z["FF_b"] for z in heads]), device="cuda")
+    w = torch.tensor([0.6, 0.2, 0.2], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 177)
+    out = {}
+    for B in HEAD_ENS_BATCHES:
+        h = torch.tanh(2.0 * torch.randn((3, T_BLOCKS, B, 96), generator=gen,
+                                         device="cuda"))
+        for K, call in ((1, lambda: v.head_logpost_tm(h[0], W[0], b[0])),
+                        (3, lambda: v.head_logpost_tm(h, W, b, w))):
+            out[f"head_ms K = {K}, B = {B}"] = cuda_ms(call, reps=10)
+            out[f"head_burst_ms K = {K}, B = {B}"] = cuda_ms(call, reps=10, burst=10)
+            out[f"head_host_us K = {K}, B = {B}"] = host_us(call)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    v.head_logpost_tm(h, W, b, w)
+    sync()
+    out[f"head_peak_bytes K = 3, B = {B}"] = torch.cuda.max_memory_allocated() - base
+    # the widest S the parent's head took (the big-S GRU's), T_BIG_S blocks
+    S = BIG_S["gru"][1]
+    with torch.inference_mode(False):
+        Ws = 2.0 / S ** 0.5 * torch.randn((S, 1025), generator=gen, device="cuda")
+    hs = torch.tanh(2.0 * torch.randn((T_BIG_S, 8, S), generator=gen, device="cuda"))
+    out[f"head_ms K = 1, S = {S}, T = {T_BIG_S}, B = 8"] = cuda_ms(
+        lambda: v.head_logpost_tm(hs, Ws, b[0]), reps=10, burst=10)
+    return out
 
 
 # The lattices --ab times: (kind, what, (T, B, L), chunk); None keeps every
@@ -4760,8 +5001,8 @@ def compare_checkouts(other: pathlib.Path) -> None:
 # products against its twin with the same operand rounding, in 'default'
 # (TF32) and 'bf16' (phase precision_kernels). Kernel and twin round the
 # same operands the same way and multiply them exactly, so only the order
-# of the fp32 sums differs: the projection's and the head's outputs within
-# PRECISION_ATOL. A recurrence rounds the h it carries at every step, so a
+# of the sums differs: the projection's output within PRECISION_ATOL, the
+# head's (its sums on the tensor cores) within HEAD_TC_ATOL. A recurrence rounds the h it carries at every step, so a
 # sum's last bit can move a rounded h by one of its mode's ulps, and the
 # next steps carry that: h (bounded by 1) within four ulps of the mode at
 # 1 (TF32 2^-11, bfloat16 2^-8; measured: bfloat16's GRU h 5.4e-3 apart).
@@ -4769,6 +5010,13 @@ PRECISION_MODES = ("default", "bf16")
 PRECISION_ROUNDING = {"highest": None, "default": "tf32", "bf16": "bf16"}
 PRECISION_H_ATOL = {"default": 4 * 2.0 ** -11, "bf16": 4 * 2.0 ** -8}
 PRECISION_ATOL = {"default": 1e-3, "bf16": 1e-3}
+# The head runs its product on the tensor cores in these modes (mma.sync,
+# csrc/head.cu): a logit's 96 exact products summed in the tensor cores'
+# order and fp32 accumulation, not the twin's, and lp moves by at most
+# twice a logit's move (the softmax and robustlog) plus the
+# renormalisation's (read: 3.1e-5 and 1.7e-5 at K = 1, T = 2000, B = 64 on
+# an H100, 1.0e-5 and 8e-6 at K = 3).
+HEAD_TC_ATOL = {"default": 2e-4, "bf16": 2e-4}
 # The paths whose calls each mode changes (phase precision_paths): model,
 # engine keywords.
 PRECISION_PATHS = (("rgrgr_r94", dict(mode="fast")),
@@ -4875,7 +5123,7 @@ def check_precision_kernels(net, enet, card: str) -> dict:
         "head": precision_case(
             "head K = 1", lambda: v.head_logpost_tm(h, p["FF_W"], p["FF_b"]),
             lambda r: v.head_logpost_tm_plain(h, p["FF_W"], p["FF_b"], rounding=r),
-            PRECISION_ATOL)}
+            HEAD_TC_ATOL)}
     nets = ensemble_nets()
     h3, W3, b3 = ensemble_features_tm(
         [n.params for n in nets], sig, kinds=("rgrgr",) * 3,
@@ -4884,7 +5132,11 @@ def check_precision_kernels(net, enet, card: str) -> dict:
     out["head"]["K3"] = precision_case(
         "head K = 3", lambda: v.head_logpost_tm(h3, W3, b3, w3),
         lambda r: v.head_logpost_tm_plain(h3, W3, b3, w3, rounding=r),
-        PRECISION_ATOL)
+        HEAD_TC_ATOL)
+    for K, row in ((1, out["head"]), (3, out["head"]["K3"])):
+        row.update({f"bound_ms_{mode}": kernel_work(
+            "head", T=T_BLOCKS, B=B, K=K, S=96, nstate=W3.shape[-1],
+            mode=mode)["bound_ms"] for mode in PRECISION_ROUNDING})
     del h3, W3, b3
     # the LSTM: the events network's first stage
     e = enet.params
@@ -5823,7 +6075,9 @@ def main() -> int:
                          "recurrence, its "
                          "backward walk and whole backward, the rnnrf fused "
                          "path, the seqmap "
-                         "DP and map_post_to_sequence of OTHER_CHECKOUT and "
+                         "DP, map_post_to_sequence, the head at K = 1 "
+                         "and 3, B = 8 and 64 and the fast engine "
+                         "(rgrgr_r94, 3:1:1) of OTHER_CHECKOUT and "
                          "of this checkout, in turns")
     ap.add_argument("--times", type=pathlib.Path, help=argparse.SUPPRESS)
     ap.add_argument("--launcher-worker", nargs=argparse.REMAINDER,
@@ -5860,6 +6114,9 @@ def main() -> int:
         table["viterbi_fused_ens"], head3 = check_ens_kernel(nets, 64)
         table["head"]["K3"] = head3
         compare_routes(nets, card)
+        heads = check_head_kernel(nets, card)
+        check_head_widths(card)
+        table["head"]["product_library_ms"] = heads["K = 1, B = 64"]["product_library_ms"]
         check_gru_recurrence(net, 8)
         table["gru_recurrence"] = check_gru_recurrence(net, 64)
         table.update(check_big_s())
@@ -5950,6 +6207,9 @@ def main() -> int:
          "bound_ms": table[name]["bound_ms"],
          "bound_by": table[name]["bound_by"],
          "library_ms": table[name].get("library_ms"),
+         # the head's product alone in torch.addmm (TF32 off), not the head
+         **({"product_library_ms": table[name]["product_library_ms"]}
+            if "product_library_ms" in table[name] else {}),
          # the kernels with products, in the precision policy's other modes
          **{f"{k}_{mode}": precision[name][f"{k}_{mode}"]
             for k in ("max_abs_err", "ms") for mode in PRECISION_MODES

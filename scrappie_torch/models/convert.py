@@ -17,11 +17,15 @@ from scrappie_torch.models.specs import EVENTS_MODEL, RAW_MODELS, SQUIGGLE_MODEL
 
 def params_from_numpy(params: dict[str, np.ndarray],
                       device=None) -> dict[str, torch.Tensor]:
-    """npz parameter dict -> contiguous float32 tensors on `device`."""
+    """npz parameter dict -> contiguous float32 tensors on `device`:
+    normal tensors also under torch.inference_mode, so that what the
+    kernels' wrappers derive from them once (ops.derived) stays cached and
+    an in-place update is seen."""
     dev = as_device(device)
-    return {k: torch.as_tensor(np.ascontiguousarray(v, dtype=np.float32),
-                               device=dev)
-            for k, v in params.items()}
+    with torch.inference_mode(False):
+        return {k: torch.as_tensor(np.ascontiguousarray(v, dtype=np.float32),
+                                   device=dev)
+                for k, v in params.items()}
 
 
 def model_spec(model: str):

@@ -12,6 +12,8 @@ through the kernels.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -84,6 +86,50 @@ def check_kernel_input(name: str, t: torch.Tensor, shape: tuple,
 
 def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+# derived(): (weak references to the sources' bases, their versions, the
+# value), by a tag and each source's base, offset, shape and strides; an
+# entry goes when a base is freed.
+_DERIVED: dict = {}
+
+
+def derived(tag: str, sources: tuple, make):
+    """make(), computed once while every tensor of `sources` lives and is
+    not modified in place, then cached: a copy or layout of weights made
+    once per weight tensor, not once per call. A view counts as its base
+    tensor at its offset, shape and strides, so W[k] taken anew each call
+    still finds its entry. An inference tensor keeps no version counter,
+    so nothing made from one is cached: make() runs at every call. make()
+    runs without autograd and outside inference mode, so the value is a
+    normal tensor (or tuple of them) that later derived() calls can
+    cache in turn."""
+    if any(t.is_inference() for t in sources):
+        return _make(make)
+    key, bases, versions = [tag], [], []
+    for t in sources:
+        b = t._base
+        if b is None:
+            b = t
+        key.append((id(b), t.storage_offset(), t.shape, t.stride()))
+        bases.append(b)
+        versions.append(b._version)
+    key = tuple(key)
+    hit = _DERIVED.get(key)
+    if hit is not None and hit[1] == versions \
+            and all(ref() is b for ref, b in zip(hit[0], bases)):
+        return hit[2]
+    made = _make(make)
+    if hit is None:
+        for b in {id(b): b for b in bases}.values():
+            weakref.finalize(b, _DERIVED.pop, key, None)
+    _DERIVED[key] = ([weakref.ref(b) for b in bases], versions, made)
+    return made
+
+
+def _make(make):
+    with torch.inference_mode(False), torch.no_grad():
+        return make()
 
 
 def f32(v: float) -> float:

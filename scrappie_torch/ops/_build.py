@@ -56,8 +56,9 @@ _SIGNATURES = {
     "scrappie_lattice": (_I, *(_P,) * 14, *(_I,) * 9, _F, _F, _F, _P),
     "scrappie_crf_lattice": (_I, *(_P,) * 16, *(_I,) * 8, _F, _P),
     "scrappie_lattice_floats": (_I, _I),
-    "scrappie_head": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+    "scrappie_head": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
                       _I, _P),
+    "scrappie_head_max_clusters": (_I, _I, _I, _I, _I),
     "scrappie_dtw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                      _F, _F, _F, _I, _I, _I, _I, _I, _P),
     "scrappie_dtw_max_clusters": (_I, _I, _I, _I, _I),

@@ -54,6 +54,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from scrappie_torch import ops
 from scrappie_torch.models.specs import GRU_DIRS
 from scrappie_torch.nn.layers import (conv1d, elu, feedforward2_tanh,
                                       globalnorm_tm, softmax_with_temperature,
@@ -290,8 +291,12 @@ def ensemble_features_tm(params_list, sig, *, kinds, conv_activations,
         bs.append(p[bk])
     S = max(x.shape[-1] for x in xs)
     h = torch.stack([F.pad(x, (0, S - x.shape[-1])) for x in xs])
-    W = torch.stack([F.pad(W, (0, 0, 0, S - W.shape[0])) for W in Ws])
-    return h, W, torch.stack(bs)
+    # the stacked heads once per set of member weights, so that the head
+    # kernel's image of them is made once too
+    W, bvec = ops.derived(f"ensemble heads {S}", (*Ws, *bs), lambda: (
+        torch.stack([F.pad(W, (0, 0, 0, S - W.shape[0])) for W in Ws]),
+        torch.stack(bs)))
+    return h, W, bvec
 
 
 def ensemble_basecall_fused(params_list, weights, sig, *, kinds,

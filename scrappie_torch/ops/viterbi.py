@@ -27,6 +27,7 @@ posterior in device memory; they are kept and no path calls them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,9 +42,12 @@ MAX_ENS = 4
 #: Traceback entries are int16, so every state index (up to nhist + 1) is
 #: below 2^15.
 MAX_TB_STATE = 2**15 - 1
-#: csrc/head.cu's shared memory: columns and depth of a W slice (NT, KT),
-#: padded row of the transposed h tile (HP).
-HEAD_NT, HEAD_KT, HEAD_HP = 128, 32, 132
+#: csrc/head.cu's layout: a cluster of ceil(nstate / HEAD_NC) CTAs, at
+#: most HEAD_MAX_CLUSTER, splits a row's states, HEAD_NC a CTA, and walks
+#: tiles of HEAD_RT rows; HEAD_THREADS threads a CTA, a warp 16 rows; the
+#: streamed mode takes the depth HEAD_KC at a time.
+HEAD_RT, HEAD_NC, HEAD_MAX_CLUSTER, HEAD_THREADS = 64, 136, 8, 128
+HEAD_KC = 128
 #: csrc/viterbi.cu's forward: at most FWD_THREADS_MAX history threads a
 #: block (whole warps), each owning FWD_QUADS[i] quads of four states,
 #: and one more warp that does the END state alone.
@@ -196,19 +200,130 @@ def head_logpost_tm_plain(h_tm, W, bvec, weights=None, min_prob=1e-5,
                                rounding)
 
 
-def head_smem_bytes(S: int) -> int:
-    """Dynamic shared memory the head kernel needs for hidden size S: the
-    block's transposed h rows and two W slices."""
-    spad = -(-S // HEAD_KT) * HEAD_KT
-    return 4 * (spad * HEAD_HP + 2 * HEAD_KT * HEAD_NT)
+def head_k_extent(S: int) -> int:
+    """Depth of the head kernel's product: S rounded up to 16."""
+    return -(-S // 16) * 16
+
+
+def head_pitch(S: int) -> int:
+    """Row pitch (floats) of the head kernel's h stage: at least
+    head_k_extent(S) and 4 mod 32, so that a warp's rows fall on distinct
+    banks."""
+    sk = head_k_extent(S)
+    return sk + 4 if sk % 32 == 0 else sk + 20
+
+
+def head_smem_bytes(S: int, streamed: bool = False) -> int:
+    """Dynamic shared memory a CTA of the head kernel needs for hidden size
+    S. Resident: two stages of a tile's h rows [HEAD_RT][pitch], the W
+    slice and its bias [k_extent + 1][HEAD_NC], the rows' (max, sum)
+    pairs, double-buffered, and three mbarriers of 8 bytes (105 016 B at
+    S = 96: two CTAs an SM). Streamed: one stage of HEAD_KC columns and a
+    W chunk [HEAD_KC][HEAD_NC] in place of the first two, whatever S."""
+    if streamed:
+        stage, wrows = HEAD_RT * head_pitch(HEAD_KC), HEAD_KC
+    else:
+        stage, wrows = 2 * HEAD_RT * head_pitch(S), head_k_extent(S) + 1
+    return 4 * (stage + wrows * HEAD_NC + 4 * HEAD_RT) + 24
+
+
+def head_streams(S: int, h_aligned: bool = True) -> bool:
+    """Whether the head kernel runs its streamed mode: S not a multiple of
+    4 or h not 16-byte aligned (its rows cannot be bulk copies), or the
+    resident stages too large for shared memory (S above 208)."""
+    return (S % 4 != 0 or not h_aligned
+            or head_smem_bytes(S) > ops.MAX_SMEM_BYTES)
+
+
+def head_column_order() -> list[int]:
+    """The state at each column of a CTA's W slice in the head kernel's
+    fp32 path: each group of 32 permuted so that thread cx's states cx +
+    8 e (e < 4) are one 16-byte load; the last 8 in order."""
+    order = list(range(HEAD_NC))
+    for c in range(128):
+        order[(c & ~31) + 4 * (c & 7) + ((c >> 3) & 3)] = c
+    return order
+
+
+@functools.lru_cache(maxsize=None)
+def _column_order(device: torch.device) -> torch.Tensor:
+    return torch.tensor(head_column_order(), device=device)
+
+
+def head_weight_image(W, bvec, fp32_order: bool):
+    """W [K, S, nstate] and bvec [K, nstate] as the head kernel's CTAs hold
+    their slices in shared memory: [K, ceil(nstate / HEAD_NC),
+    head_k_extent(S) + 1, HEAD_NC], W's rows then the bias, zeros past S
+    and nstate, W's columns in head_column_order for the fp32 path
+    ('highest'), so that each slice is one bulk copy."""
+    K, S, nstate = W.shape
+    ncl, sk = -(-nstate // HEAD_NC), head_k_extent(S)
+    img = W.new_zeros((K, sk + 1, ncl * HEAD_NC))
+    img[:, :S, :nstate] = W
+    img[:, sk, :nstate] = bvec
+    img = img.view(K, sk + 1, ncl, HEAD_NC).transpose(1, 2).contiguous()
+    if fp32_order:
+        img[:, :, :sk] = img[:, :, :sk, _column_order(W.device)]
+    return img
+
+
+def head_image(W, bvec, fp32_order: bool):
+    """head_weight_image of one model's W [S, nstate], bvec [nstate] or K
+    members' [K, S, nstate], [K, nstate], made once while W and bvec live
+    unchanged and cached (ops.derived): once per weight tensor, not per
+    call. Weights that are inference tensors keep no version to check, so
+    their image is made anew each call (the port's loaders place weights
+    as normal tensors, models/convert.params_from_numpy)."""
+    one = W.dim() == 2
+    return ops.derived(f"head image {fp32_order}", (W, bvec),
+                       lambda: head_weight_image(W[None] if one else W,
+                                                 bvec[None] if one else bvec,
+                                                 fp32_order))
+
+
+def head_launch(M: int, S: int, nstate: int, max_clusters: int,
+                streamed: bool = False) -> dict:
+    """The head kernel's launch for M rows of nstate states on a card that
+    holds max_clusters of its clusters at once (head_max_clusters): CTAs a
+    cluster, row tiles, clusters launched (persistent: at most one a tile),
+    CTAs, rows a tile, the most tiles a cluster takes in turn, the mode
+    and a CTA's dynamic shared memory."""
+    tiles = -(-M // HEAD_RT)
+    cluster = -(-nstate // HEAD_NC)
+    clusters = max(1, min(max_clusters, tiles))
+    return {"cluster": cluster, "tiles": tiles, "clusters": clusters,
+            "blocks": cluster * clusters, "rows_per_tile": HEAD_RT,
+            "tiles_per_cluster": -(-tiles // clusters), "streamed": streamed,
+            "smem_bytes": head_smem_bytes(S, streamed)}
+
+
+@functools.lru_cache(maxsize=None)
+def head_max_clusters(device: int, nstate: int, S: int, combine: bool,
+                      rounding: int, streamed: bool = False) -> int:
+    """cudaOccupancyMaxActiveClusters of the head kernel's instance on CUDA
+    device `device`: how many of its clusters the card holds at once."""
+    from scrappie_torch.ops import _build
+
+    with torch.cuda.device(device):
+        n = _build.library().scrappie_head_max_clusters(nstate, S, int(combine),
+                                                        rounding, int(streamed))
+    if n < 0:
+        _build.check(-n, "head max active clusters")
+    if n == 0:
+        raise RuntimeError(f"the head kernel's clusters of {-(-nstate // HEAD_NC)} "
+                           f"CTAs do not fit on device {device}")
+    return n
 
 
 def check_head_input(h_tm, W, bvec, weights=None) -> None:
     """Raise unless the head kernel takes these inputs: contiguous fp32 h
     [T, B, S], W [S, nstate], bvec [nstate] for one model, or h [K, T, B, S],
-    W [K, S, nstate], bvec [K, nstate] and weights [K] for K >= 1 members,
-    with an S whose block fits in shared memory."""
-    if weights is None:
+    W [K, S, nstate], bvec [K, nstate] and weights [K] for K >= 1 members;
+    at most HEAD_MAX_CLUSTER * HEAD_NC = 1088 states (a cluster's CTAs).
+    Any S >= 1 and any alignment of h: what the resident mode cannot take
+    runs streamed (head_streams)."""
+    combine = weights is not None
+    if not combine:
         h_tm, W, bvec = h_tm[None], W[None], bvec[None]
     K, T, B, S = h_tm.shape
     nstate = W.shape[-1]
@@ -217,12 +332,15 @@ def check_head_input(h_tm, W, bvec, weights=None) -> None:
     ops.check_kernel_input("h", h_tm, (K, T, B, S))
     ops.check_kernel_input("W", W, (K, S, nstate))
     ops.check_kernel_input("bvec", bvec, (K, nstate))
-    if weights is not None:
+    if combine:
         ops.check_kernel_input("weights", weights, (K,))
-    if head_smem_bytes(S) > ops.MAX_SMEM_BYTES:
-        raise ValueError(f"the head kernel needs {head_smem_bytes(S)} B of "
-                         f"shared memory for S={S}; a block may use "
-                         f"{ops.MAX_SMEM_BYTES}")
+    most = HEAD_MAX_CLUSTER * HEAD_NC
+    if not 1 <= nstate <= most:
+        raise ValueError(f"the head kernel takes 1 to {most} states (a cluster "
+                         f"of at most {HEAD_MAX_CLUSTER} CTAs of {HEAD_NC}); "
+                         f"got nstate={nstate}")
+    if S < 1:
+        raise ValueError(f"the head kernel needs S >= 1 (S={S})")
 
 
 def head_logpost_tm(h_tm, W, bvec, weights=None, min_prob=1e-5, tempW=1.0,
@@ -232,8 +350,9 @@ def head_logpost_tm(h_tm, W, bvec, weights=None, min_prob=1e-5, tempW=1.0,
     [T, B, nstate]; or, with weights [K] (normalised), h [K, T, B, S],
     W [K, S, nstate], bvec [K, nstate] -> the members' combined log
     posterior, ensemble_logpost_tm, for any K. The wrapper allocates the
-    posterior (525 MB at T = 2000, B = 64, 1025 states) and, for K
-    members, a scratch of the same size for each member's logits. The
+    posterior (525 MB at T = 2000, B = 64, 1025 states), which the kernel
+    writes once, and nothing else a call: the kernel reads W and bvec from
+    their slices' image (head_image, made once per weight tensor). The
     product's operands are rounded as the precision policy asks for the
     device (nn/config.kernel_rounding)."""
     on_card = (ops.on_cuda(h_tm, W, bvec) if weights is None
@@ -251,14 +370,22 @@ def head_logpost_tm(h_tm, W, bvec, weights=None, min_prob=1e-5, tempW=1.0,
     lp = torch.empty((T, B, nstate), dtype=torch.float32, device=h_tm.device)
     if T * B == 0:
         return lp
-    y = None if weights is None else torch.empty_like(lp)
+    code = config.rounding_code(rounding)
+    combine = weights is not None
+    device = h_tm.device.index if h_tm.device.index is not None \
+        else torch.cuda.current_device()
+    streamed = head_streams(S, h_tm.data_ptr() % 16 == 0)
+    plan = head_launch(T * B, S, nstate,
+                       head_max_clusters(device, nstate, S, combine, code, streamed),
+                       streamed)
+    image = head_image(W, bvec, fp32_order=rounding is None)
     with torch.cuda.device(h_tm.device):
         err = _build.library().scrappie_head(
-            h_tm.data_ptr(), W.data_ptr(), bvec.data_ptr(),
-            None if weights is None else weights.data_ptr(), lp.data_ptr(),
-            None if y is None else y.data_ptr(), K, T * B, S, nstate,
-            tempb / tempW, tempb, min_prob / nstate, 1.0 - min_prob,
-            config.rounding_code(rounding), ctypes.c_void_p(ops.stream_handle()))
+            h_tm.data_ptr(), image.data_ptr(),
+            None if weights is None else weights.data_ptr(), lp.data_ptr(), K,
+            T * B, S, nstate, tempb / tempW, tempb, min_prob / nstate,
+            1.0 - min_prob, plan["clusters"], code, int(streamed),
+            ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, "head")
     ops.LAUNCHES["head"] += 1
     return lp

@@ -138,12 +138,15 @@ def round_batch(batch_size: int, mesh: Mesh) -> int:
 
 
 def _place(v, device: torch.device) -> torch.Tensor:
-    """A float32 copy of an array or tensor on `device`, contiguous."""
-    if isinstance(v, torch.Tensor):
-        return v.detach().to(device=device, dtype=torch.float32, copy=True,
-                             memory_format=torch.contiguous_format)
-    return torch.tensor(np.ascontiguousarray(v, dtype=np.float32),
-                        device=device)
+    """A float32 copy of an array or tensor on `device`, contiguous; a
+    normal tensor also under torch.inference_mode (as
+    models/convert.params_from_numpy)."""
+    with torch.inference_mode(False):
+        if isinstance(v, torch.Tensor):
+            return v.detach().to(device=device, dtype=torch.float32, copy=True,
+                                 memory_format=torch.contiguous_format)
+        return torch.tensor(np.ascontiguousarray(v, dtype=np.float32),
+                            device=device)
 
 
 def state_split(v, mesh: Mesh) -> bool:

@@ -264,9 +264,23 @@ def test_head_input_check_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="weights"):
         tv.check_head_input(h[None].repeat(2, 1, 1, 1), W[None].repeat(2, 1, 1),
                             b[None].repeat(2, 1), torch.ones(3) / 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        S = 512
-        tv.check_head_input(torch.zeros((2, 2, S)), torch.zeros((S, 65)), b)
+    # the kernel's clusters hold at most 8 x 136 states; an S whose h
+    # stages and W slice do not fit in shared memory (above 208), or that
+    # is not a multiple of 4, is taken by its streamed mode
+    S = 512
+    tv.check_head_input(torch.zeros((2, 2, S)), torch.zeros((S, 65)), b)
+    assert tv.head_streams(S)
+    with pytest.raises(ValueError, match="states"):
+        tv.check_head_input(h, torch.zeros((16, 1089)), torch.zeros(1089))
+    tv.check_head_input(torch.zeros((2, 2, 208)), torch.zeros((208, 1088)),
+                        torch.zeros(1088))
+    assert not tv.head_streams(208)
+    tv.check_head_input(torch.zeros((2, 2, 212)), torch.zeros((212, 65)), b)
+    tv.check_head_input(torch.zeros((2, 2, 18)), torch.zeros((18, 65)), b)
+    assert tv.head_streams(212) and tv.head_streams(18)
+    S = 212
+    tv.check_head_input(torch.zeros((2, 2, 2, S)), torch.zeros((2, S, 65)),
+                        torch.zeros((2, 65)), torch.ones(2) / 2)
 
 
 def _hand_tracebacks(B, T, nhist, seed):
