@@ -157,7 +157,12 @@ if any phase fails:
      above the cluster's capacity (2 000 samples), the 6 000 x 15 000 case
      also on clusters of 4 and 8 CTAs; then times the DP at 6 000 x 60 000
      on clusters of 4, 8 and 16 CTAs, the global kernel and the forward
-     variant, the walk and the path's copy to the host;
+     variant, the walk and the path's copy to the host, each walk beside
+     its latency floor; then holds the walk against its twin on hand-made
+     move planes (6 000 x 60 000, one at 6 001 positions starting 3 bytes
+     past a 16-byte boundary, 40 x 3 000 and 3 x 2 000: far END jumps,
+     back-state excursions, runs of skips, stays longer than a window of
+     the walk, a leading START run) and times it there;
  18. holds the seqmap kernel (moves and finals, Viterbi and forward, the
      scores in registers and in global memory) and its walk kernel against
      their twins on the rgrgr_r94 posterior of a synthetic 60 000-sample
@@ -166,13 +171,15 @@ if any phase fails:
      edge cases (ties, -inf, walks through the states -1 and -2 and START,
      seqlen 1 to 3, T = 1), and times the DP, its forward variant and the
      walk (phase seqmap_kernel); holds the banded kernel against its twin
-     on the read's band of half-width 100, at widths 1, 2 and 3 (shifts of
-     the whole width, blocks at low == 0), above 1 024 and with its window
-     in global memory, and times it (phase seqmap_banded_kernel);
+     on the read's band of half-width 100, at widths 1, 2, 3, 32, 33, 256
+     and 257 (shifts of the whole width, blocks at low == 0; the warp
+     mode's boundaries), above 1 024 and with its window in global memory,
+     and times it beside its latency floor (phase seqmap_banded_kernel);
  19. runs the mapping path through the API on the card,
      map_signal_to_squiggle on a signal simulated from the squiggle of a
      6 000-base sequence and map_post_to_sequence (Viterbi with a path,
      forward, banded), checks that each kernel's launch counter rose,
+     splits each banded call into its kernels' device time and the rest,
      records what map_signal_to_squiggle and map_post_to_sequence (Viterbi
      with a path) copy to the host (profiler trace; the latter at most the
      path, two finals and one byte), and holds each result to the port's
@@ -401,6 +408,26 @@ MAP_SAMPLES = 60000      # the timed DTW's samples; the seqmap read's length
 # its samples; the kernels are timed at MAP_SAMPLES.
 DTW_CLUSTER_SAMPLES = MAP_SAMPLES // 4
 MAP_BAND = 100           # half-width of the banded mapping
+# The banded kernel's mode boundaries (ops/seqmap.banded_layout): the
+# widest bands a lane's run of 1, 2, 4 and 8 offsets covers in the warp
+# mode, each beside one offset wider (the block mode above 256); on
+# narrow_bands the shift reaches the width, so each of the warp mode's K
+# reads its window's far guard at both edges.
+BANDED_BOUNDARY_WIDTHS = (32, 33, 64, 65, 128, 129, 256, 257)
+# Latency floors of the redesigned walks, in cycles a block or a sample at
+# the card's top SM clock (nvidia-smi clocks.max.sm), from the chains of
+# their designs: the banded warp mode's a block (a shared-memory load of
+# the previous window, the candidate's subtraction and add, two maxima,
+# the mask's select and the store; the forward: two dependent logaddexps,
+# each an ex2 and a lg2, in place of the maxima) and the DTW walk's a
+# sample (a shared-memory load of the move byte and an add).
+BANDED_FLOOR_CYCLES = {"viterbi": 80, "forward": 250}
+WALK_FLOOR_CYCLES = 28
+# The DTW walk's hand-made move planes (phase dtw_kernel): (samples,
+# positions, the plane's offset in bytes from a 16-byte boundary). The
+# second's rows are 12 004 bytes apart and start 3 bytes past one.
+WALK_PLANES = ((MAP_SAMPLES, MAP_BASES, 0), (MAP_SAMPLES, MAP_BASES + 1, 3),
+               (3000, 40, 5), (2000, 3, 7))
 FORWARD_RTOL = 1e-5      # forward finals: expf/log1pf against the host's
 # map_signal_to_squiggle's defaults
 DTW_OPTIONS = dict(local_pen=2.0, skip_pen=5000.0, minscore=5.0)
@@ -707,6 +734,13 @@ def bound(nbytes: float, nops: float) -> dict:
     t_ops = nops / PEAK_FP32_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def floor_ms(steps: int, cycles: float) -> float:
+    """A latency floor: steps dependent steps of `cycles` each at the
+    card's top SM clock."""
+    mhz = float(smi("clocks.max.sm").split()[0])
+    return steps * cycles / (mhz * 1e3)
 
 
 def viterbi_ops(T: int, B: int, nhist: int, use_slip: bool = False) -> float:
@@ -3423,6 +3457,132 @@ def check_dtw(sig, params, what: str, jobs: dict, clusters=()) -> dict:
     return out
 
 
+def walk_plane(T: int, npos: int, rng, end_every: int = 300):
+    """A hand-made DTW traceback for the walk: a seeded random path built
+    backwards from the end state, each of its samples' move byte the move
+    that leads to its earlier state. The end state stays, then jumps; from
+    then on an END move at some forward state every end_every to 2
+    end_every samples jumps to a far state (end_src; the DP writes END only
+    at the end state, the walk reads it anywhere alike); among stays (90%)
+    and steps, runs of 20 to 120 skips, excursions into the back state for
+    0 to 400 samples, and stays of 300 to 700 samples, longer than a window
+    of the walk; the first T / 20 samples a run of START. Returns (final,
+    end_src, path) as numpy arrays and the path's (rows, states, moves):
+    the bytes to write into a plane of random moves (forward 0-5, back
+    0-1)."""
+    import numpy as np
+
+    nf = npos + 2
+    final = rng.standard_normal(2 * npos + 2).astype(np.float32)
+    final[nf - 1] = final[nf - 2] + 1.0
+    end_src = rng.integers(1, npos, T).astype(np.int32)
+    path = np.zeros(T, np.int32)
+    rows, states, codes = [], [], []
+    s, st = T - 1, nf - 1
+    path[s] = st
+    lead = T // 20
+    next_end = s - 2 * end_every
+
+    def put(code, prev):
+        nonlocal s, st
+        rows.append(s)
+        states.append(st)
+        codes.append(code)
+        s -= 1
+        st = prev
+        path[s] = st
+
+    while s > 0:
+        if s <= lead:
+            if st >= nf:
+                put(1, st - nf + 2)
+            else:
+                put(3 if st else 0, 0)
+        elif st == nf - 1:
+            if s > next_end + end_every:
+                put(0, st)
+            else:
+                end_src[s] = rng.integers(npos // 2, npos)
+                put(4, int(end_src[s]))
+        elif s <= next_end or st < 8:
+            end_src[s] = rng.integers(npos // 3, npos)
+            next_end = s - end_every - int(rng.integers(0, end_every))
+            put(4, int(end_src[s]))
+        else:
+            u = rng.random()
+            if u < 0.002:
+                for _ in range(int(rng.integers(20, 120))):
+                    if s <= lead or st < 4:
+                        break
+                    put(2, st - 2)
+            elif u < 0.004 and 2 <= st <= npos:
+                c = st
+                put(5, nf + c - 2)
+                for _ in range(int(rng.integers(0, 400))):
+                    if s <= lead:
+                        break
+                    put(0, st)
+                if s > lead:
+                    put(1, c)
+            elif u < 0.005:
+                for _ in range(int(rng.integers(300, 700))):
+                    if s <= lead:
+                        break
+                    put(0, st)
+            elif u < 0.1:
+                put(1, st - 1)
+            else:
+                put(0, st)
+    return final, end_src, path, (np.array(rows), np.array(states), np.array(codes))
+
+
+def check_walk_planes() -> dict:
+    """The DTW walk kernel on WALK_PLANES' hand-made planes (walk_plane's
+    paths in planes of seeded random moves, made on the card, each at its
+    offset from a 16-byte boundary): its path identical to dtw_walk_plain's
+    and to the path the plane was made from; with each plane's END jumps,
+    back-state samples, skips and START run, and the walk's time (median
+    of 5)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.ops import dtw as d
+
+    rng = np.random.default_rng(SEED + 45)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 46)
+    out = {}
+    for T, npos, offset in WALK_PLANES:
+        final, end_src, path, (rows, states, codes) = walk_plane(T, npos, rng)
+        nf, nstate = npos + 2, 2 * npos + 2
+        buf = torch.empty(T * nstate + offset + 16, dtype=torch.uint8, device="cuda")
+        start = offset + (-buf.data_ptr()) % 16
+        moves = buf[start:start + T * nstate].view(T, nstate)
+        moves[:, :nf] = torch.randint(0, 6, (T, nf), dtype=torch.uint8,
+                                      device="cuda", generator=gen)
+        moves[:, nf:] = torch.randint(0, 2, (T, npos), dtype=torch.uint8,
+                                      device="cuda", generator=gen)
+        moves[torch.as_tensor(rows, device="cuda"),
+              torch.as_tensor(states, device="cuda")] = torch.as_tensor(
+                  codes.astype(np.uint8), device="cuda")
+        fk = torch.as_tensor(final, device="cuda")
+        ek = torch.as_tensor(end_src, device="cuda")
+        label = f"{T} x {npos}, offset {offset}"
+        require(moves.data_ptr() % 16 == offset, f"the plane's offset ({label})")
+        pk = d.dtw_walk(fk, moves, ek)
+        pp = d.dtw_walk_plain(fk, moves, ek)
+        sync()
+        require(np.array_equal(pp.cpu().numpy(), path),
+                f"the hand-made plane's walk takes its path ({label})")
+        require(torch.equal(pk, pp), f"dtw_walk path identical on a hand-made plane ({label})")
+        out[label] = {
+            "ms": cuda_ms(lambda: d.dtw_walk(fk, moves, ek), reps=5),
+            "end_jumps": int((codes == 4).sum()), "skips": int((codes == 2).sum()),
+            "back_samples": int((path >= nf).sum()),
+            "start_run": int((path == 0).sum()), "row_bytes": nstate}
+        del buf, moves
+    return out
+
+
 def check_dtw_kernel(card: str) -> tuple[dict, dict]:
     """The DTW kernels against their twins: the cluster kernel at a small
     size, on tied inputs and at the main path's positions (MAP_BASES,
@@ -3432,11 +3592,13 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
     processes while the card times the DP at the main path's size at each
     cluster size (with the card's cudaOccupancyMaxActiveClusters), the
     other cases, the global kernel and the forward variant, and the walk
-    (at the small size too) and the path's copy to the host; then, the
+    (at the small size too, alone and in bursts of 10, beside its latency
+    floor, WALK_FLOOR_CYCLES) and the path's copy to the host; then, the
     card's times taken, the forward twins run on the card in
     DTW_CARD_TWIN_WORKERS processes while the kernels run (at the main
     path's size on each cluster size the card places) and are held to the
-    twins. Returns the DP's and the walk's table rows."""
+    twins; last, the walk on hand-made planes (check_walk_planes). Returns
+    the DP's and the walk's table rows."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -3481,6 +3643,8 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
         # the walk at the first shape too
         sfinal, smoves, send = d.squiggle_match_tm(*card_args("shared"))
         times["shared"]["walk_ms"] = cuda_ms(lambda: d.dtw_walk(sfinal, smoves, send), reps=5)
+        times["shared"]["walk_burst_ms"] = cuda_ms(
+            lambda: d.dtw_walk(sfinal, smoves, send), reps=5, burst=10)
         t0 = time.perf_counter()
         d.dtw_walk_plain(sfinal, smoves, send)
         times["shared"]["walk_plain_ms"] = (time.perf_counter() - t0) * 1e3
@@ -3502,7 +3666,13 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
                 "ms": cuda_ms(lambda: d.dtw_walk(final, moves, end_src), reps=5),
                 "plain_ms": walk_plain_ms, "path_bytes": path.numel() * 4,
                 "path_copy_ms": cuda_ms(lambda: path.cpu(), reps=5),
+                "burst_ms": cuda_ms(lambda: d.dtw_walk(final, moves, end_src), reps=5,
+                                    burst=10),
+                "latency_floor_ms": floor_ms(T - 1, WALK_FLOOR_CYCLES),
                 **kernel_work("dtw_walk", T=T)}
+        walk["us_per_sample"] = walk["ms"] * 1e3 / T
+        times["shared"]["walk_latency_floor_ms"] = floor_ms(DTW_SHARED[1] - 1,
+                                                            WALK_FLOOR_CYCLES)
         del final, moves, end_src, path
         with ProcessPoolExecutor(DTW_CARD_TWIN_WORKERS, mp_context=spawn) as card_pool:
             for name in ("clusters", "ties", "global", "shared"):
@@ -3531,6 +3701,7 @@ def check_dtw_kernel(card: str) -> tuple[dict, dict]:
     timed["us_per_sample"] = timed["ms"] * 1e3 / T
     # the table's error: the largest difference of any check
     timed["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    walk["planes"] = check_walk_planes()
     emit({"phase": "dtw_kernel", "checked": rows, "timed": timed, "walk": walk,
           "card": card})
     return timed, walk
@@ -3721,11 +3892,14 @@ def narrow_bands(T: int, width: int, rng):
 
 def check_banded_kernel(card: str) -> dict:
     """The banded kernel against its twin: on the seqmap read with the
-    bands of MAP_BAND (twins on the card, timed), at widths 1, 2 and 3 on
-    bands whose shift reaches the width and at a width above 1024 (T =
-    2000 blocks of the read; twins on the host), and with the window in
-    global memory; Viterbi identical, forward within FORWARD_RTOL; then
-    the kernel's times at the read's size. Returns its table row."""
+    bands of MAP_BAND (twins on the card, timed), at widths 1, 2 and 3 and
+    at the warp mode's boundaries (BANDED_BOUNDARY_WIDTHS) on bands whose
+    shift reaches the width, and at a width above 1024 (T = 2000 blocks of
+    the read; twins on the host), and with the window in global memory;
+    Viterbi identical, forward within FORWARD_RTOL; each case's launch plan;
+    then the kernel's times at the read's size (the warp mode's two
+    launches, gather and DP, in each interval) beside its latency floor
+    (BANDED_FLOOR_CYCLES). Returns its table row."""
     import numpy as np
     import torch
 
@@ -3740,7 +3914,7 @@ def check_banded_kernel(card: str) -> dict:
     pens = (0.0, 0.3, 4.0)
     short = lp[:T_BLOCKS].contiguous()
     cases = [("read", lp, seq, *banded_case(lp, len(seq), MAP_BAND), False, None)]
-    for width in (1, 2, 3):
+    for width in (1, 2, 3, *BANDED_BOUNDARY_WIDTHS):
         low, high, seqlen = narrow_bands(T_BLOCKS, width, rng)
         cases.append((f"width {width}", short, rng.integers(0, 1024, seqlen),
                       low, high, True, None))
@@ -3748,11 +3922,12 @@ def check_banded_kernel(card: str) -> dict:
     low, high = banded_case(short, 3000, 700)
     cases.append(("wide", short, wide_seq, low, high, True, None))
     cases.append(("wide, global", short, wide_seq, low, high, True, True))
-    out = {"max_abs_err": 0.0, "forward_rel_err": 0.0, "widths": {}}
+    out = {"max_abs_err": 0.0, "forward_rel_err": 0.0, "widths": {}, "layouts": {}}
     for name, clp, cseq, low, high, host, global_state in cases:
         states, bands, init = banded_inputs(clp, cseq, low, high, pens[1])
         width = init.shape[0]
         out["widths"][name] = width
+        out["layouts"][name] = m.banded_layout(clp.shape[1], width, global_state)._asdict()
         for viterbi in (True, False):
             targs = ((clp.cpu(), states.cpu(), bands.cpu(), init.cpu()) if host
                      else (clp, states, bands, init))
@@ -3788,6 +3963,9 @@ def check_banded_kernel(card: str) -> dict:
                                                    viterbi=False), reps=10),
         **kernel_work("seqmap_banded", T=T, width=width))
     out["us_per_block"] = out["ms"] * 1e3 / T
+    out["forward_us_per_block"] = out["forward_ms"] * 1e3 / T
+    out["latency_floor_ms"] = floor_ms(T - 1, BANDED_FLOOR_CYCLES["viterbi"])
+    out["forward_latency_floor_ms"] = floor_ms(T - 1, BANDED_FLOOR_CYCLES["forward"])
     emit({"phase": "seqmap_banded_kernel", **out, "card": card})
     return out
 
@@ -3816,6 +3994,47 @@ def host_copies(fn) -> dict:
             "device_ms": sum(e.get("dur", 0.0) for e in copies) / 1e3}
 
 
+def banded_split(post, ref, kw) -> dict:
+    """One banded map_post_to_sequence call on the card, after a warm-up
+    call: its wall milliseconds, the banded kernels' device milliseconds
+    (CUDA events recorded on the stream around the library's entry point,
+    which launches the warp mode's gather and DP, or the block mode's
+    kernel, and nothing else; torch.profiler's trace at times lost every
+    device event here) and the rest of the call (the posterior's copy,
+    banded_inputs, the wrapper's checks, the result's copy and the host's
+    work)."""
+    import torch
+
+    from scrappie_torch import api
+    from scrappie_torch.ops import _build
+
+    lib = _build.library()
+    inner = lib.scrappie_seqmap_banded
+    marks = []
+
+    def timed(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        err = inner(*args)
+        end.record()
+        marks.append((start, end))
+        return err
+
+    api.map_post_to_sequence(post, ref, device="cuda", **kw)
+    torch.cuda.synchronize()
+    lib.scrappie_seqmap_banded = timed
+    try:
+        t0 = time.perf_counter()
+        api.map_post_to_sequence(post, ref, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        lib.scrappie_seqmap_banded = inner
+    device_ms = sum(start.elapsed_time(end) for start, end in marks)
+    return {"wall_ms": wall_ms, "kernel_device_ms": device_ms,
+            "rest_ms": wall_ms - device_ms, "kernel_calls": len(marks)}
+
+
 def mapping_signal(squiggle, rng) -> "np.ndarray":
     """A raw read for map_signal_to_squiggle: MAP_SAMPLES samples simulated
     from the squiggle, scaled to pA, between two flat 300-sample pads."""
@@ -3829,7 +4048,8 @@ def mapping_signal(squiggle, rng) -> "np.ndarray":
 def main_path_mapping(card: str) -> dict:
     """The mapping path through the API on the card: the launches of its
     kernels (MAPPING_KERNELS) in this run, what map_post_to_sequence copies
-    to the host, each call's seconds, and each result held to
+    to the host, each call's seconds, each banded call split into its
+    kernels' device time and the rest (banded_split), and each result held to
     the port's CPU run on the same inputs. map_signal_to_squiggle's CPU
     reference aligns the same normalised signal to the card's squiggle (the
     squiggle phase holds the two squiggles to SQUIGGLE_RTOL; a DP path over
@@ -3863,6 +4083,11 @@ def main_path_mapping(card: str) -> dict:
     for name in MAPPING_KERNELS:
         require(launches[name] > 0,
                 f"kernel {name} launched on the mapping path ({launches[name]})")
+    banded = {what: banded_split(post, ref, kw) for what, kw in MAP_CALLS
+              if "bands" in kw}
+    for what, split in banded.items():
+        require(split["kernel_calls"] == 1 and split["kernel_device_ms"] > 0,
+                f"{what}: the banded kernels timed in the call ({split})")
     copied = host_copies(lambda: api.map_signal_to_squiggle(data, seq, device="cuda"))
     # Viterbi with a path copies the path, the two finals and the one byte
     # of the seqmap wrapper's check of the kmer states, and no traceback.
@@ -3911,7 +4136,8 @@ def main_path_mapping(card: str) -> dict:
           "mapped_samples": int(len(mapped)),
           "positions_reached": int(mapped.max()) + 1 if len(mapped) else 0,
           "scores": {k: v[0] for k, v in results.items()},
-          "seconds": seconds, "cpu_seconds": cpu_seconds, "launches": launches,
+          "seconds": seconds, "cpu_seconds": cpu_seconds,
+          "banded_split": banded, "launches": launches,
           "map_signal_to_squiggle_host_copies": copied,
           "map_post_to_sequence_host_copies": mapped_copies, "card": card})
     return launches
@@ -4704,7 +4930,9 @@ def time_checkout(checkout: pathlib.Path) -> None:
     the Viterbi backtrace at BT_AB on the traceback the checkout's own
     forward wrote from those log posteriors (median of 10),
     the DTW's Viterbi DP and forward variant at MAP_BASES positions x
-    MAP_SAMPLES samples (dtw_case; median of 3), and map_signal_to_squiggle
+    MAP_SAMPLES samples (dtw_case; median of 3), the DTW walk on that DP's
+    moves and on those of a DTW_SHARED case (median of 10), and
+    map_signal_to_squiggle
     on a read made as main_path_mapping makes it (host clock, median of 3
     after one call), the CRF forward, partition function, backtrace (on
     the checkout's own forward's traceback), posterior and partition
@@ -4718,7 +4946,9 @@ def time_checkout(checkout: pathlib.Path) -> None:
     the rnnrf fused path, RnnrfModel.basecall_fused, at
     B = 64 chunks of CHUNK samples (median of 5), the seqmap DP, Viterbi
     with its traceback (median of 10) and forward (median of 5), on the
-    posterior and reference of seqmap_case, and the four MAP_CALLS of
+    posterior and reference of seqmap_case, the banded DP (map_banded_tm,
+    Viterbi and forward, median of 10) on them with the bands of MAP_BAND,
+    and the four MAP_CALLS of
     map_post_to_sequence on them (host clock, median of 3 after one call),
     the head (time_head), the lattice losses (time_lattices) and the fast
     engine (time_engines). Prints one JSON line."""
@@ -4729,6 +4959,7 @@ def time_checkout(checkout: pathlib.Path) -> None:
     import scrappie_torch
     from scrappie_torch import api
     from scrappie_torch.decode.dtw import match_inputs
+    from scrappie_torch.decode.mapping import banded_inputs
     from scrappie_torch.models.forward import RnnrfModel
     from scrappie_torch.ops import _build, crf as c, dtw as d, gru as g
     from scrappie_torch.ops import seqmap as m, viterbi as v
@@ -4757,6 +4988,17 @@ def time_checkout(checkout: pathlib.Path) -> None:
                                         **TWIN_REPS)
         out["dtw_forward_ms"] = cuda_ms(
             lambda: d.squiggle_match_tm(*args, viterbi=False), **TWIN_REPS)
+        final, moves, end_src = d.squiggle_match_tm(*args)
+        out[f"dtw_walk_ms T = {MAP_SAMPLES}"] = cuda_ms(
+            lambda: d.dtw_walk(final, moves, end_src), reps=10)
+        del final, moves, end_src
+        sig, params = dtw_case(*DTW_SHARED, rng)
+        sargs = (sig, *match_inputs(params, 1.0, 0.0, "cuda"), 0.0,
+                 *DTW_OPTIONS.values())
+        final, moves, end_src = d.squiggle_match_tm(*sargs)
+        out[f"dtw_walk_ms T = {DTW_SHARED[1]}"] = cuda_ms(
+            lambda: d.dtw_walk(final, moves, end_src), reps=10)
+        del final, moves, end_src
     seq = random_bases(MAP_BASES, rng)
     data = mapping_signal(api.sequence_to_squiggle(seq, device="cuda"), rng)
     api.map_signal_to_squiggle(data, seq, device="cuda")
@@ -4809,7 +5051,14 @@ def time_checkout(checkout: pathlib.Path) -> None:
         out["seqmap_forward_ms"] = cuda_ms(
             lambda: m.map_to_sequence_tm(lp, states, 0.0, 0.0, 4.0, viterbi=False),
             reps=5)
-    del lp, states
+        bargs = banded_inputs(lp, api.encode_bases(ref, 5).astype(np.int64),
+                              *banded_case(lp, MAP_BASES, MAP_BAND), 0.3)
+        out["banded_viterbi_ms"] = cuda_ms(
+            lambda: m.map_banded_tm(lp, *bargs, 0.0, 0.3, 4.0), reps=10)
+        out["banded_forward_ms"] = cuda_ms(
+            lambda: m.map_banded_tm(lp, *bargs, 0.0, 0.3, 4.0, viterbi=False),
+            reps=10)
+    del lp, states, bargs
     for what, kw in MAP_CALLS:
         api.map_post_to_sequence(post, ref, device="cuda", **kw)
         seconds = []
@@ -6075,7 +6324,8 @@ def main() -> int:
                          "recurrence, its "
                          "backward walk and whole backward, the rnnrf fused "
                          "path, the seqmap "
-                         "DP, map_post_to_sequence, the head at K = 1 "
+                         "DP, the banded DP, the DTW walk at 60 000 and "
+                         "3 000 samples, map_post_to_sequence, the head at K = 1 "
                          "and 3, B = 8 and 64 and the fast engine "
                          "(rgrgr_r94, 3:1:1) of OTHER_CHECKOUT and "
                          "of this checkout, in turns")

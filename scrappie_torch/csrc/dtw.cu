@@ -61,10 +61,53 @@
 // dtw_global_kernel, for squiggles beyond the cluster's capacity, keeps
 // the single-block design: 1024 threads, the scores in a global scratch
 // [2, nstate], thread i owning the forward states i, i + 1024, ... with
-// their back states. dtw_walk_kernel follows the moves back from the final
-// state on one thread: T dependent one-byte loads, latency-bound, and only
-// the path [T] int32 leaves the card.
+// their back states.
+//
+// dtw_walk_kernel follows the moves back from the final state (no TPU
+// kernel: the host walk of scrappie_tpu/decode/dtw.py:squiggle_match_viterbi;
+// wrapper dtw_walk, twin dtw_walk_plain in scrappie_torch/ops/dtw.py), and
+// only the path [T] int32 leaves the card. What bounds it: latency. A
+// sample's move decides which byte of the next (earlier) row to read, and
+// the rows are 2 npos + 2 bytes apart (12 002 at 6 000 positions), so a
+// walk that reads the plane itself waits a device-memory round trip a
+// sample (about 180 ns, with one thread walking); the bound, a byte a
+// sample and the path, is 0.0001 ms. The floor of this design is a
+// sample's chain: a shared-memory load of its byte and one add.
+//
+// Design: two warps, one walking, one copying. The walk's forward state
+// moves down by 0 to 2 columns a sample (about 0.1 on a read), except
+// START (to 0) and END (to end_src[s]); a back state sits at nf + c - 2
+// beside its forward column c. So a window of WALK_ROWS rows keeps, a row,
+// the WALK_SPAN forward states up to the walk's column and the WALK_SPAN
+// back states beside them, in shared memory, each piece as the 7 16-byte
+// pieces that enclose it at the row's alignment (rows are not 16-byte
+// aligned: the back piece's copy lands at 112 or 128 bytes into the row so
+// that both pieces share one index, the walk's `L`: forward state ff + L
+// for L < WALK_SPAN, back state ff + nf - 2 + L - gap from gap = 112 +
+// npos % 16 on). The walker warp walks with every lane (the same values;
+// lane 0 writes the path). A forward state's stays and steps go WALK_BATCH
+// rows a check: each row's byte is loaded at the L the byte before leads
+// to, so the chain is the load and an add, and one test of the batch's
+// bytes follows (a batch with another byte is walked a row at a time); a
+// back state's stays take a loop of their own. Any other move takes a
+// general step by a __byte_perm table of the moves' index changes (to the
+// back state +gap, back to the forward state -gap, skip -2); START, END, a
+// move that leaves the window and any byte no DP writes take an exact step
+// as the one-thread walk took it (the row's byte read as the flat address
+// s (2 npos + 2) + state, END reading end_src[s]). At row WALK_AHEAD of a
+// window the walker asks the copier warp, through a named barrier, for the
+// next window anchored at the walk's column then; the copier fills the
+// other buffer (cp.async, a row a lane at a time) while the walk goes on,
+// and signals through a second barrier, which the walker waits for at the
+// window's end. A window whose anchor misses the walk, and any jump out of
+// the window, loads a window anchored at the walk's state on the walker
+// and waits for it. Pieces that leave the plane are copied a byte at a
+// time, within it. (Splitting the walk in time, as the transducer's
+// backtrace does, would need each segment's map over all 12 002 states: a
+// read of the whole 0.72 GB plane at the least, 0.215 ms, and 7.2e8
+// dependent byte loads spread over the card.)
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -579,31 +622,321 @@ dtw_global_kernel(const float* __restrict__ sig, const float* __restrict__ locs,
   for (int s = tid; s < nstate; s += GLOBAL_THREADS) final_[s] = last[s];
 }
 
+constexpr int WALK_ROWS = 256;   // rows (samples) a window holds
+constexpr int WALK_SPAN = 96;    // forward states, and back states, a row
+constexpr int WALK_PIECES = 7;   // 16-byte pieces that enclose a span
+constexpr int WALK_PITCH = 256;  // a row: forward pieces, back ones at 112|128
+constexpr int WALK_AHEAD = 160;  // the window's row that starts the next copy
+constexpr uint32_t WALK_BIAS = 0x80808080u;
+constexpr int WALK_BATCH = 8;    // forward stays and steps a check
+constexpr int WALK_PAD = 2304;   // bytes around the windows, for look-aheads
+
+// The named barriers between the walking warp and the copying warp: a
+// request (the walker arrives, the copier waits) and its copy done (the
+// copier arrives, the walker waits).
+constexpr int BAR_REQUEST = 1;
+constexpr int BAR_DONE = 2;
+
+__device__ __forceinline__ void bar_wait(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void bar_signal(int id) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared_u8(unsigned addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u8 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// byte b of the 8 bytes {y, x} (bytes 0-3 of x first), for b < 8
+__device__ __forceinline__ uint32_t prmt(uint32_t x, uint32_t y, uint32_t b) {
+  uint32_t v;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(v) : "r"(x), "r"(y), "r"(b));
+  return v;
+}
+
+// Copy the WALK_PIECES 16-byte pieces that enclose [a, a + WALK_SPAN) of
+// the plane [first, last) to dst: by cp.async where they lie inside the
+// plane (one branch for the seven), else the bytes inside it one at a
+// time.
+__device__ __forceinline__ void walk_pieces(uint8_t* dst, long long a,
+                                           long long first, long long last) {
+  const long long a0 = a & ~15LL;
+  if (a0 >= first && a0 + 16 * WALK_PIECES <= last) {
+#pragma unroll
+    for (int c = 0; c < WALK_PIECES; ++c)
+      __pipeline_memcpy_async(dst + 16 * c,
+                              reinterpret_cast<const void*>(a0 + 16 * c), 16);
+    return;
+  }
+  for (int k = 0; k < 16 * WALK_PIECES; ++k)
+    if (a0 + k >= first && a0 + k < last)
+      dst[k] = *reinterpret_cast<const uint8_t*>(a0 + k);
+}
+
 // The Viterbi path from the final scores: the last position's state if it
 // beats the end state, else the end state; then each earlier sample's
-// state from the move that entered the later one. path [T] int32.
-__global__ void dtw_walk_kernel(const float* __restrict__ final_,
-                                const uint8_t* __restrict__ moves,
-                                const int* __restrict__ end_src,
-                                int* __restrict__ path, int T, int npos) {
+// state from the move that entered the later one. path [T] int32. Two
+// warps, the walker and the copier of the next window; dynamic shared
+// memory: two windows [WALK_ROWS][WALK_PITCH] between pads of WALK_PAD
+// bytes.
+__global__ void __launch_bounds__(64)
+dtw_walk_kernel(const float* __restrict__ final_,
+                const uint8_t* __restrict__ moves,
+                const int* __restrict__ end_src, int* __restrict__ path,
+                int T, int npos) {
+  extern __shared__ __align__(16) uint8_t wsm[];
+  __shared__ long long req_ff;  // the copier's request: window, buffer
+  __shared__ int req_top, req_buf;
+  const int lane = threadIdx.x & 31;
+  const bool copier = threadIdx.x >= 32;
   const int nf = npos + 2;
-  const size_t nstate = (size_t)nf + npos;
-  int cur = final_[nf - 2] > final_[nf - 1] ? nf - 2 : nf - 1;
-  path[T - 1] = cur;
-  for (int s = T - 1; s > 0; --s) {
-    const int mv = moves[(size_t)s * nstate + cur];
-    if (cur < nf) {
-      cur = mv == STAY    ? cur
-            : mv == STEP  ? cur - 1
-            : mv == SKIP  ? cur - 2
-            : mv == START ? 0
-            : mv == END   ? end_src[s]
-                          : nf + cur - 2;
-    } else if (mv != STAY) {
-      cur = cur - nf + 2;
+  const long long nstate = (long long)nf + npos;
+  const int nmod = (int)(nstate & 15);
+  const int r = npos & 15;        // (nf - 2) % 16
+  const int gap = 112 + r;        // L of the first back state
+  const int limit = gap + WALK_SPAN;
+  const long long first = (long long)reinterpret_cast<uintptr_t>(moves);
+  const long long last = first + (long long)T * nstate;
+  // __byte_perm tables, byte b = the move: 0x80 + the change of L (0x80
+  // where the move takes the exact step); bytes 1-3 of the result are
+  // byte 0, stay's 0x80, so perm - WALK_BIAS is the signed change.
+  const uint32_t fx = 0x80u | 0x7Fu << 8 | 0x7Eu << 16 | 0x80u << 24;
+  const uint32_t fy = 0x80u | (0x80u + gap) << 8 | 0x80u << 16 | 0x80u << 24;
+  const uint32_t bk = 0x80u - gap;
+  const uint32_t bx = 0x80u | bk << 8 | bk << 16 | bk << 24;
+  const uint32_t by = bk * 0x01010101u;
+
+  // the forward span's first state of a window anchored at a state
+  auto anchor = [&](int st) -> long long {
+    return (long long)(st < nf ? st : st - nf + 2) - (WALK_SPAN - 1);
+  };
+  // L of a state in a window anchored at ff, or -1
+  auto locate = [&](int st, long long ff) -> int {
+    const long long kf = (long long)st - ff;
+    if (st < nf) return kf >= 0 && kf < WALK_SPAN ? (int)kf : -1;
+    const long long kb = kf - (nf - 2);
+    return kb >= 0 && kb < WALK_SPAN ? gap + (int)kb : -1;
+  };
+  // row i (sample wtop - i) of the window (b, wtop, ff), if it is read
+  auto copy_row = [&](int b, int wtop, long long ff, int i) {
+    const int row = wtop - i;
+    if (i >= WALK_ROWS || row < 1) return;
+    const long long af = first + (long long)row * nstate + ff;
+    uint8_t* dst = wsm + WALK_PAD + ((size_t)b * WALK_ROWS + i) * WALK_PITCH;
+    walk_pieces(dst, af, first, last);
+    walk_pieces(dst + ((int)(af & 15) + r >= 16 ? 128 : 112), af + nf - 2,
+                first, last);
+  };
+  auto load = [&](int b, int wtop, long long ff) {
+    __syncwarp();
+    for (int j = 0; j < WALK_ROWS / 32; ++j) copy_row(b, wtop, ff, 32 * j + lane);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
+  };
+
+  if (copier) {  // warp 1: each request's window, then done
+    for (;;) {
+      bar_wait(BAR_REQUEST);
+      const int wtop = req_top;
+      if (wtop < 0) return;
+      for (int q = 0; q < WALK_ROWS / 32; ++q)
+        copy_row(req_buf, wtop, req_ff, 32 * q + lane);
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      bar_signal(BAR_DONE);
     }
-    path[s - 1] = cur;
   }
+  // warp 0, the walker
+  bool pending = false;  // a request whose done is not yet waited for
+  auto finish = [&] {
+    if (pending) bar_wait(BAR_DONE);
+    if (lane == 0) req_top = -1;
+    __syncwarp();
+    bar_signal(BAR_REQUEST);
+  };
+  int cur = final_[nf - 2] > final_[nf - 1] ? nf - 2 : nf - 1;
+  if (lane == 0) path[T - 1] = cur;
+  int s = T - 1;  // path[s] = cur is written; row s gives path[s-1]
+  if (s == 0) {
+    finish();
+    return;
+  }
+  const unsigned smem_base =
+      (unsigned)__cvta_generic_to_shared(wsm) + WALK_PAD;
+  int buf = 0;
+  int top = s;
+  long long ff = anchor(cur);
+  load(buf, top, ff);
+  int L = locate(cur, ff);
+  int i = 0;           // s = top - i
+  int next_top = -1;   // the other buffer holds (next_top, next_ff)
+  long long next_ff = 0;
+  for (;;) {
+    const int rows = top - max(top - WALK_ROWS + 1, 1) + 1;  // rows to walk
+    // the next window, not yet asked for
+    const bool ahead = top - WALK_ROWS >= 1 && next_top != top - WALK_ROWS;
+    // The walk runs up to the row where the next window's copy starts (an
+    // exact step may have passed it), or the window's last row; a byte it
+    // cannot take ends it early.
+    const int stop = ahead ? max(WALK_AHEAD, i) : rows;
+    // the shared address of the walk's j-th row from here, at its L = 0
+    const unsigned rows0 = smem_base + (unsigned)((buf * WALK_ROWS + i) * WALK_PITCH);
+    const int off0 = (int)((first + (long long)s * nstate + ff) & 15);
+    auto row = [&](int j) {
+      return rows0 + (unsigned)(j * WALK_PITCH + ((off0 - j * nmod) & 15));
+    };
+    const int fwd_base = (int)ff;
+    const int back_base = (int)(ff + (nf - 2) - gap);
+    // Stays and steps of a forward state and stays of a back state take
+    // loops whose chain is the byte's load and one add: each step loads
+    // the next row's byte at the L it leads to before it checks its own
+    // move (a rejected L, down to WALK_BATCH x 255 below a row, reads a
+    // byte within the pads around the windows, never used). Any other
+    // byte takes one general step, by the table, then the loops again;
+    // START, END, bytes no DP writes (forward 3, 4, 6, 7, any 8 and up), a
+    // move to the back state of forward state 0 or 1, which the one-thread
+    // walk read as a forward state, and a move out of the window end the
+    // walk in this window at that byte.
+    int* out = path + s - 1;  // where the next state goes
+    int j = 0;                // rows walked since rows0
+    uint32_t b = ld_shared_u8(row(0) + L);
+    bool exact = false;
+    auto take = [&](int st) {
+      if (lane == 0) *out = st;
+      --out;
+      cur = st;
+      --s;
+      ++i;
+      ++j;
+    };
+    while (i < stop) {
+      // a forward state's stays and steps, WALK_BATCH rows a check: the
+      // bytes' loads chain with an add each, and the batch's check waits
+      // for the last (a batch with any other byte is walked a row at a
+      // time)
+      while (L < gap && i + WALK_BATCH <= stop) {
+        int Lk[WALK_BATCH + 1];
+        uint32_t bb[WALK_BATCH + 1];
+        Lk[0] = L;
+        bb[0] = b;
+#pragma unroll
+        for (int k = 1; k <= WALK_BATCH; ++k) {
+          Lk[k] = Lk[k - 1] - (int)bb[k - 1];
+          bb[k] = ld_shared_u8(row(j + k) + Lk[k]);
+        }
+        uint32_t any = 0;
+#pragma unroll
+        for (int k = 0; k < WALK_BATCH; ++k) any |= bb[k];
+        if (!((any <= 1) & (Lk[WALK_BATCH] >= 0))) break;
+        if (lane == 0) {
+#pragma unroll
+          for (int k = 1; k <= WALK_BATCH; ++k) out[1 - k] = fwd_base + Lk[k];
+        }
+        out -= WALK_BATCH;
+        s -= WALK_BATCH;
+        i += WALK_BATCH;
+        j += WALK_BATCH;
+        L = Lk[WALK_BATCH];
+        b = bb[WALK_BATCH];
+        cur = fwd_base + L;
+      }
+      if (i == stop) break;
+      if (L < gap) {
+        for (;;) {  // a forward state: stay or step
+          const int Ln = L - (int)b;
+          const uint32_t bn = ld_shared_u8(row(j + 1) + Ln);
+          if (!((b <= 1) & (Ln >= 0))) break;
+          take(fwd_base + Ln);
+          L = Ln;
+          b = bn;
+          if (i == stop) break;
+        }
+      } else {
+        for (;;) {  // a back state: stay
+          const uint32_t bn = ld_shared_u8(row(j + 1) + L);
+          if (b != 0) break;
+          take(back_base + L);
+          b = bn;
+          if (i == stop) break;
+        }
+      }
+      if (i == stop) break;
+      // the general step, by the table
+      const bool fwd = L < gap;
+      const int Ln = L + (int)(prmt(fwd ? fx : bx, fwd ? fy : by, b) - WALK_BIAS);
+      const bool special =
+          (b >= 8) | (fwd & ((((0xD8u >> (b & 7)) & 1) != 0) |
+                             ((b == 5) & (fwd_base + L < 2))));
+      if (special | ((unsigned)Ln >= (unsigned)limit)) {
+        exact = true;
+        break;
+      }
+      take(Ln < gap ? fwd_base + Ln : back_base + Ln);
+      L = Ln;
+      if (i < stop) b = ld_shared_u8(row(j) + L);
+    }
+    if (exact) {
+      // the step as the one-thread walk takes it from the byte at row s
+      if (cur < nf) {
+        cur = b == STAY    ? cur
+              : b == STEP  ? cur - 1
+              : b == SKIP  ? cur - 2
+              : b == START ? 0
+              : b == END   ? end_src[s]
+                           : nf + cur - 2;
+      } else if (b != STAY) {
+        cur = cur - nf + 2;
+      }
+      --s;
+      ++i;
+      if (lane == 0) path[s] = cur;
+    } else if (ahead) {
+      // the next window, anchored at the walk's column now, into the
+      // other buffer by the copier while this one is walked (a dropped
+      // request's done is waited for first)
+      next_top = top - WALK_ROWS;
+      next_ff = anchor(cur);
+      if (pending) bar_wait(BAR_DONE);
+      if (lane == 0) {
+        req_top = next_top;
+        req_ff = next_ff;
+        req_buf = buf ^ 1;
+      }
+      __syncwarp();
+      bar_signal(BAR_REQUEST);
+      pending = true;
+      continue;
+    }
+    if (s == 0) break;
+    if (i < rows) {
+      L = locate(cur, ff);
+      if (L >= 0) continue;  // the exact step stayed in the window
+    } else if (next_top == s) {
+      // the walk reached the prefetched window
+      bar_wait(BAR_DONE);
+      pending = false;
+      buf ^= 1;
+      top = next_top;
+      ff = next_ff;
+      i = 0;
+      next_top = -1;
+      L = locate(cur, ff);
+      if (L >= 0) continue;
+    }
+    // a window anchored at the walk's state (the prefetch is dropped)
+    next_top = -1;
+    top = s;
+    ff = anchor(cur);
+    i = 0;
+    load(buf, top, ff);
+    L = locate(cur, ff);
+  }
+  finish();
 }
 
 // The cluster kernel's dynamic shared memory.
@@ -746,7 +1079,12 @@ int scrappie_dtw_walk(const float* final_, const uint8_t* moves,
                       const int* end_src, int* path, int T, int npos,
                       cudaStream_t stream) {
   if (T == 0) return (int)cudaSuccess;
-  dtw_walk_kernel<<<1, 1, 0, stream>>>(final_, moves, end_src, path, T, npos);
+  // two windows between pads, which a step's look-ahead may read
+  const size_t smem = 2 * WALK_PAD + 2 * (size_t)WALK_ROWS * WALK_PITCH;
+  const cudaError_t err = cudaFuncSetAttribute(
+      dtw_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dtw_walk_kernel<<<1, 64, smem, stream>>>(final_, moves, end_src, path, T, npos);
   return (int)cudaGetLastError();
 }
 

@@ -74,20 +74,59 @@
 // up (an entry to START, a negative state), and a walk in START stays
 // there: the rest is -1.
 //
-// seqmap_banded_kernel is the DP restricted to a band (no TPU kernel: the
-// lax.scan of scrappie_tpu/decode/mapping.py:_map_banded), over blocks 1 to
+// The banded DP (no TPU kernel: the lax.scan of
+// scrappie_tpu/decode/mapping.py:_map_banded; wrapper map_banded_tm, twin
+// map_banded_plain in scrappie_torch/ops/seqmap.py) runs over blocks 1 to
 // T-1 after the caller's block 0: a window of `width` scores at positions
 // low[t] + w slides along the sequence. Per block, in the scan's order,
 // comb(comb(stay, step), skip) from the previous window shifted by
 // d = low[t] - low[t-1] (lax.dynamic_slice's clamp), the entry at w = 0
 // while low[t] == 0, the in-band mask, then START and END (the exit reads
 // position seqlen-1 in the previous window). comb is fmaxf (Viterbi) or
-// logaddexp. It takes low and high on the card and derives the shift, the
-// entry flag, the mask and the exit's offset itself; the posterior rows
-// and the band's bounds come through the same ring. A thread takes window
-// offsets tid, tid + threads, ... (any width); the window's scores are
-// double-buffered in shared memory, or in a global scratch when 2 width
-// floats do not fit. One __syncthreads a block.
+// logaddexp. The kernels take low and high on the card and derive the
+// shift, the entry flag, the mask and the exit's offset themselves.
+//
+// What bounds it on the H100: latency. A block's work is a few hundred
+// adds; its bytes (the band's emissions, about 0.4 KB a block at width
+// 101) are a 0.0015 ms bound for a whole read. Per block the chain is one
+// shared-memory load of the previous window, the candidates' subtraction
+// and add, two maxima and the mask's select, then the store (Viterbi,
+// about 80 cycles); the forward puts two dependent logaddexps in place of
+// the maxima (about 250 cycles). On one warp the issue of the K offsets'
+// instructions adds to that.
+//
+// Narrow bands, up to BAND_WARP_MAX offsets (ops/seqmap.banded_layout,
+// the warp mode), run as two launches counted as one call:
+// banded_gather_kernel spreads over the card and gathers, for every block,
+// the band's emissions, the stay and entry emissions and the bounds into
+// one plane row [T, stride] (stride = width rounded up to 4, then 4 header
+// words: 0.4 KB a block at width 101, where the posterior row is 4.1 KB);
+// then seqmap_banded_warp_kernel walks the blocks on one warp. A lane
+// holds the offsets lane, lane + 32, ... (K of them, a template) with
+// their emissions in registers; the window is double-buffered in the
+// warp's shared memory between guards of -1e30 (width floats before it,
+// 32 K after it: a slice start clamped to 2 width puts lane 31's last
+// offset's read at width + 32 K - 1, and 32 K >= width), so that every
+// shifted read is one unconditional load within the allocation whatever
+// the shift is. The step has no branch
+// to reconverge: every lane computes and stores all K offsets (past the
+// band, -1e30 into the guard), reads the whole previous window before it
+// stores (so the K chains overlap), and the forward's logaddexp takes the
+// hardware's ex2 and lg2 and a select for its NaN case, in place of expf
+// and log1pf, whose special-case branch cost more than the whole step
+// (held to FORWARD_RTOL). The plane's rows come through a ring of BAND_DEPTH
+// rows, BAND_BATCH rows a bulk copy by the TMA unit counted on an
+// mbarrier, about 24 blocks ahead (cp.async groups could keep only 8 rows
+// in flight), so no load of the plane, of the bounds or of seqstates sits
+// on the chain: the bounds of block t+1 are in registers before block t
+// ends. START, END and the exit are computed by every lane, off the
+// window's chain. Wider bands take the block mode, seqmap_banded_kernel:
+// one block, a thread a window offset (offsets tid, tid + threads, ...;
+// any width), the posterior rows and the bounds through the ring of RING
+// rows, the window double-buffered in shared memory, or in a global
+// scratch when 2 width floats do not fit; one __syncthreads a block. It
+// combines by the warp mode's logaddexp_sel too, so that a forward call
+// has one formula at every width.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -103,6 +142,11 @@ constexpr int RING = 8;       // posterior rows in the shared-memory ring
 constexpr int WALK_ROWS = 32; // rows a walk window covers
 constexpr int WALK_SPAN = 80; // bytes of a row a walk window covers
 constexpr int GLOBAL_RUN = 4; // states a thread in the global-memory mode
+constexpr int BAND_WARP_MAX = 256; // widest band of the warp mode: 8 a lane
+constexpr int BAND_DEPTH = 32;     // plane rows in the warp mode's ring
+constexpr int BAND_BATCH = 8;      // plane rows a bulk copy of the ring
+constexpr int BAND_HEADER = 4;     // stay, entry, low, high after a plane row
+constexpr int GATHER_THREADS = 256;
 
 struct SeqmapParams {
   float stay_pen;
@@ -130,9 +174,20 @@ __device__ __forceinline__ void contend(float& cur, int& move, float cand,
   }
 }
 
+// jnp.logaddexp's formula without a branch, for the banded kernels' step:
+// the NaN case by a select, and log1p(exp(-|a - b|)) by the hardware's
+// ex2 and lg2 (an absolute error of a few 1e-7 a combination, where
+// log1pf's special-case branch alone costs the step more than its
+// arithmetic; held to FORWARD_RTOL on the card).
+__device__ __forceinline__ float logaddexp_sel(float a, float b) {
+  const float delta = __fsub_rn(a, b);
+  const float r = __fadd_rn(fmaxf(a, b), __logf(1.0f + __expf(-fabsf(delta))));
+  return isnan(delta) ? __fadd_rn(a, b) : r;
+}
+
 template <bool kViterbi>
-__device__ __forceinline__ float comb(float a, float b) {
-  return kViterbi ? fmaxf(a, b) : logaddexp(a, b);
+__device__ __forceinline__ float comb_sel(float a, float b) {
+  return kViterbi ? fmaxf(a, b) : logaddexp_sel(a, b);
 }
 
 // Floats of a ring slot: a row and the 16-byte-aligned span around it.
@@ -496,7 +551,7 @@ seqmap_banded_kernel(const float* __restrict__ lp,
   // Carries after block 0: START stayed once; END is reached only by the
   // direct start->end transition, which the reference allows in the
   // first block alone.
-  float start = local_stay_of(kViterbi, p.local_pen, __ldg(lp + nst - 1));
+  float start = comb_sel<kViterbi>(-p.local_pen, __ldg(lp + nst - 1));
   float end = -p.local_pen;
   for (int t = 1; t < T; ++t) {
     __pipeline_wait_prior(RING - 2);
@@ -508,7 +563,7 @@ seqmap_banded_kernel(const float* __restrict__ lp,
     const float* prev = win + ((t - 1) & 1) * width;
     float* next = win + (t & 1) * width;
     const float stay_lp = row[nst - 1];
-    const float local_stay = local_stay_of(kViterbi, p.local_pen, stay_lp);
+    const float local_stay = comb_sel<kViterbi>(-p.local_pen, stay_lp);
     const float entry = __fadd_rn(start, row[seq0]);
     // new[w] reads old offset w + d - by, the slice's start clamped as
     // lax.dynamic_slice clamps it into [0, 2 width] of the padded window
@@ -525,8 +580,8 @@ seqmap_banded_kernel(const float* __restrict__ lp,
       const float stay_c = __fadd_rn(__fsub_rn(old(sh0 + w), p.stay_pen), stay_lp);
       const float step_c = __fadd_rn(old(sh1 + w), emit);
       const float skip_c = __fadd_rn(__fsub_rn(old(sh2 + w), p.skip_pen), emit);
-      float cur = comb<kViterbi>(comb<kViterbi>(stay_c, step_c), skip_c);
-      if (w == 0 && lo == 0) cur = comb<kViterbi>(cur, entry);
+      float cur = comb_sel<kViterbi>(comb_sel<kViterbi>(stay_c, step_c), skip_c);
+      if (w == 0 && lo == 0) cur = comb_sel<kViterbi>(cur, entry);
       next[w] = lo + w < hi ? cur : -BIG;
     }
     if (tid == 0) {
@@ -534,7 +589,7 @@ seqmap_banded_kernel(const float* __restrict__ lp,
           lo_prev <= seqlen - 1 && seqlen - 1 < hi_prev
               ? prev[min(max(seqlen - 1 - lo_prev, 0), width - 1)]
               : -BIG;
-      end = comb<kViterbi>(__fadd_rn(end, local_stay),
+      end = comb_sel<kViterbi>(__fadd_rn(end, local_stay),
                            __fsub_rn(exit_src, p.local_pen));
     }
     start = __fadd_rn(start, local_stay);
@@ -545,6 +600,210 @@ seqmap_banded_kernel(const float* __restrict__ lp,
   const float* last = win + ((T - 1) & 1) * width;
   for (int w = tid; w < width; w += nthreads) out[w] = last[w];
   if (tid == 0) out[width] = end;
+}
+
+// lp [T, nst]; seqstates [seqlen]; bands [2, T] -> plane [T, stride]: row
+// t holds lp[t, seqstates[clamp(low[t] + w)]] for w < width, -1e30 up to
+// stride - BAND_HEADER, then stay_lp, lp[t, seqstates[0]], low[t] and
+// high[t] (int bits).
+__global__ void __launch_bounds__(GATHER_THREADS)
+banded_gather_kernel(const float* __restrict__ lp,
+                     const int* __restrict__ seqstates,
+                     const int* __restrict__ bands, float* __restrict__ plane,
+                     int T, int nst, int seqlen, int width, int stride) {
+  const size_t total = (size_t)T * stride;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int t = (int)(i / stride);
+    const int w = (int)(i - (size_t)t * stride);
+    const float* row = lp + (size_t)t * nst;
+    const int lo = __ldg(bands + t);
+    float v = -BIG;
+    if (w < width) {
+      v = __ldg(row + __ldg(seqstates + min(max(lo + w, 0), seqlen - 1)));
+    } else if (w == stride - BAND_HEADER) {
+      v = __ldg(row + nst - 1);
+    } else if (w == stride - BAND_HEADER + 1) {
+      v = __ldg(row + __ldg(seqstates));
+    } else if (w == stride - BAND_HEADER + 2) {
+      v = __int_as_float(lo);
+    } else if (w == stride - BAND_HEADER + 3) {
+      v = __int_as_float(__ldg(bands + T + t));
+    }
+    plane[i] = v;
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Wait for the phase of parity `parity` of the mbarrier, if `live`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity,
+                                          bool live) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p, q;\n"
+      "setp.ne.b32 q, %2, 0;\n"
+      "@!q bra DONE;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity), "r"((int)live)
+      : "memory");
+}
+
+// If `live`: bytes (a multiple of 16) from global src to shared dst, both
+// 16-byte aligned, by the TMA unit, counted on bar with one arrival.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar,
+                                          bool live) {
+  asm volatile(
+      "{\n"
+      ".reg .pred q;\n"
+      "setp.ne.b32 q, %4, 0;\n"
+      "@q mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %2;\n"
+      "@q cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      "}\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "r"((int)live)
+      : "memory");
+}
+
+// The banded DP on one warp over the gathered plane [T, stride]; init
+// [width] (block 0's window) -> out [width + 1]. Lane l owns the offsets
+// l + 32 k, k < K. Dynamic shared memory: the ring [BAND_DEPTH, stride],
+// filled BAND_BATCH rows at a time (rows t to t + BAND_BATCH - 1 for t a
+// multiple of BAND_BATCH are contiguous in the plane and in the ring: one
+// bulk copy by the TMA unit, counted on the batch's mbarrier), two windows
+// of 2 width + 32 K floats, each [guard | window | guard], then the
+// mbarriers. A block's step has no branch: every lane computes all K
+// offsets (the guards keep every shifted read in bounds) and stores them
+// all, an offset at or past width into the trailing guard, which it leaves
+// -1e30 (no band reaches that far); the batches' copies and waits branch
+// on the block's index alone, once every BAND_BATCH blocks.
+template <bool kViterbi, int K>
+__global__ void __launch_bounds__(WARP)
+seqmap_banded_warp_kernel(const float* __restrict__ plane,
+                          const float* __restrict__ init,
+                          float* __restrict__ out, int T, int seqlen,
+                          int width, int stride, SeqmapParams p) {
+  constexpr int NBATCH = BAND_DEPTH / BAND_BATCH;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x;
+  float* ring = smem;
+  const int span = 2 * width + WARP * K;  // a window and its guards
+  float* guarded = smem + BAND_DEPTH * stride;
+  uint64_t* full = reinterpret_cast<uint64_t*>(guarded + 2 * span);
+  for (int i = lane; i < 2 * span; i += WARP) guarded[i] = -BIG;
+  if (lane == 0) {
+    for (int c = 0; c < NBATCH; ++c)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(full + c)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  // window b starts at guarded + b span + width
+  for (int w = lane; w < width; w += WARP) guarded[width + w] = init[w];
+  // batch c: rows [c BAND_BATCH, (c + 1) BAND_BATCH) of the plane, into
+  // ring slots from (c % NBATCH) BAND_BATCH, completing its mbarrier's
+  // phase c / NBATCH
+  auto stage = [&](int c) {
+    const int t0 = c * BAND_BATCH;
+    const int rows = min(BAND_BATCH, T - t0);
+    bulk_copy(ring + (c % NBATCH) * BAND_BATCH * stride, plane + (size_t)t0 * stride,
+              4u * rows * stride, full + c % NBATCH, lane == 0 && rows > 0);
+  };
+  auto ready = [&](int c) {
+    mbar_wait(full + c % NBATCH, (c / NBATCH) & 1, c * BAND_BATCH < T);
+  };
+  for (int c = 0; c < NBATCH; ++c) stage(c);
+  const float4 h0 = *reinterpret_cast<const float4*>(plane + stride - BAND_HEADER);
+  int lo_prev = __float_as_int(h0.z);
+  int hi_prev = __float_as_int(h0.w);
+  // Carries after block 0: START stayed once; END is reached only by the
+  // direct start->end transition, which the reference allows in the
+  // first block alone.
+  float start = comb_sel<kViterbi>(-p.local_pen, h0.x);
+  float end = -p.local_pen;
+  ready(0);
+  // the emissions of row t and the header of row t + 1 are in registers
+  // when block t starts
+  float em[K];
+  auto emissions = [&](int t) {
+    const float* row = ring + (t % BAND_DEPTH) * stride + lane;
+#pragma unroll
+    for (int k = 0; k < K; ++k) em[k] = row[WARP * k];
+  };
+  auto header = [&](int t) {
+    return *reinterpret_cast<const float4*>(ring + (t % BAND_DEPTH) * stride +
+                                            stride - BAND_HEADER);
+  };
+  emissions(1);
+  float4 hdr = header(1);
+  float4 hdr_next = header(2);
+  const int exit_pos = seqlen - 1;
+  for (int t = 1; t < T; ++t) {
+    const float* prev = guarded + ((t - 1) & 1) * span + width;
+    float* next = guarded + (t & 1) * span + width + lane;
+    const float stay_lp = hdr.x;
+    const int lo = __float_as_int(hdr.z);
+    const int hi = __float_as_int(hdr.w);
+    // new[w] reads old offset w + d - by, the slice's start clamped as
+    // lax.dynamic_slice clamps it into [0, 2 width] of the padded window;
+    // the guards hold -1e30 wherever that lands outside the window
+    const int d = lo - lo_prev;
+    const float* p0 = prev + min(max(width + d, 0), 2 * width) - width + lane;
+    const float* p1 = prev + min(max(width + d - 1, 0), 2 * width) - width + lane;
+    const float* p2 = prev + min(max(width + d - 2, 0), 2 * width) - width + lane;
+    const float local_stay = comb_sel<kViterbi>(-p.local_pen, stay_lp);
+    const float entry = __fadd_rn(start, hdr.y);
+    const int valid = hi - lo - lane;  // offset lane + 32 k is in band below it
+    // every read of the previous window before any store to the next
+    // (the compiler cannot tell them apart), so the K offsets' chains
+    // overlap
+    float a0[K], a1[K], a2[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      a0[k] = p0[WARP * k];
+      a1[k] = p1[WARP * k];
+      a2[k] = p2[WARP * k];
+    }
+    const float exit_src = prev[min(max(exit_pos - lo_prev, 0), width - 1)];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float stay_c = __fadd_rn(__fsub_rn(a0[k], p.stay_pen), stay_lp);
+      const float step_c = __fadd_rn(a1[k], em[k]);
+      const float skip_c = __fadd_rn(__fsub_rn(a2[k], p.skip_pen), em[k]);
+      float cur = comb_sel<kViterbi>(comb_sel<kViterbi>(stay_c, step_c), skip_c);
+      if (k == 0) {
+        const float with_entry = comb_sel<kViterbi>(cur, entry);
+        cur = lane == 0 && lo == 0 ? with_entry : cur;
+      }
+      a0[k] = WARP * k < valid ? cur : -BIG;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) next[WARP * k] = a0[k];
+    const bool exit_in = lo_prev <= exit_pos && exit_pos < hi_prev;
+    end = comb_sel<kViterbi>(__fadd_rn(end, local_stay),
+                             __fsub_rn(exit_in ? exit_src : -BIG, p.local_pen));
+    start = __fadd_rn(start, local_stay);
+    lo_prev = lo;
+    hi_prev = hi;
+    __syncwarp();
+    // Rows up to t are read: when t ends a batch, its slots take the batch
+    // NBATCH later. Row t + 2's header is read next: when it starts a
+    // batch, wait for that batch.
+    if ((t + 1) % BAND_BATCH == 0) stage((t + 1) / BAND_BATCH - 1 + NBATCH);
+    if ((t + 2) % BAND_BATCH == 0) ready((t + 2) / BAND_BATCH);
+    emissions(t + 1);
+    hdr = hdr_next;
+    hdr_next = header(t + 2);
+  }
+  const float* last = guarded + ((T - 1) & 1) * span + width;
+  for (int w = lane; w < width; w += WARP) out[w] = last[w];
+  if (lane == 0) out[width] = end;
 }
 
 template <typename Kernel>
@@ -580,6 +839,31 @@ cudaError_t launch_banded(const float* lp, const int* seqstates,
   if (err != cudaSuccess) return err;
   kernel<<<1, threads, smem, stream>>>(lp, seqstates, bands, init, scratch,
                                        out, T, nst, seqlen, width, p);
+  return cudaGetLastError();
+}
+
+// The warp mode: the gather over the card, then the DP on one warp.
+template <bool kViterbi, int K>
+cudaError_t launch_banded_warp(const float* lp, const int* seqstates,
+                               const int* bands, const float* init,
+                               float* plane, float* out, int T, int nst,
+                               int seqlen, int width, SeqmapParams p,
+                               cudaStream_t stream) {
+  const int stride = ((width + 3) & ~3) + BAND_HEADER;
+  const size_t total = (size_t)T * stride;
+  const size_t need = (total + GATHER_THREADS - 1) / GATHER_THREADS;
+  const int blocks = (int)(need < 2048 ? need : 2048);
+  banded_gather_kernel<<<blocks, GATHER_THREADS, 0, stream>>>(
+      lp, seqstates, bands, plane, T, nst, seqlen, width, stride);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t span = 2 * (size_t)width + WARP * K;
+  const size_t smem = sizeof(float) * ((size_t)BAND_DEPTH * stride + 2 * span) +
+                      sizeof(uint64_t) * (BAND_DEPTH / BAND_BATCH);
+  auto kernel = seqmap_banded_warp_kernel<kViterbi, K>;
+  err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, WARP, smem, stream>>>(plane, init, out, T, seqlen, width, stride, p);
   return cudaGetLastError();
 }
 
@@ -625,13 +909,37 @@ int scrappie_seqmap_walk(const float* final_, const uint8_t* moves, int* path,
   return (int)cudaGetLastError();
 }
 
+// per_lane > 0: the warp mode (offsets a lane 1, 2, 4 or 8, width at
+// most 32 per_lane), with plane [T, stride] its gathered emissions; else
+// the block mode on `threads` threads, the window in shared memory or in
+// scratch [2, width].
 int scrappie_seqmap_banded(const float* lp, const int* seqstates,
                            const int* bands, const float* init, float* scratch,
-                           float* out, int T, int nst, int seqlen, int width,
-                           float stay_pen, float skip_pen, float local_pen,
-                           int viterbi, int threads, int shared,
+                           float* plane, float* out, int T, int nst,
+                           int seqlen, int width, float stay_pen,
+                           float skip_pen, float local_pen, int viterbi,
+                           int threads, int shared, int per_lane,
                            cudaStream_t stream) {
   const SeqmapParams p{stay_pen, skip_pen, local_pen};
+  if (per_lane > 0) {
+    if (width > WARP * per_lane || width > BAND_WARP_MAX)
+      return (int)cudaErrorInvalidValue;
+    auto warp = [&](auto fn) {
+      return (int)fn(lp, seqstates, bands, init, plane, out, T, nst, seqlen,
+                     width, p, stream);
+    };
+    switch (per_lane * 2 + (viterbi ? 1 : 0)) {
+      case 3: return warp(launch_banded_warp<true, 1>);
+      case 2: return warp(launch_banded_warp<false, 1>);
+      case 5: return warp(launch_banded_warp<true, 2>);
+      case 4: return warp(launch_banded_warp<false, 2>);
+      case 9: return warp(launch_banded_warp<true, 4>);
+      case 8: return warp(launch_banded_warp<false, 4>);
+      case 17: return warp(launch_banded_warp<true, 8>);
+      case 16: return warp(launch_banded_warp<false, 8>);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   auto go = [&](auto fn) {
     return (int)fn(lp, seqstates, bands, init, scratch, out, T, nst, seqlen,
                    width, threads, p, stream);

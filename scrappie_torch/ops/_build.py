@@ -66,8 +66,8 @@ _SIGNATURES = {
     "scrappie_seqmap": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I,
                         _I, _I, _P),
     "scrappie_seqmap_walk": (_P, _P, _P, _I, _I, _I, _P),
-    "scrappie_seqmap_banded": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                               _F, _I, _I, _I, _P),
+    "scrappie_seqmap_banded": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                               _F, _F, _I, _I, _I, _I, _P),
 }
 
 

@@ -31,9 +31,12 @@ the difference.
 
 On a CUDA tensor each wrapper launches its kernel of csrc/seqmap.cu
 (`map_to_sequence_tm`: scores in registers up to SEQMAP_MAX_REGISTER_SEQLEN
-positions, in global memory above; `map_banded_tm`: the window in shared
-memory while it fits, in global memory above) or raises; on a CPU tensor it
-runs its plain twin. There is no lane or time padding.
+positions, in global memory above; `map_banded_tm`: up to BAND_WARP_MAX
+offsets a gather of the band's emissions into a plane, then the DP on one
+warp, the window in its shared memory; wider, one block with the window in
+shared memory while it fits, in global memory above: `banded_layout`) or
+raises; on a CPU tensor it runs its plain twin. There is no lane or time
+padding.
 """
 
 from __future__ import annotations
@@ -62,6 +65,15 @@ FORWARD_RUNS = (4, 6, 8, 12, 16)
 GLOBAL_RUN = 4
 #: Longest reference whose scores the seqmap kernel keeps in registers.
 SEQMAP_MAX_REGISTER_SEQLEN = MAX_THREADS * RUNS[-1] - 2
+#: The banded kernel's warp mode: offsets a lane (their emissions in
+#: registers), so bands up to 32 x 8 offsets; the plane rows in its ring,
+#: and a bulk copy's; the words after a plane row's emissions (stay,
+#: entry, low, high).
+BAND_LANE_RUNS = (1, 2, 4, 8)
+BAND_WARP_MAX = 32 * BAND_LANE_RUNS[-1]
+BAND_DEPTH = 32
+BAND_BATCH = 8
+BAND_HEADER = 4
 STAY, STEP, SKIP, ENTRY = 0, 1, 2, 3
 
 
@@ -112,10 +124,35 @@ def shared_bytes(nst: int) -> int:
     return ring_bytes(nst) + 8 * 2 * 32
 
 
-def banded_shared_bytes(nst: int, width: int, shared_window: bool) -> int:
-    """Dynamic shared memory of the banded kernel: the ring, its bounds (two
-    ints a row) and, in the shared-window variant, the window's scores,
-    double-buffered."""
+class BandedLayout(NamedTuple):
+    threads: int        # 32 in the warp mode, else a thread an offset
+    shared: bool        # the window in shared memory, else a global scratch
+    per_lane: int       # the warp mode's offsets a lane; 0: the block mode
+
+
+def plane_stride(width: int) -> int:
+    """Floats of a row of the warp mode's plane: the band's emissions,
+    rounded up to 16 bytes, then BAND_HEADER words."""
+    return _round_up(width, 4) + BAND_HEADER
+
+
+def band_span(width: int, per_lane: int) -> int:
+    """Floats of one of the warp mode's two windows with its guards: width
+    before it, and after it 32 per_lane, since a slice start clamped to
+    2 width puts lane 31's last offset's read at width + 32 per_lane - 1."""
+    return 2 * width + 32 * per_lane
+
+
+def banded_shared_bytes(nst: int, width: int, shared_window: bool,
+                        per_lane: int = 0) -> int:
+    """Dynamic shared memory of the banded kernel. The warp mode (per_lane
+    > 0): its ring of BAND_DEPTH plane rows, two windows of band_span
+    floats and an mbarrier a batch of BAND_BATCH rows. The block mode: the
+    ring of RING posterior rows, its bounds (two ints a row) and, with
+    shared_window, the window's scores, double-buffered."""
+    if per_lane:
+        return 4 * (BAND_DEPTH * plane_stride(width) + 2 * band_span(width, per_lane)) \
+            + 8 * (BAND_DEPTH // BAND_BATCH)
     return ring_bytes(nst) + 4 * 2 * RING + (8 * width if shared_window else 0)
 
 
@@ -125,16 +162,22 @@ def max_shared_width(nst: int) -> int:
 
 
 def banded_layout(nst: int, width: int,
-                  global_state: bool | None = None) -> tuple[int, bool]:
-    """(threads, window in shared memory) of the banded kernel: a thread an
-    offset up to MAX_THREADS (a multiple of 32), the window in shared memory
-    while it fits (or as global_state says)."""
+                  global_state: bool | None = None) -> BandedLayout:
+    """The banded kernel's launch plan: up to BAND_WARP_MAX offsets one warp,
+    each lane the fewest offsets of BAND_LANE_RUNS that cover the band
+    (the warp mode); wider, one block of a thread an offset up to
+    MAX_THREADS (a multiple of 32), the window in shared memory while it
+    fits. global_state=True puts the window in global memory (the block
+    mode at any width); False refuses a band whose window does not fit."""
     fits = width <= max_shared_width(nst)
     shared = fits if global_state is None else not global_state
     if shared and not fits:
         raise ValueError(f"width={width} does not fit in shared memory (at "
                          f"most {max_shared_width(nst)} at nst={nst})")
-    return min(MAX_THREADS, _round_up(width, 32)), shared
+    if shared and width <= BAND_WARP_MAX:
+        return BandedLayout(32, True,
+                            next(r for r in BAND_LANE_RUNS if 32 * r >= width))
+    return BandedLayout(min(MAX_THREADS, _round_up(width, 32)), shared, 0)
 
 
 def _check(lp, seqstates) -> None:
@@ -411,11 +454,12 @@ def map_banded_tm(lp, seqstates, bands, init_win, stay_pen=0.0, skip_pen=0.0,
                   global_state: bool | None = None):
     """The banded DP of one read over blocks 1..T-1 (see
     `map_banded_plain`) -> [width + 1]: on a CUDA tensor the banded kernel
-    of csrc/seqmap.cu, which takes the bands on the card and copies nothing
-    to the host during the DP, else the twin. The bands must be sane
-    (decode/mapping.are_bounds_sane). global_state forces the kernel's
-    window into global (True) or shared (False) memory; by default it is
-    shared while it fits."""
+    of csrc/seqmap.cu in the mode of `banded_layout` (the warp mode: the
+    gather, then the DP, two launches counted as one call), which takes
+    the bands on the card and copies nothing to the host during the DP,
+    else the twin. The bands must be sane (decode/mapping.are_bounds_sane).
+    global_state forces the kernel's window into global (True) or shared
+    (False) memory; by default it is shared while it fits."""
     if not ops.on_cuda(lp, seqstates, bands, init_win):
         return map_banded_plain(lp, seqstates, bands, init_win, stay_pen,
                                 skip_pen, local_pen, viterbi)
@@ -426,18 +470,22 @@ def map_banded_tm(lp, seqstates, bands, init_win, stay_pen=0.0, skip_pen=0.0,
     seqlen = seqstates.shape[0]
     width = init_win.shape[0]
     _check_states(seqstates, nst)
-    threads, shared = banded_layout(nst, width, global_state)
+    layout = banded_layout(nst, width, global_state)
     dev = lp.device
     out = torch.empty(width + 1, dtype=torch.float32, device=dev)
-    scratch = (None if shared else
+    scratch = (None if layout.shared else
                torch.empty(2 * width, dtype=torch.float32, device=dev))
+    plane = (torch.empty((T, plane_stride(width)), dtype=torch.float32,
+                         device=dev) if layout.per_lane else None)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = _build.library().scrappie_seqmap_banded(
             lp.data_ptr(), seqstates.data_ptr(), bands.data_ptr(),
-            init_win.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-            out.data_ptr(), T, nst, seqlen, width, ops.f32(stay_pen),
-            ops.f32(skip_pen), ops.f32(local_pen), int(viterbi), threads,
-            int(shared), ctypes.c_void_p(ops.stream_handle()))
+            init_win.data_ptr(), ptr(scratch), ptr(plane), out.data_ptr(), T,
+            nst, seqlen, width, ops.f32(stay_pen), ops.f32(skip_pen),
+            ops.f32(local_pen), int(viterbi), layout.threads,
+            int(layout.shared), layout.per_lane,
+            ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, "seqmap_banded")
     ops.LAUNCHES["seqmap_banded"] += 1
     return out

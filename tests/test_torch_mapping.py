@@ -293,6 +293,25 @@ def test_banded_twin_matches_jax_at_narrow_widths(width, viterbi):
     and 3 whose shift reaches the width, with leading blocks at low == 0:
     the window and END identical for Viterbi (the forward within
     FINAL_TOL), and the decode functions' scores."""
+    _check_banded_twin(width, viterbi)
+
+
+@pytest.mark.parametrize("width", [32, 33, 64, 65, 128, 129, 256, 257])
+@pytest.mark.parametrize("viterbi", [True, False])
+def test_banded_twin_matches_jax_at_the_kernels_mode_boundaries(width, viterbi):
+    """As at the narrow widths, at the widths where the banded kernel's
+    launch plan changes: the warp mode's offsets a lane (1, 2, 4, 8) and
+    the block mode above 256 offsets."""
+    beside = width + 1 if width % 32 == 0 else width - 1
+    assert tops.banded_layout(17, width) != tops.banded_layout(17, beside)
+    _check_banded_twin(width, viterbi)
+
+
+def _check_banded_twin(width, viterbi):
+    """The banded twin against JAX's scan on explicit bands of the width
+    whose shift reaches it, with leading blocks at low == 0: the window and
+    END identical for Viterbi (the forward within FINAL_TOL), and the
+    decode functions' scores."""
     rng = np.random.default_rng(width)
     T = 80
     low, high, seqlen = explicit_bands(T, width, lead=6, rng=rng)
@@ -436,11 +455,13 @@ def test_seqmap_launches_nothing_on_the_cpu_and_sizes_its_state():
     n = tops.max_shared_width(1025)
     assert tops.banded_shared_bytes(1025, n, True) <= ops.MAX_SMEM_BYTES
     assert tops.banded_shared_bytes(1025, n + 1, True) > ops.MAX_SMEM_BYTES
-    assert tops.banded_layout(1025, 1) == (32, True)
-    assert tops.banded_layout(1025, 100) == (128, True)
-    assert tops.banded_layout(1025, 1500) == (1024, True)
-    assert tops.banded_layout(1025, n + 1) == (1024, False)
-    assert tops.banded_layout(1025, 100, global_state=True) == (128, False)
+    # one warp up to 256 offsets (the warp mode: offsets a lane), wider a
+    # thread an offset (the block mode)
+    assert tops.banded_layout(1025, 1) == (32, True, 1)
+    assert tops.banded_layout(1025, 100) == (32, True, 4)
+    assert tops.banded_layout(1025, 1500) == (1024, True, 0)
+    assert tops.banded_layout(1025, n + 1) == (1024, False, 0)
+    assert tops.banded_layout(1025, 100, global_state=True) == (128, False, 0)
     with pytest.raises(ValueError, match="shared memory"):
         tops.banded_layout(1025, n + 1, global_state=False)
     tops.check_seqmap_input(lp, states)
@@ -461,6 +482,61 @@ def test_seqmap_launches_nothing_on_the_cpu_and_sizes_its_state():
         tops.check_banded_input(lp, states, bands.long(), torch.zeros(4))
     with pytest.raises(ValueError, match="bands"):
         tops.check_banded_input(lp, states, bands[:, :5], torch.zeros(4))
+
+
+@pytest.mark.parametrize("nst", [17, 1025])
+def test_banded_launch_plan(nst):
+    """The banded kernel's plan at every width up to 600 and around the
+    shared window's limit: one warp while the band has at most
+    BAND_WARP_MAX offsets, each lane the fewest offsets of BAND_LANE_RUNS
+    that cover it, its shared memory (the ring of plane rows and two
+    guarded windows) far below the card's; wider, a thread an offset up
+    to MAX_THREADS with the window in shared memory while
+    banded_shared_bytes fits; the plane's rows 16-byte aligned."""
+    n = tops.max_shared_width(nst)
+    for width in [*range(1, 601), n - 1, n, n + 1, 40000]:
+        plan = tops.banded_layout(nst, width)
+        stride = tops.plane_stride(width)
+        assert stride % 4 == 0 and width + tops.BAND_HEADER <= stride < width + 8
+        if width <= tops.BAND_WARP_MAX:
+            runs = [r for r in tops.BAND_LANE_RUNS if 32 * r >= width]
+            assert plan == (32, True, runs[0])
+            assert tops.banded_shared_bytes(nst, width, True, plan.per_lane) <= 48 * 1024
+        else:
+            assert plan.per_lane == 0 and plan.threads % 32 == 0
+            assert plan.threads == min(tops.MAX_THREADS, -(-width // 32) * 32)
+            assert plan.shared == (width <= n)
+            if plan.shared:
+                assert tops.banded_shared_bytes(nst, width, True) <= ops.MAX_SMEM_BYTES
+        forced = tops.banded_layout(nst, width, global_state=True)
+        assert forced.per_lane == 0 and not forced.shared
+    assert tops.BAND_WARP_MAX == 256 and tops.BAND_DEPTH == 32
+
+
+@pytest.mark.parametrize("nst", [17, 1025])
+def test_banded_warp_windows_hold_every_shifted_read(nst):
+    """The warp mode's shared memory holds every read and store of its step
+    at every width it takes and every shift: the windows' floats, taken
+    from banded_shared_bytes, against the kernel's indices (lane l's
+    offset l + 32 k reads the previous window at the slice start
+    clamp(width + d - by, 0, 2 width) - width past the window's start, the
+    window width floats into its span), up to width + 32 K - 1 past the
+    window's start when the shift reaches the width (at width 65, K = 4:
+    161, past the 3 width + 32 floats a span once held)."""
+    batches = 8 * (tops.BAND_DEPTH // tops.BAND_BATCH)
+    for width in range(1, tops.BAND_WARP_MAX + 1):
+        K = tops.banded_layout(nst, width).per_lane
+        ring = tops.BAND_DEPTH * tops.plane_stride(width)
+        floats = (tops.banded_shared_bytes(nst, width, True, K) - batches) // 4
+        span = (floats - ring) // 2
+        assert ring + 2 * span == floats and span == tops.band_span(width, K)
+        d = np.arange(-2 * width - 3, 3 * width + 4)[:, None] - np.arange(3)
+        starts = np.clip(width + d, 0, 2 * width) - width
+        offsets = np.arange(32)[:, None] + 32 * np.arange(K)
+        assert width + starts.min() + offsets.min() == 0
+        assert width + starts.max() + offsets.max() == 2 * width + 32 * K - 1 < span
+        assert width + offsets.max() < span  # the stores, past width -1e30
+        assert 2 * span * 4 % 8 == 0  # the mbarriers after the windows aligned
 
 
 def test_api_hands_the_seqmap_kernel_its_layout(monkeypatch, read_post):

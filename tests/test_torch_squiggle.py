@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from scrappie_torch import api as tapi
 from scrappie_torch import ops
 from scrappie_torch.cli.main import main as torch_main
@@ -236,6 +237,58 @@ def test_dtw_walk_matches_the_walk_over_jax_traceback(ties, prob_back):
     _, jpath = jdtw.squiggle_match_viterbi(arrays[0], params, **kw)
     _, tpath = tdtw.squiggle_match_viterbi(arrays[0], params, device="cpu", **kw)
     np.testing.assert_array_equal(tpath, jpath)
+
+
+def _walk_plane(T: int, npos: int, rng):
+    """A hand-made DTW traceback: chip_smoke.walk_plane's seeded path (far
+    END jumps, runs of skips, back-state excursions, stays longer than the
+    kernel's window of 256 samples, a leading START run; the generator the
+    card's check uses), its samples' move bytes written into a plane of
+    random moves (forward 0-5, back 0-1). Returns (final, moves, end_src,
+    path)."""
+    final, end_src, path, (rows, states, codes) = chip_smoke.walk_plane(T, npos, rng)
+    nf = npos + 2
+    moves = np.empty((T, 2 * npos + 2), np.uint8)
+    moves[:, :nf] = rng.integers(0, 6, (T, nf))
+    moves[:, nf:] = rng.integers(0, 2, (T, npos))
+    moves[rows, states] = codes
+    return final, moves, end_src, path
+
+
+@pytest.mark.parametrize("T,npos,offset", [(6000, 600, 0), (6000, 601, 3),
+                                           (3000, 40, 5), (2000, 3, 7)])
+def test_dtw_walk_follows_hand_made_planes(monkeypatch, T, npos, offset):
+    """On hand-made move planes (far END jumps, back-state excursions, runs
+    of skips, long stays, a leading START run; one plane a view 3 bytes
+    into its buffer), the walk takes the path the plane was made from, as
+    does the walk over the int32 traceback that moves_to_states rebuilds;
+    relabelled, the port's squiggle_match_viterbi path is the one
+    scrappie_tpu's walk takes over that traceback."""
+    rng = np.random.default_rng(T + npos)
+    final, moves, end_src, want = _walk_plane(T, npos, rng)
+    taken = moves[np.arange(1, T), want[1:]]
+    # START from the lead on, after one sample's step out of a back state
+    assert (taken == 4).sum() >= 5 and (want[:T // 20 - 1] == 0).all()
+    if npos >= 40:  # a back-state excursion and a run of skips
+        assert (want >= npos + 2).sum() > 0 and (taken == 2).sum() > 0
+    flat = torch.zeros(moves.size + offset, dtype=torch.uint8)
+    tmoves = flat[offset:].view(moves.shape)
+    tmoves.copy_(torch.from_numpy(moves))
+    tfinal, tend = torch.from_numpy(final), torch.from_numpy(end_src)
+    ops.reset_launches()
+    path = tops.dtw_walk(tfinal, tmoves, tend)
+    assert ops.LAUNCHES["dtw_walk"] == 0
+    np.testing.assert_array_equal(path.numpy(), want)
+    tb = tops.moves_to_states(tmoves, tend).numpy()
+    np.testing.assert_array_equal(_walk_states(final, tb), want)
+    signal = np.zeros(T, np.float32)
+    params = np.zeros((npos, 3), np.float32)
+    monkeypatch.setattr(jdtw, "_dispatch_match", lambda *a: (final, tb))
+    monkeypatch.setattr(tdtw, "_match", lambda *a: (tfinal, tmoves, tend))
+    jscore, jpath = jdtw.squiggle_match_viterbi(signal, params)
+    tscore, tpath = tdtw.squiggle_match_viterbi(signal, params, device="cpu")
+    np.testing.assert_array_equal(tpath, jpath)
+    assert tscore == jscore
 
 
 @pytest.mark.parametrize("cluster", [1, 4, 8, 16])
