@@ -74,7 +74,10 @@ if any phase fails:
      11 520 events, B = 1, and times them with the forward in both modes
      (phase lstm_backward_kernel); holds the GRU's and the LSTM
      pair's training kernels at S = 160 in their big-S modes against their
-     twins and against autograd (phase big_s_backward); holds the
+     twins and against autograd, and the LSTM's big-S walk in its cluster
+     mode at S = 160 and 288, B = 8 and 64 (its ms beside its bound, a
+     latency floor and its cluster layout) and in its mode from L2 at S =
+     400 (phase big_s_backward); holds the
      transducer and CRF lattice kernels (forward, then backward) against
      their twins on log P, logZ_local and the gradient, on rgrgr_r94's log
      posterior of 8 simulated windows of 800 blocks against 800 kmer
@@ -170,7 +173,12 @@ if any phase fails:
      2 000 of its blocks against 12 000 and 20 000 bases, and on 65 small
      edge cases (ties, -inf, walks through the states -1 and -2 and START,
      seqlen 1 to 3, T = 1), and times the DP, its forward variant and the
-     walk (phase seqmap_kernel); holds the banded kernel against its twin
+     walk (alone, in bursts of 10, a block's microseconds, beside its
+     latency floor); then holds the walk against its twin on hand-made
+     move planes (seqmap_walk_plane: runs of skips that fall 2 a block
+     over whole windows, entries at a window's first and last rows, steps
+     below column 0 to the states -1 and -2, long stays at column 0, T = 1
+     and 2) and times it there (phase seqmap_kernel); holds the banded kernel against its twin
      on the read's band of half-width 100, at widths 1, 2, 3, 32, 33, 256
      and 257 (shifts of the whole width, blocks at low == 0; the warp
      mode's boundaries), above 1 024 and with its window in global memory,
@@ -379,6 +387,22 @@ HEAD_ENS_BATCHES = (8, 64)   # K = 3 and 5 members at these
 PROJECT_RTOL = 1e-5      # the projection against its twin, relative to max(|y|, 1)
 BIG_S = {"gru": (160, 352), "lstm": (160, 288)}  # above the registers' S = 96
 BIG_S_BWD = 160          # the big-S backward walks' check
+# The LSTM's big-S walk (phase big_s_backward): its cluster mode at each
+# (S, B), the first the kernels line's shape; its mode from L2 (S above
+# ops/lstm.CLUSTER_MAX_S) at (S, B, T). The cluster walk's latency floor:
+# its step's chain without the exchange (the DSMEM store and the cluster
+# barrier, not timed alone): three dependent fp32 operations (12 cycles),
+# the float4 load of da from shared memory (30), an accumulator's FMA
+# chain (4 cycles each of rows / 2) and five shuffles with their adds
+# (28 each).
+LSTM_BIG_S_WALKS = ((160, 8), (160, 64), (288, 8), (288, 64))
+LSTM_L2_WALK = (400, 8, 100)
+
+
+def cluster_walk_floor_cycles(rows: int) -> int:
+    return 12 + 30 + 4 * (rows // 2) + 5 * 28
+
+
 S_SMALL = 16             # the LSTM routes' check at another size
 T_BIG_S = 500            # steps of the big-S checks
 NHIST_CASES = ((80, False), (1024, False), (2048, True))  # (nhist, use_slip)
@@ -428,6 +452,15 @@ WALK_FLOOR_CYCLES = 28
 # second's rows are 12 004 bytes apart and start 3 bytes past one.
 WALK_PLANES = ((MAP_SAMPLES, MAP_BASES, 0), (MAP_SAMPLES, MAP_BASES + 1, 3),
                (3000, 40, 5), (2000, 3, 7))
+# The seqmap walk's hand-made move planes (phase seqmap_kernel,
+# seqmap_walk_plane; tests/test_torch_mapping.py walks them on the CPU):
+# (blocks, bases, how the walk ends). The seqmap walk's chain is the DTW
+# walk's (a shared-memory byte load and a subtraction a block), so its
+# floor is WALK_FLOOR_CYCLES a block.
+SEQMAP_WALK_PLANES = ((12000, 1500, "entry_first"), (12000, 1500, "entry_last"),
+                      (8000, 2000, "minus2"), (12000, 2500, "none"),
+                      (700, 40, "entry_last"), (1, 5, "none"), (2, 5, "none"),
+                      (2, 1, "minus2"))
 FORWARD_RTOL = 1e-5      # forward finals: expf/log1pf against the host's
 # map_signal_to_squiggle's defaults
 DTW_OPTIONS = dict(local_pen=2.0, skip_pen=5000.0, minscore=5.0)
@@ -509,10 +542,14 @@ KERNELS = {
     "lstm_pair_train_global": ("scrappie_torch/csrc/lstm.cu",
                                "scrappie_tpu/ops/lstm.py:53 (the pair launch "
                                "that also stores the planes, S above 96)"),
+    "lstm_recurrence_bwd_cluster": ("scrappie_torch/csrc/lstm.cu",
+                                    "scrappie_tpu/nn/rnn.py:80 (the VJP of "
+                                    "lstm's lax.scan, 96 < S <= 384 on a "
+                                    "cluster of CTAs; no TPU kernel)"),
     "lstm_recurrence_bwd_global": ("scrappie_torch/csrc/lstm.cu",
                                    "scrappie_tpu/nn/rnn.py:80 (the VJP of "
-                                   "lstm's lax.scan, S above 96; no TPU "
-                                   "kernel)"),
+                                   "lstm's lax.scan, S above 384, sW from "
+                                   "L2; no TPU kernel)"),
     # lattice_fwdbwd and crf_lattice_fwdbwd count launches of one kernel
     # each, its forward mode and its backward mode
     "lattice_fwdbwd": ("scrappie_torch/csrc/lattice.cu",
@@ -630,7 +667,8 @@ SUPERSEDED = ("gru_layer", "viterbi_fused", "viterbi_fused_ens")
 # Kernels whose design keeps their weights in registers: ptxas must report
 # no spill for any of their instances.
 NO_SPILL = ("gru_recurrence_kernel", "lstm_recurrence_kernel",
-            "gru_recurrence_bwd_kernel", "lstm_recurrence_bwd_kernel")
+            "gru_recurrence_bwd_kernel", "lstm_recurrence_bwd_kernel",
+            "lstm_walk_cluster_kernel")
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
 # fp32 outside the tensor cores (the kernels are exact fp32, TF32 off).
 PEAK_BYTES_PER_S = 3.35e12
@@ -2112,9 +2150,12 @@ def check_big_s_backward() -> dict:
     (phase big_s_backward; T_BIG_S steps, B = 8, C = 96, seeded weights of
     scale S^-1/2): the GRU's big-S walk (ops/gru.gru_walk) against its
     twin on the gates of the big-S forward, both directions; the LSTM
-    pair's big-S training forward against the twin loops' h and planes,
-    and its big-S walk over both directions (ops/lstm.lstm_walk_pair, da
-    and the dpeep partials) against the twin; each counter must rise. Then a GRU layer (ops/gru.gru_layer_tm)
+    pair's big-S training forward against the twin loops' h and planes;
+    the LSTM's big-S walk over both directions (ops/lstm.lstm_walk_pair,
+    da and the dpeep partials) against the twin, in its cluster mode at
+    each LSTM_BIG_S_WALKS shape (planes from the big-S training forward,
+    T_BIG_S steps; its ms, bound, latency floor, layout and clusters) and
+    in its mode from L2 at LSTM_L2_WALK; each counter must rise. Then a GRU layer (ops/gru.gru_layer_tm)
     and an LSTM stage (ops/lstm.lstm_pair_tm) with gradients wanted,
     through those kernels, against torch.autograd through their plain
     twins: every input's and weight's gradient within TRAIN_GRAD_RTOL of its
@@ -2169,8 +2210,7 @@ def check_big_s_backward() -> dict:
                    f(S, 4 * S, scale=S ** -0.5), f(3 * S, scale=0.3)) for _ in "FB")
         xp = project_tm(x, torch.cat((wF[0], wB[0]), 1), torch.cat((wF[1], wB[1])))
         ghF, ghB = f(T, B, S), f(T, B, S)
-        before = {k: ops.LAUNCHES[k] for k in ("lstm_pair_train_global",
-                                               "lstm_recurrence_bwd_global")}
+        before = {k: ops.LAUNCHES[k] for k in ("lstm_pair_train_global",)}
         hF, hB, pF, pB = L.lstm_pair_train_cuda(xp, *wF[2:], *wB[2:])
         twin = lambda: (lstm_tm(xp[..., : 4 * S], *wF[2:], False, return_planes=True),
                         lstm_tm(xp[..., 4 * S :], *wB[2:], True, return_planes=True))
@@ -2179,28 +2219,61 @@ def check_big_s_backward() -> dict:
         ferr = max(float((a - b).abs().max())
                    for a, b in ((hF, tF), (hB, tB), (pF, tpF), (pB, tpB)))
         require(ferr <= LSTM_ATOL, f"lstm big-S training forward: max abs err {ferr}")
-        dirs = [(pF, ghF, *wF[2:], False), (pB, ghB, *wB[2:], True)]
-        dk, dparts = L.lstm_walk_pair(dirs)
-        want = [L.lstm_walk_plain(*d) for d in dirs]
-        dp = torch.cat([w[0] for w in want], dim=-1)
-        sync()
-        require(bool(torch.isfinite(dk).all()), "lstm_recurrence_bwd_global finite")
-        werr = max(rel(dk, dp), rel(dparts, torch.stack([w[1] for w in want])))
-        require(werr <= LSTM_BWD_RTOL, f"lstm big-S walk: rel err {werr}")
-        for k, v in before.items():
-            require(ops.LAUNCHES[k] - v == 1, f"{k} launched")
+        require(ops.LAUNCHES["lstm_pair_train_global"] - before["lstm_pair_train_global"]
+                == 1, "lstm_pair_train_global launched")
         rows["lstm_pair_train_global"] = {
             "S": S, "T": T, "B": B, "max_abs_err": ferr,
             **kernel_work("lstm_pair_train", T=T, B=B, S=S),
             "ms": cuda_ms(lambda: L.lstm_pair_train_cuda(xp, *wF[2:], *wB[2:]), reps=5),
             "plain_ms": cuda_ms(twin, **TWIN_REPS)}
-        rows["lstm_recurrence_bwd_global"] = {
-            "S": S, "T": T, "B": B, "max_abs_err": float((dk - dp).abs().max()),
-            "max_rel_err": werr, **kernel_work("lstm_recurrence_bwd", T=T, B=B, S=S,
-                                               dirs=2),
-            "ms": cuda_ms(lambda: L.lstm_walk_pair(dirs), reps=5),
-            "plain_ms": cuda_ms(lambda: [L.lstm_walk_plain(*d) for d in dirs],
-                                reps=1, warmup=0)}
+        # the LSTM's big-S walk: its cluster mode at each LSTM_BIG_S_WALKS
+        # shape, its mode from L2 at LSTM_L2_WALK
+        cases = {}
+        for Sw, Bw, Tw in [(s_, b_, T) for s_, b_ in LSTM_BIG_S_WALKS] + [LSTM_L2_WALK]:
+            mode = L.walk_mode(Sw)
+            counter = L.WALK_MODES[mode][0]
+            if (Sw, Bw) == (S, B):
+                lw = (wF[2:], wB[2:])
+                gh2 = (ghF, ghB)
+                planes = (pF, pB)
+            else:
+                lw = [(f(Sw, 4 * Sw, scale=Sw ** -0.5), f(3 * Sw, scale=0.3))
+                      for _ in "FB"]
+                xw = f(Tw, Bw, 8 * Sw)
+                gh2 = (f(Tw, Bw, Sw), f(Tw, Bw, Sw))
+                planes = L.lstm_pair_train_cuda(xw, *lw[0], *lw[1])[2:]
+                del xw
+            dirs = [(planes[0], gh2[0], *lw[0], False), (planes[1], gh2[1], *lw[1], True)]
+            n0 = ops.LAUNCHES[counter]
+            dk, dparts = L.lstm_walk_pair(dirs)
+            t0 = time.perf_counter()
+            want = [L.lstm_walk_plain(*d) for d in dirs]
+            dp = torch.cat([w[0] for w in want], dim=-1)
+            sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            label = f"S = {Sw}, B = {Bw}, T = {Tw}"
+            require(bool(torch.isfinite(dk).all()), f"{counter} finite ({label})")
+            werr = max(rel(dk, dp), rel(dparts, torch.stack([w[1] for w in want])))
+            require(werr <= LSTM_BWD_RTOL, f"lstm big-S walk ({mode}, {label}): "
+                                           f"rel err {werr} <= {LSTM_BWD_RTOL}")
+            require(ops.LAUNCHES[counter] - n0 == 1, f"{counter} launched ({label})")
+            row = {"S": Sw, "T": Tw, "B": Bw, "mode": mode,
+                   "max_abs_err": float((dk - dp).abs().max()), "max_rel_err": werr,
+                   **kernel_work("lstm_recurrence_bwd", T=Tw, B=Bw, S=Sw, dirs=2),
+                   "ms": cuda_ms(lambda: L.lstm_walk_pair(dirs), reps=5),
+                   "plain_ms": plain_ms}
+            row["us_per_step"] = row["ms"] * 1e3 / Tw
+            layout = L.walk_cluster_layout(Sw)
+            if mode == "cluster":
+                row["layout"] = layout._asdict()
+                row["clusters"] = 2 * Bw
+                row["latency_floor_ms"] = floor_ms(
+                    Tw, cluster_walk_floor_cycles(layout.rows))
+            cases[label] = row
+            del dirs, planes, gh2, dk, dp, want
+        first = next(iter(cases.values()))
+        rows["lstm_recurrence_bwd_cluster"] = {**first, "cases": cases}
+        rows["lstm_recurrence_bwd_global"] = list(cases.values())[-1]
     # the routes with gradients wanted against autograd through the twins
     grads = {}
     for route, layer in (("kernels", True), ("twins", False)):
@@ -3801,6 +3874,122 @@ def check_seqmap_case(lp, states, pens, label: str, twin_on_host: bool) -> dict:
     return out
 
 
+def seqmap_walk_plane(T: int, seqlen: int, rng, finish: str = "none"):
+    """A hand-made seqmap traceback for the walk kernel: a seeded path built
+    backwards from the final state, each of its rows' move byte the move to
+    its earlier state, in a plane of random moves the DP could write
+    elsewhere (positions 0-2, position 0 also 3, START 0, END 0 or 2, the
+    row's padding 0). From END or seqlen-1 (the finals decide; seqlen-1
+    at T <= 2) the path
+    stays, steps and skips (a fall of about 0.75 a row), with runs of 300
+    to 400 skips (a fall of 2 across whole windows of the walk, WALK_ROWS
+    rows); at column 1 it skips (the state -1: END, a window's jump up) or
+    steps or stays; at column 0 it stays up to 300 rows, then steps to the
+    state -1; END stays, then exits to seqlen-1. In the second half it
+    ends by `finish`: "entry_first" / "entry_last", an entry (move 3) at
+    the first / last row of one of the walk kernel's windows (WALK_ROWS
+    rows from the row the walk, or its last jump to END, starts at);
+    "minus2", a skip from column 0 to the state -2 (START); "none", no end.
+    Returns (final, moves [T, move_stride(seqlen)], path) numpy and the
+    path's counts of each event."""
+    import numpy as np
+
+    from scrappie_torch.ops import seqmap as m
+
+    n, START, END = seqlen + 2, seqlen, seqlen + 1
+    moves = rng.integers(0, 3, (T, m.move_stride(seqlen))).astype(np.uint8)
+    moves[:, 0] = rng.integers(0, 4, T)
+    moves[:, START] = 0
+    moves[:, END] = 2 * rng.integers(0, 2, T)
+    moves[:, n:] = 0
+    final = rng.standard_normal(n).astype(np.float32)
+    col = int(rng.choice([END, seqlen - 1])) if T > 2 else seqlen - 1
+    final[col] = final[END + seqlen - 1 - col] + 1.0  # col's final wins
+    path = np.empty(T, np.int32)
+    path[T - 1] = -1 if col >= START else col
+    counts = dict(skips=0, skip_runs=0, wraps=0, column0=0, entries=0, minus2=0,
+                  end_rows=0)
+    s, top, run, stay = T - 1, T - 1, 0, 0
+
+    def put(code):
+        nonlocal s, col, top
+        st = START if code == 3 else col - code
+        moves[s, col] = code
+        s -= 1
+        path[s] = -1 if st >= START else st
+        col = st + n if st < 0 else st
+        if st == -1:
+            counts["wraps"] += 1
+            top = s  # the walk loads a window anchored at END from row s
+        counts["skips"] += code == 2
+        counts["column0"] += col == 0
+        counts["end_rows"] += col == END
+        counts["entries"] += code == 3
+        counts["minus2"] += st == -2
+
+    while s > 0:
+        ending = finish != "none" and 2 * s <= T
+        if col == START:
+            put(0)
+        elif col == END:
+            put(0 if rng.random() < 0.97 else 2)
+        elif run:
+            run -= 1
+            put(2)
+        elif col >= 2:
+            u = rng.random()
+            if u < 0.004 and col >= 800:
+                run = int(rng.integers(300, 400)) - 1
+                counts["skip_runs"] += 1
+                put(2)
+            else:
+                put(0 if u < 0.45 else 1 if u < 0.8 else 2)
+        elif col == 1:
+            u = rng.random()
+            put(2 if u < 0.3 else 1 if u < 0.6 else 0)
+        elif ending and finish == "minus2":
+            put(2)
+        elif ending:
+            edge = (top - s) % m.WALK_ROWS
+            put(3 if edge == (0 if finish == "entry_first" else m.WALK_ROWS - 1)
+                else 0)
+        else:
+            stay = stay or int(rng.integers(1, 300))
+            stay -= 1
+            put(0 if stay else 1)
+    return final, moves, path, counts
+
+
+def check_seqmap_walk_planes() -> dict:
+    """The seqmap walk kernel on SEQMAP_WALK_PLANES' hand-made planes
+    (seqmap_walk_plane, plane k seeded (SEED, 51, k)): its path identical to seqmap_walk_plain's and to
+    the path the plane was made from; with each plane's events and the
+    walk's time (median of 5)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.ops import seqmap as m
+
+    out = {}
+    for k, (T, seqlen, finish) in enumerate(SEQMAP_WALK_PLANES):
+        final, moves, path, counts = seqmap_walk_plane(
+            T, seqlen, np.random.default_rng((SEED, 51, k)), finish)
+        fk = torch.as_tensor(final, device="cuda")
+        mk = torch.as_tensor(moves, device="cuda")
+        label = f"{T} x {seqlen}, {finish}"
+        pk = m.seqmap_walk(fk, mk, seqlen)
+        pp = m.seqmap_walk_plain(fk, mk, seqlen)
+        sync()
+        require(np.array_equal(pp.cpu().numpy(), path),
+                f"the hand-made plane's walk takes its path ({label})")
+        require(torch.equal(pk, pp),
+                f"seqmap_walk path identical on a hand-made plane ({label})")
+        out[label] = {"ms": cuda_ms(lambda: m.seqmap_walk(fk, mk, seqlen), reps=5),
+                      **counts}
+        del fk, mk
+    return out
+
+
 def check_seqmap_kernel(card: str) -> tuple[dict, dict]:
     """The seqmap and walk kernels against their twins (check_seqmap_case):
     on the edge cases (twins on the host), on the rgrgr_r94 posterior of a
@@ -3856,9 +4045,14 @@ def check_seqmap_kernel(card: str) -> tuple[dict, dict]:
         out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
     walk = {"T": T, "max_abs_err": 0.0, "plain_ms": out.pop("walk_plain_ms"),
             "ms": cuda_ms(lambda: m.seqmap_walk(final, moves, seqlen), reps=10),
+            "burst_ms": cuda_ms(lambda: m.seqmap_walk(final, moves, seqlen),
+                                reps=5, burst=10),
+            "latency_floor_ms": floor_ms(T - 1, WALK_FLOOR_CYCLES),
             "path_bytes": path.numel() * 4,
             "path_copy_ms": cuda_ms(lambda: path.cpu(), reps=5),
             **kernel_work("seqmap_walk", T=T)}
+    walk["us_per_block"] = walk["burst_ms"] * 1e3 / T
+    walk["planes"] = check_seqmap_walk_planes()
     emit({"phase": "seqmap_kernel", **out, "checked": checked, "walk": walk,
           "card": card})
     return out, walk
@@ -4950,7 +5144,10 @@ def time_checkout(checkout: pathlib.Path) -> None:
     Viterbi and forward, median of 10) on them with the bands of MAP_BAND,
     and the four MAP_CALLS of
     map_post_to_sequence on them (host clock, median of 3 after one call),
-    the head (time_head), the lattice losses (time_lattices) and the fast
+    the seqmap walk on the checkout's own DP's moves (alone, median of 10,
+    and in bursts of 10) and the DP with its walk (median of 10),
+    the head (time_head), the LSTM's big-S walk and a big-S training step
+    (time_lstm_big_s), the lattice losses (time_lattices) and the fast
     engine (time_engines). Prints one JSON line."""
     sys.path.insert(0, str(checkout))
     import numpy as np
@@ -5058,6 +5255,16 @@ def time_checkout(checkout: pathlib.Path) -> None:
         out["banded_forward_ms"] = cuda_ms(
             lambda: m.map_banded_tm(lp, *bargs, 0.0, 0.3, 4.0, viterbi=False),
             reps=10)
+        seqlen = states.shape[0]
+        final, moves = m.map_to_sequence_tm(lp, states, 0.0, 0.0, 4.0)
+        out[f"seqmap_walk_ms T = {lp.shape[0]}"] = cuda_ms(
+            lambda: m.seqmap_walk(final, moves, seqlen), reps=10)
+        out[f"seqmap_walk_burst_ms T = {lp.shape[0]}"] = cuda_ms(
+            lambda: m.seqmap_walk(final, moves, seqlen), reps=5, burst=10)
+        out["seqmap_viterbi_walk_ms"] = cuda_ms(
+            lambda: m.seqmap_walk(*m.map_to_sequence_tm(lp, states, 0.0, 0.0, 4.0),
+                                  seqlen), reps=10)
+        del final, moves
     del lp, states, bargs
     for what, kw in MAP_CALLS:
         api.map_post_to_sequence(post, ref, device="cuda", **kw)
@@ -5069,9 +5276,53 @@ def time_checkout(checkout: pathlib.Path) -> None:
         out[f"map_post_to_sequence_s {what}"] = statistics.median(seconds)
     with torch.inference_mode():
         out.update(time_head())
+    out.update(time_lstm_big_s())
     out.update(time_lattices())
     out.update(time_engines())
     print(json.dumps(out), flush=True)
+
+
+def time_lstm_big_s() -> dict:
+    """The imported scrappie_torch's LSTM big-S walk (ops/lstm.lstm_walk_pair,
+    both directions) at each LSTM_BIG_S_WALKS shape, T_BIG_S steps, on the
+    planes of its own big-S training forward (seeded weights of scale
+    S^-1/2; median of 5), and one training step of a big-S stage at the
+    first shape: ops/lstm.lstm_pair_tm on a [T_BIG_S, B, 96] input with
+    gradients wanted, forward and backward (the projection, the training
+    forward, the walk, dsW; median of 5)."""
+    import numpy as np
+    import torch
+
+    from scrappie_torch.ops import lstm as L
+
+    rng = np.random.default_rng(SEED + 93)
+    f = lambda *shape, scale=1.0: torch.as_tensor(
+        (scale * rng.standard_normal(shape)).astype(np.float32), device="cuda")
+    out = {}
+    T, C = T_BIG_S, 96
+    with torch.no_grad():
+        for S, B in LSTM_BIG_S_WALKS:
+            lw = [(f(S, 4 * S, scale=S ** -0.5), f(3 * S, scale=0.3)) for _ in "FB"]
+            planes = L.lstm_pair_train_cuda(f(T, B, 8 * S), *lw[0], *lw[1])[2:]
+            dirs = [(planes[0], f(T, B, S), *lw[0], False),
+                    (planes[1], f(T, B, S), *lw[1], True)]
+            out[f"lstm_big_s_walk_ms S = {S}, B = {B}, T = {T}"] = cuda_ms(
+                lambda: L.lstm_walk_pair(dirs), reps=5)
+            del planes, dirs
+    S, B = LSTM_BIG_S_WALKS[0]
+    x = f(T, B, C).requires_grad_(True)
+    ws = [[f(C, 4 * S, scale=C ** -0.5).requires_grad_(True),
+           f(4 * S, scale=0.1).requires_grad_(True),
+           f(S, 4 * S, scale=S ** -0.5).requires_grad_(True),
+           f(3 * S, scale=0.3).requires_grad_(True)] for _ in "FB"]
+    gh = (f(T, B, S), f(T, B, S))
+
+    def step():
+        hF, hB = L.lstm_pair_tm(x, ws[0], ws[1])
+        ((hF * gh[0]).sum() + (hB * gh[1]).sum()).backward()
+
+    out[f"lstm_big_s_train_step_ms S = {S}, B = {B}, T = {T}"] = cuda_ms(step, reps=5)
+    return out
 
 
 def time_engines() -> dict:
@@ -5677,15 +5928,14 @@ def check_precision_train(net, enet, card: str, pool) -> dict:
                             torch.stack([w[1] for w in walks]))
                 return lambda: L.lstm_walk_pair(dirs, cuda_r()), twin
 
-            return (precision_walk_case(name, make_train),
-                    precision_walk_case(name.replace("lstm_pair_train",
-                                                     "lstm_recurrence_bwd"), make_walk))
+            walk = L.WALK_MODES[L.walk_mode(w_f[0].shape[0])][0]
+            return precision_walk_case(name, make_train), precision_walk_case(walk, make_walk)
 
         out["lstm_pair_train"], out["lstm_recurrence_bwd"] = pair_case(
             "lstm_pair_train", xpair, wF[2:], wB[2:], ghs)
         del feats, xe, xpair, ghs
         lw = [(rnd(Sb, 4 * Sb, s=Sb ** -0.5), rnd(3 * Sb, s=0.1)) for _ in "FB"]
-        out["lstm_pair_train_global"], out["lstm_recurrence_bwd_global"] = pair_case(
+        out["lstm_pair_train_global"], out["lstm_recurrence_bwd_cluster"] = pair_case(
             "lstm_pair_train_global", rnd(Tb, Bb, 8 * Sb), lw[0], lw[1],
             [rnd(Tb, Bb, Sb) for _ in "FB"])
     emit({"phase": "precision_train", "part": "kernels",
@@ -6324,7 +6574,9 @@ def main() -> int:
                          "recurrence, its "
                          "backward walk and whole backward, the rnnrf fused "
                          "path, the seqmap "
-                         "DP, the banded DP, the DTW walk at 60 000 and "
+                         "DP, its walk and both, the banded DP, the LSTM's "
+                         "big-S walk and a big-S training step, the DTW "
+                         "walk at 60 000 and "
                          "3 000 samples, map_post_to_sequence, the head at K = 1 "
                          "and 3, B = 8 and 64 and the fast engine "
                          "(rgrgr_r94, 3:1:1) of OTHER_CHECKOUT and "

@@ -115,18 +115,45 @@
 // in one launch (blockIdx.y), each writing its 4S columns of a [T, B, 8S]
 // da, the pair projection's layout.
 //
-// Big-S walk (lstm_walk_global_kernel, S > 96): sW read from global memory
-// (L2), one block of 1024 threads a row and direction, two barriers a
-// step: a thread a unit takes the step's arithmetic from the planes in
-// global memory and keeps carry_c, its dpeep sums and da in shared memory;
-// then lanes of 8 an output take da @ sW^T from sW's rows (contiguous).
-// The same arithmetic, the product's sums in another order; a simple
-// kernel, for sizes above the shipped models'.
+// Big-S walk (lstm_walk_cluster_kernel, 96 < S <= 384): the register
+// walk spread over a thread-block cluster a row and direction, because one
+// SM's registers hold sW^T (4 S^2 weights) only up to S = 96. CTA c of
+// the cluster owns the units [c S / n, (c + 1) S / n) and keeps sW's rows
+// of them (sW^T's columns) in registers: a warp sums OUT units (4, or 2
+// above S = 160), lane l holding their rows l ROWS .. l ROWS + ROWS - 1
+// (ROWS = 4S / 32 rounded up to 4, above 20 to 8; 12 warps a CTA at the
+// most; n = 4 CTAs up to S = 160, 8 up to 192, 16 above: cluster_layout).
+// At most 64 or 80 of a lane's weights stay in registers (more spilled at
+// the 168 registers a thread that 12 warps leave), the rest of its tile
+// (4 rows a lane at S = 129-160, 24 at S = 321-384) in shared memory, read
+// beside da each step. The chain of
+// a step is the register walk's three operations on the carry, then each
+// lane writes its da entry (rounded by round_cotangent) into the da
+// buffer of its share of the cluster's CTAs by distributed shared memory
+// (a unit's gate sits in 8 or 16 lanes after the reduce-scatter, which
+// split the n stores), one cluster barrier (arrive.release, wait.acquire;
+// da double-buffered by the step's parity, so one barrier a step orders
+// both the writes and the next step's overwrite), and the product of the
+// whole da by the CTA's tile, a reduce-scatter of shuffles over the warp
+// (xor 16, 8, 4, 2, 1) and carry_h = round_result of it. Between the
+// arrive and the wait: da to global memory and the copies of a later
+// step's inputs (the CTA's units' planes and gh, 4-byte cp.async into a
+// ring CL_RING steps ahead); after the wait, beside the product, the next
+// step's coefficients. Rows and directions: a cluster each (grid n B x
+// ndir); clusters beyond what the card holds at once run in later waves.
+// dpeep: each unit's CTA writes its partial a row and direction (a double
+// sum), which ops/lstm.py sums over the rows (no atomics). Above S = 384
+// (lstm_walk_global_kernel, a mode chosen by S alone,
+// ops/lstm.walk_mode): sW read from global memory (L2), one block of 1024
+// threads a row and direction, two barriers a step: a thread a unit takes
+// the step's arithmetic from the planes in global memory and keeps
+// carry_c, its dpeep sums and da in shared memory; then lanes of 8 an
+// output take da @ sW^T from sW's rows (contiguous).
 //
 // Precision (template kRound, rounding.cuh): in 'default' and 'bf16' sW
 // is rounded once, where it is loaded into registers (on the integer
 // bits, round_weight_bits: the training mode spilled with a cvt there;
-// the big-S mode rounds each weight it reads from L2), and h where it is
+// the big-S modes round each weight they read from L2), and h where it is
 // written to
 // shared memory, which only the product reads (y gets the unrounded h).
 // The training forward is the same template in its training mode, so its
@@ -731,6 +758,318 @@ lstm_walk_global_kernel(BwdDir d0, BwdDir d1, long long poff,
           s_dp[r * S + u];
 }
 
+// ------------------------------------------------------------ cluster walk
+
+constexpr int CL_MAX_WARPS = 12;    // warps of a CTA
+constexpr int CL_MAX_CTAS = 16;     // CTAs of a cluster (16: non-portable)
+constexpr int CL_MAX_ROWS = 48;     // rows of da a lane (S up to 384)
+constexpr int CL_RING = 4;          // steps in the inputs' ring
+constexpr int CL_PLANES = 7;        // tanh(c), g, i, f, o, c at the next step, gh
+constexpr int CL_MAX_UNITS = 4 * CL_MAX_WARPS;  // units a CTA owns, at most
+constexpr int CL_MAX_PEERS = 4;     // CTAs a lane writes its da entry to
+static_assert((CL_RING & (CL_RING - 1)) == 0 && CL_RING >= 3, "the ring");
+
+// Outputs (units) a warp sums: 4 while a lane's rows of da are at most 20,
+// else 2. A lane's tile of sW^T (OUT x ROWS) stays in registers up to 64
+// weights (4 units) or 80 (2 units); a larger tile keeps 16 rows (4 units)
+// or 24 (2 units) there and the rest in shared memory (more spilled at the
+// kernel's 168 registers a thread, which also hold a lane's da loads).
+template <int ROWS>
+__host__ __device__ constexpr int cl_out() {
+  return ROWS <= 20 ? 4 : 2;
+}
+
+template <int ROWS>
+__host__ __device__ constexpr int cl_reg_rows() {
+  return ROWS * cl_out<ROWS>() <= (cl_out<ROWS>() == 4 ? 64 : 80)
+             ? ROWS
+             : (cl_out<ROWS>() == 4 ? 16 : 24);
+}
+
+// The cluster walk's layout of size S (ops/lstm.walk_cluster_layout): rows
+// of da a lane (4S over the warp's 32 lanes, rounded up to 4 up to 20,
+// else to 8), the cluster's CTAs (the fewest that keep a CTA's units
+// within CL_MAX_WARPS warps) and a CTA's warps. False above CL_MAX_ROWS
+// rows.
+bool cluster_layout(int S, int& ncta, int& warps, int& rows) {
+  rows = (4 * S + 31) / 32;
+  rows = rows <= 20 ? (rows + 3) / 4 * 4 : (rows + 7) / 8 * 8;
+  if (rows > CL_MAX_ROWS) return false;
+  const int out = rows <= 20 ? 4 : 2;
+  for (ncta = 2; ncta <= CL_MAX_CTAS; ncta *= 2) {
+    const int units = (S + ncta - 1) / ncta;
+    warps = (units + out - 1) / out;
+    if (warps <= CL_MAX_WARPS) return true;
+  }
+  return false;
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// A shared-memory address of this CTA -> the same address in CTA `rank`
+// of the cluster.
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The big-S walk on a cluster of ncta CTAs a row and direction (grid ncta
+// B x ndir; cluster_layout): CTA c owns the units [c S / ncta, (c + 1) S /
+// ncta) and holds sW's rows of them (sW^T's columns) in registers, a warp
+// OUT units, lane l of the warp rows l ROWS .. l ROWS + ROWS - 1 of sW^T
+// (zero past 4S), so a warp's reduce-scatter leaves unit o's carry_h in
+// its 32 / OUT lanes o 32 / OUT .., of which lane r (mod 4) takes gate r.
+// Each step a lane writes its da entry into the da buffers of its share
+// of the cluster's CTAs (distributed shared memory, double-buffered by the
+// step's parity), then one cluster barrier; the product reads the whole
+// da from its own CTA's buffer. The planes and gh of the CTA's units come
+// by 4-byte cp.async into a ring CL_RING steps ahead. dpeep: a partial a
+// unit, row and direction, written once by the unit's CTA.
+template <int ROWS, int kRound>
+__global__ void __launch_bounds__(32 * CL_MAX_WARPS, 1)
+lstm_walk_cluster_kernel(BwdDir d0, BwdDir d1, long long poff,
+                         float* __restrict__ da, int dcols,
+                         float* __restrict__ dpeep, int T, int B, int S,
+                         int ncta) {
+  constexpr int OUT = cl_out<ROWS>();
+  constexpr int RR = cl_reg_rows<ROWS>();  // rows of the tile in registers
+  constexpr int SR = ROWS - RR;            // and in shared memory
+  constexpr int LPO = 32 / OUT;     // lanes an output's sum ends in
+  constexpr int COPIES = LPO / 4;   // lanes holding each gate of a unit
+  constexpr int DA = 32 * (ROWS + 4);  // a da buffer: row j at da_at(j)
+  constexpr int NG = 5;             // planes tanh(c), g, i, f, o
+  __shared__ __align__(16) float s_da[2][DA];
+  __shared__ __align__(16) float s_in[CL_RING][CL_PLANES][CL_MAX_UNITS];
+  // dynamic: the tile's rows past RR, float4 c of output o of thread t at
+  // (c OUT + o) blockDim.x + t
+  extern __shared__ float4 s_w[];
+  // da row j (gate j / S of unit j % S) at j + 4 (j / ROWS): a lane's ROWS
+  // rows are contiguous and the lanes' float4 reads fall in 8 bank groups
+  auto da_at = [](int j) { return j + 4 * (j / ROWS); };
+  const BwdDir d = blockIdx.y ? d1 : d0;
+  const int S4 = 4 * S;
+  const int rank = (int)cluster_rank();
+  const int b = blockIdx.x / ncta;
+  const int first = rank * S / ncta;
+  const int units = (rank + 1) * S / ncta - first;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int u = warp * OUT + lane / LPO;  // the unit this lane ends with
+  const int r = lane & 3;                 // the gate it writes
+  const int copy = (lane % LPO) >> 2;     // which of the unit's COPIES
+  const bool live = u < units;
+  const int uc = min(u, units - 1);
+  const int k = first + uc;
+  // sW^T's tile: sW's rows of the warp's units, columns lane ROWS ..
+  float w[OUT][RR];
+#pragma unroll
+  for (int o = 0; o < OUT; ++o) {
+    const int ku = warp * OUT + o;
+    const bool ok = ku < units;
+    const float* row = d.sW + (size_t)(first + (ok ? ku : 0)) * S4 + lane * ROWS;
+    auto weight = [&](int i) {
+      return ok && lane * ROWS + i < S4 ? round_weight<kRound>(__ldg(row + i))
+                                        : 0.0f;
+    };
+#pragma unroll
+    for (int i = 0; i < RR; ++i) w[o][i] = weight(i);
+#pragma unroll 1
+    for (int c = 0; c < SR / 4; ++c)
+      s_w[(c * OUT + o) * blockDim.x + tid] =
+          make_float4(weight(RR + 4 * c), weight(RR + 4 * c + 1),
+                      weight(RR + 4 * c + 2), weight(RR + 4 * c + 3));
+  }
+  for (int i = tid; i < 2 * DA; i += blockDim.x) (&s_da[0][0])[i] = 0.0f;
+  const float p_in = __ldg(d.peep + k);
+  const float p_f = __ldg(d.peep + S + k);
+  const float p_out = __ldg(d.peep + 2 * S + k);
+  // Walk step n is the forward's step t = reverse ? n : T-1-n; the
+  // forward's step before it, t + ws, is the walk's next step.
+  const int ws = d.reverse ? 1 : -1;
+  const int t0 = d.reverse ? 0 : T - 1;
+  // This thread's copy of a step: plane p of unit e % units (e = tid), p <
+  // NG the forward's plane p + 1 past c, NG c at the walk's next step
+  // (zero-filled at the walk's last), NG + 1 gh.
+  const int cp_plane = tid / units, cp_unit = tid % units;
+  const bool copies = tid < CL_PLANES * units;
+  const float* src =
+      (cp_plane < NG ? d.c + (cp_plane + 1) * poff
+                     : cp_plane == NG ? d.c + (ptrdiff_t)ws * B * S : d.gh) +
+      (size_t)b * S + first + cp_unit;
+  auto fetch = [&](int n) {
+    if (copies && n < T) {
+      const bool none = n == T - 1 && cp_plane == NG;
+      cp_async_vec<1>(&s_in[n & (CL_RING - 1)][cp_plane][cp_unit],
+                      src + (none ? 0 : (ptrdiff_t)(t0 + ws * n) * B * S),
+                      none ? 0 : 4);
+    }
+    cp_async_commit();
+  };
+  auto coefficients = [&](int n, float c) -> WalkStep {
+    const float(*in)[CL_MAX_UNITS] = s_in[n & (CL_RING - 1)];
+    const float cp = in[NG][uc];
+    const LstmCoef co = lstm_coef(in[0][uc], in[1][uc], in[2][uc], in[3][uc],
+                                  in[4][uc], cp, p_in, p_f, p_out);
+    WalkStep st;
+    st.gh = in[NG + 1][uc];
+    st.x = r == 0 ? co.G : r == 1 ? co.I : r == 2 ? co.F : co.A;
+    st.bc = co.Bc;
+    st.kk = co.K;
+    st.pc = r == 0 ? 0.0f : r == 3 ? c : cp;
+    return st;
+  };
+  // this lane's da entry in the CTAs it writes: ranks copy, copy + COPIES, ..
+  const unsigned mine_at =
+      (unsigned)__cvta_generic_to_shared(&s_da[0][0]) + 4u * da_at(r * S + k);
+  unsigned peer[CL_MAX_PEERS];
+#pragma unroll
+  for (int q = 0; q < CL_MAX_PEERS; ++q) {
+    const int p = copy + q * COPIES;
+    peer[q] = p < ncta ? map_rank(mine_at, p) : 0u;
+  }
+#pragma unroll
+  for (int n = 0; n < CL_RING - 1; ++n) fetch(n);
+  cp_async_wait_mem<CL_RING - 2>();  // step 0's copies
+  cluster_arrive();  // and every CTA's zeros, before any peer writes them
+  cluster_wait();
+  WalkStep cur = coefficients(0, __ldg(d.c + ((size_t)t0 * B + b) * S + k));
+  float c_now = s_in[0][NG][uc];  // c at the walk's next step
+  float carry_h = 0.0f, carry_c = 0.0f;
+  double dp = 0.0;
+  float* dout = da + (size_t)S4 * blockIdx.y + ((size_t)t0 * B + b) * dcols +
+                r * S + k;
+  const float4* v4 = reinterpret_cast<const float4*>(&s_da[0][da_at(lane * ROWS)]);
+#pragma unroll 1
+  for (int n = 0; n < T; ++n) {
+    const int par = n & 1;
+    const float dh = __fadd_rn(carry_h, cur.gh);
+    const float dc = fmaf(dh, cur.bc, carry_c);
+    const float mine = __fmul_rn(r == 3 ? dh : dc, cur.x);
+    if (live) {
+      const float v = round_cotangent<kRound>(mine);
+#pragma unroll
+      for (int q = 0; q < CL_MAX_PEERS; ++q)
+        if (copy + q * COPIES < ncta) st_cluster(peer[q] + 4u * DA * par, v);
+    }
+    carry_c = __fmul_rn(dc, cur.kk);
+    dp = fma((double)mine, (double)cur.pc, dp);
+    cp_async_wait_mem<CL_RING - 3>();  // this thread's copies of n + 1
+    cluster_arrive();
+    if (live && copy == 0) *dout = mine;
+    dout += (ptrdiff_t)ws * B * dcols;
+    fetch(n + CL_RING - 1);  // into the slot of step n - 1
+    cluster_wait();
+    float p[OUT], p2[OUT];
+#pragma unroll
+    for (int o = 0; o < OUT; ++o) p[o] = p2[o] = 0.0f;
+    const float4* vb = v4 + par * (DA / 4);
+#pragma unroll
+    for (int cc = 0; cc < RR / 4; ++cc) {
+      const float4 v = vb[cc];
+#pragma unroll
+      for (int o = 0; o < OUT; ++o) {
+        p[o] = fmaf(v.x, w[o][4 * cc], p[o]);
+        p2[o] = fmaf(v.y, w[o][4 * cc + 1], p2[o]);
+        p[o] = fmaf(v.z, w[o][4 * cc + 2], p[o]);
+        p2[o] = fmaf(v.w, w[o][4 * cc + 3], p2[o]);
+      }
+    }
+    // (one float4 of da and OUT of the tile at a time: unrolled, their
+    // loads all went ahead of the FMAs and spilled)
+#pragma unroll 1
+    for (int cc = 0; cc < SR / 4; ++cc) {
+      const float4 v = vb[RR / 4 + cc];
+#pragma unroll
+      for (int o = 0; o < OUT; ++o) {
+        const float4 x = s_w[(cc * OUT + o) * blockDim.x + tid];
+        p[o] = fmaf(v.x, x.x, p[o]);
+        p2[o] = fmaf(v.y, x.y, p2[o]);
+        p[o] = fmaf(v.z, x.z, p[o]);
+        p2[o] = fmaf(v.w, x.w, p2[o]);
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < OUT; ++o) p[o] = __fadd_rn(p[o], p2[o]);
+    // the reduce-scatter: output lane / LPO's sum in its LPO lanes
+    float t;
+    if constexpr (OUT == 4) {
+      const bool h16 = lane & 16, h8 = lane & 8;
+      const float s0 = __fadd_rn(h16 ? p[2] : p[0],
+                                 __shfl_xor_sync(FULL, h16 ? p[0] : p[2], 16));
+      const float s1 = __fadd_rn(h16 ? p[3] : p[1],
+                                 __shfl_xor_sync(FULL, h16 ? p[1] : p[3], 16));
+      t = __fadd_rn(h8 ? s1 : s0, __shfl_xor_sync(FULL, h8 ? s0 : s1, 8));
+    } else {
+      const bool h16 = lane & 16;
+      t = __fadd_rn(h16 ? p[1] : p[0], __shfl_xor_sync(FULL, h16 ? p[0] : p[1], 16));
+      t = __fadd_rn(t, __shfl_xor_sync(FULL, t, 8));
+    }
+    t = __fadd_rn(t, __shfl_xor_sync(FULL, t, 4));
+    t = __fadd_rn(t, __shfl_xor_sync(FULL, t, 2));
+    t = __fadd_rn(t, __shfl_xor_sync(FULL, t, 1));
+    // (past the walk's end from a stale slot, and unused)
+    cur = coefficients(n + 1, c_now);
+    c_now = s_in[(n + 1) & (CL_RING - 1)][NG][uc];
+    carry_h = round_result<kRound>(t);
+  }
+  cp_async_wait_mem<0>();
+  if (live && copy == 0 && r > 0)
+    dpeep[((size_t)blockIdx.y * B + b) * 3 * S + (r - 1) * S + k] = (float)dp;
+}
+
+template <int ROWS, int kRound>
+int launch_cluster(BwdDir e0, BwdDir e1, long long poff, float* da, int dcols,
+                   float* dpeep, int ndir, int T, int B, int S, int ncta,
+                   int warps, cudaStream_t stream) {
+  auto kernel = lstm_walk_cluster_kernel<ROWS, kRound>;
+  constexpr int SR = ROWS - cl_reg_rows<ROWS>();
+  const int smem = SR / 4 * cl_out<ROWS>() * 32 * warps * (int)sizeof(float4);
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (ncta > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(ncta * B, ndir);
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncta;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, e0, e1, poff, da,
+                                             dcols, dpeep, T, B, S, ncta);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
 // The big-S forward over ndir directions (grid B x ndir).
 template <bool kTrain, int kRound = 0>
 int launch_global(const float* xproj, int xcols, Dir d0, Dir d1, int ndir,
@@ -816,7 +1155,9 @@ int scrappie_lstm_pair_train(const float* xproj, const float* sW_f,
 // and dpeep [ndir, B, 3S], each row's sums over time of da_i c_prev, da_f
 // c_prev and da_o c; all fp32, each plane contiguous, on the current
 // device. global = 0: sW in registers, S <= REG_MAX_S, sW0 and sW1 padded
-// to [REG_MAX_S, 4, REG_MAX_S] with zeros; global = 1: the big-S walk.
+// to [REG_MAX_S, 4, REG_MAX_S] with zeros; global = 1: the cluster walk,
+// REG_MAX_S < S <= 8 CL_MAX_ROWS (cluster_layout); global = 2: the big-S
+// walk from L2, any S whose 9S floats fit a block's shared memory.
 // rounding 0, 1 or 2: the forward's (none, TF32 or bfloat16 operands), the
 // carry's product rounded as rounding.cuh's round_cotangent and
 // round_result say. Returns a cudaError_t.
@@ -831,7 +1172,7 @@ int scrappie_lstm_recurrence_bwd(const float* c0, const float* gh0,
                                  cudaStream_t stream) {
   if (T == 0 || B == 0) return (int)cudaSuccess;
   if (S < 1 || ndir < 1 || ndir > 2 || dcols < 4 * S * ndir ||
-      (!global && S > REG_MAX_S))
+      global < 0 || global > 2 || (!global && S > REG_MAX_S))
     return (int)cudaErrorInvalidValue;
   const BwdDir e0{c0, gh0, sW0, peep0, reverse0};
   const BwdDir e1{c1, gh1, sW1, peep1, reverse1};
@@ -839,8 +1180,26 @@ int scrappie_lstm_recurrence_bwd(const float* c0, const float* gh0,
   const auto aligned = [](const void* p) { return (size_t)p % 16 == 0; };
   const bool vec4 = S % 4 == 0 && poff % 4 == 0 && aligned(c0) &&
                     aligned(c1) && aligned(gh0) && aligned(gh1);
+  int ncta = 0, warps = 0, rows = 0;
+  if (global == 1 && (S <= REG_MAX_S || !cluster_layout(S, ncta, warps, rows)))
+    return (int)cudaErrorInvalidValue;
   return with_rounding(rounding, [&](auto r) {
     constexpr int R = decltype(r)::value;
+    if (global == 1) {
+      auto go = [&](auto fn) {
+        return fn(e0, e1, poff, da, dcols, dpeep, ndir, T, B, S, ncta, warps,
+                  stream);
+      };
+      switch (rows) {
+        case 16: return go(launch_cluster<16, R>);
+        case 20: return go(launch_cluster<20, R>);
+        case 24: return go(launch_cluster<24, R>);
+        case 32: return go(launch_cluster<32, R>);
+        case 40: return go(launch_cluster<40, R>);
+        case 48: return go(launch_cluster<48, R>);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
     if (global) {
       const size_t smem = sizeof(float) * 9 * (size_t)S;
       cudaError_t err = cudaFuncSetAttribute(

@@ -66,13 +66,34 @@
 // host walk of scrappie_tpu/decode/mapping.py:map_to_sequence_viterbi,
 // with its quirks: the last position only if its final beats END's
 // strictly, START and END written as -1, a state of -1 or -2 read as
-// column seqlen + 1 or seqlen). Going back, the column falls by 0, 1 or 2
-// a block, so the next WALK_ROWS rows' bytes lie in the 65 bytes up to
-// the current column, inside an aligned window of 80: one warp loads the
-// windows in one go (16 bytes a lane), lane 0 walks them in shared memory,
-// the warp writes the path. The window breaks only where the walk jumps
-// up (an entry to START, a negative state), and a walk in START stays
-// there: the rest is -1.
+// column seqlen + 1 or seqlen, move 3 to START, and a walk in START
+// staying there, since the DP writes START's move as 0). What bounds it:
+// latency. A block's move decides which byte of the next (earlier) row to
+// read, and a walk that reads the plane itself waits a device-memory round
+// trip a block; the bound, a byte a block and the path, is 0.00002 ms.
+// The floor of this design is a block's chain: a shared-memory load of its
+// byte and one add.
+//
+// Design (csrc/dtw.cu's walk, with one kind of state): three warps, one
+// walking, two copying. Going back, the column falls by 0, 1 or 2 a block
+// (about seqlen / T = 0.5 on a read) until an entry to START or a step
+// below column 0. A window holds WALK_ROWS rows of the WALK_PIECES 16-byte
+// pieces from walk_lo(col) (ops/seqmap.walk_window): every column the walk
+// can reach from col in 2 WALK_ROWS rows. At a window's first row the
+// walker asks the copier warps, through a named barrier, for the next
+// window anchored at its column then; they fill the other buffer (cp.async)
+// while the walk goes on and signal through a second barrier, which the
+// walker waits for at the window's end. So stays, steps and skips never
+// leave the windows, and a window never misses the walk. They go
+// WALK_BATCH rows a check: each row's byte is loaded at the column the
+// byte before leads to, so the chain is the load and an add, and one test
+// of the batch's bytes (an entry, or any byte above 2) and of its last
+// column (below the window: a state below 0) follows; such a batch is
+// walked a row at a time. An entry, a state below 0 and any byte no DP
+// writes take an exact step as the host walk takes it; START ends the walk
+// (the rest is -1), and any other state (END, after a step below column
+// 0) loads a window anchored there on the walker. The windows' rows are
+// 16-byte aligned (the rows of `moves` are padded to 16 bytes).
 //
 // The banded DP (no TPU kernel: the lax.scan of
 // scrappie_tpu/decode/mapping.py:_map_banded; wrapper map_banded_tm, twin
@@ -139,8 +160,16 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_THREADS = 1024;
 constexpr int WARP = 32;
 constexpr int RING = 8;       // posterior rows in the shared-memory ring
-constexpr int WALK_ROWS = 32; // rows a walk window covers
-constexpr int WALK_SPAN = 80; // bytes of a row a walk window covers
+constexpr int WALK_ROWS = 128;                // rows a walk window holds
+constexpr int WALK_FALL = 4 * WALK_ROWS - 2;  // columns a walk falls in two
+constexpr int WALK_PIECES = 33;  // 16-byte pieces that enclose WALK_FALL + 1
+constexpr int WALK_PITCH = 16 * WALK_PIECES;  // bytes of a window's row
+constexpr int WALK_BATCH = 8;                 // rows a check
+constexpr int WALK_PAD = 2048;  // bytes before the windows: 8 x 255 below
+constexpr int WALK_COPIERS = 2;               // warps copying windows
+constexpr int WALK_THREADS = WARP * (1 + WALK_COPIERS);
+static_assert(WALK_PIECES == (WALK_FALL + 15) / 16 + 1,
+              "a window's pieces hold its fall at any alignment");
 constexpr int GLOBAL_RUN = 4; // states a thread in the global-memory mode
 constexpr int BAND_WARP_MAX = 256; // widest band of the warp mode: 8 a lane
 constexpr int BAND_DEPTH = 32;     // plane rows in the warp mode's ring
@@ -466,59 +495,200 @@ seqmap_kernel(const float* __restrict__ lp, const int* __restrict__ seqstates,
     if (base + i < n) final_[base + i] = s[i];
 }
 
-__global__ void __launch_bounds__(WARP)
+// The walk's window of columns anchored at column col: the 16-byte pieces
+// from walk_lo(col) on, at most WALK_PIECES and none past the row's ld
+// bytes, hold every column the walk can read in the WALK_ROWS rows from
+// col's row and in the WALK_ROWS rows after them (a fall of at most 2 a
+// row: down to col - WALK_FALL).
+__device__ __forceinline__ int walk_lo(int col) {
+  return max(col - WALK_FALL, 0) & ~15;
+}
+
+// The named barriers between the walking warp and the copying warps: a
+// request (the walker arrives, the copiers wait) and its copy done (the
+// copiers arrive, the walker waits).
+constexpr int BAR_REQUEST = 1;
+constexpr int BAR_DONE = 2;
+
+__device__ __forceinline__ void bar_wait(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WALK_THREADS) : "memory");
+}
+
+__device__ __forceinline__ void bar_signal(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(WALK_THREADS) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared_u8(unsigned addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u8 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// Rows top, top - 1, ... (WALK_ROWS of them, none below row 1) of the
+// moves' bytes [lo, lo + 16 pieces) into the window w [WALK_ROWS]
+// [WALK_PITCH], by cp.async from threads id = 0 .. nthreads - 1, each
+// waiting for its own copies.
+__device__ __forceinline__ void copy_window(uint8_t* w,
+                                            const uint8_t* __restrict__ moves,
+                                            int top, int lo, int ld, int id,
+                                            int nthreads) {
+  const int pieces = min(WALK_PIECES, (ld - lo) >> 4);
+  const int rows = min(WALK_ROWS, top);
+  for (int e = id; e < rows * pieces; e += nthreads) {
+    const int r = e / pieces, c = e - r * pieces;
+    __pipeline_memcpy_async(w + r * WALK_PITCH + 16 * c,
+                            moves + (size_t)(top - r) * ld + lo + 16 * c, 16);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+// The Viterbi path from the final scores and the moves (see the header):
+// warp 0 walks, warps 1 .. WALK_COPIERS copy the next window. Dynamic
+// shared memory: WALK_PAD bytes, two windows [WALK_ROWS][WALK_PITCH], then
+// WALK_PITCH bytes (walk_smem_bytes).
+__global__ void __launch_bounds__(WALK_THREADS)
 seqmap_walk_kernel(const float* __restrict__ final_,
                    const uint8_t* __restrict__ moves, int* __restrict__ path,
                    int T, int seqlen, int ld) {
-  __shared__ __align__(16) uint8_t win[WALK_ROWS][WALK_SPAN];
-  __shared__ int out[WALK_ROWS];
-  const int lane = threadIdx.x;
+  extern __shared__ __align__(16) uint8_t wsm[];
+  __shared__ int req_top, req_lo, req_buf;  // the copiers' request
+  uint8_t* win = wsm + WALK_PAD;
+  const int lane = threadIdx.x & 31;
   const int n = seqlen + 2;
   const int START = seqlen;
   const int END = seqlen + 1;
-  auto shown = [&](int state) {
-    return state == START || state == END ? -1 : state;
-  };
-  int cur = final_[seqlen - 1] > final_[END] ? seqlen - 1 : END;
-  if (lane == 0) path[T - 1] = shown(cur);
-  int t = T - 1;  // path[t] = cur is written; tb[t, cur] gives path[t-1]
-  while (t > 0) {
-    const int col = cur < 0 ? cur + n : cur;
-    if (col == START) {  // START's predecessor is START
-      for (int i = lane; i < t; i += WARP) path[i] = -1;
-      break;
+  if (threadIdx.x >= WARP) {  // the copiers: each request's window, then done
+    for (;;) {
+      bar_wait(BAR_REQUEST);
+      const int top = req_top;
+      if (top < 0) return;
+      copy_window(win + req_buf * WALK_ROWS * WALK_PITCH, moves, top, req_lo,
+                  ld, threadIdx.x - WARP, WALK_THREADS - WARP);
+      bar_signal(BAR_DONE);
     }
-    const int lo = max(col - 2 * WALK_ROWS, 0) & ~15;
-    const int pieces = (((col + 16) & ~15) - lo) >> 4;
-    const int nrows = min(WALK_ROWS, t);
-    constexpr int PER_ROW = WALK_SPAN / 16;
-    for (int i = lane; i < nrows * PER_ROW; i += WARP) {
-      const int r = i / PER_ROW;
-      const int c = i % PER_ROW;
-      if (c < pieces)
-        *reinterpret_cast<uint4*>(&win[r][16 * c]) = __ldg(
-            reinterpret_cast<const uint4*>(moves + (size_t)(t - r) * ld + lo) + c);
-    }
-    __syncwarp();
-    int done = 0;
-    if (lane == 0) {
-      int c = col;
-      const int hi = lo + 16 * pieces;
-      while (done < nrows) {
-        const int move = win[done][c - lo];
-        cur = move == 3 ? START : c - move;
-        out[done++] = shown(cur);
-        c = cur < 0 ? cur + n : cur;
-        if (c < lo || c >= hi) break;  // the walk left the window
-      }
-    }
-    done = __shfl_sync(FULL, done, 0);
-    cur = __shfl_sync(FULL, cur, 0);
-    __syncwarp();
-    if (lane < done) path[t - 1 - lane] = out[lane];
-    t -= done;
-    __syncwarp();
   }
+  // warp 0, the walker: every lane walks (the same values), lane 0 writes
+  auto shown = [&](int st) { return st >= START ? -1 : st; };
+  bool pending = false;  // a request whose done is not yet waited for
+  auto request = [&](int top, int lo, int b) {
+    if (pending) bar_wait(BAR_DONE);
+    if (lane == 0) {
+      req_top = top;
+      req_lo = lo;
+      req_buf = b;
+    }
+    __syncwarp();
+    bar_signal(BAR_REQUEST);
+    pending = top >= 0;
+  };
+  int col = final_[seqlen - 1] > final_[END] ? seqlen - 1 : END;
+  if (lane == 0) path[T - 1] = shown(col);
+  int s = T - 1;  // path[s] is written; row s's byte at col gives path[s-1]
+  const unsigned base = (unsigned)__cvta_generic_to_shared(win);
+  int buf = 0, top = 0, lo = 0, next_lo = 0;
+  bool fresh = true;  // the walk needs a window anchored at col, at row s
+  while (s > 0) {
+    if (fresh) {  // loaded by the walker, which waits for it
+      top = s;
+      lo = walk_lo(col);
+      __syncwarp();
+      copy_window(win + buf * WALK_ROWS * WALK_PITCH, moves, top, lo, ld, lane,
+                  WARP);
+      __syncwarp();
+      fresh = false;
+    }
+    // the next window, anchored at the walk's column now, into the other
+    // buffer by the copiers while this one is walked
+    if (top - WALK_ROWS >= 1) {
+      next_lo = walk_lo(col);
+      request(top - WALK_ROWS, next_lo, buf ^ 1);
+    }
+    const int rows = min(WALK_ROWS, top);  // rows top .. top - rows + 1
+    int i = top - s;                       // the window's row of row s
+    int L = col - lo;
+    const unsigned rows0 = base + (unsigned)(buf * WALK_ROWS * WALK_PITCH);
+    unsigned a = rows0 + (unsigned)(i * WALK_PITCH + L);  // row i's byte at L
+    uint32_t b = ld_shared_u8(a);
+    int* out = path + s - 1;  // where the next state goes
+    // Stays, steps and skips, WALK_BATCH rows a check: each row's byte is
+    // loaded at the column the byte before leads to (the chain is the load
+    // and one add), then one test of the batch's bytes and of its last
+    // column: a batch with a byte above 2 (an entry) or a column below the
+    // window (a state below 0) is walked a row at a time. A rejected
+    // batch's loads stay within the pads around the windows.
+    while (i + WALK_BATCH <= rows) {
+      uint32_t bb[WALK_BATCH + 1];
+      unsigned ak = a;
+      bb[0] = b;
+#pragma unroll
+      for (int k = 1; k <= WALK_BATCH; ++k) {
+        ak = ak + WALK_PITCH - bb[k - 1];
+        bb[k] = ld_shared_u8(ak);
+      }
+      uint32_t top_byte = 0;
+      int fall = 0;
+#pragma unroll
+      for (int k = 0; k < WALK_BATCH; ++k) {
+        top_byte = max(top_byte, bb[k]);
+        fall += (int)bb[k];
+      }
+      if ((top_byte > 2) | (L - fall < 0)) break;
+      if (lane == 0) {
+        int c = lo + L;
+#pragma unroll
+        for (int k = 0; k < WALK_BATCH; ++k) {
+          c -= (int)bb[k];
+          out[-k] = shown(c);
+        }
+      }
+      out -= WALK_BATCH;
+      s -= WALK_BATCH;
+      i += WALK_BATCH;
+      L -= fall;
+      a = ak;
+      b = bb[WALK_BATCH];
+    }
+    bool exact = false;
+    while (i < rows) {
+      const int Ln = L - (int)b;
+      if ((b > 2) | (Ln < 0)) {
+        exact = true;
+        break;
+      }
+      if (lane == 0) *out = shown(lo + Ln);
+      --out;
+      --s;
+      ++i;
+      L = Ln;
+      a += WALK_PITCH - b;
+      if (i < rows) b = ld_shared_u8(a);
+    }
+    col = lo + L;
+    if (exact) {
+      // the step as the host walk takes it: an entry goes to START, a
+      // state below 0 is read as column n + state
+      const int st = b == 3 ? START : col - (int)b;
+      --s;
+      if (lane == 0) path[s] = shown(st);
+      col = st < 0 ? st + n : st;
+      if (col == START) {  // START's predecessor is START (the DP's move 0)
+        for (int k = lane; k < s; k += WARP) path[k] = -1;
+        break;
+      }
+      col = min(max(col, 0), n - 1);  // (only a byte no DP writes leaves it)
+      fresh = true;
+      continue;
+    }
+    if (s == 0) break;
+    // the window's end: the copiers' window holds row s and column col
+    bar_wait(BAR_DONE);
+    pending = false;
+    buf ^= 1;
+    top = s;
+    lo = next_lo;
+  }
+  request(-1, 0, 0);  // the copiers leave
 }
 
 // lp [T, nst]; seqstates [seqlen]; bands [2, T] int32 (low, then high);
@@ -905,7 +1075,12 @@ int scrappie_seqmap(const float* lp, const int* seqstates, float* scratch,
 int scrappie_seqmap_walk(const float* final_, const uint8_t* moves, int* path,
                          int T, int seqlen, int ld, cudaStream_t stream) {
   if (T == 0) return (int)cudaSuccess;
-  seqmap_walk_kernel<<<1, WARP, 0, stream>>>(final_, moves, path, T, seqlen, ld);
+  const int smem = WALK_PAD + 2 * WALK_ROWS * WALK_PITCH + WALK_PITCH;
+  const cudaError_t err = cudaFuncSetAttribute(
+      seqmap_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  seqmap_walk_kernel<<<1, WALK_THREADS, smem, stream>>>(final_, moves, path, T,
+                                                        seqlen, ld);
   return (int)cudaGetLastError();
 }
 

@@ -43,6 +43,7 @@ LAUNCHES: dict[str, int] = {
     "lstm_pair_train": 0,
     "lstm_pair_train_global": 0,
     "lstm_recurrence_bwd": 0,
+    "lstm_recurrence_bwd_cluster": 0,
     "lstm_recurrence_bwd_global": 0,
     "lattice_fwdbwd": 0,
     "crf_lattice_fwdbwd": 0,

@@ -33,9 +33,12 @@ S <= REGISTER_MAX_S; counted as "lstm_recurrence_bwd") and on the CPU its
 plain twin `lstm_walk_plain`, returns da and each row's dpeep partials,
 summed here; dsW is one product over h and da offset by a step
 (torch.matmul, as XLA computes it outside any kernel in the JAX package's
-VJP of nn/rnn.lstm's scan). Above REGISTER_MAX_S the training forward and
-the walk run their big-S modes, sW read from L2 ("lstm_pair_train_global",
-"lstm_recurrence_bwd_global"). Training runs in every precision mode:
+VJP of nn/rnn.lstm's scan). Above REGISTER_MAX_S the training forward
+runs its big-S mode, sW read from L2 ("lstm_pair_train_global"), and the
+walk its cluster mode, sW^T spread over the registers of a cluster of CTAs
+a row and direction ("lstm_recurrence_bwd_cluster"), up to CLUSTER_MAX_S,
+and above it its walk from L2 ("lstm_recurrence_bwd_global"; `walk_mode`).
+Training runs in every precision mode:
 LstmPair keeps its forward's rounding (nn/config.kernel_rounding), the
 training forward rounds as the inference launch does (the same h bit for
 bit), the walk's carry R(da @ sW_r^T) rounds as nn/config.grad_matmul
@@ -46,6 +49,7 @@ the steps (nn/config.weight_grad).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -58,6 +62,18 @@ from scrappie_torch.ops.project import Project, check_project_input, project_tm
 #: The largest S whose recurrence keeps sW in registers (REG_MAX_S in
 #: csrc/lstm.cu); above it the big-S mode reads sW from L2.
 REGISTER_MAX_S = 96
+#: The backward walk's cluster mode (csrc/lstm.cu lstm_walk_cluster_kernel)
+#: above REGISTER_MAX_S: a lane's rows of da at most CLUSTER_MAX_ROWS (4S
+#: over a warp's 32 lanes, rounded up), a CTA's warps at most
+#: CLUSTER_MAX_WARPS, a cluster's CTAs at most CLUSTER_MAX_CTAS; so S up to
+#: CLUSTER_MAX_S. The kernel's launch bounds cap a thread at
+#: CLUSTER_MAX_REGISTERS registers, of which a lane's tile of sW^T takes at
+#: most 80 (the rest of a larger tile lies in shared memory).
+CLUSTER_MAX_ROWS = 48
+CLUSTER_MAX_WARPS = 12
+CLUSTER_MAX_CTAS = 16
+CLUSTER_MAX_S = 8 * CLUSTER_MAX_ROWS
+CLUSTER_MAX_REGISTERS = 65536 // (32 * CLUSTER_MAX_WARPS) // 8 * 8
 
 
 def lstm_layer_tm_plain(x_tm, iW, b, sW, peep, reverse: bool = False,
@@ -230,10 +246,63 @@ def lstm_pair_recurrence_cuda(xproj, sW_f, peep_f, sW_b, peep_b):
 TRAIN_PLANES = 6
 
 
+class WalkClusterLayout(NamedTuple):
+    ncta: int         # CTAs of a row and direction's cluster
+    units: int        # units a CTA owns, at most (CTA c: [c S / ncta, (c+1) S / ncta))
+    out: int          # units a warp sums
+    warps: int        # warps of a CTA: units / out, rounded up
+    rows: int         # rows of da (of sW^T) a lane holds, zero past 4S
+    weights: int      # sW^T's weights a lane holds in registers
+    shared_rows: int  # rows of its tile a lane keeps in shared memory
+
+
+def walk_cluster_layout(S: int) -> WalkClusterLayout | None:
+    """The cluster walk's layout at size S (csrc/lstm.cu cluster_layout,
+    cl_out, cl_reg_rows): rows = 4S / 32 rounded up to 4 up to 20, else
+    to 8; a warp sums 4 units while rows <= 20, else 2; a lane's tile in
+    registers up to 64 weights (4 units) or 80 (2 units), else its first
+    16 or 24 rows there and the rest in shared memory; the fewest CTAs
+    (2, 4, 8 or 16) whose units fit CLUSTER_MAX_WARPS warps. None above
+    CLUSTER_MAX_ROWS rows."""
+    rows = -(-4 * S // 32)
+    rows = -(-rows // 4) * 4 if rows <= 20 else -(-rows // 8) * 8
+    if rows > CLUSTER_MAX_ROWS:
+        return None
+    out = 4 if rows <= 20 else 2
+    reg_rows = rows if rows * out <= (64 if out == 4 else 80) else 16 if out == 4 else 24
+    ncta = 2
+    while ncta <= CLUSTER_MAX_CTAS:
+        units = -(-S // ncta)
+        warps = -(-units // out)
+        if warps <= CLUSTER_MAX_WARPS:
+            return WalkClusterLayout(ncta, units, out, warps, rows,
+                                     out * reg_rows, rows - reg_rows)
+        ncta *= 2
+    return None
+
+
+def walk_mode(S: int) -> str:
+    """The backward walk's mode, chosen by S alone: "registers" (S <=
+    REGISTER_MAX_S, lstm_recurrence_bwd_kernel), "cluster" (up to
+    CLUSTER_MAX_S, lstm_walk_cluster_kernel) or "global" (above: sW from
+    L2, lstm_walk_global_kernel)."""
+    if lstm_in_registers(S):
+        return "registers"
+    return "cluster" if S <= CLUSTER_MAX_S else "global"
+
+
+#: The walk's counter and the C entry point's mode code, by walk_mode.
+WALK_MODES = {"registers": ("lstm_recurrence_bwd", 0),
+              "cluster": ("lstm_recurrence_bwd_cluster", 1),
+              "global": ("lstm_recurrence_bwd_global", 2)}
+
+
 def check_walk_size(S: int) -> bool:
     """Raise unless the training forward and the backward walk take size S;
-    return whether they run their big-S modes (S > REGISTER_MAX_S: sW read
-    from L2, the walk 9S floats of shared memory)."""
+    return whether they run their big-S modes (S > REGISTER_MAX_S: the
+    forward reads sW from L2; the walk runs `walk_mode(S)`, its cluster
+    mode up to CLUSTER_MAX_S and sW from L2 above, 9S floats of shared
+    memory)."""
     if 4 * 9 * S > ops.MAX_SMEM_BYTES:
         raise ValueError(f"the LSTM's big-S backward walk needs 9S floats "
                          f"of shared memory, S = {S}; a block may use "
@@ -342,11 +411,14 @@ def lstm_walk_pair(dirs, rounding=None):
     each as `lstm_walk_plain` takes them, the carry's products rounded
     for `rounding` -> (da [T, B, 4S * len(dirs)], the directions' columns
     side by side (the layout of the pair's projection); dpeep [len(dirs),
-    B, 3S], each row's partial sums). On the card the kernel
-    lstm_recurrence_bwd_kernel over a grid of len(dirs) x B blocks,
-    counted once as "lstm_recurrence_bwd" (above REGISTER_MAX_S its
-    big-S mode, "lstm_recurrence_bwd_global"); the directions' planes must
-    lie equally far apart. On the CPU the twin, a direction at a time."""
+    B, 3S], each row's partial sums). On the card one launch, counted once
+    by `walk_mode(S)`: lstm_recurrence_bwd_kernel over a grid of len(dirs)
+    x B blocks ("lstm_recurrence_bwd"); above REGISTER_MAX_S
+    lstm_walk_cluster_kernel, a cluster of `walk_cluster_layout(S).ncta`
+    CTAs a row and direction ("lstm_recurrence_bwd_cluster"); above
+    CLUSTER_MAX_S the walk from L2 ("lstm_recurrence_bwd_global"). The
+    directions' planes must lie equally far apart. On the CPU the twin, a
+    direction at a time."""
     tensors = [t for d in dirs for t in d[:4]]
     if not ops.on_cuda(*tensors):
         walks = [lstm_walk_plain(*d, rounding) for d in dirs]
@@ -374,12 +446,12 @@ def lstm_walk_pair(dirs, rounding=None):
     sWs = [d[2] if big else _padded(d[2]) for d in (d0, d1)]
     ptrs = lambda d, sW: (d[0].data_ptr(), d[1].data_ptr(), sW.data_ptr(),
                           d[3].data_ptr(), int(d[4]))
-    name = "lstm_recurrence_bwd_global" if big else "lstm_recurrence_bwd"
+    name, mode = WALK_MODES[walk_mode(S)]
     with torch.cuda.device(da.device):
         err = _build.library().scrappie_lstm_recurrence_bwd(
             *ptrs(d0, sWs[0]), *ptrs(d1, sWs[1]), poff, da.data_ptr(),
             4 * S * n,
-            dpeep.data_ptr(), n, T, B, S, int(big),
+            dpeep.data_ptr(), n, T, B, S, mode,
             config.rounding_code(rounding), ctypes.c_void_p(ops.stream_handle()))
         _build.check(err, name)
     ops.LAUNCHES[name] += 1

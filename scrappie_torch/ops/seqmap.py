@@ -75,6 +75,15 @@ BAND_DEPTH = 32
 BAND_BATCH = 8
 BAND_HEADER = 4
 STAY, STEP, SKIP, ENTRY = 0, 1, 2, 3
+#: The walk kernel's windows: rows a window holds, the columns the walk can
+#: fall across a window and the next (2 a row), the 16-byte pieces of a
+#: window's row that hold that fall at any alignment, and the bytes before
+#: the two windows (a rejected batch's reads, 8 x 255 below a row).
+WALK_ROWS = 128
+WALK_FALL = 4 * WALK_ROWS - 2
+WALK_PIECES = (WALK_FALL + 15) // 16 + 1
+WALK_PITCH = 16 * WALK_PIECES
+WALK_PAD = 2048
 
 
 class SeqmapLayout(NamedTuple):
@@ -122,6 +131,23 @@ def shared_bytes(nst: int) -> int:
     """Dynamic shared memory of the seqmap kernel: the ring and the warps'
     edges (two float pairs a warp)."""
     return ring_bytes(nst) + 8 * 2 * 32
+
+
+def walk_window(col: int, ld: int) -> tuple[int, int]:
+    """The walk kernel's window anchored at column col of rows of ld
+    bytes: (lo, pieces), its bytes [lo, lo + 16 pieces) of each row. lo is
+    16-byte aligned and at most col - WALK_FALL (0 at the least), so the
+    window holds every column the walk can reach from col in 2 WALK_ROWS
+    rows, falling 2 a row at the most (csrc/seqmap.cu walk_lo)."""
+    lo = max(col - WALK_FALL, 0) & ~15
+    return lo, min(WALK_PIECES, (ld - lo) // 16)
+
+
+def walk_smem_bytes() -> int:
+    """Dynamic shared memory of the walk kernel: WALK_PAD bytes, two
+    windows of WALK_ROWS rows of WALK_PITCH bytes, and a row's bytes after
+    them (the look-ahead of a batch that ends a window)."""
+    return WALK_PAD + 2 * WALK_ROWS * WALK_PITCH + WALK_PITCH
 
 
 class BandedLayout(NamedTuple):
@@ -356,8 +382,9 @@ def check_walk_input(final, moves, seqlen: int) -> None:
 def seqmap_walk(final, moves, seqlen: int):
     """The Viterbi path [T] int32 of a posterior map from its final scores
     [seqlen+2] and moves [T, move_stride(seqlen)] uint8: on a CUDA tensor
-    the walk kernel of csrc/seqmap.cu, which leaves the moves on the card,
-    else `seqmap_walk_plain`."""
+    the walk kernel of csrc/seqmap.cu, which leaves the moves on the card
+    and walks windows of them (`walk_window`) in shared memory, else
+    `seqmap_walk_plain`."""
     if not ops.on_cuda(final, moves):
         return seqmap_walk_plain(final, moves, seqlen)
     from scrappie_torch.ops import _build

@@ -204,13 +204,14 @@ def test_padded_weights_for_the_register_walk():
     assert tlstm._padded(full) is full
 
 
-@pytest.mark.parametrize("S", [96, 128])
+@pytest.mark.parametrize("S", [96, 100, 128])
 def test_lstm_pair_matches_jax_vjp(S):
     """LstmPair (the training forward's planes, one walk over both
     directions, dsW by one product a direction, dpeep from the partials):
     dx, dsW and dpeep against jax.vjp of scrappie_tpu.nn.rnn.lstm forwards
     on the first 4S columns and backwards on the others, at S = 96 (the
-    register kernels' size) and S = 128 (the big-S modes')."""
+    register kernels' size), S = 100 (the big-S modes', not a multiple of
+    8: the cluster walk's rows end past 4S) and S = 128."""
     T, B = 9, 2
     rng = np.random.default_rng(80 + S)
     f = lambda *shape, s=1.0: (s * rng.standard_normal(shape)).astype(np.float32)
@@ -232,3 +233,60 @@ def test_lstm_pair_matches_jax_vjp(S):
     names = ("dx", "dsW_f", "dpeep_f", "dsW_b", "dpeep_b")
     for name, leaf, w in zip(names, leaves, want):
         assert_rel_close(leaf.grad, w, LSTM_RTOL, name)
+
+
+# The cluster walk's static shared memory (csrc/lstm.cu
+# lstm_walk_cluster_kernel): two da buffers of 32 (rows + 4) floats and the
+# inputs' ring of 4 steps x 7 planes x 48 units; its dynamic shared memory
+# holds each thread's rows of its tile past those in registers.
+CLUSTER_RING_FLOATS = 4 * 7 * 48
+
+
+def test_walk_cluster_layout():
+    """ops/lstm.walk_cluster_layout at every S from 97 to 400: in the
+    cluster mode exactly where walk_mode says it (the big-S sizes up to
+    CLUSTER_MAX_S, which check_walk_size sends to the big-S modes); its
+    CTAs' slices [c S / ncta, (c + 1) S / ncta) and each CTA's warps own
+    each unit once; a warp's lanes hold every one of the 4S rows of sW^T;
+    at most 16 CTAs, 12 warps and 80 weights a lane in registers (with the
+    kernel's other registers within its launch bounds' cap, at most 255),
+    the buffers within a block's static shared memory and the rest of the
+    tiles within its dynamic shared memory."""
+    for S in range(97, 401):
+        check_cluster_layout(S)
+
+
+def check_cluster_layout(S: int) -> None:
+    layout = tlstm.walk_cluster_layout(S)
+    assert tlstm.check_walk_size(S) is True
+    assert tlstm.walk_mode(S) == ("cluster" if S <= tlstm.CLUSTER_MAX_S else "global")
+    assert (layout is not None) == (tlstm.walk_mode(S) == "cluster")
+    if layout is None:
+        assert 32 * tlstm.CLUSTER_MAX_ROWS < 4 * S
+        return
+    owners = np.zeros(S, np.int64)
+    for c in range(layout.ncta):
+        first, last = c * S // layout.ncta, (c + 1) * S // layout.ncta
+        assert 1 <= last - first <= layout.units
+        owned = [first + w * layout.out + o for w in range(layout.warps)
+                 for o in range(layout.out) if w * layout.out + o < last - first]
+        assert owned == list(range(first, last))
+        owners[first:last] += 1
+    assert (owners == 1).all()
+    assert 32 * layout.rows >= 4 * S and layout.rows % (4 if layout.rows <= 20 else 8) == 0
+    assert 32 * (layout.rows - (4 if layout.rows <= 20 else 8)) < 4 * S
+    assert layout.rows <= tlstm.CLUSTER_MAX_ROWS
+    assert layout.ncta <= tlstm.CLUSTER_MAX_CTAS == 16
+    assert layout.warps <= tlstm.CLUSTER_MAX_WARPS
+    assert layout.out * layout.warps >= layout.units
+    assert layout.weights + layout.out * layout.shared_rows == layout.out * layout.rows
+    assert layout.weights <= 80 and layout.shared_rows % 4 == 0
+    assert tlstm.CLUSTER_MAX_REGISTERS <= 255
+    assert 32 * tlstm.CLUSTER_MAX_WARPS * tlstm.CLUSTER_MAX_REGISTERS <= 65536
+    static = 4 * (2 * 32 * (layout.rows + 4) + CLUSTER_RING_FLOATS)
+    dynamic = 4 * layout.out * layout.shared_rows * 32 * layout.warps
+    assert static <= 48 * 1024 and static + dynamic <= ops.MAX_SMEM_BYTES
+    # the fewest CTAs: half as many would need more warps than a CTA has
+    if layout.ncta > 2:
+        half = -(-S // (layout.ncta // 2))
+        assert -(-half // layout.out) > tlstm.CLUSTER_MAX_WARPS

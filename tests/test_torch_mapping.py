@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from scrappie_torch import api as tapi
 from scrappie_torch import ops
 from scrappie_torch.cli.main import main as torch_main
@@ -219,6 +220,120 @@ def test_walk_reads_states_below_zero_as_numpy_does():
         below.update(int(v) for v in raw if v == -2)
         below.update(-1 for t in range(1, len(raw)) if ref_tb[t, raw[t]] == -1)
     assert below == {-1, -2}
+
+
+def windowed_walk(final, moves, seqlen: int) -> np.ndarray:
+    """The walk kernel's control flow (csrc/seqmap.cu seqmap_walk_kernel)
+    in Python, a row at a time (a batch of WALK_BATCH rows is taken only
+    where its rows would be): a window of WALK_ROWS rows anchored at the
+    walk's column where it starts (tops.walk_window), the next window
+    anchored at the column the walk has at the window's first row, an
+    exact step for a byte above 2 or a column below the window, a window
+    anchored at END loaded after a step below column 0, START the end.
+    Asserts that every byte the walk reads lies in its window's rows and
+    copied columns; returns the path."""
+    T, ld = moves.shape
+    n, START, END = seqlen + 2, seqlen, seqlen + 1
+    shown = lambda st: -1 if st >= START else st
+    path = np.empty(T, np.int32)
+    col = seqlen - 1 if final[seqlen - 1] > final[END] else END
+    path[T - 1] = shown(col)
+    s, fresh, windows = T - 1, True, {}
+    while s > 0:
+        if fresh:
+            top, fresh = s, False
+            windows["this"] = (top, *tops.walk_window(col, ld))
+        if top - tops.WALK_ROWS >= 1:
+            windows["next"] = (top - tops.WALK_ROWS, *tops.walk_window(col, ld))
+        wtop, lo, pieces = windows["this"]
+        assert wtop == top
+        exact = False
+        while s > top - min(tops.WALK_ROWS, top):
+            assert lo <= col < lo + 16 * pieces <= ld
+            b = int(moves[s, col])
+            if b > 2 or col - b < lo:
+                exact = True
+                break
+            col -= b
+            s -= 1
+            path[s] = shown(col)
+        if exact:
+            st = START if b == 3 else col - b
+            s -= 1
+            path[s] = shown(st)
+            col = st + n if st < 0 else st
+            if col == START:
+                path[:s] = -1
+                break
+            fresh = True
+            continue
+        if s == 0:
+            break
+        top = s
+        windows["this"] = windows.pop("next")
+    return path
+
+
+def numpy_traceback(moves, seqlen: int) -> np.ndarray:
+    """JAX's int32 traceback from the move bytes, in numpy: a state's index
+    less its move, START for move 3."""
+    mv = moves[:, :seqlen + 2].astype(np.int32)
+    return np.where(mv == 3, seqlen, np.arange(seqlen + 2, dtype=np.int32) - mv)
+
+
+@pytest.mark.parametrize("k", range(len(chip_smoke.SEQMAP_WALK_PLANES)))
+def test_walks_on_the_hand_made_planes(k):
+    """chip_smoke.py's hand-made seqmap planes (phase seqmap_kernel, made by
+    the same helper and seed): the walk twin, the numpy transcription of
+    scrappie_tpu/decode/mapping.py:150-153 and the kernel's windowed
+    control flow (windowed_walk) all take the path the plane was made
+    from, and the plane holds the events its kind promises."""
+    T, seqlen, finish = chip_smoke.SEQMAP_WALK_PLANES[k]
+    final, moves, path, counts = chip_smoke.seqmap_walk_plane(
+        T, seqlen, np.random.default_rng((chip_smoke.SEED, 51, k)), finish)
+    assert moves.shape == (T, tops.move_stride(seqlen))
+    np.testing.assert_array_equal(numpy_walk(final, numpy_traceback(moves, seqlen),
+                                             seqlen), path)
+    np.testing.assert_array_equal(
+        tops.seqmap_walk_plain(torch.from_numpy(final), torch.from_numpy(moves),
+                               seqlen).numpy(), path)
+    np.testing.assert_array_equal(windowed_walk(final, moves, seqlen), path)
+    if T >= 8000:
+        assert counts["skip_runs"] >= 1 and counts["wraps"] >= 1
+        assert counts["column0"] > tops.WALK_ROWS
+    assert counts["entries"] == (finish.startswith("entry") and T > 2)
+    assert counts["minus2"] == (finish == "minus2")
+
+
+def test_windowed_walk_on_the_dense_maps():
+    """The kernel's windowed control flow takes the twin's path on the DP's
+    own moves: the tiny cases (walks through -1, -2 and START), the edge
+    cases and the read-sized map of a Dirichlet posterior."""
+    cases = tiny_cases(40, seed=12) + [edge_case(name) for name in EDGE_CASES]
+    cases.append((dirichlet_logpost(3000, 17, seed=9),
+                  np.random.default_rng(9).integers(0, 16, 1500).astype(np.int32),
+                  tuple(PENALTIES.values())))
+    for lp, seq, pens in cases:
+        final, moves = tops.map_to_sequence_tm(torch.from_numpy(lp),
+                                               torch.from_numpy(seq), *pens)
+        np.testing.assert_array_equal(
+            windowed_walk(final.numpy(), moves.numpy(), len(seq)),
+            tops.seqmap_walk_plain(final, moves, len(seq)).numpy())
+
+
+@pytest.mark.parametrize("seqlen", [1, 14, 15, 500, 1502, 6000])
+def test_walk_windows_hold_the_fall(seqlen):
+    """tops.walk_window at every column of a row: 16-byte aligned, inside
+    the row, at most WALK_PIECES pieces, holding the column and every
+    column WALK_FALL below it (two windows' rows at a fall of 2); the
+    kernel's shared memory within a block's."""
+    ld = tops.move_stride(seqlen)
+    for col in range(seqlen + 2):
+        lo, pieces = tops.walk_window(col, ld)
+        assert lo % 16 == 0 and 0 <= lo <= max(col - tops.WALK_FALL, 0)
+        assert col < lo + 16 * pieces <= ld and pieces <= tops.WALK_PIECES
+    assert tops.WALK_FALL == 2 * (2 * tops.WALK_ROWS - 1)
+    assert tops.walk_smem_bytes() <= ops.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("T", [1, 6])
